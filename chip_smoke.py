@@ -4,13 +4,15 @@
 
 Phases, in order; any failure exits non-zero before the last line:
   1. probe   - versions, the card's name and power limit (nvidia-smi);
-  2. build   - nvcc builds every kernel source of the serving path, all at
-               once, for sm_90a;
+  2. build   - nvcc builds every kernel source of the serving and training
+               paths, all at once, for sm_90a;
   3. check   - each kernel against its plain PyTorch version at the
-               serving path's shapes, in bf16, with the tolerance stated;
-               then a tiny fp32 Llama served on the card through the
-               kernels must give the same greedy streams as the same
-               engine on the CPU through the plain versions;
+               serving and training paths' shapes, in bf16 (and one f32
+               flash case), with the tolerance stated; then a tiny fp32
+               Llama served on the card through the kernels must give the
+               same greedy streams as the same engine on the CPU through
+               the plain versions, and three tiny fp32 train steps on the
+               card must give the CPU's losses;
   4. serve   - InferenceEngine on llama_7b (bf16, full width and depth,
                seeded random weights): 16 requests, prompts of 128-1024
                tokens, 64 new tokens each, Poisson arrivals; prints
@@ -18,10 +20,18 @@ Phases, in order; any failure exits non-zero before the last line:
                kernel's launches, all counted from this phase alone;
                then torch.profiler splits one decode step and one prefill
                chunk into kernel classes beside their wall time;
-  5. times   - each kernel timed with CUDA events beside its bound, its
+  5. train   - build_train_step on llama_7b's width cut to 16 layers
+               (bf16, B=4, S=2048, full remat, AdamW with f32 moments,
+               seeded random weights and ids): one warm-up and three timed
+               steps; prints step ms, tokens/s, MFU, every loss, peak
+               memory and each kernel's launches counted from this phase
+               alone; then torch.profiler splits one step into matmul,
+               flash, RMSNorm, optimizer and other device time beside
+               its wall time;
+  6. times   - each kernel timed with CUDA events beside its bound, its
                plain version and one PyTorch library call (a yardstick
                the port never calls);
-  6. a JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+  7. a JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 
 Needs one CUDA device; writes its numbers to chiprun_out/chip_smoke.json.
 Imports nothing of JAX and nothing of paddle_tpu.
@@ -43,6 +53,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12            # dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12              # f32 outside the tensor cores
 SEED = 0
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 16, 4, 2048, 3
 
 
 def phase(name):
@@ -61,8 +72,8 @@ def probe():
                          text=True, check=True, timeout=60).stdout.strip()
     print(f"devices {torch.cuda.device_count()}  "
           f"{torch.cuda.get_device_name(0)}")
-    # fp32 matmuls in full precision: the tiny-model stream check compares
-    # card and CPU arithmetic
+    # fp32 matmuls in full precision: the tiny-model stream and train
+    # checks compare card and CPU arithmetic
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return smi
@@ -72,7 +83,8 @@ def build():
     from paddle_tpu_torch import _build
     phase("build")
     t0 = time.perf_counter()
-    paths = _build.build_all(["rms_norm", "paged_attention"])
+    paths = _build.build_all(["rms_norm", "paged_attention",
+                              "flash_attention"])
     secs = time.perf_counter() - t0
     for p in paths:
         print(f"built {os.path.relpath(p, ROOT)}")
@@ -127,7 +139,8 @@ def check_kernels(dev):
     phase("check kernels against their plain versions (bf16)")
     errs = {}
     g = torch.Generator(device=dev).manual_seed(SEED)
-    for n in (8, 256):
+    # rows: a decode step, a prefill chunk, a train step (B x S)
+    for n in (8, 256, TRAIN_B * TRAIN_S):
         x = torch.randn((n, 4096), generator=g, device=dev,
                         dtype=torch.bfloat16)
         w = (1 + 0.1 * torch.randn((4096,), generator=g, device=dev)
@@ -168,6 +181,129 @@ def check_kernels(dev):
     return errs
 
 
+# flash kernels against their plain versions, on every element
+#   |got - ref| <= rel * (|ref| + max |ref| of its row + rms(ref)),
+# a row being a query row (o, dq) or a key row (dk, dv), and on the whole
+# tensor ||got - ref|| / ||ref|| <= frob. The row max holds each row to
+# its own scale (late causal rows are small); the rms floor covers rows
+# that are zero but for rounding noise (dq of query 0, whose dS cancels).
+# f32: sums in another order (dQ by atomics): rel = frob = 1e-5 forward,
+# 1e-4 backward. bf16: P and dS are rounded at the same points in both,
+# yet a result may land one bf16 step apart: rel 2^-6; frob 2^-10 lies
+# between a summation order's ~1e-4 and the ~2e-3 of a P or dS left
+# unrounded. (BH, S, D, causal, dtype): S = 2048, D = 128, causal at
+# BH = 128 is the train phase's shape.
+FLASH_TOL = {torch.float32: ((1e-5, 1e-5), (1e-4, 1e-4)),
+             torch.bfloat16: ((2 ** -6, 2 ** -10), (2 ** -6, 2 ** -10))}
+FLASH_CASES = [(8, 200, 128, True, torch.bfloat16),
+               (8, 200, 128, False, torch.bfloat16),
+               (128, 2048, 128, True, torch.bfloat16),
+               (8, 2048, 128, False, torch.bfloat16),
+               (8, 200, 64, True, torch.float32)]
+
+
+def _flash_inputs(bh, s, d, dtype, seed, dev):
+    from paddle_tpu_torch.ops.flash_attention import LOG2E
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qs = (torch.randn((bh, s, d), generator=g, device=dev)
+          * (LOG2E / math.sqrt(d))).to(dtype)
+    return [qs] + [torch.randn((bh, s, d), generator=g, device=dev)
+                   .to(dtype) for _ in range(3)]
+
+
+def flash_close(got, ref, rel, frob):
+    """``got`` against ``ref`` [..., D] under the rule above: (ok, worst
+    excess over the elementwise limit (<= 0 passes), relative Frobenius
+    error, max abs error)."""
+    g, r = got.float(), ref.float()
+    diff = (g - r).abs()
+    limit = rel * (r.abs() + r.abs().amax(-1, keepdim=True)
+                   + r.square().mean().sqrt())
+    excess = (diff - limit).max().item()
+    fro = (diff.norm() / r.norm()).item()
+    ok = bool(torch.isfinite(g).all()) and excess <= 0 and fro <= frob
+    return ok, excess, fro, diff.max().item()
+
+
+def flash_case(fa, bh, s, d, causal, dtype, seed, dev):
+    """One case of both kernels against their plain versions: {output:
+    flash_close(...)} for o, dq, dk, dv, and the lse's max abs error."""
+    qs, k, v, do = _flash_inputs(bh, s, d, dtype, seed, dev)
+    (rel_f, frob_f), (rel_b, frob_b) = FLASH_TOL[dtype]
+    o, lse = fa.flash_fwd(qs, k, v, causal)
+    o_ref, lse_ref = fa.flash_fwd_plain(qs, k, v, causal)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    got = fa.flash_bwd(qs, k, v, do, lse_ref, delta, causal, 1 / math.sqrt(d))
+    want = fa.flash_bwd_plain(qs, k, v, do, lse_ref, delta, causal,
+                              1 / math.sqrt(d))
+    torch.cuda.synchronize()
+    res = {"o": flash_close(o, o_ref, rel_f, frob_f)}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        res[name] = flash_close(a, b, rel_b, frob_b)
+    return res, (lse - lse_ref).abs().max().item()
+
+
+def check_flash(dev, errs):
+    from paddle_tpu_torch.ops import flash_attention as fa
+    phase("check flash kernels against their plain versions")
+    for i, (bh, s, d, causal, dtype) in enumerate(FLASH_CASES):
+        res, err_lse = flash_case(fa, bh, s, d, causal, dtype, SEED + i, dev)
+        (rel_f, frob_f), (rel_b, frob_b) = FLASH_TOL[dtype]
+        print(f"flash BH={bh} S={s} D={d} causal={causal} {str(dtype)[6:]} "
+              f"(tol rel {rel_f:g}/{rel_b:g} of |ref| + row max + rms, "
+              f"frob {frob_f:g}/{frob_b:g} fwd/bwd; lse 1e-4): lse "
+              f"max_abs_err {err_lse:.2e}")
+        for name, (ok, excess, fro, err) in res.items():
+            print(f"  {name}: max_abs_err {err:.3e}  worst excess over the "
+                  f"limit {excess:.3e}  rel frob {fro:.3e}  "
+                  f"{'ok' if ok else 'FAILED'}")
+        assert all(r[0] for r in res.values()), f"flash disagrees: {res}"
+        assert err_lse <= 1e-4, f"flash_fwd lse err {err_lse}"
+        errs["flash_fwd"] = max(errs.get("flash_fwd", 0.0), res["o"][3])
+        errs["flash_bwd"] = max(errs.get("flash_bwd", 0.0),
+                                *(res[n][3] for n in ("dq", "dk", "dv")))
+        torch.cuda.empty_cache()
+
+
+TRAIN_LOSS_RTOL = 1e-5   # f32 on both; sums in another order
+
+
+def check_tiny_train(dev):
+    """Three tiny fp32 train steps through the kernels on the card give
+    the losses of the same steps through the plain versions on the CPU,
+    and the card run advances both flash counters."""
+    from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.ops import flash_attention as fa
+    phase("check a tiny fp32 Llama train: card kernels vs CPU plain")
+    cfg = tl.llama_tiny(vocab=256, hidden=256, layers=2, heads=4,
+                        kv_heads=2, seq=256)
+    rng = np.random.RandomState(SEED)
+    x = rng.randint(0, 256, size=(2, 201)).astype(np.int32)
+    ids, labels = x[:, :-1], x[:, 1:]
+    params0 = tl.init_llama_params(cfg, seed=1, device="cpu")
+    out = []
+    for d in ("cpu", dev):
+        step, _, _ = tl.build_train_step(cfg, tl.ParallelConfig(),
+                                         device=d)
+        # copies: the step updates params in place
+        params = {k: ({kk: vv.to(d, copy=True) for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.to(d, copy=True))
+                  for k, v in params0.items()}
+        opt = tl._adamw_init(params)
+        fa.flash_fwd.launches = fa.flash_bwd.launches = 0
+        losses = []
+        for _ in range(3):
+            params, opt, loss = step(params, opt, ids, labels)
+            losses.append(float(loss))
+        out.append((losses, fa.flash_fwd.launches, fa.flash_bwd.launches))
+    (cpu, f0, b0), (card, f1, b1) = out
+    L = cfg.num_hidden_layers
+    assert (f0, b0) == (0, 0) and (f1, b1) == (3 * 2 * L, 3 * L), out
+    np.testing.assert_allclose(card, cpu, rtol=TRAIN_LOSS_RTOL)
+    print(f"losses card {card} cpu {cpu} (rtol {TRAIN_LOSS_RTOL}); "
+          f"launches flash_fwd {f1} flash_bwd {b1}")
+
+
 def check_tiny_streams(dev):
     """A tiny fp32 Llama served through the kernels on the card gives the
     same greedy streams and events as the same engine through the plain
@@ -200,8 +336,6 @@ def check_tiny_streams(dev):
 def serve_7b(dev):
     from paddle_tpu_torch import (InferenceEngine, Request, ServeConfig,
                                   init_llama_params, llama_7b)
-    from paddle_tpu_torch.ops import paged_attention as pa
-    from paddle_tpu_torch.ops import rms_norm as rn
     phase("serve llama_7b (bf16, 32 layers, random weights)")
     cfg = llama_7b()
     t0 = time.perf_counter()
@@ -226,11 +360,9 @@ def serve_7b(dev):
     torch.cuda.empty_cache()
     eng = InferenceEngine(params, cfg, serve, device=dev)
     torch.cuda.reset_peak_memory_stats()
-    rn.fused_rms_norm.launches = 0
-    pa.paged_attend_update.launches = 0
+    _zero_counts()
     stats = eng.run(reqs)
-    launches = {"rms_norm": rn.fused_rms_norm.launches,
-                "paged_attend_update": pa.paged_attend_update.launches}
+    launches = _counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     steps, chunks = stats["decode_steps"], stats["prefill_chunks"]
     L = cfg.num_hidden_layers
@@ -249,6 +381,7 @@ def serve_7b(dev):
     assert eng.pool.used_blocks == 0, "pool leaked blocks"
     assert launches["paged_attend_update"] == L * steps > 0
     assert launches["rms_norm"] == (2 * L + 1) * (steps + chunks)
+    assert launches["flash_fwd"] == launches["flash_bwd"] == 0
     stats["launches"] = launches
     stats["peak_mem_gib"] = peak
     stats["profile"] = profile_steps(eng, cfg, dev)
@@ -257,11 +390,168 @@ def serve_7b(dev):
     return stats
 
 
+def _zero_counts():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import rms_norm as rn
+    rn.fused_rms_norm.launches = 0
+    pa.paged_attend_update.launches = 0
+    fa.flash_fwd.launches = fa.flash_bwd.launches = 0
+
+
+def _counts():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import rms_norm as rn
+    return {"rms_norm": rn.fused_rms_norm.launches,
+            "paged_attend_update": pa.paged_attend_update.launches,
+            "flash_fwd": fa.flash_fwd.launches,
+            "flash_bwd": fa.flash_bwd.launches}
+
+
+def train_7b(dev):
+    """build_train_step at llama_7b's width, 16 of its 32 layers: 6.74 B
+    params x 12 bytes (bf16 param and grad, f32 m and v) is 80.9 GB of
+    state at full depth, over the card's 80 GB; at 16 layers it is 3.50 B
+    x 12 = 42.0 GB."""
+    import dataclasses
+    from paddle_tpu_torch.models import llama as tl
+    phase(f"train llama_7b width, {TRAIN_LAYERS} layers (bf16, B={TRAIN_B}, "
+          f"S={TRAIN_S}, full remat, AdamW f32 moments)")
+    cfg = dataclasses.replace(tl.llama_7b(), num_hidden_layers=TRAIN_LAYERS)
+    par = tl.ParallelConfig(remat=True, remat_policy="full")
+    t0 = time.perf_counter()
+    step, params, opt = tl.build_train_step(cfg, par, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = tl.count_params(cfg)
+    print(f"weights and moments made on the card in "
+          f"{time.perf_counter() - t0:.2f} s, {n_params / 1e9:.3f} B params")
+    rng = np.random.RandomState(SEED)
+    batches = [rng.randint(0, cfg.vocab_size, size=(TRAIN_B, TRAIN_S + 1))
+               .astype(np.int32) for _ in range(TRAIN_STEPS + 1)]
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    losses, step_ms = [], []
+    for i, x in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, x[:, :-1], x[:, 1:])
+        losses.append(float(loss))       # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"step {i}{' (warm-up)' if i == 0 else ''}: loss "
+              f"{losses[-1]:.6f}  {step_ms[-1]:.1f} ms")
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    L, n = cfg.num_hidden_layers, len(batches)
+    per_step = {k: v / n for k, v in launches.items()}
+    assert all(math.isfinite(v) for v in losses), losses
+    assert launches["flash_fwd"] == 2 * L * n, launches
+    assert launches["flash_bwd"] == L * n, launches
+    assert launches["rms_norm"] == ((2 * L + 1) + 2 * L) * n, launches
+    timed = step_ms[1:]
+    ms = float(np.mean(timed))
+    tokens = TRAIN_B * TRAIN_S
+    tps = tokens / (ms / 1e3)
+    flops_tok = tl.train_flops_per_token(cfg, TRAIN_S)
+    mfu = flops_tok * tps / BF16_OPS_PER_S
+    print(f"step ms mean {ms:.2f} over {len(timed)} timed steps {timed}")
+    print(f"tokens/s {tps:.1f}  MFU {mfu:.4f} (train_flops_per_token "
+          f"{flops_tok:.4e} x tokens/s / 989 TFLOP/s)")
+    print(f"launches {launches} (per step {per_step}; expected flash_fwd "
+          f"2x{L}, flash_bwd {L}, rms_norm ({2 * L + 1})+2x{L})  peak mem "
+          f"{peak:.2f} GiB")
+    stats = {"layers": L, "batch": TRAIN_B, "seq": TRAIN_S,
+             "params": n_params, "losses": losses, "step_ms": step_ms,
+             "step_ms_mean": ms, "tokens_per_sec": tps, "mfu": mfu,
+             "train_flops_per_token": flops_tok, "launches": launches,
+             "peak_mem_gib": peak,
+             "reduced": f"num_hidden_layers 32 -> {L} (state at 32 layers "
+                        f"is 80.9 GB, over the 80 GB card)"}
+    stats["profile"] = profile_train_step(params, opt, batches[0], cfg)
+    del step, params, opt
+    torch.cuda.empty_cache()
+    return stats
+
+
+def profile_train_step(params, opt, x, cfg):
+    """Where one train step (loss and grads, then AdamW) spends device
+    time: each half under torch.profiler, kernel time by class, AdamW's
+    kernels as one class of their own; beside the wall time of the same
+    two halves unprofiled (the profiler slows the host, so busy is device
+    time over the unprofiled wall)."""
+    from paddle_tpu_torch.models import llama as tl
+    from torch.profiler import ProfilerActivity, profile
+    phase("profile one train step")
+    dev = params["embed"].device
+    ids = torch.from_numpy(x[:, :-1]).to(dev)
+    labels = torch.from_numpy(x[:, 1:]).to(dev)
+
+    def grads():
+        return tl.llama_loss_and_grads(params, ids, labels, cfg,
+                                       tl.ParallelConfig())[1]
+
+    wall = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = grads()
+    torch.cuda.synchronize()
+    wall["loss_and_grads"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    tl._adamw_update(params, g, opt, 3e-4)
+    torch.cuda.synchronize()
+    wall["adamw"] = (time.perf_counter() - t0) * 1e3
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        g = grads()
+        torch.cuda.synchronize()
+    by_class, top = _device_ms_by_class(prof)
+    with profile(activities=acts) as prof:
+        tl._adamw_update(params, g, opt, 3e-4)
+        torch.cuda.synchronize()
+    opt_classes, opt_top = _device_ms_by_class(prof)
+    by_class["optimizer"] = sum(opt_classes.values())
+    del g
+    device_ms = sum(by_class.values())
+    step_ms = sum(wall.values())
+    out = {"wall_ms": wall, "device_ms": device_ms,
+           "busy": device_ms / step_ms, "by_class_ms": by_class,
+           "top": sorted(top + opt_top, reverse=True)[:12]}
+    print(f"train step: wall {step_ms:.1f} ms unprofiled (loss+grads "
+          f"{wall['loss_and_grads']:.1f} ms, AdamW {wall['adamw']:.1f} ms), "
+          f"device {device_ms:.1f} ms, busy {device_ms / step_ms:.3f}")
+    print(f"  by class (ms): {by_class}")
+    for ms, n, key in out["top"]:
+        print(f"  {ms:9.3f} ms  x{n:<5d} {key}")
+    return out
+
+
+def _device_ms_by_class(prof):
+    """Kernel time on the card by class (ms) and the largest kernels, from
+    the profiler's device-side events only: a host-side range (an aten op,
+    an autograd Function) would count its kernels a second time."""
+    from torch.autograd import DeviceType
+    by_class, top = {}, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.key == "Command Buffer Full":
+            continue
+        ms = e.self_device_time_total / 1e3
+        if ms <= 0:
+            continue
+        c = _kernel_class(e.key)
+        by_class[c] = by_class.get(c, 0.0) + ms
+        top.append((ms, e.count, e.key[:90]))
+    return by_class, top
+
+
 def _kernel_class(name):
     if "paged_update_kernel" in name:
         return "paged_attend_update"
     if "rms_norm_kernel" in name:
         return "rms_norm"
+    if "flash_fwd_kernel" in name:
+        return "flash_fwd"
+    if "flash_bwd_kernel" in name or "dq_finalize_kernel" in name:
+        return "flash_bwd"
     if any(k in name.lower() for k in ("gemm", "xmma", "cutlass", "nvjet")):
         return "matmul"
     return "other"
@@ -303,17 +593,7 @@ def profile_steps(eng, cfg, dev):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
-        by_class, top = {}, []
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0)
-            if us <= 0 or e.key.startswith("aten::") \
-                    or e.key.startswith("cuda"):
-                continue
-            c = _kernel_class(e.key)
-            by_class[c] = by_class.get(c, 0.0) + us / 1e3
-            top.append((us / 1e3, e.count, e.key[:90]))
+        by_class, top = _device_ms_by_class(prof)
         device_ms = sum(by_class.values())
         wall_ms = float(np.median(walls))
         out[name] = {"wall_ms": wall_ms, "device_ms": device_ms,
@@ -327,6 +607,46 @@ def profile_steps(eng, cfg, dev):
     for r in rows:
         eng.pool.free(r)
     return out
+
+
+def rms_host_cost(dev, rounds=200):
+    """Host ms of the 65 RMSNorm calls of one llama_7b decode step ([8,
+    4096] bf16, no grad), three ways: fused_rms_norm as the serving steps
+    call it (no gradient tracked, so no autograd Function); the same
+    checks and reshapes with the launch inside the Function, as a
+    training step runs it; the bare launch. Alternating blocks of 65
+    calls, median of ``rounds`` blocks each. The device needs 65 x ~3 us
+    per block, less than the host, so the queue never fills and the host
+    clock times the calls."""
+    from paddle_tpu_torch.ops import rms_norm as rn
+    x = torch.randn((8, 4096), device=dev, dtype=torch.bfloat16)
+    w = torch.ones((4096,), device=dev, dtype=torch.bfloat16)
+
+    def function():
+        if x.device.type != "cuda" or not x.is_contiguous():
+            raise ValueError("x")
+        return rn._RmsNorm.apply(x.reshape(-1, 4096), w,
+                                 1e-5).reshape(x.shape)
+
+    fns = {"no_function": lambda: rn.fused_rms_norm(x, w, 1e-5),
+           "function": function,
+           "launch": lambda: rn._launch(x, w, 1e-5)}
+    blocks = {k: [] for k in fns}
+    with torch.no_grad():
+        for _ in range(rounds):
+            for name, fn in fns.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(65):
+                    fn()
+                blocks[name].append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    med = {k: float(np.median(v)) for k, v in blocks.items()}
+    print(f"rms_norm host ms per 65 calls (one decode step), median of "
+          f"{rounds}: fused_rms_norm (no Function) "
+          f"{med['no_function']:.4f}, through the autograd Function "
+          f"{med['function']:.4f}, bare kernel launch {med['launch']:.4f}")
+    return med
 
 
 def _leaves(tree):
@@ -381,7 +701,8 @@ def times(dev):
     phase("times (CUDA events; ms = device time per call)")
     out = {}
     g = torch.Generator(device=dev).manual_seed(SEED)
-    for n in (8, 256):
+    # rows: a decode step, a prefill chunk, a train step (B x S)
+    for n in (8, 256, TRAIN_B * TRAIN_S):
         x = torch.randn((n, 4096), generator=g, device=dev,
                         dtype=torch.bfloat16)
         w = torch.ones((4096,), device=dev, dtype=torch.bfloat16)
@@ -396,6 +717,7 @@ def times(dev):
                           F32_OPS_PER_S))
         out[f"rms_norm[{n},4096]"] = r
         print(f"rms_norm [{n},4096]: {r}")
+    out["rms_norm_host_ms_per_decode_step"] = rms_host_cost(dev)
 
     a = _paged_inputs(32, 32, PAGED_POSITIONS, SEED + 32, dev)
     b, nh, hd = a["q"].shape
@@ -431,6 +753,58 @@ def times(dev):
              bytes=nbytes, context_tokens=ctx)
     out["paged_attend_update[B=8,NH=NKV=32]"] = r
     print(f"paged_attend_update B=8 NH=NKV=32 ctx {ctx} tokens: {r}")
+    out.update(flash_times(dev))
+    return out
+
+
+def flash_times(dev):
+    """The flash kernels at the train phase's shape: B=4, NH=32, S=2048,
+    D=128, causal, bf16. Work counted for the live (query, key) pairs,
+    S (S + 1) / 2 per head: the forward does 2 products (Q K^T, P V), the
+    backward 5 (S, dP, dV, dK, dQ), 2 D operations per pair each. Bytes:
+    each input read once, each output written once. Library yardsticks:
+    SDPA's causal forward; for the backward, SDPA forward + backward minus
+    its forward (both timed here)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    F = torch.nn.functional
+    b, nh, s, d = TRAIN_B, 32, TRAIN_S, 128
+    bh, scale = b * nh, 1 / math.sqrt(d)
+    qs, k, v, do = _flash_inputs(bh, s, d, torch.bfloat16, SEED, dev)
+    o, lse = fa.flash_fwd(qs, k, v, True)
+    delta = (do.float() * o.float()).sum(-1)
+    pairs = bh * s * (s + 1) // 2
+    el = bh * s * d
+    q4, k4, v4, do4 = (t.reshape(b, nh, s, d) for t in (qs, k, v, do))
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        o4 = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        return torch.autograd.grad(o4, (qg, kg, vg), do4)
+
+    lib_fwd = _timed(sdpa_fwd, 20)["ms"]
+    lib_both = _timed(sdpa_fwd_bwd, 20)["ms"]
+    out = {}
+    r = dict(_timed(lambda: fa.flash_fwd(qs, k, v, True), 20),
+             plain_ms=_timed(lambda: fa.flash_fwd_plain(qs, k, v, True),
+                             2)["ms"],
+             library_ms=lib_fwd,
+             **_bound(4 * el * 2 + bh * s * 4, 2 * 2 * d * pairs,
+                      BF16_OPS_PER_S))
+    out["flash_fwd[B=4,NH=32,S=2048,D=128,causal]"] = r
+    print(f"flash_fwd B=4 NH=32 S=2048 D=128 causal bf16: {r}")
+    r = dict(_timed(lambda: fa.flash_bwd(qs, k, v, do, lse, delta, True,
+                                         scale), 20),
+             plain_ms=_timed(lambda: fa.flash_bwd_plain(
+                 qs, k, v, do, lse, delta, True, scale), 2)["ms"],
+             library_ms=lib_both - lib_fwd,
+             library_fwd_bwd_ms=lib_both,
+             **_bound(7 * el * 2 + 2 * bh * s * 4, 5 * 2 * d * pairs,
+                      BF16_OPS_PER_S))
+    out["flash_bwd[B=4,NH=32,S=2048,D=128,causal]"] = r
+    print(f"flash_bwd B=4 NH=32 S=2048 D=128 causal bf16: {r}")
     return out
 
 
@@ -440,28 +814,45 @@ def main():
     sys.path.insert(0, ROOT)
     build_s = build()
     errs = check_kernels(dev)
+    check_flash(dev, errs)
     check_tiny_streams(dev)
+    check_tiny_train(dev)
     serve = serve_7b(dev)
+    train = train_7b(dev)
     tm = times(dev)
+    fwd_key = "flash_fwd[B=4,NH=32,S=2048,D=128,causal]"
+    bwd_key = "flash_bwd[B=4,NH=32,S=2048,D=128,causal]"
+    cols = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": "rms_norm", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/rms_norm.cu",
          "replaces": "paddle_tpu/ops/rms_norm.py:34",
          "launches": serve["launches"]["rms_norm"],
          "max_abs_err": errs["rms_norm"],
-         **{k: tm["rms_norm[8,4096]"][k] for k in
-            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+         **{k: tm["rms_norm[8,4096]"][k] for k in cols}},
         {"name": "paged_attend_update", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/paged_attention.cu",
          "replaces": "paddle_tpu/ops/paged_attention.py:344",
          "launches": serve["launches"]["paged_attend_update"],
          "max_abs_err": errs["paged_attend_update"],
-         **{k: tm["paged_attend_update[B=8,NH=NKV=32]"][k] for k in
-            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+         **{k: tm["paged_attend_update[B=8,NH=NKV=32]"][k] for k in cols}},
+        {"name": "flash_fwd", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "paddle_tpu/ops/flash_attention.py:574",
+         "launches": train["launches"]["flash_fwd"],
+         "max_abs_err": errs["flash_fwd"],
+         **{k: tm[fwd_key][k] for k in cols}},
+        {"name": "flash_bwd", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "paddle_tpu/ops/flash_attention.py:1186",
+         "launches": train["launches"]["flash_bwd"],
+         "max_abs_err": errs["flash_bwd"],
+         **{k: tm[bwd_key][k] for k in cols}},
     ]
     record = {"nvidia_smi": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
-              "max_abs_err": errs, "serve": serve, "times": tm}
+              "max_abs_err": errs, "serve": serve, "train": train,
+              "times": tm}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)
