@@ -7,12 +7,14 @@ Phases, in order; any failure exits non-zero before the last line:
   2. build   - nvcc builds every kernel source of the serving and training
                paths, all at once, for sm_90a;
   3. check   - each kernel against its plain PyTorch version at the
-               serving and training paths' shapes, in bf16 (and one f32
-               flash case), with the tolerance stated; then a tiny fp32
-               Llama served on the card through the kernels must give the
-               same greedy streams as the same engine on the CPU through
-               the plain versions, and three tiny fp32 train steps on the
-               card must give the CPU's losses;
+               serving and training paths' shapes, in bf16 (and f32 flash
+               and grouped-matmul cases on small adversarial layouts),
+               with the tolerance stated; then a tiny fp32 Llama served
+               on the card through the kernels must give the same greedy
+               streams as the same engine on the CPU through the plain
+               versions, and three tiny fp32 Llama and three tiny fp32
+               ERNIE-MoE train steps on the card must give the CPU's
+               losses;
   4. serve   - InferenceEngine on llama_7b (bf16, full width and depth,
                seeded random weights): 16 requests, prompts of 128-1024
                tokens, 64 new tokens each, Poisson arrivals; prints
@@ -28,10 +30,19 @@ Phases, in order; any failure exits non-zero before the last line:
                alone; then torch.profiler splits one step into matmul,
                flash, RMSNorm, optimizer and other device time beside
                its wall time;
-  6. times   - each kernel timed with CUDA events beside its bound, its
+  6. ernie   - build_train_step on ernie_moe_fine at full width and depth
+               (bf16, B=8, S=512, dropless at ep=1, AdamW with bf16
+               moments for the routed experts only, seeded random weights
+               and ids): one warm-up and ten timed steps; prints step ms,
+               tokens/s, active-parameter MFU, every loss, the routing
+               stats, peak memory and each kernel's launches counted from
+               this phase alone; then the same profiler split with the
+               grouped matmuls as a class of their own;
+  7. times   - each kernel timed with CUDA events beside its bound, its
                plain version and one PyTorch library call (a yardstick
                the port never calls);
-  7. a JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+  8. a JSON line {"kernels": [...]}, the total wall seconds, and, last,
+     {"ok": true, "device": ...}.
 
 Needs one CUDA device; writes its numbers to chiprun_out/chip_smoke.json.
 Imports nothing of JAX and nothing of paddle_tpu.
@@ -54,6 +65,8 @@ BF16_OPS_PER_S = 989e12            # dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12              # f32 outside the tensor cores
 SEED = 0
 TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 16, 4, 2048, 3
+# the ERNIE phase: ernie_moe_fine at B x S tokens, top-4 of 32 experts
+MOE_B, MOE_S, MOE_STEPS = 8, 512, 10
 
 
 def phase(name):
@@ -84,7 +97,7 @@ def build():
     phase("build")
     t0 = time.perf_counter()
     paths = _build.build_all(["rms_norm", "paged_attention",
-                              "flash_attention"])
+                              "flash_attention", "grouped_matmul"])
     secs = time.perf_counter() - t0
     for p in paths:
         print(f"built {os.path.relpath(p, ROOT)}")
@@ -139,18 +152,22 @@ def check_kernels(dev):
     phase("check kernels against their plain versions (bf16)")
     errs = {}
     g = torch.Generator(device=dev).manual_seed(SEED)
-    # rows: a decode step, a prefill chunk, a train step (B x S)
-    for n in (8, 256, TRAIN_B * TRAIN_S):
-        x = torch.randn((n, 4096), generator=g, device=dev,
+    # (rows, H, eps): llama_7b's decode step, prefill chunk and train step
+    # (B x S); ernie_moe_fine's train step, where H = 1024 launches blocks
+    # of another width
+    for n, h, eps in ((8, 4096, 1e-5), (256, 4096, 1e-5),
+                      (TRAIN_B * TRAIN_S, 4096, 1e-5),
+                      (MOE_B * MOE_S, 1024, 1e-6)):
+        x = torch.randn((n, h), generator=g, device=dev,
                         dtype=torch.bfloat16)
-        w = (1 + 0.1 * torch.randn((4096,), generator=g, device=dev)
+        w = (1 + 0.1 * torch.randn((h,), generator=g, device=dev)
              ).to(torch.bfloat16)
-        got = rn.fused_rms_norm(x, w, 1e-5)
-        ref = rn.rms_norm_plain(x, w, 1e-5)
+        got = rn.fused_rms_norm(x, w, eps)
+        ref = rn.rms_norm_plain(x, w, eps)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
         torch.testing.assert_close(got, ref, **RMS_TOL)
-        print(f"rms_norm [{n},4096] max_abs_err {err:.3e} "
+        print(f"rms_norm [{n},{h}] eps {eps:g} max_abs_err {err:.3e} "
               f"(tol rtol 2^-7, atol 1e-5)")
         errs.setdefault("rms_norm", 0.0)
         errs["rms_norm"] = max(errs["rms_norm"], err)
@@ -192,13 +209,15 @@ def check_kernels(dev):
 # yet a result may land one bf16 step apart: rel 2^-6; frob 2^-10 lies
 # between a summation order's ~1e-4 and the ~2e-3 of a P or dS left
 # unrounded. (BH, S, D, causal, dtype): S = 2048, D = 128, causal at
-# BH = 128 is the train phase's shape.
+# BH = 128 is the Llama train phase's shape; S = 512, D = 64 the ERNIE
+# phase's (B = 8 x 16 heads).
 FLASH_TOL = {torch.float32: ((1e-5, 1e-5), (1e-4, 1e-4)),
              torch.bfloat16: ((2 ** -6, 2 ** -10), (2 ** -6, 2 ** -10))}
 FLASH_CASES = [(8, 200, 128, True, torch.bfloat16),
                (8, 200, 128, False, torch.bfloat16),
                (128, 2048, 128, True, torch.bfloat16),
                (8, 2048, 128, False, torch.bfloat16),
+               (128, 512, 64, True, torch.bfloat16),
                (8, 200, 64, True, torch.float32)]
 
 
@@ -304,6 +323,144 @@ def check_tiny_train(dev):
           f"launches flash_fwd {f1} flash_bwd {b1}")
 
 
+# grouped matmul kernels against their plain versions, flash_close's rule
+# (rows along the last axis). f32: sums in another order. bf16: both sum
+# in f32 and round once, so a result may land one bf16 step apart: rel
+# 2^-7 of (|ref| + row max + rms), frob 2^-10.
+GMM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 2 ** -10)}
+MOE_SHAPES = [(1024, 512), (512, 1024)]     # (K, N) of e_w1 and e_w2
+GMM_SMALL = [("empty expert", [0, 300, 77, 0]),
+             ("one expert holds all rows", [700, 0, 0, 0]),
+             ("counts off the tile", [1, 127, 129, 255])]
+
+
+def _slice_schedule(dev, seed=SEED):
+    """The schedule of one MoE layer of the ERNIE phase: 4096 tokens
+    routed top-4 over 32 experts by random f32 logits, through the
+    port's dropless routing -> (counts, n_rows, sched)."""
+    from paddle_tpu_torch.ops import grouped_matmul as tg
+    from paddle_tpu_torch.parallel import moe as tmoe
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn((MOE_B * MOE_S, 32), generator=g, device=dev)
+    _, _, _, counts, n_rows = tmoe.ragged_route(logits, 4, 128)
+    sched = tg.tile_schedule(counts, n_rows // 128, 128)[:2]
+    return counts, n_rows, sched
+
+
+def _gmm_operands(dev, dtype, n_rows, e, k, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lhs = torch.randn((n_rows, k), generator=g, device=dev).to(dtype)
+    rhs = (torch.randn((e, k, n), generator=g, device=dev)
+           / math.sqrt(k)).to(dtype)
+    dout = torch.randn((n_rows, n), generator=g, device=dev).to(dtype)
+    return lhs, rhs, dout
+
+
+def gmm_case(tg, counts, n_rows, sched, dtype, k, n, seed, dev):
+    """fwd, dX and dW against their plain versions; dead tiles and empty
+    experts must be exactly zero. Returns {kernel: flash_close(...)}."""
+    e = counts.shape[0]
+    lhs, rhs, dout = _gmm_operands(dev, dtype, n_rows, e, k, n, seed)
+    rel, frob = GMM_TOL[dtype]
+    got = {"gmm_fwd": tg.gmm_fwd(lhs, rhs, sched),
+           "gmm_dx": tg.gmm_dx(dout, rhs, sched),
+           "gmm_dw": tg.gmm_dw(lhs, dout, sched, num_experts=e)}
+    want = {"gmm_fwd": tg.gmm_fwd_plain(lhs, rhs, sched),
+            "gmm_dx": tg.gmm_dx_plain(dout, rhs, sched),
+            "gmm_dw": tg.gmm_dw_plain(lhs, dout, sched, num_experts=e)}
+    torch.cuda.synchronize()
+    live = int(tg._round_up(counts, 128).sum())
+    assert (got["gmm_fwd"][live:] == 0).all(), "gmm_fwd: dead tile not 0"
+    assert (got["gmm_dx"][live:] == 0).all(), "gmm_dx: dead tile not 0"
+    empty = (counts == 0).nonzero().flatten().tolist()
+    assert all((got["gmm_dw"][x] == 0).all() for x in empty), \
+        "gmm_dw: empty expert not 0"
+    return {name: flash_close(got[name], want[name], rel, frob)
+            for name in got}
+
+
+def check_gmm(dev, errs):
+    from paddle_tpu_torch.ops import grouped_matmul as tg
+    phase("check grouped-matmul kernels against their plain versions")
+    counts, n_rows, sched = _slice_schedule(dev)
+    cases = [(f"ERNIE slice (K, N) = ({k}, {n}), {n_rows} rows, 32 "
+              f"experts", counts, n_rows, sched, torch.bfloat16, k, n)
+             for k, n in MOE_SHAPES]
+    for name, cl in GMM_SMALL:
+        c = torch.tensor(cl, dtype=torch.int32, device=dev)
+        rows = int(tg._round_up(c, 128).sum()) + 2 * 128
+        sc = tg.tile_schedule(c, rows // 128, 128)[:2]
+        cases += [(f"{name} {cl}", c, rows, sc, torch.float32, k, n)
+                  for k, n in ((128, 64), (256, 192))]
+    for i, (name, c, rows, sc, dtype, k, n) in enumerate(cases):
+        res = gmm_case(tg, c, rows, sc, dtype, k, n, SEED + i, dev)
+        rel, frob = GMM_TOL[dtype]
+        print(f"gmm {name} K={k} N={n} {str(dtype)[6:]} (tol rel {rel:g} "
+              f"of |ref| + row max + rms, frob {frob:g}; dead tiles and "
+              f"empty experts exactly 0)")
+        for kern, (ok, excess, fro, err) in res.items():
+            print(f"  {kern}: max_abs_err {err:.3e}  worst excess over the "
+                  f"limit {excess:.3e}  rel frob {fro:.3e}  "
+                  f"{'ok' if ok else 'FAILED'}")
+            errs[kern] = max(errs.get(kern, 0.0), err)
+        assert all(r[0] for r in res.values()), f"gmm disagrees: {res}"
+    torch.cuda.empty_cache()
+
+
+def _tiny_ernie_config():
+    from paddle_tpu_torch.models import ernie_moe as tm
+    return tm.ErnieMoEConfig(vocab_size=256, hidden_size=128,
+                             intermediate_size=128, num_hidden_layers=4,
+                             num_attention_heads=2, num_experts=8,
+                             moe_topk=2, num_shared_experts=1,
+                             max_position_embeddings=128,
+                             dtype=torch.float32, dispatch_mode="ragged_a2a")
+
+
+MOE_FLAGS = dict(dispatch_mode="ragged_a2a", multi_precision=False,
+                 with_stats=True, active_only_moments=True)
+
+
+def _to_device(tree, d):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, d) for k, v in tree.items()}
+    return tree.to(d, copy=True)
+
+
+def check_tiny_ernie(dev):
+    """Three tiny fp32 ERNIE-MoE train steps (the slice's flags) through
+    the kernels on the card give the CPU's losses and routed rows, and
+    each gmm counter advances twice per MoE layer and step."""
+    from paddle_tpu_torch.models import ernie_moe as tm
+    phase("check a tiny fp32 ERNIE-MoE train: card kernels vs CPU plain")
+    cfg = _tiny_ernie_config()
+    rng = np.random.RandomState(SEED)
+    x = rng.randint(0, 256, size=(2, 97)).astype(np.int32)
+    params0 = tm.init_params(cfg, seed=1, device="cpu")
+    out = []
+    for d in ("cpu", dev):
+        step, _, _ = tm.build_train_step(cfg, device=d, **MOE_FLAGS)
+        params = _to_device(params0, d)
+        opt = tm._adamw_init(params, multi_precision=False)
+        _zero_counts()
+        losses, rows = [], []
+        for _ in range(3):
+            params, opt, loss, st = step(params, opt, x[:, :-1], x[:, 1:])
+            losses.append(float(loss))
+            rows.append(st["moe_expert_rows"].cpu().tolist())
+        out.append((losses, rows, _counts()))
+    (cpu, rows0, c0), (card, rows1, c1) = out
+    n = 3 * 2 * cfg.num_hidden_layers // 2
+    assert all(c0[k] == 0 for k in ("gmm_fwd", "gmm_dx", "gmm_dw")), c0
+    assert all(c1[k] == n for k in ("gmm_fwd", "gmm_dx", "gmm_dw")), c1
+    assert rows0 == rows1, (rows0, rows1)
+    np.testing.assert_allclose(card, cpu, rtol=TRAIN_LOSS_RTOL)
+    print(f"losses card {card} cpu {cpu} (rtol {TRAIN_LOSS_RTOL}); routed "
+          f"rows identical; launches gmm_fwd {c1['gmm_fwd']} gmm_dx "
+          f"{c1['gmm_dx']} gmm_dw {c1['gmm_dw']} flash_fwd "
+          f"{c1['flash_fwd']} flash_bwd {c1['flash_bwd']}")
+
+
 def check_tiny_streams(dev):
     """A tiny fp32 Llama served through the kernels on the card gives the
     same greedy streams and events as the same engine through the plain
@@ -382,6 +539,8 @@ def serve_7b(dev):
     assert launches["paged_attend_update"] == L * steps > 0
     assert launches["rms_norm"] == (2 * L + 1) * (steps + chunks)
     assert launches["flash_fwd"] == launches["flash_bwd"] == 0
+    assert launches["gmm_fwd"] == launches["gmm_dx"] == \
+        launches["gmm_dw"] == 0
     stats["launches"] = launches
     stats["peak_mem_gib"] = peak
     stats["profile"] = profile_steps(eng, cfg, dev)
@@ -392,21 +551,27 @@ def serve_7b(dev):
 
 def _zero_counts():
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import grouped_matmul as tg
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import rms_norm as rn
     rn.fused_rms_norm.launches = 0
     pa.paged_attend_update.launches = 0
     fa.flash_fwd.launches = fa.flash_bwd.launches = 0
+    tg.gmm_fwd.launches = tg.gmm_dx.launches = tg.gmm_dw.launches = 0
 
 
 def _counts():
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import grouped_matmul as tg
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import rms_norm as rn
     return {"rms_norm": rn.fused_rms_norm.launches,
             "paged_attend_update": pa.paged_attend_update.launches,
             "flash_fwd": fa.flash_fwd.launches,
-            "flash_bwd": fa.flash_bwd.launches}
+            "flash_bwd": fa.flash_bwd.launches,
+            "gmm_fwd": tg.gmm_fwd.launches,
+            "gmm_dx": tg.gmm_dx.launches,
+            "gmm_dw": tg.gmm_dw.launches}
 
 
 def train_7b(dev):
@@ -473,14 +638,107 @@ def train_7b(dev):
     return stats
 
 
+def train_ernie(dev):
+    """build_train_step on ernie_moe_fine at full width and depth (bf16,
+    B=8, S=512), the dropless path with bench.py's moe flags: one warm-up
+    and MOE_STEPS timed steps."""
+    from paddle_tpu_torch.models import ernie_moe as tm
+    phase(f"train ernie_moe_fine (bf16, 8 layers, 32 experts top-4, "
+          f"B={MOE_B}, S={MOE_S}, dropless, no recompute, AdamW bf16 "
+          f"moments, active-only)")
+    cfg = tm.ernie_moe_fine()
+    t0 = time.perf_counter()
+    step, params, opt = tm.build_train_step(cfg, lr=1e-4, seed=SEED,
+                                            device=dev, **MOE_FLAGS)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"weights and moments made on the card in "
+          f"{time.perf_counter() - t0:.2f} s, {n_params / 1e6:.2f} M "
+          f"params, {tm.active_params(cfg) / 1e6:.2f} M active per token")
+    rng = np.random.RandomState(SEED)
+    batches = [rng.randint(0, cfg.vocab_size, size=(MOE_B, MOE_S + 1))
+               .astype(np.int32) for _ in range(MOE_STEPS + 1)]
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    losses, step_ms, stats = [], [], []
+    for i, x in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss, st = step(params, opt, x[:, :-1], x[:, 1:])
+        losses.append(float(loss))       # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        stats.append({k: v.tolist() for k, v in st.items()})
+        print(f"step {i}{' (warm-up)' if i == 0 else ''}: loss "
+              f"{losses[-1]:.6f}  lm_loss {stats[-1]['lm_loss']:.6f}  "
+              f"{step_ms[-1]:.1f} ms")
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n, L = len(batches), cfg.num_hidden_layers
+    n_moe = L // 2
+    per_step = {k: v / n for k, v in launches.items()}
+    assert all(math.isfinite(v) for v in losses), losses
+    for k in ("gmm_fwd", "gmm_dx", "gmm_dw"):
+        assert launches[k] == 2 * n_moe * n, launches
+    assert launches["flash_fwd"] == launches["flash_bwd"] == L * n, launches
+    assert launches["rms_norm"] == (2 * L + 1) * n, launches
+    assert launches["paged_attend_update"] == 0, launches
+    assert all(s["moe_dropped_tokens"] == 0 for s in stats)
+    assert all(s["moe_routed_tokens"] == MOE_B * MOE_S * cfg.moe_topk
+               * n_moe for s in stats)
+    timed = step_ms[1:]
+    ms = float(np.mean(timed))
+    tps = MOE_B * MOE_S / (ms / 1e3)
+    flops_tok = tm.train_flops_per_token(cfg, MOE_S)
+    mfu = flops_tok * tps / BF16_OPS_PER_S
+    print(f"step ms mean {ms:.2f} over {len(timed)} timed steps "
+          f"{[round(t, 2) for t in timed]}")
+    print(f"tokens/s {tps:.1f}  active MFU {mfu:.4f} (6 x {tm.active_params(cfg)}"
+          f" active params + 12 L H S = {flops_tok:.4e} flops/token x "
+          f"tokens/s / 989 TFLOP/s)")
+    last = stats[-1]
+    print(f"routing stats of the last step (summed over {n_moe} MoE layers;"
+          f" imbalance averaged): "
+          f"{ {k: v for k, v in last.items() if k != 'moe_expert_rows'} }")
+    print(f"  moe_expert_rows {last['moe_expert_rows']}")
+    print(f"launches {launches} (per step {per_step}; expected gmm_fwd, "
+          f"gmm_dx, gmm_dw 2x{n_moe}, flash_fwd and flash_bwd {L}, rms_norm "
+          f"{2 * L + 1})  peak mem {peak:.2f} GiB")
+    out = {"config": "ernie_moe_fine", "layers": L, "batch": MOE_B,
+           "seq": MOE_S, "params": n_params,
+           "active_params": tm.active_params(cfg), "losses": losses,
+           "routing_stats": stats, "step_ms": step_ms, "step_ms_mean": ms,
+           "tokens_per_sec": tps, "active_mfu": mfu,
+           "train_flops_per_token": flops_tok, "launches": launches,
+           "peak_mem_gib": peak, "recompute": False}
+    out["profile"] = profile_ernie_step(params, opt, batches[0], cfg)
+    del step, params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_ernie_step(params, opt, x, cfg):
+    """profile_halves on one ERNIE step: loss and grads (routing stats and
+    per-layer rows included), then AdamW masked to the routed experts."""
+    from paddle_tpu_torch.models import ernie_moe as tm
+    phase("profile one ERNIE-MoE train step")
+    dev = params["embed"].device
+    ids = torch.from_numpy(x[:, :-1]).to(dev)
+    labels = torch.from_numpy(x[:, 1:]).to(dev)
+
+    def grads():
+        _, (_, rows), g = tm.moe_loss_and_grads(
+            params, ids, labels, cfg, True, "ragged_a2a", True)
+        return g, tm._expert_row_masks(params, rows)
+
+    def update(gm):
+        tm._adamw_update(params, gm[0], opt, 1e-4, masks=gm[1])
+
+    return profile_halves(grads, update)
+
+
 def profile_train_step(params, opt, x, cfg):
-    """Where one train step (loss and grads, then AdamW) spends device
-    time: each half under torch.profiler, kernel time by class, AdamW's
-    kernels as one class of their own; beside the wall time of the same
-    two halves unprofiled (the profiler slows the host, so busy is device
-    time over the unprofiled wall)."""
+    """profile_halves on one Llama train step."""
     from paddle_tpu_torch.models import llama as tl
-    from torch.profiler import ProfilerActivity, profile
     phase("profile one train step")
     dev = params["embed"].device
     ids = torch.from_numpy(x[:, :-1]).to(dev)
@@ -490,6 +748,18 @@ def profile_train_step(params, opt, x, cfg):
         return tl.llama_loss_and_grads(params, ids, labels, cfg,
                                        tl.ParallelConfig())[1]
 
+    return profile_halves(grads,
+                          lambda g: tl._adamw_update(params, g, opt, 3e-4))
+
+
+def profile_halves(grads, update):
+    """Where one train step (``grads()``: loss and grads, then
+    ``update(grads)``: AdamW) spends device time: each half under
+    torch.profiler, kernel time by class, AdamW's kernels as one class of
+    their own; beside the wall time of the same two halves unprofiled
+    (the profiler slows the host, so busy is device time over the
+    unprofiled wall)."""
+    from torch.profiler import ProfilerActivity, profile
     wall = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -497,7 +767,7 @@ def profile_train_step(params, opt, x, cfg):
     torch.cuda.synchronize()
     wall["loss_and_grads"] = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    tl._adamw_update(params, g, opt, 3e-4)
+    update(g)
     torch.cuda.synchronize()
     wall["adamw"] = (time.perf_counter() - t0) * 1e3
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -506,7 +776,7 @@ def profile_train_step(params, opt, x, cfg):
         torch.cuda.synchronize()
     by_class, top = _device_ms_by_class(prof)
     with profile(activities=acts) as prof:
-        tl._adamw_update(params, g, opt, 3e-4)
+        update(g)
         torch.cuda.synchronize()
     opt_classes, opt_top = _device_ms_by_class(prof)
     by_class["optimizer"] = sum(opt_classes.values())
@@ -552,6 +822,9 @@ def _kernel_class(name):
         return "flash_fwd"
     if "flash_bwd_kernel" in name or "dq_finalize_kernel" in name:
         return "flash_bwd"
+    if "gmm_fwd_kernel" in name or "gmm_dx_kernel" in name \
+            or "gmm_dw_kernel" in name:
+        return "gmm"
     if any(k in name.lower() for k in ("gemm", "xmma", "cutlass", "nvjet")):
         return "matmul"
     return "other"
@@ -754,6 +1027,7 @@ def times(dev):
     out["paged_attend_update[B=8,NH=NKV=32]"] = r
     print(f"paged_attend_update B=8 NH=NKV=32 ctx {ctx} tokens: {r}")
     out.update(flash_times(dev))
+    out.update(gmm_times(dev))
     return out
 
 
@@ -808,17 +1082,113 @@ def flash_times(dev):
     return out
 
 
+def _library_gmm(kind, a, b, offsets, counts):
+    """One PyTorch call for the same grouped product, the yardstick the
+    port never calls: ``torch._grouped_mm`` with the groups' end offsets
+    (forward [M, K] x [E, K, N]; dX against rhs transposed; dW grouped
+    over the contraction); where it refuses, a loop of one
+    ``torch.matmul`` per expert. Returns (what was timed, the callable,
+    the refusal met, if any)."""
+    ends = offsets[1:].contiguous()
+    errors = []
+    if hasattr(torch, "_grouped_mm"):
+        desc, fn = {
+            "fwd": ("torch._grouped_mm(lhs, rhs, offs)",
+                    lambda: torch._grouped_mm(a, b, offs=ends)),
+            "dx": ("torch._grouped_mm(dout, rhs^T, offs)",
+                   lambda: torch._grouped_mm(a, b.transpose(1, 2),
+                                             offs=ends)),
+            "dw": ("torch._grouped_mm(lhs^T, dout, offs)",
+                   lambda: torch._grouped_mm(a.t(), b, offs=ends))}[kind]
+        try:
+            fn()
+            torch.cuda.synchronize()
+            return desc, fn, errors
+        except RuntimeError as e:   # a refused layout: recorded, then the loop
+            errors.append(f"{desc}: {type(e).__name__}: {str(e)[:300]}")
+    else:
+        errors.append("torch._grouped_mm: not in this torch")
+    starts = offsets[:-1].tolist()
+    sizes = counts.tolist()
+    groups = [(e, o, c) for e, (o, c) in enumerate(zip(starts, sizes)) if c]
+    if kind == "fwd":
+        def loop():
+            return [a[o:o + c] @ b[e] for e, o, c in groups]
+    elif kind == "dx":
+        def loop():
+            return [a[o:o + c] @ b[e].T for e, o, c in groups]
+    else:
+        def loop():
+            return [a[o:o + c].T @ b[o:o + c] for e, o, c in groups]
+    return "one torch.matmul per expert", loop, errors
+
+
+def gmm_times(dev):
+    """The three grouped-matmul kernels at the ERNIE phase's shapes: one
+    MoE layer's schedule (4096 tokens, top-4 of 32 experts, 128-row
+    tiles), bf16, (K, N) of e_w1 and of e_w2. Work counted for this
+    run's data: each routed row is read once, the rhs of each expert that
+    has rows once, the output written once (all rows for the forward and
+    dX, every expert for dW); 2 K N operations per routed row."""
+    from paddle_tpu_torch.ops import grouped_matmul as tg
+    counts, n_rows, sched = _slice_schedule(dev)
+    offsets = tg.tile_schedule(counts, n_rows // 128, 128)[4]
+    e = counts.shape[0]
+    routed = int(counts.sum())
+    active = int((counts > 0).sum())
+    sched_bytes = 2 * (n_rows // 128) * 4
+    out = {}
+    for k, n in MOE_SHAPES:
+        lhs, rhs, dout = _gmm_operands(dev, torch.bfloat16, n_rows, e, k, n,
+                                       SEED)
+        ops = 2 * routed * k * n
+        calls = {
+            "gmm_fwd": (lambda: tg.gmm_fwd(lhs, rhs, sched),
+                        lambda: tg.gmm_fwd_plain(lhs, rhs, sched),
+                        ("fwd", lhs, rhs),
+                        2 * (routed * k + active * k * n + n_rows * n)),
+            "gmm_dx": (lambda: tg.gmm_dx(dout, rhs, sched),
+                       lambda: tg.gmm_dx_plain(dout, rhs, sched),
+                       ("dx", dout, rhs),
+                       2 * (routed * n + active * k * n + n_rows * k)),
+            "gmm_dw": (lambda: tg.gmm_dw(lhs, dout, sched, num_experts=e),
+                       lambda: tg.gmm_dw_plain(lhs, dout, sched,
+                                               num_experts=e),
+                       ("dw", lhs, dout),
+                       2 * (routed * (k + n) + e * k * n)),
+        }
+        for name, (kern, plain, lib, nbytes) in calls.items():
+            desc, lib_fn, refused = _library_gmm(*lib, offsets, counts)
+            r = dict(_timed(kern, 50),
+                     plain_ms=_timed(plain, 3)["ms"],
+                     library_ms=_timed(lib_fn, 50)["ms"], library=desc,
+                     library_refusals=refused,
+                     **_bound(nbytes + sched_bytes, ops, BF16_OPS_PER_S),
+                     bytes=nbytes + sched_bytes, operations=ops,
+                     routed_rows=routed, rows=n_rows)
+            key = f"{name}[K={k},N={n}]"
+            out[key] = r
+            print(f"{key} bf16, {routed} routed of {n_rows} rows: {r}")
+        del lhs, rhs, dout
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
+    t_start = time.perf_counter()
     smi = probe()
     dev = torch.device("cuda", 0)
     sys.path.insert(0, ROOT)
     build_s = build()
     errs = check_kernels(dev)
     check_flash(dev, errs)
+    check_gmm(dev, errs)
     check_tiny_streams(dev)
     check_tiny_train(dev)
+    check_tiny_ernie(dev)
     serve = serve_7b(dev)
     train = train_7b(dev)
+    ernie = train_ernie(dev)
     tm = times(dev)
     fwd_key = "flash_fwd[B=4,NH=32,S=2048,D=128,causal]"
     bwd_key = "flash_bwd[B=4,NH=32,S=2048,D=128,causal]"
@@ -849,14 +1219,26 @@ def main():
          "max_abs_err": errs["flash_bwd"],
          **{k: tm[bwd_key][k] for k in cols}},
     ]
+    gmm_sites = {"gmm_fwd": 182, "gmm_dx": 215, "gmm_dw": 260}
+    k1, n1 = MOE_SHAPES[0]
+    for name, line in gmm_sites.items():
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "paddle_tpu_torch/csrc/grouped_matmul.cu",
+             "replaces": f"paddle_tpu/ops/grouped_matmul.py:{line}",
+             "launches": ernie["launches"][name],
+             "max_abs_err": errs[name],
+             **{k: tm[f"{name}[K={k1},N={n1}]"][k] for k in cols}})
+    wall_s = time.perf_counter() - t_start
     record = {"nvidia_smi": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "max_abs_err": errs, "serve": serve, "train": train,
-              "times": tm}
+              "ernie": ernie, "times": tm, "wall_s": wall_s}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)
     phase("result")
+    print(f"chip_smoke wall seconds {wall_s:.1f} (builds included)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,403 @@
+"""ERNIE-style MoE transformer and its single-GPU train step (port of
+``paddle_tpu/models/ernie_moe.py``).
+
+Parameters are a plain dict in the JAX package's layout and names: the
+every-other-layer model keeps SPLIT stacks, ``layers["dense"]`` (attention
+plus a dense FFN) and ``layers["moe"]`` (attention plus router ``gate``
+(f32), experts ``e_w1``/``e_w2`` and the optional shared expert
+``s_w1``/``s_w2``), each stacked [L/2, ...]. Weights and AdamW state move
+between the two packages through numpy with
+:func:`..models.llama.params_from_numpy`.
+
+The train step mirrors the JAX ``build_train_step`` at ep = dp = 1 with
+the dropless dispatch ("ragged", or "ragged_a2a", which becomes "ragged"
+without a mesh): per layer pair a dense layer and a MoE layer, each
+RMSNorm (CUDA kernel) -> fused qkv -> flash attention (CUDA kernels, D =
+head_dim, causal) -> o -> residual -> RMSNorm -> FFN; the MoE FFN runs
+:func:`..parallel.moe.moe_ragged_dispatch_combine`, whose grouped
+matmuls are CUDA kernels. ``jax.nn.gelu`` is the tanh approximation, so
+every gelu here is too. The JAX step recomputes each layer pair in its
+backward (``jax.checkpoint`` keeping matmul outputs, which changes no
+value); the port keeps every activation instead (a few GB at
+``ernie_moe_fine``, B = 8, S = 512).
+
+Not ported (ValueError): ep or dp above 1 and a mesh, the capacity
+dispatch, and the non-split stack (``moe_every`` other than 2 or an odd
+layer count, the JAX ``_layer``/``lax.cond`` path).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..ops.flash_attention import flash_attention_bshd
+from ..ops.rms_norm import fused_rms_norm
+from ..parallel.moe import (RATIO_STAT_KEYS, gelu,
+                            moe_ragged_dispatch_combine)
+from .llama import _adamw_init, _adamw_update, masked_ce_loss
+
+
+@dataclasses.dataclass
+class ErnieMoEConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    num_experts: int = 8
+    moe_topk: int = 2
+    num_shared_experts: int = 0
+    moe_every: int = 2           # every k-th layer is MoE
+    aux_loss_weight: float = 0.01
+    max_position_embeddings: int = 512
+    layer_norm_eps: float = 1e-6
+    dtype: Any = torch.bfloat16
+    # "ragged" or "ragged_a2a" (ep = 1: the same serial path); the
+    # capacity dispatch (and so the JAX config's capacity_factor) is not
+    # ported. None means the step's argument.
+    dispatch_mode: Optional[str] = None
+
+    @property
+    def head_dim(self):
+        return self.hidden_size // self.num_attention_heads
+
+
+def ernie_moe_tiny():
+    return ErnieMoEConfig(vocab_size=256, hidden_size=64, intermediate_size=128,
+                          num_hidden_layers=4, num_attention_heads=4,
+                          num_experts=4, max_position_embeddings=128,
+                          dtype=torch.float32)
+
+
+def ernie_moe_fine():
+    """Fine-grained preset: E = 32 small experts (I = H/2), top-4, one
+    shared expert, hidden 1024, 16 heads (head_dim 64), 8 layers."""
+    return ErnieMoEConfig(vocab_size=8192, hidden_size=1024,
+                          intermediate_size=512, num_hidden_layers=8,
+                          num_attention_heads=16, num_experts=32,
+                          moe_topk=4, num_shared_experts=1,
+                          max_position_embeddings=1024,
+                          dtype=torch.bfloat16, dispatch_mode="ragged_a2a")
+
+
+def ernie_moe_fine_tiny():
+    """CPU-sized ernie_moe_fine (same shape family)."""
+    return ErnieMoEConfig(vocab_size=256, hidden_size=64,
+                          intermediate_size=32, num_hidden_layers=4,
+                          num_attention_heads=4, num_experts=8, moe_topk=2,
+                          num_shared_experts=1, max_position_embeddings=128,
+                          dtype=torch.float32, dispatch_mode="ragged_a2a")
+
+
+def _split_stacks(config):
+    """The split dense/moe layer stacks of the every-other-layer layout."""
+    return config.moe_every == 2 and config.num_hidden_layers % 2 == 0
+
+
+def _check_dispatch(dispatch_mode):
+    if dispatch_mode not in ("ragged", "ragged_a2a"):
+        raise ValueError(f"dispatch_mode {dispatch_mode!r} is not ported; "
+                         f"only the dropless 'ragged' / 'ragged_a2a'")
+
+
+def _check_split(config):
+    if not _split_stacks(config):
+        raise ValueError(
+            f"moe_every={config.moe_every}, num_hidden_layers="
+            f"{config.num_hidden_layers}: the non-split layer stack (the "
+            f"JAX _layer / lax.cond path) is not ported; only moe_every=2 "
+            f"with an even layer count")
+
+
+def init_params(config: ErnieMoEConfig, seed: int = 0, device=None):
+    """Random params N(0, 0.02) in the model dtype (the router ``gate`` in
+    f32), made on ``device`` (default: the card) from a seeded
+    ``torch.Generator``. Same split layout and names as the JAX package;
+    the values differ from its ``jax.random`` stream."""
+    c = config
+    _check_split(c)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, H, I, E = c.num_hidden_layers // 2, c.hidden_size, \
+        c.intermediate_size, c.num_experts
+
+    def rnd(shape, dtype=c.dtype):
+        return torch.empty(shape, dtype=dtype, device=dev).normal_(
+            0.0, 0.02, generator=gen)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=c.dtype, device=dev)
+
+    def attn_block():
+        return {"ln1": ones((n, H)), "qkv": rnd((n, H, 3 * H)),
+                "o": rnd((n, H, H)), "ln2": ones((n, H))}
+
+    moe = {**attn_block(), "gate": rnd((n, H, E), torch.float32),
+           "e_w1": rnd((n, E, H, I)), "e_w2": rnd((n, E, I, H))}
+    if c.num_shared_experts:
+        si = c.num_shared_experts * I
+        moe.update(s_w1=rnd((n, H, si)), s_w2=rnd((n, si, H)))
+    return {
+        "embed": rnd((c.vocab_size, H)),
+        "pos": rnd((c.max_position_embeddings, H)),
+        "layers": {"dense": {**attn_block(), "w1": rnd((n, H, I)),
+                             "w2": rnd((n, I, H))},
+                   "moe": moe},
+        "final_ln": ones((H,)),
+    }
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _attn_and_norm(p, h, config: ErnieMoEConfig):
+    """RMSNorm -> qkv -> causal flash attention -> o -> residual; returns
+    (h, RMSNorm(h)). ``p`` holds ONE layer's weights."""
+    c = config
+    b, s, hid = h.shape
+    nh, hd = c.num_attention_heads, c.head_dim
+    x = fused_rms_norm(h, p["ln1"], c.layer_norm_eps)
+    qkv = (x @ p["qkv"]).reshape(b, s, 3, nh, hd)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    attn = flash_attention_bshd(q, k, v, causal=True)
+    h = h + attn.reshape(b, s, hid) @ p["o"]
+    return h, fused_rms_norm(h, p["ln2"], c.layer_norm_eps)
+
+
+def _moe_ffn(p, x_, config: ErnieMoEConfig, with_stats=False,
+             dispatch_mode="ragged"):
+    """The mesh-less branch of the JAX ``_moe_ffn`` (router in f32, the
+    dropless dispatch, then the shared expert); "ragged_a2a" runs the
+    serial ragged path and reports zero wire rows."""
+    c = config
+    hid = x_.shape[-1]
+    tokens = x_.reshape(-1, hid)
+    logits = tokens.float() @ p["gate"]
+    res = moe_ragged_dispatch_combine(tokens, logits, p["e_w1"], p["e_w2"],
+                                      c.num_experts, k=c.moe_topk,
+                                      return_stats=with_stats)
+    out, aux = res[0], res[1]
+    stats = res[2] if with_stats else None
+    if stats is not None and dispatch_mode == "ragged_a2a":
+        z = torch.zeros((), device=x_.device)
+        stats = {**stats, "moe_a2a_wire_rows": z, "moe_a2a_buffer_rows": z}
+    if c.num_shared_experts:
+        shared = gelu(tokens @ p["s_w1"]) @ p["s_w2"]
+        out = out + shared.to(out.dtype)
+    out = out.reshape(x_.shape).to(x_.dtype)
+    if with_stats:
+        return out, aux.float(), stats
+    return out, aux.float()
+
+
+def _dense_ffn(p, x_):
+    out = (gelu(x_ @ p["w1"]) @ p["w2"]).to(x_.dtype)
+    return out, torch.zeros((), device=x_.device)
+
+
+def _layer_static(p, h, is_moe, config: ErnieMoEConfig, with_stats=False,
+                  dispatch_mode="ragged"):
+    """One decoder layer with a static moe/dense choice; only a MoE
+    layer reports routing stats."""
+    h, x = _attn_and_norm(p, h, config)
+    res = (_moe_ffn(p, x, config, with_stats, dispatch_mode) if is_moe
+           else _dense_ffn(p, x))
+    return (h + res[0],) + tuple(res[1:])
+
+
+def _layer_params(stack, i):
+    """Layer i's weights from a stack whose leaves are [n, ...] tensors or
+    lists of per-layer slices (the train step's gradient leaves)."""
+    return {name: w[i] for name, w in stack.items()}
+
+
+def moe_loss(params, ids, labels, config: ErnieMoEConfig, with_stats=False,
+             dispatch_mode="ragged", active_rows=False):
+    """Total loss = LM cross entropy + aux_loss_weight x the summed gshard
+    aux losses, as the JAX ``moe_loss`` at ep = 1 on split stacks; returns
+    (total, aux) where aux is lm_loss, or (lm_loss, stats) with
+    ``with_stats`` (counts summed over MoE layers, ratio keys averaged
+    over those that routed), and with ``active_rows`` (total, (aux,
+    rows [n_moe, E])): the per-layer routed-row counts."""
+    c = config
+    _check_split(c)
+    _check_dispatch(dispatch_mode)
+    ws = with_stats or active_rows
+    s = ids.shape[1]
+    h = (params["embed"][ids.long()] + params["pos"][:s][None]).to(c.dtype)
+    dense, moe = params["layers"]["dense"], params["layers"]["moe"]
+    auxes, layer_stats = [], []
+    for i in range(len(dense["qkv"])):
+        h, aux0 = _layer_static(_layer_params(dense, i), h, False, c)
+        res = _layer_static(_layer_params(moe, i), h, True, c, ws,
+                            dispatch_mode)
+        h, aux1 = res[0], res[1]
+        auxes.append(aux0 + aux1)
+        if ws:
+            layer_stats.append(res[2])
+    stats = rows_pl = None
+    if ws:
+        with torch.no_grad():
+            st = {k: torch.stack([d[k] for d in layer_stats])
+                  for k in layer_stats[0]}
+            rows_pl = st["moe_expert_rows"]           # [n_moe_layers, E]
+            n_moe = torch.clamp(
+                (st["moe_routed_tokens"] + st["moe_dropped_tokens"] > 0)
+                .float().sum(), min=1.0)
+            stats = {k: (v.sum(0) / n_moe if k in RATIO_STAT_KEYS
+                         else v.sum(0)) for k, v in st.items()}
+    x = fused_rms_norm(h, params["final_ln"], c.layer_norm_eps)
+    logits = (x @ params["embed"].T).float()
+    lm_loss = masked_ce_loss(logits, labels)
+    total = lm_loss + c.aux_loss_weight * torch.stack(auxes).sum()
+    base = (lm_loss, stats) if with_stats else lm_loss
+    if active_rows:
+        return total, (base, rows_pl)
+    return total, base
+
+
+def _grad_leaf(t):
+    return t.detach().requires_grad_()
+
+
+def _leaves_of(tree):
+    """The autograd leaves of a param tree: each stacked layer tensor as a
+    list of per-layer views, so no [n, ...] gradient is ever built."""
+    out = {}
+    for k, v in tree.items():
+        if k == "layers":
+            out[k] = {kind: {n: [_grad_leaf(w[i]) for i in range(w.shape[0])]
+                             for n, w in stack.items()}
+                      for kind, stack in v.items()}
+        else:
+            out[k] = _grad_leaf(v)
+    return out
+
+
+def _grads_of(leaves):
+    def grad(t):
+        return t.grad if t.grad is not None else torch.zeros_like(t)
+
+    return {k: ({kind: {n: [grad(t) for t in ts] for n, ts in stack.items()}
+                 for kind, stack in v.items()} if k == "layers" else grad(v))
+            for k, v in leaves.items()}
+
+
+def moe_loss_and_grads(params, ids, labels, config: ErnieMoEConfig,
+                       with_stats=False, dispatch_mode="ragged",
+                       active_rows=False):
+    """(total, aux, grads) of :func:`moe_loss`, the counterpart of
+    ``jax.value_and_grad(has_aux=True)``; a stacked layer leaf's gradient
+    is the list of its per-layer slices."""
+    leaves = _leaves_of(params)
+    total, aux = moe_loss(leaves, ids, labels, config, with_stats,
+                          dispatch_mode, active_rows)
+    total.backward()
+    return total.detach(), _detach(aux), _grads_of(leaves)
+
+
+def _detach(tree):
+    if isinstance(tree, tuple):
+        return tuple(_detach(t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _detach(v) for k, v in tree.items()}
+    return tree.detach() if isinstance(tree, torch.Tensor) else tree
+
+
+def _none_like(tree):
+    if isinstance(tree, dict):
+        return {k: _none_like(v) for k, v in tree.items()}
+    return None
+
+
+def _expert_row_masks(params, rows_pl):
+    """``_adamw_update(masks=)`` tree: experts that routed no row this step
+    keep their params and moments bitwise (rows [n_moe, E] > 0 over the
+    leading dims of e_w1 / e_w2); every other leaf is unmasked."""
+    active = rows_pl > 0
+    masks = _none_like(params)
+    masks["layers"]["moe"]["e_w1"] = active
+    masks["layers"]["moe"]["e_w2"] = active
+    return masks
+
+
+def build_train_step(config: ErnieMoEConfig, ep_degree: int = 1,
+                     dp_degree: int = 1, mesh=None, lr: float = 3e-4,
+                     seed: int = 0, with_stats: bool = False,
+                     dispatch_mode: Optional[str] = None,
+                     multi_precision: bool = True,
+                     active_only_moments: bool = False, device=None):
+    """Returns (step_fn, params, opt_state), as the JAX ``build_train_step``
+    at ep = dp = 1. ``step_fn(params, opt, ids, labels) -> (params, opt,
+    loss, aux)``: ids and labels are [B, S] int32 host arrays copied to
+    the device; loss is the 0-d f32 total; aux is lm_loss, or with
+    ``with_stats`` the dict ``{"lm_loss", **routing stats}``, all on the
+    device. Params and AdamW state are updated in place.
+
+    ``multi_precision=False`` stores moments in each param's dtype;
+    ``active_only_moments`` freezes the params and moments of experts
+    that routed no token this step. ``device=None`` means the card. What
+    is not ported raises ValueError: ep_degree or dp_degree above 1, a
+    mesh, the capacity dispatch, the non-split stack."""
+    if ep_degree * dp_degree > 1 or ep_degree < 1 or dp_degree < 1 \
+            or mesh is not None:
+        raise ValueError(f"ep_degree={ep_degree}, dp_degree={dp_degree}, "
+                         f"mesh={mesh!r}: multi-device MoE training is not "
+                         f"ported; only ep_degree = dp_degree = 1 and no "
+                         f"mesh")
+    if dispatch_mode is None:
+        dispatch_mode = config.dispatch_mode
+    _check_dispatch(dispatch_mode)
+    dev = resolve_device(device)
+    params = init_params(config, seed, device=dev)
+    opt = _adamw_init(params, multi_precision=multi_precision)
+
+    def to_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    def step_fn(p, o, ids, labels):
+        loss, aux, grads = moe_loss_and_grads(
+            p, to_dev(ids), to_dev(labels), config, with_stats,
+            dispatch_mode, active_only_moments)
+        masks = None
+        if active_only_moments:
+            aux, rows_pl = aux
+            masks = _expert_row_masks(p, rows_pl)
+        p, o = _adamw_update(p, grads, o, lr, masks=masks)
+        if with_stats:
+            lm_loss, stats = aux
+            return p, o, loss, {"lm_loss": lm_loss, **stats}
+        return p, o, loss, aux
+
+    return step_fn, params, opt
+
+
+def active_params(config: ErnieMoEConfig) -> int:
+    """Parameters one token passes through: embedding (tied head), the
+    attention of every layer, the dense FFNs, and per MoE layer its top-k
+    experts, the shared expert and the router (``bench.py``'s count)."""
+    c = config
+    n_dense = sum(1 for i in range(c.num_hidden_layers)
+                  if (i % c.moe_every) != (c.moe_every - 1))
+    n_moe = c.num_hidden_layers - n_dense
+    ffn = 2 * c.hidden_size * c.intermediate_size
+    shared_ffn = 2 * c.hidden_size * (c.num_shared_experts
+                                      * c.intermediate_size)
+    return (c.vocab_size * c.hidden_size
+            + c.num_hidden_layers * 4 * c.hidden_size ** 2
+            + n_dense * ffn
+            + n_moe * (c.moe_topk * ffn + shared_ffn
+                       + c.hidden_size * c.num_experts))
+
+
+def train_flops_per_token(config: ErnieMoEConfig, seq_len: int) -> float:
+    """6 x active params + attention, per token (fwd+bwd), for the
+    active-parameter MFU."""
+    c = config
+    return 6.0 * active_params(c) + 12 * c.num_hidden_layers \
+        * c.hidden_size * seq_len

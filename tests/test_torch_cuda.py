@@ -33,6 +33,8 @@ def dev():
     # step apart
     (torch.bfloat16, (8, 4096), dict(rtol=2.0 ** -7, atol=1e-5)),
     (torch.bfloat16, (256, 4096), dict(rtol=2.0 ** -7, atol=1e-5)),
+    # ernie_moe_fine's hidden width: blocks of another width
+    (torch.bfloat16, (8 * 512, 1024), dict(rtol=2.0 ** -7, atol=1e-5)),
 ])
 def test_rms_norm_kernel_matches_plain(dev, dtype, shape, tol):
     g = torch.Generator(device=dev).manual_seed(0)
@@ -261,3 +263,156 @@ def test_train_steps_on_card_match_cpu(dev):
     np.testing.assert_allclose(res[1][0], res[0][0], rtol=1e-5)
     torch.testing.assert_close(res[1][1], res[0][1], rtol=0, atol=5e-6)
     assert res[0][2] == 0 and res[1][2] == 3 * cfg.num_hidden_layers
+
+
+# ---------------------------------------------------------------------------
+# grouped matmul (dropless MoE)
+# ---------------------------------------------------------------------------
+
+from paddle_tpu_torch.models import ernie_moe as tm        # noqa: E402
+from paddle_tpu_torch.ops import grouped_matmul as tg      # noqa: E402
+from paddle_tpu_torch.parallel import moe as tmoe          # noqa: E402
+
+# (rel, frob) of _close. f32: sums in another order. bf16: both sum in
+# f32 and round once, so a result may land one bf16 step apart.
+GMM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 2 ** -10)}
+GMM_LAYOUTS = [[0, 130, 0, 250], [600, 0, 0, 0], [5, 127, 129, 1],
+               [128, 256, 128, 128], [0, 90, 1, 0, 300, 3, 0, 77]]
+
+
+def _gmm_case(dev, dtype, counts, k, n, seed=0, tail_tiles=2):
+    counts = torch.tensor(counts, dtype=torch.int32)
+    m = int(tg._round_up(counts, 128).sum()) + tail_tiles * 128
+    sched = tuple(s.to(dev) for s in
+                  tg.tile_schedule(counts, m // 128, 128)[:2])
+    g = torch.Generator(device=dev).manual_seed(seed)
+    e = len(counts)
+    lhs = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    rhs = (torch.randn((e, k, n), generator=g, device=dev)
+           / k ** 0.5).to(dtype)
+    dout = torch.randn((m, n), generator=g, device=dev).to(dtype)
+    return counts, m, sched, lhs, rhs, dout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kn", [(128, 64), (256, 192)])
+@pytest.mark.parametrize("counts", GMM_LAYOUTS)
+def test_gmm_kernels_match_plain(dev, dtype, kn, counts):
+    k, n = kn
+    counts, m, sched, lhs, rhs, dout = _gmm_case(dev, dtype, counts, k, n)
+    e = len(counts)
+    live = int(tg._round_up(counts, 128).sum())
+    before = (tg.gmm_fwd.launches, tg.gmm_dx.launches, tg.gmm_dw.launches)
+    got = (tg.gmm_fwd(lhs, rhs, sched), tg.gmm_dx(dout, rhs, sched),
+           tg.gmm_dw(lhs, dout, sched, num_experts=e))
+    want = (tg.gmm_fwd_plain(lhs, rhs, sched),
+            tg.gmm_dx_plain(dout, rhs, sched),
+            tg.gmm_dw_plain(lhs, dout, sched, num_experts=e))
+    torch.cuda.synchronize()
+    assert (tg.gmm_fwd.launches, tg.gmm_dx.launches, tg.gmm_dw.launches) \
+        == tuple(b + 1 for b in before)
+    for name, a, b in zip(("fwd", "dx", "dw"), got, want):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        _close(a, b, GMM_TOL[dtype])
+    # dead tail tiles exactly zero; no tile, exactly zero dW
+    assert (got[0][live:] == 0).all() and (got[1][live:] == 0).all()
+    for x in range(e):
+        if counts[x] == 0:
+            assert (got[2][x] == 0).all(), x
+
+
+def test_gmm_autograd_on_card_matches_cpu(dev):
+    counts, m, sched, lhs, rhs, dout = _gmm_case(
+        dev, torch.float32, [70, 0, 200, 5], 128, 128, seed=4)
+    out = []
+    for d in ("cpu", dev):
+        a = lhs.to(d).detach().requires_grad_()
+        w = rhs.to(d).detach().requires_grad_()
+        y = tg.grouped_matmul(a, w, tuple(s.to(d) for s in sched))
+        y.backward(dout.to(d))
+        out.append([t.detach().cpu() for t in (y, a.grad, w.grad)])
+    # dW sums up to 200 rows of unit-scale products: held relative to
+    # each row's scale, not to an absolute 1e-5
+    for got, want in zip(out[1], out[0]):
+        _close(got, want, GMM_TOL[torch.float32])
+
+
+def test_gmm_kernels_reject_bad_inputs(dev):
+    counts, m, sched, lhs, rhs, dout = _gmm_case(
+        dev, torch.bfloat16, [3, 9], 128, 64)
+    with pytest.raises(ValueError, match="tile_rows"):
+        tg.gmm_fwd(lhs, rhs, tg.tile_schedule(counts.to(dev), m // 8,
+                                              8)[:2], 8)
+    with pytest.raises(ValueError, match="multiple"):
+        tg.gmm_fwd(lhs[:, :64].contiguous(), rhs[:, :64].contiguous(), sched)
+    with pytest.raises(TypeError):
+        tg.gmm_fwd(lhs, rhs.float(), sched)
+    with pytest.raises(ValueError):
+        tg.gmm_fwd(lhs, rhs, tuple(s.cpu() for s in sched))
+
+
+def test_moe_layer_on_card_matches_cpu(dev):
+    """The dropless MoE layer (f32, 128-row tiles) through the kernels on
+    the card against the plain versions on the CPU: output, aux and the
+    gradients of x, the router logits, w1 and w2."""
+    rng = np.random.RandomState(8)
+    e, k, h, i, t = 8, 2, 128, 128, 300
+    x = rng.randn(t, h).astype(np.float32)
+    logits = rng.randn(t, e).astype(np.float32)
+    w1 = (rng.randn(e, h, i) / h ** 0.5).astype(np.float32)
+    w2 = (rng.randn(e, i, h) / i ** 0.5).astype(np.float32)
+    cot = rng.randn(t, h).astype(np.float32)
+    res = []
+    for d in ("cpu", dev):
+        leaves = [torch.from_numpy(a).to(d).requires_grad_()
+                  for a in (x, logits, w1, w2)]
+        o, aux = tmoe.moe_ragged_dispatch_combine(*leaves, e, k=k)
+        torch.autograd.backward((o, aux), (torch.from_numpy(cot).to(d),
+                                           torch.tensor(0.5, device=d)))
+        res.append([v.detach().cpu() for v in [o, aux]
+                    + [l.grad for l in leaves]])
+    torch.testing.assert_close(res[1][1], res[0][1], rtol=1e-5, atol=0)
+    for got, want in zip(res[1][:1] + res[1][2:], res[0][:1] + res[0][2:]):
+        _close(got, want, GMM_TOL[torch.float32])
+
+
+def test_ernie_train_steps_on_card_match_cpu(dev):
+    """Three tiny fp32 ERNIE-MoE steps (the MoE slice's flags) through the
+    kernels on the card and the plain versions on the CPU; each gmm
+    kernel runs twice per MoE layer and step."""
+    cfg = tm.ErnieMoEConfig(vocab_size=256, hidden_size=128,
+                            intermediate_size=128, num_hidden_layers=4,
+                            num_attention_heads=2, num_experts=8,
+                            moe_topk=2, num_shared_experts=1,
+                            max_position_embeddings=128,
+                            dtype=torch.float32, dispatch_mode="ragged_a2a")
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, 256, size=(2, 96)).astype(np.int32)
+    labels = np.roll(ids, -1, axis=1)
+    flags = dict(multi_precision=False, with_stats=True,
+                 active_only_moments=True)
+    res = []
+    for d in ("cpu", dev):
+        step, _, _ = tm.build_train_step(cfg, device=d, **flags)
+        params = tm.init_params(cfg, seed=1, device="cpu")
+        params = {k: ({kind: {n: w.to(d) for n, w in s.items()}
+                       for kind, s in v.items()} if k == "layers"
+                      else v.to(d)) for k, v in params.items()}
+        opt = tm._adamw_init(params, multi_precision=False)
+        before = (tg.gmm_fwd.launches, tg.gmm_dx.launches,
+                  tg.gmm_dw.launches)
+        losses, rows = [], []
+        for _ in range(3):
+            params, opt, loss, st = step(params, opt, ids, labels)
+            losses.append(float(loss))
+            rows.append(st["moe_expert_rows"].cpu())
+        res.append((losses, rows, (tg.gmm_fwd.launches - before[0],
+                                   tg.gmm_dx.launches - before[1],
+                                   tg.gmm_dw.launches - before[2])))
+    np.testing.assert_allclose(res[1][0], res[0][0], rtol=1e-5)
+    for a, b in zip(res[1][1], res[0][1]):
+        assert torch.equal(a, b)
+    n_moe = cfg.num_hidden_layers // 2
+    assert res[0][2] == (0, 0, 0)
+    assert res[1][2] == (3 * 2 * n_moe,) * 3
