@@ -4,8 +4,8 @@
 
 Phases, in order; any failure exits non-zero before the last line:
   1. probe   - versions, the card's name and power limit (nvidia-smi);
-  2. build   - nvcc builds every kernel source of the serving and training
-               paths, all at once, for sm_90a;
+  2. build   - nvcc builds every kernel source of the serving, training
+               and generation paths, all at once, for sm_90a;
   3. check   - each kernel against its plain PyTorch version at the
                serving and training paths' shapes, in bf16 (and f32 flash
                and grouped-matmul cases on small adversarial layouts),
@@ -14,7 +14,11 @@ Phases, in order; any failure exits non-zero before the last line:
                streams as the same engine on the CPU through the plain
                versions, and three tiny fp32 Llama and three tiny fp32
                ERNIE-MoE train steps on the card must give the CPU's
-               losses;
+               losses; the slab decode kernels (attend+update and
+               attend-only) at the generate phase's shape and on small f32
+               cases with an adversarial score spread; tiny fp32 Llamas at
+               head_dim 64 (slab cache) and 128 (head-major cache) must
+               give the CPU's greedy and beam streams through generation;
   4. serve   - InferenceEngine on llama_7b (bf16, full width and depth,
                seeded random weights): 16 requests, prompts of 128-1024
                tokens, 64 new tokens each, Poisson arrivals; prints
@@ -38,10 +42,20 @@ Phases, in order; any failure exits non-zero before the last line:
                stats, peak memory and each kernel's launches counted from
                this phase alone; then the same profiler split with the
                grouped matmuls as a class of their own;
-  7. times   - each kernel timed with CUDA events beside its bound, its
+  7. generate - generate() on TinyLlama-1.1B at full width and depth
+               (bf16, 22 layers, head_dim 64, GQA 32/4, seeded random
+               weights and prompt ids): greedy and sampling at B=8 with
+               1024-token prompts and 128 new tokens, beam search at B=2
+               with 4 beams and 32 new tokens; prints prefill ms, decode
+               ms per step, tokens/s, peak memory and each kernel's
+               launches counted from each run alone; the token loops must
+               make no host sync (sync debug mode); then torch.profiler
+               splits one decode step into matmul, decode attention,
+               RMSNorm and other device time beside its wall time;
+  8. times   - each kernel timed with CUDA events beside its bound, its
                plain version and one PyTorch library call (a yardstick
                the port never calls);
-  8. a JSON line {"kernels": [...]}, the total wall seconds, and, last,
+  9. a JSON line {"kernels": [...]}, the total wall seconds, and, last,
      {"ok": true, "device": ...}.
 
 Needs one CUDA device; writes its numbers to chiprun_out/chip_smoke.json.
@@ -67,6 +81,10 @@ SEED = 0
 TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 16, 4, 2048, 3
 # the ERNIE phase: ernie_moe_fine at B x S tokens, top-4 of 32 experts
 MOE_B, MOE_S, MOE_STEPS = 8, 512, 10
+# the generate phase: B prompts of GEN_S tokens, GEN_NEW new tokens each
+# (greedy and sampling); beam search at BEAM_B rows x BEAM_K beams
+GEN_B, GEN_S, GEN_NEW = 8, 1024, 128
+BEAM_B, BEAM_K, BEAM_NEW = 2, 4, 32
 
 
 def phase(name):
@@ -97,7 +115,8 @@ def build():
     phase("build")
     t0 = time.perf_counter()
     paths = _build.build_all(["rms_norm", "paged_attention",
-                              "flash_attention", "grouped_matmul"])
+                              "flash_attention", "grouped_matmul",
+                              "decode_attention"])
     secs = time.perf_counter() - t0
     for p in paths:
         print(f"built {os.path.relpath(p, ROOT)}")
@@ -155,9 +174,11 @@ def check_kernels(dev):
     # (rows, H, eps): llama_7b's decode step, prefill chunk and train step
     # (B x S); ernie_moe_fine's train step, where H = 1024 launches blocks
     # of another width
+    # TinyLlama's decode step and prefill (H = 2048)
     for n, h, eps in ((8, 4096, 1e-5), (256, 4096, 1e-5),
                       (TRAIN_B * TRAIN_S, 4096, 1e-5),
-                      (MOE_B * MOE_S, 1024, 1e-6)):
+                      (MOE_B * MOE_S, 1024, 1e-6), (GEN_B, 2048, 1e-5),
+                      (GEN_B * GEN_S, 2048, 1e-5)):
         x = torch.randn((n, h), generator=g, device=dev,
                         dtype=torch.bfloat16)
         w = (1 + 0.1 * torch.randn((h,), generator=g, device=dev)
@@ -210,7 +231,8 @@ def check_kernels(dev):
 # between a summation order's ~1e-4 and the ~2e-3 of a P or dS left
 # unrounded. (BH, S, D, causal, dtype): S = 2048, D = 128, causal at
 # BH = 128 is the Llama train phase's shape; S = 512, D = 64 the ERNIE
-# phase's (B = 8 x 16 heads).
+# phase's (B = 8 x 16 heads); S = 1024, D = 64 at BH = 256 the generate
+# phase's prefill (B = 8 x 32 heads, kv heads repeated).
 FLASH_TOL = {torch.float32: ((1e-5, 1e-5), (1e-4, 1e-4)),
              torch.bfloat16: ((2 ** -6, 2 ** -10), (2 ** -6, 2 ** -10))}
 FLASH_CASES = [(8, 200, 128, True, torch.bfloat16),
@@ -218,6 +240,7 @@ FLASH_CASES = [(8, 200, 128, True, torch.bfloat16),
                (128, 2048, 128, True, torch.bfloat16),
                (8, 2048, 128, False, torch.bfloat16),
                (128, 512, 64, True, torch.bfloat16),
+               (GEN_B * 32, GEN_S, 64, True, torch.bfloat16),
                (8, 200, 64, True, torch.float32)]
 
 
@@ -490,6 +513,134 @@ def check_tiny_streams(dev):
           f"{len(out[0][1])} events, pool leak-free")
 
 
+# slab decode kernels against their plain versions, flash_close's rule
+# (rows along HD). f32: sums in another order. bf16: P is rounded before
+# P.V in both, yet a result may land one bf16 step apart: rel 2^-6, frob
+# 2^-10, as for flash. The generate phase's cache: T = round_up(1024 +
+# 128, 128) = 1152; pos 127/128 straddle a tile edge, 1151 is T - 1.
+SLAB_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -6, 2 ** -10)}
+SLAB_T = 1152
+SLAB_POSITIONS = [0, 127, 128, 1023, 1151]
+SPREAD_SCALE = 150.0    # tile 1's keys scaled: its scores lead by > 130
+
+
+def _slab_inputs(dev, dtype, b, nh, nkv, hd, T, seed, spread=None):
+    """q pre-scaled [B, NH, HD], new k/v [B, KVD], caches [2, B, KVD, T];
+    with ``spread`` the keys of columns 128..255 are scaled by it."""
+    from paddle_tpu_torch.ops.decode_attention import LOG2E
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kvd = nkv * hd
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    q = (torch.randn((b, nh, hd), generator=g, device=dev)
+         * (LOG2E / math.sqrt(hd))).to(dtype)
+    kc, vc = randn(2, b, kvd, T), randn(2, b, kvd, T)
+    if spread:
+        kc[:, :, :, 128:256] *= spread
+    return q, randn(b, kvd), randn(b, kvd), kc, vc
+
+
+def slab_case(da, dtype, b, nh, nkv, hd, T, positions, seed, dev,
+              spread=None):
+    """Both slab kernels against their plain versions at each position of
+    layer 1: the attention under flash_close (merged over positions), the
+    caches bitwise (column pos holds new k/v, no other column changed).
+    Returns ({kernel: (ok, excess, frob, max err)}, the largest lead of
+    tile 1's score max over tile 0's, in log2 units)."""
+    q, nk, nv, kc, vc = _slab_inputs(dev, dtype, b, nh, nkv, hd, T, seed,
+                                     spread)
+    s = torch.einsum("bgrd,bgdt->bgrt",
+                     q.float().reshape(b, nkv, nh // nkv, hd),
+                     kc[1].float().reshape(b, nkv, hd, T)[..., :256])
+    lead = (s[..., 128:].amax(-1) - s[..., :128].amax(-1)).max().item()
+    rel, frob = SLAB_TOL[dtype]
+    res = {}
+    for pos in positions:
+        k0, v0 = kc.clone(), vc.clone()
+        got_ro = da.decode_attention_slab(q, kc, vc, 1, pos)
+        ref_ro = da.decode_attention_plain(q, k0, v0, 1, pos)
+        kp, vp = kc.clone(), vc.clone()
+        got = da.decode_attend_update_slab(q, nk, nv, kc, vc, 1, pos)
+        ref = da.decode_attend_update_plain(q, nk, nv, kp, vp, 1, pos)
+        torch.cuda.synchronize()
+        assert torch.equal(kc, kp) and torch.equal(vc, vp), \
+            f"slab caches differ from the plain version's at pos {pos}"
+        k0[1, :, :, pos], v0[1, :, :, pos] = nk, nv
+        assert torch.equal(kc, k0) and torch.equal(vc, v0), \
+            f"column {pos} not written, or another column changed"
+        for name, a, r in (("decode_attend_update_slab", got, ref),
+                           ("decode_attention_slab", got_ro, ref_ro)):
+            c = flash_close(a, r, rel, frob)
+            p = res.get(name, (True, -math.inf, 0.0, 0.0))
+            res[name] = (p[0] and c[0], max(p[1], c[1]), max(p[2], c[2]),
+                         max(p[3], c[3]))
+    return res, lead
+
+
+def check_decode(dev, errs):
+    from paddle_tpu_torch.ops import decode_attention as da
+    phase("check slab decode kernels against their plain versions")
+    cases = [(f"generate shape B={GEN_B} NH=32 NKV=4 HD=64 T={SLAB_T}",
+              torch.bfloat16, GEN_B, 32, 4, 64, SLAB_T, SLAB_POSITIONS, None)]
+    cases += [(f"adversarial spread, rep {r}, B=2 NKV=2 HD=32 T=256",
+               torch.float32, 2, 2 * r, 2, 32, 256, [0, 127, 128, 200, 255],
+               SPREAD_SCALE) for r in (1, 2, 4)]
+    for i, (name, dtype, b, nh, nkv, hd, T, positions, spread) in \
+            enumerate(cases):
+        res, lead = slab_case(da, dtype, b, nh, nkv, hd, T, positions,
+                              SEED + i, dev, spread)
+        rel, frob = SLAB_TOL[dtype]
+        print(f"slab {name} {str(dtype)[6:]} positions {positions} (tol "
+              f"rel {rel:g} of |ref| + row max + rms, frob {frob:g}; caches "
+              f"bitwise): tile 1 leads tile 0 by up to {lead:.1f} log2 "
+              f"units")
+        for kern, (ok, excess, fro, err) in res.items():
+            print(f"  {kern}: max_abs_err {err:.3e}  worst excess over the "
+                  f"limit {excess:.3e}  rel frob {fro:.3e}  "
+                  f"{'ok' if ok else 'FAILED'}")
+            errs[kern] = max(errs.get(kern, 0.0), err)
+        assert all(r[0] for r in res.values()), f"slab kernels disagree: {res}"
+        assert spread is None or lead > 130, f"spread only {lead}"
+    torch.cuda.empty_cache()
+
+
+def check_tiny_generate(dev):
+    """Tiny fp32 Llamas through greedy and beam search (eos, length
+    penalty) on the card give the CPU's token streams, beam scores within
+    1e-5: head_dim 64 through the slab kernel, head_dim 128 through the
+    head-major einsums."""
+    from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.ops import decode_attention as da
+    phase("check tiny fp32 Llamas: generation on the card vs the CPU")
+    prompt = np.random.RandomState(SEED).randint(0, 96, (2, 126)).astype(
+        np.int32)
+    for hidden in (128, 256):                       # head_dim 64 and 128
+        cfg = tl.llama_tiny(vocab=96, hidden=hidden, layers=2, heads=2,
+                            kv_heads=1, seq=512)
+        params = tl.init_llama_params(cfg, seed=2, device="cpu")
+        out = []
+        for d in ("cpu", dev):
+            p = _to_device(params, d)
+            da.decode_attend_update_slab.launches = 0
+            greedy = tl.greedy_generate(p, prompt, cfg, 6, device=d)
+            seqs, scores = tl.beam_search_generate(
+                p, prompt, cfg, 5, num_beams=3, eos_token_id=3,
+                length_penalty=0.6, device=d)
+            out.append((greedy, seqs, scores,
+                        da.decode_attend_update_slab.launches))
+        (g0, s0, sc0, n0), (g1, s1, sc1, n1) = out
+        np.testing.assert_array_equal(g1, g0)
+        np.testing.assert_array_equal(s1, s0)
+        np.testing.assert_allclose(sc1, sc0, atol=1e-5, rtol=0)
+        want = 2 * (5 + 4) if cfg.head_dim < 128 else 0
+        assert (n0, n1) == (0, want), (n0, n1)
+        print(f"head_dim {cfg.head_dim}: greedy {g1.tolist()} and beams "
+              f"identical, scores max diff {np.abs(sc1 - sc0).max():.2e} "
+              f"(tol 1e-5); slab kernel launches {n1}")
+
+
 def serve_7b(dev):
     from paddle_tpu_torch import (InferenceEngine, Request, ServeConfig,
                                   init_llama_params, llama_7b)
@@ -550,6 +701,7 @@ def serve_7b(dev):
 
 
 def _zero_counts():
+    from paddle_tpu_torch.ops import decode_attention as da
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import grouped_matmul as tg
     from paddle_tpu_torch.ops import paged_attention as pa
@@ -558,9 +710,12 @@ def _zero_counts():
     pa.paged_attend_update.launches = 0
     fa.flash_fwd.launches = fa.flash_bwd.launches = 0
     tg.gmm_fwd.launches = tg.gmm_dx.launches = tg.gmm_dw.launches = 0
+    da.decode_attend_update_slab.launches = 0
+    da.decode_attention_slab.launches = 0
 
 
 def _counts():
+    from paddle_tpu_torch.ops import decode_attention as da
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import grouped_matmul as tg
     from paddle_tpu_torch.ops import paged_attention as pa
@@ -571,7 +726,9 @@ def _counts():
             "flash_bwd": fa.flash_bwd.launches,
             "gmm_fwd": tg.gmm_fwd.launches,
             "gmm_dx": tg.gmm_dx.launches,
-            "gmm_dw": tg.gmm_dw.launches}
+            "gmm_dw": tg.gmm_dw.launches,
+            "decode_attend_update_slab": da.decode_attend_update_slab.launches,
+            "decode_attention_slab": da.decode_attention_slab.launches}
 
 
 def train_7b(dev):
@@ -716,6 +873,222 @@ def train_ernie(dev):
     return out
 
 
+def tinyllama_1_1b():
+    """TinyLlama-1.1B, a Llama-2-architecture model at head_dim 64, from
+    its published config (huggingface.co/TinyLlama/
+    TinyLlama-1.1B-intermediate-step-1431k-3T, config.json): hidden 2048,
+    intermediate 5632, 22 layers, 32 heads over 4 kv heads, vocab 32000,
+    2048 positions, rms eps 1e-5, rope theta 10000, untied head."""
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    return LlamaConfig(vocab_size=32000, hidden_size=2048,
+                       intermediate_size=5632, num_hidden_layers=22,
+                       num_attention_heads=32, num_key_value_heads=4,
+                       max_position_embeddings=2048, rms_norm_eps=1e-5,
+                       rope_theta=10000.0, tie_word_embeddings=False,
+                       dtype=torch.bfloat16)
+
+
+class _PrefillClock:
+    """Wraps ``models.llama.llama_prefill`` for the generate phase: the
+    host time of each prefill, synchronised at both ends, and whether its
+    logits are finite (``_prefill_for_generate`` looks the name up at
+    call time)."""
+
+    def __init__(self, tl):
+        self.tl, self.spans, self.finite = tl, [], []
+
+    def __enter__(self):
+        self.orig = orig = self.tl.llama_prefill
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.spans.append((t0, time.perf_counter()))
+            self.finite.append(bool(torch.isfinite(logits).all()))
+            return logits, cache
+
+        self.tl.llama_prefill = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.tl.llama_prefill = self.orig
+
+
+def generate_tinyllama(dev):
+    """generate() on TinyLlama-1.1B at full width and depth: greedy and
+    sampling (B=8, 1024-token prompts, 128 new tokens), beam search (B=2,
+    4 beams, 32 new tokens), after a short warm-up of each. Prefill ms:
+    host clock around the prefill, synchronised; decode ms per step: the
+    rest of the call, ending in the copy of the tokens to the host, over
+    the decode steps."""
+    from paddle_tpu_torch.models import llama as tl
+    phase(f"generate TinyLlama-1.1B (bf16, 22 layers, head_dim 64, random "
+          f"weights): greedy and sampling B={GEN_B}, beam B={BEAM_B}x"
+          f"{BEAM_K}")
+    cfg = tinyllama_1_1b()
+    L = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    params = tl.init_llama_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"weights made on the card in {time.perf_counter() - t0:.2f} s, "
+          f"{n_params / 1e9:.3f} B params, "
+          f"{n_params * 2 / 1e9:.2f} GB")
+    rng = np.random.RandomState(SEED)
+    prompts = rng.randint(1, cfg.vocab_size, size=(GEN_B, GEN_S)).astype(
+        np.int32)
+    runs = {
+        "greedy": (prompts, dict(max_new_tokens=GEN_NEW,
+                                 decode_strategy="greedy_search")),
+        "sampling": (prompts, dict(max_new_tokens=GEN_NEW,
+                                   decode_strategy="sampling",
+                                   temperature=0.8, top_k=50, top_p=0.9,
+                                   seed=0)),
+        "beam_search": (prompts[:BEAM_B],
+                        dict(max_new_tokens=BEAM_NEW,
+                             decode_strategy="beam_search",
+                             num_beams=BEAM_K)),
+    }
+    # warm-up: cuBLAS handles, the allocator, the kernels' first loads
+    for prompt, kw in runs.values():
+        tl.generate(params, prompt, cfg, device=dev,
+                    **dict(kw, max_new_tokens=3))
+    out = {"config": "TinyLlama-1.1B", "params": n_params, "runs": {}}
+    with _PrefillClock(tl) as clock:
+        for name, (prompt, kw) in runs.items():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            n = len(clock.spans)
+            t0 = time.perf_counter()
+            toks = tl.generate(params, prompt, cfg, device=dev, **kw)
+            t1 = time.perf_counter()
+            launches = _counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            assert len(clock.spans) == n + 1 and clock.finite[-1], \
+                "one prefill with finite logits"
+            p0, p1 = clock.spans[-1]
+            new, rows = kw["max_new_tokens"], prompt.shape[0]
+            steps = new - 1
+            decode_ms = (t1 - p1) * 1e3 / steps
+            assert toks.shape == (rows, new) and toks.dtype == np.int32
+            assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+            dec_rows = rows * (BEAM_K if name == "beam_search" else 1)
+            assert launches["decode_attend_update_slab"] == L * steps, \
+                launches
+            assert launches["flash_fwd"] == L, launches
+            assert launches["rms_norm"] == (2 * L + 1) * (steps + 1), \
+                launches
+            assert all(launches[k] == 0 for k in (
+                "decode_attention_slab", "paged_attend_update", "flash_bwd",
+                "gmm_fwd", "gmm_dx", "gmm_dw")), launches
+            r = {"rows": rows, "decode_rows": dec_rows, "prompt": GEN_S,
+                 "new_tokens": new, "decode_steps": steps,
+                 "wall_ms": (t1 - t0) * 1e3, "prefill_ms": (p1 - p0) * 1e3,
+                 "decode_ms_per_step": decode_ms,
+                 "tokens_per_sec": rows * new / (t1 - t0),
+                 "decode_rows_per_sec": dec_rows / (decode_ms / 1e3),
+                 "peak_mem_gib": peak, "launches": launches,
+                 "first_tokens": toks[:, :8].tolist()}
+            out["runs"][name] = r
+            print(f"{name}: {rows} x {new} tokens in {r['wall_ms']:.1f} ms, "
+                  f"prefill {r['prefill_ms']:.2f} ms, decode "
+                  f"{decode_ms:.3f} ms per step ({steps} steps, {dec_rows} "
+                  f"rows), {r['tokens_per_sec']:.1f} tokens/s, peak mem "
+                  f"{peak:.2f} GiB")
+            print(f"  launches {launches} (decode_attend_update_slab {L} x "
+                  f"{steps}, flash_fwd {L}, rms_norm {2 * L + 1} x "
+                  f"{steps + 1})")
+            print(f"  first tokens of each row {r['first_tokens']}")
+    out["launches"] = {k: sum(r["launches"][k] for r in out["runs"].values())
+                       for k in out["runs"]["greedy"]["launches"]}
+    out["profile"] = profile_decode(params, cfg, prompts, dev)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def token_loop_syncs(tl, dparams, cfg, cache, logits, tok, dev):
+    """The token loops of greedy, sampling and beam search (three steps
+    each, from the prefilled cache) under torch.cuda's sync debug mode,
+    which warns on every call that waits for the card: none may. Returns
+    the count."""
+    import warnings
+    pos = cache["pos"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    beam_cache = {"k": cache["k"][:, :BEAM_B], "v": cache["v"][:, :BEAM_B],
+                  "pos": pos}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            tl.generate_scan(dparams, dict(cache), tok, 3, cfg)
+            tl.sample_scan(dparams, dict(cache), logits, 3, cfg, gen, 0.8,
+                           50, 0.9)
+            tl.beam_search_scan(dparams, beam_cache, logits[:BEAM_B], 3, cfg,
+                                BEAM_K)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # each sync the mode catches warns "called a synchronizing CUDA
+    # operation"; the mode's own notice that it is a prototype does not
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing" in str(w.message)]
+    print(f"token loops (greedy, sampling, beam; 3 steps each) under sync "
+          f"debug mode: {len(syncs)} host syncs {syncs[:3]}")
+    assert not syncs, syncs
+    torch.cuda.synchronize()
+    return len(syncs)
+
+
+def profile_decode(params, cfg, prompts, dev):
+    """Where one greedy decode step of the generate phase (8 rows at 1,024
+    cached tokens, decode-prepared weights) spends device time: kernel
+    time by class from torch.profiler, beside the step's host-clock wall
+    time without the profiler, ending in the copy of its tokens.
+    busy = device time / wall."""
+    from paddle_tpu_torch.models import llama as tl
+    from torch.profiler import ProfilerActivity, profile
+    phase("profile one decode step (TinyLlama-1.1B, B=8, 1,024 cached)")
+    dparams = tl.prepare_decode_params(params, cfg)
+    cache = tl.init_kv_cache(cfg, GEN_B, SLAB_T, device=dev)
+    logits, cache = tl.llama_prefill(dparams, cache,
+                                     torch.from_numpy(prompts).to(dev), cfg)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    syncs = token_loop_syncs(tl, dparams, cfg, cache, logits, tok, dev)
+
+    def step():
+        lg, _ = tl.llama_decode_step(dparams, dict(cache, pos=GEN_S), tok,
+                                     cfg)
+        return torch.argmax(lg, dim=-1).cpu()
+
+    step()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+    by_class, top = _device_ms_by_class(prof)
+    device_ms = sum(by_class.values())
+    wall_ms = float(np.median(walls))
+    out = {"wall_ms": wall_ms, "device_ms": device_ms,
+           "busy": device_ms / wall_ms, "by_class_ms": by_class,
+           "top": sorted(top, reverse=True)[:10],
+           "token_loop_host_syncs": syncs}
+    print(f"decode step: wall {wall_ms:.3f} ms (median of 5, no profiler), "
+          f"device {device_ms:.3f} ms, busy {device_ms / wall_ms:.3f}")
+    print(f"  by class (ms): {by_class}")
+    for ms, n, key in out["top"]:
+        print(f"  {ms:9.3f} ms  x{n:<5d} {key}")
+    del dparams, cache
+    return out
+
+
 def profile_ernie_step(params, opt, x, cfg):
     """profile_halves on one ERNIE step: loss and grads (routing stats and
     per-layer rows included), then AdamW masked to the routed experts."""
@@ -816,6 +1189,8 @@ def _device_ms_by_class(prof):
 def _kernel_class(name):
     if "paged_update_kernel" in name:
         return "paged_attend_update"
+    if "slab_kernel" in name:
+        return "decode_attention"
     if "rms_norm_kernel" in name:
         return "rms_norm"
     if "flash_fwd_kernel" in name:
@@ -1028,6 +1403,45 @@ def times(dev):
     print(f"paged_attend_update B=8 NH=NKV=32 ctx {ctx} tokens: {r}")
     out.update(flash_times(dev))
     out.update(gmm_times(dev))
+    out.update(slab_times(dev))
+    return out
+
+
+def slab_times(dev):
+    """Rows 10 and 11 at the generate phase's decode shape, pos 1023: B=8,
+    NH=32 over NKV=4, HD=64, T=1152, bf16. Bytes: q, K and V columns
+    0..pos and the f32 output once; the update adds new k/v read and the
+    column written. Operations: 2 products of 2 HD per (head, token).
+    Library yardstick: SDPA with GQA over the context pre-transposed to
+    [B, NKV, pos+1, HD] (the column write outside its time)."""
+    from paddle_tpu_torch.ops import decode_attention as da
+    F = torch.nn.functional
+    b, nh, nkv, hd, pos = GEN_B, 32, 4, 64, 1023
+    kvd, ctx = nkv * hd, pos + 1
+    q, nk, nv, kc, vc = _slab_inputs(dev, torch.bfloat16, b, nh, nkv, hd,
+                                     SLAB_T, SEED)
+    read = b * nh * hd * 2 + 2 * b * kvd * ctx * 2 + b * nh * hd * 4
+    ops = 4 * b * nh * hd * ctx
+    kx, vx = (c[1].reshape(b, nkv, hd, SLAB_T)[..., :ctx].transpose(2, 3)
+              .contiguous() for c in (kc, vc))
+    q4 = q[:, :, None, :]
+    lib = _timed(lambda: F.scaled_dot_product_attention(
+        q4, kx, vx, enable_gqa=True), 100)["ms"]
+    out = {}
+    for name, nbytes, kern, plain in (
+            ("decode_attend_update_slab", read + 4 * b * kvd * 2,
+             lambda: da.decode_attend_update_slab(q, nk, nv, kc, vc, 1, pos),
+             lambda: da.decode_attend_update_plain(q, nk, nv, kc, vc, 1,
+                                                   pos)),
+            ("decode_attention_slab", read,
+             lambda: da.decode_attention_slab(q, kc, vc, 1, pos),
+             lambda: da.decode_attention_plain(q, kc, vc, 1, pos))):
+        r = dict(_timed(kern, 200), plain_ms=_timed(plain, 10)["ms"],
+                 library_ms=lib, **_bound(nbytes, ops, BF16_OPS_PER_S),
+                 bytes=nbytes, context_tokens=ctx)
+        key = f"{name}[B=8,NH=32,NKV=4,HD=64,pos=1023]"
+        out[key] = r
+        print(f"{key} bf16: {r}")
     return out
 
 
@@ -1186,9 +1600,12 @@ def main():
     check_tiny_streams(dev)
     check_tiny_train(dev)
     check_tiny_ernie(dev)
+    check_decode(dev, errs)
+    check_tiny_generate(dev)
     serve = serve_7b(dev)
     train = train_7b(dev)
     ernie = train_ernie(dev)
+    gen = generate_tinyllama(dev)
     tm = times(dev)
     fwd_key = "flash_fwd[B=4,NH=32,S=2048,D=128,causal]"
     bwd_key = "flash_bwd[B=4,NH=32,S=2048,D=128,causal]"
@@ -1229,11 +1646,22 @@ def main():
              "launches": ernie["launches"][name],
              "max_abs_err": errs[name],
              **{k: tm[f"{name}[K={k1},N={n1}]"][k] for k in cols}})
+    for name, line in (("decode_attend_update_slab", 438),
+                       ("decode_attention_slab", 500)):
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "paddle_tpu_torch/csrc/decode_attention.cu",
+             "replaces": f"paddle_tpu/ops/decode_attention.py:{line}",
+             "launches": gen["launches"][name],
+             "max_abs_err": errs[name],
+             **{k: tm[f"{name}[B=8,NH=32,NKV=4,HD=64,pos=1023]"][k]
+                for k in cols}})
     wall_s = time.perf_counter() - t_start
     record = {"nvidia_smi": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "max_abs_err": errs, "serve": serve, "train": train,
-              "ernie": ernie, "times": tm, "wall_s": wall_s}
+              "ernie": ernie, "generate": gen, "times": tm,
+              "wall_s": wall_s}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)

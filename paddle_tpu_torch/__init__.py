@@ -7,11 +7,11 @@ hand-written kernel is replaced by its plain PyTorch version. Kernels
 """
 from .inference import (BlockPool, BlockPoolError, InferenceEngine, Request,
                         ServeConfig, pad_table)
-from .models.llama import (LlamaConfig, init_llama_params,
+from .models.llama import (LlamaConfig, generate, init_llama_params,
                            init_paged_kv_pool, llama_7b, llama_tiny,
                            params_from_numpy)
 
 __all__ = ["BlockPool", "BlockPoolError", "InferenceEngine", "Request",
-           "ServeConfig", "pad_table", "LlamaConfig", "init_llama_params",
-           "init_paged_kv_pool", "llama_7b", "llama_tiny",
-           "params_from_numpy"]
+           "ServeConfig", "pad_table", "LlamaConfig", "generate",
+           "init_llama_params", "init_paged_kv_pool", "llama_7b",
+           "llama_tiny", "params_from_numpy"]

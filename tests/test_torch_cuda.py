@@ -416,3 +416,97 @@ def test_ernie_train_steps_on_card_match_cpu(dev):
     n_moe = cfg.num_hidden_layers // 2
     assert res[0][2] == (0, 0, 0)
     assert res[1][2] == (3 * 2 * n_moe,) * 3
+
+
+# ---------------------------------------------------------------------------
+# slab decode attention and generation
+# ---------------------------------------------------------------------------
+
+from paddle_tpu_torch.ops import decode_attention as da    # noqa: E402
+
+# (rel, frob) of _close, the flash rule. bf16 P is rounded before P.V in
+# both; an f32 sum in another order can move a P on a rounding boundary
+# by one bf16 step.
+SLAB_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -6, 2 ** -10)}
+
+
+def _slab_case(dev, dtype, nh, nkv, hd, T=384, B=3, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kvd = nkv * hd
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    q = (torch.randn((B, nh, hd), generator=g, device=dev)
+         * (da.LOG2E / hd ** 0.5)).to(dtype)
+    return q, randn(B, kvd), randn(B, kvd), randn(2, B, kvd, T), \
+        randn(2, B, kvd, T)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [8, 32, 64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+def test_slab_kernels_match_plain(dev, dtype, hd, rep):
+    """Rows 10 and 11 at pos 0, both sides of a tile edge and T - 1: the
+    attention under the flash rule, the caches bitwise (the written
+    column is new_k/new_v, every other column unchanged)."""
+    q, nk, nv, kc, vc = _slab_case(dev, dtype, 2 * rep, 2, hd)
+    for pos in (0, 127, 128, 300, 383):
+        k0, v0 = kc.clone(), vc.clone()
+        before = (da.decode_attend_update_slab.launches,
+                  da.decode_attention_slab.launches)
+        got_ro = da.decode_attention_slab(q, kc, vc, 1, pos)
+        ref_ro = da.decode_attention_plain(q, k0, v0, 1, pos)
+        kp, vp = kc.clone(), vc.clone()
+        got = da.decode_attend_update_slab(q, nk, nv, kc, vc, 1, pos)
+        ref = da.decode_attend_update_plain(q, nk, nv, kp, vp, 1, pos)
+        torch.cuda.synchronize()
+        assert (da.decode_attend_update_slab.launches,
+                da.decode_attention_slab.launches) == \
+            (before[0] + 1, before[1] + 1)
+        _close(got_ro, ref_ro, SLAB_TOL[dtype])
+        _close(got, ref, SLAB_TOL[dtype])
+        assert torch.equal(kc, kp) and torch.equal(vc, vp)
+        assert torch.equal(kc[1, :, :, pos], nk)
+        k0[1, :, :, pos], v0[1, :, :, pos] = nk, nv
+        assert torch.equal(kc, k0) and torch.equal(vc, v0)
+
+
+def test_slab_kernels_reject_bad_inputs(dev):
+    q, nk, nv, kc, vc = _slab_case(dev, torch.float32, 4, 2, 32)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        da.decode_attention_slab(q, kc[..., :200].contiguous(),
+                                 vc[..., :200].contiguous(), 0, 5)
+    with pytest.raises(ValueError, match="NH/NKV"):
+        da.decode_attention_slab(q.repeat(1, 8, 1).contiguous(), kc, vc, 0, 5)
+    with pytest.raises(ValueError, match="device"):
+        da.decode_attend_update_slab(q.cpu(), nk, nv, kc, vc, 0, 5)
+    with pytest.raises(TypeError):
+        da.decode_attention_slab(q.to(torch.bfloat16), kc, vc, 0, 5)
+
+
+@pytest.mark.parametrize("hidden", [64, 256])     # head_dim 32 and 128
+def test_generation_on_card_matches_cpu(dev, hidden):
+    """Tiny fp32 greedy and beam streams through the kernels on the card
+    equal the CPU's through the plain versions, on the slab cache (head_dim
+    32) and the head-major cache (head_dim 128)."""
+    cfg = tl.llama_tiny(vocab=64, hidden=hidden, layers=2, heads=2,
+                        kv_heads=1, inter=64, seq=512)
+    params = tl.init_llama_params(cfg, seed=1, device="cpu")
+    prompt = np.random.RandomState(0).randint(0, 64, (2, 126)).astype(np.int32)
+    out = []
+    for d in ("cpu", dev):
+        p = {k: ({kk: vv.to(d) for kk, vv in v.items()} if isinstance(v, dict)
+                 else v.to(d)) for k, v in params.items()}
+        before = da.decode_attend_update_slab.launches
+        greedy = tl.greedy_generate(p, prompt, cfg, 6, device=d)
+        seqs, scores = tl.beam_search_generate(p, prompt, cfg, 5, num_beams=3,
+                                               eos_token_id=3,
+                                               length_penalty=0.6, device=d)
+        out.append((greedy, seqs, scores,
+                    da.decode_attend_update_slab.launches - before))
+    np.testing.assert_array_equal(out[1][0], out[0][0])
+    np.testing.assert_array_equal(out[1][1], out[0][1])
+    np.testing.assert_allclose(out[1][2], out[0][2], atol=1e-5, rtol=0)
+    launches = 2 * (5 + 4) if hidden == 64 else 0     # layers x steps
+    assert (out[0][3], out[1][3]) == (0, launches)
