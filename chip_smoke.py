@@ -4,8 +4,8 @@
 
 Phases, in order; any failure exits non-zero before the last line:
   1. probe   - versions, the card's name and power limit (nvidia-smi);
-  2. build   - nvcc builds every kernel source of the serving, training
-               and generation paths, all at once, for sm_90a;
+  2. build   - nvcc builds every kernel source of the serving, training,
+               generation and varlen paths, all at once, for sm_90a;
   3. check   - each kernel against its plain PyTorch version at the
                serving and training paths' shapes, in bf16 (and f32 flash
                and grouped-matmul cases on small adversarial layouts),
@@ -19,6 +19,14 @@ Phases, in order; any failure exits non-zero before the last line:
                cases with an adversarial score spread; tiny fp32 Llamas at
                head_dim 64 (slab cache) and 128 (head-major cache) must
                give the CPU's greedy and beam streams through generation;
+               the varlen kernels (forward, fused backward, split dK/dV
+               and dQ) at the short pack in bf16 and on small f32
+               layouts (single-token and empty segments, tile edges, a
+               padded tail, cross-attention with an empty k segment,
+               whose rows must get exactly 0) with a score spread of
+               hundreds of log2 units, fused against split, the split dQ
+               bitwise over two runs, segment isolation, and GQA 32/4 at
+               head_dim 64 against the CPU;
   4. serve   - InferenceEngine on llama_7b (bf16, full width and depth,
                seeded random weights): 16 requests, prompts of 128-1024
                tokens, 64 new tokens each, Poisson arrivals; prints
@@ -52,10 +60,22 @@ Phases, in order; any failure exits non-zero before the last line:
                make no host sync (sync debug mode); then torch.profiler
                splits one decode step into matmul, decode attention,
                RMSNorm and other device time beside its wall time;
-  8. times   - each kernel timed with CUDA events beside its bound, its
+  8. varlen  - paddle_tpu_torch.nn.functional.flash_attn_unpadded,
+               forward and backward(), at Llama-2-7B's attention width
+               (32 heads x 128, bf16, causal self-attention, seeded
+               inputs) on two packs: bench.py's 16 sequences (16,000
+               tokens; stacked forward and fused backward in JAX's
+               choice) and 16 x 4,096 (65,536 tokens; split backward);
+               prints forward and backward ms, TFLOP/s, peak memory and
+               each kernel's launches counted from each pack alone, and a
+               torch.profiler split of one step; the steps must make no
+               host sync (sync debug mode);
+  9. times   - each kernel timed with CUDA events beside its bound, its
                plain version and one PyTorch library call (a yardstick
-               the port never calls);
-  9. a JSON line {"kernels": [...]}, the total wall seconds, and, last,
+               the port never calls); each varlen kernel is also held
+               to its plain version at the pack it is timed at (the long
+               pack for row 20 and the split pair);
+ 10. a JSON line {"kernels": [...]}, the total wall seconds, and, last,
      {"ok": true, "device": ...}.
 
 Needs one CUDA device; writes its numbers to chiprun_out/chip_smoke.json.
@@ -116,7 +136,7 @@ def build():
     t0 = time.perf_counter()
     paths = _build.build_all(["rms_norm", "paged_attention",
                               "flash_attention", "grouped_matmul",
-                              "decode_attention"])
+                              "decode_attention", "flash_varlen"])
     secs = time.perf_counter() - t0
     for p in paths:
         print(f"built {os.path.relpath(p, ROOT)}")
@@ -641,6 +661,477 @@ def check_tiny_generate(dev):
               f"(tol 1e-5); slab kernel launches {n1}")
 
 
+# varlen kernels against their plain versions under flash_close, with the
+# flash limits: bf16 rel 2^-6, frob 2^-10; f32 1e-5 forward, 1e-4
+# backward; lse 1e-4 absolute. The short pack is bench.py's 16 lengths
+# (16,000 tokens), the long pack 16 x 4,096 (65,536); both at Llama-2-7B's
+# attention width, 32 heads x 128, bf16, causal self-attention.
+VARLEN_SHORT = [2048, 512, 1024, 3072, 256, 896, 1536, 2048,
+                128, 512, 768, 1024, 640, 384, 512, 640]
+VARLEN_LONG = [4096] * 16
+VARLEN_H, VARLEN_D = 32, 128
+VARLEN_TOL = FLASH_TOL
+# f32 layouts of tests/test_varlen_bwd_parity.py (lens_q, lens_k or None
+# for self-attention), the last two cross-attention
+VARLEN_F32 = [([1] * 9, None), ([128, 256, 128], None), ([100, 61], None),
+              ([64, 0, 100, 0, 31], None), ([1, 128, 3, 257, 1], None),
+              ([40, 8, 30], [64, 0, 32]), ([50, 20, 90], [30, 70, 90])]
+
+
+def _cu_dev(lens, dev):
+    return torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                        dtype=torch.int32, device=dev)
+
+
+def _varlen_inputs(dev, dtype, lens_q, lens_k, h, d, seed, spread=None):
+    """Packed [T, H, D] q, k, v, do made on the card from a seed drawn
+    with numpy; keys 64..127 scaled by ``spread`` (scores there lead by
+    hundreds of log2 units)."""
+    g = torch.Generator(device=dev).manual_seed(
+        int(np.random.RandomState(seed).randint(2 ** 31)))
+    tq, tk = sum(lens_q), sum(lens_q if lens_k is None else lens_k)
+
+    def randn(t):
+        return torch.randn((t, h, d), generator=g, device=dev).to(dtype)
+
+    q, k, v, do = randn(tq), randn(tk), randn(tk), randn(tq)
+    if spread:
+        k[64:128] *= spread
+    return q, k, v, do
+
+
+def _spread_lead(q, k):
+    """The largest lead, in log2 units, of a query's best score over keys
+    64..127 over its best over keys 0..63 (None below 65 keys)."""
+    if k.shape[0] <= 64:
+        return None
+    s = torch.einsum("qhd,khd->hqk", q.float(), k[:128].float()) \
+        * (q.shape[-1] ** -0.5 * 1.4426950408889634)
+    return (s[..., 64:].amax(-1) - s[..., :64].amax(-1)).max().item()
+
+
+def varlen_case(fv, q, k, v, do, cu_q, cu_k, causal, dtype):
+    """Every varlen kernel against its plain version on packed [T, H, D]
+    inputs (read in place through [H, T, D] views): {output:
+    flash_close(...)}, the lse's max abs error, and the outputs."""
+    (rel_f, frob_f), (rel_b, frob_b) = VARLEN_TOL[dtype]
+    scale = q.shape[-1] ** -0.5
+    qh, kh, vh, doh = (x.transpose(0, 1) for x in (q, k, v, do))
+    o, lse = fv.varlen_fwd(qh, kh, vh, cu_q, cu_k, causal, scale)
+    o_ref, lse_ref = fv.varlen_fwd_plain(qh, kh, vh, cu_q, cu_k, causal,
+                                         scale)
+    delta = (doh.float() * o_ref.float()).sum(-1).contiguous()
+    args = (qh, kh, vh, doh, lse_ref, delta, cu_q, cu_k, causal, scale)
+    got = {"fused": fv.varlen_bwd(*args),
+           "split": (fv.varlen_bwd_dq(*args), *fv.varlen_bwd_dkv(*args))}
+    want = fv.varlen_bwd_plain(*args)
+    torch.cuda.synchronize()
+    res = {"o": flash_close(o, o_ref, rel_f, frob_f)}
+    for path, grads in got.items():
+        for name, a, b in zip(("dq", "dk", "dv"), grads, want):
+            res[f"{path} {name}"] = flash_close(a, b, rel_b, frob_b)
+    return res, (lse - lse_ref).abs().max().item(), (o, lse, got)
+
+
+def _varlen_err(errs, res):
+    errs["varlen_fwd"] = max(errs.get("varlen_fwd", 0.0), res["o"][3])
+    for kern, keys in (("varlen_bwd", ("fused dq", "fused dk", "fused dv")),
+                       ("varlen_bwd_dq", ("split dq",)),
+                       ("varlen_bwd_dkv", ("split dk", "split dv"))):
+        errs[kern] = max(errs.get(kern, 0.0), *(res[n][3] for n in keys))
+
+
+def check_varlen(dev, errs):
+    from paddle_tpu_torch.ops import flash_varlen as fv
+    phase("check varlen kernels against their plain versions")
+    cases = [(f"short pack H={VARLEN_H} D={VARLEN_D}", torch.bfloat16,
+              VARLEN_SHORT, None, VARLEN_H, VARLEN_D, None)]
+    cases += [(f"layout {lq}/{lk}", torch.float32, lq, lk, 2, d, SPREAD_SCALE)
+              for (lq, lk), d in zip(VARLEN_F32, (64, 128) * 4)]
+    for i, (name, dtype, lq, lk, h, d, spread) in enumerate(cases):
+        q, k, v, do = _varlen_inputs(dev, dtype, lq, lk, h, d, SEED + i,
+                                     spread)
+        cu_q = _cu_dev(lq, dev)
+        cu_k = cu_q if lk is None else _cu_dev(lk, dev)
+        for causal in ((True,) if lk is None and h > 2 else (True, False)):
+            res, err_lse, (o, lse, got) = varlen_case(
+                fv, q, k, v, do, cu_q, cu_k, causal, dtype)
+            lead = _spread_lead(q, k) if spread else None
+            lead = "" if lead is None else (
+                f", keys 64..127 lead keys 0..63 by up to {lead:.1f} log2 "
+                f"units")
+            print(f"varlen {name} causal={causal} {str(dtype)[6:]} H={h} "
+                  f"D={d}: lse max_abs_err {err_lse:.2e}{lead}")
+            for out, (ok, excess, fro, err) in res.items():
+                print(f"  {out}: max_abs_err {err:.3e}  worst excess "
+                      f"{excess:.3e}  rel frob {fro:.3e}  "
+                      f"{'ok' if ok else 'FAILED'}")
+            assert all(r[0] for r in res.values()), f"varlen disagrees: {res}"
+            assert err_lse <= 1e-4, f"varlen lse err {err_lse}"
+            _varlen_err(errs, res)
+            if lk is not None and 0 in lk:
+                s0 = lk.index(0)
+                r0, r1 = sum(lq[:s0]), sum(lq[:s0 + 1])
+                for x in (o, got["fused"][0], got["split"][0]):
+                    assert (x[:, r0:r1] == 0).all(), "empty k segment: not 0"
+                print(f"  rows {r0}..{r1 - 1} (empty k segment): o, fused "
+                      f"and split dq exactly 0")
+        torch.cuda.empty_cache()
+    check_varlen_paths(fv, dev, errs)
+
+
+def check_varlen_paths(fv, dev, errs):
+    """Fused against split at the short pack (bf16 limits), the split dQ
+    bitwise over two runs, segment isolation, and GQA at TinyLlama's width
+    through the autograd entry against the CPU's plain versions."""
+    q, k, v, do = _varlen_inputs(dev, torch.bfloat16, VARLEN_SHORT, None,
+                                 VARLEN_H, VARLEN_D, SEED + 40)
+    cu = _cu_dev(VARLEN_SHORT, dev)
+    scale = VARLEN_D ** -0.5
+    rel, frob = VARLEN_TOL[torch.bfloat16][1]
+
+    def grads(k, v):
+        qh, kh, vh, doh = (x.transpose(0, 1) for x in (q, k, v, do))
+        o, lse = fv.varlen_fwd(qh, kh, vh, cu, cu, True, scale)
+        delta = (doh.float() * o.float()).sum(-1).contiguous()
+        args = (qh, kh, vh, doh, lse, delta, cu, cu, True, scale)
+        return o, fv.varlen_bwd(*args), fv.varlen_bwd_dq(*args), \
+            fv.varlen_bwd_dkv(*args)
+
+    o, fused, dq, dkv = grads(k, v)
+    dq2 = grads(k, v)[2]
+    torch.cuda.synchronize()
+    assert torch.equal(dq, dq2), "split dQ differs between two runs"
+    worst = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), fused, (dq,) + dkv):
+        ok, excess, fro, err = flash_close(a, b, rel, frob)
+        worst = max(worst, fro)
+        assert ok, f"fused and split {name} disagree: {excess} {fro}"
+    print(f"varlen short pack: fused vs split dq, dk, dv within rel {rel:g}"
+          f"/frob {frob:g} (worst rel frob {worst:.3e}); split dq bitwise "
+          f"equal over two runs")
+    seg = slice(sum(VARLEN_SHORT[:3]), sum(VARLEN_SHORT[:4]))  # 3,072
+    k2, v2 = k.clone(), v.clone()
+    k2[seg] = -3 * k2[seg]
+    v2[seg] = v2[seg] + 1
+    o2, fused2, dq_2, dkv2 = grads(k2, v2)
+    torch.cuda.synchronize()
+    keep = torch.ones(sum(VARLEN_SHORT), dtype=torch.bool, device=dev)
+    keep[seg] = False
+    for a, b in zip((o, fused[1], fused[2], dq) + dkv,
+                    (o2, fused2[1], fused2[2], dq_2) + dkv2):
+        assert torch.equal(a[:, keep], b[:, keep]), "segments interact"
+    assert flash_close(fused2[0][:, keep], fused[0][:, keep], rel, frob)[0]
+    assert not torch.equal(o[:, seg], o2[:, seg])
+    print("varlen isolation: segment 3's k and v changed; every other "
+          "segment's o, dq (split), dk and dv bitwise the same, fused dq "
+          "within the bf16 limits (atomics)")
+    del q, k, v, do, k2, v2, fused, fused2, dkv, dkv2
+    torch.cuda.empty_cache()
+
+    # GQA, TinyLlama's attention width: 32 q heads over 4 kv heads, D 64
+    lens = [300, 1, 64, 500, 135]
+    rng = np.random.RandomState(SEED + 41)
+    host = [torch.from_numpy(rng.randn(sum(lens), h, 64).astype(np.float32))
+            for h in (32, 4, 4)]
+    dout = torch.from_numpy(rng.randn(sum(lens), 32, 64).astype(np.float32))
+    outs = []
+    for d in ("cpu", dev):
+        x = [a.to(d, copy=True).requires_grad_() for a in host]
+        c = _cu_dev(lens, d)
+        o = fv.flash_varlen_attention(*x, c, c, 0.125, True)
+        o.backward(dout.to(d))
+        outs.append([o.detach().cpu()] + [a.grad.cpu() for a in x])
+    for name, a, b, (r, f) in zip(("o", "dq", "dk", "dv"), outs[1], outs[0],
+                                  ((1e-5, 1e-5),) + ((1e-4, 1e-4),) * 3):
+        ok, excess, fro, err = flash_close(a, b, r, f)
+        print(f"varlen GQA 32/4 D=64 f32 {name}: card kernels vs CPU plain "
+              f"max_abs_err {err:.3e}  rel frob {fro:.3e}  "
+              f"{'ok' if ok else 'FAILED'}")
+        assert ok, f"GQA {name} disagrees"
+
+
+VARLEN_ITERS = {"short": 5, "long": 3}
+VARLEN_KERNELS = ("varlen_fwd", "varlen_bwd", "varlen_bwd_dkv",
+                  "varlen_bwd_dq")
+
+
+def _host_syncs(fn):
+    """Runs fn() under torch.cuda's sync debug mode, which warns on every
+    call that waits for the card; returns those warnings."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [str(w.message) for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def varlen_phase(dev):
+    """flash_attn_unpadded, forward and backward(), at Llama-2-7B's
+    attention width (32 heads x 128, bf16, causal self-attention: one cu
+    object for q and k), on the short and the long pack. Per pack: one
+    warm-up step, one step under sync debug mode (no host sync allowed),
+    then timed steps: forward ms and backward ms from CUDA events, TFLOP/s
+    (forward 4 H D sum(L^2) / 2, bench.py's count; backward 2.5 times
+    that), peak memory, each kernel's launches counted from this pack's
+    run alone, and a torch.profiler split of one more step."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.ops import flash_varlen as fv
+    phase(f"varlen: flash_attn_unpadded fwd+bwd, {VARLEN_H} heads x "
+          f"{VARLEN_D}, bf16, causal, short and long packs")
+    out = {"packs": {}}
+    for name, lens in (("short", VARLEN_SHORT), ("long", VARLEN_LONG)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        q, k, v, do = _varlen_inputs(dev, torch.bfloat16, lens, None,
+                                     VARLEN_H, VARLEN_D, SEED + 50)
+        xs = [x.requires_grad_() for x in (q, k, v)]
+        cu = _cu_dev(lens, dev)
+        longest, total = max(lens), sum(lens)
+
+        def fwd():
+            return F.flash_attn_unpadded(*xs, cu, cu, longest, longest,
+                                         causal=True)[0]
+
+        def step():
+            for x in xs:
+                x.grad = None
+            fwd().backward(do)
+
+        step()
+        torch.cuda.synchronize()
+        syncs = _host_syncs(step)
+        assert not syncs, syncs
+        iters = VARLEN_ITERS[name]
+        ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+              for _ in range(iters)]
+        for e0, e1, e2 in ev:
+            for x in xs:
+                x.grad = None
+            e0.record()
+            o = fwd()
+            e1.record()
+            o.backward(do)
+            e2.record()
+        torch.cuda.synchronize()
+        fwd_ms = sum(e0.elapsed_time(e1) for e0, e1, _ in ev) / iters
+        bwd_ms = sum(e1.elapsed_time(e2) for _, e1, e2 in ev) / iters
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        assert o.shape == (total, VARLEN_H, VARLEN_D) \
+            and o.dtype == torch.bfloat16
+        assert all(bool(torch.isfinite(t).all())
+                   for t in [o] + [x.grad for x in xs])
+        prof = profile_varlen(step)
+        launches = _counts()
+        runs = iters + 3        # warm-up, sync check, timed, profiled
+        stacked, fused = fv.plan_path(total, total, len(lens), VARLEN_H,
+                                      VARLEN_D, torch.bfloat16, True)
+        want = {"varlen_fwd": runs, "varlen_bwd": runs if fused else 0,
+                "varlen_bwd_dkv": 0 if fused else runs,
+                "varlen_bwd_dq": 0 if fused else runs}
+        assert all(launches[kk] == n for kk, n in want.items()), launches
+        assert all(n == 0 for kk, n in launches.items() if kk not in want), \
+            launches
+        flops = 4 * VARLEN_H * VARLEN_D * sum(L * L for L in lens) / 2
+        r = {"lens": lens, "tokens": total, "max_seqlen": longest,
+             "stacked_row_19": stacked, "fused_backward": fused,
+             "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+             "fwd_tflops": flops / fwd_ms / 1e9,
+             "bwd_tflops": 2.5 * flops / bwd_ms / 1e9,
+             "peak_mem_gib": peak, "host_syncs": len(syncs),
+             "launches": launches, "profile": prof}
+        out["packs"][name] = r
+        print(f"{name} pack: {len(lens)} sequences, {total} tokens, longest "
+              f"{longest}; path: {'stacked (row 19)' if stacked else 'row 20'}"
+              f" forward, {'fused (row 21)' if fused else 'split (rows 22, 23)'}"
+              f" backward")
+        print(f"  forward {fwd_ms:.3f} ms ({r['fwd_tflops']:.1f} TFLOP/s), "
+              f"backward {bwd_ms:.3f} ms ({r['bwd_tflops']:.1f} TFLOP/s), "
+              f"peak mem {peak:.2f} GiB, host syncs {len(syncs)}")
+        print(f"  launches {launches} ({runs} fwd+bwd runs)")
+        del q, k, v, do, xs, o
+    out["launches"] = {kk: sum(r["launches"][kk] for r in
+                               out["packs"].values()) for kk in VARLEN_KERNELS}
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_varlen(step):
+    """One fwd+bwd under torch.profiler: device ms of the varlen kernels
+    against everything else (the delta reduction, the dQ cast, copies).
+    A small kernel and a synchronize come first inside the window: the
+    tracer can miss the first launches after it starts."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        step()
+        torch.cuda.synchronize()
+    by_class, top = _device_ms_by_class(prof)
+    by_class.pop("warm-up", None)
+    top = [x for x in top if "spin_kernel" not in x[2]]
+    device_ms = sum(by_class.values())
+    print(f"  profile of one fwd+bwd: device {device_ms:.3f} ms, by class "
+          f"(ms) {by_class}")
+    for ms, n, key in sorted(top, reverse=True)[:6]:
+        print(f"    {ms:9.3f} ms  x{n:<3d} {key}")
+    return {"device_ms": device_ms, "by_class_ms": by_class,
+            "top": sorted(top, reverse=True)[:8]}
+
+
+def _library_varlen(q, k, v, do, cu, longest, scale):
+    """One PyTorch call for the same packed attention, the yardstick the
+    port never calls: aten's _flash_attention_forward / _backward with
+    cum_seq (the same packed layout); where torch refuses them, SDPA over
+    a block-diagonal causal boolean mask (None above 2^15 tokens, where
+    the mask alone is too large). Returns (what was timed, forward,
+    backward, the refusal met, if any)."""
+    errors = []
+    A = torch.ops.aten
+    try:
+        res = A._flash_attention_forward(q, k, v, cu, cu, longest, longest,
+                                         0.0, True, False, scale=scale)
+        o, lse, rng, unused = res[0], res[1], res[2], res[3]
+
+        def fwd():
+            return A._flash_attention_forward(q, k, v, cu, cu, longest,
+                                              longest, 0.0, True, False,
+                                              scale=scale)
+
+        def bwd():
+            return A._flash_attention_backward(do, q, k, v, o, lse, cu, cu,
+                                               longest, longest, 0.0, True,
+                                               rng, unused, scale=scale)
+        bwd()
+        torch.cuda.synchronize()
+        return "aten._flash_attention_forward/_backward (cum_seq)", fwd, \
+            bwd, errors
+    except RuntimeError as e:   # a refused call: recorded, then SDPA
+        errors.append(f"aten._flash_attention_*: {type(e).__name__}: "
+                      f"{str(e)[:300]}")
+    t = q.shape[0]
+    if t > 1 << 15:
+        return None, None, None, errors
+    seg = torch.searchsorted(cu.long(), torch.arange(t, device=q.device),
+                             right=True)
+    idx = torch.arange(t, device=q.device)
+    mask = (seg[:, None] == seg[None, :]) & (idx[:, None] >= idx[None, :])
+    q4, k4, v4, do4 = (x.transpose(0, 1)[None] for x in (q, k, v, do))
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q4, k4, v4))
+    F = torch.nn.functional
+
+    def fwd():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                              scale=scale)
+
+    def both():
+        o4 = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                            scale=scale)
+        return torch.autograd.grad(o4, (qg, kg, vg), do4)
+    return "SDPA over a block-diagonal causal mask (bwd: fwd+bwd - fwd)", \
+        fwd, both, errors
+
+
+def _varlen_held(kern, pack, fn, plain, names):
+    """fn() against plain() output by output (bf16 limits; an f32 lse to
+    1e-4 absolute); asserts, and returns the errors."""
+    (rel_f, frob_f), (rel_b, frob_b) = VARLEN_TOL[torch.bfloat16]
+    got, want = fn(), plain()
+    got, want = (got if isinstance(got, tuple) else (got,),
+                 want if isinstance(want, tuple) else (want,))
+    torch.cuda.synchronize()
+    res = {}
+    for out, a, b in zip(names, got, want):
+        if out == "lse":
+            err = (a - b).abs().max().item()
+            res[out] = (err <= 1e-4, err - 1e-4, None, err)
+        else:
+            rel, frob = (rel_f, frob_f) if out == "o" else (rel_b, frob_b)
+            res[out] = flash_close(a, b, rel, frob)
+    print(f"{kern} at the {pack} pack against its plain version: " + ", ".join(
+        f"{out} max_abs_err {r[3]:.3e} {'ok' if r[0] else 'FAILED'}"
+        for out, r in res.items()))
+    assert all(r[0] for r in res.values()), f"{kern} {pack} disagrees: {res}"
+    return {"max_abs_err": max(r[3] for n, r in res.items() if n != "lse"),
+            "outputs": {n: {"max_abs_err": r[3], "rel_frob": r[2]}
+                        for n, r in res.items()}}
+
+
+def varlen_times(dev, errs):
+    """Rows 20-23 at the varlen phase's shapes (32 heads x 128, bf16,
+    causal): the forward and the fused backward at the short pack (their
+    main-path shape), the forward and the split pair at the long pack.
+    Each timed kernel's outputs are held to its plain version's on the
+    same inputs under the bf16 limits (o, dq, dk, dv; lse within 1e-4),
+    and the errors join ``errs``. Work counted for the live pairs,
+    sum L (L + 1) / 2 a head: the forward does 2 products (QK^T, PV), the fused backward 5, the split dK/dV 4
+    (S, dV, dP, dK) and dQ 3 (S, dP, dQ), 2 D operations per pair each.
+    Bytes: each input read once (q, k, v, dO, lse, delta as the kernel
+    takes them), each output written once."""
+    from paddle_tpu_torch.ops import flash_varlen as fv
+    h, d, scale = VARLEN_H, VARLEN_D, VARLEN_D ** -0.5
+    out = {}
+    for name, lens in (("short", VARLEN_SHORT), ("long", VARLEN_LONG)):
+        q, k, v, do = _varlen_inputs(dev, torch.bfloat16, lens, None, h, d,
+                                     SEED + 60)
+        cu = _cu_dev(lens, dev)
+        t, longest = sum(lens), max(lens)
+        qh, kh, vh, doh = (x.transpose(0, 1) for x in (q, k, v, do))
+        o, lse = fv.varlen_fwd(qh, kh, vh, cu, cu, True, scale)
+        delta = (doh.float() * o.float()).sum(-1).contiguous()
+        args = (qh, kh, vh, doh, lse, delta, cu, cu, True, scale)
+        pairs = h * sum(L * (L + 1) // 2 for L in lens)
+        el = t * h * d * 2              # one [T, H, D] bf16 tensor, bytes
+        st = t * h * 4                  # one [H, T] f32 row statistic
+        desc, lib_fwd, lib_bwd, refused = _library_varlen(q, k, v, do, cu,
+                                                          longest, scale)
+        lf = _timed(lib_fwd, 10)["ms"] if lib_fwd else None
+        lb = _timed(lib_bwd, 10)["ms"] if lib_bwd else None
+        if lb is not None and desc.startswith("SDPA"):
+            lb -= lf
+        calls = [("varlen_fwd", lambda: fv.varlen_fwd(qh, kh, vh, cu, cu,
+                                                      True, scale),
+                  lambda: fv.varlen_fwd_plain(qh, kh, vh, cu, cu, True,
+                                              scale),
+                  4 * el + st, 2, lf, ("o", "lse"))]
+        if name == "short":
+            calls.append(("varlen_bwd", lambda: fv.varlen_bwd(*args),
+                          lambda: fv.varlen_bwd_plain(*args),
+                          7 * el + 2 * st, 5, lb, ("dq", "dk", "dv")))
+        else:
+            calls += [("varlen_bwd_dkv", lambda: fv.varlen_bwd_dkv(*args),
+                       lambda: fv.varlen_bwd_dkv_plain(*args),
+                       6 * el + 2 * st, 4, lb, ("dk", "dv")),
+                      ("varlen_bwd_dq", lambda: fv.varlen_bwd_dq(*args),
+                       lambda: fv.varlen_bwd_dq_plain(*args),
+                       5 * el + 2 * st, 3, lb, ("dq",))]
+        for kern, fn, plain, nbytes, products, lib, names in calls:
+            check = _varlen_held(kern, name, fn, plain, names)
+            errs[kern] = max(errs.get(kern, 0.0), check["max_abs_err"])
+            r = dict(_timed(fn, 10), plain_ms=_timed(plain, 1)["ms"],
+                     check=check,
+                     library_ms=lib, library=desc,
+                     library_refusals=refused,
+                     **_bound(nbytes, products * 2 * d * pairs,
+                              BF16_OPS_PER_S),
+                     bytes=nbytes, operations=products * 2 * d * pairs,
+                     live_pairs=pairs)
+            key = f"{kern}[{name} pack,T={t},H={h},D={d},causal]"
+            out[key] = r
+            print(f"{key} bf16: {r}")
+        del q, k, v, do, o, args
+        torch.cuda.empty_cache()
+    return out
+
+
 def serve_7b(dev):
     from paddle_tpu_torch import (InferenceEngine, Request, ServeConfig,
                                   init_llama_params, llama_7b)
@@ -703,9 +1194,12 @@ def serve_7b(dev):
 def _zero_counts():
     from paddle_tpu_torch.ops import decode_attention as da
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import flash_varlen as fv
     from paddle_tpu_torch.ops import grouped_matmul as tg
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import rms_norm as rn
+    for name in VARLEN_KERNELS:
+        getattr(fv, name).launches = 0
     rn.fused_rms_norm.launches = 0
     pa.paged_attend_update.launches = 0
     fa.flash_fwd.launches = fa.flash_bwd.launches = 0
@@ -717,10 +1211,12 @@ def _zero_counts():
 def _counts():
     from paddle_tpu_torch.ops import decode_attention as da
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import flash_varlen as fv
     from paddle_tpu_torch.ops import grouped_matmul as tg
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import rms_norm as rn
-    return {"rms_norm": rn.fused_rms_norm.launches,
+    return {**{name: getattr(fv, name).launches for name in VARLEN_KERNELS},
+            "rms_norm": rn.fused_rms_norm.launches,
             "paged_attend_update": pa.paged_attend_update.launches,
             "flash_fwd": fa.flash_fwd.launches,
             "flash_bwd": fa.flash_bwd.launches,
@@ -1187,12 +1683,22 @@ def _device_ms_by_class(prof):
 
 
 def _kernel_class(name):
+    if "spin_kernel" in name:        # torch.cuda._sleep
+        return "warm-up"
     if "paged_update_kernel" in name:
         return "paged_attend_update"
     if "slab_kernel" in name:
         return "decode_attention"
     if "rms_norm_kernel" in name:
         return "rms_norm"
+    if "varlen_fwd_kernel" in name:
+        return "varlen_fwd"
+    if "varlen_bwd_kernel" in name:
+        return "varlen_bwd_dkv" if ", false>" in name else "varlen_bwd"
+    if "varlen_dq_kernel" in name:
+        return "varlen_bwd_dq"
+    if "dq_cast_kernel" in name:      # the fused varlen backward's dQ cast
+        return "varlen_bwd"
     if "flash_fwd_kernel" in name:
         return "flash_fwd"
     if "flash_bwd_kernel" in name or "dq_finalize_kernel" in name:
@@ -1343,7 +1849,7 @@ def _bound(nbytes, ops, ops_per_s):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def times(dev):
+def times(dev, errs):
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import rms_norm as rn
     phase("times (CUDA events; ms = device time per call)")
@@ -1404,6 +1910,7 @@ def times(dev):
     out.update(flash_times(dev))
     out.update(gmm_times(dev))
     out.update(slab_times(dev))
+    out.update(varlen_times(dev, errs))
     return out
 
 
@@ -1602,11 +2109,13 @@ def main():
     check_tiny_ernie(dev)
     check_decode(dev, errs)
     check_tiny_generate(dev)
+    check_varlen(dev, errs)
     serve = serve_7b(dev)
     train = train_7b(dev)
     ernie = train_ernie(dev)
     gen = generate_tinyllama(dev)
-    tm = times(dev)
+    varlen = varlen_phase(dev)
+    tm = times(dev, errs)
     fwd_key = "flash_fwd[B=4,NH=32,S=2048,D=128,causal]"
     bwd_key = "flash_bwd[B=4,NH=32,S=2048,D=128,causal]"
     cols = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1656,11 +2165,26 @@ def main():
              "max_abs_err": errs[name],
              **{k: tm[f"{name}[B=8,NH=32,NKV=4,HD=64,pos=1023]"][k]
                 for k in cols}})
+    for name, line, pack in (("varlen_fwd", 675, "short"),
+                             ("varlen_bwd", 740, "short"),
+                             ("varlen_bwd_dkv", 866, "long"),
+                             ("varlen_bwd_dq", 935, "long")):
+        t = sum(VARLEN_SHORT if pack == "short" else VARLEN_LONG)
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "paddle_tpu_torch/csrc/flash_varlen.cu",
+             "replaces": f"paddle_tpu/ops/flash_varlen.py:{line}",
+             "launches": varlen["launches"][name],
+             "max_abs_err": errs[name],
+             **{k: tm[f"{name}[{pack} pack,T={t},H={VARLEN_H},"
+                      f"D={VARLEN_D},causal]"][k] for k in cols}})
+    assert all(kk["launches"] > 0 for kk in kernels[-4:]), kernels
     wall_s = time.perf_counter() - t_start
     record = {"nvidia_smi": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "max_abs_err": errs, "serve": serve, "train": train,
-              "ernie": ernie, "generate": gen, "times": tm,
+              "ernie": ernie, "generate": gen, "varlen": varlen,
+              "times": tm,
               "wall_s": wall_s}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

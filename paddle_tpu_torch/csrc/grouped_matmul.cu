@@ -23,8 +23,8 @@
 // operands whose contraction index is strided are read with ldmatrix.trans,
 // so nothing is ever stored transposed, and rows are padded by 16 bytes to
 // keep ldmatrix free of bank conflicts. f32 runs the same block by scalar
-// FMAs in the same register layout (no TF32). The warp-level helpers follow
-// csrc/flash_attention.cu. No wgmma, TMA or persistent schedule yet.
+// FMAs in the same register layout (no TF32). The warp-level helpers are
+// csrc/mma_common.cuh's. No wgmma, TMA or persistent schedule yet.
 //
 //   forward: grid (N / 64, tiles); the 128-row tile of lhs against 64
 //            columns of rhs[e]; the column blocks of one tile are
@@ -44,34 +44,13 @@
 // multiple of 128, N of 64, int32 schedule arrays of n_tiles entries. The
 // kernels allocate nothing and do not synchronise; they launch on the
 // caller's stream.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "mma_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
 constexpr int kTileRows = 128;  // rows of a schedule tile
 constexpr int BM = 128, BN = 64;  // CTA output block
 constexpr int MT = 2, NT = 8;     // a warp's m16 and n8 tiles (32 x 64)
-
-using bf16 = __nv_bfloat16;
-
-// store two neighbouring elements (even offset) rounded to T
-__device__ __forceinline__ void st_pair(float* p, float x0, float x1) {
-  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
-}
-__device__ __forceinline__ void st_pair(bf16* p, float x0, float x1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
-}
-
-__device__ __forceinline__ void cp_async16(void* s, const void* g) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(s));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(g));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
 // Shared-memory layout of one pipeline stage: an A slice and a B slice of
 // one contraction chunk of BKK elements.
@@ -109,33 +88,8 @@ __device__ __forceinline__ void copy_block(T* s, const T* g, size_t gld) {
 // B_KC: B(k, n) = b[n * ldb + k] (k contiguous), else b[k * ldb + n].
 // ---------------------------------------------------------------------------
 
-// ldmatrix: four 8x8 b16 matrices; lane r gives the address of row (r % 8)
-// of matrix r / 8. With .trans lane (g, t) receives elements (2t, g) and
-// (2t + 1, g) of each matrix instead of (g, 2t) and (g, 2t + 1).
-template <bool TRANS>
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  if (TRANS)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 template <bool A_KC, bool B_KC>
-__device__ __forceinline__ void warp_mm(float (&c)[MT][NT][4], const bf16* a, int lda,
+__device__ __forceinline__ void warp_mm_32x64(float (&c)[MT][NT][4], const bf16* a, int lda,
                                         const bf16* b, int ldb, int K) {
   const int r = threadIdx.x & 31, r8 = r & 7, h1 = (r >> 3) & 1, h2 = r >> 4;
   const bf16* pa = A_KC ? a + (r8 + h1 * 8) * lda + h2 * 8 : a + (r8 + h2 * 8) * lda + h1 * 8;
@@ -158,14 +112,9 @@ __device__ __forceinline__ void warp_mm(float (&c)[MT][NT][4], const bf16* a, in
   }
 }
 
-template <bool KC>
-__device__ __forceinline__ float ld_el(const float* p, int ld, int row, int k) {
-  return KC ? p[row * ld + k] : p[k * ld + row];
-}
-
 // f32: the same tile by scalar FMAs (TF32 would round the inputs)
 template <bool A_KC, bool B_KC>
-__device__ __forceinline__ void warp_mm(float (&c)[MT][NT][4], const float* a, int lda,
+__device__ __forceinline__ void warp_mm_32x64(float (&c)[MT][NT][4], const float* a, int lda,
                                         const float* b, int ldb, int K) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   for (int k = 0; k < K; ++k) {
@@ -223,7 +172,7 @@ __device__ __forceinline__ void block_mm(float (&c)[MT][NT][4], T* smem, int nch
   const int warp = threadIdx.x >> 5;
   if (nchunks > 0) load(0, 0);
   for (int j = 0; j < nchunks; ++j) {
-    cp_wait_all();
+    cp_wait<0>();
     // chunk j has landed for every thread, and every warp is done with
     // chunk j - 1, whose stage the next copy refills
     __syncthreads();
@@ -231,7 +180,7 @@ __device__ __forceinline__ void block_mm(float (&c)[MT][NT][4], T* smem, int nch
     const T* sa = smem + (j & 1) * C::STAGE;
     const T* sb = sa + C::A_ELEMS;
     const T* aw = A_KC ? sa + warp * 32 * LDA : sa + warp * 32;
-    warp_mm<A_KC, B_KC>(c, aw, LDA, sb, LDB, BKK);
+    warp_mm_32x64<A_KC, B_KC>(c, aw, LDA, sb, LDB, BKK);
   }
 }
 

@@ -47,6 +47,7 @@ from ..ops.decode_attention import TILE_T, decode_attend_update_slab
 from ..ops.flash_attention import flash_attention_bshd
 from ..ops.paged_attention import LOG2E, paged_attend_update
 from ..ops.rms_norm import fused_rms_norm
+from ..nn.functional.attention import _xla_sdpa
 from ..ops.rope import apply_rope, build_rope_cache
 from ..parallel.moe import _top_k
 
@@ -459,35 +460,13 @@ def _qkv(p, layer: int, x, config: LlamaConfig):
             v.reshape(*lead, nkv, hd))
 
 
-def _sdpa_plain(q, k, v):
-    """Causal attention, a plain copy of the JAX ``_xla_sdpa``: q, k, v
-    [B, S, H(kv), D], GQA by repeating kv heads, f32 logits with an
-    additive -1e30 mask above the diagonal, P cast to v's dtype before
-    P.V. Returns [B, S, H, D] in q's dtype."""
-    qh = q.transpose(1, 2).float()
-    kh = k.transpose(1, 2).float()
-    vh = v.transpose(1, 2)
-    if kh.shape[1] != qh.shape[1]:
-        rep = qh.shape[1] // kh.shape[1]
-        kh = torch.repeat_interleave(kh, rep, dim=1)
-        vh = torch.repeat_interleave(vh, rep, dim=1)
-    s = 1.0 / torch.sqrt(torch.full((), float(q.shape[-1]), device=q.device))
-    logits = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * s
-    sq, sk = logits.shape[-2:]
-    neg = torch.triu(torch.full((sq, sk), -1e30, device=q.device),
-                     diagonal=sk - sq + 1)
-    probs = torch.softmax(logits + neg, dim=-1)
-    out = torch.matmul(probs.to(vh.dtype), vh)
-    return out.transpose(1, 2).to(q.dtype)
-
-
 @torch.no_grad()
 def llama_prefill(params, cache, ids, config: LlamaConfig):
     """Batched prompt prefill: one pass over ids [B, S] writes the first S
     columns of the cache in place and returns (last-position logits
     [B, vocab] f32, cache with ``pos`` advanced by S). Attention is the
-    flash kernel for S >= 1024, else :func:`_sdpa_plain`, the branch the
-    JAX prefill takes."""
+    flash kernel for S >= 1024, else the plain causal :func:`_xla_sdpa`,
+    the branch the JAX prefill takes."""
     c = config
     b, s = ids.shape
     hd = c.head_dim
@@ -510,7 +489,7 @@ def llama_prefill(params, cache, ids, config: LlamaConfig):
         if s >= 1024:
             attn = flash_attention_bshd(q, k, v, causal=True)
         else:
-            attn = _sdpa_plain(q, k, v)
+            attn = _xla_sdpa(q, k, v, is_causal=True)
         h = h + _mat(attn.reshape(b, s, nh * hd), _at(p["o_proj"], layer))
         x2 = fused_rms_norm(h, p["post_norm"][layer], c.rms_norm_eps)
         h = h + _mlp(p, layer, x2)

@@ -12,6 +12,7 @@ import torch
 
 from paddle_tpu_torch.models import llama as tl
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import flash_varlen as fv
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops.rms_norm import fused_rms_norm, rms_norm_plain
 
@@ -510,3 +511,195 @@ def test_generation_on_card_matches_cpu(dev, hidden):
     np.testing.assert_allclose(out[1][2], out[0][2], atol=1e-5, rtol=0)
     launches = 2 * (5 + 4) if hidden == 64 else 0     # layers x steps
     assert (out[0][3], out[1][3]) == (0, launches)
+
+
+# ---------------------------------------------------------------------------
+# packed varlen attention (rows 19-23)
+# ---------------------------------------------------------------------------
+
+VARLEN_LAYOUTS = [
+    # single-token segments among longer ones (a pack of single tokens
+    # alone has dq = dk = 0 in exact arithmetic: rounding noise only)
+    ([1, 1, 1, 40, 1, 1, 1, 30, 1], None),
+    ([64, 128, 64], None),              # segment ends on tile edges
+    ([100, 61, 139], None),             # a padded tail (300 tokens)
+    ([64, 0, 100, 0, 31], None),        # empty segments
+    ([1, 128, 3, 257, 1], None),        # mixed
+    ([40, 8, 30], [64, 0, 32]),         # cross: an empty k segment
+    ([50, 20, 90], [30, 70, 90]),       # cross: len_q != len_k
+]
+
+
+def _varlen_case(dev, dtype, lens_q, lens_k, h, d, seed, packed=True):
+    """[H, T, D] operands (views of packed [T, H, D], or contiguous) and
+    cu on the card; the k side is the q side's cu object for
+    self-attention."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cu_q = torch.tensor(np.concatenate([[0], np.cumsum(lens_q)]),
+                        dtype=torch.int32, device=dev)
+    cu_k = cu_q if lens_k is None else torch.tensor(
+        np.concatenate([[0], np.cumsum(lens_k)]), dtype=torch.int32,
+        device=dev)
+    tq, tk = sum(lens_q), sum(lens_q if lens_k is None else lens_k)
+
+    def make(t):
+        x = torch.randn((t, h, d), generator=g, device=dev).to(dtype)
+        return x.transpose(0, 1) if packed else x.transpose(0, 1).contiguous()
+    return make(tq), make(tk), make(tk), make(tq), cu_q, cu_k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("layout", range(len(VARLEN_LAYOUTS)))
+def test_varlen_kernels_match_plain(dev, dtype, d, causal, layout):
+    lens_q, lens_k = VARLEN_LAYOUTS[layout]
+    q, k, v, do, cu_q, cu_k = _varlen_case(dev, dtype, lens_q, lens_k, 3, d,
+                                           layout, packed=layout % 2 == 0)
+    scale = d ** -0.5
+    (tol_f, tol_b) = FLASH_TOL[dtype]
+    before = (fv.varlen_fwd.launches, fv.varlen_bwd.launches,
+              fv.varlen_bwd_dkv.launches, fv.varlen_bwd_dq.launches)
+    o, lse = fv.varlen_fwd(q, k, v, cu_q, cu_k, causal, scale)
+    o_ref, lse_ref = fv.varlen_fwd_plain(q, k, v, cu_q, cu_k, causal, scale)
+    delta = (do.float() * o_ref.float()).sum(-1).contiguous()
+    args = (q, k, v, do, lse_ref, delta, cu_q, cu_k, causal, scale)
+    fused = fv.varlen_bwd(*args)
+    split = fv.varlen_bwd_dq(*args), *fv.varlen_bwd_dkv(*args)
+    want = fv.varlen_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert (fv.varlen_fwd.launches, fv.varlen_bwd.launches,
+            fv.varlen_bwd_dkv.launches, fv.varlen_bwd_dq.launches) == \
+        tuple(b + 1 for b in before)
+    assert o.stride() == q.stride() and fused[0].stride() == q.stride()
+    _close(o, o_ref, tol_f)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+    for got in (fused, split):
+        for a, b in zip(got, want):
+            _close(a, b, tol_b)
+    if lens_k is not None and 0 in lens_k:
+        s = lens_k.index(0)
+        r0, r1 = sum(lens_q[:s]), sum(lens_q[:s + 1])
+        for x in (o, fused[0], split[0]):
+            assert (x[:, r0:r1] == 0).all()
+        assert (lse[:, r0:r1] == 0).all()
+
+
+def test_varlen_fused_and_split_agree_and_split_dq_is_deterministic(dev):
+    """At the short pack's head width in bf16: fused and split within the
+    bf16 limits; the split dQ (no atomics) bitwise equal over two runs."""
+    lens = [300, 77, 1000, 64, 511]
+    q, k, v, do, cu, _ = _varlen_case(dev, torch.bfloat16, lens, None, 8,
+                                      128, 5)
+    o, lse = fv.varlen_fwd(q, k, v, cu, cu, True, 128 ** -0.5)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    args = (q, k, v, do, lse, delta, cu, cu, True, 128 ** -0.5)
+    dq1 = fv.varlen_bwd_dq(*args)
+    dq2 = fv.varlen_bwd_dq(*args)
+    fused = fv.varlen_bwd(*args)
+    split = (dq1, *fv.varlen_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    assert torch.equal(dq1, dq2)
+    for a, b in zip(fused, split):
+        _close(a, b, FLASH_TOL[torch.bfloat16][1])
+
+
+def test_varlen_segments_are_isolated(dev):
+    """Changing one segment's k and v leaves every other segment's o, dq,
+    dk and dv bitwise the same: o and the fused and split dK/dV, and the
+    split dQ; the fused dQ sums across CTAs by atomics in an order that
+    varies from run to run, so it is held within the bf16 limits."""
+    lens = [130, 64, 200, 7, 99]
+    q, k, v, do, cu, _ = _varlen_case(dev, torch.bfloat16, lens, None, 4,
+                                      128, 9)
+    seg = slice(130, 194)                 # segment 1
+    k2, v2 = k.clone(), v.clone()
+    k2[:, seg] = -k2[:, seg] * 3
+    v2[:, seg] = v2[:, seg] + 1
+
+    def run(k, v):
+        o, lse = fv.varlen_fwd(q, k, v, cu, cu, True, 0.1)
+        delta = (do.float() * o.float()).sum(-1).contiguous()
+        args = (q, k, v, do, lse, delta, cu, cu, True, 0.1)
+        dq_fused, dk, dv = fv.varlen_bwd(*args)
+        return (o, dk, dv, fv.varlen_bwd_dq(*args),
+                *fv.varlen_bwd_dkv(*args)), dq_fused
+
+    (a, dq_a), (b, dq_b) = run(k, v), run(k2, v2)
+    torch.cuda.synchronize()
+    keep = torch.ones(sum(lens), dtype=torch.bool, device=dev)
+    keep[seg] = False
+    for x, y in zip(a, b):
+        assert torch.equal(x[:, keep], y[:, keep])
+    _close(dq_b[:, keep], dq_a[:, keep], FLASH_TOL[torch.bfloat16][1])
+    assert not torch.equal(a[0][:, seg], b[0][:, seg])
+
+
+def test_flash_attn_unpadded_on_card_matches_cpu(dev):
+    """The public entry through the kernels (GQA 4/2, causal, bf16 cast
+    off) against the CPU's padded-batch branch, forward and backward,
+    f32."""
+    import paddle_tpu_torch.nn.functional as F
+    lens = [70, 58, 1, 100]
+    rng = np.random.RandomState(3)
+    t = sum(lens)
+    host = [torch.from_numpy(rng.randn(t, h, 64).astype(np.float32))
+            for h in (4, 2, 2)]
+    do = torch.from_numpy(rng.randn(t, 4, 64).astype(np.float32))
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                      dtype=torch.int32)
+    out = []
+    for d in ("cpu", dev):
+        x = [a.to(d, copy=True).requires_grad_() for a in host]
+        c = cu.to(d)
+        before = fv.varlen_fwd.launches
+        o, _ = F.flash_attn_unpadded(*x, c, c, max(lens), max(lens),
+                                     causal=True)
+        o.backward(do.to(d))
+        out.append([o.detach().cpu()] + [a.grad.cpu() for a in x]
+                   + [fv.varlen_fwd.launches - before])
+    assert (out[0][-1], out[1][-1]) == (0, 1)
+    for a, b in zip(out[1][:-1], out[0][:-1]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("n_seq,dropout", [(1100, 0.0), (5, 0.1)])
+def test_flash_attn_unpadded_on_card_takes_the_kernels_past_jax_gate(
+        dev, n_seq, dropout):
+    """1024 sequences or more, or dropout > 0 (ignored on both branches),
+    still run the varlen kernels on the card: JAX's gate belongs to its
+    TPU segment codes. Held to the CPU's padded-batch branch, f32, 1e-4."""
+    import paddle_tpu_torch.nn.functional as F
+    rng = np.random.RandomState(n_seq)
+    lens = list(rng.randint(0, 4, n_seq))
+    t = sum(lens)
+    q, k, v = (torch.from_numpy(rng.randn(t, 2, 64).astype(np.float32))
+               for _ in range(3))
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                      dtype=torch.int32)
+    out = []
+    for d in ("cpu", dev):
+        c = cu.to(d)
+        before = fv.varlen_fwd.launches
+        o, _ = F.flash_attn_unpadded(q.to(d), k.to(d), v.to(d), c, c,
+                                     max(lens), max(lens), dropout=dropout,
+                                     causal=True)
+        out.append((o.cpu(), fv.varlen_fwd.launches - before))
+    assert (out[0][1], out[1][1]) == (0, 1)
+    torch.testing.assert_close(out[1][0], out[0][0], atol=1e-4, rtol=1e-4)
+
+
+def test_varlen_kernels_reject_bad_inputs(dev):
+    lens = [10, 20]
+    q, k, v, do, cu, _ = _varlen_case(dev, torch.bfloat16, lens, None, 2,
+                                      128, 0)
+    for dtype, d in ((torch.float16, 128), (torch.bfloat16, 96)):
+        x = torch.zeros((2, 30, d), dtype=dtype, device=dev)
+        with pytest.raises((TypeError, ValueError)):
+            fv.varlen_fwd(x, x, x, cu, cu, True, 0.1)
+    with pytest.raises(TypeError):
+        fv.varlen_fwd(q, k, v, cu.long(), cu.long(), True, 0.1)
+    with pytest.raises(ValueError):
+        fv.varlen_fwd(q, k.contiguous(), v, cu, cu, True, 0.1)  # mixed forms
+    with pytest.raises(ValueError):
+        fv.varlen_fwd(q[:, ::2], k[:, ::2], v[:, ::2], cu, cu, True, 0.1)
