@@ -42,41 +42,14 @@
 // the caller's stream. Not done yet: with NKV * B CTAs (32 at TinyLlama,
 // B = 8) most of the 132 SMs idle; splitting T across CTAs with a combine
 // pass, and cp.async/TMA prefetch of the next tile, are later work.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "vec_common.cuh"
 
 namespace {
 
 constexpr int TILE = 128;             // columns per tile = threads per CTA
 constexpr int NWARPS = TILE / 32;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(const T* p, float (&f)[VEC]) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const T* e = reinterpret_cast<const T*>(&v);
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) f[i] = to_f(e[i]);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // Launched with blockDim.x == TILE, grid (nkv, nb). Shared memory, in floats:
 //   q_s [REP*hd] | part_s [G*REP*TILE] | p_s [REP*TILE] | max_s [REP*NWARPS] | sum_s [REP*NWARPS]

@@ -1,81 +1,225 @@
-// Fused paged-attention update for one decode layer, for Hopper (sm_90a).
+// Paged-attention kernels of the serving engine, for Hopper (sm_90a).
+// Pools keep the JAX layout [L, NP, KVD, bs] (time in the minor
+// dimension, KVD = NKV * HD); block 0 is the reserved null block.
 //
-// Replaces the TPU kernel paddle_tpu/ops/paged_attention.py:
-// paged_attend_update (kernel body _paged_update_kernel). For each batch
-// row b it writes new_k[b] / new_v[b] into column positions[b] % bs of
-// pool block tables[b, positions[b] / bs] at `layer`, then attends the
-// row's query heads over tokens 0..positions[b] inclusive, following the
-// block table. Pools keep the JAX layout [L, NP, KVD, bs] (time in the
-// minor dimension) and are updated in place.
+// Replaces three TPU kernels of paddle_tpu/ops/paged_attention.py:
+//   paged_attend_update    (_paged_update_kernel) -> paged_attend_update_fwd
+//   paged_attention_verify (_paged_verify_kernel) -> paged_attention_verify_fwd
+//   paged_verify_commit    (_paged_commit_kernel) -> paged_verify_commit_fwd
 //
-// What bounds it on this card: bytes. Each row reads (pos + 1) * KVD
-// elements of K and of V and does about 4 * NH * HD operations per token,
-// about one operation per byte, so HBM at 3.35 TB/s is the limit (B = 8
-// rows of 1024 tokens at KVD = 4096 in bf16 is 134 MB, 40 us per layer).
+// paged_attend_update_fwd: for each batch row b it writes new_k[b] /
+// new_v[b] into column positions[b] % bs of pool block tables[b,
+// positions[b] / bs] at `layer` (in place), then attends the row's query
+// heads over tokens 0..positions[b] inclusive, following the block table.
 //
-// Design (not the TPU's): the TPU walks one flat sequential schedule of
-// (sequence, block) steps and pads each query row to the full KVD
-// ("block-diagonal" q) so its matrix unit sees [NH, KVD] x [KVD, bs]; for
-// an MHA model that is NH times the useful work. Here one CTA of bs
-// threads owns one (row, kv-head) pair: its REP = NH / NKV query rows
-// [REP, HD] sit in shared memory, and it loops over the row's live blocks
-// only (pos/bs + 1 of them) with an online softmax in f32 (exp2 on q
-// pre-scaled by scale * log2(e), as the caller does). To keep HBM busy
-// every K and V access is a 16-byte vector and each thread has several in
-// flight: for scores, thread (g, c) reads vector c of K rows g, g+G, ...
-// and keeps partial scores of its VEC tokens in registers (the G partials
-// of a token are summed in shared memory in a fixed order); for P.V,
-// thread (d, part) reads its slice of V row d and keeps acc[REP][d] in
-// registers for the whole walk. Three barriers per block. P is rounded to
-// the pool dtype before P.V, and the normaliser sums the unrounded f32 P,
-// as in the TPU kernel. Only the online recurrence is implemented: the TPU
-// default's tile-0-anchored "fixed-base" softmax overflows once a later
-// tile's max exceeds tile 0's by ~100 log2 units.
+// paged_attention_verify_fwd: speculative verification. Each row b feeds
+// T tokens whose NH query heads attend over the CACHED prefix only,
+// tokens 0..qstart[b]-1 (the fed tokens are not in the pools yet). It
+// returns the unfinalised online-softmax partials (acc, m, l) in f32; the
+// caller merges the fed tokens' own causal block and finalises. A row with
+// qstart = 0 (padding) gets acc = 0, l = 0, m = -1e30.
 //
-// Write before read, without a race: each CTA writes only its own
-// kv-head's HD rows of the new column, then __syncthreads(), then reads.
-// No other CTA touches those bytes. Padding rows point their whole table
-// at the reserved null block 0 with position 0; they all write block 0,
-// column 0, concurrently. That is harmless: no live row ever reads block 0.
+// paged_verify_commit_fwd: after verification, fed token t of row b lands
+// at position qstart[b] + t. For t < commit_len[b] its new_k/new_v column
+// of every layer is written into the row's block; every other (layer, row,
+// token) writes the null block 0 at the same column, as the JAX commit
+// schedule routes it. A bare scatter: the TPU kernel's first-visit and
+// revisit flags exist only for Pallas's aliasing rules.
 //
-// The kernel allocates nothing and does not synchronise; it launches on
-// the caller's stream. Not done yet: split-K across CTAs for short
-// batches, cp.async/TMA prefetch of the next block.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+// What bounds them on this card: bytes. The attention entries read each
+// row's K and V columns once and do about 4 * R * HD operations per token
+// for R query rows of a kv-head, under 2 operations per byte at R <= 8
+// (B = 8 rows of 1024 tokens at KVD = 4096 in bf16 is 134 MB, 40 us per
+// layer). The commit moves 2 * L * B * T * KVD elements in and out; each
+// column write touches KVD rows bs elements apart, so every element costs
+// a 32-byte sector.
+//
+// Design of the attention entries (not the TPU's): the TPU walks one flat
+// sequential schedule of (sequence, block) steps and pads each query row
+// to the full KVD ("block-diagonal" q) so its matrix unit sees [R, KVD] x
+// [KVD, bs]; for an MHA model that is NH times the useful work. Here one
+// CTA of bs threads owns one (row, kv-head) pair (and, for verify, a chunk
+// of at most 8 of its T * REP query rows): its query rows sit in shared
+// memory, and it loops over the row's live blocks only with an online
+// softmax in f32 (exp2 on q pre-scaled by scale * log2(e), as the caller
+// does). To keep HBM busy every K and V access is a 16-byte vector and
+// each thread has several in flight: for scores, thread (g, c) reads
+// vector c of K rows g, g+G, ... and keeps partial scores of its VEC
+// tokens in registers (the G partials of a token are summed in shared
+// memory in a fixed order); for P.V, thread (d, part) reads its slice of V
+// row d and keeps acc[row][d] in registers for the whole walk. Three
+// barriers per block. P is rounded to the pool dtype before P.V, and the
+// normaliser sums the unrounded f32 P, as in the TPU kernels. Only the
+// online recurrence is implemented: the TPU default's tile-0-anchored
+// "fixed-base" softmax overflows once a later tile's max exceeds tile 0's
+// by ~100 log2 units. The verify chunks of one (row, kv-head) read the
+// same K and V; at MHA with T <= 8 there is one chunk.
+//
+// Write before read, without a race (update entry): each CTA writes only
+// its own kv-head's HD rows of the new column, then __syncthreads(), then
+// reads. No other CTA touches those bytes. Padding rows point their whole
+// table at the reserved null block 0 with position 0; they all write
+// block 0, column 0, concurrently. That is harmless: no live row ever
+// reads block 0. The commit's rejected and padding columns likewise land
+// in block 0 from many CTAs at once.
+//
+// Design of the commit: one CTA of 128 threads per (kv-slice of 128
+// elements, row, layer) stages the row's T columns of that slice in shared
+// memory (coalesced reads of new_k/new_v), then writes them with the token
+// index fastest, so the up-to-T consecutive columns of one pool row go out
+// together.
+//
+// The kernels allocate nothing and do not synchronise; they launch on the
+// caller's stream. Not done yet: split-K across CTAs for short batches,
+// cp.async/TMA prefetch of the next block.
 #include <math.h>
-#include <stdint.h>
+
+#include "vec_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+constexpr int kMaxFed = 8;        // verify and commit: fed tokens per row
+constexpr int kCommitSlice = 128; // commit: KVD elements per CTA
+
+// Shared memory of the attention walk, in floats:
+//   q_s [R*hd] | part_s [G*R*bs] | p_s [R*bs] | max_s [R*32] | sum_s [R*32]
+template <typename T, int R>
+size_t walk_smem_bytes(int hd, int bs) {
+  constexpr int G = 16 / sizeof(T);
+  return sizeof(float) * (size_t)(R * hd + G * R * bs + R * bs + 2 * R * 32);
 }
 
-template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(const T* p, float (&f)[VEC]) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const T* e = reinterpret_cast<const T*>(&v);
+// Online softmax of the R query rows q_s [R, hd] (f32, shared memory)
+// over tokens 0..last (inclusive, last >= 0) of one sequence, whose pool
+// blocks are trow[0..last/bs], at the kv-head slice that starts head_off
+// rows into KVD. Launched with blockDim.x == bs; every thread of the CTA
+// calls it. On return every thread holds the same m[r], l[r], and thread
+// (vd, vpart) with vpart == 0 holds acc[r] for output column vd, where
+// tp = bs / hd, vd = tid / tp, vpart = tid % tp.
+template <typename T, int R>
+__device__ __forceinline__ void walk_blocks(const T* k_pool, const T* v_pool,
+                                            const int* trow, int layer, int np, int kvd,
+                                            size_t head_off, int hd, int bs, int last,
+                                            float* smem, float (&m)[R], float (&l)[R],
+                                            float (&acc)[R]) {
+  constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte vector
+  constexpr int G = VEC;                // K row groups: bs threads / (bs/VEC) per row
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const float* q_s = smem;
+  float* part_s = smem + R * hd;
+  float* p_s = part_s + G * R * bs;
+  float* max_s = p_s + R * bs;
+  float* sum_s = max_s + R * 32;
+
+  // score mapping: vector c of K rows kg, kg+G, ...
+  const int nv = bs / VEC;
+  const int kc = tid % nv, kg = tid / nv;
+  // P.V mapping: tp threads per V row, each over tpt consecutive tokens
+  const int tp = blockDim.x / hd, tpt = bs / tp;
+  const int vd = tid / tp, vpart = tid % tp;
+
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) f[i] = to_f(e[i]);
+  for (int r = 0; r < R; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+    acc[r] = 0.f;
+  }
+
+  const int nblk = last / bs + 1;
+  for (int j = 0; j < nblk; ++j) {
+    const size_t base = (((size_t)layer * np + (size_t)trow[j]) * kvd + head_off) * bs;
+    const T* kt = k_pool + base;
+    const T* vt = v_pool + base;
+
+    // a. partial scores of VEC tokens over this thread's K rows
+    float sp[R][VEC];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) sp[r][i] = 0.f;
+#pragma unroll 8
+    for (int d = kg; d < hd; d += G) {
+      float kf[VEC];
+      load_vec<T, VEC>(kt + (size_t)d * bs + kc * VEC, kf);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float qd = q_s[r * hd + d];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) sp[r][i] += qd * kf[i];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float4* dst = reinterpret_cast<float4*>(part_s + (kg * R + r) * bs + kc * VEC);
+#pragma unroll
+      for (int i = 0; i < VEC; i += 4)
+        dst[i / 4] = make_float4(sp[r][i], sp[r][i + 1], sp[r][i + 2], sp[r][i + 3]);
+    }
+    __syncthreads();
+
+    // b. thread t = token t: whole score, mask, block max
+    const bool live = j * bs + tid <= last;
+    float s[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float v = 0.f;
+#pragma unroll
+      for (int k = 0; k < G; ++k) v += part_s[(k * R + r) * bs + tid];
+      s[r] = live ? v : -1e30f;
+      const float mx = warp_max(s[r]);
+      if (lane == 0) max_s[r * 32 + warp] = mx;
+    }
+    __syncthreads();
+
+    // c. every thread keeps the same running (m, l); P to shared memory
+    float alpha[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float mx = -INFINITY;
+      for (int w = 0; w < nwarps; ++w) mx = fmaxf(mx, max_s[r * 32 + w]);
+      const float m_new = fmaxf(m[r], mx);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      const float p = exp2f(s[r] - m_new);
+      p_s[r * bs + tid] = round_to(p, kt);
+      const float ps = warp_sum(p);
+      if (lane == 0) sum_s[r * 32 + warp] = ps;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float sum = 0.f;
+      for (int w = 0; w < nwarps; ++w) sum += sum_s[r * 32 + w];
+      l[r] = l[r] * alpha[r] + sum;
+    }
+
+    // d. P.V over this thread's slice of V row vd
+    float pv[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) pv[r] = 0.f;
+    const T* vrow = vt + (size_t)vd * bs + vpart * tpt;
+#pragma unroll 8
+    for (int u = 0; u < tpt; u += VEC) {
+      float vf[VEC];
+      load_vec<T, VEC>(vrow + u, vf);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float* pr = p_s + r * bs + vpart * tpt + u;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) pv[r] += pr[i] * vf[i];
+      }
+    }
+    // the tp threads of one V row are neighbouring lanes
+    for (int o = tp >> 1; o > 0; o >>= 1)
+#pragma unroll
+      for (int r = 0; r < R; ++r) pv[r] += __shfl_xor_sync(0xffffffffu, pv[r], o);
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = acc[r] * alpha[r] + pv[r];
+  }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Launched with blockDim.x == bs. Shared memory, in floats:
-//   q_s [REP*hd] | part_s [G*REP*bs] | p_s [REP*bs] | max_s [REP*32] | sum_s [REP*32]
+// grid (nkv, b), blockDim.x == bs
 template <typename T, int REP>
 __global__ void paged_update_kernel(const T* __restrict__ q, const T* __restrict__ new_k,
                                     const T* __restrict__ new_v, T* k_pool, T* v_pool,
@@ -83,19 +227,11 @@ __global__ void paged_update_kernel(const T* __restrict__ q, const T* __restrict
                                     const int* __restrict__ positions,
                                     float* __restrict__ out, int layer, int np, int nkv,
                                     int hd, int bs, int max_nb) {
-  constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte vector
-  constexpr int G = VEC;                // K row groups: bs threads / (bs/VEC) per row
   const int g = blockIdx.x, b = blockIdx.y;
   const int kvd = nkv * hd;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-
+  const int tid = threadIdx.x;
   extern __shared__ float smem[];
   float* q_s = smem;
-  float* part_s = q_s + REP * hd;
-  float* p_s = part_s + G * REP * bs;
-  float* max_s = p_s + REP * bs;
-  float* sum_s = max_s + REP * 32;
 
   const int pos = positions[b];
   const int* trow = tables + (size_t)b * max_nb;
@@ -116,134 +252,129 @@ __global__ void paged_update_kernel(const T* __restrict__ q, const T* __restrict
   for (int i = tid; i < REP * hd; i += blockDim.x) q_s[i] = to_f(q[q_off + i]);
   __syncthreads();  // orders the column write above before the reads below
 
-  // score mapping: vector c of K rows kg, kg+G, ...
-  const int nv = bs / VEC;
-  const int kc = tid % nv, kg = tid / nv;
-  // P.V mapping: tp threads per V row, each over tpt consecutive tokens
-  const int tp = blockDim.x / hd, tpt = bs / tp;
-  const int vd = tid / tp, vpart = tid % tp;
-
-  float m[REP], l[REP], acc[REP];
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-    acc[r] = 0.f;
-  }
-
   // 3. online softmax over the row's live blocks
-  const int nblk = pos / bs + 1;
-  for (int j = 0; j < nblk; ++j) {
-    const size_t base = (((size_t)layer * np + (size_t)trow[j]) * kvd + head_off) * bs;
-    const T* kt = k_pool + base;
-    const T* vt = v_pool + base;
-
-    // a. partial scores of VEC tokens over this thread's K rows
-    float sp[REP][VEC];
-#pragma unroll
-    for (int r = 0; r < REP; ++r)
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) sp[r][i] = 0.f;
-#pragma unroll 8
-    for (int d = kg; d < hd; d += G) {
-      float kf[VEC];
-      load_vec<T, VEC>(kt + (size_t)d * bs + kc * VEC, kf);
-#pragma unroll
-      for (int r = 0; r < REP; ++r) {
-        const float qd = q_s[r * hd + d];
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) sp[r][i] += qd * kf[i];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      float4* dst = reinterpret_cast<float4*>(part_s + (kg * REP + r) * bs + kc * VEC);
-#pragma unroll
-      for (int i = 0; i < VEC; i += 4)
-        dst[i / 4] = make_float4(sp[r][i], sp[r][i + 1], sp[r][i + 2], sp[r][i + 3]);
-    }
-    __syncthreads();
-
-    // b. thread t = token t: whole score, mask, block max
-    const bool live = j * bs + tid <= pos;
-    float s[REP];
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      float v = 0.f;
-#pragma unroll
-      for (int k = 0; k < G; ++k) v += part_s[(k * REP + r) * bs + tid];
-      s[r] = live ? v : -1e30f;
-      const float mx = warp_max(s[r]);
-      if (lane == 0) max_s[r * 32 + warp] = mx;
-    }
-    __syncthreads();
-
-    // c. every thread keeps the same running (m, l); P to shared memory
-    float alpha[REP];
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      float mx = -INFINITY;
-      for (int w = 0; w < nwarps; ++w) mx = fmaxf(mx, max_s[r * 32 + w]);
-      const float m_new = fmaxf(m[r], mx);
-      alpha[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
-      const float p = exp2f(s[r] - m_new);
-      p_s[r * bs + tid] = round_to(p, kt);
-      const float ps = warp_sum(p);
-      if (lane == 0) sum_s[r * 32 + warp] = ps;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      float sum = 0.f;
-      for (int w = 0; w < nwarps; ++w) sum += sum_s[r * 32 + w];
-      l[r] = l[r] * alpha[r] + sum;
-    }
-
-    // d. P.V over this thread's slice of V row vd
-    float pv[REP];
-#pragma unroll
-    for (int r = 0; r < REP; ++r) pv[r] = 0.f;
-    const T* vrow = vt + (size_t)vd * bs + vpart * tpt;
-#pragma unroll 8
-    for (int u = 0; u < tpt; u += VEC) {
-      float vf[VEC];
-      load_vec<T, VEC>(vrow + u, vf);
-#pragma unroll
-      for (int r = 0; r < REP; ++r) {
-        const float* pr = p_s + r * bs + vpart * tpt + u;
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) pv[r] += pr[i] * vf[i];
-      }
-    }
-    // the tp threads of one V row are neighbouring lanes
-    for (int o = tp >> 1; o > 0; o >>= 1)
-#pragma unroll
-      for (int r = 0; r < REP; ++r) pv[r] += __shfl_xor_sync(0xffffffffu, pv[r], o);
-#pragma unroll
-    for (int r = 0; r < REP; ++r) acc[r] = acc[r] * alpha[r] + pv[r];
-  }
+  float m[REP], l[REP], acc[REP];
+  walk_blocks<T, REP>(k_pool, v_pool, trow, layer, np, kvd, head_off, hd, bs, pos, smem, m, l,
+                      acc);
 
   // 4. finalise: attn [B, NH, HD] f32
+  const int tp = blockDim.x / hd, vd = tid / tp, vpart = tid % tp;
   if (vpart == 0) {
 #pragma unroll
     for (int r = 0; r < REP; ++r) out[q_off + (size_t)r * hd + vd] = acc[r] / fmaxf(l[r], 1e-30f);
   }
 }
 
-template <typename T, int REP>
-cudaError_t launch(const void* q, const void* nk, const void* nv, void* kp, void* vp,
-                   const void* tables, const void* positions, void* out, int b, int layer,
-                   int np, int nkv, int hd, int bs, int max_nb, cudaStream_t stream) {
-  constexpr int G = 16 / sizeof(T);
-  const size_t smem =
-      sizeof(float) * (size_t)(REP * hd + G * REP * bs + REP * bs + 2 * REP * 32);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(paged_update_kernel<T, REP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
+// grid (nkv, b, ceil(t_fed * rep / RC)), blockDim.x == bs. Local query row
+// i = t * rep + rr of kv-head g is fed token t's head g * rep + rr; this
+// CTA takes rows blockIdx.z * RC + [0, RC).
+template <typename T, int RC>
+__global__ void paged_verify_kernel(const T* __restrict__ q, const T* k_pool, const T* v_pool,
+                                    const int* __restrict__ tables,
+                                    const int* __restrict__ qstart, float* __restrict__ acc_out,
+                                    float* __restrict__ m_out, float* __restrict__ l_out,
+                                    int layer, int np, int nkv, int rep, int t_fed, int hd,
+                                    int bs, int max_nb) {
+  const int g = blockIdx.x, b = blockIdx.y, row0 = blockIdx.z * RC;
+  const int nh = nkv * rep, nrows = t_fed * rep;
+  const int kvd = nkv * hd;
+  const int tid = threadIdx.x;
+  extern __shared__ float smem[];
+  float* q_s = smem;
+  const int qs = qstart[b];
+
+  // query rows; rows past the last (chunk padding) are zeros and never stored
+  for (int i = tid; i < RC * hd; i += blockDim.x) {
+    const int row = row0 + i / hd, d = i % hd;
+    float v = 0.f;
+    if (row < nrows) {
+      const int t = row / rep, h = g * rep + row % rep;
+      v = to_f(q[(((size_t)b * t_fed + t) * nh + h) * hd + d]);
+    }
+    q_s[i] = v;
   }
+
+  float m[RC], l[RC], acc[RC];
+  if (qs > 0) {  // uniform over the CTA
+    __syncthreads();
+    walk_blocks<T, RC>(k_pool, v_pool, tables + (size_t)b * max_nb, layer, np, kvd,
+                       (size_t)g * hd, hd, bs, qs - 1, smem, m, l, acc);
+  } else {
+#pragma unroll
+    for (int r = 0; r < RC; ++r) {
+      m[r] = -1e30f;
+      l[r] = 0.f;
+      acc[r] = 0.f;
+    }
+  }
+
+  // unfinalised partials: acc [B, T, NH, HD], m and l [B, T, NH]
+  const int tp = blockDim.x / hd, vd = tid / tp, vpart = tid % tp;
+#pragma unroll
+  for (int r = 0; r < RC; ++r) {
+    const int row = row0 + r;
+    if (row >= nrows) break;
+    const size_t o = ((size_t)b * t_fed + row / rep) * nh + g * rep + row % rep;
+    if (vpart == 0) acc_out[o * hd + vd] = acc[r];
+    if (tid == 0) {
+      m_out[o] = m[r];
+      l_out[o] = l[r];
+    }
+  }
+}
+
+// grid (ceil(kvd / kCommitSlice), b_rows, n_layers), kCommitSlice threads.
+// W is an unsigned type of the element's width: the commit copies bits.
+template <typename W>
+__global__ void paged_commit_kernel(const W* __restrict__ new_k, const W* __restrict__ new_v,
+                                    W* k_pool, W* v_pool, const int* __restrict__ tables,
+                                    const int* __restrict__ qstart,
+                                    const int* __restrict__ commit_len, int np, int b_rows,
+                                    int t_fed, int kvd, int bs, int max_nb) {
+  __shared__ W sk[kMaxFed][kCommitSlice];
+  __shared__ W sv[kMaxFed][kCommitSlice];
+  __shared__ size_t dst[kMaxFed];  // element offset of (layer, block, row 0, column)
+  const int d0 = blockIdx.x * kCommitSlice, b = blockIdx.y, layer = blockIdx.z;
+  const int tid = threadIdx.x;
+  if (tid < t_fed) {
+    const int pos = qstart[b] + tid;
+    const int slot = min(max(pos / bs, 0), max_nb - 1);
+    const size_t blk = tid < commit_len[b] ? (size_t)tables[(size_t)b * max_nb + slot] : 0;
+    dst[tid] = ((size_t)layer * np + blk) * kvd * bs + pos % bs;
+  }
+  const int d = d0 + tid;
+  if (d < kvd) {
+    for (int t = 0; t < t_fed; ++t) {
+      const size_t src = (((size_t)layer * b_rows + b) * t_fed + t) * kvd + d;
+      sk[t][tid] = new_k[src];
+      sv[t][tid] = new_v[src];
+    }
+  }
+  __syncthreads();
+  // token index fastest: a pool row's consecutive columns go out together
+  const int n = min(kCommitSlice, kvd - d0);
+  for (int i = tid; i < n * t_fed; i += blockDim.x) {
+    const int dd = i / t_fed, t = i % t_fed;
+    const size_t o = dst[t] + (size_t)(d0 + dd) * bs;
+    k_pool[o] = sk[t][dd];
+    v_pool[o] = sv[t][dd];
+  }
+}
+
+template <typename K>
+cudaError_t set_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T, int REP>
+cudaError_t launch_update(const void* q, const void* nk, const void* nv, void* kp, void* vp,
+                          const void* tables, const void* positions, void* out, int b,
+                          int layer, int np, int nkv, int hd, int bs, int max_nb,
+                          cudaStream_t stream) {
+  const size_t smem = walk_smem_bytes<T, REP>(hd, bs);
+  cudaError_t e = set_smem(paged_update_kernel<T, REP>, smem);
+  if (e != cudaSuccess) return e;
   paged_update_kernel<T, REP><<<dim3(nkv, b), bs, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(nk), static_cast<const T*>(nv),
       static_cast<T*>(kp), static_cast<T*>(vp), static_cast<const int*>(tables),
@@ -253,17 +384,57 @@ cudaError_t launch(const void* q, const void* nk, const void* nv, void* kp, void
 }
 
 template <typename T>
-cudaError_t launch_rep(int rep, const void* q, const void* nk, const void* nv, void* kp,
+cudaError_t update_rep(int rep, const void* q, const void* nk, const void* nv, void* kp,
                        void* vp, const void* tables, const void* positions, void* out, int b,
                        int layer, int np, int nkv, int hd, int bs, int max_nb,
                        cudaStream_t s) {
   switch (rep) {
-    case 1: return launch<T, 1>(q, nk, nv, kp, vp, tables, positions, out, b, layer, np, nkv, hd, bs, max_nb, s);
-    case 2: return launch<T, 2>(q, nk, nv, kp, vp, tables, positions, out, b, layer, np, nkv, hd, bs, max_nb, s);
-    case 4: return launch<T, 4>(q, nk, nv, kp, vp, tables, positions, out, b, layer, np, nkv, hd, bs, max_nb, s);
-    case 8: return launch<T, 8>(q, nk, nv, kp, vp, tables, positions, out, b, layer, np, nkv, hd, bs, max_nb, s);
+    case 1: return launch_update<T, 1>(q, nk, nv, kp, vp, tables, positions, out, b, layer, np, nkv, hd, bs, max_nb, s);
+    case 2: return launch_update<T, 2>(q, nk, nv, kp, vp, tables, positions, out, b, layer, np, nkv, hd, bs, max_nb, s);
+    case 4: return launch_update<T, 4>(q, nk, nv, kp, vp, tables, positions, out, b, layer, np, nkv, hd, bs, max_nb, s);
+    case 8: return launch_update<T, 8>(q, nk, nv, kp, vp, tables, positions, out, b, layer, np, nkv, hd, bs, max_nb, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename T, int RC>
+cudaError_t launch_verify(const void* q, const void* kp, const void* vp, const void* tables,
+                          const void* qstart, void* acc, void* m, void* l, int b, int t_fed,
+                          int layer, int np, int nkv, int rep, int hd, int bs, int max_nb,
+                          cudaStream_t stream) {
+  const size_t smem = walk_smem_bytes<T, RC>(hd, bs);
+  cudaError_t e = set_smem(paged_verify_kernel<T, RC>, smem);
+  if (e != cudaSuccess) return e;
+  const int chunks = (t_fed * rep + RC - 1) / RC;
+  paged_verify_kernel<T, RC><<<dim3(nkv, b, chunks), bs, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
+      static_cast<const int*>(tables), static_cast<const int*>(qstart),
+      static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l), layer, np,
+      nkv, rep, t_fed, hd, bs, max_nb);
+  return cudaSuccess;
+}
+
+// the chunk height: the query rows of one (row, kv-head), rounded up to a
+// power of two, at most 8
+template <typename T>
+cudaError_t verify_rows(const void* q, const void* kp, const void* vp, const void* tables,
+                        const void* qstart, void* acc, void* m, void* l, int b, int t_fed,
+                        int layer, int np, int nkv, int rep, int hd, int bs, int max_nb,
+                        cudaStream_t s) {
+  const int r = t_fed * rep;
+  if (r <= 1) return launch_verify<T, 1>(q, kp, vp, tables, qstart, acc, m, l, b, t_fed, layer, np, nkv, rep, hd, bs, max_nb, s);
+  if (r <= 2) return launch_verify<T, 2>(q, kp, vp, tables, qstart, acc, m, l, b, t_fed, layer, np, nkv, rep, hd, bs, max_nb, s);
+  if (r <= 4) return launch_verify<T, 4>(q, kp, vp, tables, qstart, acc, m, l, b, t_fed, layer, np, nkv, rep, hd, bs, max_nb, s);
+  return launch_verify<T, 8>(q, kp, vp, tables, qstart, acc, m, l, b, t_fed, layer, np, nkv, rep, hd, bs, max_nb, s);
+}
+
+// the geometry both attention entries take
+bool bad_geometry(int nh, int nkv, int hd, int bs) {
+  if (nkv < 1 || nh % nkv) return true;
+  const int rep = nh / nkv;
+  if (rep != 1 && rep != 2 && rep != 4 && rep != 8) return true;
+  return bs % 128 || bs > 1024 || hd < 1 || bs % hd || hd % 8 || (bs / hd) > 32 ||
+         ((bs / hd) & (bs / hd - 1));
 }
 
 }  // namespace
@@ -279,20 +450,77 @@ extern "C" int paged_attend_update_fwd(const void* q, const void* nk, const void
                                        int np, int nh, int nkv, int hd, int bs, int max_nb,
                                        int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nkv < 1 || nh % nkv || bs % 128 || bs > 1024 || hd < 1 || bs % hd || hd % 8 ||
-      (bs / hd) > 32 || ((bs / hd) & (bs / hd - 1)))
-    return (int)cudaErrorInvalidValue;
+  if (bad_geometry(nh, nkv, hd, bs)) return (int)cudaErrorInvalidValue;
   if (b > 0) {
     cudaError_t e;
     if (dtype == 0)
-      e = launch_rep<float>(nh / nkv, q, nk, nv, kp, vp, tables, positions, out, b, layer, np,
+      e = update_rep<float>(nh / nkv, q, nk, nv, kp, vp, tables, positions, out, b, layer, np,
                             nkv, hd, bs, max_nb, s);
     else if (dtype == 1)
-      e = launch_rep<__nv_bfloat16>(nh / nkv, q, nk, nv, kp, vp, tables, positions, out, b,
+      e = update_rep<__nv_bfloat16>(nh / nkv, q, nk, nv, kp, vp, tables, positions, out, b,
                                     layer, np, nkv, hd, bs, max_nb, s);
     else
       return (int)cudaErrorInvalidValue;
     if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
+// q [b, t_fed, nh, hd] pre-scaled, in the pools' dtype; acc [b, t_fed, nh,
+// hd], m and l [b, t_fed, nh], all f32. The geometry is that of
+// paged_attend_update_fwd, with 1 <= t_fed <= 8 and (qstart[b] - 1) / bs <
+// max_nb for every row with qstart[b] > 0.
+extern "C" int paged_attention_verify_fwd(const void* q, const void* kp, const void* vp,
+                                          const void* tables, const void* qstart, void* acc,
+                                          void* m, void* l, int b, int t_fed, int layer,
+                                          int np, int nh, int nkv, int hd, int bs,
+                                          int max_nb, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bad_geometry(nh, nkv, hd, bs) || t_fed < 1 || t_fed > kMaxFed)
+    return (int)cudaErrorInvalidValue;
+  if (b > 0) {
+    cudaError_t e;
+    if (dtype == 0)
+      e = verify_rows<float>(q, kp, vp, tables, qstart, acc, m, l, b, t_fed, layer, np, nkv,
+                             nh / nkv, hd, bs, max_nb, s);
+    else if (dtype == 1)
+      e = verify_rows<__nv_bfloat16>(q, kp, vp, tables, qstart, acc, m, l, b, t_fed, layer,
+                                     np, nkv, nh / nkv, hd, bs, max_nb, s);
+    else
+      return (int)cudaErrorInvalidValue;
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
+// new_k/new_v [n_layers, b, t_fed, kvd] in the pools' dtype, pools [n_layers,
+// np, kvd, bs]; tables [b, max_nb], qstart and commit_len [b] int32, with
+// 1 <= t_fed <= 8 and (qstart[b] + commit_len[b] - 1) / bs < max_nb.
+extern "C" int paged_verify_commit_fwd(const void* nk, const void* nv, void* kp, void* vp,
+                                       const void* tables, const void* qstart,
+                                       const void* commit_len, int n_layers, int b,
+                                       int t_fed, int np, int kvd, int bs, int max_nb,
+                                       int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (t_fed < 1 || t_fed > kMaxFed || kvd < 1 || bs < 1 || max_nb < 1)
+    return (int)cudaErrorInvalidValue;
+  if (b > 0 && n_layers > 0) {
+    const dim3 grid((kvd + kCommitSlice - 1) / kCommitSlice, b, n_layers);
+    const int* tb = static_cast<const int*>(tables);
+    const int* qs = static_cast<const int*>(qstart);
+    const int* cl = static_cast<const int*>(commit_len);
+    if (dtype == 0)
+      paged_commit_kernel<uint32_t><<<grid, kCommitSlice, 0, s>>>(
+          static_cast<const uint32_t*>(nk), static_cast<const uint32_t*>(nv),
+          static_cast<uint32_t*>(kp), static_cast<uint32_t*>(vp), tb, qs, cl, np, b, t_fed,
+          kvd, bs, max_nb);
+    else if (dtype == 1)
+      paged_commit_kernel<uint16_t><<<grid, kCommitSlice, 0, s>>>(
+          static_cast<const uint16_t*>(nk), static_cast<const uint16_t*>(nv),
+          static_cast<uint16_t*>(kp), static_cast<uint16_t*>(vp), tb, qs, cl, np, b, t_fed,
+          kvd, bs, max_nb);
+    else
+      return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -20,8 +20,17 @@ same events in the same order. Greedy decoding; the argmax and the
 non-finite screen run on the device and only [B] values come back to the
 host per step. A non-finite logit RAISES: the JAX engine's quarantine,
 admission control, deadlines, journal, prefix cache, int8 KV,
-speculative decoding, tensor-parallel serving and telemetry are not
-ported yet.
+tensor-parallel serving and telemetry are not ported yet.
+
+Speculative decoding (``ServeConfig(speculative=True)``, the JAX PR 18
+path): a draft model (default: the base truncated to its first layer,
+:func:`~paddle_tpu_torch.models.llama.make_draft_model`) proposes up to
+``draft_k`` tokens per row through host-chained decode steps on its own
+pools, which share the base block tables; then ONE batched verify step
+scores all K+1 positions and commits only the accepted prefix's KV.
+Every emitted token is the base model's greedy argmax, so streams equal
+sequential decode for any draft. With no prefix cache here, the JAX
+engine's copy-on-write span check is trivially true.
 """
 from __future__ import annotations
 
@@ -36,7 +45,8 @@ import torch
 from .._device import resolve_device
 from ..models.llama import (LlamaConfig, init_paged_kv_pool,
                             llama_paged_decode_step,
-                            llama_paged_prefill_chunk)
+                            llama_paged_prefill_chunk,
+                            llama_paged_verify_step, make_draft_model)
 from .kv_cache import BlockPool, pad_table
 
 WAITING, PREFILL, RUNNING, FINISHED = "waiting", "prefill", "running", \
@@ -64,6 +74,10 @@ class ServeConfig:
     prefill_chunk: int = 64
     max_seq_len: int = 1024       # bounds the block-table width
     decode_buckets: Optional[Tuple[int, ...]] = None
+    # speculative decoding: draft + batched verification (the JAX knob
+    # defaults: off, 4 proposals per row per iteration)
+    speculative: bool = False
+    draft_k: int = 4
 
     def __post_init__(self):
         if self.decode_buckets is None:
@@ -75,6 +89,8 @@ class ServeConfig:
         self.decode_buckets = tuple(sorted(set(self.decode_buckets)))
         if self.decode_buckets[-1] != self.max_batch:
             raise ValueError("largest decode bucket must equal max_batch")
+        if self.draft_k < 1:
+            raise ValueError(f"draft_k must be >= 1, got {self.draft_k}")
 
     @property
     def max_nb(self) -> int:
@@ -97,6 +113,9 @@ class _Seq:
         self.order = 0                 # submission sequence number
         self.first_token_t: Optional[float] = None
         self.token_times: List[float] = []
+        # tokens whose KV the DRAFT pools hold; always <= n_cached after
+        # a verify (rejected lookahead KV is simply re-proposed over)
+        self.draft_pos = 0
 
     @property
     def generated(self) -> List[int]:
@@ -123,11 +142,15 @@ class InferenceEngine:
     >>> stats = eng.run([Request(prompt, max_new_tokens=32), ...])
 
     ``device`` defaults to the card; ``params`` must already live there.
-    Drive it from a single thread."""
+    With speculation on, ``draft_params``/``draft_config`` name the draft
+    model (default: :func:`make_draft_model`). Drive it from a single
+    thread."""
 
     def __init__(self, params: Dict[str, Any], config: LlamaConfig,
                  serve: Optional[ServeConfig] = None,
-                 record_events: bool = False, device=None):
+                 record_events: bool = False, device=None,
+                 draft_params: Optional[Dict[str, Any]] = None,
+                 draft_config: Optional[LlamaConfig] = None):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -139,6 +162,23 @@ class InferenceEngine:
         self.k_pool, self.v_pool = init_paged_kv_pool(
             config, self.serve.num_blocks, self.serve.block_size,
             device=self.device)
+        self.draft_params = self.draft_config = None
+        self.k_draft = self.v_draft = None
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self.draft_steps = 0
+        self._draft_s = 0.0
+        if self.serve.speculative:
+            if draft_params is None:
+                draft_params, draft_config = make_draft_model(params, config)
+            elif draft_config is None:
+                raise ValueError("draft_params given without draft_config")
+            self.draft_params, self.draft_config = draft_params, draft_config
+            # the draft pools mirror the base pool's block geometry (one
+            # shared block table per sequence) in the model dtype
+            self.k_draft, self.v_draft = init_paged_kv_pool(
+                draft_config, self.serve.num_blocks, self.serve.block_size,
+                device=self.device)
         self.record_events = record_events
         self.events: List[Tuple] = []
         self.waiting: List[_Seq] = []
@@ -198,6 +238,7 @@ class InferenceEngine:
         self._release(victim)
         victim.state = WAITING
         victim.n_cached = 0
+        victim.draft_pos = 0
         self.waiting.insert(0, victim)
         self.preemptions += 1
         self._event("evict", victim.req.request_id)
@@ -311,9 +352,32 @@ class InferenceEngine:
                 done_out.append(seq)
             else:
                 seq.state = RUNNING
+                if self.serve.speculative:
+                    # bring the draft's cache up to n_cached before the
+                    # first decode iteration touches this row
+                    self._draft_prefill(seq)
         return True
 
+    def _draft_prefill(self, seq: _Seq):
+        """Chunked prefill of ``seq``'s cached tokens through the DRAFT
+        model into the draft pools (shared block table). Draft state is
+        derived only: an evicted row re-prefills it on readmission."""
+        c = self.serve.prefill_chunk
+        table = self._to_device(pad_table(seq.blocks, self.serve.max_nb))
+        start, target = 0, seq.n_cached
+        while start < target:
+            n_live = min(c, target - start)
+            ids = np.zeros((c,), np.int32)
+            ids[:n_live] = seq.tokens[start:start + n_live]
+            _, self.k_draft, self.v_draft = llama_paged_prefill_chunk(
+                self.draft_params, self.k_draft, self.v_draft, table, start,
+                self._to_device(ids), n_live, self.draft_config)
+            start += n_live
+        seq.draft_pos = target
+
     def _decode_batch(self) -> List[_Seq]:
+        if self.serve.speculative:
+            return self._decode_spec_batch()
         # grow each row across its block boundary, evicting when the pool
         # runs dry (an evicted row drops out of the batch by losing
         # RUNNING state); with nothing evictable the row stalls an
@@ -363,6 +427,138 @@ class InferenceEngine:
             if seq.first_token_t is None:
                 seq.first_token_t = now
             seq.token_times.append(now)
+            if seq.done():
+                self._finish_seq(seq)
+                done.append(seq)
+        return done
+
+    def _decode_spec_batch(self) -> List[_Seq]:
+        """Speculative decode iteration: up to K host-chained DRAFT steps
+        propose lookahead tokens per RUNNING row, then ONE batched
+        base-model verify step scores all K+1 positions through the
+        multi-token paged read and commits only the accepted prefix's KV.
+        Every emitted token is the BASE model's greedy argmax at its
+        position, so the stream equals sequential decode."""
+        K = self.serve.draft_k
+        max_nb = self.serve.max_nb
+        # per-row lookahead cap: never past max_new or the table width;
+        # floor 1, so a degenerate row still advances one token
+        ready: List[_Seq] = []
+        caps: Dict[int, int] = {}
+        for seq in [s for s in self.active if s.state == RUNNING]:
+            if seq.state != RUNNING:
+                continue
+            remaining = seq.req.max_new_tokens - len(seq.generated)
+            t_cap = max(1, min(K + 1, remaining,
+                               self.serve.max_seq_len - seq.n_cached))
+            ok = self._alloc_for(seq, seq.n_cached + t_cap)
+            # shrink the lookahead before evicting anyone: draft tokens
+            # cost accept rate when dropped, never correctness
+            while not ok and t_cap > 1:
+                t_cap -= 1
+                ok = self._alloc_for(seq, seq.n_cached + t_cap)
+            while not ok and self._evict_one(protect=seq):
+                t_cap = 1
+                ok = self._alloc_for(seq, seq.n_cached + 1)
+            if ok:
+                ready.append(seq)
+                caps[seq.req.request_id] = t_cap
+        rows = [s for s in ready if s.state == RUNNING]
+        if not rows:
+            return []
+        n = len(rows)
+        bucket = next(b for b in self.serve.decode_buckets if b >= n)
+        # -- draft phase: batched single-token steps, host-chained (each
+        # argmax feeds the next step). Rows past their window are padding
+        # rows (null table, position 0). The first proposing step of a
+        # row feeds tokens[-1], as the verify feeds fed[:, 0].
+        proposals: Dict[int, List[int]] = {}
+        last_out: Dict[int, int] = {}
+        for _ in range(K):
+            host = np.zeros((bucket * (2 + max_nb),), np.int32)
+            tables = host[2 * bucket:].reshape(bucket, max_nb)
+            stepping = []
+            for i, seq in enumerate(rows):
+                rid = seq.req.request_id
+                if seq.draft_pos >= seq.n_cached + caps[rid] - 1:
+                    continue
+                p = seq.draft_pos
+                host[i] = (seq.tokens[p] if p < len(seq.tokens)
+                           else last_out[rid])
+                host[bucket + i] = p
+                tables[i] = pad_table(seq.blocks, max_nb)
+                stepping.append((i, seq))
+            if not stepping:
+                break
+            t0 = time.perf_counter()
+            dev = self._to_device(host)
+            dl, self.k_draft, self.v_draft = llama_paged_decode_step(
+                self.draft_params, self.k_draft, self.v_draft,
+                dev[2 * bucket:].view(bucket, max_nb),
+                dev[bucket:2 * bucket], dev[:bucket], self.draft_config)
+            nxt = dl.argmax(-1).tolist()
+            self._draft_s += time.perf_counter() - t0
+            self.draft_steps += 1
+            for i, seq in stepping:
+                rid = seq.req.request_id
+                seq.draft_pos += 1
+                last_out[rid] = nxt[i]
+                if seq.draft_pos > seq.n_cached:
+                    proposals.setdefault(rid, []).append(nxt[i])
+        # -- verify phase: one batched K+1-position base step; fed |
+        # qstart | t_live | tables in one buffer, one copy each way
+        T = K + 1
+        host = np.zeros((bucket * (T + 2 + max_nb),), np.int32)
+        fed = host[:bucket * T].reshape(bucket, T)
+        qstart = host[bucket * T:bucket * (T + 1)]
+        t_live = host[bucket * (T + 1):bucket * (T + 2)]
+        tables = host[bucket * (T + 2):].reshape(bucket, max_nb)
+        for i, seq in enumerate(rows):
+            rid = seq.req.request_id
+            props = proposals.get(rid, [])[:caps[rid] - 1]
+            fed[i, 0] = seq.tokens[-1]
+            fed[i, 1:1 + len(props)] = props
+            qstart[i] = seq.n_cached
+            t_live[i] = 1 + len(props)
+            tables[i] = pad_table(seq.blocks, max_nb)
+        t0 = time.perf_counter()
+        dev = self._to_device(host)
+        o = bucket * T
+        out, clen, fin, self.k_pool, self.v_pool = llama_paged_verify_step(
+            self.params, self.k_pool, self.v_pool,
+            dev[o + 2 * bucket:].view(bucket, max_nb), dev[o:o + bucket],
+            dev[o + bucket:o + 2 * bucket], dev[:o].view(bucket, T),
+            self.config)
+        got = torch.cat([out.flatten(), clen, fin.int()]).tolist()
+        self._decode_s += time.perf_counter() - t0
+        self.decode_steps += 1
+        out = [got[i * T:(i + 1) * T] for i in range(bucket)]
+        clen = got[o:o + bucket]
+        fin = got[o + bucket:o + 2 * bucket]
+        if not all(fin[:n]):
+            bad = [s.req.request_id for s, f in zip(rows, fin) if not f]
+            raise RuntimeError(f"requests {bad}: non-finite decode logits")
+        done: List[_Seq] = []
+        now = self._now()
+        for i, seq in enumerate(rows):
+            self._spec_proposed += int(t_live[i]) - 1
+            # accepted draft credit = commit_len - 1: the +1 is the
+            # base's own correction/next token
+            self._spec_accepted += max(0, clen[i] - 1)
+            for j in range(clen[i]):
+                seq.n_cached += 1
+                seq.tokens.append(out[i][j])
+                if seq.first_token_t is None:
+                    seq.first_token_t = now
+                seq.token_times.append(now)
+                if seq.done():
+                    # eos/max_new inside the window: later verified tokens
+                    # come after the stop, and sequential decode never
+                    # makes them
+                    break
+            # roll the draft back to the last verified position: its
+            # cache past the accepted prefix reflects rejected tokens
+            seq.draft_pos = min(seq.draft_pos, seq.n_cached)
             if seq.done():
                 self._finish_seq(seq)
                 done.append(seq)
@@ -418,7 +614,9 @@ class InferenceEngine:
         clock: seconds in wall mode, iterations in deterministic mode),
         and the host-clock mean of each decode step and prefill chunk
         (each ends in the device->host copy of its sampled tokens, so
-        the device work is inside it)."""
+        the device work is inside it). With speculation on, a decode step
+        is one verify step; ``speculative`` holds the proposal counts and
+        the draft steps' own mean."""
         seqs = self.finished
         gen = sum(len(s.generated) for s in seqs)
         ttfts = [s.first_token_t - s.arrival for s in seqs
@@ -449,6 +647,18 @@ class InferenceEngine:
             "prefill_chunk_ms_mean": (
                 self._prefill_s * 1e3 / self.prefill_chunks
                 if self.prefill_chunks else None),
+            "speculative": ({
+                "draft_k": self.serve.draft_k,
+                "draft_layers": self.draft_config.num_hidden_layers,
+                "proposed": self._spec_proposed,
+                "accepted": self._spec_accepted,
+                "accept_rate": (self._spec_accepted / self._spec_proposed
+                                if self._spec_proposed else None),
+                "draft_steps": self.draft_steps,
+                "draft_step_ms_mean": (self._draft_s * 1e3
+                                       / self.draft_steps
+                                       if self.draft_steps else None),
+            } if self.serve.speculative else None),
             "pool_blocks": self.serve.num_blocks - 1,
             "used_blocks": self.pool.used_blocks,
             "device": str(self.device),

@@ -45,7 +45,10 @@ from torch.utils.checkpoint import checkpoint
 from .._device import resolve_device
 from ..ops.decode_attention import TILE_T, decode_attend_update_slab
 from ..ops.flash_attention import flash_attention_bshd
-from ..ops.paged_attention import LOG2E, paged_attend_update
+from ..ops.paged_attention import (LOG2E, merge_verify_partials,
+                                   paged_attend_update,
+                                   paged_attention_verify,
+                                   paged_verify_commit)
 from ..ops.rms_norm import fused_rms_norm
 from ..nn.functional.attention import _xla_sdpa
 from ..ops.rope import apply_rope, build_rope_cache
@@ -209,8 +212,8 @@ def init_paged_kv_pool(config: LlamaConfig, num_blocks: int,
 
 
 def _heads(layers, hd):
-    nh = layers["q_proj"].shape[-1] // hd
-    nkv = layers["k_proj"].shape[-1] // hd
+    nh = _mat_out_dim(layers["q_proj"]) // hd
+    nkv = _mat_out_dim(layers["k_proj"]) // hd
     return nh, nkv
 
 
@@ -243,9 +246,9 @@ def llama_paged_decode_step(params, k_pool, v_pool, tables, positions, ids,
     scale = LOG2E / (hd ** 0.5)
     for layer in range(k_pool.shape[0]):
         x = fused_rms_norm(h[:, None], p["input_norm"][layer], c.rms_norm_eps)
-        q = _mat(x, p["q_proj"][layer]).reshape(b, 1, nh, hd)
-        k = _mat(x, p["k_proj"][layer]).reshape(b, 1, nkv, hd)
-        v = _mat(x, p["v_proj"][layer]).reshape(b, 1, nkv, hd)
+        q = _mat(x, _at(p["q_proj"], layer)).reshape(b, 1, nh, hd)
+        k = _mat(x, _at(p["k_proj"], layer)).reshape(b, 1, nkv, hd)
+        v = _mat(x, _at(p["v_proj"], layer)).reshape(b, 1, nkv, hd)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         # q pre-scaled into the log2 domain: f32 multiply, then back to
@@ -256,7 +259,7 @@ def llama_paged_decode_step(params, k_pool, v_pool, tables, positions, ids,
             v.reshape(b, kvd).to(v_pool.dtype), k_pool, v_pool, tables,
             positions, layer)
         h = h + _mat(attn.to(c.dtype).reshape(b, nh * hd),
-                     p["o_proj"][layer])
+                     _at(p["o_proj"], layer))
         x2 = fused_rms_norm(h[:, None], p["post_norm"][layer],
                             c.rms_norm_eps)[:, 0]
         h = h + _mlp(p, layer, x2)
@@ -296,9 +299,9 @@ def llama_paged_prefill_chunk(params, k_pool, v_pool, table_row, start: int,
               <= pidx[:, None])[:, None, None, :]               # [C,1,1,T]
     for layer in range(k_pool.shape[0]):
         x = fused_rms_norm(h, p["input_norm"][layer], c.rms_norm_eps)
-        q = _mat(x, p["q_proj"][layer]).reshape(1, C, nh, hd)
-        k = _mat(x, p["k_proj"][layer]).reshape(1, C, nkv, hd)
-        v = _mat(x, p["v_proj"][layer]).reshape(1, C, nkv, hd)
+        q = _mat(x, _at(p["q_proj"], layer)).reshape(1, C, nh, hd)
+        k = _mat(x, _at(p["k_proj"], layer)).reshape(1, C, nkv, hd)
+        v = _mat(x, _at(p["v_proj"], layer)).reshape(1, C, nkv, hd)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         # advanced indices (bid, col) split by a slice put C first: the
@@ -316,12 +319,157 @@ def llama_paged_prefill_chunk(params, k_pool, v_pool, table_row, start: int,
         probs = torch.softmax(s, dim=-1).to(vg.dtype)
         attn = torch.einsum("cgrt,gdt->cgrd", probs.float(),
                             vg.float()).to(c.dtype)
-        h = h + _mat(attn.reshape(1, C, nh * hd), p["o_proj"][layer])
+        h = h + _mat(attn.reshape(1, C, nh * hd), _at(p["o_proj"], layer))
         x2 = fused_rms_norm(h, p["post_norm"][layer], c.rms_norm_eps)
         h = h + _mlp(p, layer, x2)
     h_last = h[0, n_live - 1:n_live][None]
     logits = llama_logits(params, h_last, config)[0, 0]
     return logits.float(), k_pool, v_pool
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: draft model + batched paged verification
+# ---------------------------------------------------------------------------
+
+def make_draft_model(params, config: LlamaConfig, num_layers: int = 1):
+    """Default draft model for speculative decoding: the base model's
+    FIRST ``num_layers`` decoder layers as views ``v[:dl]`` of the stacked
+    leaves (no copy), with the embedding, final norm and lm head shared by
+    reference. Verification re-derives every emitted token from the base
+    model, so the draft's quality moves latency only. Returns
+    (draft_params, draft_config)."""
+    dl = max(1, min(int(num_layers), config.num_hidden_layers))
+    dcfg = dataclasses.replace(config, num_hidden_layers=dl)
+    dparams = {
+        "embed": params["embed"],
+        "layers": {k: ({kk: vv[:dl] for kk, vv in v.items()}
+                       if isinstance(v, dict) else v[:dl])
+                   for k, v in params["layers"].items()},
+        "final_norm": params["final_norm"],
+    }
+    if "lm_head" in params:
+        dparams["lm_head"] = params["lm_head"]
+    return dparams, dcfg
+
+
+def _verify_logits(params, k_pool, v_pool, tables, qstart, fed,
+                   config: LlamaConfig):
+    """The base model over T fed tokens per row, attending each over the
+    row's cached prefix (the verify kernel's partials) merged exactly with
+    the fed tokens' own causal block. Returns (logits [B, T, vocab] f32,
+    k_cols, v_cols [L, B, T, KVD] in the pool dtype); the pools are only
+    read."""
+    c = config
+    B, T = fed.shape
+    hd = c.head_dim
+    p = params["layers"]
+    if "qkv_proj" in p:
+        raise ValueError("llama_paged_verify_step: a fused 'qkv_proj' "
+                         "(prepare_decode_params) is not ported for "
+                         "verification; pass the unfused q/k/v weights")
+    nh, nkv = _heads(p, hd)
+    kvd, rep = nkv * hd, nh // nkv
+    dev = fed.device
+    h = params["embed"][fed.long()].to(c.dtype)                 # [B, T, H]
+    pos2d = qstart[:, None] + torch.arange(T, dtype=torch.int32, device=dev)
+    cos, sin = build_rope_cache(T, hd, base=c.rope_theta,
+                                position_ids=pos2d)          # [B, T, hd/2]
+    scale = LOG2E / (hd ** 0.5)
+    # padding rows (qstart 0): their cached-side partials are replaced by
+    # exact zeros (anchor -1e30) with where, never by multiplying
+    live = (qstart > 0)[:, None, None, None]
+    neg = torch.tensor(-1e30, device=dev)
+    zero = torch.tensor(0.0, device=dev)
+    causal = (torch.arange(T, device=dev)[None, :]
+              <= torch.arange(T, device=dev)[:, None])        # [t, u]
+    k_cols, v_cols = [], []
+    for layer in range(k_pool.shape[0]):
+        x = fused_rms_norm(h, p["input_norm"][layer], c.rms_norm_eps)
+        q = _mat(x, _at(p["q_proj"], layer)).reshape(B, T, nh, hd)
+        k = _mat(x, _at(p["k_proj"], layer)).reshape(B, T, nkv, hd)
+        v = _mat(x, _at(p["v_proj"], layer)).reshape(B, T, nkv, hd)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        qs = (q.float() * scale).to(q.dtype)
+        acc_c, m_c, l_c = paged_attention_verify(qs, k_pool, v_pool, tables,
+                                                 qstart, layer)
+        # fed columns as stored (pool dtype round trip): the values
+        # sequential decode would read back from the cache
+        k_st = k.reshape(B, T, kvd).to(k_pool.dtype)
+        v_st = v.reshape(B, T, kvd).to(v_pool.dtype)
+        kf = k_st.float().reshape(B, T, nkv, hd)
+        vf = v_st.float().reshape(B, T, nkv, hd)
+        # the fed tokens' causal block in f32, P not rounded
+        qg = qs.float().reshape(B, T, nkv, rep, hd)
+        s_f = torch.einsum("btgrd,bugd->btgru", qg, kf)
+        s_f = torch.where(causal[None, :, None, None, :], s_f, neg)
+        m_f = s_f.amax(dim=-1, keepdim=True)
+        p_f = torch.exp2(s_f - m_f)
+        l_f = p_f.sum(dim=-1, keepdim=True)
+        acc_f = torch.einsum("btgru,bugd->btgrd", p_f, vf)
+        m_f = m_f.reshape(B, T, nh, 1)
+        l_f = l_f.reshape(B, T, nh, 1)
+        acc_f = acc_f.reshape(B, T, nh, hd)
+        attn = merge_verify_partials(
+            torch.where(live, acc_c, zero),
+            torch.where(live, m_c[..., None], neg),
+            torch.where(live, l_c[..., None], zero),
+            acc_f, m_f, l_f).to(c.dtype)
+        h = h + _mat(attn.reshape(B, T, nh * hd), _at(p["o_proj"], layer))
+        x2 = fused_rms_norm(h, p["post_norm"][layer], c.rms_norm_eps)
+        h = h + _mlp(p, layer, x2)
+        k_cols.append(k_st)
+        v_cols.append(v_st)
+    logits = llama_logits(params, h, config).float()
+    return logits, torch.stack(k_cols), torch.stack(v_cols)
+
+
+@torch.no_grad()
+def llama_paged_verify_step(params, k_pool, v_pool, tables, qstart,
+                            t_live, fed, config: LlamaConfig,
+                            kv_scales=None, tp=None):
+    """Score T fed tokens per sequence in ONE base-model pass over a
+    paged cache, greedily accept/reject, and commit only accepted KV.
+
+    fed [B, T] i32: fed[:, 0] is each row's last emitted token (its KV is
+    not cached yet), fed[:, 1:] the draft's proposals; qstart [B] i32
+    cached token counts (fed[:, j] sits at position qstart + j); t_live
+    [B] i32 live fed counts (1 = plain decode through this path, 0 = a
+    padding row: tables at null block 0, qstart 0). out[:, j] is the
+    base's greedy token after position qstart + j; commit_len = accepted
+    proposals + 1 counts the fed tokens whose KV is committed, after the
+    logits, in one launch over all layers.
+
+    Returns (out [B, T] i32, commit_len [B] i32, fin_ok [B] bool, k_pool,
+    v_pool), all on the device; the pools are written in place. int8 KV
+    (``kv_scales``) and tensor parallelism (``tp``) are not ported."""
+    if kv_scales is not None:
+        raise NotImplementedError(
+            "llama_paged_verify_step: int8 KV (kv_scales) is not ported "
+            "yet (ROADMAP queue 1, item 2)")
+    if tp is not None:
+        raise NotImplementedError("llama_paged_verify_step: tensor-parallel "
+                                  "serving (tp) is not ported")
+    B, T = fed.shape
+    logits, k_cols, v_cols = _verify_logits(params, k_pool, v_pool, tables,
+                                            qstart, fed, config)
+    # per-row finite screen: the engine sees tokens, not logits
+    fin_ok = torch.isfinite(logits).all(dim=2).all(dim=1)
+    out = logits.argmax(dim=-1).int()
+    # longest prefix where the base argmax equals the proposal (inside the
+    # live window), then the base's correction token
+    if T > 1:
+        steps = torch.arange(1, T, dtype=torch.int32, device=fed.device)
+        match = (out[:, :-1] == fed[:, 1:]) & (steps[None, :]
+                                               < t_live[:, None])
+        accepted = torch.cumprod(match.int(), dim=1).sum(dim=1)
+    else:
+        accepted = torch.zeros((B,), dtype=torch.int64, device=fed.device)
+    commit_len = torch.where(t_live > 0, accepted + 1,
+                             torch.zeros_like(accepted)).int()
+    paged_verify_commit(k_cols, v_cols, k_pool, v_pool, tables, qstart,
+                        commit_len)
+    return out, commit_len, fin_ok, k_pool, v_pool
 
 
 # ---------------------------------------------------------------------------

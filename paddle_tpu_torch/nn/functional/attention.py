@@ -69,7 +69,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, fixed_seed_offset=None, name=None):
-    """paddle.nn.functional.flash_attention parity wrapper: (out, None)."""
+    """paddle.nn.functional.flash_attention parity wrapper: (out, None).
+
+    Causal attention at Sq != Sk aligns differently on the two branches,
+    as in the JAX package: on a CUDA tensor the flash kernels mask
+    top-left (query i sees keys j <= i), on a CPU tensor ``_xla_sdpa``
+    masks bottom-right (j <= i + Sk - Sq). At Sq == Sk they agree."""
     out = scaled_dot_product_attention(query, key, value, dropout_p=dropout,
                                        is_causal=causal)
     return out, None

@@ -1,22 +1,41 @@
-"""Fused paged-attention update for one decode layer: the CUDA kernel
-``csrc/paged_attention.cu`` and its plain PyTorch version (port of
-``paddle_tpu/ops/paged_attention.py`` ``paged_attend_update``).
+"""Paged attention for the serving engine: the CUDA kernels
+``csrc/paged_attention.cu`` and their plain PyTorch versions (port of
+``paddle_tpu/ops/paged_attention.py``).
 
-Layouts (the JAX package's, so pools compare directly):
+  paged_attend_update     ports ``paged_attend_update``
+                          (``_paged_update_kernel``): write one column,
+                          then decode attention
+  paged_attention_verify  ports ``paged_attention_verify``
+                          (``_paged_verify_kernel``): T fed tokens per row
+                          over the cached prefix, unfinalised partials
+  paged_verify_commit     ports ``paged_verify_commit``
+                          (``_paged_commit_kernel``): the accepted columns
+                          of every layer into the pools
+
+Layouts (the JAX package's pools, so they compare directly):
   q          [B, NH, HD]          PRE-SCALED by scale * log2(e)
+  q (verify) [B, T, NH, HD]       the same, per fed token
   new_k/v    [B, KVD]             KVD = NKV * HD
+  new_k/v    [L, B, T, KVD]       (commit) every layer's fed columns
   pools      [L, NP, KVD, bs]     time in the minor dimension
   tables     [B, max_nb] int32    pool block ids per sequence slot
   positions  [B] int32            the NEW token's position per row
+  qstart     [B] int32            (verify, commit) cached tokens per row
 
-Unlike the TPU entry, q is per head, not the block-diagonal [B, NH, KVD]
-padding that the TPU's matrix unit wanted. Every row writes its new
-column into the pools IN PLACE (the JAX package donates them), then
-attends over positions 0..positions[b] inclusive. Padding rows point
-their tables at the reserved null block 0 with position 0.
+Unlike the TPU entries, q is per head, not the block-diagonal padding
+[B, R, KVD] that the TPU's matrix unit wanted, and the verify partials
+are per head (acc [B, T, NH, HD], m and l [B, T, NH]) rather than
+[B, R, KVD] and [B, R, 128]. The update and the commit write the pools IN
+PLACE (the JAX package donates them). Padding rows point their tables at
+the reserved null block 0 (position 0, qstart 0); rejected and padding
+columns of the commit land in block 0 too. A verify row with qstart 0
+gets the defined partials acc = 0, l = 0, m = -1e30 (JAX leaves them
+unwritten and masks them).
 
 The softmax is the online recurrence only, per pool block, in the log2
-domain; the TPU default's tile-0-anchored variant is not ported.
+domain; the TPU default's tile-0-anchored variant is not ported. The
+merge of verify partials is exact for any anchor, so the two compare
+through :func:`merge_verify_partials` or acc / l and m + log2(l).
 """
 from __future__ import annotations
 
@@ -28,7 +47,8 @@ from .. import _build
 
 LOG2E = 1.4426950408889634
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_REPS = (1, 2, 4, 8)    # query heads per kv head the kernel is built for
+_REPS = (1, 2, 4, 8)    # query heads per kv head the kernels are built for
+MAX_FED = 8             # fed tokens per row the verify and commit kernels take
 
 
 def paged_attend_update_plain(q, new_k, new_v, k_pool, v_pool, tables,
@@ -70,43 +90,61 @@ def paged_attend_update_plain(q, new_k, new_v, k_pool, v_pool, tables,
     return out.reshape(B, NH, HD)
 
 
+def _check_geometry(what, NH, KVD, HD, bs):
+    if KVD % HD or NH % (KVD // HD) or NH // (KVD // HD) not in _REPS:
+        raise ValueError(f"{what}: NH={NH}, KVD={KVD}, HD={HD} need NKV = "
+                         f"KVD/HD dividing NH with NH/NKV in {_REPS}")
+    if bs % 128 or bs > 1024:
+        raise ValueError(f"{what}: block size {bs} must be a multiple of "
+                         f"128, at most 1024")
+    tp = bs // HD if HD and bs % HD == 0 else 0
+    if HD % 8 or tp < 1 or tp > 32 or tp & (tp - 1):
+        raise ValueError(f"{what}: head_dim {HD} must be a multiple of 8 "
+                         f"with bs/HD a power of two <= 32")
+
+
+def _check_common(what, tensors, pools, tables, rows_of):
+    """Device, contiguity and pool/table types shared by the entries."""
+    if any(t.device != tensors[0].device for t in tensors):
+        raise ValueError(f"{what}: all tensors must share one device")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: tensors must be contiguous")
+    if pools[0].dtype not in _DTYPE_CODE or pools[1].dtype != pools[0].dtype:
+        raise TypeError(f"{what}: pools must share one dtype of "
+                        f"{list(_DTYPE_CODE)}")
+    if pools[1].shape != pools[0].shape or pools[0].ndim != 4:
+        raise ValueError(f"{what}: pools must share one [L, NP, KVD, bs] "
+                         f"shape")
+    if tables.dtype != torch.int32 or any(t.dtype != torch.int32
+                                          for t in rows_of):
+        raise TypeError(f"{what}: tables and per-row indices must be "
+                        f"int32")
+    B = tables.shape[0]
+    if tables.ndim != 2 or any(t.shape != (B,) for t in rows_of):
+        raise ValueError(f"{what}: tables [B, max_nb] and per-row indices "
+                         f"[B] must agree")
+
+
 def _check(q, new_k, new_v, k_pool, v_pool, tables, positions, layer):
     B, NH, HD = q.shape
     L, NP, KVD, bs = k_pool.shape
-    tensors = (q, new_k, new_v, k_pool, v_pool, tables, positions)
-    if any(t.device != q.device for t in tensors):
-        raise ValueError("paged_attend_update: all tensors must share q's "
-                         "device")
-    if any(not t.is_contiguous() for t in tensors):
-        raise ValueError("paged_attend_update: tensors must be contiguous")
-    if q.dtype not in _DTYPE_CODE or any(
-            t.dtype != q.dtype for t in (new_k, new_v, k_pool, v_pool)):
-        raise TypeError(f"paged_attend_update: q, new_k/new_v and pools "
-                        f"must share one dtype of {list(_DTYPE_CODE)}")
-    if tables.dtype != torch.int32 or positions.dtype != torch.int32:
-        raise TypeError("paged_attend_update: tables and positions must "
-                        "be int32")
-    if KVD % HD or NH % (KVD // HD) or NH // (KVD // HD) not in _REPS:
-        raise ValueError(f"paged_attend_update: NH={NH}, KVD={KVD}, "
-                         f"HD={HD} need NKV = KVD/HD dividing NH with "
-                         f"NH/NKV in {_REPS}")
-    if v_pool.shape != k_pool.shape or new_k.shape != (B, KVD) \
-            or new_v.shape != (B, KVD):
-        raise ValueError("paged_attend_update: pool or new column shapes "
-                         "disagree")
-    if tables.ndim != 2 or tables.shape[0] != B or positions.shape != (B,):
-        raise ValueError("paged_attend_update: tables [B, max_nb] and "
-                         "positions [B] must match q's batch")
-    if bs % 128 or bs > 1024:
-        raise ValueError(f"paged_attend_update: block size {bs} must be a "
-                         f"multiple of 128, at most 1024")
-    tp = bs // HD if HD and bs % HD == 0 else 0
-    if HD % 8 or tp < 1 or tp > 32 or tp & (tp - 1):
-        raise ValueError(f"paged_attend_update: head_dim {HD} must be a "
-                         f"multiple of 8 with bs/HD a power of two <= 32")
+    what = "paged_attend_update"
+    _check_common(what, (q, new_k, new_v, k_pool, v_pool, tables,
+                         positions), (k_pool, v_pool), tables, (positions,))
+    if any(t.dtype != k_pool.dtype for t in (q, new_k, new_v)):
+        raise TypeError(f"{what}: q, new_k/new_v and pools must share one "
+                        f"dtype")
+    _check_geometry(what, NH, KVD, HD, bs)
+    if new_k.shape != (B, KVD) or new_v.shape != (B, KVD) \
+            or tables.shape[0] != B:
+        raise ValueError(f"{what}: new columns [B, KVD] and tables must "
+                         f"match q's batch")
     if not 0 <= layer < L:
-        raise ValueError(f"paged_attend_update: layer {layer} outside "
-                         f"[0, {L})")
+        raise ValueError(f"{what}: layer {layer} outside [0, {L})")
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def paged_attend_update(q, new_k, new_v, k_pool, v_pool, tables,
@@ -138,10 +176,221 @@ def paged_attend_update(q, new_k, new_v, k_pool, v_pool, tables,
              k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
              positions.data_ptr(), out.data_ptr(), B, int(layer), NP, NH,
              KVD // HD, HD, bs, tables.shape[1], _DTYPE_CODE[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+             _stream(q))
     _build.check("paged_attention", err, "paged_attend_update")
     paged_attend_update.launches += 1
     return out
 
 
 paged_attend_update.launches = 0
+
+
+# -- speculative verification ---------------------------------------------
+
+
+def merge_verify_partials(acc_c, m_c, l_c, acc_f, m_f, l_f):
+    """Exact online-softmax merge of the cached prefix's partials with the
+    fed tokens' partials: rescale both exp2 sums to the common max and
+    finalise once. Exact for ANY anchor m (tile-0 or running max). m and l
+    broadcast against acc (trailing size-1 axis). Returns attn f32."""
+    m_tot = torch.maximum(m_c, m_f)
+    a_c = torch.exp2(m_c - m_tot)
+    a_f = torch.exp2(m_f - m_tot)
+    num = acc_c * a_c + acc_f * a_f
+    den = l_c * a_c + l_f * a_f
+    return num / torch.clamp(den, min=1e-30)
+
+
+def paged_attention_verify_plain(q, k_pool, v_pool, tables, qstart,
+                                 layer: int):
+    """Plain PyTorch version on any device, block by block with the
+    kernel's online softmax over tokens 0..qstart-1: P rounded to the pool
+    dtype before P.V, l summed from the unrounded f32 P. Returns the
+    unfinalised (acc [B, T, NH, HD], m [B, T, NH], l [B, T, NH]) f32;
+    rows with qstart 0 get acc = 0, l = 0, m = -1e30."""
+    B, T, NH, HD = q.shape
+    bs = k_pool.shape[-1]
+    nkv = k_pool.shape[2] // HD
+    rep = NH // nkv
+    R = T * rep
+    dev = q.device
+    last = qstart.long() - 1
+    # the kernel's rows of kv-head g: i = t * rep + rr
+    qf = q.float().reshape(B, T, nkv, rep, HD).transpose(1, 2) \
+        .reshape(B, nkv, R, HD)
+    m = torch.full((B, nkv, R), float("-inf"), device=dev)
+    l = torch.zeros((B, nkv, R), device=dev)
+    acc = torch.zeros((B, nkv, R, HD), device=dev)
+    col = torch.arange(bs, device=dev)
+    for j in range(int(last.max()) // bs + 1 if B else 0):
+        blk = tables[:, j].long()
+        kt = k_pool[layer, blk].float().reshape(B, nkv, HD, bs)
+        vt = v_pool[layer, blk].float().reshape(B, nkv, HD, bs)
+        s = torch.einsum("bgrd,bgdt->bgrt", qf, kt)
+        live = (j * bs + col)[None, :] <= last[:, None]           # [B, bs]
+        s = torch.where(live[:, None, None, :], s,
+                        torch.tensor(-1e30, device=dev))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bgrt,bgdt->bgrd", p.to(v_pool.dtype).float(), vt)
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    dead = (qstart <= 0)[:, None, None]
+    m = torch.where(dead, torch.tensor(-1e30, device=dev), m)
+    l = torch.where(dead, torch.tensor(0.0, device=dev), l)
+    acc = torch.where(dead[..., None], torch.tensor(0.0, device=dev), acc)
+    acc = acc.reshape(B, nkv, T, rep, HD).transpose(1, 2) \
+        .reshape(B, T, NH, HD)
+    m = m.reshape(B, nkv, T, rep).transpose(1, 2).reshape(B, T, NH)
+    l = l.reshape(B, nkv, T, rep).transpose(1, 2).reshape(B, T, NH)
+    return acc, m, l
+
+
+def _check_verify(q, k_pool, v_pool, tables, qstart, layer):
+    what = "paged_attention_verify"
+    _check_common(what, (q, k_pool, v_pool, tables, qstart),
+                  (k_pool, v_pool), tables, (qstart,))
+    if q.ndim != 4 or q.dtype != k_pool.dtype:
+        raise ValueError(f"{what}: q must be [B, T, NH, HD] in the pools' "
+                         f"dtype")
+    B, T, NH, HD = q.shape
+    L, NP, KVD, bs = k_pool.shape
+    _check_geometry(what, NH, KVD, HD, bs)
+    if tables.shape[0] != B:
+        raise ValueError(f"{what}: tables must match q's batch")
+    if not 1 <= T <= MAX_FED:
+        raise ValueError(f"{what}: {T} fed tokens; the kernel takes 1 to "
+                         f"{MAX_FED}")
+    if not 0 <= layer < L:
+        raise ValueError(f"{what}: layer {layer} outside [0, {L})")
+
+
+def paged_attention_verify(q, k_pool, v_pool, tables, qstart, layer: int):
+    """Multi-token verification read over each row's CACHED prefix
+    (tokens 0..qstart[b]-1). q [B, T, NH, HD] is pre-scaled by
+    scale * log2(e). Returns unfinalised f32 partials (acc [B, T, NH, HD],
+    m [B, T, NH], l [B, T, NH]); m is the running max, so compare
+    merged or finalised values with other anchors.
+
+    A CUDA tensor goes through the kernel (or raises); a CPU tensor
+    through :func:`paged_attention_verify_plain`.
+    ``paged_attention_verify.launches`` counts kernel launches."""
+    _check_verify(q, k_pool, v_pool, tables, qstart, layer)
+    if q.device.type == "cpu":
+        return paged_attention_verify_plain(q, k_pool, v_pool, tables,
+                                            qstart, layer)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention_verify: unsupported device "
+                         f"{q.device}")
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise ValueError("paged_attention_verify: q and the pools must "
+                         "start on 16-byte aligned storage")
+    B, T, NH, HD = q.shape
+    _, NP, KVD, bs = k_pool.shape
+    acc = torch.empty((B, T, NH, HD), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, T, NH), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, T, NH), dtype=torch.float32, device=q.device)
+    fn = _build.kernel("paged_attention", "paged_attention_verify_fwd",
+                       [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                       + [ctypes.c_void_p])
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             tables.data_ptr(), qstart.data_ptr(), acc.data_ptr(),
+             m.data_ptr(), l.data_ptr(), B, T, int(layer), NP, NH,
+             KVD // HD, HD, bs, tables.shape[1], _DTYPE_CODE[q.dtype],
+             _stream(q))
+    _build.check("paged_attention", err, "paged_attention_verify")
+    paged_attention_verify.launches += 1
+    return acc, m, l
+
+
+paged_attention_verify.launches = 0
+
+
+def paged_commit_schedule(qstart, commit_len, tables, n_layers: int,
+                          n_tokens: int, block_size: int) -> torch.Tensor:
+    """Flat commit walk [6, L*B*T] int32, layer-major then sequence then
+    token, fields (layer, block, column, first, sequence, token): fed token
+    t of row b commits at position qstart[b] + t iff t < commit_len[b];
+    rejected and dead columns go to the null block 0. ``first`` marks a
+    change of (layer, block) along the walk. Bitwise the JAX function's."""
+    B, max_nb = tables.shape
+    T = int(n_tokens)
+    dev = tables.device
+    idx = torch.arange(int(n_layers) * B * T, dtype=torch.int32, device=dev)
+    li = idx // (B * T)
+    bi = (idx // T) % B
+    ti = idx % T
+    pos = qstart[bi.long()].int() + ti
+    commit = ti < commit_len[bi.long()].int()
+    slot = torch.clamp(pos // block_size, 0, max_nb - 1)
+    bid = torch.where(commit, tables[bi.long(), slot.long()].int(),
+                      torch.zeros_like(pos))
+    col = pos % block_size
+    head = torch.full((1,), -1, dtype=torch.int32, device=dev)
+    prev_l = torch.cat([head, li[:-1]])
+    prev_b = torch.cat([head, bid[:-1]])
+    first = ((li != prev_l) | (bid != prev_b)).int()
+    return torch.stack([li, bid, col, first, bi, ti])
+
+
+def paged_verify_commit_plain(new_k, new_v, k_pool, v_pool, tables, qstart,
+                              commit_len):
+    """Plain PyTorch version on any device: one advanced-index assignment
+    along :func:`paged_commit_schedule`. Writes the pools in place and
+    returns them. Block 0 receives the rejected columns in no set
+    order."""
+    L, B, T, KVD = new_k.shape
+    sc = paged_commit_schedule(qstart, commit_len, tables, L, T,
+                               k_pool.shape[-1]).long()
+    li, bid, col, _, bi, ti = sc
+    k_pool[li, bid, :, col] = new_k[li, bi, ti].to(k_pool.dtype)
+    v_pool[li, bid, :, col] = new_v[li, bi, ti].to(v_pool.dtype)
+    return k_pool, v_pool
+
+
+def paged_verify_commit(new_k, new_v, k_pool, v_pool, tables, qstart,
+                        commit_len):
+    """Post-verification cache commit over all layers in one launch: fed
+    token t's column of new_k/new_v [L, B, T, KVD] (pool dtype) lands at
+    position qstart[b] + t for every t < commit_len[b]; the others write
+    the null block 0. Writes the pools in place and returns them.
+
+    A CUDA tensor goes through the kernel (or raises); a CPU tensor
+    through :func:`paged_verify_commit_plain`.
+    ``paged_verify_commit.launches`` counts kernel launches."""
+    what = "paged_verify_commit"
+    _check_common(what, (new_k, new_v, k_pool, v_pool, tables, qstart,
+                         commit_len), (k_pool, v_pool), tables,
+                  (qstart, commit_len))
+    L, NP, KVD, bs = k_pool.shape
+    if new_k.dtype != k_pool.dtype or new_v.dtype != k_pool.dtype:
+        raise TypeError(f"{what}: new columns must be in the pools' dtype")
+    if new_k.ndim != 4 or new_v.shape != new_k.shape \
+            or new_k.shape[0] != L or new_k.shape[1] != tables.shape[0] \
+            or new_k.shape[3] != KVD:
+        raise ValueError(f"{what}: new_k/new_v must be [L, B, T, KVD] of "
+                         f"the pools' L and KVD and the tables' B")
+    T = new_k.shape[2]
+    if not 1 <= T <= MAX_FED:
+        raise ValueError(f"{what}: {T} fed tokens; the kernel takes 1 to "
+                         f"{MAX_FED}")
+    if new_k.device.type == "cpu":
+        return paged_verify_commit_plain(new_k, new_v, k_pool, v_pool,
+                                         tables, qstart, commit_len)
+    if new_k.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {new_k.device}")
+    fn = _build.kernel("paged_attention", "paged_verify_commit_fwd",
+                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+    err = fn(new_k.data_ptr(), new_v.data_ptr(), k_pool.data_ptr(),
+             v_pool.data_ptr(), tables.data_ptr(), qstart.data_ptr(),
+             commit_len.data_ptr(), L, tables.shape[0], T, NP, KVD, bs,
+             tables.shape[1], _DTYPE_CODE[k_pool.dtype], _stream(k_pool))
+    _build.check("paged_attention", err, what)
+    paged_verify_commit.launches += 1
+    return k_pool, v_pool
+
+
+paged_verify_commit.launches = 0

@@ -131,6 +131,159 @@ def test_decode_step_on_card_matches_cpu(dev):
         torch.testing.assert_close(got[:, 1:], want[:, 1:], atol=1e-5, rtol=0)
 
 
+def _verify_case(dev, dtype, nh, nkv, hd, qstart, T, seed=0, bs=128,
+                 spread=None):
+    """Rows with qstart cached tokens over fragmented random tables that
+    also hold the T fed positions; qstart 0 is a padding row (null
+    table). ``spread`` scales every row's second block of keys, so its
+    scores lead the first block's by hundreds of log2 units; then q lies
+    on a 2^-5 grid and the keys on a 2^-4 grid (integers in the scaled
+    block), so f32 holds every score exactly in any summation order (at
+    |s| ~ 800 two orders differ by ~1e-4, which near-tied keys turn into
+    output errors over the f32 limit)."""
+    rng = np.random.RandomState(seed)
+    b, kvd = len(qstart), nkv * hd
+    need = [-(-(q + T) // bs) if q else 0 for q in qstart]
+    n_pool = 1 + sum(need)
+    perm = rng.permutation(np.arange(1, n_pool))
+    tables = np.zeros((b, max(need) + 1), np.int32)
+    at = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = perm[at:at + n]
+        at += n
+    k_pool = rng.randn(2, n_pool, kvd, bs)
+    q = rng.randn(b, T, nh, hd) * (pa.LOG2E / hd ** 0.5)
+    if spread is not None:
+        k_pool = np.round(k_pool * 16) / 16
+        for i, n in enumerate(need):
+            if n > 1:
+                k_pool[1, tables[i, 1]] = np.round(k_pool[1, tables[i, 1]]
+                                                   * spread)
+        q = np.round(q * 32) / 32
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+    return dict(q=t(q), k_pool=t(k_pool),
+                v_pool=t(rng.randn(2, n_pool, kvd, bs)),
+                tables=torch.from_numpy(tables).to(dev),
+                qstart=torch.tensor(qstart, dtype=torch.int32, device=dev),
+                new_k=t(rng.randn(2, b, T, kvd)),
+                new_v=t(rng.randn(2, b, T, kvd)))
+
+
+VERIFY_QSTART = [0, 1, 127, 128, 129, 700]   # 0: padding; 128 fills a block
+
+
+@pytest.mark.parametrize("dtype,nh,nkv,hd,T,spread", [
+    (torch.float32, 4, 2, 16, 4, None),     # llama_tiny geometry
+    (torch.float32, 8, 4, 32, 1, 150.0),    # REP 2
+    (torch.float32, 16, 4, 64, 3, 150.0),   # REP 4
+    (torch.float32, 32, 4, 128, 8, 150.0),  # REP 8, T 8: 64 rows, 8 chunks
+    (torch.bfloat16, 32, 32, 128, 5, None),  # llama_7b, draft_k 4
+    (torch.bfloat16, 32, 8, 128, 7, None),
+])
+def test_paged_verify_kernel_matches_plain(dev, dtype, nh, nkv, hd, T,
+                                           spread):
+    """Row 6 against its plain version: the finalised acc / l under the
+    flash rule, m + log2(l) to 1e-4 + 1e-6 |ref| (f32: a few steps at the
+    spread's |lse| of about 800) or 1e-3 + 1e-5 |ref| (bf16: scores summed
+    in another order), and a padding row's defined partials exactly."""
+    a = _verify_case(dev, dtype, nh, nkv, hd, VERIFY_QSTART, T,
+                     spread=spread)
+    args = (a["q"], a["k_pool"], a["v_pool"], a["tables"], a["qstart"], 1)
+    before = pa.paged_attention_verify.launches
+    acc, m, l = pa.paged_attention_verify(*args)
+    ra, rm, rl = pa.paged_attention_verify_plain(*args)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_verify.launches == before + 1
+    live = a["qstart"] > 0
+    _close(acc[live] / l[live][..., None], ra[live] / rl[live][..., None],
+           FLASH_TOL[dtype][0])
+    torch.testing.assert_close(
+        m[live] + torch.log2(l[live]), rm[live] + torch.log2(rl[live]),
+        **(dict(rtol=1e-6, atol=1e-4) if dtype == torch.float32
+           else dict(rtol=1e-5, atol=1e-3)))
+    assert torch.equal(acc[~live], torch.zeros_like(acc[~live]))
+    assert torch.equal(l[~live], torch.zeros_like(l[~live]))
+    assert torch.equal(m[~live], torch.full_like(m[~live], -1e30))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_commit_kernel_matches_plain(dev, dtype):
+    """Row 8 against its plain version, bitwise on every block but the
+    null block 0: commit lengths 0 to T, windows across a block edge."""
+    qstart = [0, 3, 125, 126, 300, 128]
+    a = _verify_case(dev, dtype, 8, 4, 32, qstart, 5, seed=4)
+    clen = torch.tensor([0, 5, 3, 5, 1, 4], dtype=torch.int32, device=dev)
+    kp, vp = a["k_pool"].clone(), a["v_pool"].clone()
+    kp2, vp2 = a["k_pool"].clone(), a["v_pool"].clone()
+    before = pa.paged_verify_commit.launches
+    pa.paged_verify_commit(a["new_k"], a["new_v"], kp, vp, a["tables"],
+                           a["qstart"], clen)
+    pa.paged_verify_commit_plain(a["new_k"], a["new_v"], kp2, vp2,
+                                 a["tables"], a["qstart"], clen)
+    torch.cuda.synchronize()
+    assert pa.paged_verify_commit.launches == before + 1
+    assert torch.equal(kp[:, 1:], kp2[:, 1:])
+    assert torch.equal(vp[:, 1:], vp2[:, 1:])
+    assert not torch.equal(kp[:, 1:], a["k_pool"][:, 1:])
+    # an accepted column landed: row 2's third token at position 127
+    assert torch.equal(kp[1, a["tables"][2, 0], :, 127], a["new_k"][1, 2, 2])
+
+
+def test_verify_and_commit_kernels_reject_bad_inputs(dev):
+    a = _verify_case(dev, torch.float32, 4, 2, 16, [3, 9], 4)
+    with pytest.raises(ValueError, match="fed tokens"):
+        pa.paged_attention_verify(a["q"].repeat(1, 3, 1, 1).contiguous(),
+                                  a["k_pool"], a["v_pool"], a["tables"],
+                                  a["qstart"], 1)
+    with pytest.raises(TypeError):
+        pa.paged_attention_verify(a["q"], a["k_pool"], a["v_pool"],
+                                  a["tables"], a["qstart"].long(), 1)
+    with pytest.raises(ValueError, match="device"):
+        pa.paged_verify_commit(a["new_k"].cpu(), a["new_v"], a["k_pool"],
+                               a["v_pool"], a["tables"], a["qstart"],
+                               a["qstart"])
+    with pytest.raises(TypeError):
+        pa.paged_verify_commit(a["new_k"].double(), a["new_v"].double(),
+                               a["k_pool"], a["v_pool"], a["tables"],
+                               a["qstart"], a["qstart"])
+
+
+def test_verify_step_on_card_matches_cpu(dev):
+    """One tiny fp32 verify step through rows 6 and 8 on the card and
+    through their plain versions on the CPU: tokens, commit lengths and
+    the finite screen equal, the pools equal but for block 0."""
+    cfg = tl.llama_tiny(vocab=96, hidden=64, layers=2, heads=4, kv_heads=2,
+                        seq=512)
+    params = tl.init_llama_params(cfg, seed=1, device="cpu")
+    rng = np.random.RandomState(5)
+    shape = (2, 8, 32, 128)
+    kp = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    vp = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    tables = torch.tensor([[3, 5, 0], [0, 0, 0], [7, 0, 0]], dtype=torch.int32)
+    qstart = torch.tensor([126, 0, 9], dtype=torch.int32)
+    t_live = torch.tensor([5, 0, 2], dtype=torch.int32)
+    fed = torch.from_numpy(rng.randint(1, 96, size=(3, 5)).astype(np.int32))
+    out = []
+    for d in ("cpu", dev):
+        p = {k: ({kk: vv.to(d) for kk, vv in v.items()} if isinstance(v, dict)
+                 else v.to(d)) for k, v in params.items()}
+        before = (pa.paged_attention_verify.launches,
+                  pa.paged_verify_commit.launches)
+        res = tl.llama_paged_verify_step(
+            p, kp.clone().to(d), vp.clone().to(d), tables.to(d),
+            qstart.to(d), t_live.to(d), fed.to(d), cfg)
+        after = (pa.paged_attention_verify.launches,
+                 pa.paged_verify_commit.launches)
+        out.append([r.cpu() for r in res])
+        if d != "cpu":
+            assert after == (before[0] + 2, before[1] + 1)
+    for got, want in zip(out[1][:3], out[0][:3]):
+        assert torch.equal(got, want)
+    for got, want in zip(out[1][3:], out[0][3:]):
+        torch.testing.assert_close(got[:, 1:], want[:, 1:], atol=1e-5,
+                                   rtol=0)
+
+
 def _flash_case(dev, dtype, bh, s, d, seed, sk=None):
     g = torch.Generator(device=dev).manual_seed(seed)
     sk = s if sk is None else sk

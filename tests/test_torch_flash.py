@@ -27,9 +27,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from paddle_tpu.nn.functional import attention as jattn
 from paddle_tpu.ops import _common
 from paddle_tpu.ops import flash_attention as jfa
 
+from paddle_tpu_torch.nn.functional import flash_attention
 from paddle_tpu_torch.ops import flash_attention as fa
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -225,3 +227,27 @@ def test_wrappers_reject_bad_shapes():
     with pytest.raises(ValueError):
         fa.flash_bwd(q, q, q, q, torch.zeros(2, 7), torch.zeros(2, 8),
                      False, 0.25)
+
+
+@pytest.mark.parametrize("sq,sk", [(64, 128), (200, 77)])
+def test_causal_alignment_at_unequal_lengths(sq, sk):
+    """Causal attention at Sq != Sk, f32 GQA. The branch that
+    ``nn.functional.flash_attention`` takes on a CUDA tensor
+    (``flash_attention_bshd``, here through its plain version) masks
+    top-left, as JAX's ``flash_attention_bshd`` (interpret mode) does; on
+    a CPU tensor it takes ``_xla_sdpa``, bottom-right, as JAX's CPU
+    branch does. Each agrees with its JAX counterpart to TOL, and the two
+    branches differ (pinning the split the port keeps from JAX)."""
+    rng = np.random.RandomState(sq + sk)
+    q = rng.randn(2, sq, 4, 16).astype(np.float32)
+    k = rng.randn(2, sk, 2, 16).astype(np.float32)
+    v = rng.randn(2, sk, 2, 16).astype(np.float32)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    top_left = np.asarray(jfa.flash_attention_bshd(jq, jk, jv, causal=True))
+    bottom_right = np.asarray(jattn._xla_sdpa(jq, jk, jv, is_causal=True))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    kernel_branch = fa.flash_attention_bshd(tq, tk, tv, causal=True)
+    cpu_branch, _ = flash_attention(tq, tk, tv, causal=True)
+    np.testing.assert_allclose(kernel_branch.numpy(), top_left, **TOL)
+    np.testing.assert_allclose(cpu_branch.numpy(), bottom_right, **TOL)
+    assert np.abs(top_left - bottom_right).max() > 0.5

@@ -116,6 +116,39 @@ def test_decode_step_matches_jax(model):
     _check_pools((tk, tv), ref[1:])
 
 
+def test_paged_steps_take_int8_weights(model):
+    """The decode step and the prefill chunk (the speculative draft's
+    steps too) on weight-only int8 ``{'w', 's'}`` weights."""
+    jcfg, params, tcfg, _ = model
+    qparams = jl.quantize_llama_int8(params)
+    tq = tl.params_from_numpy(jax.tree.map(np.asarray, qparams), "cpu")
+    kp, vp = _pools(jcfg, 3)
+    tables = np.asarray([[3, 5, 0, 0], [0, 0, 0, 0]], np.int32)
+    positions = np.asarray([130, 0], np.int32)
+    ids = np.asarray([4, 0], np.int32)
+    ref = jl.llama_paged_decode_step(
+        qparams, jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tables),
+        jnp.asarray(positions), jnp.asarray(ids), jcfg)
+    tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    logits, tk, tv = tl.llama_paged_decode_step(
+        tq, tk, tv, torch.from_numpy(tables), torch.from_numpy(positions),
+        torch.from_numpy(ids), tcfg)
+    np.testing.assert_allclose(logits.numpy()[:1], np.asarray(ref[0])[:1],
+                               atol=1e-4)
+    _check_pools((tk, tv), ref[1:])
+    chunk = np.zeros((16,), np.int32)
+    chunk[:9] = np.arange(1, 10)
+    ref = jl.llama_paged_prefill_chunk(
+        qparams, jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tables[0]),
+        jnp.int32(125), jnp.asarray(chunk), jnp.int32(9), jcfg)
+    tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    logits, tk, tv = tl.llama_paged_prefill_chunk(
+        tq, tk, tv, torch.from_numpy(tables[0]), 125,
+        torch.from_numpy(chunk), 9, tcfg)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(ref[0]), atol=1e-4)
+    _check_pools((tk, tv), ref[1:])
+
+
 def test_entry_points_refuse_missing_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
