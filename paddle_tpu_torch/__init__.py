@@ -8,12 +8,13 @@ hand-written kernel is replaced by its plain PyTorch version. Kernels
 from .inference import (BlockPool, BlockPoolError, InferenceEngine, Request,
                         ServeConfig, pad_table)
 from .models.llama import (LlamaConfig, generate, init_llama_params,
-                           init_paged_kv_pool, llama_7b,
-                           llama_paged_verify_step, llama_tiny,
+                           init_paged_kv_pool, init_paged_kv_scales,
+                           llama_7b, llama_paged_verify_step, llama_tiny,
                            make_draft_model, params_from_numpy)
 
 __all__ = ["BlockPool", "BlockPoolError", "InferenceEngine", "Request",
            "ServeConfig", "pad_table", "LlamaConfig", "generate",
-           "init_llama_params", "init_paged_kv_pool", "llama_7b",
+           "init_llama_params", "init_paged_kv_pool",
+           "init_paged_kv_scales", "llama_7b",
            "llama_paged_verify_step", "llama_tiny", "make_draft_model",
            "params_from_numpy"]

@@ -2,10 +2,20 @@
 // Pools keep the JAX layout [L, NP, KVD, bs] (time in the minor
 // dimension, KVD = NKV * HD); block 0 is the reserved null block.
 //
-// Replaces three TPU kernels of paddle_tpu/ops/paged_attention.py:
+// Replaces seven TPU kernels of paddle_tpu/ops/paged_attention.py:
 //   paged_attend_update    (_paged_update_kernel) -> paged_attend_update_fwd
 //   paged_attention_verify (_paged_verify_kernel) -> paged_attention_verify_fwd
 //   paged_verify_commit    (_paged_commit_kernel) -> paged_verify_commit_fwd
+// and their int8 twins over int8 pools with f32 scale pools [L, NP, NKV,
+// bs], one scale per (block, kv-head, column):
+//   paged_attend_update_quant    (_paged_update_quant_kernel)
+//                                   -> paged_attend_update_quant_fwd
+//   paged_attention_quant        (_paged_quant_kernel)
+//                                   -> paged_attention_quant_fwd
+//   paged_attention_verify_quant (_paged_verify_quant_kernel)
+//                                   -> paged_attention_verify_quant_fwd
+//   paged_verify_commit_quant    (_paged_commit_quant_kernel)
+//                                   -> paged_verify_commit_quant_fwd
 //
 // paged_attend_update_fwd: for each batch row b it writes new_k[b] /
 // new_v[b] into column positions[b] % bs of pool block tables[b,
@@ -30,9 +40,10 @@
 // row's K and V columns once and do about 4 * R * HD operations per token
 // for R query rows of a kv-head, under 2 operations per byte at R <= 8
 // (B = 8 rows of 1024 tokens at KVD = 4096 in bf16 is 134 MB, 40 us per
-// layer). The commit moves 2 * L * B * T * KVD elements in and out; each
-// column write touches KVD rows bs elements apart, so every element costs
-// a 32-byte sector.
+// layer; int8 halves the bytes and adds 4 bytes of scales per kv-head
+// and token, 4 operations per byte at R <= 8). The commit moves 2 * L * B
+// * T * KVD elements in and out; each column write touches KVD rows bs
+// elements apart, so every element costs a 32-byte sector.
 //
 // Design of the attention entries (not the TPU's): the TPU walks one flat
 // sequential schedule of (sequence, block) steps and pads each query row
@@ -69,6 +80,27 @@
 // index fastest, so the up-to-T consecutive columns of one pool row go out
 // together.
 //
+// The int8 entries (q in f32 or bf16, pools int8, scales f32). New
+// columns arrive already quantized (the caller's kv_quant_columns, the one
+// quantizer of prefill, decode and commit): the kernels copy bytes and
+// scales and never requantize. The walk is the same block walk with
+// 16-byte vectors of 16 codes (so G = 16 K row groups, and part_s holds
+// 16 * R * bs floats: 64 KiB at R = 8). One CTA owns one kv-head, so a
+// token's K scale and V scale are scalars of the whole CTA: step b forms
+// s[t] = ks[t] * sum_d q[d] * k8[d, t], and step c stores p'[t] = p[t] *
+// vs[t] for P.V, in f32 and NOT rounded (l sums the unscaled p). The TPU
+// kernels dequantize every element first, f32(k8) * ks; the factored
+// form differs from that only in f32 rounding. The decode entry
+// (paged_attend_update_quant_fwd) writes the new column's HD bytes of its
+// own kv-head and its one K and one V scale before the __syncthreads that
+// precedes the walk, the same race-free argument as above; the read-only
+// entry (paged_attention_quant_fwd) is the same kernel with the write
+// compiled out, over tokens 0..lengths[b]-1 (a row of length 0 gets 0).
+// The int8 commit is the commit's byte scatter with 1-byte elements, each
+// of which costs a 32-byte sector (worse than bf16: the T columns of one
+// pool row share one sector at most); each CTA also scatters the T scales
+// of the kv-heads whose rows start in its slice.
+//
 // The kernels allocate nothing and do not synchronise; they launch on the
 // caller's stream. Not done yet: split-K across CTAs for short batches,
 // cp.async/TMA prefetch of the next block.
@@ -89,19 +121,28 @@ size_t walk_smem_bytes(int hd, int bs) {
   return sizeof(float) * (size_t)(R * hd + G * R * bs + R * bs + 2 * R * 32);
 }
 
+// The per-column scale pools [L, NP, NKV, bs] f32 of int8 pools, read at
+// kv-head g (QUANT walks only)
+struct Scales {
+  const float* k = nullptr;
+  const float* v = nullptr;
+  int nkv = 0, g = 0;
+};
+
 // Online softmax of the R query rows q_s [R, hd] (f32, shared memory)
 // over tokens 0..last (inclusive, last >= 0) of one sequence, whose pool
 // blocks are trow[0..last/bs], at the kv-head slice that starts head_off
 // rows into KVD. Launched with blockDim.x == bs; every thread of the CTA
 // calls it. On return every thread holds the same m[r], l[r], and thread
 // (vd, vpart) with vpart == 0 holds acc[r] for output column vd, where
-// tp = bs / hd, vd = tid / tp, vpart = tid % tp.
-template <typename T, int R>
+// tp = bs / hd, vd = tid / tp, vpart = tid % tp. QUANT: T is int8_t and
+// each token's score and P take its K and V scale from ``sc``.
+template <typename T, int R, bool QUANT = false>
 __device__ __forceinline__ void walk_blocks(const T* k_pool, const T* v_pool,
                                             const int* trow, int layer, int np, int kvd,
                                             size_t head_off, int hd, int bs, int last,
                                             float* smem, float (&m)[R], float (&l)[R],
-                                            float (&acc)[R]) {
+                                            float (&acc)[R], Scales sc = {}) {
   constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte vector
   constexpr int G = VEC;                // K row groups: bs threads / (bs/VEC) per row
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -131,6 +172,12 @@ __device__ __forceinline__ void walk_blocks(const T* k_pool, const T* v_pool,
     const size_t base = (((size_t)layer * np + (size_t)trow[j]) * kvd + head_off) * bs;
     const T* kt = k_pool + base;
     const T* vt = v_pool + base;
+    [[maybe_unused]] float kscale = 1.f, vscale = 1.f;  // this token's scales
+    if constexpr (QUANT) {
+      const size_t so = (((size_t)layer * np + (size_t)trow[j]) * sc.nkv + sc.g) * bs + tid;
+      kscale = sc.k[so];
+      vscale = sc.v[so];
+    }
 
     // a. partial scores of VEC tokens over this thread's K rows
     float sp[R][VEC];
@@ -166,6 +213,7 @@ __device__ __forceinline__ void walk_blocks(const T* k_pool, const T* v_pool,
       float v = 0.f;
 #pragma unroll
       for (int k = 0; k < G; ++k) v += part_s[(k * R + r) * bs + tid];
+      if constexpr (QUANT) v *= kscale;
       s[r] = live ? v : -1e30f;
       const float mx = warp_max(s[r]);
       if (lane == 0) max_s[r * 32 + warp] = mx;
@@ -182,7 +230,10 @@ __device__ __forceinline__ void walk_blocks(const T* k_pool, const T* v_pool,
       alpha[r] = exp2f(m[r] - m_new);
       m[r] = m_new;
       const float p = exp2f(s[r] - m_new);
-      p_s[r * bs + tid] = round_to(p, kt);
+      if constexpr (QUANT)
+        p_s[r * bs + tid] = p * vscale;
+      else
+        p_s[r * bs + tid] = round_to(p, kt);
       const float ps = warp_sum(p);
       if (lane == 0) sum_s[r * 32 + warp] = ps;
     }
@@ -265,16 +316,86 @@ __global__ void paged_update_kernel(const T* __restrict__ q, const T* __restrict
   }
 }
 
+// int8 decode, grid (nkv, b), blockDim.x == bs. WRITE (row 5): write row
+// b's pre-quantized column (this kv-head's hd bytes of new_k/new_v, its K
+// and V scale) at positions[b], then attend over 0..positions[b]. !WRITE
+// (row 4): attend over 0..rows[b]-1, rows = lengths; a row of length 0
+// gets 0. new_* are unused when !WRITE.
+template <typename Q, int REP, bool WRITE>
+__global__ void paged_decode_quant_kernel(const Q* __restrict__ q,
+                                          const int8_t* __restrict__ new_k,
+                                          const int8_t* __restrict__ new_v,
+                                          const float* __restrict__ new_ks,
+                                          const float* __restrict__ new_vs, int8_t* k_pool,
+                                          int8_t* v_pool, float* k_scale, float* v_scale,
+                                          const int* __restrict__ tables,
+                                          const int* __restrict__ rows,
+                                          float* __restrict__ out, int layer, int np, int nkv,
+                                          int hd, int bs, int max_nb) {
+  const int g = blockIdx.x, b = blockIdx.y;
+  const int kvd = nkv * hd;
+  const int tid = threadIdx.x;
+  extern __shared__ float smem[];
+  float* q_s = smem;
+
+  const int last = WRITE ? rows[b] : rows[b] - 1;
+  const int* trow = tables + (size_t)b * max_nb;
+  const size_t head_off = (size_t)g * hd;
+
+  // 1. the new token's column: this kv-head's bytes and its two scales
+  if constexpr (WRITE) {
+    const size_t blk = (size_t)trow[last / bs];
+    const int col = last % bs;
+    const size_t base = (((size_t)layer * np + blk) * kvd + head_off) * bs + col;
+    const size_t src = (size_t)b * kvd + head_off;
+    for (int d = tid; d < hd; d += blockDim.x) {
+      k_pool[base + (size_t)d * bs] = new_k[src + d];
+      v_pool[base + (size_t)d * bs] = new_v[src + d];
+    }
+    if (tid == 0) {
+      const size_t so = (((size_t)layer * np + blk) * nkv + g) * bs + col;
+      k_scale[so] = new_ks[(size_t)b * nkv + g];
+      v_scale[so] = new_vs[(size_t)b * nkv + g];
+    }
+  }
+  // 2. queries
+  const size_t q_off = ((size_t)b * nkv * REP + (size_t)g * REP) * hd;
+  for (int i = tid; i < REP * hd; i += blockDim.x) q_s[i] = to_f(q[q_off + i]);
+  __syncthreads();  // orders the column write above before the reads below
+
+  // 3. online softmax over the row's live blocks (none for a length-0 row)
+  float m[REP], l[REP], acc[REP];
+  if (last >= 0) {  // uniform over the CTA
+    walk_blocks<int8_t, REP, true>(k_pool, v_pool, trow, layer, np, kvd, head_off, hd, bs, last,
+                                   smem, m, l, acc, Scales{k_scale, v_scale, nkv, g});
+  } else {
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      l[r] = 0.f;
+      acc[r] = 0.f;
+    }
+  }
+
+  // 4. finalise: attn [B, NH, HD] f32
+  const int tp = blockDim.x / hd, vd = tid / tp, vpart = tid % tp;
+  if (vpart == 0) {
+#pragma unroll
+    for (int r = 0; r < REP; ++r) out[q_off + (size_t)r * hd + vd] = acc[r] / fmaxf(l[r], 1e-30f);
+  }
+}
+
 // grid (nkv, b, ceil(t_fed * rep / RC)), blockDim.x == bs. Local query row
 // i = t * rep + rr of kv-head g is fed token t's head g * rep + rr; this
-// CTA takes rows blockIdx.z * RC + [0, RC).
-template <typename T, int RC>
-__global__ void paged_verify_kernel(const T* __restrict__ q, const T* k_pool, const T* v_pool,
-                                    const int* __restrict__ tables,
-                                    const int* __restrict__ qstart, float* __restrict__ acc_out,
-                                    float* __restrict__ m_out, float* __restrict__ l_out,
-                                    int layer, int np, int nkv, int rep, int t_fed, int hd,
-                                    int bs, int max_nb) {
+// CTA takes rows blockIdx.z * RC + [0, RC). q of type Q, pools of type T.
+template <typename Q, typename T, int RC, bool QUANT>
+__device__ __forceinline__ void verify_body(const Q* __restrict__ q, const T* k_pool,
+                                            const T* v_pool, const int* __restrict__ tables,
+                                            const int* __restrict__ qstart,
+                                            float* __restrict__ acc_out,
+                                            float* __restrict__ m_out,
+                                            float* __restrict__ l_out, int layer, int np,
+                                            int nkv, int rep, int t_fed, int hd, int bs,
+                                            int max_nb, Scales sc) {
   const int g = blockIdx.x, b = blockIdx.y, row0 = blockIdx.z * RC;
   const int nh = nkv * rep, nrows = t_fed * rep;
   const int kvd = nkv * hd;
@@ -297,8 +418,8 @@ __global__ void paged_verify_kernel(const T* __restrict__ q, const T* k_pool, co
   float m[RC], l[RC], acc[RC];
   if (qs > 0) {  // uniform over the CTA
     __syncthreads();
-    walk_blocks<T, RC>(k_pool, v_pool, tables + (size_t)b * max_nb, layer, np, kvd,
-                       (size_t)g * hd, hd, bs, qs - 1, smem, m, l, acc);
+    walk_blocks<T, RC, QUANT>(k_pool, v_pool, tables + (size_t)b * max_nb, layer, np, kvd,
+                              (size_t)g * hd, hd, bs, qs - 1, smem, m, l, acc, sc);
   } else {
 #pragma unroll
     for (int r = 0; r < RC; ++r) {
@@ -323,14 +444,45 @@ __global__ void paged_verify_kernel(const T* __restrict__ q, const T* k_pool, co
   }
 }
 
-// grid (ceil(kvd / kCommitSlice), b_rows, n_layers), kCommitSlice threads.
-// W is an unsigned type of the element's width: the commit copies bits.
+template <typename T, int RC>
+__global__ void paged_verify_kernel(const T* __restrict__ q, const T* k_pool, const T* v_pool,
+                                    const int* __restrict__ tables,
+                                    const int* __restrict__ qstart, float* __restrict__ acc_out,
+                                    float* __restrict__ m_out, float* __restrict__ l_out,
+                                    int layer, int np, int nkv, int rep, int t_fed, int hd,
+                                    int bs, int max_nb) {
+  verify_body<T, T, RC, false>(q, k_pool, v_pool, tables, qstart, acc_out, m_out, l_out, layer,
+                               np, nkv, rep, t_fed, hd, bs, max_nb, Scales{});
+}
+
+// int8 pools, q of type Q (f32 or bf16)
+template <typename Q, int RC>
+__global__ void paged_verify_quant_kernel(const Q* __restrict__ q, const int8_t* k_pool,
+                                          const int8_t* v_pool, const float* k_scale,
+                                          const float* v_scale, const int* __restrict__ tables,
+                                          const int* __restrict__ qstart,
+                                          float* __restrict__ acc_out,
+                                          float* __restrict__ m_out, float* __restrict__ l_out,
+                                          int layer, int np, int nkv, int rep, int t_fed,
+                                          int hd, int bs, int max_nb) {
+  verify_body<Q, int8_t, RC, true>(q, k_pool, v_pool, tables, qstart, acc_out, m_out, l_out,
+                                   layer, np, nkv, rep, t_fed, hd, bs, max_nb,
+                                   Scales{k_scale, v_scale, nkv, (int)blockIdx.x});
+}
+
+// The commit of one CTA of grid (ceil(kvd / kCommitSlice), b_rows,
+// n_layers), kCommitSlice threads: elements [d0, d0 + kCommitSlice) of the
+// T columns of (layer, row b). W is an unsigned type of the element's
+// width: the commit copies bits. On return blk[t] and col[t] hold fed
+// token t's pool block (0 when rejected) and column, for every thread.
 template <typename W>
-__global__ void paged_commit_kernel(const W* __restrict__ new_k, const W* __restrict__ new_v,
-                                    W* k_pool, W* v_pool, const int* __restrict__ tables,
-                                    const int* __restrict__ qstart,
-                                    const int* __restrict__ commit_len, int np, int b_rows,
-                                    int t_fed, int kvd, int bs, int max_nb) {
+__device__ __forceinline__ void commit_slice(const W* __restrict__ new_k,
+                                             const W* __restrict__ new_v, W* k_pool, W* v_pool,
+                                             const int* __restrict__ tables,
+                                             const int* __restrict__ qstart,
+                                             const int* __restrict__ commit_len, int np,
+                                             int b_rows, int t_fed, int kvd, int bs, int max_nb,
+                                             int* blk, int* col) {
   __shared__ W sk[kMaxFed][kCommitSlice];
   __shared__ W sv[kMaxFed][kCommitSlice];
   __shared__ size_t dst[kMaxFed];  // element offset of (layer, block, row 0, column)
@@ -339,8 +491,9 @@ __global__ void paged_commit_kernel(const W* __restrict__ new_k, const W* __rest
   if (tid < t_fed) {
     const int pos = qstart[b] + tid;
     const int slot = min(max(pos / bs, 0), max_nb - 1);
-    const size_t blk = tid < commit_len[b] ? (size_t)tables[(size_t)b * max_nb + slot] : 0;
-    dst[tid] = ((size_t)layer * np + blk) * kvd * bs + pos % bs;
+    blk[tid] = tid < commit_len[b] ? tables[(size_t)b * max_nb + slot] : 0;
+    col[tid] = pos % bs;
+    dst[tid] = ((size_t)layer * np + (size_t)blk[tid]) * kvd * bs + col[tid];
   }
   const int d = d0 + tid;
   if (d < kvd) {
@@ -358,6 +511,45 @@ __global__ void paged_commit_kernel(const W* __restrict__ new_k, const W* __rest
     const size_t o = dst[t] + (size_t)(d0 + dd) * bs;
     k_pool[o] = sk[t][dd];
     v_pool[o] = sv[t][dd];
+  }
+}
+
+template <typename W>
+__global__ void paged_commit_kernel(const W* __restrict__ new_k, const W* __restrict__ new_v,
+                                    W* k_pool, W* v_pool, const int* __restrict__ tables,
+                                    const int* __restrict__ qstart,
+                                    const int* __restrict__ commit_len, int np, int b_rows,
+                                    int t_fed, int kvd, int bs, int max_nb) {
+  __shared__ int blk[kMaxFed], col[kMaxFed];
+  commit_slice<W>(new_k, new_v, k_pool, v_pool, tables, qstart, commit_len, np, b_rows, t_fed,
+                  kvd, bs, max_nb, blk, col);
+}
+
+// int8 commit: the bytes as above, then the T scales [n_layers, b_rows,
+// t_fed, nkv] of the kv-heads whose rows start in this CTA's slice, token
+// index fastest (consecutive columns of one scale row)
+__global__ void paged_commit_quant_kernel(const uint8_t* __restrict__ new_k,
+                                          const uint8_t* __restrict__ new_v,
+                                          const float* __restrict__ new_ks,
+                                          const float* __restrict__ new_vs, uint8_t* k_pool,
+                                          uint8_t* v_pool, float* k_scale, float* v_scale,
+                                          const int* __restrict__ tables,
+                                          const int* __restrict__ qstart,
+                                          const int* __restrict__ commit_len, int np,
+                                          int b_rows, int t_fed, int kvd, int nkv, int bs,
+                                          int max_nb) {
+  __shared__ int blk[kMaxFed], col[kMaxFed];
+  commit_slice<uint8_t>(new_k, new_v, k_pool, v_pool, tables, qstart, commit_len, np, b_rows,
+                        t_fed, kvd, bs, max_nb, blk, col);
+  const int d0 = blockIdx.x * kCommitSlice, b = blockIdx.y, layer = blockIdx.z;
+  const int hd = kvd / nkv;
+  const int g0 = (d0 + hd - 1) / hd, g1 = min(nkv, (d0 + kCommitSlice + hd - 1) / hd);
+  for (int i = threadIdx.x; i < (g1 - g0) * t_fed; i += blockDim.x) {
+    const int g = g0 + i / t_fed, t = i % t_fed;
+    const size_t src = (((size_t)layer * b_rows + b) * t_fed + t) * nkv + g;
+    const size_t o = (((size_t)layer * np + (size_t)blk[t]) * nkv + g) * bs + col[t];
+    k_scale[o] = new_ks[src];
+    v_scale[o] = new_vs[src];
   }
 }
 
@@ -435,6 +627,98 @@ bool bad_geometry(int nh, int nkv, int hd, int bs) {
   if (rep != 1 && rep != 2 && rep != 4 && rep != 8) return true;
   return bs % 128 || bs > 1024 || hd < 1 || bs % hd || hd % 8 || (bs / hd) > 32 ||
          ((bs / hd) & (bs / hd - 1));
+}
+
+// the int8 walks load 16 codes a vector, so a V row slice of hd bytes
+// must hold whole vectors
+bool bad_quant_geometry(int nh, int nkv, int hd, int bs) {
+  return bad_geometry(nh, nkv, hd, bs) || hd % 16;
+}
+
+template <typename Q, int REP, bool WRITE>
+cudaError_t launch_decode_quant(const void* q, const void* nk, const void* nv, const void* nks,
+                                const void* nvs, void* kp, void* vp, void* ks, void* vs,
+                                const void* tables, const void* rows, void* out, int b,
+                                int layer, int np, int nkv, int hd, int bs, int max_nb,
+                                cudaStream_t stream) {
+  const size_t smem = walk_smem_bytes<int8_t, REP>(hd, bs);
+  cudaError_t e = set_smem(paged_decode_quant_kernel<Q, REP, WRITE>, smem);
+  if (e != cudaSuccess) return e;
+  paged_decode_quant_kernel<Q, REP, WRITE><<<dim3(nkv, b), bs, smem, stream>>>(
+      static_cast<const Q*>(q), static_cast<const int8_t*>(nk), static_cast<const int8_t*>(nv),
+      static_cast<const float*>(nks), static_cast<const float*>(nvs), static_cast<int8_t*>(kp),
+      static_cast<int8_t*>(vp), static_cast<float*>(ks), static_cast<float*>(vs),
+      static_cast<const int*>(tables), static_cast<const int*>(rows), static_cast<float*>(out),
+      layer, np, nkv, hd, bs, max_nb);
+  return cudaSuccess;
+}
+
+// rows 5 (WRITE) and 4 (read-only; nk, nv, nks, nvs null): the shared entry
+template <bool WRITE>
+int decode_quant_entry(const void* q, const void* nk, const void* nv, const void* nks,
+                       const void* nvs, void* kp, void* vp, void* ks, void* vs,
+                       const void* tables, const void* rows, void* out, int b, int layer,
+                       int np, int nh, int nkv, int hd, int bs, int max_nb, int dtype,
+                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bad_quant_geometry(nh, nkv, hd, bs) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (b > 0) {
+#define PA_DECODE_QUANT(Q, REP)                                                            \
+  launch_decode_quant<Q, REP, WRITE>(q, nk, nv, nks, nvs, kp, vp, ks, vs, tables, rows, out, b, \
+                                     layer, np, nkv, hd, bs, max_nb, s)
+    cudaError_t e;
+    switch (nh / nkv * 2 + dtype) {
+      case 2: e = PA_DECODE_QUANT(float, 1); break;
+      case 3: e = PA_DECODE_QUANT(__nv_bfloat16, 1); break;
+      case 4: e = PA_DECODE_QUANT(float, 2); break;
+      case 5: e = PA_DECODE_QUANT(__nv_bfloat16, 2); break;
+      case 8: e = PA_DECODE_QUANT(float, 4); break;
+      case 9: e = PA_DECODE_QUANT(__nv_bfloat16, 4); break;
+      case 16: e = PA_DECODE_QUANT(float, 8); break;
+      case 17: e = PA_DECODE_QUANT(__nv_bfloat16, 8); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef PA_DECODE_QUANT
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename Q, int RC>
+cudaError_t launch_verify_quant(const void* q, const void* kp, const void* vp, const void* ks,
+                                const void* vs, const void* tables, const void* qstart,
+                                void* acc, void* m, void* l, int b, int t_fed, int layer,
+                                int np, int nkv, int rep, int hd, int bs, int max_nb,
+                                cudaStream_t stream) {
+  const size_t smem = walk_smem_bytes<int8_t, RC>(hd, bs);
+  cudaError_t e = set_smem(paged_verify_quant_kernel<Q, RC>, smem);
+  if (e != cudaSuccess) return e;
+  const int chunks = (t_fed * rep + RC - 1) / RC;
+  paged_verify_quant_kernel<Q, RC><<<dim3(nkv, b, chunks), bs, smem, stream>>>(
+      static_cast<const Q*>(q), static_cast<const int8_t*>(kp), static_cast<const int8_t*>(vp),
+      static_cast<const float*>(ks), static_cast<const float*>(vs),
+      static_cast<const int*>(tables), static_cast<const int*>(qstart),
+      static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l), layer, np,
+      nkv, rep, t_fed, hd, bs, max_nb);
+  return cudaSuccess;
+}
+
+// the chunk height as for verify_rows
+template <typename Q>
+cudaError_t verify_quant_rows(const void* q, const void* kp, const void* vp, const void* ks,
+                              const void* vs, const void* tables, const void* qstart,
+                              void* acc, void* m, void* l, int b, int t_fed, int layer, int np,
+                              int nkv, int rep, int hd, int bs, int max_nb, cudaStream_t s) {
+#define PA_VERIFY_QUANT(RC)                                                                   \
+  launch_verify_quant<Q, RC>(q, kp, vp, ks, vs, tables, qstart, acc, m, l, b, t_fed, layer, np, \
+                             nkv, rep, hd, bs, max_nb, s)
+  const int r = t_fed * rep;
+  if (r <= 1) return PA_VERIFY_QUANT(1);
+  if (r <= 2) return PA_VERIFY_QUANT(2);
+  if (r <= 4) return PA_VERIFY_QUANT(4);
+  return PA_VERIFY_QUANT(8);
+#undef PA_VERIFY_QUANT
 }
 
 }  // namespace
@@ -523,6 +807,113 @@ extern "C" int paged_verify_commit_fwd(const void* nk, const void* nv, void* kp,
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The int8 entries: pools int8 [n_layers, np, kvd, bs], scale pools f32
+// [n_layers, np, nkv, bs]; q [b, nh, hd] (verify: [b, t_fed, nh, hd])
+// pre-scaled, dtype 0 = float32, 1 = bfloat16. The geometry is that of the
+// entries above with hd % 16 == 0. Row 5: new_k/new_v int8 [b, kvd],
+// new_ks/new_vs f32 [b, nkv], written at positions[b]; row 4: lengths[b]
+// tokens read, (lengths[b] - 1) / bs < max_nb.
+extern "C" int paged_attend_update_quant_fwd(const void* q, const void* nk, const void* nv,
+                                             const void* nks, const void* nvs, void* kp,
+                                             void* vp, void* ks, void* vs, const void* tables,
+                                             const void* positions, void* out, int b,
+                                             int layer, int np, int nh, int nkv, int hd,
+                                             int bs, int max_nb, int dtype, void* stream) {
+  return decode_quant_entry<true>(q, nk, nv, nks, nvs, kp, vp, ks, vs, tables, positions, out,
+                                  b, layer, np, nh, nkv, hd, bs, max_nb, dtype, stream);
+}
+
+extern "C" int paged_attention_quant_fwd(const void* q, const void* kp, const void* vp,
+                                         const void* ks, const void* vs, const void* tables,
+                                         const void* lengths, void* out, int b, int layer,
+                                         int np, int nh, int nkv, int hd, int bs, int max_nb,
+                                         int dtype, void* stream) {
+  return decode_quant_entry<false>(q, nullptr, nullptr, nullptr, nullptr,
+                                   const_cast<void*>(kp), const_cast<void*>(vp),
+                                   const_cast<void*>(ks), const_cast<void*>(vs), tables,
+                                   lengths, out, b, layer, np, nh, nkv, hd, bs, max_nb, dtype,
+                                   stream);
+}
+
+extern "C" int paged_attention_verify_quant_fwd(const void* q, const void* kp, const void* vp,
+                                                const void* ks, const void* vs,
+                                                const void* tables, const void* qstart,
+                                                void* acc, void* m, void* l, int b, int t_fed,
+                                                int layer, int np, int nh, int nkv, int hd,
+                                                int bs, int max_nb, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bad_quant_geometry(nh, nkv, hd, bs) || t_fed < 1 || t_fed > kMaxFed)
+    return (int)cudaErrorInvalidValue;
+  if (b > 0) {
+    cudaError_t e;
+    if (dtype == 0)
+      e = verify_quant_rows<float>(q, kp, vp, ks, vs, tables, qstart, acc, m, l, b, t_fed,
+                                   layer, np, nkv, nh / nkv, hd, bs, max_nb, s);
+    else if (dtype == 1)
+      e = verify_quant_rows<__nv_bfloat16>(q, kp, vp, ks, vs, tables, qstart, acc, m, l, b,
+                                           t_fed, layer, np, nkv, nh / nkv, hd, bs, max_nb, s);
+    else
+      return (int)cudaErrorInvalidValue;
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
+// new_k/new_v int8 [n_layers, b, t_fed, kvd], new_ks/new_vs f32 [n_layers,
+// b, t_fed, nkv]; otherwise paged_verify_commit_fwd's contract
+extern "C" int paged_verify_commit_quant_fwd(const void* nk, const void* nv, const void* nks,
+                                             const void* nvs, void* kp, void* vp, void* ks,
+                                             void* vs, const void* tables, const void* qstart,
+                                             const void* commit_len, int n_layers, int b,
+                                             int t_fed, int np, int kvd, int nkv, int bs,
+                                             int max_nb, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (t_fed < 1 || t_fed > kMaxFed || kvd < 1 || nkv < 1 || kvd % nkv || bs < 1 || max_nb < 1)
+    return (int)cudaErrorInvalidValue;
+  if (b > 0 && n_layers > 0) {
+    const dim3 grid((kvd + kCommitSlice - 1) / kCommitSlice, b, n_layers);
+    paged_commit_quant_kernel<<<grid, kCommitSlice, 0, s>>>(
+        static_cast<const uint8_t*>(nk), static_cast<const uint8_t*>(nv),
+        static_cast<const float*>(nks), static_cast<const float*>(nvs),
+        static_cast<uint8_t*>(kp), static_cast<uint8_t*>(vp), static_cast<float*>(ks),
+        static_cast<float*>(vs), static_cast<const int*>(tables),
+        static_cast<const int*>(qstart), static_cast<const int*>(commit_len), np, b, t_fed,
+        kvd, nkv, bs, max_nb);
+  }
+  return (int)cudaGetLastError();
+}
+
+namespace {
+template <typename K>
+int occupancy(K kernel, int bs, size_t smem) {
+  int n = -1;
+  if (set_smem(kernel, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, bs, smem) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+template <int R>
+int quant_occupancy(int kind, int hd, int bs) {
+  const size_t smem = walk_smem_bytes<int8_t, R>(hd, bs);
+  if (kind == 0) return occupancy(paged_decode_quant_kernel<__nv_bfloat16, R, true>, bs, smem);
+  return occupancy(paged_verify_quant_kernel<__nv_bfloat16, R>, bs, smem);
+}
+}  // namespace
+
+// CTAs per SM that the int8 walks reach with bf16 q, bs threads and their
+// shared memory: kind 0 the decode kernel at REP = rows, kind 1 the verify
+// kernel at RC = rows; -1 on a bad argument or a CUDA error
+extern "C" int paged_quant_occupancy(int kind, int rows, int hd, int bs) {
+  switch (rows) {
+    case 1: return quant_occupancy<1>(kind, hd, bs);
+    case 2: return quant_occupancy<2>(kind, hd, bs);
+    case 4: return quant_occupancy<4>(kind, hd, bs);
+    case 8: return quant_occupancy<8>(kind, hd, bs);
+    default: return -1;
+  }
 }
 
 extern "C" const char* paged_attention_error_string(int err) {

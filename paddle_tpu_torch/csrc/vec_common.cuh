@@ -1,8 +1,9 @@
 // Scalar helpers shared by the port's decode-attention kernels for Hopper
 // (paged_attention.cu, decode_attention.cu), which run on the CUDA cores:
-// loads are 16-byte vectors converted to f32, sums are f32, and P is
-// rounded to the cache dtype before P.V as in the TPU kernels. The
-// tensor-core kernels have their own header, mma_common.cuh.
+// loads are 16-byte vectors converted to f32 (int8 codes too), sums are
+// f32, and P is rounded to the cache dtype before P.V as in the TPU
+// kernels (int8 caches keep P in f32). The tensor-core kernels have their
+// own header, mma_common.cuh.
 //
 // Everything here is in an anonymous namespace: each source is its own
 // translation unit and its own library.
@@ -16,6 +17,7 @@ namespace {
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 
 // x rounded to the element type that the pointer's type names
 __device__ __forceinline__ float round_to(float x, const float*) { return x; }

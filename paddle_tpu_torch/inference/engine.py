@@ -19,8 +19,14 @@ engine's, so a deterministic replay gives the same token streams and the
 same events in the same order. Greedy decoding; the argmax and the
 non-finite screen run on the device and only [B] values come back to the
 host per step. A non-finite logit RAISES: the JAX engine's quarantine,
-admission control, deadlines, journal, prefix cache, int8 KV,
-tensor-parallel serving and telemetry are not ported yet.
+admission control, deadlines, journal, prefix cache, tensor-parallel
+serving and telemetry are not ported yet.
+
+int8 paged KV (``ServeConfig(kv_dtype="int8")``, the JAX PR 16 path):
+the pools hold int8 codes with f32 scale pools, one scale per block,
+kv-head and column, written once per column by ``kv_quant_columns`` on
+the prefill scatter, the decode update and the verify commit alike. The
+draft pools of speculative decoding keep the model dtype.
 
 Speculative decoding (``ServeConfig(speculative=True)``, the JAX PR 18
 path): a draft model (default: the base truncated to its first layer,
@@ -44,7 +50,7 @@ import torch
 
 from .._device import resolve_device
 from ..models.llama import (LlamaConfig, init_paged_kv_pool,
-                            llama_paged_decode_step,
+                            init_paged_kv_scales, llama_paged_decode_step,
                             llama_paged_prefill_chunk,
                             llama_paged_verify_step, make_draft_model)
 from .kv_cache import BlockPool, pad_table
@@ -78,6 +84,8 @@ class ServeConfig:
     # defaults: off, 4 proposals per row per iteration)
     speculative: bool = False
     draft_k: int = 4
+    # KV storage: "auto" (the model dtype) or "int8" (codes + f32 scales)
+    kv_dtype: str = "auto"
 
     def __post_init__(self):
         if self.decode_buckets is None:
@@ -91,6 +99,9 @@ class ServeConfig:
             raise ValueError("largest decode bucket must equal max_batch")
         if self.draft_k < 1:
             raise ValueError(f"draft_k must be >= 1, got {self.draft_k}")
+        if self.kv_dtype not in ("auto", "int8"):
+            raise ValueError(f"ServeConfig.kv_dtype must be 'auto' or "
+                             f"'int8', got {self.kv_dtype!r}")
 
     @property
     def max_nb(self) -> int:
@@ -161,7 +172,13 @@ class InferenceEngine:
         self.pool = BlockPool(self.serve.num_blocks, self.serve.block_size)
         self.k_pool, self.v_pool = init_paged_kv_pool(
             config, self.serve.num_blocks, self.serve.block_size,
-            device=self.device)
+            kv_dtype=self.serve.kv_dtype, device=self.device)
+        # int8 KV: the scale pools, passed through every base-model step
+        self.k_scale = self.v_scale = None
+        if self.serve.kv_dtype == "int8":
+            self.k_scale, self.v_scale = init_paged_kv_scales(
+                config, self.serve.num_blocks, self.serve.block_size,
+                device=self.device)
         self.draft_params = self.draft_config = None
         self.k_draft = self.v_draft = None
         self._spec_proposed = 0
@@ -175,7 +192,8 @@ class InferenceEngine:
                 raise ValueError("draft_params given without draft_config")
             self.draft_params, self.draft_config = draft_params, draft_config
             # the draft pools mirror the base pool's block geometry (one
-            # shared block table per sequence) in the model dtype
+            # shared block table per sequence) in the model dtype, int8 KV
+            # or not: draft KV shapes proposals only, never output bytes
             self.k_draft, self.v_draft = init_paged_kv_pool(
                 draft_config, self.serve.num_blocks, self.serve.block_size,
                 device=self.device)
@@ -290,6 +308,17 @@ class InferenceEngine:
     def idle(self) -> bool:
         return not self.waiting and not self.active
 
+    def _base_step(self, fn, *args):
+        """One base-model step ``fn`` over the engine's pools (and, with int8
+        KV, its scale pools); stores the returned pools and returns what
+        comes before them."""
+        if self.k_scale is None:
+            *res, self.k_pool, self.v_pool = fn(*args)
+        else:
+            *res, self.k_pool, self.v_pool, self.k_scale, self.v_scale = fn(
+                *args, kv_scales=(self.k_scale, self.v_scale))
+        return res[0] if len(res) == 1 else res
+
     # -- scheduler phases ---------------------------------------------------
 
     def _admit(self):
@@ -329,9 +358,9 @@ class InferenceEngine:
         host[c:] = pad_table(seq.blocks, self.serve.max_nb)
         t0 = time.perf_counter()
         dev = self._to_device(host)
-        logits, self.k_pool, self.v_pool = llama_paged_prefill_chunk(
-            self.params, self.k_pool, self.v_pool, dev[c:], seq.n_cached,
-            dev[:c], n_live, self.config)
+        logits = self._base_step(
+            llama_paged_prefill_chunk, self.params, self.k_pool, self.v_pool,
+            dev[c:], seq.n_cached, dev[:c], n_live, self.config)
         tok, finite = torch.stack(
             [logits.argmax(-1), torch.isfinite(logits).all().long()]
         ).tolist()
@@ -407,8 +436,8 @@ class InferenceEngine:
             tables[i] = pad_table(seq.blocks, max_nb)
         t0 = time.perf_counter()
         dev = self._to_device(host)
-        logits, self.k_pool, self.v_pool = llama_paged_decode_step(
-            self.params, self.k_pool, self.v_pool,
+        logits = self._base_step(
+            llama_paged_decode_step, self.params, self.k_pool, self.v_pool,
             dev[2 * bucket:].view(bucket, max_nb), dev[bucket:2 * bucket],
             dev[:bucket], self.config)
         next_tok, finite = torch.stack(
@@ -524,8 +553,8 @@ class InferenceEngine:
         t0 = time.perf_counter()
         dev = self._to_device(host)
         o = bucket * T
-        out, clen, fin, self.k_pool, self.v_pool = llama_paged_verify_step(
-            self.params, self.k_pool, self.v_pool,
+        out, clen, fin = self._base_step(
+            llama_paged_verify_step, self.params, self.k_pool, self.v_pool,
             dev[o + 2 * bucket:].view(bucket, max_nb), dev[o:o + bucket],
             dev[o + bucket:o + 2 * bucket], dev[:o].view(bucket, T),
             self.config)
@@ -661,5 +690,6 @@ class InferenceEngine:
             } if self.serve.speculative else None),
             "pool_blocks": self.serve.num_blocks - 1,
             "used_blocks": self.pool.used_blocks,
+            "kv_dtype": self.serve.kv_dtype,
             "device": str(self.device),
         }

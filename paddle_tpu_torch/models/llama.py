@@ -13,7 +13,8 @@ kernels, RoPE and the short-prompt prefill attention are plain PyTorch
 (plain XLA in JAX).
 
 The paged decode step and prefill chunk mirror ``llama_paged_decode_step``
-/ ``llama_paged_prefill_chunk`` op for op. Generation (:func:`generate`:
+/ ``llama_paged_prefill_chunk`` op for op, over pools in the model dtype or
+int8 pools with f32 scale pools (``kv_scales``). Generation (:func:`generate`:
 greedy, sampling, beam search) mirrors the JAX entry points over the
 stacked KV cache of :func:`init_kv_cache`: the slab ``[L, B, KV*HD, T]``
 below head_dim 128, through the fused slab attend+update kernel, and the
@@ -45,10 +46,14 @@ from torch.utils.checkpoint import checkpoint
 from .._device import resolve_device
 from ..ops.decode_attention import TILE_T, decode_attend_update_slab
 from ..ops.flash_attention import flash_attention_bshd
-from ..ops.paged_attention import (LOG2E, merge_verify_partials,
+from ..ops.paged_attention import (LOG2E, kv_dequant_blocks,
+                                   kv_quant_columns, merge_verify_partials,
                                    paged_attend_update,
+                                   paged_attend_update_quant,
                                    paged_attention_verify,
-                                   paged_verify_commit)
+                                   paged_attention_verify_quant,
+                                   paged_verify_commit,
+                                   paged_verify_commit_quant)
 from ..ops.rms_norm import fused_rms_norm
 from ..nn.functional.attention import _xla_sdpa
 from ..ops.rope import apply_rope, build_rope_cache
@@ -197,18 +202,42 @@ def llama_logits(params, h: torch.Tensor, config: LlamaConfig
 def init_paged_kv_pool(config: LlamaConfig, num_blocks: int,
                        block_size: int, kv_dtype: str = "auto",
                        device=None):
-    """Paged KV pools k and v [L, num_blocks, KV*HD, block_size] in the
-    model dtype, zeroed, on ``device`` (default: the card). Block 0 is the
-    reserved null block. Only ``kv_dtype='auto'`` is ported."""
-    if kv_dtype != "auto":
-        raise ValueError(f"kv_dtype {kv_dtype!r} is not ported; only "
-                         f"'auto' (the model dtype)")
+    """Paged KV pools k and v [L, num_blocks, KV*HD, block_size], zeroed,
+    on ``device`` (default: the card). Block 0 is the reserved null block.
+    ``kv_dtype='auto'`` stores the model dtype, ``'int8'`` quantized bytes
+    (pair them with :func:`init_paged_kv_scales`)."""
+    if kv_dtype not in ("auto", "int8"):
+        raise ValueError(f"kv_dtype must be 'auto' or 'int8', "
+                         f"got {kv_dtype!r}")
     c = config
     dev = resolve_device(device)
+    dt = torch.int8 if kv_dtype == "int8" else c.dtype
     shape = (c.num_hidden_layers, num_blocks,
              c.num_key_value_heads * c.head_dim, block_size)
-    return (torch.zeros(shape, dtype=c.dtype, device=dev),
-            torch.zeros(shape, dtype=c.dtype, device=dev))
+    return (torch.zeros(shape, dtype=dt, device=dev),
+            torch.zeros(shape, dtype=dt, device=dev))
+
+
+def init_paged_kv_scales(config: LlamaConfig, num_blocks: int,
+                         block_size: int, device=None):
+    """f32 scale pools [L, num_blocks, NKV, block_size] for int8 paged KV
+    pools: one scale per block, kv-head and column (``kv_quant_columns``).
+    Zeroed, so a column never written dequantizes to exactly 0."""
+    c = config
+    dev = resolve_device(device)
+    shape = (c.num_hidden_layers, num_blocks, c.num_key_value_heads,
+             block_size)
+    return (torch.zeros(shape, dtype=torch.float32, device=dev),
+            torch.zeros(shape, dtype=torch.float32, device=dev))
+
+
+def _quant_kv(k, v, n: int, nkv: int):
+    """n k columns and n v columns quantized by one ``kv_quant_columns``
+    call (a column's bytes and scales depend on its own values alone):
+    (k codes, v codes [n, KVD] int8, k scales, v scales [n, NKV] f32)."""
+    q, s = kv_quant_columns(torch.cat([k.reshape(n, -1), v.reshape(n, -1)]),
+                            nkv)
+    return q[:n], q[n:], s[:n], s[n:]
 
 
 def _heads(layers, hd):
@@ -228,12 +257,18 @@ def _mlp(p, layer, x):
 
 @torch.no_grad()
 def llama_paged_decode_step(params, k_pool, v_pool, tables, positions, ids,
-                            config: LlamaConfig):
+                            config: LlamaConfig, kv_scales=None):
     """One decode step over a PAGED cache: ids [B] i32, tables [B, max_nb]
     i32, positions [B] i32 = the slot each row's new token occupies (its
     block must already be in the table). Padding rows point their tables
     at null block 0 with position 0. Returns (logits [B, vocab] f32,
-    k_pool, v_pool); the pools are written in place."""
+    k_pool, v_pool); the pools are written in place.
+
+    With ``kv_scales=(k_scale, v_scale)`` the pools are int8: each new
+    column is quantized by ``kv_quant_columns`` (the bytes a prefill of
+    the same token writes) and the int8 update kernel merges bytes and
+    scales in place. Returns (logits, k_pool, v_pool, k_scale, v_scale)
+    in that mode."""
     c = config
     b = ids.shape[0]
     hd = c.head_dim
@@ -254,29 +289,43 @@ def llama_paged_decode_step(params, k_pool, v_pool, tables, positions, ids,
         # q pre-scaled into the log2 domain: f32 multiply, then back to
         # the model dtype, as the JAX step rounds it
         qs = (q[:, 0].float() * scale).to(q.dtype)
-        attn = paged_attend_update(
-            qs, k.reshape(b, kvd).to(k_pool.dtype),
-            v.reshape(b, kvd).to(v_pool.dtype), k_pool, v_pool, tables,
-            positions, layer)
+        if kv_scales is None:
+            attn = paged_attend_update(
+                qs, k.reshape(b, kvd).to(k_pool.dtype),
+                v.reshape(b, kvd).to(v_pool.dtype), k_pool, v_pool, tables,
+                positions, layer)
+        else:
+            attn = paged_attend_update_quant(
+                qs, *_quant_kv(k, v, b, nkv), k_pool, v_pool, *kv_scales,
+                tables, positions, layer)
         h = h + _mat(attn.to(c.dtype).reshape(b, nh * hd),
                      _at(p["o_proj"], layer))
         x2 = fused_rms_norm(h[:, None], p["post_norm"][layer],
                             c.rms_norm_eps)[:, 0]
         h = h + _mlp(p, layer, x2)
     logits = llama_logits(params, h[:, None], config)[:, 0]
-    return logits.float(), k_pool, v_pool
+    if kv_scales is None:
+        return logits.float(), k_pool, v_pool
+    return (logits.float(), k_pool, v_pool) + tuple(kv_scales)
 
 
 @torch.no_grad()
 def llama_paged_prefill_chunk(params, k_pool, v_pool, table_row, start: int,
-                              ids, n_live: int, config: LlamaConfig):
+                              ids, n_live: int, config: LlamaConfig,
+                              kv_scales=None):
     """One chunked-prefill slice for ONE sequence: ids [C] i32 padded to
     the chunk bucket, ``n_live`` real tokens, ``start`` tokens already
     cached. Scatters the chunk's KV into the sequence's blocks (padding
     tokens land in null block 0), attends each chunk token over cached
     prefix + chunk causally through a gathered context in plain PyTorch,
     and returns (logits of the LAST REAL token [vocab] f32, k_pool,
-    v_pool); the pools are written in place."""
+    v_pool); the pools are written in place.
+
+    With ``kv_scales=(k_scale, v_scale)`` the pools are int8: the chunk's
+    columns are quantized by ``kv_quant_columns`` before the scatter, and
+    the context is gathered dequantized in f32, then cast to the model
+    dtype, as the JAX step does. Returns (logits, k_pool, v_pool, k_scale,
+    v_scale) in that mode."""
     c = config
     C = ids.shape[0]
     hd = c.head_dim
@@ -306,12 +355,25 @@ def llama_paged_prefill_chunk(params, k_pool, v_pool, table_row, start: int,
         k = apply_rope(k, cos, sin)
         # advanced indices (bid, col) split by a slice put C first: the
         # target is [C, KVD], one column per chunk token
-        k_pool[layer, bid, :, col] = k.reshape(C, kvd).to(k_pool.dtype)
-        v_pool[layer, bid, :, col] = v.reshape(C, kvd).to(v_pool.dtype)
+        if kv_scales is None:
+            k_pool[layer, bid, :, col] = k.reshape(C, kvd).to(k_pool.dtype)
+            v_pool[layer, bid, :, col] = v.reshape(C, kvd).to(v_pool.dtype)
+            kctx, vctx = k_pool[layer][rows], v_pool[layer][rows]
+        else:
+            k_scale, v_scale = kv_scales
+            kq, vq, ksq, vsq = _quant_kv(k, v, C, nkv)
+            k_pool[layer, bid, :, col] = kq
+            v_pool[layer, bid, :, col] = vq
+            k_scale[layer, bid, :, col] = ksq
+            v_scale[layer, bid, :, col] = vsq
+            kctx = kv_dequant_blocks(k_pool[layer][rows],
+                                     k_scale[layer][rows]).to(c.dtype)
+            vctx = kv_dequant_blocks(v_pool[layer][rows],
+                                     v_scale[layer][rows]).to(c.dtype)
         # the sequence's context (prefix + this chunk) as one slab; dead
         # table slots read null-block garbage that the causal mask kills
-        kg = k_pool[layer][rows].permute(1, 0, 2).reshape(nkv, hd, T)
-        vg = v_pool[layer][rows].permute(1, 0, 2).reshape(nkv, hd, T)
+        kg = kctx.permute(1, 0, 2).reshape(nkv, hd, T)
+        vg = vctx.permute(1, 0, 2).reshape(nkv, hd, T)
         qg = q[0].reshape(C, nkv, rep, hd)
         s = torch.einsum("cgrd,gdt->cgrt", qg.float(), kg.float()) \
             / (hd ** 0.5)
@@ -324,7 +386,9 @@ def llama_paged_prefill_chunk(params, k_pool, v_pool, table_row, start: int,
         h = h + _mlp(p, layer, x2)
     h_last = h[0, n_live - 1:n_live][None]
     logits = llama_logits(params, h_last, config)[0, 0]
-    return logits.float(), k_pool, v_pool
+    if kv_scales is None:
+        return logits.float(), k_pool, v_pool
+    return (logits.float(), k_pool, v_pool) + tuple(kv_scales)
 
 
 # ---------------------------------------------------------------------------
@@ -353,12 +417,15 @@ def make_draft_model(params, config: LlamaConfig, num_layers: int = 1):
 
 
 def _verify_logits(params, k_pool, v_pool, tables, qstart, fed,
-                   config: LlamaConfig):
+                   config: LlamaConfig, kv_scales=None):
     """The base model over T fed tokens per row, attending each over the
     row's cached prefix (the verify kernel's partials) merged exactly with
     the fed tokens' own causal block. Returns (logits [B, T, vocab] f32,
     k_cols, v_cols [L, B, T, KVD] in the pool dtype); the pools are only
-    read."""
+    read. With ``kv_scales`` the pools are int8: the fed columns are
+    quantized once, the fed block attends over their dequantized f32
+    values, and the result also holds their scales (k_col_scales,
+    v_col_scales [L, B, T, NKV] f32)."""
     c = config
     B, T = fed.shape
     hd = c.head_dim
@@ -382,7 +449,7 @@ def _verify_logits(params, k_pool, v_pool, tables, qstart, fed,
     zero = torch.tensor(0.0, device=dev)
     causal = (torch.arange(T, device=dev)[None, :]
               <= torch.arange(T, device=dev)[:, None])        # [t, u]
-    k_cols, v_cols = [], []
+    cols = []
     for layer in range(k_pool.shape[0]):
         x = fused_rms_norm(h, p["input_norm"][layer], c.rms_norm_eps)
         q = _mat(x, _at(p["q_proj"], layer)).reshape(B, T, nh, hd)
@@ -391,14 +458,28 @@ def _verify_logits(params, k_pool, v_pool, tables, qstart, fed,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         qs = (q.float() * scale).to(q.dtype)
-        acc_c, m_c, l_c = paged_attention_verify(qs, k_pool, v_pool, tables,
-                                                 qstart, layer)
-        # fed columns as stored (pool dtype round trip): the values
-        # sequential decode would read back from the cache
-        k_st = k.reshape(B, T, kvd).to(k_pool.dtype)
-        v_st = v.reshape(B, T, kvd).to(v_pool.dtype)
-        kf = k_st.float().reshape(B, T, nkv, hd)
-        vf = v_st.float().reshape(B, T, nkv, hd)
+        if kv_scales is None:
+            acc_c, m_c, l_c = paged_attention_verify(qs, k_pool, v_pool,
+                                                     tables, qstart, layer)
+            # fed columns as stored (pool dtype round trip): the values
+            # sequential decode would read back from the cache
+            k_st = k.reshape(B, T, kvd).to(k_pool.dtype)
+            v_st = v.reshape(B, T, kvd).to(v_pool.dtype)
+            kf = k_st.float().reshape(B, T, nkv, hd)
+            vf = v_st.float().reshape(B, T, nkv, hd)
+            cols.append((k_st, v_st))
+        else:
+            acc_c, m_c, l_c = paged_attention_verify_quant(
+                qs, k_pool, v_pool, *kv_scales, tables, qstart, layer)
+            # fed columns quantized once; the fed block reads them back
+            # dequantized, as sequential int8 decode reads the cache
+            kq, vq, ksq, vsq = _quant_kv(k, v, B * T, nkv)
+            kf = kq.float().reshape(B, T, nkv, hd) \
+                * ksq.reshape(B, T, nkv, 1)
+            vf = vq.float().reshape(B, T, nkv, hd) \
+                * vsq.reshape(B, T, nkv, 1)
+            cols.append((kq.reshape(B, T, kvd), vq.reshape(B, T, kvd),
+                         ksq.reshape(B, T, nkv), vsq.reshape(B, T, nkv)))
         # the fed tokens' causal block in f32, P not rounded
         qg = qs.float().reshape(B, T, nkv, rep, hd)
         s_f = torch.einsum("btgrd,bugd->btgru", qg, kf)
@@ -418,10 +499,8 @@ def _verify_logits(params, k_pool, v_pool, tables, qstart, fed,
         h = h + _mat(attn.reshape(B, T, nh * hd), _at(p["o_proj"], layer))
         x2 = fused_rms_norm(h, p["post_norm"][layer], c.rms_norm_eps)
         h = h + _mlp(p, layer, x2)
-        k_cols.append(k_st)
-        v_cols.append(v_st)
     logits = llama_logits(params, h, config).float()
-    return logits, torch.stack(k_cols), torch.stack(v_cols)
+    return (logits,) + tuple(torch.stack(c) for c in zip(*cols))
 
 
 @torch.no_grad()
@@ -441,18 +520,19 @@ def llama_paged_verify_step(params, k_pool, v_pool, tables, qstart,
     logits, in one launch over all layers.
 
     Returns (out [B, T] i32, commit_len [B] i32, fin_ok [B] bool, k_pool,
-    v_pool), all on the device; the pools are written in place. int8 KV
-    (``kv_scales``) and tensor parallelism (``tp``) are not ported."""
-    if kv_scales is not None:
-        raise NotImplementedError(
-            "llama_paged_verify_step: int8 KV (kv_scales) is not ported "
-            "yet (ROADMAP queue 1, item 2)")
+    v_pool), all on the device; the pools are written in place. With
+    ``kv_scales=(k_scale, v_scale)`` the pools are int8: the cached side
+    goes through the int8 verify kernel, the fed columns are quantized
+    once by ``kv_quant_columns`` (their dequantized values feed the fed
+    block, their bytes and scales the int8 commit), and the result is
+    (out, commit_len, fin_ok, k_pool, v_pool, k_scale, v_scale).
+    Tensor parallelism (``tp``) is not ported."""
     if tp is not None:
         raise NotImplementedError("llama_paged_verify_step: tensor-parallel "
                                   "serving (tp) is not ported")
     B, T = fed.shape
-    logits, k_cols, v_cols = _verify_logits(params, k_pool, v_pool, tables,
-                                            qstart, fed, config)
+    logits, *cols = _verify_logits(params, k_pool, v_pool, tables, qstart,
+                                   fed, config, kv_scales)
     # per-row finite screen: the engine sees tokens, not logits
     fin_ok = torch.isfinite(logits).all(dim=2).all(dim=1)
     out = logits.argmax(dim=-1).int()
@@ -467,9 +547,13 @@ def llama_paged_verify_step(params, k_pool, v_pool, tables, qstart,
         accepted = torch.zeros((B,), dtype=torch.int64, device=fed.device)
     commit_len = torch.where(t_live > 0, accepted + 1,
                              torch.zeros_like(accepted)).int()
-    paged_verify_commit(k_cols, v_cols, k_pool, v_pool, tables, qstart,
-                        commit_len)
-    return out, commit_len, fin_ok, k_pool, v_pool
+    if kv_scales is None:
+        paged_verify_commit(*cols, k_pool, v_pool, tables, qstart,
+                            commit_len)
+        return out, commit_len, fin_ok, k_pool, v_pool
+    paged_verify_commit_quant(*cols, k_pool, v_pool, *kv_scales, tables,
+                              qstart, commit_len)
+    return (out, commit_len, fin_ok, k_pool, v_pool) + tuple(kv_scales)
 
 
 # ---------------------------------------------------------------------------

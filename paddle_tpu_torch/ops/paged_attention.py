@@ -12,12 +12,23 @@
                           (``_paged_commit_kernel``): the accepted columns
                           of every layer into the pools
 
+and their int8 twins over int8 pools with f32 per-column scale pools
+(``kv_quant_columns`` is the one quantizer of both sides):
+
+  paged_attend_update_quant     ports ``paged_attend_update_quant``
+  paged_attention_quant         ports ``paged_attention_quant`` (the
+                                update with the write off)
+  paged_attention_verify_quant  ports ``paged_attention_verify_quant``
+  paged_verify_commit_quant     ports ``paged_verify_commit_quant``
+
 Layouts (the JAX package's pools, so they compare directly):
   q          [B, NH, HD]          PRE-SCALED by scale * log2(e)
   q (verify) [B, T, NH, HD]       the same, per fed token
   new_k/v    [B, KVD]             KVD = NKV * HD
   new_k/v    [L, B, T, KVD]       (commit) every layer's fed columns
   pools      [L, NP, KVD, bs]     time in the minor dimension
+  scales     [L, NP, NKV, bs]     (int8 pools) f32, one per (block,
+                                  kv-head, column); zero where unwritten
   tables     [B, max_nb] int32    pool block ids per sequence slot
   positions  [B] int32            the NEW token's position per row
   qstart     [B] int32            (verify, commit) cached tokens per row
@@ -41,6 +52,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -394,3 +406,415 @@ def paged_verify_commit(new_k, new_v, k_pool, v_pool, tables, qstart,
 
 
 paged_verify_commit.launches = 0
+
+
+# -- int8 paged KV ----------------------------------------------------------
+#
+# Pools of int8 codes with f32 scale pools [L, NP, NKV, bs]: one symmetric
+# absmax scale per (block, kv-head, column). Every column is quantized
+# once, from its own values, by kv_quant_columns, outside the kernels, on
+# the prefill scatter, the decode update and the verify commit alike; the
+# kernels merge the given bytes and scales and never requantize. Reads
+# dequantize per column (f32(code) * scale), q is cast to f32, and P stays
+# f32 before P.V: there is no low-precision V to round it to.
+
+KV_QMAX = 127.0
+KV_SCALE_FLOOR = 1e-8
+# 1/127 rounded to f32: the JAX package's jitted steps, where every pool
+# byte is written, compute absmax / 127 as absmax * f32(1/127); the eager
+# JAX call divides and differs by one ulp in a few scales
+_INV_QMAX = np.float32(1.0 / KV_QMAX)
+
+
+def kv_quant_columns(x: torch.Tensor, nkv: int):
+    """Symmetric per-column, per-kv-head int8 quantization of KV columns:
+    x [N, KVD] (KVD = nkv * hd, any float dtype) -> (codes int8 [N, KVD],
+    scales f32 [N, NKV]) with scale = max(absmax * f32(1/127), 1e-8) over
+    each column's hd-slice and code = round(x / scale) (half to even),
+    clamped to +-127. Bitwise ``jax.jit(kv_quant_columns)``."""
+    n, kvd = x.shape
+    hd = kvd // int(nkv)
+    xf = x.float().reshape(n, int(nkv), hd)
+    inv = torch.tensor(_INV_QMAX, device=x.device)
+    s = torch.clamp(xf.abs().amax(dim=-1) * inv, min=KV_SCALE_FLOOR)
+    q = torch.clamp(torch.round(xf / s[..., None]), -KV_QMAX, KV_QMAX)
+    return q.to(torch.int8).reshape(n, kvd), s
+
+
+def kv_dequant_blocks(codes: torch.Tensor, scales: torch.Tensor):
+    """Pool blocks [..., KVD, bs] int8 with their scales [..., NKV, bs]
+    dequantized to f32 per column: f32(code) * scale."""
+    *lead, kvd, bs = codes.shape
+    nkv = scales.shape[-2]
+    return (codes.float().reshape(*lead, nkv, kvd // nkv, bs)
+            * scales[..., None, :]).reshape(*lead, kvd, bs)
+
+
+def _quant_walk(qf, k_pool, v_pool, k_scale, v_scale, tables, last, layer):
+    """The int8 kernels' online softmax, block by block, of query rows qf
+    [B, NKV, R, HD] f32 (pre-scaled) over tokens 0..last[b] of each row:
+    K and V dequantized per column, P f32 before P.V. Returns the
+    unfinalised (acc [B, NKV, R, HD], m [B, NKV, R], l [B, NKV, R]); rows
+    with last < 0 come back with meaningless partials for the caller to
+    replace."""
+    B, nkv, R, HD = qf.shape
+    bs = k_pool.shape[-1]
+    dev = qf.device
+    m = torch.full((B, nkv, R), float("-inf"), device=dev)
+    l = torch.zeros((B, nkv, R), device=dev)
+    acc = torch.zeros((B, nkv, R, HD), device=dev)
+    col = torch.arange(bs, device=dev)
+    for j in range(int(last.max()) // bs + 1 if B else 0):
+        blk = tables[:, j].long()
+        kt = kv_dequant_blocks(k_pool[layer, blk], k_scale[layer, blk])
+        vt = kv_dequant_blocks(v_pool[layer, blk], v_scale[layer, blk])
+        kt = kt.reshape(B, nkv, HD, bs)
+        vt = vt.reshape(B, nkv, HD, bs)
+        s = torch.einsum("bgrd,bgdt->bgrt", qf, kt)
+        live = (j * bs + col)[None, :] <= last[:, None]            # [B, bs]
+        s = torch.where(live[:, None, None, :], s,
+                        torch.tensor(-1e30, device=dev))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bgrt,bgdt->bgrd", p, vt)
+        m = m_new
+    return acc, m, l
+
+
+def _write_quant_columns(new_k, new_v, new_ks, new_vs, k_pool, v_pool,
+                         k_scale, v_scale, tables, positions, layer):
+    bs = k_pool.shape[-1]
+    pos = positions.long()
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    blk = tables[rows, pos // bs].long()
+    k_pool[layer, blk, :, pos % bs] = new_k
+    v_pool[layer, blk, :, pos % bs] = new_v
+    k_scale[layer, blk, :, pos % bs] = new_ks
+    v_scale[layer, blk, :, pos % bs] = new_vs
+
+
+def _attend_quant_plain(q, k_pool, v_pool, k_scale, v_scale, tables, last,
+                        layer):
+    B, NH, HD = q.shape
+    nkv = k_scale.shape[2]
+    acc, m, l = _quant_walk(q.float().reshape(B, nkv, NH // nkv, HD), k_pool,
+                            v_pool, k_scale, v_scale, tables, last, layer)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, NH, HD)
+
+
+def paged_attend_update_quant_plain(q, new_k, new_v, new_ks, new_vs, k_pool,
+                                    v_pool, k_scale, v_scale, tables,
+                                    positions, layer: int) -> torch.Tensor:
+    """Plain PyTorch version on any device: writes each row's pre-quantized
+    column (bytes and scales) in place, then attends over tokens
+    0..positions[b] with K and V dequantized per column and P f32. Returns
+    attn [B, NH, HD] f32."""
+    _write_quant_columns(new_k, new_v, new_ks, new_vs, k_pool, v_pool,
+                         k_scale, v_scale, tables, positions, layer)
+    return _attend_quant_plain(q, k_pool, v_pool, k_scale, v_scale, tables,
+                               positions.long(), layer)
+
+
+def paged_attention_quant_plain(q, k_pool, v_pool, k_scale, v_scale,
+                                tables, lengths, layer: int) -> torch.Tensor:
+    """Plain PyTorch version on any device: attention over tokens
+    0..lengths[b]-1 of int8 pools, nothing written. Returns attn
+    [B, NH, HD] f32; a row of length 0 gets 0."""
+    out = _attend_quant_plain(q, k_pool, v_pool, k_scale, v_scale, tables,
+                              lengths.long() - 1, layer)
+    return torch.where((lengths > 0)[:, None, None], out,
+                       torch.tensor(0.0, device=q.device))
+
+
+def paged_attention_verify_quant_plain(q, k_pool, v_pool, k_scale, v_scale,
+                                       tables, qstart, layer: int):
+    """Plain PyTorch version on any device of the int8 verify read over
+    tokens 0..qstart-1: the contract of :func:`paged_attention_verify_plain`
+    with K and V dequantized per column and P f32. Rows with qstart 0 get
+    acc = 0, l = 0, m = -1e30."""
+    B, T, NH, HD = q.shape
+    nkv = k_scale.shape[2]
+    rep = NH // nkv
+    dev = q.device
+    qf = q.float().reshape(B, T, nkv, rep, HD).transpose(1, 2) \
+        .reshape(B, nkv, T * rep, HD)
+    acc, m, l = _quant_walk(qf, k_pool, v_pool, k_scale, v_scale, tables,
+                            qstart.long() - 1, layer)
+    dead = (qstart <= 0)[:, None, None]
+    m = torch.where(dead, torch.tensor(-1e30, device=dev), m)
+    l = torch.where(dead, torch.tensor(0.0, device=dev), l)
+    acc = torch.where(dead[..., None], torch.tensor(0.0, device=dev), acc)
+    acc = acc.reshape(B, nkv, T, rep, HD).transpose(1, 2) \
+        .reshape(B, T, NH, HD)
+    m = m.reshape(B, nkv, T, rep).transpose(1, 2).reshape(B, T, NH)
+    l = l.reshape(B, nkv, T, rep).transpose(1, 2).reshape(B, T, NH)
+    return acc, m, l
+
+
+def paged_verify_commit_quant_plain(new_k, new_v, new_ks, new_vs, k_pool,
+                                    v_pool, k_scale, v_scale, tables, qstart,
+                                    commit_len):
+    """Plain PyTorch version on any device: one advanced-index assignment
+    per pool along :func:`paged_commit_schedule`. Writes the four pools in
+    place and returns them. Block 0 receives the rejected columns in no
+    set order."""
+    L, B, T, KVD = new_k.shape
+    sc = paged_commit_schedule(qstart, commit_len, tables, L, T,
+                               k_pool.shape[-1]).long()
+    li, bid, col, _, bi, ti = sc
+    k_pool[li, bid, :, col] = new_k[li, bi, ti]
+    v_pool[li, bid, :, col] = new_v[li, bi, ti]
+    k_scale[li, bid, :, col] = new_ks[li, bi, ti]
+    v_scale[li, bid, :, col] = new_vs[li, bi, ti]
+    return k_pool, v_pool, k_scale, v_scale
+
+
+def _check_quant_pools(what, tensors, pools, scales, tables, rows_of):
+    """Device, contiguity, int8 pools with their f32 scale pools, and the
+    int32 tables and per-row indices: the int8 entries' common checks."""
+    if any(t.device != tensors[0].device for t in tensors):
+        raise ValueError(f"{what}: all tensors must share one device")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: tensors must be contiguous")
+    if any(p.dtype != torch.int8 for p in pools):
+        raise TypeError(f"{what}: pools must be int8")
+    if pools[0].ndim != 4 or pools[1].shape != pools[0].shape:
+        raise ValueError(f"{what}: pools must share one [L, NP, KVD, bs] "
+                         f"shape")
+    if any(s.dtype != torch.float32 for s in scales):
+        raise TypeError(f"{what}: scale pools must be float32")
+    L, NP, KVD, bs = pools[0].shape
+    nkv = scales[0].shape[2] if scales[0].ndim == 4 else 0
+    if scales[0].ndim != 4 or scales[1].shape != scales[0].shape \
+            or scales[0].shape != (L, NP, nkv, bs) or nkv < 1 or KVD % nkv:
+        raise ValueError(f"{what}: scale pools must be [L, NP, NKV, bs] of "
+                         f"the pools' L, NP and bs, NKV dividing KVD")
+    if tables.dtype != torch.int32 or any(t.dtype != torch.int32
+                                          for t in rows_of):
+        raise TypeError(f"{what}: tables and per-row indices must be "
+                        f"int32")
+    B = tables.shape[0]
+    if tables.ndim != 2 or any(t.shape != (B,) for t in rows_of):
+        raise ValueError(f"{what}: tables [B, max_nb] and per-row indices "
+                         f"[B] must agree")
+    return nkv
+
+
+def _check_quant_read(what, q, pools, scales, tables, rows_of, layer,
+                      q_ndim):
+    """The int8 attention entries' checks: q in f32 or bf16, the pools'
+    geometry, the layer, and q's batch against the tables'."""
+    nkv = _check_quant_pools(what, (q,) + pools + scales + (tables,)
+                             + rows_of, pools, scales, tables, rows_of)
+    if q.ndim != q_ndim or q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{what}: q must be a {q_ndim}-d tensor in one of "
+                        f"{list(_DTYPE_CODE)}")
+    L, NP, KVD, bs = pools[0].shape
+    NH, HD = q.shape[-2], q.shape[-1]
+    if KVD != nkv * HD:
+        raise ValueError(f"{what}: KVD {KVD} must be NKV {nkv} x head_dim "
+                         f"{HD}")
+    _check_geometry(what, NH, KVD, HD, bs)
+    if HD % 16:
+        raise ValueError(f"{what}: head_dim {HD} must be a multiple of 16 "
+                         f"(16 int8 codes a vector)")
+    if q.shape[0] != tables.shape[0]:
+        raise ValueError(f"{what}: tables must match q's batch")
+    if not 0 <= layer < L:
+        raise ValueError(f"{what}: layer {layer} outside [0, {L})")
+
+
+def _device_of(what, t):
+    """'cpu' or 'cuda' for the tensor ``t``; raises on any other device."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return t.device.type
+
+
+def _launch_attend_quant(what, symbol, q, new, pools, scales, tables, rows,
+                         layer):
+    """Row 5 (``new`` the four column tensors) or row 4 (``new`` None):
+    one launch; returns attn [B, NH, HD] f32."""
+    if any(t.data_ptr() % 16 for t in (q,) + pools):
+        raise ValueError(f"{what}: q and the pools must start on 16-byte "
+                         f"aligned storage")
+    B, NH, HD = q.shape
+    _, NP, KVD, bs = pools[0].shape
+    out = torch.empty((B, NH, HD), dtype=torch.float32, device=q.device)
+    ptrs = [q.data_ptr()] + [t.data_ptr() for t in new or ()] \
+        + [t.data_ptr() for t in pools + scales] \
+        + [tables.data_ptr(), rows.data_ptr(), out.data_ptr()]
+    fn = _build.kernel("paged_attention", symbol,
+                       [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p])
+    err = fn(*ptrs, B, int(layer), NP, NH, KVD // HD, HD, bs,
+             tables.shape[1], _DTYPE_CODE[q.dtype], _stream(q))
+    _build.check("paged_attention", err, what)
+    return out
+
+
+def paged_attend_update_quant(q, new_k, new_v, new_ks, new_vs, k_pool,
+                              v_pool, k_scale, v_scale, tables, positions,
+                              layer: int) -> torch.Tensor:
+    """Row 5, the int8 decode layer: write each row's pre-quantized column
+    (new_k/new_v int8 [B, KVD], new_ks/new_vs f32 [B, NKV] from
+    :func:`kv_quant_columns`) into the int8 pools and scale pools in place,
+    then attend over the row's prefix including it. q [B, NH, HD] f32 or
+    bf16, pre-scaled by scale * log2(e). Returns attn [B, NH, HD] f32.
+
+    A CUDA tensor goes through the kernel (or raises); a CPU tensor
+    through :func:`paged_attend_update_quant_plain`.
+    ``paged_attend_update_quant.launches`` counts kernel launches."""
+    what = "paged_attend_update_quant"
+    new = (new_k, new_v, new_ks, new_vs)
+    pools, scales = (k_pool, v_pool), (k_scale, v_scale)
+    _check_quant_read(what, q, pools, scales, tables, (positions,), layer, 3)
+    B, KVD, NKV = q.shape[0], k_pool.shape[2], k_scale.shape[2]
+    if new_k.dtype != torch.int8 or new_v.dtype != torch.int8 \
+            or new_ks.dtype != torch.float32 or new_vs.dtype != torch.float32:
+        raise TypeError(f"{what}: new_k/new_v must be int8 and new_ks/new_vs "
+                        f"float32")
+    if new_k.shape != (B, KVD) or new_v.shape != (B, KVD) \
+            or new_ks.shape != (B, NKV) or new_vs.shape != (B, NKV):
+        raise ValueError(f"{what}: new columns must be [B, KVD] and their "
+                         f"scales [B, NKV]")
+    if any(t.device != q.device or not t.is_contiguous() for t in new):
+        raise ValueError(f"{what}: new columns must be contiguous on q's "
+                         f"device")
+    if _device_of(what, q) == "cpu":
+        return paged_attend_update_quant_plain(
+            q, new_k, new_v, new_ks, new_vs, k_pool, v_pool, k_scale,
+            v_scale, tables, positions, layer)
+    out = _launch_attend_quant(what, "paged_attend_update_quant_fwd", q, new,
+                               pools, scales, tables, positions, layer)
+    paged_attend_update_quant.launches += 1
+    return out
+
+
+paged_attend_update_quant.launches = 0
+
+
+def paged_attention_quant(q, k_pool, v_pool, k_scale, v_scale, tables,
+                          lengths, layer: int) -> torch.Tensor:
+    """Row 4, read-only int8 decode attention over tokens 0..lengths[b]-1
+    (row 5's kernel with the write compiled out). q [B, NH, HD] f32 or
+    bf16, pre-scaled. Returns attn [B, NH, HD] f32; a row of length 0 gets
+    0.
+
+    A CUDA tensor goes through the kernel (or raises); a CPU tensor
+    through :func:`paged_attention_quant_plain`.
+    ``paged_attention_quant.launches`` counts kernel launches."""
+    what = "paged_attention_quant"
+    pools, scales = (k_pool, v_pool), (k_scale, v_scale)
+    _check_quant_read(what, q, pools, scales, tables, (lengths,), layer, 3)
+    if _device_of(what, q) == "cpu":
+        return paged_attention_quant_plain(q, k_pool, v_pool, k_scale,
+                                           v_scale, tables, lengths, layer)
+    out = _launch_attend_quant(what, "paged_attention_quant_fwd", q, None,
+                               pools, scales, tables, lengths, layer)
+    paged_attention_quant.launches += 1
+    return out
+
+
+paged_attention_quant.launches = 0
+
+
+def paged_attention_verify_quant(q, k_pool, v_pool, k_scale, v_scale,
+                                 tables, qstart, layer: int):
+    """Row 7, the int8 verify read over each row's CACHED prefix (tokens
+    0..qstart[b]-1): the contract of :func:`paged_attention_verify` on int8
+    pools with their scale pools. q [B, T, NH, HD] f32 or bf16, pre-scaled.
+    Returns unfinalised f32 partials (acc [B, T, NH, HD], m [B, T, NH],
+    l [B, T, NH]).
+
+    A CUDA tensor goes through the kernel (or raises); a CPU tensor
+    through :func:`paged_attention_verify_quant_plain`.
+    ``paged_attention_verify_quant.launches`` counts kernel launches."""
+    what = "paged_attention_verify_quant"
+    pools, scales = (k_pool, v_pool), (k_scale, v_scale)
+    _check_quant_read(what, q, pools, scales, tables, (qstart,), layer, 4)
+    B, T, NH, HD = q.shape
+    if not 1 <= T <= MAX_FED:
+        raise ValueError(f"{what}: {T} fed tokens; the kernel takes 1 to "
+                         f"{MAX_FED}")
+    if _device_of(what, q) == "cpu":
+        return paged_attention_verify_quant_plain(
+            q, k_pool, v_pool, k_scale, v_scale, tables, qstart, layer)
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise ValueError(f"{what}: q and the pools must start on 16-byte "
+                         f"aligned storage")
+    _, NP, KVD, bs = k_pool.shape
+    acc = torch.empty((B, T, NH, HD), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, T, NH), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, T, NH), dtype=torch.float32, device=q.device)
+    fn = _build.kernel("paged_attention", "paged_attention_verify_quant_fwd",
+                       [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+                       + [ctypes.c_void_p])
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
+             qstart.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+             B, T, int(layer), NP, NH, KVD // HD, HD, bs, tables.shape[1],
+             _DTYPE_CODE[q.dtype], _stream(q))
+    _build.check("paged_attention", err, what)
+    paged_attention_verify_quant.launches += 1
+    return acc, m, l
+
+
+paged_attention_verify_quant.launches = 0
+
+
+def paged_verify_commit_quant(new_k, new_v, new_ks, new_vs, k_pool, v_pool,
+                              k_scale, v_scale, tables, qstart, commit_len):
+    """Row 9, the int8 post-verification commit over all layers in one
+    launch: the contract of :func:`paged_verify_commit` with pre-quantized
+    columns (new_k/new_v int8 [L, B, T, KVD], new_ks/new_vs f32
+    [L, B, T, NKV] from :func:`kv_quant_columns`) into the int8 pools and
+    the scale pools. Writes the four pools in place and returns them.
+
+    A CUDA tensor goes through the kernel (or raises); a CPU tensor
+    through :func:`paged_verify_commit_quant_plain`.
+    ``paged_verify_commit_quant.launches`` counts kernel launches."""
+    what = "paged_verify_commit_quant"
+    pools, scales = (k_pool, v_pool), (k_scale, v_scale)
+    nkv = _check_quant_pools(
+        what, (new_k, new_v, new_ks, new_vs) + pools + scales
+        + (tables, qstart, commit_len), pools, scales, tables,
+        (qstart, commit_len))
+    L, NP, KVD, bs = k_pool.shape
+    if new_k.dtype != torch.int8 or new_v.dtype != torch.int8 \
+            or new_ks.dtype != torch.float32 or new_vs.dtype != torch.float32:
+        raise TypeError(f"{what}: new_k/new_v must be int8 and new_ks/new_vs "
+                        f"float32")
+    if new_k.ndim != 4 or new_v.shape != new_k.shape \
+            or new_k.shape[0] != L or new_k.shape[1] != tables.shape[0] \
+            or new_k.shape[3] != KVD \
+            or new_ks.shape != new_k.shape[:3] + (nkv,) \
+            or new_vs.shape != new_ks.shape:
+        raise ValueError(f"{what}: new_k/new_v must be [L, B, T, KVD] and "
+                         f"new_ks/new_vs [L, B, T, NKV] of the pools' L, KVD "
+                         f"and NKV and the tables' B")
+    T = new_k.shape[2]
+    if not 1 <= T <= MAX_FED:
+        raise ValueError(f"{what}: {T} fed tokens; the kernel takes 1 to "
+                         f"{MAX_FED}")
+    if _device_of(what, new_k) == "cpu":
+        return paged_verify_commit_quant_plain(
+            new_k, new_v, new_ks, new_vs, k_pool, v_pool, k_scale, v_scale,
+            tables, qstart, commit_len)
+    fn = _build.kernel("paged_attention", "paged_verify_commit_quant_fwd",
+                       [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+    err = fn(new_k.data_ptr(), new_v.data_ptr(), new_ks.data_ptr(),
+             new_vs.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
+             qstart.data_ptr(), commit_len.data_ptr(), L, tables.shape[0], T,
+             NP, KVD, nkv, bs, tables.shape[1], _stream(k_pool))
+    _build.check("paged_attention", err, what)
+    paged_verify_commit_quant.launches += 1
+    return k_pool, v_pool, k_scale, v_scale
+
+
+paged_verify_commit_quant.launches = 0

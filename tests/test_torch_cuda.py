@@ -284,6 +284,221 @@ def test_verify_step_on_card_matches_cpu(dev):
                                    rtol=0)
 
 
+def _quant_case(dev, qdtype, nh, nkv, hd, counts, T=None, seed=0, bs=128,
+                spread=None, layers=2):
+    """Int8 pools [layers, NP, KVD, bs] with f32 scale pools over
+    fragmented random tables that hold each row's new token at position
+    ``counts`` or, with T, its ``counts`` cached tokens and T fed
+    positions; q [B, NH, HD] or, with T,
+    [B, T, NH, HD]; the T fed columns' codes and scales. Codes are random
+    in [-127, 127] and scales powers of two (2^-7 to 2^-5), q lies on a
+    2^-5 grid: every score is a sum that f32 holds exactly in any order.
+    ``spread`` multiplies the K scales of each row's second block in the
+    last layer, so its scores lead the first block's by hundreds of log2
+    units."""
+    rng = np.random.RandomState(seed)
+    b, kvd = len(counts), nkv * hd
+    if T is None:           # decode rows: the new token at position c
+        need = [c // bs + 1 for c in counts]
+    else:                   # verify rows: c cached and T fed (0: padding)
+        need = [-(-(c + T) // bs) if c else 0 for c in counts]
+    n_pool = 1 + sum(need)
+    perm = rng.permutation(np.arange(1, n_pool))
+    tables = np.zeros((b, max(need) + 1), np.int32)
+    at = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = perm[at:at + n]
+        at += n
+    codes = lambda *sh: torch.from_numpy(
+        rng.randint(-127, 128, size=sh).astype(np.int8)).to(dev)
+    scales = lambda *sh: torch.from_numpy(
+        (2.0 ** -rng.randint(5, 8, size=sh)).astype(np.float32)).to(dev)
+    k_scale = scales(layers, n_pool, nkv, bs)
+    if spread is not None:
+        for i, n in enumerate(need):
+            if n > 1:
+                k_scale[-1, int(tables[i, 1])] *= spread
+    qshape = (b, nh, hd) if T is None else (b, T, nh, hd)
+    q = np.round(rng.randn(*qshape) * (pa.LOG2E / hd ** 0.5) * 32) / 32
+    cshape = (layers, b, T or 1)
+    return dict(q=torch.from_numpy(q.astype(np.float32)).to(dev, qdtype),
+                k_pool=codes(layers, n_pool, kvd, bs),
+                v_pool=codes(layers, n_pool, kvd, bs),
+                k_scale=k_scale, v_scale=scales(layers, n_pool, nkv, bs),
+                tables=torch.from_numpy(tables).to(dev),
+                rows=torch.tensor(counts, dtype=torch.int32, device=dev),
+                new_k=codes(*cshape, kvd), new_v=codes(*cshape, kvd),
+                new_ks=scales(*cshape, nkv), new_vs=scales(*cshape, nkv),
+                layer=layers - 1)
+
+
+QUANT_CASES = [
+    (torch.float32, 4, 2, 16, None),        # llama_tiny geometry
+    (torch.float32, 8, 4, 32, 128.0),       # REP 2
+    (torch.float32, 16, 4, 64, 128.0),      # REP 4
+    (torch.float32, 32, 4, 128, 128.0),     # REP 8
+    (torch.bfloat16, 32, 32, 128, None),    # llama_7b (MHA)
+]
+
+
+@pytest.mark.parametrize("qdtype,nh,nkv,hd,spread", QUANT_CASES)
+def test_paged_quant_kernels_match_plain(dev, qdtype, nh, nkv, hd, spread):
+    """Rows 5 and 4 against their plain versions. P is f32 in both and q
+    is cast to f32 in both, so the flash rule's f32 forward entry holds
+    whatever q's dtype; row 5's pools (the written bytes and scales
+    included) bitwise; row 4's length-0 row exactly 0."""
+    positions = [0, 5, 127, 128, 256, 700]  # 128, 256 open a fresh block
+    a = _quant_case(dev, qdtype, nh, nkv, hd, positions, spread=spread)
+    pools = [a[k] for k in ("k_pool", "v_pool", "k_scale", "v_scale")]
+    ref_pools = [t.clone() for t in pools]
+    new = [a[k][-1, :, 0].contiguous() for k in ("new_k", "new_v", "new_ks",
+                                                   "new_vs")]
+    before = pa.paged_attend_update_quant.launches
+    got = pa.paged_attend_update_quant(a["q"], *new, *pools, a["tables"],
+                                       a["rows"], a["layer"])
+    ref = pa.paged_attend_update_quant_plain(a["q"], *new, *ref_pools,
+                                             a["tables"], a["rows"],
+                                             a["layer"])
+    torch.cuda.synchronize()
+    assert pa.paged_attend_update_quant.launches == before + 1
+    _close(got, ref, FLASH_TOL[torch.float32][0])
+    for g, r in zip(pools, ref_pools):
+        assert torch.equal(g, r)
+    lengths = torch.tensor([0, 6, 128, 129, 257, 701], dtype=torch.int32,
+                           device=dev)
+    before = pa.paged_attention_quant.launches
+    got = pa.paged_attention_quant(a["q"], *pools, a["tables"], lengths,
+                                   a["layer"])
+    ref = pa.paged_attention_quant_plain(a["q"], *pools, a["tables"],
+                                         lengths, a["layer"])
+    torch.cuda.synchronize()
+    assert pa.paged_attention_quant.launches == before + 1
+    _close(got[1:], ref[1:], FLASH_TOL[torch.float32][0])
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.parametrize("qdtype,nh,nkv,hd,spread,T", [
+    c + (t,) for c, t in zip(QUANT_CASES, (4, 1, 3, 8, 5))])
+def test_paged_verify_quant_kernel_matches_plain(dev, qdtype, nh, nkv, hd,
+                                                 spread, T):
+    """Row 7 against its plain version: the finalised acc / l under the
+    flash rule's f32 forward entry (P f32 in both), m + log2(l) to 1e-4 +
+    1e-6 |ref|, and a padding row's defined partials exactly."""
+    a = _quant_case(dev, qdtype, nh, nkv, hd, VERIFY_QSTART, T=T,
+                    spread=spread)
+    args = (a["q"], a["k_pool"], a["v_pool"], a["k_scale"], a["v_scale"],
+            a["tables"], a["rows"], a["layer"])
+    before = pa.paged_attention_verify_quant.launches
+    acc, m, l = pa.paged_attention_verify_quant(*args)
+    ra, rm, rl = pa.paged_attention_verify_quant_plain(*args)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_verify_quant.launches == before + 1
+    live = a["rows"] > 0
+    _close(acc[live] / l[live][..., None], ra[live] / rl[live][..., None],
+           FLASH_TOL[torch.float32][0])
+    torch.testing.assert_close(m[live] + torch.log2(l[live]),
+                               rm[live] + torch.log2(rl[live]), rtol=1e-6,
+                               atol=1e-4)
+    assert torch.equal(acc[~live], torch.zeros_like(acc[~live]))
+    assert torch.equal(l[~live], torch.zeros_like(l[~live]))
+    assert torch.equal(m[~live], torch.full_like(m[~live], -1e30))
+
+
+@pytest.mark.parametrize("nkv,hd", [(2, 16), (4, 32), (32, 128)])
+def test_paged_commit_quant_kernel_matches_plain(dev, nkv, hd):
+    """Row 9 against its plain version, bitwise on every block but the
+    null block 0, for the bytes and the scales: commit lengths 0 to T,
+    windows across a block edge, heads narrower than a 128-byte slice."""
+    qstart = [0, 3, 125, 126, 300, 128]
+    a = _quant_case(dev, torch.float32, nkv, nkv, hd, qstart, T=5, seed=4)
+    clen = torch.tensor([0, 5, 3, 5, 1, 4], dtype=torch.int32, device=dev)
+    new = [a[k] for k in ("new_k", "new_v", "new_ks", "new_vs")]
+    pools = [a[k].clone() for k in ("k_pool", "v_pool", "k_scale",
+                                    "v_scale")]
+    ref = [t.clone() for t in pools]
+    before = pa.paged_verify_commit_quant.launches
+    pa.paged_verify_commit_quant(*new, *pools, a["tables"], a["rows"], clen)
+    pa.paged_verify_commit_quant_plain(*new, *ref, a["tables"], a["rows"],
+                                       clen)
+    torch.cuda.synchronize()
+    assert pa.paged_verify_commit_quant.launches == before + 1
+    for g, r in zip(pools, ref):
+        assert torch.equal(g[:, 1:], r[:, 1:])
+    assert not torch.equal(pools[2][:, 1:], a["k_scale"][:, 1:])
+    # an accepted column landed: row 2's third token at position 127
+    blk = a["tables"][2, 0]
+    assert torch.equal(pools[0][1, blk, :, 127], a["new_k"][1, 2, 2])
+    assert torch.equal(pools[2][1, blk, :, 127], a["new_ks"][1, 2, 2])
+
+
+def test_quant_kernels_reject_bad_inputs(dev):
+    a = _quant_case(dev, torch.float32, 4, 2, 16, [3, 9])
+    pools = [a[k] for k in ("k_pool", "v_pool", "k_scale", "v_scale")]
+    new = [a[k][-1, :, 0].contiguous() for k in ("new_k", "new_v", "new_ks",
+                                                   "new_vs")]
+    args = (a["tables"], a["rows"], a["layer"])
+    with pytest.raises(ValueError, match="device"):
+        pa.paged_attention_quant(a["q"].cpu(), *pools, *args)
+    with pytest.raises(TypeError, match="int8"):
+        pa.paged_attend_update_quant(a["q"], *new, pools[0].float(),
+                                     *pools[1:], *args)
+    with pytest.raises(TypeError, match="float32"):
+        pa.paged_attend_update_quant(a["q"], *new[:2], new[2].double(),
+                                     new[3], *pools, *args)
+    with pytest.raises(TypeError, match="q must be"):
+        pa.paged_attention_quant(a["q"].half(), *pools, *args)
+    with pytest.raises(ValueError, match="fed tokens"):
+        pa.paged_attention_verify_quant(
+            a["q"][:, None].repeat(1, 9, 1, 1).contiguous(), *pools, *args)
+    with pytest.raises(TypeError):
+        pa.paged_verify_commit_quant(a["new_k"], a["new_v"], a["new_ks"],
+                                     a["new_vs"], *pools, a["tables"],
+                                     a["rows"].long(), a["rows"])
+
+
+def test_int8_verify_step_on_card_matches_cpu(dev):
+    """One tiny fp32 int8 verify step through rows 7 and 9 on the card and
+    through their plain versions on the CPU: tokens, commit lengths and
+    the finite screen equal; the pools but block 0 within one code and
+    f32 rounding of the scales (the fed columns come from matmuls summed
+    in another order on the two devices)."""
+    cfg = tl.llama_tiny(vocab=96, hidden=64, layers=2, heads=4, kv_heads=2,
+                        seq=512)
+    params = tl.init_llama_params(cfg, seed=1, device="cpu")
+    rng = np.random.RandomState(5)
+    shape, sshape = (2, 8, 32, 128), (2, 8, 2, 128)
+    pools = [torch.from_numpy(rng.randint(-127, 128, size=shape)
+                              .astype(np.int8)) for _ in range(2)]
+    pools += [torch.from_numpy((rng.rand(*sshape) * 0.05 + 0.01)
+                               .astype(np.float32)) for _ in range(2)]
+    tables = torch.tensor([[3, 5, 0], [0, 0, 0], [7, 0, 0]], dtype=torch.int32)
+    qstart = torch.tensor([126, 0, 9], dtype=torch.int32)
+    t_live = torch.tensor([5, 0, 2], dtype=torch.int32)
+    fed = torch.from_numpy(rng.randint(1, 96, size=(3, 5)).astype(np.int32))
+    out = []
+    for d in ("cpu", dev):
+        p = {k: ({kk: vv.to(d) for kk, vv in v.items()} if isinstance(v, dict)
+                 else v.to(d)) for k, v in params.items()}
+        before = (pa.paged_attention_verify_quant.launches,
+                  pa.paged_verify_commit_quant.launches)
+        kp, vp, ks, vs = (t.clone().to(d) for t in pools)
+        res = tl.llama_paged_verify_step(
+            p, kp, vp, tables.to(d), qstart.to(d), t_live.to(d), fed.to(d),
+            cfg, kv_scales=(ks, vs))
+        after = (pa.paged_attention_verify_quant.launches,
+                 pa.paged_verify_commit_quant.launches)
+        out.append([r.cpu() for r in res])
+        if d != "cpu":
+            assert after == (before[0] + 2, before[1] + 1)
+    for got, want in zip(out[1][:3], out[0][:3]):
+        assert torch.equal(got, want)
+    for got, want in zip(out[1][3:5], out[0][3:5]):
+        assert (got[:, 1:].int() - want[:, 1:].int()).abs().max() <= 1
+    for got, want in zip(out[1][5:], out[0][5:]):
+        torch.testing.assert_close(got[:, 1:], want[:, 1:], rtol=1e-5,
+                                   atol=0)
+
+
 def _flash_case(dev, dtype, bh, s, d, seed, sk=None):
     g = torch.Generator(device=dev).manual_seed(seed)
     sk = s if sk is None else sk

@@ -340,8 +340,8 @@ def test_verify_step_refuses_what_is_not_ported(model):
     z = torch.zeros((1,), dtype=torch.int32)
     args = (kp, vp, torch.zeros((1, 2), dtype=torch.int32), z, z,
             torch.zeros((1, 2), dtype=torch.int32), tcfg)
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        tl.llama_paged_verify_step(tparams, *args, kv_scales=(kp, vp))
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        tl.llama_paged_verify_step(tparams, *args, tp=("mp", 2))
     fused = dict(tparams, layers=dict(tparams["layers"], qkv_proj=None))
     with pytest.raises(ValueError, match="qkv_proj"):
         tl.llama_paged_verify_step(fused, *args)
