@@ -37,7 +37,16 @@ Phases, in order; any failure exits non-zero before the last line:
                whose rows must get exactly 0) with a score spread of
                hundreds of log2 units, fused against split, the split dQ
                bitwise over two runs, segment isolation, and GQA 32/4 at
-               head_dim 64 against the CPU;
+               head_dim 64 against the CPU; read-only paged attention
+               (row 2) at row 3's shape and on f32 GQA cases with a
+               length-0 row; the split backward (rows 17, 18) in bf16 at
+               the train shape and on f32 layouts (a ragged length, Sq !=
+               Sk causal and not, a score spread), its dK/dV bitwise row
+               16's and its dQ bitwise over two runs; the block entries
+               (a ring of four causal blocks merged by log-sum-exp, the
+               per-block backward under global lse/delta) against one
+               full call under both backward modes; and the tiny train
+               again with PADDLE_TPU_TORCH_FLASH_BWD=split;
   4. serve   - InferenceEngine on llama_7b (bf16, full width and depth,
                seeded random weights): 16 requests, prompts of 128-1024
                tokens, 64 new tokens each, Poisson arrivals; prints
@@ -71,6 +80,19 @@ Phases, in order; any failure exits non-zero before the last line:
                alone; then torch.profiler splits one step into matmul,
                flash, RMSNorm, optimizer and other device time beside
                its wall time;
+  5a. train-long - build_train_step on the same 16-layer cut at S=16384
+               (B=1, rope_theta 1e6: Code Llama's long-context setting),
+               one warm-up and two timed steps under
+               PADDLE_TPU_TORCH_FLASH_BWD=auto, then under split; each
+               step's flash launches asserted; prints step ms, tokens/s,
+               MFU, every loss, peak memory, dense_bwd_schedule_stats
+               (the JAX path each mode stands for) and a profile split;
+  5b. attn-long - bench.py's long_seq_flash_fwd shapes (BH 8 at S=16384
+               and 32768, BH 4 at S=131072; D=128, causal, bf16):
+               the kernels held to the plain versions on every element,
+               then fwd+bwd of sum(o^2) through the differentiable entry
+               under auto and split: ms, TFLOP/s, peak memory, launches,
+               dense_bwd_schedule_stats, and no host sync in a step;
   6. ernie   - build_train_step on ernie_moe_fine at full width and depth
                (bf16, B=8, S=512, dropless at ep=1, AdamW with bf16
                moments for the routed experts only, seeded random weights
@@ -103,7 +125,9 @@ Phases, in order; any failure exits non-zero before the last line:
                plain version and one PyTorch library call (a yardstick
                the port never calls); each varlen kernel is also held
                to its plain version at the pack it is timed at (the long
-               pack for row 20 and the split pair);
+               pack for row 20 and the split pair); rows 17 and 18 at
+               the train and train-long shapes, rows 14 and 16 at the
+               shapes where JAX takes rows 13 and 15, row 2 at row 3's;
  10. a JSON line {"kernels": [...]}, the total wall seconds, and, last,
      {"ok": true, "device": ...}.
 
@@ -112,6 +136,7 @@ Imports nothing of JAX and nothing of paddle_tpu.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import math
@@ -695,40 +720,50 @@ def check_flash(dev, errs):
 TRAIN_LOSS_RTOL = 1e-5   # f32 on both; sums in another order
 
 
-def check_tiny_train(dev):
+def check_tiny_train(dev, mode="auto"):
     """Three tiny fp32 train steps through the kernels on the card give
     the losses of the same steps through the plain versions on the CPU,
-    and the card run advances both flash counters."""
+    and the card run advances the flash counters of the backward ``mode``
+    (PADDLE_TPU_TORCH_FLASH_BWD): flash_bwd under auto, the split pair
+    under split."""
     from paddle_tpu_torch.models import llama as tl
     from paddle_tpu_torch.ops import flash_attention as fa
-    phase("check a tiny fp32 Llama train: card kernels vs CPU plain")
+    phase(f"check a tiny fp32 Llama train ({fa.ENV_FLASH_BWD}={mode}): card "
+          f"kernels vs CPU plain")
     cfg = tl.llama_tiny(vocab=256, hidden=256, layers=2, heads=4,
                         kv_heads=2, seq=256)
     rng = np.random.RandomState(SEED)
     x = rng.randint(0, 256, size=(2, 201)).astype(np.int32)
     ids, labels = x[:, :-1], x[:, 1:]
     params0 = tl.init_llama_params(cfg, seed=1, device="cpu")
+    names = ("flash_fwd", "flash_bwd", "flash_bwd_dkv", "flash_bwd_dq")
     out = []
-    for d in ("cpu", dev):
-        step, _, _ = tl.build_train_step(cfg, tl.ParallelConfig(),
-                                         device=d)
-        # copies: the step updates params in place
-        params = {k: ({kk: vv.to(d, copy=True) for kk, vv in v.items()}
-                      if isinstance(v, dict) else v.to(d, copy=True))
-                  for k, v in params0.items()}
-        opt = tl._adamw_init(params)
-        fa.flash_fwd.launches = fa.flash_bwd.launches = 0
-        losses = []
-        for _ in range(3):
-            params, opt, loss = step(params, opt, ids, labels)
-            losses.append(float(loss))
-        out.append((losses, fa.flash_fwd.launches, fa.flash_bwd.launches))
-    (cpu, f0, b0), (card, f1, b1) = out
+    with _bwd_mode(mode):
+        for d in ("cpu", dev):
+            step, _, _ = tl.build_train_step(cfg, tl.ParallelConfig(),
+                                             device=d)
+            # copies: the step updates params in place
+            params = {k: ({kk: vv.to(d, copy=True) for kk, vv in v.items()}
+                          if isinstance(v, dict) else v.to(d, copy=True))
+                      for k, v in params0.items()}
+            opt = tl._adamw_init(params)
+            for n in names:
+                getattr(fa, n).launches = 0
+            losses = []
+            for _ in range(3):
+                params, opt, loss = step(params, opt, ids, labels)
+                losses.append(float(loss))
+            out.append((losses, {n: getattr(fa, n).launches for n in names}))
+    (cpu, n0), (card, n1) = out
     L = cfg.num_hidden_layers
-    assert (f0, b0) == (0, 0) and (f1, b1) == (3 * 2 * L, 3 * L), out
+    split = mode == "split"
+    want = {"flash_fwd": 3 * 2 * L, "flash_bwd": 0 if split else 3 * L,
+            "flash_bwd_dkv": 3 * L if split else 0,
+            "flash_bwd_dq": 3 * L if split else 0}
+    assert not any(n0.values()) and n1 == want, out
     np.testing.assert_allclose(card, cpu, rtol=TRAIN_LOSS_RTOL)
     print(f"losses card {card} cpu {cpu} (rtol {TRAIN_LOSS_RTOL}); "
-          f"launches flash_fwd {f1} flash_bwd {b1}")
+          f"launches {n1}")
 
 
 # grouped matmul kernels against their plain versions, flash_close's rule
@@ -1946,6 +1981,8 @@ def _zero_counts():
     for name in PAGED_KERNELS:
         getattr(pa, name).launches = 0
     fa.flash_fwd.launches = fa.flash_bwd.launches = 0
+    fa.flash_bwd_dkv.launches = fa.flash_bwd_dq.launches = 0
+    pa.paged_attention.launches = 0
     tg.gmm_fwd.launches = tg.gmm_dx.launches = tg.gmm_dw.launches = 0
     da.decode_attend_update_slab.launches = 0
     da.decode_attention_slab.launches = 0
@@ -1963,6 +2000,9 @@ def _counts():
             "rms_norm": rn.fused_rms_norm.launches,
             "flash_fwd": fa.flash_fwd.launches,
             "flash_bwd": fa.flash_bwd.launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv.launches,
+            "flash_bwd_dq": fa.flash_bwd_dq.launches,
+            "paged_attention": pa.paged_attention.launches,
             "gmm_fwd": tg.gmm_fwd.launches,
             "gmm_dx": tg.gmm_dx.launches,
             "gmm_dw": tg.gmm_dw.launches,
@@ -2429,7 +2469,8 @@ def _kernel_class(name):
     if "spin_kernel" in name:        # torch.cuda._sleep
         return "warm-up"
     if "paged_update_kernel" in name:
-        return "paged_attend_update"
+        return ("paged_attention" if ", false>" in name
+                else "paged_attend_update")
     if "paged_decode_quant_kernel" in name:
         return ("paged_attend_update_quant" if ", true>" in name
                 else "paged_attention_quant")
@@ -2455,7 +2496,11 @@ def _kernel_class(name):
         return "varlen_bwd"
     if "flash_fwd_kernel" in name:
         return "flash_fwd"
-    if "flash_bwd_kernel" in name or "dq_finalize_kernel" in name:
+    if "flash_bwd_dq_kernel" in name:
+        return "flash_bwd_dq"
+    if "flash_bwd_kernel" in name:
+        return "flash_bwd_dkv" if ", false>" in name else "flash_bwd"
+    if "dq_finalize_kernel" in name:
         return "flash_bwd"
     if "gmm_fwd_kernel" in name or "gmm_dx_kernel" in name \
             or "gmm_dw_kernel" in name:
@@ -2670,7 +2715,10 @@ def times(dev, errs):
              bytes=nbytes, context_tokens=ctx)
     out["paged_attend_update[B=8,NH=NKV=32]"] = r
     print(f"paged_attend_update B=8 NH=NKV=32 ctx {ctx} tokens: {r}")
+    out.update(paged_read_times(dev))
     out.update(flash_times(dev))
+    out.update(split_times(dev))
+    out.update(long_times(dev))
     out.update(gmm_times(dev))
     out.update(verify_times(dev))
     out.update(quant_times(dev))
@@ -3045,6 +3093,588 @@ def gmm_times(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the dense flash dispatch: the split backward (rows 17, 18), the block
+# entries, read-only paged attention (row 2) and the long-context phases
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _bwd_mode(mode):
+    """PADDLE_TPU_TORCH_FLASH_BWD set to ``mode`` inside the block and
+    restored after it, whatever happens inside."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    old = os.environ.get(fa.ENV_FLASH_BWD)
+    os.environ[fa.ENV_FLASH_BWD] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(fa.ENV_FLASH_BWD, None)
+        else:
+            os.environ[fa.ENV_FLASH_BWD] = old
+
+
+# (BH, Sq, Sk, D, causal, dtype, spread): the train shape in bf16; f32 at
+# a length that is no multiple of 64, a ring off-diagonal block (Sq != Sk,
+# not causal), causal at Sq < Sk, and a score spread (keys 64..67 scaled
+# so their scores lead by hundreds of log2 units)
+SPLIT_CASES = [(TRAIN_B * 32, TRAIN_S, TRAIN_S, 128, True, torch.bfloat16,
+                None),
+               (8, 200, 200, 64, True, torch.float32, None),
+               (8, 128, 320, 128, False, torch.float32, None),
+               (8, 130, 200, 128, True, torch.float32, None),
+               (8, 200, 200, 64, True, torch.float32, 60.0)]
+
+
+def _split_inputs(bh, sq, sk, d, dtype, seed, dev, causal=True,
+                  spread=None):
+    """qs (pre-scaled), k, v, do, and the plain forward's o and lse."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qs = (torch.randn((bh, sq, d), generator=g, device=dev)
+          * (fa.LOG2E / math.sqrt(d))).to(dtype)
+    k, v = (torch.randn((bh, sk, d), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    do = torch.randn((bh, sq, d), generator=g, device=dev).to(dtype)
+    if spread is not None:
+        k[:, 64:68] = (k[:, 64:68].float() * spread).to(dtype)
+    o, lse = fa.flash_fwd_plain(qs, k, v, causal)
+    return qs, k, v, do, o, lse
+
+
+def check_split(dev, errs):
+    """Rows 17 and 18 against their plain versions under the flash rule;
+    row 17's dK and dV bitwise row 16's on the same inputs, row 18's dQ
+    bitwise over two runs."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    phase("check the split backward (rows 17, 18) against its plain "
+          "versions")
+    for i, (bh, sq, sk, d, causal, dtype, spread) in enumerate(SPLIT_CASES):
+        qs, k, v, do, o, lse = _split_inputs(bh, sq, sk, d, dtype,
+                                             SEED + 80 + i, dev, causal,
+                                             spread)
+        delta = (do.float() * o.float()).sum(-1)
+        args = (qs, k, v, do, lse, delta, causal, 1 / math.sqrt(d))
+        lead = None
+        if spread is not None:
+            s = (qs.float() @ k.float().transpose(1, 2))
+            lead = (s[:, :, 64:68].amax() - s[:, :, :64].amax()).item()
+            assert lead > 200, lead
+        dk, dv = fa.flash_bwd_dkv(*args)
+        dq = fa.flash_bwd_dq(*args)
+        dq2 = fa.flash_bwd_dq(*args)
+        _, dk_f, dv_f = fa.flash_bwd(*args)
+        dk_r, dv_r = fa.flash_bwd_dkv_plain(*args)
+        dq_r = fa.flash_bwd_dq_plain(*args)
+        torch.cuda.synchronize()
+        rel, frob = FLASH_TOL[dtype][1]
+        res = {"dq": flash_close(dq, dq_r, rel, frob),
+               "dk": flash_close(dk, dk_r, rel, frob),
+               "dv": flash_close(dv, dv_r, rel, frob)}
+        bitwise = (torch.equal(dk, dk_f) and torch.equal(dv, dv_f),
+                   torch.equal(dq, dq2))
+        spread_note = "" if lead is None else f" spread lead {lead:.0f} log2"
+        print(f"split BH={bh} Sq={sq} Sk={sk} D={d} causal={causal} "
+              f"{str(dtype)[6:]}{spread_note} (tol rel {rel:g} of |ref| + "
+              f"row max + rms, frob {frob:g})")
+        for name, (ok, excess, fro, err) in res.items():
+            print(f"  {name}: max_abs_err {err:.3e}  worst excess over the "
+                  f"limit {excess:.3e}  rel frob {fro:.3e}  "
+                  f"{'ok' if ok else 'FAILED'}")
+        print(f"  dK, dV bitwise row 16's: {bitwise[0]}; dQ bitwise over two "
+              f"runs: {bitwise[1]}")
+        assert all(r[0] for r in res.values()), f"split disagrees: {res}"
+        assert all(bitwise), bitwise
+        errs["flash_bwd_dkv"] = max(errs.get("flash_bwd_dkv", 0.0),
+                                    res["dk"][3], res["dv"][3])
+        errs["flash_bwd_dq"] = max(errs.get("flash_bwd_dq", 0.0),
+                                   res["dq"][3])
+        del args, dk, dv, dq, dq2, dk_f, dv_f, dk_r, dv_r, dq_r
+        torch.cuda.empty_cache()
+
+
+BLOCK_S, BLOCK_N = 1024, 4       # the ring check: 4 blocks of 256
+
+
+def _ring_blocks(fa, q, k, v, do, nb, scale):
+    """Causal attention of q, k, v [BH, S, D] as a ring of nb blocks
+    computes it: block (i, j) causal on the diagonal, full below it,
+    skipped above; forward partials merged by log-sum-exp, the backward of
+    each block under the global lse and delta, summed. Returns (o, lse,
+    dq, dk, dv) in f32."""
+    n = q.shape[1] // nb
+    part = [slice(i * n, (i + 1) * n) for i in range(nb)]
+    blk = lambda t, i: t[:, part[i]].contiguous()
+    o, lse = torch.empty_like(q), torch.empty(q.shape[:2], device=q.device)
+    for i in range(nb):
+        ps = [fa.flash_block_fwd(blk(q, i), blk(k, j), blk(v, j), j == i,
+                                 scale) for j in range(i + 1)]
+        m = torch.logsumexp(torch.stack([p[1] for p in ps]), 0)
+        o[:, part[i]] = sum(p[0] * torch.exp(p[1] - m)[..., None] for p in ps)
+        lse[:, part[i]] = m
+    delta = (do * o).sum(-1)
+    dq, dk, dv = (torch.zeros_like(q) for _ in range(3))
+    for i in range(nb):
+        for j in range(i + 1):
+            g = fa.flash_block_bwd(blk(q, i), blk(k, j), blk(v, j), blk(do, i),
+                                   blk(lse, i), blk(delta, i), j == i, scale)
+            dq[:, part[i]] += g[0]
+            dk[:, part[j]] += g[1]
+            dv[:, part[j]] += g[2]
+    return o, lse, dq, dk, dv
+
+
+def check_blocks(dev):
+    """flash_block_fwd / flash_block_bwd on the card (f32, BH=8, S=1024,
+    D=128, causal): the ring decomposition into four 128-aligned blocks
+    against one full-attention call, under both backward modes; a key
+    tile no q row reaches gets dK = dV = 0 exactly."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    phase("check the block entries: four KV blocks merged by log-sum-exp, "
+          "the per-block backward under global lse/delta, against one full "
+          "call (f32)")
+    g = torch.Generator(device=dev).manual_seed(SEED + 90)
+    q, k, v, do = (torch.randn((8, BLOCK_S, 128), generator=g, device=dev)
+                   for _ in range(4))
+    scale = 128 ** -0.5
+    (rel, frob) = FLASH_TOL[torch.float32][1]
+    for mode in ("auto", "split"):
+        with _bwd_mode(mode):
+            got = _ring_blocks(fa, q, k, v, do, BLOCK_N, scale)
+            o, lse = fa.flash_block_fwd(q, k, v, True, scale)
+            full = (o, lse) + fa.flash_block_bwd(
+                q, k, v, do, lse, (do * o).sum(-1), True, scale)
+            dead = fa.flash_block_bwd(q[:, :128].contiguous(),
+                                      k[:, :256].contiguous(),
+                                      v[:, :256].contiguous(),
+                                      do[:, :128].contiguous(),
+                                      lse[:, :128].contiguous(),
+                                      (do * o).sum(-1)[:, :128].contiguous(),
+                                      True, scale)
+        torch.cuda.synchronize()
+        res = {n: flash_close(a, b, rel, frob) for n, a, b in
+               zip(("o", "lse", "dq", "dk", "dv"), got, full)}
+        zero = not dead[1][:, 128:].any() and not dead[2][:, 128:].any()
+        print(f"blocks ({fa.ENV_FLASH_BWD}={mode}): "
+              + "  ".join(f"{n} max_abs_err {r[3]:.3e} rel frob {r[2]:.3e}"
+                          for n, r in res.items())
+              + f"; unreached keys dK = dV = 0: {zero}")
+        assert all(r[0] for r in res.values()), res
+        assert zero
+
+
+PAGED_READ_CASES = [(32, 32, 128, torch.bfloat16, PAGED_ATOL),  # row 3's
+                    (32, 8, 128, torch.float32, 1e-5),
+                    (8, 2, 64, torch.float32, 1e-5)]
+
+
+def check_paged_read(dev, errs):
+    """Row 2 against its plain version: at row 3's shape (lengths =
+    positions + 1) and on f32 GQA cases with a length-0 row (output
+    exactly 0); the pools are not written."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    phase("check read-only paged attention (row 2) against its plain "
+          "version")
+    for i, (nh, nkv, hd, dtype, atol) in enumerate(PAGED_READ_CASES):
+        a = _paged_inputs(nh, nkv, PAGED_POSITIONS, SEED + 95 + i, dev, hd=hd)
+        q, kp, vp = (a[n].to(dtype) for n in ("q", "k_pool", "v_pool"))
+        lengths = a["positions"] + 1
+        if dtype == torch.float32:
+            lengths[0] = 0
+        kp0, vp0 = kp.clone(), vp.clone()
+        got = pa.paged_attention(q, kp, vp, a["tables"], lengths, a["layer"])
+        ref = pa.paged_attention_plain(q, kp, vp, a["tables"], lengths,
+                                       a["layer"])
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        assert torch.isfinite(got).all() and err <= atol, err
+        assert torch.equal(kp, kp0) and torch.equal(vp, vp0)
+        zero = bool(lengths[0] > 0) or not got[0].any()
+        assert zero
+        print(f"paged_attention NH={nh} NKV={nkv} HD={hd} {str(dtype)[6:]} "
+              f"lengths {lengths.tolist()}: max_abs_err {err:.3e} (tol "
+              f"{atol}), pools unchanged, length-0 row exactly 0: {zero}")
+        errs["paged_attention"] = max(errs.get("paged_attention", 0.0), err)
+
+
+LONG_S, LONG_STEPS = 16384, 2     # train-long: B = 1 at S = 16384
+
+
+def train_long(dev):
+    """build_train_step on llama_7b's width cut to 16 of its 32 layers
+    (the train phase's cut: 42.0 GB of state) at Code Llama 7B's
+    long-context setting (Roziere et al. 2023, "Code Llama", section 2.4:
+    16,384-token sequences, RoPE base 10^6): B = 1, S = 16384, bf16, full
+    remat, AdamW with f32 moments, seeded weights and ids. Under each
+    backward mode, auto then split: one warm-up and LONG_STEPS timed
+    steps, each step's launches asserted; then a profile of one step."""
+    import dataclasses
+    from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.ops import flash_attention as fa
+    phase(f"train-long: llama_7b width, {TRAIN_LAYERS} layers (bf16, B=1, "
+          f"S={LONG_S}, rope_theta 1e6, full remat, AdamW f32 moments), "
+          f"{fa.ENV_FLASH_BWD} auto then split")
+    cfg = dataclasses.replace(tl.llama_7b(), num_hidden_layers=TRAIN_LAYERS,
+                              max_position_embeddings=LONG_S,
+                              rope_theta=1e6)
+    par = tl.ParallelConfig(remat=True, remat_policy="full")
+    t0 = time.perf_counter()
+    step, params, opt = tl.build_train_step(cfg, par, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    print(f"weights and moments made on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    L, heads = cfg.num_hidden_layers, cfg.num_attention_heads
+    flops_tok = tl.train_flops_per_token(cfg, LONG_S)
+    rng = np.random.RandomState(SEED + 8)
+    out = {"layers": L, "batch": 1, "seq": LONG_S, "rope_theta": 1e6,
+           "params": tl.count_params(cfg), "train_flops_per_token": flops_tok,
+           "reduced": f"num_hidden_layers 32 -> {L} (state at 32 layers is "
+                      f"80.9 GB, over the 80 GB card)", "modes": {}}
+    torch.cuda.reset_peak_memory_stats()
+    names = ("flash_fwd", "flash_bwd", "flash_bwd_dkv", "flash_bwd_dq")
+    for mode in ("auto", "split"):
+        split = mode == "split"
+        want = {"flash_fwd": 2 * L, "flash_bwd": 0 if split else L,
+                "flash_bwd_dkv": L if split else 0,
+                "flash_bwd_dq": L if split else 0}
+        batches = [rng.randint(0, cfg.vocab_size, size=(1, LONG_S + 1))
+                   .astype(np.int32) for _ in range(1 + LONG_STEPS)]
+        losses, step_ms, launches = [], [], {n: 0 for n in names}
+        with _bwd_mode(mode):
+            stats = fa.dense_bwd_schedule_stats(heads, LONG_S, LONG_S,
+                                                cfg.head_dim, torch.bfloat16,
+                                                True)
+            print(f"dense_bwd_schedule_stats: {stats} (JAX: forward "
+                  f"{stats['fwd_path']} = row "
+                  f"{13 if stats['fwd_path'] == 'stream' else 14}, backward "
+                  f"{stats['path']})")
+            for i, x in enumerate(batches):
+                _zero_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, loss = step(params, opt, x[:, :-1], x[:, 1:])
+                losses.append(float(loss))       # waits for the step
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                counts = _counts()
+                assert {n: counts[n] for n in names} == want, counts
+                for n in names:
+                    launches[n] += counts[n]
+                print(f"step {i}{' (warm-up)' if i == 0 else ''}: loss "
+                      f"{losses[-1]:.6f}  {step_ms[-1]:.1f} ms  launches "
+                      f"{ {n: counts[n] for n in names} }")
+        assert all(math.isfinite(v) for v in losses), losses
+        ms = float(np.mean(step_ms[1:]))
+        tps = LONG_S / (ms / 1e3)
+        mfu = flops_tok * tps / BF16_OPS_PER_S
+        print(f"{mode}: step ms mean {ms:.2f} over {LONG_STEPS} timed steps "
+              f"{step_ms[1:]}; tokens/s {tps:.1f}; MFU {mfu:.4f} "
+              f"(train_flops_per_token {flops_tok:.4e})")
+        out["modes"][mode] = {"schedule_stats": stats, "losses": losses,
+                              "step_ms": step_ms, "step_ms_mean": ms,
+                              "tokens_per_sec": tps, "mfu": mfu,
+                              "launches": launches}
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"peak mem {out['peak_mem_gib']:.2f} GiB over both modes")
+    out["profile"] = profile_train_step(params, opt, batches[0], cfg)
+    del step, params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+# bench.py's long_seq_flash_fwd rung (bench.py:2123-2170): (BH, S) at
+# D = 128, causal, bf16
+ATTN_LONG = [(8, 16384), (8, 32768), (4, 131072)]
+ATTN_LONG_ITERS = 2
+
+
+def _attn_long_check(fa, bh, s, dev, seed):
+    """Rows 14 and 16 (auto) and rows 17 and 18 (split) against the plain
+    versions on every element at one long shape; returns the errors."""
+    d = 128
+    qs, k, v, do, o_r, lse_r = _split_inputs(bh, s, s, d, torch.bfloat16,
+                                             seed, dev)
+    (rel_f, frob_f), (rel_b, frob_b) = FLASH_TOL[torch.bfloat16]
+    o, lse = fa.flash_fwd(qs, k, v, True)
+    res = {"o": flash_close(o, o_r, rel_f, frob_f)}
+    err_lse = (lse - lse_r).abs().max().item()
+    del o
+    delta = (do.float() * o_r.float()).sum(-1)
+    args = (qs, k, v, do, lse_r, delta, True, d ** -0.5)
+    # flash_bwd_plain's dK/dV and dQ are the split pair's plain versions'
+    # (one walk, the same bits)
+    want = fa.flash_bwd_plain(*args)
+    got = fa.flash_bwd(*args)
+    for n, a, b in zip(("dq", "dk", "dv"), got, want):
+        res[f"{n} (row 16)"] = flash_close(a, b, rel_b, frob_b)
+    del got
+    dk, dv = fa.flash_bwd_dkv(*args)
+    dq = fa.flash_bwd_dq(*args)
+    for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        res[f"{n} (split)"] = flash_close(a, b, rel_b, frob_b)
+    torch.cuda.synchronize()
+    print(f"  BH={bh} S={s}: kernels against the plain versions on every "
+          f"element (bf16 rel 2^-6, frob 2^-10; lse 1e-4): lse max_abs_err "
+          f"{err_lse:.2e}")
+    for n, (ok, excess, fro, err) in res.items():
+        print(f"    {n}: max_abs_err {err:.3e}  worst excess {excess:.3e}  "
+              f"rel frob {fro:.3e}  {'ok' if ok else 'FAILED'}")
+    assert all(r[0] for r in res.values()) and err_lse <= 1e-4, res
+    return {n: r[3] for n, r in res.items()}
+
+
+def attn_long(dev):
+    """bench.py's long_seq_flash_fwd shapes through the differentiable
+    [BH, S, D] entry (_FlashAttention: raw q, causal, bf16, seeded):
+    forward and backward of sum(o^2) with respect to q, k and v, under
+    auto and under split. Per shape: the kernels held to the plain
+    versions on every element (all heads), then per mode one warm-up
+    step, one under sync debug mode (no host sync allowed) and timed
+    steps: forward and backward ms from CUDA events, TFLOP/s over the
+    causal half (forward 4 BH S^2 D / 2, backward 2.5 times that), peak
+    memory and the launches of the mode's runs alone."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    phase("attn-long: flash fwd+bwd at bench.py's long_seq_flash_fwd shapes "
+          "(D=128, causal, bf16), auto and split")
+    out = {"shapes": {}}
+    for i, (bh, s) in enumerate(ATTN_LONG):
+        d, scale = 128, 128 ** -0.5
+        torch.cuda.empty_cache()
+        errs = _attn_long_check(fa, bh, s, dev, SEED + 100 + i)
+        torch.cuda.empty_cache()
+        g = torch.Generator(device=dev).manual_seed(SEED + 110 + i)
+        q, k, v = (torch.randn((bh, s, d), generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        flops = 4 * bh * s * s * d / 2
+        r = {"bh": bh, "seq": s, "head_dim": d, "max_abs_err": errs,
+             "modes": {}}
+        for mode in ("auto", "split"):
+            xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+
+            def fwd():
+                return fa._FlashAttention.apply(*xs, True, scale)
+
+            def step():
+                for x in xs:
+                    x.grad = None
+                (fwd().float() ** 2).sum().backward()
+
+            with _bwd_mode(mode):
+                stats = fa.dense_bwd_schedule_stats(bh, s, s, d,
+                                                    torch.bfloat16, True)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _zero_counts()
+                step()
+                torch.cuda.synchronize()
+                syncs = _host_syncs(step)
+                assert not syncs, syncs
+                ev = [[torch.cuda.Event(enable_timing=True)
+                       for _ in range(3)] for _ in range(ATTN_LONG_ITERS)]
+                for e0, e1, e2 in ev:
+                    for x in xs:
+                        x.grad = None
+                    e0.record()
+                    o = fwd()
+                    e1.record()
+                    (o.float() ** 2).sum().backward()
+                    e2.record()
+                torch.cuda.synchronize()
+                launches = _counts()
+            runs = ATTN_LONG_ITERS + 2
+            split = mode == "split"
+            want = {"flash_fwd": runs, "flash_bwd": 0 if split else runs,
+                    "flash_bwd_dkv": runs if split else 0,
+                    "flash_bwd_dq": runs if split else 0}
+            assert all(launches[n] == c for n, c in want.items()), launches
+            assert all(c == 0 for n, c in launches.items() if n not in want)
+            assert all(bool(torch.isfinite(t).all())
+                       for t in [o] + [x.grad for x in xs])
+            fwd_ms = sum(a.elapsed_time(b) for a, b, _ in ev) / len(ev)
+            bwd_ms = sum(b.elapsed_time(c) for _, b, c in ev) / len(ev)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            m = {"schedule_stats": stats, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+                 "fwd_tflops": flops / fwd_ms / 1e9,
+                 "bwd_tflops": 2.5 * flops / bwd_ms / 1e9,
+                 "peak_mem_gib": peak, "host_syncs": len(syncs),
+                 "launches": {n: launches[n] for n in want}}
+            r["modes"][mode] = m
+            print(f"  BH={bh} S={s} {mode}: JAX forward {stats['fwd_path']}, "
+                  f"backward {stats['path']}; forward {fwd_ms:.3f} ms "
+                  f"({m['fwd_tflops']:.1f} TFLOP/s), backward {bwd_ms:.3f} "
+                  f"ms ({m['bwd_tflops']:.1f} TFLOP/s), peak mem "
+                  f"{peak:.2f} GiB, host syncs {len(syncs)}, launches "
+                  f"{m['launches']}")
+            del xs, o
+        out["shapes"][f"BH={bh},S={s}"] = r
+    return out
+
+
+def _library_dense_bwd(q4, k4, v4, do4, scale):
+    """One PyTorch call for the whole dense causal backward, the
+    yardstick the port never calls: aten's _flash_attention_backward
+    ([B, S, H, D]) after its own forward; where torch refuses it, SDPA
+    forward + backward minus forward. Returns (what, ms)."""
+    A = torch.ops.aten
+    q, k, v, do = (t.transpose(1, 2).contiguous() for t in (q4, k4, v4, do4))
+    s = q.shape[1]
+    try:
+        res = A._flash_attention_forward(q, k, v, None, None, s, s, 0.0,
+                                         True, False, scale=scale)
+        o, lse, rng, unused = res[0], res[1], res[2], res[3]
+
+        def bwd():
+            return A._flash_attention_backward(do, q, k, v, o, lse, None,
+                                               None, s, s, 0.0, True, rng,
+                                               unused, scale=scale)
+        bwd()
+        torch.cuda.synchronize()
+        return "aten._flash_attention_backward", _timed(bwd, 5)["ms"]
+    except RuntimeError as e:   # a refused call: recorded, then SDPA
+        what = f"SDPA fwd+bwd - fwd (aten refused: {str(e)[:120]})"
+    F = torch.nn.functional
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+
+    def both():
+        o4 = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        return torch.autograd.grad(o4, (qg, kg, vg), do4)
+    return what, _timed(both, 5)["ms"] - _timed(
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
+        5)["ms"]
+
+
+def split_times(dev):
+    """Rows 17 and 18 at the train phase's shape (B=4, NH=32, S=2048) and
+    at train-long's (B=1, NH=32, S=16384), D=128, causal, bf16. Work
+    counted for the live (query, key) pairs, S (S + 1) / 2 per head: the
+    dK/dV pass does 4 products (S, dV, dP, dK), the dQ pass 3 (S, dP,
+    dQ), 2 D operations per pair each. Bytes: q, k, v, do and the f32 lse
+    and delta read once, dk and dv (dq) written once. Library yardstick:
+    aten's whole flash backward, as for rows 22 and 23."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    out = {}
+    for b, s in ((TRAIN_B, TRAIN_S), (1, LONG_S)):
+        nh, d = 32, 128
+        bh, scale = b * nh, d ** -0.5
+        qs, k, v, do, o, lse = _split_inputs(bh, s, s, d, torch.bfloat16,
+                                             SEED + 120, dev)
+        delta = (do.float() * o.float()).sum(-1)
+        args = (qs, k, v, do, lse, delta, True, scale)
+        pairs, el = bh * s * (s + 1) // 2, bh * s * d
+        what, lib = _library_dense_bwd(*(t.reshape(b, nh, s, d)
+                                         for t in (qs, k, v, do)), scale)
+        for name, fn, plain, n_prod, n_out in (
+                ("flash_bwd_dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain,
+                 4, 2),
+                ("flash_bwd_dq", fa.flash_bwd_dq, fa.flash_bwd_dq_plain,
+                 3, 1)):
+            r = dict(_timed(lambda: fn(*args), 10),
+                     plain_ms=_timed(lambda: plain(*args), 1)["ms"],
+                     library_ms=lib, library=what,
+                     **_bound((4 + n_out) * el * 2 + 2 * bh * s * 4,
+                              n_prod * 2 * d * pairs, BF16_OPS_PER_S))
+            key = f"{name}[B={b},NH=32,S={s},D=128,causal]"
+            out[key] = r
+            print(f"{key} bf16: {r}")
+        del args, qs, k, v, do, o
+        torch.cuda.empty_cache()
+    return out
+
+
+def long_times(dev):
+    """Row 13's and row 15's covers at the shapes that select them in JAX
+    (dense_bwd_schedule_stats): row 14's kernel at BH=8, S=16384 (JAX
+    streams K/V) and row 16's at BH=4, S=131072 (JAX's dQ-partials
+    backward), D=128, causal, bf16; work and bytes as flash_times counts
+    them. Library yardsticks: SDPA's causal forward; SDPA forward +
+    backward minus forward."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    F = torch.nn.functional
+    out = {}
+    for name, (bh, s) in (("flash_fwd", ATTN_LONG[0]),
+                          ("flash_bwd", ATTN_LONG[2])):
+        d, scale = 128, 128 ** -0.5
+        qs, k, v, do, o, lse = _split_inputs(bh, s, s, d, torch.bfloat16,
+                                             SEED + 130, dev)
+        delta = (do.float() * o.float()).sum(-1)
+        stats = fa.dense_bwd_schedule_stats(bh, s, s, d, torch.bfloat16,
+                                            True)
+        pairs, el = bh * s * (s + 1) // 2, bh * s * d
+        q4, k4, v4, do4 = (t.reshape(1, bh, s, d) for t in (qs, k, v, do))
+        lib_fwd = _timed(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), 5)["ms"]
+        if name == "flash_fwd":
+            r = dict(_timed(lambda: fa.flash_fwd(qs, k, v, True), 10),
+                     plain_ms=_timed(lambda: fa.flash_fwd_plain(
+                         qs, k, v, True), 1)["ms"], library_ms=lib_fwd,
+                     **_bound(4 * el * 2 + bh * s * 4, 2 * 2 * d * pairs,
+                              BF16_OPS_PER_S))
+            cover = f"row 13 (JAX forward {stats['fwd_path']})"
+        else:
+            qg, kg, vg = (t.detach().clone().requires_grad_()
+                          for t in (q4, k4, v4))
+
+            def both():
+                o4 = F.scaled_dot_product_attention(qg, kg, vg,
+                                                    is_causal=True)
+                return torch.autograd.grad(o4, (qg, kg, vg), do4)
+            args = (qs, k, v, do, lse, delta, True, scale)
+            lib_both = _timed(both, 3)["ms"]
+            r = dict(_timed(lambda: fa.flash_bwd(*args), 3),
+                     plain_ms=_timed(lambda: fa.flash_bwd_plain(*args),
+                                     1)["ms"],
+                     library_ms=lib_both - lib_fwd,
+                     library_fwd_bwd_ms=lib_both,
+                     **_bound(7 * el * 2 + 2 * bh * s * 4, 5 * 2 * d * pairs,
+                              BF16_OPS_PER_S))
+            cover = f"row 15 (JAX backward {stats['path']})"
+            del qg, kg, vg
+        r["schedule_stats"] = stats
+        key = f"{name}[BH={bh},S={s},D=128,causal]"
+        out[key] = r
+        print(f"{key} bf16, {cover}: {r}")
+        del qs, k, v, do, o, q4, k4, v4, do4
+        torch.cuda.empty_cache()
+    return out
+
+
+def paged_read_times(dev):
+    """Row 2 at row 3's timing shape (B=8, NH=NKV=32, HD=128, bf16,
+    lengths = row 3's positions + 1: 3,865 tokens). Bytes: q, the K and V
+    of the context, the f32 output, tables and lengths once. Operations:
+    2 products of 2 HD per (head, token). Library yardstick: SDPA over the
+    context gathered beforehand, as for row 3."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    F = torch.nn.functional
+    a = _paged_inputs(32, 32, PAGED_POSITIONS, SEED + 32, dev)
+    b, nh, hd = a["q"].shape
+    kvd, bs = a["k_pool"].shape[2], a["k_pool"].shape[3]
+    lengths = a["positions"] + 1
+    ctx = int(lengths.sum())
+    nbytes = (b * nh * hd * 2 + 2 * ctx * kvd * 2 + b * nh * hd * 4
+              + a["tables"].numel() * 4 + b * 4)
+    call = (a["q"], a["k_pool"], a["v_pool"], a["tables"], lengths,
+            a["layer"])
+    tmax = int(lengths.max())
+    nb = -(-tmax // bs)
+    rows = a["tables"][:, :nb].long()
+    kc, vc = (c[a["layer"]][rows].reshape(b, nb, nh, hd, bs)
+              .permute(0, 2, 1, 4, 3).reshape(b, nh, nb * bs, hd)[:, :, :tmax]
+              .contiguous() for c in (a["k_pool"], a["v_pool"]))
+    mask = (torch.arange(tmax, device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    qd = a["q"][:, :, None, :]
+    r = dict(_timed(lambda: pa.paged_attention(*call), 100),
+             plain_ms=_timed(lambda: pa.paged_attention_plain(*call), 10)
+             ["ms"],
+             library_ms=_timed(lambda: F.scaled_dot_product_attention(
+                 qd, kc, vc, attn_mask=mask), 50)["ms"],
+             **_bound(nbytes, 4 * nh * hd * ctx, BF16_OPS_PER_S),
+             bytes=nbytes, context_tokens=ctx)
+    key = "paged_attention[B=8,NH=NKV=32]"
+    print(f"{key} ctx {ctx} tokens: {r}")
+    return {key: r}
+
+
 def main():
     t_start = time.perf_counter()
     smi = probe()
@@ -3052,15 +3682,19 @@ def main():
     sys.path.insert(0, ROOT)
     build_s = build()
     errs = check_kernels(dev)
+    check_paged_read(dev, errs)
     check_verify(dev, errs)
     check_quant(dev, errs)
     check_flash(dev, errs)
+    check_split(dev, errs)
+    check_blocks(dev)
     check_gmm(dev, errs)
     check_tiny_streams(dev)
     check_tiny_spec_streams(dev)
     check_tiny_streams(dev, "int8")
     check_tiny_spec_streams(dev, "int8")
     check_tiny_train(dev)
+    check_tiny_train(dev, "split")
     check_tiny_ernie(dev)
     check_decode(dev, errs)
     check_tiny_generate(dev)
@@ -3068,6 +3702,8 @@ def main():
     serve = serve_7b(dev)
     spec = serve_spec(dev)
     train = train_7b(dev)
+    tlong = train_long(dev)
+    along = attn_long(dev)
     ernie = train_ernie(dev)
     gen = generate_tinyllama(dev)
     varlen = varlen_phase(dev)
@@ -3175,15 +3811,59 @@ def main():
              "max_abs_err": errs[name],
              **{k: tm[f"{name}[{pack} pack,T={t},H={VARLEN_H},"
                       f"D={VARLEN_D},causal]"][k] for k in cols}})
-    # every kernel ran on its main path (rows 11 and 4 have no caller)
+    kernels.append(
+        {"name": "paged_attention", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+         "replaces": "paddle_tpu/ops/paged_attention.py:191",
+         "launches": serve["launches"]["paged_attention"],
+         "max_abs_err": errs["paged_attention"],
+         **{k: tm["paged_attention[B=8,NH=NKV=32]"][k] for k in cols}})
+    long_key = f"[B=1,NH=32,S={LONG_S},D=128,causal]"
+    for name, line in (("flash_bwd_dkv", 1337), ("flash_bwd_dq", 1373)):
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+             "replaces": f"paddle_tpu/ops/flash_attention.py:{line}",
+             "launches": tlong["modes"]["split"]["launches"][name],
+             "max_abs_err": max([errs[name]] + [
+                 r["max_abs_err"][f"{n} (split)"]
+                 for r in along["shapes"].values()
+                 for n in (("dq",) if name == "flash_bwd_dq"
+                           else ("dk", "dv"))]),
+             **{k: tm[name + long_key][k] for k in cols}})
+    # rows 13 and 15: their functions run by rows 14's and 16's kernels at
+    # the shapes that select them in JAX
+    f13, f15 = along["shapes"][f"BH=8,S={LONG_S}"], \
+        along["shapes"]["BH=4,S=131072"]
+    kernels.append(
+        {"name": "flash_fwd (row 13 cover: _flash_fwd_stream)",
+         "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "paddle_tpu/ops/flash_attention.py:498",
+         "launches": tlong["modes"]["auto"]["launches"]["flash_fwd"],
+         "max_abs_err": f13["max_abs_err"]["o"],
+         **{k: tm[f"flash_fwd[BH=8,S={LONG_S},D=128,causal]"][k]
+            for k in cols}})
+    kernels.append(
+        {"name": "flash_bwd (row 15 cover: _bwd_fused_stream_chunk)",
+         "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "paddle_tpu/ops/flash_attention.py:937",
+         "launches": f15["modes"]["auto"]["launches"]["flash_bwd"],
+         "max_abs_err": max(f15["max_abs_err"][f"{n} (row 16)"]
+                            for n in ("dq", "dk", "dv")),
+         **{k: tm["flash_bwd[BH=4,S=131072,D=128,causal]"][k]
+            for k in cols}})
+    # every kernel ran on its main path (rows 11, 4 and 2 have no caller)
     assert all(kk["launches"] > 0 for kk in kernels if kk["name"] not in (
-        "decode_attention_slab", "paged_attention_quant")), kernels
-    assert len(kernels) == 19, len(kernels)
+        "decode_attention_slab", "paged_attention_quant",
+        "paged_attention")), kernels
+    assert len(kernels) == 24, len(kernels)
     wall_s = time.perf_counter() - t_start
     record = {"nvidia_smi": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "max_abs_err": errs, "serve": serve, "serve_spec": spec,
-              "train": train,
+              "train": train, "train_long": tlong, "attn_long": along,
               "ernie": ernie, "generate": gen, "varlen": varlen,
               "times": tm,
               "wall_s": wall_s}

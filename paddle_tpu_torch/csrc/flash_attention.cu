@@ -1,11 +1,21 @@
-// Flash attention forward and fused backward for Hopper (sm_90a).
+// Flash attention forward, fused backward and split backward for Hopper
+// (sm_90a).
 //
-// Replaces two TPU kernels of paddle_tpu/ops/flash_attention.py:
-//   flash_fwd  <- _flash_fwd (kernel _fwd_kernel; its default variant
-//                 _fwd_kernel_fixed_base is not ported), the resident FA2
-//                 forward over [BH, S, D] returning o and the natural-log lse;
-//   flash_bwd  <- _bwd_fused_flat_call (kernel _bwd_fused_flat_kernel), the
-//                 fused one-pass FA2 backward returning dq, dk, dv.
+// Replaces four TPU kernels of paddle_tpu/ops/flash_attention.py:
+//   flash_fwd      <- _flash_fwd (kernel _fwd_kernel; its default variant
+//                     _fwd_kernel_fixed_base is not ported), the resident FA2
+//                     forward over [BH, S, D] returning o and the natural-log
+//                     lse; it streams K/V tiles at any length, so it also
+//                     computes _flash_fwd_stream's function (_fwd_kernel_stream);
+//   flash_bwd      <- _bwd_fused_flat_call (kernel _bwd_fused_flat_kernel), the
+//                     fused one-pass FA2 backward returning dq, dk, dv; it keeps
+//                     no per-sequence scratch on chip, so it also computes
+//                     _bwd_fused_stream_chunk's function (_bwd_fused_kernel_stream);
+//   flash_bwd_dkv  <- _bwd_pallas_calls (kernel _bwd_dkv_kernel), the split
+//                     backward's k-major dK/dV pass: flash_bwd's kernel with the
+//                     dQ product compiled out, so dK and dV are flash_bwd's bits;
+//   flash_bwd_dq   <- _bwd_pallas_calls (kernel _bwd_dq_kernel), the split
+//                     backward's q-major dQ pass, with no atomics.
 // q arrives PRE-SCALED by scale * log2(e) (the caller folds it, as the TPU
 // path does), so scores are in the log2 domain and the softmax uses exp2.
 //
@@ -49,7 +59,23 @@
 // were chosen over a second pass over q tiles because the second pass would
 // recompute S and dP (7 products instead of 5); the price is a summation
 // order for dQ that varies from run to run (the tolerances allow for it).
-// dK is multiplied by ln 2 at the end, since q~ carries log2(e).
+// dK and dV take each q tile's product apart from their running sums and
+// add it in f32 (mm_add): the tensor cores' own f32 sums round toward zero.
+// dK is multiplied by ln 2 at the end, since q~ carries log2(e). The dK/dV
+// pass of the split backward is this kernel with DQ = false: the dS K
+// product and the atomics are compiled out, everything else (schedule,
+// barriers, rounding) is the same code, so its dK and dV are bitwise the
+// fused kernel's (4 products at the train shape, 0.278 ms).
+//
+// Split dQ pass: one CTA of 4 warps per (64-row q tile, bh), each warp
+// owning 16 q rows, walks the live 64-key K/V tiles (key tiles <= the q
+// tile under causal, the forward's live set) through the same two-stage
+// pipeline as the forward. Per tile it recomputes S = Q~ K^T, P = exp2(S -
+// lse2), dP = dO V^T and dS = P (dP - delta) rounded to the input dtype
+// (the fused kernel's rounding point), and accumulates dQ += dS K in f32
+// registers: 3 products, no atomics, so dQ has the same bits on every run.
+// dQ is multiplied by scale once at the end and cast. At the train shape
+// it does 3 products of 2 * BH * S^2 * D / 2 operations (0.208 ms).
 //
 // Types f32 and bf16, head_dim 64 and 128 (template parameters). The
 // kernels allocate nothing and do not synchronise; they launch on the
@@ -198,6 +224,29 @@ __global__ void __launch_bounds__(kThreads)
 // fused backward
 // ---------------------------------------------------------------------------
 
+// c += A (16 x K, k contiguous) * B (K x 8 NT, n contiguous), the product
+// summed in a zeroed register tile of NT / 2 n-tiles at a time and added
+// to c with f32 round-to-nearest adds. The tensor cores round the f32 sums
+// of an mma toward zero, so a sum carried in the mma accumulator over
+// thousands of q tiles drifts toward zero (dK and dV 2.5e-4 low, relative,
+// at S = 131072); one q tile's product is at most BQ terms.
+template <int NT, typename T>
+__device__ __forceinline__ void mm_add(float (&c)[NT][4], const T* a, int lda, const T* b,
+                                       int ldb, int K) {
+  constexpr int H = NT / 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float p[H][4];
+#pragma unroll
+    for (int n = 0; n < H; ++n) p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
+    warp_mm<H, true, false>(p, a, lda, b + h * H * 8, ldb, K);
+#pragma unroll
+    for (int n = 0; n < H; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[h * H + n][e] += p[n][e];
+  }
+}
+
 template <typename T, int D>
 struct BwdCfg {
   static constexpr int BK = 64, BQ = D == 128 ? 32 : 64;  // BQ bounds registers
@@ -209,9 +258,9 @@ struct BwdCfg {
 };
 
 // q [BH, sq, D] pre-scaled, dout [BH, sq, D], lse and delta [BH, sq] f32
-// (lse natural log); k, v [BH, sk, D]. dq_acc [BH, sq, D] f32 must be zero;
-// dk, dv [BH, sk, D] are written whole.
-template <typename T, int D>
+// (lse natural log); k, v [BH, sk, D]. DQ: dq_acc [BH, sq, D] f32 must be
+// zero (unused without DQ); dk, dv [BH, sk, D] are written whole.
+template <typename T, int D, bool DQ>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
@@ -240,7 +289,7 @@ __global__ void __launch_bounds__(kThreads)
   const T* dog = dout + bh * sq * D;
   const float* lseg = lse + bh * sq;
   const float* dlg = delta + bh * sq;
-  float* dqg = dq_acc + bh * sq * D;
+  [[maybe_unused]] float* dqg = DQ ? dq_acc + bh * sq * D : nullptr;
 
   float dkc[NTO][4], dvc[NTO][4];
 #pragma unroll
@@ -254,7 +303,7 @@ __global__ void __launch_bounds__(kThreads)
   const T* kw = k_s + warp * 16 * LD;
   const T* vw = v_s + warp * 16 * LD;
   T* dsw = ds_s + warp * 16 * LDP;
-  const int mt = warp % MT, nt0 = (warp / MT) * NTW;
+  [[maybe_unused]] const int mt = warp % MT, nt0 = (warp / MT) * NTW;
 
   // two-stage pipeline: q tile i + 1 is in flight while tile i is used
   load_rows<T, D, BK, LD>(k_s, k + bh * sk * D, k0, sk);
@@ -307,7 +356,7 @@ __global__ void __launch_bounds__(kThreads)
       st_pair(dsw + (g + 8) * LDP + n * 8 + 2 * t, s[n][2], s[n][3]);
     }
     __syncwarp();
-    warp_mm<NTO, true, false>(dvc, dsw, LDP, do_s, LD, BQ);  // dV += round(P^T) dO
+    mm_add<NTO>(dvc, dsw, LDP, do_s, LD, BQ);  // dV += round(P^T) dO
 
     float dp[NTQ][4];
 #pragma unroll
@@ -323,25 +372,29 @@ __global__ void __launch_bounds__(kThreads)
               s[n][3] * (dp[n][3] - dl_s[ql + 1]));
     }
     __syncwarp();
-    warp_mm<NTO, true, false>(dkc, dsw, LDP, q_s, LD, BQ);  // dK += round(dS^T) Q~
-    __syncthreads();  // every warp's dS^T rows are in ds_s
+    mm_add<NTO>(dkc, dsw, LDP, q_s, LD, BQ);  // dK += round(dS^T) Q~
+    // every warp's dS^T rows are in ds_s; every warp is done with this
+    // tile's lse, delta and q stage (kept without DQ for that)
+    __syncthreads();
 
     // dQ tile += dS K over this CTA's 64 keys, summed across CTAs by atomics
-    float dqc[NTW][4];
+    if constexpr (DQ) {
+      float dqc[NTW][4];
 #pragma unroll
-    for (int n = 0; n < NTW; ++n) dqc[n][0] = dqc[n][1] = dqc[n][2] = dqc[n][3] = 0.f;
-    warp_mm<NTW, false, false>(dqc, ds_s + mt * 16, LDP, k_s + nt0 * 8, LD, BK);
-    const int qa = r0 + mt * 16 + g, qb = qa + 8;
+      for (int n = 0; n < NTW; ++n) dqc[n][0] = dqc[n][1] = dqc[n][2] = dqc[n][3] = 0.f;
+      warp_mm<NTW, false, false>(dqc, ds_s + mt * 16, LDP, k_s + nt0 * 8, LD, BK);
+      const int qa = r0 + mt * 16 + g, qb = qa + 8;
 #pragma unroll
-    for (int n = 0; n < NTW; ++n) {
-      const int col = (nt0 + n) * 8 + 2 * t;
-      // float2 atomics (compute capability 9.x): one per column pair
-      if (qa < sq)
-        atomicAdd(reinterpret_cast<float2*>(dqg + (size_t)qa * D + col),
-                  make_float2(dqc[n][0], dqc[n][1]));
-      if (qb < sq)
-        atomicAdd(reinterpret_cast<float2*>(dqg + (size_t)qb * D + col),
-                  make_float2(dqc[n][2], dqc[n][3]));
+      for (int n = 0; n < NTW; ++n) {
+        const int col = (nt0 + n) * 8 + 2 * t;
+        // float2 atomics (compute capability 9.x): one per column pair
+        if (qa < sq)
+          atomicAdd(reinterpret_cast<float2*>(dqg + (size_t)qa * D + col),
+                    make_float2(dqc[n][0], dqc[n][1]));
+        if (qb < sq)
+          atomicAdd(reinterpret_cast<float2*>(dqg + (size_t)qb * D + col),
+                    make_float2(dqc[n][2], dqc[n][3]));
+      }
     }
   }
 
@@ -359,6 +412,121 @@ __global__ void __launch_bounds__(kThreads)
       st_pair(dkg + (size_t)key1 * D + col, dkc[n][2] * kLn2, dkc[n][3] * kLn2);
       st_pair(dvg + (size_t)key1 * D + col, dvc[n][2], dvc[n][3]);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// split backward, dQ pass
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+struct DqCfg {
+  static constexpr int BQ = 64, BK = 64;
+  static constexpr int PAD = 16 / sizeof(T);
+  static constexpr int LD = D + PAD, LDP = BK + PAD;
+  // Q~ and dO tiles, two stages of (K tile, V tile), dS
+  static constexpr size_t kSmem = sizeof(T) * ((size_t)2 * BQ * LD + 4 * BK * LD + BQ * LDP);
+};
+
+// q [BH, sq, D] pre-scaled, dout [BH, sq, D], lse and delta [BH, sq] f32
+// (lse natural log); k, v [BH, sk, D]. dq [BH, sq, D] is written whole,
+// with respect to the unscaled q (times scale).
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                        const T* __restrict__ dout, const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dq, int sq, int sk,
+                        int causal, float scale) {
+  using C = DqCfg<T, D>;
+  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LDP = C::LDP;
+  constexpr int NTS = BK / 8, NTO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* do_s = q_s + BQ * LD;
+  T* kv_s = do_s + BQ * LD;  // stage st: K at kv_s + 2 st BK LD, V after it
+  T* ds_s = kv_s + 4 * BK * LD;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
+  const size_t bh = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = qt * BQ;
+  const T* kg = k + bh * sk * D;
+  const T* vg = v + bh * sk * D;
+
+  // this lane's two rows: lse in the log2 domain and delta (0 past sq,
+  // where q and dO are zero-filled, so dS is 0 there)
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  const float lse0 = row0 < sq ? lse[bh * sq + row0] * kLog2e : 0.f;
+  const float lse1 = row1 < sq ? lse[bh * sq + row1] * kLog2e : 0.f;
+  const float dl0 = row0 < sq ? delta[bh * sq + row0] : 0.f;
+  const float dl1 = row1 < sq ? delta[bh * sq + row1] : 0.f;
+  float acc[NTO][4];
+#pragma unroll
+  for (int j = 0; j < NTO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  int nk = (sk + BK - 1) / BK;
+  if (causal) nk = min(nk, (min(q0 + BQ, sq) - 1) / BK + 1);
+  const T* qw = q_s + warp * 16 * LD;
+  const T* dow = do_s + warp * 16 * LD;
+  T* dsw = ds_s + warp * 16 * LDP;
+
+  // two-stage pipeline: K/V tile j + 1 is in flight while tile j is used
+  load_rows<T, D, BQ, LD>(q_s, q + bh * sq * D, q0, sq);
+  load_rows<T, D, BQ, LD>(do_s, dout + bh * sq * D, q0, sq);
+  load_rows<T, D, BK, LD>(kv_s, kg, 0, sk);
+  load_rows<T, D, BK, LD>(kv_s + BK * LD, vg, 0, sk);
+  cp_commit();
+  for (int j = 0; j < nk; ++j) {
+    const int c0 = j * BK;
+    cp_wait<0>();
+    // tile j has landed for every thread, and every warp is done with
+    // tile j - 1 (its stage, and its own dS rows)
+    __syncthreads();
+    if (j + 1 < nk) {
+      T* nxt = kv_s + ((j + 1) & 1) * 2 * BK * LD;
+      load_rows<T, D, BK, LD>(nxt, kg, c0 + BK, sk);
+      load_rows<T, D, BK, LD>(nxt + BK * LD, vg, c0 + BK, sk);
+      cp_commit();
+    }
+    const T* k_s = kv_s + (j & 1) * 2 * BK * LD;
+    const T* v_s = k_s + BK * LD;
+
+    float s[NTS][4], dp[NTS][4];
+#pragma unroll
+    for (int n = 0; n < NTS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    warp_mm<NTS, true, true>(s, qw, LD, k_s, LD, D);    // S = Q~ K^T
+    warp_mm<NTS, true, true>(dp, dow, LD, v_s, LD, D);  // dP = dO V^T
+
+    // only the kv tail and tiles that cross this warp's causal diagonal
+    // are masked (a warp-uniform branch)
+    const bool masked = c0 + BK > sk || (causal && c0 + BK - 1 > q0 + warp * 16);
+#pragma unroll
+    for (int n = 0; n < NTS; ++n) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c0 + n * 8 + 2 * t + (e & 1);
+        const int row = e < 2 ? row0 : row1;
+        const float x = masked && (col >= sk || (causal && col > row)) ? kMask : s[n][e];
+        const float p = exp2f(x - (e < 2 ? lse0 : lse1));
+        ds[e] = p * (dp[n][e] - (e < 2 ? dl0 : dl1));
+      }
+      st_pair(dsw + g * LDP + n * 8 + 2 * t, ds[0], ds[1]);
+      st_pair(dsw + (g + 8) * LDP + n * 8 + 2 * t, ds[2], ds[3]);
+    }
+    __syncwarp();  // dS of this warp's rows is in ds_s
+    warp_mm<NTO, true, false>(acc, dsw, LDP, k_s, LD, BK);  // dQ += round(dS) K
+  }
+  cp_wait<0>();  // no copy outlives the CTA
+
+  T* dqg = dq + bh * sq * D;
+#pragma unroll
+  for (int n = 0; n < NTO; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (row0 < sq) st_pair(dqg + (size_t)row0 * D + col, acc[n][0] * scale, acc[n][1] * scale);
+    if (row1 < sq) st_pair(dqg + (size_t)row1 * D + col, acc[n][2] * scale, acc[n][3] * scale);
   }
 }
 
@@ -389,10 +557,10 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
                        void* dv, int bh, int sq, int sk, int causal, float scale,
                        cudaStream_t stream) {
   using C = BwdCfg<T, D>;
-  cudaError_t e = allow_smem(flash_bwd_kernel<T, D>, C::kSmem);
+  cudaError_t e = allow_smem(flash_bwd_kernel<T, D, true>, C::kSmem);
   if (e != cudaSuccess) return e;
   const dim3 grid((sk + C::BK - 1) / C::BK, bh);
-  flash_bwd_kernel<T, D><<<grid, kThreads, C::kSmem, stream>>>(
+  flash_bwd_kernel<T, D, true><<<grid, kThreads, C::kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dq_acc), static_cast<T*>(dk),
@@ -403,6 +571,37 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   const int blocks = (int)((n + 255) / 256 < 8192 ? (n + 255) / 256 : 8192);
   dq_finalize_kernel<T><<<blocks, 256, 0, stream>>>(static_cast<const float*>(dq_acc),
                                                     static_cast<T*>(dq), n, scale);
+  return cudaSuccess;
+}
+
+template <typename T, int D>
+cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* delta, void* dk, void* dv, int bh,
+                           int sq, int sk, int causal, cudaStream_t stream) {
+  using C = BwdCfg<T, D>;
+  cudaError_t e = allow_smem(flash_bwd_kernel<T, D, false>, C::kSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((sk + C::BK - 1) / C::BK, bh);
+  flash_bwd_kernel<T, D, false><<<grid, kThreads, C::kSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), nullptr, static_cast<T*>(dk), static_cast<T*>(dv), sq,
+      sk, causal);
+  return cudaSuccess;
+}
+
+template <typename T, int D>
+cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                          const void* lse, const void* delta, void* dq, int bh, int sq, int sk,
+                          int causal, float scale, cudaStream_t stream) {
+  using C = DqCfg<T, D>;
+  cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, D>, C::kSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((sq + C::BQ - 1) / C::BQ, bh);
+  flash_bwd_dq_kernel<T, D><<<grid, kThreads, C::kSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dq), sq, sk, causal, scale);
   return cudaSuccess;
 }
 
@@ -455,6 +654,52 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
     else if (dtype == 1 && d == 128)
       e = launch_bwd<bf16, 128>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk,
                                 causal, scale, s);
+    else
+      return (int)cudaErrorInvalidValue;
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The split backward's passes: flash_bwd's guarantees and arguments, less
+// dq_acc. flash_bwd_dkv writes dk and dv; flash_bwd_dq writes dq.
+extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                             const void* lse, const void* delta, void* dk, void* dv, int bh,
+                             int sq, int sk, int d, int causal, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sk < 1 || bh > 65535) return (int)cudaErrorInvalidValue;
+  if (bh > 0 && sq > 0) {
+    cudaError_t e;
+    if (dtype == 0 && d == 64)
+      e = launch_bwd_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, causal, s);
+    else if (dtype == 0 && d == 128)
+      e = launch_bwd_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, causal, s);
+    else if (dtype == 1 && d == 64)
+      e = launch_bwd_dkv<bf16, 64>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, causal, s);
+    else if (dtype == 1 && d == 128)
+      e = launch_bwd_dkv<bf16, 128>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, causal, s);
+    else
+      return (int)cudaErrorInvalidValue;
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* delta, void* dq, int bh, int sq, int sk,
+                            int d, int causal, float scale, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sk < 1 || bh > 65535) return (int)cudaErrorInvalidValue;
+  if (bh > 0 && sq > 0) {
+    cudaError_t e;
+    if (dtype == 0 && d == 64)
+      e = launch_bwd_dq<float, 64>(q, k, v, dout, lse, delta, dq, bh, sq, sk, causal, scale, s);
+    else if (dtype == 0 && d == 128)
+      e = launch_bwd_dq<float, 128>(q, k, v, dout, lse, delta, dq, bh, sq, sk, causal, scale, s);
+    else if (dtype == 1 && d == 64)
+      e = launch_bwd_dq<bf16, 64>(q, k, v, dout, lse, delta, dq, bh, sq, sk, causal, scale, s);
+    else if (dtype == 1 && d == 128)
+      e = launch_bwd_dq<bf16, 128>(q, k, v, dout, lse, delta, dq, bh, sq, sk, causal, scale, s);
     else
       return (int)cudaErrorInvalidValue;
     if (e != cudaSuccess) return (int)e;

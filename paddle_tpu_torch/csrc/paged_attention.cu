@@ -2,8 +2,9 @@
 // Pools keep the JAX layout [L, NP, KVD, bs] (time in the minor
 // dimension, KVD = NKV * HD); block 0 is the reserved null block.
 //
-// Replaces seven TPU kernels of paddle_tpu/ops/paged_attention.py:
+// Replaces eight TPU kernels of paddle_tpu/ops/paged_attention.py:
 //   paged_attend_update    (_paged_update_kernel) -> paged_attend_update_fwd
+//   paged_attention        (_paged_kernel)        -> paged_attention_fwd
 //   paged_attention_verify (_paged_verify_kernel) -> paged_attention_verify_fwd
 //   paged_verify_commit    (_paged_commit_kernel) -> paged_verify_commit_fwd
 // and their int8 twins over int8 pools with f32 scale pools [L, NP, NKV,
@@ -21,6 +22,8 @@
 // new_v[b] into column positions[b] % bs of pool block tables[b,
 // positions[b] / bs] at `layer` (in place), then attends the row's query
 // heads over tokens 0..positions[b] inclusive, following the block table.
+// paged_attention_fwd is the same kernel with that write compiled out,
+// over tokens 0..lengths[b]-1 (a row of length 0 gets 0).
 //
 // paged_attention_verify_fwd: speculative verification. Each row b feeds
 // T tokens whose NH query heads attend over the CACHED prefix only,
@@ -270,12 +273,15 @@ __device__ __forceinline__ void walk_blocks(const T* k_pool, const T* v_pool,
   }
 }
 
-// grid (nkv, b), blockDim.x == bs
-template <typename T, int REP>
+// grid (nkv, b), blockDim.x == bs. WRITE (row 3): write row b's new
+// column at positions[b], then attend over 0..positions[b]. !WRITE (row
+// 2): attend over 0..rows[b]-1, rows = lengths; a row of length 0 gets 0.
+// new_k/new_v are unused when !WRITE.
+template <typename T, int REP, bool WRITE>
 __global__ void paged_update_kernel(const T* __restrict__ q, const T* __restrict__ new_k,
                                     const T* __restrict__ new_v, T* k_pool, T* v_pool,
                                     const int* __restrict__ tables,
-                                    const int* __restrict__ positions,
+                                    const int* __restrict__ rows,
                                     float* __restrict__ out, int layer, int np, int nkv,
                                     int hd, int bs, int max_nb) {
   const int g = blockIdx.x, b = blockIdx.y;
@@ -284,12 +290,12 @@ __global__ void paged_update_kernel(const T* __restrict__ q, const T* __restrict
   extern __shared__ float smem[];
   float* q_s = smem;
 
-  const int pos = positions[b];
+  const int pos = WRITE ? rows[b] : rows[b] - 1;  // the last token attended
   const int* trow = tables + (size_t)b * max_nb;
   const size_t head_off = (size_t)g * hd;
 
   // 1. the new token's column, this kv-head's rows only
-  {
+  if constexpr (WRITE) {
     const size_t blk = (size_t)trow[pos / bs];
     const size_t base = (((size_t)layer * np + blk) * kvd + head_off) * bs + pos % bs;
     const size_t src = (size_t)b * kvd + head_off;
@@ -303,10 +309,18 @@ __global__ void paged_update_kernel(const T* __restrict__ q, const T* __restrict
   for (int i = tid; i < REP * hd; i += blockDim.x) q_s[i] = to_f(q[q_off + i]);
   __syncthreads();  // orders the column write above before the reads below
 
-  // 3. online softmax over the row's live blocks
+  // 3. online softmax over the row's live blocks (none for a length-0 row)
   float m[REP], l[REP], acc[REP];
-  walk_blocks<T, REP>(k_pool, v_pool, trow, layer, np, kvd, head_off, hd, bs, pos, smem, m, l,
-                      acc);
+  if (WRITE || pos >= 0) {  // uniform over the CTA
+    walk_blocks<T, REP>(k_pool, v_pool, trow, layer, np, kvd, head_off, hd, bs, pos, smem, m, l,
+                        acc);
+  } else {
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      l[r] = 0.f;
+      acc[r] = 0.f;
+    }
+  }
 
   // 4. finalise: attn [B, NH, HD] f32
   const int tp = blockDim.x / hd, vd = tid / tp, vpart = tid % tp;
@@ -559,15 +573,15 @@ cudaError_t set_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int REP>
+template <typename T, int REP, bool WRITE>
 cudaError_t launch_update(const void* q, const void* nk, const void* nv, void* kp, void* vp,
                           const void* tables, const void* positions, void* out, int b,
                           int layer, int np, int nkv, int hd, int bs, int max_nb,
                           cudaStream_t stream) {
   const size_t smem = walk_smem_bytes<T, REP>(hd, bs);
-  cudaError_t e = set_smem(paged_update_kernel<T, REP>, smem);
+  cudaError_t e = set_smem(paged_update_kernel<T, REP, WRITE>, smem);
   if (e != cudaSuccess) return e;
-  paged_update_kernel<T, REP><<<dim3(nkv, b), bs, smem, stream>>>(
+  paged_update_kernel<T, REP, WRITE><<<dim3(nkv, b), bs, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(nk), static_cast<const T*>(nv),
       static_cast<T*>(kp), static_cast<T*>(vp), static_cast<const int*>(tables),
       static_cast<const int*>(positions), static_cast<float*>(out), layer, np, nkv, hd, bs,
@@ -575,16 +589,16 @@ cudaError_t launch_update(const void* q, const void* nk, const void* nv, void* k
   return cudaSuccess;
 }
 
-template <typename T>
+template <typename T, bool WRITE>
 cudaError_t update_rep(int rep, const void* q, const void* nk, const void* nv, void* kp,
                        void* vp, const void* tables, const void* positions, void* out, int b,
                        int layer, int np, int nkv, int hd, int bs, int max_nb,
                        cudaStream_t s) {
   switch (rep) {
-    case 1: return launch_update<T, 1>(q, nk, nv, kp, vp, tables, positions, out, b, layer, np, nkv, hd, bs, max_nb, s);
-    case 2: return launch_update<T, 2>(q, nk, nv, kp, vp, tables, positions, out, b, layer, np, nkv, hd, bs, max_nb, s);
-    case 4: return launch_update<T, 4>(q, nk, nv, kp, vp, tables, positions, out, b, layer, np, nkv, hd, bs, max_nb, s);
-    case 8: return launch_update<T, 8>(q, nk, nv, kp, vp, tables, positions, out, b, layer, np, nkv, hd, bs, max_nb, s);
+    case 1: return launch_update<T, 1, WRITE>(q, nk, nv, kp, vp, tables, positions, out, b, layer, np, nkv, hd, bs, max_nb, s);
+    case 2: return launch_update<T, 2, WRITE>(q, nk, nv, kp, vp, tables, positions, out, b, layer, np, nkv, hd, bs, max_nb, s);
+    case 4: return launch_update<T, 4, WRITE>(q, nk, nv, kp, vp, tables, positions, out, b, layer, np, nkv, hd, bs, max_nb, s);
+    case 8: return launch_update<T, 8, WRITE>(q, nk, nv, kp, vp, tables, positions, out, b, layer, np, nkv, hd, bs, max_nb, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -633,6 +647,28 @@ bool bad_geometry(int nh, int nkv, int hd, int bs) {
 // must hold whole vectors
 bool bad_quant_geometry(int nh, int nkv, int hd, int bs) {
   return bad_geometry(nh, nkv, hd, bs) || hd % 16;
+}
+
+// rows 3 (WRITE) and 2 (read-only; nk, nv null): the shared entry
+template <bool WRITE>
+int update_entry(const void* q, const void* nk, const void* nv, void* kp, void* vp,
+                 const void* tables, const void* rows, void* out, int b, int layer, int np,
+                 int nh, int nkv, int hd, int bs, int max_nb, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bad_geometry(nh, nkv, hd, bs)) return (int)cudaErrorInvalidValue;
+  if (b > 0) {
+    cudaError_t e;
+    if (dtype == 0)
+      e = update_rep<float, WRITE>(nh / nkv, q, nk, nv, kp, vp, tables, rows, out, b, layer, np,
+                                   nkv, hd, bs, max_nb, s);
+    else if (dtype == 1)
+      e = update_rep<__nv_bfloat16, WRITE>(nh / nkv, q, nk, nv, kp, vp, tables, rows, out, b,
+                                           layer, np, nkv, hd, bs, max_nb, s);
+    else
+      return (int)cudaErrorInvalidValue;
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaGetLastError();
 }
 
 template <typename Q, int REP, bool WRITE>
@@ -733,21 +769,19 @@ extern "C" int paged_attend_update_fwd(const void* q, const void* nk, const void
                                        const void* positions, void* out, int b, int layer,
                                        int np, int nh, int nkv, int hd, int bs, int max_nb,
                                        int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_geometry(nh, nkv, hd, bs)) return (int)cudaErrorInvalidValue;
-  if (b > 0) {
-    cudaError_t e;
-    if (dtype == 0)
-      e = update_rep<float>(nh / nkv, q, nk, nv, kp, vp, tables, positions, out, b, layer, np,
-                            nkv, hd, bs, max_nb, s);
-    else if (dtype == 1)
-      e = update_rep<__nv_bfloat16>(nh / nkv, q, nk, nv, kp, vp, tables, positions, out, b,
-                                    layer, np, nkv, hd, bs, max_nb, s);
-    else
-      return (int)cudaErrorInvalidValue;
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaGetLastError();
+  return update_entry<true>(q, nk, nv, kp, vp, tables, positions, out, b, layer, np, nh, nkv,
+                            hd, bs, max_nb, dtype, stream);
+}
+
+// Row 2: the same geometry, nothing written; lengths[b] tokens read, with
+// (lengths[b] - 1) / bs < max_nb.
+extern "C" int paged_attention_fwd(const void* q, const void* kp, const void* vp,
+                                   const void* tables, const void* lengths, void* out, int b,
+                                   int layer, int np, int nh, int nkv, int hd, int bs,
+                                   int max_nb, int dtype, void* stream) {
+  return update_entry<false>(q, nullptr, nullptr, const_cast<void*>(kp), const_cast<void*>(vp),
+                             tables, lengths, out, b, layer, np, nh, nkv, hd, bs, max_nb, dtype,
+                             stream);
 }
 
 // q [b, t_fed, nh, hd] pre-scaled, in the pools' dtype; acc [b, t_fed, nh,

@@ -5,6 +5,9 @@
   paged_attend_update     ports ``paged_attend_update``
                           (``_paged_update_kernel``): write one column,
                           then decode attention
+  paged_attention         ports ``paged_attention`` (``_paged_kernel``):
+                          read-only decode attention (the update with
+                          the write off)
   paged_attention_verify  ports ``paged_attention_verify``
                           (``_paged_verify_kernel``): T fed tokens per row
                           over the cached prefix, unfinalised partials
@@ -31,17 +34,19 @@ Layouts (the JAX package's pools, so they compare directly):
                                   kv-head, column); zero where unwritten
   tables     [B, max_nb] int32    pool block ids per sequence slot
   positions  [B] int32            the NEW token's position per row
+  lengths    [B] int32            (read-only entries) tokens read per row
   qstart     [B] int32            (verify, commit) cached tokens per row
 
 Unlike the TPU entries, q is per head, not the block-diagonal padding
 [B, R, KVD] that the TPU's matrix unit wanted, and the verify partials
 are per head (acc [B, T, NH, HD], m and l [B, T, NH]) rather than
 [B, R, KVD] and [B, R, 128]. The update and the commit write the pools IN
-PLACE (the JAX package donates them). Padding rows point their tables at
-the reserved null block 0 (position 0, qstart 0); rejected and padding
-columns of the commit land in block 0 too. A verify row with qstart 0
-gets the defined partials acc = 0, l = 0, m = -1e30 (JAX leaves them
-unwritten and masks them).
+PLACE (the JAX package donates them). A read-only row of length 0 gets
+the output 0 (JAX skips it and leaves it unwritten). Padding rows point
+their tables at the reserved null block 0 (position 0, qstart 0);
+rejected and padding columns of the commit land in block 0 too. A verify
+row with qstart 0 gets the defined partials acc = 0, l = 0, m = -1e30
+(JAX leaves them unwritten and masks them).
 
 The softmax is the online recurrence only, per pool block, in the log2
 domain; the TPU default's tile-0-anchored variant is not ported. The
@@ -69,26 +74,46 @@ def paged_attend_update_plain(q, new_k, new_v, k_pool, v_pool, tables,
     kernel's online softmax: P rounded to the pool dtype before P.V, the
     normaliser summed from the unrounded f32 P. Returns attn
     [B, NH, HD] f32; updates the pools in place."""
-    B, NH, HD = q.shape
+    B = q.shape[0]
     bs = k_pool.shape[-1]
-    nkv = k_pool.shape[2] // HD
-    rep = NH // nkv
     pos = positions.long()
     rows = torch.arange(B, device=q.device)
     blk_new = tables[rows, pos // bs].long()
     k_pool[layer, blk_new, :, pos % bs] = new_k.to(k_pool.dtype)
     v_pool[layer, blk_new, :, pos % bs] = new_v.to(v_pool.dtype)
+    return _attend_plain(q, k_pool, v_pool, tables, pos, layer)
+
+
+def paged_attention_plain(q, k_pool, v_pool, tables, lengths,
+                          layer: int) -> torch.Tensor:
+    """Plain PyTorch version on any device of the read-only entry:
+    attention over tokens 0..lengths[b]-1, nothing written, with
+    :func:`paged_attend_update_plain`'s walk and rounding points. Returns
+    attn [B, NH, HD] f32; a row of length 0 gets 0."""
+    out = _attend_plain(q, k_pool, v_pool, tables, lengths.long() - 1, layer)
+    return torch.where((lengths > 0)[:, None, None], out,
+                       torch.tensor(0.0, device=q.device))
+
+
+def _attend_plain(q, k_pool, v_pool, tables, last, layer):
+    """Online softmax of q [B, NH, HD] over tokens 0..last[b] of each row,
+    block by block (P rounded to the pool dtype before P.V, the
+    normaliser summed from the unrounded f32 P). Returns [B, NH, HD] f32."""
+    B, NH, HD = q.shape
+    bs = k_pool.shape[-1]
+    nkv = k_pool.shape[2] // HD
+    rep = NH // nkv
     qf = q.float().reshape(B, nkv, rep, HD)
     m = torch.full((B, nkv, rep), float("-inf"), device=q.device)
     l = torch.zeros((B, nkv, rep), device=q.device)
     acc = torch.zeros((B, nkv, rep, HD), device=q.device)
     col = torch.arange(bs, device=q.device)
-    for j in range(int(pos.max()) // bs + 1):
+    for j in range(int(last.max()) // bs + 1):
         blk = tables[:, j].long()
         kt = k_pool[layer, blk].float().reshape(B, nkv, HD, bs)
         vt = v_pool[layer, blk].float().reshape(B, nkv, HD, bs)
         s = torch.einsum("bgrd,bgdt->bgrt", qf, kt)
-        live = (j * bs + col)[None, :] <= pos[:, None]            # [B, bs]
+        live = (j * bs + col)[None, :] <= last[:, None]            # [B, bs]
         s = torch.where(live[:, None, None, :], s,
                         torch.tensor(-1e30, device=q.device))
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -195,6 +220,52 @@ def paged_attend_update(q, new_k, new_v, k_pool, v_pool, tables,
 
 
 paged_attend_update.launches = 0
+
+
+def paged_attention(q, k_pool, v_pool, tables, lengths,
+                    layer: int) -> torch.Tensor:
+    """Row 2, read-only paged decode attention over tokens
+    0..lengths[b]-1 (row 3's kernel with the write compiled out). q
+    [B, NH, HD] in the pools' dtype, pre-scaled by scale * log2(e).
+    Returns attn [B, NH, HD] f32; a row of length 0 gets 0.
+
+    A CUDA tensor goes through the kernel (or raises); a CPU tensor
+    through :func:`paged_attention_plain`. ``paged_attention.launches``
+    counts kernel launches."""
+    what = "paged_attention"
+    _check_common(what, (q, k_pool, v_pool, tables, lengths),
+                  (k_pool, v_pool), tables, (lengths,))
+    if q.ndim != 3 or q.dtype != k_pool.dtype:
+        raise TypeError(f"{what}: q must be [B, NH, HD] in the pools' dtype")
+    B, NH, HD = q.shape
+    L, NP, KVD, bs = k_pool.shape
+    _check_geometry(what, NH, KVD, HD, bs)
+    if tables.shape[0] != B:
+        raise ValueError(f"{what}: tables must match q's batch")
+    if not 0 <= layer < L:
+        raise ValueError(f"{what}: layer {layer} outside [0, {L})")
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pool, v_pool, tables, lengths,
+                                     layer)
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise ValueError(f"{what}: q and the pools must start on 16-byte "
+                         f"aligned storage")
+    out = torch.empty((B, NH, HD), dtype=torch.float32, device=q.device)
+    fn = _build.kernel("paged_attention", "paged_attention_fwd",
+                       [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p])
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B,
+             int(layer), NP, NH, KVD // HD, HD, bs, tables.shape[1],
+             _DTYPE_CODE[q.dtype], _stream(q))
+    _build.check("paged_attention", err, what)
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0
 
 
 # -- speculative verification ---------------------------------------------

@@ -105,6 +105,45 @@ def test_paged_attend_update_kernel_rejects_bad_inputs(dev):
         pa.paged_attend_update(args[0].cpu(), *args[1:], 1)
 
 
+@pytest.mark.parametrize("dtype,nh,nkv,hd,atol", [
+    (torch.float32, 4, 2, 16, 1e-5),
+    (torch.float32, 32, 8, 128, 1e-5),
+    (torch.bfloat16, 32, 32, 128, 2e-3),  # row 3's shape (llama_7b)
+])
+def test_paged_attention_kernel_matches_plain(dev, dtype, nh, nkv, hd,
+                                              atol):
+    """Row 2, read-only: lengths 0 (output exactly 0), 1, a block edge
+    and a fresh block over fragmented tables; the pools are untouched."""
+    a = _paged_case(dev, nh, nkv, hd, [0, 5, 127, 128, 256, 700], dtype)
+    lengths = torch.tensor([0, 1, 128, 129, 256, 700], dtype=torch.int32,
+                           device=dev)
+    kp2, vp2 = a["k_pool"].clone(), a["v_pool"].clone()
+    before = pa.paged_attention.launches
+    got = pa.paged_attention(a["q"], a["k_pool"], a["v_pool"], a["tables"],
+                             lengths, a["layer"])
+    ref = pa.paged_attention_plain(a["q"], kp2, vp2, a["tables"], lengths,
+                                   a["layer"])
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    torch.testing.assert_close(got, ref, atol=atol, rtol=0)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert torch.equal(a["k_pool"], kp2) and torch.equal(a["v_pool"], vp2)
+
+
+def test_paged_attention_kernel_rejects_bad_inputs(dev):
+    a = _paged_case(dev, 4, 2, 16, [3, 9], torch.float32)
+    lengths = a["positions"] + 1
+    args = [a[k] for k in ("q", "k_pool", "v_pool", "tables")]
+    with pytest.raises(TypeError):
+        pa.paged_attention(*args, lengths.long(), 1)
+    with pytest.raises(TypeError):
+        pa.paged_attention(args[0].bfloat16(), *args[1:], lengths, 1)
+    with pytest.raises(ValueError):
+        pa.paged_attention(args[0].cpu(), *args[1:], lengths, 1)
+    with pytest.raises(ValueError):
+        pa.paged_attention(*args, lengths, 2)                # layer >= L
+
+
 def test_decode_step_on_card_matches_cpu(dev):
     """One tiny fp32 decode step through the kernels on the card and
     through the plain versions on the CPU."""
@@ -632,6 +671,203 @@ def test_train_steps_on_card_match_cpu(dev):
     np.testing.assert_allclose(res[1][0], res[0][0], rtol=1e-5)
     torch.testing.assert_close(res[1][1], res[0][1], rtol=0, atol=5e-6)
     assert res[0][2] == 0 and res[1][2] == 3 * cfg.num_hidden_layers
+
+
+# (Sq, Sk, causal): a 64-multiple, ragged tails, Sq != Sk both ways under
+# causal (top-left), and a ring off-diagonal block (non-causal, Sq != Sk)
+SPLIT_LAYOUTS = [(256, 256, True), (200, 200, True), (77, 77, False),
+                 (128, 320, False), (320, 128, False), (130, 200, True),
+                 (200, 130, True)]
+
+
+def _split_case(dev, dtype, bh, sq, sk, d, causal, seed, spread=None):
+    """Inputs, the forward's lse and delta for the split pair; ``spread``
+    scales keys 64..67 so their scores lead the rest by hundreds of log2
+    units."""
+    qs, k, v, do = _flash_case(dev, dtype, bh, sq, d, seed, sk=sk)
+    if spread is not None:
+        k[:, 64:68] = (k[:, 64:68].float() * spread).to(dtype)
+    o, lse = fa.flash_fwd_plain(qs, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    return qs, k, v, do, lse, delta
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("layout", range(len(SPLIT_LAYOUTS)))
+def test_flash_split_kernels_match_plain(dev, dtype, d, layout):
+    """Rows 17 and 18 against their plain versions, each launch counted."""
+    sq, sk, causal = SPLIT_LAYOUTS[layout]
+    args = _split_case(dev, dtype, 6, sq, sk, d, causal, seed=sq + sk + d)
+    before = (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+    dk, dv = fa.flash_bwd_dkv(*args, causal, d ** -0.5)
+    dq = fa.flash_bwd_dq(*args, causal, d ** -0.5)
+    dk_r, dv_r = fa.flash_bwd_dkv_plain(*args, causal, d ** -0.5)
+    dq_r = fa.flash_bwd_dq_plain(*args, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for got, want in ((dq, dq_r), (dk, dk_r), (dv, dv_r)):
+        assert torch.isfinite(got).all()
+        _close(got, want, FLASH_TOL[dtype][1])
+
+
+def test_flash_split_kernels_hold_a_score_spread(dev):
+    """f32, scores of keys 64..67 hundreds of log2 units over the rest."""
+    for sq, sk, causal in ((200, 200, True), (128, 320, False)):
+        args = _split_case(dev, torch.float32, 4, sq, sk, 64, causal, seed=5,
+                           spread=60.0)
+        s = args[0] @ args[1].transpose(1, 2)
+        assert s[:, :, 64:68].amax() - s[:, :, :64].amax() > 200
+        dk, dv = fa.flash_bwd_dkv(*args, causal, 0.125)
+        dq = fa.flash_bwd_dq(*args, causal, 0.125)
+        want = fa.flash_bwd_plain(*args, causal, 0.125)
+        torch.cuda.synchronize()
+        for got, ref in zip((dq, dk, dv), want):
+            assert torch.isfinite(got).all()
+            _close(got, ref, FLASH_TOL[torch.float32][1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,causal", [(2048, 2048, True),
+                                          (200, 200, True),
+                                          (128, 320, False)])
+def test_flash_split_dkv_is_fused_bits_and_dq_is_deterministic(dev, dtype, sq,
+                                                               sk, causal):
+    """Row 17's dK and dV are bitwise row 16's on the same inputs (its
+    kernel with the dQ product compiled out); row 18's dQ has the same
+    bits over two runs (no atomics)."""
+    args = _split_case(dev, dtype, 8, sq, sk, 128, causal, seed=11)
+    _, dk_f, dv_f = fa.flash_bwd(*args, causal, 128 ** -0.5)
+    dk, dv = fa.flash_bwd_dkv(*args, causal, 128 ** -0.5)
+    dq1 = fa.flash_bwd_dq(*args, causal, 128 ** -0.5)
+    dq2 = fa.flash_bwd_dq(*args, causal, 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, dk_f) and torch.equal(dv, dv_f)
+    assert torch.equal(dq1, dq2)
+
+
+@pytest.mark.parametrize("mode", ["auto", "split"])
+def test_flash_block_entries_on_card_match_cpu(dev, monkeypatch, mode):
+    """Four 128-aligned KV blocks: block forwards merged by log-sum-exp
+    equal one full-attention forward, and the block backwards under the
+    global lse and delta, summed, equal its gradients; card against CPU,
+    and against the full call on the card. A key block no q row reaches
+    (causal, the last block for the first q rows) gets dK = dV = 0."""
+    monkeypatch.setenv(fa.ENV_FLASH_BWD, mode)
+    rng = np.random.RandomState(4)
+    bh, s, d, nb = 4, 512, 64, 4
+    q, k, v, do = (torch.from_numpy(rng.randn(bh, s, d).astype(np.float32))
+                   for _ in range(4))
+    out = []
+    for where in ("cpu", dev):
+        qd, kd, vd, dod = (t.to(where) for t in (q, k, v, do))
+        ob, lb = [], []
+        for j in range(nb):
+            sl = slice(j * s // nb, (j + 1) * s // nb)
+            # the diagonal block is causal; blocks above it are dead
+            o_j, l_j = fa.flash_block_fwd(qd, kd[:, sl].contiguous(),
+                                          vd[:, sl].contiguous(), False,
+                                          d ** -0.5)
+            ob.append(o_j)
+            lb.append(l_j)
+        lse = torch.logsumexp(torch.stack(lb), dim=0)
+        o = sum(o_j * torch.exp(l_j - lse)[..., None]
+                for o_j, l_j in zip(ob, lb))
+        delta = (dod * o).sum(-1)
+        grads = [fa.flash_block_bwd(qd, kd[:, j * s // nb:(j + 1) * s // nb]
+                                    .contiguous(),
+                                    vd[:, j * s // nb:(j + 1) * s // nb]
+                                    .contiguous(), dod, lse, delta, False,
+                                    d ** -0.5) for j in range(nb)]
+        dq = sum(g[0] for g in grads)
+        dk = torch.cat([g[1] for g in grads], dim=1)
+        dv = torch.cat([g[2] for g in grads], dim=1)
+        full = fa.flash_block_fwd(qd, kd, vd, False, d ** -0.5)
+        full_g = fa.flash_block_bwd(qd, kd, vd, dod, full[1],
+                                    (dod * full[0]).sum(-1), False,
+                                    d ** -0.5)
+        out.append([t.cpu() for t in (o, lse, dq, dk, dv, *full, *full_g)])
+    for got, want in zip(out[1], out[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    o, lse, dq, dk, dv, fo, flse, fdq, fdk, fdv = out[1]
+    for got, want in ((o, fo), (lse, flse), (dq, fdq), (dk, fdk), (dv, fdv)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    # causal at Sq < Sk masks top-left: keys 128..255 of a 128-row block
+    # are reached by no q row, so their dK and dV are exactly 0
+    qd, kd, vd, dod = (t.to(dev) for t in (q, k, v, do))
+    o, lse = fa.flash_block_fwd(qd, kd, vd, True, d ** -0.5)
+    g = fa.flash_block_bwd(qd[:, :128].contiguous(),
+                           kd[:, :256].contiguous(), vd[:, :256].contiguous(),
+                           dod[:, :128].contiguous(),
+                           lse[:, :128].contiguous(),
+                           (dod * o).sum(-1)[:, :128].contiguous(), True,
+                           d ** -0.5)
+    torch.cuda.synchronize()
+    assert not g[1][:, 128:].any() and not g[2][:, 128:].any()
+    assert g[1][:, :128].any() and g[2][:, :128].any()
+    with pytest.raises(ValueError, match="128-aligned"):
+        fa.flash_block_bwd(qd[:, :100], kd, vd, dod[:, :100], lse[:, :100],
+                           lse[:, :100], True, 0.125)
+
+
+def test_split_train_steps_on_card_match_cpu(dev, monkeypatch):
+    """Three tiny fp32 train steps under PADDLE_TPU_TORCH_FLASH_BWD=split:
+    the card (rows 17 and 18, no row 16) against the CPU's plain versions."""
+    monkeypatch.setenv(fa.ENV_FLASH_BWD, "split")
+    cfg = tl.llama_tiny(vocab=96, hidden=256, layers=2, heads=4, kv_heads=2,
+                        seq=256)
+    rng = np.random.RandomState(1)
+    ids = rng.randint(0, 96, size=(2, 200)).astype(np.int32)
+    labels = np.roll(ids, -1, axis=1)
+    res = []
+    for d in ("cpu", dev):
+        step, _, _ = tl.build_train_step(cfg, tl.ParallelConfig(), device=d)
+        params = tl.init_llama_params(cfg, seed=1, device="cpu")
+        params = {k: ({kk: vv.to(d) for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.to(d))
+                  for k, v in params.items()}
+        opt = tl._adamw_init(params)
+        before = (fa.flash_bwd.launches, fa.flash_bwd_dkv.launches,
+                  fa.flash_bwd_dq.launches)
+        losses = []
+        for _ in range(3):
+            params, opt, loss = step(params, opt, ids, labels)
+            losses.append(float(loss))
+        after = (fa.flash_bwd.launches, fa.flash_bwd_dkv.launches,
+                 fa.flash_bwd_dq.launches)
+        res.append((losses, params["layers"]["q_proj"].cpu(),
+                    tuple(a - b for a, b in zip(after, before))))
+    np.testing.assert_allclose(res[1][0], res[0][0], rtol=1e-5)
+    torch.testing.assert_close(res[1][1], res[0][1], rtol=0, atol=5e-6)
+    L = cfg.num_hidden_layers
+    assert res[0][2] == (0, 0, 0) and res[1][2] == (0, 3 * L, 3 * L)
+
+
+@pytest.mark.parametrize("s,path", [(16384, "fwd stream"),
+                                    (131072, "bwd fused_stream")])
+def test_flash_kernels_cover_the_long_paths(dev, s, path):
+    """Rows 13 and 15: at the lengths where JAX streams K/V in the forward
+    (S = 16384) and hands the backward to its dQ-partials pass (S =
+    131072), rows 14 and 16 (and the split pair) against the plain
+    versions on every element, at one head (bench.py runs 8 and 4)."""
+    st = fa.dense_bwd_schedule_stats(8, s, s, 128, torch.bfloat16, True)
+    assert st["fwd_path"] == "stream"
+    assert path != "bwd fused_stream" or st["path"] == "fused_stream"
+    qs, k, v, do = _flash_case(dev, torch.bfloat16, 1, s, 128, seed=s)
+    o, lse = fa.flash_fwd(qs, k, v, True)
+    o_r, lse_r = fa.flash_fwd_plain(qs, k, v, True)
+    delta = (do.float() * o_r.float()).sum(-1)
+    got = fa.flash_bwd(qs, k, v, do, lse_r, delta, True, 128 ** -0.5)
+    dk, dv = fa.flash_bwd_dkv(qs, k, v, do, lse_r, delta, True, 128 ** -0.5)
+    dq = fa.flash_bwd_dq(qs, k, v, do, lse_r, delta, True, 128 ** -0.5)
+    want = fa.flash_bwd_plain(qs, k, v, do, lse_r, delta, True, 128 ** -0.5)
+    torch.cuda.synchronize()
+    tol_f, tol_b = FLASH_TOL[torch.bfloat16]
+    _close(o, o_r, tol_f)
+    torch.testing.assert_close(lse, lse_r, rtol=0, atol=1e-4)
+    for a, b in zip(got + (dq, dk, dv), want + want):
+        _close(a, b, tol_b)
 
 
 # ---------------------------------------------------------------------------

@@ -146,3 +146,68 @@ def test_paged_attend_update_rejects_bad_inputs():
         pa.paged_attend_update(*args, 2)                    # layer >= L
     with pytest.raises(TypeError):
         pa.paged_attend_update(args[0].double(), *args[1:], 0)
+
+
+def _jax_paged_read(qs, k_pool, v_pool, tables, lengths, layer, dtype):
+    """JAX's read-only paged_attention (row 2) with per-head q carried to
+    its block-diagonal [B, NH, KVD] layout and back."""
+    B = qs.shape[0]
+    rep = NH // NKV
+    eye = jnp.eye(NKV, dtype=jnp.float32)
+    q_bd = jnp.einsum("bgrd,ge->bgred",
+                      jnp.asarray(qs).reshape(B, NKV, rep, HD),
+                      eye).reshape(B, NH, KVD)
+    out = jax_pa.paged_attention(
+        q_bd.astype(dtype), jnp.asarray(k_pool).astype(dtype),
+        jnp.asarray(v_pool).astype(dtype), jnp.asarray(tables),
+        jnp.asarray(lengths), layer)
+    attn = jnp.einsum("bgred,ge->bgrd", out.reshape(B, NKV, rep, NKV, HD),
+                      eye).reshape(B, NH, HD)
+    return np.asarray(attn)
+
+
+# (dtype, atol): f32 sums in another order; bf16 rounds P at the same
+# points (against another base in JAX's default fixed-base mode) and the
+# two sums in another order, so a result may land a bf16 step apart
+@pytest.mark.parametrize("mode", ["auto", "online"])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2.0 ** -7)])
+def test_paged_attention_matches_jax(monkeypatch, mode, dtype, atol):
+    """Row 2: ragged lengths over a fragmented table (two blocks out of
+    order, a block edge at 128), a one-token row and a length-0 row, which
+    JAX leaves unwritten and the port sets to 0."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_SOFTMAX", mode)
+    qs, _, _, k_pool, v_pool, tables, _ = _paged_case(3)
+    lengths = np.asarray([6, 129, 0, 301, 1], np.int32)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    to_t = lambda a: torch.from_numpy(a).to(dtype)
+    # both sides see the same (rounded) values
+    qs, k_pool, v_pool = (to_t(a).float().numpy() for a in (qs, k_pool,
+                                                            v_pool))
+    ref = _jax_paged_read(qs, k_pool, v_pool, tables, lengths, 1, jdt)
+    kp, vp = to_t(k_pool), to_t(v_pool)
+    attn = pa.paged_attention(to_t(qs), kp, vp, torch.from_numpy(tables),
+                              torch.from_numpy(lengths), 1)
+    live = lengths > 0
+    np.testing.assert_allclose(attn.numpy()[live], ref[live], atol=atol,
+                               rtol=0)
+    assert not attn.numpy()[~live].any()
+    # nothing is written
+    assert torch.equal(kp, to_t(k_pool)) and torch.equal(vp, to_t(v_pool))
+
+
+def test_paged_attention_rejects_bad_inputs_and_leaves_counts():
+    qs, _, _, k_pool, v_pool, tables, positions = _paged_case()
+    args = [torch.from_numpy(a) for a in (qs, k_pool, v_pool, tables)]
+    lengths = torch.from_numpy(positions + 1)
+    before = pa.paged_attention.launches
+    pa.paged_attention(*args, lengths, 0)
+    assert pa.paged_attention.launches == before
+    with pytest.raises(TypeError):
+        pa.paged_attention(*args[:3], args[3].long(), lengths, 0)
+    with pytest.raises(TypeError):
+        pa.paged_attention(args[0].double(), *args[1:], lengths, 0)
+    with pytest.raises(ValueError):
+        pa.paged_attention(*args, lengths, 2)                # layer >= L
+    with pytest.raises(ValueError):
+        pa.paged_attention(*args, lengths[:3], 0)            # lengths [B]

@@ -31,9 +31,9 @@ _FWD_PV = ("    warp_mm<NTO, true, false>(acc, pw, LDP, v_s, LD, BK);"
            "  // acc += round(P) V\n")
 _BWD_P = ("      st_pair(dsw + (g + 8) * LDP + n * 8 + 2 * t, s[n][2], "
           "s[n][3]);\n")
-_BWD_PDV = ("    warp_mm<NTO, true, false>(dvc, dsw, LDP, do_s, LD, BQ);"
+_BWD_PDV = ("    mm_add<NTO>(dvc, dsw, LDP, do_s, LD, BQ);"
             "  // dV += round(P^T) dO\n")
-_BWD_DK = ("    warp_mm<NTO, true, false>(dkc, dsw, LDP, q_s, LD, BQ);"
+_BWD_DK = ("    mm_add<NTO>(dkc, dsw, LDP, q_s, LD, BQ);"
            "  // dK += round(dS^T) Q~\n")
 
 
@@ -48,7 +48,8 @@ MUTANTS = {
     "unchanged": [],
     # P.V with P as bf16 hi + lo, i.e. P left unrounded (to 2^-16)
     "fwd_p_unrounded": [
-        ("4 * BK * LD + BQ * LDP);", "4 * BK * LD + 2 * BQ * LDP);"),
+        ("(size_t)BQ * LD + 4 * BK * LD + BQ * LDP);",
+         "(size_t)BQ * LD + 4 * BK * LD + 2 * BQ * LDP);"),
         (_FWD_P, _FWD_P + _lo("pw + BQ * LDP", "g", "p0", "p1")
          + _lo("pw + BQ * LDP", "(g + 8)", "p2", "p3")),
         (_FWD_PV, _FWD_PV + "    warp_mm<NTO, true, false>(acc, pw + BQ * "
@@ -68,8 +69,8 @@ MUTANTS = {
          "reinterpret_cast<float*>(ds_s + 2 * BK * LDP);"),
         (_BWD_P, _BWD_P + _lo("dsw + BK * LDP", "g", "s[n][0]", "s[n][1]")
          + _lo("dsw + BK * LDP", "(g + 8)", "s[n][2]", "s[n][3]")),
-        (_BWD_PDV, _BWD_PDV + "    warp_mm<NTO, true, false>(dvc, dsw + BK "
-         "* LDP, LDP, do_s, LD, BQ);\n"),
+        (_BWD_PDV, _BWD_PDV + "    mm_add<NTO>(dvc, dsw + BK * LDP, LDP, "
+         "do_s, LD, BQ);\n"),
     ],
     # dK misses the last q tile's share
     "bwd_dk_drop_last_q_tile": [
