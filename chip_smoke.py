@@ -141,6 +141,7 @@ import ctypes
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -196,9 +197,14 @@ def build():
     for p in paths:
         print(f"built {os.path.relpath(p, ROOT)}")
     for name, log in _build.BUILD_LOGS.items():
+        kern = ""
         for line in log.splitlines():
+            m = re.search(r"entry function '_ZN\w*\d([a-z][a-z0-9_]*?_kernel)"
+                          r"(I\w*?)?EvP", line)
+            if m:    # the kernel's name and its mangled template arguments
+                kern = m.group(1) + (m.group(2) or "")
             if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+                print(f"  {name}: {kern}: {line.strip()}")
     print(f"build seconds {secs:.2f}")
     # the int8 walks' shared memory (16 K row groups: 64 KiB of partial
     # scores at 8 rows) and registers bound how many CTAs share an SM
@@ -1021,38 +1027,52 @@ def _slab_inputs(dev, dtype, b, nh, nkv, hd, T, seed, spread=None):
 def slab_case(da, dtype, b, nh, nkv, hd, T, positions, seed, dev,
               spread=None):
     """Both slab kernels against their plain versions at each position of
-    layer 1: the attention under flash_close (merged over positions), the
-    caches bitwise (column pos holds new k/v, no other column changed).
-    Returns ({kernel: (ok, excess, frob, max err)}, the largest lead of
-    tile 1's score max over tile 0's, in log2 units)."""
+    layer 1, with one split (the function as it was) and with the
+    kernel's own split: the attention under flash_close (merged over
+    positions), the caches bitwise (column pos holds new k/v, no other
+    column changed), and the same bits from a second launch. Returns
+    ({kernel (split): (ok, excess, frob, max err)}, the largest lead of
+    tile 1's score max over tile 0's in log2 units, the kernel's split
+    count)."""
     q, nk, nv, kc, vc = _slab_inputs(dev, dtype, b, nh, nkv, hd, T, seed,
                                      spread)
     s = torch.einsum("bgrd,bgdt->bgrt",
                      q.float().reshape(b, nkv, nh // nkv, hd),
                      kc[1].float().reshape(b, nkv, hd, T)[..., :256])
     lead = (s[..., 128:].amax(-1) - s[..., :128].amax(-1)).max().item()
+    nsplit = da.kernel_splits(b, nkv, T, dev)
     rel, frob = SLAB_TOL[dtype]
     res = {}
     for pos in positions:
         k0, v0 = kc.clone(), vc.clone()
         got_ro = da.decode_attention_slab(q, kc, vc, 1, pos)
-        ref_ro = da.decode_attention_plain(q, k0, v0, 1, pos)
+        again_ro = da.decode_attention_slab(q, kc, vc, 1, pos)
+        refs_ro = [da.decode_attention_plain(q, k0, v0, 1, pos, n)
+                   for n in (1, nsplit)]
         kp, vp = kc.clone(), vc.clone()
+        k2, v2 = kc.clone(), vc.clone()
         got = da.decode_attend_update_slab(q, nk, nv, kc, vc, 1, pos)
-        ref = da.decode_attend_update_plain(q, nk, nv, kp, vp, 1, pos)
+        again = da.decode_attend_update_slab(q, nk, nv, k2, v2, 1, pos)
+        refs = [da.decode_attend_update_plain(q, nk, nv, kp, vp, 1, pos)]
+        refs.append(da.decode_attention_plain(q, kp, vp, 1, pos, nsplit))
         torch.cuda.synchronize()
         assert torch.equal(kc, kp) and torch.equal(vc, vp), \
             f"slab caches differ from the plain version's at pos {pos}"
+        assert torch.equal(k2, kp) and torch.equal(v2, vp), pos
+        assert torch.equal(got, again) and torch.equal(got_ro, again_ro), \
+            f"slab kernels give other bits on a second run at pos {pos}"
         k0[1, :, :, pos], v0[1, :, :, pos] = nk, nv
         assert torch.equal(kc, k0) and torch.equal(vc, v0), \
             f"column {pos} not written, or another column changed"
-        for name, a, r in (("decode_attend_update_slab", got, ref),
-                           ("decode_attention_slab", got_ro, ref_ro)):
-            c = flash_close(a, r, rel, frob)
-            p = res.get(name, (True, -math.inf, 0.0, 0.0))
-            res[name] = (p[0] and c[0], max(p[1], c[1]), max(p[2], c[2]),
-                         max(p[3], c[3]))
-    return res, lead
+        for name, a, rs in (("decode_attend_update_slab", got, refs),
+                            ("decode_attention_slab", got_ro, refs_ro)):
+            for n, r in zip((1, nsplit), rs):
+                c = flash_close(a, r, rel, frob)
+                key = f"{name} (plain, splits={n})"
+                p = res.get(key, (True, -math.inf, 0.0, 0.0))
+                res[key] = (p[0] and c[0], max(p[1], c[1]), max(p[2], c[2]),
+                            max(p[3], c[3]))
+    return res, lead, nsplit
 
 
 def check_decode(dev, errs):
@@ -1065,20 +1085,22 @@ def check_decode(dev, errs):
                SPREAD_SCALE) for r in (1, 2, 4)]
     for i, (name, dtype, b, nh, nkv, hd, T, positions, spread) in \
             enumerate(cases):
-        res, lead = slab_case(da, dtype, b, nh, nkv, hd, T, positions,
-                              SEED + i, dev, spread)
+        res, lead, nsplit = slab_case(da, dtype, b, nh, nkv, hd, T,
+                                      positions, SEED + i, dev, spread)
         rel, frob = SLAB_TOL[dtype]
-        print(f"slab {name} {str(dtype)[6:]} positions {positions} (tol "
+        print(f"slab {name} {str(dtype)[6:]} positions {positions}, "
+              f"{nsplit} splits of {da.split_tiles(T, nsplit)} tiles (tol "
               f"rel {rel:g} of |ref| + row max + rms, frob {frob:g}; caches "
-              f"bitwise): tile 1 leads tile 0 by up to {lead:.1f} log2 "
-              f"units")
+              f"bitwise; bits over two runs): tile 1 leads tile 0 by up to "
+              f"{lead:.1f} log2 units")
         for kern, (ok, excess, fro, err) in res.items():
             print(f"  {kern}: max_abs_err {err:.3e}  worst excess over the "
                   f"limit {excess:.3e}  rel frob {fro:.3e}  "
                   f"{'ok' if ok else 'FAILED'}")
-            errs[kern] = max(errs.get(kern, 0.0), err)
+            errs[kern.split()[0]] = max(errs.get(kern.split()[0], 0.0), err)
         assert all(r[0] for r in res.values()), f"slab kernels disagree: {res}"
         assert spread is None or lead > 130, f"spread only {lead}"
+        assert spread is None or nsplit > 1, "the spread needs a split edge"
     torch.cuda.empty_cache()
 
 
@@ -2498,9 +2520,9 @@ def _kernel_class(name):
         return "flash_fwd"
     if "flash_bwd_dq_kernel" in name:
         return "flash_bwd_dq"
-    if "flash_bwd_kernel" in name:
+    if "flash_bwd_kernel" in name or "flash_bwd_wg_kernel" in name:
         return "flash_bwd_dkv" if ", false>" in name else "flash_bwd"
-    if "dq_finalize_kernel" in name:
+    if "dq_finalize" in name:
         return "flash_bwd"
     if "gmm_fwd_kernel" in name or "gmm_dx_kernel" in name \
             or "gmm_dw_kernel" in name:
@@ -2918,7 +2940,8 @@ def slab_times(dev):
     0..pos and the f32 output once; the update adds new k/v read and the
     column written. Operations: 2 products of 2 HD per (head, token).
     Library yardstick: SDPA with GQA over the context pre-transposed to
-    [B, NKV, pos+1, HD] (the column write outside its time)."""
+    [B, NKV, pos+1, HD] (the column write outside its time). Also the
+    split grid."""
     from paddle_tpu_torch.ops import decode_attention as da
     F = torch.nn.functional
     b, nh, nkv, hd, pos = GEN_B, 32, 4, 64, 1023
@@ -2932,6 +2955,11 @@ def slab_times(dev):
     q4 = q[:, :, None, :]
     lib = _timed(lambda: F.scaled_dot_product_attention(
         q4, kx, vx, enable_gqa=True), 100)["ms"]
+    nsplit = da.kernel_splits(b, nkv, SLAB_T, dev)
+    tps = da.split_tiles(SLAB_T, nsplit)
+    grid = dict(nsplit=nsplit, tiles_per_split=tps,
+                ctas=nkv * b * nsplit,
+                live_ctas=nkv * b * ((pos // da.TILE_T) // tps + 1))
     out = {}
     for name, nbytes, kern, plain in (
             ("decode_attend_update_slab", read + 4 * b * kvd * 2,
@@ -2943,7 +2971,7 @@ def slab_times(dev):
              lambda: da.decode_attention_plain(q, kc, vc, 1, pos))):
         r = dict(_timed(kern, 200), plain_ms=_timed(plain, 10)["ms"],
                  library_ms=lib, **_bound(nbytes, ops, BF16_OPS_PER_S),
-                 bytes=nbytes, context_tokens=ctx)
+                 bytes=nbytes, context_tokens=ctx, **grid)
         key = f"{name}[B=8,NH=32,NKV=4,HD=64,pos=1023]"
         out[key] = r
         print(f"{key} bf16: {r}")
@@ -2952,53 +2980,67 @@ def slab_times(dev):
 
 def flash_times(dev):
     """The flash kernels at the train phase's shape: B=4, NH=32, S=2048,
-    D=128, causal, bf16. Work counted for the live (query, key) pairs,
-    S (S + 1) / 2 per head: the forward does 2 products (Q K^T, P V), the
-    backward 5 (S, dP, dV, dK, dQ), 2 D operations per pair each. Bytes:
-    each input read once, each output written once. Library yardsticks:
-    SDPA's causal forward; for the backward, SDPA forward + backward minus
-    its forward (both timed here)."""
+    D=128, causal, bf16, and row 16 at the ERNIE phase's (B=8, NH=16,
+    S=512, D=64). Work counted for the live (query, key) pairs, S (S + 1)
+    / 2 per head: the forward does 2 products (Q K^T, P V), the backward
+    5 (S, dP, dV, dK, dQ), 2 D operations per pair each. Bytes: each
+    input read once, each output written once. Library yardsticks: SDPA's
+    causal forward; for the backward, SDPA forward + backward minus its
+    forward (both timed here)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     F = torch.nn.functional
     b, nh, s, d = TRAIN_B, 32, TRAIN_S, 128
-    bh, scale = b * nh, 1 / math.sqrt(d)
-    qs, k, v, do = _flash_inputs(bh, s, d, torch.bfloat16, SEED, dev)
-    o, lse = fa.flash_fwd(qs, k, v, True)
-    delta = (do.float() * o.float()).sum(-1)
+    bh = b * nh
+    qs, k, v, _ = _flash_inputs(bh, s, d, torch.bfloat16, SEED, dev)
     pairs = bh * s * (s + 1) // 2
     el = bh * s * d
+    q4, k4, v4 = (t.reshape(b, nh, s, d) for t in (qs, k, v))
+    out = {}
+    r = dict(_timed(lambda: fa.flash_fwd(qs, k, v, True), 20),
+             plain_ms=_timed(lambda: fa.flash_fwd_plain(qs, k, v, True),
+                             2)["ms"],
+             library_ms=_timed(lambda: F.scaled_dot_product_attention(
+                 q4, k4, v4, is_causal=True), 20)["ms"],
+             **_bound(4 * el * 2 + bh * s * 4, 2 * 2 * d * pairs,
+                      BF16_OPS_PER_S))
+    out["flash_fwd[B=4,NH=32,S=2048,D=128,causal]"] = r
+    print(f"flash_fwd B=4 NH=32 S=2048 D=128 causal bf16: {r}")
+    del qs, k, v, q4, k4, v4
+    out.update(_flash_bwd_times(fa, b, nh, s, d))
+    out.update(_flash_bwd_times(fa, 8, 16, 512, 64))
+    return out
+
+
+def _flash_bwd_times(fa, b, nh, s, d):
+    """Row 16 at [B, NH, S, D], causal, bf16, counted as flash_times
+    counts it, with SDPA's backward (forward + backward minus forward)
+    beside it."""
+    F = torch.nn.functional
+    bh, scale = b * nh, d ** -0.5
+    qs, k, v, do = _flash_inputs(bh, s, d, torch.bfloat16, SEED + 7,
+                                 torch.device("cuda", 0))
+    o, lse = fa.flash_fwd(qs, k, v, True)
+    delta = (do.float() * o.float()).sum(-1)
+    pairs, el = bh * s * (s + 1) // 2, bh * s * d
     q4, k4, v4, do4 = (t.reshape(b, nh, s, d) for t in (qs, k, v, do))
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
-
-    def sdpa_fwd():
-        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
 
     def sdpa_fwd_bwd():
         o4 = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
         return torch.autograd.grad(o4, (qg, kg, vg), do4)
 
-    lib_fwd = _timed(sdpa_fwd, 20)["ms"]
+    lib_fwd = _timed(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), 20)["ms"]
     lib_both = _timed(sdpa_fwd_bwd, 20)["ms"]
-    out = {}
-    r = dict(_timed(lambda: fa.flash_fwd(qs, k, v, True), 20),
-             plain_ms=_timed(lambda: fa.flash_fwd_plain(qs, k, v, True),
-                             2)["ms"],
-             library_ms=lib_fwd,
-             **_bound(4 * el * 2 + bh * s * 4, 2 * 2 * d * pairs,
-                      BF16_OPS_PER_S))
-    out["flash_fwd[B=4,NH=32,S=2048,D=128,causal]"] = r
-    print(f"flash_fwd B=4 NH=32 S=2048 D=128 causal bf16: {r}")
-    r = dict(_timed(lambda: fa.flash_bwd(qs, k, v, do, lse, delta, True,
-                                         scale), 20),
-             plain_ms=_timed(lambda: fa.flash_bwd_plain(
-                 qs, k, v, do, lse, delta, True, scale), 2)["ms"],
-             library_ms=lib_both - lib_fwd,
-             library_fwd_bwd_ms=lib_both,
+    args = (qs, k, v, do, lse, delta, True, scale)
+    r = dict(_timed(lambda: fa.flash_bwd(*args), 20),
+             plain_ms=_timed(lambda: fa.flash_bwd_plain(*args), 2)["ms"],
+             library_ms=lib_both - lib_fwd, library_fwd_bwd_ms=lib_both,
              **_bound(7 * el * 2 + 2 * bh * s * 4, 5 * 2 * d * pairs,
                       BF16_OPS_PER_S))
-    out["flash_bwd[B=4,NH=32,S=2048,D=128,causal]"] = r
-    print(f"flash_bwd B=4 NH=32 S=2048 D=128 causal bf16: {r}")
-    return out
+    key = f"flash_bwd[B={b},NH={nh},S={s},D={d},causal]"
+    print(f"{key} bf16: {r}")
+    return {key: r}
 
 
 def _library_gmm(kind, a, b, offsets, counts):
@@ -3854,11 +3896,35 @@ def main():
                             for n in ("dq", "dk", "dv")),
          **{k: tm["flash_bwd[BH=4,S=131072,D=128,causal]"][k]
             for k in cols}})
-    # every kernel ran on its main path (rows 11, 4 and 2 have no caller)
-    assert all(kk["launches"] > 0 for kk in kernels if kk["name"] not in (
-        "decode_attention_slab", "paged_attention_quant",
-        "paged_attention")), kernels
-    assert len(kernels) == 24, len(kernels)
+    # rows 12 and 19: their functions run by rows 11's and 20's kernels
+    # (tests/test_torch_generate.py::test_pair_kernel_function_is_row_11,
+    # tests/test_torch_varlen.py::test_stacked_row_19_function_is_row_20)
+    slab_key = "[B=8,NH=32,NKV=4,HD=64,pos=1023]"
+    kernels.append(
+        {"name": "decode_attention_slab (row 12 cover: "
+                 "_decode_attention_slab_pair)", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/decode_attention.cu",
+         "replaces": "paddle_tpu/ops/decode_attention.py:569",
+         "launches": gen["launches"]["decode_attention_slab"],
+         "max_abs_err": errs["decode_attention_slab"],
+         **{k: tm["decode_attention_slab" + slab_key][k] for k in cols}})
+    short = sum(VARLEN_SHORT)
+    kernels.append(
+        {"name": "varlen_fwd (row 19 cover: _flash_varlen_fwd_stacked)",
+         "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/flash_varlen.cu",
+         "replaces": "paddle_tpu/ops/flash_varlen.py:523",
+         "launches": varlen["launches"]["varlen_fwd"],
+         "max_abs_err": errs["varlen_fwd"],
+         **{k: tm[f"varlen_fwd[short pack,T={short},H={VARLEN_H},"
+                  f"D={VARLEN_D},causal]"][k] for k in cols}})
+    # every kernel ran on its main path (rows 11, 12, 4 and 2 have no
+    # caller)
+    assert all(kk["launches"] > 0 for kk in kernels
+               if kk["name"].split()[0] not in (
+                   "decode_attention_slab", "paged_attention_quant",
+                   "paged_attention")), kernels
+    assert len(kernels) == 26, len(kernels)
     wall_s = time.perf_counter() - t_start
     record = {"nvidia_smi": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,

@@ -28,6 +28,13 @@ The PADDLE_TPU_DECODE_HD64_STACK pair kernel (``_kernel_pair``) computes
 ``decode_attention_slab``'s function on the diagonal blocks its caller
 keeps; its pairing is a TPU lane tiling, and :func:`decode_attention_slab`
 covers it.
+
+On the card the context is split across CTAs (:func:`kernel_splits`
+splits from the extent T). Each split starts from the max of the scores
+before it, so P is rounded as in one walk; the partial states are
+combined in split order (the same bits on every run), and only that f32
+combine differs from one walk. ``decode_attention_plain(..., splits=n)``
+is the same computation for n splits.
 """
 from __future__ import annotations
 
@@ -44,24 +51,15 @@ _REPS = (1, 2, 4, 8)            # query heads per kv head the kernel takes
 _HEAD_DIMS = (8, 16, 32, 64, 128)
 
 
-def decode_attention_plain(q, k_cache, v_cache, layer: int, pos: int
-                           ) -> torch.Tensor:
-    """Plain PyTorch version on any device, tile by tile with the
-    kernels' online softmax: P rounded to the cache dtype before P.V, the
-    normaliser summed from the unrounded f32 P. Returns attn
-    [B, NH, HD] f32."""
-    B, NH, HD = q.shape
-    T = k_cache.shape[-1]
-    nkv = k_cache.shape[2] // HD
-    rep = NH // nkv
-    dev = q.device
-    kl = k_cache[layer].reshape(B, nkv, HD, T)
-    vl = v_cache[layer].reshape(B, nkv, HD, T)
-    qf = q.float().reshape(B, nkv, rep, HD)
-    m = torch.full((B, nkv, rep), float("-inf"), device=dev)
-    l = torch.zeros((B, nkv, rep), device=dev)
-    acc = torch.zeros((B, nkv, rep, HD), device=dev)
-    for c0 in range(0, pos + 1, TILE_T):
+def _walk(qf, kl, vl, c0s, pos, m, dtype):
+    """The online recurrence over the 128-column tiles starting at
+    ``c0s``, from the running max ``m``: P rounded to ``dtype`` before
+    P.V, the normaliser summed from the unrounded f32 P. Returns
+    (m, l, acc)."""
+    dev = qf.device
+    l = torch.zeros(m.shape, device=dev)
+    acc = torch.zeros(m.shape + (qf.shape[-1],), device=dev)
+    for c0 in c0s:
         kt = kl[..., c0:c0 + TILE_T].float()
         vt = vl[..., c0:c0 + TILE_T].float()
         s = torch.einsum("bgrd,bgdt->bgrt", qf, kt)
@@ -71,20 +69,70 @@ def decode_attention_plain(q, k_cache, v_cache, layer: int, pos: int
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new[..., None])
         l = l * alpha + p.sum(dim=-1)
-        pv = torch.einsum("bgrt,bgdt->bgrd", p.to(v_cache.dtype).float(), vt)
+        pv = torch.einsum("bgrt,bgdt->bgrd", p.to(dtype).float(), vt)
         acc = acc * alpha[..., None] + pv
         m = m_new
+    return m, l, acc
+
+
+def split_tiles(t_len: int, splits: int) -> int:
+    """Tiles per split when ``splits`` CTAs share a cache of extent
+    ``t_len``: contiguous runs of this many 128-column tiles."""
+    ntile = t_len // TILE_T
+    return -(-ntile // max(1, min(int(splits), ntile)))
+
+
+def decode_attention_plain(q, k_cache, v_cache, layer: int, pos: int,
+                           splits: int = 1) -> torch.Tensor:
+    """Plain PyTorch version on any device, tile by tile with the
+    kernels' online softmax: P rounded to the cache dtype before P.V, the
+    normaliser summed from the unrounded f32 P. Returns attn
+    [B, NH, HD] f32.
+
+    ``splits`` > 1 runs the kernel's split-context form: the extent T is
+    cut into runs of :func:`split_tiles` tiles, each run takes the same
+    recurrence from the max of all scores before it (so P is rounded
+    against the same running max as with one split), and the partial
+    states are combined in split order."""
+    B, NH, HD = q.shape
+    T = k_cache.shape[-1]
+    nkv = k_cache.shape[2] // HD
+    rep = NH // nkv
+    dev = q.device
+    kl = k_cache[layer].reshape(B, nkv, HD, T)
+    vl = v_cache[layer].reshape(B, nkv, HD, T)
+    qf = q.float().reshape(B, nkv, rep, HD)
+    m0 = torch.full((B, nkv, rep), float("-inf"), device=dev)
+    c0s = range(0, pos + 1, TILE_T)
+    if splits == 1:
+        _, l, acc = _walk(qf, kl, vl, c0s, pos, m0, v_cache.dtype)
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        return out.reshape(B, NH, HD)
+    run = split_tiles(T, splits) * TILE_T
+    parts, seed = [], m0
+    for r0 in range(0, pos + 1, run):
+        tiles = range(r0, min(r0 + run, pos + 1), TILE_T)
+        parts.append(_walk(qf, kl, vl, tiles, pos, seed, v_cache.dtype))
+        seed = parts[-1][0]   # the max of every score so far
+    mx = parts[-1][0]
+    l = torch.zeros_like(mx)
+    acc = torch.zeros_like(parts[0][2])
+    for m, lp, ap in parts:
+        w = torch.exp2(m - mx)
+        l = l + lp * w
+        acc = acc + ap * w[..., None]
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, NH, HD)
 
 
 def decode_attend_update_plain(q, new_k, new_v, k_cache, v_cache,
-                               layer: int, pos: int) -> torch.Tensor:
+                               layer: int, pos: int, splits: int = 1
+                               ) -> torch.Tensor:
     """Plain version of the update entry: the column write, then
     :func:`decode_attention_plain`."""
     k_cache[layer, :, :, pos] = new_k.to(k_cache.dtype)
     v_cache[layer, :, :, pos] = new_v.to(v_cache.dtype)
-    return decode_attention_plain(q, k_cache, v_cache, layer, pos)
+    return decode_attention_plain(q, k_cache, v_cache, layer, pos, splits)
 
 
 def _check(name, q, k_cache, v_cache, layer, pos, new=()):
@@ -118,6 +166,42 @@ def _check(name, q, k_cache, v_cache, layer, pos, new=()):
                          f"{pos} outside [0, {T})")
 
 
+# CTAs the split aims for on each SM (flash-decoding; the kernel's header)
+_CTAS_PER_SM = 2
+_MAX_SPLITS = 128   # MAX_SPLITS of csrc/decode_attention.cu, which checks it
+_SMS = {}
+_SYNC = {}          # (device, stream handle) -> the launches' sync words
+
+
+def kernel_splits(nb: int, nkv: int, t_len: int, device) -> int:
+    """The split count the kernel takes for ``nb`` rows of ``nkv`` kv
+    heads over a cache of extent ``t_len`` on ``device``: enough splits
+    for ``_CTAS_PER_SM`` CTAs on every SM, at most one per tile, rounded
+    so that every split holds the same number of tiles. It depends on the
+    extent, never on pos. Pass it to :func:`decode_attention_plain` as
+    ``splits`` for the kernel's own split."""
+    idx = torch.device(device).index or 0
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    want = min(_MAX_SPLITS,
+               -(-_CTAS_PER_SM * _SMS[idx] // max(1, nb * nkv)))
+    tps = split_tiles(t_len, want)
+    return -(-(t_len // TILE_T) // tps)
+
+
+def _sync_words(n: int, device, stream) -> torch.Tensor:
+    """A zeroed int32 buffer of at least ``n`` words for the launches on
+    ``stream`` of ``device``: they run in order, and every launch leaves it
+    zero. Launches on different streams may overlap, so they never share
+    one; the buffer is made on ``stream``, the current stream here."""
+    key = (device, stream.cuda_stream)
+    buf = _SYNC.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _SYNC[key] = torch.zeros(max(n, 4096), dtype=torch.int32,
+                                       device=device)
+    return buf
+
+
 def _launch(name, symbol, args, q, k_cache, layer, pos):
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
@@ -126,14 +210,20 @@ def _launch(name, symbol, args, q, k_cache, layer, pos):
                          f"storage")
     B, NH, HD = q.shape
     T = k_cache.shape[-1]
+    nkv = k_cache.shape[2] // HD
+    nsplit = kernel_splits(B, nkv, T, q.device)
+    tps = split_tiles(T, nsplit)
     out = torch.empty((B, NH, HD), dtype=torch.float32, device=q.device)
+    part = torch.empty(B * nkv * nsplit * (3 + HD) * (NH // nkv),
+                       dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device)
+    sync = _sync_words(B * nkv * (2 + nsplit), q.device, stream)
     fn = _build.kernel("decode_attention", symbol,
-                       [ctypes.c_void_p] * (len(args) + 1)
-                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-    err = fn(*(t.data_ptr() for t in args), out.data_ptr(), B, int(layer),
-             NH, k_cache.shape[2] // HD, HD, T, int(pos),
-             _DTYPE_CODE[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+                       [ctypes.c_void_p] * (len(args) + 3)
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    err = fn(*(t.data_ptr() for t in args), out.data_ptr(), part.data_ptr(),
+             sync.data_ptr(), B, int(layer), NH, nkv, HD, T, int(pos), nsplit,
+             tps, _DTYPE_CODE[q.dtype], stream.cuda_stream)
     _build.check("decode_attention", err, name)
     return out
 

@@ -40,6 +40,11 @@ recurrence only; the JAX package's default tile-0-anchored "fixed-base"
 variant is not ported (it overflows once a later tile's row max exceeds
 tile 0's by about 100 log2 units).
 
+On the card, bf16's fused backward and its dK/dV pass (rows 16, 17) run
+on Hopper's warpgroup products (wgmma, 128 keys a CTA) and sum dQ across
+CTAs with bulk reduce-adds into a zeroed f32 scratch; f32 and the other
+kernels take warp-level mma.sync (csrc/flash_attention.cu).
+
 Rounding points, shared by kernels and plain versions: scores and every
 product accumulate in f32; the forward rounds P to the input dtype before
 P.V while the normaliser sums the unrounded P; the backward rounds P for
@@ -269,7 +274,9 @@ def flash_bwd(q, k, v, do, lse, delta, causal, scale):
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, do, lse, delta, causal, scale)
     _check_cuda("flash_bwd", q, (k, v, do), (lse, delta))
-    dq_acc = torch.zeros((bh, sq, d), dtype=torch.float32, device=q.device)
+    # 64-row q tiles: the bf16 kernel adds whole tiles
+    dq_acc = torch.zeros((bh, -(-sq // 64) * 64, d), dtype=torch.float32,
+                         device=q.device)
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v))
     fn = _build.kernel("flash_attention", "flash_bwd",

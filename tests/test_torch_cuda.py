@@ -599,6 +599,29 @@ def test_flash_kernels_match_plain(dev, dtype, d, causal, s):
         _close(g_, w_, tol_b)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [200, 2048])
+def test_flash_bwd_wgmma_matches_plain(dev, d, causal, s):
+    """Row 16 in bf16 (the wgmma kernel: 128 keys a CTA, dQ by bulk
+    reduce-add) at a ragged S and at the train phase's S, 8 heads, against
+    its plain version under the flash rule; row 17's dK and dV are its
+    bits."""
+    qs, k, v, do = _flash_case(dev, torch.bfloat16, 8, s, d, seed=s + d + 1)
+    o, lse = fa.flash_fwd_plain(qs, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    before = fa.flash_bwd.launches
+    got = fa.flash_bwd(qs, k, v, do, lse, delta, causal, d ** -0.5)
+    dk, dv = fa.flash_bwd_dkv(qs, k, v, do, lse, delta, causal, d ** -0.5)
+    want = fa.flash_bwd_plain(qs, k, v, do, lse, delta, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd.launches == before + 1
+    for g_, w_ in zip(got, want):
+        assert torch.isfinite(g_).all()
+        _close(g_, w_, FLASH_TOL[torch.bfloat16][1])
+    assert torch.equal(dk, got[1]) and torch.equal(dv, got[2])
+
+
 def test_flash_fwd_kv_len_masks_the_tail(dev):
     qs, k, v, _ = _flash_case(dev, torch.bfloat16, 4, 100, 128, seed=9,
                               sk=160)
@@ -1075,6 +1098,72 @@ def test_slab_kernels_match_plain(dev, dtype, hd, rep):
         assert torch.equal(kc[1, :, :, pos], nk)
         k0[1, :, :, pos], v0[1, :, :, pos] = nk, nv
         assert torch.equal(kc, k0) and torch.equal(vc, v0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1152, 5120])
+def test_slab_split_kernels_across_split_boundaries(dev, dtype, T):
+    """Rows 10 and 11 with the context split across CTAs (generate's B=8,
+    NH=32 over NKV=4, HD=64): T = 1152 gives one tile a split, T = 5120
+    several. At pos on both sides of every split boundary and at T - 1:
+    the attention under the flash rule against the plain version with one
+    split and with the kernel's split, the same bits over two runs, and
+    the caches bitwise as the plain version leaves them."""
+    nsplit = da.kernel_splits(8, 4, T, dev)
+    run = da.split_tiles(T, nsplit) * da.TILE_T
+    assert nsplit > 1
+    q, nk, nv, kc, vc = _slab_case(dev, dtype, 32, 4, 64, T=T, B=8, seed=3)
+    positions = sorted({p for c in range(run, T, run) for p in (c - 1, c)}
+                       | {0, T - 1})
+    for pos in positions:
+        ro1 = da.decode_attention_slab(q, kc, vc, 1, pos)
+        ro2 = da.decode_attention_slab(q, kc, vc, 1, pos)
+        refs = [da.decode_attention_plain(q, kc, vc, 1, pos, n)
+                for n in (1, nsplit)]
+        kp, vp = kc.clone(), vc.clone()
+        k2, v2 = kc.clone(), vc.clone()
+        got = da.decode_attend_update_slab(q, nk, nv, kc, vc, 1, pos)
+        got2 = da.decode_attend_update_slab(q, nk, nv, k2, v2, 1, pos)
+        ref = da.decode_attend_update_plain(q, nk, nv, kp, vp, 1, pos,
+                                            nsplit)
+        torch.cuda.synchronize()
+        assert torch.equal(ro1, ro2) and torch.equal(got, got2), pos
+        assert torch.equal(kc, kp) and torch.equal(vc, vp), pos
+        assert torch.equal(k2, kp) and torch.equal(v2, vp), pos
+        for r in refs:
+            _close(ro1, r, SLAB_TOL[dtype])
+        _close(got, ref, SLAB_TOL[dtype])
+        _close(got, da.decode_attention_plain(q, kp, vp, 1, pos),
+               SLAB_TOL[dtype])
+
+
+def test_slab_launches_on_two_streams_keep_apart(dev):
+    """Slab launches that overlap on two streams take the sync words of
+    their own stream (ticket, done count, look-back flags): every launch
+    gives the bits of a launch alone, and each stream's words come back
+    to zero."""
+    q, nk, nv, kc, vc = _slab_case(dev, torch.bfloat16, 32, 4, 64, T=1152,
+                                   B=8, seed=4)
+    want_ro = da.decode_attention_slab(q, kc, vc, 1, 700)
+    k1, v1 = kc.clone(), vc.clone()
+    want = da.decode_attend_update_slab(q, nk, nv, k1, v1, 1, 700)
+    streams = [torch.cuda.Stream(q.device) for _ in range(2)]
+    caches = [(kc.clone(), vc.clone()) for _ in streams]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(q.device))
+    outs = []
+    for _ in range(50):
+        for s, (k, v) in zip(streams, caches):
+            with torch.cuda.stream(s):
+                outs.append((da.decode_attention_slab(q, kc, vc, 1, 700),
+                             da.decode_attend_update_slab(q, nk, nv, k, v,
+                                                          1, 700)))
+    torch.cuda.synchronize()
+    for ro, up in outs:
+        assert torch.equal(ro, want_ro) and torch.equal(up, want)
+    for s, (k, v) in zip(streams, caches):
+        assert torch.equal(k, k1) and torch.equal(v, v1)
+        assert not da._SYNC[(q.device, s.cuda_stream)].any()
 
 
 def test_slab_kernels_reject_bad_inputs(dev):

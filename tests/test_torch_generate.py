@@ -148,6 +148,121 @@ def test_slab_update_adversarial_spread(monkeypatch):
                 (q, nk, nv, kc, vc))
 
 
+# The kernel's split-context form (``splits`` > 1): each split starts its
+# recurrence from the max of all scores before it, so P is rounded against
+# the same running max as one walk and only the f32 combine of the partial
+# states differs. Against JAX that is 1e-5 in f32; in bf16 the flash rule
+# of the card's checks (SLAB_TOL: rel 2^-6 of |ref| + row max + rms, frob
+# 2^-10), since an f32 sum in another order can move a P on a rounding
+# boundary by one bf16 step. T = 256 is two tiles, so 4 and 9 splits leave
+# one tile per split (the kernel's layout at generate's shape).
+SPLITS = (1, 2, 4, 9)
+SLAB_TOL_BF16 = (2 ** -6, 2 ** -10)
+
+
+def _flash_rule(got, ref, rel, frob):
+    g, r = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    diff = np.abs(g - r)
+    limit = rel * (np.abs(r) + np.abs(r).max(-1, keepdims=True)
+                   + np.sqrt(np.mean(r ** 2)))
+    assert np.isfinite(g).all()
+    assert (diff <= limit).all(), (diff - limit).max()
+    assert np.linalg.norm(diff) <= frob * np.linalg.norm(r)
+
+
+def _check_split(nh, nkv, hd, splits, positions, case=None,
+                 dtype=torch.float32):
+    """``decode_attention_plain(..., splits)`` and the update entry's plain
+    version against the JAX kernels (online softmax) at each position."""
+    q, nk, nv, kc, vc = case or _slab_case(nh, nkv, hd)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    args = [jnp.asarray(a).astype(jdt)
+            for a in (_block_diag(q, nkv), nk, nv, kc, vc)]
+    tq, tnk, tnv = (torch.from_numpy(a).to(dtype) for a in (q, nk, nv))
+    for pos in positions:
+        ref, rk, rv, ref_ro = _jax_slab("online")(*args, pos)
+        kt, vt = (torch.tensor(a, dtype=dtype) for a in (kc, vc))
+        got_ro = tda.decode_attention_plain(tq, kt, vt, 1, pos, splits)
+        got = tda.decode_attend_update_plain(tq, tnk, tnv, kt, vt, 1, pos,
+                                             splits)
+        np.testing.assert_array_equal(kt.float().numpy(),
+                                      np.asarray(rk.astype(jnp.float32)))
+        np.testing.assert_array_equal(vt.float().numpy(),
+                                      np.asarray(rv.astype(jnp.float32)))
+        for g, r in ((got, ref), (got_ro, ref_ro)):
+            want = _diag_blocks(np.asarray(r.astype(jnp.float32)), nkv, hd)
+            if dtype == torch.float32:
+                np.testing.assert_allclose(g.numpy(), want, atol=1e-5,
+                                           rtol=0)
+            else:
+                _flash_rule(g.numpy(), want, *SLAB_TOL_BF16)
+
+
+@pytest.mark.parametrize("splits", SPLITS)
+@pytest.mark.parametrize("shape", [(2, 2, 64), (4, 2, 8), (8, 1, 64)])
+def test_slab_split_plain_matches_jax(monkeypatch, shape, splits):
+    monkeypatch.setenv("PADDLE_TPU_FLASH_SOFTMAX", "online")
+    _check_split(*shape, splits, POSITIONS)
+
+
+@pytest.mark.parametrize("splits", SPLITS)
+def test_slab_split_plain_matches_jax_bf16(monkeypatch, splits):
+    monkeypatch.setenv("PADDLE_TPU_FLASH_SOFTMAX", "online")
+    _check_split(8, 1, 64, splits, POSITIONS, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("splits", SPLITS)
+def test_slab_split_plain_holds_the_adversarial_spread(monkeypatch, splits):
+    """Tile 1 leads tile 0 by more than 130 log2 units, across the split
+    boundary between the two tiles."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_SOFTMAX", "online")
+    q, nk, nv, kc, vc = _slab_case(4, 2, 8)
+    kc[:, :, :, 128:] *= 150.0
+    _check_split(4, 2, 8, splits, (127, 128, 200, 255), (q, nk, nv, kc, vc))
+
+
+def _slab_attention_before_splits(q, k_cache, v_cache, layer, pos):
+    """The plain version as it was before the ``splits`` keyword, kept
+    verbatim as the reference of the bitwise test below."""
+    B, NH, HD = q.shape
+    T = k_cache.shape[-1]
+    nkv = k_cache.shape[2] // HD
+    rep = NH // nkv
+    kl = k_cache[layer].reshape(B, nkv, HD, T)
+    vl = v_cache[layer].reshape(B, nkv, HD, T)
+    qf = q.float().reshape(B, nkv, rep, HD)
+    m = torch.full((B, nkv, rep), float("-inf"))
+    l = torch.zeros((B, nkv, rep))
+    acc = torch.zeros((B, nkv, rep, HD))
+    for c0 in range(0, pos + 1, 128):
+        kt = kl[..., c0:c0 + 128].float()
+        vt = vl[..., c0:c0 + 128].float()
+        s = torch.einsum("bgrd,bgdt->bgrt", qf, kt)
+        live = torch.arange(c0, c0 + 128) <= pos
+        s = torch.where(live, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bgrt,bgdt->bgrd", p.to(v_cache.dtype).float(), vt)
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, NH, HD)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slab_plain_one_split_is_the_function_before_splits(dtype):
+    q, _, _, kc, vc = (torch.from_numpy(a).to(dtype)
+                       for a in _slab_case(8, 2, 64, T=384))
+    for pos in (0, 127, 128, 300, 383):
+        want = _slab_attention_before_splits(q, kc, vc, 1, pos)
+        assert torch.equal(tda.decode_attention_plain(q, kc, vc, 1, pos),
+                           want)
+        assert torch.equal(tda.decode_attention_plain(q, kc, vc, 1, pos,
+                                                      splits=1), want)
+
+
 def test_pair_kernel_function_is_row_11():
     """Row 12 (``_decode_attention_slab_pair``, two head_dim-64 heads per
     128-lane band, MHA) computes row 11's function on the diagonal

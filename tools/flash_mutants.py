@@ -11,8 +11,10 @@ what the earlier rule (atol = rel * max |ref| of the whole tensor, rtol =
 rel) would have said. Cases: the train phase's shape (BH 128, S 2048,
 D 128, causal, bf16) and BH 8, S 200, D 128, not causal, bf16.
 
-Needs one CUDA device and nvcc; writes chiprun_out/flash_mutants.json and
-exits non-zero unless every verdict is as expected.
+The backward mutants write their faults into the bf16 kernel on wgmma
+(flash_bwd_wg_kernel), which both cases run. Needs one CUDA device and
+nvcc; writes chiprun_out/flash_mutants.json and exits non-zero unless
+every verdict is as expected.
 """
 from __future__ import annotations
 
@@ -29,12 +31,10 @@ CASES = [(128, 2048, 128, True), (8, 200, 128, False)]
 _FWD_P = "      st_pair(pw + (g + 8) * LDP + n * 8 + 2 * t, p2, p3);\n"
 _FWD_PV = ("    warp_mm<NTO, true, false>(acc, pw, LDP, v_s, LD, BK);"
            "  // acc += round(P) V\n")
-_BWD_P = ("      st_pair(dsw + (g + 8) * LDP + n * 8 + 2 * t, s[n][2], "
-          "s[n][3]);\n")
-_BWD_PDV = ("    mm_add<NTO>(dvc, dsw, LDP, do_s, LD, BQ);"
-            "  // dV += round(P^T) dO\n")
-_BWD_DK = ("    mm_add<NTO>(dkc, dsw, LDP, q_s, LD, BQ);"
-           "  // dK += round(dS^T) Q~\n")
+_BWD_DV_STEPS = ("        wgmma_rs<1>(pr, pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2], "
+                 "pf[4 * kk + 3],\n")
+_BWD_DK_ADD = "      for (int e = 0; e < 32; ++e) dkc[h][e] += pr[e];\n"
+_BWD_DQ_REDUCE = "          if ((tid & 127) == 0) {\n            bulk_reduce_add_f32("
 
 
 def _lo(ptr, row, a, b):
@@ -62,19 +62,20 @@ MUTANTS = {
          "      for (int e = 0; e < 4; ++e) acc[n][e] *= 1.2f;\n"
          "  T* og = o + bh * sq * D;\n"),
     ],
-    # dV += P^T dO with P^T as bf16 hi + lo, i.e. left unrounded
-    "bwd_p_unrounded_dv": [
-        ("4 * BQ * LD + BK * LDP) +", "4 * BQ * LD + 2 * BK * LDP) +"),
-        ("reinterpret_cast<float*>(ds_s + BK * LDP);",
-         "reinterpret_cast<float*>(ds_s + 2 * BK * LDP);"),
-        (_BWD_P, _BWD_P + _lo("dsw + BK * LDP", "g", "s[n][0]", "s[n][1]")
-         + _lo("dsw + BK * LDP", "(g + 8)", "s[n][2]", "s[n][3]")),
-        (_BWD_PDV, _BWD_PDV + "    mm_add<NTO>(dvc, dsw + BK * LDP, LDP, "
-         "do_s, LD, BQ);\n"),
+    # dV misses one of the four wgmma products (16 q rows) of every q tile
+    "bwd_dv_drop_a_product": [
+        ("      for (int kk = 0; kk < 4; ++kk)\n" + _BWD_DV_STEPS,
+         "      for (int kk = 0; kk < 3; ++kk)\n" + _BWD_DV_STEPS),
     ],
     # dK misses the last q tile's share
     "bwd_dk_drop_last_q_tile": [
-        (_BWD_DK, "    if (i + 1 < nq)\n" + _BWD_DK),
+        (_BWD_DK_ADD, "      for (int e = 0; e < 32; ++e)\n"
+         "        if (i + 1 < nq) dkc[h][e] += pr[e];\n"),
+    ],
+    # key tile 0 never adds its dQ partials
+    "bwd_skip_dq_reduce": [
+        (_BWD_DQ_REDUCE, "          if ((tid & 127) == 0 && kt != 0) {\n"
+         "            bulk_reduce_add_f32("),
     ],
 }
 
