@@ -200,10 +200,11 @@ def build():
         kern = ""
         for line in log.splitlines():
             m = re.search(r"entry function '_ZN\w*\d([a-z][a-z0-9_]*?_kernel)"
-                          r"(I\w*?)?EvP", line)
+                          r"(I\w*?)?Ev?(P|\d)", line)
             if m:    # the kernel's name and its mangled template arguments
                 kern = m.group(1) + (m.group(2) or "")
-            if "registers" in line or "spill" in line:
+            # registers, spills, and ptxas's notes on wgmma serialisation
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 print(f"  {name}: {kern}: {line.strip()}")
     print(f"build seconds {secs:.2f}")
     # the int8 walks' shared memory (16 K row groups: 64 KiB of partial
@@ -648,25 +649,36 @@ def check_quant(dev, errs):
 # unrounded. (BH, S, D, causal, dtype): S = 2048, D = 128, causal at
 # BH = 128 is the Llama train phase's shape; S = 512, D = 64 the ERNIE
 # phase's (B = 8 x 16 heads); S = 1024, D = 64 at BH = 256 the generate
-# phase's prefill (B = 8 x 32 heads, kv heads repeated).
+# phase's prefill (B = 8 x 32 heads, kv heads repeated). Sq != Sk are
+# flash_block_fwd's shapes (one KV block of a ring, causal top-left); a
+# kv_len < Sk masks the keys past it (forward only: the backward takes
+# every key). (BH, Sq, Sk, D, causal, dtype, kv_len or None for all.)
 FLASH_TOL = {torch.float32: ((1e-5, 1e-5), (1e-4, 1e-4)),
              torch.bfloat16: ((2 ** -6, 2 ** -10), (2 ** -6, 2 ** -10))}
-FLASH_CASES = [(8, 200, 128, True, torch.bfloat16),
-               (8, 200, 128, False, torch.bfloat16),
-               (128, 2048, 128, True, torch.bfloat16),
-               (8, 2048, 128, False, torch.bfloat16),
-               (128, 512, 64, True, torch.bfloat16),
-               (GEN_B * 32, GEN_S, 64, True, torch.bfloat16),
-               (8, 200, 64, True, torch.float32)]
+FLASH_CASES = [(8, 200, 200, 128, True, torch.bfloat16, None),
+               (8, 200, 200, 128, False, torch.bfloat16, None),
+               (128, 2048, 2048, 128, True, torch.bfloat16, None),
+               (8, 2048, 2048, 128, False, torch.bfloat16, None),
+               (128, 512, 512, 64, True, torch.bfloat16, None),
+               (GEN_B * 32, GEN_S, GEN_S, 64, True, torch.bfloat16, None),
+               (8, 256, 512, 128, True, torch.bfloat16, None),
+               (8, 512, 256, 64, True, torch.bfloat16, None),
+               (8, 384, 640, 128, False, torch.bfloat16, None),
+               (8, 300, 1152, 128, True, torch.bfloat16, 1000),
+               (8, 200, 333, 64, False, torch.bfloat16, 130),
+               (8, 200, 200, 64, True, torch.float32, None)]
 
 
-def _flash_inputs(bh, s, d, dtype, seed, dev):
+def _flash_inputs(bh, s, d, dtype, seed, dev, sk=None):
+    """q pre-scaled and do [bh, s, d]; k, v [bh, sk (default s), d]."""
     from paddle_tpu_torch.ops.flash_attention import LOG2E
     g = torch.Generator(device=dev).manual_seed(seed)
     qs = (torch.randn((bh, s, d), generator=g, device=dev)
           * (LOG2E / math.sqrt(d))).to(dtype)
-    return [qs] + [torch.randn((bh, s, d), generator=g, device=dev)
-                   .to(dtype) for _ in range(3)]
+    kv = [torch.randn((bh, s if sk is None else sk, d), generator=g,
+                      device=dev).to(dtype) for _ in range(2)]
+    return [qs] + kv + [torch.randn((bh, s, d), generator=g, device=dev)
+                        .to(dtype)]
 
 
 def flash_close(got, ref, rel, frob):
@@ -683,31 +695,39 @@ def flash_close(got, ref, rel, frob):
     return ok, excess, fro, diff.max().item()
 
 
-def flash_case(fa, bh, s, d, causal, dtype, seed, dev):
+def flash_case(fa, bh, s, d, causal, dtype, seed, dev, sk=None,
+               kv_len=None):
     """One case of both kernels against their plain versions: {output:
-    flash_close(...)} for o, dq, dk, dv, and the lse's max abs error."""
-    qs, k, v, do = _flash_inputs(bh, s, d, dtype, seed, dev)
+    flash_close(...)} for o, dq, dk, dv, and the lse's max abs error.
+    With kv_len (keys past it masked), the forward only."""
+    qs, k, v, do = _flash_inputs(bh, s, d, dtype, seed, dev, sk)
     (rel_f, frob_f), (rel_b, frob_b) = FLASH_TOL[dtype]
-    o, lse = fa.flash_fwd(qs, k, v, causal)
-    o_ref, lse_ref = fa.flash_fwd_plain(qs, k, v, causal)
-    delta = (do.float() * o_ref.float()).sum(-1)
-    got = fa.flash_bwd(qs, k, v, do, lse_ref, delta, causal, 1 / math.sqrt(d))
-    want = fa.flash_bwd_plain(qs, k, v, do, lse_ref, delta, causal,
-                              1 / math.sqrt(d))
+    o, lse = fa.flash_fwd(qs, k, v, causal, kv_len)
+    o_ref, lse_ref = fa.flash_fwd_plain(qs, k, v, causal, kv_len)
+    grads = {}
+    if kv_len is None:
+        delta = (do.float() * o_ref.float()).sum(-1)
+        got = fa.flash_bwd(qs, k, v, do, lse_ref, delta, causal,
+                           1 / math.sqrt(d))
+        want = fa.flash_bwd_plain(qs, k, v, do, lse_ref, delta, causal,
+                                  1 / math.sqrt(d))
+        grads = dict(zip(("dq", "dk", "dv"), zip(got, want)))
     torch.cuda.synchronize()
     res = {"o": flash_close(o, o_ref, rel_f, frob_f)}
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
-        res[name] = flash_close(a, b, rel_b, frob_b)
+    res.update((name, flash_close(a, b, rel_b, frob_b))
+               for name, (a, b) in grads.items())
     return res, (lse - lse_ref).abs().max().item()
 
 
 def check_flash(dev, errs):
     from paddle_tpu_torch.ops import flash_attention as fa
     phase("check flash kernels against their plain versions")
-    for i, (bh, s, d, causal, dtype) in enumerate(FLASH_CASES):
-        res, err_lse = flash_case(fa, bh, s, d, causal, dtype, SEED + i, dev)
+    for i, (bh, sq, sk, d, causal, dtype, kv_len) in enumerate(FLASH_CASES):
+        res, err_lse = flash_case(fa, bh, sq, d, causal, dtype, SEED + i,
+                                  dev, sk, kv_len)
         (rel_f, frob_f), (rel_b, frob_b) = FLASH_TOL[dtype]
-        print(f"flash BH={bh} S={s} D={d} causal={causal} {str(dtype)[6:]} "
+        print(f"flash BH={bh} Sq={sq} Sk={sk} kv_len={kv_len or sk} D={d} "
+              f"causal={causal} {str(dtype)[6:]} "
               f"(tol rel {rel_f:g}/{rel_b:g} of |ref| + row max + rms, "
               f"frob {frob_f:g}/{frob_b:g} fwd/bwd; lse 1e-4): lse "
               f"max_abs_err {err_lse:.2e}")
@@ -718,8 +738,9 @@ def check_flash(dev, errs):
         assert all(r[0] for r in res.values()), f"flash disagrees: {res}"
         assert err_lse <= 1e-4, f"flash_fwd lse err {err_lse}"
         errs["flash_fwd"] = max(errs.get("flash_fwd", 0.0), res["o"][3])
-        errs["flash_bwd"] = max(errs.get("flash_bwd", 0.0),
-                                *(res[n][3] for n in ("dq", "dk", "dv")))
+        if kv_len is None:
+            errs["flash_bwd"] = max(errs.get("flash_bwd", 0.0),
+                                    *(res[n][3] for n in ("dq", "dk", "dv")))
         torch.cuda.empty_cache()
 
 
@@ -839,8 +860,13 @@ def check_gmm(dev, errs):
         c = torch.tensor(cl, dtype=torch.int32, device=dev)
         rows = int(tg._round_up(c, 128).sum()) + 2 * 128
         sc = tg.tile_schedule(c, rows // 128, 128)[:2]
-        cases += [(f"{name} {cl}", c, rows, sc, torch.float32, k, n)
-                  for k, n in ((128, 64), (256, 192))]
+        cases += [(f"{name} {cl}", c, rows, sc, dtype, k, n)
+                  for dtype, shapes in (
+                      (torch.float32, ((128, 64), (256, 192))),
+                      # bf16 dW on wgmma: 128-column blocks, and a
+                      # 64-column last block at N = 192
+                      (torch.bfloat16, ((256, 192), (256, 256))))
+                  for k, n in shapes]
     for i, (name, c, rows, sc, dtype, k, n) in enumerate(cases):
         res = gmm_case(tg, c, rows, sc, dtype, k, n, SEED + i, dev)
         rel, frob = GMM_TOL[dtype]
@@ -853,7 +879,59 @@ def check_gmm(dev, errs):
                   f"{'ok' if ok else 'FAILED'}")
             errs[kern] = max(errs.get(kern, 0.0), err)
         assert all(r[0] for r in res.values()), f"gmm disagrees: {res}"
+    check_gmm_one_expert(tg, dev)
     torch.cuda.empty_cache()
+
+
+# dW's drift along an f64 product may exceed its plain version's by this
+# much when one expert holds every row (tools/gmm_dw_mutants.py measures
+# the sound kernel and one that carries the sum in the tensor cores)
+DW_DRIFT_EXCESS = 2e-6
+
+
+def dw_drift(x, ref):
+    """sum((x - ref) ref) / sum(ref ref): a sum that loses to rounding
+    toward zero drifts low."""
+    d = x.double() - ref
+    return ((d * ref).sum() / (ref * ref).sum()).item()
+
+
+def dw_drift_ok(kernel_drift, plain_drift):
+    return abs(kernel_drift - plain_drift) <= DW_DRIFT_EXCESS
+
+
+def check_gmm_one_expert(tg, dev):
+    """dW when one expert holds all of the ERNIE slice's 16,384 routed
+    rows (128 tiles summed into one block), bf16 at (K, N) = MOE_SHAPES[0]:
+    the kernel against its plain version under GMM_TOL, and both against
+    a product summed in f64 from the same bf16 operands (relative
+    Frobenius error and drift along the reference, ``dw_drift``; the
+    kernel's may exceed the plain version's by ``DW_DRIFT_EXCESS``)."""
+    k, n = MOE_SHAPES[0]
+    e, routed = 32, MOE_B * MOE_S * 4
+    c = torch.zeros((e,), dtype=torch.int32, device=dev)
+    c[0] = routed
+    sched = tg.tile_schedule(c, routed // 128, 128)[:2]
+    lhs, _, dout = _gmm_operands(dev, torch.bfloat16, routed, e, k, n,
+                                 SEED + 40)
+    got = tg.gmm_dw(lhs, dout, sched, num_experts=e)
+    want = tg.gmm_dw_plain(lhs, dout, sched, num_experts=e)
+    ref = lhs.double().T @ dout.double()
+    torch.cuda.synchronize()
+    ok, excess, fro, err = flash_close(got, want, *GMM_TOL[torch.bfloat16])
+    line, drifts = {}, []
+    for name, x in (("kernel", got[0]), ("plain", want[0])):
+        drifts.append(dw_drift(x, ref))
+        fro_x = ((x.double() - ref).norm() / ref.norm()).item()
+        line[name] = f"rel frob {fro_x:.3e}, drift {drifts[-1]:+.3e}"
+    drift_ok = dw_drift_ok(*drifts)
+    print(f"gmm_dw one expert holds all {routed} rows K={k} N={n} bf16: "
+          f"against plain max_abs_err {err:.3e}, rel frob {fro:.3e} "
+          f"{'ok' if ok else 'FAILED'}; against f64: kernel {line['kernel']}"
+          f"; plain {line['plain']}; drift excess "
+          f"{drifts[0] - drifts[1]:+.3e} {'ok' if drift_ok else 'FAILED'}")
+    assert ok and drift_ok and all((got[1:] == 0).all(1).all(1)), \
+        "gmm_dw one expert"
 
 
 def _tiny_ernie_config():
@@ -2516,7 +2594,7 @@ def _kernel_class(name):
         return "varlen_bwd_dq"
     if "dq_cast_kernel" in name:      # the fused varlen backward's dQ cast
         return "varlen_bwd"
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_" in name:          # flash_fwd_kernel, flash_fwd_wg_kernel
         return "flash_fwd"
     if "flash_bwd_dq_kernel" in name:
         return "flash_bwd_dq"
@@ -2524,9 +2602,8 @@ def _kernel_class(name):
         return "flash_bwd_dkv" if ", false>" in name else "flash_bwd"
     if "dq_finalize" in name:
         return "flash_bwd"
-    if "gmm_fwd_kernel" in name or "gmm_dx_kernel" in name \
-            or "gmm_dw_kernel" in name:
-        return "gmm"
+    if any(k in name for k in ("gmm_fwd_", "gmm_dx_", "gmm_dw_")):
+        return "gmm"                  # gmm_dw_wg_kernel too
     if any(k in name.lower() for k in ("gemm", "xmma", "cutlass", "nvjet")):
         return "matmul"
     return "other"
@@ -2980,35 +3057,43 @@ def slab_times(dev):
 
 def flash_times(dev):
     """The flash kernels at the train phase's shape: B=4, NH=32, S=2048,
-    D=128, causal, bf16, and row 16 at the ERNIE phase's (B=8, NH=16,
-    S=512, D=64). Work counted for the live (query, key) pairs, S (S + 1)
-    / 2 per head: the forward does 2 products (Q K^T, P V), the backward
-    5 (S, dP, dV, dK, dQ), 2 D operations per pair each. Bytes: each
-    input read once, each output written once. Library yardsticks: SDPA's
-    causal forward; for the backward, SDPA forward + backward minus its
-    forward (both timed here)."""
+    D=128, causal, bf16; row 14 also at the ERNIE phase's (B=8, NH=16,
+    S=512, D=64) and the generate phase's prefill (B=8, NH=32, S=1024,
+    D=64), and row 16 at the ERNIE phase's. Work counted for the live
+    (query, key) pairs, S (S + 1) / 2 per head: the forward does 2
+    products (Q K^T, P V), the backward 5 (S, dP, dV, dK, dQ), 2 D
+    operations per pair each. Bytes: each input read once, each output
+    written once. Library yardsticks: SDPA's causal forward; for the
+    backward, SDPA forward + backward minus its forward (both timed
+    here)."""
     from paddle_tpu_torch.ops import flash_attention as fa
-    F = torch.nn.functional
-    b, nh, s, d = TRAIN_B, 32, TRAIN_S, 128
-    bh = b * nh
-    qs, k, v, _ = _flash_inputs(bh, s, d, torch.bfloat16, SEED, dev)
-    pairs = bh * s * (s + 1) // 2
-    el = bh * s * d
-    q4, k4, v4 = (t.reshape(b, nh, s, d) for t in (qs, k, v))
     out = {}
-    r = dict(_timed(lambda: fa.flash_fwd(qs, k, v, True), 20),
-             plain_ms=_timed(lambda: fa.flash_fwd_plain(qs, k, v, True),
-                             2)["ms"],
-             library_ms=_timed(lambda: F.scaled_dot_product_attention(
-                 q4, k4, v4, is_causal=True), 20)["ms"],
-             **_bound(4 * el * 2 + bh * s * 4, 2 * 2 * d * pairs,
-                      BF16_OPS_PER_S))
-    out["flash_fwd[B=4,NH=32,S=2048,D=128,causal]"] = r
-    print(f"flash_fwd B=4 NH=32 S=2048 D=128 causal bf16: {r}")
-    del qs, k, v, q4, k4, v4
-    out.update(_flash_bwd_times(fa, b, nh, s, d))
+    for b, nh, s, d in ((TRAIN_B, 32, TRAIN_S, 128), (MOE_B, 16, MOE_S, 64),
+                        (GEN_B, 32, GEN_S, 64)):
+        key = f"flash_fwd[B={b},NH={nh},S={s},D={d},causal]"
+        out[key] = _flash_fwd_times(fa, b, nh, s, d)
+        print(f"{key} bf16: {out[key]}")
+    out.update(_flash_bwd_times(fa, TRAIN_B, 32, TRAIN_S, 128))
     out.update(_flash_bwd_times(fa, 8, 16, 512, 64))
     return out
+
+
+def _flash_fwd_times(fa, b, nh, s, d, iters=20):
+    """Row 14 at [B, NH, S, D], causal, bf16, counted as flash_times
+    counts it, with SDPA's causal forward beside it."""
+    F = torch.nn.functional
+    bh = b * nh
+    qs, k, v, _ = _flash_inputs(bh, s, d, torch.bfloat16, SEED,
+                                torch.device("cuda", 0))
+    pairs, el = bh * s * (s + 1) // 2, bh * s * d
+    q4, k4, v4 = (t.reshape(b, nh, s, d) for t in (qs, k, v))
+    return dict(_timed(lambda: fa.flash_fwd(qs, k, v, True), iters),
+                plain_ms=_timed(lambda: fa.flash_fwd_plain(qs, k, v, True),
+                                2)["ms"],
+                library_ms=_timed(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True), iters)["ms"],
+                **_bound(4 * el * 2 + bh * s * 4, 2 * 2 * d * pairs,
+                         BF16_OPS_PER_S))
 
 
 def _flash_bwd_times(fa, b, nh, s, d):

@@ -25,26 +25,51 @@
 // 268 MB of q, k, v and o (0.080 ms at 3.35 TB/s); the backward does 5 such
 // products (3.44e11, 0.347 ms) over 0.5 GB.
 //
-// Design (not the TPU's). The forward, the split dQ pass and every f32
-// kernel take warp-level mma.sync m16n8k16 (bf16 in, f32 accumulation) on
-// tiles staged in shared memory; for f32 inputs the same warp tile is
-// computed by scalar FMAs with the same register layout (no TF32), so the
-// softmax and masking code is shared. Fragments come from shared memory by
-// ldmatrix (.trans where the contraction index is strided, so no operand
-// is ever stored transposed); rows are padded by 16 bytes, which keeps
-// ldmatrix free of bank conflicts (csrc/mma_common.cuh). Global tiles
-// arrive by 16-byte cp.async in a two-stage pipeline (the next tile is in
-// flight while this one is used; one barrier per tile). The fused backward
-// in bf16 and its dK/dV pass run on wgmma instead (below).
+// Design (not the TPU's). The split dQ pass and every f32 kernel take
+// warp-level mma.sync m16n8k16 (bf16 in, f32 accumulation) on tiles
+// staged in shared memory; for f32 inputs the same warp tile is computed by
+// scalar FMAs with the same register layout (no TF32), so the softmax and
+// masking code is shared. Fragments come from shared memory by ldmatrix
+// (.trans where the contraction index is strided, so no operand is ever
+// stored transposed); rows are padded by 16 bytes, which keeps ldmatrix
+// free of bank conflicts (csrc/mma_common.cuh). Global tiles arrive by
+// 16-byte cp.async in a two-stage pipeline (the next tile is in flight
+// while this one is used; one barrier per tile). The forward, the fused
+// backward and its dK/dV pass in bf16 run on wgmma instead (below).
 //
-// Forward: one CTA of 4 warps per (64-row q tile, bh); each warp owns 16 q
-// rows. The CTA walks 64-key K/V tiles (tiles wholly above the causal
+// Forward (f32): one CTA of 4 warps per (64-row q tile, bh); each warp owns
+// 16 q rows. The CTA walks 64-key K/V tiles (tiles wholly above the causal
 // diagonal are skipped; the ragged tail is bounds-checked and masked, where
 // the TPU zero-pads to its block size because Pallas slices clamp) with the
 // online softmax in f32: running max, exp2, P ROUNDED TO THE INPUT DTYPE
 // before P.V while the normaliser l sums the unrounded f32 P; o = acc /
 // max(l, 1e-30), lse = (m + log2 max(l, 1e-30)) * ln 2. Heaviest causal
 // tiles are launched first.
+//
+// Forward (bf16, flash_fwd_wg_kernel, redesigned for Hopper): the same
+// function on a warp-specialised CTA of 128 q rows. Two consumer
+// warpgroups own 64 q rows each; K/V stages of 128 keys fill a ring in
+// shared memory (two stages at D = 128, four at D = 64), in the 128-byte
+// swizzled layout that wgmma reads. The ring is filled by TMA: one thread
+// of a third, producer warpgroup (which gives its registers to the
+// consumers with setmaxnreg: 24 against 240) issues the loads through 3-D
+// tensor maps [BH, S, D], so a box past a head's last row reads zeros and
+// not the next head; stages are handed over by mbarriers (full: the
+// bytes landed; empty: all 256 consumer threads are done). A cp.async form
+// (the consumers copy each stage and arrive on its full barrier as the
+// copies land) lost to TMA by 10-29% at every shape when both were timed
+// in one call (PERF.md §6), and was removed. Per stage a consumer computes S =
+// Q~ K^T over all 128 keys with m64n128k16 from shared memory (Q stays in
+// shared memory for the CTA's life), then runs the online softmax and P V
+// once for each 64-key half, so that P is rounded against the running max
+// of the 64-key walk (a 128-key walk moves o by up to 1.3e-3 relative
+// Frobenius, tools/fwd_tile_gap.py): P goes from the S accumulator
+// straight into register A fragments (m64n64k16, V read MN-major from the
+// stage), into a zeroed accumulator per 64-column block of D, added to the
+// running o after its rescale with IEEE adds. The two warpgroups take
+// turns issuing S (named barriers 1 and 2). Halves that no row of a
+// warpgroup sees are skipped; only the kv tail and halves that cross a
+// warp's causal diagonal are masked.
 //
 // Backward: the TPU kernel walks one sequential k-major schedule and carries
 // dQ in a persistent [S, D] f32 VMEM scratch from grid step to grid step.
@@ -140,7 +165,8 @@ struct FwdCfg {
 };
 
 // q [BH, sq, D] pre-scaled; k, v [BH, sk, D] of which the first kv_len keys
-// are live; o [BH, sq, D]; lse [BH, sq] f32 (natural log).
+// are live; o [BH, sq, D]; lse [BH, sq] f32 (natural log). f32 only: bf16
+// takes flash_fwd_wg_kernel.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -253,6 +279,215 @@ __global__ void __launch_bounds__(kThreads)
   if (t == 0) {
     if (row0 < sq) lse[bh * sq + row0] = (m0 + log2f(d0)) * kLn2;
     if (row1 < sq) lse[bh * sq + row1] = (m1 + log2f(d1)) * kLn2;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward for bf16 on wgmma (rows 14 and 13)
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct WgFwdCfg {
+  static constexpr int BQ = 128, BK = 128;      // q rows a CTA, keys a stage
+  static constexpr int NS = D == 64 ? 4 : 2;    // ring stages
+  static constexpr int NB = D / 64;             // 64-column blocks of D
+  static constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
+  static constexpr int OFF_KV = Q_BYTES;        // stage st: K, then V
+  static constexpr int OFF_BAR = OFF_KV + NS * 2 * KV_BYTES;
+  // barriers (Q landed, NS stages full, NS stages empty), and slack to
+  // align the base to 1024 bytes
+  static constexpr size_t kSmem = OFF_BAR + 8 * (1 + 2 * NS) + 1024;
+};
+
+// 2^x by the special-function unit, subnormal results flushed to zero
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// q [BH, sq, D] pre-scaled, k, v [BH, sk, D] of which the first kv_len
+// keys are live, all bf16; o [BH, sq, D] bf16, lse [BH, sq] f32 (natural
+// log), given as qm, km, vm: tensor maps of q, k, v as [BH, S, D] with
+// boxes of 64 columns by 128 rows. 384 threads, grid (ceil(sq / 128), BH).
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap qm,
+                        const __grid_constant__ CUtensorMap km,
+                        const __grid_constant__ CUtensorMap vm, bf16* __restrict__ o,
+                        float* __restrict__ lse, int sq, int kv_len, int causal) {
+  using C = WgFwdCfg<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, NS = C::NS, NB = C::NB;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + NS;
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
+  const int bh = blockIdx.y;
+  const int q0 = qt * BQ;
+  int nk = (kv_len + BK - 1) / BK;  // stages of 128 keys
+  if (causal) nk = min(nk, (min(q0 + BQ, sq) - 1) / BK + 1);
+
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 256);  // every consumer thread releases a stage
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer warpgroup: one thread keeps the ring full
+    setmaxnreg_dec<24>();
+    if (tid == 256) {
+      mbar_expect_tx(qbar, C::Q_BYTES);
+      for (int b = 0; b < NB; ++b) tma_load_3d(sm + b * (BQ * 128), &qm, qbar, 64 * b, q0, bh);
+      for (int j = 0; j < nk; ++j) {
+        const int st = j % NS;
+        if (j >= NS) mbar_wait(&empty[st], ((j / NS) & 1) ^ 1);
+        unsigned char* ks = sm + C::OFF_KV + st * 2 * C::KV_BYTES;
+        mbar_expect_tx(&full[st], 2 * C::KV_BYTES);
+        for (int b = 0; b < NB; ++b) {
+          tma_load_3d(ks + b * (BK * 128), &km, &full[st], 64 * b, j * BK, bh);
+          tma_load_3d(ks + C::KV_BYTES + b * (BK * 128), &vm, &full[st], 64 * b, j * BK, bh);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  // consumers: warpgroup wg owns q rows q0 + 64 wg .., this warp 16 of them
+  const int wiw = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int rw = q0 + 64 * wg + 16 * wiw;
+  const int row0 = rw + g, row1 = row0 + 8;
+  const uint32_t qa = smem_u32(sm) + wg * 64 * 128;
+  float acc[NB][32];
+#pragma unroll
+  for (int h = 0; h < NB; ++h)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[h][e] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  mbar_wait(qbar, 0);
+  if (wg == 1) bar_arrive(1, 256);  // warpgroup 0 takes the first turn
+  for (int j = 0; j < nk; ++j) {
+    const int st = j % NS;
+    mbar_wait(&full[st], (j / NS) & 1);
+    const uint32_t ka = smem_u32(sm + C::OFF_KV + st * 2 * C::KV_BYTES), va = ka + C::KV_BYTES;
+
+    // S = Q~ K^T over the stage's 128 keys; the two warpgroups take turns
+    // issuing it (named barriers 1 and 2), which keeps their S products
+    // apart on the tensor cores
+    float s[64];
+    bar_sync(1 + wg, 256);
+    wg_fence();
+#pragma unroll
+    for (int x = 0; x < D / 16; ++x)
+      wgmma_ss<0, 0, 128>(s, sw128_desc(qa + (x >> 2) * (BQ * 128) + (x & 3) * 32, 16, 1024),
+                          sw128_desc(ka + (x >> 2) * (BK * 128) + (x & 3) * 32, 16, 1024), x);
+    wg_commit();
+    if (wg == 0 || j + 1 < nk) bar_arrive(2 - wg, 256);
+    wg_wait<0>();
+    reg_fence(s);
+
+    // the online softmax and P V once per 64-key half, so that P is
+    // rounded against the running max of the 64-key walk (BLOCK_K of
+    // ops/flash_attention.py)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int c0 = j * BK + 64 * hh;
+      // a half that no row of this warpgroup sees would leave its state
+      // as it is (alpha 1, P 0): skipped (a warpgroup-uniform branch)
+      if (c0 >= kv_len || (causal && c0 > q0 + 64 * wg + 63)) continue;
+      // only the kv tail and halves that cross this warp's causal diagonal
+      // are masked (a warp-uniform branch)
+      const bool masked = c0 + 64 > kv_len || (causal && c0 + 63 > rw);
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int r = 32 * hh + 4 * n;
+        if (masked) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = c0 + 8 * n + 2 * t + (e & 1);
+            const int row = e < 2 ? row0 : row1;
+            if (col >= kv_len || (causal && col > row)) s[r + e] = kMask;
+          }
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[r], s[r + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[r + 2], s[r + 3]));
+      }
+      const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+      const float al0 = exp2_ftz(m0 - mn0), al1 = exp2_ftz(m1 - mn1);
+      float rs0 = 0.f, rs1 = 0.f;
+      uint32_t pf[16];  // P rounded to bf16, as the A fragments of P V
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int r = 32 * hh + 4 * n;
+        const float p0 = exp2_ftz(s[r] - mn0), p1 = exp2_ftz(s[r + 1] - mn0);
+        const float p2 = exp2_ftz(s[r + 2] - mn1), p3 = exp2_ftz(s[r + 3] - mn1);
+        rs0 += p0 + p1;
+        rs1 += p2 + p3;
+        pf[2 * n] = pack_bf16(p0, p1);
+        pf[2 * n + 1] = pack_bf16(p2, p3);
+      }
+      l0 = l0 * al0 + quad_sum(rs0);
+      l1 = l1 * al1 + quad_sum(rs1);
+      m0 = mn0;
+      m1 = mn1;
+
+      // P V over the half's 64 keys, each 64-column block of D in a zeroed
+      // accumulator, added to the running o after its rescale with IEEE
+      // adds (a sum carried in the tensor cores' accumulator over
+      // thousands of key tiles would drift toward zero); the rescale runs
+      // while the product does, and is skipped where the warp's max did
+      // not move (a rescale by 1 is exact)
+      float pv[NB][32];
+      wg_fence();
+#pragma unroll
+      for (int h = 0; h < NB; ++h)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<1>(pv[h], pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2], pf[4 * kk + 3],
+                      sw128_desc(va + h * (BK * 128) + hh * 8192 + kk * 2048, BK * 128, 1024),
+                      kk);
+      wg_commit();
+      if (__any_sync(0xffffffffu, al0 != 1.f || al1 != 1.f)) {
+#pragma unroll
+        for (int h = 0; h < NB; ++h)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) acc[h][e] *= e & 2 ? al1 : al0;
+      }
+      wg_wait<0>();
+#pragma unroll
+      for (int h = 0; h < NB; ++h) {
+        reg_fence(pv[h]);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[h][e] += pv[h][e];
+      }
+    }
+    mbar_arrive(&empty[st]);  // this thread is done with the stage
+  }
+
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  bf16* og = o + (size_t)bh * sq * D;
+#pragma unroll
+  for (int h = 0; h < NB; ++h)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = 64 * h + 8 * n + 2 * t;
+      if (row0 < sq) st_pair(og + (size_t)row0 * D + col, acc[h][4 * n] / d0, acc[h][4 * n + 1] / d0);
+      if (row1 < sq)
+        st_pair(og + (size_t)row1 * D + col, acc[h][4 * n + 2] / d1, acc[h][4 * n + 3] / d1);
+    }
+  if (t == 0) {
+    if (row0 < sq) lse[(size_t)bh * sq + row0] = (m0 + log2f(d0)) * kLn2;
+    if (row1 < sq) lse[(size_t)bh * sq + row1] = (m1 + log2f(d1)) * kLn2;
   }
 }
 
@@ -856,16 +1091,40 @@ __global__ void dq_finalize_wg_kernel(const float* __restrict__ acc, bf16* __res
   }
 }
 
-template <typename T, int D>
+// f32 on the scalar path of mma_common.cuh
+template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                        int sq, int sk, int kv_len, int causal, cudaStream_t stream) {
-  using C = FwdCfg<T, D>;
-  cudaError_t e = allow_smem(flash_fwd_kernel<T, D>, C::kSmem);
+  using C = FwdCfg<float, D>;
+  cudaError_t e = allow_smem(flash_fwd_kernel<float, D>, C::kSmem);
   if (e != cudaSuccess) return e;
   const dim3 grid((sq + C::BQ - 1) / C::BQ, bh);
-  flash_fwd_kernel<T, D><<<grid, kThreads, C::kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), sq, sk, kv_len, causal);
+  flash_fwd_kernel<float, D><<<grid, kThreads, C::kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), sq, sk, kv_len, causal);
+  return cudaSuccess;
+}
+
+// bf16 on wgmma, the ring filled by TMA
+template <int D>
+cudaError_t launch_fwd_wg(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                          int sq, int sk, int kv_len, int causal, cudaStream_t stream) {
+  using C = WgFwdCfg<D>;
+  CUtensorMap maps[3] = {};
+  const void* base[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)(i ? sk : sq), (cuuint64_t)bh};
+    const cuuint32_t box[3] = {64, (cuuint32_t)C::BQ, 1};
+    const cudaError_t e = tma_map_bf16(&maps[i], base[i], 3, dims, box);
+    if (e != cudaSuccess) return e;
+  }
+  cudaError_t e = allow_smem(flash_fwd_wg_kernel<D>, C::kSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((sq + C::BQ - 1) / C::BQ, bh);
+  flash_fwd_wg_kernel<D><<<grid, 384, C::kSmem, stream>>>(maps[0], maps[1], maps[2],
+                                                           static_cast<bf16*>(o),
+                                                           static_cast<float*>(lse), sq, kv_len,
+                                                           causal);
   return cudaSuccess;
 }
 
@@ -956,13 +1215,13 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
   if (bh > 0 && sq > 0) {
     cudaError_t e;
     if (dtype == 0 && d == 64)
-      e = launch_fwd<float, 64>(q, k, v, o, lse, bh, sq, sk, kv_len, causal, s);
+      e = launch_fwd<64>(q, k, v, o, lse, bh, sq, sk, kv_len, causal, s);
     else if (dtype == 0 && d == 128)
-      e = launch_fwd<float, 128>(q, k, v, o, lse, bh, sq, sk, kv_len, causal, s);
+      e = launch_fwd<128>(q, k, v, o, lse, bh, sq, sk, kv_len, causal, s);
     else if (dtype == 1 && d == 64)
-      e = launch_fwd<bf16, 64>(q, k, v, o, lse, bh, sq, sk, kv_len, causal, s);
+      e = launch_fwd_wg<64>(q, k, v, o, lse, bh, sq, sk, kv_len, causal, s);
     else if (dtype == 1 && d == 128)
-      e = launch_fwd<bf16, 128>(q, k, v, o, lse, bh, sq, sk, kv_len, causal, s);
+      e = launch_fwd_wg<128>(q, k, v, o, lse, bh, sq, sk, kv_len, causal, s);
     else
       return (int)cudaErrorInvalidValue;
     if (e != cudaSuccess) return (int)e;

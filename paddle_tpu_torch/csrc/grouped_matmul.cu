@@ -15,16 +15,16 @@
 // 90 MB (0.027 ms at 3.35 TB/s) for 1.7e10 operations (0.017 ms at
 // 989 TFLOP/s); dX and dW are alike.
 //
-// Design (simple first, not the TPU's). Every CTA of 4 warps computes one
-// 128 x 64 output block in f32 registers (each warp 32 rows: two m16 tiles
-// by eight n8 tiles of mma.sync m16n8k16, bf16 in, f32 accumulation). The
-// contraction runs in chunks of 64 bytes of K (32 bf16, 16 f32) staged
-// through shared memory by 16-byte cp.async in a two-stage pipeline;
-// operands whose contraction index is strided are read with ldmatrix.trans,
-// so nothing is ever stored transposed, and rows are padded by 16 bytes to
-// keep ldmatrix free of bank conflicts. f32 runs the same block by scalar
-// FMAs in the same register layout (no TF32). The warp-level helpers are
-// csrc/mma_common.cuh's. No wgmma, TMA or persistent schedule yet.
+// Design (simple first, not the TPU's). The forward, dX and f32 dW: every
+// CTA of 4 warps computes one 128 x 64 output block in f32 registers (each
+// warp 32 rows: two m16 tiles by eight n8 tiles of mma.sync m16n8k16,
+// bf16 in, f32 accumulation). The contraction runs in chunks of 64 bytes
+// of K (32 bf16, 16 f32) staged through shared memory by 16-byte cp.async
+// in a two-stage pipeline; operands whose contraction index is strided are
+// read with ldmatrix.trans, so nothing is ever stored transposed, and rows
+// are padded by 16 bytes to keep ldmatrix free of bank conflicts. f32 runs
+// the same block by scalar FMAs in the same register layout (no TF32).
+// The warp-level helpers are csrc/mma_common.cuh's.
 //
 //   forward: grid (N / 64, tiles); the 128-row tile of lhs against 64
 //            columns of rhs[e]; the column blocks of one tile are
@@ -32,19 +32,35 @@
 //            about once and rhs[e] stays in L2.
 //   dX:      grid (K / 64, tiles); dout's tile against 64 rows of rhs[e]
 //            (contraction over N, contiguous in both).
-//   dW:      grid (N / 64, K / 128, E). The TPU carries a VMEM accumulator
-//            across a sequential grid between a group's first and last
-//            flags; CTAs run in no order, so each CTA owns one (expert, K
-//            block, N block), finds its expert's run of live tiles in the
-//            schedule (groups are contiguous by construction) and sums
-//            them in tile order in registers: the same order every run, no
-//            atomics.
+//   dW:      the TPU carries a VMEM accumulator across a sequential grid
+//            between a group's first and last flags; CTAs run in no order,
+//            so each CTA owns (expert, K block, N blocks), finds its
+//            expert's run of live tiles in the schedule (groups are
+//            contiguous by construction) and sums them in tile order in
+//            registers: the same order every run, no atomics. f32: grid
+//            (N / 64, K / 128, E), one 128 x 64 block a CTA.
+//
+// dW in bf16 (gmm_dw_wg_kernel, redesigned for Hopper) runs on wgmma: a
+// CTA of three warpgroups owns 128 rows of K and two neighbouring 128-
+// column blocks of N in turn (the last block of N = 192 is 64 wide), grid
+// (ceil(N / 256), K / 128, E). One thread of the producer warpgroup
+// (registers handed to the consumers by setmaxnreg, 40 against 232) loads
+// 64-row chunks of lhs [64 x 128] and dout [64 x 128] by TMA (2-D maps,
+// 128-byte swizzle) into a ring of four stages, running ahead from one
+// block into the next; each consumer warpgroup takes 64 rows of K and
+// computes lhs^T dout with m64n128k16, both operands MN-major from the
+// same swizzled tiles. Each 128-row schedule tile is summed in a zeroed
+// accumulator and added to f32 register sums, so an expert that holds all
+// rows does not drift. At (K, N) = (1024, 512) that is 512 CTAs; lhs goes
+// through L2 four times and dout eight (the mma.sync form: eight and eight
+// over 2048 CTAs).
 //
 // The caller guarantees contiguous operands on 16-byte aligned storage, K a
 // multiple of 128, N of 64, int32 schedule arrays of n_tiles entries. The
 // kernels allocate nothing and do not synchronise; they launch on the
 // caller's stream.
 #include "mma_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
@@ -262,7 +278,8 @@ __global__ void __launch_bounds__(kThreads)
   store_block(c, o, K);
 }
 
-// lhs [n_tiles * 128, K], dout [n_tiles * 128, N] -> drhs [E, K, N]
+// lhs [n_tiles * 128, K], dout [n_tiles * 128, N] -> drhs [E, K, N]; f32
+// only: bf16 takes gmm_dw_wg_kernel
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     gmm_dw_kernel(const T* __restrict__ lhs, const T* __restrict__ dout,
@@ -307,6 +324,175 @@ __global__ void __launch_bounds__(kThreads)
     bj = b + r0 * N;
   });
   store_block(c, o, N);
+}
+
+// ---------------------------------------------------------------------------
+// dW for bf16 on wgmma
+// ---------------------------------------------------------------------------
+
+struct WgDwCfg {
+  // a block of the output: 128 rows of K by up to 128 columns of N; a CTA
+  // takes NBPC neighbouring blocks of N in turn. The contraction runs in
+  // chunks of 64 buffer rows through NS stages.
+  static constexpr int BMK = 128, BNW = 128, BR = 64, NS = 4, NBPC = 2;
+  static constexpr int A_BYTES = BR * BMK * 2, B_BYTES = BR * BNW * 2;  // lhs, dout chunk
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int OFF_BAR = NS * STAGE;
+  // barriers (NS full, NS empty), and slack to align the base to 1024 bytes
+  static constexpr size_t kSmem = OFF_BAR + 8 * 2 * NS + 1024;
+};
+
+// The consumers of gmm_dw_wg_kernel for one output block: warpgroup wg
+// owns K rows 64 wg .. of it and all NW columns; its chunks are the ring's
+// c0 .. c0 + 2 ntiles. Each schedule tile (two chunks) is summed in a
+// zeroed accumulator, then added to the f32 sums with IEEE adds, so an
+// expert that holds every row does not drift; the tiles come in tile
+// order, so the bits are the same on every run.
+template <int NW>
+__device__ __forceinline__ void dw_consume(unsigned char* sm, uint64_t* full, uint64_t* empty,
+                                           int c0, int ntiles, bf16* o, int N) {
+  using C = WgDwCfg;
+  constexpr int R = NW / 2;  // accumulator registers
+  const int tid = threadIdx.x, wg = tid >> 7, wiw = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  float sum[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) sum[i] = 0.f;
+  for (int tl = 0; tl < ntiles; ++tl) {
+    float acc[R];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c = c0 + 2 * tl + half, st = c % C::NS;
+      mbar_wait(&full[st], (c / C::NS) & 1);
+      // A = the lhs chunk transposed (K contiguous: MN-major), B = the dout
+      // chunk (N contiguous: MN-major); 16 buffer rows a step
+      const uint32_t a = smem_u32(sm + st * C::STAGE), b = a + C::A_BYTES;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<1, 1, NW>(acc, sw128_desc(a + wg * 8192 + kk * 2048, 8192, 1024),
+                           sw128_desc(b + kk * 2048, 8192, 1024), half | kk);
+      wg_commit();
+    }
+    wg_wait<1>();  // the tile's first chunk is read
+    mbar_arrive(&empty[(c0 + 2 * tl) % C::NS]);
+    wg_wait<0>();
+    reg_fence(acc);
+    mbar_arrive(&empty[(c0 + 2 * tl + 1) % C::NS]);
+#pragma unroll
+    for (int i = 0; i < R; ++i) sum[i] += acc[i];
+  }
+  const int r0 = 64 * wg + 16 * wiw + g;
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    st_pair(o + (size_t)r0 * N + col, sum[4 * j], sum[4 * j + 1]);
+    st_pair(o + (size_t)(r0 + 8) * N + col, sum[4 * j + 2], sum[4 * j + 3]);
+  }
+}
+
+// lm maps lhs [n_tiles * 128, K] and dm dout [n_tiles * 128, N] (bf16)
+// with boxes of 64 columns by 64 rows -> drhs [E, K, N] bf16. 384 threads:
+// warpgroup 2 is the producer (one thread issues the TMA loads, running
+// ahead from one output block into the next), 0 and 1 the consumers.
+// Grid (ceil(ceil(N / 128) / NBPC), K / 128, E): the CTAs of one (expert,
+// K block) are neighbours in launch order, and each scans the schedule
+// for its expert's run once.
+__global__ void __launch_bounds__(384, 1)
+    gmm_dw_wg_kernel(const __grid_constant__ CUtensorMap lm, const __grid_constant__ CUtensorMap dm,
+                     const int* __restrict__ tile_expert, const int* __restrict__ live,
+                     bf16* __restrict__ drhs, int n_tiles, int K, int N) {
+  using C = WgDwCfg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* empty = full + C::NS;
+  __shared__ int s_first, s_count;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int kb = blockIdx.y, e = blockIdx.z;
+  const int nb0 = blockIdx.x * C::NBPC;
+  const int nbn = min(C::NBPC, (N + C::BNW - 1) / C::BNW - nb0);  // this CTA's blocks
+  if (tid == 0) {
+    s_first = n_tiles;
+    s_count = 0;
+    for (int st = 0; st < C::NS; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 256);  // every consumer thread releases a stage
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // this expert's live tiles: one contiguous run [first, first + count)
+  int mine_first = n_tiles, mine_count = 0;
+  for (int t = tid; t < n_tiles; t += 384)
+    if (live[t] && tile_expert[t] == e) {
+      mine_first = min(mine_first, t);
+      ++mine_count;
+    }
+  if (mine_count) {
+    atomicMin(&s_first, mine_first);
+    atomicAdd(&s_count, mine_count);
+  }
+  __syncthreads();
+  const int first = s_first, count = s_count;
+  bf16* ob = drhs + (size_t)e * K * N + (size_t)kb * C::BMK * N;
+  if (count == 0) {
+    const int n0 = nb0 * C::BNW, cols = min(nbn * C::BNW, N - n0);
+    for (int i = tid; i < C::BMK * cols / 2; i += 384) {
+      const int r = i / (cols / 2), col = (i % (cols / 2)) * 2;
+      st_pair(ob + (size_t)r * N + n0 + col, 0.f, 0.f);
+    }
+    return;
+  }
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (tid == 256) {
+      int c = 0;  // the ring's chunk count
+      for (int b = 0; b < nbn; ++b) {
+        const int n0 = (nb0 + b) * C::BNW, nw = min(C::BNW, N - n0);
+        for (int i = 0; i < 2 * count; ++i, ++c) {
+          const int st = c % C::NS, r = first * kTileRows + i * C::BR;
+          if (c >= C::NS) mbar_wait(&empty[st], ((c / C::NS) & 1) ^ 1);
+          unsigned char* a = sm + st * C::STAGE;
+          mbar_expect_tx(&full[st], C::A_BYTES + nw * C::BR * 2);
+          tma_load_2d(a, &lm, &full[st], kb * C::BMK, r);
+          tma_load_2d(a + 8192, &lm, &full[st], kb * C::BMK + 64, r);
+          tma_load_2d(a + C::A_BYTES, &dm, &full[st], n0, r);
+          if (nw == 128) tma_load_2d(a + C::A_BYTES + 8192, &dm, &full[st], n0 + 64, r);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<232>();
+  for (int b = 0; b < nbn; ++b) {
+    const int n0 = (nb0 + b) * C::BNW;
+    if (N - n0 >= 128)
+      dw_consume<128>(sm, full, empty, 2 * count * b, count, ob + n0, N);
+    else
+      dw_consume<64>(sm, full, empty, 2 * count * b, count, ob + n0, N);
+  }
+}
+
+cudaError_t launch_dw_wg(const void* lhs, const void* dout, const int* te, const int* lv,
+                         void* drhs, int n_tiles, int num_experts, int k, int n,
+                         cudaStream_t s) {
+  using C = WgDwCfg;
+  if (n_tiles == 0)  // no rows: every expert's dW is zero
+    return cudaMemsetAsync(drhs, 0, (size_t)num_experts * k * n * sizeof(bf16), s);
+  CUtensorMap lm, dm;
+  const cuuint64_t rows = (cuuint64_t)n_tiles * kTileRows;
+  const cuuint64_t ld[2] = {(cuuint64_t)k, rows}, dd[2] = {(cuuint64_t)n, rows};
+  const cuuint32_t box[2] = {64, (cuuint32_t)C::BR};
+  cudaError_t e = tma_map_bf16(&lm, lhs, 2, ld, box);
+  if (e == cudaSuccess) e = tma_map_bf16(&dm, dout, 2, dd, box);
+  if (e == cudaSuccess) e = allow_smem(gmm_dw_wg_kernel, C::kSmem);
+  if (e != cudaSuccess) return e;
+  const int nblocks = (n + C::BNW - 1) / C::BNW;
+  const dim3 grid((nblocks + C::NBPC - 1) / C::NBPC, k / C::BMK, num_experts);
+  gmm_dw_wg_kernel<<<grid, 384, C::kSmem, s>>>(lm, dm, te, lv, static_cast<bf16*>(drhs), n_tiles,
+                                               k, n);
+  return cudaSuccess;
 }
 
 bool bad_shape(int n_tiles, int k, int n) {
@@ -376,11 +562,10 @@ extern "C" int gmm_dw(const void* lhs, const void* dout, const void* tile_expert
     gmm_dw_kernel<float><<<grid, kThreads, 0, s>>>(static_cast<const float*>(lhs),
                                                    static_cast<const float*>(dout), te, lv,
                                                    static_cast<float*>(drhs), n_tiles, k, n);
-  else if (dtype == 1)
-    gmm_dw_kernel<bf16><<<grid, kThreads, 0, s>>>(static_cast<const bf16*>(lhs),
-                                                  static_cast<const bf16*>(dout), te, lv,
-                                                  static_cast<bf16*>(drhs), n_tiles, k, n);
-  else
+  else if (dtype == 1) {
+    const cudaError_t e = launch_dw_wg(lhs, dout, te, lv, drhs, n_tiles, num_experts, k, n, s);
+    if (e != cudaSuccess) return (int)e;
+  } else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -40,10 +40,13 @@ recurrence only; the JAX package's default tile-0-anchored "fixed-base"
 variant is not ported (it overflows once a later tile's row max exceeds
 tile 0's by about 100 log2 units).
 
-On the card, bf16's fused backward and its dK/dV pass (rows 16, 17) run
-on Hopper's warpgroup products (wgmma, 128 keys a CTA) and sum dQ across
-CTAs with bulk reduce-adds into a zeroed f32 scratch; f32 and the other
-kernels take warp-level mma.sync (csrc/flash_attention.cu).
+On the card, bf16's forward (rows 14 and 13) and its fused backward and
+dK/dV pass (rows 16, 17) run on Hopper's warpgroup products (wgmma, 128
+q rows or 128 keys a CTA). The forward is warp-specialised: K/V stages
+arrive by TMA from a producer warpgroup while two consumer warpgroups
+take turns on the tensor cores; the backward sums dQ across CTAs with
+bulk reduce-adds into a zeroed f32 scratch. f32 and the other kernels
+take warp-level mma.sync (csrc/flash_attention.cu).
 
 Rounding points, shared by kernels and plain versions: scores and every
 product accumulate in f32; the forward rounds P to the input dtype before
@@ -72,8 +75,12 @@ LN2 = 0.6931471805599453
 _MASK = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-# the forward kernel's K/V tile: the plain version walks the same tiles so
-# that P is rounded against the same running max
+# The forward kernels' softmax tile: P is rounded against the running max
+# after every BLOCK_K keys, in the plain version as in both kernels (the
+# f32 kernel walks 64-key tiles; the bf16 wgmma kernel loads 128-key
+# stages and runs its softmax and P.V over each 64-key half). A 128-key
+# walk moves bf16 o by up to 1.3e-3 relative Frobenius against the 64-key
+# walk (tools/fwd_tile_gap.py), outside the card check's 2^-10.
 BLOCK_K = 64
 
 
@@ -81,10 +88,10 @@ BLOCK_K = 64
 # plain versions (any device; the kernels' references)
 # ---------------------------------------------------------------------------
 
-def flash_fwd_plain(q, k, v, causal=False, kv_len=None):
-    """Plain PyTorch forward over ``BLOCK_K``-key tiles with the kernel's
-    online softmax and rounding points, in memory linear in S. q
-    pre-scaled. Returns (o, lse)."""
+def flash_fwd_plain(q, k, v, causal=False, kv_len=None, block_k=BLOCK_K):
+    """Plain PyTorch forward over ``block_k``-key tiles (the kernels'
+    ``BLOCK_K`` by default) with the kernels' online softmax and rounding
+    points, in memory linear in S. q pre-scaled. Returns (o, lse)."""
     bh, sq, d = q.shape
     kv_len = k.shape[1] if kv_len is None else kv_len
     dev = q.device
@@ -92,8 +99,8 @@ def flash_fwd_plain(q, k, v, causal=False, kv_len=None):
     m = torch.full((bh, sq), float("-inf"), device=dev)
     l = torch.zeros((bh, sq), device=dev)
     acc = torch.zeros((bh, sq, d), device=dev)
-    for c0 in range(0, kv_len, BLOCK_K):
-        c1 = min(c0 + BLOCK_K, kv_len)
+    for c0 in range(0, kv_len, block_k):
+        c1 = min(c0 + block_k, kv_len)
         # under causal, rows above c0 see none of these keys: their update
         # would be alpha = 1, p = 0, so they are left as they are
         r0 = min(c0, sq) if causal else 0

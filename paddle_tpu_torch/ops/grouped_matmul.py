@@ -18,9 +18,11 @@ once from the f32 sum, as the JAX backward casts its f32 dW); autograd
 casts each gradient to its input's dtype.
 
 On the card the kernels take ``tile_rows`` = 128 only, bf16 or f32
-operands of one dtype, K a multiple of 128 and N a multiple of 64. The
-plain versions take any tile size (the CPU tests use 8), any shapes and
-dtypes. :func:`grouped_matmul` is the differentiable entry.
+operands of one dtype, K a multiple of 128 and N a multiple of 64; bf16
+dW runs on Hopper's warpgroup products fed by TMA (csrc/grouped_matmul.cu),
+the rest on warp-level mma.sync. The plain versions take any tile size
+(the CPU tests use 8), any shapes and dtypes. :func:`grouped_matmul` is
+the differentiable entry.
 """
 from __future__ import annotations
 

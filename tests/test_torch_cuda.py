@@ -622,6 +622,43 @@ def test_flash_bwd_wgmma_matches_plain(dev, d, causal, s):
     assert torch.equal(dk, got[1]) and torch.equal(dv, got[2])
 
 
+# (Sq, Sk, causal, kv_len): a ragged S, the train phase's S, Sq != Sk
+# (flash_block_fwd's shapes, causal top-left) and kv_len < Sk
+WG_FWD_LAYOUTS = [(200, 200, True, None), (200, 200, False, None),
+                  (2048, 2048, True, None), (256, 512, True, None),
+                  (512, 256, True, None), (384, 640, False, None),
+                  (300, 1152, True, 1000), (200, 333, False, 130)]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("layout", range(len(WG_FWD_LAYOUTS)))
+def test_flash_fwd_wgmma_matches_plain(dev, d, layout):
+    """Row 14 in bf16 (the wgmma kernel: 128 q rows a CTA, 128-key
+    stages by TMA, softmax per 64-key half) against its plain version
+    under the flash rule; one launch each."""
+    sq, sk, causal, kv_len = WG_FWD_LAYOUTS[layout]
+    qs, k, v, _ = _flash_case(dev, torch.bfloat16, 8, sq, d,
+                              seed=sq + sk + d, sk=sk)
+    before = fa.flash_fwd.launches
+    o, lse = fa.flash_fwd(qs, k, v, causal, kv_len)
+    o_ref, lse_ref = fa.flash_fwd_plain(qs, k, v, causal, kv_len)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches == before + 1
+    assert torch.isfinite(o).all()
+    _close(o, o_ref, FLASH_TOL[torch.bfloat16][0])
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_fwd_wgmma_runs_give_the_same_bits(dev, d):
+    """Two runs give the same bits."""
+    qs, k, v, _ = _flash_case(dev, torch.bfloat16, 16, 1000, d, seed=d)
+    runs = [fa.flash_fwd(qs, k, v, True) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[1][0], runs[0][0])
+    assert torch.equal(runs[1][1], runs[0][1])
+
+
 def test_flash_fwd_kv_len_masks_the_tail(dev):
     qs, k, v, _ = _flash_case(dev, torch.bfloat16, 4, 100, 128, seed=9,
                               sk=160)
@@ -923,7 +960,7 @@ def _gmm_case(dev, dtype, counts, k, n, seed=0, tail_tiles=2):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kn", [(128, 64), (256, 192)])
+@pytest.mark.parametrize("kn", [(128, 64), (256, 192), (256, 256)])
 @pytest.mark.parametrize("counts", GMM_LAYOUTS)
 def test_gmm_kernels_match_plain(dev, dtype, kn, counts):
     k, n = kn
@@ -948,6 +985,47 @@ def test_gmm_kernels_match_plain(dev, dtype, kn, counts):
     for x in range(e):
         if counts[x] == 0:
             assert (got[2][x] == 0).all(), x
+
+
+@pytest.mark.parametrize("kn", [(256, 192), (1024, 512), (512, 1024)])
+def test_gmm_dw_wgmma_runs_give_the_same_bits(dev, kn):
+    """bf16 dW (the wgmma kernel) twice on one input: the same bits, each
+    expert's tiles summed in tile order with no atomics."""
+    k, n = kn
+    counts, m, sched, lhs, _, dout = _gmm_case(
+        dev, torch.bfloat16, [300, 0, 1000, 129, 0, 640], k, n, seed=k + n)
+    a, b = (tg.gmm_dw(lhs, dout, sched, num_experts=6) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert (a[1] == 0).all() and (a[4] == 0).all()
+
+
+# chip_smoke.DW_DRIFT_EXCESS: how far dW's drift along an f64 product may
+# exceed its plain version's (tools/gmm_dw_mutants.py)
+DW_DRIFT_EXCESS = 2e-6
+
+
+def test_gmm_dw_wgmma_one_expert_holds_every_row(dev):
+    """bf16 dW when one expert holds 16,384 rows (128 tiles into one
+    block) at the ERNIE phase's (K, N) = (1024, 512): against the plain
+    version under GMM_TOL, and its drift along a product summed in f64
+    from the same operands within DW_DRIFT_EXCESS of the plain
+    version's."""
+    counts, m, sched, lhs, _, dout = _gmm_case(
+        dev, torch.bfloat16, [16384, 0, 0, 0], 1024, 512, seed=3,
+        tail_tiles=0)
+    got = tg.gmm_dw(lhs, dout, sched, num_experts=4)
+    want = tg.gmm_dw_plain(lhs, dout, sched, num_experts=4)
+    ref = lhs.double().T @ dout.double()
+    torch.cuda.synchronize()
+    _close(got, want, GMM_TOL[torch.bfloat16])
+    assert (got[1:] == 0).all()
+
+    def drift(x):
+        d = x[0].double() - ref
+        return ((d * ref).sum() / (ref * ref).sum()).item()
+    assert abs(drift(got) - drift(want)) <= DW_DRIFT_EXCESS, \
+        (drift(got), drift(want))
 
 
 def test_gmm_autograd_on_card_matches_cpu(dev):

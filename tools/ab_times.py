@@ -1,4 +1,4 @@
-"""Times rows 10, 11, 16 and 17 of two trees side by side on one card.
+"""Times rows 14 and 26 of two trees side by side on one card.
 
     python3 tools/ab_times.py BEFORE AFTER
 
@@ -8,13 +8,15 @@ into a git-ignored directory, and ``.``. Each tree runs in a process of
 its own (its kernels build there), in the order BEFORE, AFTER, AFTER,
 BEFORE, so that a drift of the card over the call shows. Times are
 device ms per call with the calls queued ahead (chip_smoke.py's
-``_time_ms``), in bf16, causal:
+``_time_ms``), in bf16:
 
-  flash_bwd, flash_bwd_dkv   BH 128, S 2048, D 128 (the train phase);
-                             BH 128, S 512, D 64 (the ERNIE phase);
-                             BH 4, S 131072, D 128 (attn-long)
-  slab update, slab read     B 8, NH 32 over NKV 4, HD 64, T 1152,
-                             pos 1023 (the generate phase)
+  flash_fwd (row 14)  causal: BH 128, S 2048, D 128 (the train phase);
+                      BH 8, S 16384, D 128 (row 13's shape, attn-long);
+                      BH 128, S 512, D 64 (the ERNIE phase)
+  flash_bwd (row 16)  BH 128, S 2048, D 128, causal (a control: the
+                      same kernel in both trees)
+  gmm_dw (row 26)     one ERNIE MoE layer's schedule (16,384 routed rows
+                      of 32 experts) at (K, N) = (1024, 512), (512, 1024)
 
 Needs one CUDA device and nvcc; prints one JSON line per run, the card's
 name and power limit first, and writes chiprun_out/ab_times.json.
@@ -22,13 +24,12 @@ name and power limit first, and writes chiprun_out/ab_times.json.
 from __future__ import annotations
 
 import json
-import math
 import os
 import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FLASH = [(128, 2048, 128, 20), (128, 512, 64, 50), (4, 131072, 128, 2)]
+FWD = [(128, 2048, 128, 20), (8, 16384, 128, 10), (128, 512, 64, 50)]
 
 
 def run_one(tree):
@@ -38,37 +39,36 @@ def run_one(tree):
     sys.path.append(ROOT)
     import chip_smoke
     from paddle_tpu_torch import _build
-    from paddle_tpu_torch.ops import decode_attention as da
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import grouped_matmul as tg
     assert fa.__file__.startswith(tree), fa.__file__
-    _build.build_all(["flash_attention", "decode_attention"])
+    _build.build_all(["flash_attention", "grouped_matmul"])
     dev = torch.device("cuda", 0)
     out = {}
 
     def t(fn, iters):
         return chip_smoke._time_ms(fn, iters)[0]
 
-    for bh, s, d, iters in FLASH:
-        g = torch.Generator(device=dev).manual_seed(0)
-        qs = (torch.randn((bh, s, d), generator=g, device=dev)
-              * (fa.LOG2E / math.sqrt(d))).to(torch.bfloat16)
-        k, v, do = (torch.randn((bh, s, d), generator=g, device=dev)
-                    .to(torch.bfloat16) for _ in range(3))
-        o, lse = fa.flash_fwd(qs, k, v, True)
-        delta = (do.float() * o.float()).sum(-1)
-        args = (qs, k, v, do, lse, delta, True, d ** -0.5)
-        out[f"flash_bwd[BH={bh},S={s},D={d}]"] = t(
-            lambda: fa.flash_bwd(*args), iters)
-        out[f"flash_bwd_dkv[BH={bh},S={s},D={d}]"] = t(
-            lambda: fa.flash_bwd_dkv(*args), iters)
-        del qs, k, v, do, o, lse, delta, args
+    for bh, s, d, iters in FWD:
+        qs, k, v, do = chip_smoke._flash_inputs(bh, s, d, torch.bfloat16, 0,
+                                                dev)
+        key = f"[BH={bh},S={s},D={d}]"
+        out["flash_fwd" + key] = t(lambda: fa.flash_fwd(qs, k, v, True),
+                                   iters)
+        if (bh, s, d) == (128, 2048, 128):
+            o, lse = fa.flash_fwd(qs, k, v, True)
+            delta = (do.float() * o.float()).sum(-1)
+            args = (qs, k, v, do, lse, delta, True, d ** -0.5)
+            out["flash_bwd" + key] = t(lambda: fa.flash_bwd(*args), iters)
+            del o, lse, delta, args
+        del qs, k, v, do
         torch.cuda.empty_cache()
-    q, nk, nv, kc, vc = chip_smoke._slab_inputs(dev, torch.bfloat16, 8, 32,
-                                                4, 64, 1152, 0)
-    out["slab update[B=8,pos=1023]"] = t(
-        lambda: da.decode_attend_update_slab(q, nk, nv, kc, vc, 1, 1023), 200)
-    out["slab read[B=8,pos=1023]"] = t(
-        lambda: da.decode_attention_slab(q, kc, vc, 1, 1023), 200)
+    counts, n_rows, sched = chip_smoke._slice_schedule(dev)
+    for k, n in chip_smoke.MOE_SHAPES:
+        lhs, _, dout = chip_smoke._gmm_operands(dev, torch.bfloat16, n_rows,
+                                                32, k, n, 0)
+        out[f"gmm_dw[K={k},N={n}]"] = t(
+            lambda: tg.gmm_dw(lhs, dout, sched, num_experts=32), 50)
     print(json.dumps({"tree": tree, "ms": out}))
 
 

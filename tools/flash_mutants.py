@@ -11,8 +11,9 @@ what the earlier rule (atol = rel * max |ref| of the whole tensor, rtol =
 rel) would have said. Cases: the train phase's shape (BH 128, S 2048,
 D 128, causal, bf16) and BH 8, S 200, D 128, not causal, bf16.
 
-The backward mutants write their faults into the bf16 kernel on wgmma
-(flash_bwd_wg_kernel), which both cases run. Needs one CUDA device and
+The mutants write their faults into the bf16 kernels on wgmma, which
+both cases run: three into the forward (flash_fwd_wg_kernel) and three
+into the fused backward (flash_bwd_wg_kernel). Needs one CUDA device and
 nvcc; writes chiprun_out/flash_mutants.json and exits non-zero unless
 every verdict is as expected.
 """
@@ -28,19 +29,24 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASES = [(128, 2048, 128, True), (8, 200, 128, False)]
 
-_FWD_P = "      st_pair(pw + (g + 8) * LDP + n * 8 + 2 * t, p2, p3);\n"
-_FWD_PV = ("    warp_mm<NTO, true, false>(acc, pw, LDP, v_s, LD, BK);"
-           "  // acc += round(P) V\n")
+_FWD_PF = "      uint32_t pf[16];  // P rounded to bf16, as the A fragments of P V\n"
+_FWD_PACK = "        pf[2 * n + 1] = pack_bf16(p2, p3);\n"
+_FWD_PV = ("          wgmma_rs<1>(pv[h], pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2], "
+           "pf[4 * kk + 3],\n"
+           "                      sw128_desc(va + h * (BK * 128) + hh * 8192 + kk * 2048, "
+           "BK * 128, 1024),\n"
+           "                      kk);\n")
+_FWD_ADD = "        for (int e = 0; e < 32; ++e) acc[h][e] += pv[h][e];\n"
 _BWD_DV_STEPS = ("        wgmma_rs<1>(pr, pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2], "
                  "pf[4 * kk + 3],\n")
 _BWD_DK_ADD = "      for (int e = 0; e < 32; ++e) dkc[h][e] += pr[e];\n"
 _BWD_DQ_REDUCE = "          if ((tid & 127) == 0) {\n            bulk_reduce_add_f32("
 
 
-def _lo(ptr, row, a, b):
-    """st_pair of what rounding to T dropped from the f32 pair (a, b)."""
-    return (f"      st_pair({ptr} + {row} * LDP + n * 8 + 2 * t, "
-            f"{a} - to_f(from_f<T>({a})), {b} - to_f(from_f<T>({b})));\n")
+def _lo(a, b):
+    """bf16 pair of what rounding to bf16 dropped from the f32 pair."""
+    return (f"pack_bf16({a} - __bfloat162float(__float2bfloat16_rn({a})), "
+            f"{b} - __bfloat162float(__float2bfloat16_rn({b})))")
 
 
 # name -> [(text, replacement)]; each text occurs once in the source
@@ -48,19 +54,23 @@ MUTANTS = {
     "unchanged": [],
     # P.V with P as bf16 hi + lo, i.e. P left unrounded (to 2^-16)
     "fwd_p_unrounded": [
-        ("(size_t)BQ * LD + 4 * BK * LD + BQ * LDP);",
-         "(size_t)BQ * LD + 4 * BK * LD + 2 * BQ * LDP);"),
-        (_FWD_P, _FWD_P + _lo("pw + BQ * LDP", "g", "p0", "p1")
-         + _lo("pw + BQ * LDP", "(g + 8)", "p2", "p3")),
-        (_FWD_PV, _FWD_PV + "    warp_mm<NTO, true, false>(acc, pw + BQ * "
-         "LDP, LDP, v_s, LD, BK);\n"),
+        (_FWD_PF, _FWD_PF.replace("pf[16]", "pf[16], pl[16]")),
+        (_FWD_PACK, _FWD_PACK + f"        pl[2 * n] = {_lo('p0', 'p1')};\n"
+         f"        pl[2 * n + 1] = {_lo('p2', 'p3')};\n"),
+        (_FWD_PV, "        {\n" + _FWD_PV + _FWD_PV.replace("pf[", "pl[")
+         .replace("kk);", "1);") + "        }\n"),
     ],
     # o 20% too large on every q tile of the second half
     "fwd_late_q_tiles_20pct": [
-        ("  T* og = o + bh * sq * D;\n",
-         "  if (q0 >= sq / 2)\n    for (int n = 0; n < NTO; ++n)\n"
-         "      for (int e = 0; e < 4; ++e) acc[n][e] *= 1.2f;\n"
-         "  T* og = o + bh * sq * D;\n"),
+        ("  bf16* og = o + (size_t)bh * sq * D;\n",
+         "  if (q0 >= sq / 2)\n    for (int h = 0; h < NB; ++h)\n"
+         "      for (int e = 0; e < 32; ++e) acc[h][e] *= 1.2f;\n"
+         "  bf16* og = o + (size_t)bh * sq * D;\n"),
+    ],
+    # key stage 1's first 64-key half never adds its P.V
+    "fwd_drop_a_key_tile_pv": [
+        (_FWD_ADD, "        for (int e = 0; e < 32; ++e)\n"
+         "          if (j != 1 || hh) acc[h][e] += pv[h][e];\n"),
     ],
     # dV misses one of the four wgmma products (16 q rows) of every q tile
     "bwd_dv_drop_a_product": [
