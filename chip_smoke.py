@@ -186,6 +186,20 @@ def probe():
     return smi
 
 
+def ptxas_lines(log):
+    """ptxas's registers, spills and notes on wgmma serialisation in a
+    build log, each as "kernel: line\"."""
+    out, kern = [], ""
+    for line in log.splitlines():
+        m = re.search(r"entry function '_ZN\w*\d([a-z][a-z0-9_]*?_kernel)"
+                      r"(I\w*?)?Ev?(P|\d)", line)
+        if m:    # the kernel's name and its mangled template arguments
+            kern = m.group(1) + (m.group(2) or "")
+        if "registers" in line or "spill" in line or "wgmma" in line:
+            out.append(f"{kern}: {line.strip()}")
+    return out
+
+
 def build():
     from paddle_tpu_torch import _build
     phase("build")
@@ -197,15 +211,8 @@ def build():
     for p in paths:
         print(f"built {os.path.relpath(p, ROOT)}")
     for name, log in _build.BUILD_LOGS.items():
-        kern = ""
-        for line in log.splitlines():
-            m = re.search(r"entry function '_ZN\w*\d([a-z][a-z0-9_]*?_kernel)"
-                          r"(I\w*?)?Ev?(P|\d)", line)
-            if m:    # the kernel's name and its mangled template arguments
-                kern = m.group(1) + (m.group(2) or "")
-            # registers, spills, and ptxas's notes on wgmma serialisation
-            if "registers" in line or "spill" in line or "wgmma" in line:
-                print(f"  {name}: {kern}: {line.strip()}")
+        for line in ptxas_lines(log):
+            print(f"  {name}: {line}")
     print(f"build seconds {secs:.2f}")
     # the int8 walks' shared memory (16 K row groups: 64 KiB of partial
     # scores at 8 rows) and registers bound how many CTAs share an SM
@@ -826,15 +833,25 @@ def _gmm_operands(dev, dtype, n_rows, e, k, n, seed):
     return lhs, rhs, dout
 
 
+def _poisoned(shape, dtype, dev):
+    """Frees a NaN-filled block of ``shape``: the caching allocator hands
+    it to the next allocation of that size, so an output element that a
+    kernel leaves unwritten reads NaN and not a lucky zero."""
+    torch.full(shape, float("nan"), dtype=dtype, device=dev)
+
+
 def gmm_case(tg, counts, n_rows, sched, dtype, k, n, seed, dev):
     """fwd, dX and dW against their plain versions; dead tiles and empty
     experts must be exactly zero. Returns {kernel: flash_close(...)}."""
     e = counts.shape[0]
     lhs, rhs, dout = _gmm_operands(dev, dtype, n_rows, e, k, n, seed)
     rel, frob = GMM_TOL[dtype]
-    got = {"gmm_fwd": tg.gmm_fwd(lhs, rhs, sched),
-           "gmm_dx": tg.gmm_dx(dout, rhs, sched),
-           "gmm_dw": tg.gmm_dw(lhs, dout, sched, num_experts=e)}
+    got = {}
+    _poisoned((n_rows, n), dtype, dev)
+    got["gmm_fwd"] = tg.gmm_fwd(lhs, rhs, sched)
+    _poisoned((n_rows, k), dtype, dev)
+    got["gmm_dx"] = tg.gmm_dx(dout, rhs, sched)
+    got["gmm_dw"] = tg.gmm_dw(lhs, dout, sched, num_experts=e)
     want = {"gmm_fwd": tg.gmm_fwd_plain(lhs, rhs, sched),
             "gmm_dx": tg.gmm_dx_plain(dout, rhs, sched),
             "gmm_dw": tg.gmm_dw_plain(lhs, dout, sched, num_experts=e)}
@@ -880,12 +897,19 @@ def check_gmm(dev, errs):
             errs[kern] = max(errs.get(kern, 0.0), err)
         assert all(r[0] for r in res.values()), f"gmm disagrees: {res}"
     check_gmm_one_expert(tg, dev)
+    for key, (dk, dp) in gmm_drifts(tg, dev).items():
+        ok = dw_drift_ok(dk, dp)
+        print(f"{key} bf16 on the ERNIE slice, drift against f64: kernel "
+              f"{dk:+.3e}, plain {dp:+.3e}, excess {dk - dp:+.3e} "
+              f"{'ok' if ok else 'FAILED'}")
+        assert ok, f"{key} drift"
     torch.cuda.empty_cache()
 
 
-# dW's drift along an f64 product may exceed its plain version's by this
-# much when one expert holds every row (tools/gmm_dw_mutants.py measures
-# the sound kernel and one that carries the sum in the tensor cores)
+# A kernel's drift along an f64 product may exceed its plain version's by
+# this much: dW's when one expert holds every row (tools/gmm_mutants.py
+# measures the sound kernel and one that carries the sum in the tensor
+# cores), the forward's and dX's on the ERNIE slice
 DW_DRIFT_EXCESS = 2e-6
 
 
@@ -898,6 +922,34 @@ def dw_drift(x, ref):
 
 def dw_drift_ok(kernel_drift, plain_drift):
     return abs(kernel_drift - plain_drift) <= DW_DRIFT_EXCESS
+
+
+def gmm_drifts(tg, dev):
+    """The forward's and dX's drift along a product summed in f64 from
+    the same bf16 operands, kernel and plain version, at both MOE_SHAPES
+    on the ERNIE slice's schedule -> {"gmm_fwd[K=..,N=..]": (kernel drift,
+    plain drift), ...}."""
+    counts, n_rows, sched = _slice_schedule(dev)
+    out = {}
+    for k, n in MOE_SHAPES:
+        lhs, rhs, dout = _gmm_operands(dev, torch.bfloat16, n_rows,
+                                       counts.shape[0], k, n, SEED + 41)
+        for name, a, kern, plain in (
+                ("gmm_fwd", lhs, tg.gmm_fwd, tg.gmm_fwd_plain),
+                ("gmm_dx", dout, tg.gmm_dx, tg.gmm_dx_plain)):
+            ref = torch.zeros((n_rows, n if name == "gmm_fwd" else k),
+                              dtype=torch.float64, device=dev)
+            for rows, e in tg._live_tiles(sched, 128):
+                w = rhs[e].double()
+                ref[rows] = a[rows].double() @ (w if name == "gmm_fwd"
+                                                else w.T)
+            got, want = kern(a, rhs, sched), plain(a, rhs, sched)
+            torch.cuda.synchronize()
+            out[f"{name}[K={k},N={n}]"] = (dw_drift(got, ref),
+                                           dw_drift(want, ref))
+            del ref, got, want
+        del lhs, rhs, dout
+    return out
 
 
 def check_gmm_one_expert(tg, dev):

@@ -15,57 +15,57 @@
 // 90 MB (0.027 ms at 3.35 TB/s) for 1.7e10 operations (0.017 ms at
 // 989 TFLOP/s); dX and dW are alike.
 //
-// Design (simple first, not the TPU's). The forward, dX and f32 dW: every
-// CTA of 4 warps computes one 128 x 64 output block in f32 registers (each
-// warp 32 rows: two m16 tiles by eight n8 tiles of mma.sync m16n8k16,
-// bf16 in, f32 accumulation). The contraction runs in chunks of 64 bytes
-// of K (32 bf16, 16 f32) staged through shared memory by 16-byte cp.async
-// in a two-stage pipeline; operands whose contraction index is strided are
-// read with ldmatrix.trans, so nothing is ever stored transposed, and rows
-// are padded by 16 bytes to keep ldmatrix free of bank conflicts. f32 runs
-// the same block by scalar FMAs in the same register layout (no TF32).
-// The warp-level helpers are csrc/mma_common.cuh's.
+// bf16 runs on wgmma, fed by TMA from a producer warpgroup:
 //
-//   forward: grid (N / 64, tiles); the 128-row tile of lhs against 64
-//            columns of rhs[e]; the column blocks of one tile are
-//            neighbours in launch order, so lhs is read from device memory
-//            about once and rhs[e] stays in L2.
-//   dX:      grid (K / 64, tiles); dout's tile against 64 rows of rhs[e]
-//            (contraction over N, contiguous in both).
-//   dW:      the TPU carries a VMEM accumulator across a sequential grid
-//            between a group's first and last flags; CTAs run in no order,
-//            so each CTA owns (expert, K block, N blocks), finds its
-//            expert's run of live tiles in the schedule (groups are
-//            contiguous by construction) and sums them in tile order in
-//            registers: the same order every run, no atomics. f32: grid
-//            (N / 64, K / 128, E), one 128 x 64 block a CTA.
+//   forward, dX (gmm_fwd_wg_kernel, gmm_dx_wg_kernel): a work item is one
+//            128-row schedule tile by one block of WgMmCfg::BNW output
+//            columns; persistent CTAs of three warpgroups walk the items
+//            (tile, block), block fastest, so the CTAs in flight share
+//            their lhs / dout tiles and an expert's rhs in L2. One thread
+//            of the producer warpgroup (registers handed to the consumers
+//            by setmaxnreg, 40 against 232) loads 64-wide chunks of the
+//            contraction by TMA (2-D maps, 128-byte swizzle) into a ring
+//            of stages, running ahead from one item into the next while
+//            the consumers store; each consumer warpgroup takes 64 rows of
+//            the tile and stores its bf16 rows through shared memory in
+//            16-byte pieces. A is the tile (contraction contiguous:
+//            K-major); B is rhs[e] viewed as [E K, N]: the forward's B
+//            (K x N, N contiguous) is MN-major, dX's (N x K, N contiguous)
+//            K-major. The sum over the contraction (at most 64 k16 steps
+//            at the MoE shapes) stays in the accumulator: its drift
+//            against f64 exceeds the plain version's by under 1e-6 there.
+//            A dead tile's items load nothing and store zeros.
+//   dW (gmm_dw_wg_kernel): a CTA of three warpgroups owns 128 rows of K
+//            and two neighbouring 128-column blocks of N in turn (the last
+//            block of N = 192 is 64 wide), grid (ceil(N / 256), K / 128,
+//            E); the producer loads 64-row chunks of lhs [64 x 128] and
+//            dout [64 x 128] into a ring of four stages; each consumer
+//            warpgroup takes 64 rows of K and computes lhs^T dout with
+//            m64n128k16, both operands MN-major. Each 128-row schedule
+//            tile is summed in a zeroed accumulator and added to f32
+//            register sums, so an expert that holds all rows does not
+//            drift.
 //
-// dW in bf16 (gmm_dw_wg_kernel, redesigned for Hopper) runs on wgmma: a
-// CTA of three warpgroups owns 128 rows of K and two neighbouring 128-
-// column blocks of N in turn (the last block of N = 192 is 64 wide), grid
-// (ceil(N / 256), K / 128, E). One thread of the producer warpgroup
-// (registers handed to the consumers by setmaxnreg, 40 against 232) loads
-// 64-row chunks of lhs [64 x 128] and dout [64 x 128] by TMA (2-D maps,
-// 128-byte swizzle) into a ring of four stages, running ahead from one
-// block into the next; each consumer warpgroup takes 64 rows of K and
-// computes lhs^T dout with m64n128k16, both operands MN-major from the
-// same swizzled tiles. Each 128-row schedule tile is summed in a zeroed
-// accumulator and added to f32 register sums, so an expert that holds all
-// rows does not drift. At (K, N) = (1024, 512) that is 512 CTAs; lhs goes
-// through L2 four times and dout eight (the mma.sync form: eight and eight
-// over 2048 CTAs).
+// f32 (the CPU-matched checks) runs scalar FMAs, no TF32: every CTA of 4
+// warps computes one 128 x 64 output block in f32 registers (each warp 32
+// rows, in mma.m16n8k16's accumulator layout), the contraction in chunks
+// of 16 staged through shared memory by 16-byte cp.async in a two-stage
+// pipeline. forward: grid (N / 64, tiles); dX: grid (K / 64, tiles); dW:
+// grid (N / 64, K / 128, E), each CTA finding its expert's run of live
+// tiles in the schedule (groups are contiguous by construction) and
+// summing them in tile order: the same order every run, no atomics.
 //
 // The caller guarantees contiguous operands on 16-byte aligned storage, K a
-// multiple of 128, N of 64, int32 schedule arrays of n_tiles entries. The
-// kernels allocate nothing and do not synchronise; they launch on the
-// caller's stream.
+// multiple of 128, N of 64, int32 schedule arrays of n_tiles entries whose
+// experts are below num_experts. The kernels allocate nothing and do not
+// synchronise; they launch on the caller's stream.
 #include "mma_common.cuh"
 #include "wgmma_common.cuh"
 
 namespace {
 
 constexpr int kTileRows = 128;  // rows of a schedule tile
-constexpr int BM = 128, BN = 64;  // CTA output block
+constexpr int BM = 128, BN = 64;  // f32 CTA output block
 constexpr int MT = 2, NT = 8;     // a warp's m16 and n8 tiles (32 x 64)
 
 // Shared-memory layout of one pipeline stage: an A slice and a B slice of
@@ -96,39 +96,14 @@ __device__ __forceinline__ void copy_block(T* s, const T* g, size_t gld) {
 }
 
 // ---------------------------------------------------------------------------
-// Warp tile product: c[i][j] += A (rows 16 i .. 16 i + 15, K) * B (K, cols
-// 8 j .. 8 j + 7), in the register layout of mma.m16n8k16's accumulator:
-// lane (g = lane / 4, t = lane % 4) holds rows g and g + 8, columns 2t and
-// 2t + 1 of each tile.
+// Warp tile product (f32): c[i][j] += A (rows 16 i .. 16 i + 15, K) * B (K,
+// cols 8 j .. 8 j + 7) by scalar FMAs (TF32 would round the inputs), in
+// the register layout of mma.m16n8k16's accumulator: lane (g = lane / 4,
+// t = lane % 4) holds rows g and g + 8, columns 2t and 2t + 1 of each tile.
 // A_KC: A(m, k) = a[m * lda + k] (k contiguous), else a[k * lda + m].
 // B_KC: B(k, n) = b[n * ldb + k] (k contiguous), else b[k * ldb + n].
 // ---------------------------------------------------------------------------
 
-template <bool A_KC, bool B_KC>
-__device__ __forceinline__ void warp_mm_32x64(float (&c)[MT][NT][4], const bf16* a, int lda,
-                                        const bf16* b, int ldb, int K) {
-  const int r = threadIdx.x & 31, r8 = r & 7, h1 = (r >> 3) & 1, h2 = r >> 4;
-  const bf16* pa = A_KC ? a + (r8 + h1 * 8) * lda + h2 * 8 : a + (r8 + h2 * 8) * lda + h1 * 8;
-  const bf16* pb = B_KC ? b + (r8 + h2 * 8) * ldb + h1 * 8 : b + (r8 + h1 * 8) * ldb + h2 * 8;
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t af[MT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-      ldsm_x4<!A_KC>(af[i], pa + (A_KC ? i * 16 * lda + k0 : k0 * lda + i * 16));
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      uint32_t bq[4];
-      ldsm_x4<!B_KC>(bq, pb + (B_KC ? j * 8 * ldb + k0 : k0 * ldb + j * 8));
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        mma_bf16(c[i][j], af[i], bq[0], bq[1]);
-        mma_bf16(c[i][j + 1], af[i], bq[2], bq[3]);
-      }
-    }
-  }
-}
-
-// f32: the same tile by scalar FMAs (TF32 would round the inputs)
 template <bool A_KC, bool B_KC>
 __device__ __forceinline__ void warp_mm_32x64(float (&c)[MT][NT][4], const float* a, int lda,
                                         const float* b, int ldb, int K) {
@@ -224,7 +199,7 @@ __device__ __forceinline__ void zero_block(T* o, int ldo) {
 }
 
 // ---------------------------------------------------------------------------
-// kernels
+// f32 kernels
 // ---------------------------------------------------------------------------
 
 // lhs [n_tiles * 128, K], rhs [E, K, N] -> out [n_tiles * 128, N]
@@ -278,8 +253,7 @@ __global__ void __launch_bounds__(kThreads)
   store_block(c, o, K);
 }
 
-// lhs [n_tiles * 128, K], dout [n_tiles * 128, N] -> drhs [E, K, N]; f32
-// only: bf16 takes gmm_dw_wg_kernel
+// lhs [n_tiles * 128, K], dout [n_tiles * 128, N] -> drhs [E, K, N]
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     gmm_dw_kernel(const T* __restrict__ lhs, const T* __restrict__ dout,
@@ -324,6 +298,204 @@ __global__ void __launch_bounds__(kThreads)
     bj = b + r0 * N;
   });
   store_block(c, o, N);
+}
+
+// ---------------------------------------------------------------------------
+// forward and dX for bf16 on wgmma
+// ---------------------------------------------------------------------------
+
+struct WgMmCfg {
+  // a work item: one schedule tile by BNW output columns (one m64n128k16
+  // product a warpgroup and k16 step), contracted in chunks of BC through
+  // NS stages
+  static constexpr int BNW = 128, BC = 64, NS = 4;
+  static constexpr int A_BYTES = kTileRows * BC * 2, B_BYTES = BNW * BC * 2;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int OUT_LD = BNW * 2 + 16;  // a staged output row, padded
+  static constexpr int OFF_OUT = NS * STAGE, OFF_BAR = OFF_OUT + 2 * 64 * OUT_LD;
+  // barriers (NS full, NS empty), and slack to align the base to 1024 bytes
+  static constexpr size_t kSmem = OFF_BAR + 8 * 2 * NS + 1024;
+  static_assert(kSmem <= 232448, "WgMmCfg: more shared memory than a CTA has");
+};
+
+// The consumers of one live item: warpgroup wg owns rows 64 wg .. 64 wg +
+// 63 of the tile and every column of the block; the item's chunks are the
+// ring's c0 .. c0 + nch - 1. Chunk j's products are issued before chunk
+// j - 1's stage is released.
+template <bool B_MN>
+__device__ __forceinline__ void mm_consume(unsigned char* sm, uint64_t* full, uint64_t* empty,
+                                           int c0, int nch, float (&acc)[64]) {
+  using C = WgMmCfg;
+  const int wg = threadIdx.x >> 7;
+  for (int j = 0; j < nch; ++j) {
+    const int c = c0 + j, st = c % C::NS;
+    mbar_wait(&full[st], (c / C::NS) & 1);
+    const uint32_t s0 = smem_u32(sm + st * C::STAGE), a = s0 + wg * 8192, b = s0 + C::A_BYTES;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // B: the forward's in two 64-column blocks of 64 rows (a k16 step is
+      // 16 rows: 2048 bytes), dX's in one block of 128 rows (a k16 step is
+      // 32 bytes along the row)
+      const uint64_t da = sw128_desc(a + kk * 32, 16, 1024);
+      if constexpr (B_MN)
+        wgmma_ss<0, 1, 128>(acc, da, sw128_desc(b + kk * 2048, 8192, 1024), j | kk);
+      else
+        wgmma_ss<0, 0, 128>(acc, da, sw128_desc(b + kk * 32, 16, 1024), j | kk);
+    }
+    wg_commit();
+    if (j > 0) {
+      wg_wait<1>();  // chunk j - 1 is read
+      mbar_arrive(&empty[(c - 1) % C::NS]);
+    }
+  }
+  wg_wait<0>();
+  mbar_arrive(&empty[(c0 + nch - 1) % C::NS]);
+  reg_fence(acc);
+}
+
+// The item's nw columns of this warpgroup's 64 accumulator rows, rounded
+// to bf16 (or zeros with live false), through shared memory: warpgroup wg
+// writes them into its own staging rows (padded by 16 bytes: neither the
+// pair writes nor the 16-byte reads conflict), then stores 16-byte
+// pieces, a row's 256 bytes by 16 neighbouring threads (4-byte pairs
+// stored straight from the accumulator took 1.2-1.4x as long:
+// tools/gmm_choices.py). ow is row 64 wg of the tile at the block's first
+// column.
+__device__ __forceinline__ void mm_store(const float (&acc)[64], bool live, unsigned char* stage,
+                                         bf16* ow, int ldo, int nw) {
+  using C = WgMmCfg;
+  const int tw = threadIdx.x & 127, wg = threadIdx.x >> 7;
+  const int r = 16 * (tw >> 5) + ((tw & 31) >> 2), t = tw & 3;
+  wg_bar(1 + wg);  // the last item's copy-out has read the staging rows
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float* v = acc + 4 * j;
+    unsigned char* p = stage + r * C::OUT_LD + (8 * j + 2 * t) * 2;
+    *reinterpret_cast<uint32_t*>(p) = live ? pack_bf16(v[0], v[1]) : 0u;
+    *reinterpret_cast<uint32_t*>(p + 8 * C::OUT_LD) = live ? pack_bf16(v[2], v[3]) : 0u;
+  }
+  wg_bar(1 + wg);
+  const int cpr = nw / 8;  // 16-byte pieces a row
+  for (int i = tw; i < 64 * cpr; i += 128) {
+    const int rr = i / cpr, ch = i % cpr;
+    *reinterpret_cast<uint4*>(ow + (size_t)rr * ldo + 8 * ch) =
+        *reinterpret_cast<const uint4*>(stage + rr * C::OUT_LD + 16 * ch);
+  }
+}
+
+// out[t] (128 x no) = A[t] (128 x kc) B_e (kc x no) for every tile t of
+// n_tiles, e = tile_expert[t]: am maps A as [rows, kc] with boxes of 64
+// columns by 128 rows; bm maps rhs as [E K, N] with boxes of 64 columns by
+// 64 rows (the forward: B_MN, kc = K, no = N) or by 128 rows (dX: kc = N,
+// no = K). 384 threads: warpgroup 2 is the producer, 0 and 1 the
+// consumers; CTA b takes items b, b + gridDim.x, ...
+template <bool B_MN>
+__device__ __forceinline__ void gmm_wg(const CUtensorMap* am, const CUtensorMap* bm,
+                                       const int* __restrict__ tile_expert,
+                                       const int* __restrict__ live, bf16* __restrict__ out,
+                                       int n_tiles, int kc, int no) {
+  using C = WgMmCfg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* empty = full + C::NS;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int nblk = (no + C::BNW - 1) / C::BNW, items = n_tiles * nblk, nch = kc / C::BC;
+  if (tid == 0) {
+    for (int st = 0; st < C::NS; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 256);  // every consumer thread releases a stage
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (tid == 256) {
+      int c = 0;  // the ring's chunk count
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        const int t = it / nblk, n0 = (it % nblk) * C::BNW;
+        if (!live[t]) continue;
+        const int nw = min(C::BNW, no - n0), row = t * kTileRows;
+        const int brow = tile_expert[t] * (B_MN ? kc : no);  // rhs[e]'s first row
+        for (int j = 0; j < nch; ++j, ++c) {
+          const int st = c % C::NS;
+          if (c >= C::NS) mbar_wait(&empty[st], ((c / C::NS) & 1) ^ 1);
+          unsigned char* a = sm + st * C::STAGE;
+          unsigned char* b = a + C::A_BYTES;
+          // only the boxes that hold the block's columns: nw / 64 blocks of
+          // 64 columns (forward), or one of 128 rows (dX: K is a multiple
+          // of 128, so nw is 128)
+          mbar_expect_tx(&full[st], C::A_BYTES + nw * C::BC * 2);
+          tma_load_2d(a, am, &full[st], j * C::BC, row);
+          if constexpr (B_MN) {
+            for (int x = 0; x < nw / 64; ++x)
+              tma_load_2d(b + x * 8192, bm, &full[st], n0 + 64 * x, brow + j * C::BC);
+          } else {
+            tma_load_2d(b, bm, &full[st], j * C::BC, brow + n0);
+          }
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<232>();
+  int c = 0;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int t = it / nblk, n0 = (it % nblk) * C::BNW;
+    const int nw = min(C::BNW, no - n0);
+    const bool lv = live[t] != 0;
+    // A block narrower than 128 columns (the forward's last at N = 192)
+    // multiplies what its stage held before in the columns it did not
+    // load; those columns are not stored.
+    float acc[64];
+    if (lv) {
+      mm_consume<B_MN>(sm, full, empty, c, nch, acc);
+      c += nch;
+    }
+    bf16* o = out + (size_t)t * kTileRows * no + n0;
+    mm_store(acc, lv, sm + C::OFF_OUT + wg * 64 * C::OUT_LD, o + (size_t)64 * wg * no, no, nw);
+  }
+}
+
+__global__ void __launch_bounds__(384, 1)
+    gmm_fwd_wg_kernel(const __grid_constant__ CUtensorMap lm, const __grid_constant__ CUtensorMap rm,
+                      const int* __restrict__ tile_expert, const int* __restrict__ live,
+                      bf16* __restrict__ out, int n_tiles, int k, int n) {
+  gmm_wg<true>(&lm, &rm, tile_expert, live, out, n_tiles, k, n);
+}
+
+__global__ void __launch_bounds__(384, 1)
+    gmm_dx_wg_kernel(const __grid_constant__ CUtensorMap dm, const __grid_constant__ CUtensorMap rm,
+                     const int* __restrict__ tile_expert, const int* __restrict__ live,
+                     bf16* __restrict__ dlhs, int n_tiles, int k, int n) {
+  gmm_wg<false>(&dm, &rm, tile_expert, live, dlhs, n_tiles, n, k);
+}
+
+// a [rows, kc] and rhs [E, K, N] (bf16) -> out [rows, no]: the forward
+// (B_MN: kc = K, no = N) or dX (kc = N, no = K)
+template <bool B_MN>
+cudaError_t launch_wg(const void* a, const void* rhs, const int* te, const int* lv, void* out,
+                      int n_tiles, int num_experts, int k, int n, cudaStream_t s) {
+  using C = WgMmCfg;
+  const int kc = B_MN ? k : n, no = B_MN ? n : k;
+  CUtensorMap am, bm;
+  const cuuint64_t ad[2] = {(cuuint64_t)kc, (cuuint64_t)n_tiles * kTileRows};
+  const cuuint64_t bd[2] = {(cuuint64_t)n, (cuuint64_t)num_experts * k};
+  const cuuint32_t abox[2] = {64, kTileRows}, bbox[2] = {64, B_MN ? 64u : 128u};
+  const auto kernel = B_MN ? gmm_fwd_wg_kernel : gmm_dx_wg_kernel;
+  int dev = 0, sms = 0;
+  cudaError_t e = tma_map_bf16(&am, a, 2, ad, abox);
+  if (e == cudaSuccess) e = tma_map_bf16(&bm, rhs, 2, bd, bbox);
+  if (e == cudaSuccess) e = allow_smem(kernel, C::kSmem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const int items = n_tiles * ((no + C::BNW - 1) / C::BNW);
+  kernel<<<min(items, sms), 384, C::kSmem, s>>>(am, bm, te, lv, static_cast<bf16*>(out),
+                                                n_tiles, k, n);
+  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
@@ -495,54 +667,54 @@ cudaError_t launch_dw_wg(const void* lhs, const void* dout, const int* te, const
   return cudaSuccess;
 }
 
-bool bad_shape(int n_tiles, int k, int n) {
-  return n_tiles < 0 || n_tiles > 65535 || k <= 0 || n <= 0 || k % BM || n % BN;
+// rhs [E, k, n] rows must be addressable by TMA's int32 coordinates
+bool bad_shape(int n_tiles, int num_experts, int k, int n) {
+  return n_tiles < 0 || n_tiles > 65535 || k <= 0 || n <= 0 || k % BM || n % BN ||
+         num_experts < 1 || num_experts > 65535 || (long long)num_experts * k > 0x7fffffff;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (every operand and the output share it).
-// tile_expert and live are int32 [n_tiles]; rows = n_tiles * 128. K must be
-// a multiple of 128 and N of 64.
+// tile_expert and live are int32 [n_tiles]; rows = n_tiles * 128; rhs
+// [num_experts, k, n]. K must be a multiple of 128 and N of 64.
 extern "C" int gmm_fwd(const void* lhs, const void* rhs, const void* tile_expert, const void* live,
-                       void* out, int n_tiles, int k, int n, int dtype, void* stream) {
-  if (bad_shape(n_tiles, k, n)) return (int)cudaErrorInvalidValue;
+                       void* out, int n_tiles, int num_experts, int k, int n, int dtype,
+                       void* stream) {
+  if (bad_shape(n_tiles, num_experts, k, n)) return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n / BN, n_tiles);
   const int* te = static_cast<const int*>(tile_expert);
   const int* lv = static_cast<const int*>(live);
   if (dtype == 0)
-    gmm_fwd_kernel<float><<<grid, kThreads, 0, s>>>(static_cast<const float*>(lhs),
-                                                    static_cast<const float*>(rhs), te, lv,
-                                                    static_cast<float*>(out), k, n);
-  else if (dtype == 1)
-    gmm_fwd_kernel<bf16><<<grid, kThreads, 0, s>>>(static_cast<const bf16*>(lhs),
-                                                   static_cast<const bf16*>(rhs), te, lv,
-                                                   static_cast<bf16*>(out), k, n);
-  else
+    gmm_fwd_kernel<float><<<dim3(n / BN, n_tiles), kThreads, 0, s>>>(
+        static_cast<const float*>(lhs), static_cast<const float*>(rhs), te, lv,
+        static_cast<float*>(out), k, n);
+  else if (dtype == 1) {
+    const cudaError_t e = launch_wg<true>(lhs, rhs, te, lv, out, n_tiles, num_experts, k, n, s);
+    if (e != cudaSuccess) return (int)e;
+  } else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
-// dout [rows, n], rhs [E, k, n] -> dlhs [rows, k]; same contract.
+// dout [rows, n], rhs [num_experts, k, n] -> dlhs [rows, k]; same contract.
 extern "C" int gmm_dx(const void* dout, const void* rhs, const void* tile_expert, const void* live,
-                      void* dlhs, int n_tiles, int k, int n, int dtype, void* stream) {
-  if (bad_shape(n_tiles, k, n)) return (int)cudaErrorInvalidValue;
+                      void* dlhs, int n_tiles, int num_experts, int k, int n, int dtype,
+                      void* stream) {
+  if (bad_shape(n_tiles, num_experts, k, n)) return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(k / BN, n_tiles);
   const int* te = static_cast<const int*>(tile_expert);
   const int* lv = static_cast<const int*>(live);
   if (dtype == 0)
-    gmm_dx_kernel<float><<<grid, kThreads, 0, s>>>(static_cast<const float*>(dout),
-                                                   static_cast<const float*>(rhs), te, lv,
-                                                   static_cast<float*>(dlhs), k, n);
-  else if (dtype == 1)
-    gmm_dx_kernel<bf16><<<grid, kThreads, 0, s>>>(static_cast<const bf16*>(dout),
-                                                  static_cast<const bf16*>(rhs), te, lv,
-                                                  static_cast<bf16*>(dlhs), k, n);
-  else
+    gmm_dx_kernel<float><<<dim3(k / BN, n_tiles), kThreads, 0, s>>>(
+        static_cast<const float*>(dout), static_cast<const float*>(rhs), te, lv,
+        static_cast<float*>(dlhs), k, n);
+  else if (dtype == 1) {
+    const cudaError_t e = launch_wg<false>(dout, rhs, te, lv, dlhs, n_tiles, num_experts, k, n, s);
+    if (e != cudaSuccess) return (int)e;
+  } else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
@@ -552,16 +724,14 @@ extern "C" int gmm_dx(const void* dout, const void* rhs, const void* tile_expert
 extern "C" int gmm_dw(const void* lhs, const void* dout, const void* tile_expert, const void* live,
                       void* drhs, int n_tiles, int num_experts, int k, int n, int dtype,
                       void* stream) {
-  if (bad_shape(n_tiles, k, n) || num_experts < 1 || num_experts > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(n_tiles, num_experts, k, n)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n / BN, k / BM, num_experts);
   const int* te = static_cast<const int*>(tile_expert);
   const int* lv = static_cast<const int*>(live);
   if (dtype == 0)
-    gmm_dw_kernel<float><<<grid, kThreads, 0, s>>>(static_cast<const float*>(lhs),
-                                                   static_cast<const float*>(dout), te, lv,
-                                                   static_cast<float*>(drhs), n_tiles, k, n);
+    gmm_dw_kernel<float><<<dim3(n / BN, k / BM, num_experts), kThreads, 0, s>>>(
+        static_cast<const float*>(lhs), static_cast<const float*>(dout), te, lv,
+        static_cast<float*>(drhs), n_tiles, k, n);
   else if (dtype == 1) {
     const cudaError_t e = launch_dw_wg(lhs, dout, te, lv, drhs, n_tiles, num_experts, k, n, s);
     if (e != cudaSuccess) return (int)e;

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) helpers for the port's wgmma kernels (flash_attention.cu's
-// bf16 forward and fused backward, grouped_matmul.cu's bf16 dW):
+// bf16 forward and fused backward, grouped_matmul.cu's bf16 forward, dX
+// and dW):
 // warpgroup products m64n64k16 and m64n128k16 (bf16 in, f32 accumulation)
 // on tiles in shared memory in the 128-byte swizzled layout, A from shared
 // memory or (n64) from registers; 16-byte cp.async into that layout

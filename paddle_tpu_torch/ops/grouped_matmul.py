@@ -19,9 +19,9 @@ casts each gradient to its input's dtype.
 
 On the card the kernels take ``tile_rows`` = 128 only, bf16 or f32
 operands of one dtype, K a multiple of 128 and N a multiple of 64; bf16
-dW runs on Hopper's warpgroup products fed by TMA (csrc/grouped_matmul.cu),
-the rest on warp-level mma.sync. The plain versions take any tile size
-(the CPU tests use 8), any shapes and dtypes. :func:`grouped_matmul` is
+runs on Hopper's warpgroup products fed by TMA (csrc/grouped_matmul.cu),
+f32 on scalar FMAs. The plain versions take any tile size (the CPU tests
+use 8 and 128), any shapes and dtypes. :func:`grouped_matmul` is
 the differentiable entry.
 """
 from __future__ import annotations
@@ -135,7 +135,7 @@ def _check_shapes(name, a, b, sched, tile_rows, a_cols, b_dim):
                          f"tensors (tile_expert, live)")
 
 
-def _check_cuda(name, tensors, sched, tile_rows, k, n):
+def _check_cuda(name, tensors, sched, tile_rows, k, n, num_experts):
     """The kernels' contract for CUDA tensors; raises on anything else."""
     t0 = tensors[0]
     if t0.device.type != "cuda":
@@ -165,13 +165,16 @@ def _check_cuda(name, tensors, sched, tile_rows, k, n):
     if sched[0].shape[0] > 65535:
         raise ValueError(f"{name}: {sched[0].shape[0]} row tiles exceed "
                          f"65535")
+    if num_experts > 65535 or num_experts * k >= 2 ** 31:
+        raise ValueError(f"{name}: {num_experts} experts of K = {k} exceed "
+                         f"65535 experts or 2^31 rows of rhs")
 
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def gmm_fwd(lhs, rhs, sched, tile_rows=TILE_ROWS):
@@ -186,11 +189,12 @@ def gmm_fwd(lhs, rhs, sched, tile_rows=TILE_ROWS):
         return gmm_fwd_plain(lhs, rhs, sched, tile_rows)
     m, k = lhs.shape
     n = rhs.shape[2]
-    _check_cuda("gmm_fwd", (lhs, rhs), sched, tile_rows, k, n)
+    E = rhs.shape[0]
+    _check_cuda("gmm_fwd", (lhs, rhs), sched, tile_rows, k, n, E)
     out = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
     fn = _build.kernel("grouped_matmul", "gmm_fwd", _ARGS)
     err = fn(lhs.data_ptr(), rhs.data_ptr(), sched[0].data_ptr(),
-             sched[1].data_ptr(), out.data_ptr(), m // tile_rows, k, n,
+             sched[1].data_ptr(), out.data_ptr(), m // tile_rows, E, k, n,
              _DTYPE_CODE[lhs.dtype], _stream(lhs))
     _build.check("grouped_matmul", err, "gmm_fwd")
     gmm_fwd.launches += 1
@@ -208,11 +212,12 @@ def gmm_dx(dout, rhs, sched, tile_rows=TILE_ROWS):
         return gmm_dx_plain(dout, rhs, sched, tile_rows)
     m, n = dout.shape
     k = rhs.shape[1]
-    _check_cuda("gmm_dx", (dout, rhs), sched, tile_rows, k, n)
+    E = rhs.shape[0]
+    _check_cuda("gmm_dx", (dout, rhs), sched, tile_rows, k, n, E)
     dlhs = torch.empty((m, k), dtype=dout.dtype, device=dout.device)
     fn = _build.kernel("grouped_matmul", "gmm_dx", _ARGS)
     err = fn(dout.data_ptr(), rhs.data_ptr(), sched[0].data_ptr(),
-             sched[1].data_ptr(), dlhs.data_ptr(), m // tile_rows, k, n,
+             sched[1].data_ptr(), dlhs.data_ptr(), m // tile_rows, E, k, n,
              _DTYPE_CODE[dout.dtype], _stream(dout))
     _build.check("grouped_matmul", err, "gmm_dx")
     gmm_dx.launches += 1
@@ -237,13 +242,9 @@ def gmm_dw(lhs, dout, sched, tile_rows=TILE_ROWS, num_experts=None):
     m, k = lhs.shape
     n = dout.shape[1]
     E = int(num_experts)
-    _check_cuda("gmm_dw", (lhs, dout), sched, tile_rows, k, n)
-    if E > 65535:
-        raise ValueError(f"gmm_dw: {E} experts exceed 65535")
+    _check_cuda("gmm_dw", (lhs, dout), sched, tile_rows, k, n, E)
     drhs = torch.empty((E, k, n), dtype=lhs.dtype, device=lhs.device)
-    fn = _build.kernel("grouped_matmul", "gmm_dw",
-                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
+    fn = _build.kernel("grouped_matmul", "gmm_dw", _ARGS)
     err = fn(lhs.data_ptr(), dout.data_ptr(), sched[0].data_ptr(),
              sched[1].data_ptr(), drhs.data_ptr(), m // tile_rows, E, k, n,
              _DTYPE_CODE[lhs.dtype], _stream(lhs))

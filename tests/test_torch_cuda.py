@@ -1000,9 +1000,55 @@ def test_gmm_dw_wgmma_runs_give_the_same_bits(dev, kn):
     assert (a[1] == 0).all() and (a[4] == 0).all()
 
 
-# chip_smoke.DW_DRIFT_EXCESS: how far dW's drift along an f64 product may
-# exceed its plain version's (tools/gmm_dw_mutants.py)
+@pytest.mark.parametrize("kn", [(256, 192), (1024, 512), (512, 1024)])
+@pytest.mark.parametrize("kind", ["fwd", "dx"])
+def test_gmm_fwd_dx_wgmma_runs_give_the_same_bits(dev, kind, kn):
+    """bf16 forward and dX (the wgmma kernels) twice on one input: the
+    same bits, dead tail tiles exactly zero."""
+    k, n = kn
+    counts, m, sched, lhs, rhs, dout = _gmm_case(
+        dev, torch.bfloat16, [300, 0, 1000, 129, 0, 640], k, n, seed=k + n)
+    a, b = ((tg.gmm_fwd(lhs, rhs, sched) if kind == "fwd"
+             else tg.gmm_dx(dout, rhs, sched)) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert (a[int(tg._round_up(counts, 128).sum()):] == 0).all()
+
+
+# chip_smoke.DW_DRIFT_EXCESS: how far a kernel's drift along an f64
+# product may exceed its plain version's (tools/gmm_mutants.py)
 DW_DRIFT_EXCESS = 2e-6
+
+
+def _drift(x, ref):
+    d = x.double() - ref
+    return ((d * ref).sum() / (ref * ref).sum()).item()
+
+
+@pytest.mark.parametrize("kn", [(1024, 512), (512, 1024)])
+@pytest.mark.parametrize("kind", ["fwd", "dx"])
+def test_gmm_fwd_dx_wgmma_drift(dev, kind, kn):
+    """bf16 forward and dX at the MoE shapes on 16,384 rows routed to 32
+    experts: against the plain version under GMM_TOL, and the drift along
+    a product summed in f64 from the same operands within DW_DRIFT_EXCESS
+    of the plain version's (each output sums K or N terms in the wgmma
+    accumulator)."""
+    k, n = kn
+    counts = np.random.RandomState(5).multinomial(16384, [1 / 32] * 32)
+    counts, m, sched, lhs, rhs, dout = _gmm_case(
+        dev, torch.bfloat16, counts.tolist(), k, n, seed=7)
+    a = lhs if kind == "fwd" else dout
+    kern, plain = ((tg.gmm_fwd, tg.gmm_fwd_plain) if kind == "fwd"
+                   else (tg.gmm_dx, tg.gmm_dx_plain))
+    got, want = kern(a, rhs, sched), plain(a, rhs, sched)
+    ref = torch.zeros(got.shape, dtype=torch.float64, device=dev)
+    for rows, e in tg._live_tiles(sched, 128):
+        w = rhs[e].double()
+        ref[rows] = a[rows].double() @ (w if kind == "fwd" else w.T)
+    torch.cuda.synchronize()
+    _close(got, want, GMM_TOL[torch.bfloat16])
+    assert abs(_drift(got, ref) - _drift(want, ref)) <= DW_DRIFT_EXCESS, \
+        (_drift(got, ref), _drift(want, ref))
 
 
 def test_gmm_dw_wgmma_one_expert_holds_every_row(dev):
@@ -1020,12 +1066,8 @@ def test_gmm_dw_wgmma_one_expert_holds_every_row(dev):
     torch.cuda.synchronize()
     _close(got, want, GMM_TOL[torch.bfloat16])
     assert (got[1:] == 0).all()
-
-    def drift(x):
-        d = x[0].double() - ref
-        return ((d * ref).sum() / (ref * ref).sum()).item()
-    assert abs(drift(got) - drift(want)) <= DW_DRIFT_EXCESS, \
-        (drift(got), drift(want))
+    assert abs(_drift(got[0], ref) - _drift(want[0], ref)) \
+        <= DW_DRIFT_EXCESS, (_drift(got[0], ref), _drift(want[0], ref))
 
 
 def test_gmm_autograd_on_card_matches_cpu(dev):

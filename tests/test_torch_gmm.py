@@ -9,6 +9,14 @@ the same f32 inputs on the five group layouts of
 order). Dead-tail rows and the dW of empty experts must be exactly zero,
 and the schedule bitwise equal. The JAX side is not held bitwise to a
 dense einsum here: that reference test fails on this tree.
+
+The card kernels take 128-row tiles and run bf16 on the tensor cores, so
+the same chain is closed at their tile and dtype too: bf16 at
+``tile_rows`` = 128, (K, N) = (256, 192) (a 64-wide last block of N) and
+(128, 256), on an empty expert and on counts off the tile, under
+chip_smoke's bf16 rule (``flash_close`` with ``GMM_TOL``: both sides sum
+in f32 and round once, so an element may land one bf16 step apart).
+There the card check holds each kernel to the same plain version.
 """
 import functools
 
@@ -19,6 +27,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from chip_smoke import GMM_TOL, flash_close
 from paddle_tpu.ops import _common
 from paddle_tpu.ops import grouped_matmul as jg
 
@@ -101,6 +110,63 @@ def test_gmm_forward_and_grads_match_jax(name, counts):
     for e in range(E):
         if counts[e] == 0:
             assert (rt.grad.numpy()[e] == 0).all(), f"expert {e} dW"
+
+
+CARD_TM = 128
+CARD_LAYOUTS = [("empty_expert", [0, 300, 77, 0]),
+                ("off_the_tile", [1, 127, 129, 0])]
+CARD_SHAPES = [(256, 192), (128, 256)]
+
+
+@pytest.mark.parametrize("kn", CARD_SHAPES,
+                         ids=[f"K{k}_N{n}" for k, n in CARD_SHAPES])
+@pytest.mark.parametrize("name,counts", CARD_LAYOUTS,
+                         ids=[n for n, _ in CARD_LAYOUTS])
+def test_gmm_bf16_at_the_card_tile_matches_jax(name, counts, kn):
+    """bf16 forward, dX and dW at 128-row tiles, one dead tail tile past
+    the groups: the port's plain versions (CPU tensors) against JAX's
+    vjp (interpret mode); dead rows and empty experts exactly zero."""
+    k, n = kn
+    rng = np.random.RandomState(k + n)
+    counts = np.asarray(counts, np.int32)
+    live_rows = int((-(-counts // CARD_TM) * CARD_TM).sum())
+    m = live_rows + CARD_TM
+    e = len(counts)
+    lhs = rng.randn(m, k).astype(np.float32)
+    rhs = (rng.randn(e, k, n) / np.sqrt(k)).astype(np.float32)
+    cot = rng.randn(m, n).astype(np.float32)
+    sched_j = _jax_schedule(jnp.asarray(counts), m // CARD_TM, CARD_TM)
+    bf = jnp.bfloat16
+
+    @jax.jit
+    def value_and_pull(a, w, c):
+        out, pull = jax.vjp(
+            lambda a, w: jg.grouped_matmul(a, w, sched_j[:4], CARD_TM), a, w)
+        return (out,) + pull(c)
+
+    want = [torch.tensor(np.asarray(x.astype(jnp.float32)))
+            for x in value_and_pull(jnp.asarray(lhs).astype(bf),
+                                    jnp.asarray(rhs).astype(bf),
+                                    jnp.asarray(cot).astype(bf))]
+
+    sched_t = tg.tile_schedule(torch.from_numpy(counts), m // CARD_TM,
+                               CARD_TM)
+    lt = torch.from_numpy(lhs).to(torch.bfloat16).requires_grad_()
+    rt = torch.from_numpy(rhs).to(torch.bfloat16).requires_grad_()
+    out = tg.grouped_matmul(lt, rt, sched_t[:2], CARD_TM)
+    out.backward(torch.from_numpy(cot).to(torch.bfloat16))
+    got = [out.detach(), lt.grad, rt.grad]
+
+    rel, frob = GMM_TOL[torch.bfloat16]
+    for what, a, b in zip(("forward", "dX", "dW"), got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape, what
+        ok, excess, fro, err = flash_close(a, b, rel, frob)
+        assert ok, (f"{what}: worst excess over the limit {excess:.3e}, "
+                    f"rel frob {fro:.3e}, max abs err {err:.3e}")
+    assert (got[0][live_rows:] == 0).all() and (got[1][live_rows:] == 0).all()
+    assert (want[0][live_rows:] == 0).all() and (want[1][live_rows:] == 0).all()
+    for x in np.flatnonzero(counts == 0):
+        assert (got[2][x] == 0).all() and (want[2][x] == 0).all(), x
 
 
 def test_gmm_plain_pieces_and_dtypes():

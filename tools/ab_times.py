@@ -1,4 +1,4 @@
-"""Times rows 14 and 26 of two trees side by side on one card.
+"""Times rows 24, 25 and 26 of two trees side by side on one card.
 
     python3 tools/ab_times.py BEFORE AFTER
 
@@ -8,68 +8,60 @@ into a git-ignored directory, and ``.``. Each tree runs in a process of
 its own (its kernels build there), in the order BEFORE, AFTER, AFTER,
 BEFORE, so that a drift of the card over the call shows. Times are
 device ms per call with the calls queued ahead (chip_smoke.py's
-``_time_ms``), in bf16:
+``_time_ms``), in bf16, on one ERNIE MoE layer's schedule (16,384 routed
+rows of 32 experts, chip_smoke's ``_slice_schedule``) at (K, N) =
+(1024, 512) and (512, 1024):
 
-  flash_fwd (row 14)  causal: BH 128, S 2048, D 128 (the train phase);
-                      BH 8, S 16384, D 128 (row 13's shape, attn-long);
-                      BH 128, S 512, D 64 (the ERNIE phase)
-  flash_bwd (row 16)  BH 128, S 2048, D 128, causal (a control: the
-                      same kernel in both trees)
-  gmm_dw (row 26)     one ERNIE MoE layer's schedule (16,384 routed rows
-                      of 32 experts) at (K, N) = (1024, 512), (512, 1024)
+  gmm_fwd (row 24), gmm_dx (row 25)
+  gmm_dw (row 26)   a control where both trees hold the same kernel
 
-Needs one CUDA device and nvcc; prints one JSON line per run, the card's
-name and power limit first, and writes chiprun_out/ab_times.json.
+Each run also gives the forward's and dX's drift along a product summed
+in f64, kernel and plain version (chip_smoke's ``gmm_drifts``, taken from
+this checkout's chip_smoke.py whatever the tree). Needs one CUDA device
+and nvcc; prints one JSON line per run, the card's name and power limit
+first, and writes chiprun_out/ab_times.json.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FWD = [(128, 2048, 128, 20), (8, 16384, 128, 10), (128, 512, 64, 50)]
 
 
 def run_one(tree):
-    """In a tree's process: every time, as one JSON line."""
+    """In a tree's process: every time and drift, as one JSON line."""
     import torch
     sys.path.insert(0, tree)
-    sys.path.append(ROOT)
-    import chip_smoke
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
     from paddle_tpu_torch import _build
-    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import grouped_matmul as tg
-    assert fa.__file__.startswith(tree), fa.__file__
-    _build.build_all(["flash_attention", "grouped_matmul"])
+    assert tg.__file__.startswith(tree), tg.__file__
+    _build.build_all(["grouped_matmul"])
     dev = torch.device("cuda", 0)
     out = {}
-
-    def t(fn, iters):
-        return chip_smoke._time_ms(fn, iters)[0]
-
-    for bh, s, d, iters in FWD:
-        qs, k, v, do = chip_smoke._flash_inputs(bh, s, d, torch.bfloat16, 0,
-                                                dev)
-        key = f"[BH={bh},S={s},D={d}]"
-        out["flash_fwd" + key] = t(lambda: fa.flash_fwd(qs, k, v, True),
-                                   iters)
-        if (bh, s, d) == (128, 2048, 128):
-            o, lse = fa.flash_fwd(qs, k, v, True)
-            delta = (do.float() * o.float()).sum(-1)
-            args = (qs, k, v, do, lse, delta, True, d ** -0.5)
-            out["flash_bwd" + key] = t(lambda: fa.flash_bwd(*args), iters)
-            del o, lse, delta, args
-        del qs, k, v, do
-        torch.cuda.empty_cache()
     counts, n_rows, sched = chip_smoke._slice_schedule(dev)
+    e = counts.shape[0]
     for k, n in chip_smoke.MOE_SHAPES:
-        lhs, _, dout = chip_smoke._gmm_operands(dev, torch.bfloat16, n_rows,
-                                                32, k, n, 0)
-        out[f"gmm_dw[K={k},N={n}]"] = t(
-            lambda: tg.gmm_dw(lhs, dout, sched, num_experts=32), 50)
-    print(json.dumps({"tree": tree, "ms": out}))
+        lhs, rhs, dout = chip_smoke._gmm_operands(dev, torch.bfloat16,
+                                                  n_rows, e, k, n, 0)
+        key = f"[K={k},N={n}]"
+        for name, fn in (
+                ("gmm_fwd", lambda: tg.gmm_fwd(lhs, rhs, sched)),
+                ("gmm_dx", lambda: tg.gmm_dx(dout, rhs, sched)),
+                ("gmm_dw", lambda: tg.gmm_dw(lhs, dout, sched,
+                                             num_experts=e))):
+            out[name + key] = chip_smoke._time_ms(fn, 50)[0]
+        del lhs, rhs, dout
+    drifts = {key: {"kernel": dk, "plain": dp}
+              for key, (dk, dp) in chip_smoke.gmm_drifts(tg, dev).items()}
+    print(json.dumps({"tree": tree, "ms": out, "drift": drifts}))
 
 
 def main():
