@@ -1284,6 +1284,10 @@ VARLEN_TOL = FLASH_TOL
 VARLEN_F32 = [([1] * 9, None), ([128, 256, 128], None), ([100, 61], None),
               ([64, 0, 100, 0, 31], None), ([1, 128, 3, 257, 1], None),
               ([40, 8, 30], [64, 0, 32]), ([50, 20, 90], [30, 70, 90])]
+# bf16 layouts whose segments straddle the split wgmma kernels' 128-row
+# tiles and end inside a warpgroup's 64 rows (self and cross-attention)
+VARLEN_BF16 = [([127, 129, 1, 255], None),
+               ([127, 129, 1, 255], [130, 1, 127, 200])]
 
 
 def _cu_dev(lens, dev):
@@ -1349,6 +1353,78 @@ def _varlen_err(errs, res):
         errs[kern] = max(errs.get(kern, 0.0), *(res[n][3] for n in keys))
 
 
+# The split backward's drift along an f64 product may exceed its plain
+# version's by this much (rows 22 and 23 at the long pack and on one
+# 65,536-token segment): between the sound kernels' excess (at most 6.6e-7
+# in size on an H100) and that of kernels that carry the sum over q tiles
+# or key stages in the wgmma accumulator (-7.5e-6 to -1.3e-4 for dK and
+# dV, -7.8e-6 for dQ on the long segment; tools/varlen_mutants.py,
+# tools/flash_long_accuracy.py --varlen)
+VARLEN_DRIFT_EXCESS = 2e-6
+VARLEN_DRIFT_HEADS = 4
+
+
+def varlen_bwd_f64(q, k, v, do, lse, delta, lens, scale, rows=1024):
+    """A causal self-attention pack's backward at the plain version's
+    rounding points (S, P and dS in f32, P rounded to q's dtype for dV,
+    dS for dK and dQ), every product summed in f64: q, k, v, do [H, T, D]
+    -> (dq, dk, dv) f64."""
+    from paddle_tpu_torch.ops.flash_varlen import LOG2E
+    dev, dt = q.device, q.dtype
+    dq, dk, dv = (torch.zeros(x.shape, dtype=torch.float64, device=dev)
+                  for x in (q, k, v))
+    c2, lse2 = float(scale) * LOG2E, lse.float() * LOG2E
+    a = 0
+    for n in lens:
+        for r0 in range(0, n, rows):
+            r1 = min(r0 + rows, n)
+            rs, ks = slice(a + r0, a + r1), slice(a, a + r1)
+            qf, dof = q[:, rs].float(), do[:, rs].float()
+            kf, vf = k[:, ks].float(), v[:, ks].float()
+            dead = (torch.arange(r1, device=dev)[None]
+                    > torch.arange(r0, r1, device=dev)[:, None])
+            p = torch.exp2((qf @ kf.transpose(1, 2)) * c2
+                           - lse2[:, rs, None]).masked_fill(dead, 0.0)
+            dp = dof @ vf.transpose(1, 2)
+            ds = (p * (dp - delta[:, rs, None]) * scale).to(dt).double()
+            dv[:, ks] += p.to(dt).double().transpose(1, 2) @ dof.double()
+            dk[:, ks] += ds.transpose(1, 2) @ qf.double()
+            dq[:, rs] = ds @ kf.double()
+            del p, dp, ds
+        a += n
+    return dq, dk, dv
+
+
+def varlen_split_drifts(fv, q, k, v, do, lens, heads=VARLEN_DRIFT_HEADS):
+    """Rows 22 and 23 on the first ``heads`` heads of a causal
+    self-attention pack (packed [T, H, D] inputs; the heads are copied to
+    contiguous [heads, T, D]), kernel and plain version against
+    ``varlen_bwd_f64`` -> {output: {"kernel": drift, "plain": drift,
+    "excess": kernel - plain, "kernel_frob", "plain_frob", "ok"}}, ok when
+    |excess| <= VARLEN_DRIFT_EXCESS."""
+    scale = q.shape[-1] ** -0.5
+    qh, kh, vh, doh = (x.transpose(0, 1)[:heads].contiguous()
+                       for x in (q, k, v, do))
+    cu = _cu_dev(lens, q.device)
+    o, lse = fv.varlen_fwd(qh, kh, vh, cu, cu, True, scale)
+    delta = (doh.float() * o.float()).sum(-1).contiguous()
+    args = (qh, kh, vh, doh, lse, delta, cu, cu, True, scale)
+    got = (fv.varlen_bwd_dq(*args), *fv.varlen_bwd_dkv(*args))
+    want = (fv.varlen_bwd_dq_plain(*args), *fv.varlen_bwd_dkv_plain(*args))
+    ref = varlen_bwd_f64(qh, kh, vh, doh, lse, delta, lens, scale)
+    torch.cuda.synchronize()
+    out = {}
+    for name, a, b, r in zip(("dq", "dk", "dv"), got, want, ref):
+        dk_, dp_ = dw_drift(a, r), dw_drift(b, r)
+        out[name] = {"kernel": dk_, "plain": dp_, "excess": dk_ - dp_,
+                     "kernel_frob": ((a.double() - r).norm()
+                                     / r.norm()).item(),
+                     "plain_frob": ((b.double() - r).norm()
+                                    / r.norm()).item(),
+                     "ok": abs(dk_ - dp_) <= VARLEN_DRIFT_EXCESS}
+    return out
+
+
 def check_varlen(dev, errs):
     from paddle_tpu_torch.ops import flash_varlen as fv
     phase("check varlen kernels against their plain versions")
@@ -1356,6 +1432,8 @@ def check_varlen(dev, errs):
               VARLEN_SHORT, None, VARLEN_H, VARLEN_D, None)]
     cases += [(f"layout {lq}/{lk}", torch.float32, lq, lk, 2, d, SPREAD_SCALE)
               for (lq, lk), d in zip(VARLEN_F32, (64, 128) * 4)]
+    cases += [(f"layout {lq}/{lk}", torch.bfloat16, lq, lk, 2, d, None)
+              for lq, lk in VARLEN_BF16 for d in (64, 128)]
     for i, (name, dtype, lq, lk, h, d, spread) in enumerate(cases):
         q, k, v, do = _varlen_inputs(dev, dtype, lq, lk, h, d, SEED + i,
                                      spread)
@@ -1407,17 +1485,20 @@ def check_varlen_paths(fv, dev, errs):
             fv.varlen_bwd_dkv(*args)
 
     o, fused, dq, dkv = grads(k, v)
-    dq2 = grads(k, v)[2]
+    _, _, dq2, dkv2 = grads(k, v)
     torch.cuda.synchronize()
     assert torch.equal(dq, dq2), "split dQ differs between two runs"
+    assert torch.equal(dkv[0], dkv2[0]) and torch.equal(dkv[1], dkv2[1]), \
+        "split dK/dV differ between two runs"
     worst = 0.0
     for name, a, b in zip(("dq", "dk", "dv"), fused, (dq,) + dkv):
         ok, excess, fro, err = flash_close(a, b, rel, frob)
         worst = max(worst, fro)
         assert ok, f"fused and split {name} disagree: {excess} {fro}"
     print(f"varlen short pack: fused vs split dq, dk, dv within rel {rel:g}"
-          f"/frob {frob:g} (worst rel frob {worst:.3e}); split dq bitwise "
-          f"equal over two runs")
+          f"/frob {frob:g} (worst rel frob {worst:.3e}); split dq, dk and dv "
+          f"bitwise equal over two runs")
+    del dkv2
     seg = slice(sum(VARLEN_SHORT[:3]), sum(VARLEN_SHORT[:4]))  # 3,072
     k2, v2 = k.clone(), v.clone()
     k2[seg] = -3 * k2[seg]
@@ -1683,7 +1764,9 @@ def varlen_times(dev, errs):
     sum L (L + 1) / 2 a head: the forward does 2 products (QK^T, PV), the fused backward 5, the split dK/dV 4
     (S, dV, dP, dK) and dQ 3 (S, dP, dQ), 2 D operations per pair each.
     Bytes: each input read once (q, k, v, dO, lse, delta as the kernel
-    takes them), each output written once."""
+    takes them), each output written once. At the long pack, rows 22 and
+    23 are also held to ``VARLEN_DRIFT_EXCESS`` on four heads
+    (``varlen_split_drifts``)."""
     from paddle_tpu_torch.ops import flash_varlen as fv
     h, d, scale = VARLEN_H, VARLEN_D, VARLEN_D ** -0.5
     out = {}
@@ -1735,7 +1818,20 @@ def varlen_times(dev, errs):
             key = f"{kern}[{name} pack,T={t},H={h},D={d},causal]"
             out[key] = r
             print(f"{key} bf16: {r}")
-        del q, k, v, do, o, args
+        del o, args
+        if name == "long":
+            drifts = varlen_split_drifts(fv, q, k, v, do, lens)
+            out[f"split drift[long pack,T={t},H={VARLEN_DRIFT_HEADS},D={d}]"] \
+                = drifts
+            for n, x in drifts.items():
+                print(f"varlen split {n} at the long pack ({VARLEN_DRIFT_HEADS}"
+                      f" heads), drift against f64: kernel {x['kernel']:+.3e}, "
+                      f"plain {x['plain']:+.3e}, excess {x['excess']:+.3e} "
+                      f"(limit {VARLEN_DRIFT_EXCESS:g}) "
+                      f"{'ok' if x['ok'] else 'FAILED'}; rel frob kernel "
+                      f"{x['kernel_frob']:.3e}, plain {x['plain_frob']:.3e}")
+            assert all(x["ok"] for x in drifts.values()), drifts
+        del q, k, v, do
         torch.cuda.empty_cache()
     return out
 
@@ -2640,9 +2736,9 @@ def _kernel_class(name):
         return "rms_norm"
     if "varlen_fwd_kernel" in name:
         return "varlen_fwd"
-    if "varlen_bwd_kernel" in name:
+    if "varlen_bwd_kernel" in name or "varlen_bwd_wg_kernel" in name:
         return "varlen_bwd_dkv" if ", false>" in name else "varlen_bwd"
-    if "varlen_dq_kernel" in name:
+    if "varlen_dq_kernel" in name or "varlen_dq_wg_kernel" in name:
         return "varlen_bwd_dq"
     if "dq_cast_kernel" in name:      # the fused varlen backward's dQ cast
         return "varlen_bwd"

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) helpers for the port's wgmma kernels (flash_attention.cu's
 // bf16 forward and fused backward, grouped_matmul.cu's bf16 forward, dX
-// and dW):
+// and dW, flash_varlen.cu's bf16 split backward):
 // warpgroup products m64n64k16 and m64n128k16 (bf16 in, f32 accumulation)
 // on tiles in shared memory in the 128-byte swizzled layout, A from shared
-// memory or (n64) from registers; 16-byte cp.async into that layout
+// memory or from registers; 16-byte cp.async into that layout
 // (mma_common.cuh's cp_async16); mbarriers, named barriers and register
 // hand-over for warp-specialised kernels; TMA tile loads into that layout
 // from a tensor map built on the host (tma_map_bf16); and the bulk
@@ -120,22 +120,47 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
   }
 }
 
-// d (+)= A B, A from registers (the fragment a0..a3), B from shared memory
-template <int TB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
+// d (+)= A B, A from registers (the fragment a0..a3), B from shared memory;
+// N = 64 or 128 columns (N / 2 accumulator registers)
+template <int TB, int N = 64>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0, uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d), "n"(TB));
+  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d), "n"(TB));
+  }
 }
 
 // 4-byte cp.async, zero-filled with src_bytes 0
@@ -271,7 +296,7 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// Host: a tensor map over a packed bf16 tensor of `rank` dimensions,
+// Host: a tensor map over a bf16 tensor of `rank` dimensions,
 // dims[0] innermost (elements), with boxes of box[] elements, the 128-byte
 // swizzle (box[0] must be 64) and zeros past every edge. A 3-D map [BH, S,
 // D] keeps a box that runs past one head's last row from reading the next
@@ -301,19 +326,29 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-inline cudaError_t tma_map_bf16(CUtensorMap* map, const void* base, int rank,
-                                const cuuint64_t* dims, const cuuint32_t* box) {
+// The map over a strided tensor: strides[i] is the bytes between
+// consecutive indices of dims[i + 1] (multiples of 16, in any order, so
+// [H, T, D] over a packed [T, H, D] is one map).
+inline cudaError_t tma_map_bf16_strided(CUtensorMap* map, const void* base, int rank,
+                                        const cuuint64_t* dims, const cuuint64_t* strides,
+                                        const cuuint32_t* box) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  cuuint64_t strides[4];  // bytes between consecutive indices of dims 1..rank-1
-  cuuint64_t s = sizeof(__nv_bfloat16);
-  for (int i = 0; i + 1 < rank; ++i) strides[i] = s *= dims[i];
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUresult r =
       fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box,
          elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the map over a packed tensor
+inline cudaError_t tma_map_bf16(CUtensorMap* map, const void* base, int rank,
+                                const cuuint64_t* dims, const cuuint32_t* box) {
+  cuuint64_t strides[4];  // bytes between consecutive indices of dims 1..rank-1
+  cuuint64_t s = sizeof(__nv_bfloat16);
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = s *= dims[i];
+  return tma_map_bf16_strided(map, base, rank, dims, strides, box);
 }
 
 // the smem base rounded up to 1024 bytes (the swizzled layout's alignment)

@@ -1340,6 +1340,10 @@ VARLEN_LAYOUTS = [
     ([1, 128, 3, 257, 1], None),        # mixed
     ([40, 8, 30], [64, 0, 32]),         # cross: an empty k segment
     ([50, 20, 90], [30, 70, 90]),       # cross: len_q != len_k
+    # segments that straddle the wgmma kernels' 128-row tiles and end
+    # inside a warpgroup's 64 rows
+    ([127, 129, 1, 255], None),
+    ([127, 129, 1, 255], [130, 1, 127, 200]),
 ]
 
 
@@ -1400,7 +1404,8 @@ def test_varlen_kernels_match_plain(dev, dtype, d, causal, layout):
 
 def test_varlen_fused_and_split_agree_and_split_dq_is_deterministic(dev):
     """At the short pack's head width in bf16: fused and split within the
-    bf16 limits; the split dQ (no atomics) bitwise equal over two runs."""
+    bf16 limits; the split dQ, dK and dV (no atomics) bitwise equal over
+    two runs."""
     lens = [300, 77, 1000, 64, 511]
     q, k, v, do, cu, _ = _varlen_case(dev, torch.bfloat16, lens, None, 8,
                                       128, 5)
@@ -1409,11 +1414,36 @@ def test_varlen_fused_and_split_agree_and_split_dq_is_deterministic(dev):
     args = (q, k, v, do, lse, delta, cu, cu, True, 128 ** -0.5)
     dq1 = fv.varlen_bwd_dq(*args)
     dq2 = fv.varlen_bwd_dq(*args)
+    dkv1 = fv.varlen_bwd_dkv(*args)
+    dkv2 = fv.varlen_bwd_dkv(*args)
     fused = fv.varlen_bwd(*args)
-    split = (dq1, *fv.varlen_bwd_dkv(*args))
+    split = (dq1, *dkv1)
     torch.cuda.synchronize()
     assert torch.equal(dq1, dq2)
+    assert torch.equal(dkv1[0], dkv2[0]) and torch.equal(dkv1[1], dkv2[1])
     for a, b in zip(fused, split):
+        _close(a, b, FLASH_TOL[torch.bfloat16][1])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+def test_varlen_split_wgmma_long_segment_matches_plain(dev, d, packed, causal):
+    """The bf16 split backward (rows 22 and 23 on wgmma) on a pack with a
+    segment over 4,096 tokens, among short ones that end inside a 128-row
+    tile, against the plain versions under the bf16 limits."""
+    lens = [300, 4500, 77, 1000, 13]
+    q, k, v, do, cu, _ = _varlen_case(dev, torch.bfloat16, lens, None, 2, d,
+                                      11, packed=packed)
+    scale = d ** -0.5
+    o, lse = fv.varlen_fwd_plain(q, k, v, cu, cu, causal, scale)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    args = (q, k, v, do, lse, delta, cu, cu, causal, scale)
+    got = (fv.varlen_bwd_dq(*args), *fv.varlen_bwd_dkv(*args))
+    want = fv.varlen_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert got[0].stride() == q.stride() and got[1].stride() == k.stride()
+    for a, b in zip(got, want):
         _close(a, b, FLASH_TOL[torch.bfloat16][1])
 
 

@@ -260,6 +260,34 @@ def test_grads_match_jax_split(causal, monkeypatch):
     _assert_grads(got, want)
 
 
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_split_drift_reference_matches_plain(name):
+    """chip_smoke's f64 reference for the split backward's drift rule
+    (``varlen_bwd_f64``, causal self-attention, bf16) keeps the plain
+    versions' rounding points: rounded to bf16 it stands within the
+    kernels' bf16 limits of ``varlen_bwd_dq_plain`` and
+    ``varlen_bwd_dkv_plain`` (both sum P and dS rounded at the same
+    points; only f32 against f64 sums differ)."""
+    from chip_smoke import FLASH_TOL, flash_close, varlen_bwd_f64
+    lens = LAYOUTS[name]
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                      dtype=torch.int32)
+    t = int(cu[-1])
+    rng = np.random.RandomState(41)
+    q, k, v, do = (torch.from_numpy(rng.randn(2, t, D).astype(np.float32))
+                   .bfloat16() for _ in range(4))
+    o, lse = tv.varlen_fwd_plain(q, k, v, cu, cu, True, SCALE)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    args = (q, k, v, do, lse, delta, cu, cu, True, SCALE)
+    plain = (tv.varlen_bwd_dq_plain(*args), *tv.varlen_bwd_dkv_plain(*args))
+    ref = varlen_bwd_f64(q, k, v, do, lse, delta, lens, SCALE, rows=64)
+    rel, frob = FLASH_TOL[torch.bfloat16][1]
+    for a, b in zip(plain, ref):
+        assert a.dtype == torch.bfloat16 and b.dtype == torch.float64
+        ok, excess, fro, _ = flash_close(a, b.to(torch.bfloat16), rel, frob)
+        assert ok, (name, excess, fro)
+
+
 def test_stacked_row_19_function_is_row_20():
     """A short-segment pack that JAX sends to its stacked forward (row 19,
     ``_flash_varlen_fwd_stacked``) gives the port's row-20 path's o and

@@ -1,6 +1,7 @@
-"""Accuracy of the dense flash kernels at long sequence lengths (card).
+"""Accuracy of the flash kernels at long sequence lengths (card).
 
     python3 tools/flash_long_accuracy.py [S ...]      # default 65536 131072
+    python3 tools/flash_long_accuracy.py --varlen [L ...]   # default 65536
 
 For each S (one head, D = 128, causal, bf16, seeded) the forward (row 14)
 and both backwards (row 16; row 18's dQ) run on the card beside their
@@ -12,6 +13,16 @@ prints the relative Frobenius error and the drift along the reference,
 sum((got - ref) * ref) / sum(ref * ref): a kernel whose sums lose to
 rounding toward zero shows a negative drift that grows with S, where a
 summation order only adds noise around 0. Needs one CUDA device.
+
+With --varlen, the packed varlen kernels: for each L one L-token segment
+(one head, D = 128, causal, bf16, seeded), then chip_smoke's long pack
+(16 x 4,096 tokens, 32 heads): the forward (row 20), the fused backward
+(row 21) and the split pair (row 23's dQ, row 22's dK and dV) beside
+their plain versions, against references summed in f64 from the same
+rounded operands (chip_smoke's ``varlen_bwd_f64``; the forward an f64
+softmax). Each split output's drift excess over its plain version is
+held to chip_smoke's ``VARLEN_DRIFT_EXCESS``; the tool exits non-zero if
+one exceeds it.
 """
 from __future__ import annotations
 
@@ -109,5 +120,81 @@ def main(lengths):
         torch.cuda.empty_cache()
 
 
+def varlen_fwd_f64(q, k, v, lens, scale, rows=2048):
+    """A causal self-attention pack's o from an f64 softmax: q, k, v
+    [H, T, D] -> o f64."""
+    dev = q.device
+    o = torch.zeros(q.shape, dtype=torch.float64, device=dev)
+    a = 0
+    for n in lens:
+        for r0 in range(0, n, rows):
+            r1 = min(r0 + rows, n)
+            s = (q[:, a + r0:a + r1].double()
+                 @ k[:, a:a + r1].double().transpose(1, 2)) * scale
+            dead = (torch.arange(r1, device=dev)[None]
+                    > torch.arange(r0, r1, device=dev)[:, None])
+            p = torch.softmax(s.masked_fill(dead, -math.inf), -1)
+            o[:, a + r0:a + r1] = p @ v[:, a:a + r1].double()
+        a += n
+    return o
+
+
+def drift(got, ref):
+    g, r = got.double(), ref.double()
+    return ((g - r) * r).sum().item() / (r * r).sum().item()
+
+
+def main_varlen(lengths):
+    if not torch.cuda.is_available():
+        sys.exit("flash_long_accuracy: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from paddle_tpu_torch.ops import flash_varlen as fv
+    dev, d = torch.device("cuda"), 128
+    scale = d ** -0.5
+    cases = [(f"one segment of {n} tokens, 1 head", [n], 1) for n in lengths]
+    cases.append((f"long pack 16 x 4096, {cs.VARLEN_H} heads", cs.VARLEN_LONG,
+                  cs.VARLEN_H))
+    good = True
+    for name, lens, h in cases:
+        print(f"{name} (D={d}, causal, bf16)", flush=True)
+        q, k, v, do = cs._varlen_inputs(dev, torch.bfloat16, lens, None, h, d,
+                                        cs.SEED + 70)
+        qh, kh, vh, doh = (x.transpose(0, 1) for x in (q, k, v, do))
+        cu = cs._cu_dev(lens, dev)
+        o, _ = fv.varlen_fwd(qh, kh, vh, cu, cu, True, scale)
+        o_p, lse = fv.varlen_fwd_plain(qh, kh, vh, cu, cu, True, scale)
+        o64 = varlen_fwd_f64(qh, kh, vh, lens, scale)
+        report("o row 20 vs f64", o, o64)
+        report("o plain vs f64", o_p, o64)
+        del o, o64
+        delta = (doh.float() * o_p.float()).sum(-1).contiguous()
+        args = (qh, kh, vh, doh, lse, delta, cu, cu, True, scale)
+        ref = cs.varlen_bwd_f64(qh, kh, vh, doh, lse, delta, lens, scale)
+        plain = fv.varlen_bwd_plain(*args)
+        fused = fv.varlen_bwd(*args)
+        split = (fv.varlen_bwd_dq(*args), *fv.varlen_bwd_dkv(*args))
+        torch.cuda.synchronize()
+        for i, n in enumerate(("dq", "dk", "dv")):
+            report(f"{n} plain vs f64", plain[i], ref[i])
+            report(f"{n} row 21 vs f64", fused[i], ref[i])
+            row = "row 23" if n == "dq" else "row 22"
+            report(f"{n} {row} vs f64", split[i], ref[i])
+            excess = drift(split[i], ref[i]) - drift(plain[i], ref[i])
+            ok = abs(excess) <= cs.VARLEN_DRIFT_EXCESS
+            good &= ok
+            print(f"  {n} {row} drift excess over plain {excess:+.3e} "
+                  f"(row 21 {drift(fused[i], ref[i]) - drift(plain[i], ref[i]):+.3e}); "
+                  f"limit {cs.VARLEN_DRIFT_EXCESS:g}: {'ok' if ok else 'OVER'}",
+                  flush=True)
+        del q, k, v, do, qh, kh, vh, doh, ref, plain, fused, split, args
+        torch.cuda.empty_cache()
+    sys.exit(0 if good else 1)
+
+
 if __name__ == "__main__":
-    main([int(a) for a in sys.argv[1:]] or [65536, 131072])
+    if sys.argv[1:2] == ["--varlen"]:
+        main_varlen([int(a) for a in sys.argv[2:]] or [65536])
+    else:
+        main([int(a) for a in sys.argv[1:]] or [65536, 131072])
