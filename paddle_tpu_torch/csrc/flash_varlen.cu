@@ -31,56 +31,61 @@
 // products of 2 D operations per live pair (2.1e11, 0.21 ms at 989 TFLOP/s)
 // over 0.13 GB (0.16 ms at 3.35 TB/s); the backward does 5 (0.53 ms).
 //
-// Design (the port's dense flash kernels, csrc/flash_attention.cu, not the
-// TPU's flat grid). The forward, the fused backward and every f32 kernel:
-// mma.sync m16n8k16 warp tiles from csrc/mma_common.cuh, 16-byte cp.async
-// in a two-stage pipeline, one barrier per tile.
+// Every kernel, in both designs below, keeps these rules (from the TPU's
+// _live_col_tiles with the causal diagonal clamp of _fwd_bounds /
+// _bwd_bounds, at this card's tiles):
 // - No schedule arrays and no host sync: each thread finds the segment of
 //   its own rows (or keys) by binary search of cu in device memory and keeps
 //   the row's live key interval [lo, hi) (or the key's live query interval)
-//   in registers. The CTA's live tile range is the union of its rows'
-//   intervals (warp and block min/max), which is _live_col_tiles with the
-//   causal diagonal clamp of _fwd_bounds / _bwd_bounds, at this kernel's
-//   tiles. A warp skips a tile that holds no live pair of its rows (an exact
-//   no-op of the online softmax), and masks only where a tile crosses one of
-//   its rows' interval ends.
+//   in registers. A CTA walks the union of its rows' intervals (warp and
+//   block min/max). A warp (a warpgroup on wgmma) skips a tile that holds no
+//   live pair of its rows (an exact no-op of the online softmax), and a warp
+//   masks only where a tile crosses one of its rows' interval ends.
 // - Masking to -inf with a guarded rescale: a running max still at -inf uses
 //   0 as its base, so exp2(-inf - base) = 0 and no NaN arises where a q tile
 //   spans segments and a row sees k tiles that are wholly masked for it. The
 //   backward masks P to 0 itself (it does not rely on lse, which is 0 for a
 //   dead row).
-// - Forward: one CTA of 4 warps per (64-row q tile, head); 64-key tiles; P
-//   rounded to the input dtype before P.V, the normaliser summing the
-//   unrounded P.
+// - The forward rounds P to the input dtype before P.V per 64-key tile
+//   aligned to a multiple of 64 (the plain version's BLOCK_K walk), the
+//   normaliser summing the unrounded P. The backward rounds P for dV and
+//   dS = P (dP - delta) scale for dK and dQ.
+//
+// f32: mma.sync m16n8k16 warp tiles from csrc/mma_common.cuh, 16-byte
+// cp.async in a two-stage pipeline, one barrier per tile.
+// - Forward: one CTA of 4 warps per (64-row q tile, head), 64-key tiles.
 // - Fused backward: one CTA per (64-key tile, head) over its live q tiles
-//   (32 rows at D = 128, 64 at D = 64); dK and dV in f32 registers; dS =
-//   P (dP - delta) scale rounded to the input dtype; dQ += dS K summed across
-//   CTAs by f32 atomicAdd into a zeroed scratch (pairs that are exactly zero,
-//   such as rows with no live key, send no atomic), then a cast pass. The
-//   summation order of dQ varies from run to run.
-// - Split backward (f32): varlen_bwd_dkv is the fused CTA without dQ;
+//   (32 rows at D = 128, 64 at D = 64); dK and dV in f32 registers; dQ +=
+//   dS K summed across CTAs by f32 atomicAdd into a zeroed scratch (pairs
+//   that are exactly zero, such as rows with no live key, send no atomic),
+//   then a cast pass. The summation order of dQ varies from run to run.
+// - Split backward: varlen_bwd_dkv is the fused CTA without dQ;
 //   varlen_bwd_dq is one CTA per (64-row q tile, head) over its live k
 //   tiles, recomputing S and dP (7 products across the pair), dQ in
 //   registers, no atomics: the same bits every run.
 //
-// Split backward in bf16, redesigned for Hopper on wgmma (the dense
-// kernels' tools: csrc/wgmma_common.cuh's 128-byte swizzled tiles, wgmma
-// from shared memory and from registers, TMA through 3-D maps over
-// [H, T, D] with each operand's own strides, so one map form serves both
-// layouts and a box past T reads zeros; mbarrier rings; setmaxnreg). The
-// same function, rounding points and contract; no atomics, so every output
-// has the same bits on every run. Every sum over q tiles or key stages
-// takes each step's product in a zeroed accumulator and adds it to f32
-// registers with IEEE adds: the tensor cores round their own f32 sums
-// toward zero, and a sum carried in them along a 65,536-token segment
-// drifts 1e-4 low (tools/varlen_mutants.py). Both CTAs have two consumer
-// warpgroups of 64 rows and a producer warpgroup that gives its registers
-// to them (setmaxnreg 24 against 240) and fills a ring by TMA; stages are
-// handed over by full/empty mbarriers. Rows, keys and stages are skipped
-// and masked by one rule: the CTA walks the union of its rows' (keys')
-// live intervals, a warpgroup skips a step that none of its rows sees,
-// and a warp masks only a step that crosses one of its rows' interval
-// ends. Timed against the forms they beat by tools/varlen_choices.py.
+// bf16, designed for Hopper on wgmma (the dense kernels' tools:
+// csrc/wgmma_common.cuh's 128-byte swizzled tiles, wgmma from shared memory
+// and from registers, TMA through 3-D maps over [H, T, D] with each
+// operand's own strides, so one map form serves both layouts and a box
+// past T reads zeros; mbarrier rings; setmaxnreg). The same function,
+// rounding points and contract. Every sum over q tiles or key stages takes
+// each step's product in a zeroed accumulator and adds it to f32 registers
+// with IEEE adds: the tensor cores round their own f32 sums toward zero,
+// and a sum carried in them along a 65,536-token segment drifts 1e-4 low
+// (tools/varlen_mutants.py). Every CTA has two consumer warpgroups of 64
+// rows and a producer warpgroup that gives its registers to them
+// (setmaxnreg 24 against 240) and fills a ring by TMA; stages are handed
+// over by full/empty mbarriers. Timed against the forms they beat by
+// tools/varlen_choices.py.
+// - Forward (varlen_fwd_wg_kernel, the dense flash_fwd_wg_kernel's design):
+//   a CTA of 128 q rows with Q loaded once, 128-key K/V stages in a ring of
+//   128 KB. Per stage a consumer computes S = Q K^T (m64n128k16), then per
+//   64-key half masks, runs the online softmax (c2 = scale log2 e on the
+//   f32 score), puts P from the S accumulator straight into A fragments and
+//   adds P V (m64nDk16, V read MN-major) to the rescaled o. o is staged in
+//   the warpgroup's own rows of the Q tile and stored in 16-byte pieces.
+//   The last q tile is launched first.
 // - dK/dV (varlen_bwd_wg_kernel, the dense flash_bwd_wg_kernel's products):
 //   a CTA owns 128 keys, K and V loaded once; 64-row Q and dO stages in a
 //   four-stage ring, whose lse (in the log2 domain) and delta the
@@ -89,20 +94,22 @@
 //   from those accumulators as register A fragments, one m64nDk16 product
 //   each over all D columns (Q and dO read MN-major from the stage). The
 //   output is staged in the warpgroup's own rows of the K and V tiles and
-//   stored in 16-byte pieces. The DQ flag keeps the fused form's dQ (dS^T
-//   through shared memory, dQ by float2 atomics) in the same body; the
-//   fused backward still runs varlen_bwd_kernel.
-// - dQ (varlen_dq_wg_kernel, the dense flash_fwd_wg_kernel's design, a
-//   forward with dP and dQ in place of P V): a CTA of 128 q rows with Q
-//   and dO loaded once, 128-key K/V stages in a two-stage ring. Per stage
-//   a consumer computes S = Q K^T and dP = dO V^T (m64n128k16), forms dS
-//   = round(P (dP - delta) scale) straight into A fragments, and adds
-//   dS K (m64nDk16, K read MN-major). dQ is staged in the warpgroup's
-//   own rows of the Q tile and stored in 16-byte pieces. The last q tile
-//   is launched first.
-// At the long pack (16 x 4,096 tokens, 32 heads x 128, causal) the dK/dV
-// pass does 4 products of 2 D operations per live pair (4.4e12, 4.45 ms at
-// 989 TFLOP/s), the dQ pass 3 (3.34 ms).
+//   stored in 16-byte pieces. No atomics: the same bits every run.
+// - Fused backward: the same kernel with its DQ flag on, so its dK and dV
+//   have the bits of the split dK/dV on the same inputs. dS^T goes through
+//   shared memory and each CTA's dS K is added to a zeroed f32 scratch by
+//   float2 atomics (a zero pair sends none), then a cast pass: the
+//   summation order of dQ varies from run to run.
+// - dQ (varlen_dq_wg_kernel, the forward's design with dP and dQ in place
+//   of P V): a CTA of 128 q rows with Q and dO loaded once, 128-key K/V
+//   stages in a two-stage ring. Per stage a consumer computes S = Q K^T and
+//   dP = dO V^T (m64n128k16), forms dS = round(P (dP - delta) scale)
+//   straight into A fragments, and adds dS K (m64nDk16, K read MN-major).
+//   dQ is staged in the warpgroup's own rows of the Q tile and stored in
+//   16-byte pieces. The last q tile is launched first.
+// At the long pack (16 x 4,096 tokens, 32 heads x 128, causal) the forward
+// does 2 products of 2 D operations per live pair (2.2e12, 2.22 ms at 989
+// TFLOP/s), the dK/dV pass 4 (4.45 ms), the dQ pass 3 (3.34 ms).
 //
 // Types f32 and bf16, head_dim 64 and 128. The kernels allocate nothing and
 // do not synchronise; they launch on the caller's stream.
@@ -647,7 +654,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// split dK/dV for bf16 on wgmma (row 22; DQ: the fused form's dQ)
+// dK/dV for bf16 on wgmma: the split dK/dV (row 22), and with DQ the fused
+// backward (row 21)
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -1132,6 +1140,233 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// forward for bf16 on wgmma (row 20)
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct WgFwdCfg {
+  static constexpr int BQ = 128, BK = 128;  // q rows a CTA, keys a stage (64-key halves)
+  static constexpr int NB = D / 64;               // 64-column blocks of D
+  static constexpr int QT_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
+  static constexpr int NS = 131072 / (2 * KV_BYTES);  // ring stages: 128 KB of K and V
+  static constexpr int OFF_KV = QT_BYTES;             // stage st: K, then V
+  static constexpr int OFF_BAR = OFF_KV + NS * 2 * KV_BYTES;
+  // barriers (Q landed, NS stages full, NS stages empty), and slack to
+  // align the base to 1024 bytes
+  static constexpr size_t kSmem = OFF_BAR + 8 * (1 + 2 * NS) + 1024;
+};
+
+// qm, km, vm: tensor maps of q [H, Tq, D] and k, v [H, Tk, D] (bf16, each
+// with its own strides) with boxes of 64 columns by 128 rows; o in q's
+// layout lq, lse [H, Tq] f32 (natural log), both written whole. 384
+// threads, grid (ceil(Tq / 128), H).
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    varlen_fwd_wg_kernel(const __grid_constant__ CUtensorMap qm,
+                         const __grid_constant__ CUtensorMap km,
+                         const __grid_constant__ CUtensorMap vm, bf16* __restrict__ o,
+                         float* __restrict__ lse, Seqs S, Lay lq, float c2) {
+  using C = WgFwdCfg<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, NS = C::NS, NB = C::NB;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int s_lo[8], s_hi[8];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + NS;
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = tid >> 5, wiw = warp & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the last q tile first
+  const int h = blockIdx.y;
+
+  // consumer warpgroup wg owns q rows q0 + 64 wg ..; this warp 16 of them,
+  // this lane row0 and row1 with their live key intervals
+  const int rloc = 64 * wg + 16 * wiw + g;  // row0's row of the CTA's tile
+  const int row0 = q0 + rloc, row1 = row0 + 8;
+  int lo0 = INT_MAX, hi0 = 0, lo1 = INT_MAX, hi1 = 0;
+  WarpSpan w{INT_MAX, 0, INT_MAX, 0};
+  if (wg < 2) {
+    key_range(S, row0, lo0, hi0);
+    key_range(S, row1, lo1, hi1);
+    w = warp_span(lo0, hi0, lo1, hi1);
+    if (lane == 0) {
+      s_lo[warp] = w.lo;
+      s_hi[warp] = w.hi;
+    }
+  }
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 256);  // every consumer thread releases a stage
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // the CTA loads the union of its rows' live key stages; a warpgroup
+  // skips a stage (or a 64-key half) that none of its rows sees
+  int clo, chi, glo, ghi;
+  span_of(s_lo, s_hi, 0, 8, clo, chi);
+  span_of(s_lo, s_hi, 4 * (wg & 1), 4, glo, ghi);
+  const int kb = chi > clo ? clo / BK * BK : 0;  // stage jj holds keys kb + BK jj ..
+  const int nj = chi > clo ? (chi - 1 - kb) / BK + 1 : 0;
+
+  if (wg == 2) {  // the producer warpgroup: one thread keeps the ring full
+    setmaxnreg_dec<24>();
+    if (tid == 256 && nj > 0) {
+      mbar_expect_tx(qbar, C::QT_BYTES);
+      for (int b = 0; b < NB; ++b) tma_load_3d(sm + b * (BQ * 128), &qm, qbar, 64 * b, q0, h);
+      for (int jj = 0; jj < nj; ++jj) {
+        const int st = jj % NS;
+        if (jj >= NS) mbar_wait(&empty[st], ((jj / NS) & 1) ^ 1);
+        unsigned char* ks = sm + C::OFF_KV + st * 2 * C::KV_BYTES;
+        mbar_expect_tx(&full[st], 2 * C::KV_BYTES);
+        for (int b = 0; b < NB; ++b) {
+          tma_load_3d(ks + b * (BK * 128), &km, &full[st], 64 * b, kb + jj * BK, h);
+          tma_load_3d(ks + C::KV_BYTES + b * (BK * 128), &vm, &full[st], 64 * b, kb + jj * BK,
+                      h);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  const uint32_t qa = smem_u32(sm) + wg * 64 * 128;
+  float acc[D / 2];  // m64nD accumulator layout
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  if (nj > 0) mbar_wait(qbar, 0);
+  if (wg == 1 && nj > 0) bar_arrive(3, 256);  // warpgroup 0 takes the first turn
+  for (int jj = 0; jj < nj; ++jj) {
+    const int st = jj % NS, c0 = kb + jj * BK;
+    mbar_wait(&full[st], (jj / NS) & 1);
+    // the two warpgroups take turns issuing S (named barriers 3 and 4),
+    // which keeps their S products apart on the tensor cores; a stage that
+    // no row of this warpgroup sees leaves its state as it is: skipped (a
+    // warpgroup-uniform branch), its turn passed on
+    const bool on = c0 < ghi && c0 + BK > glo;
+    bar_sync(3 + wg, 256);
+    if (!on && (wg == 0 || jj + 1 < nj)) bar_arrive(4 - wg, 256);
+    if (on) {
+      const uint32_t ka = smem_u32(sm + C::OFF_KV + st * 2 * C::KV_BYTES), va = ka + C::KV_BYTES;
+
+      // S = Q K^T over the stage's keys (q as given: c2 scales the f32
+      // score, never q)
+      float s[BK / 2];
+      wg_fence();
+#pragma unroll
+      for (int x = 0; x < D / 16; ++x)
+        wgmma_ss<0, 0, BK>(s, sw128_desc(qa + (x >> 2) * (BQ * 128) + (x & 3) * 32, 16, 1024),
+                           sw128_desc(ka + (x >> 2) * (BK * 128) + (x & 3) * 32, 16, 1024), x);
+      wg_commit();
+      if (wg == 0 || jj + 1 < nj) bar_arrive(4 - wg, 256);
+      wg_wait<0>();
+      reg_fence(s);
+
+      // the online softmax and P V once per 64-key half, so that P is
+      // rounded against the running max of the plain version's walk of
+      // BLOCK_K = 64 keys aligned to multiples of 64
+#pragma unroll
+      for (int hh = 0; hh < BK / 64; ++hh) {
+        const int h0 = c0 + 64 * hh;
+        if (h0 >= ghi || h0 + 64 <= glo) continue;  // warpgroup-uniform
+        // only a half that crosses an end of one of the warp's intervals
+        // is masked (a warp-uniform branch)
+        const bool masked = !(h0 >= w.lo_max && h0 + 64 <= w.hi_min);
+        float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int r = 32 * hh + 4 * n;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = h0 + 8 * n + 2 * t + (e & 1);
+            const bool live = e < 2 ? (col >= lo0 && col < hi0) : (col >= lo1 && col < hi1);
+            s[r + e] = masked && !live ? -INFINITY : s[r + e] * c2;
+          }
+          mx0 = fmaxf(mx0, fmaxf(s[r], s[r + 1]));
+          mx1 = fmaxf(mx1, fmaxf(s[r + 2], s[r + 3]));
+        }
+        const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+        // a row with no live key yet keeps m = -inf; base 0 keeps exp2
+        // finite (a 128-row tile can span segments)
+        const float b0 = mn0 == -INFINITY ? 0.f : mn0, b1 = mn1 == -INFINITY ? 0.f : mn1;
+        const float al0 = exp2f(m0 - b0), al1 = exp2f(m1 - b1);
+        float rs0 = 0.f, rs1 = 0.f;
+        uint32_t pf[16];  // P rounded to bf16, as the A fragments of P V
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int r = 32 * hh + 4 * n;
+          const float p0 = exp2f(s[r] - b0), p1 = exp2f(s[r + 1] - b0);
+          const float p2 = exp2f(s[r + 2] - b1), p3 = exp2f(s[r + 3] - b1);
+          rs0 += p0 + p1;
+          rs1 += p2 + p3;
+          pf[2 * n] = pack_bf16(p0, p1);
+          pf[2 * n + 1] = pack_bf16(p2, p3);
+        }
+        l0 = l0 * al0 + quad_sum(rs0);
+        l1 = l1 * al1 + quad_sum(rs1);
+        m0 = mn0;
+        m1 = mn1;
+
+        // P V over the half's 64 keys and all D columns (m64nDk16, V read
+        // MN-major from the stage) in a zeroed accumulator, added to the
+        // running o after its rescale with IEEE adds: the tensor cores'
+        // own f32 sums round toward zero, and o carried in them over a
+        // long segment drifts. The rescale runs while the product does,
+        // and is skipped where the warp's max did not move (exact).
+        float pv[D / 2];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<1, D>(pv, pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2], pf[4 * kk + 3],
+                         sw128_desc(va + hh * 8192 + kk * 2048, BK * 128, 1024), kk);
+        wg_commit();
+        if (__any_sync(0xffffffffu, al0 != 1.f || al1 != 1.f)) {
+#pragma unroll
+          for (int e = 0; e < D / 2; ++e) acc[e] *= e & 2 ? al1 : al0;
+        }
+        wg_wait<0>();
+        reg_fence(pv);
+#pragma unroll
+        for (int e = 0; e < D / 2; ++e) acc[e] += pv[e];
+      }
+    }
+    mbar_arrive(&empty[st]);  // this thread is done with the stage
+  }
+
+  // o = acc / l rounded to bf16 (0 for a row with no live key) and staged
+  // in this warpgroup's own rows of the Q tile (free once its last product
+  // is done), then stored in 16-byte pieces; lse one value a row
+  const float d0 = l0 > 0.f ? 1.f / l0 : 0.f, d1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  wg_bar(1 + wg);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    *reinterpret_cast<uint32_t*>(sm + sw128_offset<BQ>(rloc, col)) =
+        pack_bf16(acc[4 * j] * d0, acc[4 * j + 1] * d0);
+    *reinterpret_cast<uint32_t*>(sm + sw128_offset<BQ>(rloc + 8, col)) =
+        pack_bf16(acc[4 * j + 2] * d1, acc[4 * j + 3] * d1);
+  }
+  if (t == 0) {
+    float* lg = lse + (size_t)h * S.tq;
+    if (row0 < S.tq) lg[row0] = l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : 0.f;
+    if (row1 < S.tq) lg[row1] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : 0.f;
+  }
+  wg_bar(1 + wg);
+  bf16* og = o + (size_t)h * lq.hs;
+  for (int i = tid & 127; i < 64 * (D / 8); i += 128) {
+    const int rr = 64 * wg + i / (D / 8), c = 8 * (i % (D / 8)), row = q0 + rr;
+    if (row < S.tq)
+      *reinterpret_cast<uint4*>(og + row * lq.rs + c) =
+          *reinterpret_cast<const uint4*>(sm + sw128_offset<BQ>(rr, c));
+  }
+}
+
 template <typename T>
 __global__ void dq_cast_kernel(const float* __restrict__ acc, T* __restrict__ dq, size_t n) {
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -1169,6 +1404,17 @@ cudaError_t launch_fwd(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the fused backward's dQ: the f32 scratch cast to dq's dtype
+template <typename T, int D>
+cudaError_t launch_dq_cast(const Args& a, cudaStream_t stream) {
+  const size_t n = (size_t)a.h * a.S.tq * D;
+  if (n == 0) return cudaSuccess;
+  const int blocks = (int)((n + 255) / 256 < 8192 ? (n + 255) / 256 : 8192);
+  dq_cast_kernel<T><<<blocks, 256, 0, stream>>>(static_cast<const float*>(a.dq_acc),
+                                                static_cast<T*>(a.dq), n);
+  return cudaGetLastError();
+}
+
 template <typename T, int D, bool WITH_DQ>
 cudaError_t launch_bwd(const Args& a, cudaStream_t stream) {
   using C = BwdCfg<T, D>;
@@ -1184,21 +1430,18 @@ cudaError_t launch_bwd(const Args& a, cudaStream_t stream) {
         lay(a.packed, a.h, a.S.tk, D), a.scale * kLog2e, a.scale);
     e = cudaGetLastError();
   }
-  const size_t n = (size_t)a.h * a.S.tq * D;
-  if (e != cudaSuccess || !WITH_DQ || n == 0) return e;
-  const int blocks = (int)((n + 255) / 256 < 8192 ? (n + 255) / 256 : 8192);
-  dq_cast_kernel<T><<<blocks, 256, 0, stream>>>(static_cast<const float*>(a.dq_acc),
-                                                static_cast<T*>(a.dq), n);
-  return cudaGetLastError();
+  if (e != cudaSuccess || !WITH_DQ) return e;
+  return launch_dq_cast<T, D>(a, stream);
 }
 
 // Tensor maps of q, dout [H, Tq, D] and k, v [H, Tk, D] with each
 // operand's own strides, boxes of 64 columns by qrows or krows rows. A
 // side with no rows (tq or tk 0) has no live pair, so no box of it is
-// ever loaded: the other side's map stands in.
+// ever loaded: the other side's map stands in. The forward has no dout:
+// its map is q's.
 cudaError_t varlen_maps(const Args& a, int d, int qrows, int krows, CUtensorMap (&maps)[4]) {
   const Lay lq = lay(a.packed, a.h, a.S.tq, d), lk = lay(a.packed, a.h, a.S.tk, d);
-  const void* base[4] = {a.q, a.dout, a.k, a.v};
+  const void* base[4] = {a.q, a.dout ? a.dout : a.q, a.k, a.v};
   cudaError_t e = cudaSuccess;
   for (int i = 0; i < 4 && e == cudaSuccess; ++i) {
     bool qside = i < 2;
@@ -1214,22 +1457,44 @@ cudaError_t varlen_maps(const Args& a, int d, int qrows, int krows, CUtensorMap 
   return e;
 }
 
-// bf16 split dK/dV on wgmma, Q and dO stages filled by TMA
+// bf16 forward on wgmma, the K/V ring filled by TMA
 template <int D>
-cudaError_t launch_bwd_dkv_wg(const Args& a, cudaStream_t stream) {
-  using C = WgBwdCfg<D>;
-  const dim3 grid((a.S.tk + C::BK - 1) / C::BK, a.h);
+cudaError_t launch_fwd_wg(const Args& a, cudaStream_t stream) {
+  using C = WgFwdCfg<D>;
+  const dim3 grid((a.S.tq + C::BQ - 1) / C::BQ, a.h);
   if (grid.x == 0) return cudaSuccess;
   CUtensorMap maps[4] = {};
   cudaError_t e = varlen_maps(a, D, C::BQ, C::BK, maps);
-  if (e == cudaSuccess) e = allow_smem(varlen_bwd_wg_kernel<D, false>, C::kSmem);
+  if (e == cudaSuccess) e = allow_smem(varlen_fwd_wg_kernel<D>, C::kSmem);
   if (e != cudaSuccess) return e;
-  varlen_bwd_wg_kernel<D, false><<<grid, 384, C::kSmem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), nullptr, static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), a.S, lay(a.packed, a.h, a.S.tq, D),
-      lay(a.packed, a.h, a.S.tk, D), a.scale * kLog2e, a.scale);
+  varlen_fwd_wg_kernel<D><<<grid, 384, C::kSmem, stream>>>(
+      maps[0], maps[2], maps[3], static_cast<bf16*>(a.o), static_cast<float*>(a.lse_out), a.S,
+      lay(a.packed, a.h, a.S.tq, D), a.scale * kLog2e);
   return cudaGetLastError();
+}
+
+// bf16 dK/dV on wgmma, Q and dO stages filled by TMA: the split dK/dV, or
+// with DQ the fused backward (dQ by float2 atomics into the zeroed
+// scratch, then its cast)
+template <int D, bool DQ>
+cudaError_t launch_bwd_wg(const Args& a, cudaStream_t stream) {
+  using C = WgBwdCfg<D>;
+  const dim3 grid((a.S.tk + C::BK - 1) / C::BK, a.h);
+  cudaError_t e = cudaSuccess;
+  if (grid.x > 0) {  // no keys: dQ stays the zeroed scratch
+    CUtensorMap maps[4] = {};
+    e = varlen_maps(a, D, C::BQ, C::BK, maps);
+    if (e == cudaSuccess) e = allow_smem(varlen_bwd_wg_kernel<D, DQ>, C::kSmem);
+    if (e != cudaSuccess) return e;
+    varlen_bwd_wg_kernel<D, DQ><<<grid, 384, C::kSmem, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<float*>(a.dq_acc),
+        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.S, lay(a.packed, a.h, a.S.tq, D),
+        lay(a.packed, a.h, a.S.tk, D), a.scale * kLog2e, a.scale);
+    e = cudaGetLastError();
+  }
+  if (e != cudaSuccess || !DQ) return e;
+  return launch_dq_cast<bf16, D>(a, stream);
 }
 
 // bf16 split dQ on wgmma, the K/V ring filled by TMA
@@ -1265,15 +1530,19 @@ cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
 }
 
 // which: 0 forward, 1 fused backward, 2 split dK/dV, 3 split dQ; bf16
-// takes the wgmma kernels for 2 and 3
+// takes the wgmma kernels, f32 the mma.sync ones
 template <typename T, int D>
 cudaError_t launch(int which, const Args& a, cudaStream_t s) {
   constexpr bool wg = std::is_same<T, bf16>::value;
   switch (which) {
-    case 0: return launch_fwd<T, D>(a, s);
-    case 1: return launch_bwd<T, D, true>(a, s);
+    case 0:
+      if constexpr (wg) return launch_fwd_wg<D>(a, s);
+      else return launch_fwd<T, D>(a, s);
+    case 1:
+      if constexpr (wg) return launch_bwd_wg<D, true>(a, s);
+      else return launch_bwd<T, D, true>(a, s);
     case 2:
-      if constexpr (wg) return launch_bwd_dkv_wg<D>(a, s);
+      if constexpr (wg) return launch_bwd_wg<D, false>(a, s);
       else return launch_bwd<T, D, false>(a, s);
     default:
       if constexpr (wg) return launch_dq_wg<D>(a, s);

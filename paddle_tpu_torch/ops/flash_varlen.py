@@ -601,8 +601,10 @@ def _check_bwd(name, q, k, v, do, lse, delta, cu_q, cu_k):
 def varlen_bwd(q, k, v, do, lse, delta, cu_q, cu_k, causal, scale):
     """Fused backward: q, do [H, Tq, D]; k, v [H, Tk, D]; lse (natural log)
     and delta = sum(dO * O) [H, Tq] f32 -> (dq, dk, dv), each like its
-    input. dQ is summed across CTAs by f32 atomics (its summation order
-    varies from run to run).
+    input. dQ is summed across CTAs by f32 atomics into a zeroed f32
+    scratch (its summation order varies from run to run). In bf16 the
+    kernel is :func:`varlen_bwd_dkv`'s with dQ switched on, so dk and dv
+    have the same bits as its on the same inputs, on every run.
 
     A CUDA tensor goes through the kernel (or raises); a CPU tensor
     through :func:`varlen_bwd_plain`. ``varlen_bwd.launches`` counts

@@ -1368,11 +1368,15 @@ def _varlen_case(dev, dtype, lens_q, lens_k, h, d, seed, packed=True):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("packed", [True, False])
 @pytest.mark.parametrize("layout", range(len(VARLEN_LAYOUTS)))
-def test_varlen_kernels_match_plain(dev, dtype, d, causal, layout):
+def test_varlen_kernels_match_plain(dev, dtype, d, causal, packed, layout):
+    """Every varlen kernel against its plain version (bf16: rows 20-23 on
+    wgmma) in both memory layouts; in bf16 the fused dK and dV are the
+    split pair's bits (one kernel body)."""
     lens_q, lens_k = VARLEN_LAYOUTS[layout]
     q, k, v, do, cu_q, cu_k = _varlen_case(dev, dtype, lens_q, lens_k, 3, d,
-                                           layout, packed=layout % 2 == 0)
+                                           layout, packed=packed)
     scale = d ** -0.5
     (tol_f, tol_b) = FLASH_TOL[dtype]
     before = (fv.varlen_fwd.launches, fv.varlen_bwd.launches,
@@ -1394,6 +1398,9 @@ def test_varlen_kernels_match_plain(dev, dtype, d, causal, layout):
     for got in (fused, split):
         for a, b in zip(got, want):
             _close(a, b, tol_b)
+    if dtype == torch.bfloat16:
+        assert torch.equal(fused[1], split[1]) and torch.equal(fused[2],
+                                                               split[2])
     if lens_k is not None and 0 in lens_k:
         s = lens_k.index(0)
         r0, r1 = sum(lens_q[:s]), sum(lens_q[:s + 1])
@@ -1404,8 +1411,9 @@ def test_varlen_kernels_match_plain(dev, dtype, d, causal, layout):
 
 def test_varlen_fused_and_split_agree_and_split_dq_is_deterministic(dev):
     """At the short pack's head width in bf16: fused and split within the
-    bf16 limits; the split dQ, dK and dV (no atomics) bitwise equal over
-    two runs."""
+    bf16 limits, the fused dK and dV bitwise equal to the split pair's
+    (one kernel body); the split dQ, dK and dV (no atomics) bitwise equal
+    over two runs."""
     lens = [300, 77, 1000, 64, 511]
     q, k, v, do, cu, _ = _varlen_case(dev, torch.bfloat16, lens, None, 8,
                                       128, 5)
@@ -1421,6 +1429,7 @@ def test_varlen_fused_and_split_agree_and_split_dq_is_deterministic(dev):
     torch.cuda.synchronize()
     assert torch.equal(dq1, dq2)
     assert torch.equal(dkv1[0], dkv2[0]) and torch.equal(dkv1[1], dkv2[1])
+    assert torch.equal(fused[1], dkv1[0]) and torch.equal(fused[2], dkv1[1])
     for a, b in zip(fused, split):
         _close(a, b, FLASH_TOL[torch.bfloat16][1])
 
@@ -1429,22 +1438,29 @@ def test_varlen_fused_and_split_agree_and_split_dq_is_deterministic(dev):
 @pytest.mark.parametrize("packed", [True, False])
 @pytest.mark.parametrize("causal", [True, False])
 def test_varlen_split_wgmma_long_segment_matches_plain(dev, d, packed, causal):
-    """The bf16 split backward (rows 22 and 23 on wgmma) on a pack with a
-    segment over 4,096 tokens, among short ones that end inside a 128-row
-    tile, against the plain versions under the bf16 limits."""
+    """The bf16 kernels on wgmma (rows 20-23: the forward, the fused and
+    the split backward) on a pack with a segment over 4,096 tokens, among
+    short ones that end inside a 128-row tile, against the plain versions
+    under the bf16 limits (lse to 1e-4)."""
     lens = [300, 4500, 77, 1000, 13]
     q, k, v, do, cu, _ = _varlen_case(dev, torch.bfloat16, lens, None, 2, d,
                                       11, packed=packed)
     scale = d ** -0.5
     o, lse = fv.varlen_fwd_plain(q, k, v, cu, cu, causal, scale)
+    o_k, lse_k = fv.varlen_fwd(q, k, v, cu, cu, causal, scale)
     delta = (do.float() * o.float()).sum(-1).contiguous()
     args = (q, k, v, do, lse, delta, cu, cu, causal, scale)
-    got = (fv.varlen_bwd_dq(*args), *fv.varlen_bwd_dkv(*args))
+    split = (fv.varlen_bwd_dq(*args), *fv.varlen_bwd_dkv(*args))
+    fused = fv.varlen_bwd(*args)
     want = fv.varlen_bwd_plain(*args)
     torch.cuda.synchronize()
-    assert got[0].stride() == q.stride() and got[1].stride() == k.stride()
-    for a, b in zip(got, want):
-        _close(a, b, FLASH_TOL[torch.bfloat16][1])
+    assert o_k.stride() == q.stride()
+    _close(o_k, o, FLASH_TOL[torch.bfloat16][0])
+    torch.testing.assert_close(lse_k, lse, atol=1e-4, rtol=0)
+    for got in (split, fused):
+        assert got[0].stride() == q.stride() and got[1].stride() == k.stride()
+        for a, b in zip(got, want):
+            _close(a, b, FLASH_TOL[torch.bfloat16][1])
 
 
 def test_varlen_segments_are_isolated(dev):

@@ -288,6 +288,29 @@ def test_split_drift_reference_matches_plain(name):
         assert ok, (name, excess, fro)
 
 
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_fwd_drift_reference_matches_plain(name):
+    """chip_smoke's f64 reference for the forward's drift rule
+    (``varlen_fwd_f64``, an f64 softmax of the same causal self-attention
+    inputs, bf16), rounded to bf16, stands within the kernels' bf16
+    forward limits of ``varlen_fwd_plain`` (which rounds P to bf16 before
+    P V: the only difference besides f32 against f64 sums)."""
+    from chip_smoke import FLASH_TOL, flash_close, varlen_fwd_f64
+    lens = LAYOUTS[name]
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                      dtype=torch.int32)
+    t = int(cu[-1])
+    rng = np.random.RandomState(43)
+    q, k, v = (torch.from_numpy(rng.randn(2, t, D).astype(np.float32))
+               .bfloat16() for _ in range(3))
+    o = tv.varlen_fwd_plain(q, k, v, cu, cu, True, SCALE)[0]
+    ref = varlen_fwd_f64(q, k, v, lens, SCALE, rows=64)
+    assert o.dtype == torch.bfloat16 and ref.dtype == torch.float64
+    rel, frob = FLASH_TOL[torch.bfloat16][0]
+    ok, excess, fro, _ = flash_close(o, ref.to(torch.bfloat16), rel, frob)
+    assert ok, (name, excess, fro)
+
+
 def test_stacked_row_19_function_is_row_20():
     """A short-segment pack that JAX sends to its stacked forward (row 19,
     ``_flash_varlen_fwd_stacked``) gives the port's row-20 path's o and

@@ -1,7 +1,7 @@
 """Times kernels of two trees side by side on one card.
 
     python3 tools/ab_times.py BEFORE AFTER             # rows 24, 25, 26
-    python3 tools/ab_times.py --varlen BEFORE AFTER    # rows 22, 23; 20, 21
+    python3 tools/ab_times.py --varlen BEFORE AFTER    # rows 20-23
 
 BEFORE and AFTER are directories that each hold a ``paddle_tpu_torch/``
 package, for example a ``git archive`` of the parent commit unpacked
@@ -23,12 +23,11 @@ this checkout's chip_smoke.py whatever the tree).
 With --varlen, the packed varlen kernels at chip_smoke's varlen shapes
 (32 heads x 128, bf16, causal self-attention, ``varlen_times``' inputs):
 
+  varlen_fwd (row 20), varlen_bwd (row 21)          at both packs
   varlen_bwd_dkv (row 22), varlen_bwd_dq (row 23)   at the long pack
-  varlen_fwd (row 20) at the long pack, varlen_bwd (row 21) at the short
-  pack: controls where both trees hold the same kernel
 
-and the drift of rows 22 and 23 along a product summed in f64
-(chip_smoke's ``varlen_split_drifts``, four heads of the long pack).
+and the drift of rows 20-23 along a product summed in f64 (chip_smoke's
+``varlen_drifts``, four heads of the long pack).
 
 Needs one CUDA device and nvcc; prints one JSON line per run, the card's
 name and power limit first, and writes chiprun_out/ab_times.json (or
@@ -100,19 +99,18 @@ def run_one_varlen(tree):
         o, lse = fv.varlen_fwd(qh, kh, vh, cu, cu, True, scale)
         delta = (doh.float() * o.float()).sum(-1).contiguous()
         args = (qh, kh, vh, doh, lse, delta, cu, cu, True, scale)
-        if pack == "short":
-            calls = {"varlen_bwd": lambda: fv.varlen_bwd(*args)}
-        else:
-            calls = {"varlen_fwd": lambda: fv.varlen_fwd(qh, kh, vh, cu, cu,
-                                                         True, scale),
-                     "varlen_bwd_dkv": lambda: fv.varlen_bwd_dkv(*args),
-                     "varlen_bwd_dq": lambda: fv.varlen_bwd_dq(*args)}
+        calls = {"varlen_fwd": lambda: fv.varlen_fwd(qh, kh, vh, cu, cu,
+                                                     True, scale),
+                 "varlen_bwd": lambda: fv.varlen_bwd(*args)}
+        if pack == "long":
+            calls.update(varlen_bwd_dkv=lambda: fv.varlen_bwd_dkv(*args),
+                         varlen_bwd_dq=lambda: fv.varlen_bwd_dq(*args))
         for name, fn in calls.items():
             out[f"{name}[{pack} pack]"] = cs._time_ms(fn, 20)[0]
         if pack == "long":
             drifts = {n: {kk: x[kk] for kk in ("kernel", "plain", "excess")}
-                      for n, x in cs.varlen_split_drifts(fv, q, k, v, do,
-                                                         lens).items()}
+                      for n, x in cs.varlen_drifts(fv, q, k, v, do,
+                                                   lens).items()}
         del q, k, v, do, o, args
         torch.cuda.empty_cache()
     print(json.dumps({"tree": tree, "ms": out, "drift": drifts}))

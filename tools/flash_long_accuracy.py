@@ -1,7 +1,7 @@
 """Accuracy of the flash kernels at long sequence lengths (card).
 
     python3 tools/flash_long_accuracy.py [S ...]      # default 65536 131072
-    python3 tools/flash_long_accuracy.py --varlen [L ...]   # default 65536
+    python3 tools/flash_long_accuracy.py --varlen [--heads H] [L ...]
 
 For each S (one head, D = 128, causal, bf16, seeded) the forward (row 14)
 and both backwards (row 16; row 18's dQ) run on the card beside their
@@ -14,15 +14,17 @@ sum((got - ref) * ref) / sum(ref * ref): a kernel whose sums lose to
 rounding toward zero shows a negative drift that grows with S, where a
 summation order only adds noise around 0. Needs one CUDA device.
 
-With --varlen, the packed varlen kernels: for each L one L-token segment
-(one head, D = 128, causal, bf16, seeded), then chip_smoke's long pack
+With --varlen, the packed varlen kernels: for each L (default 65536) one
+L-token segment (H heads in one call, default 1, and with H > 1 each
+head's backward alone too; D = 128, causal, bf16, seeded), then
+chip_smoke's long pack
 (16 x 4,096 tokens, 32 heads): the forward (row 20), the fused backward
 (row 21) and the split pair (row 23's dQ, row 22's dK and dV) beside
 their plain versions, against references summed in f64 from the same
 rounded operands (chip_smoke's ``varlen_bwd_f64``; the forward an f64
-softmax). Each split output's drift excess over its plain version is
-held to chip_smoke's ``VARLEN_DRIFT_EXCESS``; the tool exits non-zero if
-one exceeds it.
+softmax, chip_smoke's ``varlen_fwd_f64``). The drift excess over the
+plain version of every output of rows 20-23 is held to chip_smoke's
+``VARLEN_DRIFT_EXCESS``; the tool exits non-zero if one exceeds it.
 """
 from __future__ import annotations
 
@@ -120,31 +122,23 @@ def main(lengths):
         torch.cuda.empty_cache()
 
 
-def varlen_fwd_f64(q, k, v, lens, scale, rows=2048):
-    """A causal self-attention pack's o from an f64 softmax: q, k, v
-    [H, T, D] -> o f64."""
-    dev = q.device
-    o = torch.zeros(q.shape, dtype=torch.float64, device=dev)
-    a = 0
-    for n in lens:
-        for r0 in range(0, n, rows):
-            r1 = min(r0 + rows, n)
-            s = (q[:, a + r0:a + r1].double()
-                 @ k[:, a:a + r1].double().transpose(1, 2)) * scale
-            dead = (torch.arange(r1, device=dev)[None]
-                    > torch.arange(r0, r1, device=dev)[:, None])
-            p = torch.softmax(s.masked_fill(dead, -math.inf), -1)
-            o[:, a + r0:a + r1] = p @ v[:, a:a + r1].double()
-        a += n
-    return o
-
-
 def drift(got, ref):
     g, r = got.double(), ref.double()
     return ((g - r) * r).sum().item() / (r * r).sum().item()
 
 
-def main_varlen(lengths):
+def held(name, excess):
+    """Prints a drift excess over the plain version against chip_smoke's
+    VARLEN_DRIFT_EXCESS; True when within it."""
+    import chip_smoke as cs
+    ok = abs(excess) <= cs.VARLEN_DRIFT_EXCESS
+    print(f"  {name} drift excess over plain {excess:+.3e} (limit "
+          f"{cs.VARLEN_DRIFT_EXCESS:g}): {'ok' if ok else 'OVER'}",
+          flush=True)
+    return ok
+
+
+def main_varlen(lengths, heads):
     if not torch.cuda.is_available():
         sys.exit("flash_long_accuracy: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -153,7 +147,8 @@ def main_varlen(lengths):
     from paddle_tpu_torch.ops import flash_varlen as fv
     dev, d = torch.device("cuda"), 128
     scale = d ** -0.5
-    cases = [(f"one segment of {n} tokens, 1 head", [n], 1) for n in lengths]
+    cases = [(f"one segment of {n} tokens, {heads} head(s)", [n], heads)
+             for n in lengths]
     cases.append((f"long pack 16 x 4096, {cs.VARLEN_H} heads", cs.VARLEN_LONG,
                   cs.VARLEN_H))
     good = True
@@ -165,9 +160,10 @@ def main_varlen(lengths):
         cu = cs._cu_dev(lens, dev)
         o, _ = fv.varlen_fwd(qh, kh, vh, cu, cu, True, scale)
         o_p, lse = fv.varlen_fwd_plain(qh, kh, vh, cu, cu, True, scale)
-        o64 = varlen_fwd_f64(qh, kh, vh, lens, scale)
+        o64 = cs.varlen_fwd_f64(qh, kh, vh, lens, scale)
         report("o row 20 vs f64", o, o64)
         report("o plain vs f64", o_p, o64)
+        good &= held("o row 20", drift(o, o64) - drift(o_p, o64))
         del o, o64
         delta = (doh.float() * o_p.float()).sum(-1).contiguous()
         args = (qh, kh, vh, doh, lse, delta, cu, cu, True, scale)
@@ -177,17 +173,29 @@ def main_varlen(lengths):
         split = (fv.varlen_bwd_dq(*args), *fv.varlen_bwd_dkv(*args))
         torch.cuda.synchronize()
         for i, n in enumerate(("dq", "dk", "dv")):
+            row = "row 23" if n == "dq" else "row 22"
             report(f"{n} plain vs f64", plain[i], ref[i])
             report(f"{n} row 21 vs f64", fused[i], ref[i])
-            row = "row 23" if n == "dq" else "row 22"
             report(f"{n} {row} vs f64", split[i], ref[i])
-            excess = drift(split[i], ref[i]) - drift(plain[i], ref[i])
-            ok = abs(excess) <= cs.VARLEN_DRIFT_EXCESS
-            good &= ok
-            print(f"  {n} {row} drift excess over plain {excess:+.3e} "
-                  f"(row 21 {drift(fused[i], ref[i]) - drift(plain[i], ref[i]):+.3e}); "
-                  f"limit {cs.VARLEN_DRIFT_EXCESS:g}: {'ok' if ok else 'OVER'}",
-                  flush=True)
+            base = drift(plain[i], ref[i])
+            good &= held(f"{n} row 21", drift(fused[i], ref[i]) - base)
+            good &= held(f"{n} {row}", drift(split[i], ref[i]) - base)
+        for i in range(h if h > 1 and len(lens) == 1 else 0):
+            # head i alone: the kernels' bits do not depend on the batch of
+            # heads; the plain version's batched f32 products may
+            one = tuple(x[i:i + 1].contiguous() for x in args[:6]) + args[6:]
+            p1 = fv.varlen_bwd_plain(*one)
+            s1 = (fv.varlen_bwd_dq(*one), *fv.varlen_bwd_dkv(*one))
+            for j, n in enumerate(("dq", "dk", "dv")):
+                r1 = ref[j][i:i + 1]
+                print(f"  head {i} alone, {n}: split kernel "
+                      f"{'equal to' if torch.equal(s1[j], split[j][i:i + 1]) else 'NOT'}"
+                      f" its bits in the batch, plain "
+                      f"{'equal to' if torch.equal(p1[j], plain[j][i:i + 1]) else 'NOT'}"
+                      f" its; drift kernel {drift(s1[j], r1):+.3e}, plain "
+                      f"alone {drift(p1[j], r1):+.3e}, plain in the batch "
+                      f"{drift(plain[j][i:i + 1], r1):+.3e}", flush=True)
+            del p1, s1
         del q, k, v, do, qh, kh, vh, doh, ref, plain, fused, split, args
         torch.cuda.empty_cache()
     sys.exit(0 if good else 1)
@@ -195,6 +203,10 @@ def main_varlen(lengths):
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--varlen"]:
-        main_varlen([int(a) for a in sys.argv[2:]] or [65536])
+        args = sys.argv[2:]
+        h = 1
+        if args[:1] == ["--heads"]:
+            h, args = int(args[1]), args[2:]
+        main_varlen([int(a) for a in args] or [65536], h)
     else:
         main([int(a) for a in sys.argv[1:]] or [65536, 131072])

@@ -2,6 +2,14 @@
 flash forward in bf16 (CPU, about ten seconds).
 
     python3 tools/fwd_tile_gap.py
+    python3 tools/fwd_tile_gap.py --varlen
+
+With --varlen: how far the packed varlen forward's walk lies from one
+whose 64-key tiles start at each segment's first key instead of a
+multiple of 64 (causal self-attention, bf16, 2 heads, seeds 0-3). The
+shifted walk of a segment is ``varlen_fwd_plain`` on that segment alone;
+the plain version walks the pack. chip_smoke's check_varlen holds the
+bf16 kernel on a layout where the gap passes the Frobenius limit.
 
 The forward rounds P to bf16 against the running max after every tile of
 keys, so the tile size is part of its rounding schedule. For each shape
@@ -53,5 +61,40 @@ def main():
               f"max abs {(lse128 - lse64).abs().max().item():.2e}")
 
 
+# (segment lengths, D) of packs whose segments start off the 64-key grid
+VARLEN_PACKS = [([32, 2048], 128), ([32, 1024], 128), ([32, 2048], 64),
+                ([1000, 3000], 128), ([127, 129, 1, 255], 128)]
+
+
+def main_varlen():
+    import numpy as np
+    from paddle_tpu_torch.ops import flash_varlen as fv
+    print(f"bf16; limits: elementwise excess <= 0, rel frob <= {2 ** -10:.3e}")
+    for lens, d in VARLEN_PACKS:
+        scale = d ** -0.5
+        cu = torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                          dtype=torch.int32)
+        for seed in range(4):
+            rng = np.random.RandomState(seed)
+            q, k, v = (torch.from_numpy(rng.randn(2, sum(lens), d)
+                                        .astype(np.float32)).bfloat16()
+                       for _ in range(3))
+            o = fv.varlen_fwd_plain(q, k, v, cu, cu, True, scale)[0]
+            parts = []
+            for a, n in zip(cu[:-1].tolist(), lens):
+                one = torch.tensor([0, n], dtype=torch.int32)
+                x = (t[:, a:a + n] for t in (q, k, v))
+                parts.append(fv.varlen_fwd_plain(*x, one, one, True,
+                                                 scale)[0])
+            _, excess, fro, _ = flash_close(torch.cat(parts, 1), o, 2 ** -6,
+                                            2 ** -10)
+            print(f"lens {lens} D={d} seed {seed}: o rel frob {fro:.3e} "
+                  f"({'over' if fro > 2 ** -10 else 'within'} the limit), "
+                  f"worst excess {excess:.3e}")
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--varlen"]:
+        main_varlen()
+    else:
+        main()

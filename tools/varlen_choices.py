@@ -1,35 +1,37 @@
-"""Times the design choices of the bf16 varlen split backward (rows 22 and
+"""Times the design choices of the bf16 varlen kernels (rows 20, 22 and
 23, csrc/flash_varlen.cu) against each other on one card.
 
-    python3 tools/varlen_choices.py
+    python3 tools/varlen_choices.py [FORM ...]
 
 Copies paddle_tpu_torch/ into a temporary directory once for each form
 below, edited as its entry in FORMS says: the shipped form, and the forms
-it was chosen over. Row 22 (varlen_bwd_wg_kernel): Q and dO stages filled
-by a TMA producer warpgroup, against the consumers' own two-stage cp.async
-ring (the dense row 16's form, with dK and dV stored as 4-byte pairs; its
-kernel and launch are kept whole below); dV and dK as one m64n128k16
-product each against one m64n64k16 product a 64-column block of D; the
-consumer warpgroups running freely against taking turns to issue S^T and
-dP^T. Row 23 (varlen_dq_wg_kernel): 128-key against 64-key K/V stages;
-dQ staged through shared memory into 16-byte stores against 4-byte pairs
+it was chosen over (FORMs pick some; the shipped form always runs). Row
+20 (varlen_fwd_wg_kernel): the two consumer warpgroups taking turns to
+issue S against issuing it as they are ready; 128-key against 64-key K/V
+stages; the parent's mma.sync kernel. Row 22 (varlen_bwd_wg_kernel, which
+with its DQ flag is row 21): Q and dO stages filled by a TMA producer
+warpgroup, against the consumers' own two-stage cp.async ring (the dense
+row 16's form, with dK and dV stored as 4-byte pairs; its kernel and
+launch are kept whole below); dV and dK as one m64n128k16 product each
+against one m64n64k16 product a 64-column block of D; the consumer
+warpgroups running freely against taking turns to issue S^T and dP^T.
+Row 23 (varlen_dq_wg_kernel): 128-key against 64-key K/V stages; dQ
+staged through shared memory into 16-byte stores against 4-byte pairs
 stored from the accumulator; one CTA a q tile (the last first) against
 persistent CTAs that walk the same items in the same order (their kernel
-and launch kept whole below). One more form runs the fused backward
-(row 21, which ships on varlen_bwd_kernel) on row 22's body with its DQ
-flag on, for the later PR that switches it.
+and launch kept whole below).
 Every copy builds at once, in a process of its own; then each copy runs
 alone, in the order of FORMS and again in reverse, so that a drift of the
-card over the call shows. A run holds rows 22 and 23 to their plain
-versions (chip_smoke's ``varlen_case``, every output of every varlen
-kernel: the short pack, and [127, 129, 1, 255] at D = 64 and 128 in both
-layouts, causal and not), times them (device ms per call, 20 calls
-queued ahead, chip_smoke's ``_time_ms``) at the long pack (16 x 4,096,
-32 heads x 128, causal) and row 21 at the short pack, and reads their drift
-along an f64 product (chip_smoke's ``varlen_split_drifts``). ptxas's
-registers and spills of each form's split kernels are printed too. Needs
-one CUDA device and nvcc; exits non-zero if a form fails its check;
-writes chiprun_out/varlen_choices.json.
+card over the call shows. A run holds every varlen kernel to its plain
+version (chip_smoke's ``varlen_case``: the short pack, and [127, 129, 1,
+255] at D = 64 and 128 in both layouts, causal and not), times row 20 at
+both packs, row 21 at the short pack and rows 22 and 23 at the long pack
+(16 x 4,096, 32 heads x 128, causal; device ms per call, 20 calls queued
+ahead, chip_smoke's ``_time_ms``), and reads rows 20-23's drift along f64
+products (chip_smoke's ``varlen_drifts``). ptxas's registers and spills
+of each form's wgmma kernels are printed too. Needs one CUDA device and
+nvcc; exits non-zero if a form fails its check; writes
+chiprun_out/varlen_choices.json.
 """
 from __future__ import annotations
 
@@ -316,30 +318,34 @@ __global__ void __launch_bounds__(256, 1)
 }
 
 """
-CP_ASYNC_LAUNCH = r"""// bf16 split dK/dV on wgmma
-template <int D>
-cudaError_t launch_bwd_dkv_wg(const Args& a, cudaStream_t stream) {
+CP_ASYNC_LAUNCH = r"""// bf16 dK/dV on wgmma (DQ: the fused backward)
+template <int D, bool DQ>
+cudaError_t launch_bwd_wg(const Args& a, cudaStream_t stream) {
   using C = WgBwdCfg<D>;
-  cudaError_t e = allow_smem(varlen_bwd_wg_kernel<D, false>, C::kSmem);
+  cudaError_t e = allow_smem(varlen_bwd_wg_kernel<D, DQ>, C::kSmem);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.S.tk + C::BK - 1) / C::BK, a.h);
-  if (grid.x == 0) return cudaSuccess;
-  varlen_bwd_wg_kernel<D, false><<<grid, C::NT, C::kSmem, stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-      static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), nullptr, static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), a.S, lay(a.packed, a.h, a.S.tq, D),
-      lay(a.packed, a.h, a.S.tk, D), a.scale * kLog2e, a.scale);
-  return cudaGetLastError();
+  if (grid.x > 0) {
+    varlen_bwd_wg_kernel<D, DQ><<<grid, C::NT, C::kSmem, stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<float*>(a.dq_acc), static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.S,
+        lay(a.packed, a.h, a.S.tq, D), lay(a.packed, a.h, a.S.tk, D), a.scale * kLog2e, a.scale);
+    e = cudaGetLastError();
+  }
+  if (e != cudaSuccess || !DQ) return e;
+  return launch_dq_cast<bf16, D>(a, stream);
 }
 
 """
 _KERNEL = ("template <int D>\nstruct WgBwdCfg",
            "// ---------------------------------------------------------------"
            "------------\n// split dQ for bf16 on wgmma (row 23)")
-_LAUNCH = ("// bf16 split dK/dV on wgmma", "// bf16 split dQ on wgmma")
-_DQ_STORE = ("  // dQ rounded to bf16 and staged", "template <typename T>\n"
-             "__global__ void dq_cast_kernel")
+_LAUNCH = ("// bf16 dK/dV on wgmma, Q and dO stages", "// bf16 split dQ on wgmma")
+_FWD_SECTION = ("// -------------------------------------------------------------"
+                "--------------\n// forward for bf16 on wgmma (row 20)")
+_DQ_STORE = ("  // dQ rounded to bf16 and staged", _FWD_SECTION)
 PAIR_STORE = """  // dQ rounded to bf16, stored as 4-byte pairs from the accumulator
   bf16* dqg = dq + (size_t)h * lq.hs;
 #pragma unroll
@@ -630,46 +636,29 @@ cudaError_t launch_dq_wg(const Args& a, cudaStream_t stream) {
 }
 
 """
-_DQ_KERNEL = ("template <int D>\nstruct WgDqCfg", "template <typename T>\n"
-              "__global__ void dq_cast_kernel")
+_DQ_KERNEL = ("template <int D>\nstruct WgDqCfg", _FWD_SECTION)
 _DQ_LAUNCH = ("// bf16 split dQ on wgmma, the K/V ring", "template <typename T, int D>\n"
               "cudaError_t launch_dq(")
-# row 21 (the fused backward) on row 22's body with DQ on: dQ by float2
-# atomics into the wrapper's zeroed f32 scratch, then its cast pass (row
-# 21 itself stays on varlen_bwd_kernel; this form measures the switch)
-FUSED_LAUNCH = """// bf16 fused backward on row 22's wgmma body
-template <int D>
-cudaError_t launch_bwd_fused_wg(const Args& a, cudaStream_t stream) {
-  using C = WgBwdCfg<D>;
-  const dim3 grid((a.S.tk + C::BK - 1) / C::BK, a.h);
-  cudaError_t e = cudaSuccess;
-  if (grid.x > 0) {
-    CUtensorMap maps[4] = {};
-    e = varlen_maps(a, D, C::BQ, C::BK, maps);
-    if (e == cudaSuccess) e = allow_smem(varlen_bwd_wg_kernel<D, true>, C::kSmem);
-    if (e != cudaSuccess) return e;
-    varlen_bwd_wg_kernel<D, true><<<grid, 384, C::kSmem, stream>>>(
-        maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(a.lse),
-        static_cast<const float*>(a.delta), static_cast<float*>(a.dq_acc),
-        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.S, lay(a.packed, a.h, a.S.tq, D),
-        lay(a.packed, a.h, a.S.tk, D), a.scale * kLog2e, a.scale);
-    e = cudaGetLastError();
-  }
-  const size_t n = (size_t)a.h * a.S.tq * D;
-  if (e != cudaSuccess || n == 0) return e;
-  const int blocks = (int)((n + 255) / 256 < 8192 ? (n + 255) / 256 : 8192);
-  dq_cast_kernel<bf16><<<blocks, 256, 0, stream>>>(static_cast<const float*>(a.dq_acc),
-                                                   static_cast<bf16*>(a.dq), n);
-  return cudaGetLastError();
-}
-
-"""
-_LAUNCH_DQ_F32 = "template <typename T, int D>\ncudaError_t launch_dq(const Args& a"
-FUSED = [
-    (_LAUNCH_DQ_F32, FUSED_LAUNCH + _LAUNCH_DQ_F32),
-    ("    case 1: return launch_bwd<T, D, true>(a, s);\n",
-     "    case 1:\n      if constexpr (wg) return launch_bwd_fused_wg<D>(a, s);\n"
-     "      else return launch_bwd<T, D, true>(a, s);\n"),
+# row 20: 64-key stages (one half a stage) in a four-stage ring
+FWD_64 = [("  static constexpr int BQ = 128, BK = 128;  // q rows a CTA, keys a "
+           "stage (64-key halves)\n",
+           "  static constexpr int BQ = 128, BK = 64;  // q rows a CTA, keys a "
+           "stage (64-key halves)\n")]
+# row 20: the two consumer warpgroups issue S as they are ready, not in
+# turns (row 23's habit)
+FWD_FREE = [
+    ("  if (wg == 1 && nj > 0) bar_arrive(3, 256);  // warpgroup 0 takes the "
+     "first turn\n", ""),
+    ("    bar_sync(3 + wg, 256);\n"
+     "    if (!on && (wg == 0 || jj + 1 < nj)) bar_arrive(4 - wg, 256);\n", ""),
+    ("      wg_commit();\n      if (wg == 0 || jj + 1 < nj) bar_arrive(4 - wg, "
+     "256);\n", "      wg_commit();\n"),
+]
+# row 20 on the parent's mma.sync kernel (64-row CTAs of 4 warps, cp.async)
+FWD_MMA_SYNC = [
+    ("    case 0:\n      if constexpr (wg) return launch_fwd_wg<D>(a, s);\n"
+     "      else return launch_fwd<T, D>(a, s);\n",
+     "    case 0: return launch_fwd<T, D>(a, s);\n"),
 ]
 # name -> [((start, end) of the span to replace, or the text itself), new]
 FORMS = {
@@ -685,7 +674,9 @@ FORMS = {
     "dq_pair_store": [(_DQ_STORE, PAIR_STORE)],
     "dq_persistent": [(_DQ_KERNEL, PERSISTENT_DQ),
                       (_DQ_LAUNCH, PERSISTENT_DQ_LAUNCH)],
-    "fused_on_row_22_body": FUSED,
+    "fwd_64_key_stages": FWD_64,
+    "fwd_free_running": FWD_FREE,
+    "fwd_mma_sync": FWD_MMA_SYNC,
 }
 
 
@@ -716,7 +707,7 @@ def build_one():
     _build.build_all(["flash_varlen"])
     lines = [ln for ln in chip_smoke.ptxas_lines(
         _build.BUILD_LOGS.get("flash_varlen", ""))
-        if ln.startswith(("varlen_bwd_wg", "varlen_dq_wg"))]
+        if ln.startswith(("varlen_fwd_wg", "varlen_bwd_wg", "varlen_dq_wg"))]
     print(json.dumps(lines))
 
 
@@ -754,14 +745,18 @@ def run_one():
         o, lse = fv.varlen_fwd(qh, kh, vh, cu, cu, True, scale)
         delta = (doh.float() * o.float()).sum(-1).contiguous()
         args = (qh, kh, vh, doh, lse, delta, cu, cu, True, scale)
-        calls = ({"varlen_bwd": fv.varlen_bwd} if pack == "short" else
-                 {"varlen_bwd_dkv": fv.varlen_bwd_dkv,
-                  "varlen_bwd_dq": fv.varlen_bwd_dq})
+        calls = {"varlen_fwd": lambda: fv.varlen_fwd(qh, kh, vh, cu, cu, True,
+                                                     scale)}
+        if pack == "short":
+            calls["varlen_bwd"] = lambda: fv.varlen_bwd(*args)
+        else:
+            calls.update(varlen_bwd_dkv=lambda: fv.varlen_bwd_dkv(*args),
+                         varlen_bwd_dq=lambda: fv.varlen_bwd_dq(*args))
         for name, fn in calls.items():
-            ms[name] = cs._time_ms(lambda: fn(*args), 20)[0]
+            ms[f"{name}[{pack} pack]"] = cs._time_ms(fn, 20)[0]
         del o, args, qh, kh, vh, doh
     torch.cuda.empty_cache()
-    drift = cs.varlen_split_drifts(fv, q, k, v, do, lens)
+    drift = cs.varlen_drifts(fv, q, k, v, do, lens)
     print(json.dumps({"ok": all(c["ok"] for c in check), "ms": ms,
                       "drift": drift, "check": check}))
 
@@ -792,7 +787,10 @@ def main():
     src = open(os.path.join(ROOT, "paddle_tpu_torch", "csrc",
                             "flash_varlen.cu")).read()
     try:
-        for name, edits in FORMS.items():
+        forms = [n for n in FORMS if n == "shipped" or not sys.argv[1:]
+                 or n in sys.argv[1:]]
+        for name in forms:
+            edits = FORMS[name]
             copies[name] = os.path.join(tmp, name)
             pkg = os.path.join(copies[name], "paddle_tpu_torch")
             shutil.copytree(os.path.join(ROOT, "paddle_tpu_torch"), pkg,
@@ -800,12 +798,12 @@ def main():
                                                           "__pycache__"))
             with open(os.path.join(pkg, "csrc", "flash_varlen.cu"), "w") as f:
                 f.write(edited(src, edits, name))
-        procs = [(name, _run("--build", copies[name])) for name in FORMS]
+        procs = [(name, _run("--build", copies[name])) for name in forms]
         for name, p in procs:
             record["ptxas"][name] = _last_json(name, p, 900)
             for line in record["ptxas"][name]:
                 print(f"{name} ptxas {line}")
-        for name in list(FORMS) + list(reversed(FORMS)):
+        for name in forms + forms[::-1]:
             p = _run("--one", copies[name])
             procs.append((name, p))
             run = dict(form=name, **_last_json(name, p, 900))

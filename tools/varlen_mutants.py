@@ -1,23 +1,25 @@
-"""Shows that chip_smoke.py's varlen checks fail a wrong split backward.
+"""Shows that chip_smoke.py's varlen checks fail a wrong bf16 varlen kernel.
 
-    python3 tools/varlen_mutants.py
+    python3 tools/varlen_mutants.py [NAME ...]
 
 Copies paddle_tpu_torch/ into a temporary directory once per mutant, writes
 one deliberate fault into the copy's csrc/flash_varlen.cu, in the bf16
-split backward on wgmma (row 22's varlen_bwd_wg_kernel, row 23's
+kernels on wgmma (row 20's varlen_fwd_wg_kernel; row 22's
+varlen_bwd_wg_kernel, which with its DQ flag is row 21; row 23's
 varlen_dq_wg_kernel), and runs chip_smoke's varlen checks on the copy's
 kernels in a process of its own (all copies build at once, then run
 three at a time):
 ``check_varlen`` (every varlen kernel against its plain version on the
-short pack and the f32 layouts, fused against split, the split outputs
-bitwise over two runs, segment isolation, GQA), then the drift rule of
-``varlen_split_drifts`` (rows 22 and 23 against a product summed in f64,
-the excess over the plain version held to ``VARLEN_DRIFT_EXCESS``) on
-four heads of the long pack (16 x 4,096) and on one head of one
+short pack, the bf16 and the f32 layouts, fused against split, the
+outputs that must be bitwise equal, segment isolation, GQA), then the
+drift rule of ``varlen_drifts`` (rows 20-23 against products summed in
+f64, the excess over the plain version held to ``VARLEN_DRIFT_EXCESS``)
+on four heads of the long pack (16 x 4,096) and on one head of one
 65,536-token segment. The unchanged copy must pass and every faulty one
-must fail. Needs one CUDA device and nvcc; prints each copy's drifts,
-writes chiprun_out/varlen_mutants.json and exits non-zero unless every
-verdict is as expected.
+must fail. NAMEs pick mutants (the unchanged copy always runs). Needs
+one CUDA device and nvcc; prints each copy's drifts, writes
+chiprun_out/varlen_mutants.json and exits non-zero unless every verdict
+is as expected.
 """
 from __future__ import annotations
 
@@ -54,6 +56,45 @@ def _lo(a, b):
     return (f"pack_bf16({a} - __bfloat162float(__float2bfloat16_rn({a})), "
             f"{b} - __bfloat162float(__float2bfloat16_rn({b})))")
 
+
+_FWD_LIVE = ("            const int col = h0 + 8 * n + 2 * t + (e & 1);\n"
+             "            const bool live = e < 2 ? (col >= lo0 && col < hi0) : "
+             "(col >= lo1 && col < hi1);\n")
+_FWD_PV = """        float pv[D / 2];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<1, D>(pv, pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2], pf[4 * kk + 3],
+                         sw128_desc(va + hh * 8192 + kk * 2048, BK * 128, 1024), kk);
+        wg_commit();
+        if (__any_sync(0xffffffffu, al0 != 1.f || al1 != 1.f)) {
+#pragma unroll
+          for (int e = 0; e < D / 2; ++e) acc[e] *= e & 2 ? al1 : al0;
+        }
+        wg_wait<0>();
+        reg_fence(pv);
+#pragma unroll
+        for (int e = 0; e < D / 2; ++e) acc[e] += pv[e];
+"""
+_FWD_CARRIED = """        if (__any_sync(0xffffffffu, al0 != 1.f || al1 != 1.f)) {
+#pragma unroll
+          for (int e = 0; e < D / 2; ++e) acc[e] *= e & 2 ? al1 : al0;
+        }
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<1, D>(acc, pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2], pf[4 * kk + 3],
+                         sw128_desc(va + hh * 8192 + kk * 2048, BK * 128, 1024), 1);
+        wg_commit();
+        wg_wait<0>();
+        reg_fence(acc);
+"""
+_FWD_Q_LANDED = ("  if (nj > 0) mbar_wait(qbar, 0);\n"
+                 "  if (wg == 1 && nj > 0) bar_arrive(3, 256);  // warpgroup 0 "
+                 "takes the first turn\n")
+_FWD_LSE = ("    float* lg = lse + (size_t)h * S.tq;\n"
+            "    if (row0 < S.tq) lg[row0] = l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : 0.f;\n"
+            "    if (row1 < S.tq) lg[row1] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : 0.f;\n")
 
 # name -> [(text, replacement)]; each text occurs once in the source
 MUTANTS = {
@@ -100,6 +141,46 @@ MUTANTS = {
          "  const size_t hn = (h + 1) % gridDim.y;\n"
          "  const float lse0 = row0 < S.tq ? lse[hn * S.tq + row0] * kLog2e : 0.f;\n"
          "  const float lse1 = row1 < S.tq ? lse[hn * S.tq + row1] * kLog2e : 0.f;\n"),
+    ],
+    # row 20: o carried in the wgmma accumulator across key stages (the
+    # rescale before each product), as the parent's mma.sync kernel did
+    "fwd_o_carried": [(_FWD_PV, _FWD_CARRIED)],
+    # row 20: the 64-key halves start at the CTA's first live key (a
+    # segment start) instead of a multiple of 64, so P is rounded against
+    # another running max than the plain version's
+    "fwd_halves_at_segment_start": [
+        ("  const int kb = chi > clo ? clo / BK * BK : 0;",
+         "  const int kb = chi > clo ? clo : 0;"),
+    ],
+    # row 20: a row's live keys run on past its interval's end (the next
+    # segment, or later keys of its own under causal)
+    "fwd_mask_dropped_at_segment_end": [
+        (_FWD_LIVE, _FWD_LIVE.replace(" && col < hi0", "")
+         .replace(" && col < hi1", "")),
+    ],
+    # row 20: c2 = scale log2 e folded into q, rounded to bf16, before
+    # Q K^T (the dense kernels' convention), not applied to the f32 score
+    "fwd_c2_folded_into_q": [
+        (_FWD_Q_LANDED, "  if (nj > 0) mbar_wait(qbar, 0);\n"
+         "  for (int i = tid & 127; i < 64 * D; i += 128) {\n"
+         "    bf16* x = reinterpret_cast<bf16*>(sm + sw128_offset<BQ>(64 * wg + i / D, i % D));\n"
+         "    *x = __float2bfloat16_rn(__bfloat162float(*x) * c2);\n"
+         "  }\n  fence_async_smem();\n  wg_bar(1 + wg);\n"
+         + _FWD_Q_LANDED.split("\n", 1)[1]),
+        ("            s[r + e] = masked && !live ? -INFINITY : s[r + e] * c2;\n",
+         "            s[r + e] = masked && !live ? -INFINITY : s[r + e];\n"),
+    ],
+    # row 20: a row with no live key gets lse = -inf, not 0
+    "fwd_dead_row_lse_not_0": [
+        (_FWD_LSE, _FWD_LSE.replace("l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : 0.f",
+                                    "(m0 + log2f(l0)) * kLn2")
+         .replace("l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : 0.f",
+                  "(m1 + log2f(l1)) * kLn2")),
+    ],
+    # row 21: warpgroup 1's dQ products are never sent
+    "fused_dq_of_one_warpgroup_dropped": [
+        ("      if (D == 128 ? on0 || on1 : on) {\n",
+         "      if ((D == 128 ? on0 || on1 : on) && wg == 0) {\n"),
     ],
     # rows 22 and 23: every sum carried in the wgmma accumulator (dV and
     # dK over q tiles, dQ over key stages), as the parent's mma.sync
@@ -159,8 +240,8 @@ def run_one():
                          ("one 65,536-token segment", [65536], 1)):
         q, k, v, do = cs._varlen_inputs(dev, torch.bfloat16, lens, None, h,
                                         cs.VARLEN_D, cs.SEED + 70)
-        out[key] = cs.varlen_split_drifts(fv, q, k, v, do, lens,
-                                          min(h, cs.VARLEN_DRIFT_HEADS))
+        out[key] = cs.varlen_drifts(fv, q, k, v, do, lens,
+                                    min(h, cs.VARLEN_DRIFT_HEADS))
         del q, k, v, do
         torch.cuda.empty_cache()
     print(json.dumps(out))
@@ -172,7 +253,10 @@ def main():
     src = open(os.path.join(ROOT, "paddle_tpu_torch", "csrc",
                             "flash_varlen.cu")).read()
     try:
+        pick = sys.argv[1:]
         for name, edits in MUTANTS.items():
+            if pick and name != "unchanged" and name not in pick:
+                continue
             pkg = os.path.join(tmp, name, "paddle_tpu_torch")
             shutil.copytree(os.path.join(ROOT, "paddle_tpu_torch"), pkg,
                             ignore=shutil.ignore_patterns("build",
