@@ -43,12 +43,19 @@ Phases, in order; any failure exits non-zero before the last line:
                fused dK and dV bitwise equal to the split pair's), the
                split outputs and fused dK/dV bitwise over two runs,
                segment isolation, and GQA 32/4 at
-               head_dim 64 against the CPU; read-only paged attention
-               (row 2) at row 3's shape and on f32 GQA cases with a
-               length-0 row; the split backward (rows 17, 18) in bf16 at
-               the train shape and on f32 layouts (a ragged length, Sq !=
-               Sk causal and not, a score spread), its dK/dV bitwise row
-               16's and its dQ bitwise over two runs; the block entries
+               head_dim 64 against the CPU; rows 3 and 2 (the paged
+               decode walk, split across CTAs) against their plain
+               versions at the kernel's split, the same bits over
+               repeated calls, and row 3 at rows of 2-4 blocks also to
+               2^-12 rel frob (its rounding schedule); read-only paged
+               attention (row 2) at row 3's shape and on f32 GQA cases
+               with a length-0 row; the split backward (rows 17, 18) in
+               bf16 at the train shape and at Sq != Sk with a kv tail off
+               the 128-key stages, and on f32 layouts (a ragged length, Sq
+               != Sk causal and not, a score spread), its dK/dV bitwise
+               row 16's and its dQ bitwise over two runs, and row 18's dQ
+               drift along f64 products at S = 16384 within 2e-6 of the
+               plain version's; the block entries
                (a ring of four causal blocks merged by log-sum-exp, the
                per-block backward under global lse/delta) against one
                full call under both backward modes; and the tiny train
@@ -136,7 +143,8 @@ Phases, in order; any failure exits non-zero before the last line:
                products (the long pack, and row 20 on one 65,536-token
                segment); rows 17 and 18 at
                the train and train-long shapes, rows 14 and 16 at the
-               shapes where JAX takes rows 13 and 15, row 2 at row 3's;
+               shapes where JAX takes rows 13 and 15, row 2 at row 3's
+               (rows 2 and 3 also by the profiler's kernel time);
  10. a JSON line {"kernels": [...]}, the total wall seconds, and, last,
      {"ok": true, "device": ...}.
 
@@ -269,10 +277,20 @@ PAGED_ATOL = 2e-3   # f32 sums in another order; P rounded to bf16 can
                     # land one step apart where it sits on a boundary
 PAGED_POSITIONS = [0, 1, 127, 128, 300, 777, 1024, 1500]   # 128, 1024 open
                                                            # a fresh block
+# the serve phase's profiled decode step (profile_steps): 8 rows at 1,000
+# cached tokens, a batch of even rows
+PAGED_STEP_POSITIONS = [1000] * 8
+# Rows 3 and 2 split a row's blocks across CTAs; each split must round P
+# against the running max of one walk over all the blocks before it (the
+# plain version's ``splits`` form). A split that rounded against its own
+# max moves o by 8.8e-4 to 1.2e-3 rel frob at rows of 2-4 blocks
+# (PAGED_SCHEDULE_POSITIONS; a CPU run of the plain versions), under
+# PAGED_ATOL in every element, so o is also held to this
+PAGED_SCHEDULE_FROB = 2 ** -12
+PAGED_SCHEDULE_POSITIONS = [200, 255, 300, 383, 140, 129, 511, 250]
 
 
 def check_kernels(dev):
-    from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import rms_norm as rn
     phase("check kernels against their plain versions (bf16)")
     errs = {}
@@ -298,19 +316,40 @@ def check_kernels(dev):
               f"(tol rtol 2^-7, atol 1e-5)")
         errs.setdefault("rms_norm", 0.0)
         errs["rms_norm"] = max(errs["rms_norm"], err)
+    check_paged_update(dev, errs)
+    return errs
 
-    for nh, nkv in ((32, 32), (32, 8)):
-        a = _paged_inputs(nh, nkv, PAGED_POSITIONS, SEED + nkv, dev)
+
+def check_paged_update(dev, errs):
+    """Row 3 against its plain version at the kernel's split
+    (``kernel_splits``): within PAGED_ATOL and, at rows of 2-4 blocks,
+    PAGED_SCHEDULE_FROB; the same bits over three calls; the pools, new
+    columns included, bitwise the plain version's."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    for nh, nkv, positions in ((32, 32, PAGED_POSITIONS),
+                               (32, 8, PAGED_POSITIONS),
+                               (32, 32, PAGED_SCHEDULE_POSITIONS)):
+        a = _paged_inputs(nh, nkv, positions, SEED + nkv, dev)
         kp2, vp2 = a["k_pool"].clone(), a["v_pool"].clone()
         args = (a["q"], a["new_k"], a["new_v"])
-        got = pa.paged_attend_update(*args, a["k_pool"], a["v_pool"],
-                                     a["tables"], a["positions"], a["layer"])
+        call = args + (a["k_pool"], a["v_pool"], a["tables"],
+                       a["positions"], a["layer"])
+        splits = pa.kernel_splits(a["tables"].shape[1], 128)
+        got = pa.paged_attend_update(*call)
         ref = pa.paged_attend_update_plain(*args, kp2, vp2, a["tables"],
-                                           a["positions"], a["layer"])
+                                           a["positions"], a["layer"],
+                                           splits=splits)
+        # the same column written again: the pools do not move, and the
+        # splits' ordered combine gives the same bits
+        again = [pa.paged_attend_update(*call) for _ in range(2)]
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
+        fro = ((got - ref).norm() / ref.norm()).item()
         assert torch.isfinite(got).all(), "paged_attend_update: non-finite"
         assert err <= PAGED_ATOL, f"paged_attend_update err {err}"
+        assert fro <= PAGED_SCHEDULE_FROB, f"paged_attend_update frob {fro}"
+        assert all(torch.equal(got, x) for x in again), \
+            "paged_attend_update: bits differ between calls"
         # the pools, new columns included, are bitwise the plain version's
         assert torch.equal(a["k_pool"], kp2) and torch.equal(a["v_pool"], vp2)
         pos = a["positions"].long()
@@ -318,11 +357,12 @@ def check_kernels(dev):
         col = a["k_pool"][a["layer"], blk.long(), :, pos % 128]
         assert torch.equal(col, a["new_k"]), "new k column not written"
         print(f"paged_attend_update NH={nh} NKV={nkv} HD=128 bs=128 B=8 "
-              f"positions {PAGED_POSITIONS}: max_abs_err {err:.3e} "
-              f"(tol {PAGED_ATOL}), pools bitwise equal")
+              f"positions {positions} ({splits} splits): max_abs_err "
+              f"{err:.3e} (tol {PAGED_ATOL}), rel frob {fro:.3e} (tol "
+              f"2^-12), the same bits over three calls, pools bitwise "
+              f"equal")
         errs["paged_attend_update"] = max(
             errs.get("paged_attend_update", 0.0), err)
-    return errs
 
 
 def _verify_inputs(nh, nkv, qstart, T, seed, dev, dtype=torch.bfloat16,
@@ -2829,8 +2869,8 @@ def _device_ms_by_class(prof):
 def _kernel_class(name):
     if "spin_kernel" in name:        # torch.cuda._sleep
         return "warm-up"
-    if "paged_update_kernel" in name:
-        return ("paged_attention" if ", false>" in name
+    if "paged_split_kernel" in name:    # <T, REP, WRITE, MAXT>
+        return ("paged_attention" if ", false," in name
                 else "paged_attend_update")
     if "paged_decode_quant_kernel" in name:
         return ("paged_attend_update_quant" if ", true>" in name
@@ -2857,7 +2897,7 @@ def _kernel_class(name):
         return "varlen_bwd"
     if "flash_fwd_" in name:          # flash_fwd_kernel, flash_fwd_wg_kernel
         return "flash_fwd"
-    if "flash_bwd_dq_kernel" in name:
+    if "flash_bwd_dq_" in name:       # flash_bwd_dq_kernel, _wg_kernel
         return "flash_bwd_dq"
     if "flash_bwd_kernel" in name or "flash_bwd_wg_kernel" in name:
         return "flash_bwd_dkv" if ", false>" in name else "flash_bwd"
@@ -3011,6 +3051,25 @@ def _timed(fn, iters):
     return {"ms": dev_ms, "call_ms": call_ms, "queued": queued}
 
 
+def _profiled_ms(fn, kernel, iters=20):
+    """Device ms per launch of the kernels whose names hold ``kernel``,
+    read from torch.profiler over ``iters`` calls of ``fn`` (one launch
+    each): a second reading of a kernel's time that no host pacing can
+    enter. The mean is taken over the launches the profiler recorded."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if kernel in e.key and e.self_device_time_total > 0]
+    n = sum(e.count for e in hits)
+    return sum(e.self_device_time_total for e in hits) / 1e3 / max(n, 1)
+
+
 def _bound(nbytes, ops, ops_per_s):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -3072,9 +3131,25 @@ def times(dev, errs):
                                .scaled_dot_product_attention(
                                    qd, kc, vc, attn_mask=mask), 50)["ms"],
              **_bound(nbytes, 4 * nh * hd * ctx, BF16_OPS_PER_S),
+             profiler_ms=_profiled_ms(lambda: pa.paged_attend_update(*call),
+                                      "paged_split_kernel"),
              bytes=nbytes, context_tokens=ctx)
     out["paged_attend_update[B=8,NH=NKV=32]"] = r
     print(f"paged_attend_update B=8 NH=NKV=32 ctx {ctx} tokens: {r}")
+    # the same kernel at the profiled decode step's even rows
+    a = _paged_inputs(32, 32, PAGED_STEP_POSITIONS, SEED + 33, dev)
+    ctx = sum(p + 1 for p in PAGED_STEP_POSITIONS)
+    call = (a["q"], a["new_k"], a["new_v"], a["k_pool"], a["v_pool"],
+            a["tables"], a["positions"], a["layer"])
+    nbytes = (b * nh * hd * 2 + 2 * b * kvd * 2 + 2 * ctx * kvd * 2
+              + 2 * b * kvd * 2 + b * nh * hd * 4 + a["tables"].numel() * 4
+              + b * 4)
+    r = dict(_timed(lambda: pa.paged_attend_update(*call), 100),
+             **_bound(nbytes, 4 * nh * hd * ctx, BF16_OPS_PER_S),
+             bytes=nbytes, context_tokens=ctx)
+    out["paged_attend_update[B=8,NH=NKV=32,even rows]"] = r
+    print(f"paged_attend_update B=8 NH=NKV=32 rows of 1,001 tokens (the "
+          f"profiled decode step's): {r}")
     out.update(paged_read_times(dev))
     out.update(flash_times(dev))
     out.update(split_times(dev))
@@ -3502,12 +3577,15 @@ def _bwd_mode(mode):
             os.environ[fa.ENV_FLASH_BWD] = old
 
 
-# (BH, Sq, Sk, D, causal, dtype, spread): the train shape in bf16; f32 at
+# (BH, Sq, Sk, D, causal, dtype, spread): the train shape in bf16, and
+# bf16 at Sq != Sk with a kv tail off the 128-key stages; f32 at
 # a length that is no multiple of 64, a ring off-diagonal block (Sq != Sk,
 # not causal), causal at Sq < Sk, and a score spread (keys 64..67 scaled
 # so their scores lead by hundreds of log2 units)
 SPLIT_CASES = [(TRAIN_B * 32, TRAIN_S, TRAIN_S, 128, True, torch.bfloat16,
                 None),
+               (8, 200, 330, 128, True, torch.bfloat16, None),
+               (8, 330, 200, 64, False, torch.bfloat16, None),
                (8, 200, 200, 64, True, torch.float32, None),
                (8, 128, 320, 128, False, torch.float32, None),
                (8, 130, 200, 128, True, torch.float32, None),
@@ -3533,7 +3611,8 @@ def _split_inputs(bh, sq, sk, d, dtype, seed, dev, causal=True,
 def check_split(dev, errs):
     """Rows 17 and 18 against their plain versions under the flash rule;
     row 17's dK and dV bitwise row 16's on the same inputs, row 18's dQ
-    bitwise over two runs."""
+    bitwise over two runs; row 18's dQ drift along f64 products at
+    train-long's S within VARLEN_DRIFT_EXCESS of the plain version's."""
     from paddle_tpu_torch.ops import flash_attention as fa
     phase("check the split backward (rows 17, 18) against its plain "
           "versions")
@@ -3579,6 +3658,59 @@ def check_split(dev, errs):
                                    res["dq"][3])
         del args, dk, dv, dq, dq2, dk_f, dv_f, dk_r, dv_r, dq_r
         torch.cuda.empty_cache()
+    x = split_dq_drift(fa, dev)
+    print(f"split dQ (row 18) at BH={DQ_DRIFT_HEADS} S={LONG_S} D=128 causal "
+          f"bf16, drift against f64: kernel {x['kernel']:+.3e}, plain "
+          f"{x['plain']:+.3e}, excess {x['excess']:+.3e} (limit "
+          f"{VARLEN_DRIFT_EXCESS:g}) {'ok' if x['ok'] else 'FAILED'}; rel "
+          f"frob kernel {x['kernel_frob']:.3e}, plain {x['plain_frob']:.3e}")
+    assert x["ok"], f"row 18's dQ drifts: {x}"
+
+
+DQ_DRIFT_HEADS = 2
+
+
+def dense_dq_f64(q, k, v, do, lse, delta, causal, scale, rows=1024):
+    """Row 18's function at the plain version's rounding points (S, P and
+    dS in f32, dS rounded to q's dtype before the scale), each product
+    summed in f64: q pre-scaled, k, v, do [BH, S, D] -> dq f64."""
+    from paddle_tpu_torch.ops.flash_attention import LOG2E
+    dev = q.device
+    sq, sk = q.shape[1], k.shape[1]
+    dq = torch.empty(q.shape, dtype=torch.float64, device=dev)
+    lse2 = lse.float() * LOG2E
+    for h in range(q.shape[0]):
+        kf, vf = k[h].float(), v[h].float()
+        for r0 in range(0, sq, rows):
+            r1 = min(r0 + rows, sq)
+            kn = min(r1, sk) if causal else sk
+            s = q[h, r0:r1].float() @ kf[:kn].T
+            if causal:
+                s = s.masked_fill(torch.arange(kn, device=dev)[None]
+                                  > torch.arange(r0, r1, device=dev)[:, None],
+                                  -1e30)
+            p = torch.exp2(s - lse2[h, r0:r1, None])
+            dp = do[h, r0:r1].float() @ vf[:kn].T
+            ds = (p * (dp - delta[h, r0:r1, None])).to(q.dtype).double()
+            dq[h, r0:r1] = (ds @ kf[:kn].double()) * scale
+            del s, p, dp, ds
+    return dq
+
+
+def split_dq_drift(fa, dev, s=None, heads=DQ_DRIFT_HEADS):
+    """Row 18 and its plain version on ``heads`` heads at S = ``s``
+    (default train-long's; D = 128, causal, bf16) against
+    ``dense_dq_f64``: ``_drift_row``. A dQ sum carried in the tensor
+    cores' accumulator over the key stages drifts low."""
+    s = LONG_S if s is None else s
+    qs, k, v, do, o, lse = _split_inputs(heads, s, s, 128, torch.bfloat16,
+                                         SEED + 140, dev)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (qs, k, v, do, lse, delta, True, 128 ** -0.5)
+    row = _drift_row(fa.flash_bwd_dq(*args), fa.flash_bwd_dq_plain(*args),
+                     dense_dq_f64(*args))
+    torch.cuda.synchronize()
+    return row
 
 
 BLOCK_S, BLOCK_N = 1024, 4       # the ring check: 4 blocks of 256
@@ -3670,18 +3802,23 @@ def check_paged_read(dev, errs):
         if dtype == torch.float32:
             lengths[0] = 0
         kp0, vp0 = kp.clone(), vp.clone()
+        splits = pa.kernel_splits(a["tables"].shape[1], 128)
         got = pa.paged_attention(q, kp, vp, a["tables"], lengths, a["layer"])
+        again = pa.paged_attention(q, kp, vp, a["tables"], lengths,
+                                   a["layer"])
         ref = pa.paged_attention_plain(q, kp, vp, a["tables"], lengths,
-                                       a["layer"])
+                                       a["layer"], splits=splits)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         assert torch.isfinite(got).all() and err <= atol, err
+        assert torch.equal(got, again), "paged_attention: bits differ"
         assert torch.equal(kp, kp0) and torch.equal(vp, vp0)
         zero = bool(lengths[0] > 0) or not got[0].any()
         assert zero
         print(f"paged_attention NH={nh} NKV={nkv} HD={hd} {str(dtype)[6:]} "
-              f"lengths {lengths.tolist()}: max_abs_err {err:.3e} (tol "
-              f"{atol}), pools unchanged, length-0 row exactly 0: {zero}")
+              f"lengths {lengths.tolist()} ({splits} splits): max_abs_err "
+              f"{err:.3e} (tol {atol}), the same bits over two calls, pools "
+              f"unchanged, length-0 row exactly 0: {zero}")
         errs["paged_attention"] = max(errs.get("paged_attention", 0.0), err)
 
 
@@ -4030,7 +4167,9 @@ def paged_read_times(dev):
     lengths = row 3's positions + 1: 3,865 tokens). Bytes: q, the K and V
     of the context, the f32 output, tables and lengths once. Operations:
     2 products of 2 HD per (head, token). Library yardstick: SDPA over the
-    context gathered beforehand, as for row 3."""
+    context gathered beforehand, as for row 3. Beside the CUDA events'
+    ms (with ``queued``: the host had queued every call before the device
+    reached them), the profiler's kernel time of the same call."""
     from paddle_tpu_torch.ops import paged_attention as pa
     F = torch.nn.functional
     a = _paged_inputs(32, 32, PAGED_POSITIONS, SEED + 32, dev)
@@ -4057,6 +4196,8 @@ def paged_read_times(dev):
              library_ms=_timed(lambda: F.scaled_dot_product_attention(
                  qd, kc, vc, attn_mask=mask), 50)["ms"],
              **_bound(nbytes, 4 * nh * hd * ctx, BF16_OPS_PER_S),
+             profiler_ms=_profiled_ms(lambda: pa.paged_attention(*call),
+                                      "paged_split_kernel"),
              bytes=nbytes, context_tokens=ctx)
     key = "paged_attention[B=8,NH=NKV=32]"
     print(f"{key} ctx {ctx} tokens: {r}")

@@ -48,6 +48,8 @@
 // one launch, no memset. The sync words live in a buffer per (device,
 // stream) that starts zeroed and that every launch leaves zeroed, so
 // launches that share one run in order (ops/decode_attention.py keys it).
+// The tickets, flags, look-back and ordered combine live in
+// split_common.cuh, shared with the paged decode kernel.
 //
 // Loads: for scores, thread (kg, kc) issues all its 16-byte K vectors of
 // the tile (rows kg, kg+G, ...) before it sums them; the V vectors of
@@ -68,6 +70,7 @@
 // the caller's stream.
 #include <math.h>
 
+#include "split_common.cuh"
 #include "vec_common.cuh"
 
 namespace {
@@ -80,15 +83,6 @@ constexpr int VLOADS = 8;             // 16-byte V vectors issued ahead of the s
 // split's (m, l) in part_s, G * REP * TILE floats with G >= 4
 constexpr int MAX_SPLITS = 128;
 static_assert(2 * MAX_SPLITS <= 4 * TILE, "part_s holds every split's (m, l)");
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
-}
 
 // Whole scores of the tile at kt for token tid of the tile (-1e30 where
 // not live): thread (kg, kc) issues all its K vectors (rows kg, kg+G, ...,
@@ -165,35 +159,6 @@ __device__ __forceinline__ void cta_max(float (&x)[REP], float* red_s) {
   }
 }
 
-// Combines the nlive splits' partial states of one (g, b) group in split
-// order into out [REP, hd], then leaves the group's sync words zero for the
-// next launch. The splits' (m, l) go to ml_s [nlive][2 REP] in one round of
-// loads; each output element then loads its nlive partial sums, unrolled
-// so that several are in flight.
-template <int REP>
-__device__ __forceinline__ void combine_splits(const float* gpart, int pstride, int nlive, int hd,
-                                               float* __restrict__ out, float* ml_s, int* gsync) {
-  const int tid = threadIdx.x;
-  for (int x = tid; x < nlive * 2 * REP; x += TILE)
-    ml_s[x] = __ldcg(gpart + (size_t)(x / (2 * REP)) * pstride + REP + x % (2 * REP));
-  __syncthreads();
-  for (int i = tid; i < REP * hd; i += TILE) {
-    const int r = i / hd;
-    float mm = -INFINITY;
-    for (int t = 0; t < nlive; ++t) mm = fmaxf(mm, ml_s[t * 2 * REP + r]);
-    float ls = 0.f, as = 0.f;
-#pragma unroll 8
-    for (int t = 0; t < nlive; ++t) {
-      const float w = exp2f(ml_s[t * 2 * REP + r] - mm);
-      ls += ml_s[t * 2 * REP + REP + r] * w;
-      as += __ldcg(gpart + (size_t)t * pstride + 3 * REP + i) * w;
-    }
-    out[i] = as / fmaxf(ls, 1e-30f);
-  }
-  for (int t = tid; t < nlive; t += TILE) gsync[2 + t] = 0;
-  if (tid == 0) gsync[0] = gsync[1] = 0;
-}
-
 // Launched with blockDim.x == TILE, grid (nkv, nb, nsplit). Shared memory,
 // in floats:
 //   q_s [REP*hd] | part_s [G*REP*TILE] | p_s [REP*TILE] | max_s [REP*NWARPS] | sum_s [REP*NWARPS]
@@ -232,7 +197,7 @@ __global__ void __launch_bounds__(TILE)
 
   // the split index in arrival order: every split this one waits on below
   // took its ticket earlier, so it is running
-  if (tid == 0) split_s = atomicAdd(gsync, 1);
+  if (tid == 0) split_s = take_ticket(gsync);
   // this head's [hd, t_len] slice of layer `layer`, batch row b
   const size_t head = (((size_t)layer * nb + b) * kvd + (size_t)g * hd) * t_len;
   T* kh = k_cache + head;
@@ -281,22 +246,11 @@ __global__ void __launch_bounds__(TILE)
     for (int r = 0; r < REP; ++r) mx[r] = fmaxf(mx[r], sc[r]);
   }
   float* mypart = gpart + (size_t)split * pstride;  // smax | m | l | acc
-  if (tid == 0) {
-#pragma unroll
-    for (int r = 0; r < REP; ++r) mypart[r] = mx[r];
-    st_release(gsync + 2 + split, 1);  // orders this thread's writes above
-  }
+  if (tid == 0) publish_max<REP>(gsync, mypart, split, mx);
 
   // 3. look back: the max of every earlier split's scores
   float seed[REP];
-#pragma unroll
-  for (int r = 0; r < REP; ++r) seed[r] = -INFINITY;
-  for (int t = tid; t < split; t += TILE) {
-    while (ld_acquire(gsync + 2 + t) == 0) __nanosleep(32);
-    const float* pt = gpart + (size_t)t * pstride;
-#pragma unroll
-    for (int r = 0; r < REP; ++r) seed[r] = fmaxf(seed[r], __ldcg(pt + r));
-  }
+  look_back<REP>(gsync, gpart, pstride, split, TILE, seed);
   cta_max<REP>(seed, sum_s);
 
   // 4. online softmax over this split's tiles from the seed: P is rounded
@@ -396,14 +350,9 @@ __global__ void __launch_bounds__(TILE)
 #pragma unroll
     for (int r = 0; r < REP; ++r) mypart[3 * REP + r * hd + vd] = acc[r];
   }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last_s = atomicAdd(gsync + 1, 1) == nlive - 1;
-  __syncthreads();
-  if (!last_s) return;
-  __threadfence();
+  if (!last_split(gsync, nlive, &last_s)) return;
   // every split has finished (and read its flags)
-  combine_splits<REP>(gpart, pstride, nlive, hd, out + q_off, part_s, gsync);
+  combine_splits<REP>(gpart, pstride, nlive, hd, TILE, out + q_off, part_s, gsync);
 }
 
 template <typename T, int REP, bool UPDATE>

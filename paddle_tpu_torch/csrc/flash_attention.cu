@@ -25,8 +25,7 @@
 // 268 MB of q, k, v and o (0.080 ms at 3.35 TB/s); the backward does 5 such
 // products (3.44e11, 0.347 ms) over 0.5 GB.
 //
-// Design (not the TPU's). The split dQ pass and every f32 kernel take
-// warp-level mma.sync m16n8k16 (bf16 in, f32 accumulation) on tiles
+// Design (not the TPU's). Every f32 kernel takes warp-level mma.sync m16n8k16 (bf16 in, f32 accumulation) on tiles
 // staged in shared memory; for f32 inputs the same warp tile is computed by
 // scalar FMAs with the same register layout (no TF32), so the softmax and
 // masking code is shared. Fragments come from shared memory by ldmatrix
@@ -34,8 +33,9 @@
 // stored transposed); rows are padded by 16 bytes, which keeps ldmatrix
 // free of bank conflicts (csrc/mma_common.cuh). Global tiles arrive by
 // 16-byte cp.async in a two-stage pipeline (the next tile is in flight
-// while this one is used; one barrier per tile). The forward, the fused
-// backward and its dK/dV pass in bf16 run on wgmma instead (below).
+// while this one is used; one barrier per tile). Every bf16 kernel (the
+// forward, the fused backward and both passes of the split backward) runs
+// on wgmma instead (below).
 //
 // Forward (f32): one CTA of 4 warps per (64-row q tile, bh); each warp owns
 // 16 q rows. The CTA walks 64-key K/V tiles (tiles wholly above the causal
@@ -125,15 +125,35 @@
 // one more at D = 128 (dS^T of both warpgroups), and a warpgroup barrier
 // before each reduce.
 //
-// Split dQ pass: one CTA of 4 warps per (64-row q tile, bh), each warp
-// owning 16 q rows, walks the live 64-key K/V tiles (key tiles <= the q
-// tile under causal, the forward's live set) through the same two-stage
-// pipeline as the forward. Per tile it recomputes S = Q~ K^T, P = exp2(S -
-// lse2), dP = dO V^T and dS = P (dP - delta) rounded to the input dtype
-// (the fused kernel's rounding point), and accumulates dQ += dS K in f32
-// registers: 3 products, no atomics, so dQ has the same bits on every run.
-// dQ is multiplied by scale once at the end and cast. At the train shape
-// it does 3 products of 2 * BH * S^2 * D / 2 operations (0.208 ms).
+// Split dQ pass: a CTA per q tile walks the live K/V tiles (key tiles
+// that hold a key <= some row of the q tile under causal, the forward's
+// live set). Per tile it recomputes S = Q~ K^T, P = exp2(S - lse2), dP =
+// dO V^T and dS = P (dP - delta) rounded to the input dtype before any
+// scale (the TPU kernel's rounding point), and adds dQ += dS K: 3
+// products, no atomics, so dQ has the same bits on every run. dQ is
+// multiplied by scale once at the end and cast. At the train shape it does
+// 3 products of 2 * BH * S^2 * D / 2 operations (0.208 ms).
+// f32: one CTA of 4 warps per 64-row q tile, each warp owning 16 q rows,
+// 64-key tiles through the forward's two-stage pipeline, dQ in f32
+// registers.
+// bf16 (flash_bwd_dq_wg_kernel, redesigned for Hopper; the design of the
+// varlen dQ, flash_varlen.cu's varlen_dq_wg_kernel): a CTA of 128 q rows,
+// two consumer warpgroups of 64 rows and a producer warpgroup that gives
+// its registers to them (setmaxnreg 24 against 240). The producer loads Q~
+// and dO once and fills a ring of 128-key K/V stages (two at D = 128, four
+// at D = 64: 128 KB) by TMA through 3-D maps over [BH, S, D], so a box
+// past a head's last row reads zeros; full/empty mbarriers hand the
+// stages over. Per stage a consumer computes S and dP as m64n128k16 from
+// shared memory, forms dS straight into register A fragments (masked only
+// on the kv tail and on stages that cross a warp's diagonal, top-left
+// aligned at Sq != Sk), and takes dS K (m64nDk16, K read MN-major from the
+// stage) into a zeroed accumulator that it adds to dQ in f32 registers
+// with IEEE adds: the tensor cores round their own f32 sums toward zero,
+// and a dQ carried in them over the key tiles drifted 2.4e-5 low at S =
+// 131072 in the mma.sync form this kernel replaced. A stage wholly above a
+// warpgroup's diagonal is skipped. dQ times scale is staged in the
+// warpgroup's own rows of the Q~ tile and stored in 16-byte pieces; the
+// last q tile is launched first.
 //
 // Types f32 and bf16, head_dim 64 and 128 (template parameters). The
 // kernels allocate nothing and do not synchronise; they launch on the
@@ -1061,6 +1081,185 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// split backward, dQ pass for bf16 on wgmma (row 18)
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct WgDqCfg {
+  static constexpr int BQ = 128, BK = 128;        // q rows a CTA, keys a stage
+  static constexpr int NB = D / 64;               // 64-column blocks of D
+  static constexpr int QT_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
+  static constexpr int NS = 131072 / (2 * KV_BYTES);  // ring stages: 128 KB of K and V
+  static constexpr int OFF_DO = QT_BYTES, OFF_KV = 2 * QT_BYTES;  // stage st: K, then V
+  static constexpr int OFF_BAR = OFF_KV + NS * 2 * KV_BYTES;
+  // barriers (Q and dO landed, NS stages full, NS stages empty), and slack
+  // to align the base to 1024 bytes
+  static constexpr size_t kSmem = OFF_BAR + 8 * (1 + 2 * NS) + 1024;
+};
+
+// qm, dom, km, vm: tensor maps of q (pre-scaled), dout [BH, sq, D] and k, v
+// [BH, sk, D] (bf16) with boxes of 64 columns by 128 rows; lse (natural
+// log), delta [BH, sq] f32; dq [BH, sq, D] written whole, with respect to
+// the unscaled q (times scale). 384 threads, grid (ceil(sq / 128), BH).
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qm,
+                           const __grid_constant__ CUtensorMap dom,
+                           const __grid_constant__ CUtensorMap km,
+                           const __grid_constant__ CUtensorMap vm, const float* __restrict__ lse,
+                           const float* __restrict__ delta, bf16* __restrict__ dq, int sq, int sk,
+                           int causal, float scale) {
+  using C = WgDqCfg<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, NS = C::NS, NB = C::NB;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + NS;
+
+  const int tid = threadIdx.x, wg = tid >> 7, wiw = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the last q tile first
+  const int bh = blockIdx.y;
+  int nk = (sk + BK - 1) / BK;  // stages of 128 keys
+  if (causal) nk = min(nk, (min(q0 + BQ, sq) - 1) / BK + 1);
+
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 256);  // every consumer thread releases a stage
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer warpgroup: one thread keeps the ring full
+    setmaxnreg_dec<24>();
+    if (tid == 256) {
+      mbar_expect_tx(qbar, 2 * C::QT_BYTES);
+      for (int b = 0; b < NB; ++b) {
+        tma_load_3d(sm + b * (BQ * 128), &qm, qbar, 64 * b, q0, bh);
+        tma_load_3d(sm + C::OFF_DO + b * (BQ * 128), &dom, qbar, 64 * b, q0, bh);
+      }
+      for (int j = 0; j < nk; ++j) {
+        const int st = j % NS;
+        if (j >= NS) mbar_wait(&empty[st], ((j / NS) & 1) ^ 1);
+        unsigned char* ks = sm + C::OFF_KV + st * 2 * C::KV_BYTES;
+        mbar_expect_tx(&full[st], 2 * C::KV_BYTES);
+        for (int b = 0; b < NB; ++b) {
+          tma_load_3d(ks + b * (BK * 128), &km, &full[st], 64 * b, j * BK, bh);
+          tma_load_3d(ks + C::KV_BYTES + b * (BK * 128), &vm, &full[st], 64 * b, j * BK, bh);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  // consumer warpgroup wg owns q rows q0 + 64 wg ..; this warp 16 of them
+  // from rw, this lane row0 and row1: lse in the log2 domain and delta (0
+  // past sq, where q and dO read zeros, so dS is 0 there)
+  const int rloc = 64 * wg + 16 * wiw + g;  // row0's row of the CTA's tile
+  const int rw = q0 + 64 * wg + 16 * wiw;
+  const int row0 = q0 + rloc, row1 = row0 + 8;
+  const float lse0 = row0 < sq ? lse[(size_t)bh * sq + row0] * kLog2e : 0.f;
+  const float lse1 = row1 < sq ? lse[(size_t)bh * sq + row1] * kLog2e : 0.f;
+  const float dl0 = row0 < sq ? delta[(size_t)bh * sq + row0] : 0.f;
+  const float dl1 = row1 < sq ? delta[(size_t)bh * sq + row1] : 0.f;
+  const uint32_t qa = smem_u32(sm) + wg * 64 * 128, doa = qa + C::OFF_DO;
+  float acc[D / 2];  // m64nD accumulator layout
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+
+  mbar_wait(qbar, 0);
+  for (int j = 0; j < nk; ++j) {
+    const int st = j % NS, c0 = j * BK;
+    mbar_wait(&full[st], (j / NS) & 1);
+    // a stage wholly above the causal diagonal of this warpgroup's rows
+    // adds nothing: skipped (a warpgroup-uniform branch)
+    if (!causal || c0 <= q0 + 64 * wg + 63) {
+      const uint32_t ka = smem_u32(sm + C::OFF_KV + st * 2 * C::KV_BYTES), va = ka + C::KV_BYTES;
+
+      // S = Q~ K^T and dP = dO V^T over the stage's keys
+      float s[BK / 2], dp[BK / 2];
+      wg_fence();
+#pragma unroll
+      for (int x = 0; x < D / 16; ++x)
+        wgmma_ss<0, 0, BK>(s, sw128_desc(qa + (x >> 2) * (BQ * 128) + (x & 3) * 32, 16, 1024),
+                           sw128_desc(ka + (x >> 2) * (BK * 128) + (x & 3) * 32, 16, 1024), x);
+#pragma unroll
+      for (int x = 0; x < D / 16; ++x)
+        wgmma_ss<0, 0, BK>(dp, sw128_desc(doa + (x >> 2) * (BQ * 128) + (x & 3) * 32, 16, 1024),
+                           sw128_desc(va + (x >> 2) * (BK * 128) + (x & 3) * 32, 16, 1024), x);
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(s);
+      reg_fence(dp);
+
+      // P = exp2(S - lse2), 0 past the kv tail and above the causal
+      // diagonal (top-left); dS = P (dP - delta) rounded to bf16 before any
+      // scale (the TPU kernel's and the plain version's rounding point),
+      // straight into the A fragments of dS K. Only the kv tail and stages
+      // that cross this warp's diagonal are masked (a warp-uniform branch).
+      const bool masked = c0 + BK > sk || (causal && c0 + BK - 1 > rw);
+      uint32_t dsf[BK / 4];
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        float de[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + 8 * n + 2 * t + (e & 1);
+          const int row = e < 2 ? row0 : row1;
+          const bool dead = masked && (col >= sk || (causal && col > row));
+          const float p = dead ? 0.f : exp2f(s[4 * n + e] - (e < 2 ? lse0 : lse1));
+          de[e] = p * (dp[4 * n + e] - (e < 2 ? dl0 : dl1));
+        }
+        dsf[2 * n] = pack_bf16(de[0], de[1]);
+        dsf[2 * n + 1] = pack_bf16(de[2], de[3]);
+      }
+
+      // dQ += dS K over all D columns at once (m64nDk16, K read MN-major
+      // from the stage): the stage's product in a zeroed accumulator,
+      // added to the running dQ with IEEE adds
+      float pr[D / 2];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<1, D>(pr, dsf[4 * kk], dsf[4 * kk + 1], dsf[4 * kk + 2], dsf[4 * kk + 3],
+                       sw128_desc(ka + kk * 2048, BK * 128, 1024), kk);
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(pr);
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) acc[e] += pr[e];
+    }
+    mbar_arrive(&empty[st]);  // this thread is done with the stage
+  }
+
+  // dQ times scale, rounded to bf16 and staged in this warpgroup's own rows
+  // of the Q tile (free once its last product is done; the swizzle keeps
+  // the pair writes free of bank conflicts), then stored in 16-byte pieces
+  wg_bar(1 + wg);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    *reinterpret_cast<uint32_t*>(sm + sw128_offset<BQ>(rloc, col)) =
+        pack_bf16(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+    *reinterpret_cast<uint32_t*>(sm + sw128_offset<BQ>(rloc + 8, col)) =
+        pack_bf16(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+  }
+  wg_bar(1 + wg);
+  bf16* dqg = dq + (size_t)bh * sq * D;
+  for (int i = tid & 127; i < 64 * (D / 8); i += 128) {
+    const int rr = 64 * wg + i / (D / 8), c = 8 * (i % (D / 8)), row = q0 + rr;
+    if (row < sq)
+      *reinterpret_cast<uint4*>(dqg + (size_t)row * D + c) =
+          *reinterpret_cast<const uint4*>(sm + sw128_offset<BQ>(rr, c));
+  }
+}
+
 template <typename T>
 __global__ void dq_finalize_kernel(const float* __restrict__ acc, T* __restrict__ dq, size_t n,
                                    float scale) {
@@ -1187,18 +1386,38 @@ cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const vo
                                       causal, stream);
 }
 
+// bf16 on wgmma, the K/V ring filled by TMA; f32 on the scalar path of
+// mma_common.cuh
 template <typename T, int D>
 cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                           const void* lse, const void* delta, void* dq, int bh, int sq, int sk,
                           int causal, float scale, cudaStream_t stream) {
-  using C = DqCfg<T, D>;
-  cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, D>, C::kSmem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((sq + C::BQ - 1) / C::BQ, bh);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, C::kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), sq, sk, causal, scale);
+  if constexpr (std::is_same<T, bf16>::value) {
+    using C = WgDqCfg<D>;
+    CUtensorMap maps[4] = {};
+    const void* base[4] = {q, dout, k, v};
+    for (int i = 0; i < 4; ++i) {
+      const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)(i < 2 ? sq : sk), (cuuint64_t)bh};
+      const cuuint32_t box[3] = {64, (cuuint32_t)C::BQ, 1};
+      const cudaError_t e = tma_map_bf16(&maps[i], base[i], 3, dims, box);
+      if (e != cudaSuccess) return e;
+    }
+    cudaError_t e = allow_smem(flash_bwd_dq_wg_kernel<D>, C::kSmem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((sq + C::BQ - 1) / C::BQ, bh);
+    flash_bwd_dq_wg_kernel<D><<<grid, 384, C::kSmem, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<bf16*>(dq), sq, sk, causal, scale);
+  } else {
+    using C = DqCfg<T, D>;
+    cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, D>, C::kSmem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((sq + C::BQ - 1) / C::BQ, bh);
+    flash_bwd_dq_kernel<T, D><<<grid, kThreads, C::kSmem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dq), sq, sk, causal, scale);
+  }
   return cudaSuccess;
 }
 

@@ -51,31 +51,65 @@
 // Design of the attention entries (not the TPU's): the TPU walks one flat
 // sequential schedule of (sequence, block) steps and pads each query row
 // to the full KVD ("block-diagonal" q) so its matrix unit sees [R, KVD] x
-// [KVD, bs]; for an MHA model that is NH times the useful work. Here one
-// CTA of bs threads owns one (row, kv-head) pair (and, for verify, a chunk
-// of at most 8 of its T * REP query rows): its query rows sit in shared
-// memory, and it loops over the row's live blocks only with an online
-// softmax in f32 (exp2 on q pre-scaled by scale * log2(e), as the caller
-// does). To keep HBM busy every K and V access is a 16-byte vector and
-// each thread has several in flight: for scores, thread (g, c) reads
-// vector c of K rows g, g+G, ... and keeps partial scores of its VEC
-// tokens in registers (the G partials of a token are summed in shared
-// memory in a fixed order); for P.V, thread (d, part) reads its slice of V
-// row d and keeps acc[row][d] in registers for the whole walk. Three
-// barriers per block. P is rounded to the pool dtype before P.V, and the
+// [KVD, bs]; for an MHA model that is NH times the useful work. Here a CTA
+// of bs threads owns one (row, kv-head) pair, or a share of its context;
+// its query rows sit in shared memory and the softmax is the online
+// recurrence in f32 (exp2 on q pre-scaled by scale * log2(e), as the
+// caller does). P is rounded to the pool dtype before P.V, and the
 // normaliser sums the unrounded f32 P, as in the TPU kernels. Only the
 // online recurrence is implemented: the TPU default's tile-0-anchored
 // "fixed-base" softmax overflows once a later tile's max exceeds tile 0's
-// by ~100 log2 units. The verify chunks of one (row, kv-head) read the
-// same K and V; at MHA with T <= 8 there is one chunk.
+// by ~100 log2 units.
 //
-// Write before read, without a race (update entry): each CTA writes only
-// its own kv-head's HD rows of the new column, then __syncthreads(), then
-// reads. No other CTA touches those bytes. Padding rows point their whole
-// table at the reserved null block 0 with position 0; they all write
-// block 0, column 0, concurrently. That is harmless: no live row ever
-// reads block 0. The commit's rejected and padding columns likewise land
-// in block 0 from many CTAs at once.
+// Rows 3 and 2 (paged_split_kernel, redesigned for Hopper): flash-decoding.
+// A serving batch is ragged (prompts of 128-1024 tokens plus what was
+// generated), and a walk of one CTA per (row, kv-head) takes as long as
+// its longest row's blocks in sequence. So the grid is (kv-head, row,
+// split) and each split takes a run of ceil(max_nb / nsplit) of the row's
+// pool blocks; nsplit comes from the table width and bs (the wrapper's
+// kernel_splits), never from the lengths, so the launch shape depends only
+// on tensor shapes; a split wholly past its row's last token exits at
+// once. The splits of a row keep one walk's rounding by split_common.cuh's
+// protocol (shared with the slab kernel, decode_attention.cu): a ticket in
+// arrival order, the split's score max published with a flag, the max of
+// every earlier split's scores as the seed of its recurrence (so P is
+// rounded against the same running max as one walk), and the last split
+// to finish combining the partial states in split order (the same bits on
+// every run). A row whose live blocks fit one split takes none of it and
+// finalises at once. Loads: one kv-head's slice of a pool block is
+// contiguous (hd x bs elements at ((layer NP + blk) KVD + g hd) bs, 32 KB
+// in bf16 at hd = bs = 128), so each K or V slice arrives by one 1-D bulk
+// copy (cp.async.bulk, no tensor map) completing on an mbarrier, in pieces
+// of at most 32 KB where a slice is larger; thread 0 issues the pieces in
+// order, K pieces of the split first, then V, into a ring: one slot for a
+// split of one block (V's copy goes out as soon as K is read, so it lands
+// under the score reduction, the softmax and the look-back), two blocks'
+// pieces for a longer split. Scores and P.V
+// read shared memory in 16-byte vectors: thread (g, c) sums its K rows g,
+// g+G, ... for the VEC tokens of vector c (the G partials of a token are
+// summed in shared memory in a fixed order); thread (d, part) sums P.V
+// over its slice of V row d, starting at a vector rotated by d so that the
+// threads of a phase read different banks, with P kept in the pool dtype
+// in shared memory. The first block's scores stay in registers across the
+// look-back, later blocks' in shared memory.
+//
+// Rows 4-7 (the int8 entries and verify) keep one CTA per (row, kv-head,
+// chunk of query rows) walking the row's live blocks in sequence
+// (walk_blocks): every K and V access is a 16-byte vector from device
+// memory, several in flight a thread; three barriers per block. The
+// verify chunks of one (row, kv-head) read the same K and V; at MHA with
+// T <= 8 there is one chunk.
+//
+// Write before read, without a race (update entries): the CTA that owns
+// the new column (row 3: the split whose run holds positions[b]) writes
+// only its own kv-head's HD rows of it, then reads them: row 3 orders the
+// writes before its bulk copies with a proxy fence and a barrier, row 5
+// with a barrier before its loads. No other CTA touches those bytes: the
+// other splits of the row read earlier blocks only. Padding rows point
+// their whole table at the reserved null block 0 with position 0; they all
+// write block 0, column 0, concurrently. That is harmless: no live row
+// ever reads block 0. The commit's rejected and padding columns likewise
+// land in block 0 from many CTAs at once.
 //
 // Design of the commit: one CTA of 128 threads per (kv-slice of 128
 // elements, row, layer) stages the row's T columns of that slice in shared
@@ -105,11 +139,12 @@
 // of the kv-heads whose rows start in its slice.
 //
 // The kernels allocate nothing and do not synchronise; they launch on the
-// caller's stream. Not done yet: split-K across CTAs for short batches,
-// cp.async/TMA prefetch of the next block.
+// caller's stream. Not done yet: rows 4-7 on the split walk.
 #include <math.h>
 
+#include "split_common.cuh"
 #include "vec_common.cuh"
+#include "wgmma_common.cuh"  // mbarriers and 1-D bulk copies
 
 namespace {
 
@@ -273,61 +308,340 @@ __device__ __forceinline__ void walk_blocks(const T* k_pool, const T* v_pool,
   }
 }
 
-// grid (nkv, b), blockDim.x == bs. WRITE (row 3): write row b's new
-// column at positions[b], then attend over 0..positions[b]. !WRITE (row
-// 2): attend over 0..rows[b]-1, rows = lengths; a row of length 0 gets 0.
-// new_k/new_v are unused when !WRITE.
-template <typename T, int REP, bool WRITE>
-__global__ void paged_update_kernel(const T* __restrict__ q, const T* __restrict__ new_k,
-                                    const T* __restrict__ new_v, T* k_pool, T* v_pool,
-                                    const int* __restrict__ tables,
-                                    const int* __restrict__ rows,
-                                    float* __restrict__ out, int layer, int np, int nkv,
-                                    int hd, int bs, int max_nb) {
-  const int g = blockIdx.x, b = blockIdx.y;
-  const int kvd = nkv * hd;
-  const int tid = threadIdx.x;
-  extern __shared__ float smem[];
-  float* q_s = smem;
+// ---------------------------------------------------------------------------
+// rows 3 and 2: the split-context decode walk
+// ---------------------------------------------------------------------------
 
-  const int pos = WRITE ? rows[b] : rows[b] - 1;  // the last token attended
-  const int* trow = tables + (size_t)b * max_nb;
+constexpr int kRing = 4;          // ring slots at most: two blocks of K and V
+constexpr int kPieceBytes = 32768;  // the most one bulk copy brings
+constexpr int kMaxSplits = 256;   // the combine keeps each split's (m, l) in part_s
+
+// Shared memory of the split walk, byte offsets: the ring [nbuf][piece]
+// | its barriers [kRing] | q_s [R, hd] f32 | part_s [G, R, bs] f32 |
+// keep_s [bps - 1, R, bs] f32 | p_s [R, bs] T | max_s, lb_s, sum_s
+// [R, 32] f32 | bm_s [bps, R] f32. Every region starts 16-byte aligned.
+template <typename T, int R>
+struct SplitSmem {
+  size_t bars, q, part, keep, p, mx, lb, sum, bm, total;
+  __host__ __device__ SplitSmem(int hd, int bs, int bps, int prow, int nbuf) {
+    constexpr int G = 16 / sizeof(T);
+    bars = (size_t)nbuf * prow * bs * sizeof(T);
+    q = bars + 16 * ((kRing + 1) / 2);  // the barriers, 16-byte aligned
+    part = q + 4 * (size_t)R * hd;
+    keep = part + 4 * (size_t)G * R * bs;
+    p = keep + 4 * (size_t)(bps - 1) * R * bs;
+    mx = p + sizeof(T) * (size_t)R * bs;
+    lb = mx + 4 * R * 32;
+    sum = lb + 4 * R * 32;
+    bm = sum + 4 * R * 32;
+    total = bm + 4 * (size_t)bps * R;
+  }
+};
+
+// grid (nkv, b, nsplit), blockDim.x == bs. Split z of (kv-head g, row b)
+// takes the row's pool blocks [z bps, (z + 1) bps) of its live ones (the
+// index z is a ticket in arrival order), a piece of prow rows of one K or
+// V slice per bulk copy, nbuf pieces in flight. WRITE (row 3): the split
+// that owns positions[b] writes row b's new column there, then every split
+// attends over its share of 0..positions[b]. !WRITE (row 2): over
+// 0..rows[b]-1, rows = lengths; a row of length 0 gets 0. new_k/new_v are
+// unused when !WRITE. part and sync: split_common.cuh's layouts. MAXT
+// bounds bs: blocks of more than 256 tokens take the form compiled for
+// 1024 threads (64 registers a thread, where 256 threads leave it 255).
+template <typename T, int REP, bool WRITE, int MAXT>
+__global__ void __launch_bounds__(MAXT)
+    paged_split_kernel(const T* __restrict__ q, const T* __restrict__ new_k,
+                       const T* __restrict__ new_v, T* k_pool, T* v_pool,
+                       const int* __restrict__ tables, const int* __restrict__ rows,
+                       float* __restrict__ out, float* part, int* sync, int layer, int np,
+                       int nkv, int hd, int bs, int max_nb, int nsplit, int bps, int prow,
+                       int nbuf) {
+  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte vector
+  constexpr int G = VEC;               // K row groups: bs threads / (bs/VEC) per row
+  const int g = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nt = blockDim.x, nwarps = nt >> 5;
+  const int kvd = nkv * hd;
+  const int last = WRITE ? rows[b] : rows[b] - 1;  // the last token attended
+  const int nblk = last < 0 ? 0 : last / bs + 1;
+  const int nlive = (nblk + bps - 1) / bps;
+  const size_t q_off = ((size_t)b * nkv * REP + (size_t)g * REP) * hd;
+  if ((int)blockIdx.z >= max(nlive, 1)) return;  // no live token in this split
+  if (nlive == 0) {  // a length-0 row of the read-only entry
+    for (int i = tid; i < REP * hd; i += nt) out[q_off + i] = 0.f;
+    return;
+  }
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const SplitSmem<T, REP> L(hd, bs, bps, prow, nbuf);
+  unsigned char* ring = smem_raw;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw + L.bars);
+  float* q_s = reinterpret_cast<float*>(smem_raw + L.q);
+  float* part_s = reinterpret_cast<float*>(smem_raw + L.part);
+  float* keep_s = reinterpret_cast<float*>(smem_raw + L.keep);
+  T* p_s = reinterpret_cast<T*>(smem_raw + L.p);
+  float* max_s = reinterpret_cast<float*>(smem_raw + L.mx);
+  float* lb_s = reinterpret_cast<float*>(smem_raw + L.lb);
+  float* sum_s = reinterpret_cast<float*>(smem_raw + L.sum);
+  float* bm_s = reinterpret_cast<float*>(smem_raw + L.bm);
+  __shared__ int split_s, last_s;
+
+  int* gsync = sync + (size_t)(b * nkv + g) * (2 + nsplit);  // ticket, done, flags
+  const int pstride = 3 * REP + REP * hd;
+  float* gpart = part + (size_t)(b * nkv + g) * nsplit * pstride;
+
+  if (tid == 0) {
+    if (nlive > 1) {
+      // the ticket's round trip is spent warming the L2 with the blocks of
+      // split blockIdx.z: tickets follow the grid order closely, and every
+      // live block is warmed by one CTA
+      const int z0 = blockIdx.z * bps, zn = min(bps, nblk - z0);
+      const int* zrow = tables + (size_t)b * max_nb + z0;
+      const uint32_t slice = (uint32_t)hd * bs * sizeof(T);
+      for (int jj = 0; jj < zn; ++jj) {
+        const size_t off = (((size_t)layer * np + (size_t)zrow[jj]) * kvd + (size_t)g * hd) * bs;
+        bulk_prefetch_l2(k_pool + off, slice);
+        bulk_prefetch_l2(v_pool + off, slice);
+      }
+    }
+    split_s = nlive > 1 ? take_ticket(gsync) : 0;
+    for (int i = 0; i < nbuf; ++i) mbar_init(&bar[i], 1);
+    mbar_fence_init();
+  }
+  for (int i = tid; i < REP * hd; i += nt) q_s[i] = to_f(q[q_off + i]);
+  __syncthreads();
+  const int split = split_s;
+  const int j0 = split * bps, nb = min(bps, nblk - j0);  // this split's blocks
+  const int* trow = tables + (size_t)b * max_nb + j0;
   const size_t head_off = (size_t)g * hd;
 
-  // 1. the new token's column, this kv-head's rows only
-  if constexpr (WRITE) {
-    const size_t blk = (size_t)trow[pos / bs];
-    const size_t base = (((size_t)layer * np + blk) * kvd + head_off) * bs + pos % bs;
+  // 1. the new token's column, this kv-head's rows only, by the split that
+  // owns it, before any copy of its blocks is issued; the proxy fence and
+  // the barrier order the writes before the bulk copies' reads
+  if (WRITE && split == nlive - 1) {
+    const size_t blk = (size_t)trow[last / bs - j0];
+    const size_t base = (((size_t)layer * np + blk) * kvd + head_off) * bs + last % bs;
     const size_t src = (size_t)b * kvd + head_off;
-    for (int d = tid; d < hd; d += blockDim.x) {
+    for (int d = tid; d < hd; d += nt) {
       k_pool[base + (size_t)d * bs] = new_k[src + d];
       v_pool[base + (size_t)d * bs] = new_v[src + d];
     }
+    fence_async_global();
+    __syncthreads();
   }
-  // 2. queries
-  const size_t q_off = ((size_t)b * nkv * REP + (size_t)g * REP) * hd;
-  for (int i = tid; i < REP * hd; i += blockDim.x) q_s[i] = to_f(q[q_off + i]);
-  __syncthreads();  // orders the column write above before the reads below
 
-  // 3. online softmax over the row's live blocks (none for a length-0 row)
-  float m[REP], l[REP], acc[REP];
-  if (WRITE || pos >= 0) {  // uniform over the CTA
-    walk_blocks<T, REP>(k_pool, v_pool, trow, layer, np, kvd, head_off, hd, bs, pos, smem, m, l,
-                        acc);
-  } else {
+  // The pieces in the order they are used: every K piece of the split's
+  // blocks (scores), then every V piece (P.V); piece i lands in ring slot
+  // i % nbuf. Thread 0 keeps nbuf pieces in flight; where a block's slice
+  // takes more pieces than the ring holds, a barrier frees them one by one.
+  const int npk = (hd + prow - 1) / prow;  // pieces per slice
+  const int total = 2 * nb * npk;
+  const size_t piece_bytes = (size_t)prow * bs * sizeof(T);
+  auto piece_src = [&](int i) -> const T* {
+    const int jj = (i % (nb * npk)) / npk, r0 = (i % npk) * prow;
+    const T* pool = i < nb * npk ? k_pool : v_pool;
+    return pool + (((size_t)layer * np + (size_t)trow[jj]) * kvd + head_off + r0) * bs;
+  };
+  int issued = 0;  // thread 0: the pieces issued
+  int freed = 0;   // every thread: the pieces before it are free
+  auto refill = [&](int done) {  // every thread, past a barrier after piece done - 1
+    freed = done;
+    if (tid != 0) return;
+    for (; issued < min(done + nbuf, total); ++issued) {
+      const uint32_t bytes = (uint32_t)min(prow, hd - (issued % npk) * prow) * bs * sizeof(T);
+      uint64_t* br = &bar[issued % nbuf];
+      mbar_expect_tx(br, bytes);
+      bulk_load(ring + (size_t)(issued % nbuf) * piece_bytes, piece_src(issued), bytes, br);
+    }
+  };
+  auto piece_at = [&](int i) -> const T* {  // piece i's rows, once landed
+    if (i >= freed + nbuf) {  // the ring holds pieces still read: free them first
+      __syncthreads();
+      refill(i);
+    }
+    mbar_wait(&bar[i % nbuf], (i / nbuf) & 1);
+    return reinterpret_cast<const T*>(ring + (size_t)(i % nbuf) * piece_bytes);
+  };
+  refill(0);
+
+  // 2. scores of the split's blocks, thread t = token t of a block: the
+  // first block's stay in registers, later ones in keep_s (each thread
+  // reads back only its own); each block's max to bm_s, the split's to smx
+  const int nv = bs / VEC, kc = tid % nv, kg = tid / nv;
+  float s0[REP], smx[REP];
+#pragma unroll
+  for (int r = 0; r < REP; ++r) smx[r] = -INFINITY;
+  int i = 0;  // the next piece
+  for (int jj = 0; jj < nb; ++jj) {
+    // a. partial scores of VEC tokens over this thread's K rows kg, kg+G, ...
+    float sp[REP][VEC];
+#pragma unroll
+    for (int r = 0; r < REP; ++r)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) sp[r][e] = 0.f;
+    for (int pc = 0; pc < npk; ++pc, ++i) {
+      const T* kt = piece_at(i);
+      const int r0 = pc * prow, nr = min(prow, hd - r0);
+#pragma unroll 4
+      for (int d = kg; d < nr; d += G) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(kt + (size_t)d * bs + kc * VEC);
+        const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+        for (int r = 0; r < REP; ++r) {
+          const float qd = q_s[r * hd + r0 + d];
+#pragma unroll
+          for (int x = 0; x < VEC; ++x) sp[r][x] += qd * to_f(e[x]);
+        }
+      }
+    }
 #pragma unroll
     for (int r = 0; r < REP; ++r) {
-      l[r] = 0.f;
-      acc[r] = 0.f;
+      float4* dst = reinterpret_cast<float4*>(part_s + (kg * REP + r) * bs + kc * VEC);
+#pragma unroll
+      for (int x = 0; x < VEC; x += 4)
+        dst[x / 4] = make_float4(sp[r][x], sp[r][x + 1], sp[r][x + 2], sp[r][x + 3]);
+    }
+    __syncthreads();  // every thread is done with this block's K pieces
+    refill(i);
+
+    // b. whole scores, the mask, the block's max
+    const bool live = (j0 + jj) * bs + tid <= last;
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      float v = 0.f;
+#pragma unroll
+      for (int k = 0; k < G; ++k) v += part_s[(k * REP + r) * bs + tid];
+      v = live ? v : -1e30f;
+      if (jj == 0)
+        s0[r] = v;
+      else
+        keep_s[((jj - 1) * REP + r) * bs + tid] = v;
+      const float mx = warp_max(v);
+      if (lane == 0) max_s[r * 32 + warp] = mx;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      float mx = -INFINITY;
+      for (int w = 0; w < nwarps; ++w) mx = fmaxf(mx, max_s[r * 32 + w]);
+      smx[r] = fmaxf(smx[r], mx);
+      if (tid == 0) bm_s[jj * REP + r] = mx;
     }
   }
 
-  // 4. finalise: attn [B, NH, HD] f32
-  const int tp = blockDim.x / hd, vd = tid / tp, vpart = tid % tp;
+  __syncthreads();  // bm_s is complete
+
+  // 3. look back: the max of every earlier split's scores seeds the
+  // recurrence, so P is rounded against one walk's running max
+  float* mypart = gpart + (size_t)split * pstride;  // smax | m | l | acc
+  float m[REP];
+#pragma unroll
+  for (int r = 0; r < REP; ++r) m[r] = -INFINITY;
+  if (nlive > 1) {
+    if (tid == 0) publish_max<REP>(gsync, mypart, split, smx);
+    look_back<REP>(gsync, gpart, pstride, split, nt, m);
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      const float mx = warp_max(m[r]);
+      if (lane == 0) lb_s[r * 32 + warp] = mx;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      float mx = -INFINITY;
+      for (int w = 0; w < nwarps; ++w) mx = fmaxf(mx, lb_s[r * 32 + w]);
+      m[r] = mx;
+    }
+  }
+
+  // 4. the online softmax over the split's blocks from that max: P
+  // rounded to the pool dtype into p_s, l summed from the unrounded f32
+  // P; then P.V from the V pieces, thread (vd, vpart) over its slice of V
+  // row vd, its 16-byte vectors taken from a rotated start so that the
+  // threads of a phase read different banks
+  const int tp = nt / hd, tpt = bs / tp;
+  const int vd = tid / tp, vpart = tid % tp;
+  const int nvv = tpt / VEC, rot = vd % nvv;
+  float l[REP], acc[REP];
+#pragma unroll
+  for (int r = 0; r < REP; ++r) l[r] = acc[r] = 0.f;
+  for (int jj = 0; jj < nb; ++jj) {
+    float alpha[REP];
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      const float sc = jj == 0 ? s0[r] : keep_s[((jj - 1) * REP + r) * bs + tid];
+      const float m_new = fmaxf(m[r], bm_s[jj * REP + r]);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      const float p = exp2f(sc - m_new);
+      p_s[r * bs + tid] = from_f<T>(p);
+      const float ps = warp_sum(p);
+      if (lane == 0) sum_s[r * 32 + warp] = ps;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      float sum = 0.f;
+      for (int w = 0; w < nwarps; ++w) sum += sum_s[r * 32 + w];
+      l[r] = l[r] * alpha[r] + sum;
+    }
+    float pv[REP];
+#pragma unroll
+    for (int r = 0; r < REP; ++r) pv[r] = 0.f;
+    for (int pc = 0; pc < npk; ++pc, ++i) {
+      const T* vt = piece_at(i);
+      const int r0 = pc * prow;
+      if (vd >= r0 && vd < r0 + prow) {
+        const T* vrow = vt + (size_t)(vd - r0) * bs + vpart * tpt;
+        const T* pr = p_s + vpart * tpt;
+        int c = rot;
+#pragma unroll 4
+        for (int u = 0; u < nvv; ++u) {
+          const uint4 vv = *reinterpret_cast<const uint4*>(vrow + c * VEC);
+          const T* ve = reinterpret_cast<const T*>(&vv);
+#pragma unroll
+          for (int r = 0; r < REP; ++r) {
+            const uint4 pp = *reinterpret_cast<const uint4*>(pr + r * bs + c * VEC);
+            const T* pe = reinterpret_cast<const T*>(&pp);
+#pragma unroll
+            for (int x = 0; x < VEC; ++x) pv[r] += to_f(pe[x]) * to_f(ve[x]);
+          }
+          if (++c == nvv) c = 0;
+        }
+      }
+    }
+    // the tp threads of one V row are neighbouring lanes
+    for (int o = tp >> 1; o > 0; o >>= 1)
+#pragma unroll
+      for (int r = 0; r < REP; ++r) pv[r] += __shfl_xor_sync(0xffffffffu, pv[r], o);
+#pragma unroll
+    for (int r = 0; r < REP; ++r) acc[r] = acc[r] * alpha[r] + pv[r];
+    __syncthreads();  // p_s, sum_s and this block's V pieces are free
+    refill(i);
+  }
+
+  // 5. one live split finalises; several leave their partial states, and
+  // the last to finish combines them in split order
+  if (nlive == 1) {
+    if (vpart == 0) {
+#pragma unroll
+      for (int r = 0; r < REP; ++r) out[q_off + (size_t)r * hd + vd] = acc[r] / fmaxf(l[r], 1e-30f);
+    }
+    return;
+  }
+  if (tid == 0) {
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      mypart[REP + r] = m[r];
+      mypart[2 * REP + r] = l[r];
+    }
+  }
   if (vpart == 0) {
 #pragma unroll
-    for (int r = 0; r < REP; ++r) out[q_off + (size_t)r * hd + vd] = acc[r] / fmaxf(l[r], 1e-30f);
+    for (int r = 0; r < REP; ++r) mypart[3 * REP + r * hd + vd] = acc[r];
   }
+  if (!last_split(gsync, nlive, &last_s)) return;
+  combine_splits<REP>(gpart, pstride, nlive, hd, nt, out + q_off, part_s, gsync);
 }
 
 // int8 decode, grid (nkv, b), blockDim.x == bs. WRITE (row 5): write row
@@ -573,34 +887,63 @@ cudaError_t set_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int REP, bool WRITE>
-cudaError_t launch_update(const void* q, const void* nk, const void* nv, void* kp, void* vp,
-                          const void* tables, const void* positions, void* out, int b,
-                          int layer, int np, int nkv, int hd, int bs, int max_nb,
-                          cudaStream_t stream) {
-  const size_t smem = walk_smem_bytes<T, REP>(hd, bs);
-  cudaError_t e = set_smem(paged_update_kernel<T, REP, WRITE>, smem);
+// The split walk's pieces and shared memory for one launch: pieces of at
+// most kPieceBytes (whole slices where they fit; fewer rows where the rest
+// of the layout leaves less room). A split of one block takes one ring
+// slot (V's copy issued once K is read: half the shared memory, more CTAs
+// an SM, 7% faster on even rows on an H100 than K and V in flight together,
+// tools/paged_choices.py); a longer split a ring of two blocks' K and V
+// pieces at most. False if no piece of 8 rows fits.
+template <typename T, int REP>
+bool split_geometry(int hd, int bs, int bps, int* prow, int* nbuf, size_t* smem) {
+  const size_t row = (size_t)bs * sizeof(T);
+  int pr = (int)(kPieceBytes / row) / 8 * 8;
+  pr = pr < hd ? pr : hd;
+  for (; pr >= 8; pr = pr / 16 * 8) {
+    const int npk = (hd + pr - 1) / pr;
+    const int nb = bps == 1 ? 1 : 2 * bps * npk < kRing ? 2 * bps * npk : kRing;
+    const size_t bytes = SplitSmem<T, REP>(hd, bs, bps, pr, nb).total;
+    if (bytes + 64 <= 227 * 1024) {  // and the static split_s, last_s
+      *prow = pr;
+      *nbuf = nb;
+      *smem = bytes;
+      return true;
+    }
+  }
+  return false;
+}
+
+template <typename T, int REP, bool WRITE, int MAXT>
+cudaError_t launch_split_bounded(const void* q, const void* nk, const void* nv, void* kp,
+                                 void* vp, const void* tables, const void* rows, void* out,
+                                 void* part, void* sync, int b, int layer, int np, int nkv,
+                                 int hd, int bs, int max_nb, int nsplit, cudaStream_t stream) {
+  const int bps = (max_nb + nsplit - 1) / nsplit;  // blocks per split
+  int prow, nbuf;
+  size_t smem;
+  if (!split_geometry<T, REP>(hd, bs, bps, &prow, &nbuf, &smem)) return cudaErrorInvalidValue;
+  cudaError_t e = set_smem(paged_split_kernel<T, REP, WRITE, MAXT>, smem);
   if (e != cudaSuccess) return e;
-  paged_update_kernel<T, REP, WRITE><<<dim3(nkv, b), bs, smem, stream>>>(
+  paged_split_kernel<T, REP, WRITE, MAXT><<<dim3(nkv, b, nsplit), bs, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(nk), static_cast<const T*>(nv),
       static_cast<T*>(kp), static_cast<T*>(vp), static_cast<const int*>(tables),
-      static_cast<const int*>(positions), static_cast<float*>(out), layer, np, nkv, hd, bs,
-      max_nb);
+      static_cast<const int*>(rows), static_cast<float*>(out), static_cast<float*>(part),
+      static_cast<int*>(sync), layer, np, nkv, hd, bs, max_nb, nsplit, bps, prow, nbuf);
   return cudaSuccess;
 }
 
-template <typename T, bool WRITE>
-cudaError_t update_rep(int rep, const void* q, const void* nk, const void* nv, void* kp,
-                       void* vp, const void* tables, const void* positions, void* out, int b,
-                       int layer, int np, int nkv, int hd, int bs, int max_nb,
-                       cudaStream_t s) {
-  switch (rep) {
-    case 1: return launch_update<T, 1, WRITE>(q, nk, nv, kp, vp, tables, positions, out, b, layer, np, nkv, hd, bs, max_nb, s);
-    case 2: return launch_update<T, 2, WRITE>(q, nk, nv, kp, vp, tables, positions, out, b, layer, np, nkv, hd, bs, max_nb, s);
-    case 4: return launch_update<T, 4, WRITE>(q, nk, nv, kp, vp, tables, positions, out, b, layer, np, nkv, hd, bs, max_nb, s);
-    case 8: return launch_update<T, 8, WRITE>(q, nk, nv, kp, vp, tables, positions, out, b, layer, np, nkv, hd, bs, max_nb, s);
-    default: return cudaErrorInvalidValue;
-  }
+template <typename T, int REP, bool WRITE>
+cudaError_t launch_split(const void* q, const void* nk, const void* nv, void* kp, void* vp,
+                         const void* tables, const void* rows, void* out, void* part,
+                         void* sync, int b, int layer, int np, int nkv, int hd, int bs,
+                         int max_nb, int nsplit, cudaStream_t stream) {
+  if (bs <= 256)
+    return launch_split_bounded<T, REP, WRITE, 256>(q, nk, nv, kp, vp, tables, rows, out, part,
+                                                    sync, b, layer, np, nkv, hd, bs, max_nb,
+                                                    nsplit, stream);
+  return launch_split_bounded<T, REP, WRITE, 1024>(q, nk, nv, kp, vp, tables, rows, out, part,
+                                                   sync, b, layer, np, nkv, hd, bs, max_nb,
+                                                   nsplit, stream);
 }
 
 template <typename T, int RC>
@@ -651,21 +994,31 @@ bool bad_quant_geometry(int nh, int nkv, int hd, int bs) {
 
 // rows 3 (WRITE) and 2 (read-only; nk, nv null): the shared entry
 template <bool WRITE>
-int update_entry(const void* q, const void* nk, const void* nv, void* kp, void* vp,
-                 const void* tables, const void* rows, void* out, int b, int layer, int np,
-                 int nh, int nkv, int hd, int bs, int max_nb, int dtype, void* stream) {
+int split_entry(const void* q, const void* nk, const void* nv, void* kp, void* vp,
+                const void* tables, const void* rows, void* out, void* part, void* sync, int b,
+                int layer, int np, int nh, int nkv, int hd, int bs, int max_nb, int nsplit,
+                int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_geometry(nh, nkv, hd, bs)) return (int)cudaErrorInvalidValue;
+  if (bad_geometry(nh, nkv, hd, bs) || max_nb < 1 || nsplit < 1 || nsplit > max_nb ||
+      nsplit > kMaxSplits || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   if (b > 0) {
+#define PA_SPLIT(T, REP)                                                                       \
+  launch_split<T, REP, WRITE>(q, nk, nv, kp, vp, tables, rows, out, part, sync, b, layer, np, nkv, \
+                              hd, bs, max_nb, nsplit, s)
     cudaError_t e;
-    if (dtype == 0)
-      e = update_rep<float, WRITE>(nh / nkv, q, nk, nv, kp, vp, tables, rows, out, b, layer, np,
-                                   nkv, hd, bs, max_nb, s);
-    else if (dtype == 1)
-      e = update_rep<__nv_bfloat16, WRITE>(nh / nkv, q, nk, nv, kp, vp, tables, rows, out, b,
-                                           layer, np, nkv, hd, bs, max_nb, s);
-    else
-      return (int)cudaErrorInvalidValue;
+    switch (nh / nkv * 2 + dtype) {
+      case 2: e = PA_SPLIT(float, 1); break;
+      case 3: e = PA_SPLIT(__nv_bfloat16, 1); break;
+      case 4: e = PA_SPLIT(float, 2); break;
+      case 5: e = PA_SPLIT(__nv_bfloat16, 2); break;
+      case 8: e = PA_SPLIT(float, 4); break;
+      case 9: e = PA_SPLIT(__nv_bfloat16, 4); break;
+      case 16: e = PA_SPLIT(float, 8); break;
+      case 17: e = PA_SPLIT(__nv_bfloat16, 8); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef PA_SPLIT
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
@@ -763,25 +1116,31 @@ cudaError_t verify_quant_rows(const void* q, const void* kp, const void* vp, con
 // The caller guarantees contiguous tensors with 16-byte aligned storage,
 // nh / nkv in {1, 2, 4, 8}, bs % 128 == 0 and bs <= 1024, hd dividing bs
 // with (bs / hd) a power of two <= 32 and hd % 8 == 0, and
-// positions[b] / bs < max_nb.
+// positions[b] / bs < max_nb. The context of each row is cut into nsplit
+// <= min(max_nb, 256) runs of ceil(max_nb / nsplit) blocks; part is f32
+// scratch of b * nkv * nsplit * (3 + hd) * nh / nkv floats, sync b * nkv *
+// (2 + nsplit) ints, zero (each launch leaves it zero; launches sharing it
+// run in stream order).
 extern "C" int paged_attend_update_fwd(const void* q, const void* nk, const void* nv,
                                        void* kp, void* vp, const void* tables,
-                                       const void* positions, void* out, int b, int layer,
-                                       int np, int nh, int nkv, int hd, int bs, int max_nb,
-                                       int dtype, void* stream) {
-  return update_entry<true>(q, nk, nv, kp, vp, tables, positions, out, b, layer, np, nh, nkv,
-                            hd, bs, max_nb, dtype, stream);
+                                       const void* positions, void* out, void* part,
+                                       void* sync, int b, int layer, int np, int nh, int nkv,
+                                       int hd, int bs, int max_nb, int nsplit, int dtype,
+                                       void* stream) {
+  return split_entry<true>(q, nk, nv, kp, vp, tables, positions, out, part, sync, b, layer, np,
+                           nh, nkv, hd, bs, max_nb, nsplit, dtype, stream);
 }
 
-// Row 2: the same geometry, nothing written; lengths[b] tokens read, with
-// (lengths[b] - 1) / bs < max_nb.
+// Row 2: the same geometry and scratch, nothing written; lengths[b] tokens
+// read, with (lengths[b] - 1) / bs < max_nb.
 extern "C" int paged_attention_fwd(const void* q, const void* kp, const void* vp,
-                                   const void* tables, const void* lengths, void* out, int b,
-                                   int layer, int np, int nh, int nkv, int hd, int bs,
-                                   int max_nb, int dtype, void* stream) {
-  return update_entry<false>(q, nullptr, nullptr, const_cast<void*>(kp), const_cast<void*>(vp),
-                             tables, lengths, out, b, layer, np, nh, nkv, hd, bs, max_nb, dtype,
-                             stream);
+                                   const void* tables, const void* lengths, void* out,
+                                   void* part, void* sync, int b, int layer, int np, int nh,
+                                   int nkv, int hd, int bs, int max_nb, int nsplit, int dtype,
+                                   void* stream) {
+  return split_entry<false>(q, nullptr, nullptr, const_cast<void*>(kp), const_cast<void*>(vp),
+                            tables, lengths, out, part, sync, b, layer, np, nh, nkv, hd, bs,
+                            max_nb, nsplit, dtype, stream);
 }
 
 // q [b, t_fed, nh, hd] pre-scaled, in the pools' dtype; acc [b, t_fed, nh,

@@ -2,8 +2,9 @@
 // (paged_attention.cu, decode_attention.cu), which run on the CUDA cores:
 // loads are 16-byte vectors converted to f32 (int8 codes too), sums are
 // f32, and P is rounded to the cache dtype before P.V as in the TPU
-// kernels (int8 caches keep P in f32). The tensor-core kernels have their
-// own header, mma_common.cuh.
+// kernels (int8 caches keep P in f32). to_f of f32 and bf16 comes from
+// mma_common.cuh, the tensor-core kernels' header, so that a source may
+// include both (paged_attention.cu takes wgmma_common.cuh's bulk copies).
 //
 // Everything here is in an anonymous namespace: each source is its own
 // translation unit and its own library.
@@ -13,10 +14,10 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mma_common.cuh"  // to_f of f32 and bf16
+
 namespace {
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 
 // x rounded to the element type that the pointer's type names

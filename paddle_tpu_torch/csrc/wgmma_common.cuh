@@ -7,7 +7,8 @@
 // (mma_common.cuh's cp_async16); mbarriers, named barriers and register
 // hand-over for warp-specialised kernels; TMA tile loads into that layout
 // from a tensor map built on the host (tma_map_bf16); and the bulk
-// reduce-add of an f32 tile from shared memory into device memory.
+// reduce-add of an f32 tile from shared memory into device memory; 1-D
+// bulk copies and L2 prefetches of contiguous bytes (paged_attention.cu).
 //
 // The swizzled layout of a [ROWS, C] bf16 tile (C a multiple of 64): C / 64
 // blocks of ROWS rows of 128 bytes, each block 1024-byte aligned; within a
@@ -294,6 +295,28 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// `bytes` contiguous bytes at src into shared memory at dst, one 1-D bulk
+// copy that needs no tensor map, completing `bar`'s expected bytes (bytes
+// a multiple of 16, both addresses 16-byte aligned)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// starts bringing `bytes` contiguous bytes at src into the L2, nothing
+// waited for (bytes a multiple of 16, src 16-byte aligned)
+__device__ __forceinline__ void bulk_prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
+}
+// orders this thread's generic-proxy writes to global memory before later
+// async-proxy reads of them (a bulk copy issued after a barrier)
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 // Host: a tensor map over a bf16 tensor of `rank` dimensions,

@@ -52,6 +52,15 @@ The softmax is the online recurrence only, per pool block, in the log2
 domain; the TPU default's tile-0-anchored variant is not ported. The
 merge of verify partials is exact for any anchor, so the two compare
 through :func:`merge_verify_partials` or acc / l and m + log2(l).
+
+On the card rows 3 and 2 split each row's context across CTAs
+(:func:`kernel_splits` splits from the table width and the block size).
+Each split starts from the max of the scores before it, so P is rounded
+as in one walk; the partial states are combined in split order (the same
+bits on every run), and only that f32 combine differs from one walk.
+``paged_attend_update_plain(..., splits=n)`` and
+``paged_attention_plain(..., splits=n)`` are the same computation for n
+splits.
 """
 from __future__ import annotations
 
@@ -61,6 +70,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .decode_attention import _sync_words
 
 LOG2E = 1.4426950408889634
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -69,11 +79,16 @@ MAX_FED = 8             # fed tokens per row the verify and commit kernels take
 
 
 def paged_attend_update_plain(q, new_k, new_v, k_pool, v_pool, tables,
-                              positions, layer: int) -> torch.Tensor:
+                              positions, layer: int,
+                              splits: int = 1) -> torch.Tensor:
     """Plain PyTorch version on any device, block by block with the
     kernel's online softmax: P rounded to the pool dtype before P.V, the
     normaliser summed from the unrounded f32 P. Returns attn
-    [B, NH, HD] f32; updates the pools in place."""
+    [B, NH, HD] f32; updates the pools in place.
+
+    ``splits`` > 1 runs the kernel's split-context form (see
+    :func:`_attend_plain`); pass :func:`kernel_splits` for the kernel's
+    own split."""
     B = q.shape[0]
     bs = k_pool.shape[-1]
     pos = positions.long()
@@ -81,34 +96,52 @@ def paged_attend_update_plain(q, new_k, new_v, k_pool, v_pool, tables,
     blk_new = tables[rows, pos // bs].long()
     k_pool[layer, blk_new, :, pos % bs] = new_k.to(k_pool.dtype)
     v_pool[layer, blk_new, :, pos % bs] = new_v.to(v_pool.dtype)
-    return _attend_plain(q, k_pool, v_pool, tables, pos, layer)
+    return _attend_plain(q, k_pool, v_pool, tables, pos, layer, splits)
 
 
-def paged_attention_plain(q, k_pool, v_pool, tables, lengths,
-                          layer: int) -> torch.Tensor:
+def paged_attention_plain(q, k_pool, v_pool, tables, lengths, layer: int,
+                          splits: int = 1) -> torch.Tensor:
     """Plain PyTorch version on any device of the read-only entry:
     attention over tokens 0..lengths[b]-1, nothing written, with
-    :func:`paged_attend_update_plain`'s walk and rounding points. Returns
-    attn [B, NH, HD] f32; a row of length 0 gets 0."""
-    out = _attend_plain(q, k_pool, v_pool, tables, lengths.long() - 1, layer)
+    :func:`paged_attend_update_plain`'s walk, rounding points and
+    ``splits``. Returns attn [B, NH, HD] f32; a row of length 0 gets 0."""
+    out = _attend_plain(q, k_pool, v_pool, tables, lengths.long() - 1, layer,
+                        splits)
     return torch.where((lengths > 0)[:, None, None], out,
                        torch.tensor(0.0, device=q.device))
 
 
-def _attend_plain(q, k_pool, v_pool, tables, last, layer):
+def split_blocks(max_nb: int, splits: int) -> int:
+    """Blocks per split when ``splits`` CTAs share a table of ``max_nb``
+    blocks: contiguous runs of this many of a row's blocks."""
+    return -(-max_nb // max(1, min(int(splits), max_nb)))
+
+
+def _attend_plain(q, k_pool, v_pool, tables, last, layer, splits=1):
     """Online softmax of q [B, NH, HD] over tokens 0..last[b] of each row,
     block by block (P rounded to the pool dtype before P.V, the
-    normaliser summed from the unrounded f32 P). Returns [B, NH, HD] f32."""
+    normaliser summed from the unrounded f32 P). Returns [B, NH, HD] f32.
+
+    ``splits`` > 1 is the kernel's split-context form: a row's blocks are
+    cut into runs of :func:`split_blocks` blocks, each run takes the same
+    recurrence from the max of all scores before it (so P is rounded
+    against the same running max as one walk), and the partial states of
+    the row's live runs are combined in run order."""
     B, NH, HD = q.shape
     bs = k_pool.shape[-1]
     nkv = k_pool.shape[2] // HD
     rep = NH // nkv
+    run = split_blocks(tables.shape[1], splits)
     qf = q.float().reshape(B, nkv, rep, HD)
     m = torch.full((B, nkv, rep), float("-inf"), device=q.device)
     l = torch.zeros((B, nkv, rep), device=q.device)
     acc = torch.zeros((B, nkv, rep, HD), device=q.device)
     col = torch.arange(bs, device=q.device)
+    parts = []
     for j in range(int(last.max()) // bs + 1):
+        if j and j % run == 0:     # a run ends; the next starts from m
+            parts.append((m, l, acc))
+            l, acc = torch.zeros_like(l), torch.zeros_like(acc)
         blk = tables[:, j].long()
         kt = k_pool[layer, blk].float().reshape(B, nkv, HD, bs)
         vt = v_pool[layer, blk].float().reshape(B, nkv, HD, bs)
@@ -123,6 +156,17 @@ def _attend_plain(q, k_pool, v_pool, tables, last, layer):
         pv = torch.einsum("bgrt,bgdt->bgrd", p.to(v_pool.dtype).float(), vt)
         acc = acc * alpha[..., None] + pv
         m = m_new
+    if parts:
+        parts.append((m, l, acc))
+        live = [(k * run * bs <= last)[:, None, None]
+                for k in range(len(parts))]
+        mx = torch.stack([torch.where(lv, mk, float("-inf"))
+                          for lv, (mk, _, _) in zip(live, parts)]).amax(0)
+        l, acc = torch.zeros_like(l), torch.zeros_like(acc)
+        for lv, (mk, lk, ak) in zip(live, parts):
+            w = torch.exp2(mk - mx)
+            l = torch.where(lv, l + lk * w, l)
+            acc = torch.where(lv[..., None], acc + ak * w[..., None], acc)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, NH, HD)
 
@@ -184,6 +228,51 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# The split walk of rows 3 and 2 (csrc/paged_attention.cu): the tokens a
+# split aims to hold, and the most splits a launch takes (kMaxSplits there,
+# which checks it)
+SPLIT_TOKENS = 128
+MAX_SPLITS = 256
+
+
+def kernel_splits(max_nb: int, bs: int) -> int:
+    """The split count the kernels of rows 3 and 2 take for tables of
+    ``max_nb`` blocks of ``bs`` tokens: runs of ``SPLIT_TOKENS`` tokens
+    (at least one block), more where the table is wider than
+    ``MAX_SPLITS`` runs. It depends on the shapes, never on the lengths.
+    Pass it to the plain versions as ``splits`` for the kernel's own
+    split."""
+    run = max(-(-SPLIT_TOKENS // bs), -(-max_nb // MAX_SPLITS))
+    return -(-max_nb // run)
+
+
+def _launch_split(what, symbol, ptrs, q, k_pool, v_pool, tables, layer):
+    """Rows 3 and 2 on the card: ``ptrs`` are the entry's leading tensor
+    arguments; the output, the split scratch and the sync words follow."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise ValueError(f"{what}: q and the pools must start on 16-byte "
+                         f"aligned storage")
+    B, NH, HD = q.shape
+    _, NP, KVD, bs = k_pool.shape
+    nkv, max_nb = KVD // HD, tables.shape[1]
+    nsplit = kernel_splits(max_nb, bs)
+    out = torch.empty((B, NH, HD), dtype=torch.float32, device=q.device)
+    part = torch.empty(B * nkv * nsplit * (3 + HD) * (NH // nkv),
+                       dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device)
+    sync = _sync_words(B * nkv * (2 + nsplit), q.device, stream)
+    fn = _build.kernel("paged_attention", symbol,
+                       [ctypes.c_void_p] * (len(ptrs) + 3)
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    err = fn(*(t.data_ptr() for t in ptrs), out.data_ptr(), part.data_ptr(),
+             sync.data_ptr(), B, int(layer), NP, NH, nkv, HD, bs, max_nb,
+             nsplit, _DTYPE_CODE[q.dtype], stream.cuda_stream)
+    _build.check("paged_attention", err, what)
+    return out
+
+
 def paged_attend_update(q, new_k, new_v, k_pool, v_pool, tables,
                         positions, layer: int) -> torch.Tensor:
     """Write each row's new k/v column into the pools in place, then
@@ -197,24 +286,9 @@ def paged_attend_update(q, new_k, new_v, k_pool, v_pool, tables,
     if q.device.type == "cpu":
         return paged_attend_update_plain(q, new_k, new_v, k_pool, v_pool,
                                          tables, positions, layer)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attend_update: unsupported device "
-                         f"{q.device}")
-    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
-        raise ValueError("paged_attend_update: q and the pools must start "
-                         "on 16-byte aligned storage")
-    B, NH, HD = q.shape
-    _, NP, KVD, bs = k_pool.shape
-    out = torch.empty((B, NH, HD), dtype=torch.float32, device=q.device)
-    fn = _build.kernel("paged_attention", "paged_attend_update_fwd",
-                       [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-                       + [ctypes.c_void_p])
-    err = fn(q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
-             k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-             positions.data_ptr(), out.data_ptr(), B, int(layer), NP, NH,
-             KVD // HD, HD, bs, tables.shape[1], _DTYPE_CODE[q.dtype],
-             _stream(q))
-    _build.check("paged_attention", err, "paged_attend_update")
+    out = _launch_split("paged_attend_update", "paged_attend_update_fwd",
+                        (q, new_k, new_v, k_pool, v_pool, tables, positions),
+                        q, k_pool, v_pool, tables, layer)
     paged_attend_update.launches += 1
     return out
 
@@ -247,20 +321,9 @@ def paged_attention(q, k_pool, v_pool, tables, lengths,
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, tables, lengths,
                                      layer)
-    if q.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {q.device}")
-    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
-        raise ValueError(f"{what}: q and the pools must start on 16-byte "
-                         f"aligned storage")
-    out = torch.empty((B, NH, HD), dtype=torch.float32, device=q.device)
-    fn = _build.kernel("paged_attention", "paged_attention_fwd",
-                       [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                       + [ctypes.c_void_p])
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B,
-             int(layer), NP, NH, KVD // HD, HD, bs, tables.shape[1],
-             _DTYPE_CODE[q.dtype], _stream(q))
-    _build.check("paged_attention", err, what)
+    out = _launch_split(what, "paged_attention_fwd",
+                        (q, k_pool, v_pool, tables, lengths), q, k_pool,
+                        v_pool, tables, layer)
     paged_attention.launches += 1
     return out
 

@@ -130,6 +130,115 @@ def test_paged_attention_kernel_matches_plain(dev, dtype, nh, nkv, hd,
     assert torch.equal(a["k_pool"], kp2) and torch.equal(a["v_pool"], vp2)
 
 
+# Rows 3 and 2 split each row's blocks across CTAs (kernel_splits); the
+# plain version at that split is the same computation. Lengths on and
+# next to block edges, 0 and 1, and a row across every block of the table;
+# two padding rows (null table, position 0) that write and read block 0.
+SPLIT_NB = 6
+
+
+def _paged_split_case(dev, dtype, rep, hd, bs, seed, spread=None):
+    rng = np.random.RandomState(seed)
+    nkv = 2
+    lengths = [1, bs - 1, bs, bs + 1, 2 * bs, 3 * bs + 1, SPLIT_NB * bs,
+               0, 0]
+    b, kvd = len(lengths), nkv * hd
+    need = [-(-n // bs) for n in lengths]
+    n_pool = 1 + sum(need)
+    perm = rng.permutation(np.arange(1, n_pool))
+    tables = np.zeros((b, SPLIT_NB), np.int32)
+    at = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = perm[at:at + n]
+        at += n
+    k_pool = rng.randn(2, n_pool, kvd, bs)
+    if spread is not None:     # the long row's last three blocks lead
+        k_pool[:, tables[6, 3:]] *= spread
+    q = rng.randn(b, nkv * rep, hd) * (pa.LOG2E / hd ** 0.5)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return dict(q=t(q), new_k=t(rng.randn(b, kvd)), new_v=t(rng.randn(b, kvd)),
+                k_pool=t(k_pool), v_pool=t(rng.randn(2, n_pool, kvd, bs)),
+                tables=torch.from_numpy(tables).to(dev), lengths=lengths,
+                positions=torch.clamp(lengths - 1, min=0), layer=1)
+
+
+def _check_paged_split(dev, dtype, rep, hd, bs, seed, spread=None,
+                       f32_atol=1e-5):
+    a = _paged_split_case(dev, dtype, rep, hd, bs, seed, spread)
+    atol = f32_atol if dtype == torch.float32 else 2e-3
+    splits = pa.kernel_splits(SPLIT_NB, bs)
+    live = a["lengths"] > 0
+    # row 2
+    ro = [pa.paged_attention(a["q"], a["k_pool"], a["v_pool"], a["tables"],
+                             a["lengths"], a["layer"]) for _ in range(2)]
+    ref = pa.paged_attention_plain(a["q"], a["k_pool"], a["v_pool"],
+                                   a["tables"], a["lengths"], a["layer"],
+                                   splits=splits)
+    # row 3
+    kp, vp = a["k_pool"].clone(), a["v_pool"].clone()
+    call = (a["q"], a["new_k"], a["new_v"], a["k_pool"], a["v_pool"],
+            a["tables"], a["positions"], a["layer"])
+    up = [pa.paged_attend_update(*call) for _ in range(2)]
+    ref_up = pa.paged_attend_update_plain(a["q"], a["new_k"], a["new_v"],
+                                          kp, vp, a["tables"],
+                                          a["positions"], a["layer"],
+                                          splits=splits)
+    torch.cuda.synchronize()
+    # the padding rows race on block 0, so only live rows keep their bits
+    assert torch.equal(ro[0], ro[1]) and torch.equal(up[0][live], up[1][live])
+    torch.testing.assert_close(ro[0], ref, atol=atol, rtol=0)
+    assert not ro[0][~live].any()
+    torch.testing.assert_close(up[0][live], ref_up[live], atol=atol, rtol=0)
+    # block 0 is the null block the padding rows scribble on
+    assert torch.equal(a["k_pool"][:, 1:], kp[:, 1:])
+    assert torch.equal(a["v_pool"][:, 1:], vp[:, 1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [128, 256])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+def test_paged_split_kernels_match_plain(dev, dtype, bs, hd, rep):
+    """Rows 3 and 2 against their plain versions at the kernel's split,
+    the same bits over two calls, the pools as the plain version leaves
+    them."""
+    _check_paged_split(dev, dtype, rep, hd, bs, seed=rep + hd + bs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rep,bs", [(1, 512), (2, 512), (1, 1024),
+                                    (2, 1024)])
+def test_paged_split_kernels_at_large_blocks(dev, dtype, rep, bs):
+    """Blocks of 512 and 1024 tokens (the kernel's 1024-thread form),
+    where a block's K or V slice takes more pieces than the ring holds."""
+    _check_paged_split(dev, dtype, rep, 128, bs, seed=rep + bs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_split_kernels_hold_a_score_spread(dev, dtype):
+    """The long row's last three blocks lead its first three by hundreds
+    of log2 units, across split boundaries. Its scores reach about 400,
+    where one f32 ulp of a score moves P by about 2e-5 relative: the f32
+    case takes atol 1e-4."""
+    a = _paged_split_case(dev, torch.float32, 2, 64, 128, 9, spread=150.0)
+    kt = a["k_pool"][1, a["tables"][6].long()].reshape(SPLIT_NB, 2, 64, 128)
+    s = torch.einsum("grd,jgdt->jgrt", a["q"][6].reshape(2, 2, 64), kt)
+    assert (s[3:].amax() - s[:3].amax()).item() > 200
+    _check_paged_split(dev, dtype, 2, 64, 128, 9, spread=150.0,
+                       f32_atol=1e-4)
+
+
+def test_paged_split_sync_words_come_back_to_zero(dev):
+    """Every launch of rows 3 and 2 leaves its stream's sync words zero."""
+    from paddle_tpu_torch.ops import decode_attention as da
+    _check_paged_split(dev, torch.bfloat16, 1, 128, 128, 1)
+    stream = torch.cuda.current_stream(dev)
+    assert not da._SYNC[(dev if dev.index is not None
+                         else torch.device("cuda", 0),
+                         stream.cuda_stream)].any()
+
+
 def test_paged_attention_kernel_rejects_bad_inputs(dev):
     a = _paged_case(dev, 4, 2, 16, [3, 9], torch.float32)
     lengths = a["positions"] + 1
@@ -807,6 +916,24 @@ def test_flash_split_dkv_is_fused_bits_and_dq_is_deterministic(dev, dtype, sq,
     assert torch.equal(dq1, dq2)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk,causal", [(200, 330, True), (330, 200, False),
+                                          (130, 200, True), (384, 130, True),
+                                          (96, 700, False)])
+def test_flash_split_dq_wgmma_at_uneven_lengths(dev, d, sq, sk, causal):
+    """Row 18 in bf16 (wgmma, 128-key stages) at Sq != Sk with kv tails off
+    the stages, causal top-left and not: the flash rule against the plain
+    version, the same bits over two runs."""
+    args = _split_case(dev, torch.bfloat16, 6, sq, sk, d, causal,
+                       seed=sq + 3 * sk + d)
+    dq1 = fa.flash_bwd_dq(*args, causal, d ** -0.5)
+    dq2 = fa.flash_bwd_dq(*args, causal, d ** -0.5)
+    want = fa.flash_bwd_dq_plain(*args, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dq1).all() and torch.equal(dq1, dq2)
+    _close(dq1, want, FLASH_TOL[torch.bfloat16][1])
+
+
 @pytest.mark.parametrize("mode", ["auto", "split"])
 def test_flash_block_entries_on_card_match_cpu(dev, monkeypatch, mode):
     """Four 128-aligned KV blocks: block forwards merged by log-sum-exp
@@ -1284,6 +1411,37 @@ def test_slab_launches_on_two_streams_keep_apart(dev):
     for s, (k, v) in zip(streams, caches):
         assert torch.equal(k, k1) and torch.equal(v, v1)
         assert not da._SYNC[(q.device, s.cuda_stream)].any()
+
+
+# Row 10's output bits at generate's shape (B 8, NH 32 over NKV 4, HD 64,
+# T 1152, bf16; read-only at pos 1023, then the update at pos 700), as the
+# slab kernel gave them before its split protocol moved into
+# csrc/split_common.cuh (recorded on an NVIDIA H100 80GB HBM3 with CUDA
+# 12.8): the move must not change them.
+ROW10_BITS = "5039074f6b5f73b8"
+
+
+def _row10_bits(dev):
+    """sha256 (16 hex digits) of row 10's and row 11's outputs on seeded
+    numpy inputs."""
+    import hashlib
+    rng = np.random.RandomState(10)
+    b, nh, nkv, hd, t_len = 8, 32, 4, 64, 1152
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(
+        dev, torch.bfloat16)
+    q = t(rng.randn(b, nh, hd) * (da.LOG2E / hd ** 0.5))
+    nk, nv = t(rng.randn(b, nkv * hd)), t(rng.randn(b, nkv * hd))
+    kc, vc = (t(rng.randn(2, b, nkv * hd, t_len)) for _ in range(2))
+    ro = da.decode_attention_slab(q, kc, vc, 1, 1023)
+    up = da.decode_attend_update_slab(q, nk, nv, kc, vc, 1, 700)
+    h = hashlib.sha256()
+    for x in (ro, up):
+        h.update(x.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def test_slab_kernel_keeps_its_bits(dev):
+    assert _row10_bits(dev) == ROW10_BITS
 
 
 def test_slab_kernels_reject_bad_inputs(dev):

@@ -151,13 +151,18 @@ def _jax_bwd(qs, k, v, o, lse, do, causal, scale):
         qs, k, v, o, lse, do, causal, scale)
 
 
-# (Sq, Sk, causal, dtype, d)
+# (Sq, Sk, causal, dtype, d); the last three: Sq != Sk with a kv tail
+# that is no multiple of 128 (the card's dQ kernel takes 128-key stages),
+# causal top-left at Sq < Sk, and D = 128
 SPLIT_CASES = [(128, 128, True, torch.float32, 64),
                (200, 200, True, torch.float32, 16),
                (128, 256, False, torch.float32, 64),
                (192, 128, True, torch.float32, 16),
                (128, 128, True, torch.bfloat16, 64),
-               (128, 256, False, torch.bfloat16, 64)]
+               (128, 256, False, torch.bfloat16, 64),
+               (160, 300, True, torch.float32, 64),
+               (130, 200, False, torch.float32, 128),
+               (96, 330, True, torch.bfloat16, 128)]
 
 
 @pytest.mark.parametrize("sq,sk,causal,dtype,d", SPLIT_CASES)

@@ -211,3 +211,184 @@ def test_paged_attention_rejects_bad_inputs_and_leaves_counts():
         pa.paged_attention(*args, lengths, 2)                # layer >= L
     with pytest.raises(ValueError):
         pa.paged_attention(*args, lengths[:3], 0)            # lengths [B]
+
+
+# The kernel's split-context form of rows 3 and 2 (``splits`` > 1): a row's
+# blocks are cut into runs of ``split_blocks(max_nb, splits)``, each run
+# starts its recurrence from the max of all scores before it (so P is
+# rounded against the same running max as one walk), and the row's live
+# runs are combined in run order. Only that f32 combine differs from one
+# walk: 1e-5 against JAX in f32. 12 splits of a 12-block table leave one
+# block per split (the kernel's layout at the serving shape).
+PAGED_SPLITS = (1, 2, 3, 12)
+SPLIT_NB, SPLIT_NP = 12, 40
+SPLIT_POSITIONS = np.asarray([5, 127, 128, 0, 700, 1535], np.int32)
+
+
+def _split_case(seed=4, spread=None):
+    """Rows over 12-block tables: a block edge (127, 128), a padding row
+    (null table, position 0), a row across all 12 blocks. With
+    ``spread``, the last row's blocks from slot 6 on have their keys
+    scaled so that their scores lead by hundreds of log2 units."""
+    rng = np.random.RandomState(seed)
+    B = len(SPLIT_POSITIONS)
+    need = SPLIT_POSITIONS // BS + 1
+    perm = rng.permutation(np.arange(1, SPLIT_NP))
+    tables = np.zeros((B, SPLIT_NB), np.int32)
+    at = 0
+    for b in range(B):
+        if b == 3:
+            continue                     # padding row -> null block 0
+        tables[b, :need[b]] = perm[at:at + need[b]]
+        at += need[b]
+    q = (rng.randn(B, NH, HD) * 0.5).astype(np.float32)
+    new_k = rng.randn(B, KVD).astype(np.float32)
+    new_v = rng.randn(B, KVD).astype(np.float32)
+    k_pool = rng.randn(L, SPLIT_NP, KVD, BS).astype(np.float32)
+    v_pool = rng.randn(L, SPLIT_NP, KVD, BS).astype(np.float32)
+    if spread is not None:
+        k_pool[:, tables[-1, 6:]] *= spread
+    qs = (q * np.float32(jax_pa._LOG2E / HD ** 0.5)).astype(np.float32)
+    return qs, new_k, new_v, k_pool, v_pool, tables, SPLIT_POSITIONS.copy()
+
+
+def _score_lead(qs, k_pool, tables, layer=1):
+    """How far the last row's slots 6.. lead slots 0..5, in log2 units."""
+    kt = k_pool[layer, tables[-1]].reshape(SPLIT_NB, NKV, HD, BS)
+    qg = qs[-1].reshape(NKV, NH // NKV, HD)
+    s = np.einsum("grd,jgdt->jgrt", qg, kt)
+    return s[6:].max() - s[:6].max()
+
+
+_JAX_SPLIT_REFS = {}
+
+
+def _jax_split_refs(mode, spread):
+    """JAX's update (attn, pools) and read-only outputs on
+    :func:`_split_case`, once per softmax mode and spread."""
+    key = (mode, spread)
+    if key not in _JAX_SPLIT_REFS:
+        case = _split_case(spread=spread)
+        qs, _, _, k_pool, v_pool, tables, positions = case
+        upd = _jax_paged(*case, layer=1)
+        read = _jax_paged_read(qs, k_pool, v_pool, tables, positions + 1, 1,
+                               jnp.float32)
+        _JAX_SPLIT_REFS[key] = upd, read
+    return _JAX_SPLIT_REFS[key]
+
+
+def _check_split_plain(mode, splits, spread=None):
+    case = _split_case(spread=spread)
+    (ref_attn, ref_k, ref_v), ref_read = _jax_split_refs(mode, spread)
+    qs, new_k, new_v, k_pool, v_pool, tables, positions = case
+    t = torch.from_numpy
+    kp, vp = t(k_pool.copy()), t(v_pool.copy())
+    attn = pa.paged_attend_update_plain(
+        t(qs), t(new_k), t(new_v), kp, vp, t(tables), t(positions), 1,
+        splits=splits)
+    read = pa.paged_attention_plain(t(qs), t(k_pool), t(v_pool), t(tables),
+                                    t(positions + 1), 1, splits=splits)
+    live = tables[:, 0] != 0
+    np.testing.assert_allclose(attn.numpy()[live], ref_attn[live], atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(read.numpy()[live], ref_read[live], atol=1e-5,
+                               rtol=0)
+    np.testing.assert_array_equal(kp.numpy()[:, 1:], ref_k[:, 1:])
+    np.testing.assert_array_equal(vp.numpy()[:, 1:], ref_v[:, 1:])
+
+
+@pytest.mark.parametrize("splits", PAGED_SPLITS)
+@pytest.mark.parametrize("mode", ["auto", "online"])
+def test_paged_split_plain_matches_jax(monkeypatch, mode, splits):
+    """Rows 3 and 2's plain versions at ``splits`` against JAX."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_SOFTMAX", mode)
+    _check_split_plain(mode, splits)
+
+
+@pytest.mark.parametrize("splits", PAGED_SPLITS)
+def test_paged_split_plain_holds_a_score_spread(monkeypatch, splits):
+    """The last row's blocks from slot 6 on lead the earlier ones by
+    hundreds of log2 units, across split boundaries (online softmax: JAX's
+    tile-0-anchored default overflows there)."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_SOFTMAX", "online")
+    qs, _, _, k_pool, _, tables, _ = _split_case(spread=150.0)
+    assert _score_lead(qs, k_pool, tables) > 200
+    _check_split_plain("online", splits, spread=150.0)
+
+
+@pytest.mark.parametrize("splits", PAGED_SPLITS)
+def test_paged_split_plain_bf16_matches_jax(monkeypatch, splits):
+    """Row 2 in bf16 at ``splits``: JAX rounds P at the same points; the
+    sums run in another order, so a result may land a bf16 step apart."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_SOFTMAX", "online")
+    qs, _, _, k_pool, v_pool, tables, positions = _split_case(5)
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    qs, k_pool, v_pool = (bf(a).float().numpy() for a in (qs, k_pool, v_pool))
+    lengths = positions + 1
+    ref = _jax_paged_read(qs, k_pool, v_pool, tables, lengths, 1,
+                          jnp.bfloat16)
+    got = pa.paged_attention_plain(bf(qs), bf(k_pool), bf(v_pool),
+                                   torch.from_numpy(tables),
+                                   torch.from_numpy(lengths), 1,
+                                   splits=splits)
+    live = tables[:, 0] != 0
+    np.testing.assert_allclose(got.numpy()[live], ref[live], atol=2.0 ** -7,
+                               rtol=0)
+
+
+def _attend_plain_before_splits(q, k_pool, v_pool, tables, last, layer):
+    """The plain walk as it was before the ``splits`` keyword, kept
+    verbatim as the reference of the bitwise test below."""
+    B, NH_, HD_ = q.shape
+    bs = k_pool.shape[-1]
+    nkv = k_pool.shape[2] // HD_
+    rep = NH_ // nkv
+    qf = q.float().reshape(B, nkv, rep, HD_)
+    m = torch.full((B, nkv, rep), float("-inf"), device=q.device)
+    l = torch.zeros((B, nkv, rep), device=q.device)
+    acc = torch.zeros((B, nkv, rep, HD_), device=q.device)
+    col = torch.arange(bs, device=q.device)
+    for j in range(int(last.max()) // bs + 1):
+        blk = tables[:, j].long()
+        kt = k_pool[layer, blk].float().reshape(B, nkv, HD_, bs)
+        vt = v_pool[layer, blk].float().reshape(B, nkv, HD_, bs)
+        s = torch.einsum("bgrd,bgdt->bgrt", qf, kt)
+        live = (j * bs + col)[None, :] <= last[:, None]
+        s = torch.where(live[:, None, None, :], s,
+                        torch.tensor(-1e30, device=q.device))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bgrt,bgdt->bgrd", p.to(v_pool.dtype).float(), vt)
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, NH_, HD_)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_plain_one_split_is_the_walk_before_splits(dtype):
+    qs, _, _, k_pool, v_pool, tables, positions = _split_case(6)
+    q, kp, vp = (torch.from_numpy(a).to(dtype) for a in (qs, k_pool, v_pool))
+    tb, lengths = torch.from_numpy(tables), torch.from_numpy(positions + 1)
+    want = _attend_plain_before_splits(q, kp, vp, tb, lengths.long() - 1, 1)
+    want = torch.where((lengths > 0)[:, None, None], want, 0.0)
+    for got in (pa.paged_attention_plain(q, kp, vp, tb, lengths, 1),
+                pa.paged_attention_plain(q, kp, vp, tb, lengths, 1,
+                                         splits=1)):
+        assert torch.equal(got, want)
+
+
+def test_paged_kernel_splits_follow_the_shapes():
+    """One block per split at bs = 128 (SPLIT_TOKENS), at least one block
+    at larger bs, and never more than MAX_SPLITS runs; the plain version's
+    runs at that split count are the kernel's."""
+    assert pa.kernel_splits(16, 128) == 16
+    assert pa.kernel_splits(16, 256) == 16
+    assert pa.kernel_splits(1, 1024) == 1
+    for max_nb in (1, 7, 255, 256, 257, 2000):
+        n = pa.kernel_splits(max_nb, 128)
+        assert 1 <= n <= pa.MAX_SPLITS
+        assert pa.split_blocks(max_nb, n) * n >= max_nb
+        assert pa.split_blocks(max_nb, n) * (n - 1) < max_nb

@@ -2,6 +2,8 @@
 
     python3 tools/ab_times.py BEFORE AFTER             # rows 24, 25, 26
     python3 tools/ab_times.py --varlen BEFORE AFTER    # rows 20-23
+    python3 tools/ab_times.py --paged BEFORE AFTER     # rows 2-7, 10
+    python3 tools/ab_times.py --split BEFORE AFTER     # rows 16-18
 
 BEFORE and AFTER are directories that each hold a ``paddle_tpu_torch/``
 package, for example a ``git archive`` of the parent commit unpacked
@@ -27,14 +29,30 @@ With --varlen, the packed varlen kernels at chip_smoke's varlen shapes
   varlen_bwd_dkv (row 22), varlen_bwd_dq (row 23)   at the long pack
 
 and the drift of rows 20-23 along a product summed in f64 (chip_smoke's
-``varlen_drifts``, four heads of the long pack).
+``varlen_drifts``, four heads of the long pack), and a digest of the
+outputs of the deterministic ones (rows 20, 22, 23; row 21's dK and dV).
+
+With --paged, the paged decode kernels at chip_smoke's timing shapes
+(B = 8, NH = NKV = 32, HD = 128, bf16, 3,865 context tokens): rows 3 and
+2 (device ms with ``queued``, and the profiler's kernel time; row 3 also
+at the serve phase's profiled decode step, 8 rows of 1,001 tokens), and as
+controls row 5 and 4 (int8 pools), rows 6 and 7 (T = 5 fed tokens) and
+the slab decode row 10 (generate's shape, pos 1023); with a digest of
+every output, and the verdict whether rows 4-7 and 10 keep their bits.
+
+With --split, the dense split backward at chip_smoke's train (B 4, S
+2048) and train-long (B 1, S 16384) shapes (32 heads x 128, causal,
+bf16): rows 17 (dK/dV) and 18 (dQ), and row 16 (the fused backward) as a
+control; digests of row 17's and row 16's dK and dV and of row 18's dQ,
+and the verdict whether rows 16 and 17 keep their bits.
 
 Needs one CUDA device and nvcc; prints one JSON line per run, the card's
 name and power limit first, and writes chiprun_out/ab_times.json (or
-ab_times_varlen.json).
+ab_times_varlen.json, ab_times_paged.json, ab_times_split.json).
 """
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import json
 import os
@@ -44,14 +62,31 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def run_one(tree):
-    """In a tree's process: every time and drift, as one JSON line."""
-    import torch
+def _chip_smoke(tree):
+    """This checkout's chip_smoke.py over ``tree``'s package."""
     sys.path.insert(0, tree)
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def _digest(*tensors):
+    """sha256 of the tensors' bytes, in order (the first 16 hex digits)."""
+    import torch
+    h = hashlib.sha256()
+    for t in tensors:
+        torch.cuda.synchronize()
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def run_one(tree):
+    """In a tree's process: every time and drift, as one JSON line."""
+    import torch
+    chip_smoke = _chip_smoke(tree)
     from paddle_tpu_torch import _build
     from paddle_tpu_torch.ops import grouped_matmul as tg
     assert tg.__file__.startswith(tree), tg.__file__
@@ -79,18 +114,14 @@ def run_one(tree):
 def run_one_varlen(tree):
     """In a tree's process: the varlen times and drifts, as one JSON line."""
     import torch
-    sys.path.insert(0, tree)
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = _chip_smoke(tree)
     from paddle_tpu_torch import _build
     from paddle_tpu_torch.ops import flash_varlen as fv
     assert fv.__file__.startswith(tree), fv.__file__
     _build.build_all(["flash_varlen"])
     dev = torch.device("cuda", 0)
     h, d, scale = cs.VARLEN_H, cs.VARLEN_D, cs.VARLEN_D ** -0.5
-    out, drifts = {}, None
+    out, drifts, digests = {}, None, {}
     for pack, lens in (("short", cs.VARLEN_SHORT), ("long", cs.VARLEN_LONG)):
         q, k, v, do = cs._varlen_inputs(dev, torch.bfloat16, lens, None, h,
                                         d, cs.SEED + 60)
@@ -107,19 +138,141 @@ def run_one_varlen(tree):
                          varlen_bwd_dq=lambda: fv.varlen_bwd_dq(*args))
         for name, fn in calls.items():
             out[f"{name}[{pack} pack]"] = cs._time_ms(fn, 20)[0]
+        digests[f"varlen_fwd[{pack} pack]"] = _digest(o, lse)
+        digests[f"varlen_bwd dk, dv[{pack} pack]"] = _digest(
+            *fv.varlen_bwd(*args)[1:])
         if pack == "long":
+            digests["varlen_bwd_dkv[long pack]"] = _digest(
+                *fv.varlen_bwd_dkv(*args))
+            digests["varlen_bwd_dq[long pack]"] = _digest(
+                fv.varlen_bwd_dq(*args))
             drifts = {n: {kk: x[kk] for kk in ("kernel", "plain", "excess")}
                       for n, x in cs.varlen_drifts(fv, q, k, v, do,
                                                    lens).items()}
         del q, k, v, do, o, args
         torch.cuda.empty_cache()
-    print(json.dumps({"tree": tree, "ms": out, "drift": drifts}))
+    print(json.dumps({"tree": tree, "ms": out, "drift": drifts,
+                      "digests": digests}))
+
+
+def run_one_paged(tree):
+    """In a tree's process: rows 2-7 and 10, times and digests."""
+    import torch
+    cs = _chip_smoke(tree)
+    from paddle_tpu_torch import _build
+    from paddle_tpu_torch.ops import decode_attention as da
+    from paddle_tpu_torch.ops import paged_attention as pa
+    assert pa.__file__.startswith(tree), pa.__file__
+    _build.build_all(["paged_attention", "decode_attention"])
+    dev = torch.device("cuda", 0)
+    out, digests = {}, {}
+
+    def timed(key, fn, result, kernel=None):
+        dev_ms, _, queued = cs._time_ms(fn, 100)
+        out[key] = {"ms": dev_ms, "queued": queued}
+        if kernel is not None:
+            out[key]["profiler_ms"] = cs._profiled_ms(fn, kernel)
+        digests[key] = _digest(*result)
+
+    a = cs._paged_inputs(32, 32, cs.PAGED_POSITIONS, cs.SEED + 32, dev)
+    upd = (a["q"], a["new_k"], a["new_v"], a["k_pool"], a["v_pool"],
+           a["tables"], a["positions"], a["layer"])
+    rd = (a["q"], a["k_pool"], a["v_pool"], a["tables"], a["positions"] + 1,
+          a["layer"])
+    timed("paged_attend_update (row 3)", lambda: pa.paged_attend_update(*upd),
+         [pa.paged_attend_update(*upd)], "paged_")
+    timed("paged_attention (row 2)", lambda: pa.paged_attention(*rd),
+         [pa.paged_attention(*rd)], "paged_")
+    a = cs._paged_inputs(32, 32, cs.PAGED_STEP_POSITIONS, cs.SEED + 33, dev)
+    upd = (a["q"], a["new_k"], a["new_v"], a["k_pool"], a["v_pool"],
+           a["tables"], a["positions"], a["layer"])
+    timed("paged_attend_update (row 3), even rows",
+          lambda: pa.paged_attend_update(*upd),
+          [pa.paged_attend_update(*upd)], "paged_")
+    del a, upd, rd
+    a = cs._quant_inputs(32, 32, cs.PAGED_POSITIONS, cs.SEED + 71, dev,
+                         torch.bfloat16)
+    pools = [a[k] for k in ("k_pool", "v_pool", "k_scale", "v_scale")]
+    new = [a[k][-1, :, 0].contiguous() for k in ("new_k", "new_v", "new_ks",
+                                                   "new_vs")]
+    upd = (a["q"], *new, *pools, a["tables"], a["rows"], a["layer"])
+    rd = (a["q"], *pools, a["tables"], a["rows"] + 1, a["layer"])
+    timed("paged_attend_update_quant (row 5)",
+         lambda: pa.paged_attend_update_quant(*upd),
+         [pa.paged_attend_update_quant(*upd)])
+    timed("paged_attention_quant (row 4)",
+         lambda: pa.paged_attention_quant(*rd), [pa.paged_attention_quant(*rd)])
+    del a, pools, new, upd, rd
+    qstart = [p + 1 for p in cs.PAGED_POSITIONS]
+    a = cs._verify_inputs(32, 32, qstart, cs.SPEC_K + 1, cs.SEED + 61, dev)
+    call = (a["q"], a["k_pool"], a["v_pool"], a["tables"], a["qstart"],
+            a["layer"])
+    timed("paged_attention_verify (row 6)",
+         lambda: pa.paged_attention_verify(*call),
+         pa.paged_attention_verify(*call))
+    a = cs._quant_inputs(32, 32, qstart, cs.SEED + 72, dev, torch.bfloat16,
+                         T=cs.SPEC_K + 1)
+    call = (a["q"], a["k_pool"], a["v_pool"], a["k_scale"], a["v_scale"],
+            a["tables"], a["rows"], a["layer"])
+    timed("paged_attention_verify_quant (row 7)",
+         lambda: pa.paged_attention_verify_quant(*call),
+         pa.paged_attention_verify_quant(*call))
+    del a, call
+    q, nk, nv, kc, vc = cs._slab_inputs(dev, torch.bfloat16, cs.GEN_B, 32, 4,
+                                        64, cs.SLAB_T, cs.SEED)
+    timed("decode_attend_update_slab (row 10)",
+         lambda: da.decode_attend_update_slab(q, nk, nv, kc, vc, 1, 1023),
+         [da.decode_attend_update_slab(q, nk, nv, kc, vc, 1, 1023)])
+    print(json.dumps({"tree": tree, "ms": out, "digests": digests}))
+
+
+def run_one_split(tree):
+    """In a tree's process: rows 16-18, times and digests."""
+    import torch
+    cs = _chip_smoke(tree)
+    from paddle_tpu_torch import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
+    assert fa.__file__.startswith(tree), fa.__file__
+    _build.build_all(["flash_attention"])
+    dev = torch.device("cuda", 0)
+    out, digests = {}, {}
+    for b, s in ((cs.TRAIN_B, cs.TRAIN_S), (1, cs.LONG_S)):
+        qs, k, v, do, o, lse = cs._split_inputs(b * 32, s, s, 128,
+                                                torch.bfloat16,
+                                                cs.SEED + 120, dev)
+        delta = (do.float() * o.float()).sum(-1)
+        args = (qs, k, v, do, lse, delta, True, 128 ** -0.5)
+        key = f"[B={b},NH=32,S={s},D=128,causal]"
+        iters = 20 if s <= 4096 else 5
+        for name, fn, res in (
+                ("flash_bwd_dkv (row 17)", lambda: fa.flash_bwd_dkv(*args),
+                 lambda: fa.flash_bwd_dkv(*args)),
+                ("flash_bwd_dq (row 18)", lambda: fa.flash_bwd_dq(*args),
+                 lambda: [fa.flash_bwd_dq(*args)]),
+                ("flash_bwd (row 16; dk, dv)", lambda: fa.flash_bwd(*args),
+                 lambda: fa.flash_bwd(*args)[1:])):
+            out[name + key] = cs._time_ms(fn, iters)[0]
+            digests[name + key] = _digest(*res())
+        del qs, k, v, do, o, lse, delta, args
+        torch.cuda.empty_cache()
+    print(json.dumps({"tree": tree, "ms": out, "digests": digests}))
+
+
+# the outputs that both trees must give with the same bits
+KEPT = {"--one-paged": ("row 4", "row 5", "row 6", "row 7", "row 10"),
+        "--one-split": ("row 16", "row 17"),
+        "--one-varlen": ("varlen_fwd", "varlen_bwd_dkv", "varlen_bwd_dq",
+                         "varlen_bwd dk")}
+
+
+MODES = {"--varlen": "varlen", "--paged": "paged", "--split": "split"}
 
 
 def main():
-    varlen = sys.argv[1:2] == ["--varlen"]
-    if varlen:
+    mode = MODES.get(sys.argv[1]) if len(sys.argv) > 1 else None
+    if mode:
         del sys.argv[1]
+    one = f"--one-{mode}" if mode else "--one"
     before, after = (os.path.realpath(p) for p in sys.argv[1:3])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -127,23 +280,29 @@ def main():
     print(smi)
     runs = []
     for tree in (before, after, after, before):
-        p = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--one-varlen" if varlen else "--one", tree],
-                           capture_output=True, text=True)
+        p = subprocess.run([sys.executable, os.path.abspath(__file__), one,
+                            tree], capture_output=True, text=True)
         if p.returncode != 0:
             sys.exit(f"{tree}: exit {p.returncode}\n{p.stderr[-4000:]}")
         runs.append(json.loads(p.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]))
+    record = {"nvidia_smi": smi, "runs": runs}
+    if one in KEPT:
+        kept = {key: runs[0]["digests"][key] == runs[1]["digests"][key]
+                for key in runs[0]["digests"]
+                if any(k in key for k in KEPT[one])}
+        record["same_bits"] = kept
+        print(f"the same bits in both trees: {kept}")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    name = "ab_times_varlen.json" if varlen else "ab_times.json"
+    name = f"ab_times_{mode}.json" if mode else "ab_times.json"
     with open(os.path.join(ROOT, "chiprun_out", name), "w") as f:
-        json.dump({"nvidia_smi": smi, "runs": runs}, f, indent=1)
+        json.dump(record, f, indent=1)
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--one"]:
-        run_one(sys.argv[2])
-    elif sys.argv[1:2] == ["--one-varlen"]:
-        run_one_varlen(sys.argv[2])
+    ONES = {"--one": run_one, "--one-varlen": run_one_varlen,
+            "--one-paged": run_one_paged, "--one-split": run_one_split}
+    if sys.argv[1:2] and sys.argv[1] in ONES:
+        ONES[sys.argv[1]](sys.argv[2])
     else:
         main()

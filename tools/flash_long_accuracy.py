@@ -12,7 +12,9 @@ the kernels round them, then every product in f64). For each output it
 prints the relative Frobenius error and the drift along the reference,
 sum((got - ref) * ref) / sum(ref * ref): a kernel whose sums lose to
 rounding toward zero shows a negative drift that grows with S, where a
-summation order only adds noise around 0. Needs one CUDA device.
+summation order only adds noise around 0. Row 18's drift excess over the
+plain version is held to chip_smoke's ``VARLEN_DRIFT_EXCESS``; the tool
+exits non-zero if it exceeds it. Needs one CUDA device.
 
 With --varlen, the packed varlen kernels: for each L (default 65536) one
 L-token segment (H heads in one call, default 1, and with H > 1 each
@@ -93,6 +95,7 @@ def main(lengths):
         sys.exit("flash_long_accuracy: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, d = torch.device("cuda"), 128
+    good = True
     for s in lengths:
         g = torch.Generator(device=dev).manual_seed(s)
         qs = (torch.randn((1, s, d), generator=g, device=dev)
@@ -115,11 +118,18 @@ def main(lengths):
             report(f"{n} row 16 vs f64", kern[i], ref[i])
             report(f"{n} plain vs f64", plain[i], ref[i])
             report(f"{n} row 16 vs plain", kern[i], plain[i])
-        # row 18, in a tree that has it (a copy of an older commit may not)
+        # row 18, in a tree that has it (a copy of an older commit may not),
+        # its drift excess over the plain version held to chip_smoke's
+        # VARLEN_DRIFT_EXCESS
         if hasattr(fa, "flash_bwd_dq"):
-            report("dq row 18 vs f64", fa.flash_bwd_dq(*args), ref[0])
+            dq18 = fa.flash_bwd_dq(*args)
+            report("dq row 18 vs f64", dq18, ref[0])
+            good &= held("dq row 18",
+                         drift(dq18, ref[0]) - drift(plain[0], ref[0]))
+            del dq18
         del kern, plain, ref
         torch.cuda.empty_cache()
+    sys.exit(0 if good else 1)
 
 
 def drift(got, ref):

@@ -13,9 +13,15 @@ D 128, causal, bf16) and BH 8, S 200, D 128, not causal, bf16.
 
 The mutants write their faults into the bf16 kernels on wgmma, which
 both cases run: three into the forward (flash_fwd_wg_kernel) and three
-into the fused backward (flash_bwd_wg_kernel). Needs one CUDA device and
-nvcc; writes chiprun_out/flash_mutants.json and exits non-zero unless
-every verdict is as expected.
+into the fused backward (flash_bwd_wg_kernel), and two into the split
+backward's dQ pass (flash_bwd_dq_wg_kernel, row 18): dQ carried in the
+tensor cores' accumulator over the key stages, and dS rounded after the
+scale. Each copy also runs chip_smoke's ``check_split`` (rows 17 and 18
+against their plain versions under the flash rule at the train shape and
+on small layouts, and row 18's dQ drift along f64 products at S = 16384
+within VARLEN_DRIFT_EXCESS); a copy passes when both checks pass. Needs
+one CUDA device and nvcc; writes chiprun_out/flash_mutants.json and
+exits non-zero unless every verdict is as expected.
 """
 from __future__ import annotations
 
@@ -41,6 +47,30 @@ _BWD_DV_STEPS = ("        wgmma_rs<1>(pr, pf[4 * kk], pf[4 * kk + 1], pf[4 * kk 
                  "pf[4 * kk + 3],\n")
 _BWD_DK_ADD = "      for (int e = 0; e < 32; ++e) dkc[h][e] += pr[e];\n"
 _BWD_DQ_REDUCE = "          if ((tid & 127) == 0) {\n            bulk_reduce_add_f32("
+_DQ_PRODUCT = """      float pr[D / 2];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<1, D>(pr, dsf[4 * kk], dsf[4 * kk + 1], dsf[4 * kk + 2], dsf[4 * kk + 3],
+                       sw128_desc(ka + kk * 2048, BK * 128, 1024), kk);
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(pr);
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) acc[e] += pr[e];
+"""
+_DQ_CARRIED = """      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<1, D>(acc, dsf[4 * kk], dsf[4 * kk + 1], dsf[4 * kk + 2], dsf[4 * kk + 3],
+                       sw128_desc(ka + kk * 2048, BK * 128, 1024), 1);
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(acc);
+"""
+_DQ_DS = "          de[e] = p * (dp[4 * n + e] - (e < 2 ? dl0 : dl1));\n"
+_DQ_STAGE0 = "        pack_bf16(acc[4 * j] * scale, acc[4 * j + 1] * scale);\n"
+_DQ_STAGE1 = "        pack_bf16(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);\n"
 
 
 def _lo(a, b):
@@ -87,6 +117,14 @@ MUTANTS = {
         (_BWD_DQ_REDUCE, "          if ((tid & 127) == 0 && kt != 0) {\n"
          "            bulk_reduce_add_f32("),
     ],
+    # row 18: dQ summed in the tensor cores' accumulator across key stages
+    "dq_carried_in_the_accumulator": [(_DQ_PRODUCT, _DQ_CARRIED)],
+    # row 18: dS rounded to bf16 after the softmax scale, not before it
+    "dq_ds_rounded_after_the_scale": [
+        (_DQ_DS, _DQ_DS.replace(");\n", ") * scale;\n")),
+        (_DQ_STAGE0, _DQ_STAGE0.replace(" * scale", "")),
+        (_DQ_STAGE1, _DQ_STAGE1.replace(" * scale", "")),
+    ],
 }
 
 
@@ -126,7 +164,13 @@ def run_one(name):
             "outputs": {k: {"ok": r[0], "excess": r[1], "rel_frob": r[2],
                             "max_abs_err": r[3], "old_rule_ok": o}
                         for (k, r), o in zip(res.items(), olds)}})
-    print(json.dumps(out))
+    chip_smoke.flash_close = closes
+    try:
+        chip_smoke.check_split(dev, {})
+        split = "passes"
+    except AssertionError as e:
+        split = f"fails: {str(e)[-600:]}"
+    print(json.dumps({"cases": out, "split": split}))
 
 
 def main():
@@ -157,15 +201,18 @@ def main():
                 print(f"{name}: exit {p.returncode}\n{stderr[-4000:]}")
                 good = False
                 continue
-            cases = json.loads(stdout.strip().splitlines()[-1])
-            record[name] = cases
+            res = json.loads(stdout.strip().splitlines()[-1])
+            record[name] = res
+            cases = res["cases"]
             passed = all(o["ok"] for c in cases
                          for o in c["outputs"].values()) and all(
-                c["lse_max_abs_err"] <= 1e-4 for c in cases)
+                c["lse_max_abs_err"] <= 1e-4 for c in cases) \
+                and res["split"] == "passes"
             expected = name == "unchanged"
             good &= passed == expected
             print(f"{name}: check {'passes' if passed else 'fails'} "
-                  f"({'as expected' if passed == expected else 'WRONG'})")
+                  f"({'as expected' if passed == expected else 'WRONG'}); "
+                  f"check_split {res['split']}")
             for c in cases:
                 print(f"  {c['case']}: lse err {c['lse_max_abs_err']:.2e}")
                 for k, o in c["outputs"].items():

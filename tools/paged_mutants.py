@@ -1,0 +1,229 @@
+"""Shows that chip_smoke.py's paged checks fail a wrong split decode walk.
+
+    python3 tools/paged_mutants.py [NAME ...]
+
+Copies paddle_tpu_torch/ into a temporary directory once per mutant, writes
+one deliberate fault into the copy's csrc/paged_attention.cu, in the split
+decode walk of rows 3 and 2 (paged_split_kernel), and runs chip_smoke's
+paged checks on the copy's kernels in a process of its own (all copies
+build at once, then run one at a time): ``check_paged_update`` (row 3 at
+the kernel's split within PAGED_ATOL, at rows of 2-4 blocks within
+PAGED_SCHEDULE_FROB, the same bits over three calls, the pools bitwise
+the plain version's) and ``check_paged_read`` (row 2 likewise, a length-0
+row exactly 0). The unchanged copy must pass and every faulty one must
+fail. NAMEs pick mutants (the unchanged copy always runs). Needs one CUDA
+device and nvcc; prints each copy's verdict and the checks' messages,
+writes chiprun_out/paged_mutants.json and exits non-zero unless every
+verdict is as expected.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_ACC = "    for (int r = 0; r < REP; ++r) acc[r] = acc[r] * alpha[r] + pv[r];\n"
+_WRITE_IF = "  if (WRITE && split == nlive - 1) {\n"
+_WRITE_BODY = """    const size_t blk = (size_t)trow[last / bs - j0];
+    const size_t base = (((size_t)layer * np + blk) * kvd + head_off) * bs + last % bs;
+    const size_t src = (size_t)b * kvd + head_off;
+    for (int d = tid; d < hd; d += nt) {
+      k_pool[base + (size_t)d * bs] = new_k[src + d];
+      v_pool[base + (size_t)d * bs] = new_v[src + d];
+    }
+"""
+_FINAL = "  // 5. one live split finalises;"
+_PUBLISH = "    if (tid == 0) publish_max<REP>(gsync, mypart, split, smx);\n"
+_COMBINE = ("  if (!last_split(gsync, nlive, &last_s)) return;\n"
+            "  combine_splits<REP>(gpart, pstride, nlive, hd, nt, out + q_off, "
+            "part_s, gsync);\n")
+# The splits record the order in which they finish (the flag of rank c
+# takes 2 + the split that finished c-th; a flag is raised by atomicMax so
+# that a late publish cannot lower it, and the look-back only tests it for
+# 0), and the last split combines the partial states in that order.
+_ARRIVAL_PUBLISH = """    if (tid == 0) {
+      for (int r = 0; r < REP; ++r) mypart[r] = smx[r];
+      __threadfence();
+      atomicMax(gsync + 2 + split, 1);
+    }
+"""
+_ARRIVAL_COMBINE = """  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int c = atomicAdd(gsync + 1, 1);
+    atomicMax(gsync + 2 + c, 2 + split);
+    last_s = c == nlive - 1;
+  }
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  int* ord = reinterpret_cast<int*>(part_s) + 2 * REP * nlive;  // after the (m, l)
+  for (int t = tid; t < nlive; t += nt) {
+    int v;
+    while ((v = ld_acquire(gsync + 2 + t)) < 2) __nanosleep(32);
+    ord[t] = v - 2;
+  }
+  __syncthreads();
+  for (int x = tid; x < nlive * 2 * REP; x += nt)
+    part_s[x] = __ldcg(gpart + (size_t)ord[x / (2 * REP)] * pstride + REP + x % (2 * REP));
+  __syncthreads();
+  for (int i = tid; i < REP * hd; i += nt) {
+    const int r = i / hd;
+    float mm = -INFINITY;
+    for (int t = 0; t < nlive; ++t) mm = fmaxf(mm, part_s[t * 2 * REP + r]);
+    float ls = 0.f, as = 0.f;
+    for (int t = 0; t < nlive; ++t) {
+      const float w = exp2f(part_s[t * 2 * REP + r] - mm);
+      ls += part_s[t * 2 * REP + REP + r] * w;
+      as += __ldcg(gpart + (size_t)ord[t] * pstride + 3 * REP + i) * w;
+    }
+    out[q_off + i] = as / fmaxf(ls, 1e-30f);
+  }
+  for (int t = tid; t < nlive; t += nt) gsync[2 + t] = 0;
+  if (tid == 0) gsync[0] = gsync[1] = 0;
+"""
+
+# name -> [(text, replacement)]; each text occurs once in the source
+MUTANTS = {
+    "unchanged": [],
+    # each block's P rounded against that block's own max (then scaled to
+    # the running max in f32), not against one walk's running max
+    "p_rounded_against_own_max": [
+        ("      p_s[r * bs + tid] = from_f<T>(p);\n",
+         "      p_s[r * bs + tid] = from_f<T>(exp2f(sc - bm_s[jj * REP + r]));\n"),
+        (_ACC, _ACC.replace("+ pv[r];", "+ pv[r] * exp2f(bm_s[jj * REP + r] - m[r]);")),
+    ],
+    # no look-back: every split's recurrence starts from -inf, its own max
+    "look_back_skipped": [
+        ("    look_back<REP>(gsync, gpart, pstride, split, nt, m);\n", ""),
+    ],
+    # the partial states combined in the order the splits finish
+    "combine_in_arrival_order": [
+        (_PUBLISH, _ARRIVAL_PUBLISH),
+        (_COMBINE, _ARRIVAL_COMBINE),
+    ],
+    # the new column written by the split before its owner (a row of one
+    # split never gets it)
+    "column_by_the_wrong_split": [
+        (_WRITE_IF, _WRITE_IF.replace("nlive - 1", "nlive - 2")),
+    ],
+    # the owner writes the column only after it read its blocks
+    "column_written_after_the_read": [
+        (_WRITE_IF, _WRITE_IF.replace("nlive - 1", "nlive - 1 && false")),
+        (_FINAL, "  if (WRITE && split == nlive - 1) {\n" + _WRITE_BODY
+         + "  }\n" + _FINAL),
+    ],
+    # the last split's last block read from the table slot past the row's
+    # last block
+    "block_past_the_last_read": [
+        ("(size_t)trow[jj]) * kvd",
+         "(size_t)trow[jj + (split == nlive - 1 && jj == nb - 1)]) * kvd"),
+    ],
+}
+
+
+def run_one():
+    """In a copy's process: chip_smoke's paged checks, as one JSON line."""
+    import traceback
+
+    import torch
+    sys.path.append(ROOT)
+    import chip_smoke
+    from paddle_tpu_torch import _build
+    from paddle_tpu_torch.ops import paged_attention as pa
+    assert not pa.__file__.startswith(ROOT), pa.__file__
+    _build.build_all(["paged_attention"])
+    dev = torch.device("cuda", 0)
+    out = {}
+    for name, fn in (("check_paged_update", chip_smoke.check_paged_update),
+                     ("check_paged_read", chip_smoke.check_paged_read)):
+        try:
+            fn(dev, {})
+            out[name] = "passes"
+        except AssertionError:
+            out[name] = "fails: " + traceback.format_exc(limit=1)[-600:]
+    print(json.dumps(out))
+
+
+def build_one():
+    sys.path.append(ROOT)
+    from paddle_tpu_torch import _build
+    _build.build_all(["paged_attention"])
+    print(json.dumps({"built": True}))
+
+
+def _run(mode, copy):
+    env = dict(os.environ, PYTHONPATH=copy)
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), mode],
+                            cwd=copy, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def _last_json(name, p, timeout):
+    stdout, stderr = p.communicate(timeout=timeout)
+    if p.returncode != 0:
+        raise RuntimeError(f"{name}: exit {p.returncode}\n{stderr[-4000:]}")
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def main(names):
+    unknown = set(names) - set(MUTANTS)
+    if unknown:
+        sys.exit(f"unknown mutants {sorted(unknown)}; known: {list(MUTANTS)}")
+    chosen = {n: e for n, e in MUTANTS.items()
+              if n == "unchanged" or not names or n in names}
+    tmp = tempfile.mkdtemp(prefix="paged_mutants_")
+    copies, procs, record, good = {}, [], {}, True
+    try:
+        for name, edits in chosen.items():
+            copies[name] = os.path.join(tmp, name)
+            pkg = os.path.join(copies[name], "paddle_tpu_torch")
+            shutil.copytree(os.path.join(ROOT, "paddle_tpu_torch"), pkg,
+                            ignore=shutil.ignore_patterns("build",
+                                                          "__pycache__"))
+            cu = os.path.join(pkg, "csrc", "paged_attention.cu")
+            src = open(cu).read()
+            for old, new in edits:
+                assert src.count(old) == 1, (name, old)
+                src = src.replace(old, new)
+            with open(cu, "w") as f:
+                f.write(src)
+        procs = [(name, _run("--build", copies[name])) for name in chosen]
+        for name, p in procs:
+            _last_json(name, p, 900)
+        for name in chosen:
+            p = _run("--one", copies[name])
+            procs.append((name, p))
+            res = _last_json(name, p, 900)
+            record[name] = res
+            passed = all(v == "passes" for v in res.values())
+            expected = name == "unchanged"
+            good &= passed == expected
+            print(f"{name}: checks {'pass' if passed else 'fail'} "
+                  f"({'as expected' if passed == expected else 'WRONG'})")
+            for check, verdict in res.items():
+                print(f"  {check}: {verdict.strip()}")
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "paged_mutants.json"),
+              "w") as f:
+        json.dump(record, f, indent=1)
+    sys.exit(0 if good else 1)
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--one"]:
+        run_one()
+    elif sys.argv[1:2] == ["--build"]:
+        build_one()
+    else:
+        main(sys.argv[1:])
