@@ -11,14 +11,16 @@ Phases, in order; any failure exits non-zero before the last line:
                serving and training paths' shapes, in bf16 (and f32 flash
                and grouped-matmul cases on small adversarial layouts),
                with the tolerance stated; the speculative verify read
-               (row 6: bf16 at llama_7b's attention shape, f32 GQA with
-               T = 1..8 and a score spread, a padding row exact) and the
+               (row 6 at the kernel's split: bf16 at llama_7b's attention
+               shape, f32 GQA with T = 1..8 and a score spread, a padding
+               row exact over poisoned outputs, the same bits over three
+               calls, the rounding schedule at rows of 2-4 blocks) and the
                commit (row 8, L = 32, bitwise but the null block); the
                int8 kernels (rows 5 and 4 at llama_7b's attention shape
                with bf16 q and on f32 GQA cases with a score spread, row
-               5's written bytes and scales bitwise; row 7 likewise, a
-               padding row exact; row 9 at L = 32 bitwise but the null
-               block); then a tiny fp32 Llama served on the card through
+               5's written bytes and scales bitwise; row 7 as row 6; row 9
+               at L = 32 bitwise but the null block); then a tiny fp32
+               Llama served on the card through
                the kernels must give the same greedy streams as the same
                engine on the CPU through the plain versions, with
                speculation on too (and equal to the non-speculative
@@ -144,7 +146,9 @@ Phases, in order; any failure exits non-zero before the last line:
                segment); rows 17 and 18 at
                the train and train-long shapes, rows 14 and 16 at the
                shapes where JAX takes rows 13 and 15, row 2 at row 3's
-               (rows 2 and 3 also by the profiler's kernel time);
+               (rows 2 and 3 also by the profiler's kernel time), rows 6
+               and 7 also at the profiled verify step's even rows and by
+               the profiler's kernel time;
  10. a JSON line {"kernels": [...]}, the total wall seconds, and, last,
      {"ok": true, "device": ...}.
 
@@ -209,7 +213,7 @@ def ptxas_lines(log):
     out, kern = [], ""
     for line in log.splitlines():
         m = re.search(r"entry function '_ZN\w*\d([a-z][a-z0-9_]*?_kernel)"
-                      r"(I\w*?)?Ev?(P|\d)", line)
+                      r"(I\w*?)?Ev?(P|\d|N)", line)
         if m:    # the kernel's name and its mangled template arguments
             kern = m.group(1) + (m.group(2) or "")
         if "registers" in line or "spill" in line or "wgmma" in line:
@@ -231,14 +235,17 @@ def build():
         for line in ptxas_lines(log):
             print(f"  {name}: {line}")
     print(f"build seconds {secs:.2f}")
-    # the int8 walks' shared memory (16 K row groups: 64 KiB of partial
-    # scores at 8 rows) and registers bound how many CTAs share an SM
+    # the int8 walks' shared memory (decode: 16 K row groups, 64 KiB of
+    # partial scores at 8 rows; verify: 8 groups) and registers bound how
+    # many CTAs share an SM
     occ = _build.kernel("paged_attention", "paged_quant_occupancy",
                         [ctypes.c_int] * 4)
-    for kind, what in ((0, "int8 decode (rows 5, 4), REP"),
-                       (1, "int8 verify (row 7), chunk rows")):
-        print(f"occupancy at HD=128 bs=128, {what} 1/2/4/8: "
-              f"{[occ(kind, r, 128, 128) for r in (1, 2, 4, 8)]} CTAs/SM")
+    for kind, what, rows in ((0, "int8 decode (rows 5, 4), REP", (1, 2, 4, 8)),
+                             (1, "int8 verify (row 7), chunk rows",
+                              (2, 4, 5, 8))):
+        print(f"occupancy at HD=128 bs=128, {what} "
+              f"{'/'.join(map(str, rows))}: "
+              f"{[occ(kind, r, 128, 128) for r in rows]} CTAs/SM")
     return secs
 
 
@@ -366,7 +373,7 @@ def check_paged_update(dev, errs):
 
 
 def _verify_inputs(nh, nkv, qstart, T, seed, dev, dtype=torch.bfloat16,
-                   hd=128, bs=128, layers=2, spread=None):
+                   hd=128, bs=128, layers=2, spread=None, max_nb=None):
     """A verify batch over fragmented random tables that hold each row's
     qstart cached tokens and its T fed positions (qstart 0: a padding row
     on the null table). ``spread`` scales each row's second block of keys
@@ -377,14 +384,15 @@ def _verify_inputs(nh, nkv, qstart, T, seed, dev, dtype=torch.bfloat16,
     orders differ by ~1e-4, which near-tied keys turn into output errors
     of ~5e-5, over the f32 limit; exact scores leave the check to the
     mask, the softmax and P.V. Also the fed columns new_k/new_v
-    [layers, B, T, KVD]."""
+    [layers, B, T, KVD]. Tables are ``max_nb`` wide (default: one past the
+    longest row's blocks)."""
     from paddle_tpu_torch.ops.paged_attention import LOG2E
     g = torch.Generator(device=dev).manual_seed(seed)
     b, kvd = len(qstart), nkv * hd
     need = [-(-(q + T) // bs) if q else 0 for q in qstart]
     n_pool = 1 + sum(need)
     perm = (torch.randperm(n_pool - 1, generator=g, device=dev) + 1).tolist()
-    tables = torch.zeros((b, max(need) + 1), dtype=torch.int32)
+    tables = torch.zeros((b, max_nb or max(need) + 1), dtype=torch.int32)
     at = 0
     for i, n in enumerate(need):
         tables[i, :n] = torch.tensor(perm[at:at + n], dtype=torch.int32)
@@ -411,12 +419,16 @@ def _verify_inputs(nh, nkv, qstart, T, seed, dev, dtype=torch.bfloat16,
 
 # row 6 cases: bf16 at llama_7b's attention shape (draft_k 4: T = 5), then
 # f32 GQA cases over T = 1..8 with a score spread; every case has a
-# padding row (qstart 0). Held to flash_close on acc / l (FLASH_TOL's
-# forward entry: f32 rel 1e-5, frob 1e-5; bf16 rel 2^-6, frob 2^-10, P
-# rounded to bf16 in both) and m + log2(l) to 1e-4 + 1e-6 |ref| (f32) or
-# 1e-3 + 1e-5 |ref| (bf16); the padding row exactly acc = 0, l = 0, m =
-# -1e30.
+# padding row (qstart 0). Held at the kernel's split (``kernel_splits``) to
+# flash_close on acc / l (FLASH_TOL's forward entry: f32 rel 1e-5, frob
+# 1e-5; bf16 rel 2^-6, frob 2^-10, P rounded to bf16 in both) and m +
+# log2(l) to 1e-4 + 1e-6 |ref| (f32) or 1e-3 + 1e-5 |ref| (bf16); the
+# padding row exactly acc = 0, l = 0, m = -1e30 (the outputs' memory
+# poisoned with NaN first); the same bits over three calls. At rows of 2-4
+# blocks (VERIFY_SCHEDULE_QSTART) acc / l also to PAGED_SCHEDULE_FROB, as
+# row 3: a split that rounds P against its own max moves it by more.
 VERIFY_QSTART = [1, 127, 128, 129, 3000, 0, 1500, 4000]
+VERIFY_SCHEDULE_QSTART = [p + 1 for p in PAGED_SCHEDULE_POSITIONS]
 VERIFY_SPREAD = 150.0   # the spread block's scores lead by hundreds
 VERIFY_CASES = [(32, 32, 5, torch.bfloat16, None),
                 (8, 4, 1, torch.float32, VERIFY_SPREAD),
@@ -428,40 +440,72 @@ COMMIT_QSTART = [0, 3, 125, 126, 300, 128, 1000, 2000]
 COMMIT_LEN = [0, 5, 3, 5, 1, 4, 2, 5]
 
 
+def verify_held(name, kern, plain, q, qstart, f32, rel, frob, sched=False):
+    """Row 6 or 7 (``kern()``) against its plain version at the kernel's
+    split (``plain()``): the rules above, the rounding schedule's frob too
+    where ``sched``. Returns (max_abs_err of acc / l, a line to print)."""
+    B, T, NH, HD = q.shape
+    outs = []
+    for _ in range(3):
+        # NaN under every output, so that an element left unwritten shows
+        keep = [torch.full(shape, float("nan"), device=q.device)
+                for shape in ((B, T, NH, HD), (B, T, NH), (B, T, NH))]
+        del keep
+        outs.append(kern())
+    ra, rm, rl = plain()
+    torch.cuda.synchronize()
+    acc, m, l = outs[0]
+    live = qstart > 0
+    got, ref = acc[live] / l[live][..., None], ra[live] / rl[live][..., None]
+    ok, excess, fro, err = flash_close(got, ref, rel, frob)
+    lse, rlse = m[live] + torch.log2(l[live]), rm[live] + torch.log2(
+        rl[live])
+    lse_err = (lse - rlse).abs().max().item()
+    lse_ok = bool(((lse - rlse).abs() <= (1e-4 if f32 else 1e-3)
+                   + (1e-6 if f32 else 1e-5) * rlse.abs()).all())
+    dead_ok = (bool((acc[~live] == 0).all()) and bool((l[~live] == 0)
+               .all()) and bool((m[~live] == -1e30).all()))
+    same = all(torch.equal(x, y) for o in outs[1:] for x, y in zip(outs[0], o))
+    sched_ok = not sched or fro <= PAGED_SCHEDULE_FROB
+    line = (f"{name}: acc/l max_abs_err {err:.3e} excess {excess:.3e} rel "
+            f"frob {fro:.3e}{' (tol 2^-12)' if sched else ''}; lse "
+            f"max_abs_err {lse_err:.3e}; padding row exact {dead_ok}; the "
+            f"same bits over three calls {same}")
+    print(line)
+    assert ok and lse_ok and dead_ok and same and sched_ok, (
+        f"{name} disagrees: flash rule {ok} (excess {excess:.3e}), lse "
+        f"{lse_ok}, padding row {dead_ok}, bits {same}, rel frob "
+        f"{fro:.3e}{' over 2^-12' if not sched_ok else ''}")
+    return err
+
+
 def check_verify(dev, errs):
-    """Rows 6 and 8 against their plain versions."""
+    """Rows 6 and 8 against their plain versions (row 6 at the kernel's
+    split)."""
     from paddle_tpu_torch.ops import paged_attention as pa
     phase("check the verify read and the commit against their plain "
           "versions")
-    for nh, nkv, T, dtype, spread in VERIFY_CASES:
-        a = _verify_inputs(nh, nkv, VERIFY_QSTART, T, SEED + nh + T, dev,
+    cases = [c + (VERIFY_QSTART,) for c in VERIFY_CASES] + [
+        VERIFY_CASES[0] + (VERIFY_SCHEDULE_QSTART,)]
+    for nh, nkv, T, dtype, spread, qstart in cases:
+        a = _verify_inputs(nh, nkv, qstart, T, SEED + nh + T, dev,
                            dtype=dtype, spread=spread)
         args = (a["q"], a["k_pool"], a["v_pool"], a["tables"], a["qstart"],
                 a["layer"])
-        acc, m, l = pa.paged_attention_verify(*args)
-        ra, rm, rl = pa.paged_attention_verify_plain(*args)
-        torch.cuda.synchronize()
-        live = a["qstart"] > 0
-        rel, frob = FLASH_TOL[dtype][0]
-        ok, excess, fro, err = flash_close(acc[live] / l[live][..., None],
-                                           ra[live] / rl[live][..., None],
-                                           rel, frob)
-        lse, rlse = m[live] + torch.log2(l[live]), rm[live] + torch.log2(
-            rl[live])
-        lse_err = (lse - rlse).abs().max().item()
-        f32 = dtype == torch.float32
-        lse_ok = bool(((lse - rlse).abs() <= (1e-4 if f32 else 1e-3)
-                       + (1e-6 if f32 else 1e-5) * rlse.abs()).all())
-        dead_ok = (bool((acc[~live] == 0).all()) and bool((l[~live] == 0)
-                   .all()) and bool((m[~live] == -1e30).all()))
-        print(f"paged_attention_verify {str(dtype)[6:]} NH={nh} NKV={nkv} "
-              f"T={T} qstart {VERIFY_QSTART}"
-              f"{' spread' if spread else ''}: acc/l max_abs_err "
-              f"{err:.3e} excess {excess:.3e} rel frob {fro:.3e}; lse "
-              f"max_abs_err {lse_err:.3e}; padding row exact {dead_ok}")
-        assert ok and lse_ok and dead_ok, "paged_attention_verify disagrees"
+        splits = pa.kernel_splits(a["tables"].shape[1], 128)
+        chunks, height = pa.verify_chunks(T * nh // nkv)
+        sched = qstart is VERIFY_SCHEDULE_QSTART
+        err = verify_held(
+            f"paged_attention_verify {str(dtype)[6:]} NH={nh} NKV={nkv} "
+            f"T={T} qstart {qstart}{' spread' if spread else ''} "
+            f"({splits} splits, {chunks} chunks of {height} rows)",
+            lambda: pa.paged_attention_verify(*args),
+            lambda: pa.paged_attention_verify_plain(*args, splits=splits),
+            a["q"], a["qstart"], dtype == torch.float32,
+            *FLASH_TOL[dtype][0], sched=sched)
         errs["paged_attention_verify"] = max(
             errs.get("paged_attention_verify", 0.0), err)
+        del a
 
     # row 8 at L = 32: commit lengths 0..T, windows across a block edge
     a = _verify_inputs(32, 32, COMMIT_QSTART, 5, SEED + 8, dev, layers=32)
@@ -516,12 +560,13 @@ def _quantize_pool(pool, nkv):
 
 
 def _quant_inputs(nh, nkv, counts, seed, dev, qdtype, T=None, hd=128,
-                  bs=128, layers=2, spread=None):
+                  bs=128, layers=2, spread=None, max_nb=None):
     """int8 pools and scale pools over fragmented random tables that hold
     each row's new token at position ``counts`` or, with T, its ``counts``
     cached tokens and T fed positions; q [B, NH, HD] or [B, T, NH, HD] in
     qdtype, pre-scaled; fed or new columns' codes and scales [layers, B,
-    T or 1, KVD | NKV].
+    T or 1, KVD | NKV]; tables ``max_nb`` wide (default: one past the
+    longest row's blocks).
     spread None: every pool and new column is kv_quant_columns of a random
     bf16 column. Else the exact-score layout described above."""
     from paddle_tpu_torch.ops.paged_attention import LOG2E, kv_quant_columns
@@ -533,7 +578,7 @@ def _quant_inputs(nh, nkv, counts, seed, dev, qdtype, T=None, hd=128,
         need = [-(-(c + T) // bs) if c else 0 for c in counts]
     n_pool = 1 + sum(need)
     perm = (torch.randperm(n_pool - 1, generator=g, device=dev) + 1).tolist()
-    tables = torch.zeros((b, max(need) + 1), dtype=torch.int32)
+    tables = torch.zeros((b, max_nb or max(need) + 1), dtype=torch.int32)
     at = 0
     for i, n in enumerate(need):
         tables[i, :n] = torch.tensor(perm[at:at + n], dtype=torch.int32)
@@ -582,8 +627,10 @@ def check_quant(dev, errs):
     """Rows 5, 4 and 7 against their plain versions at llama_7b's attention
     shape (bf16 q, pools from kv_quant_columns of bf16 columns; row 3's
     positions, row 6's qstarts) and on the f32 GQA spread cases; row 5's
-    written bytes and scales bitwise; row 7's padding row exact; row 9 at
-    L = 32 bitwise but the null block."""
+    written bytes and scales bitwise; row 7 at the kernel's split under
+    ``verify_held``'s rules (the schedule's frob at rows of 2-4 blocks
+    too, though P stays f32); row 9 at L = 32 bitwise but the null
+    block."""
     from paddle_tpu_torch.ops import paged_attention as pa
     phase("check the int8 kernels (rows 5, 4, 7, 9) against their plain "
           "versions")
@@ -634,30 +681,23 @@ def check_quant(dev, errs):
             errs.get("paged_attention_quant", 0.0), err)
         del a, pools, ref_pools
 
-    for nh, nkv, T, dtype, spread in VERIFY_CASES:
-        a = _quant_inputs(nh, nkv, VERIFY_QSTART, SEED + nh + T, dev, dtype,
+    cases = [c + (VERIFY_QSTART,) for c in VERIFY_CASES] + [
+        VERIFY_CASES[0] + (VERIFY_SCHEDULE_QSTART,)]
+    for nh, nkv, T, dtype, spread, qstart in cases:
+        a = _quant_inputs(nh, nkv, qstart, SEED + nh + T, dev, dtype,
                           T=T, spread=spread and QUANT_SPREAD)
         args = (a["q"], a["k_pool"], a["v_pool"], a["k_scale"],
                 a["v_scale"], a["tables"], a["rows"], a["layer"])
-        acc, m, l = pa.paged_attention_verify_quant(*args)
-        ra, rm, rl = pa.paged_attention_verify_quant_plain(*args)
-        torch.cuda.synchronize()
-        live = a["rows"] > 0
-        ok, excess, fro, err = flash_close(acc[live] / l[live][..., None],
-                                           ra[live] / rl[live][..., None],
-                                           rel, frob)
-        lse, rlse = m[live] + torch.log2(l[live]), rm[live] + torch.log2(
-            rl[live])
-        lse_err = (lse - rlse).abs().max().item()
-        lse_ok = bool(((lse - rlse).abs() <= 1e-4 + 1e-6 * rlse.abs()).all())
-        dead_ok = (bool((acc[~live] == 0).all()) and bool((l[~live] == 0)
-                   .all()) and bool((m[~live] == -1e30).all()))
-        print(f"paged_attention_verify_quant {str(dtype)[6:]} q NH={nh} "
-              f"NKV={nkv} T={T} qstart {VERIFY_QSTART}"
-              f"{' spread' if spread else ''}: acc/l max_abs_err {err:.3e} "
-              f"excess {excess:.3e} rel frob {fro:.3e}; lse max_abs_err "
-              f"{lse_err:.3e}; padding row exact {dead_ok}")
-        assert ok and lse_ok and dead_ok, "paged_attention_verify_quant"
+        splits = pa.kernel_splits(a["tables"].shape[1], 128)
+        err = verify_held(
+            f"paged_attention_verify_quant {str(dtype)[6:]} q NH={nh} "
+            f"NKV={nkv} T={T} qstart {qstart}{' spread' if spread else ''} "
+            f"({splits} splits)",
+            lambda: pa.paged_attention_verify_quant(*args),
+            lambda: pa.paged_attention_verify_quant_plain(*args,
+                                                          splits=splits),
+            a["q"], a["rows"], True, rel, frob,
+            sched=qstart is VERIFY_SCHEDULE_QSTART)
         errs["paged_attention_verify_quant"] = max(
             errs.get("paged_attention_verify_quant", 0.0), err)
         del a
@@ -2875,12 +2915,11 @@ def _kernel_class(name):
     if "paged_decode_quant_kernel" in name:
         return ("paged_attend_update_quant" if ", true>" in name
                 else "paged_attention_quant")
-    if "paged_verify_quant_kernel" in name:
-        return "paged_attention_verify_quant"
+    if "paged_verify_split_kernel" in name:     # <T, R, MAXT>
+        return ("paged_attention_verify_quant" if "<signed char," in name
+                else "paged_attention_verify")
     if "paged_commit_quant_kernel" in name:
         return "paged_verify_commit_quant"
-    if "paged_verify_kernel" in name:
-        return "paged_attention_verify"
     if "paged_commit_kernel" in name:
         return "paged_verify_commit"
     if "slab_kernel" in name:
@@ -3162,49 +3201,82 @@ def times(dev, errs):
     return out
 
 
+# the profiled verify step's rows (profile_verify): 8 rows at 600 cached
+# tokens, tables as wide as the serving engine's (max_seq_len 2048 / bs)
+VERIFY_STEP_QSTART, VERIFY_STEP_MAX_NB = [600] * 8, 16
+
+
+def _verify_library(q, pools, tables, qstart, layer, bs, scales=None):
+    """SDPA of the T query rows over each row's context gathered (and
+    dequantized to bf16 over int8 pools) beforehand, masked past qstart:
+    the library yardstick of rows 6 and 7. Returns the call."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    b, T, nh, hd = q.shape
+    tmax = int(qstart.max())
+    nb = -(-tmax // bs)
+    rows = tables[:, :nb].long()
+
+    def gather(pool, sc):
+        x = pool[layer][rows]
+        if sc is not None:
+            x = pa.kv_dequant_blocks(x, sc[layer][rows]).to(torch.bfloat16)
+        return (x.reshape(b, nb, nh, hd, bs).permute(0, 2, 1, 4, 3)
+                .reshape(b, nh, nb * bs, hd)[:, :, :tmax].contiguous())
+    kc, vc = (gather(pool, sc) for pool, sc in zip(
+        pools, scales or (None, None)))
+    mask = (torch.arange(tmax, device=q.device)[None, :]
+            < qstart[:, None])[:, None, None, :]
+    qd = q.transpose(1, 2).contiguous()            # [B, NH, T, HD]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qd, kc, vc, attn_mask=mask)
+
+
 def verify_times(dev):
     """Row 6 at row 3's timing shape with T = 5 fed tokens per row (B=8,
     NH=NKV=32, HD=128, bf16, qstart = row 3's positions + 1: 3,865 cached
-    tokens in all), so the two rows compare. Bytes: q, K and V of the
-    cached tokens, the f32 partials, tables and qstart once. Operations:
-    2 products of 2 HD per (query row, token). Library yardstick: SDPA of
-    the T query rows over the context gathered beforehand.
+    tokens in all), so the two rows compare, and at the profiled verify
+    step's even rows (8 x 600 cached tokens, 16-block tables). Bytes: q, K
+    and V of the cached tokens, the f32 partials, tables and qstart once.
+    Operations: 2 products of 2 HD per (query row, token). Library
+    yardstick: SDPA of the T query rows over the context gathered
+    beforehand. ``profiler_ms``: torch.profiler's kernel time per launch.
 
     Row 8 at L=32, B=8, T=5, KVD=4096, bf16, every column accepted: bytes
     2 L B T KVD read and as many written, plus the per-row indices.
     Library yardstick: one advanced-index assignment per pool of the same
     columns, indices and gathered sources made beforehand."""
     from paddle_tpu_torch.ops import paged_attention as pa
-    F = torch.nn.functional
     out = {}
     T, bs, nh, hd = SPEC_K + 1, 128, 32, 128
     qstart = [p + 1 for p in PAGED_POSITIONS]
-    a = _verify_inputs(nh, nh, qstart, T, SEED + 61, dev, hd=hd)
     b, kvd = len(qstart), nh * hd
-    ctx = sum(qstart)
-    nbytes = (b * T * nh * hd * 2 + 2 * ctx * kvd * 2
-              + b * T * nh * (hd + 2) * 4 + a["tables"].numel() * 4 + b * 4)
-    call = (a["q"], a["k_pool"], a["v_pool"], a["tables"], a["qstart"],
-            a["layer"])
-    tmax = max(qstart)
-    nb = -(-tmax // bs)
-    rows = a["tables"][:, :nb].long()
-    kc, vc = (c[a["layer"]][rows].reshape(b, nb, nh, hd, bs)
-              .permute(0, 2, 1, 4, 3).reshape(b, nh, nb * bs, hd)[:, :, :tmax]
-              .contiguous() for c in (a["k_pool"], a["v_pool"]))
-    mask = (torch.arange(tmax, device=dev)[None, :]
-            < a["qstart"][:, None])[:, None, None, :]
-    qd = a["q"].transpose(1, 2).contiguous()            # [B, NH, T, HD]
-    r = dict(_timed(lambda: pa.paged_attention_verify(*call), 100),
-             plain_ms=_timed(lambda: pa.paged_attention_verify_plain(*call),
-                             10)["ms"],
-             library_ms=_timed(lambda: F.scaled_dot_product_attention(
-                 qd, kc, vc, attn_mask=mask), 50)["ms"],
-             **_bound(nbytes, 4 * T * nh * hd * ctx, BF16_OPS_PER_S),
-             bytes=nbytes, context_tokens=ctx)
-    out["paged_attention_verify[B=8,T=5,NH=NKV=32]"] = r
-    print(f"paged_attention_verify B=8 T=5 NH=NKV=32 ctx {ctx} tokens: {r}")
-    del a, kc, vc
+    for key, rows, width, seed in (
+            ("", qstart, None, SEED + 61),
+            (",even rows", VERIFY_STEP_QSTART, VERIFY_STEP_MAX_NB,
+             SEED + 63)):
+        a = _verify_inputs(nh, nh, rows, T, seed, dev, hd=hd, max_nb=width)
+        ctx = sum(rows)
+        nbytes = (b * T * nh * hd * 2 + 2 * ctx * kvd * 2
+                  + b * T * nh * (hd + 2) * 4 + a["tables"].numel() * 4
+                  + b * 4)
+        call = (a["q"], a["k_pool"], a["v_pool"], a["tables"], a["qstart"],
+                a["layer"])
+        r = dict(_timed(lambda: pa.paged_attention_verify(*call), 100),
+                 profiler_ms=_profiled_ms(
+                     lambda: pa.paged_attention_verify(*call),
+                     "paged_verify_split_kernel"),
+                 plain_ms=_timed(
+                     lambda: pa.paged_attention_verify_plain(*call), 10)
+                 ["ms"],
+                 library_ms=_timed(_verify_library(
+                     a["q"], (a["k_pool"], a["v_pool"]), a["tables"],
+                     a["qstart"], a["layer"], bs), 50)["ms"],
+                 **_bound(nbytes, 4 * T * nh * hd * ctx, BF16_OPS_PER_S),
+                 bytes=nbytes, context_tokens=ctx)
+        out[f"paged_attention_verify[B=8,T=5,NH=NKV=32{key}]"] = r
+        print(f"paged_attention_verify B=8 T=5 NH=NKV=32 ctx {ctx} "
+              f"tokens{key.replace(',', ', ')}: {r}")
+        del a
 
     L = 32
     a = _verify_inputs(nh, nh, qstart, T, SEED + 62, dev, hd=hd, layers=L)
@@ -3235,8 +3307,9 @@ def quant_times(dev):
     """Rows 5 and 4 at row 3's timing shape and row 7 at row 6's (B=8,
     NH=NKV=32, HD=128, bf16 q, int8 pools from kv_quant_columns of bf16
     columns; row 3's positions, so 3,865 context tokens: row 4 reads
-    lengths = positions + 1, row 7 qstart = positions + 1 with T = 5), row
-    9 at row 8's (L=32, B=8, T=5, KVD=4096, every column accepted). Bytes:
+    lengths = positions + 1, row 7 qstart = positions + 1 with T = 5, and
+    at row 6's even rows too, with ``profiler_ms``), row 9 at row 8's
+    (L=32, B=8, T=5, KVD=4096, every column accepted). Bytes:
     q, the int8 K and V of the context with their f32 scales, the f32
     output (row 7: the partials) and the indices once; row 5 adds the new
     columns read and written with their scales; row 9 moves 2 L B T (KVD
@@ -3291,33 +3364,34 @@ def quant_times(dev):
     del a, kc, vc, pools, new
 
     qstart = [p + 1 for p in PAGED_POSITIONS]
-    a = _quant_inputs(nh, nh, qstart, SEED + 72, dev, torch.bfloat16, T=T)
-    call = (a["q"], a["k_pool"], a["v_pool"], a["k_scale"], a["v_scale"],
-            a["tables"], a["rows"], a["layer"])
-    nbytes = (b * T * nh * hd * 2 + 2 * ctx * (kvd + 4 * nkv)
-              + b * T * nh * (hd + 2) * 4 + a["tables"].numel() * 4 + b * 4)
-    tmax = max(qstart)
-    nb = -(-tmax // bs)
-    rows = a["tables"][:, :nb].long()
-    kc, vc = (pa.kv_dequant_blocks(c[a["layer"]][rows], sc[a["layer"]][rows])
-              .to(torch.bfloat16).reshape(b, nb, nh, hd, bs)
-              .permute(0, 2, 1, 4, 3).reshape(b, nh, nb * bs, hd)[:, :, :tmax]
-              .contiguous() for c, sc in ((a["k_pool"], a["k_scale"]),
-                                          (a["v_pool"], a["v_scale"])))
-    mask = (torch.arange(tmax, device=dev)[None, :]
-            < a["rows"][:, None])[:, None, None, :]
-    qd = a["q"].transpose(1, 2).contiguous()            # [B, NH, T, HD]
-    r = dict(_timed(lambda: pa.paged_attention_verify_quant(*call), 100),
-             plain_ms=_timed(lambda: pa.paged_attention_verify_quant_plain(
-                 *call), 10)["ms"],
-             library_ms=_timed(lambda: F.scaled_dot_product_attention(
-                 qd, kc, vc, attn_mask=mask), 50)["ms"],
-             **_bound(nbytes, 4 * T * nh * hd * ctx, F32_OPS_PER_S),
-             bytes=nbytes, context_tokens=ctx)
-    out["paged_attention_verify_quant[B=8,T=5,NH=NKV=32]"] = r
-    print(f"paged_attention_verify_quant B=8 T=5 NH=NKV=32 ctx {ctx} "
-          f"tokens: {r}")
-    del a, kc, vc
+    for key, rows, width, seed in (
+            ("", qstart, None, SEED + 72),
+            (",even rows", VERIFY_STEP_QSTART, VERIFY_STEP_MAX_NB,
+             SEED + 74)):
+        a = _quant_inputs(nh, nh, rows, seed, dev, torch.bfloat16, T=T,
+                          max_nb=width)
+        ctx = sum(rows)
+        call = (a["q"], a["k_pool"], a["v_pool"], a["k_scale"],
+                a["v_scale"], a["tables"], a["rows"], a["layer"])
+        nbytes = (b * T * nh * hd * 2 + 2 * ctx * (kvd + 4 * nkv)
+                  + b * T * nh * (hd + 2) * 4 + a["tables"].numel() * 4
+                  + b * 4)
+        r = dict(_timed(lambda: pa.paged_attention_verify_quant(*call), 100),
+                 profiler_ms=_profiled_ms(
+                     lambda: pa.paged_attention_verify_quant(*call),
+                     "paged_verify_split_kernel"),
+                 plain_ms=_timed(lambda: pa.paged_attention_verify_quant_plain(
+                     *call), 10)["ms"],
+                 library_ms=_timed(_verify_library(
+                     a["q"], (a["k_pool"], a["v_pool"]), a["tables"],
+                     a["rows"], a["layer"], bs,
+                     (a["k_scale"], a["v_scale"])), 50)["ms"],
+                 **_bound(nbytes, 4 * T * nh * hd * ctx, F32_OPS_PER_S),
+                 bytes=nbytes, context_tokens=ctx)
+        out[f"paged_attention_verify_quant[B=8,T=5,NH=NKV=32{key}]"] = r
+        print(f"paged_attention_verify_quant B=8 T=5 NH=NKV=32 ctx {ctx} "
+              f"tokens{key.replace(',', ', ')}: {r}")
+        del a
 
     L = 32
     a = _quant_inputs(nh, nh, qstart, SEED + 73, dev, torch.bfloat16, T=T,

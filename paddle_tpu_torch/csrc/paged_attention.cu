@@ -61,7 +61,8 @@
 // "fixed-base" softmax overflows once a later tile's max exceeds tile 0's
 // by ~100 log2 units.
 //
-// Rows 3 and 2 (paged_split_kernel, redesigned for Hopper): flash-decoding.
+// Rows 3 and 2 (paged_split_kernel) and 6 and 7 (paged_verify_split_kernel),
+// one body (split_walk), redesigned for Hopper: flash-decoding.
 // A serving batch is ragged (prompts of 128-1024 tokens plus what was
 // generated), and a walk of one CTA per (row, kv-head) takes as long as
 // its longest row's blocks in sequence. So the grid is (kv-head, row,
@@ -76,7 +77,7 @@
 // rounded against the same running max as one walk), and the last split
 // to finish combining the partial states in split order (the same bits on
 // every run). A row whose live blocks fit one split takes none of it and
-// finalises at once. Loads: one kv-head's slice of a pool block is
+// writes its result at once. Loads: one kv-head's slice of a pool block is
 // contiguous (hd x bs elements at ((layer NP + blk) KVD + g hd) bs, 32 KB
 // in bf16 at hd = bs = 128), so each K or V slice arrives by one 1-D bulk
 // copy (cp.async.bulk, no tensor map) completing on an mbarrier, in pieces
@@ -93,12 +94,26 @@
 // in shared memory. The first block's scores stay in registers across the
 // look-back, later blocks' in shared memory.
 //
-// Rows 4-7 (the int8 entries and verify) keep one CTA per (row, kv-head,
-// chunk of query rows) walking the row's live blocks in sequence
-// (walk_blocks): every K and V access is a 16-byte vector from device
-// memory, several in flight a thread; three barriers per block. The
-// verify chunks of one (row, kv-head) read the same K and V; at MHA with
-// T <= 8 there is one chunk.
+// The verify read (rows 6, 7) is the same walk over T * rep query rows of
+// a (row, kv-head) in place of REP, in chunks of R rows (a height from
+// {2, 4, 5, 8} that the wrapper picks so that llama_7b's 5 rows are not
+// padded to 8; GQA's up to 64 rows take several chunks, each re-reading the
+// blocks from L2), grid (kv-head x chunk, row, split); it writes nothing
+// and returns the partial state unfinalised (the combine's unfinalised
+// mode: acc = sum acc_t w_t, l = sum l_t w_t, m = max m_t). At R rows P.V
+// reads R p's for every V element, so a verify thread sums DR = 2 V rows
+// (int8: 4) over strided token vectors (each p read once for all of them)
+// in place into its acc, and a shuffle over the row's lanes ends the sum
+// after the last block. Over int8 pools K and V are 8-code loads (G = 8 partial rows),
+// each block's K and V scales of the kv-head (bs f32, contiguous) arrive by
+// bulk copy with the block's first K piece, and the splits skip the
+// look-back (P is never rounded). The verify splits issue their first
+// copies before the CTA's barrier and take no L2 warm-up.
+//
+// Rows 4 and 5 (the int8 decode entries) keep one CTA per (row, kv-head)
+// walking the row's live blocks in sequence (walk_blocks): every K and V
+// access is a 16-byte vector from device memory, several in flight a
+// thread; three barriers per block.
 //
 // Write before read, without a race (update entries): the CTA that owns
 // the new column (row 3: the split whose run holds positions[b]) writes
@@ -120,27 +135,29 @@
 // The int8 entries (q in f32 or bf16, pools int8, scales f32). New
 // columns arrive already quantized (the caller's kv_quant_columns, the one
 // quantizer of prefill, decode and commit): the kernels copy bytes and
-// scales and never requantize. The walk is the same block walk with
-// 16-byte vectors of 16 codes (so G = 16 K row groups, and part_s holds
-// 16 * R * bs floats: 64 KiB at R = 8). One CTA owns one kv-head, so a
-// token's K scale and V scale are scalars of the whole CTA: step b forms
-// s[t] = ks[t] * sum_d q[d] * k8[d, t], and step c stores p'[t] = p[t] *
-// vs[t] for P.V, in f32 and NOT rounded (l sums the unscaled p). The TPU
-// kernels dequantize every element first, f32(k8) * ks; the factored
-// form differs from that only in f32 rounding. The decode entry
-// (paged_attend_update_quant_fwd) writes the new column's HD bytes of its
-// own kv-head and its one K and one V scale before the __syncthreads that
-// precedes the walk, the same race-free argument as above; the read-only
-// entry (paged_attention_quant_fwd) is the same kernel with the write
-// compiled out, over tokens 0..lengths[b]-1 (a row of length 0 gets 0).
-// The int8 commit is the commit's byte scatter with 1-byte elements, each
-// of which costs a 32-byte sector (worse than bf16: the T columns of one
-// pool row share one sector at most); each CTA also scatters the T scales
-// of the kv-heads whose rows start in its slice.
+// scales and never requantize. The decode walk (rows 5, 4) is the block
+// walk with 16-byte vectors of 16 codes (so G = 16 K row groups, and part_s
+// holds 16 * R * bs floats: 64 KiB at R = 8). One CTA owns one kv-head, so
+// a token's K scale and V scale are scalars of the whole CTA: a score is
+// s[t] = ks[t] * sum_d q[d] * k8[d, t], and P.V takes p'[t] = p[t] * vs[t],
+// in f32 and NOT rounded (l sums the unscaled p); the verify read (row 7)
+// does the same on the split walk. The TPU kernels dequantize every element
+// first, f32(k8) * ks; the factored form differs from that only in f32
+// rounding. The decode entry (paged_attend_update_quant_fwd) writes the new
+// column's HD bytes of its own kv-head and its one K and one V scale before
+// the __syncthreads that precedes the walk, the same race-free argument as
+// above; the read-only entry (paged_attention_quant_fwd) is the same kernel
+// with the write compiled out, over tokens 0..lengths[b]-1 (a row of length
+// 0 gets 0). The int8 commit is the commit's byte scatter with 1-byte
+// elements, each of which costs a 32-byte sector (worse than bf16: the T
+// columns of one pool row share one sector at most); each CTA also scatters
+// the T scales of the kv-heads whose rows start in its slice.
 //
 // The kernels allocate nothing and do not synchronise; they launch on the
-// caller's stream. Not done yet: rows 4-7 on the split walk.
+// caller's stream. Not done yet: rows 4 and 5 on the split walk.
 #include <math.h>
+
+#include <type_traits>
 
 #include "split_common.cuh"
 #include "vec_common.cuh"
@@ -309,134 +326,224 @@ __device__ __forceinline__ void walk_blocks(const T* k_pool, const T* v_pool,
 }
 
 // ---------------------------------------------------------------------------
-// rows 3 and 2: the split-context decode walk
+// rows 3, 2, 6 and 7: the split-context walk
 // ---------------------------------------------------------------------------
 
 constexpr int kRing = 4;          // ring slots at most: two blocks of K and V
 constexpr int kPieceBytes = 32768;  // the most one bulk copy brings
 constexpr int kMaxSplits = 256;   // the combine keeps each split's (m, l) in part_s
 
-// Shared memory of the split walk, byte offsets: the ring [nbuf][piece]
-// | its barriers [kRing] | q_s [R, hd] f32 | part_s [G, R, bs] f32 |
-// keep_s [bps - 1, R, bs] f32 | p_s [R, bs] T | max_s, lb_s, sum_s
-// [R, 32] f32 | bm_s [bps, R] f32. Every region starts 16-byte aligned.
-template <typename T, int R>
-struct SplitSmem {
-  size_t bars, q, part, keep, p, mx, lb, sum, bm, total;
-  __host__ __device__ SplitSmem(int hd, int bs, int bps, int prow, int nbuf) {
-    constexpr int G = 16 / sizeof(T);
-    bars = (size_t)nbuf * prow * bs * sizeof(T);
-    q = bars + 16 * ((kRing + 1) / 2);  // the barriers, 16-byte aligned
-    part = q + 4 * (size_t)R * hd;
-    keep = part + 4 * (size_t)G * R * bs;
-    p = keep + 4 * (size_t)(bps - 1) * R * bs;
-    mx = p + sizeof(T) * (size_t)R * bs;
-    lb = mx + 4 * R * 32;
-    sum = lb + 4 * R * 32;
-    bm = sum + 4 * R * 32;
-    total = bm + 4 * (size_t)bps * R;
+enum : int { kUpdate = 0, kRead = 1, kVerify = 2 };  // the walk's entries
+
+// P's element type in shared memory: the pool's, f32 over int8 pools
+template <typename T> struct PType { using type = T; };
+template <> struct PType<int8_t> { using type = float; };
+// elements a thread loads at once: a 16-byte vector; 8 codes (8 bytes) of
+// an int8 pool, so that K's partial scores take 8 registers a row
+template <typename T> constexpr int kVec = 16 / sizeof(T);
+template <> constexpr int kVec<int8_t> = 8;
+
+// four int8 codes packed in w as f32, exactly: each byte biased to
+// unsigned and placed under the exponent of 2^23, then the bias removed
+__device__ __forceinline__ void i8x4_to_f(uint32_t w, float* f) {
+  const uint32_t x = w ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7440)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7441)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7442)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7443)) - 8388736.f;
+}
+
+// V elements of type E at p (V * sizeof(E) bytes, aligned to them, a
+// multiple of 8) in shared memory, as f32
+template <typename E, int V>
+__device__ __forceinline__ void load_f(const E* p, float (&f)[V]) {
+  if constexpr (std::is_same<E, int8_t>::value) {
+    static_assert(V == 8, "int8: 8 codes a load");
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    i8x4_to_f(w.x, f);
+    i8x4_to_f(w.y, f + 4);
+  } else {
+    constexpr int E16 = 16 / sizeof(E);  // elements of one 16-byte vector
+#pragma unroll
+    for (int n = 0; n < V / E16; ++n) {
+      const uint4 u = reinterpret_cast<const uint4*>(p)[n];
+      const E* e = reinterpret_cast<const E*>(&u);
+#pragma unroll
+      for (int x = 0; x < E16; ++x) f[n * E16 + x] = to_f(e[x]);
+    }
+  }
+}
+
+// The arguments of every entry of the split walk. q: [b, nh, hd] (decode)
+// or [b, t_fed, nh, hd] (verify), pre-scaled, of the pools' type but over
+// int8 pools (q_bf16: bf16, else f32). rows: positions (kUpdate), lengths
+// (kRead) or qstart (kVerify). out: attn [b, nh, hd], or verify's acc [b,
+// t_fed, nh, hd] with m_out, l_out [b, t_fed, nh]. part and sync:
+// split_common.cuh's layouts, a group per (row, kv-head, chunk).
+struct SplitArgs {
+  const void* q;
+  const void* new_k;
+  const void* new_v;
+  void* k_pool;
+  void* v_pool;
+  const float* k_scale;
+  const float* v_scale;
+  const int* tables;
+  const int* rows;
+  float* out;
+  float* m_out;
+  float* l_out;
+  float* part;
+  int* sync;
+  int layer, np, nkv, hd, bs, max_nb, nsplit, bps, prow, nbuf;
+  int rep, t_fed, nchunk, q_bf16;
+};
+
+// The rows of one verify chunk in the outputs: local row r is the chunk's
+// query row row0 + r = t rep + rr, fed token t's head g rep + rr; row(r)
+// is its index in acc [., hd], m and l, -1 for the chunk's padding
+struct VerifyRows {
+  float* acc;
+  float* m;
+  float* l;
+  int bt, nh, grep, rep, row0, nrows;
+  __device__ __forceinline__ int row(int r) const {
+    const int x = row0 + r;
+    return x < nrows ? (bt + x / rep) * nh + grep + x % rep : -1;
   }
 };
 
-// grid (nkv, b, nsplit), blockDim.x == bs. Split z of (kv-head g, row b)
-// takes the row's pool blocks [z bps, (z + 1) bps) of its live ones (the
-// index z is a ticket in arrival order), a piece of prow rows of one K or
-// V slice per bulk copy, nbuf pieces in flight. WRITE (row 3): the split
-// that owns positions[b] writes row b's new column there, then every split
-// attends over its share of 0..positions[b]. !WRITE (row 2): over
-// 0..rows[b]-1, rows = lengths; a row of length 0 gets 0. new_k/new_v are
-// unused when !WRITE. part and sync: split_common.cuh's layouts. MAXT
-// bounds bs: blocks of more than 256 tokens take the form compiled for
-// 1024 threads (64 registers a thread, where 256 threads leave it 255).
-template <typename T, int REP, bool WRITE, int MAXT>
-__global__ void __launch_bounds__(MAXT)
-    paged_split_kernel(const T* __restrict__ q, const T* __restrict__ new_k,
-                       const T* __restrict__ new_v, T* k_pool, T* v_pool,
-                       const int* __restrict__ tables, const int* __restrict__ rows,
-                       float* __restrict__ out, float* part, int* sync, int layer, int np,
-                       int nkv, int hd, int bs, int max_nb, int nsplit, int bps, int prow,
-                       int nbuf) {
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte vector
-  constexpr int G = VEC;               // K row groups: bs threads / (bs/VEC) per row
-  const int g = blockIdx.x, b = blockIdx.y;
+// Shared memory of the split walk, byte offsets: the ring [nbuf][piece]
+// | its barriers [kRing] | q_s [R, hd] f32 | part_s [G, R, bs] f32, and
+// p_s [R, bs] in P's type over it once every score is summed (the combine
+// takes it last) | keep_s [bps - 1, R, bs] f32 | max_s [R, bs / 32] f32 (a
+// value per warp; the look-back's lb_s over it) | sum_s [R, bs / 32] f32 |
+// bm_s [bps, R] f32 | int8 pools: ks_s, vs_s [bps, bs] f32, the split's K
+// and V scales. Every region starts 16-byte aligned.
+template <typename T, int R>
+struct SplitSmem {
+  size_t bars, q, part, p, keep, mx, lb, sum, bm, sc, total;
+  __host__ __device__ SplitSmem(int hd, int bs, int bps, int prow, int nbuf) {
+    constexpr int G = kVec<T>;
+    bars = (size_t)nbuf * prow * bs * sizeof(T);
+    q = bars + 16 * ((kRing + 1) / 2);  // the barriers, 16-byte aligned
+    part = p = q + 4 * (size_t)R * hd;
+    keep = part + 4 * (size_t)G * R * bs;
+    mx = lb = keep + 4 * (size_t)(bps - 1) * R * bs;
+    sum = mx + (size_t)R * bs / 8;  // R * (bs / 32) floats
+    bm = sum + (size_t)R * bs / 8;
+    sc = (bm + 4 * (size_t)bps * R + 15) / 16 * 16;
+    total = std::is_same<T, int8_t>::value ? sc + 8 * (size_t)bps * bs
+                                           : bm + 4 * (size_t)bps * R;
+  }
+};
+
+// One CTA of the split walk, blockDim.x == bs. Decode (rows 3 and 2):
+// grid (nkv, b, nsplit), R = REP query heads of kv-head g. Verify (rows 6
+// and 7): grid (nkv nchunk, b, nsplit), R = the chunk height, chunk c of
+// kv-head g taking the (row, kv-head)'s query rows c R .. c R + R - 1 (past
+// t_fed rep: zeros, never stored). Split z of a group takes the row's pool
+// blocks [z bps, (z + 1) bps) of its live ones (the index z is a ticket in
+// arrival order), a piece of prow rows of one K or V slice per bulk copy,
+// nbuf pieces in flight. kUpdate (row 3): the split that owns positions[b]
+// writes row b's new column there, then every split attends over its share
+// of 0..positions[b]. kRead (row 2): over 0..rows[b]-1, rows = lengths; a
+// row of length 0 gets 0. kVerify: over 0..qstart[b]-1, returning the
+// unfinalised (acc, m, l); a row with qstart 0 gets acc = 0, l = 0, m =
+// -1e30. int8 pools (verify only): each K or V slice's bs scales of kv-head
+// g arrive by bulk copy with the slice's first K piece; a token's score is
+// ks * (q . k8), and P.V takes p * vs in f32, unrounded (l sums p); the
+// splits take no look-back.
+template <typename T, int R, int MODE>
+__device__ __forceinline__ void split_walk(const SplitArgs a) {
+  constexpr bool WRITE = MODE == kUpdate, VERIFY = MODE == kVerify;
+  constexpr bool QUANT = std::is_same<T, int8_t>::value;
+  static_assert(VERIFY || !QUANT, "int8 pools: the verify read only");
+  using PT = typename PType<T>::type;
+  constexpr int VEC = kVec<T>;        // elements a thread loads at once
+  constexpr int G = VEC;              // K row groups: bs threads / (bs/VEC) per row
+  // V rows of one thread's P.V: the verify read sums 2 (int8: 4) at once, a
+  // p read from shared memory serving them all
+  constexpr int DR = VERIFY ? (QUANT ? 4 : 2) : 1;
+  const int nchunk = VERIFY ? a.nchunk : 1;
+  const int g = blockIdx.x / nchunk, chunk = blockIdx.x % nchunk, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nt = blockDim.x, nwarps = nt >> 5;
-  const int kvd = nkv * hd;
-  const int last = WRITE ? rows[b] : rows[b] - 1;  // the last token attended
+  const int hd = a.hd, bs = a.bs, bps = a.bps, prow = a.prow, nbuf = a.nbuf;
+  const int nkv = a.nkv, kvd = nkv * hd, layer = a.layer, np = a.np;
+  const T* k_pool = static_cast<const T*>(a.k_pool);
+  const T* v_pool = static_cast<const T*>(a.v_pool);
+  const int last = WRITE ? a.rows[b] : a.rows[b] - 1;  // the last token attended
   const int nblk = last < 0 ? 0 : last / bs + 1;
   const int nlive = (nblk + bps - 1) / bps;
-  const size_t q_off = ((size_t)b * nkv * REP + (size_t)g * REP) * hd;
+  // decode: the R heads of kv-head g are rows q_off / hd .. + R - 1 of q
+  // and out; verify: the chunk's rows, vr.row(r)
+  const size_t q_off = ((size_t)b * nkv * R + (size_t)g * R) * hd;
+  const int nh = nkv * a.rep;
+  const VerifyRows vr{a.out, a.m_out, a.l_out, b * a.t_fed, nh, g * a.rep, a.rep, chunk * R,
+                      a.t_fed * a.rep};
   if ((int)blockIdx.z >= max(nlive, 1)) return;  // no live token in this split
-  if (nlive == 0) {  // a length-0 row of the read-only entry
-    for (int i = tid; i < REP * hd; i += nt) out[q_off + i] = 0.f;
+  if (nlive == 0) {  // a length-0 row of row 2; a padding row of the verify read
+    if constexpr (VERIFY) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int o = vr.row(r);
+        if (o < 0 || tid >= hd) continue;
+        a.out[(size_t)o * hd + tid] = 0.f;
+        if (tid == 0) {
+          a.m_out[o] = -1e30f;
+          a.l_out[o] = 0.f;
+        }
+      }
+    } else {
+      for (int i = tid; i < R * hd; i += nt) a.out[q_off + i] = 0.f;
+    }
     return;
   }
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const SplitSmem<T, REP> L(hd, bs, bps, prow, nbuf);
+  const SplitSmem<T, R> L(hd, bs, bps, prow, nbuf);
   unsigned char* ring = smem_raw;
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw + L.bars);
   float* q_s = reinterpret_cast<float*>(smem_raw + L.q);
   float* part_s = reinterpret_cast<float*>(smem_raw + L.part);
   float* keep_s = reinterpret_cast<float*>(smem_raw + L.keep);
-  T* p_s = reinterpret_cast<T*>(smem_raw + L.p);
+  PT* p_s = reinterpret_cast<PT*>(smem_raw + L.p);
   float* max_s = reinterpret_cast<float*>(smem_raw + L.mx);
   float* lb_s = reinterpret_cast<float*>(smem_raw + L.lb);
   float* sum_s = reinterpret_cast<float*>(smem_raw + L.sum);
   float* bm_s = reinterpret_cast<float*>(smem_raw + L.bm);
+  [[maybe_unused]] float* ks_s = reinterpret_cast<float*>(smem_raw + L.sc);
+  [[maybe_unused]] float* vs_s = ks_s + (size_t)bps * bs;
   __shared__ int split_s, last_s;
 
-  int* gsync = sync + (size_t)(b * nkv + g) * (2 + nsplit);  // ticket, done, flags
-  const int pstride = 3 * REP + REP * hd;
-  float* gpart = part + (size_t)(b * nkv + g) * nsplit * pstride;
-
-  if (tid == 0) {
-    if (nlive > 1) {
-      // the ticket's round trip is spent warming the L2 with the blocks of
-      // split blockIdx.z: tickets follow the grid order closely, and every
-      // live block is warmed by one CTA
-      const int z0 = blockIdx.z * bps, zn = min(bps, nblk - z0);
-      const int* zrow = tables + (size_t)b * max_nb + z0;
-      const uint32_t slice = (uint32_t)hd * bs * sizeof(T);
-      for (int jj = 0; jj < zn; ++jj) {
-        const size_t off = (((size_t)layer * np + (size_t)zrow[jj]) * kvd + (size_t)g * hd) * bs;
-        bulk_prefetch_l2(k_pool + off, slice);
-        bulk_prefetch_l2(v_pool + off, slice);
-      }
-    }
-    split_s = nlive > 1 ? take_ticket(gsync) : 0;
-    for (int i = 0; i < nbuf; ++i) mbar_init(&bar[i], 1);
-    mbar_fence_init();
-  }
-  for (int i = tid; i < REP * hd; i += nt) q_s[i] = to_f(q[q_off + i]);
-  __syncthreads();
-  const int split = split_s;
-  const int j0 = split * bps, nb = min(bps, nblk - j0);  // this split's blocks
-  const int* trow = tables + (size_t)b * max_nb + j0;
+  const int grp = (b * nkv + g) * nchunk + chunk;  // this CTA's group
+  int* gsync = a.sync + (size_t)grp * (2 + a.nsplit);  // ticket, done, flags
+  const int pstride = 3 * R + R * hd;
+  float* gpart = a.part + (size_t)grp * a.nsplit * pstride;
   const size_t head_off = (size_t)g * hd;
+  // the kv-head's bs scales of pool block blk (int8 pools)
+  auto scale_off = [&](int blk) {
+    return (((size_t)layer * np + (size_t)blk) * nkv + g) * bs;
+  };
 
-  // 1. the new token's column, this kv-head's rows only, by the split that
-  // owns it, before any copy of its blocks is issued; the proxy fence and
-  // the barrier order the writes before the bulk copies' reads
-  if (WRITE && split == nlive - 1) {
-    const size_t blk = (size_t)trow[last / bs - j0];
-    const size_t base = (((size_t)layer * np + blk) * kvd + head_off) * bs + last % bs;
-    const size_t src = (size_t)b * kvd + head_off;
-    for (int d = tid; d < hd; d += nt) {
-      k_pool[base + (size_t)d * bs] = new_k[src + d];
-      v_pool[base + (size_t)d * bs] = new_v[src + d];
-    }
-    fence_async_global();
-    __syncthreads();
-  }
-
-  // The pieces in the order they are used: every K piece of the split's
-  // blocks (scores), then every V piece (P.V); piece i lands in ring slot
-  // i % nbuf. Thread 0 keeps nbuf pieces in flight; where a block's slice
-  // takes more pieces than the ring holds, a barrier frees them one by one.
+  // The split (set_split, from the ticket) and its pieces in the order
+  // they are used: every K piece of the split's blocks (scores), then every
+  // V piece (P.V); piece i lands in ring slot i % nbuf. Thread 0 keeps nbuf
+  // pieces in flight; where a block's slice takes more pieces than the ring
+  // holds, a barrier frees them one by one. Over int8 pools a block's first
+  // K piece also brings its K and V scales into the split's own scale rows.
+  int split = 0, j0 = 0, nb = 0, total = 0;  // nb: this split's blocks
+  const int* trow = nullptr;
   const int npk = (hd + prow - 1) / prow;  // pieces per slice
-  const int total = 2 * nb * npk;
   const size_t piece_bytes = (size_t)prow * bs * sizeof(T);
+  auto set_split = [&](int z) {
+    split = z;
+    j0 = z * bps;
+    nb = min(bps, nblk - j0);
+    trow = a.tables + (size_t)b * a.max_nb + j0;
+    total = 2 * nb * npk;
+  };
   auto piece_src = [&](int i) -> const T* {
     const int jj = (i % (nb * npk)) / npk, r0 = (i % npk) * prow;
     const T* pool = i < nb * npk ? k_pool : v_pool;
@@ -450,8 +557,14 @@ __global__ void __launch_bounds__(MAXT)
     for (; issued < min(done + nbuf, total); ++issued) {
       const uint32_t bytes = (uint32_t)min(prow, hd - (issued % npk) * prow) * bs * sizeof(T);
       uint64_t* br = &bar[issued % nbuf];
-      mbar_expect_tx(br, bytes);
+      const bool scales = QUANT && issued < nb * npk && issued % npk == 0;
+      mbar_expect_tx(br, bytes + (scales ? 8 * bs : 0));
       bulk_load(ring + (size_t)(issued % nbuf) * piece_bytes, piece_src(issued), bytes, br);
+      if (scales) {
+        const int jj = issued / npk;
+        bulk_load(ks_s + (size_t)jj * bs, a.k_scale + scale_off(trow[jj]), 4 * bs, br);
+        bulk_load(vs_s + (size_t)jj * bs, a.v_scale + scale_off(trow[jj]), 4 * bs, br);
+      }
     }
   };
   auto piece_at = [&](int i) -> const T* {  // piece i's rows, once landed
@@ -462,21 +575,92 @@ __global__ void __launch_bounds__(MAXT)
     mbar_wait(&bar[i % nbuf], (i / nbuf) & 1);
     return reinterpret_cast<const T*>(ring + (size_t)(i % nbuf) * piece_bytes);
   };
-  refill(0);
+
+  if (tid == 0) {
+    // decode: the ticket's round trip is spent warming the L2 with the
+    // blocks of split blockIdx.z (tickets follow the grid order closely,
+    // and every live block is warmed by one CTA); verify: no warm-up (its
+    // splits run longer, and the warm-up cost it 10%, tools/paged_choices.py),
+    // and the split's first pieces go out before the barrier
+    int z = 0;
+    if (VERIFY && nlive > 1) z = take_ticket(gsync);
+    if (!VERIFY && nlive > 1) {
+      const int z0 = blockIdx.z * bps, zn = min(bps, nblk - z0);
+      const int* zrow = a.tables + (size_t)b * a.max_nb + z0;
+      const uint32_t slice = (uint32_t)hd * bs * sizeof(T);
+      for (int jj = 0; jj < zn; ++jj) {
+        const size_t off = (((size_t)layer * np + (size_t)zrow[jj]) * kvd + head_off) * bs;
+        bulk_prefetch_l2(k_pool + off, slice);
+        bulk_prefetch_l2(v_pool + off, slice);
+      }
+    }
+    if (!VERIFY && nlive > 1) z = take_ticket(gsync);
+    split_s = z;
+    for (int i = 0; i < nbuf; ++i) mbar_init(&bar[i], 1);
+    mbar_fence_init();
+    if constexpr (VERIFY) {
+      set_split(z);
+      refill(0);
+    }
+  }
+  if constexpr (VERIFY) {
+    // hd <= bs threads: thread d loads column d of the R rows, all in flight
+    if (tid < hd) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int o = vr.row(r);
+        const size_t src = (size_t)o * hd + tid;
+        float v = 0.f;
+        if (o >= 0) {
+          if constexpr (QUANT)
+            v = a.q_bf16 ? to_f(static_cast<const __nv_bfloat16*>(a.q)[src])
+                         : static_cast<const float*>(a.q)[src];
+          else
+            v = to_f(static_cast<const T*>(a.q)[src]);
+        }
+        q_s[r * hd + tid] = v;
+      }
+    }
+  } else {
+    for (int i = tid; i < R * hd; i += nt) q_s[i] = to_f(static_cast<const T*>(a.q)[q_off + i]);
+  }
+  __syncthreads();
+  set_split(split_s);
+
+  // 1. the new token's column, this kv-head's rows only, by the split that
+  // owns it, before any copy of its blocks is issued; the proxy fence and
+  // the barrier order the writes before the bulk copies' reads
+  if (WRITE && split == nlive - 1) {
+    T* kw = static_cast<T*>(a.k_pool);
+    T* vw = static_cast<T*>(a.v_pool);
+    const T* new_k = static_cast<const T*>(a.new_k);
+    const T* new_v = static_cast<const T*>(a.new_v);
+    const size_t blk = (size_t)trow[last / bs - j0];
+    const size_t base = (((size_t)layer * np + blk) * kvd + head_off) * bs + last % bs;
+    const size_t src = (size_t)b * kvd + head_off;
+    for (int d = tid; d < hd; d += nt) {
+      kw[base + (size_t)d * bs] = new_k[src + d];
+      vw[base + (size_t)d * bs] = new_v[src + d];
+    }
+    fence_async_global();
+    __syncthreads();
+  }
+
+  if constexpr (!VERIFY) refill(0);
 
   // 2. scores of the split's blocks, thread t = token t of a block: the
   // first block's stay in registers, later ones in keep_s (each thread
   // reads back only its own); each block's max to bm_s, the split's to smx
   const int nv = bs / VEC, kc = tid % nv, kg = tid / nv;
-  float s0[REP], smx[REP];
+  float s0[R], smx[R];
 #pragma unroll
-  for (int r = 0; r < REP; ++r) smx[r] = -INFINITY;
+  for (int r = 0; r < R; ++r) smx[r] = -INFINITY;
   int i = 0;  // the next piece
   for (int jj = 0; jj < nb; ++jj) {
     // a. partial scores of VEC tokens over this thread's K rows kg, kg+G, ...
-    float sp[REP][VEC];
+    float sp[R][VEC];
 #pragma unroll
-    for (int r = 0; r < REP; ++r)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int e = 0; e < VEC; ++e) sp[r][e] = 0.f;
     for (int pc = 0; pc < npk; ++pc, ++i) {
@@ -484,19 +668,19 @@ __global__ void __launch_bounds__(MAXT)
       const int r0 = pc * prow, nr = min(prow, hd - r0);
 #pragma unroll 4
       for (int d = kg; d < nr; d += G) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(kt + (size_t)d * bs + kc * VEC);
-        const T* e = reinterpret_cast<const T*>(&raw);
+        float kf[VEC];
+        load_f<T, VEC>(kt + (size_t)d * bs + kc * VEC, kf);
 #pragma unroll
-        for (int r = 0; r < REP; ++r) {
+        for (int r = 0; r < R; ++r) {
           const float qd = q_s[r * hd + r0 + d];
 #pragma unroll
-          for (int x = 0; x < VEC; ++x) sp[r][x] += qd * to_f(e[x]);
+          for (int x = 0; x < VEC; ++x) sp[r][x] += qd * kf[x];
         }
       }
     }
 #pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      float4* dst = reinterpret_cast<float4*>(part_s + (kg * REP + r) * bs + kc * VEC);
+    for (int r = 0; r < R; ++r) {
+      float4* dst = reinterpret_cast<float4*>(part_s + (kg * R + r) * bs + kc * VEC);
 #pragma unroll
       for (int x = 0; x < VEC; x += 4)
         dst[x / 4] = make_float4(sp[r][x], sp[r][x + 1], sp[r][x + 2], sp[r][x + 3]);
@@ -504,144 +688,242 @@ __global__ void __launch_bounds__(MAXT)
     __syncthreads();  // every thread is done with this block's K pieces
     refill(i);
 
-    // b. whole scores, the mask, the block's max
+    // b. whole scores (int8: times the token's K scale), the mask, the
+    // block's max
     const bool live = (j0 + jj) * bs + tid <= last;
 #pragma unroll
-    for (int r = 0; r < REP; ++r) {
+    for (int r = 0; r < R; ++r) {
       float v = 0.f;
 #pragma unroll
-      for (int k = 0; k < G; ++k) v += part_s[(k * REP + r) * bs + tid];
+      for (int k = 0; k < G; ++k) v += part_s[(k * R + r) * bs + tid];
+      if constexpr (QUANT) v *= ks_s[jj * bs + tid];
       v = live ? v : -1e30f;
       if (jj == 0)
         s0[r] = v;
       else
-        keep_s[((jj - 1) * REP + r) * bs + tid] = v;
+        keep_s[((jj - 1) * R + r) * bs + tid] = v;
       const float mx = warp_max(v);
-      if (lane == 0) max_s[r * 32 + warp] = mx;
+      if (lane == 0) max_s[r * nwarps + warp] = mx;
     }
     __syncthreads();
 #pragma unroll
-    for (int r = 0; r < REP; ++r) {
+    for (int r = 0; r < R; ++r) {
       float mx = -INFINITY;
-      for (int w = 0; w < nwarps; ++w) mx = fmaxf(mx, max_s[r * 32 + w]);
+      for (int w = 0; w < nwarps; ++w) mx = fmaxf(mx, max_s[r * nwarps + w]);
       smx[r] = fmaxf(smx[r], mx);
-      if (tid == 0) bm_s[jj * REP + r] = mx;
+      if (tid == 0) bm_s[jj * R + r] = mx;
     }
   }
 
   __syncthreads();  // bm_s is complete
 
   // 3. look back: the max of every earlier split's scores seeds the
-  // recurrence, so P is rounded against one walk's running max
+  // recurrence, so P is rounded against one walk's running max. int8
+  // pools never round P, and their splits start from their own max (the
+  // look-back only moved f32 rounding there and cost row 7 10%,
+  // tools/paged_choices.py; the plain version's split form does the same)
   float* mypart = gpart + (size_t)split * pstride;  // smax | m | l | acc
-  float m[REP];
+  float m[R];
 #pragma unroll
-  for (int r = 0; r < REP; ++r) m[r] = -INFINITY;
-  if (nlive > 1) {
-    if (tid == 0) publish_max<REP>(gsync, mypart, split, smx);
-    look_back<REP>(gsync, gpart, pstride, split, nt, m);
+  for (int r = 0; r < R; ++r) m[r] = -INFINITY;
+  if (nlive > 1 && !QUANT) {
+    if (tid == 0) publish_max<R>(gsync, mypart, split, smx);
+    look_back<R>(gsync, gpart, pstride, split, nt, m);
 #pragma unroll
-    for (int r = 0; r < REP; ++r) {
+    for (int r = 0; r < R; ++r) {
       const float mx = warp_max(m[r]);
-      if (lane == 0) lb_s[r * 32 + warp] = mx;
+      if (lane == 0) lb_s[r * nwarps + warp] = mx;
     }
     __syncthreads();
 #pragma unroll
-    for (int r = 0; r < REP; ++r) {
+    for (int r = 0; r < R; ++r) {
       float mx = -INFINITY;
-      for (int w = 0; w < nwarps; ++w) mx = fmaxf(mx, lb_s[r * 32 + w]);
+      for (int w = 0; w < nwarps; ++w) mx = fmaxf(mx, lb_s[r * nwarps + w]);
       m[r] = mx;
     }
   }
 
   // 4. the online softmax over the split's blocks from that max: P
-  // rounded to the pool dtype into p_s, l summed from the unrounded f32
-  // P; then P.V from the V pieces, thread (vd, vpart) over its slice of V
-  // row vd, its 16-byte vectors taken from a rotated start so that the
-  // threads of a phase read different banks
-  const int tp = nt / hd, tpt = bs / tp;
-  const int vd = tid / tp, vpart = tid % tp;
+  // rounded to the pool dtype into p_s (int8: p * vs in f32), l summed
+  // from the unrounded f32 P; then P.V from the V pieces. Decode: thread
+  // (vd, vpart) over its slice of V row vd, its 16-byte vectors taken from
+  // a rotated start so that the threads of a phase read different banks.
+  // Verify: thread (dg, vp) over V rows dg DR .. dg DR + DR - 1 (each p
+  // read once for DR rows), token vectors vp, vp + tp, ... of the block
+  // from a start rotated by dg (so the threads of a phase read different
+  // banks of V and of p); the tp threads of a dgroup are neighbouring
+  // lanes, and threads past hd / DR dgroups only join the shuffles.
+  int tp = VERIFY ? nt * DR / hd : nt / hd;
+  if constexpr (VERIFY)
+    while (tp > 32 || (bs / VEC) % tp) tp >>= 1;
+  const int tpt = bs / tp;
+  const int vd = tid / tp, vpart = tid % tp;  // verify: dgroup vd, part vpart
   const int nvv = tpt / VEC, rot = vd % nvv;
-  float l[REP], acc[REP];
+  const bool pv_on = !VERIFY || vd < hd / DR;
+  float l[R], acc[R][DR];
 #pragma unroll
-  for (int r = 0; r < REP; ++r) l[r] = acc[r] = 0.f;
+  for (int r = 0; r < R; ++r) {
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < DR; ++e) acc[r][e] = 0.f;
+  }
   for (int jj = 0; jj < nb; ++jj) {
-    float alpha[REP];
+    float alpha[R];
 #pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      const float sc = jj == 0 ? s0[r] : keep_s[((jj - 1) * REP + r) * bs + tid];
-      const float m_new = fmaxf(m[r], bm_s[jj * REP + r]);
+    for (int r = 0; r < R; ++r) {
+      const float sc = jj == 0 ? s0[r] : keep_s[((jj - 1) * R + r) * bs + tid];
+      const float m_new = fmaxf(m[r], bm_s[jj * R + r]);
       alpha[r] = exp2f(m[r] - m_new);
       m[r] = m_new;
       const float p = exp2f(sc - m_new);
-      p_s[r * bs + tid] = from_f<T>(p);
+      if constexpr (QUANT)
+        p_s[r * bs + tid] = p * vs_s[jj * bs + tid];
+      else
+        p_s[r * bs + tid] = from_f<T>(p);
       const float ps = warp_sum(p);
-      if (lane == 0) sum_s[r * 32 + warp] = ps;
+      if (lane == 0) sum_s[r * nwarps + warp] = ps;
     }
     __syncthreads();
 #pragma unroll
-    for (int r = 0; r < REP; ++r) {
+    for (int r = 0; r < R; ++r) {
       float sum = 0.f;
-      for (int w = 0; w < nwarps; ++w) sum += sum_s[r * 32 + w];
+      for (int w = 0; w < nwarps; ++w) sum += sum_s[r * nwarps + w];
       l[r] = l[r] * alpha[r] + sum;
     }
-    float pv[REP];
+    // verify: acc takes the block's P.V in place (a thread's share of the
+    // tokens; the tp lanes are summed once, after the last block);
+    // decode: the block's P.V in pv, summed over the tp lanes here
+    [[maybe_unused]] float pv[R];
 #pragma unroll
-    for (int r = 0; r < REP; ++r) pv[r] = 0.f;
+    for (int r = 0; r < R; ++r) {
+      if constexpr (VERIFY) {
+#pragma unroll
+        for (int e = 0; e < DR; ++e) acc[r][e] *= alpha[r];
+      } else {
+        pv[r] = 0.f;
+      }
+    }
     for (int pc = 0; pc < npk; ++pc, ++i) {
       const T* vt = piece_at(i);
-      const int r0 = pc * prow;
-      if (vd >= r0 && vd < r0 + prow) {
-        const T* vrow = vt + (size_t)(vd - r0) * bs + vpart * tpt;
-        const T* pr = p_s + vpart * tpt;
-        int c = rot;
-#pragma unroll 4
-        for (int u = 0; u < nvv; ++u) {
-          const uint4 vv = *reinterpret_cast<const uint4*>(vrow + c * VEC);
-          const T* ve = reinterpret_cast<const T*>(&vv);
+      const int r0 = pc * prow, d0 = vd * DR;
+      if (pv_on && d0 >= r0 && d0 < r0 + prow) {
+        if constexpr (VERIFY) {
+          const T* vrow = vt + (size_t)(d0 - r0) * bs;
+          int c = rot;
+          for (int u = 0; u < nvv; ++u) {
+            const int v0 = (c * tp + vpart) * VEC;  // the vector's first token
+            float vf[DR][VEC];
 #pragma unroll
-          for (int r = 0; r < REP; ++r) {
-            const uint4 pp = *reinterpret_cast<const uint4*>(pr + r * bs + c * VEC);
-            const T* pe = reinterpret_cast<const T*>(&pp);
+            for (int e = 0; e < DR; ++e) load_f<T, VEC>(vrow + (size_t)e * bs + v0, vf[e]);
 #pragma unroll
-            for (int x = 0; x < VEC; ++x) pv[r] += to_f(pe[x]) * to_f(ve[x]);
+            for (int r = 0; r < R; ++r) {
+              float pf[VEC];
+              load_f<PT, VEC>(p_s + r * bs + v0, pf);
+#pragma unroll
+              for (int e = 0; e < DR; ++e)
+#pragma unroll
+                for (int x = 0; x < VEC; ++x) acc[r][e] += pf[x] * vf[e][x];
+            }
+            if (++c == nvv) c = 0;
           }
-          if (++c == nvv) c = 0;
+        } else {
+          const T* vrow = vt + (size_t)(vd - r0) * bs + vpart * tpt;
+          const PT* pr = p_s + vpart * tpt;
+          int c = rot;
+#pragma unroll 4
+          for (int u = 0; u < nvv; ++u) {
+            const uint4 vv = *reinterpret_cast<const uint4*>(vrow + c * VEC);
+            const T* ve = reinterpret_cast<const T*>(&vv);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const uint4 pp = *reinterpret_cast<const uint4*>(pr + r * bs + c * VEC);
+              const T* pe = reinterpret_cast<const T*>(&pp);
+#pragma unroll
+              for (int x = 0; x < VEC; ++x) pv[r] += to_f(pe[x]) * to_f(ve[x]);
+            }
+            if (++c == nvv) c = 0;
+          }
         }
       }
     }
-    // the tp threads of one V row are neighbouring lanes
-    for (int o = tp >> 1; o > 0; o >>= 1)
+    if constexpr (!VERIFY) {
+      // the tp threads of one V row are neighbouring lanes
+      for (int o = tp >> 1; o > 0; o >>= 1)
 #pragma unroll
-      for (int r = 0; r < REP; ++r) pv[r] += __shfl_xor_sync(0xffffffffu, pv[r], o);
+        for (int r = 0; r < R; ++r) pv[r] += __shfl_xor_sync(0xffffffffu, pv[r], o);
 #pragma unroll
-    for (int r = 0; r < REP; ++r) acc[r] = acc[r] * alpha[r] + pv[r];
+      for (int r = 0; r < R; ++r) acc[r][0] = acc[r][0] * alpha[r] + pv[r];
+    }
     __syncthreads();  // p_s, sum_s and this block's V pieces are free
     refill(i);
   }
-
-  // 5. one live split finalises; several leave their partial states, and
-  // the last to finish combines them in split order
-  if (nlive == 1) {
-    if (vpart == 0) {
+  if constexpr (VERIFY) {
+    // the tp threads of one dgroup are neighbouring lanes
+    for (int o = tp >> 1; o > 0; o >>= 1)
 #pragma unroll
-      for (int r = 0; r < REP; ++r) out[q_off + (size_t)r * hd + vd] = acc[r] / fmaxf(l[r], 1e-30f);
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int e = 0; e < DR; ++e) acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], o);
+  }
+
+  // 5. one live split writes its result (decode: finalised; verify: the
+  // partial state); several leave their partial states, and the last to
+  // finish combines them in split order
+  const bool owner = pv_on && vpart == 0;  // holds acc of V rows vd DR ..
+  if (nlive == 1) {
+    if constexpr (VERIFY) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int o = vr.row(r);
+        if (o < 0) continue;
+        if (owner)
+#pragma unroll
+          for (int e = 0; e < DR; ++e) a.out[(size_t)o * hd + vd * DR + e] = acc[r][e];
+        if (tid == 0) {
+          a.m_out[o] = m[r];
+          a.l_out[o] = l[r];
+        }
+      }
+    } else if (owner) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        a.out[q_off + (size_t)r * hd + vd] = acc[r][0] / fmaxf(l[r], 1e-30f);
     }
     return;
   }
   if (tid == 0) {
 #pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      mypart[REP + r] = m[r];
-      mypart[2 * REP + r] = l[r];
+    for (int r = 0; r < R; ++r) {
+      mypart[R + r] = m[r];
+      mypart[2 * R + r] = l[r];
     }
   }
-  if (vpart == 0) {
+  if (owner) {
 #pragma unroll
-    for (int r = 0; r < REP; ++r) mypart[3 * REP + r * hd + vd] = acc[r];
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int e = 0; e < DR; ++e) mypart[3 * R + r * hd + vd * DR + e] = acc[r][e];
   }
   if (!last_split(gsync, nlive, &last_s)) return;
-  combine_splits<REP>(gpart, pstride, nlive, hd, nt, out + q_off, part_s, gsync);
+  if constexpr (VERIFY)
+    combine_splits<R, false>(gpart, pstride, nlive, hd, nt, vr, part_s, gsync);
+  else
+    combine_splits<R>(gpart, pstride, nlive, hd, nt, a.out + q_off, part_s, gsync);
+}
+
+// Rows 3 (WRITE) and 2: the decode entries of the split walk. MAXT bounds
+// bs: blocks of more than 256 tokens take the form compiled for 1024
+// threads (64 registers a thread, where 256 threads leave it 255).
+template <typename T, int REP, bool WRITE, int MAXT>
+__global__ void __launch_bounds__(MAXT) paged_split_kernel(const SplitArgs a) {
+  split_walk<T, REP, WRITE ? kUpdate : kRead>(a);
+}
+
+// Rows 6 (T the pools' and q's type) and 7 (T = int8_t): the verify read
+// of the split walk, chunks of R query rows
+template <typename T, int R, int MAXT>
+__global__ void __launch_bounds__(MAXT) paged_verify_split_kernel(const SplitArgs a) {
+  split_walk<T, R, kVerify>(a);
 }
 
 // int8 decode, grid (nkv, b), blockDim.x == bs. WRITE (row 5): write row
@@ -710,92 +992,6 @@ __global__ void paged_decode_quant_kernel(const Q* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < REP; ++r) out[q_off + (size_t)r * hd + vd] = acc[r] / fmaxf(l[r], 1e-30f);
   }
-}
-
-// grid (nkv, b, ceil(t_fed * rep / RC)), blockDim.x == bs. Local query row
-// i = t * rep + rr of kv-head g is fed token t's head g * rep + rr; this
-// CTA takes rows blockIdx.z * RC + [0, RC). q of type Q, pools of type T.
-template <typename Q, typename T, int RC, bool QUANT>
-__device__ __forceinline__ void verify_body(const Q* __restrict__ q, const T* k_pool,
-                                            const T* v_pool, const int* __restrict__ tables,
-                                            const int* __restrict__ qstart,
-                                            float* __restrict__ acc_out,
-                                            float* __restrict__ m_out,
-                                            float* __restrict__ l_out, int layer, int np,
-                                            int nkv, int rep, int t_fed, int hd, int bs,
-                                            int max_nb, Scales sc) {
-  const int g = blockIdx.x, b = blockIdx.y, row0 = blockIdx.z * RC;
-  const int nh = nkv * rep, nrows = t_fed * rep;
-  const int kvd = nkv * hd;
-  const int tid = threadIdx.x;
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  const int qs = qstart[b];
-
-  // query rows; rows past the last (chunk padding) are zeros and never stored
-  for (int i = tid; i < RC * hd; i += blockDim.x) {
-    const int row = row0 + i / hd, d = i % hd;
-    float v = 0.f;
-    if (row < nrows) {
-      const int t = row / rep, h = g * rep + row % rep;
-      v = to_f(q[(((size_t)b * t_fed + t) * nh + h) * hd + d]);
-    }
-    q_s[i] = v;
-  }
-
-  float m[RC], l[RC], acc[RC];
-  if (qs > 0) {  // uniform over the CTA
-    __syncthreads();
-    walk_blocks<T, RC, QUANT>(k_pool, v_pool, tables + (size_t)b * max_nb, layer, np, kvd,
-                              (size_t)g * hd, hd, bs, qs - 1, smem, m, l, acc, sc);
-  } else {
-#pragma unroll
-    for (int r = 0; r < RC; ++r) {
-      m[r] = -1e30f;
-      l[r] = 0.f;
-      acc[r] = 0.f;
-    }
-  }
-
-  // unfinalised partials: acc [B, T, NH, HD], m and l [B, T, NH]
-  const int tp = blockDim.x / hd, vd = tid / tp, vpart = tid % tp;
-#pragma unroll
-  for (int r = 0; r < RC; ++r) {
-    const int row = row0 + r;
-    if (row >= nrows) break;
-    const size_t o = ((size_t)b * t_fed + row / rep) * nh + g * rep + row % rep;
-    if (vpart == 0) acc_out[o * hd + vd] = acc[r];
-    if (tid == 0) {
-      m_out[o] = m[r];
-      l_out[o] = l[r];
-    }
-  }
-}
-
-template <typename T, int RC>
-__global__ void paged_verify_kernel(const T* __restrict__ q, const T* k_pool, const T* v_pool,
-                                    const int* __restrict__ tables,
-                                    const int* __restrict__ qstart, float* __restrict__ acc_out,
-                                    float* __restrict__ m_out, float* __restrict__ l_out,
-                                    int layer, int np, int nkv, int rep, int t_fed, int hd,
-                                    int bs, int max_nb) {
-  verify_body<T, T, RC, false>(q, k_pool, v_pool, tables, qstart, acc_out, m_out, l_out, layer,
-                               np, nkv, rep, t_fed, hd, bs, max_nb, Scales{});
-}
-
-// int8 pools, q of type Q (f32 or bf16)
-template <typename Q, int RC>
-__global__ void paged_verify_quant_kernel(const Q* __restrict__ q, const int8_t* k_pool,
-                                          const int8_t* v_pool, const float* k_scale,
-                                          const float* v_scale, const int* __restrict__ tables,
-                                          const int* __restrict__ qstart,
-                                          float* __restrict__ acc_out,
-                                          float* __restrict__ m_out, float* __restrict__ l_out,
-                                          int layer, int np, int nkv, int rep, int t_fed,
-                                          int hd, int bs, int max_nb) {
-  verify_body<Q, int8_t, RC, true>(q, k_pool, v_pool, tables, qstart, acc_out, m_out, l_out,
-                                   layer, np, nkv, rep, t_fed, hd, bs, max_nb,
-                                   Scales{k_scale, v_scale, nkv, (int)blockIdx.x});
 }
 
 // The commit of one CTA of grid (ceil(kvd / kCommitSlice), b_rows,
@@ -894,7 +1090,7 @@ cudaError_t set_smem(K kernel, size_t smem) {
 // an SM, 7% faster on even rows on an H100 than K and V in flight together,
 // tools/paged_choices.py); a longer split a ring of two blocks' K and V
 // pieces at most. False if no piece of 8 rows fits.
-template <typename T, int REP>
+template <typename T, int R>
 bool split_geometry(int hd, int bs, int bps, int* prow, int* nbuf, size_t* smem) {
   const size_t row = (size_t)bs * sizeof(T);
   int pr = (int)(kPieceBytes / row) / 8 * 8;
@@ -902,7 +1098,7 @@ bool split_geometry(int hd, int bs, int bps, int* prow, int* nbuf, size_t* smem)
   for (; pr >= 8; pr = pr / 16 * 8) {
     const int npk = (hd + pr - 1) / pr;
     const int nb = bps == 1 ? 1 : 2 * bps * npk < kRing ? 2 * bps * npk : kRing;
-    const size_t bytes = SplitSmem<T, REP>(hd, bs, bps, pr, nb).total;
+    const size_t bytes = SplitSmem<T, R>(hd, bs, bps, pr, nb).total;
     if (bytes + 64 <= 227 * 1024) {  // and the static split_s, last_s
       *prow = pr;
       *nbuf = nb;
@@ -913,68 +1109,33 @@ bool split_geometry(int hd, int bs, int bps, int* prow, int* nbuf, size_t* smem)
   return false;
 }
 
-template <typename T, int REP, bool WRITE, int MAXT>
-cudaError_t launch_split_bounded(const void* q, const void* nk, const void* nv, void* kp,
-                                 void* vp, const void* tables, const void* rows, void* out,
-                                 void* part, void* sync, int b, int layer, int np, int nkv,
-                                 int hd, int bs, int max_nb, int nsplit, cudaStream_t stream) {
-  const int bps = (max_nb + nsplit - 1) / nsplit;  // blocks per split
-  int prow, nbuf;
+// One launch of the split walk: rows 3 and 2, grid (nkv, b, nsplit); the
+// verify read, grid (nkv nchunk, b, nsplit). a carries everything but the
+// geometry, which is set here.
+template <typename T, int R, int MODE, int MAXT>
+cudaError_t launch_split_bounded(SplitArgs a, int b, cudaStream_t stream) {
+  a.bps = (a.max_nb + a.nsplit - 1) / a.nsplit;  // blocks per split
   size_t smem;
-  if (!split_geometry<T, REP>(hd, bs, bps, &prow, &nbuf, &smem)) return cudaErrorInvalidValue;
-  cudaError_t e = set_smem(paged_split_kernel<T, REP, WRITE, MAXT>, smem);
-  if (e != cudaSuccess) return e;
-  paged_split_kernel<T, REP, WRITE, MAXT><<<dim3(nkv, b, nsplit), bs, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(nk), static_cast<const T*>(nv),
-      static_cast<T*>(kp), static_cast<T*>(vp), static_cast<const int*>(tables),
-      static_cast<const int*>(rows), static_cast<float*>(out), static_cast<float*>(part),
-      static_cast<int*>(sync), layer, np, nkv, hd, bs, max_nb, nsplit, bps, prow, nbuf);
+  if (!split_geometry<T, R>(a.hd, a.bs, a.bps, &a.prow, &a.nbuf, &smem))
+    return cudaErrorInvalidValue;
+  if constexpr (MODE == kVerify) {
+    cudaError_t e = set_smem(paged_verify_split_kernel<T, R, MAXT>, smem);
+    if (e != cudaSuccess) return e;
+    paged_verify_split_kernel<T, R, MAXT>
+        <<<dim3(a.nkv * a.nchunk, b, a.nsplit), a.bs, smem, stream>>>(a);
+  } else {
+    cudaError_t e = set_smem(paged_split_kernel<T, R, MODE == kUpdate, MAXT>, smem);
+    if (e != cudaSuccess) return e;
+    paged_split_kernel<T, R, MODE == kUpdate, MAXT>
+        <<<dim3(a.nkv, b, a.nsplit), a.bs, smem, stream>>>(a);
+  }
   return cudaSuccess;
 }
 
-template <typename T, int REP, bool WRITE>
-cudaError_t launch_split(const void* q, const void* nk, const void* nv, void* kp, void* vp,
-                         const void* tables, const void* rows, void* out, void* part,
-                         void* sync, int b, int layer, int np, int nkv, int hd, int bs,
-                         int max_nb, int nsplit, cudaStream_t stream) {
-  if (bs <= 256)
-    return launch_split_bounded<T, REP, WRITE, 256>(q, nk, nv, kp, vp, tables, rows, out, part,
-                                                    sync, b, layer, np, nkv, hd, bs, max_nb,
-                                                    nsplit, stream);
-  return launch_split_bounded<T, REP, WRITE, 1024>(q, nk, nv, kp, vp, tables, rows, out, part,
-                                                   sync, b, layer, np, nkv, hd, bs, max_nb,
-                                                   nsplit, stream);
-}
-
-template <typename T, int RC>
-cudaError_t launch_verify(const void* q, const void* kp, const void* vp, const void* tables,
-                          const void* qstart, void* acc, void* m, void* l, int b, int t_fed,
-                          int layer, int np, int nkv, int rep, int hd, int bs, int max_nb,
-                          cudaStream_t stream) {
-  const size_t smem = walk_smem_bytes<T, RC>(hd, bs);
-  cudaError_t e = set_smem(paged_verify_kernel<T, RC>, smem);
-  if (e != cudaSuccess) return e;
-  const int chunks = (t_fed * rep + RC - 1) / RC;
-  paged_verify_kernel<T, RC><<<dim3(nkv, b, chunks), bs, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
-      static_cast<const int*>(tables), static_cast<const int*>(qstart),
-      static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l), layer, np,
-      nkv, rep, t_fed, hd, bs, max_nb);
-  return cudaSuccess;
-}
-
-// the chunk height: the query rows of one (row, kv-head), rounded up to a
-// power of two, at most 8
-template <typename T>
-cudaError_t verify_rows(const void* q, const void* kp, const void* vp, const void* tables,
-                        const void* qstart, void* acc, void* m, void* l, int b, int t_fed,
-                        int layer, int np, int nkv, int rep, int hd, int bs, int max_nb,
-                        cudaStream_t s) {
-  const int r = t_fed * rep;
-  if (r <= 1) return launch_verify<T, 1>(q, kp, vp, tables, qstart, acc, m, l, b, t_fed, layer, np, nkv, rep, hd, bs, max_nb, s);
-  if (r <= 2) return launch_verify<T, 2>(q, kp, vp, tables, qstart, acc, m, l, b, t_fed, layer, np, nkv, rep, hd, bs, max_nb, s);
-  if (r <= 4) return launch_verify<T, 4>(q, kp, vp, tables, qstart, acc, m, l, b, t_fed, layer, np, nkv, rep, hd, bs, max_nb, s);
-  return launch_verify<T, 8>(q, kp, vp, tables, qstart, acc, m, l, b, t_fed, layer, np, nkv, rep, hd, bs, max_nb, s);
+template <typename T, int R, int MODE>
+cudaError_t launch_split(const SplitArgs& a, int b, cudaStream_t stream) {
+  if (a.bs <= 256) return launch_split_bounded<T, R, MODE, 256>(a, b, stream);
+  return launch_split_bounded<T, R, MODE, 1024>(a, b, stream);
 }
 
 // the geometry both attention entries take
@@ -1003,22 +1164,99 @@ int split_entry(const void* q, const void* nk, const void* nv, void* kp, void* v
       nsplit > kMaxSplits || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (b > 0) {
-#define PA_SPLIT(T, REP)                                                                       \
-  launch_split<T, REP, WRITE>(q, nk, nv, kp, vp, tables, rows, out, part, sync, b, layer, np, nkv, \
-                              hd, bs, max_nb, nsplit, s)
+    SplitArgs a{};
+    a.q = q;
+    a.new_k = nk;
+    a.new_v = nv;
+    a.k_pool = kp;
+    a.v_pool = vp;
+    a.tables = static_cast<const int*>(tables);
+    a.rows = static_cast<const int*>(rows);
+    a.out = static_cast<float*>(out);
+    a.part = static_cast<float*>(part);
+    a.sync = static_cast<int*>(sync);
+    a.layer = layer;
+    a.np = np;
+    a.nkv = nkv;
+    a.hd = hd;
+    a.bs = bs;
+    a.max_nb = max_nb;
+    a.nsplit = nsplit;
+    a.rep = nh / nkv;
+    a.nchunk = 1;
+    constexpr int M = WRITE ? kUpdate : kRead;
     cudaError_t e;
     switch (nh / nkv * 2 + dtype) {
-      case 2: e = PA_SPLIT(float, 1); break;
-      case 3: e = PA_SPLIT(__nv_bfloat16, 1); break;
-      case 4: e = PA_SPLIT(float, 2); break;
-      case 5: e = PA_SPLIT(__nv_bfloat16, 2); break;
-      case 8: e = PA_SPLIT(float, 4); break;
-      case 9: e = PA_SPLIT(__nv_bfloat16, 4); break;
-      case 16: e = PA_SPLIT(float, 8); break;
-      case 17: e = PA_SPLIT(__nv_bfloat16, 8); break;
+      case 2: e = launch_split<float, 1, M>(a, b, s); break;
+      case 3: e = launch_split<__nv_bfloat16, 1, M>(a, b, s); break;
+      case 4: e = launch_split<float, 2, M>(a, b, s); break;
+      case 5: e = launch_split<__nv_bfloat16, 2, M>(a, b, s); break;
+      case 8: e = launch_split<float, 4, M>(a, b, s); break;
+      case 9: e = launch_split<__nv_bfloat16, 4, M>(a, b, s); break;
+      case 16: e = launch_split<float, 8, M>(a, b, s); break;
+      case 17: e = launch_split<__nv_bfloat16, 8, M>(a, b, s); break;
       default: return (int)cudaErrorInvalidValue;
     }
-#undef PA_SPLIT
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
+// rows 6 (pools T of q's type) and 7 (T = int8_t): the verify read in
+// chunks of `height` query rows, one of the compiled heights
+template <typename T>
+cudaError_t launch_verify(const SplitArgs& a, int b, int height, cudaStream_t s) {
+  switch (height) {
+    case 2: return launch_split<T, 2, kVerify>(a, b, s);
+    case 4: return launch_split<T, 4, kVerify>(a, b, s);
+    case 5: return launch_split<T, 5, kVerify>(a, b, s);
+    case 8: return launch_split<T, 8, kVerify>(a, b, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// rows 6 and 7: the shared entry (ks, vs null over float pools); quant
+// selects int8 pools with q of type dtype, else pools and q of that type
+int verify_entry(bool quant, const void* q, const void* kp, const void* vp, const void* ks,
+                 const void* vs, const void* tables, const void* qstart, void* acc, void* m,
+                 void* l, void* part, void* sync, int b, int t_fed, int layer, int np, int nh,
+                 int nkv, int hd, int bs, int max_nb, int nsplit, int nchunk, int height,
+                 int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows = nkv > 0 ? t_fed * (nh / nkv) : 0;
+  if ((quant ? bad_quant_geometry(nh, nkv, hd, bs) : bad_geometry(nh, nkv, hd, bs)) ||
+      t_fed < 1 || t_fed > kMaxFed || max_nb < 1 || nsplit < 1 || nsplit > max_nb ||
+      nsplit > kMaxSplits || (dtype != 0 && dtype != 1) || nchunk < 1 ||
+      nchunk * height < rows || (nchunk - 1) * height >= rows)
+    return (int)cudaErrorInvalidValue;
+  if (b > 0) {
+    SplitArgs a{};
+    a.q = q;
+    a.k_pool = const_cast<void*>(kp);
+    a.v_pool = const_cast<void*>(vp);
+    a.k_scale = static_cast<const float*>(ks);
+    a.v_scale = static_cast<const float*>(vs);
+    a.tables = static_cast<const int*>(tables);
+    a.rows = static_cast<const int*>(qstart);
+    a.out = static_cast<float*>(acc);
+    a.m_out = static_cast<float*>(m);
+    a.l_out = static_cast<float*>(l);
+    a.part = static_cast<float*>(part);
+    a.sync = static_cast<int*>(sync);
+    a.layer = layer;
+    a.np = np;
+    a.nkv = nkv;
+    a.hd = hd;
+    a.bs = bs;
+    a.max_nb = max_nb;
+    a.nsplit = nsplit;
+    a.rep = nh / nkv;
+    a.t_fed = t_fed;
+    a.nchunk = nchunk;
+    a.q_bf16 = dtype;
+    const cudaError_t e = quant       ? launch_verify<int8_t>(a, b, height, s)
+                          : dtype == 0 ? launch_verify<float>(a, b, height, s)
+                                       : launch_verify<__nv_bfloat16>(a, b, height, s);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
@@ -1074,42 +1312,6 @@ int decode_quant_entry(const void* q, const void* nk, const void* nv, const void
   return (int)cudaGetLastError();
 }
 
-template <typename Q, int RC>
-cudaError_t launch_verify_quant(const void* q, const void* kp, const void* vp, const void* ks,
-                                const void* vs, const void* tables, const void* qstart,
-                                void* acc, void* m, void* l, int b, int t_fed, int layer,
-                                int np, int nkv, int rep, int hd, int bs, int max_nb,
-                                cudaStream_t stream) {
-  const size_t smem = walk_smem_bytes<int8_t, RC>(hd, bs);
-  cudaError_t e = set_smem(paged_verify_quant_kernel<Q, RC>, smem);
-  if (e != cudaSuccess) return e;
-  const int chunks = (t_fed * rep + RC - 1) / RC;
-  paged_verify_quant_kernel<Q, RC><<<dim3(nkv, b, chunks), bs, smem, stream>>>(
-      static_cast<const Q*>(q), static_cast<const int8_t*>(kp), static_cast<const int8_t*>(vp),
-      static_cast<const float*>(ks), static_cast<const float*>(vs),
-      static_cast<const int*>(tables), static_cast<const int*>(qstart),
-      static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l), layer, np,
-      nkv, rep, t_fed, hd, bs, max_nb);
-  return cudaSuccess;
-}
-
-// the chunk height as for verify_rows
-template <typename Q>
-cudaError_t verify_quant_rows(const void* q, const void* kp, const void* vp, const void* ks,
-                              const void* vs, const void* tables, const void* qstart,
-                              void* acc, void* m, void* l, int b, int t_fed, int layer, int np,
-                              int nkv, int rep, int hd, int bs, int max_nb, cudaStream_t s) {
-#define PA_VERIFY_QUANT(RC)                                                                   \
-  launch_verify_quant<Q, RC>(q, kp, vp, ks, vs, tables, qstart, acc, m, l, b, t_fed, layer, np, \
-                             nkv, rep, hd, bs, max_nb, s)
-  const int r = t_fed * rep;
-  if (r <= 1) return PA_VERIFY_QUANT(1);
-  if (r <= 2) return PA_VERIFY_QUANT(2);
-  if (r <= 4) return PA_VERIFY_QUANT(4);
-  return PA_VERIFY_QUANT(8);
-#undef PA_VERIFY_QUANT
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, new_k/new_v and pools share it).
@@ -1146,28 +1348,20 @@ extern "C" int paged_attention_fwd(const void* q, const void* kp, const void* vp
 // q [b, t_fed, nh, hd] pre-scaled, in the pools' dtype; acc [b, t_fed, nh,
 // hd], m and l [b, t_fed, nh], all f32. The geometry is that of
 // paged_attend_update_fwd, with 1 <= t_fed <= 8 and (qstart[b] - 1) / bs <
-// max_nb for every row with qstart[b] > 0.
+// max_nb for every row with qstart[b] > 0. The t_fed * nh / nkv query rows
+// of a (row, kv-head) go in nchunk chunks of height in {2, 4, 5, 8} rows
+// (the last chunk may be short, none empty); part is f32 scratch of b * nkv
+// * nchunk * nsplit * (3 + hd) * height floats, sync b * nkv * nchunk * (2 +
+// nsplit) ints, zero (each launch leaves it zero).
 extern "C" int paged_attention_verify_fwd(const void* q, const void* kp, const void* vp,
                                           const void* tables, const void* qstart, void* acc,
-                                          void* m, void* l, int b, int t_fed, int layer,
-                                          int np, int nh, int nkv, int hd, int bs,
-                                          int max_nb, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_geometry(nh, nkv, hd, bs) || t_fed < 1 || t_fed > kMaxFed)
-    return (int)cudaErrorInvalidValue;
-  if (b > 0) {
-    cudaError_t e;
-    if (dtype == 0)
-      e = verify_rows<float>(q, kp, vp, tables, qstart, acc, m, l, b, t_fed, layer, np, nkv,
-                             nh / nkv, hd, bs, max_nb, s);
-    else if (dtype == 1)
-      e = verify_rows<__nv_bfloat16>(q, kp, vp, tables, qstart, acc, m, l, b, t_fed, layer,
-                                     np, nkv, nh / nkv, hd, bs, max_nb, s);
-    else
-      return (int)cudaErrorInvalidValue;
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaGetLastError();
+                                          void* m, void* l, void* part, void* sync, int b,
+                                          int t_fed, int layer, int np, int nh, int nkv, int hd,
+                                          int bs, int max_nb, int nsplit, int nchunk,
+                                          int height, int dtype, void* stream) {
+  return verify_entry(false, q, kp, vp, nullptr, nullptr, tables, qstart, acc, m, l, part, sync,
+                      b, t_fed, layer, np, nh, nkv, hd, bs, max_nb, nsplit, nchunk, height,
+                      dtype, stream);
 }
 
 // new_k/new_v [n_layers, b, t_fed, kvd] in the pools' dtype, pools [n_layers,
@@ -1230,28 +1424,18 @@ extern "C" int paged_attention_quant_fwd(const void* q, const void* kp, const vo
                                    stream);
 }
 
+// Row 7: paged_attention_verify_fwd's contract over int8 pools and their
+// scale pools (16-byte aligned), q of type dtype
 extern "C" int paged_attention_verify_quant_fwd(const void* q, const void* kp, const void* vp,
                                                 const void* ks, const void* vs,
                                                 const void* tables, const void* qstart,
-                                                void* acc, void* m, void* l, int b, int t_fed,
-                                                int layer, int np, int nh, int nkv, int hd,
-                                                int bs, int max_nb, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_quant_geometry(nh, nkv, hd, bs) || t_fed < 1 || t_fed > kMaxFed)
-    return (int)cudaErrorInvalidValue;
-  if (b > 0) {
-    cudaError_t e;
-    if (dtype == 0)
-      e = verify_quant_rows<float>(q, kp, vp, ks, vs, tables, qstart, acc, m, l, b, t_fed,
-                                   layer, np, nkv, nh / nkv, hd, bs, max_nb, s);
-    else if (dtype == 1)
-      e = verify_quant_rows<__nv_bfloat16>(q, kp, vp, ks, vs, tables, qstart, acc, m, l, b,
-                                           t_fed, layer, np, nkv, nh / nkv, hd, bs, max_nb, s);
-    else
-      return (int)cudaErrorInvalidValue;
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaGetLastError();
+                                                void* acc, void* m, void* l, void* part,
+                                                void* sync, int b, int t_fed, int layer, int np,
+                                                int nh, int nkv, int hd, int bs, int max_nb,
+                                                int nsplit, int nchunk, int height, int dtype,
+                                                void* stream) {
+  return verify_entry(true, q, kp, vp, ks, vs, tables, qstart, acc, m, l, part, sync, b, t_fed,
+                      layer, np, nh, nkv, hd, bs, max_nb, nsplit, nchunk, height, dtype, stream);
 }
 
 // new_k/new_v int8 [n_layers, b, t_fed, kvd], new_ks/new_vs f32 [n_layers,
@@ -1290,21 +1474,31 @@ int occupancy(K kernel, int bs, size_t smem) {
 
 template <int R>
 int quant_occupancy(int kind, int hd, int bs) {
-  const size_t smem = walk_smem_bytes<int8_t, R>(hd, bs);
-  if (kind == 0) return occupancy(paged_decode_quant_kernel<__nv_bfloat16, R, true>, bs, smem);
-  return occupancy(paged_verify_quant_kernel<__nv_bfloat16, R>, bs, smem);
+  if (kind == 0)
+    return occupancy(paged_decode_quant_kernel<__nv_bfloat16, R, true>, bs,
+                     walk_smem_bytes<int8_t, R>(hd, bs));
+  int prow, nbuf;
+  size_t smem;
+  if (!split_geometry<int8_t, R>(hd, bs, 1, &prow, &nbuf, &smem)) return -1;
+  return bs <= 256 ? occupancy(paged_verify_split_kernel<int8_t, R, 256>, bs, smem)
+                   : occupancy(paged_verify_split_kernel<int8_t, R, 1024>, bs, smem);
 }
 }  // namespace
 
-// CTAs per SM that the int8 walks reach with bf16 q, bs threads and their
-// shared memory: kind 0 the decode kernel at REP = rows, kind 1 the verify
-// kernel at RC = rows; -1 on a bad argument or a CUDA error
+// CTAs per SM that the int8 kernels reach with bs threads and their shared
+// memory: kind 0 the decode walk (rows 5, 4) with bf16 q at REP = rows in
+// {1, 2, 4, 8}; kind 1 the verify read (row 7) in chunks of rows in {2, 4,
+// 5, 8}, one block a split; -1 on a bad argument or a CUDA error
 extern "C" int paged_quant_occupancy(int kind, int rows, int hd, int bs) {
-  switch (rows) {
-    case 1: return quant_occupancy<1>(kind, hd, bs);
-    case 2: return quant_occupancy<2>(kind, hd, bs);
-    case 4: return quant_occupancy<4>(kind, hd, bs);
-    case 8: return quant_occupancy<8>(kind, hd, bs);
+  switch (rows * 2 + (kind != 0)) {
+    case 2: return quant_occupancy<1>(0, hd, bs);
+    case 4: return quant_occupancy<2>(0, hd, bs);
+    case 5: return quant_occupancy<2>(1, hd, bs);
+    case 8: return quant_occupancy<4>(0, hd, bs);
+    case 9: return quant_occupancy<4>(1, hd, bs);
+    case 11: return quant_occupancy<5>(1, hd, bs);
+    case 16: return quant_occupancy<8>(0, hd, bs);
+    case 17: return quant_occupancy<8>(1, hd, bs);
     default: return -1;
   }
 }

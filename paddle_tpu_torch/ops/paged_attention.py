@@ -53,14 +53,18 @@ domain; the TPU default's tile-0-anchored variant is not ported. The
 merge of verify partials is exact for any anchor, so the two compare
 through :func:`merge_verify_partials` or acc / l and m + log2(l).
 
-On the card rows 3 and 2 split each row's context across CTAs
+On the card rows 3, 2, 6 and 7 split each row's context across CTAs
 (:func:`kernel_splits` splits from the table width and the block size).
 Each split starts from the max of the scores before it, so P is rounded
-as in one walk; the partial states are combined in split order (the same
-bits on every run), and only that f32 combine differs from one walk.
-``paged_attend_update_plain(..., splits=n)`` and
-``paged_attention_plain(..., splits=n)`` are the same computation for n
-splits.
+as in one walk (the int8 verify read, which never rounds P, lets each
+split start from its own max); the partial states are combined in split
+order (the same bits on every run), and only that f32 combine differs
+from one walk (the verify reads leave the combined state unfinalised).
+The plain versions' ``splits=n`` (``paged_attend_update_plain``,
+``paged_attention_plain``, ``paged_attention_verify_plain``,
+``paged_attention_verify_quant_plain``) is the same computation for n
+splits. The verify kernels take a (row, kv-head)'s T * NH / NKV query
+rows in chunks (:func:`verify_chunks`).
 """
 from __future__ import annotations
 
@@ -122,53 +126,86 @@ def _attend_plain(q, k_pool, v_pool, tables, last, layer, splits=1):
     block by block (P rounded to the pool dtype before P.V, the
     normaliser summed from the unrounded f32 P). Returns [B, NH, HD] f32.
 
-    ``splits`` > 1 is the kernel's split-context form: a row's blocks are
-    cut into runs of :func:`split_blocks` blocks, each run takes the same
-    recurrence from the max of all scores before it (so P is rounded
-    against the same running max as one walk), and the partial states of
-    the row's live runs are combined in run order."""
+    ``splits`` > 1 is the kernel's split-context form
+    (:func:`_online_walk`)."""
     B, NH, HD = q.shape
     bs = k_pool.shape[-1]
     nkv = k_pool.shape[2] // HD
-    rep = NH // nkv
+    acc, _, l = _online_walk(
+        q.float().reshape(B, nkv, NH // nkv, HD), tables, last, bs,
+        _pool_blocks(k_pool, v_pool, layer, B, nkv, HD),
+        lambda p: p.to(v_pool.dtype).float(), splits)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, NH, HD)
+
+
+def _pool_blocks(k_pool, v_pool, layer, B, nkv, HD):
+    """K and V [B, NKV, HD, bs] f32 of the pool blocks blk [B] at
+    ``layer``: the block reader of :func:`_online_walk`."""
+    bs = k_pool.shape[-1]
+
+    def block(blk):
+        return (k_pool[layer, blk].float().reshape(B, nkv, HD, bs),
+                v_pool[layer, blk].float().reshape(B, nkv, HD, bs))
+    return block
+
+
+def _online_walk(qf, tables, last, bs, block, round_p, splits=1,
+                 look_back=True):
+    """The kernels' online softmax of the query rows qf [B, NKV, R, HD] f32
+    over tokens 0..last[b] of each row, pool block by pool block:
+    ``block(blk)`` gives K and V [B, NKV, HD, bs] f32 of the blocks blk [B],
+    ``round_p`` rounds P before P.V (to the pool dtype; int8 pools keep it
+    f32), and l sums the unrounded P. Returns the unfinalised (acc [B, NKV,
+    R, HD], m [B, NKV, R], l [B, NKV, R]); a row with last < 0 comes back
+    with meaningless partials for the caller to replace.
+
+    ``splits`` > 1 is the kernels' split-context form: a row's blocks are
+    cut into runs of :func:`split_blocks` blocks, each run takes the same
+    recurrence from the max of all scores before it (so P is rounded
+    against the same running max as one walk), and the partial states of
+    the row's live runs are combined in run order, unfinalised: acc = sum
+    acc_k w_k, l = sum l_k w_k, m = max m_k, w_k = exp2(m_k - m). Without
+    ``look_back`` each run starts from its own max instead (the int8 verify
+    kernel's form: P is never rounded there)."""
+    B, nkv, R, HD = qf.shape
+    dev = qf.device
     run = split_blocks(tables.shape[1], splits)
-    qf = q.float().reshape(B, nkv, rep, HD)
-    m = torch.full((B, nkv, rep), float("-inf"), device=q.device)
-    l = torch.zeros((B, nkv, rep), device=q.device)
-    acc = torch.zeros((B, nkv, rep, HD), device=q.device)
-    col = torch.arange(bs, device=q.device)
+    m = torch.full((B, nkv, R), float("-inf"), device=dev)
+    l = torch.zeros((B, nkv, R), device=dev)
+    acc = torch.zeros((B, nkv, R, HD), device=dev)
+    col = torch.arange(bs, device=dev)
     parts = []
-    for j in range(int(last.max()) // bs + 1):
+    for j in range(int(last.max()) // bs + 1 if B else 0):
         if j and j % run == 0:     # a run ends; the next starts from m
-            parts.append((m, l, acc))
+            parts.append((m, l, acc))  # (or from its own max)
             l, acc = torch.zeros_like(l), torch.zeros_like(acc)
-        blk = tables[:, j].long()
-        kt = k_pool[layer, blk].float().reshape(B, nkv, HD, bs)
-        vt = v_pool[layer, blk].float().reshape(B, nkv, HD, bs)
+            if not look_back:
+                m = torch.full_like(m, float("-inf"))
+        kt, vt = block(tables[:, j].long())
         s = torch.einsum("bgrd,bgdt->bgrt", qf, kt)
         live = (j * bs + col)[None, :] <= last[:, None]            # [B, bs]
         s = torch.where(live[:, None, None, :], s,
-                        torch.tensor(-1e30, device=q.device))
+                        torch.tensor(-1e30, device=dev))
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new[..., None])
         l = l * alpha + p.sum(dim=-1)
-        pv = torch.einsum("bgrt,bgdt->bgrd", p.to(v_pool.dtype).float(), vt)
+        pv = torch.einsum("bgrt,bgdt->bgrd", round_p(p), vt)
         acc = acc * alpha[..., None] + pv
         m = m_new
     if parts:
         parts.append((m, l, acc))
         live = [(k * run * bs <= last)[:, None, None]
                 for k in range(len(parts))]
-        mx = torch.stack([torch.where(lv, mk, float("-inf"))
-                          for lv, (mk, _, _) in zip(live, parts)]).amax(0)
+        m = torch.stack([torch.where(lv, mk, float("-inf"))
+                         for lv, (mk, _, _) in zip(live, parts)]).amax(0)
         l, acc = torch.zeros_like(l), torch.zeros_like(acc)
         for lv, (mk, lk, ak) in zip(live, parts):
-            w = torch.exp2(mk - mx)
+            w = torch.exp2(mk - m)
             l = torch.where(lv, l + lk * w, l)
             acc = torch.where(lv[..., None], acc + ak * w[..., None], acc)
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(B, NH, HD)
+    return acc, m, l
 
 
 def _check_geometry(what, NH, KVD, HD, bs):
@@ -348,49 +385,50 @@ def merge_verify_partials(acc_c, m_c, l_c, acc_f, m_f, l_f):
 
 
 def paged_attention_verify_plain(q, k_pool, v_pool, tables, qstart,
-                                 layer: int):
+                                 layer: int, splits: int = 1):
     """Plain PyTorch version on any device, block by block with the
     kernel's online softmax over tokens 0..qstart-1: P rounded to the pool
     dtype before P.V, l summed from the unrounded f32 P. Returns the
     unfinalised (acc [B, T, NH, HD], m [B, T, NH], l [B, T, NH]) f32;
-    rows with qstart 0 get acc = 0, l = 0, m = -1e30."""
+    rows with qstart 0 get acc = 0, l = 0, m = -1e30.
+
+    ``splits`` > 1 runs the kernel's split-context form
+    (:func:`_online_walk`); pass :func:`kernel_splits` for the kernel's
+    own split."""
     B, T, NH, HD = q.shape
-    bs = k_pool.shape[-1]
     nkv = k_pool.shape[2] // HD
+    partials = _online_walk(
+        _verify_rows(q, nkv), tables, qstart.long() - 1, k_pool.shape[-1],
+        _pool_blocks(k_pool, v_pool, layer, B, nkv, HD),
+        lambda p: p.to(v_pool.dtype).float(), splits)
+    return _verify_heads(partials, qstart, T)
+
+
+def _verify_rows(q, nkv):
+    """q [B, T, NH, HD] as the kernels' query rows of kv-head g [B, NKV,
+    T * rep, HD] f32: row i = t * rep + rr is token t's head g * rep + rr."""
+    B, T, NH, HD = q.shape
     rep = NH // nkv
-    R = T * rep
-    dev = q.device
-    last = qstart.long() - 1
-    # the kernel's rows of kv-head g: i = t * rep + rr
-    qf = q.float().reshape(B, T, nkv, rep, HD).transpose(1, 2) \
-        .reshape(B, nkv, R, HD)
-    m = torch.full((B, nkv, R), float("-inf"), device=dev)
-    l = torch.zeros((B, nkv, R), device=dev)
-    acc = torch.zeros((B, nkv, R, HD), device=dev)
-    col = torch.arange(bs, device=dev)
-    for j in range(int(last.max()) // bs + 1 if B else 0):
-        blk = tables[:, j].long()
-        kt = k_pool[layer, blk].float().reshape(B, nkv, HD, bs)
-        vt = v_pool[layer, blk].float().reshape(B, nkv, HD, bs)
-        s = torch.einsum("bgrd,bgdt->bgrt", qf, kt)
-        live = (j * bs + col)[None, :] <= last[:, None]           # [B, bs]
-        s = torch.where(live[:, None, None, :], s,
-                        torch.tensor(-1e30, device=dev))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        alpha = torch.exp2(m - m_new)
-        p = torch.exp2(s - m_new[..., None])
-        l = l * alpha + p.sum(dim=-1)
-        pv = torch.einsum("bgrt,bgdt->bgrd", p.to(v_pool.dtype).float(), vt)
-        acc = acc * alpha[..., None] + pv
-        m = m_new
+    return q.float().reshape(B, T, nkv, rep, HD).transpose(1, 2) \
+        .reshape(B, nkv, T * rep, HD)
+
+
+def _verify_heads(partials, qstart, T):
+    """The verify walk's (acc, m, l) over the rows of :func:`_verify_rows`
+    back to per-head partials (acc [B, T, NH, HD], m and l [B, T, NH]), a
+    row with qstart 0 given acc = 0, l = 0, m = -1e30."""
+    acc, m, l = partials
+    B, nkv, R, HD = acc.shape
+    rep = R // T
+    dev = acc.device
     dead = (qstart <= 0)[:, None, None]
     m = torch.where(dead, torch.tensor(-1e30, device=dev), m)
     l = torch.where(dead, torch.tensor(0.0, device=dev), l)
     acc = torch.where(dead[..., None], torch.tensor(0.0, device=dev), acc)
     acc = acc.reshape(B, nkv, T, rep, HD).transpose(1, 2) \
-        .reshape(B, T, NH, HD)
-    m = m.reshape(B, nkv, T, rep).transpose(1, 2).reshape(B, T, NH)
-    l = l.reshape(B, nkv, T, rep).transpose(1, 2).reshape(B, T, NH)
+        .reshape(B, T, nkv * rep, HD)
+    m = m.reshape(B, nkv, T, rep).transpose(1, 2).reshape(B, T, nkv * rep)
+    l = l.reshape(B, nkv, T, rep).transpose(1, 2).reshape(B, T, nkv * rep)
     return acc, m, l
 
 
@@ -413,6 +451,53 @@ def _check_verify(q, k_pool, v_pool, tables, qstart, layer):
         raise ValueError(f"{what}: layer {layer} outside [0, {L})")
 
 
+# The verify read's chunks (csrc/paged_attention.cu): the query rows of a
+# (row, kv-head) in chunks of one of these heights, the kernels compiled
+# for them
+VERIFY_HEIGHTS = (2, 4, 5, 8)
+
+
+def verify_chunks(rows: int) -> tuple[int, int]:
+    """(chunks, height) of the verify kernels for ``rows`` = T * NH / NKV
+    query rows of a (row, kv-head): as few chunks as the largest height
+    allows, each of the least compiled height that holds an even share
+    (llama_7b's T = 5 at MHA: one chunk of 5, no padding row)."""
+    n = -(-rows // max(VERIFY_HEIGHTS))
+    height = min(h for h in VERIFY_HEIGHTS if h >= -(-rows // n))
+    return -(-rows // height), height
+
+
+def _launch_verify(what, symbol, ptrs, q, k_pool, tables, layer):
+    """Rows 6 and 7 on the card: ``ptrs`` are the entry's leading tensor
+    arguments; the outputs, the split scratch and the sync words follow.
+    Returns (acc, m, l)."""
+    if any(t.data_ptr() % 16 for t in ptrs[:-2]):
+        raise ValueError(f"{what}: q, the pools and the scale pools must "
+                         f"start on 16-byte aligned storage")
+    B, T, NH, HD = q.shape
+    _, NP, KVD, bs = k_pool.shape
+    nkv, max_nb = KVD // HD, tables.shape[1]
+    nsplit = kernel_splits(max_nb, bs)
+    nchunk, height = verify_chunks(T * (NH // nkv))
+    dev = q.device
+    acc = torch.empty((B, T, NH, HD), dtype=torch.float32, device=dev)
+    m = torch.empty((B, T, NH), dtype=torch.float32, device=dev)
+    l = torch.empty((B, T, NH), dtype=torch.float32, device=dev)
+    part = torch.empty(B * nkv * nchunk * nsplit * (3 + HD) * height,
+                       dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev)
+    sync = _sync_words(B * nkv * nchunk * (2 + nsplit), dev, stream)
+    fn = _build.kernel("paged_attention", symbol,
+                       [ctypes.c_void_p] * (len(ptrs) + 5)
+                       + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+    err = fn(*(t.data_ptr() for t in ptrs), acc.data_ptr(), m.data_ptr(),
+             l.data_ptr(), part.data_ptr(), sync.data_ptr(), B, T,
+             int(layer), NP, NH, nkv, HD, bs, max_nb, nsplit, nchunk, height,
+             _DTYPE_CODE[q.dtype], stream.cuda_stream)
+    _build.check("paged_attention", err, what)
+    return acc, m, l
+
+
 def paged_attention_verify(q, k_pool, v_pool, tables, qstart, layer: int):
     """Multi-token verification read over each row's CACHED prefix
     (tokens 0..qstart[b]-1). q [B, T, NH, HD] is pre-scaled by
@@ -430,25 +515,12 @@ def paged_attention_verify(q, k_pool, v_pool, tables, qstart, layer: int):
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_verify: unsupported device "
                          f"{q.device}")
-    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
-        raise ValueError("paged_attention_verify: q and the pools must "
-                         "start on 16-byte aligned storage")
-    B, T, NH, HD = q.shape
-    _, NP, KVD, bs = k_pool.shape
-    acc = torch.empty((B, T, NH, HD), dtype=torch.float32, device=q.device)
-    m = torch.empty((B, T, NH), dtype=torch.float32, device=q.device)
-    l = torch.empty((B, T, NH), dtype=torch.float32, device=q.device)
-    fn = _build.kernel("paged_attention", "paged_attention_verify_fwd",
-                       [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
-                       + [ctypes.c_void_p])
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             tables.data_ptr(), qstart.data_ptr(), acc.data_ptr(),
-             m.data_ptr(), l.data_ptr(), B, T, int(layer), NP, NH,
-             KVD // HD, HD, bs, tables.shape[1], _DTYPE_CODE[q.dtype],
-             _stream(q))
-    _build.check("paged_attention", err, "paged_attention_verify")
+    out = _launch_verify("paged_attention_verify",
+                         "paged_attention_verify_fwd",
+                         (q, k_pool, v_pool, tables, qstart), q, k_pool,
+                         tables, layer)
     paged_attention_verify.launches += 1
-    return acc, m, l
+    return out
 
 
 paged_attention_verify.launches = 0
@@ -584,37 +656,24 @@ def kv_dequant_blocks(codes: torch.Tensor, scales: torch.Tensor):
             * scales[..., None, :]).reshape(*lead, kvd, bs)
 
 
-def _quant_walk(qf, k_pool, v_pool, k_scale, v_scale, tables, last, layer):
+def _quant_walk(qf, k_pool, v_pool, k_scale, v_scale, tables, last, layer,
+                splits=1):
     """The int8 kernels' online softmax, block by block, of query rows qf
     [B, NKV, R, HD] f32 (pre-scaled) over tokens 0..last[b] of each row:
     K and V dequantized per column, P f32 before P.V. Returns the
     unfinalised (acc [B, NKV, R, HD], m [B, NKV, R], l [B, NKV, R]); rows
     with last < 0 come back with meaningless partials for the caller to
-    replace."""
+    replace. ``splits``: :func:`_online_walk`'s, without the look-back
+    (the int8 verify kernel's)."""
     B, nkv, R, HD = qf.shape
     bs = k_pool.shape[-1]
-    dev = qf.device
-    m = torch.full((B, nkv, R), float("-inf"), device=dev)
-    l = torch.zeros((B, nkv, R), device=dev)
-    acc = torch.zeros((B, nkv, R, HD), device=dev)
-    col = torch.arange(bs, device=dev)
-    for j in range(int(last.max()) // bs + 1 if B else 0):
-        blk = tables[:, j].long()
+
+    def block(blk):
         kt = kv_dequant_blocks(k_pool[layer, blk], k_scale[layer, blk])
         vt = kv_dequant_blocks(v_pool[layer, blk], v_scale[layer, blk])
-        kt = kt.reshape(B, nkv, HD, bs)
-        vt = vt.reshape(B, nkv, HD, bs)
-        s = torch.einsum("bgrd,bgdt->bgrt", qf, kt)
-        live = (j * bs + col)[None, :] <= last[:, None]            # [B, bs]
-        s = torch.where(live[:, None, None, :], s,
-                        torch.tensor(-1e30, device=dev))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        alpha = torch.exp2(m - m_new)
-        p = torch.exp2(s - m_new[..., None])
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bgrt,bgdt->bgrd", p, vt)
-        m = m_new
-    return acc, m, l
+        return kt.reshape(B, nkv, HD, bs), vt.reshape(B, nkv, HD, bs)
+    return _online_walk(qf, tables, last, bs, block, lambda p: p, splits,
+                        look_back=False)
 
 
 def _write_quant_columns(new_k, new_v, new_ks, new_vs, k_pool, v_pool,
@@ -664,28 +723,19 @@ def paged_attention_quant_plain(q, k_pool, v_pool, k_scale, v_scale,
 
 
 def paged_attention_verify_quant_plain(q, k_pool, v_pool, k_scale, v_scale,
-                                       tables, qstart, layer: int):
+                                       tables, qstart, layer: int,
+                                       splits: int = 1):
     """Plain PyTorch version on any device of the int8 verify read over
     tokens 0..qstart-1: the contract of :func:`paged_attention_verify_plain`
     with K and V dequantized per column and P f32. Rows with qstart 0 get
-    acc = 0, l = 0, m = -1e30."""
-    B, T, NH, HD = q.shape
+    acc = 0, l = 0, m = -1e30. ``splits``: the kernel's split-context form,
+    as in :func:`paged_attention_verify_plain` but each run from its own
+    max (P is never rounded, and the int8 kernel takes no look-back)."""
+    T = q.shape[1]
     nkv = k_scale.shape[2]
-    rep = NH // nkv
-    dev = q.device
-    qf = q.float().reshape(B, T, nkv, rep, HD).transpose(1, 2) \
-        .reshape(B, nkv, T * rep, HD)
-    acc, m, l = _quant_walk(qf, k_pool, v_pool, k_scale, v_scale, tables,
-                            qstart.long() - 1, layer)
-    dead = (qstart <= 0)[:, None, None]
-    m = torch.where(dead, torch.tensor(-1e30, device=dev), m)
-    l = torch.where(dead, torch.tensor(0.0, device=dev), l)
-    acc = torch.where(dead[..., None], torch.tensor(0.0, device=dev), acc)
-    acc = acc.reshape(B, nkv, T, rep, HD).transpose(1, 2) \
-        .reshape(B, T, NH, HD)
-    m = m.reshape(B, nkv, T, rep).transpose(1, 2).reshape(B, T, NH)
-    l = l.reshape(B, nkv, T, rep).transpose(1, 2).reshape(B, T, NH)
-    return acc, m, l
+    partials = _quant_walk(_verify_rows(q, nkv), k_pool, v_pool, k_scale,
+                           v_scale, tables, qstart.long() - 1, layer, splits)
+    return _verify_heads(partials, qstart, T)
 
 
 def paged_verify_commit_quant_plain(new_k, new_v, new_ks, new_vs, k_pool,
@@ -870,31 +920,18 @@ def paged_attention_verify_quant(q, k_pool, v_pool, k_scale, v_scale,
     what = "paged_attention_verify_quant"
     pools, scales = (k_pool, v_pool), (k_scale, v_scale)
     _check_quant_read(what, q, pools, scales, tables, (qstart,), layer, 4)
-    B, T, NH, HD = q.shape
+    T = q.shape[1]
     if not 1 <= T <= MAX_FED:
         raise ValueError(f"{what}: {T} fed tokens; the kernel takes 1 to "
                          f"{MAX_FED}")
     if _device_of(what, q) == "cpu":
         return paged_attention_verify_quant_plain(
             q, k_pool, v_pool, k_scale, v_scale, tables, qstart, layer)
-    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
-        raise ValueError(f"{what}: q and the pools must start on 16-byte "
-                         f"aligned storage")
-    _, NP, KVD, bs = k_pool.shape
-    acc = torch.empty((B, T, NH, HD), dtype=torch.float32, device=q.device)
-    m = torch.empty((B, T, NH), dtype=torch.float32, device=q.device)
-    l = torch.empty((B, T, NH), dtype=torch.float32, device=q.device)
-    fn = _build.kernel("paged_attention", "paged_attention_verify_quant_fwd",
-                       [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
-                       + [ctypes.c_void_p])
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
-             qstart.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-             B, T, int(layer), NP, NH, KVD // HD, HD, bs, tables.shape[1],
-             _DTYPE_CODE[q.dtype], _stream(q))
-    _build.check("paged_attention", err, what)
+    out = _launch_verify(what, "paged_attention_verify_quant_fwd",
+                         (q, k_pool, v_pool, k_scale, v_scale, tables,
+                          qstart), q, k_pool, tables, layer)
     paged_attention_verify_quant.launches += 1
-    return acc, m, l
+    return out
 
 
 paged_attention_verify_quant.launches = 0

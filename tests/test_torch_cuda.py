@@ -330,18 +330,24 @@ VERIFY_QSTART = [0, 1, 127, 128, 129, 700]   # 0: padding; 128 fills a block
 ])
 def test_paged_verify_kernel_matches_plain(dev, dtype, nh, nkv, hd, T,
                                            spread):
-    """Row 6 against its plain version: the finalised acc / l under the
-    flash rule, m + log2(l) to 1e-4 + 1e-6 |ref| (f32: a few steps at the
-    spread's |lse| of about 800) or 1e-3 + 1e-5 |ref| (bf16: scores summed
-    in another order), and a padding row's defined partials exactly."""
+    """Row 6 against its plain version at the kernel's split (rows of up
+    to 6 blocks over 7-block tables: 7 splits): the finalised acc / l
+    under the flash rule, m + log2(l) to 1e-4 + 1e-6 |ref| (f32: a few
+    steps at the spread's |lse| of about 800) or 1e-3 + 1e-5 |ref| (bf16:
+    scores summed in another order), a padding row's defined partials
+    exactly and the same bits on a second call."""
     a = _verify_case(dev, dtype, nh, nkv, hd, VERIFY_QSTART, T,
                      spread=spread)
     args = (a["q"], a["k_pool"], a["v_pool"], a["tables"], a["qstart"], 1)
+    splits = pa.kernel_splits(a["tables"].shape[1], 128)
+    assert splits > 1
     before = pa.paged_attention_verify.launches
     acc, m, l = pa.paged_attention_verify(*args)
-    ra, rm, rl = pa.paged_attention_verify_plain(*args)
+    again = pa.paged_attention_verify(*args)
+    ra, rm, rl = pa.paged_attention_verify_plain(*args, splits=splits)
     torch.cuda.synchronize()
-    assert pa.paged_attention_verify.launches == before + 1
+    assert pa.paged_attention_verify.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip((acc, m, l), again))
     live = a["qstart"] > 0
     _close(acc[live] / l[live][..., None], ra[live] / rl[live][..., None],
            FLASH_TOL[dtype][0])
@@ -351,6 +357,42 @@ def test_paged_verify_kernel_matches_plain(dev, dtype, nh, nkv, hd, T,
            else dict(rtol=1e-5, atol=1e-3)))
     assert torch.equal(acc[~live], torch.zeros_like(acc[~live]))
     assert torch.equal(l[~live], torch.zeros_like(l[~live]))
+    assert torch.equal(m[~live], torch.full_like(m[~live], -1e30))
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("bs,nh,T", [(256, 16, 5), (512, 16, 5),
+                                     (1024, 8, 2)])
+def test_paged_verify_kernels_at_large_blocks(dev, kind, bs, nh, T):
+    """Rows 6 and 7 over blocks of 256 to 1024 tokens (512 and 1024: the
+    kernel's 1024-thread form), GQA over 4 kv-heads of 64 (20 query rows a
+    kv-head in 3 chunks of 8; at bs 1024, where 8 rows' partial scores of
+    bf16 or int8 outgrow shared memory, 4 rows in one chunk), qstart across
+    block edges: the flash rule (f32 forward entry over f32 and int8
+    pools, bf16's over bf16 pools) at the kernel's split and a padding
+    row's partials exactly."""
+    qstart = [0, 1, bs - 1, bs + 3, 2 * bs + 5]
+    if kind == "int8":
+        a = _quant_case(dev, torch.bfloat16, nh, 4, 64, qstart, T=T, bs=bs)
+        args = (a["q"], a["k_pool"], a["v_pool"], a["k_scale"],
+                a["v_scale"], a["tables"], a["rows"], a["layer"])
+        kern, plain = (pa.paged_attention_verify_quant,
+                       pa.paged_attention_verify_quant_plain)
+        live, tol = a["rows"] > 0, FLASH_TOL[torch.float32][0]
+    else:
+        dtype = torch.float32 if kind == "f32" else torch.bfloat16
+        a = _verify_case(dev, dtype, nh, 4, 64, qstart, T, bs=bs)
+        args = (a["q"], a["k_pool"], a["v_pool"], a["tables"], a["qstart"],
+                1)
+        kern, plain = pa.paged_attention_verify, pa.paged_attention_verify_plain
+        live, tol = a["qstart"] > 0, FLASH_TOL[dtype][0]
+    acc, m, l = kern(*args)
+    ra, rm, rl = plain(*args, splits=pa.kernel_splits(a["tables"].shape[1],
+                                                      bs))
+    torch.cuda.synchronize()
+    _close(acc[live] / l[live][..., None], ra[live] / rl[live][..., None],
+           tol)
+    assert torch.equal(acc[~live], torch.zeros_like(acc[~live]))
     assert torch.equal(m[~live], torch.full_like(m[~live], -1e30))
 
 
@@ -529,18 +571,24 @@ def test_paged_quant_kernels_match_plain(dev, qdtype, nh, nkv, hd, spread):
     c + (t,) for c, t in zip(QUANT_CASES, (4, 1, 3, 8, 5))])
 def test_paged_verify_quant_kernel_matches_plain(dev, qdtype, nh, nkv, hd,
                                                  spread, T):
-    """Row 7 against its plain version: the finalised acc / l under the
-    flash rule's f32 forward entry (P f32 in both), m + log2(l) to 1e-4 +
-    1e-6 |ref|, and a padding row's defined partials exactly."""
+    """Row 7 against its plain version at the kernel's split (rows of up
+    to 6 blocks over 7-block tables): the finalised acc / l under the flash
+    rule's f32 forward entry (P f32 in both), m + log2(l) to 1e-4 + 1e-6
+    |ref|, a padding row's defined partials exactly and the same bits on a
+    second call."""
     a = _quant_case(dev, qdtype, nh, nkv, hd, VERIFY_QSTART, T=T,
                     spread=spread)
     args = (a["q"], a["k_pool"], a["v_pool"], a["k_scale"], a["v_scale"],
             a["tables"], a["rows"], a["layer"])
+    splits = pa.kernel_splits(a["tables"].shape[1], 128)
+    assert splits > 1
     before = pa.paged_attention_verify_quant.launches
     acc, m, l = pa.paged_attention_verify_quant(*args)
-    ra, rm, rl = pa.paged_attention_verify_quant_plain(*args)
+    again = pa.paged_attention_verify_quant(*args)
+    ra, rm, rl = pa.paged_attention_verify_quant_plain(*args, splits=splits)
     torch.cuda.synchronize()
-    assert pa.paged_attention_verify_quant.launches == before + 1
+    assert pa.paged_attention_verify_quant.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip((acc, m, l), again))
     live = a["rows"] > 0
     _close(acc[live] / l[live][..., None], ra[live] / rl[live][..., None],
            FLASH_TOL[torch.float32][0])

@@ -266,6 +266,134 @@ def test_verify_quant_plain_matches_jax(monkeypatch, mode, rep, T):
     assert (gm[dead] == -1e30).all()
 
 
+# Row 7's plain version at the kernel's split form (``splits`` > 1; see
+# tests/test_torch_spec.py's row 6 twin) against JAX, as above (f32 to
+# KERNEL_ATOL, m + log2(l) to 1e-4 + 1e-6 |ref|), over rows of up to 6
+# blocks at splits up to the table's width; with a score spread (the K
+# scales of the last row's blocks from slot 3 on times 150, so its scores
+# lead by hundreds of log2 units across split boundaries) in the online
+# mode.
+SPLIT_QSTART = [0, 1, 128, 129, 300, 700]
+VERIFY_SPLITS = (1, 2, 3, 6)
+
+
+def _verify_split_case(spread=None):
+    rng = np.random.RandomState(22)
+    tables, n_pool = _tables(rng, SPLIT_QSTART, 6)
+    (kq, ks), (vq, vs) = _quant_pool(rng, n_pool), _quant_pool(rng, n_pool)
+    if spread is not None:
+        ks[:, tables[-1, 3:]] *= spread
+    q = (rng.randn(len(SPLIT_QSTART), 3, NKV * 2, HD)
+         * (jpa._LOG2E / HD ** 0.5)).astype(np.float32)
+    return q, (kq, vq, ks, vs), tables, np.asarray(SPLIT_QSTART, np.int32)
+
+
+_JAX_VERIFY_SPLIT = {}
+
+
+def _jax_verify_quant(q, pools, tables, qstart):
+    """JAX's int8 verify read after its head selection: acc / l per head
+    [B, T, NH, HD] and m + log2(l) [B, T, NH]."""
+    B, T, nh, _ = q.shape
+    acc, m, l = jpa.paged_attention_verify_quant(
+        _q_bd(q).reshape(B, T * nh, KVD), *(jnp.asarray(a) for a in pools),
+        jnp.asarray(tables), jnp.asarray(qstart), 1)
+    acc = _heads(np.asarray(acc).reshape(B, T, nh, KVD))
+    m = np.asarray(m)[..., 0].reshape(B, T, nh)
+    l = np.asarray(l)[..., 0].reshape(B, T, nh)
+    return acc / l[..., None], m + np.log2(l)
+
+
+def _check_verify_quant_split(monkeypatch, mode, splits, spread=None):
+    monkeypatch.setenv("PADDLE_TPU_FLASH_SOFTMAX", mode)
+    q, pools, tables, qstart = _verify_split_case(spread)
+    if (mode, spread) not in _JAX_VERIFY_SPLIT:
+        _JAX_VERIFY_SPLIT[mode, spread] = _jax_verify_quant(q, pools, tables,
+                                                            qstart)
+    want_o, want_lse = _JAX_VERIFY_SPLIT[mode, spread]
+    ga, gm, gl = pa.paged_attention_verify_quant_plain(
+        _t(q), *(_t(a) for a in pools), _t(tables), _t(qstart), 1,
+        splits=splits)
+    live = qstart > 0
+    np.testing.assert_allclose((ga / gl[..., None]).numpy()[live],
+                               want_o[live], atol=KERNEL_ATOL,
+                               rtol=KERNEL_ATOL)
+    np.testing.assert_allclose((gm + torch.log2(gl)).numpy()[live],
+                               want_lse[live], atol=1e-4, rtol=1e-6)
+    dead = torch.from_numpy(~live)
+    assert (ga[dead] == 0).all() and (gl[dead] == 0).all()
+    assert (gm[dead] == -1e30).all()
+    return want_lse
+
+
+@pytest.mark.parametrize("splits", VERIFY_SPLITS)
+@pytest.mark.parametrize("mode", ["auto", "online"])
+def test_verify_quant_split_plain_matches_jax(monkeypatch, mode, splits):
+    _check_verify_quant_split(monkeypatch, mode, splits)
+
+
+@pytest.mark.parametrize("splits", VERIFY_SPLITS)
+def test_verify_quant_split_plain_holds_a_score_spread(monkeypatch, splits):
+    lse = _check_verify_quant_split(monkeypatch, "online", splits,
+                                    spread=150.0)
+    assert lse[-1].min() > 150      # the spread blocks' scores dominate
+
+
+def _verify_quant_plain_before_splits(q, k_pool, v_pool, k_scale, v_scale,
+                                      tables, qstart, layer):
+    """Row 7's plain version (and ``_quant_walk``) as they were before the
+    ``splits`` keyword, kept verbatim as the reference of the bitwise test
+    below."""
+    B, T, NH, HD_ = q.shape
+    nkv = k_scale.shape[2]
+    rep = NH // nkv
+    dev = q.device
+    qf = q.float().reshape(B, T, nkv, rep, HD_).transpose(1, 2) \
+        .reshape(B, nkv, T * rep, HD_)
+    last = qstart.long() - 1
+    R = T * rep
+    bs = k_pool.shape[-1]
+    m = torch.full((B, nkv, R), float("-inf"), device=dev)
+    l = torch.zeros((B, nkv, R), device=dev)
+    acc = torch.zeros((B, nkv, R, HD_), device=dev)
+    col = torch.arange(bs, device=dev)
+    for j in range(int(last.max()) // bs + 1 if B else 0):
+        blk = tables[:, j].long()
+        kt = pa.kv_dequant_blocks(k_pool[layer, blk], k_scale[layer, blk])
+        vt = pa.kv_dequant_blocks(v_pool[layer, blk], v_scale[layer, blk])
+        kt = kt.reshape(B, nkv, HD_, bs)
+        vt = vt.reshape(B, nkv, HD_, bs)
+        s = torch.einsum("bgrd,bgdt->bgrt", qf, kt)
+        live = (j * bs + col)[None, :] <= last[:, None]
+        s = torch.where(live[:, None, None, :], s,
+                        torch.tensor(-1e30, device=dev))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bgrt,bgdt->bgrd", p, vt)
+        m = m_new
+    dead = (qstart <= 0)[:, None, None]
+    m = torch.where(dead, torch.tensor(-1e30, device=dev), m)
+    l = torch.where(dead, torch.tensor(0.0, device=dev), l)
+    acc = torch.where(dead[..., None], torch.tensor(0.0, device=dev), acc)
+    acc = acc.reshape(B, nkv, T, rep, HD_).transpose(1, 2) \
+        .reshape(B, T, NH, HD_)
+    m = m.reshape(B, nkv, T, rep).transpose(1, 2).reshape(B, T, NH)
+    l = l.reshape(B, nkv, T, rep).transpose(1, 2).reshape(B, T, NH)
+    return acc, m, l
+
+
+def test_verify_quant_plain_one_split_is_the_walk_before_splits():
+    """``splits=1`` (and the default) is bitwise the walk before splits."""
+    q, pools, tables, qstart = _verify_split_case()
+    args = (_t(q), *(_t(a) for a in pools), _t(tables), _t(qstart), 1)
+    want = _verify_quant_plain_before_splits(*args)
+    for got in (pa.paged_attention_verify_quant_plain(*args),
+                pa.paged_attention_verify_quant_plain(*args, splits=1)):
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
 # -- row 9: the commit --------------------------------------------------------
 
 def test_commit_quant_plain_matches_jax_bitwise():

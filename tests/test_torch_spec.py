@@ -169,6 +169,138 @@ def test_verify_plain_matches_jax(monkeypatch, mode, dtype, rep, T, atol):
     assert (m[~torch.from_numpy(live)] == -1e30).all()
 
 
+# The kernel's split-context form of row 6 (``splits`` > 1): a row's blocks
+# are cut into runs of ``split_blocks(max_nb, splits)``, each run starts its
+# recurrence from the max of all scores before it, and the row's live runs'
+# partial states are combined in run order, unfinalised. Held like
+# test_verify_plain_matches_jax over rows of up to 6 blocks (the table's
+# width; 6 splits leave one block a split, the kernel's layout at bs = 128),
+# f32: acc / l to 1e-5 and m + log2(l) to 1e-4 + 1e-6 |ref| (only the f32
+# combine differs from one walk); with a score spread of 150 (the last
+# row's blocks from slot 3 on lead by hundreds of log2 units, across split
+# boundaries) in the online mode, which JAX's tile-0 anchor would overflow.
+SPLIT_QSTART = [0, 1, 128, 129, 300, 700]
+VERIFY_SPLITS = (1, 2, 3, 6)
+
+
+def _verify_split_inputs(spread=None):
+    rng = np.random.RandomState(21)
+    nkv, hd, rep, T, max_nb = 2, 16, 2, 3, 6
+    B, kvd = len(SPLIT_QSTART), nkv * hd
+    n_pool = 1 + sum(-(-q // BS) for q in SPLIT_QSTART)
+    perm = rng.permutation(np.arange(1, n_pool))
+    tables = np.zeros((B, max_nb), np.int32)
+    at = 0
+    for i, q in enumerate(SPLIT_QSTART):
+        n = -(-q // BS)
+        tables[i, :n] = perm[at:at + n]
+        at += n
+    q = rng.randn(B, T, nkv * rep, hd) * (jpa._LOG2E / hd ** 0.5)
+    k_pool = rng.randn(2, n_pool, kvd, BS)
+    v_pool = rng.randn(2, n_pool, kvd, BS)
+    if spread is not None:
+        k_pool[:, tables[-1, 3:]] *= spread
+    return q, k_pool, v_pool, tables, np.asarray(SPLIT_QSTART, np.int32)
+
+
+_JAX_VERIFY_SPLIT = {}
+
+
+def _check_verify_split(monkeypatch, mode, splits, spread=None):
+    monkeypatch.setenv("PADDLE_TPU_FLASH_SOFTMAX", mode)
+    q, k_pool, v_pool, tables, qstart = _verify_split_inputs(spread)
+    if (mode, spread) not in _JAX_VERIFY_SPLIT:
+        _JAX_VERIFY_SPLIT[mode, spread] = _jax_verify(
+            q, k_pool, v_pool, tables, qstart, jnp.float32)
+    want_o, want_lse = _JAX_VERIFY_SPLIT[mode, spread]
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    acc, m, l = pa.paged_attention_verify_plain(
+        t(q), t(k_pool), t(v_pool), torch.from_numpy(tables),
+        torch.from_numpy(qstart), 1, splits=splits)
+    live = qstart > 0
+    np.testing.assert_allclose((acc / l[..., None]).numpy()[live],
+                               want_o[live], atol=1e-5, rtol=0)
+    np.testing.assert_allclose((m + torch.log2(l)).numpy()[live],
+                               want_lse[live], atol=1e-4, rtol=1e-6)
+    dead = torch.from_numpy(~live)
+    assert (acc[dead] == 0).all() and (l[dead] == 0).all()
+    assert (m[dead] == -1e30).all()
+    return q, k_pool, tables
+
+
+@pytest.mark.parametrize("splits", VERIFY_SPLITS)
+@pytest.mark.parametrize("mode", ["auto", "online"])
+def test_verify_split_plain_matches_jax(monkeypatch, mode, splits):
+    """Row 6's plain version at ``splits`` against JAX."""
+    _check_verify_split(monkeypatch, mode, splits)
+
+
+@pytest.mark.parametrize("splits", VERIFY_SPLITS)
+def test_verify_split_plain_holds_a_score_spread(monkeypatch, splits):
+    q, k_pool, tables = _check_verify_split(monkeypatch, "online", splits,
+                                            spread=150.0)
+    # the last row's later blocks lead its first three
+    kt = k_pool[1, tables[-1]].reshape(6, 2, 16, BS)
+    s = np.einsum("tgrd,jgdu->jtgru", q[-1].reshape(3, 2, 2, 16), kt)
+    assert s[3:].max() - s[:3].max() > 200
+
+
+def _verify_plain_before_splits(q, k_pool, v_pool, tables, qstart, layer):
+    """Row 6's plain version as it was before the ``splits`` keyword, kept
+    verbatim as the reference of the bitwise test below."""
+    B, T, NH, HD = q.shape
+    bs = k_pool.shape[-1]
+    nkv = k_pool.shape[2] // HD
+    rep = NH // nkv
+    R = T * rep
+    dev = q.device
+    last = qstart.long() - 1
+    qf = q.float().reshape(B, T, nkv, rep, HD).transpose(1, 2) \
+        .reshape(B, nkv, R, HD)
+    m = torch.full((B, nkv, R), float("-inf"), device=dev)
+    l = torch.zeros((B, nkv, R), device=dev)
+    acc = torch.zeros((B, nkv, R, HD), device=dev)
+    col = torch.arange(bs, device=dev)
+    for j in range(int(last.max()) // bs + 1 if B else 0):
+        blk = tables[:, j].long()
+        kt = k_pool[layer, blk].float().reshape(B, nkv, HD, bs)
+        vt = v_pool[layer, blk].float().reshape(B, nkv, HD, bs)
+        s = torch.einsum("bgrd,bgdt->bgrt", qf, kt)
+        live = (j * bs + col)[None, :] <= last[:, None]
+        s = torch.where(live[:, None, None, :], s,
+                        torch.tensor(-1e30, device=dev))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bgrt,bgdt->bgrd", p.to(v_pool.dtype).float(), vt)
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    dead = (qstart <= 0)[:, None, None]
+    m = torch.where(dead, torch.tensor(-1e30, device=dev), m)
+    l = torch.where(dead, torch.tensor(0.0, device=dev), l)
+    acc = torch.where(dead[..., None], torch.tensor(0.0, device=dev), acc)
+    acc = acc.reshape(B, nkv, T, rep, HD).transpose(1, 2) \
+        .reshape(B, T, NH, HD)
+    m = m.reshape(B, nkv, T, rep).transpose(1, 2).reshape(B, T, NH)
+    l = l.reshape(B, nkv, T, rep).transpose(1, 2).reshape(B, T, NH)
+    return acc, m, l
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_verify_plain_one_split_is_the_walk_before_splits(dtype):
+    """``splits=1`` (and the default) is bitwise the walk before splits."""
+    q, k_pool, v_pool, tables, qstart = _verify_split_inputs()
+    q, kp, vp = (torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
+                 for a in (q, k_pool, v_pool))
+    tb, qs = torch.from_numpy(tables), torch.from_numpy(qstart)
+    want = _verify_plain_before_splits(q, kp, vp, tb, qs, 1)
+    for got in (pa.paged_attention_verify_plain(q, kp, vp, tb, qs, 1),
+                pa.paged_attention_verify_plain(q, kp, vp, tb, qs, 1,
+                                                splits=1)):
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
 def test_merge_matches_jax():
     rng = np.random.RandomState(3)
     shape = (3, 4, 6, 16)

@@ -32,13 +32,15 @@ and the drift of rows 20-23 along a product summed in f64 (chip_smoke's
 ``varlen_drifts``, four heads of the long pack), and a digest of the
 outputs of the deterministic ones (rows 20, 22, 23; row 21's dK and dV).
 
-With --paged, the paged decode kernels at chip_smoke's timing shapes
-(B = 8, NH = NKV = 32, HD = 128, bf16, 3,865 context tokens): rows 3 and
-2 (device ms with ``queued``, and the profiler's kernel time; row 3 also
-at the serve phase's profiled decode step, 8 rows of 1,001 tokens), and as
-controls row 5 and 4 (int8 pools), rows 6 and 7 (T = 5 fed tokens) and
-the slab decode row 10 (generate's shape, pos 1023); with a digest of
-every output, and the verdict whether rows 4-7 and 10 keep their bits.
+With --paged, the paged kernels at chip_smoke's timing shapes (B = 8, NH
+= NKV = 32, HD = 128, bf16, 3,865 context tokens): rows 6 and 7 (T = 5
+fed tokens; bf16 and int8 pools; device ms with ``queued``, and the
+profiler's kernel time), also at the profiled verify step's rows (8 rows
+of 600 cached tokens), and as controls rows 3 and 2 (row 3 also at the
+serve phase's profiled decode step, 8 rows of 1,001 tokens), rows 5 and 4
+(int8 pools) and the slab decode row 10 (generate's shape, pos 1023);
+with a digest of every output, and the verdict whether rows 2-5 and 10
+keep their bits.
 
 With --split, the dense split backward at chip_smoke's train (B 4, S
 2048) and train-long (B 1, S 16384) shapes (32 heads x 128, causal,
@@ -204,20 +206,25 @@ def run_one_paged(tree):
          lambda: pa.paged_attention_quant(*rd), [pa.paged_attention_quant(*rd)])
     del a, pools, new, upd, rd
     qstart = [p + 1 for p in cs.PAGED_POSITIONS]
-    a = cs._verify_inputs(32, 32, qstart, cs.SPEC_K + 1, cs.SEED + 61, dev)
-    call = (a["q"], a["k_pool"], a["v_pool"], a["tables"], a["qstart"],
-            a["layer"])
-    timed("paged_attention_verify (row 6)",
-         lambda: pa.paged_attention_verify(*call),
-         pa.paged_attention_verify(*call))
-    a = cs._quant_inputs(32, 32, qstart, cs.SEED + 72, dev, torch.bfloat16,
-                         T=cs.SPEC_K + 1)
-    call = (a["q"], a["k_pool"], a["v_pool"], a["k_scale"], a["v_scale"],
-            a["tables"], a["rows"], a["layer"])
-    timed("paged_attention_verify_quant (row 7)",
-         lambda: pa.paged_attention_verify_quant(*call),
-         pa.paged_attention_verify_quant(*call))
-    del a, call
+    T = cs.SPEC_K + 1
+    for key, rows, width, seed in (
+            ("", qstart, None, 0),
+            (", even rows", cs.VERIFY_STEP_QSTART, cs.VERIFY_STEP_MAX_NB, 2)):
+        a = cs._verify_inputs(32, 32, rows, T, cs.SEED + 61 + seed, dev,
+                              max_nb=width)
+        call = (a["q"], a["k_pool"], a["v_pool"], a["tables"], a["qstart"],
+                a["layer"])
+        timed(f"paged_attention_verify (row 6){key}",
+              lambda: pa.paged_attention_verify(*call),
+              pa.paged_attention_verify(*call), "paged_verify")
+        a = cs._quant_inputs(32, 32, rows, cs.SEED + 72 + seed, dev,
+                             torch.bfloat16, T=T, max_nb=width)
+        call = (a["q"], a["k_pool"], a["v_pool"], a["k_scale"],
+                a["v_scale"], a["tables"], a["rows"], a["layer"])
+        timed(f"paged_attention_verify_quant (row 7){key}",
+              lambda: pa.paged_attention_verify_quant(*call),
+              pa.paged_attention_verify_quant(*call), "paged_verify")
+        del a, call
     q, nk, nv, kc, vc = cs._slab_inputs(dev, torch.bfloat16, cs.GEN_B, 32, 4,
                                         64, cs.SLAB_T, cs.SEED)
     timed("decode_attend_update_slab (row 10)",
@@ -259,7 +266,7 @@ def run_one_split(tree):
 
 
 # the outputs that both trees must give with the same bits
-KEPT = {"--one-paged": ("row 4", "row 5", "row 6", "row 7", "row 10"),
+KEPT = {"--one-paged": ("row 2", "row 3", "row 4", "row 5", "row 10"),
         "--one-split": ("row 16", "row 17"),
         "--one-varlen": ("varlen_fwd", "varlen_bwd_dkv", "varlen_bwd_dq",
                          "varlen_bwd dk")}

@@ -1,13 +1,13 @@
-"""Times the design choices of the split decode walk of rows 3 and 2
-(csrc/paged_attention.cu, paged_split_kernel) against each other on one
-card.
+"""Times the design choices of the split walk (csrc/paged_attention.cu,
+split_walk: rows 3 and 2, paged_split_kernel; rows 6 and 7,
+paged_verify_split_kernel) against each other on one card.
 
     python3 tools/paged_choices.py [FORM ...]
 
 Copies paddle_tpu_torch/ into a temporary directory once for each form
 below, edited as its entry in FORMS says (a source edit of the kernel, or
-the wrapper's SPLIT_TOKENS): the shipped form, and the forms it was
-chosen over (FORMs pick some; the shipped form always runs):
+the wrapper's SPLIT_TOKENS or VERIFY_HEIGHTS): the shipped form, and the
+forms it was chosen over (FORMs pick some; the shipped form always runs):
 
   split_2_blocks, split_4_blocks  runs of 2 and 4 pool blocks a split
                                   (SPLIT_TOKENS 256, 512, a ring of two
@@ -23,18 +23,43 @@ chosen over (FORMs pick some; the shipped form always runs):
                                   flight together (two ring slots) against
                                   one slot, V's copy issued once K is read;
   half_pieces_two_slots           16 KB pieces through two slots against
-                                  one 32 KB slot.
+                                  one 32 KB slot;
+
+and of the verify read (rows 6 and 7):
+
+  verify_pow2_heights             chunks of 2, 4 or 8 rows (llama_7b's 5
+                                  rows padded to 8, as the parent's walk)
+                                  against heights 2, 4, 5 and 8;
+  verify_look_back_int8           int8 pools (P never rounded) with the
+                                  look-back against each split's
+                                  recurrence from its own max;
+  verify_k_and_v_together         K and V of a one-block split in flight
+                                  together (two slots) against one slot;
+  verify_copy_after_barrier       the first copy issued after the CTA's
+                                  barrier, as rows 3 and 2 do, against
+                                  before it;
+  verify_dr_2, verify_dr_4        P.V over 2 or 4 V rows a thread in
+                                  every pool type against 2 (bf16, f32)
+                                  and 4 (int8);
+  verify_l2_warm                  the L2 warm-up of rows 3 and 2 (a split's
+                                  blocks prefetched while its ticket is
+                                  taken) against none.
 
 Every copy builds at once, in a process of its own; then each copy runs
 alone, in the order of FORMS and again in reverse, so that a drift of the
-card over the call shows. A run holds rows 3 and 2 to their plain
-versions (chip_smoke's ``check_paged_update`` and ``check_paged_read``)
-and times them at chip_smoke's timing shape (B = 8, NH = NKV = 32, HD =
-128, bf16, 3,865 context tokens; device ms per call, 100 calls queued
-ahead, chip_smoke's ``_time_ms``), and row 3 at the serve phase's
-profiled decode step (the same heads, 8 rows of 1,001 tokens). ptxas's registers and spills of each
-form's split kernels at bf16 and REP 1 are printed too. Needs one CUDA
-device and nvcc; exits non-zero if a form fails its check; writes
+card over the call shows. A run of a decode form holds rows 3 and 2 to
+their plain versions (chip_smoke's ``check_paged_update`` and
+``check_paged_read``), a run of a verify form rows 6 and 7
+(``check_verify`` and ``check_quant``; the shipped form takes all four);
+every run times rows 3, 2, 6 and 7 at chip_smoke's timing shape (B = 8, NH
+= NKV = 32, HD = 128, bf16 or int8 pools, 3,865 context tokens, T = 5 fed
+tokens for rows 6 and 7; device ms per call, 100 calls queued ahead,
+chip_smoke's ``_time_ms``), row 3 at the serve phase's profiled decode
+step (the same heads, 8 rows of 1,001 tokens) and rows 6 and 7 at the
+profiled verify step's (8 rows of 600 cached tokens). ptxas's registers
+and spills of each form's split kernels at bf16 and REP 1 and of its
+verify kernels at 5 rows are printed too. Needs one CUDA device and nvcc;
+exits non-zero if a form fails its check; writes
 chiprun_out/paged_choices.json.
 """
 from __future__ import annotations
@@ -73,15 +98,49 @@ K_AND_V_TOGETHER = [(_RING_RULE, _RING_RULE.replace("bps == 1 ? 1", "bps == 1 ? 
 HALF_PIECES = K_AND_V_TOGETHER + [("constexpr int kPieceBytes = 32768;",
                                    "constexpr int kPieceBytes = 16384;")]
 
-# name -> (edits of csrc/paged_attention.cu, SPLIT_TOKENS or None)
+_GEOMETRY = "bool split_geometry(int hd, int bs, int bps, int* prow, int* nbuf, size_t* smem) {"
+_GEOMETRY_CALL = "  if (!split_geometry<T, R>(a.hd, a.bs, a.bps, &a.prow, &a.nbuf, &smem))"
+VERIFY_K_AND_V = [
+    (_GEOMETRY, _GEOMETRY.replace("size_t* smem)", "size_t* smem, bool pair = false)")),
+    (_RING_RULE, _RING_RULE.replace("bps == 1 ? 1", "bps == 1 ? (pair ? 2 : 1)")),
+    (_GEOMETRY_CALL, _GEOMETRY_CALL.replace("&smem)", "&smem, MODE == kVerify)")),
+]
+VERIFY_AFTER_BARRIER = [
+    ("    if (VERIFY && nlive > 1) z = take_ticket(gsync);\n", ""),
+    ("    if (!VERIFY && nlive > 1) z = take_ticket(gsync);\n",
+     "    if (nlive > 1) z = take_ticket(gsync);\n"),
+    ("    if constexpr (VERIFY) {\n      set_split(z);\n      refill(0);\n    }\n", ""),
+    ("  if constexpr (!VERIFY) refill(0);\n", "  refill(0);\n"),
+]
+
+# name -> {"edits": edits of csrc/paged_attention.cu, "tokens": SPLIT_TOKENS,
+# "heights": VERIFY_HEIGHTS, "rows": the rows it changes}
 FORMS = {
-    "shipped": ([], None),
-    "split_2_blocks": ([], 256),
-    "split_4_blocks": ([], 512),
-    "register_loads": (REGISTER_LOADS, None),
-    "no_l2_warm": (NO_L2_WARM, None),
-    "k_and_v_together": (K_AND_V_TOGETHER, None),
-    "half_pieces_two_slots": (HALF_PIECES, None),
+    "shipped": dict(rows="all"),
+    "split_2_blocks": dict(tokens=256),
+    "split_4_blocks": dict(tokens=512),
+    "register_loads": dict(edits=REGISTER_LOADS),
+    "no_l2_warm": dict(edits=NO_L2_WARM),
+    "k_and_v_together": dict(edits=K_AND_V_TOGETHER),
+    "half_pieces_two_slots": dict(edits=HALF_PIECES),
+    "verify_pow2_heights": dict(heights=(2, 4, 8), rows="verify"),
+    "verify_look_back_int8": dict(edits=[(
+        "  if (nlive > 1 && !QUANT) {\n    if (tid == 0) publish_max",
+        "  if (nlive > 1) {\n    if (tid == 0) publish_max")],
+        rows="verify"),
+    "verify_k_and_v_together": dict(edits=VERIFY_K_AND_V, rows="verify"),
+    "verify_copy_after_barrier": dict(edits=VERIFY_AFTER_BARRIER,
+                                      rows="verify"),
+    "verify_dr_2": dict(edits=[("VERIFY ? (QUANT ? 4 : 2) : 1;",
+                                "VERIFY ? (QUANT ? 2 : 2) : 1;")],
+                        rows="verify"),
+    "verify_dr_4": dict(edits=[("VERIFY ? (QUANT ? 4 : 2) : 1;",
+                                "VERIFY ? (QUANT ? 4 : 4) : 1;")],
+                        rows="verify"),
+    "verify_l2_warm": dict(edits=[(
+        "    if (!VERIFY && nlive > 1) {\n      const int z0",
+        "    if (nlive > 1 && chunk == 0) {\n      const int z0")],
+        rows="verify"),
 }
 
 
@@ -98,11 +157,13 @@ def build_one():
     _build.build_all(["paged_attention"])
     lines = [ln for ln in chip_smoke.ptxas_lines(
         _build.BUILD_LOGS.get("paged_attention", ""))
-        if ln.startswith("paged_split_kernelI13__nv_bfloat16Li1E")]
+        if ln.startswith(("paged_split_kernelI13__nv_bfloat16Li1E",
+                          "paged_verify_split_kernelI13__nv_bfloat16Li5E",
+                          "paged_verify_split_kernelIaLi5E"))]
     print(json.dumps(lines))
 
 
-def run_one(split_tokens):
+def run_one(name):
     """In a copy's process: check and time, as one JSON line."""
     import traceback
 
@@ -110,17 +171,27 @@ def run_one(split_tokens):
     cs = _chip_smoke()
     from paddle_tpu_torch.ops import paged_attention as pa
     assert not pa.__file__.startswith(ROOT), pa.__file__
-    if split_tokens:
-        pa.SPLIT_TOKENS = split_tokens
+    form = FORMS[name]
+    if form.get("tokens"):
+        pa.SPLIT_TOKENS = form["tokens"]
+    if form.get("heights"):
+        pa.VERIFY_HEIGHTS = form["heights"]
     dev = torch.device("cuda", 0)
+    rows = form.get("rows", "decode")
+    checks = []
+    if rows in ("all", "decode"):
+        checks += [("check_paged_update", cs.check_paged_update),
+                   ("check_paged_read", cs.check_paged_read)]
+    if rows in ("all", "verify"):
+        checks += [("check_verify", cs.check_verify),
+                   ("check_quant", cs.check_quant)]
     check = {}
-    for name, fn in (("check_paged_update", cs.check_paged_update),
-                     ("check_paged_read", cs.check_paged_read)):
+    for cname, fn in checks:
         try:
             fn(dev, {})
-            check[name] = "passes"
+            check[cname] = "passes"
         except AssertionError:
-            check[name] = "fails: " + traceback.format_exc(limit=1)[-600:]
+            check[cname] = "fails: " + traceback.format_exc(limit=1)[-600:]
     a = cs._paged_inputs(32, 32, cs.PAGED_POSITIONS, cs.SEED + 32, dev)
     upd = (a["q"], a["new_k"], a["new_v"], a["k_pool"], a["v_pool"],
            a["tables"], a["positions"], a["layer"])
@@ -136,6 +207,25 @@ def run_one(split_tokens):
     ms["paged_attend_update (row 3), even rows"] = cs._time_ms(
         lambda: pa.paged_attend_update(*upd), 100)[0]
     splits = pa.kernel_splits(a["tables"].shape[1], 128)
+    del a, upd, rd
+    T = cs.SPEC_K + 1
+    qstart = [p + 1 for p in cs.PAGED_POSITIONS]
+    for key, rows_q, width, seed in (
+            ("", qstart, None, 0),
+            (", even rows", cs.VERIFY_STEP_QSTART, cs.VERIFY_STEP_MAX_NB, 2)):
+        a = cs._verify_inputs(32, 32, rows_q, T, cs.SEED + 61 + seed, dev,
+                              max_nb=width)
+        call = (a["q"], a["k_pool"], a["v_pool"], a["tables"], a["qstart"],
+                a["layer"])
+        ms[f"paged_attention_verify (row 6){key}"] = cs._time_ms(
+            lambda: pa.paged_attention_verify(*call), 100)[0]
+        a = cs._quant_inputs(32, 32, rows_q, cs.SEED + 72 + seed, dev,
+                             torch.bfloat16, T=T, max_nb=width)
+        call = (a["q"], a["k_pool"], a["v_pool"], a["k_scale"],
+                a["v_scale"], a["tables"], a["rows"], a["layer"])
+        ms[f"paged_attention_verify_quant (row 7){key}"] = cs._time_ms(
+            lambda: pa.paged_attention_verify_quant(*call), 100)[0]
+        del a, call
     print(json.dumps({"ok": all(v == "passes" for v in check.values()),
                       "splits": splits, "ms": ms, "check": check}))
 
@@ -169,7 +259,7 @@ def main(names):
     record = {"nvidia_smi": smi, "ptxas": {}, "runs": []}
     good = True
     try:
-        for name, (edits, _) in forms.items():
+        for name, form in forms.items():
             copies[name] = os.path.join(tmp, name)
             pkg = os.path.join(copies[name], "paddle_tpu_torch")
             shutil.copytree(os.path.join(ROOT, "paddle_tpu_torch"), pkg,
@@ -177,7 +267,7 @@ def main(names):
                                                           "__pycache__"))
             cu = os.path.join(pkg, "csrc", "paged_attention.cu")
             src = open(cu).read()
-            for old, new in edits:
+            for old, new in form.get("edits", []):
                 assert src.count(old) == 1, (name, old)
                 src = src.replace(old, new)
             with open(cu, "w") as f:
@@ -188,8 +278,7 @@ def main(names):
             for line in record["ptxas"][name]:
                 print(f"{name} ptxas {line}")
         for name in list(forms) + list(reversed(forms)):
-            tokens = forms[name][1]
-            p = _run(["--one", str(tokens or 0)], copies[name])
+            p = _run(["--one", name], copies[name])
             procs.append((name, p))
             run = dict(form=name, **_last_json(name, p, 900))
             record["runs"].append(run)
@@ -214,6 +303,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--build"]:
         build_one()
     elif sys.argv[1:2] == ["--one"]:
-        run_one(int(sys.argv[2]))
+        run_one(sys.argv[2])
     else:
         main(sys.argv[1:])

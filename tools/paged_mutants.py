@@ -1,20 +1,25 @@
-"""Shows that chip_smoke.py's paged checks fail a wrong split decode walk.
+"""Shows that chip_smoke.py's paged checks fail a wrong split walk.
 
     python3 tools/paged_mutants.py [NAME ...]
 
 Copies paddle_tpu_torch/ into a temporary directory once per mutant, writes
-one deliberate fault into the copy's csrc/paged_attention.cu, in the split
-decode walk of rows 3 and 2 (paged_split_kernel), and runs chip_smoke's
-paged checks on the copy's kernels in a process of its own (all copies
-build at once, then run one at a time): ``check_paged_update`` (row 3 at
-the kernel's split within PAGED_ATOL, at rows of 2-4 blocks within
-PAGED_SCHEDULE_FROB, the same bits over three calls, the pools bitwise
-the plain version's) and ``check_paged_read`` (row 2 likewise, a length-0
-row exactly 0). The unchanged copy must pass and every faulty one must
-fail. NAMEs pick mutants (the unchanged copy always runs). Needs one CUDA
-device and nvcc; prints each copy's verdict and the checks' messages,
-writes chiprun_out/paged_mutants.json and exits non-zero unless every
-verdict is as expected.
+one deliberate fault into the copy's csrc/paged_attention.cu (or
+csrc/split_common.cuh), in the split walk of rows 3 and 2
+(paged_split_kernel) or of the verify read of rows 6 and 7
+(paged_verify_split_kernel), and runs chip_smoke's paged checks on the
+copy's kernels in a process of its own (all copies build at once, then run
+one at a time): ``check_paged_update`` (row 3 at the kernel's split within
+PAGED_ATOL, at rows of 2-4 blocks within PAGED_SCHEDULE_FROB, the same
+bits over three calls, the pools bitwise the plain version's),
+``check_paged_read`` (row 2 likewise, a length-0 row exactly 0),
+``check_verify`` and ``check_quant`` (rows 6 and 7 at the kernel's split
+under ``verify_held``: the flash rule, lse, the padding row exact over
+NaN-poisoned outputs, the same bits over three calls, the schedule's frob
+at rows of 2-4 blocks; rows 8, 5, 4 and 9 too). The unchanged copy must
+pass and every faulty one must fail. NAMEs pick mutants (the unchanged copy
+always runs). Needs one CUDA device and nvcc; prints each copy's verdict
+and the checks' messages, writes chiprun_out/paged_mutants.json and exits
+non-zero unless every verdict is as expected.
 """
 from __future__ import annotations
 
@@ -27,32 +32,53 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_ACC = "    for (int r = 0; r < REP; ++r) acc[r] = acc[r] * alpha[r] + pv[r];\n"
+_ACC = "      for (int r = 0; r < R; ++r) acc[r][0] = acc[r][0] * alpha[r] + pv[r];\n"
 _WRITE_IF = "  if (WRITE && split == nlive - 1) {\n"
-_WRITE_BODY = """    const size_t blk = (size_t)trow[last / bs - j0];
+_WRITE_BODY = """    T* kw = static_cast<T*>(a.k_pool);
+    T* vw = static_cast<T*>(a.v_pool);
+    const T* new_k = static_cast<const T*>(a.new_k);
+    const T* new_v = static_cast<const T*>(a.new_v);
+    const size_t blk = (size_t)trow[last / bs - j0];
     const size_t base = (((size_t)layer * np + blk) * kvd + head_off) * bs + last % bs;
     const size_t src = (size_t)b * kvd + head_off;
     for (int d = tid; d < hd; d += nt) {
-      k_pool[base + (size_t)d * bs] = new_k[src + d];
-      v_pool[base + (size_t)d * bs] = new_v[src + d];
+      kw[base + (size_t)d * bs] = new_k[src + d];
+      vw[base + (size_t)d * bs] = new_v[src + d];
     }
 """
-_FINAL = "  // 5. one live split finalises;"
-_PUBLISH = "    if (tid == 0) publish_max<REP>(gsync, mypart, split, smx);\n"
-_COMBINE = ("  if (!last_split(gsync, nlive, &last_s)) return;\n"
-            "  combine_splits<REP>(gpart, pstride, nlive, hd, nt, out + q_off, "
-            "part_s, gsync);\n")
+_FINAL = "  // 5. one live split writes its result"
+_P_ROUND = "        p_s[r * bs + tid] = from_f<T>(p);\n"
+_PUBLISH = "    if (tid == 0) publish_max<R>(gsync, mypart, split, smx);\n"
+_LOOK_BACK = "    look_back<R>(gsync, gpart, pstride, split, nt, m);\n"
+_COMBINE_HEAD = "  if (!last_split(gsync, nlive, &last_s)) return;\n"
+_VERIFY_CALL = ("    combine_splits<R, false>(gpart, pstride, nlive, hd, nt, vr, "
+                "part_s, gsync);\n")
+_COMBINE_VERIFY = "  if constexpr (VERIFY)\n" + _VERIFY_CALL
+_COMBINE_DECODE = ("  else\n    combine_splits<R>(gpart, pstride, nlive, hd, nt, a.out + q_off, "
+                   "part_s, gsync);\n")
 # The splits record the order in which they finish (the flag of rank c
 # takes 2 + the split that finished c-th; a flag is raised by atomicMax so
 # that a late publish cannot lower it, and the look-back only tests it for
-# 0), and the last split combines the partial states in that order.
+# 0), and the last split combines the partial states in that order, into
+# the decode output (finalised) or, VERIFY, the verify outputs.
 _ARRIVAL_PUBLISH = """    if (tid == 0) {
-      for (int r = 0; r < REP; ++r) mypart[r] = smx[r];
+      for (int r = 0; r < R; ++r) mypart[r] = smx[r];
       __threadfence();
       atomicMax(gsync + 2 + split, 1);
     }
 """
-_ARRIVAL_COMBINE = """  __threadfence();
+
+
+def _arrival_combine(verify):
+    store = ("""    const int o = vr.row(r);
+    if (o < 0) continue;
+    a.out[(size_t)o * hd + i % hd] = as;
+    if (i % hd == 0) {
+      a.m_out[o] = mm;
+      a.l_out[o] = ls;
+    }
+""" if verify else "    a.out[q_off + i] = as / fmaxf(ls, 1e-30f);\n")
+    return """  __threadfence();
   __syncthreads();
   if (tid == 0) {
     const int c = atomicAdd(gsync + 1, 1);
@@ -62,50 +88,60 @@ _ARRIVAL_COMBINE = """  __threadfence();
   __syncthreads();
   if (!last_s) return;
   __threadfence();
-  int* ord = reinterpret_cast<int*>(part_s) + 2 * REP * nlive;  // after the (m, l)
+  int* ord = reinterpret_cast<int*>(part_s) + 2 * R * nlive;  // after the (m, l)
   for (int t = tid; t < nlive; t += nt) {
     int v;
     while ((v = ld_acquire(gsync + 2 + t)) < 2) __nanosleep(32);
     ord[t] = v - 2;
   }
   __syncthreads();
-  for (int x = tid; x < nlive * 2 * REP; x += nt)
-    part_s[x] = __ldcg(gpart + (size_t)ord[x / (2 * REP)] * pstride + REP + x % (2 * REP));
+  for (int x = tid; x < nlive * 2 * R; x += nt)
+    part_s[x] = __ldcg(gpart + (size_t)ord[x / (2 * R)] * pstride + R + x % (2 * R));
   __syncthreads();
-  for (int i = tid; i < REP * hd; i += nt) {
+  for (int i = tid; i < R * hd; i += nt) {
     const int r = i / hd;
     float mm = -INFINITY;
-    for (int t = 0; t < nlive; ++t) mm = fmaxf(mm, part_s[t * 2 * REP + r]);
+    for (int t = 0; t < nlive; ++t) mm = fmaxf(mm, part_s[t * 2 * R + r]);
     float ls = 0.f, as = 0.f;
     for (int t = 0; t < nlive; ++t) {
-      const float w = exp2f(part_s[t * 2 * REP + r] - mm);
-      ls += part_s[t * 2 * REP + REP + r] * w;
-      as += __ldcg(gpart + (size_t)ord[t] * pstride + 3 * REP + i) * w;
+      const float w = exp2f(part_s[t * 2 * R + r] - mm);
+      ls += part_s[t * 2 * R + R + r] * w;
+      as += __ldcg(gpart + (size_t)ord[t] * pstride + 3 * R + i) * w;
     }
-    out[q_off + i] = as / fmaxf(ls, 1e-30f);
-  }
+""" + store + """  }
   for (int t = tid; t < nlive; t += nt) gsync[2 + t] = 0;
   if (tid == 0) gsync[0] = gsync[1] = 0;
 """
 
-# name -> [(text, replacement)]; each text occurs once in the source
+
+_VERIFY_PV = ("                for (int x = 0; x < VEC; ++x) acc[r][e] += pf[x] * "
+              "vf[e][x];\n")
+_SCALE_SRC = ("        bulk_load(ks_s + (size_t)jj * bs, a.k_scale + scale_off(trow[jj]), "
+              "4 * bs, br);\n")
+_DEAD_VERIFY = "        if (o < 0 || tid >= hd) continue;\n"
+_COMBINE_STORE = "      out.acc[(size_t)o * hd + tid] = as[r];\n"
+
+# name -> [(text, replacement)] in csrc/paged_attention.cu, or [(file,
+# text, replacement)] elsewhere in csrc/; each text occurs once
 MUTANTS = {
     "unchanged": [],
     # each block's P rounded against that block's own max (then scaled to
     # the running max in f32), not against one walk's running max
     "p_rounded_against_own_max": [
-        ("      p_s[r * bs + tid] = from_f<T>(p);\n",
-         "      p_s[r * bs + tid] = from_f<T>(exp2f(sc - bm_s[jj * REP + r]));\n"),
-        (_ACC, _ACC.replace("+ pv[r];", "+ pv[r] * exp2f(bm_s[jj * REP + r] - m[r]);")),
+        (_P_ROUND, _P_ROUND.replace(
+            "from_f<T>(p)", "from_f<T>(VERIFY ? p : exp2f(sc - bm_s[jj * R + r]))")),
+        (_ACC, _ACC.replace("+ pv[r];", "+ pv[r] * exp2f(bm_s[jj * R + r] - m[r]);")),
     ],
     # no look-back: every split's recurrence starts from -inf, its own max
     "look_back_skipped": [
-        ("    look_back<REP>(gsync, gpart, pstride, split, nt, m);\n", ""),
+        (_LOOK_BACK, "    if (VERIFY) " + _LOOK_BACK.lstrip()),
     ],
     # the partial states combined in the order the splits finish
     "combine_in_arrival_order": [
         (_PUBLISH, _ARRIVAL_PUBLISH),
-        (_COMBINE, _ARRIVAL_COMBINE),
+        (_COMBINE_HEAD + _COMBINE_VERIFY + _COMBINE_DECODE,
+         "  if constexpr (VERIFY) {\n" + _COMBINE_HEAD + _VERIFY_CALL
+         + "  } else {\n" + _arrival_combine(False) + "  }\n"),
     ],
     # the new column written by the split before its owner (a row of one
     # split never gets it)
@@ -124,6 +160,43 @@ MUTANTS = {
         ("(size_t)trow[jj]) * kvd",
          "(size_t)trow[jj + (split == nlive - 1 && jj == nb - 1)]) * kvd"),
     ],
+    # the verify read (rows 6, 7): P rounded against the split's own max
+    # (one block a split), scaled back to the running max in f32
+    "verify_p_rounded_against_own_max": [
+        (_P_ROUND, _P_ROUND.replace(
+            "from_f<T>(p)", "from_f<T>(VERIFY ? exp2f(sc - bm_s[jj * R + r]) : p)")),
+        (_VERIFY_PV, _VERIFY_PV.replace(
+            "vf[e][x];",
+            "vf[e][x] * (QUANT ? 1.f : exp2f(bm_s[jj * R + r] - m[r]));")),
+    ],
+    # the verify read without the look-back
+    "verify_look_back_skipped": [
+        (_LOOK_BACK, "    if (!VERIFY) " + _LOOK_BACK.lstrip()),
+    ],
+    # the verify read's partial states combined in the order the splits
+    # finish
+    "verify_combine_in_arrival_order": [
+        (_PUBLISH, _ARRIVAL_PUBLISH),
+        (_COMBINE_HEAD + _COMBINE_VERIFY,
+         "  if constexpr (VERIFY) {\n" + _arrival_combine(True) + "  } else {\n"
+         + _COMBINE_HEAD + "  if constexpr (false)\n    ;\n"),
+        (_COMBINE_DECODE, _COMBINE_DECODE + "  }\n"),
+    ],
+    # the verify combine finalising: acc / l where the unfinalised acc is
+    # due (rows of more than one live split)
+    "verify_combine_finalising": [
+        ("split_common.cuh", _COMBINE_STORE,
+         _COMBINE_STORE.replace("= as[r];", "= as[r] / fmaxf(ls[r], 1e-30f);")),
+    ],
+    # a padding row (qstart 0) of the verify read left unwritten
+    "verify_padding_row_unwritten": [
+        (_DEAD_VERIFY, "        if (true) continue;\n"),
+    ],
+    # an int8 block's K scales taken from the next split's first block
+    "verify_int8_scale_from_the_wrong_split": [
+        (_SCALE_SRC, _SCALE_SRC.replace(
+            "scale_off(trow[jj])", "scale_off(trow[jj + (split + 1 < nlive) * bps])")),
+    ],
 }
 
 
@@ -141,7 +214,9 @@ def run_one():
     dev = torch.device("cuda", 0)
     out = {}
     for name, fn in (("check_paged_update", chip_smoke.check_paged_update),
-                     ("check_paged_read", chip_smoke.check_paged_read)):
+                     ("check_paged_read", chip_smoke.check_paged_read),
+                     ("check_verify", chip_smoke.check_verify),
+                     ("check_quant", chip_smoke.check_quant)):
         try:
             fn(dev, {})
             out[name] = "passes"
@@ -186,13 +261,13 @@ def main(names):
             shutil.copytree(os.path.join(ROOT, "paddle_tpu_torch"), pkg,
                             ignore=shutil.ignore_patterns("build",
                                                           "__pycache__"))
-            cu = os.path.join(pkg, "csrc", "paged_attention.cu")
-            src = open(cu).read()
-            for old, new in edits:
+            for edit in edits:
+                fname, old, new = (("paged_attention.cu",) + edit)[-3:]
+                path = os.path.join(pkg, "csrc", fname)
+                src = open(path).read()
                 assert src.count(old) == 1, (name, old)
-                src = src.replace(old, new)
-            with open(cu, "w") as f:
-                f.write(src)
+                with open(path, "w") as f:
+                    f.write(src.replace(old, new))
         procs = [(name, _run("--build", copies[name])) for name in chosen]
         for name, p in procs:
             _last_json(name, p, 900)
