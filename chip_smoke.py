@@ -235,14 +235,17 @@ def build():
         for line in ptxas_lines(log):
             print(f"  {name}: {line}")
     print(f"build seconds {secs:.2f}")
-    # the int8 walks' shared memory (decode: 16 K row groups, 64 KiB of
-    # partial scores at 8 rows; verify: 8 groups) and registers bound how
-    # many CTAs share an SM
+    # the int8 split walks' shared memory (8 K row groups of partial
+    # scores, a 16 KiB slice a piece) and registers bound how many CTAs
+    # share an SM
     occ = _build.kernel("paged_attention", "paged_quant_occupancy",
                         [ctypes.c_int] * 4)
-    for kind, what, rows in ((0, "int8 decode (rows 5, 4), REP", (1, 2, 4, 8)),
-                             (1, "int8 verify (row 7), chunk rows",
-                              (2, 4, 5, 8))):
+    for kind, what, rows in ((0, "int8 decode (rows 5, 4: "
+                              "paged_split_kernel<signed char>), REP",
+                              (1, 2, 4, 8)),
+                             (1, "int8 verify (row 7: "
+                              "paged_verify_split_kernel<signed char>), "
+                              "chunk rows", (2, 4, 5, 8))):
         print(f"occupancy at HD=128 bs=128, {what} "
               f"{'/'.join(map(str, rows))}: "
               f"{[occ(kind, r, 128, 128) for r in rows]} CTAs/SM")
@@ -542,6 +545,10 @@ def check_verify(dev, errs):
 # the mask, the softmax and P.V. P is f32 in the kernels and the plain
 # versions (q cast to f32), so every case takes FLASH_TOL's f32 forward
 # entry (rel 1e-5, frob 1e-5); row 7's m + log2(l) to 1e-4 + 1e-6 |ref|.
+# Rows 5, 4 and 7 are held to the plain versions at the kernel's split
+# (``kernel_splits``; each split from its own max), and at rows of 2-4
+# blocks (PAGED_SCHEDULE_POSITIONS) also to PAGED_SCHEDULE_FROB, as rows 3
+# and 6 are.
 QUANT_SPREAD = 128.0
 QUANT_CASES = [(32, 32, torch.bfloat16, None),    # llama_7b, bf16 q
                (8, 4, torch.float32, QUANT_SPREAD),
@@ -624,31 +631,41 @@ def _quant_inputs(nh, nkv, counts, seed, dev, qdtype, T=None, hd=128,
 
 
 def check_quant(dev, errs):
-    """Rows 5, 4 and 7 against their plain versions at llama_7b's attention
-    shape (bf16 q, pools from kv_quant_columns of bf16 columns; row 3's
-    positions, row 6's qstarts) and on the f32 GQA spread cases; row 5's
-    written bytes and scales bitwise; row 7 at the kernel's split under
-    ``verify_held``'s rules (the schedule's frob at rows of 2-4 blocks
-    too, though P stays f32); row 9 at L = 32 bitwise but the null
+    """Rows 5, 4 and 7 against their plain versions at the kernel's split
+    at llama_7b's attention shape (bf16 q, pools from kv_quant_columns of
+    bf16 columns; row 3's positions, row 6's qstarts) and on the f32 GQA
+    spread cases, the schedule's frob at rows of 2-4 blocks too (though P
+    stays f32); rows 5 and 4 the same bits over three calls, row 5's pools
+    bitwise the plain version's with the new bytes and scales landed, row
+    4's length-0 row exactly 0 over a NaN-poisoned output; row 7 under
+    ``verify_held``'s rules; row 9 at L = 32 bitwise but the null
     block."""
     from paddle_tpu_torch.ops import paged_attention as pa
     phase("check the int8 kernels (rows 5, 4, 7, 9) against their plain "
           "versions")
     rel, frob = FLASH_TOL[torch.float32][0]
-    for nh, nkv, qdtype, spread in QUANT_CASES:
-        a = _quant_inputs(nh, nkv, PAGED_POSITIONS, SEED + nh + nkv, dev,
+    cases = [c + (PAGED_POSITIONS,) for c in QUANT_CASES] + [
+        QUANT_CASES[0] + (PAGED_SCHEDULE_POSITIONS,)]
+    for nh, nkv, qdtype, spread, positions in cases:
+        sched = positions is PAGED_SCHEDULE_POSITIONS
+        a = _quant_inputs(nh, nkv, positions, SEED + nh + nkv + sched, dev,
                           qdtype, spread=spread)
         pools = [a[k] for k in ("k_pool", "v_pool", "k_scale", "v_scale")]
         ref_pools = [t.clone() for t in pools]
         new = [a[k][-1, :, 0].contiguous()
                for k in ("new_k", "new_v", "new_ks", "new_vs")]
-        got = pa.paged_attend_update_quant(a["q"], *new, *pools, a["tables"],
-                                           a["rows"], a["layer"])
+        call = (a["q"], *new, *pools, a["tables"], a["rows"], a["layer"])
+        splits = pa.kernel_splits(a["tables"].shape[1], 128)
+        # the same column written again: the pools do not move, and the
+        # splits' ordered combine gives the same bits
+        outs = [pa.paged_attend_update_quant(*call) for _ in range(3)]
         ref = pa.paged_attend_update_quant_plain(a["q"], *new, *ref_pools,
                                                  a["tables"], a["rows"],
-                                                 a["layer"])
+                                                 a["layer"], splits=splits)
         torch.cuda.synchronize()
+        got = outs[0]
         ok, excess, fro, err = flash_close(got, ref, rel, frob)
+        same = all(torch.equal(got, x) for x in outs[1:])
         bitwise = all(torch.equal(x, y) for x, y in zip(pools, ref_pools))
         pos = a["rows"].long()
         blk = a["tables"][torch.arange(len(pos), device=dev), pos // 128]
@@ -657,29 +674,44 @@ def check_quant(dev, errs):
             pools[2][a["layer"], blk.long(), :, pos % 128], new[2])
         name = (f"{str(qdtype)[6:]} q NH={nh} NKV={nkv} HD=128"
                 f"{' spread' if spread else ''}")
-        print(f"paged_attend_update_quant {name} positions "
-              f"{PAGED_POSITIONS}: max_abs_err {err:.3e} excess "
-              f"{excess:.3e} rel frob {fro:.3e}; pools bitwise {bitwise}, "
-              f"new bytes and scales landed {landed}")
-        assert ok and bitwise and landed, "paged_attend_update_quant"
+        print(f"paged_attend_update_quant {name} positions {positions} "
+              f"({splits} splits): max_abs_err {err:.3e} excess "
+              f"{excess:.3e} rel frob {fro:.3e}"
+              f"{' (tol 2^-12)' if sched else ''}; the same bits over three "
+              f"calls {same}; pools bitwise {bitwise}, new bytes and scales "
+              f"landed {landed}")
+        assert ok and same and bitwise and landed and (
+            not sched or fro <= PAGED_SCHEDULE_FROB), \
+            "paged_attend_update_quant disagrees"
         errs["paged_attend_update_quant"] = max(
             errs.get("paged_attend_update_quant", 0.0), err)
         lengths = a["rows"] + 1
         lengths[0] = 0                      # a row of length 0 reads 0
-        got = pa.paged_attention_quant(a["q"], *pools, a["tables"], lengths,
-                                       a["layer"])
+        outs = []
+        for _ in range(3):
+            # NaN under the output, so that a row left unwritten shows
+            torch.full(a["q"].shape, float("nan"), device=dev)
+            outs.append(pa.paged_attention_quant(a["q"], *pools, a["tables"],
+                                                 lengths, a["layer"]))
         ref = pa.paged_attention_quant_plain(a["q"], *pools, a["tables"],
-                                             lengths, a["layer"])
+                                             lengths, a["layer"],
+                                             splits=splits)
         torch.cuda.synchronize()
+        got = outs[0]
         ok, excess, fro, err = flash_close(got[1:], ref[1:], rel, frob)
+        same = all(torch.equal(got, x) for x in outs[1:])
         zero = bool((got[0] == 0).all())
-        print(f"paged_attention_quant {name} lengths {lengths.tolist()}: "
-              f"max_abs_err {err:.3e} excess {excess:.3e} rel frob "
-              f"{fro:.3e}; length-0 row exactly 0 {zero}")
-        assert ok and zero, "paged_attention_quant disagrees"
+        print(f"paged_attention_quant {name} lengths {lengths.tolist()} "
+              f"({splits} splits): max_abs_err {err:.3e} excess "
+              f"{excess:.3e} rel frob {fro:.3e}"
+              f"{' (tol 2^-12)' if sched else ''}; the same bits over three "
+              f"calls {same}; length-0 row exactly 0 {zero}")
+        assert ok and same and zero and (
+            not sched or fro <= PAGED_SCHEDULE_FROB), \
+            "paged_attention_quant disagrees"
         errs["paged_attention_quant"] = max(
             errs.get("paged_attention_quant", 0.0), err)
-        del a, pools, ref_pools
+        del a, pools, ref_pools, outs
 
     cases = [c + (VERIFY_QSTART,) for c in VERIFY_CASES] + [
         VERIFY_CASES[0] + (VERIFY_SCHEDULE_QSTART,)]
@@ -2910,11 +2942,9 @@ def _kernel_class(name):
     if "spin_kernel" in name:        # torch.cuda._sleep
         return "warm-up"
     if "paged_split_kernel" in name:    # <T, REP, WRITE, MAXT>
+        int8 = "_quant" if "<signed char," in name else ""
         return ("paged_attention" if ", false," in name
-                else "paged_attend_update")
-    if "paged_decode_quant_kernel" in name:
-        return ("paged_attend_update_quant" if ", true>" in name
-                else "paged_attention_quant")
+                else "paged_attend_update") + int8
     if "paged_verify_split_kernel" in name:     # <T, R, MAXT>
         return ("paged_attention_verify_quant" if "<signed char," in name
                 else "paged_attention_verify")
@@ -3307,61 +3337,69 @@ def quant_times(dev):
     """Rows 5 and 4 at row 3's timing shape and row 7 at row 6's (B=8,
     NH=NKV=32, HD=128, bf16 q, int8 pools from kv_quant_columns of bf16
     columns; row 3's positions, so 3,865 context tokens: row 4 reads
-    lengths = positions + 1, row 7 qstart = positions + 1 with T = 5, and
-    at row 6's even rows too, with ``profiler_ms``), row 9 at row 8's
-    (L=32, B=8, T=5, KVD=4096, every column accepted). Bytes:
-    q, the int8 K and V of the context with their f32 scales, the f32
-    output (row 7: the partials) and the indices once; row 5 adds the new
-    columns read and written with their scales; row 9 moves 2 L B T (KVD
-    + 4 NKV) bytes in and as many out. Operations: 2 products of 2 HD per
-    (query row, token) in f32 (the walk runs on the CUDA cores). Library
-    yardsticks: SDPA over the context gathered and dequantized to bf16
-    beforehand (rows 5, 4, 7), one advanced-index assignment per pool, four
-    pools (row 9)."""
+    lengths = positions + 1, row 7 qstart = positions + 1 with T = 5), and
+    rows 5 and 4 at the profiled decode step's even rows (8 x 1,001
+    tokens, 16-block tables) and row 7 at row 6's, with ``profiler_ms``;
+    row 9 at row 8's (L=32, B=8, T=5, KVD=4096, every column accepted).
+    Bytes: q, the int8 K and V of the context with their f32 scales, the
+    f32 output (row 7: the partials) and the indices once; row 5 adds the
+    new columns read and written with their scales; row 9 moves 2 L B T
+    (KVD + 4 NKV) bytes in and as many out. Operations: 2 products of 2 HD
+    per (query row, token) in f32 (the walk runs on the CUDA cores).
+    Library yardsticks: SDPA over the context gathered and dequantized to
+    bf16 beforehand (rows 5, 4, 7), one advanced-index assignment per pool,
+    four pools (row 9)."""
     from paddle_tpu_torch.ops import paged_attention as pa
     F = torch.nn.functional
     out = {}
     T, bs, nh, hd = SPEC_K + 1, 128, 32, 128
-    a = _quant_inputs(nh, nh, PAGED_POSITIONS, SEED + 71, dev,
-                      torch.bfloat16)
     b, kvd, nkv = len(PAGED_POSITIONS), nh * hd, nh
-    ctx = sum(p + 1 for p in PAGED_POSITIONS)
-    pools = [a[k] for k in ("k_pool", "v_pool", "k_scale", "v_scale")]
-    new = [a[k][-1, :, 0].contiguous() for k in ("new_k", "new_v", "new_ks",
-                                                   "new_vs")]
-    lengths = a["rows"] + 1
-    read = (b * nh * hd * 2 + 2 * ctx * (kvd + 4 * nkv) + b * nh * hd * 4
-            + a["tables"].numel() * 4 + b * 4)
-    cols = 2 * b * (kvd + 4 * nkv)
-    ops = 4 * nh * hd * ctx
-    tmax = max(PAGED_POSITIONS) + 1
-    nb = -(-tmax // bs)
-    rows = a["tables"][:, :nb].long()
-    kc, vc = (pa.kv_dequant_blocks(c[a["layer"]][rows], sc[a["layer"]][rows])
-              .to(torch.bfloat16).reshape(b, nb, nh, hd, bs)
-              .permute(0, 2, 1, 4, 3).reshape(b, nh, nb * bs, hd)[:, :, :tmax]
-              .contiguous() for c, sc in ((pools[0], pools[2]),
-                                          (pools[1], pools[3])))
-    mask = (torch.arange(tmax, device=dev)[None, :]
-            < lengths[:, None])[:, None, None, :]
-    qd = a["q"][:, :, None, :]
-    lib = _timed(lambda: F.scaled_dot_product_attention(
-        qd, kc, vc, attn_mask=mask), 50)["ms"]
-    upd = (a["q"], *new, *pools, a["tables"], a["rows"], a["layer"])
-    rd = (a["q"], *pools, a["tables"], lengths, a["layer"])
-    for name, nbytes, kern, plain in (
-            ("paged_attend_update_quant", read + 2 * cols,
-             lambda: pa.paged_attend_update_quant(*upd),
-             lambda: pa.paged_attend_update_quant_plain(*upd)),
-            ("paged_attention_quant", read,
-             lambda: pa.paged_attention_quant(*rd),
-             lambda: pa.paged_attention_quant_plain(*rd))):
-        r = dict(_timed(kern, 100), plain_ms=_timed(plain, 10)["ms"],
-                 library_ms=lib, **_bound(nbytes, ops, F32_OPS_PER_S),
-                 bytes=nbytes, context_tokens=ctx)
-        out[f"{name}[B=8,NH=NKV=32]"] = r
-        print(f"{name} B=8 NH=NKV=32 ctx {ctx} tokens: {r}")
-    del a, kc, vc, pools, new
+    for key, positions, width, seed in (
+            ("", PAGED_POSITIONS, None, SEED + 71),
+            (",even rows", PAGED_STEP_POSITIONS, 16, SEED + 75)):
+        a = _quant_inputs(nh, nh, positions, seed, dev, torch.bfloat16,
+                          max_nb=width)
+        ctx = sum(p + 1 for p in positions)
+        pools = [a[k] for k in ("k_pool", "v_pool", "k_scale", "v_scale")]
+        new = [a[k][-1, :, 0].contiguous()
+               for k in ("new_k", "new_v", "new_ks", "new_vs")]
+        lengths = a["rows"] + 1
+        read = (b * nh * hd * 2 + 2 * ctx * (kvd + 4 * nkv) + b * nh * hd * 4
+                + a["tables"].numel() * 4 + b * 4)
+        cols = 2 * b * (kvd + 4 * nkv)
+        ops = 4 * nh * hd * ctx
+        tmax = max(positions) + 1
+        nb = -(-tmax // bs)
+        rows = a["tables"][:, :nb].long()
+        kc, vc = (pa.kv_dequant_blocks(c[a["layer"]][rows],
+                                       sc[a["layer"]][rows])
+                  .to(torch.bfloat16).reshape(b, nb, nh, hd, bs)
+                  .permute(0, 2, 1, 4, 3).reshape(b, nh, nb * bs, hd)
+                  [:, :, :tmax].contiguous()
+                  for c, sc in ((pools[0], pools[2]), (pools[1], pools[3])))
+        mask = (torch.arange(tmax, device=dev)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        qd = a["q"][:, :, None, :]
+        lib = _timed(lambda: F.scaled_dot_product_attention(
+            qd, kc, vc, attn_mask=mask), 50)["ms"]
+        upd = (a["q"], *new, *pools, a["tables"], a["rows"], a["layer"])
+        rd = (a["q"], *pools, a["tables"], lengths, a["layer"])
+        for name, nbytes, kern, plain in (
+                ("paged_attend_update_quant", read + 2 * cols,
+                 lambda: pa.paged_attend_update_quant(*upd),
+                 lambda: pa.paged_attend_update_quant_plain(*upd)),
+                ("paged_attention_quant", read,
+                 lambda: pa.paged_attention_quant(*rd),
+                 lambda: pa.paged_attention_quant_plain(*rd))):
+            r = dict(_timed(kern, 100),
+                     profiler_ms=_profiled_ms(kern, "paged_split_kernel"),
+                     plain_ms=_timed(plain, 10)["ms"],
+                     library_ms=lib, **_bound(nbytes, ops, F32_OPS_PER_S),
+                     bytes=nbytes, context_tokens=ctx)
+            out[f"{name}[B=8,NH=NKV=32{key}]"] = r
+            print(f"{name} B=8 NH=NKV=32 ctx {ctx} "
+                  f"tokens{key.replace(',', ', ')}: {r}")
+        del a, kc, vc, pools, new
 
     qstart = [p + 1 for p in PAGED_POSITIONS]
     for key, rows, width, seed in (

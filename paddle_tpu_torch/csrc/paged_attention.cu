@@ -61,8 +61,9 @@
 // "fixed-base" softmax overflows once a later tile's max exceeds tile 0's
 // by ~100 log2 units.
 //
-// Rows 3 and 2 (paged_split_kernel) and 6 and 7 (paged_verify_split_kernel),
-// one body (split_walk), redesigned for Hopper: flash-decoding.
+// Rows 3 and 2, and over int8 pools rows 5 and 4 (paged_split_kernel), and
+// rows 6 and 7 (paged_verify_split_kernel): one body (split_walk),
+// redesigned for Hopper: flash-decoding.
 // A serving batch is ragged (prompts of 128-1024 tokens plus what was
 // generated), and a walk of one CTA per (row, kv-head) takes as long as
 // its longest row's blocks in sequence. So the grid is (kv-head, row,
@@ -108,23 +109,23 @@
 // each block's K and V scales of the kv-head (bs f32, contiguous) arrive by
 // bulk copy with the block's first K piece, and the splits skip the
 // look-back (P is never rounded). The verify splits issue their first
-// copies before the CTA's barrier and take no L2 warm-up.
+// copies before the CTA's barrier and take no L2 warm-up. The int8 decode
+// (rows 5 and 4) is the decode walk over int8 pools: REP query heads, q in
+// f32 or bf16, the scales as in the verify read, no look-back, no L2
+// warm-up, the first copies before the barrier (but for the owner of row
+// 5's new column) and the verify read's P.V in place over 2 V rows a
+// thread.
 //
-// Rows 4 and 5 (the int8 decode entries) keep one CTA per (row, kv-head)
-// walking the row's live blocks in sequence (walk_blocks): every K and V
-// access is a 16-byte vector from device memory, several in flight a
-// thread; three barriers per block.
-//
-// Write before read, without a race (update entries): the CTA that owns
-// the new column (row 3: the split whose run holds positions[b]) writes
-// only its own kv-head's HD rows of it, then reads them: row 3 orders the
-// writes before its bulk copies with a proxy fence and a barrier, row 5
-// with a barrier before its loads. No other CTA touches those bytes: the
-// other splits of the row read earlier blocks only. Padding rows point
-// their whole table at the reserved null block 0 with position 0; they all
-// write block 0, column 0, concurrently. That is harmless: no live row
-// ever reads block 0. The commit's rejected and padding columns likewise
-// land in block 0 from many CTAs at once.
+// Write before read, without a race (update entries, rows 3 and 5): the
+// split whose run holds positions[b] writes only its own kv-head's HD rows
+// of the new column (row 5: and the kv-head's one K and one V scale), then
+// reads them: a proxy fence and a barrier order the writes before its
+// bulk copies. No other CTA touches those bytes: the other splits of the
+// row read earlier blocks only. Padding rows point their whole table at
+// the reserved null block 0 with position 0; they all write block 0,
+// column 0, concurrently. That is harmless: no live row ever reads block
+// 0. The commit's rejected and padding columns likewise land in block 0
+// from many CTAs at once.
 //
 // Design of the commit: one CTA of 128 threads per (kv-slice of 128
 // elements, row, layer) stages the row's T columns of that slice in shared
@@ -135,26 +136,19 @@
 // The int8 entries (q in f32 or bf16, pools int8, scales f32). New
 // columns arrive already quantized (the caller's kv_quant_columns, the one
 // quantizer of prefill, decode and commit): the kernels copy bytes and
-// scales and never requantize. The decode walk (rows 5, 4) is the block
-// walk with 16-byte vectors of 16 codes (so G = 16 K row groups, and part_s
-// holds 16 * R * bs floats: 64 KiB at R = 8). One CTA owns one kv-head, so
-// a token's K scale and V scale are scalars of the whole CTA: a score is
-// s[t] = ks[t] * sum_d q[d] * k8[d, t], and P.V takes p'[t] = p[t] * vs[t],
-// in f32 and NOT rounded (l sums the unscaled p); the verify read (row 7)
-// does the same on the split walk. The TPU kernels dequantize every element
-// first, f32(k8) * ks; the factored form differs from that only in f32
-// rounding. The decode entry (paged_attend_update_quant_fwd) writes the new
-// column's HD bytes of its own kv-head and its one K and one V scale before
-// the __syncthreads that precedes the walk, the same race-free argument as
-// above; the read-only entry (paged_attention_quant_fwd) is the same kernel
-// with the write compiled out, over tokens 0..lengths[b]-1 (a row of length
-// 0 gets 0). The int8 commit is the commit's byte scatter with 1-byte
+// scales and never requantize. One CTA owns one kv-head, so a token's K
+// scale and V scale are scalars of the whole CTA: a score is s[t] = ks[t] *
+// sum_d q[d] * k8[d, t], and P.V takes p'[t] = p[t] * vs[t], in f32 and NOT
+// rounded (l sums the unscaled p), in the decode (rows 5, 4) and verify
+// (row 7) walks alike. The TPU kernels dequantize every element first,
+// f32(k8) * ks; the factored form differs from that only in f32 rounding.
+// The int8 commit is the commit's byte scatter with 1-byte
 // elements, each of which costs a 32-byte sector (worse than bf16: the T
 // columns of one pool row share one sector at most); each CTA also scatters
 // the T scales of the kv-heads whose rows start in its slice.
 //
 // The kernels allocate nothing and do not synchronise; they launch on the
-// caller's stream. Not done yet: rows 4 and 5 on the split walk.
+// caller's stream.
 #include <math.h>
 
 #include <type_traits>
@@ -168,165 +162,8 @@ namespace {
 constexpr int kMaxFed = 8;        // verify and commit: fed tokens per row
 constexpr int kCommitSlice = 128; // commit: KVD elements per CTA
 
-// Shared memory of the attention walk, in floats:
-//   q_s [R*hd] | part_s [G*R*bs] | p_s [R*bs] | max_s [R*32] | sum_s [R*32]
-template <typename T, int R>
-size_t walk_smem_bytes(int hd, int bs) {
-  constexpr int G = 16 / sizeof(T);
-  return sizeof(float) * (size_t)(R * hd + G * R * bs + R * bs + 2 * R * 32);
-}
-
-// The per-column scale pools [L, NP, NKV, bs] f32 of int8 pools, read at
-// kv-head g (QUANT walks only)
-struct Scales {
-  const float* k = nullptr;
-  const float* v = nullptr;
-  int nkv = 0, g = 0;
-};
-
-// Online softmax of the R query rows q_s [R, hd] (f32, shared memory)
-// over tokens 0..last (inclusive, last >= 0) of one sequence, whose pool
-// blocks are trow[0..last/bs], at the kv-head slice that starts head_off
-// rows into KVD. Launched with blockDim.x == bs; every thread of the CTA
-// calls it. On return every thread holds the same m[r], l[r], and thread
-// (vd, vpart) with vpart == 0 holds acc[r] for output column vd, where
-// tp = bs / hd, vd = tid / tp, vpart = tid % tp. QUANT: T is int8_t and
-// each token's score and P take its K and V scale from ``sc``.
-template <typename T, int R, bool QUANT = false>
-__device__ __forceinline__ void walk_blocks(const T* k_pool, const T* v_pool,
-                                            const int* trow, int layer, int np, int kvd,
-                                            size_t head_off, int hd, int bs, int last,
-                                            float* smem, float (&m)[R], float (&l)[R],
-                                            float (&acc)[R], Scales sc = {}) {
-  constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte vector
-  constexpr int G = VEC;                // K row groups: bs threads / (bs/VEC) per row
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const float* q_s = smem;
-  float* part_s = smem + R * hd;
-  float* p_s = part_s + G * R * bs;
-  float* max_s = p_s + R * bs;
-  float* sum_s = max_s + R * 32;
-
-  // score mapping: vector c of K rows kg, kg+G, ...
-  const int nv = bs / VEC;
-  const int kc = tid % nv, kg = tid / nv;
-  // P.V mapping: tp threads per V row, each over tpt consecutive tokens
-  const int tp = blockDim.x / hd, tpt = bs / tp;
-  const int vd = tid / tp, vpart = tid % tp;
-
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-    acc[r] = 0.f;
-  }
-
-  const int nblk = last / bs + 1;
-  for (int j = 0; j < nblk; ++j) {
-    const size_t base = (((size_t)layer * np + (size_t)trow[j]) * kvd + head_off) * bs;
-    const T* kt = k_pool + base;
-    const T* vt = v_pool + base;
-    [[maybe_unused]] float kscale = 1.f, vscale = 1.f;  // this token's scales
-    if constexpr (QUANT) {
-      const size_t so = (((size_t)layer * np + (size_t)trow[j]) * sc.nkv + sc.g) * bs + tid;
-      kscale = sc.k[so];
-      vscale = sc.v[so];
-    }
-
-    // a. partial scores of VEC tokens over this thread's K rows
-    float sp[R][VEC];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) sp[r][i] = 0.f;
-#pragma unroll 8
-    for (int d = kg; d < hd; d += G) {
-      float kf[VEC];
-      load_vec<T, VEC>(kt + (size_t)d * bs + kc * VEC, kf);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float qd = q_s[r * hd + d];
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) sp[r][i] += qd * kf[i];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float4* dst = reinterpret_cast<float4*>(part_s + (kg * R + r) * bs + kc * VEC);
-#pragma unroll
-      for (int i = 0; i < VEC; i += 4)
-        dst[i / 4] = make_float4(sp[r][i], sp[r][i + 1], sp[r][i + 2], sp[r][i + 3]);
-    }
-    __syncthreads();
-
-    // b. thread t = token t: whole score, mask, block max
-    const bool live = j * bs + tid <= last;
-    float s[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float v = 0.f;
-#pragma unroll
-      for (int k = 0; k < G; ++k) v += part_s[(k * R + r) * bs + tid];
-      if constexpr (QUANT) v *= kscale;
-      s[r] = live ? v : -1e30f;
-      const float mx = warp_max(s[r]);
-      if (lane == 0) max_s[r * 32 + warp] = mx;
-    }
-    __syncthreads();
-
-    // c. every thread keeps the same running (m, l); P to shared memory
-    float alpha[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float mx = -INFINITY;
-      for (int w = 0; w < nwarps; ++w) mx = fmaxf(mx, max_s[r * 32 + w]);
-      const float m_new = fmaxf(m[r], mx);
-      alpha[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
-      const float p = exp2f(s[r] - m_new);
-      if constexpr (QUANT)
-        p_s[r * bs + tid] = p * vscale;
-      else
-        p_s[r * bs + tid] = round_to(p, kt);
-      const float ps = warp_sum(p);
-      if (lane == 0) sum_s[r * 32 + warp] = ps;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float sum = 0.f;
-      for (int w = 0; w < nwarps; ++w) sum += sum_s[r * 32 + w];
-      l[r] = l[r] * alpha[r] + sum;
-    }
-
-    // d. P.V over this thread's slice of V row vd
-    float pv[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) pv[r] = 0.f;
-    const T* vrow = vt + (size_t)vd * bs + vpart * tpt;
-#pragma unroll 8
-    for (int u = 0; u < tpt; u += VEC) {
-      float vf[VEC];
-      load_vec<T, VEC>(vrow + u, vf);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float* pr = p_s + r * bs + vpart * tpt + u;
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) pv[r] += pr[i] * vf[i];
-      }
-    }
-    // the tp threads of one V row are neighbouring lanes
-    for (int o = tp >> 1; o > 0; o >>= 1)
-#pragma unroll
-      for (int r = 0; r < R; ++r) pv[r] += __shfl_xor_sync(0xffffffffu, pv[r], o);
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = acc[r] * alpha[r] + pv[r];
-  }
-}
-
 // ---------------------------------------------------------------------------
-// rows 3, 2, 6 and 7: the split-context walk
+// rows 2-7: the split-context walk
 // ---------------------------------------------------------------------------
 
 constexpr int kRing = 4;          // ring slots at most: two blocks of K and V
@@ -377,17 +214,21 @@ __device__ __forceinline__ void load_f(const E* p, float (&f)[V]) {
 // The arguments of every entry of the split walk. q: [b, nh, hd] (decode)
 // or [b, t_fed, nh, hd] (verify), pre-scaled, of the pools' type but over
 // int8 pools (q_bf16: bf16, else f32). rows: positions (kUpdate), lengths
-// (kRead) or qstart (kVerify). out: attn [b, nh, hd], or verify's acc [b,
-// t_fed, nh, hd] with m_out, l_out [b, t_fed, nh]. part and sync:
-// split_common.cuh's layouts, a group per (row, kv-head, chunk).
+// (kRead) or qstart (kVerify). new_k, new_v: the new columns [b, kvd]
+// (kUpdate), over int8 pools with their scales new_ks, new_vs [b, nkv].
+// out: attn [b, nh, hd], or verify's acc [b, t_fed, nh, hd] with m_out,
+// l_out [b, t_fed, nh]. part and sync: split_common.cuh's layouts, a group
+// per (row, kv-head, chunk).
 struct SplitArgs {
   const void* q;
   const void* new_k;
   const void* new_v;
+  const float* new_ks;
+  const float* new_vs;
   void* k_pool;
   void* v_pool;
-  const float* k_scale;
-  const float* v_scale;
+  float* k_scale;
+  float* v_scale;
   const int* tables;
   const int* rows;
   float* out;
@@ -438,33 +279,37 @@ struct SplitSmem {
   }
 };
 
-// One CTA of the split walk, blockDim.x == bs. Decode (rows 3 and 2):
-// grid (nkv, b, nsplit), R = REP query heads of kv-head g. Verify (rows 6
+// One CTA of the split walk, blockDim.x == bs. Decode (rows 3 and 2; 5
+// and 4 over int8 pools): grid (nkv, b, nsplit), R = REP query heads of
+// kv-head g. Verify (rows 6
 // and 7): grid (nkv nchunk, b, nsplit), R = the chunk height, chunk c of
 // kv-head g taking the (row, kv-head)'s query rows c R .. c R + R - 1 (past
 // t_fed rep: zeros, never stored). Split z of a group takes the row's pool
 // blocks [z bps, (z + 1) bps) of its live ones (the index z is a ticket in
 // arrival order), a piece of prow rows of one K or V slice per bulk copy,
-// nbuf pieces in flight. kUpdate (row 3): the split that owns positions[b]
-// writes row b's new column there, then every split attends over its share
-// of 0..positions[b]. kRead (row 2): over 0..rows[b]-1, rows = lengths; a
-// row of length 0 gets 0. kVerify: over 0..qstart[b]-1, returning the
-// unfinalised (acc, m, l); a row with qstart 0 gets acc = 0, l = 0, m =
-// -1e30. int8 pools (verify only): each K or V slice's bs scales of kv-head
-// g arrive by bulk copy with the slice's first K piece; a token's score is
-// ks * (q . k8), and P.V takes p * vs in f32, unrounded (l sums p); the
-// splits take no look-back.
+// nbuf pieces in flight. kUpdate (rows 3, 5): the split that owns
+// positions[b] writes row b's new column there (row 5: with its K and V
+// scale), then every split attends over its share of 0..positions[b].
+// kRead (rows 2, 4): over 0..rows[b]-1, rows = lengths; a row of length 0
+// gets 0. kVerify: over 0..qstart[b]-1, returning the unfinalised (acc, m,
+// l); a row with qstart 0 gets acc = 0, l = 0, m = -1e30. int8 pools: each
+// K or V slice's bs scales of kv-head g arrive by bulk copy with the
+// slice's first K piece; a token's score is ks * (q . k8), and P.V takes p
+// * vs in f32, unrounded (l sums p); the splits take no look-back.
 template <typename T, int R, int MODE>
 __device__ __forceinline__ void split_walk(const SplitArgs a) {
   constexpr bool WRITE = MODE == kUpdate, VERIFY = MODE == kVerify;
   constexpr bool QUANT = std::is_same<T, int8_t>::value;
-  static_assert(VERIFY || !QUANT, "int8 pools: the verify read only");
   using PT = typename PType<T>::type;
   constexpr int VEC = kVec<T>;        // elements a thread loads at once
   constexpr int G = VEC;              // K row groups: bs threads / (bs/VEC) per row
-  // V rows of one thread's P.V: the verify read sums 2 (int8: 4) at once, a
-  // p read from shared memory serving them all
-  constexpr int DR = VERIFY ? (QUANT ? 4 : 2) : 1;
+  // P.V in place (the verify read, the int8 decode): a thread sums DR = 2
+  // (the int8 verify read: 4) V rows at once into acc, a p read from shared
+  // memory serving them all. Else (rows 3, 2) one V row's share a thread,
+  // summed over its lanes block by block (the int8 decode ran 10-20% slower
+  // so, and 13% slower at DR = 4, tools/paged_choices.py).
+  constexpr bool INPLACE = VERIFY || QUANT;
+  constexpr int DR = !INPLACE ? 1 : VERIFY && QUANT ? 4 : 2;
   const int nchunk = VERIFY ? a.nchunk : 1;
   const int g = blockIdx.x / nchunk, chunk = blockIdx.x % nchunk, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -483,7 +328,7 @@ __device__ __forceinline__ void split_walk(const SplitArgs a) {
   const VerifyRows vr{a.out, a.m_out, a.l_out, b * a.t_fed, nh, g * a.rep, a.rep, chunk * R,
                       a.t_fed * a.rep};
   if ((int)blockIdx.z >= max(nlive, 1)) return;  // no live token in this split
-  if (nlive == 0) {  // a length-0 row of row 2; a padding row of the verify read
+  if (nlive == 0) {  // a length-0 row of rows 2, 4; a padding row of the verify read
     if constexpr (VERIFY) {
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -577,14 +422,16 @@ __device__ __forceinline__ void split_walk(const SplitArgs a) {
   };
 
   if (tid == 0) {
-    // decode: the ticket's round trip is spent warming the L2 with the
+    // rows 3, 2: the ticket's round trip is spent warming the L2 with the
     // blocks of split blockIdx.z (tickets follow the grid order closely,
-    // and every live block is warmed by one CTA); verify: no warm-up (its
-    // splits run longer, and the warm-up cost it 10%, tools/paged_choices.py),
-    // and the split's first pieces go out before the barrier
+    // and every live block is warmed by one CTA); verify and int8 decode:
+    // no warm-up (it cost the verify read 10% and the int8 decode 3-15%,
+    // tools/paged_choices.py), and the split's first pieces go out before
+    // the barrier, but for the owner of row 5's new column, which writes
+    // it first (step 1)
     int z = 0;
     if (VERIFY && nlive > 1) z = take_ticket(gsync);
-    if (!VERIFY && nlive > 1) {
+    if (!VERIFY && !QUANT && nlive > 1) {
       const int z0 = blockIdx.z * bps, zn = min(bps, nblk - z0);
       const int* zrow = a.tables + (size_t)b * a.max_nb + z0;
       const uint32_t slice = (uint32_t)hd * bs * sizeof(T);
@@ -598,7 +445,7 @@ __device__ __forceinline__ void split_walk(const SplitArgs a) {
     split_s = z;
     for (int i = 0; i < nbuf; ++i) mbar_init(&bar[i], 1);
     mbar_fence_init();
-    if constexpr (VERIFY) {
+    if (VERIFY || (QUANT && !(WRITE && z == nlive - 1))) {
       set_split(z);
       refill(0);
     }
@@ -622,31 +469,42 @@ __device__ __forceinline__ void split_walk(const SplitArgs a) {
       }
     }
   } else {
-    for (int i = tid; i < R * hd; i += nt) q_s[i] = to_f(static_cast<const T*>(a.q)[q_off + i]);
+    for (int i = tid; i < R * hd; i += nt) {
+      if constexpr (QUANT)
+        q_s[i] = a.q_bf16 ? to_f(static_cast<const __nv_bfloat16*>(a.q)[q_off + i])
+                          : static_cast<const float*>(a.q)[q_off + i];
+      else
+        q_s[i] = to_f(static_cast<const T*>(a.q)[q_off + i]);
+    }
   }
   __syncthreads();
   set_split(split_s);
 
-  // 1. the new token's column, this kv-head's rows only, by the split that
-  // owns it, before any copy of its blocks is issued; the proxy fence and
-  // the barrier order the writes before the bulk copies' reads
+  // 1. the new token's column, this kv-head's rows only (int8: and its K
+  // and V scale), by the split that owns it, before any copy of its blocks
+  // is issued; the proxy fence and the barrier order the writes before the
+  // bulk copies' reads of the bytes and the scales
   if (WRITE && split == nlive - 1) {
     T* kw = static_cast<T*>(a.k_pool);
     T* vw = static_cast<T*>(a.v_pool);
     const T* new_k = static_cast<const T*>(a.new_k);
     const T* new_v = static_cast<const T*>(a.new_v);
-    const size_t blk = (size_t)trow[last / bs - j0];
+    const int blk = trow[last / bs - j0];
     const size_t base = (((size_t)layer * np + blk) * kvd + head_off) * bs + last % bs;
     const size_t src = (size_t)b * kvd + head_off;
     for (int d = tid; d < hd; d += nt) {
       kw[base + (size_t)d * bs] = new_k[src + d];
       vw[base + (size_t)d * bs] = new_v[src + d];
     }
+    if (QUANT && tid == 0) {
+      a.k_scale[scale_off(blk) + last % bs] = a.new_ks[(size_t)b * nkv + g];
+      a.v_scale[scale_off(blk) + last % bs] = a.new_vs[(size_t)b * nkv + g];
+    }
     fence_async_global();
     __syncthreads();
   }
 
-  if constexpr (!VERIFY) refill(0);
+  if constexpr (!VERIFY) refill(0);  // (nothing more where issued above)
 
   // 2. scores of the split's blocks, thread t = token t of a block: the
   // first block's stay in registers, later ones in keep_s (each thread
@@ -745,21 +603,22 @@ __device__ __forceinline__ void split_walk(const SplitArgs a) {
 
   // 4. the online softmax over the split's blocks from that max: P
   // rounded to the pool dtype into p_s (int8: p * vs in f32), l summed
-  // from the unrounded f32 P; then P.V from the V pieces. Decode: thread
-  // (vd, vpart) over its slice of V row vd, its 16-byte vectors taken from
+  // from the unrounded f32 P; then P.V from the V pieces. Rows 3, 2:
+  // thread (vd, vpart) over its slice of V row vd, its vectors taken from
   // a rotated start so that the threads of a phase read different banks.
-  // Verify: thread (dg, vp) over V rows dg DR .. dg DR + DR - 1 (each p
-  // read once for DR rows), token vectors vp, vp + tp, ... of the block
-  // from a start rotated by dg (so the threads of a phase read different
-  // banks of V and of p); the tp threads of a dgroup are neighbouring
-  // lanes, and threads past hd / DR dgroups only join the shuffles.
-  int tp = VERIFY ? nt * DR / hd : nt / hd;
-  if constexpr (VERIFY)
+  // In place: thread (dg, vp) over V rows dg DR .. dg DR + DR - 1
+  // (each p read once for DR rows), token vectors vp, vp + tp, ... of the
+  // block from a start rotated by dg (so the threads of a phase read
+  // different banks of V and of p); the tp threads of a dgroup are
+  // neighbouring lanes, and threads past hd / DR dgroups only join the
+  // shuffles.
+  int tp = INPLACE ? nt * DR / hd : nt / hd;
+  if constexpr (INPLACE)
     while (tp > 32 || (bs / VEC) % tp) tp >>= 1;
   const int tpt = bs / tp;
-  const int vd = tid / tp, vpart = tid % tp;  // verify: dgroup vd, part vpart
+  const int vd = tid / tp, vpart = tid % tp;  // in place: dgroup vd, part vpart
   const int nvv = tpt / VEC, rot = vd % nvv;
-  const bool pv_on = !VERIFY || vd < hd / DR;
+  const bool pv_on = !INPLACE || vd < hd / DR;
   float l[R], acc[R][DR];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -790,13 +649,13 @@ __device__ __forceinline__ void split_walk(const SplitArgs a) {
       for (int w = 0; w < nwarps; ++w) sum += sum_s[r * nwarps + w];
       l[r] = l[r] * alpha[r] + sum;
     }
-    // verify: acc takes the block's P.V in place (a thread's share of the
-    // tokens; the tp lanes are summed once, after the last block);
-    // decode: the block's P.V in pv, summed over the tp lanes here
+    // in place: acc takes the block's P.V (a thread's share of the tokens;
+    // the tp lanes are summed once, after the last block); else the
+    // block's P.V in pv, summed over the tp lanes here
     [[maybe_unused]] float pv[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      if constexpr (VERIFY) {
+      if constexpr (INPLACE) {
 #pragma unroll
         for (int e = 0; e < DR; ++e) acc[r][e] *= alpha[r];
       } else {
@@ -807,7 +666,7 @@ __device__ __forceinline__ void split_walk(const SplitArgs a) {
       const T* vt = piece_at(i);
       const int r0 = pc * prow, d0 = vd * DR;
       if (pv_on && d0 >= r0 && d0 < r0 + prow) {
-        if constexpr (VERIFY) {
+        if constexpr (INPLACE) {
           const T* vrow = vt + (size_t)(d0 - r0) * bs;
           int c = rot;
           for (int u = 0; u < nvv; ++u) {
@@ -832,21 +691,21 @@ __device__ __forceinline__ void split_walk(const SplitArgs a) {
           int c = rot;
 #pragma unroll 4
           for (int u = 0; u < nvv; ++u) {
-            const uint4 vv = *reinterpret_cast<const uint4*>(vrow + c * VEC);
-            const T* ve = reinterpret_cast<const T*>(&vv);
+            float vf[VEC];
+            load_f<T, VEC>(vrow + c * VEC, vf);
 #pragma unroll
             for (int r = 0; r < R; ++r) {
-              const uint4 pp = *reinterpret_cast<const uint4*>(pr + r * bs + c * VEC);
-              const T* pe = reinterpret_cast<const T*>(&pp);
+              float pf[VEC];
+              load_f<PT, VEC>(pr + r * bs + c * VEC, pf);
 #pragma unroll
-              for (int x = 0; x < VEC; ++x) pv[r] += to_f(pe[x]) * to_f(ve[x]);
+              for (int x = 0; x < VEC; ++x) pv[r] += pf[x] * vf[x];
             }
             if (++c == nvv) c = 0;
           }
         }
       }
     }
-    if constexpr (!VERIFY) {
+    if constexpr (!INPLACE) {
       // the tp threads of one V row are neighbouring lanes
       for (int o = tp >> 1; o > 0; o >>= 1)
 #pragma unroll
@@ -857,7 +716,7 @@ __device__ __forceinline__ void split_walk(const SplitArgs a) {
     __syncthreads();  // p_s, sum_s and this block's V pieces are free
     refill(i);
   }
-  if constexpr (VERIFY) {
+  if constexpr (INPLACE) {
     // the tp threads of one dgroup are neighbouring lanes
     for (int o = tp >> 1; o > 0; o >>= 1)
 #pragma unroll
@@ -887,7 +746,9 @@ __device__ __forceinline__ void split_walk(const SplitArgs a) {
     } else if (owner) {
 #pragma unroll
       for (int r = 0; r < R; ++r)
-        a.out[q_off + (size_t)r * hd + vd] = acc[r][0] / fmaxf(l[r], 1e-30f);
+#pragma unroll
+        for (int e = 0; e < DR; ++e)
+          a.out[q_off + (size_t)r * hd + vd * DR + e] = acc[r][e] / fmaxf(l[r], 1e-30f);
     }
     return;
   }
@@ -911,9 +772,10 @@ __device__ __forceinline__ void split_walk(const SplitArgs a) {
     combine_splits<R>(gpart, pstride, nlive, hd, nt, a.out + q_off, part_s, gsync);
 }
 
-// Rows 3 (WRITE) and 2: the decode entries of the split walk. MAXT bounds
-// bs: blocks of more than 256 tokens take the form compiled for 1024
-// threads (64 registers a thread, where 256 threads leave it 255).
+// Rows 3 (WRITE) and 2, T the pools' and q's type, and rows 5 (WRITE) and
+// 4, T = int8_t: the decode entries of the split walk. MAXT bounds bs:
+// blocks of more than 256 tokens take the form compiled for 1024 threads
+// (64 registers a thread, where 256 threads leave it 255).
 template <typename T, int REP, bool WRITE, int MAXT>
 __global__ void __launch_bounds__(MAXT) paged_split_kernel(const SplitArgs a) {
   split_walk<T, REP, WRITE ? kUpdate : kRead>(a);
@@ -924,74 +786,6 @@ __global__ void __launch_bounds__(MAXT) paged_split_kernel(const SplitArgs a) {
 template <typename T, int R, int MAXT>
 __global__ void __launch_bounds__(MAXT) paged_verify_split_kernel(const SplitArgs a) {
   split_walk<T, R, kVerify>(a);
-}
-
-// int8 decode, grid (nkv, b), blockDim.x == bs. WRITE (row 5): write row
-// b's pre-quantized column (this kv-head's hd bytes of new_k/new_v, its K
-// and V scale) at positions[b], then attend over 0..positions[b]. !WRITE
-// (row 4): attend over 0..rows[b]-1, rows = lengths; a row of length 0
-// gets 0. new_* are unused when !WRITE.
-template <typename Q, int REP, bool WRITE>
-__global__ void paged_decode_quant_kernel(const Q* __restrict__ q,
-                                          const int8_t* __restrict__ new_k,
-                                          const int8_t* __restrict__ new_v,
-                                          const float* __restrict__ new_ks,
-                                          const float* __restrict__ new_vs, int8_t* k_pool,
-                                          int8_t* v_pool, float* k_scale, float* v_scale,
-                                          const int* __restrict__ tables,
-                                          const int* __restrict__ rows,
-                                          float* __restrict__ out, int layer, int np, int nkv,
-                                          int hd, int bs, int max_nb) {
-  const int g = blockIdx.x, b = blockIdx.y;
-  const int kvd = nkv * hd;
-  const int tid = threadIdx.x;
-  extern __shared__ float smem[];
-  float* q_s = smem;
-
-  const int last = WRITE ? rows[b] : rows[b] - 1;
-  const int* trow = tables + (size_t)b * max_nb;
-  const size_t head_off = (size_t)g * hd;
-
-  // 1. the new token's column: this kv-head's bytes and its two scales
-  if constexpr (WRITE) {
-    const size_t blk = (size_t)trow[last / bs];
-    const int col = last % bs;
-    const size_t base = (((size_t)layer * np + blk) * kvd + head_off) * bs + col;
-    const size_t src = (size_t)b * kvd + head_off;
-    for (int d = tid; d < hd; d += blockDim.x) {
-      k_pool[base + (size_t)d * bs] = new_k[src + d];
-      v_pool[base + (size_t)d * bs] = new_v[src + d];
-    }
-    if (tid == 0) {
-      const size_t so = (((size_t)layer * np + blk) * nkv + g) * bs + col;
-      k_scale[so] = new_ks[(size_t)b * nkv + g];
-      v_scale[so] = new_vs[(size_t)b * nkv + g];
-    }
-  }
-  // 2. queries
-  const size_t q_off = ((size_t)b * nkv * REP + (size_t)g * REP) * hd;
-  for (int i = tid; i < REP * hd; i += blockDim.x) q_s[i] = to_f(q[q_off + i]);
-  __syncthreads();  // orders the column write above before the reads below
-
-  // 3. online softmax over the row's live blocks (none for a length-0 row)
-  float m[REP], l[REP], acc[REP];
-  if (last >= 0) {  // uniform over the CTA
-    walk_blocks<int8_t, REP, true>(k_pool, v_pool, trow, layer, np, kvd, head_off, hd, bs, last,
-                                   smem, m, l, acc, Scales{k_scale, v_scale, nkv, g});
-  } else {
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      l[r] = 0.f;
-      acc[r] = 0.f;
-    }
-  }
-
-  // 4. finalise: attn [B, NH, HD] f32
-  const int tp = blockDim.x / hd, vd = tid / tp, vpart = tid % tp;
-  if (vpart == 0) {
-#pragma unroll
-    for (int r = 0; r < REP; ++r) out[q_off + (size_t)r * hd + vd] = acc[r] / fmaxf(l[r], 1e-30f);
-  }
 }
 
 // The commit of one CTA of grid (ceil(kvd / kCommitSlice), b_rows,
@@ -1109,7 +903,7 @@ bool split_geometry(int hd, int bs, int bps, int* prow, int* nbuf, size_t* smem)
   return false;
 }
 
-// One launch of the split walk: rows 3 and 2, grid (nkv, b, nsplit); the
+// One launch of the split walk: rows 2-5, grid (nkv, b, nsplit); the
 // verify read, grid (nkv nchunk, b, nsplit). a carries everything but the
 // geometry, which is set here.
 template <typename T, int R, int MODE, int MAXT>
@@ -1147,29 +941,48 @@ bool bad_geometry(int nh, int nkv, int hd, int bs) {
          ((bs / hd) & (bs / hd - 1));
 }
 
-// the int8 walks load 16 codes a vector, so a V row slice of hd bytes
-// must hold whole vectors
+// the int8 entries' head_dim: a multiple of 16 codes
 bool bad_quant_geometry(int nh, int nkv, int hd, int bs) {
   return bad_geometry(nh, nkv, hd, bs) || hd % 16;
 }
 
-// rows 3 (WRITE) and 2 (read-only; nk, nv null): the shared entry
+// the decode walk of REP query heads a kv-head, REP in {1, 2, 4, 8}
+template <typename T, int MODE>
+cudaError_t launch_decode(const SplitArgs& a, int b, int rep, cudaStream_t s) {
+  switch (rep) {
+    case 1: return launch_split<T, 1, MODE>(a, b, s);
+    case 2: return launch_split<T, 2, MODE>(a, b, s);
+    case 4: return launch_split<T, 4, MODE>(a, b, s);
+    case 8: return launch_split<T, 8, MODE>(a, b, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// rows 3 (WRITE) and 2 (read-only; nk, nv null), and over int8 pools (quant)
+// rows 5 (WRITE) and 4 (nk, nv, nks, nvs null): the shared entry; dtype is
+// q's type, and without quant the pools' and the new columns'
 template <bool WRITE>
-int split_entry(const void* q, const void* nk, const void* nv, void* kp, void* vp,
-                const void* tables, const void* rows, void* out, void* part, void* sync, int b,
-                int layer, int np, int nh, int nkv, int hd, int bs, int max_nb, int nsplit,
-                int dtype, void* stream) {
+int split_entry(bool quant, const void* q, const void* nk, const void* nv, const void* nks,
+                const void* nvs, void* kp, void* vp, void* ks, void* vs, const void* tables,
+                const void* rows, void* out, void* part, void* sync, int b, int layer, int np,
+                int nh, int nkv, int hd, int bs, int max_nb, int nsplit, int dtype,
+                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_geometry(nh, nkv, hd, bs) || max_nb < 1 || nsplit < 1 || nsplit > max_nb ||
-      nsplit > kMaxSplits || (dtype != 0 && dtype != 1))
+  if ((quant ? bad_quant_geometry(nh, nkv, hd, bs) : bad_geometry(nh, nkv, hd, bs)) ||
+      max_nb < 1 || nsplit < 1 || nsplit > max_nb || nsplit > kMaxSplits ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (b > 0) {
     SplitArgs a{};
     a.q = q;
     a.new_k = nk;
     a.new_v = nv;
+    a.new_ks = static_cast<const float*>(nks);
+    a.new_vs = static_cast<const float*>(nvs);
     a.k_pool = kp;
     a.v_pool = vp;
+    a.k_scale = static_cast<float*>(ks);
+    a.v_scale = static_cast<float*>(vs);
     a.tables = static_cast<const int*>(tables);
     a.rows = static_cast<const int*>(rows);
     a.out = static_cast<float*>(out);
@@ -1184,19 +997,11 @@ int split_entry(const void* q, const void* nk, const void* nv, void* kp, void* v
     a.nsplit = nsplit;
     a.rep = nh / nkv;
     a.nchunk = 1;
+    a.q_bf16 = dtype;
     constexpr int M = WRITE ? kUpdate : kRead;
-    cudaError_t e;
-    switch (nh / nkv * 2 + dtype) {
-      case 2: e = launch_split<float, 1, M>(a, b, s); break;
-      case 3: e = launch_split<__nv_bfloat16, 1, M>(a, b, s); break;
-      case 4: e = launch_split<float, 2, M>(a, b, s); break;
-      case 5: e = launch_split<__nv_bfloat16, 2, M>(a, b, s); break;
-      case 8: e = launch_split<float, 4, M>(a, b, s); break;
-      case 9: e = launch_split<__nv_bfloat16, 4, M>(a, b, s); break;
-      case 16: e = launch_split<float, 8, M>(a, b, s); break;
-      case 17: e = launch_split<__nv_bfloat16, 8, M>(a, b, s); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
+    const cudaError_t e = quant       ? launch_decode<int8_t, M>(a, b, a.rep, s)
+                          : dtype == 0 ? launch_decode<float, M>(a, b, a.rep, s)
+                                       : launch_decode<__nv_bfloat16, M>(a, b, a.rep, s);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
@@ -1234,8 +1039,8 @@ int verify_entry(bool quant, const void* q, const void* kp, const void* vp, cons
     a.q = q;
     a.k_pool = const_cast<void*>(kp);
     a.v_pool = const_cast<void*>(vp);
-    a.k_scale = static_cast<const float*>(ks);
-    a.v_scale = static_cast<const float*>(vs);
+    a.k_scale = static_cast<float*>(const_cast<void*>(ks));
+    a.v_scale = static_cast<float*>(const_cast<void*>(vs));
     a.tables = static_cast<const int*>(tables);
     a.rows = static_cast<const int*>(qstart);
     a.out = static_cast<float*>(acc);
@@ -1262,56 +1067,6 @@ int verify_entry(bool quant, const void* q, const void* kp, const void* vp, cons
   return (int)cudaGetLastError();
 }
 
-template <typename Q, int REP, bool WRITE>
-cudaError_t launch_decode_quant(const void* q, const void* nk, const void* nv, const void* nks,
-                                const void* nvs, void* kp, void* vp, void* ks, void* vs,
-                                const void* tables, const void* rows, void* out, int b,
-                                int layer, int np, int nkv, int hd, int bs, int max_nb,
-                                cudaStream_t stream) {
-  const size_t smem = walk_smem_bytes<int8_t, REP>(hd, bs);
-  cudaError_t e = set_smem(paged_decode_quant_kernel<Q, REP, WRITE>, smem);
-  if (e != cudaSuccess) return e;
-  paged_decode_quant_kernel<Q, REP, WRITE><<<dim3(nkv, b), bs, smem, stream>>>(
-      static_cast<const Q*>(q), static_cast<const int8_t*>(nk), static_cast<const int8_t*>(nv),
-      static_cast<const float*>(nks), static_cast<const float*>(nvs), static_cast<int8_t*>(kp),
-      static_cast<int8_t*>(vp), static_cast<float*>(ks), static_cast<float*>(vs),
-      static_cast<const int*>(tables), static_cast<const int*>(rows), static_cast<float*>(out),
-      layer, np, nkv, hd, bs, max_nb);
-  return cudaSuccess;
-}
-
-// rows 5 (WRITE) and 4 (read-only; nk, nv, nks, nvs null): the shared entry
-template <bool WRITE>
-int decode_quant_entry(const void* q, const void* nk, const void* nv, const void* nks,
-                       const void* nvs, void* kp, void* vp, void* ks, void* vs,
-                       const void* tables, const void* rows, void* out, int b, int layer,
-                       int np, int nh, int nkv, int hd, int bs, int max_nb, int dtype,
-                       void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_quant_geometry(nh, nkv, hd, bs) || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  if (b > 0) {
-#define PA_DECODE_QUANT(Q, REP)                                                            \
-  launch_decode_quant<Q, REP, WRITE>(q, nk, nv, nks, nvs, kp, vp, ks, vs, tables, rows, out, b, \
-                                     layer, np, nkv, hd, bs, max_nb, s)
-    cudaError_t e;
-    switch (nh / nkv * 2 + dtype) {
-      case 2: e = PA_DECODE_QUANT(float, 1); break;
-      case 3: e = PA_DECODE_QUANT(__nv_bfloat16, 1); break;
-      case 4: e = PA_DECODE_QUANT(float, 2); break;
-      case 5: e = PA_DECODE_QUANT(__nv_bfloat16, 2); break;
-      case 8: e = PA_DECODE_QUANT(float, 4); break;
-      case 9: e = PA_DECODE_QUANT(__nv_bfloat16, 4); break;
-      case 16: e = PA_DECODE_QUANT(float, 8); break;
-      case 17: e = PA_DECODE_QUANT(__nv_bfloat16, 8); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
-#undef PA_DECODE_QUANT
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, new_k/new_v and pools share it).
@@ -1329,8 +1084,9 @@ extern "C" int paged_attend_update_fwd(const void* q, const void* nk, const void
                                        void* sync, int b, int layer, int np, int nh, int nkv,
                                        int hd, int bs, int max_nb, int nsplit, int dtype,
                                        void* stream) {
-  return split_entry<true>(q, nk, nv, kp, vp, tables, positions, out, part, sync, b, layer, np,
-                           nh, nkv, hd, bs, max_nb, nsplit, dtype, stream);
+  return split_entry<true>(false, q, nk, nv, nullptr, nullptr, kp, vp, nullptr, nullptr, tables,
+                           positions, out, part, sync, b, layer, np, nh, nkv, hd, bs, max_nb,
+                           nsplit, dtype, stream);
 }
 
 // Row 2: the same geometry and scratch, nothing written; lengths[b] tokens
@@ -1340,9 +1096,9 @@ extern "C" int paged_attention_fwd(const void* q, const void* kp, const void* vp
                                    void* part, void* sync, int b, int layer, int np, int nh,
                                    int nkv, int hd, int bs, int max_nb, int nsplit, int dtype,
                                    void* stream) {
-  return split_entry<false>(q, nullptr, nullptr, const_cast<void*>(kp), const_cast<void*>(vp),
-                            tables, lengths, out, part, sync, b, layer, np, nh, nkv, hd, bs,
-                            max_nb, nsplit, dtype, stream);
+  return split_entry<false>(false, q, nullptr, nullptr, nullptr, nullptr, const_cast<void*>(kp),
+                            const_cast<void*>(vp), nullptr, nullptr, tables, lengths, out, part,
+                            sync, b, layer, np, nh, nkv, hd, bs, max_nb, nsplit, dtype, stream);
 }
 
 // q [b, t_fed, nh, hd] pre-scaled, in the pools' dtype; acc [b, t_fed, nh,
@@ -1397,31 +1153,34 @@ extern "C" int paged_verify_commit_fwd(const void* nk, const void* nv, void* kp,
 }
 
 // The int8 entries: pools int8 [n_layers, np, kvd, bs], scale pools f32
-// [n_layers, np, nkv, bs]; q [b, nh, hd] (verify: [b, t_fed, nh, hd])
-// pre-scaled, dtype 0 = float32, 1 = bfloat16. The geometry is that of the
-// entries above with hd % 16 == 0. Row 5: new_k/new_v int8 [b, kvd],
-// new_ks/new_vs f32 [b, nkv], written at positions[b]; row 4: lengths[b]
-// tokens read, (lengths[b] - 1) / bs < max_nb.
+// [n_layers, np, nkv, bs], 16-byte aligned; q [b, nh, hd] (verify: [b,
+// t_fed, nh, hd]) pre-scaled, dtype 0 = float32, 1 = bfloat16. The
+// geometry, split and scratch are those of the entries above with hd % 16
+// == 0. Row 5: new_k/new_v int8 [b, kvd], new_ks/new_vs f32 [b, nkv],
+// written at positions[b]; row 4: lengths[b] tokens read, (lengths[b] - 1)
+// / bs < max_nb.
 extern "C" int paged_attend_update_quant_fwd(const void* q, const void* nk, const void* nv,
                                              const void* nks, const void* nvs, void* kp,
                                              void* vp, void* ks, void* vs, const void* tables,
-                                             const void* positions, void* out, int b,
-                                             int layer, int np, int nh, int nkv, int hd,
-                                             int bs, int max_nb, int dtype, void* stream) {
-  return decode_quant_entry<true>(q, nk, nv, nks, nvs, kp, vp, ks, vs, tables, positions, out,
-                                  b, layer, np, nh, nkv, hd, bs, max_nb, dtype, stream);
+                                             const void* positions, void* out, void* part,
+                                             void* sync, int b, int layer, int np, int nh,
+                                             int nkv, int hd, int bs, int max_nb, int nsplit,
+                                             int dtype, void* stream) {
+  return split_entry<true>(true, q, nk, nv, nks, nvs, kp, vp, ks, vs, tables, positions, out,
+                           part, sync, b, layer, np, nh, nkv, hd, bs, max_nb, nsplit, dtype,
+                           stream);
 }
 
 extern "C" int paged_attention_quant_fwd(const void* q, const void* kp, const void* vp,
                                          const void* ks, const void* vs, const void* tables,
-                                         const void* lengths, void* out, int b, int layer,
-                                         int np, int nh, int nkv, int hd, int bs, int max_nb,
-                                         int dtype, void* stream) {
-  return decode_quant_entry<false>(q, nullptr, nullptr, nullptr, nullptr,
-                                   const_cast<void*>(kp), const_cast<void*>(vp),
-                                   const_cast<void*>(ks), const_cast<void*>(vs), tables,
-                                   lengths, out, b, layer, np, nh, nkv, hd, bs, max_nb, dtype,
-                                   stream);
+                                         const void* lengths, void* out, void* part, void* sync,
+                                         int b, int layer, int np, int nh, int nkv, int hd,
+                                         int bs, int max_nb, int nsplit, int dtype,
+                                         void* stream) {
+  return split_entry<false>(true, q, nullptr, nullptr, nullptr, nullptr, const_cast<void*>(kp),
+                            const_cast<void*>(vp), const_cast<void*>(ks), const_cast<void*>(vs),
+                            tables, lengths, out, part, sync, b, layer, np, nh, nkv, hd, bs,
+                            max_nb, nsplit, dtype, stream);
 }
 
 // Row 7: paged_attention_verify_fwd's contract over int8 pools and their
@@ -1474,21 +1233,22 @@ int occupancy(K kernel, int bs, size_t smem) {
 
 template <int R>
 int quant_occupancy(int kind, int hd, int bs) {
-  if (kind == 0)
-    return occupancy(paged_decode_quant_kernel<__nv_bfloat16, R, true>, bs,
-                     walk_smem_bytes<int8_t, R>(hd, bs));
   int prow, nbuf;
   size_t smem;
   if (!split_geometry<int8_t, R>(hd, bs, 1, &prow, &nbuf, &smem)) return -1;
+  if (kind == 0)
+    return bs <= 256 ? occupancy(paged_split_kernel<int8_t, R, true, 256>, bs, smem)
+                     : occupancy(paged_split_kernel<int8_t, R, true, 1024>, bs, smem);
   return bs <= 256 ? occupancy(paged_verify_split_kernel<int8_t, R, 256>, bs, smem)
                    : occupancy(paged_verify_split_kernel<int8_t, R, 1024>, bs, smem);
 }
 }  // namespace
 
-// CTAs per SM that the int8 kernels reach with bs threads and their shared
-// memory: kind 0 the decode walk (rows 5, 4) with bf16 q at REP = rows in
-// {1, 2, 4, 8}; kind 1 the verify read (row 7) in chunks of rows in {2, 4,
-// 5, 8}, one block a split; -1 on a bad argument or a CUDA error
+// CTAs per SM that the int8 split walks reach with bs threads and their
+// shared memory, one block a split: kind 0 the decode walk (row 5, the
+// form of row 4 too) at REP = rows in {1, 2, 4, 8}; kind 1 the verify read
+// (row 7) in chunks of rows in {2, 4, 5, 8}; -1 on a bad argument or a
+// CUDA error
 extern "C" int paged_quant_occupancy(int kind, int rows, int hd, int bs) {
   switch (rows * 2 + (kind != 0)) {
     case 2: return quant_occupancy<1>(0, hd, bs);

@@ -1,10 +1,11 @@
 // Scalar helpers shared by the port's decode-attention kernels for Hopper
 // (paged_attention.cu, decode_attention.cu), which run on the CUDA cores:
-// loads are 16-byte vectors converted to f32 (int8 codes too), sums are
-// f32, and P is rounded to the cache dtype before P.V as in the TPU
-// kernels (int8 caches keep P in f32). to_f of f32 and bf16 comes from
-// mma_common.cuh, the tensor-core kernels' header, so that a source may
-// include both (paged_attention.cu takes wgmma_common.cuh's bulk copies).
+// loads are 16-byte vectors converted to f32, sums are f32, and P is
+// rounded to the cache dtype before P.V as in the TPU kernels (the paged
+// kernels' int8 pools keep P in f32 and convert their codes themselves,
+// load_f there). to_f of f32 and bf16 comes from mma_common.cuh, the
+// tensor-core kernels' header, so that a source may include both
+// (paged_attention.cu takes wgmma_common.cuh's bulk copies).
 //
 // Everything here is in an anonymous namespace: each source is its own
 // translation unit and its own library.
@@ -17,8 +18,6 @@
 #include "mma_common.cuh"  // to_f of f32 and bf16
 
 namespace {
-
-__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 
 // x rounded to the element type that the pointer's type names
 __device__ __forceinline__ float round_to(float x, const float*) { return x; }

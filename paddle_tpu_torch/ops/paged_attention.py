@@ -53,15 +53,16 @@ domain; the TPU default's tile-0-anchored variant is not ported. The
 merge of verify partials is exact for any anchor, so the two compare
 through :func:`merge_verify_partials` or acc / l and m + log2(l).
 
-On the card rows 3, 2, 6 and 7 split each row's context across CTAs
-(:func:`kernel_splits` splits from the table width and the block size).
-Each split starts from the max of the scores before it, so P is rounded
-as in one walk (the int8 verify read, which never rounds P, lets each
-split start from its own max); the partial states are combined in split
-order (the same bits on every run), and only that f32 combine differs
-from one walk (the verify reads leave the combined state unfinalised).
-The plain versions' ``splits=n`` (``paged_attend_update_plain``,
-``paged_attention_plain``, ``paged_attention_verify_plain``,
+On the card the attention entries (rows 2-7) split each row's context
+across CTAs (:func:`kernel_splits` splits from the table width and the
+block size). Each split starts from the max of the scores before it, so
+P is rounded as in one walk (the int8 reads, which never round P, let
+each split start from its own max); the partial states are combined in
+split order (the same bits on every run), and only that f32 combine
+differs from one walk (the verify reads leave the combined state
+unfinalised). The plain versions' ``splits=n`` (``paged_attend_update_plain``,
+``paged_attention_plain``, ``paged_attend_update_quant_plain``,
+``paged_attention_quant_plain``, ``paged_attention_verify_plain``,
 ``paged_attention_verify_quant_plain``) is the same computation for n
 splits. The verify kernels take a (row, kv-head)'s T * NH / NKV query
 rows in chunks (:func:`verify_chunks`).
@@ -265,15 +266,15 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-# The split walk of rows 3 and 2 (csrc/paged_attention.cu): the tokens a
-# split aims to hold, and the most splits a launch takes (kMaxSplits there,
-# which checks it)
+# The split walk of rows 2-7 (csrc/paged_attention.cu): the tokens a split
+# aims to hold, and the most splits a launch takes (kMaxSplits there, which
+# checks it)
 SPLIT_TOKENS = 128
 MAX_SPLITS = 256
 
 
 def kernel_splits(max_nb: int, bs: int) -> int:
-    """The split count the kernels of rows 3 and 2 take for tables of
+    """The split count the kernels of rows 2-7 take for tables of
     ``max_nb`` blocks of ``bs`` tokens: runs of ``SPLIT_TOKENS`` tokens
     (at least one block), more where the table is wider than
     ``MAX_SPLITS`` runs. It depends on the shapes, never on the lengths.
@@ -283,16 +284,17 @@ def kernel_splits(max_nb: int, bs: int) -> int:
     return -(-max_nb // run)
 
 
-def _launch_split(what, symbol, ptrs, q, k_pool, v_pool, tables, layer):
-    """Rows 3 and 2 on the card: ``ptrs`` are the entry's leading tensor
-    arguments; the output, the split scratch and the sync words follow."""
+def _launch_split(what, symbol, ptrs, q, pools, tables, layer):
+    """Rows 2-5 on the card: ``ptrs`` are the entry's leading tensor
+    arguments, ``pools`` the K and V pools (and, int8, their scale pools);
+    the output, the split scratch and the sync words follow."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
-    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+    if any(t.data_ptr() % 16 for t in (q,) + pools):
         raise ValueError(f"{what}: q and the pools must start on 16-byte "
                          f"aligned storage")
     B, NH, HD = q.shape
-    _, NP, KVD, bs = k_pool.shape
+    _, NP, KVD, bs = pools[0].shape
     nkv, max_nb = KVD // HD, tables.shape[1]
     nsplit = kernel_splits(max_nb, bs)
     out = torch.empty((B, NH, HD), dtype=torch.float32, device=q.device)
@@ -325,7 +327,7 @@ def paged_attend_update(q, new_k, new_v, k_pool, v_pool, tables,
                                          tables, positions, layer)
     out = _launch_split("paged_attend_update", "paged_attend_update_fwd",
                         (q, new_k, new_v, k_pool, v_pool, tables, positions),
-                        q, k_pool, v_pool, tables, layer)
+                        q, (k_pool, v_pool), tables, layer)
     paged_attend_update.launches += 1
     return out
 
@@ -359,8 +361,8 @@ def paged_attention(q, k_pool, v_pool, tables, lengths,
         return paged_attention_plain(q, k_pool, v_pool, tables, lengths,
                                      layer)
     out = _launch_split(what, "paged_attention_fwd",
-                        (q, k_pool, v_pool, tables, lengths), q, k_pool,
-                        v_pool, tables, layer)
+                        (q, k_pool, v_pool, tables, lengths), q,
+                        (k_pool, v_pool), tables, layer)
     paged_attention.launches += 1
     return out
 
@@ -664,7 +666,7 @@ def _quant_walk(qf, k_pool, v_pool, k_scale, v_scale, tables, last, layer,
     unfinalised (acc [B, NKV, R, HD], m [B, NKV, R], l [B, NKV, R]); rows
     with last < 0 come back with meaningless partials for the caller to
     replace. ``splits``: :func:`_online_walk`'s, without the look-back
-    (the int8 verify kernel's)."""
+    (the int8 kernels')."""
     B, nkv, R, HD = qf.shape
     bs = k_pool.shape[-1]
 
@@ -689,35 +691,44 @@ def _write_quant_columns(new_k, new_v, new_ks, new_vs, k_pool, v_pool,
 
 
 def _attend_quant_plain(q, k_pool, v_pool, k_scale, v_scale, tables, last,
-                        layer):
+                        layer, splits=1):
     B, NH, HD = q.shape
     nkv = k_scale.shape[2]
     acc, m, l = _quant_walk(q.float().reshape(B, nkv, NH // nkv, HD), k_pool,
-                            v_pool, k_scale, v_scale, tables, last, layer)
+                            v_pool, k_scale, v_scale, tables, last, layer,
+                            splits)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, NH, HD)
 
 
 def paged_attend_update_quant_plain(q, new_k, new_v, new_ks, new_vs, k_pool,
                                     v_pool, k_scale, v_scale, tables,
-                                    positions, layer: int) -> torch.Tensor:
+                                    positions, layer: int,
+                                    splits: int = 1) -> torch.Tensor:
     """Plain PyTorch version on any device: writes each row's pre-quantized
     column (bytes and scales) in place, then attends over tokens
     0..positions[b] with K and V dequantized per column and P f32. Returns
-    attn [B, NH, HD] f32."""
+    attn [B, NH, HD] f32.
+
+    ``splits`` > 1 runs the kernel's split-context form, each run from its
+    own max (P is never rounded, and the int8 kernels take no look-back;
+    :func:`_quant_walk`); pass :func:`kernel_splits` for the kernel's own
+    split."""
     _write_quant_columns(new_k, new_v, new_ks, new_vs, k_pool, v_pool,
                          k_scale, v_scale, tables, positions, layer)
     return _attend_quant_plain(q, k_pool, v_pool, k_scale, v_scale, tables,
-                               positions.long(), layer)
+                               positions.long(), layer, splits)
 
 
 def paged_attention_quant_plain(q, k_pool, v_pool, k_scale, v_scale,
-                                tables, lengths, layer: int) -> torch.Tensor:
+                                tables, lengths, layer: int,
+                                splits: int = 1) -> torch.Tensor:
     """Plain PyTorch version on any device: attention over tokens
-    0..lengths[b]-1 of int8 pools, nothing written. Returns attn
-    [B, NH, HD] f32; a row of length 0 gets 0."""
+    0..lengths[b]-1 of int8 pools, nothing written, with
+    :func:`paged_attend_update_quant_plain`'s walk and ``splits``. Returns
+    attn [B, NH, HD] f32; a row of length 0 gets 0."""
     out = _attend_quant_plain(q, k_pool, v_pool, k_scale, v_scale, tables,
-                              lengths.long() - 1, layer)
+                              lengths.long() - 1, layer, splits)
     return torch.where((lengths > 0)[:, None, None], out,
                        torch.tensor(0.0, device=q.device))
 
@@ -803,8 +814,7 @@ def _check_quant_read(what, q, pools, scales, tables, rows_of, layer,
                          f"{HD}")
     _check_geometry(what, NH, KVD, HD, bs)
     if HD % 16:
-        raise ValueError(f"{what}: head_dim {HD} must be a multiple of 16 "
-                         f"(16 int8 codes a vector)")
+        raise ValueError(f"{what}: head_dim {HD} must be a multiple of 16")
     if q.shape[0] != tables.shape[0]:
         raise ValueError(f"{what}: tables must match q's batch")
     if not 0 <= layer < L:
@@ -816,28 +826,6 @@ def _device_of(what, t):
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {t.device}")
     return t.device.type
-
-
-def _launch_attend_quant(what, symbol, q, new, pools, scales, tables, rows,
-                         layer):
-    """Row 5 (``new`` the four column tensors) or row 4 (``new`` None):
-    one launch; returns attn [B, NH, HD] f32."""
-    if any(t.data_ptr() % 16 for t in (q,) + pools):
-        raise ValueError(f"{what}: q and the pools must start on 16-byte "
-                         f"aligned storage")
-    B, NH, HD = q.shape
-    _, NP, KVD, bs = pools[0].shape
-    out = torch.empty((B, NH, HD), dtype=torch.float32, device=q.device)
-    ptrs = [q.data_ptr()] + [t.data_ptr() for t in new or ()] \
-        + [t.data_ptr() for t in pools + scales] \
-        + [tables.data_ptr(), rows.data_ptr(), out.data_ptr()]
-    fn = _build.kernel("paged_attention", symbol,
-                       [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 9
-                       + [ctypes.c_void_p])
-    err = fn(*ptrs, B, int(layer), NP, NH, KVD // HD, HD, bs,
-             tables.shape[1], _DTYPE_CODE[q.dtype], _stream(q))
-    _build.check("paged_attention", err, what)
-    return out
 
 
 def paged_attend_update_quant(q, new_k, new_v, new_ks, new_vs, k_pool,
@@ -872,8 +860,9 @@ def paged_attend_update_quant(q, new_k, new_v, new_ks, new_vs, k_pool,
         return paged_attend_update_quant_plain(
             q, new_k, new_v, new_ks, new_vs, k_pool, v_pool, k_scale,
             v_scale, tables, positions, layer)
-    out = _launch_attend_quant(what, "paged_attend_update_quant_fwd", q, new,
-                               pools, scales, tables, positions, layer)
+    out = _launch_split(what, "paged_attend_update_quant_fwd",
+                        (q, *new, *pools, *scales, tables, positions), q,
+                        pools + scales, tables, layer)
     paged_attend_update_quant.launches += 1
     return out
 
@@ -897,8 +886,9 @@ def paged_attention_quant(q, k_pool, v_pool, k_scale, v_scale, tables,
     if _device_of(what, q) == "cpu":
         return paged_attention_quant_plain(q, k_pool, v_pool, k_scale,
                                            v_scale, tables, lengths, layer)
-    out = _launch_attend_quant(what, "paged_attention_quant_fwd", q, None,
-                               pools, scales, tables, lengths, layer)
+    out = _launch_split(what, "paged_attention_quant_fwd",
+                        (q, *pools, *scales, tables, lengths), q,
+                        pools + scales, tables, layer)
     paged_attention_quant.launches += 1
     return out
 

@@ -533,9 +533,10 @@ QUANT_CASES = [
 
 @pytest.mark.parametrize("qdtype,nh,nkv,hd,spread", QUANT_CASES)
 def test_paged_quant_kernels_match_plain(dev, qdtype, nh, nkv, hd, spread):
-    """Rows 5 and 4 against their plain versions. P is f32 in both and q
-    is cast to f32 in both, so the flash rule's f32 forward entry holds
-    whatever q's dtype; row 5's pools (the written bytes and scales
+    """Rows 5 and 4 against their plain versions at the kernel's split
+    (each split from its own max: P is never rounded). P is f32 in both
+    and q is cast to f32 in both, so the flash rule's f32 forward entry
+    holds whatever q's dtype; row 5's pools (the written bytes and scales
     included) bitwise; row 4's length-0 row exactly 0."""
     positions = [0, 5, 127, 128, 256, 700]  # 128, 256 open a fresh block
     a = _quant_case(dev, qdtype, nh, nkv, hd, positions, spread=spread)
@@ -543,12 +544,14 @@ def test_paged_quant_kernels_match_plain(dev, qdtype, nh, nkv, hd, spread):
     ref_pools = [t.clone() for t in pools]
     new = [a[k][-1, :, 0].contiguous() for k in ("new_k", "new_v", "new_ks",
                                                    "new_vs")]
+    splits = pa.kernel_splits(a["tables"].shape[1], 128)
+    assert splits > 1
     before = pa.paged_attend_update_quant.launches
     got = pa.paged_attend_update_quant(a["q"], *new, *pools, a["tables"],
                                        a["rows"], a["layer"])
     ref = pa.paged_attend_update_quant_plain(a["q"], *new, *ref_pools,
                                              a["tables"], a["rows"],
-                                             a["layer"])
+                                             a["layer"], splits=splits)
     torch.cuda.synchronize()
     assert pa.paged_attend_update_quant.launches == before + 1
     _close(got, ref, FLASH_TOL[torch.float32][0])
@@ -560,11 +563,112 @@ def test_paged_quant_kernels_match_plain(dev, qdtype, nh, nkv, hd, spread):
     got = pa.paged_attention_quant(a["q"], *pools, a["tables"], lengths,
                                    a["layer"])
     ref = pa.paged_attention_quant_plain(a["q"], *pools, a["tables"],
-                                         lengths, a["layer"])
+                                         lengths, a["layer"], splits=splits)
     torch.cuda.synchronize()
     assert pa.paged_attention_quant.launches == before + 1
     _close(got[1:], ref[1:], FLASH_TOL[torch.float32][0])
     assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+def _quant_split_case(dev, qdtype, rep, hd, bs, seed):
+    """int8 pools for rows 5 and 4 over SPLIT_NB-block tables: lengths on
+    and next to block edges, 0 and 1, a row across every block of the
+    table (rows of 2-4 blocks among them), and two padding rows (null
+    table, position 0) that write and read block 0. Codes, power-of-two
+    scales and q on a 2^-5 grid as in :func:`_quant_case`."""
+    rng = np.random.RandomState(seed)
+    nkv = 2
+    lengths = [1, bs - 1, bs, bs + 1, 2 * bs, 3 * bs + 1, SPLIT_NB * bs,
+               0, 0]
+    b, kvd = len(lengths), nkv * hd
+    need = [-(-n // bs) for n in lengths]
+    n_pool = 1 + sum(need)
+    perm = rng.permutation(np.arange(1, n_pool))
+    tables = np.zeros((b, SPLIT_NB), np.int32)
+    at = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = perm[at:at + n]
+        at += n
+    codes = lambda *sh: torch.from_numpy(
+        rng.randint(-127, 128, size=sh).astype(np.int8)).to(dev)
+    scales = lambda *sh: torch.from_numpy(
+        (2.0 ** -rng.randint(5, 8, size=sh)).astype(np.float32)).to(dev)
+    q = np.round(rng.randn(b, nkv * rep, hd) * (pa.LOG2E / hd ** 0.5) * 32) / 32
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return dict(q=torch.from_numpy(q.astype(np.float32)).to(dev, qdtype),
+                pools=[codes(2, n_pool, kvd, bs), codes(2, n_pool, kvd, bs),
+                       scales(2, n_pool, nkv, bs), scales(2, n_pool, nkv, bs)],
+                new=[codes(b, kvd), codes(b, kvd), scales(b, nkv),
+                     scales(b, nkv)],
+                tables=torch.from_numpy(tables).to(dev), lengths=lengths,
+                positions=torch.clamp(lengths - 1, min=0), layer=1)
+
+
+def _check_quant_split(dev, qdtype, rep, hd, bs, seed):
+    """Rows 5 and 4 at the kernel's split: the flash rule's f32 forward
+    entry against the plain versions, the same bits over two launches (row
+    5: its live rows; the padding rows race on block 0), a length-0 row
+    exactly 0 over a NaN-poisoned output, the pools bitwise the plain
+    version's but block 0, one launch counted a call, and the sync words
+    zero after the launches."""
+    from paddle_tpu_torch.ops import decode_attention as da
+    a = _quant_split_case(dev, qdtype, rep, hd, bs, seed)
+    splits = pa.kernel_splits(SPLIT_NB, bs)
+    live = a["lengths"] > 0
+    tol = FLASH_TOL[torch.float32][0]
+    rd = (a["q"], *a["pools"], a["tables"], a["lengths"], a["layer"])
+    before = pa.paged_attention_quant.launches
+    ro = []
+    for _ in range(2):
+        torch.full((len(live), a["q"].shape[1], hd), float("nan"), device=dev)
+        ro.append(pa.paged_attention_quant(*rd))
+    assert pa.paged_attention_quant.launches == before + 2
+    ref = pa.paged_attention_quant_plain(*rd, splits=splits)
+    ref_pools = [t.clone() for t in a["pools"]]
+    call = (a["q"], *a["new"], *a["pools"], a["tables"], a["positions"],
+            a["layer"])
+    before = pa.paged_attend_update_quant.launches
+    up = [pa.paged_attend_update_quant(*call) for _ in range(2)]
+    assert pa.paged_attend_update_quant.launches == before + 2
+    ref_up = pa.paged_attend_update_quant_plain(
+        a["q"], *a["new"], *ref_pools, a["tables"], a["positions"],
+        a["layer"], splits=splits)
+    torch.cuda.synchronize()
+    assert torch.equal(ro[0], ro[1])
+    assert torch.equal(up[0][live], up[1][live])
+    _close(ro[0][live], ref[live], tol)
+    assert torch.equal(ro[0][~live], torch.zeros_like(ro[0][~live]))
+    _close(up[0][live], ref_up[live], tol)
+    for g, r in zip(a["pools"], ref_pools):
+        assert torch.equal(g[:, 1:], r[:, 1:])
+    pos = a["positions"][live].long()
+    blk = a["tables"][live][torch.arange(len(pos), device=dev), pos // bs]
+    assert torch.equal(a["pools"][0][1, blk.long(), :, pos % bs],
+                       a["new"][0][live])
+    assert torch.equal(a["pools"][2][1, blk.long(), :, pos % bs],
+                       a["new"][2][live])
+    stream = torch.cuda.current_stream(dev)
+    assert not da._SYNC[(dev if dev.index is not None
+                         else torch.device("cuda", 0),
+                         stream.cuda_stream)].any()
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [128, 256])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+def test_paged_quant_split_kernels_match_plain(dev, qdtype, bs, rep):
+    """Rows 5 and 4 on the split walk: rows of 1 to SPLIT_NB blocks, REP
+    1-8, f32 and bf16 q (see :func:`_check_quant_split`)."""
+    _check_quant_split(dev, qdtype, rep, 128, bs, seed=rep + bs)
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rep,bs", [(1, 512), (4, 512), (1, 1024),
+                                    (2, 1024)])
+def test_paged_quant_split_kernels_at_large_blocks(dev, qdtype, rep, bs):
+    """Rows 5 and 4 over blocks of 512 and 1024 tokens (the kernel's
+    1024-thread form) at head_dim 64."""
+    _check_quant_split(dev, qdtype, rep, 64, bs, seed=rep + bs)
 
 
 @pytest.mark.parametrize("qdtype,nh,nkv,hd,spread,T", [

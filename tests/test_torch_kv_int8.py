@@ -13,11 +13,12 @@ their plain PyTorch versions. Held here:
   - the plain versions of rows 5 (``paged_attend_update_quant``), 4
     (``paged_attention_quant``) and 7 (``paged_attention_verify_quant``)
     against JAX's kernels in both softmax modes, after JAX's head
-    selection: f32 to 2e-5, as tests/test_kv_int8.py holds the kernels to
-    XLA (P is f32 in both; the anchors and sums differ in f32 rounding);
-    row 5's written bytes and scales bitwise; live rows only for row 4
-    (JAX leaves a length-0 row unwritten, the port writes 0); row 7's
-    padding row gets the defined partials;
+    selection, in one walk and in the kernels' split form (``splits``):
+    f32 to 2e-5, as tests/test_kv_int8.py holds the kernels to XLA (P is
+    f32 in both; the anchors and sums differ in f32 rounding); row 5's
+    written bytes and scales bitwise; live rows only for row 4 (JAX leaves
+    a length-0 row unwritten, the port writes 0); row 7's padding row gets
+    the defined partials; ``splits=1`` bitwise the walk before splits;
   - row 9's plain version (``paged_verify_commit_quant``) bitwise, block 0
     aside (rejected columns land there in no set order);
   - the int8 decode step, prefill chunk and verify step against JAX's
@@ -392,6 +393,169 @@ def test_verify_quant_plain_one_split_is_the_walk_before_splits():
     for got in (pa.paged_attention_verify_quant_plain(*args),
                 pa.paged_attention_verify_quant_plain(*args, splits=1)):
         assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+# Rows 5 and 4's plain versions at the kernel's split form (``splits`` > 1,
+# each run from its own max, as the int8 kernels take no look-back) against
+# JAX, as above (f32 to KERNEL_ATOL), over rows of up to 6 blocks at splits
+# up to the table's width, REP 1 and 4; with a score spread (the K scales of
+# the last row's blocks from slot 3 on times 150, so its scores lead by
+# hundreds of log2 units across split boundaries) in the online mode.
+DECODE_SPLIT_POSITIONS = [0, 127, 128, 300, 700]
+DECODE_SPLIT_LENGTHS = [0, 1, 128, 129, 701]
+
+
+def _decode_split_case(rep, spread=None):
+    rng = np.random.RandomState(30 + rep)
+    tables, n_pool = _tables(rng, [p + 1 for p in DECODE_SPLIT_POSITIONS], 6)
+    (kq, ks), (vq, vs) = _quant_pool(rng, n_pool), _quant_pool(rng, n_pool)
+    if spread is not None:
+        ks[:, tables[-1, 3:]] *= spread
+    q = (rng.randn(len(DECODE_SPLIT_POSITIONS), NKV * rep, HD)
+         * (jpa._LOG2E / HD ** 0.5)).astype(np.float32)
+    nk, nks = pa.kv_quant_columns(torch.from_numpy(
+        rng.randn(len(DECODE_SPLIT_POSITIONS), KVD).astype(np.float32)), NKV)
+    nv, nvs = pa.kv_quant_columns(torch.from_numpy(
+        rng.randn(len(DECODE_SPLIT_POSITIONS), KVD).astype(np.float32)), NKV)
+    return q, tables, (kq, vq, ks, vs), [a.numpy() for a in (nk, nv, nks,
+                                                              nvs)]
+
+
+_JAX_DECODE_SPLIT = {}
+
+
+def _jax_decode_quant(kind, mode, rep, spread):
+    """JAX's row 5 (attn after its head selection, and the pools it
+    leaves) or row 4 (attn) on :func:`_decode_split_case`, jitted once a
+    softmax mode (JAX reads the mode at trace time) and cached."""
+    key = (kind, mode, rep, spread)
+    if key not in _JAX_DECODE_SPLIT:
+        q, tables, pools, new = _decode_split_case(rep, spread)
+        if kind == "update":
+            fn = jax.jit(lambda *a: jpa.paged_attend_update_quant(*a, 1))
+            out, *jpools = fn(_q_bd(q), *(jnp.asarray(a) for a in new),
+                              *(jnp.asarray(a) for a in pools),
+                              jnp.asarray(tables),
+                              jnp.asarray(DECODE_SPLIT_POSITIONS, jnp.int32))
+            res = (_heads(out), [np.asarray(a) for a in jpools])
+        else:
+            fn = jax.jit(lambda *a: jpa.paged_attention_quant(*a, 1))
+            res = (_heads(fn(_q_bd(q), *(jnp.asarray(a) for a in pools),
+                             jnp.asarray(tables),
+                             jnp.asarray(DECODE_SPLIT_LENGTHS, jnp.int32))),
+                   None)
+        _JAX_DECODE_SPLIT[key] = res
+    return _JAX_DECODE_SPLIT[key]
+
+
+def _check_update_quant_split(monkeypatch, mode, splits, rep, spread=None):
+    monkeypatch.setenv("PADDLE_TPU_FLASH_SOFTMAX", mode)
+    q, tables, pools, new = _decode_split_case(rep, spread)
+    want, want_pools = _jax_decode_quant("update", mode, rep, spread)
+    tpools = [_t(a) for a in pools]
+    out = pa.paged_attend_update_quant_plain(
+        _t(q), *(_t(a) for a in new), *tpools, _t(tables),
+        _t(np.asarray(DECODE_SPLIT_POSITIONS, np.int32)), 1, splits=splits)
+    np.testing.assert_allclose(out.numpy(), want, atol=KERNEL_ATOL,
+                               rtol=KERNEL_ATOL)
+    for got, w in zip(tpools, want_pools):
+        np.testing.assert_array_equal(got.numpy(), w)
+    return q, tables, tpools
+
+
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("splits", VERIFY_SPLITS)
+@pytest.mark.parametrize("mode", ["auto", "online"])
+def test_update_quant_split_plain_matches_jax(monkeypatch, mode, splits, rep):
+    _check_update_quant_split(monkeypatch, mode, splits, rep)
+
+
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("splits", VERIFY_SPLITS)
+@pytest.mark.parametrize("mode", ["auto", "online"])
+def test_attention_quant_split_plain_matches_jax(monkeypatch, mode, splits,
+                                                 rep):
+    monkeypatch.setenv("PADDLE_TPU_FLASH_SOFTMAX", mode)
+    q, tables, pools, _ = _decode_split_case(rep)
+    want, _ = _jax_decode_quant("read", mode, rep, None)
+    lengths = np.asarray(DECODE_SPLIT_LENGTHS, np.int32)
+    out = pa.paged_attention_quant_plain(
+        _t(q), *(_t(a) for a in pools), _t(tables), _t(lengths), 1,
+        splits=splits).numpy()
+    live = lengths > 0
+    np.testing.assert_allclose(out[live], want[live], atol=KERNEL_ATOL,
+                               rtol=KERNEL_ATOL)
+    assert (out[~live] == 0).all()
+
+
+@pytest.mark.parametrize("splits", VERIFY_SPLITS)
+def test_update_quant_split_plain_holds_a_score_spread(monkeypatch, splits):
+    q, tables, pools = _check_update_quant_split(monkeypatch, "online",
+                                                 splits, 4, spread=150.0)
+    # the spread blocks' scores lead the row's first blocks by hundreds
+    kt = pa.kv_dequant_blocks(pools[0][1, tables[-1]],
+                              pools[2][1, tables[-1]]).reshape(6, NKV, HD, BS)
+    s = torch.einsum("grd,jgdt->jgrt", _t(q)[-1].reshape(NKV, 4, HD), kt)
+    assert (s[3:].amax() - s[:3].amax()).item() > 150
+
+
+def _decode_quant_plain_before_splits(q, k_pool, v_pool, k_scale, v_scale,
+                                      tables, last, layer):
+    """Rows 5 and 4's walk (``_attend_quant_plain``) as it was before the
+    ``splits`` keyword, kept verbatim as the reference of the bitwise test
+    below: attn [B, NH, HD] over tokens 0..last[b]."""
+    B, NH, HD_ = q.shape
+    nkv = k_scale.shape[2]
+    R = NH // nkv
+    dev = q.device
+    qf = q.float().reshape(B, nkv, R, HD_)
+    bs = k_pool.shape[-1]
+    m = torch.full((B, nkv, R), float("-inf"), device=dev)
+    l = torch.zeros((B, nkv, R), device=dev)
+    acc = torch.zeros((B, nkv, R, HD_), device=dev)
+    col = torch.arange(bs, device=dev)
+    for j in range(int(last.max()) // bs + 1 if B else 0):
+        blk = tables[:, j].long()
+        kt = pa.kv_dequant_blocks(k_pool[layer, blk], k_scale[layer, blk])
+        vt = pa.kv_dequant_blocks(v_pool[layer, blk], v_scale[layer, blk])
+        kt = kt.reshape(B, nkv, HD_, bs)
+        vt = vt.reshape(B, nkv, HD_, bs)
+        s = torch.einsum("bgrd,bgdt->bgrt", qf, kt)
+        live = (j * bs + col)[None, :] <= last[:, None]
+        s = torch.where(live[:, None, None, :], s,
+                        torch.tensor(-1e30, device=dev))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bgrt,bgdt->bgrd", p, vt)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, NH, HD_)
+
+
+@pytest.mark.parametrize("rep", [1, 4])
+def test_decode_quant_plain_one_split_is_the_walk_before_splits(rep):
+    """``splits=1`` (and the default) of rows 5 and 4's plain versions is
+    bitwise the walk before splits."""
+    q, tables, pools, new = _decode_split_case(rep)
+    pos = _t(np.asarray(DECODE_SPLIT_POSITIONS, np.int32))
+    lengths = _t(np.asarray(DECODE_SPLIT_LENGTHS, np.int32))
+    tp = [_t(a) for a in pools]
+    want = _decode_quant_plain_before_splits(_t(q), *tp, _t(tables),
+                                             lengths.long() - 1, 1)
+    live = lengths > 0
+    for kw in ({}, {"splits": 1}):
+        got = pa.paged_attention_quant_plain(_t(q), *tp, _t(tables), lengths,
+                                             1, **kw)
+        assert torch.equal(got[live], want[live])
+    for kw in ({}, {"splits": 1}):
+        tpu = [t.clone() for t in tp]
+        got = pa.paged_attend_update_quant_plain(
+            _t(q), *(_t(a) for a in new), *tpu, _t(tables), pos, 1, **kw)
+        want = _decode_quant_plain_before_splits(_t(q), *tpu, _t(tables),
+                                                 pos.long(), 1)
+        assert torch.equal(got, want)
 
 
 # -- row 9: the commit --------------------------------------------------------

@@ -4,6 +4,7 @@
     python3 tools/ab_times.py --varlen BEFORE AFTER    # rows 20-23
     python3 tools/ab_times.py --paged BEFORE AFTER     # rows 2-7, 10
     python3 tools/ab_times.py --split BEFORE AFTER     # rows 16-18
+    python3 tools/ab_times.py --serve-int8 BEFORE AFTER  # the int8 steps
 
 BEFORE and AFTER are directories that each hold a ``paddle_tpu_torch/``
 package, for example a ``git archive`` of the parent commit unpacked
@@ -33,14 +34,22 @@ and the drift of rows 20-23 along a product summed in f64 (chip_smoke's
 outputs of the deterministic ones (rows 20, 22, 23; row 21's dK and dV).
 
 With --paged, the paged kernels at chip_smoke's timing shapes (B = 8, NH
-= NKV = 32, HD = 128, bf16, 3,865 context tokens): rows 6 and 7 (T = 5
-fed tokens; bf16 and int8 pools; device ms with ``queued``, and the
-profiler's kernel time), also at the profiled verify step's rows (8 rows
-of 600 cached tokens), and as controls rows 3 and 2 (row 3 also at the
-serve phase's profiled decode step, 8 rows of 1,001 tokens), rows 5 and 4
-(int8 pools) and the slab decode row 10 (generate's shape, pos 1023);
-with a digest of every output, and the verdict whether rows 2-5 and 10
-keep their bits.
+= NKV = 32, HD = 128, bf16, 3,865 context tokens; device ms with
+``queued``, and the profiler's kernel time): rows 5 and 4 (int8 pools),
+also at the serve phase's profiled decode step (8 rows of 1,001 tokens,
+16-block tables), and as controls rows 6 and 7 (T = 5 fed tokens; bf16
+and int8 pools), also at the profiled verify step's rows (8 rows of 600
+cached tokens), rows 3 and 2 (row 3 also at the decode step's rows) and
+the slab decode row 10 (generate's shape, pos 1023); with a digest of
+every output, and the verdict whether rows 2, 3, 6, 7 and 10 keep their
+bits.
+
+With --serve-int8, chip_smoke's ``profile_steps`` on the serve-int8
+phase's engine (llama_7b, seeded random weights, int8 pools): one decode
+step (8 rows at 1,000 cached tokens) and one 256-token prefill chunk,
+device ms by kernel class and host wall ms (a tree whose int8 decode runs
+the block walk ``paged_decode_quant_kernel`` has its time counted as rows
+5 and 4).
 
 With --split, the dense split backward at chip_smoke's train (B 4, S
 2048) and train-long (B 1, S 16384) shapes (32 heads x 128, causal,
@@ -50,7 +59,8 @@ and the verdict whether rows 16 and 17 keep their bits.
 
 Needs one CUDA device and nvcc; prints one JSON line per run, the card's
 name and power limit first, and writes chiprun_out/ab_times.json (or
-ab_times_varlen.json, ab_times_paged.json, ab_times_split.json).
+ab_times_varlen.json, ab_times_paged.json, ab_times_split.json,
+ab_times_serve_int8.json).
 """
 from __future__ import annotations
 
@@ -192,19 +202,23 @@ def run_one_paged(tree):
           lambda: pa.paged_attend_update(*upd),
           [pa.paged_attend_update(*upd)], "paged_")
     del a, upd, rd
-    a = cs._quant_inputs(32, 32, cs.PAGED_POSITIONS, cs.SEED + 71, dev,
-                         torch.bfloat16)
-    pools = [a[k] for k in ("k_pool", "v_pool", "k_scale", "v_scale")]
-    new = [a[k][-1, :, 0].contiguous() for k in ("new_k", "new_v", "new_ks",
-                                                   "new_vs")]
-    upd = (a["q"], *new, *pools, a["tables"], a["rows"], a["layer"])
-    rd = (a["q"], *pools, a["tables"], a["rows"] + 1, a["layer"])
-    timed("paged_attend_update_quant (row 5)",
-         lambda: pa.paged_attend_update_quant(*upd),
-         [pa.paged_attend_update_quant(*upd)])
-    timed("paged_attention_quant (row 4)",
-         lambda: pa.paged_attention_quant(*rd), [pa.paged_attention_quant(*rd)])
-    del a, pools, new, upd, rd
+    for key, positions, width, seed in (
+            ("", cs.PAGED_POSITIONS, None, 71),
+            (", even rows", cs.PAGED_STEP_POSITIONS, 16, 75)):
+        a = cs._quant_inputs(32, 32, positions, cs.SEED + seed, dev,
+                             torch.bfloat16, max_nb=width)
+        pools = [a[k] for k in ("k_pool", "v_pool", "k_scale", "v_scale")]
+        new = [a[k][-1, :, 0].contiguous() for k in ("new_k", "new_v",
+                                                       "new_ks", "new_vs")]
+        upd = (a["q"], *new, *pools, a["tables"], a["rows"], a["layer"])
+        rd = (a["q"], *pools, a["tables"], a["rows"] + 1, a["layer"])
+        timed(f"paged_attend_update_quant (row 5){key}",
+              lambda: pa.paged_attend_update_quant(*upd),
+              [pa.paged_attend_update_quant(*upd)], "paged_")
+        timed(f"paged_attention_quant (row 4){key}",
+              lambda: pa.paged_attention_quant(*rd),
+              [pa.paged_attention_quant(*rd)], "paged_")
+        del a, pools, new, upd, rd
     qstart = [p + 1 for p in cs.PAGED_POSITIONS]
     T = cs.SPEC_K + 1
     for key, rows, width, seed in (
@@ -231,6 +245,33 @@ def run_one_paged(tree):
          lambda: da.decode_attend_update_slab(q, nk, nv, kc, vc, 1, 1023),
          [da.decode_attend_update_slab(q, nk, nv, kc, vc, 1, 1023)])
     print(json.dumps({"tree": tree, "ms": out, "digests": digests}))
+
+
+def run_one_serve_int8(tree):
+    """In a tree's process: the serve-int8 decode step and prefill chunk
+    by kernel class."""
+    import torch
+    cs = _chip_smoke(tree)
+    from paddle_tpu_torch import (InferenceEngine, ServeConfig,
+                                  init_llama_params, llama_7b)
+    from paddle_tpu_torch.ops import paged_attention as pa
+    assert pa.__file__.startswith(tree), pa.__file__
+    classify = cs._kernel_class
+
+    def kernel_class(name):     # the block walk of trees before the split
+        if "paged_decode_quant_kernel" in name:
+            return ("paged_attend_update_quant" if ", true>" in name
+                    else "paged_attention_quant")
+        return classify(name)
+    cs._kernel_class = kernel_class
+    dev = torch.device("cuda", 0)
+    cfg = llama_7b()
+    params = init_llama_params(cfg, seed=cs.SEED, device=dev)
+    eng = InferenceEngine(params, cfg, ServeConfig(
+        block_size=128, num_blocks=129, max_batch=8, prefill_chunk=256,
+        max_seq_len=2048, kv_dtype="int8"), device=dev)
+    out = cs.profile_steps(eng, cfg, dev)
+    print(json.dumps({"tree": tree, "steps": out}))
 
 
 def run_one_split(tree):
@@ -266,13 +307,14 @@ def run_one_split(tree):
 
 
 # the outputs that both trees must give with the same bits
-KEPT = {"--one-paged": ("row 2", "row 3", "row 4", "row 5", "row 10"),
+KEPT = {"--one-paged": ("row 2", "row 3", "row 6", "row 7", "row 10"),
         "--one-split": ("row 16", "row 17"),
         "--one-varlen": ("varlen_fwd", "varlen_bwd_dkv", "varlen_bwd_dq",
                          "varlen_bwd dk")}
 
 
-MODES = {"--varlen": "varlen", "--paged": "paged", "--split": "split"}
+MODES = {"--varlen": "varlen", "--paged": "paged", "--split": "split",
+         "--serve-int8": "serve_int8"}
 
 
 def main():
@@ -308,7 +350,8 @@ def main():
 
 if __name__ == "__main__":
     ONES = {"--one": run_one, "--one-varlen": run_one_varlen,
-            "--one-paged": run_one_paged, "--one-split": run_one_split}
+            "--one-paged": run_one_paged, "--one-split": run_one_split,
+            "--one-serve_int8": run_one_serve_int8}
     if sys.argv[1:2] and sys.argv[1] in ONES:
         ONES[sys.argv[1]](sys.argv[2])
     else:

@@ -1,6 +1,6 @@
 """Times the design choices of the split walk (csrc/paged_attention.cu,
-split_walk: rows 3 and 2, paged_split_kernel; rows 6 and 7,
-paged_verify_split_kernel) against each other on one card.
+split_walk: rows 3 and 2, and 5 and 4 over int8 pools, paged_split_kernel;
+rows 6 and 7, paged_verify_split_kernel) against each other on one card.
 
     python3 tools/paged_choices.py [FORM ...]
 
@@ -11,7 +11,7 @@ forms it was chosen over (FORMs pick some; the shipped form always runs):
 
   split_2_blocks, split_4_blocks  runs of 2 and 4 pool blocks a split
                                   (SPLIT_TOKENS 256, 512, a ring of two
-                                  blocks) against one;
+                                  blocks) against one (rows 2-7);
   register_loads                  every K and V vector loaded from device
                                   memory into registers by the thread that
                                   uses it (the parent's walk's loads), no
@@ -24,6 +24,24 @@ forms it was chosen over (FORMs pick some; the shipped form always runs):
                                   one slot, V's copy issued once K is read;
   half_pieces_two_slots           16 KB pieces through two slots against
                                   one 32 KB slot;
+
+of the int8 decode (rows 5 and 4):
+
+  quant_l2_warm                   the L2 warm-up of rows 3 and 2 against
+                                  none;
+  quant_look_back                 the look-back over int8 pools (P never
+                                  rounded) against each split's recurrence
+                                  from its own max;
+  quant_copy_after_barrier        the first copies issued after the CTA's
+                                  barrier, as rows 3 and 2 do, against
+                                  before it (row 5's owner of the new
+                                  column after its write);
+  quant_pv_per_row                one V row's share a thread, summed over
+                                  its lanes block by block (rows 3 and 2's
+                                  P.V), against P.V in place over 2 V rows
+                                  a thread as the verify read sums it;
+  quant_pv_in_place_dr_4          in place over 4 V rows a thread (as the
+                                  int8 verify read) against 2;
 
 and of the verify read (rows 6 and 7):
 
@@ -40,25 +58,27 @@ and of the verify read (rows 6 and 7):
                                   before it;
   verify_dr_2, verify_dr_4        P.V over 2 or 4 V rows a thread in
                                   every pool type against 2 (bf16, f32)
-                                  and 4 (int8);
+                                  and 4 (int8; the int8 decode keeps 2);
   verify_l2_warm                  the L2 warm-up of rows 3 and 2 (a split's
                                   blocks prefetched while its ticket is
                                   taken) against none.
 
 Every copy builds at once, in a process of its own; then each copy runs
 alone, in the order of FORMS and again in reverse, so that a drift of the
-card over the call shows. A run of a decode form holds rows 3 and 2 to
-their plain versions (chip_smoke's ``check_paged_update`` and
-``check_paged_read``), a run of a verify form rows 6 and 7
-(``check_verify`` and ``check_quant``; the shipped form takes all four);
-every run times rows 3, 2, 6 and 7 at chip_smoke's timing shape (B = 8, NH
-= NKV = 32, HD = 128, bf16 or int8 pools, 3,865 context tokens, T = 5 fed
+card over the call shows. A run of a decode form holds rows 3, 2, 5 and
+4 to their plain versions (chip_smoke's ``check_paged_update``,
+``check_paged_read`` and ``check_quant``), a run of a verify form rows 6
+and 7 (``check_verify`` and ``check_quant``; the shipped form takes all
+four), 
+a run of an int8 decode form rows 5 and 4 (``check_quant``); every run
+times rows 3, 2, 5, 4, 6 and 7 at chip_smoke's timing shape (B = 8, NH =
+NKV = 32, HD = 128, bf16 or int8 pools, 3,865 context tokens, T = 5 fed
 tokens for rows 6 and 7; device ms per call, 100 calls queued ahead,
-chip_smoke's ``_time_ms``), row 3 at the serve phase's profiled decode
-step (the same heads, 8 rows of 1,001 tokens) and rows 6 and 7 at the
-profiled verify step's (8 rows of 600 cached tokens). ptxas's registers
-and spills of each form's split kernels at bf16 and REP 1 and of its
-verify kernels at 5 rows are printed too. Needs one CUDA device and nvcc;
+chip_smoke's ``_time_ms``), rows 3 and 5 at the serve phase's profiled
+decode step (the same heads, 8 rows of 1,001 tokens, 16-block tables) and
+rows 6 and 7 at the profiled verify step's (8 rows of 600 cached tokens).
+ptxas's registers and spills of each form's split kernels at bf16 and
+int8, REP 1, and of its verify kernels at 5 rows are printed too. Needs one CUDA device and nvcc;
 exits non-zero if a form fails its check; writes
 chiprun_out/paged_choices.json.
 """
@@ -105,12 +125,14 @@ VERIFY_K_AND_V = [
     (_RING_RULE, _RING_RULE.replace("bps == 1 ? 1", "bps == 1 ? (pair ? 2 : 1)")),
     (_GEOMETRY_CALL, _GEOMETRY_CALL.replace("&smem)", "&smem, MODE == kVerify)")),
 ]
+_EARLY = "    if (VERIFY || (QUANT && !(WRITE && z == nlive - 1))) {\n"
+_LATE = "  if constexpr (!VERIFY) refill(0);"
 VERIFY_AFTER_BARRIER = [
     ("    if (VERIFY && nlive > 1) z = take_ticket(gsync);\n", ""),
     ("    if (!VERIFY && nlive > 1) z = take_ticket(gsync);\n",
      "    if (nlive > 1) z = take_ticket(gsync);\n"),
-    ("    if constexpr (VERIFY) {\n      set_split(z);\n      refill(0);\n    }\n", ""),
-    ("  if constexpr (!VERIFY) refill(0);\n", "  refill(0);\n"),
+    (_EARLY, _EARLY.replace("VERIFY || ", "")),
+    (_LATE, "  refill(0);"),
 ]
 
 # name -> {"edits": edits of csrc/paged_attention.cu, "tokens": SPLIT_TOKENS,
@@ -131,16 +153,34 @@ FORMS = {
     "verify_k_and_v_together": dict(edits=VERIFY_K_AND_V, rows="verify"),
     "verify_copy_after_barrier": dict(edits=VERIFY_AFTER_BARRIER,
                                       rows="verify"),
-    "verify_dr_2": dict(edits=[("VERIFY ? (QUANT ? 4 : 2) : 1;",
-                                "VERIFY ? (QUANT ? 2 : 2) : 1;")],
+    "verify_dr_2": dict(edits=[("!INPLACE ? 1 : VERIFY && QUANT ? 4 : 2;",
+                                "!INPLACE ? 1 : 2;")],
                         rows="verify"),
-    "verify_dr_4": dict(edits=[("VERIFY ? (QUANT ? 4 : 2) : 1;",
-                                "VERIFY ? (QUANT ? 4 : 4) : 1;")],
+    "verify_dr_4": dict(edits=[("!INPLACE ? 1 : VERIFY && QUANT ? 4 : 2;",
+                                "!INPLACE ? 1 : VERIFY ? 4 : 2;")],
                         rows="verify"),
     "verify_l2_warm": dict(edits=[(
-        "    if (!VERIFY && nlive > 1) {\n      const int z0",
-        "    if (nlive > 1 && chunk == 0) {\n      const int z0")],
+        "    if (!VERIFY && !QUANT && nlive > 1) {\n      const int z0",
+        "    if ((VERIFY || !QUANT) && nlive > 1 && chunk == 0) {\n"
+        "      const int z0")],
         rows="verify"),
+    "quant_l2_warm": dict(edits=[(
+        "    if (!VERIFY && !QUANT && nlive > 1) {\n      const int z0",
+        "    if (!VERIFY && nlive > 1) {\n      const int z0")],
+        rows="quant"),
+    "quant_look_back": dict(edits=[(
+        "  if (nlive > 1 && !QUANT) {\n    if (tid == 0) publish_max",
+        "  if (nlive > 1 && (!QUANT || !VERIFY)) {\n    if (tid == 0) publish_max")],
+        rows="quant"),
+    "quant_copy_after_barrier": dict(edits=[(
+        _EARLY, _EARLY.replace(" || (QUANT && !(WRITE && z == nlive - 1))", ""))],
+        rows="quant"),
+    "quant_pv_per_row": dict(edits=[(
+        "  constexpr bool INPLACE = VERIFY || QUANT;",
+        "  constexpr bool INPLACE = VERIFY;")], rows="quant"),
+    "quant_pv_in_place_dr_4": dict(edits=[(
+        "!INPLACE ? 1 : VERIFY && QUANT ? 4 : 2;",
+        "!INPLACE ? 1 : QUANT ? 4 : 2;")], rows="quant"),
 }
 
 
@@ -158,6 +198,7 @@ def build_one():
     lines = [ln for ln in chip_smoke.ptxas_lines(
         _build.BUILD_LOGS.get("paged_attention", ""))
         if ln.startswith(("paged_split_kernelI13__nv_bfloat16Li1E",
+                          "paged_split_kernelIaLi1E",
                           "paged_verify_split_kernelI13__nv_bfloat16Li5E",
                           "paged_verify_split_kernelIaLi5E"))]
     print(json.dumps(lines))
@@ -183,8 +224,8 @@ def run_one(name):
         checks += [("check_paged_update", cs.check_paged_update),
                    ("check_paged_read", cs.check_paged_read)]
     if rows in ("all", "verify"):
-        checks += [("check_verify", cs.check_verify),
-                   ("check_quant", cs.check_quant)]
+        checks += [("check_verify", cs.check_verify)]
+    checks += [("check_quant", cs.check_quant)]
     check = {}
     for cname, fn in checks:
         try:
@@ -208,6 +249,21 @@ def run_one(name):
         lambda: pa.paged_attend_update(*upd), 100)[0]
     splits = pa.kernel_splits(a["tables"].shape[1], 128)
     del a, upd, rd
+    for key, positions, width, seed in (
+            ("", cs.PAGED_POSITIONS, None, 71),
+            (", even rows", cs.PAGED_STEP_POSITIONS, 16, 75)):
+        a = cs._quant_inputs(32, 32, positions, cs.SEED + seed, dev,
+                             torch.bfloat16, max_nb=width)
+        pools = [a[k] for k in ("k_pool", "v_pool", "k_scale", "v_scale")]
+        new = [a[k][-1, :, 0].contiguous()
+               for k in ("new_k", "new_v", "new_ks", "new_vs")]
+        upd = (a["q"], *new, *pools, a["tables"], a["rows"], a["layer"])
+        rd = (a["q"], *pools, a["tables"], a["rows"] + 1, a["layer"])
+        ms[f"paged_attend_update_quant (row 5){key}"] = cs._time_ms(
+            lambda: pa.paged_attend_update_quant(*upd), 100)[0]
+        ms[f"paged_attention_quant (row 4){key}"] = cs._time_ms(
+            lambda: pa.paged_attention_quant(*rd), 100)[0]
+        del a, pools, new, upd, rd
     T = cs.SPEC_K + 1
     qstart = [p + 1 for p in cs.PAGED_POSITIONS]
     for key, rows_q, width, seed in (

@@ -5,7 +5,8 @@
 Copies paddle_tpu_torch/ into a temporary directory once per mutant, writes
 one deliberate fault into the copy's csrc/paged_attention.cu (or
 csrc/split_common.cuh), in the split walk of rows 3 and 2
-(paged_split_kernel) or of the verify read of rows 6 and 7
+(paged_split_kernel), of rows 5 and 4 (the same kernel over int8 pools,
+the ``quant_*`` mutants) or of the verify read of rows 6 and 7
 (paged_verify_split_kernel), and runs chip_smoke's paged checks on the
 copy's kernels in a process of its own (all copies build at once, then run
 one at a time): ``check_paged_update`` (row 3 at the kernel's split within
@@ -15,7 +16,9 @@ bits over three calls, the pools bitwise the plain version's),
 ``check_verify`` and ``check_quant`` (rows 6 and 7 at the kernel's split
 under ``verify_held``: the flash rule, lse, the padding row exact over
 NaN-poisoned outputs, the same bits over three calls, the schedule's frob
-at rows of 2-4 blocks; rows 8, 5, 4 and 9 too). The unchanged copy must
+at rows of 2-4 blocks; rows 5 and 4 at the kernel's split likewise, row
+5's pools bitwise with the new bytes and scales landed, row 4's length-0
+row exactly 0 over a NaN-poisoned output; rows 8 and 9 too). The unchanged copy must
 pass and every faulty one must fail. NAMEs pick mutants (the unchanged copy
 always runs). Needs one CUDA device and nvcc; prints each copy's verdict
 and the checks' messages, writes chiprun_out/paged_mutants.json and exits
@@ -38,12 +41,17 @@ _WRITE_BODY = """    T* kw = static_cast<T*>(a.k_pool);
     T* vw = static_cast<T*>(a.v_pool);
     const T* new_k = static_cast<const T*>(a.new_k);
     const T* new_v = static_cast<const T*>(a.new_v);
-    const size_t blk = (size_t)trow[last / bs - j0];
+    const int blk = trow[last / bs - j0];
     const size_t base = (((size_t)layer * np + blk) * kvd + head_off) * bs + last % bs;
     const size_t src = (size_t)b * kvd + head_off;
     for (int d = tid; d < hd; d += nt) {
       kw[base + (size_t)d * bs] = new_k[src + d];
       vw[base + (size_t)d * bs] = new_v[src + d];
+    }
+"""
+_SCALE_WRITE = """    if (QUANT && tid == 0) {
+      a.k_scale[scale_off(blk) + last % bs] = a.new_ks[(size_t)b * nkv + g];
+      a.v_scale[scale_off(blk) + last % bs] = a.new_vs[(size_t)b * nkv + g];
     }
 """
 _FINAL = "  // 5. one live split writes its result"
@@ -119,6 +127,7 @@ _VERIFY_PV = ("                for (int x = 0; x < VEC; ++x) acc[r][e] += pf[x] 
 _SCALE_SRC = ("        bulk_load(ks_s + (size_t)jj * bs, a.k_scale + scale_off(trow[jj]), "
               "4 * bs, br);\n")
 _DEAD_VERIFY = "        if (o < 0 || tid >= hd) continue;\n"
+_DEAD_DECODE = "      for (int i = tid; i < R * hd; i += nt) a.out[q_off + i] = 0.f;\n"
 _COMBINE_STORE = "      out.acc[(size_t)o * hd + tid] = as[r];\n"
 
 # name -> [(text, replacement)] in csrc/paged_attention.cu, or [(file,
@@ -196,6 +205,34 @@ MUTANTS = {
     "verify_int8_scale_from_the_wrong_split": [
         (_SCALE_SRC, _SCALE_SRC.replace(
             "scale_off(trow[jj])", "scale_off(trow[jj + (split + 1 < nlive) * bps])")),
+    ],
+    # rows 5 and 4 (the int8 decode): the new column's K and V scale
+    # written by its owner only after its copies read the block
+    "quant_scales_written_after_the_copies": [
+        (_SCALE_WRITE, _SCALE_WRITE.replace("tid == 0) {", "tid == 0 && false) {")),
+        (_FINAL, "  if (WRITE && split == nlive - 1) {\n"
+         "    const int blk = trow[last / bs - j0];\n" + _SCALE_WRITE + "  }\n" + _FINAL),
+    ],
+    # an int8 block's K scales taken from the next split's first block
+    "quant_scale_from_the_wrong_split": [
+        (_SCALE_SRC, _SCALE_SRC.replace(
+            "scale_off(trow[jj])",
+            "scale_off(trow[jj + (!VERIFY && split + 1 < nlive) * bps])")),
+    ],
+    # the int8 decode's partial states combined in the order the splits
+    # finish
+    "quant_combine_in_arrival_order": [
+        (_COMBINE_HEAD + _COMBINE_VERIFY + _COMBINE_DECODE,
+         "  if constexpr (VERIFY || !QUANT) {\n" + _COMBINE_HEAD + _COMBINE_VERIFY
+         + _COMBINE_DECODE + "  } else {\n" + _arrival_combine(False) + "  }\n"),
+    ],
+    # the owner of row 5's new column skips its write (bytes and scales)
+    "quant_owner_write_skipped": [
+        (_WRITE_IF, _WRITE_IF.replace("nlive - 1", "nlive - 1 && !QUANT")),
+    ],
+    # a length-0 row of row 4 left unwritten
+    "quant_length_0_row_unwritten": [
+        (_DEAD_DECODE, _DEAD_DECODE.replace("i < R * hd;", "i < R * hd && !QUANT;")),
     ],
 }
 

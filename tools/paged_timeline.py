@@ -4,18 +4,20 @@
 
 Copies paddle_tpu_torch/ into a temporary directory, edits the copy's
 csrc/paged_attention.cu so that thread 0 of every CTA of the split walk
-(split_walk: rows 3 and 2, paged_split_kernel; rows 6 and 7,
-paged_verify_split_kernel) stamps the card's global timer (%globaltimer,
-ns) at the end of each phase into a device buffer, and runs one launch of
-rows 6 and 7 at chip_smoke's timing shape (B = 8, NH = NKV = 32, HD = 128,
-T = 5, 3,865 cached tokens) and row 6 at the profiled verify step's even
-rows (8 x 600), and row 3 at its timing shape and at the serve step's even
-rows (8 x 1,001), each after three warm-up launches. For each launch it
+(split_walk: rows 3 and 2, and 5 and 4 over int8 pools,
+paged_split_kernel; rows 6 and 7, paged_verify_split_kernel) stamps the
+card's global timer (%globaltimer, ns) at the end of each phase into a
+device buffer, and runs one launch of rows 6 and 7 at chip_smoke's timing
+shape (B = 8, NH = NKV = 32, HD = 128, T = 5, 3,865 cached tokens) and row
+6 at the profiled verify step's even rows (8 x 600), and rows 3 and 5 at
+their timing shape and at the serve step's even rows (8 x 1,001, 16-block
+tables), each after three warm-up launches. For each launch it
 prints, over the live CTAs, the 10th, 50th and 90th percentile in us of
 the phases
 
   ticket        start to the CTA's first barrier (the ticket, the L2
-                warm-up of rows 3 and 2, q, the verify read's first copy)
+                warm-up of the decode rows, q, the verify read's first
+                copy)
   K+scores      the K copies landed and every score of the split summed
   lookback      the split's max published and the earlier ones read
   softmax+V+PV  P, the V copies and P.V
@@ -145,13 +147,24 @@ def run():
     update = lambda a: (lambda: pa.paged_attend_update(
         a["q"], a["new_k"], a["new_v"], a["k_pool"], a["v_pool"],
         a["tables"], a["positions"], a["layer"]))
+    a5 = cs._quant_inputs(32, 32, cs.PAGED_POSITIONS, cs.SEED + 71, dev,
+                          torch.bfloat16)
+    e5 = cs._quant_inputs(32, 32, cs.PAGED_STEP_POSITIONS, cs.SEED + 75, dev,
+                          torch.bfloat16, max_nb=16)
+    update_quant = lambda a: (lambda: pa.paged_attend_update_quant(
+        a["q"], *(a[k][-1, :, 0].contiguous()
+                  for k in ("new_k", "new_v", "new_ks", "new_vs")),
+        a["k_pool"], a["v_pool"], a["k_scale"], a["v_scale"], a["tables"],
+        a["rows"], a["layer"]))
     cases = [("row 6, table shape", verify(a6)),
              ("row 6, even rows (8 x 600)", verify(e6)),
              ("row 7, table shape", lambda: pa.paged_attention_verify_quant(
                  a7["q"], a7["k_pool"], a7["v_pool"], a7["k_scale"],
                  a7["v_scale"], a7["tables"], a7["rows"], a7["layer"])),
              ("row 3, table shape", update(a3)),
-             ("row 3, even rows (8 x 1,001)", update(e3))]
+             ("row 3, even rows (8 x 1,001)", update(e3)),
+             ("row 5, table shape", update_quant(a5)),
+             ("row 5, even rows (8 x 1,001)", update_quant(e5))]
     out = []
     for name, fn in cases:
         for _ in range(3):
