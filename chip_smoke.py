@@ -10,16 +10,21 @@ Phases, in order; any failure exits non-zero before the last line:
   3. check   - each kernel against its plain PyTorch version at the
                serving and training paths' shapes, in bf16 (and f32 flash
                and grouped-matmul cases on small adversarial layouts),
-               with the tolerance stated; the speculative verify read
+               with the tolerance stated; RMSNorm (row 1) at rows 1 to
+               8,192 of widths 1024 to 5120 in bf16 and f32, an odd eps
+               and a row of zeros, bf16 also to its rounding schedule,
+               the same bits twice; the speculative verify read
                (row 6 at the kernel's split: bf16 at llama_7b's attention
                shape, f32 GQA with T = 1..8 and a score spread, a padding
                row exact over poisoned outputs, the same bits over three
-               calls, the rounding schedule at rows of 2-4 blocks) and the
-               commit (row 8, L = 32, bitwise but the null block); the
+               calls, the rounding schedule at rows of 2-4 blocks); the
                int8 kernels (rows 5 and 4 at llama_7b's attention shape
                with bf16 q and on f32 GQA cases with a score spread, row
-               5's written bytes and scales bitwise; row 7 as row 6; row 9
-               at L = 32 bitwise but the null block); then a tiny fp32
+               5's written bytes and scales bitwise; row 7 as row 6); the
+               commit (rows 8 and 9 at L = 32 and at block sizes 16 to
+               1024 in f32, bf16 and int8, commit lengths 0, 1, T and
+               mixed: bitwise but the null block, block 0 untouched, the
+               same bits twice); then a tiny fp32
                Llama served on the card through
                the kernels must give the same greedy streams as the same
                engine on the CPU through the plain versions, with
@@ -138,8 +143,12 @@ Phases, in order; any failure exits non-zero before the last line:
                host sync (sync debug mode);
   9. times   - each kernel timed with CUDA events beside its bound, its
                plain version and one PyTorch library call (a yardstick
-               the port never calls); each varlen kernel is also held
-               to its plain version at the pack it is timed at (both
+               the port never calls); row 1 beside the launch floor (an
+               empty kernel timed the same way); rows 8 and 9 with every
+               column accepted and with one (the serve-spec step's), a
+               sector bound beside the byte bound; each varlen kernel
+               is also held to its plain version at the pack it is
+               timed at (both
                packs for rows 20 and 21, the long pack for the split
                pair), and rows 20-23 to VARLEN_DRIFT_EXCESS along f64
                products (the long pack, and row 20 on one 65,536-token
@@ -300,32 +309,81 @@ PAGED_SCHEDULE_FROB = 2 ** -12
 PAGED_SCHEDULE_POSITIONS = [200, 255, 300, 383, 140, 129, 511, 250]
 
 
-def check_kernels(dev):
+# Row 1 on the grid of rows N x widths H the port runs (a decode step and
+# its single row, a prefill chunk, a train step; ERNIE, TinyLlama, Llama and
+# llama_13b) in both dtypes, eps 1e-5 (the Llama configs'); then ERNIE's
+# train step at its eps, an odd eps (0.37, past the rows' mean square so a
+# dropped eps shows) and a row of zeros (out exactly 0: a dropped eps makes
+# NaN). bf16 within RMS_TOL, f32 within RMS_TOL_F32 (the card tests'), the
+# output memory poisoned with NaN first, the same bits on a second call.
+# bf16 also to RMS_SCHEDULE_FROB rel frob: the kernel and the plain
+# version round once, after x * inv * w in f32, and differ only where an
+# f32 sum in another order moves inv by an ulp or two (under 5e-5 rel frob
+# at these shapes, a CPU run of the plain version with inv moved by 1 and
+# 3 ulps); w applied after the cast rounds twice (2.7e-3 to 2.8e-3) and a
+# mean over H - 1 moves every row (7e-4 to 1.7e-3), both inside RMS_TOL's
+# one rounding step
+RMS_ROWS = (1, 8, 256, 8192)
+RMS_WIDTHS = (1024, 2048, 4096, 5120)
+RMS_TOL_F32 = dict(rtol=1e-6, atol=1e-6)
+RMS_SCHEDULE_FROB = 2 ** -12
+RMS_ODD_EPS = 0.37
+
+
+def _rms_case(rn, n, h, eps, dtype, g, dev, zero_row=False):
+    """Row 1 at one shape against its plain version under the rules
+    above; returns (max_abs_err, a line to print)."""
+    x = torch.randn((n, h), generator=g, device=dev).to(dtype)
+    if zero_row:
+        x[n // 2] = 0
+    w = (1 + 0.1 * torch.randn((h,), generator=g, device=dev)).to(dtype)
+    outs = []
+    for _ in range(2):
+        keep = torch.full((n, h), float("nan"), device=dev, dtype=dtype)
+        del keep
+        outs.append(rn.fused_rms_norm(x, w, eps))
+    ref = rn.rms_norm_plain(x, w, eps)
+    torch.cuda.synchronize()
+    got = outs[0]
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = RMS_TOL if dtype == torch.bfloat16 else RMS_TOL_F32
+    torch.testing.assert_close(got, ref, **tol)
+    fro = ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+    assert dtype != torch.bfloat16 or fro <= RMS_SCHEDULE_FROB, (
+        f"rms_norm [{n},{h}] bf16: rel frob {fro:.3e} over 2^-12")
+    same = torch.equal(outs[0], outs[1])
+    assert same, f"rms_norm [{n},{h}] {dtype}: two calls differ"
+    zero_ok = not zero_row or bool((got[n // 2] == 0).all())
+    assert zero_ok, f"rms_norm [{n},{h}]: the row of zeros is not 0"
+    frob_tol = ", frob 2^-12" if dtype == torch.bfloat16 else ""
+    return err, (f"rms_norm [{n},{h}] {str(dtype)[6:]} eps {eps:g}"
+                 f"{' zero row' if zero_row else ''} max_abs_err {err:.3e} "
+                 f"rel frob {fro:.3e} (tol rtol {tol['rtol']:g}, atol "
+                 f"{tol['atol']:g}{frob_tol}); the same bits twice {same}")
+
+
+def check_rms(dev, errs):
+    """Row 1 against its plain version (the cases above)."""
     from paddle_tpu_torch.ops import rms_norm as rn
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cases = [(n, h, 1e-5, dtype, False) for dtype in (torch.bfloat16,
+                                                       torch.float32)
+             for h in RMS_WIDTHS for n in RMS_ROWS]
+    cases += [(MOE_B * MOE_S, 1024, 1e-6, torch.bfloat16, False),
+              (256, 4096, RMS_ODD_EPS, torch.bfloat16, False),
+              (8, 5120, RMS_ODD_EPS, torch.float32, False),
+              (8, 4096, 1e-5, torch.bfloat16, True),
+              (256, 1024, 1e-6, torch.float32, True)]
+    for n, h, eps, dtype, zero_row in cases:
+        err, line = _rms_case(rn, n, h, eps, dtype, g, dev, zero_row)
+        print(line)
+        errs["rms_norm"] = max(errs.get("rms_norm", 0.0), err)
+
+
+def check_kernels(dev):
     phase("check kernels against their plain versions (bf16)")
     errs = {}
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    # (rows, H, eps): llama_7b's decode step, prefill chunk and train step
-    # (B x S); ernie_moe_fine's train step, where H = 1024 launches blocks
-    # of another width
-    # TinyLlama's decode step and prefill (H = 2048)
-    for n, h, eps in ((8, 4096, 1e-5), (256, 4096, 1e-5),
-                      (TRAIN_B * TRAIN_S, 4096, 1e-5),
-                      (MOE_B * MOE_S, 1024, 1e-6), (GEN_B, 2048, 1e-5),
-                      (GEN_B * GEN_S, 2048, 1e-5)):
-        x = torch.randn((n, h), generator=g, device=dev,
-                        dtype=torch.bfloat16)
-        w = (1 + 0.1 * torch.randn((h,), generator=g, device=dev)
-             ).to(torch.bfloat16)
-        got = rn.fused_rms_norm(x, w, eps)
-        ref = rn.rms_norm_plain(x, w, eps)
-        torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
-        torch.testing.assert_close(got, ref, **RMS_TOL)
-        print(f"rms_norm [{n},{h}] eps {eps:g} max_abs_err {err:.3e} "
-              f"(tol rtol 2^-7, atol 1e-5)")
-        errs.setdefault("rms_norm", 0.0)
-        errs["rms_norm"] = max(errs["rms_norm"], err)
+    check_rms(dev, errs)
     check_paged_update(dev, errs)
     return errs
 
@@ -439,7 +497,6 @@ VERIFY_CASES = [(32, 32, 5, torch.bfloat16, None),
                 (16, 4, 6, torch.float32, VERIFY_SPREAD),
                 (32, 4, 8, torch.float32, VERIFY_SPREAD),
                 (32, 4, 3, torch.float32, VERIFY_SPREAD)]
-COMMIT_QSTART = [0, 3, 125, 126, 300, 128, 1000, 2000]
 COMMIT_LEN = [0, 5, 3, 5, 1, 4, 2, 5]
 
 
@@ -483,11 +540,9 @@ def verify_held(name, kern, plain, q, qstart, f32, rel, frob, sched=False):
 
 
 def check_verify(dev, errs):
-    """Rows 6 and 8 against their plain versions (row 6 at the kernel's
-    split)."""
+    """Row 6 against its plain version at the kernel's split."""
     from paddle_tpu_torch.ops import paged_attention as pa
-    phase("check the verify read and the commit against their plain "
-          "versions")
+    phase("check the verify read against its plain version")
     cases = [c + (VERIFY_QSTART,) for c in VERIFY_CASES] + [
         VERIFY_CASES[0] + (VERIFY_SCHEDULE_QSTART,)]
     for nh, nkv, T, dtype, spread, qstart in cases:
@@ -509,31 +564,6 @@ def check_verify(dev, errs):
         errs["paged_attention_verify"] = max(
             errs.get("paged_attention_verify", 0.0), err)
         del a
-
-    # row 8 at L = 32: commit lengths 0..T, windows across a block edge
-    a = _verify_inputs(32, 32, COMMIT_QSTART, 5, SEED + 8, dev, layers=32)
-    clen = torch.tensor(COMMIT_LEN, dtype=torch.int32, device=dev)
-    kp, vp = a["k_pool"].clone(), a["v_pool"].clone()
-    kp2, vp2 = a["k_pool"].clone(), a["v_pool"].clone()
-    pa.paged_verify_commit(a["new_k"], a["new_v"], kp, vp, a["tables"],
-                           a["qstart"], clen)
-    pa.paged_verify_commit_plain(a["new_k"], a["new_v"], kp2, vp2,
-                                 a["tables"], a["qstart"], clen)
-    torch.cuda.synchronize()
-    err = max((kp[:, 1:].float() - kp2[:, 1:].float()).abs().max().item(),
-              (vp[:, 1:].float() - vp2[:, 1:].float()).abs().max().item())
-    bitwise = torch.equal(kp[:, 1:], kp2[:, 1:]) and \
-        torch.equal(vp[:, 1:], vp2[:, 1:])
-    changed = int((kp[:, 1:] != a["k_pool"][:, 1:]).any(dim=2).sum())
-    print(f"paged_verify_commit L=32 B=8 T=5 KVD=4096 bf16 qstart "
-          f"{COMMIT_QSTART} commit_len {COMMIT_LEN}: pools bitwise equal "
-          f"but block 0 {bitwise}, {changed} (layer, block, column) "
-          f"columns written")
-    assert bitwise, "paged_verify_commit disagrees"
-    assert changed == 32 * sum(COMMIT_LEN), changed
-    errs["paged_verify_commit"] = err
-    del a, kp, vp, kp2, vp2
-    torch.cuda.empty_cache()
 
 
 # int8 paged KV (rows 5, 4, 7, 9). Quantized pools of the 7B shape come
@@ -638,10 +668,9 @@ def check_quant(dev, errs):
     stays f32); rows 5 and 4 the same bits over three calls, row 5's pools
     bitwise the plain version's with the new bytes and scales landed, row
     4's length-0 row exactly 0 over a NaN-poisoned output; row 7 under
-    ``verify_held``'s rules; row 9 at L = 32 bitwise but the null
-    block."""
+    ``verify_held``'s rules (row 9: ``check_commit``)."""
     from paddle_tpu_torch.ops import paged_attention as pa
-    phase("check the int8 kernels (rows 5, 4, 7, 9) against their plain "
+    phase("check the int8 kernels (rows 5, 4, 7) against their plain "
           "versions")
     rel, frob = FLASH_TOL[torch.float32][0]
     cases = [c + (PAGED_POSITIONS,) for c in QUANT_CASES] + [
@@ -734,34 +763,100 @@ def check_quant(dev, errs):
             errs.get("paged_attention_verify_quant", 0.0), err)
         del a
 
-    # row 9 at L = 32: commit lengths 0..T, windows across a block edge
-    a = _quant_inputs(32, 32, COMMIT_QSTART, SEED + 9, dev, torch.bfloat16,
-                      T=5, layers=32)
-    clen = torch.tensor(COMMIT_LEN, dtype=torch.int32, device=dev)
-    new = [a[k] for k in ("new_k", "new_v", "new_ks", "new_vs")]
-    pools = [a[k].clone() for k in ("k_pool", "v_pool", "k_scale",
-                                    "v_scale")]
-    ref = [t.clone() for t in pools]
-    pa.paged_verify_commit_quant(*new, *pools, a["tables"], a["rows"], clen)
-    pa.paged_verify_commit_quant_plain(*new, *ref, a["tables"], a["rows"],
-                                       clen)
+
+
+# Rows 8 and 9 (the commit) against their plain versions: bitwise on every
+# block but the null block 0, block 0 byte for byte as it was (the kernels
+# write live columns only, never block 0; the plain versions route dead
+# columns there), the same bits from a second call on the same inputs, and
+# every live column of a real block written. Commit lengths all 0, all 1
+# (the serve-spec step's: nothing accepted), all T and mixed; windows
+# across a block edge (qstart bs - 3 and bs - 2 with T = 5); bs 16 to
+# 1024; f32, bf16 and int8 pools. Row 0 is a padding row (qstart 0, its
+# table all block 0), whose live columns, where its commit length says so,
+# land nowhere.
+COMMIT_LENS = {"none": [0] * 8, "one": [1] * 8, "all": [5] * 8,
+               "mixed": COMMIT_LEN}
+# (dtype, layers, block size, commit-length sets): llama_7b's commit (L =
+# 32, KVD = 4096, bs 128) in bf16 and int8, then four layers at the other
+# block sizes and in f32
+COMMIT_CASES = [(torch.bfloat16, 32, 128, tuple(COMMIT_LENS)),
+                ("int8", 32, 128, tuple(COMMIT_LENS)),
+                (torch.float32, 4, 128, tuple(COMMIT_LENS)),
+                (torch.bfloat16, 4, 16, ("all", "mixed")),
+                (torch.bfloat16, 4, 1024, ("all", "mixed")),
+                ("int8", 4, 16, ("all", "mixed")),
+                ("int8", 4, 1024, ("one", "mixed")),
+                (torch.float32, 4, 64, ("one", "mixed"))]
+
+
+def commit_qstart(bs):
+    """Qstarts whose windows of T = 5 cross a block edge at bs (rows 2
+    and 3); row 0 a padding row."""
+    return [0, 3, bs - 3, bs - 2, 300, bs, 1000, 2000]
+
+
+def commit_case(pa, dtype, layers, bs, lens, seed, dev):
+    """Row 8 (dtype a float type) or row 9 (dtype "int8") at one case;
+    returns (max_abs_err on blocks 1:, a line to print)."""
+    quant = dtype == "int8"
+    qstart, T = commit_qstart(bs), 5
+    if quant:
+        a = _quant_inputs(32, 32, qstart, seed, dev, torch.bfloat16, T=T,
+                          bs=bs, layers=layers)
+        names, qs = ("k_pool", "v_pool", "k_scale", "v_scale"), a["rows"]
+        new = [a[k] for k in ("new_k", "new_v", "new_ks", "new_vs")]
+        kern, plain = pa.paged_verify_commit_quant, \
+            pa.paged_verify_commit_quant_plain
+    else:
+        a = _verify_inputs(32, 32, qstart, T, seed, dev, dtype=dtype, bs=bs,
+                           layers=layers)
+        names, qs = ("k_pool", "v_pool"), a["qstart"]
+        new = [a["new_k"], a["new_v"]]
+        kern, plain = pa.paged_verify_commit, pa.paged_verify_commit_plain
+    clen = torch.tensor(lens, dtype=torch.int32, device=dev)
+    orig = [a[k] for k in names]
+    runs = []
+    for _ in range(2):
+        pools = [t.clone() for t in orig]
+        kern(*new, *pools, a["tables"], qs, clen)
+        runs.append(pools)
+    ref = [t.clone() for t in orig]
+    plain(*new, *ref, a["tables"], qs, clen)
     torch.cuda.synchronize()
-    bitwise = all(torch.equal(x[:, 1:], y[:, 1:]) for x, y in zip(pools, ref))
+    got = runs[0]
+    bitwise = all(torch.equal(x[:, 1:], y[:, 1:]) for x, y in zip(got, ref))
+    block0 = all(torch.equal(x[:, 0], y[:, 0]) for x, y in zip(got, orig))
+    same = all(torch.equal(x, y) for x, y in zip(*runs))
     err = max((x[:, 1:].float() - y[:, 1:].float()).abs().max().item()
-              for x, y in zip(pools, ref))
-    changed = int((pools[0][:, 1:] != a["k_pool"][:, 1:]).any(dim=2).sum())
-    changed_s = int((pools[2][:, 1:] != a["k_scale"][:, 1:]).any(dim=2)
-                    .sum())
-    print(f"paged_verify_commit_quant L=32 B=8 T=5 KVD=4096 NKV=32 qstart "
-          f"{COMMIT_QSTART} commit_len {COMMIT_LEN}: bytes and scales "
-          f"bitwise equal but block 0 {bitwise}, {changed} byte columns and "
-          f"{changed_s} scale columns written")
-    assert bitwise, "paged_verify_commit_quant disagrees"
+              for x, y in zip(got, ref))
     # a random column equals the old one with odds of about 255^-4096
-    assert changed == changed_s == 32 * sum(COMMIT_LEN), (changed, changed_s)
-    errs["paged_verify_commit_quant"] = err
-    del a, pools, ref, new
-    torch.cuda.empty_cache()
+    written = [int((x[:, 1:] != y[:, 1:]).any(dim=2).sum())
+               for x, y in zip(got, orig)]
+    want = layers * sum(c for c, q in zip(lens, qstart) if q > 0)
+    line = (f"{kern.__name__} L={layers} B=8 T={T} KVD=4096 bs={bs} "
+            f"{'int8' if quant else str(dtype)[6:]} qstart {qstart} "
+            f"commit_len {lens}: bitwise but block 0 {bitwise}, block 0 "
+            f"untouched {block0}, the same bits twice {same}, columns "
+            f"written {written} of {want}")
+    assert bitwise and block0 and same, line
+    assert all(n == want for n in written), line
+    return err, line
+
+
+def check_commit(dev, errs):
+    """Rows 8 and 9 against their plain versions (the cases above)."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    phase("check the commit (rows 8 and 9) against its plain versions")
+    for i, (dtype, layers, bs, sets) in enumerate(COMMIT_CASES):
+        key = ("paged_verify_commit_quant" if dtype == "int8"
+               else "paged_verify_commit")
+        for name in sets:
+            err, line = commit_case(pa, dtype, layers, bs, COMMIT_LENS[name],
+                                    SEED + 8 + i, dev)
+            print(line)
+            errs[key] = max(errs.get(key, 0.0), err)
+        torch.cuda.empty_cache()
 
 
 # flash kernels against their plain versions, on every element
@@ -2948,7 +3043,9 @@ def _kernel_class(name):
     if "paged_verify_split_kernel" in name:     # <T, R, MAXT>
         return ("paged_attention_verify_quant" if "<signed char," in name
                 else "paged_attention_verify")
-    if "paged_commit_quant_kernel" in name:
+    # <W, QUANT>; paged_commit_quant_kernel: an older tree's row 9 (ab_times)
+    if "paged_commit_quant_kernel" in name or (
+            "paged_commit_kernel" in name and ", true>" in name):
         return "paged_verify_commit_quant"
     if "paged_commit_kernel" in name:
         return "paged_verify_commit"
@@ -3151,6 +3248,10 @@ def times(dev, errs):
     phase("times (CUDA events; ms = device time per call)")
     out = {}
     g = torch.Generator(device=dev).manual_seed(SEED)
+    # the launch floor: an empty kernel (torch.cuda._sleep(0)) queued back
+    # to back, as row 1 is timed
+    floor = _timed(lambda: torch.cuda._sleep(0), 200)
+    out["launch_floor"] = floor
     # rows: a decode step, a prefill chunk, a train step (B x S)
     for n in (8, 256, TRAIN_B * TRAIN_S):
         x = torch.randn((n, 4096), generator=g, device=dev,
@@ -3164,9 +3265,10 @@ def times(dev, errs):
                  library_ms=_timed(lambda: torch.nn.functional.rms_norm(
                      x, (4096,), w, 1e-5), 100)["ms"],
                  **_bound(2 * n * 4096 * 2 + 4096 * 2, 4 * n * 4096,
-                          F32_OPS_PER_S))
+                          F32_OPS_PER_S), floor_ms=floor["ms"])
         out[f"rms_norm[{n},4096]"] = r
-        print(f"rms_norm [{n},4096]: {r}")
+        print(f"rms_norm [{n},4096]: {r} (launch floor {floor['ms']:.6f} "
+              f"ms)")
     out["rms_norm_host_ms_per_decode_step"] = rms_host_cost(dev)
 
     a = _paged_inputs(32, 32, PAGED_POSITIONS, SEED + 32, dev)
@@ -3226,6 +3328,7 @@ def times(dev, errs):
     out.update(gmm_times(dev))
     out.update(verify_times(dev))
     out.update(quant_times(dev))
+    out.update(commit_times(dev))
     out.update(slab_times(dev))
     out.update(varlen_times(dev, errs))
     return out
@@ -3269,12 +3372,8 @@ def verify_times(dev):
     and V of the cached tokens, the f32 partials, tables and qstart once.
     Operations: 2 products of 2 HD per (query row, token). Library
     yardstick: SDPA of the T query rows over the context gathered
-    beforehand. ``profiler_ms``: torch.profiler's kernel time per launch.
-
-    Row 8 at L=32, B=8, T=5, KVD=4096, bf16, every column accepted: bytes
-    2 L B T KVD read and as many written, plus the per-row indices.
-    Library yardstick: one advanced-index assignment per pool of the same
-    columns, indices and gathered sources made beforehand."""
+    beforehand. ``profiler_ms``: torch.profiler's kernel time per launch
+    (row 8: ``commit_times``)."""
     from paddle_tpu_torch.ops import paged_attention as pa
     out = {}
     T, bs, nh, hd = SPEC_K + 1, 128, 32, 128
@@ -3308,28 +3407,6 @@ def verify_times(dev):
               f"tokens{key.replace(',', ', ')}: {r}")
         del a
 
-    L = 32
-    a = _verify_inputs(nh, nh, qstart, T, SEED + 62, dev, hd=hd, layers=L)
-    clen = torch.full((b,), T, dtype=torch.int32, device=dev)
-    args = (a["new_k"], a["new_v"], a["k_pool"], a["v_pool"], a["tables"],
-            a["qstart"], clen)
-    li, bid, col, _, bi, ti = pa.paged_commit_schedule(
-        a["qstart"], clen, a["tables"], L, T, bs).long()
-    src_k, src_v = a["new_k"][li, bi, ti], a["new_v"][li, bi, ti]
-
-    def library():
-        a["k_pool"][li, bid, :, col] = src_k
-        a["v_pool"][li, bid, :, col] = src_v
-    nbytes = 2 * 2 * L * b * T * kvd * 2 + 3 * b * 4 + a["tables"].numel() * 4
-    r = dict(_timed(lambda: pa.paged_verify_commit(*args), 200),
-             plain_ms=_timed(lambda: pa.paged_verify_commit_plain(*args),
-                             20)["ms"],
-             library_ms=_timed(library, 50)["ms"],
-             **_bound(nbytes, 0, BF16_OPS_PER_S), bytes=nbytes)
-    out["paged_verify_commit[L=32,B=8,T=5,KVD=4096]"] = r
-    print(f"paged_verify_commit L=32 B=8 T=5 KVD=4096: {r}")
-    del a, src_k, src_v
-    torch.cuda.empty_cache()
     return out
 
 
@@ -3339,16 +3416,13 @@ def quant_times(dev):
     columns; row 3's positions, so 3,865 context tokens: row 4 reads
     lengths = positions + 1, row 7 qstart = positions + 1 with T = 5), and
     rows 5 and 4 at the profiled decode step's even rows (8 x 1,001
-    tokens, 16-block tables) and row 7 at row 6's, with ``profiler_ms``;
-    row 9 at row 8's (L=32, B=8, T=5, KVD=4096, every column accepted).
-    Bytes: q, the int8 K and V of the context with their f32 scales, the
-    f32 output (row 7: the partials) and the indices once; row 5 adds the
-    new columns read and written with their scales; row 9 moves 2 L B T
-    (KVD + 4 NKV) bytes in and as many out. Operations: 2 products of 2 HD
-    per (query row, token) in f32 (the walk runs on the CUDA cores).
-    Library yardsticks: SDPA over the context gathered and dequantized to
-    bf16 beforehand (rows 5, 4, 7), one advanced-index assignment per pool,
-    four pools (row 9)."""
+    tokens, 16-block tables) and row 7 at row 6's, with ``profiler_ms``
+    (row 9: ``commit_times``). Bytes: q, the int8 K and V of the context
+    with their f32 scales, the f32 output (row 7: the partials) and the
+    indices once; row 5 adds the new columns read and written with their
+    scales. Operations: 2 products of 2 HD per (query row, token) in f32
+    (the walk runs on the CUDA cores). Library yardstick: SDPA over the
+    context gathered and dequantized to bf16 beforehand."""
     from paddle_tpu_torch.ops import paged_attention as pa
     F = torch.nn.functional
     out = {}
@@ -3431,31 +3505,106 @@ def quant_times(dev):
               f"tokens{key.replace(',', ', ')}: {r}")
         del a
 
-    L = 32
-    a = _quant_inputs(nh, nh, qstart, SEED + 73, dev, torch.bfloat16, T=T,
-                      layers=L)
-    clen = torch.full((b,), T, dtype=torch.int32, device=dev)
-    new = [a[k] for k in ("new_k", "new_v", "new_ks", "new_vs")]
-    pools = [a[k] for k in ("k_pool", "v_pool", "k_scale", "v_scale")]
-    args = (*new, *pools, a["tables"], a["rows"], clen)
-    li, bid, col, _, bi, ti = pa.paged_commit_schedule(
-        a["rows"], clen, a["tables"], L, T, bs).long()
-    srcs = [t[li, bi, ti] for t in new]
+    return out
 
-    def library():
-        for pool, src in zip(pools, srcs):
-            pool[li, bid, :, col] = src
-    nbytes = 2 * 2 * L * b * T * (kvd + 4 * nkv) + 3 * b * 4 \
-        + a["tables"].numel() * 4
-    r = dict(_timed(lambda: pa.paged_verify_commit_quant(*args), 200),
-             plain_ms=_timed(lambda: pa.paged_verify_commit_quant_plain(
-                 *args), 20)["ms"],
-             library_ms=_timed(library, 50)["ms"],
-             **_bound(nbytes, 0, F32_OPS_PER_S), bytes=nbytes)
-    out["paged_verify_commit_quant[L=32,B=8,T=5,KVD=4096]"] = r
-    print(f"paged_verify_commit_quant L=32 B=8 T=5 KVD=4096: {r}")
-    del a, srcs, pools, new
-    torch.cuda.empty_cache()
+
+def commit_sectors(qstart, clen, bs, esize):
+    """32-byte sectors that one pool row of every (row, live segment)
+    takes: the window of each row's live columns, split at block edges,
+    in a pool row of bs elements of esize bytes (bs * esize a multiple of
+    32)."""
+    n = 0
+    for q, c in zip(qstart, clen):
+        t = 0
+        while t < c:
+            col = (q + t) % bs
+            m = min(c - t, bs - col)
+            n += ((col + m) * esize - 1) // 32 - col * esize // 32 + 1
+            t += m
+    return n
+
+
+def commit_timing_inputs(dev, quant):
+    """Row 8's (bf16) or row 9's (``quant``) timing inputs: L=32, B=8, T=5,
+    KVD=4096, row 6's timing rows (qstart = row 3's positions + 1).
+    Returns (kernel, plain version, the inputs' dict, the fed columns, the
+    pools, qstart)."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    qstart = [p + 1 for p in PAGED_POSITIONS]
+    if quant:
+        a = _quant_inputs(32, 32, qstart, SEED + 73, dev, torch.bfloat16,
+                          T=SPEC_K + 1, layers=32)
+        return (pa.paged_verify_commit_quant,
+                pa.paged_verify_commit_quant_plain, a,
+                [a[k] for k in ("new_k", "new_v", "new_ks", "new_vs")],
+                [a[k] for k in ("k_pool", "v_pool", "k_scale", "v_scale")],
+                a["rows"])
+    a = _verify_inputs(32, 32, qstart, SPEC_K + 1, SEED + 62, dev,
+                       layers=32)
+    return (pa.paged_verify_commit, pa.paged_verify_commit_plain, a,
+            [a["new_k"], a["new_v"]], [a["k_pool"], a["v_pool"]],
+            a["qstart"])
+
+
+def commit_times(dev):
+    """Rows 8 and 9 at L=32, B=8, T=5, KVD=4096 (bf16 pools; int8 with 32
+    f32 scales a column) over row 6's timing rows (qstart = row 3's
+    positions + 1), at two commit lengths: every column accepted
+    (``commit_len = T``, the key without a suffix) and the serve-spec
+    step's (``commit_len = 1``: nothing accepted). Byte bound: the live
+    columns read and written once (with their scales), plus the per-row
+    indices. Sector bound: the live windows' 32-byte sectors in every pool
+    row of K and V (and of the scale pools), written, plus the bytes read,
+    over 3.35 TB/s: each pool row's window lies bs elements from the next
+    row's, so a sector is the least a write moves. Library yardstick: one
+    advanced-index assignment per pool of the live columns, indices and
+    gathered sources made beforehand. ``profiler_ms``: torch.profiler's
+    kernel time per launch."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    out = {}
+    L, T, bs, nkv = 32, SPEC_K + 1, 128, 32
+    qstart = [p + 1 for p in PAGED_POSITIONS]
+    b, kvd = len(qstart), nkv * 128
+    for quant in (False, True):
+        kern, plain, a, new, pools, qs = commit_timing_inputs(dev, quant)
+        esize = 1 if quant else 2
+        for n_live in (T, 1):
+            clen_l = [n_live] * b
+            clen = torch.tensor(clen_l, dtype=torch.int32, device=dev)
+            args = (*new, *pools, a["tables"], qs, clen)
+            li, bid, col, _, bi, ti = pa.paged_commit_schedule(
+                qs, clen, a["tables"], L, T, bs).long()
+            live = ti < clen[bi]
+            li, bid, col, bi, ti = (x[live] for x in (li, bid, col, bi, ti))
+            srcs = [t[li, bi, ti] for t in new]
+
+            def library():
+                for pool, src in zip(pools, srcs):
+                    pool[li, bid, :, col] = src
+            cols = L * sum(clen_l)
+            index_bytes = 3 * b * 4 + a["tables"].numel() * 4
+            read = 2 * cols * kvd * esize + (2 * cols * nkv * 4 if quant
+                                             else 0)
+            sectors = 2 * L * kvd * commit_sectors(qstart, clen_l, bs, esize)
+            if quant:
+                sectors += 2 * L * nkv * commit_sectors(qstart, clen_l, bs,
+                                                        4)
+            r = dict(_timed(lambda: kern(*args), 200),
+                     profiler_ms=_profiled_ms(lambda: kern(*args),
+                                              "paged_commit"),
+                     plain_ms=_timed(lambda: plain(*args), 20)["ms"],
+                     library_ms=_timed(library, 50)["ms"],
+                     **_bound(2 * read + index_bytes, 0, BF16_OPS_PER_S),
+                     bytes=2 * read + index_bytes, sectors=sectors,
+                     sector_bound_ms=(sectors * 32 + read + index_bytes)
+                     / HBM_BYTES_PER_S * 1e3)
+            key = (f"{kern.__name__}[L=32,B=8,T=5,KVD=4096"
+                   f"{'' if n_live == T else ',commit_len=1'}]")
+            out[key] = r
+            print(f"{key}: {r}")
+            del srcs, li, bid, col, bi, ti
+        del a, new, pools
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4326,6 +4475,7 @@ def main():
     check_paged_read(dev, errs)
     check_verify(dev, errs)
     check_quant(dev, errs)
+    check_commit(dev, errs)
     check_flash(dev, errs)
     check_split(dev, errs)
     check_blocks(dev)

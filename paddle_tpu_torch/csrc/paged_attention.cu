@@ -34,19 +34,29 @@
 //
 // paged_verify_commit_fwd: after verification, fed token t of row b lands
 // at position qstart[b] + t. For t < commit_len[b] its new_k/new_v column
-// of every layer is written into the row's block; every other (layer, row,
-// token) writes the null block 0 at the same column, as the JAX commit
-// schedule routes it. A bare scatter: the TPU kernel's first-visit and
-// revisit flags exist only for Pallas's aliasing rules.
+// of every layer is written into the row's block. The rejected and
+// padding columns, which the JAX commit schedule routes into the null
+// block 0, are not written at all, and block 0 never is: every other
+// block gets the JAX schedule's bits, block 0's contents are unspecified.
+// A bare scatter: the TPU kernel's first-visit and revisit flags exist
+// only for Pallas's aliasing rules.
 //
 // What bounds them on this card: bytes. The attention entries read each
 // row's K and V columns once and do about 4 * R * HD operations per token
 // for R query rows of a kv-head, under 2 operations per byte at R <= 8
 // (B = 8 rows of 1024 tokens at KVD = 4096 in bf16 is 134 MB, 40 us per
 // layer; int8 halves the bytes and adds 4 bytes of scales per kv-head
-// and token, 4 operations per byte at R <= 8). The commit moves 2 * L * B
-// * T * KVD elements in and out; each column write touches KVD rows bs
-// elements apart, so every element costs a 32-byte sector.
+// and token, 4 operations per byte at R <= 8). The commit is bound by
+// sectors, not bytes: it reads 2 * L * B * n * KVD elements (n live
+// columns a row) and writes as many, but a row's window of n <= T
+// consecutive columns lands in each of the KVD rows of a pool block, rows
+// bs elements apart, so each (layer, row, pool row) costs one 32-byte
+// sector written, two where the window crosses a sector edge. At L = 32, B
+// = 8, KVD = 4096 that is 2 M pool rows of K and V: 67-84 MB, 20-25 us at
+// 3.35 TB/s, against a byte bound of 12.5 us at n = T = 5 (2.5 us at n =
+// 1, where the sectors stay the same). Written as scattered partial
+// sectors, 256 bytes apart, they go far slower than the bandwidth (about
+// 14-20 G sectors/s on an H100, see the commit's design below).
 //
 // Design of the attention entries (not the TPU's): the TPU walks one flat
 // sequential schedule of (sequence, block) steps and pads each query row
@@ -124,14 +134,30 @@
 // row read earlier blocks only. Padding rows point their whole table at
 // the reserved null block 0 with position 0; they all write block 0,
 // column 0, concurrently. That is harmless: no live row ever reads block
-// 0. The commit's rejected and padding columns likewise land in block 0
-// from many CTAs at once.
+// 0.
 //
-// Design of the commit: one CTA of 128 threads per (kv-slice of 128
-// elements, row, layer) stages the row's T columns of that slice in shared
-// memory (coalesced reads of new_k/new_v), then writes them with the token
-// index fastest, so the up-to-T consecutive columns of one pool row go out
-// together.
+// Design of the commit (rows 8 and 9, paged_commit_kernel): around
+// sectors, not elements. A window of a row's n <= T live columns is at
+// most 8 consecutive elements of each pool row, so every (layer, row, pool
+// row) costs one 32-byte sector written (two where the window crosses a
+// sector or block edge), and on an H100 those scattered partial-sector
+// writes, not bytes, set the time: about 0.15 ms (int8: 0.12) for the 2 M
+// pool rows of llama_7b's commit whatever n is (tools/paged_choices.py).
+// So each sector must be written once, by one store instruction, and
+// nothing else written. A warp owns 16 pool rows of one (layer, row); lane
+// (r, t) takes fed token t of rows r, r + 4, r + 8, r + 12, so one warp
+// store writes 4 rows' whole windows (the coalescer merges a window's
+// elements into one request per sector) and each lane finds its token's
+// block and column once. Only live columns are written (t <
+// commit_len[b]) and never block 0: at the serve-spec step's commit
+// lengths (1 of T = 5 where nothing is accepted) that is one column a row
+// where the JAX schedule writes five, four of them into block 0 from every
+// row at once. No shared memory, no barrier, no division per element; the
+// grid comes from the work, one warp an item. (One thread owning 8 rows,
+// reading them as vectors and writing each row's window in the fewest
+// aligned stores, issues 2-3 requests to each sector and took twice as
+// long with every column accepted; an L2 prefetch of the target sectors
+// before the stores cost more than it saved: tools/paged_choices.py.)
 //
 // The int8 entries (q in f32 or bf16, pools int8, scales f32). New
 // columns arrive already quantized (the caller's kv_quant_columns, the one
@@ -142,10 +168,9 @@
 // rounded (l sums the unscaled p), in the decode (rows 5, 4) and verify
 // (row 7) walks alike. The TPU kernels dequantize every element first,
 // f32(k8) * ks; the factored form differs from that only in f32 rounding.
-// The int8 commit is the commit's byte scatter with 1-byte
-// elements, each of which costs a 32-byte sector (worse than bf16: the T
-// columns of one pool row share one sector at most); each CTA also scatters
-// the T scales of the kv-heads whose rows start in its slice.
+// The int8 commit is the same body over 1-byte codes; the lanes of a
+// kv-head's first row also write the head's window of f32 scales in the K
+// and V scale pools, live columns only.
 //
 // The kernels allocate nothing and do not synchronise; they launch on the
 // caller's stream.
@@ -160,7 +185,12 @@
 namespace {
 
 constexpr int kMaxFed = 8;        // verify and commit: fed tokens per row
-constexpr int kCommitSlice = 128; // commit: KVD elements per CTA
+// the commit: a lane a fed token, 32 / kMaxFed pool rows a warp store,
+// kCommitSteps stores a warp item
+constexpr int kCommitRowStep = 32 / kMaxFed;
+constexpr int kCommitSteps = 4;
+constexpr int kCommitWarpRows = kCommitRowStep * kCommitSteps;
+constexpr int kCommitThreads = 256;
 
 // ---------------------------------------------------------------------------
 // rows 2-7: the split-context walk
@@ -788,87 +818,97 @@ __global__ void __launch_bounds__(MAXT) paged_verify_split_kernel(const SplitArg
   split_walk<T, R, kVerify>(a);
 }
 
-// The commit of one CTA of grid (ceil(kvd / kCommitSlice), b_rows,
-// n_layers), kCommitSlice threads: elements [d0, d0 + kCommitSlice) of the
-// T columns of (layer, row b). W is an unsigned type of the element's
-// width: the commit copies bits. On return blk[t] and col[t] hold fed
-// token t's pool block (0 when rejected) and column, for every thread.
-template <typename W>
-__device__ __forceinline__ void commit_slice(const W* __restrict__ new_k,
-                                             const W* __restrict__ new_v, W* k_pool, W* v_pool,
-                                             const int* __restrict__ tables,
-                                             const int* __restrict__ qstart,
-                                             const int* __restrict__ commit_len, int np,
-                                             int b_rows, int t_fed, int kvd, int bs, int max_nb,
-                                             int* blk, int* col) {
-  __shared__ W sk[kMaxFed][kCommitSlice];
-  __shared__ W sv[kMaxFed][kCommitSlice];
-  __shared__ size_t dst[kMaxFed];  // element offset of (layer, block, row 0, column)
-  const int d0 = blockIdx.x * kCommitSlice, b = blockIdx.y, layer = blockIdx.z;
-  const int tid = threadIdx.x;
-  if (tid < t_fed) {
-    const int pos = qstart[b] + tid;
-    const int slot = min(max(pos / bs, 0), max_nb - 1);
-    blk[tid] = tid < commit_len[b] ? tables[(size_t)b * max_nb + slot] : 0;
-    col[tid] = pos % bs;
-    dst[tid] = ((size_t)layer * np + (size_t)blk[tid]) * kvd * bs + col[tid];
-  }
-  const int d = d0 + tid;
-  if (d < kvd) {
-    for (int t = 0; t < t_fed; ++t) {
-      const size_t src = (((size_t)layer * b_rows + b) * t_fed + t) * kvd + d;
-      sk[t][tid] = new_k[src];
-      sv[t][tid] = new_v[src];
+// ---------------------------------------------------------------------------
+// rows 8 and 9: the commit
+// ---------------------------------------------------------------------------
+
+struct CommitArgs {
+  const void* new_k;
+  const void* new_v;
+  void* k_pool;
+  void* v_pool;
+  const float* new_ks;  // row 9: the fed columns' scales [L, B, T, NKV]
+  const float* new_vs;
+  float* k_scale;  // row 9: the scale pools [L, NP, NKV, bs]
+  float* v_scale;
+  const int* tables;
+  const int* qstart;
+  const int* commit_len;
+  int n_layers, np, b_rows, t_fed, kvd, nkv, bs, max_nb;
+};
+
+// Rows 8 (W the pools' element width, QUANT false) and 9 (W = uint8_t,
+// QUANT): warp item i of n_layers x b_rows x ceil(kvd / kCommitWarpRows)
+// owns pool rows d0 .. d0 + kCommitWarpRows - 1 of (layer, row b). Lane
+// (r, t) takes fed token t of rows d0 + r, d0 + r + kCommitRowStep, ...:
+// one warp store writes kCommitRowStep rows' whole windows, each pool
+// row's sectors once. A lane finds its token's block and column once; a
+// dead token's lane (t >= commit_len[b]) and a token whose table slot is
+// the null block write nothing. A grid-stride loop over the items.
+template <typename W, bool QUANT>
+__global__ void __launch_bounds__(kCommitThreads) paged_commit_kernel(const CommitArgs a) {
+  const int lane = threadIdx.x & 31, t = lane % kMaxFed, r = lane / kMaxFed;
+  const int groups = (a.kvd + kCommitWarpRows - 1) / kCommitWarpRows;
+  const int items = a.n_layers * a.b_rows * groups;
+  const int wpb = blockDim.x / 32;
+  for (int i = blockIdx.x * wpb + threadIdx.x / 32; i < items; i += gridDim.x * wpb) {
+    const int d0 = i % groups * kCommitWarpRows, b = i / groups % a.b_rows;
+    const int layer = i / groups / a.b_rows;
+    if (t >= min(a.commit_len[b], a.t_fed)) continue;
+    const int pos = a.qstart[b] + t;
+    const int blk = a.tables[(size_t)b * a.max_nb + min(max(pos / a.bs, 0), a.max_nb - 1)];
+    if (blk == 0) continue;
+    const int col = pos % a.bs;
+    const size_t src = (((size_t)layer * a.b_rows + b) * a.t_fed + t) * a.kvd;
+    const size_t dst = ((size_t)layer * a.np + blk) * a.kvd * a.bs + col;
+    const W* nk = static_cast<const W*>(a.new_k);
+    const W* nv = static_cast<const W*>(a.new_v);
+    W ek[kCommitSteps], ev[kCommitSteps];
+#pragma unroll
+    for (int k = 0; k < kCommitSteps; ++k) {
+      const int d = d0 + r + k * kCommitRowStep;
+      if (d < a.kvd) {
+        ek[k] = nk[src + d];
+        ev[k] = nv[src + d];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kCommitSteps; ++k) {
+      const int d = d0 + r + k * kCommitRowStep;
+      if (d < a.kvd) {
+        static_cast<W*>(a.k_pool)[dst + (size_t)d * a.bs] = ek[k];
+        static_cast<W*>(a.v_pool)[dst + (size_t)d * a.bs] = ev[k];
+      }
+    }
+    if constexpr (QUANT) {
+      // a kv-head's first row: its lanes write the head's window of K and
+      // V scales
+      const int hd = a.kvd / a.nkv;
+#pragma unroll
+      for (int k = 0; k < kCommitSteps; ++k) {
+        const int d = d0 + r + k * kCommitRowStep;
+        if (d < a.kvd && d % hd == 0) {
+          const int g = d / hd;
+          const size_t s = (((size_t)layer * a.b_rows + b) * a.t_fed + t) * a.nkv + g;
+          const size_t o = (((size_t)layer * a.np + blk) * a.nkv + g) * a.bs + col;
+          a.k_scale[o] = a.new_ks[s];
+          a.v_scale[o] = a.new_vs[s];
+        }
+      }
     }
   }
-  __syncthreads();
-  // token index fastest: a pool row's consecutive columns go out together
-  const int n = min(kCommitSlice, kvd - d0);
-  for (int i = tid; i < n * t_fed; i += blockDim.x) {
-    const int dd = i / t_fed, t = i % t_fed;
-    const size_t o = dst[t] + (size_t)(d0 + dd) * bs;
-    k_pool[o] = sk[t][dd];
-    v_pool[o] = sv[t][dd];
-  }
 }
 
-template <typename W>
-__global__ void paged_commit_kernel(const W* __restrict__ new_k, const W* __restrict__ new_v,
-                                    W* k_pool, W* v_pool, const int* __restrict__ tables,
-                                    const int* __restrict__ qstart,
-                                    const int* __restrict__ commit_len, int np, int b_rows,
-                                    int t_fed, int kvd, int bs, int max_nb) {
-  __shared__ int blk[kMaxFed], col[kMaxFed];
-  commit_slice<W>(new_k, new_v, k_pool, v_pool, tables, qstart, commit_len, np, b_rows, t_fed,
-                  kvd, bs, max_nb, blk, col);
-}
-
-// int8 commit: the bytes as above, then the T scales [n_layers, b_rows,
-// t_fed, nkv] of the kv-heads whose rows start in this CTA's slice, token
-// index fastest (consecutive columns of one scale row)
-__global__ void paged_commit_quant_kernel(const uint8_t* __restrict__ new_k,
-                                          const uint8_t* __restrict__ new_v,
-                                          const float* __restrict__ new_ks,
-                                          const float* __restrict__ new_vs, uint8_t* k_pool,
-                                          uint8_t* v_pool, float* k_scale, float* v_scale,
-                                          const int* __restrict__ tables,
-                                          const int* __restrict__ qstart,
-                                          const int* __restrict__ commit_len, int np,
-                                          int b_rows, int t_fed, int kvd, int nkv, int bs,
-                                          int max_nb) {
-  __shared__ int blk[kMaxFed], col[kMaxFed];
-  commit_slice<uint8_t>(new_k, new_v, k_pool, v_pool, tables, qstart, commit_len, np, b_rows,
-                        t_fed, kvd, bs, max_nb, blk, col);
-  const int d0 = blockIdx.x * kCommitSlice, b = blockIdx.y, layer = blockIdx.z;
-  const int hd = kvd / nkv;
-  const int g0 = (d0 + hd - 1) / hd, g1 = min(nkv, (d0 + kCommitSlice + hd - 1) / hd);
-  for (int i = threadIdx.x; i < (g1 - g0) * t_fed; i += blockDim.x) {
-    const int g = g0 + i / t_fed, t = i % t_fed;
-    const size_t src = (((size_t)layer * b_rows + b) * t_fed + t) * nkv + g;
-    const size_t o = (((size_t)layer * np + (size_t)blk[t]) * nkv + g) * bs + col[t];
-    k_scale[o] = new_ks[src];
-    v_scale[o] = new_vs[src];
-  }
+// The commit's launch: one warp an item, the grid from the work
+template <typename W, bool QUANT>
+cudaError_t launch_commit(const CommitArgs& a, cudaStream_t s) {
+  const long long items = (long long)a.n_layers * a.b_rows *
+                          ((a.kvd + kCommitWarpRows - 1) / kCommitWarpRows);
+  if (items == 0) return cudaSuccess;
+  const int wpb = kCommitThreads / 32;
+  const int grid = (int)((items + wpb - 1) / wpb);
+  paged_commit_kernel<W, QUANT><<<grid, kCommitThreads, 0, s>>>(a);
+  return cudaSuccess;
 }
 
 template <typename K>
@@ -1122,7 +1162,8 @@ extern "C" int paged_attention_verify_fwd(const void* q, const void* kp, const v
 
 // new_k/new_v [n_layers, b, t_fed, kvd] in the pools' dtype, pools [n_layers,
 // np, kvd, bs]; tables [b, max_nb], qstart and commit_len [b] int32, with
-// 1 <= t_fed <= 8 and (qstart[b] + commit_len[b] - 1) / bs < max_nb.
+// 1 <= t_fed <= 8 and (qstart[b] + commit_len[b] - 1) / bs < max_nb. Only
+// live columns (t < commit_len[b]) are written, and never into block 0.
 extern "C" int paged_verify_commit_fwd(const void* nk, const void* nv, void* kp, void* vp,
                                        const void* tables, const void* qstart,
                                        const void* commit_len, int n_layers, int b,
@@ -1131,25 +1172,18 @@ extern "C" int paged_verify_commit_fwd(const void* nk, const void* nv, void* kp,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (t_fed < 1 || t_fed > kMaxFed || kvd < 1 || bs < 1 || max_nb < 1)
     return (int)cudaErrorInvalidValue;
-  if (b > 0 && n_layers > 0) {
-    const dim3 grid((kvd + kCommitSlice - 1) / kCommitSlice, b, n_layers);
-    const int* tb = static_cast<const int*>(tables);
-    const int* qs = static_cast<const int*>(qstart);
-    const int* cl = static_cast<const int*>(commit_len);
-    if (dtype == 0)
-      paged_commit_kernel<uint32_t><<<grid, kCommitSlice, 0, s>>>(
-          static_cast<const uint32_t*>(nk), static_cast<const uint32_t*>(nv),
-          static_cast<uint32_t*>(kp), static_cast<uint32_t*>(vp), tb, qs, cl, np, b, t_fed,
-          kvd, bs, max_nb);
-    else if (dtype == 1)
-      paged_commit_kernel<uint16_t><<<grid, kCommitSlice, 0, s>>>(
-          static_cast<const uint16_t*>(nk), static_cast<const uint16_t*>(nv),
-          static_cast<uint16_t*>(kp), static_cast<uint16_t*>(vp), tb, qs, cl, np, b, t_fed,
-          kvd, bs, max_nb);
-    else
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const CommitArgs a{nk, nv, kp, vp, nullptr, nullptr, nullptr, nullptr,
+                     static_cast<const int*>(tables), static_cast<const int*>(qstart),
+                     static_cast<const int*>(commit_len), n_layers, np, b, t_fed, kvd, 1, bs,
+                     max_nb};
+  cudaError_t e;
+  if (dtype == 0)
+    e = launch_commit<uint32_t, false>(a, s);
+  else if (dtype == 1)
+    e = launch_commit<uint16_t, false>(a, s);
+  else
+    e = cudaErrorInvalidValue;
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 // The int8 entries: pools int8 [n_layers, np, kvd, bs], scale pools f32
@@ -1208,17 +1242,13 @@ extern "C" int paged_verify_commit_quant_fwd(const void* nk, const void* nv, con
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (t_fed < 1 || t_fed > kMaxFed || kvd < 1 || nkv < 1 || kvd % nkv || bs < 1 || max_nb < 1)
     return (int)cudaErrorInvalidValue;
-  if (b > 0 && n_layers > 0) {
-    const dim3 grid((kvd + kCommitSlice - 1) / kCommitSlice, b, n_layers);
-    paged_commit_quant_kernel<<<grid, kCommitSlice, 0, s>>>(
-        static_cast<const uint8_t*>(nk), static_cast<const uint8_t*>(nv),
-        static_cast<const float*>(nks), static_cast<const float*>(nvs),
-        static_cast<uint8_t*>(kp), static_cast<uint8_t*>(vp), static_cast<float*>(ks),
-        static_cast<float*>(vs), static_cast<const int*>(tables),
-        static_cast<const int*>(qstart), static_cast<const int*>(commit_len), np, b, t_fed,
-        kvd, nkv, bs, max_nb);
-  }
-  return (int)cudaGetLastError();
+  const CommitArgs a{nk, nv, kp, vp, static_cast<const float*>(nks),
+                     static_cast<const float*>(nvs), static_cast<float*>(ks),
+                     static_cast<float*>(vs), static_cast<const int*>(tables),
+                     static_cast<const int*>(qstart), static_cast<const int*>(commit_len),
+                     n_layers, np, b, t_fed, kvd, nkv, bs, max_nb};
+  const cudaError_t e = launch_commit<uint8_t, true>(a, s);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 namespace {

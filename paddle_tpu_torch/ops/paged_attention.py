@@ -43,10 +43,20 @@ are per head (acc [B, T, NH, HD], m and l [B, T, NH]) rather than
 [B, R, KVD] and [B, R, 128]. The update and the commit write the pools IN
 PLACE (the JAX package donates them). A read-only row of length 0 gets
 the output 0 (JAX skips it and leaves it unwritten). Padding rows point
-their tables at the reserved null block 0 (position 0, qstart 0);
-rejected and padding columns of the commit land in block 0 too. A verify
-row with qstart 0 gets the defined partials acc = 0, l = 0, m = -1e30
-(JAX leaves them unwritten and masks them).
+their tables at the reserved null block 0 (position 0, qstart 0). The
+commit kernels write only the live columns (t < commit_len) and never
+block 0, where the plain versions (and JAX) route the rejected and
+padding columns into block 0: block 0's contents are unspecified, and
+every other block gets the same bits. A verify row with qstart 0 gets
+the defined partials acc = 0, l = 0, m = -1e30 (JAX leaves them
+unwritten and masks them).
+
+What bounds the kernels on the card: the attention entries (rows 2-7)
+read each row's K and V once at a few operations per byte, so bytes;
+the commit (rows 8, 9) writes a window of at most T columns into each of
+the KVD rows of a pool block, rows bs elements apart, so every pool row
+costs a scattered 32-byte sector (one or two): its floor is sectors
+written, not bytes (chip_smoke prints both bounds).
 
 The softmax is the online recurrence only, per pool block, in the log2
 domain; the TPU default's tile-0-anchored variant is not ported. The
@@ -574,8 +584,17 @@ def paged_verify_commit(new_k, new_v, k_pool, v_pool, tables, qstart,
                         commit_len):
     """Post-verification cache commit over all layers in one launch: fed
     token t's column of new_k/new_v [L, B, T, KVD] (pool dtype) lands at
-    position qstart[b] + t for every t < commit_len[b]; the others write
-    the null block 0. Writes the pools in place and returns them.
+    position qstart[b] + t for every t < commit_len[b]. Writes the pools in
+    place and returns them.
+
+    The kernel writes only those live columns and never block 0; the plain
+    version routes the rejected and padding columns into block 0, as the
+    JAX schedule does. Every other block gets the same bits either way
+    (block 0's contents are unspecified). Each pool row takes a window of
+    up to T columns bs elements from the next row's, so the kernel is
+    bound by scattered 32-byte sectors, not bytes: a warp owns 16 pool
+    rows of a (layer, row), a lane a fed token, so that one store writes
+    4 rows' whole windows, each sector once.
 
     A CUDA tensor goes through the kernel (or raises); a CPU tensor
     through :func:`paged_verify_commit_plain`.
@@ -934,6 +953,10 @@ def paged_verify_commit_quant(new_k, new_v, new_ks, new_vs, k_pool, v_pool,
     columns (new_k/new_v int8 [L, B, T, KVD], new_ks/new_vs f32
     [L, B, T, NKV] from :func:`kv_quant_columns`) into the int8 pools and
     the scale pools. Writes the four pools in place and returns them.
+
+    The kernel is row 8's body over 1-byte codes; the lanes of a
+    kv-head's first row also write the head's window of K and V scales.
+    It too writes live columns only and never block 0.
 
     A CUDA tensor goes through the kernel (or raises); a CPU tensor
     through :func:`paged_verify_commit_quant_plain`.

@@ -16,6 +16,10 @@ import torch
 from .. import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# 16-byte vectors a row that the kernel holds in registers: 8 a thread over
+# at most 512 threads (kMaxThreads in csrc/rms_norm.cu), so bf16 rows of up
+# to 32,768 elements and f32 rows of up to 16,384
+MAX_VECTORS = 4096
 
 
 def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -43,6 +47,9 @@ def _launch(x2d: torch.Tensor, weight: torch.Tensor, eps: float
             or weight.data_ptr() % 16:
         raise ValueError("fused_rms_norm: rows must be whole 16-byte "
                          "vectors on 16-byte aligned storage")
+    if h * x2d.element_size() > 16 * MAX_VECTORS:
+        raise ValueError(f"fused_rms_norm: H = {h} is over the kernel's "
+                         f"{MAX_VECTORS} 16-byte vectors a row")
     out = torch.empty_like(x2d)
     fn = _build.kernel("rms_norm", "rms_norm_fwd",
                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2

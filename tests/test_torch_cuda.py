@@ -48,6 +48,63 @@ def test_rms_norm_kernel_matches_plain(dev, dtype, shape, tol):
     torch.testing.assert_close(got, rms_norm_plain(x, w, 1e-5), **tol)
 
 
+RMS_TOL = {torch.float32: dict(rtol=1e-6, atol=1e-6),
+           torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-5)}
+
+
+def _rms_held(dev, dtype, n, h, eps, zero_row=False):
+    """Row 1 against its plain version at [n, h]: RMS_TOL, the output
+    memory poisoned with NaN first, bf16 also within 2^-12 rel frob (one
+    rounding after x * inv * w in f32, as chip_smoke's
+    RMS_SCHEDULE_FROB), the same bits from a second call, a row of zeros
+    exactly 0."""
+    g = torch.Generator(device=dev).manual_seed(n + h)
+    x = torch.randn((n, h), generator=g, device=dev).to(dtype)
+    if zero_row:
+        x[n // 2] = 0
+    w = (1 + 0.1 * torch.randn(h, generator=g, device=dev)).to(dtype)
+    outs = []
+    for _ in range(2):
+        keep = torch.full((n, h), float("nan"), device=dev, dtype=dtype)
+        del keep
+        outs.append(fused_rms_norm(x, w, eps))
+    ref = rms_norm_plain(x, w, eps)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(outs[0], ref, **RMS_TOL[dtype])
+    if dtype == torch.bfloat16:
+        fro = (outs[0].float() - ref.float()).norm() / ref.float().norm()
+        assert fro <= 2 ** -12, fro
+    assert torch.equal(outs[0], outs[1])
+    if zero_row:
+        assert bool((outs[0][n // 2] == 0).all())
+
+
+@pytest.mark.parametrize("h", [1024, 2048, 4096, 5120])
+@pytest.mark.parametrize("n", [1, 8, 256, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_kernel_grid(dev, dtype, n, h):
+    """Every row count and width the port runs: a decode step's 1 and 8
+    rows, a prefill chunk, a train step; ERNIE, TinyLlama, Llama and
+    llama_13b widths."""
+    _rms_held(dev, dtype, n, h, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_kernel_odd_eps_and_zero_row(dev, dtype):
+    _rms_held(dev, dtype, 256, 4096, 0.37)
+    _rms_held(dev, dtype, 8, 5120, 1e-6, zero_row=True)
+
+
+def test_rms_norm_kernel_refuses_rows_over_its_registers(dev):
+    x = torch.ones((2, 32768 + 8), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte vectors a row"):
+        fused_rms_norm(x, torch.ones(x.shape[1], device=dev,
+                                     dtype=torch.bfloat16))
+    y = torch.ones((2, 32768), device=dev, dtype=torch.bfloat16)
+    assert fused_rms_norm(y, torch.ones(32768, device=dev,
+                                        dtype=torch.bfloat16)).shape == y.shape
+
+
 def _paged_case(dev, nh, nkv, hd, positions, dtype, seed=0, bs=128):
     """Ragged rows over fragmented random tables."""
     rng = np.random.RandomState(seed)
@@ -729,6 +786,86 @@ def test_paged_commit_quant_kernel_matches_plain(dev, nkv, hd):
     blk = a["tables"][2, 0]
     assert torch.equal(pools[0][1, blk, :, 127], a["new_k"][1, 2, 2])
     assert torch.equal(pools[2][1, blk, :, 127], a["new_ks"][1, 2, 2])
+
+
+# Rows 8 and 9 over commit lengths all 0, all 1, all T and mixed, windows
+# across a block edge (qstart bs - 3, bs - 2), block sizes 16 to 1024, in
+# f32, bf16 and int8: bitwise the plain version on every block but 0,
+# block 0 byte for byte as it was (the kernels write live columns only,
+# never block 0), the same bits from a second call, and every live column
+# of a real block written. Row 0 is a padding row (qstart 0, a null table).
+COMMIT_LENS = {"none": [0] * 6, "one": [1] * 6, "all": [5] * 6,
+               "mixed": [0, 5, 3, 5, 1, 4]}
+
+
+def _commit_qstart(bs):
+    return [0, 3, bs - 3, bs - 2, 300, bs]
+
+
+@pytest.mark.parametrize("lens", list(COMMIT_LENS))
+@pytest.mark.parametrize("bs", [16, 128, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, "int8"])
+def test_commit_kernels_write_live_columns_only(dev, dtype, bs, lens):
+    qstart, clen_l = _commit_qstart(bs), COMMIT_LENS[lens]
+    if dtype == "int8":
+        a = _quant_case(dev, torch.float32, 4, 4, 32, qstart, T=5, seed=bs,
+                        bs=bs)
+        new = [a[k] for k in ("new_k", "new_v", "new_ks", "new_vs")]
+        orig = [a[k] for k in ("k_pool", "v_pool", "k_scale", "v_scale")]
+        qs = a["rows"]
+        kern, plain = (pa.paged_verify_commit_quant,
+                       pa.paged_verify_commit_quant_plain)
+    else:
+        a = _verify_case(dev, dtype, 4, 4, 32, qstart, 5, seed=bs, bs=bs)
+        new, orig = [a["new_k"], a["new_v"]], [a["k_pool"], a["v_pool"]]
+        qs = a["qstart"]
+        kern, plain = pa.paged_verify_commit, pa.paged_verify_commit_plain
+    clen = torch.tensor(clen_l, dtype=torch.int32, device=dev)
+    runs = []
+    before = kern.launches
+    for _ in range(2):
+        pools = [t.clone() for t in orig]
+        kern(*new, *pools, a["tables"], qs, clen)
+        runs.append(pools)
+    ref = [t.clone() for t in orig]
+    plain(*new, *ref, a["tables"], qs, clen)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    for got, r, o, again in zip(runs[0], ref, orig, runs[1]):
+        assert torch.equal(got[:, 1:], r[:, 1:])
+        assert torch.equal(got[:, 0], o[:, 0])
+        assert torch.equal(got, again)
+    written = int((runs[0][0][:, 1:] != orig[0][:, 1:]).any(dim=2).sum())
+    assert written == 2 * sum(c for c, q in zip(clen_l, qstart) if q > 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, "int8"])
+def test_commit_kernels_take_odd_widths_and_small_blocks(dev, dtype):
+    """KVD = 20 (no whole warp item of 16 rows at its end) and blocks of 4
+    tokens under T = 8 (a window across three blocks): bitwise the plain
+    version but block 0, block 0 untouched."""
+    qstart, T = [0, 3, 6, 9], 8
+    clen = torch.tensor([8, 8, 5, 1], dtype=torch.int32, device=dev)
+    if dtype == "int8":
+        a = _quant_case(dev, torch.float32, 2, 2, 10, qstart, T=T, bs=4)
+        new = [a[k] for k in ("new_k", "new_v", "new_ks", "new_vs")]
+        orig = [a[k] for k in ("k_pool", "v_pool", "k_scale", "v_scale")]
+        qs = a["rows"]
+        kern, plain = (pa.paged_verify_commit_quant,
+                       pa.paged_verify_commit_quant_plain)
+    else:
+        a = _verify_case(dev, dtype, 2, 2, 10, qstart, T, bs=4)
+        new, orig = [a["new_k"], a["new_v"]], [a["k_pool"], a["v_pool"]]
+        qs = a["qstart"]
+        kern, plain = pa.paged_verify_commit, pa.paged_verify_commit_plain
+    got = [t.clone() for t in orig]
+    ref = [t.clone() for t in orig]
+    kern(*new, *got, a["tables"], qs, clen)
+    plain(*new, *ref, a["tables"], qs, clen)
+    torch.cuda.synchronize()
+    for g, r, o in zip(got, ref, orig):
+        assert torch.equal(g[:, 1:], r[:, 1:])
+        assert torch.equal(g[:, 0], o[:, 0])
 
 
 def test_quant_kernels_reject_bad_inputs(dev):

@@ -590,6 +590,55 @@ def test_commit_quant_plain_matches_jax_bitwise():
     np.testing.assert_array_equal(got[0].numpy()[0, 7, :, 5], kq[0, 7, :, 5])
 
 
+# Row 9's plain version (the card's oracle) to JAX's int8 commit
+# (interpret mode, jitted) at the card checks' cases: commit lengths all
+# 0, all 1, all T and mixed; windows across a block edge (qstart bs - 3,
+# bs - 2); block sizes 16 to 1024; row 0 a padding row
+COMMIT_LENS = {"none": [0] * 6, "one": [1] * 6, "all": [5] * 6,
+               "mixed": [0, 5, 3, 5, 1, 4]}
+_jax_commit_quant = jax.jit(jpa.paged_verify_commit_quant)
+
+
+@pytest.mark.parametrize("lens", list(COMMIT_LENS))
+@pytest.mark.parametrize("bs", [16, 128, 1024])
+def test_commit_quant_plain_matches_jax_at_commit_lengths(bs, lens):
+    rng = np.random.RandomState(bs)
+    L, T = 2, 5
+    qstart = np.asarray([0, 3, bs - 3, bs - 2, 300, bs], np.int32)
+    need = [-(-(q + T) // bs) if q else 0 for q in qstart]
+    perm = iter(rng.permutation(np.arange(1, 1 + sum(need))))
+    tables = np.zeros((6, max(need) + 1), np.int32)
+    for i, n in enumerate(need):
+        for j in range(n):
+            tables[i, j] = next(perm)
+    n_pool = 1 + sum(need)
+    clen = np.asarray(COMMIT_LENS[lens], np.int32)
+
+    def quantized(n):
+        c, s = pa.kv_quant_columns(torch.from_numpy(
+            rng.randn(n, KVD).astype(np.float32)), NKV)
+        return c.numpy(), s.numpy()
+    pools = []
+    for _ in range(2):
+        c, s = quantized(L * n_pool * bs)
+        pools += [c.reshape(L, n_pool, bs, KVD).transpose(0, 1, 3, 2).copy(),
+                  s.reshape(L, n_pool, bs, NKV).transpose(0, 1, 3, 2).copy()]
+    kq, ks, vq, vs = pools
+    (nk, nks), (nv, nvs) = quantized(L * 6 * T), quantized(L * 6 * T)
+    new = (nk.reshape(L, 6, T, KVD), nv.reshape(L, 6, T, KVD),
+           nks.reshape(L, 6, T, NKV), nvs.reshape(L, 6, T, NKV))
+    want = _jax_commit_quant(
+        *(jnp.asarray(a) for a in new + (kq, vq, ks, vs)),
+        jnp.asarray(tables), jnp.asarray(qstart), jnp.asarray(clen))
+    got = pa.paged_verify_commit_quant_plain(
+        *(_t(a) for a in new + (kq, vq, ks, vs)), _t(tables), _t(qstart),
+        _t(clen))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy()[:, 1:], np.asarray(w)[:, 1:])
+    written = int((got[0].numpy()[:, 1:] != kq[:, 1:]).any(axis=2).sum())
+    assert written == L * sum(c for c, q in zip(clen, qstart) if q > 0)
+
+
 def test_quant_entries_refuse_bad_inputs():
     q, tables, pools, new = _decode_case(1, seed=3)
     pos = _t(np.asarray(POSITIONS, np.int32))

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu.ops import _common
@@ -42,6 +43,46 @@ def test_rms_norm_matches_jax(shape):
     ref = np.asarray(jax_rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-5))
     got = fused_rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-5)
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6)
+
+
+# The plain version (the card's oracle) to JAX's fused_rms_norm
+# (interpret mode, jitted) at the card checks' grid: a decode step's 1 and
+# 8 rows, a prefill chunk, a train step; ERNIE, TinyLlama, Llama and
+# llama_13b widths; f32 within rtol 1e-6 (the means sum in another order),
+# bf16 within one bf16 step (rtol 2^-7, as chip_smoke's RMS_TOL)
+_jax_rms = jax.jit(jax_rms_norm, static_argnums=2)
+RMS_CPU_TOL = {torch.float32: dict(rtol=1e-6, atol=1e-6),
+               torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-5)}
+
+
+def _rms_against_jax(n, h, dtype, eps, zero_row=False):
+    rng = np.random.default_rng(n + h)
+    x = rng.standard_normal((n, h), dtype=np.float32)
+    if zero_row:
+        x[n // 2] = 0
+    w = 1 + 0.1 * rng.standard_normal(h, dtype=np.float32)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    ref = np.asarray(_jax_rms(jnp.asarray(x, jdt), jnp.asarray(w, jdt),
+                              eps).astype(jnp.float32))
+    got = rms_norm_plain(torch.from_numpy(x).to(dtype),
+                         torch.from_numpy(w).to(dtype), eps)
+    torch.testing.assert_close(got.float(), torch.from_numpy(ref.copy()),
+                               **RMS_CPU_TOL[dtype])
+    if zero_row:
+        assert bool((got[n // 2] == 0).all())
+
+
+@pytest.mark.parametrize("h", [1024, 2048, 4096, 5120])
+@pytest.mark.parametrize("n", [1, 8, 256, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_plain_matches_jax_on_the_card_grid(dtype, n, h):
+    _rms_against_jax(n, h, dtype, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_plain_matches_jax_odd_eps_and_zero_row(dtype):
+    _rms_against_jax(256, 4096, dtype, 0.37)
+    _rms_against_jax(8, 5120, dtype, 1e-6, zero_row=True)
 
 
 def test_rms_norm_cpu_tensor_takes_plain_path_uncounted():

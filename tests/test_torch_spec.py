@@ -347,6 +347,59 @@ def test_commit_plain_matches_jax_bitwise(dtype):
     np.testing.assert_array_equal(_np(kp)[0, 7, :, 5], _np(t(k_pool))[0, 7, :, 5])
 
 
+# Row 8's plain version (the card's oracle) to JAX's commit (interpret
+# mode, jitted) at the card checks' cases: commit lengths all 0, all 1
+# (the serve-spec step's), all T and mixed; windows across a block edge
+# (qstart bs - 3, bs - 2); block sizes 16 to 1024; row 0 a padding row
+COMMIT_LENS = {"none": [0] * 6, "one": [1] * 6, "all": [5] * 6,
+               "mixed": [0, 5, 3, 5, 1, 4]}
+_jax_commit = jax.jit(jpa.paged_verify_commit)
+
+
+def commit_layout(rng, bs, T=5):
+    """The cases' qstart and fragmented tables that hold each row's cached
+    and fed positions (qstart 0: a padding row on the null table);
+    returns (qstart, tables, pool size)."""
+    qstart = [0, 3, bs - 3, bs - 2, 300, bs]
+    need = [-(-(q + T) // bs) if q else 0 for q in qstart]
+    perm = iter(rng.permutation(np.arange(1, 1 + sum(need))))
+    tables = np.zeros((len(qstart), max(need) + 1), np.int32)
+    for i, n in enumerate(need):
+        for j in range(n):
+            tables[i, j] = next(perm)
+    return np.asarray(qstart, np.int32), tables, 1 + sum(need)
+
+
+@pytest.mark.parametrize("lens", list(COMMIT_LENS))
+@pytest.mark.parametrize("bs", [16, 128, 1024])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_commit_plain_matches_jax_at_commit_lengths(dtype, bs, lens):
+    rng = np.random.RandomState(bs)
+    L, T, kvd = 2, 5, 32
+    qstart, tables, n_pool = commit_layout(rng, bs)
+    clen = np.asarray(COMMIT_LENS[lens], np.int32)
+    new_k, new_v = rng.randn(L, 6, T, kvd), rng.randn(L, 6, T, kvd)
+    k_pool, v_pool = rng.randn(L, n_pool, kvd, bs), rng.randn(L, n_pool,
+                                                             kvd, bs)
+    jk, jv = _jax_commit(
+        _jnp(new_k, dtype), _jnp(new_v, dtype), _jnp(k_pool, dtype),
+        _jnp(v_pool, dtype), jnp.asarray(tables), jnp.asarray(qstart),
+        jnp.asarray(clen))
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(tdt)
+    kp, vp = pa.paged_verify_commit_plain(
+        t(new_k), t(new_v), t(k_pool), t(v_pool), torch.from_numpy(tables),
+        torch.from_numpy(qstart), torch.from_numpy(clen))
+    np.testing.assert_array_equal(_np(kp)[:, 1:],
+                                  np.asarray(jk, np.float32)[:, 1:])
+    np.testing.assert_array_equal(_np(vp)[:, 1:],
+                                  np.asarray(jv, np.float32)[:, 1:])
+    # every live column of a real block landed
+    kp0 = _np(t(k_pool))
+    written = int((_np(kp)[:, 1:] != kp0[:, 1:]).any(axis=2).sum())
+    assert written == L * sum(c for c, q in zip(clen, qstart) if q > 0)
+
+
 # -- the model: draft and verify step -----------------------------------------
 
 TINY = dict(vocab=96, hidden=64, layers=2, heads=4, kv_heads=2, seq=512)

@@ -5,6 +5,8 @@
     python3 tools/ab_times.py --paged BEFORE AFTER     # rows 2-7, 10
     python3 tools/ab_times.py --split BEFORE AFTER     # rows 16-18
     python3 tools/ab_times.py --serve-int8 BEFORE AFTER  # the int8 steps
+    python3 tools/ab_times.py --rms BEFORE AFTER       # row 1, decode step
+    python3 tools/ab_times.py --commit BEFORE AFTER    # rows 8, 9, verify
 
 BEFORE and AFTER are directories that each hold a ``paddle_tpu_torch/``
 package, for example a ``git archive`` of the parent commit unpacked
@@ -57,10 +59,24 @@ bf16): rows 17 (dK/dV) and 18 (dQ), and row 16 (the fused backward) as a
 control; digests of row 17's and row 16's dK and dV and of row 18's dQ,
 and the verdict whether rows 16 and 17 keep their bits.
 
+With --rms, row 1 at [8, 4096], [256, 4096] and [8192, 4096] bf16 beside
+the launch floor (an empty kernel, ``torch.cuda._sleep(0)``, timed the
+same way), and chip_smoke's ``profile_steps`` on a bf16 llama_7b engine
+(seeded random weights): the decode step's and the prefill chunk's
+rms_norm class (65 launches a decode step), device ms and wall ms.
+
+With --commit, rows 8 (bf16 pools) and 9 (int8) at chip_smoke's commit
+timing inputs (L = 32, B = 8, T = 5, KVD = 4096) with every column
+accepted and with one (the serve-spec step's commit lengths), device ms
+and the profiler's kernel time, a digest of every block but the null
+block 0 after one commit (the verdict whether both trees write the same
+bits there), and chip_smoke's ``profile_verify`` on bf16 and int8
+llama_7b engines: the verify step's commit class, device ms and wall ms.
+
 Needs one CUDA device and nvcc; prints one JSON line per run, the card's
 name and power limit first, and writes chiprun_out/ab_times.json (or
 ab_times_varlen.json, ab_times_paged.json, ab_times_split.json,
-ab_times_serve_int8.json).
+ab_times_serve_int8.json, ab_times_rms.json, ab_times_commit.json).
 """
 from __future__ import annotations
 
@@ -274,6 +290,90 @@ def run_one_serve_int8(tree):
     print(json.dumps({"tree": tree, "steps": out}))
 
 
+def run_one_rms(tree):
+    """In a tree's process: row 1's times beside the launch floor and the
+    bf16 decode step's classes."""
+    import torch
+    cs = _chip_smoke(tree)
+    from paddle_tpu_torch import (InferenceEngine, ServeConfig,
+                                  init_llama_params, llama_7b)
+    from paddle_tpu_torch import _build
+    from paddle_tpu_torch.ops import rms_norm as rn
+    assert rn.__file__.startswith(tree), rn.__file__
+    _build.build_all(["rms_norm", "paged_attention"])
+    dev = torch.device("cuda", 0)
+    out = {"launch floor": {"ms": cs._time_ms(lambda: torch.cuda._sleep(0),
+                                              200)[0]}}
+    for n in (8, 256, cs.TRAIN_B * cs.TRAIN_S):
+        x = torch.randn((n, 4096), device=dev, dtype=torch.bfloat16)
+        w = torch.ones((4096,), device=dev, dtype=torch.bfloat16)
+        out[f"rms_norm [{n},4096]"] = {
+            "ms": cs._time_ms(lambda: rn.fused_rms_norm(x, w, 1e-5), 200)[0],
+            "profiler_ms": cs._profiled_ms(
+                lambda: rn.fused_rms_norm(x, w, 1e-5), "rms_norm")}
+        del x, w
+    cfg = llama_7b()
+    params = init_llama_params(cfg, seed=cs.SEED, device=dev)
+    eng = InferenceEngine(params, cfg, ServeConfig(
+        block_size=128, num_blocks=129, max_batch=8, prefill_chunk=256,
+        max_seq_len=2048), device=dev)
+    steps = {k: {"rms_norm_ms": r["by_class_ms"].get("rms_norm"),
+                 "device_ms": r["device_ms"], "wall_ms": r["wall_ms"],
+                 "by_class_ms": r["by_class_ms"]}
+             for k, r in cs.profile_steps(eng, cfg, dev).items()}
+    print(json.dumps({"tree": tree, "ms": out, "steps": steps}))
+
+
+def run_one_commit(tree):
+    """In a tree's process: rows 8 and 9 at both commit lengths, digests
+    of their live blocks, and the verify step's classes in bf16 and
+    int8."""
+    import torch
+    cs = _chip_smoke(tree)
+    from paddle_tpu_torch import (InferenceEngine, ServeConfig,
+                                  init_llama_params, llama_7b)
+    from paddle_tpu_torch import _build
+    from paddle_tpu_torch.ops import paged_attention as pa
+    assert pa.__file__.startswith(tree), pa.__file__
+    _build.build_all(["rms_norm", "paged_attention"])
+    dev = torch.device("cuda", 0)
+    out, digests = {}, {}
+    for quant in (False, True):
+        kern, _, a, new, pools, qs = cs.commit_timing_inputs(dev, quant)
+        row = "row 9" if quant else "row 8"
+        for n_live in (cs.SPEC_K + 1, 1):
+            clen = torch.full((qs.shape[0],), n_live, dtype=torch.int32,
+                              device=dev)
+            key = f"{kern.__name__} ({row}), commit_len={n_live}"
+            fresh = [p.clone() for p in pools]
+            kern(*new, *fresh, a["tables"], qs, clen)
+            digests[key] = _digest(*(p[:, 1:] for p in fresh))
+            del fresh
+            args = (*new, *pools, a["tables"], qs, clen)
+            out[key] = {"ms": cs._time_ms(lambda: kern(*args), 200)[0],
+                        "profiler_ms": cs._profiled_ms(lambda: kern(*args),
+                                                       "paged_commit")}
+        del a, new, pools
+        torch.cuda.empty_cache()
+    cfg = llama_7b()
+    params = init_llama_params(cfg, seed=cs.SEED, device=dev)
+    steps = {}
+    for kv in ("auto", "int8"):
+        eng = InferenceEngine(params, cfg, ServeConfig(
+            block_size=128, num_blocks=129, max_batch=8, prefill_chunk=256,
+            max_seq_len=2048, kv_dtype=kv), device=dev)
+        r = cs.profile_verify(eng, cfg, dev)
+        steps[f"verify_step kv_dtype={kv}"] = {
+            "commit_ms": sum(v for k, v in r["by_class_ms"].items()
+                             if k.startswith("paged_verify_commit")),
+            "device_ms": r["device_ms"], "wall_ms": r["wall_ms"],
+            "by_class_ms": r["by_class_ms"]}
+        del eng
+        torch.cuda.empty_cache()
+    print(json.dumps({"tree": tree, "ms": out, "digests": digests,
+                      "steps": steps}))
+
+
 def run_one_split(tree):
     """In a tree's process: rows 16-18, times and digests."""
     import torch
@@ -309,12 +409,13 @@ def run_one_split(tree):
 # the outputs that both trees must give with the same bits
 KEPT = {"--one-paged": ("row 2", "row 3", "row 6", "row 7", "row 10"),
         "--one-split": ("row 16", "row 17"),
+        "--one-commit": ("row 8", "row 9"),
         "--one-varlen": ("varlen_fwd", "varlen_bwd_dkv", "varlen_bwd_dq",
                          "varlen_bwd dk")}
 
 
 MODES = {"--varlen": "varlen", "--paged": "paged", "--split": "split",
-         "--serve-int8": "serve_int8"}
+         "--serve-int8": "serve_int8", "--rms": "rms", "--commit": "commit"}
 
 
 def main():
@@ -351,7 +452,8 @@ def main():
 if __name__ == "__main__":
     ONES = {"--one": run_one, "--one-varlen": run_one_varlen,
             "--one-paged": run_one_paged, "--one-split": run_one_split,
-            "--one-serve_int8": run_one_serve_int8}
+            "--one-serve_int8": run_one_serve_int8,
+            "--one-rms": run_one_rms, "--one-commit": run_one_commit}
     if sys.argv[1:2] and sys.argv[1] in ONES:
         ONES[sys.argv[1]](sys.argv[2])
     else:

@@ -1,4 +1,5 @@
-"""Shows that chip_smoke.py's paged checks fail a wrong split walk.
+"""Shows that chip_smoke.py's paged checks fail a wrong split walk or
+commit.
 
     python3 tools/paged_mutants.py [NAME ...]
 
@@ -6,8 +7,10 @@ Copies paddle_tpu_torch/ into a temporary directory once per mutant, writes
 one deliberate fault into the copy's csrc/paged_attention.cu (or
 csrc/split_common.cuh), in the split walk of rows 3 and 2
 (paged_split_kernel), of rows 5 and 4 (the same kernel over int8 pools,
-the ``quant_*`` mutants) or of the verify read of rows 6 and 7
-(paged_verify_split_kernel), and runs chip_smoke's paged checks on the
+the ``quant_*`` mutants), of the verify read of rows 6 and 7
+(paged_verify_split_kernel) or of the commit of rows 8 and 9
+(paged_commit_kernel, the ``commit_*`` mutants), and runs chip_smoke's
+paged checks on the
 copy's kernels in a process of its own (all copies build at once, then run
 one at a time): ``check_paged_update`` (row 3 at the kernel's split within
 PAGED_ATOL, at rows of 2-4 blocks within PAGED_SCHEDULE_FROB, the same
@@ -18,8 +21,11 @@ under ``verify_held``: the flash rule, lse, the padding row exact over
 NaN-poisoned outputs, the same bits over three calls, the schedule's frob
 at rows of 2-4 blocks; rows 5 and 4 at the kernel's split likewise, row
 5's pools bitwise with the new bytes and scales landed, row 4's length-0
-row exactly 0 over a NaN-poisoned output; rows 8 and 9 too). The unchanged copy must
-pass and every faulty one must fail. NAMEs pick mutants (the unchanged copy
+row exactly 0 over a NaN-poisoned output) and ``check_commit`` (rows 8
+and 9 bitwise the plain versions but block 0, block 0 untouched, the same
+bits twice, every live column written, over commit lengths 0, 1, T and
+mixed and block sizes 16 to 1024; a ``commit_*`` mutant's copy runs this
+check only). The unchanged copy must pass and every faulty one must fail. NAMEs pick mutants (the unchanged copy
 always runs). Needs one CUDA device and nvcc; prints each copy's verdict
 and the checks' messages, writes chiprun_out/paged_mutants.json and exits
 non-zero unless every verdict is as expected.
@@ -129,6 +135,7 @@ _SCALE_SRC = ("        bulk_load(ks_s + (size_t)jj * bs, a.k_scale + scale_off(t
 _DEAD_VERIFY = "        if (o < 0 || tid >= hd) continue;\n"
 _DEAD_DECODE = "      for (int i = tid; i < R * hd; i += nt) a.out[q_off + i] = 0.f;\n"
 _COMBINE_STORE = "      out.acc[(size_t)o * hd + tid] = as[r];\n"
+_COMMIT_LIVE = "    if (t >= min(a.commit_len[b], a.t_fed)) continue;\n"
 
 # name -> [(text, replacement)] in csrc/paged_attention.cu, or [(file,
 # text, replacement)] elsewhere in csrc/; each text occurs once
@@ -234,11 +241,35 @@ MUTANTS = {
     "quant_length_0_row_unwritten": [
         (_DEAD_DECODE, _DEAD_DECODE.replace("i < R * hd;", "i < R * hd && !QUANT;")),
     ],
+    # the commit (rows 8, 9): a dead column (the one past commit_len)
+    # written into the row's live block
+    "commit_dead_column_written": [
+        (_COMMIT_LIVE, _COMMIT_LIVE.replace("a.commit_len[b],", "a.commit_len[b] + 1,")),
+    ],
+    # the window's split at a block edge one column late: a block's first
+    # column lands in the block before it
+    "commit_block_edge_split_off_by_one": [
+        ("min(max(pos / a.bs, 0), a.max_nb - 1)", "min(max((pos - 1) / a.bs, 0), a.max_nb - 1)"),
+    ],
+    # row 9: a kv-head's scales taken from the neighbouring kv-head
+    "commit_scale_from_the_neighbouring_head": [
+        ("* a.t_fed + t) * a.nkv + g;", "* a.t_fed + t) * a.nkv + (g + 1) % a.nkv;"),
+    ],
+    # each row's last live token not written
+    "commit_last_live_token_dropped": [
+        (_COMMIT_LIVE, _COMMIT_LIVE.replace("a.t_fed)) continue;", "a.t_fed) - 1) continue;")),
+    ],
+    # block 0 written: a live column whose table slot is the null block
+    # (a padding row's) lands there
+    "commit_block_0_written": [
+        ("    if (blk == 0) continue;\n", ""),
+    ],
 }
 
 
-def run_one():
-    """In a copy's process: chip_smoke's paged checks, as one JSON line."""
+def run_one(name):
+    """In a copy's process: chip_smoke's paged checks (a commit mutant's
+    copy: the commit's only), as one JSON line."""
     import traceback
 
     import torch
@@ -250,15 +281,19 @@ def run_one():
     _build.build_all(["paged_attention"])
     dev = torch.device("cuda", 0)
     out = {}
-    for name, fn in (("check_paged_update", chip_smoke.check_paged_update),
-                     ("check_paged_read", chip_smoke.check_paged_read),
-                     ("check_verify", chip_smoke.check_verify),
-                     ("check_quant", chip_smoke.check_quant)):
+    checks = (("check_paged_update", chip_smoke.check_paged_update),
+              ("check_paged_read", chip_smoke.check_paged_read),
+              ("check_verify", chip_smoke.check_verify),
+              ("check_quant", chip_smoke.check_quant),
+              ("check_commit", chip_smoke.check_commit))
+    if name.startswith("commit_"):
+        checks = checks[-1:]
+    for cname, fn in checks:
         try:
             fn(dev, {})
-            out[name] = "passes"
+            out[cname] = "passes"
         except AssertionError:
-            out[name] = "fails: " + traceback.format_exc(limit=1)[-600:]
+            out[cname] = "fails: " + traceback.format_exc(limit=1)[-600:]
     print(json.dumps(out))
 
 
@@ -269,9 +304,10 @@ def build_one():
     print(json.dumps({"built": True}))
 
 
-def _run(mode, copy):
+def _run(mode, copy, name=""):
     env = dict(os.environ, PYTHONPATH=copy)
-    return subprocess.Popen([sys.executable, os.path.abspath(__file__), mode],
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), mode,
+                             name],
                             cwd=copy, env=env, text=True,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
 
@@ -309,7 +345,7 @@ def main(names):
         for name, p in procs:
             _last_json(name, p, 900)
         for name in chosen:
-            p = _run("--one", copies[name])
+            p = _run("--one", copies[name], name)
             procs.append((name, p))
             res = _last_json(name, p, 900)
             record[name] = res
@@ -334,7 +370,7 @@ def main(names):
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--one"]:
-        run_one()
+        run_one(sys.argv[2])
     elif sys.argv[1:2] == ["--build"]:
         build_one()
     else:
