@@ -78,6 +78,21 @@ Phases, in order; any failure exits non-zero before the last line:
                (row 5 in every decode layer): the same numbers, the KV
                pools' bytes against bf16's, how many streams equal the
                serve phase's, and the same profile;
+  4c. serve-ops - on the serve phase's weights, each a run of
+               InferenceEngine with the kernel counts read from it alone:
+               dead columns (NaN-filled pools, int8: NaN scale pools,
+               against zero pools: streams bitwise), quarantine (a NaN
+               embedding row: the poisoned request fails, 7 others finish
+               on its reused blocks), bench.py's prefix-cache trace (off
+               and on, wall and deterministic: hits, TTFT, tokens/s, no
+               decode write into a shared block), bench.py's overload
+               burst (deterministic twice, identical; a wall run at twice
+               the drain rate: goodput, shed rate), crash and recover
+               (killed at the 3rd decode, recovered from the journal), a
+               live weight swap (streams bitwise) and telemetry (the
+               metrics snapshot's keys, a trace per request, the
+               Prometheus head); before them the kernel checks hold rows
+               2-7 over NaN dead columns to their zero-dead outputs;
   4b. serve-spec - InferenceEngine with speculation on llama_7b (bf16,
                32 layers, seeded random weights, o_proj and down_proj
                scaled by 0.05, default 1-layer draft, draft_k 4): first
@@ -92,6 +107,9 @@ Phases, in order; any failure exits non-zero before the last line:
                tokens/s, TTFT, TPOT, verify and draft step ms, peak
                memory, stream identity, launches per run, and a
                torch.profiler split of one verify step in each KV dtype;
+               last, serve-spec + cache: the trace with speculation and
+               the prefix cache on (hits, no commit into a shared block,
+               tokens/s and accept rate against the cache-off run);
   5. train   - build_train_step on llama_7b's width cut to 16 layers
                (bf16, B=4, S=2048, full remat, AdamW with f32 moments,
                seeded random weights and ids): one warm-up and three timed
@@ -168,6 +186,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import json
 import math
 import os
@@ -763,6 +782,102 @@ def check_quant(dev, errs):
             errs.get("paged_attention_verify_quant", 0.0), err)
         del a
 
+
+
+# Dead columns never enter a product in rows 2-7: each kernel runs twice on
+# the same inputs, once with every dead column (past its row's last token
+# in the row's last block, and all of null block 0) zero and once NaN (the
+# int8 pools: their scale pools NaN, the codes random); the outputs must be
+# finite where a row is live and bitwise equal. A tail that multiplied an
+# exact 0 weight by a stale NaN would make the second NaN.
+DEAD_POSITIONS = [0, 1, 126, 128, 300, 777, 1023, 1500]   # ragged tails
+DEAD_QSTART = [1, 127, 128, 129, 300, 0, 1500, 1000]      # a padding row
+
+
+def _fill_dead(pools, tables, last, value):
+    """Set every column of ``pools`` past last[b] in row b's last block,
+    and all of block 0, to ``value`` (in place); last[b] < 0: nothing of
+    row b is live."""
+    bs = pools[0].shape[-1]
+    for b, lst in enumerate(last.tolist()):
+        if lst >= 0:
+            blk = int(tables[b, lst // bs])
+            for t in pools:
+                t[:, blk, :, lst % bs + 1:] = value
+    for t in pools:
+        t[:, 0] = value
+
+
+def check_dead_columns(dev):
+    from paddle_tpu_torch.ops import paged_attention as pa
+    phase("check that dead KV columns never reach rows 2-7 (NaN against "
+          "zero in every dead column)")
+    nan = float("nan")
+    out = {}
+    verify_live = [i for i, q in enumerate(DEAD_QSTART) if q]
+
+    def twice(name, make, run, pools_of, last_of, live_rows):
+        res = []
+        for value in (0.0, nan):
+            a = make()
+            _fill_dead(pools_of(a), a["tables"], last_of(a), value)
+            got = run(a)
+            torch.cuda.synchronize()
+            res.append(got if isinstance(got, tuple) else (got,))
+        fin = all(bool(torch.isfinite(t[live_rows]).all()) for t in res[1])
+        same = all(torch.equal(x, y) for x, y in zip(*res))
+        print(f"{name}: live rows finite over NaN dead columns {fin}, "
+              f"bitwise equal to the zero-dead run {same}")
+        assert fin and same, f"{name}: a dead column reached the output"
+        out[name] = same
+
+    def paged(seed):
+        return lambda: _paged_inputs(32, 32, DEAD_POSITIONS, seed, dev)
+    twice("paged_attend_update (row 3)", paged(SEED + 140),
+          lambda a: pa.paged_attend_update(
+              a["q"], a["new_k"], a["new_v"], a["k_pool"], a["v_pool"],
+              a["tables"], a["positions"], a["layer"]),
+          lambda a: (a["k_pool"], a["v_pool"]),
+          lambda a: a["positions"], slice(None))
+    twice("paged_attention (row 2)", paged(SEED + 141),
+          lambda a: pa.paged_attention(
+              a["q"], a["k_pool"], a["v_pool"], a["tables"],
+              a["positions"] + 1, a["layer"]),
+          lambda a: (a["k_pool"], a["v_pool"]),
+          lambda a: a["positions"], slice(None))
+    twice("paged_attention_verify (row 6)",
+          lambda: _verify_inputs(32, 32, DEAD_QSTART, SPEC_K + 1,
+                                 SEED + 142, dev),
+          lambda a: pa.paged_attention_verify(
+              a["q"], a["k_pool"], a["v_pool"], a["tables"], a["qstart"],
+              a["layer"]),
+          lambda a: (a["k_pool"], a["v_pool"]),
+          lambda a: a["qstart"] - 1, verify_live)
+
+    def quant(seed, T=None):
+        counts = DEAD_POSITIONS if T is None else DEAD_QSTART
+        return lambda: _quant_inputs(32, 32, counts, seed, dev,
+                                     torch.bfloat16, T=T)
+    scales = lambda a: (a["k_scale"], a["v_scale"])
+    new = lambda a: [a[k][-1, :, 0].contiguous()
+                     for k in ("new_k", "new_v", "new_ks", "new_vs")]
+    twice("paged_attend_update_quant (row 5)", quant(SEED + 143),
+          lambda a: pa.paged_attend_update_quant(
+              a["q"], *new(a), a["k_pool"], a["v_pool"], a["k_scale"],
+              a["v_scale"], a["tables"], a["rows"], a["layer"]),
+          scales, lambda a: a["rows"], slice(None))
+    twice("paged_attention_quant (row 4)", quant(SEED + 144),
+          lambda a: pa.paged_attention_quant(
+              a["q"], a["k_pool"], a["v_pool"], a["k_scale"], a["v_scale"],
+              a["tables"], a["rows"] + 1, a["layer"]),
+          scales, lambda a: a["rows"], slice(None))
+    twice("paged_attention_verify_quant (row 7)",
+          quant(SEED + 145, T=SPEC_K + 1),
+          lambda a: pa.paged_attention_verify_quant(
+              a["q"], a["k_pool"], a["v_pool"], a["k_scale"], a["v_scale"],
+              a["tables"], a["rows"], a["layer"]),
+          scales, lambda a: a["rows"] - 1, verify_live)
+    return out
 
 
 # Rows 8 and 9 (the commit) against their plain versions: bitwise on every
@@ -2178,9 +2293,551 @@ def serve_7b(dev):
     print(f"int8 streams equal to the bf16 serve phase's: {len(same)} of "
           f"{len(streams)}; first divergent index of the others {diverge} "
           f"(reported, not asserted: int8 KV is not bitwise bf16 KV)")
+    stats["ops"] = serve_ops(params, cfg, dev)
     del params
-    torch.cuda.empty_cache()
+    _release_card()
+    print(f"card memory allocated after serve: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
     return stats
+
+
+# ---------------------------------------------------------------------------
+# serve-ops: the rest of the serving engine on llama_7b (inside serve_7b,
+# on its weights)
+# ---------------------------------------------------------------------------
+
+# bench.py's prefix-cache trace (bench_serve_prefix_cache, TPU branch)
+PC_REQUESTS, PC_RATE, PC_NEW, PC_SYSTEM, PC_TAIL = 24, 12.0, 32, 1024, (16, 96)
+PC_SERVE = dict(block_size=128, num_blocks=257, max_batch=8,
+                prefill_chunk=256, max_seq_len=2048)
+# bench.py's overload trace (bench_serve_overload, TPU branch): deadlines
+# on the iteration clock
+OV_REQUESTS, OV_NEW, OV_TTFT, OV_TOTAL = 24, 32, 30.0, 120.0
+OV_SERVE = dict(block_size=128, num_blocks=33, max_batch=4,
+                prefill_chunk=256, max_seq_len=1024, max_queue=16,
+                overcommit=8.0)
+# the JAX engine's metrics_snapshot() keys, in order, for a config without
+# the prefix cache and speculation (tests/test_torch_metrics_registry.py
+# holds this list to the JAX engine)
+OPS_SNAPSHOT_KEYS = [
+    "ttft_seconds", "tpot_seconds", "queue_wait_seconds", "queue_depth",
+    "running", "prefilling", "batch_capacity", "pool_utilization",
+    "iterations", "preemptions", "finished_requests", "rejected_requests",
+    "shed_requests", "failed_requests", "decode_redrives",
+    "generated_tokens"]
+POISON_TOKEN = 31000
+
+
+def _release_card():
+    """Free the card memory of deleted engines: the write guards and the
+    wrappers close over their engine (a reference cycle), so collect
+    before the caching allocator returns the memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _divergence(a, b):
+    """(rids whose streams are equal, {rid: first divergent index}) over
+    the rids both hold."""
+    common = [r for r in a if r in b]
+    same = [r for r in common if a[r] == b[r]]
+    first = {r: next((j for j, (x, y) in enumerate(zip(a[r], b[r]))
+                      if x != y), min(len(a[r]), len(b[r])))
+             for r in common if r not in same}
+    return same, first
+
+
+def _guard_writes(eng):
+    """Hold every position a decode step or a verify commit is about to
+    write to a block of reference count 1 (no write into a block another
+    sequence shares); returns the list whose length counts the held
+    writes."""
+    held, grow = [], eng._grow_rows
+    bs = eng.pool.block_size
+
+    def guarded(window):
+        rows, caps = grow(window)
+        for s in rows:
+            for pos in range(s.n_cached, s.n_cached + caps[s.req.request_id]):
+                b = s.blocks[pos // bs]
+                assert eng.pool.ref_count(b) == 1, \
+                    f"request {s.req.request_id} writes shared block {b}"
+                held.append(b)
+        return rows, caps
+    eng._grow_rows = guarded
+    return held
+
+
+def _ops_run(name, eng, reqs, cfg, deterministic=True, expect_fail=None):
+    """One run of ``eng`` with the kernel counts set to 0 just before it
+    and read just after: the decode kernel of its KV dtype (rows 3 or 5)
+    and RMSNorm (row 1) launched, nothing else. Returns (stats or the
+    exception, launches, wall seconds)."""
+    decode = ("paged_attend_update_quant" if eng.kv_dtype == "int8"
+              else "paged_attend_update")
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        stats = eng.run(reqs, deterministic=deterministic)
+    except Exception as e:  # noqa: BLE001 -- the crash run's fault
+        if expect_fail is None or not isinstance(e, expect_fail):
+            raise
+        stats = e
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    ran = {k: n for k, n in launches.items() if n}
+    assert ran.get(decode, 0) > 0 and ran.get("rms_norm", 0) > 0 and \
+        set(ran) <= {decode, "rms_norm"}, (name, ran)
+    print(f"  {name}: run {wall:.2f} s, launches {ran}")
+    return stats, ran, wall
+
+
+def _ops_trace(prompts, new, arrivals, **kw):
+    from paddle_tpu_torch import Request
+    return [Request(list(p), max_new_tokens=new, arrival=float(a),
+                    request_id=i, **kw)
+            for i, (p, a) in enumerate(zip(prompts, arrivals))]
+
+
+def _serve_prompts(cfg, n):
+    """The serve phase's first n prompts (_serve_run's trace)."""
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(128, 1025, size=16)
+    rng.exponential(0.25, size=16)
+    return [rng.randint(1, cfg.vocab_size, size=int(m)).tolist()
+            for m in lens][:n]
+
+
+def serve_ops(params, cfg, dev):
+    """The serve-ops phase: dead columns, quarantine, the prefix cache,
+    overload, crash and recovery, a live weight swap and telemetry, each
+    a run (or runs) of InferenceEngine on llama_7b's weights."""
+    phase("serve-ops: dead columns, quarantine, prefix cache, overload, "
+          "crash and recover, swap, telemetry (llama_7b, bf16, 32 layers)")
+    t_phase = time.perf_counter()
+    out = {"dead_columns": ops_dead_columns(params, cfg, dev),
+           "quarantine": ops_quarantine(params, cfg, dev),
+           "prefix_cache": ops_prefix_cache(params, cfg, dev)}
+    out["overload"] = ops_overload(params, cfg, dev)
+    out["crash"] = ops_crash(params, cfg, dev)
+    out["swap"], out["telemetry"] = ops_swap_telemetry(params, cfg, dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"serve-ops phase {out['phase_s']:.1f} s")
+    return out
+
+
+def ops_dead_columns(params, cfg, dev):
+    """8 requests (the serve trace's first 8 prompts), 16 new tokens, in
+    bf16 and int8 KV: pools (int8: scale pools, codes random) filled with
+    NaN before the run against zero-filled pools. Streams must be bitwise
+    identical: no dead column reaches a product."""
+    from paddle_tpu_torch import InferenceEngine, ServeConfig
+    phase("serve-ops / dead columns: NaN-filled pools against zero pools")
+    prompts = _serve_prompts(cfg, 8)
+    res = {}
+    for kv in ("auto", "int8"):
+        streams = []
+        for fill in ("zero", "nan"):
+            eng = InferenceEngine(params, cfg, ServeConfig(
+                block_size=128, num_blocks=65, max_batch=8,
+                prefill_chunk=256, max_seq_len=2048, kv_dtype=kv),
+                device=dev)
+            if fill == "nan":
+                if kv == "int8":
+                    for t in (eng.k_pool, eng.v_pool):
+                        t.copy_(torch.randint_like(t, -127, 128))
+                    eng.k_scale.fill_(float("nan"))
+                    eng.v_scale.fill_(float("nan"))
+                else:
+                    eng.k_pool.fill_(float("nan"))
+                    eng.v_pool.fill_(float("nan"))
+            stats, _, _ = _ops_run(f"{kv} {fill}", eng, _ops_trace(
+                prompts, 16, range(8)), cfg)
+            assert stats["requests"] == 8 and stats["failed"] == 0, stats
+            assert eng.pool.used_blocks == 0, "pool leaked blocks"
+            streams.append({s.req.request_id: s.tokens
+                            for s in eng.finished})
+            del eng
+            _release_card()
+        assert streams[0] == streams[1], f"{kv}: NaN dead columns moved a " \
+                                         f"stream"
+        res[kv] = {"streams_bitwise_equal": True, "requests": 8}
+        print(f"  {kv}: 8 streams bitwise identical over NaN-filled and "
+              f"zero-filled pools")
+    return res
+
+
+def ops_quarantine(params, cfg, dev):
+    """A genuine poison: token POISON_TOKEN's embedding row set to NaN
+    (saved and restored). 8 requests through 2 rows of a 9-block pool,
+    the first a 100-token prompt holding the token (its chunk's padding
+    columns carry NaN into null block 0 from layer 1 on, its freed blocks
+    are handed on uncleared). It must fail with 'non-finite prefill
+    logits' and every other request finish (finite logits: the NaN screen
+    quarantines nothing else), on reused blocks; streams of the others
+    reported against a run without it."""
+    from paddle_tpu_torch import InferenceEngine, ServeConfig
+    phase("serve-ops / quarantine: one request holding a NaN embedding "
+          "row, 7 clean ones on its reused blocks")
+    rng = np.random.RandomState(SEED + 21)
+    prompts = [rng.randint(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in [100] + list(rng.randint(150, 400, size=7))]
+    prompts = [[t if t != POISON_TOKEN else t + 1 for t in p]
+               for p in prompts]
+    prompts[0][40] = POISON_TOKEN
+    serve = ServeConfig(block_size=128, num_blocks=9, max_batch=2,
+                        prefill_chunk=256, max_seq_len=1024, max_queue=16,
+                        overcommit=16.0)
+    saved = params["embed"][POISON_TOKEN].clone()
+    params["embed"][POISON_TOKEN] = float("nan")
+    try:
+        eng = InferenceEngine(params, cfg, serve, device=dev)
+        freed, reused = [], []
+        quarantine, alloc = eng._quarantine, eng.pool.alloc
+
+        def q(seq, cause):
+            freed.extend(seq.blocks)
+            quarantine(seq, cause)
+
+        def a(n):
+            got = alloc(n)
+            reused.extend(b for b in (got or ()) if b in freed)
+            return got
+        eng._quarantine, eng.pool.alloc = q, a
+        stats, _, _ = _ops_run("with the poisoned request", eng,
+                               _ops_trace(prompts, 16, range(8)), cfg)
+        failed = [(s.req.request_id, s.fail_cause) for s in eng.failed]
+        assert failed == [(0, "non-finite prefill logits")], failed
+        assert stats["requests"] == 7 and eng.pool.used_blocks == 0, stats
+        assert reused, "no later request reused the poisoned blocks"
+        got = {s.req.request_id: s.tokens for s in eng.finished}
+        del eng
+        clean = InferenceEngine(params, cfg, serve, device=dev)
+        _ops_run("without it", clean, [r for r in _ops_trace(
+            prompts, 16, range(8)) if r.request_id], cfg)
+        want = {s.req.request_id: s.tokens for s in clean.finished}
+        del clean
+    finally:
+        params["embed"][POISON_TOKEN] = saved
+    _release_card()
+    same, first = _divergence(got, want)
+    print(f"  request 0 failed: {failed[0][1]}; the other 7 finished on "
+          f"{len(set(reused))} reused blocks of its {len(set(freed))}; "
+          f"streams equal to the run without it: {len(same)} of 7, first "
+          f"divergent index of the others {first}")
+    return {"failed": failed, "finished": len(got),
+            "reused_blocks": len(set(reused)),
+            "streams_equal_without_poison": len(same),
+            "first_divergence": first}
+
+
+def _pc_trace(cfg):
+    rng = np.random.RandomState(16)
+    system = rng.randint(1, cfg.vocab_size, size=PC_SYSTEM).tolist()
+    prompts = []
+    for i in range(PC_REQUESTS):
+        if rng.rand() < 0.8 or i == 0:   # 80% share the system prompt
+            prompts.append(system + rng.randint(
+                1, cfg.vocab_size, size=rng.randint(*PC_TAIL)).tolist())
+        else:
+            prompts.append(rng.randint(
+                1, cfg.vocab_size,
+                size=rng.randint(PC_SYSTEM // 4, PC_SYSTEM // 2)).tolist())
+    return prompts, np.cumsum(rng.exponential(1.0 / PC_RATE,
+                                              size=PC_REQUESTS))
+
+
+def ops_prefix_cache(params, cfg, dev):
+    """bench.py's prefix-cache trace: cache off and on in wall mode, then
+    in deterministic mode. Hits in both cache-on runs, a leak-free pool
+    and no decode write into a shared block asserted; hit rate, hit
+    tokens, cached blocks, COW copies, TTFT and tokens/s off and on, and
+    cached-vs-cold streams reported."""
+    from paddle_tpu_torch import InferenceEngine, ServeConfig
+    phase(f"serve-ops / prefix cache: bench.py's trace, {PC_REQUESTS} "
+          f"requests, 80% with a {PC_SYSTEM}-token system prompt")
+    prompts, arrivals = _pc_trace(cfg)
+    res, streams = {}, {}
+    for mode in ("wall", "deterministic"):
+        det = mode == "deterministic"
+        for cache in (False, True):
+            eng = InferenceEngine(params, cfg, ServeConfig(
+                prefix_cache=cache, **PC_SERVE), device=dev)
+            held = _guard_writes(eng)
+            stats, ran, wall = _ops_run(
+                f"{mode} cache {'on' if cache else 'off'}", eng, _ops_trace(
+                    prompts, PC_NEW, range(PC_REQUESTS) if det
+                    else arrivals), cfg, deterministic=det)
+            assert stats["requests"] == PC_REQUESTS and \
+                stats["unfinished"] == 0, stats
+            assert eng.pool.used_blocks == 0, "pool leaked blocks"
+            pc = stats["prefix_cache"]
+            if cache:
+                assert pc["hits"] > 0, pc
+                assert eng.pool.cached_blocks == pc["entries"], pc
+            key = f"{mode}_{'on' if cache else 'off'}"
+            res[key] = {k: stats[k] for k in (
+                "iterations", "prefill_chunks", "decode_steps",
+                "tokens_per_sec", "ttft_p50_s", "ttft_p99_s", "tpot_p50_s",
+                "tpot_p99_s", "prefix_cache")}
+            res[key].update(run_s=wall, launches=ran,
+                            guarded_writes=len(held),
+                            tokens_per_s_wall=stats["generated_tokens"] / wall)
+            if det:
+                streams[cache] = {s.req.request_id: s.generated
+                                  for s in eng.finished}
+            print(f"  {key}: prefill chunks {stats['prefill_chunks']}, "
+                  f"TTFT p50 {stats['ttft_p50_s']} p99 {stats['ttft_p99_s']}"
+                  f" ({mode} clock), tokens/s {stats['tokens_per_sec']}, "
+                  f"{len(held)} decode writes held to unshared blocks"
+                  + (f", hit rate {pc['hit_rate']:.4f} ({pc['hits']} of "
+                     f"{pc['lookups']}), hit tokens {pc['hit_tokens']}, "
+                     f"cached blocks {eng.pool.cached_blocks}, COW copies "
+                     f"{pc['cow_copies']}" if cache else ""))
+            del eng
+            _release_card()
+    same, first = _divergence(streams[True], streams[False])
+    res["streams_cached_equal_cold"] = len(same)
+    res["first_divergence"] = first
+    print(f"  deterministic streams cached vs cold equal: {len(same)} of "
+          f"{PC_REQUESTS}; first divergent index of the others {first} "
+          f"(a hit prefills from token 1024 in other chunks than a cold "
+          f"prefill, so its KV rounds differently on the card)")
+    return res
+
+
+def _ov_trace(cfg, arrivals, deadlines=True, scale=1.0):
+    rng = np.random.RandomState(17)
+    plens = rng.choice([64, 128, 384], size=OV_REQUESTS)
+    prompts = [rng.randint(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in plens]
+    kw = (dict(ttft_deadline=OV_TTFT * scale, deadline=OV_TOTAL * scale)
+          if deadlines else {})
+    return _ops_trace(prompts, OV_NEW, arrivals, **kw)
+
+
+def _journal_path(tag):
+    d = os.path.join(ROOT, "chiprun_out", "journals")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, f"{tag}.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    return path
+
+
+def ops_overload(params, cfg, dev):
+    """bench.py's overload trace with the journal on: deterministic twice
+    (identical shed lists, outcomes and streams; every request in exactly
+    one terminal state with a cause; leak-free), then one wall run at
+    twice the drain rate, the iteration-clock deadlines rescaled to
+    seconds by the measured iteration time."""
+    from paddle_tpu_torch import InferenceEngine, ServeConfig
+    phase(f"serve-ops / overload: bench.py's burst, {OV_REQUESTS} "
+          f"requests of 64/128/384 tokens, TTFT deadline {OV_TTFT} and "
+          f"total {OV_TOTAL} iterations")
+    runs = []
+    for tag in ("a", "b"):
+        eng = InferenceEngine(params, cfg, ServeConfig(**OV_SERVE),
+                              journal=_journal_path(f"overload_{tag}"),
+                              device=dev)
+        stats, ran, wall = _ops_run(f"deterministic {tag}", eng, _ov_trace(
+            cfg, range(OV_REQUESTS)), cfg)
+        assert eng.pool.used_blocks == 0, "pool leaked blocks"
+        runs.append((sorted((s.req.request_id, s.fail_cause)
+                            for s in eng.shed), stats["outcomes"],
+                     {s.req.request_id: s.tokens for s in eng.finished},
+                     stats, wall))
+        del eng
+    (shed_a, out_a, tok_a, st_a, wall_a), (shed_b, out_b, tok_b, _, _) = runs
+    assert (shed_a, out_a, tok_a) == (shed_b, out_b, tok_b), \
+        "deterministic overload replays differ"
+    assert set(out_a) == set(range(OV_REQUESTS))
+    for rid, (state, cause) in out_a.items():
+        assert state in ("finished", "shed", "rejected", "failed"), rid
+        assert state == "finished" or cause, rid
+    pace = wall_a / (2.0 * OV_REQUESTS)
+    it_wall = wall_a / max(st_a["iterations"], 1)
+    eng = InferenceEngine(params, cfg, ServeConfig(**OV_SERVE),
+                          journal=_journal_path("overload_wall"), device=dev)
+    st_w, ran, wall = _ops_run("wall, twice the drain rate", eng, _ov_trace(
+        cfg, [i * pace for i in range(OV_REQUESTS)], scale=it_wall), cfg,
+        deterministic=False)
+    assert eng.pool.used_blocks == 0, "pool leaked blocks"
+    del eng
+    _release_card()
+    res = {"det_finished": st_a["requests"], "det_shed": st_a["shed"],
+           "det_rejected": st_a["rejected"], "det_iterations":
+           st_a["iterations"], "det_run_s": wall_a,
+           "det_ttft_p99_iterations": st_a["ttft_p99_s"],
+           "wall_finished": st_w["requests"], "wall_shed": st_w["shed"],
+           "wall_rejected": st_w["rejected"],
+           "wall_shed_rate": st_w["shed"] / OV_REQUESTS,
+           "goodput_tokens_per_s": st_w["generated_tokens"] / wall,
+           "wall_ttft_p99_s": st_w["ttft_p99_s"], "wall_run_s": wall,
+           "iteration_s": it_wall}
+    print(f"  deterministic (twice, identical): finished {res['det_finished']}"
+          f", shed {res['det_shed']}, rejected {res['det_rejected']}, "
+          f"{res['det_iterations']} iterations in {wall_a:.2f} s; wall at "
+          f"twice the drain rate: finished {res['wall_finished']}, shed "
+          f"{res['wall_shed']} (rate {res['wall_shed_rate']:.3f}), rejected "
+          f"{res['wall_rejected']}, goodput {res['goodput_tokens_per_s']:.1f}"
+          f" tokens/s, TTFT p99 {res['wall_ttft_p99_s']} s")
+    return res
+
+
+def ops_crash(params, cfg, dev):
+    """The overload trace's prompts and arrivals (no deadlines, so every
+    accepted request must finish) with the journal on: an uncrashed run,
+    then a run killed by ``serve.decode.after`` raising at its 3rd hit,
+    recover() in a fresh engine and the never-journaled requests
+    re-submitted. Every accepted request finishes, every journaled token
+    is kept verbatim, the pool is leak-free; the re-derived tokens are
+    reported against the uncrashed run."""
+    from paddle_tpu_torch import InferenceEngine, ServeConfig, read_journal
+    from paddle_tpu_torch.testing import faults
+    phase("serve-ops / crash and recover: the overload trace, killed at "
+          "the 3rd decode, recovered from its journal")
+    eng = InferenceEngine(params, cfg, ServeConfig(**OV_SERVE),
+                          journal=_journal_path("crash_ref"), device=dev)
+    _ops_run("uncrashed", eng, _ov_trace(cfg, range(OV_REQUESTS), False),
+             cfg)
+    ref = {s.req.request_id: s.generated for s in eng.finished}
+    del eng
+    path = _journal_path("crash")
+    os.environ[faults.ENV_FAULTS] = "1"
+    try:
+        eng = InferenceEngine(params, cfg, ServeConfig(**OV_SERVE),
+                              journal=path, device=dev)
+        with faults.scope("serve.decode.after", "raise", nth=3) as plan:
+            err, _, _ = _ops_run("killed", eng, _ov_trace(
+                cfg, range(OV_REQUESTS), False), cfg,
+                expect_fail=faults.FaultError)
+        assert plan.fired == 1 and isinstance(err, faults.FaultError), err
+        assert eng.pool.used_blocks == 0, "the crash leaked blocks"
+        del eng, err           # the traceback holds the engine's frames
+    finally:
+        del os.environ[faults.ENV_FAULTS]
+    mid = read_journal(path)
+    eng = InferenceEngine(params, cfg, ServeConfig(**OV_SERVE), journal=path,
+                          device=dev)
+    rec = eng.recover()
+    journaled = {s.req.request_id for s in eng.waiting + eng.finished}
+    rest = [r for r in _ov_trace(cfg, range(OV_REQUESTS), False)
+            if r.request_id not in journaled]
+    stats, _, _ = _ops_run("recovered", eng, rest, cfg)
+    assert eng.pool.used_blocks == 0, "pool leaked blocks"
+    got = {s.req.request_id: s.generated for s in eng.finished}
+    for rid, (state, cause) in stats["outcomes"].items():
+        assert state in ("finished", "rejected"), (rid, state, cause)
+    assert set(mid.requests) <= set(got), "a journaled request was lost"
+    for rid, toks in mid.tokens.items():
+        assert got[rid][:len(toks)] == toks, f"journaled tokens of {rid} " \
+                                             f"were not kept"
+    del eng
+    _release_card()
+    same, first = _divergence(got, ref)
+    n_kept = sum(len(t) for t in mid.tokens.values())
+    print(f"  recovered {rec['recovered']} requests ({rec['replayed']} "
+          f"re-driven), {len(rest)} re-submitted, {n_kept} journaled tokens "
+          f"kept verbatim; finished {len(got)}; streams equal to the "
+          f"uncrashed run {len(same)} of {len(set(got) & set(ref))}, first "
+          f"divergent index of the others {first} (a re-prefill rounds KV "
+          f"differently from decode on the card)")
+    return {"recover": rec, "resubmitted": len(rest), "finished": len(got),
+            "journaled_tokens_kept": n_kept,
+            "streams_equal_uncrashed": len(same),
+            "first_divergence": first}
+
+
+def ops_swap_telemetry(params, cfg, dev):
+    """The serve trace's first 8 requests (64 new tokens, deterministic):
+    a plain run, a run with ``swap_weights`` of a copy of the same tree at
+    iteration 5 (streams bitwise equal to the plain run), and a run with
+    StepMetrics, RequestTracer and FlightRecorder on (streams equal,
+    metrics_snapshot() keys in the JAX engine's order, a trace for every
+    request). Returns (swap results, telemetry results)."""
+    from paddle_tpu_torch import InferenceEngine, ServeConfig
+    from paddle_tpu_torch.observability import StepMetrics
+    phase("serve-ops / swap and telemetry: the serve trace's first 8 "
+          "requests")
+    serve = ServeConfig(block_size=128, num_blocks=129, max_batch=8,
+                        prefill_chunk=256, max_seq_len=2048)
+    prompts = _serve_prompts(cfg, 8)
+    streams, tps, swap = {}, {}, None
+    for kind in ("plain", "swap", "telemetry"):
+        kw = (dict(telemetry=StepMetrics(name="serve"), trace_requests=True,
+                   flight_recorder=True) if kind == "telemetry" else {})
+        eng = InferenceEngine(params, cfg, serve, device=dev, **kw)
+        if kind == "swap":
+            copy = {k: ({kk: vv.clone() for kk, vv in v.items()}
+                        if isinstance(v, dict) else v.clone())
+                    for k, v in params.items()}
+            assert eng.swap_weights(copy, at_iteration=5) == \
+                {"scheduled_at": 5}
+        stats, ran, wall = _ops_run(kind, eng, _ops_trace(prompts, 64,
+                                                          range(8)), cfg)
+        assert stats["requests"] == 8 and eng.pool.used_blocks == 0, stats
+        streams[kind] = {s.req.request_id: s.tokens for s in eng.finished}
+        tps[kind] = stats["generated_tokens"] / wall
+        if kind == "swap":
+            assert stats["weight_swaps"] == 1
+            swap = dict(eng.last_swap, streams_bitwise_equal=(
+                streams["swap"] == streams["plain"]))
+            # the engine's swap_ms is host time: its copies are queued.
+            # Time one immediate swap to the device's end too
+            nbytes = sum(t.numel() * t.element_size() for t in _leaves(copy))
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            eng.swap_weights(copy)
+            ev[1].record()
+            torch.cuda.synchronize()
+            swap.update(swap_device_ms=ev[0].elapsed_time(ev[1]),
+                        swap_bytes=nbytes,
+                        swap_bound_ms=2 * nbytes / HBM_BYTES_PER_S * 1e3)
+            del copy
+            assert swap["streams_bitwise_equal"], "the swap moved a stream"
+            print(f"  swap of {swap['n_leaves']} leaves at iteration "
+                  f"{swap['iteration']} ({swap['in_flight_running']} "
+                  f"running, {swap['in_flight_prefill']} prefilling): "
+                  f"{swap['swap_ms']:.2f} ms host (the copies queued); "
+                  f"streams bitwise equal to the plain run; a swap timed to "
+                  f"the device's end {swap['swap_device_ms']:.2f} ms for "
+                  f"{nbytes} bytes (bound {swap['swap_bound_ms']:.2f} ms: "
+                  f"each read and written once)")
+        if kind != "telemetry":
+            del eng
+            _release_card()
+    assert streams["telemetry"] == streams["plain"], "telemetry moved a " \
+                                                     "stream"
+    snap = eng.metrics_snapshot()
+    assert list(snap) == OPS_SNAPSHOT_KEYS, list(snap)
+    assert eng.tracer.request_ids() == list(range(8))
+    assert eng.tracer.span_count("finish") == 8
+    prom = eng.render_prometheus().splitlines()
+    summ = eng.metrics.summary()
+    tele = {"snapshot": {k: (v.snapshot() if hasattr(v, "snapshot") else v)
+                         for k, v in snap.items()},
+            "prometheus_head": prom[:14], "prometheus_lines": len(prom),
+            "spans": eng.tracer.span_count(),
+            "recorder_records": len(eng.recorder.ring),
+            "step_metrics": {k: summ[k] for k in (
+                "steps", "step_time_ms_mean", "step_time_ms_p50",
+                "step_time_ms_p99", "mem_peak_bytes_in_use") if k in summ},
+            "tokens_per_s_off": tps["plain"],
+            "tokens_per_s_on": tps["telemetry"]}
+    del eng
+    _release_card()
+    print(f"  telemetry on: streams equal, snapshot keys in the JAX order, "
+          f"{tele['spans']} spans over 8 request traces, "
+          f"{tele['recorder_records']} recorder records; tokens/s off "
+          f"{tps['plain']:.1f}, on {tps['telemetry']:.1f}")
+    print("  render_prometheus() head:")
+    for line in prom[:14]:
+        print(f"    {line}")
+    return swap, tele
 
 
 def _serve_run(params, cfg, kv_dtype, dev):
@@ -2494,9 +3151,70 @@ def serve_spec(dev):
     out["launches"] = out["runs"]["wall_on"]["launches"]
     out["launches_int8"] = out["runs"]["wall_on_int8"]["launches"]
     out["profile_int8"] = profile_verify(eng, cfg, dev)
-    del eng, params
+    del eng
+    torch.cuda.empty_cache()
+    out["cache"] = spec_cache_run(params, cfg, dev, prompts, serve_kw,
+                                  out["runs"]["deterministic_on"])
+    del params
     torch.cuda.empty_cache()
     return out
+
+
+def spec_cache_run(params, cfg, dev, prompts, serve_kw, base):
+    """serve-spec + cache: the serve-spec trace in deterministic mode with
+    speculation and the prefix cache on. Hits on the shared 512-token
+    system prompt, no verify commit into a shared block (held before each
+    write) and a leak-free pool asserted; tokens/s and the accept rate
+    reported beside the cache-off speculative run (``base``)."""
+    from paddle_tpu_torch import InferenceEngine, Request, ServeConfig
+    phase("serve-spec + cache: the serve-spec trace, speculation and the "
+          "prefix cache on (deterministic)")
+    L = cfg.num_hidden_layers
+    eng = InferenceEngine(params, cfg, ServeConfig(
+        speculative=True, prefix_cache=True, **serve_kw), device=dev)
+    held = _guard_writes(eng)
+    reqs = [Request(list(p), max_new_tokens=SPEC_NEW, arrival=float(i))
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    stats = eng.run(reqs, deterministic=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in _counts().items() if n}
+    steps, sp, pc = (stats["decode_steps"], stats["speculative"],
+                     stats["prefix_cache"])
+    path = {"paged_attention_verify": L * steps,
+            "paged_verify_commit": steps,
+            "paged_attend_update": sp["draft_layers"] * sp["draft_steps"]}
+    assert all(launches.get(k) == n > 0 for k, n in path.items()) and \
+        set(launches) <= set(path) | {"rms_norm"}, (path, launches)
+    assert stats["requests"] == SPEC_REQUESTS and stats["unfinished"] == 0
+    assert all(len(s.generated) == SPEC_NEW for s in eng.finished)
+    assert pc["hits"] > 0, pc
+    assert eng.pool.used_blocks == 0, "pool leaked blocks"
+    res = {k: stats[k] for k in ("iterations", "decode_steps",
+                                 "prefill_chunks", "tokens_per_sec",
+                                 "ttft_p50_s", "ttft_p99_s", "speculative",
+                                 "prefix_cache")}
+    res.update(run_s=wall, launches=launches, guarded_writes=len(held),
+               tokens_per_s_wall=stats["generated_tokens"] / wall,
+               cache_off_tokens_per_s_wall=base["generated_tokens"]
+               / base["run_s"],
+               cache_off_accept_rate=base["speculative"]["accept_rate"],
+               cache_off_prefill_chunks=base["prefill_chunks"])
+    print(f"  hits {pc['hits']} of {pc['lookups']} ({pc['hit_tokens']} "
+          f"tokens), COW copies {pc['cow_copies']}, prefill chunks "
+          f"{stats['prefill_chunks']} (cache off {base['prefill_chunks']}); "
+          f"{len(held)} commit writes held to unshared blocks; tokens/s "
+          f"(wall) {res['tokens_per_s_wall']:.1f} against "
+          f"{res['cache_off_tokens_per_s_wall']:.1f} cache off; accept rate "
+          f"{sp['accept_rate']:.4f} against "
+          f"{base['speculative']['accept_rate']:.4f}; run {wall:.2f} s")
+    print(f"  launches {launches}")
+    del eng
+    _release_card()
+    return res
 
 
 def profile_verify(eng, cfg, dev):
@@ -2506,7 +3224,7 @@ def profile_verify(eng, cfg, dev):
     from paddle_tpu_torch.inference.kv_cache import pad_table
     from paddle_tpu_torch.models.llama import llama_paged_verify_step
     phase(f"profile one verify step (llama_7b, kv_dtype "
-          f"{eng.serve.kv_dtype})")
+          f"{eng.kv_dtype})")
     T = SPEC_K + 1
     rows = [eng.pool.alloc(5) for _ in range(8)]
     tables = torch.from_numpy(np.stack(
@@ -3087,7 +3805,7 @@ def profile_steps(eng, cfg, dev):
     from paddle_tpu_torch.models.llama import (llama_paged_decode_step,
                                                llama_paged_prefill_chunk)
     phase(f"profile one decode step and one prefill chunk (llama_7b, "
-          f"kv_dtype {eng.serve.kv_dtype})")
+          f"kv_dtype {eng.kv_dtype})")
     rows = [eng.pool.alloc(8) for _ in range(8)]
     tables = torch.from_numpy(np.stack(
         [pad_table(r, eng.serve.max_nb) for r in rows])).to(dev)
@@ -4476,6 +5194,7 @@ def main():
     check_verify(dev, errs)
     check_quant(dev, errs)
     check_commit(dev, errs)
+    dead = check_dead_columns(dev)
     check_flash(dev, errs)
     check_split(dev, errs)
     check_blocks(dev)
@@ -4677,7 +5396,8 @@ def main():
     wall_s = time.perf_counter() - t_start
     record = {"nvidia_smi": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
-              "max_abs_err": errs, "serve": serve, "serve_spec": spec,
+              "max_abs_err": errs, "dead_columns": dead, "serve": serve,
+              "serve_spec": spec,
               "train": train, "train_long": tlong, "attn_long": along,
               "ernie": ernie, "generate": gen, "varlen": varlen,
               "times": tm,

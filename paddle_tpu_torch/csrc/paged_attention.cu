@@ -66,7 +66,11 @@
 // its query rows sit in shared memory and the softmax is the online
 // recurrence in f32 (exp2 on q pre-scaled by scale * log2(e), as the
 // caller does). P is rounded to the pool dtype before P.V, and the
-// normaliser sums the unrounded f32 P, as in the TPU kernels. Only the
+// normaliser sums the unrounded f32 P, as in the TPU kernels. A column
+// past the row's last token never enters a product: its score is a
+// selected -1e30, and in the last block's tail its V (over int8 pools its
+// p times the V scale) is a selected 0, so stale NaN in a reused block
+// cannot reach the result (0 * NaN is NaN). Only the
 // online recurrence is implemented: the TPU default's tile-0-anchored
 // "fixed-base" softmax overflows once a later tile's max exceeds tile 0's
 // by ~100 log2 units.
@@ -657,6 +661,12 @@ __device__ __forceinline__ void split_walk(const SplitArgs a) {
     for (int e = 0; e < DR; ++e) acc[r][e] = 0.f;
   }
   for (int jj = 0; jj < nb; ++jj) {
+    // tokens 0..lim of this block are live: only the row's last block has
+    // dead ones (its tail past `last`). A dead token never enters P.V: its
+    // int8 p' is a 0 (not p * a stale scale), its bf16/f32 V a selected 0
+    // (not an exact 0 weight times stale pool bytes, as 0 * NaN is NaN)
+    const int lim = last - (j0 + jj) * bs;
+    const bool tail = lim < bs - 1;
     float alpha[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -666,7 +676,7 @@ __device__ __forceinline__ void split_walk(const SplitArgs a) {
       m[r] = m_new;
       const float p = exp2f(sc - m_new);
       if constexpr (QUANT)
-        p_s[r * bs + tid] = p * vs_s[jj * bs + tid];
+        p_s[r * bs + tid] = tid <= lim ? p * vs_s[jj * bs + tid] : 0.f;
       else
         p_s[r * bs + tid] = from_f<T>(p);
       const float ps = warp_sum(p);
@@ -704,6 +714,11 @@ __device__ __forceinline__ void split_walk(const SplitArgs a) {
             float vf[DR][VEC];
 #pragma unroll
             for (int e = 0; e < DR; ++e) load_f<T, VEC>(vrow + (size_t)e * bs + v0, vf[e]);
+            if (!QUANT && tail)
+#pragma unroll
+              for (int e = 0; e < DR; ++e)
+#pragma unroll
+                for (int x = 0; x < VEC; ++x) vf[e][x] = v0 + x <= lim ? vf[e][x] : 0.f;
 #pragma unroll
             for (int r = 0; r < R; ++r) {
               float pf[VEC];
@@ -723,6 +738,11 @@ __device__ __forceinline__ void split_walk(const SplitArgs a) {
           for (int u = 0; u < nvv; ++u) {
             float vf[VEC];
             load_f<T, VEC>(vrow + c * VEC, vf);
+            if (tail) {
+              const int v0 = vpart * tpt + c * VEC;  // the vector's first token
+#pragma unroll
+              for (int x = 0; x < VEC; ++x) vf[x] = v0 + x <= lim ? vf[x] : 0.f;
+            }
 #pragma unroll
             for (int r = 0; r < R; ++r) {
               float pf[VEC];

@@ -1,7 +1,11 @@
 """Paged continuous-batching serving on the card (port of
-``paddle_tpu/inference``)."""
-from .engine import InferenceEngine, Request, ServeConfig
-from .kv_cache import BlockPool, BlockPoolError, pad_table
+``paddle_tpu/inference``'s serving engine)."""
+from .engine import (Admission, AdmissionController, InferenceEngine,
+                     PoisonError, Request, ServeConfig)
+from .journal import EngineJournal, JournalCompatError, read_journal
+from .kv_cache import BlockPool, BlockPoolError, PrefixCache, pad_table
 
-__all__ = ["InferenceEngine", "Request", "ServeConfig", "BlockPool",
-           "BlockPoolError", "pad_table"]
+__all__ = ["BlockPool", "BlockPoolError", "PrefixCache", "pad_table",
+           "InferenceEngine", "Request", "ServeConfig", "Admission",
+           "AdmissionController", "PoisonError", "EngineJournal",
+           "JournalCompatError", "read_journal"]

@@ -344,8 +344,14 @@ def llama_paged_prefill_chunk(params, k_pool, v_pool, table_row, start: int,
                       0).long()
     col = (pidx % bs).long()
     rows = table_row.long()
-    causal = (torch.arange(T, device=dev)[None, :]
-              <= pidx[:, None])[:, None, None, :]               # [C,1,1,T]
+    tpos = torch.arange(T, device=dev)
+    causal = (tpos[None, :] <= pidx[:, None])[:, None, None, :]  # [C,1,1,T]
+    # the live context: columns holding this sequence's tokens (cached
+    # prefix and this chunk's live tokens), never a dead table slot's
+    # null-block 0 or a stale column past start + n_live. A live token's
+    # causal columns all lie inside it.
+    ctx_live = (tpos < start + n_live) & (rows.repeat_interleave(bs) != 0)
+    pad_rows = (torch.arange(C, device=dev) >= n_live)[:, None, None, None]
     for layer in range(k_pool.shape[0]):
         x = fused_rms_norm(h, p["input_norm"][layer], c.rms_norm_eps)
         q = _mat(x, _at(p["q_proj"], layer)).reshape(1, C, nh, hd)
@@ -370,17 +376,25 @@ def llama_paged_prefill_chunk(params, k_pool, v_pool, table_row, start: int,
                                      k_scale[layer][rows]).to(c.dtype)
             vctx = kv_dequant_blocks(v_pool[layer][rows],
                                      v_scale[layer][rows]).to(c.dtype)
-        # the sequence's context (prefix + this chunk) as one slab; dead
-        # table slots read null-block garbage that the causal mask kills
+        # the sequence's context (prefix + this chunk) as one slab
         kg = kctx.permute(1, 0, 2).reshape(nkv, hd, T)
         vg = vctx.permute(1, 0, 2).reshape(nkv, hd, T)
         qg = q[0].reshape(C, nkv, rep, hd)
         s = torch.einsum("cgrd,gdt->cgrt", qg.float(), kg.float()) \
             / (hd ** 0.5)
         s = torch.where(causal, s, torch.tensor(-1e30, device=dev))
-        probs = torch.softmax(s, dim=-1).to(vg.dtype)
-        attn = torch.einsum("cgrt,gdt->cgrd", probs.float(),
-                            vg.float()).to(c.dtype)
+        probs = torch.softmax(s, dim=-1).to(vg.dtype).float()
+        # a live token's dead columns are SELECTED out of V, not weighted
+        # by an exact 0 (0 * NaN is NaN, and freed blocks are reused
+        # uncleared); the padding tokens keep JAX's product, whose result
+        # lands in null block 0 only
+        attn = torch.einsum("cgrt,gdt->cgrd", probs, torch.where(
+            ctx_live, vg, torch.zeros((), dtype=vg.dtype, device=dev)
+        ).float())
+        if n_live < C:
+            attn = torch.where(pad_rows, torch.einsum(
+                "cgrt,gdt->cgrd", probs, vg.float()), attn)
+        attn = attn.to(c.dtype)
         h = h + _mat(attn.reshape(1, C, nh * hd), _at(p["o_proj"], layer))
         x2 = fused_rms_norm(h, p["post_norm"][layer], c.rms_norm_eps)
         h = h + _mlp(p, layer, x2)
@@ -487,7 +501,10 @@ def _verify_logits(params, k_pool, v_pool, tables, qstart, fed,
         m_f = s_f.amax(dim=-1, keepdim=True)
         p_f = torch.exp2(s_f - m_f)
         l_f = p_f.sum(dim=-1, keepdim=True)
-        acc_f = torch.einsum("btgru,bugd->btgrd", p_f, vf)
+        # fed token u > t is selected out of t's V (not weighted by 0)
+        vsel = torch.where(causal[None, :, :, None, None], vf[:, None],
+                           zero)                           # [B, t, u, g, d]
+        acc_f = torch.einsum("btgru,btugd->btgrd", p_f, vsel)
         m_f = m_f.reshape(B, T, nh, 1)
         l_f = l_f.reshape(B, T, nh, 1)
         acc_f = acc_f.reshape(B, T, nh, hd)

@@ -64,11 +64,10 @@ of one block under the caller's GLOBAL lse and delta.
 from __future__ import annotations
 
 import ctypes
-import os
 
 import torch
 
-from .. import _build
+from .. import _build, envs
 
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
@@ -366,19 +365,14 @@ flash_bwd_dq.launches = 0
 # ---------------------------------------------------------------------------
 
 ENV_FLASH_BWD = "PADDLE_TPU_TORCH_FLASH_BWD"
-_BWD_MODES = ("auto", "split")
 
 
 def dense_bwd_mode() -> str:
     """'auto' (the fused kernel, the default) or 'split' (the dK/dV pass,
-    then the dQ pass), read from ``PADDLE_TPU_TORCH_FLASH_BWD`` on every
-    call; any other value raises a ValueError naming the variable."""
-    raw = os.environ.get(ENV_FLASH_BWD)
-    mode = (raw if raw is not None else "auto").strip().lower()
-    if mode not in _BWD_MODES:
-        raise ValueError(f"{ENV_FLASH_BWD} must be 'auto' or 'split', got "
-                         f"{mode!r}")
-    return mode
+    then the dQ pass), read from ``PADDLE_TPU_TORCH_FLASH_BWD`` through
+    the knob registry on every call; any other value raises a ValueError
+    naming the variable."""
+    return envs.get(ENV_FLASH_BWD)
 
 
 def _bwd_calls(qs, k, v, do, lse, delta, causal, scale):

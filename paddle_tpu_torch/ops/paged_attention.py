@@ -169,7 +169,11 @@ def _online_walk(qf, tables, last, bs, block, round_p, splits=1,
     ``round_p`` rounds P before P.V (to the pool dtype; int8 pools keep it
     f32), and l sums the unrounded P. Returns the unfinalised (acc [B, NKV,
     R, HD], m [B, NKV, R], l [B, NKV, R]); a row with last < 0 comes back
-    with meaningless partials for the caller to replace.
+    with meaningless partials for the caller to replace. A column past
+    last[b] never enters a product: its score is replaced by -1e30 and its
+    V by 0 (selection, so stale NaN or Inf in a pool block, its scales
+    included, cannot reach the result); every column up to last[b] lies in
+    a block the row's table names.
 
     ``splits`` > 1 is the kernels' split-context form: a row's blocks are
     cut into runs of :func:`split_blocks` blocks, each run takes the same
@@ -198,6 +202,10 @@ def _online_walk(qf, tables, last, bs, block, round_p, splits=1,
         live = (j * bs + col)[None, :] <= last[:, None]            # [B, bs]
         s = torch.where(live[:, None, None, :], s,
                         torch.tensor(-1e30, device=dev))
+        # dead columns are selected out of V, not weighted by an exact 0:
+        # 0 * NaN is NaN, and a freed block is reused without clearing
+        vt = torch.where(live[:, None, None, :], vt,
+                         torch.tensor(0.0, device=dev))
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new[..., None])

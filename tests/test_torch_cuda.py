@@ -2009,3 +2009,83 @@ def test_varlen_kernels_reject_bad_inputs(dev):
         fv.varlen_fwd(q, k.contiguous(), v, cu, cu, True, 0.1)  # mixed forms
     with pytest.raises(ValueError):
         fv.varlen_fwd(q[:, ::2], k[:, ::2], v[:, ::2], cu, cu, True, 0.1)
+
+
+# -- the serving engine's own device work --------------------------------
+
+
+def _tiny_engine(dev, **serve):
+    from paddle_tpu_torch.inference import InferenceEngine, ServeConfig
+    cfg = tl.llama_tiny(vocab=96, hidden=128, layers=2, heads=4, kv_heads=2,
+                        seq=512)
+    params = tl.init_llama_params(cfg, seed=3, device=dev)
+    kw = dict(block_size=128, num_blocks=12, max_batch=2, prefill_chunk=64,
+              max_seq_len=512)
+    kw.update(serve)
+    return InferenceEngine(params, cfg, ServeConfig(**kw), device=dev)
+
+
+@pytest.mark.parametrize("serve", [
+    dict(prefix_cache=True), dict(prefix_cache=True, kv_dtype="int8"),
+    dict(prefix_cache=True, speculative=True, draft_k=2)],
+    ids=["bf16-pools", "int8", "draft"])
+def test_cow_blit_copies_every_pool_slab(dev, serve):
+    """_cow_span on a genuinely shared block: the writer's private copy of
+    every pool (base, scales, draft) is bitwise the shared block's, and
+    the readers' bytes do not move."""
+    from paddle_tpu_torch.inference import Request
+    from paddle_tpu_torch.inference.engine import _Seq
+    eng = _tiny_engine(dev, **serve)
+    prompt = np.random.RandomState(1).randint(1, 96, size=300).tolist()
+    eng.run([Request(prompt, max_new_tokens=3)], deterministic=True)
+    hit = eng.cache.match(prompt, 2)
+    assert len(hit) == 2
+    eng.pool.acquire(hit)
+    eng.pool.acquire(hit)
+    b = hit[0]
+    pools = [p for p in (eng.k_pool, eng.v_pool, eng.k_scale, eng.v_scale,
+                         eng.k_draft, eng.v_draft) if p is not None]
+    before = [p[:, b].clone() for p in pools]
+    writer = _Seq(Request(prompt, max_new_tokens=1, request_id=99), 0.0)
+    writer.blocks = list(hit)
+    assert eng._cow_span(writer, 0, 1)
+    torch.cuda.synchronize()
+    nb = writer.blocks[0]
+    assert nb != b and eng.pool.ref_count(b) == 1
+    for p, was in zip(pools, before):
+        assert torch.equal(p[:, b], was) and torch.equal(p[:, nb], was)
+
+
+def test_dead_columns_never_reach_rows_2_to_7(dev):
+    """chip_smoke's check: rows 2-7 over NaN in every dead column (past
+    each row's last token, and null block 0) give bitwise the outputs of
+    zero dead columns."""
+    from chip_smoke import check_dead_columns
+    assert all(check_dead_columns(dev).values())
+
+
+def test_a_cuda_error_in_a_step_propagates(dev, monkeypatch):
+    """A failure of the device work inside a step (here a real one: the
+    caching allocator's out-of-memory error, raised mid-decode) is never
+    quarantined: it propagates, run() leaves a leak-free pool, and the
+    engine serves again after it."""
+    from paddle_tpu_torch.inference import Request
+    import paddle_tpu_torch.inference.engine as emod
+    eng = _tiny_engine(dev)
+    real = emod.llama_paged_decode_step
+    calls = []
+
+    def step(*a, **k):
+        calls.append(1)
+        if len(calls) == 2:
+            torch.empty(1 << 50, dtype=torch.uint8, device=dev)
+        return real(*a, **k)
+    monkeypatch.setattr(emod, "llama_paged_decode_step", step)
+    reqs = [Request(np.random.RandomState(i).randint(1, 96, size=40)
+                    .tolist(), max_new_tokens=4) for i in range(2)]
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        eng.run(reqs, deterministic=True)
+    assert not eng.failed and eng.pool.used_blocks == 0
+    assert eng._pools_alive()
+    stats = eng.run([], deterministic=True)
+    assert stats["requests"] == 2 and not eng.failed

@@ -178,7 +178,7 @@ def test_submit_validation(model):
     with pytest.raises(ValueError):
         eng.submit(Request([], max_new_tokens=1))
     # refused requests still drew ids 0 and 1, as in the JAX engine
-    assert eng.submit(Request([1, 2, 3], max_new_tokens=2)) == 2
+    assert eng.submit(Request([1, 2, 3], max_new_tokens=2)).request_id == 2
     assert [s.req.request_id for s in eng.waiting] == [2]
 
 
