@@ -350,8 +350,9 @@ def llama_paged_prefill_chunk(params, k_pool, v_pool, table_row, start: int,
     # prefix and this chunk's live tokens), never a dead table slot's
     # null-block 0 or a stale column past start + n_live. A live token's
     # causal columns all lie inside it.
-    ctx_live = (tpos < start + n_live) & (rows.repeat_interleave(bs) != 0)
-    pad_rows = (torch.arange(C, device=dev) >= n_live)[:, None, None, None]
+    ctx_live = ((tpos < start + n_live)
+                & (rows.repeat_interleave(bs) != 0)).reshape(max_nb, bs)
+    zero = torch.zeros((1, 1), device=dev)   # f32 with a shape: promotes
     for layer in range(k_pool.shape[0]):
         x = fused_rms_norm(h, p["input_norm"][layer], c.rms_norm_eps)
         q = _mat(x, _at(p["q_proj"], layer)).reshape(1, C, nh, hd)
@@ -378,23 +379,20 @@ def llama_paged_prefill_chunk(params, k_pool, v_pool, table_row, start: int,
                                      v_scale[layer][rows]).to(c.dtype)
         # the sequence's context (prefix + this chunk) as one slab
         kg = kctx.permute(1, 0, 2).reshape(nkv, hd, T)
-        vg = vctx.permute(1, 0, 2).reshape(nkv, hd, T)
+        # V's slab in f32 with its dead columns SELECTED out, not weighted
+        # by an exact 0 (0 * NaN is NaN, and freed blocks are reused
+        # uncleared), in the one pass that lays it out. Padding tokens
+        # take the same product: their results land in null block 0 only,
+        # which no live read uses, so its bytes differ from JAX's
+        vf = torch.empty((kvd, max_nb, bs), dtype=torch.float32, device=dev)
+        torch.where(ctx_live, vctx.permute(1, 0, 2), zero, out=vf)
         qg = q[0].reshape(C, nkv, rep, hd)
         s = torch.einsum("cgrd,gdt->cgrt", qg.float(), kg.float()) \
             / (hd ** 0.5)
         s = torch.where(causal, s, torch.tensor(-1e30, device=dev))
-        probs = torch.softmax(s, dim=-1).to(vg.dtype).float()
-        # a live token's dead columns are SELECTED out of V, not weighted
-        # by an exact 0 (0 * NaN is NaN, and freed blocks are reused
-        # uncleared); the padding tokens keep JAX's product, whose result
-        # lands in null block 0 only
-        attn = torch.einsum("cgrt,gdt->cgrd", probs, torch.where(
-            ctx_live, vg, torch.zeros((), dtype=vg.dtype, device=dev)
-        ).float())
-        if n_live < C:
-            attn = torch.where(pad_rows, torch.einsum(
-                "cgrt,gdt->cgrd", probs, vg.float()), attn)
-        attn = attn.to(c.dtype)
+        probs = torch.softmax(s, dim=-1).to(vctx.dtype).float()
+        attn = torch.einsum("cgrt,gdt->cgrd", probs,
+                            vf.view(nkv, hd, T)).to(c.dtype)
         h = h + _mat(attn.reshape(1, C, nh * hd), _at(p["o_proj"], layer))
         x2 = fused_rms_norm(h, p["post_norm"][layer], c.rms_norm_eps)
         h = h + _mlp(p, layer, x2)

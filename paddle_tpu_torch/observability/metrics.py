@@ -24,12 +24,13 @@ ENV_PEAK_FLOPS = "PADDLE_TPU_TORCH_PEAK_FLOPS"
 
 # Per-device peak FLOP/s by device-name substring (dense bf16 peaks, the
 # denominators MFU papers use), matched case-insensitively on
-# torch.cuda.get_device_name(); FIRST match wins. 'h100' is the H100 SXM's
-# dense bf16 tensor-core peak. The 'cpu' entry is a nominal 100 GFLOP/s so
-# CPU runs report a finite, clearly-labeled estimate; override with
-# PADDLE_TPU_TORCH_PEAK_FLOPS.
+# torch.cuda.get_device_name(); FIRST match wins. 'h100 80gb hbm3' is the
+# H100 SXM's name, with its dense bf16 tensor-core peak; the PCIe and NVL
+# cards have other peaks and fall through to the unknown-device warning.
+# The 'cpu' entry is a nominal 100 GFLOP/s so CPU runs report a finite,
+# clearly-labeled estimate; override with PADDLE_TPU_TORCH_PEAK_FLOPS.
 PEAK_FLOPS_TABLE = (
-    ("h100", 989e12),
+    ("h100 80gb hbm3", 989e12),
     ("cpu", 100e9),
 )
 

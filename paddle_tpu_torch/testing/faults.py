@@ -36,9 +36,9 @@ Actions
     ``delay``    sleep ``delay_s`` at the point (a slow NFS write, a
                  straggler) — used to hold a window open so a racing
                  thread can be observed inside it.
-    ``corrupt``  call ``corrupt(ctx)`` (default: flip bytes in the
-                 middle of the largest array file under ``ctx["dir"]``)
-                 — torn writes, bitrot.
+    ``corrupt``  call ``corrupt(ctx)``, the plan's own callable (there
+                 is no default corruptor): corrupted device logits, a
+                 poisoned batch row.
     ``fire``     no side effect; the point's :func:`fires` returns True
                  (control-flow faults: forced evictions, preemption).
 
@@ -63,7 +63,7 @@ import numpy as np
 from .. import envs
 
 __all__ = ["FaultError", "FaultPlan", "arm", "disarm", "scope", "inject",
-           "fires", "plan_for", "corrupt_array_file", "ENV_FAULTS"]
+           "fires", "plan_for", "ENV_FAULTS"]
 
 ENV_FAULTS = "PADDLE_TPU_TORCH_FAULTS"
 
@@ -90,6 +90,8 @@ class FaultPlan:
             raise ValueError(f"unknown fault action {action!r}")
         if (nth is None) == (p is None):
             raise ValueError("exactly one of nth= / p= selects the trigger")
+        if action == "corrupt" and corrupt is None:
+            raise ValueError("a 'corrupt' plan needs its corrupt= callable")
         self.point = point
         self.action = action
         self.nth = nth
@@ -186,7 +188,7 @@ def _act(plan: FaultPlan, ctx: Dict[str, Any]) -> bool:
         time.sleep(plan.delay_s)
         return True
     if plan.action == "corrupt":
-        (plan.corrupt or corrupt_array_file)(ctx)
+        plan.corrupt(ctx)
         return True
     return True  # "fire"
 
@@ -212,30 +214,3 @@ def fires(point: str, **ctx) -> bool:
             hot = _act(plan, ctx) or hot
     return hot
 
-
-def corrupt_array_file(ctx: Dict[str, Any]) -> str:
-    """Default corruptor: flip 64 bytes in the middle of the largest
-    non-metadata file under ``ctx['dir']`` (a torn shard write). Returns
-    the corrupted path."""
-    import os
-    root = ctx["dir"]
-    victims = []
-    for dirpath, _, filenames in os.walk(root):
-        for fn in filenames:
-            if fn.endswith(".json"):
-                continue
-            p = os.path.join(dirpath, fn)
-            victims.append((os.path.getsize(p), p))
-    if not victims:
-        raise RuntimeError(f"no array files to corrupt under {root!r}")
-    _, path = max(victims)
-    size = os.path.getsize(path)
-    off = max(0, size // 2 - 32)
-    with open(path, "r+b") as f:
-        f.seek(off)
-        chunk = bytearray(f.read(64))
-        for i in range(len(chunk)):
-            chunk[i] ^= 0xFF
-        f.seek(off)
-        f.write(bytes(chunk))
-    return path

@@ -118,7 +118,7 @@ def test_step_metrics_recompile_and_registry():
 
 def test_peak_flops_table(monkeypatch):
     from paddle_tpu.observability import metrics as jmet
-    assert tmet.PEAK_FLOPS_TABLE == (("h100", 989e12),
+    assert tmet.PEAK_FLOPS_TABLE == (("h100 80gb hbm3", 989e12),
                                      jmet.PEAK_FLOPS_TABLE[-1])
     monkeypatch.setenv(tmet.ENV_PEAK_FLOPS, "123.0")
     assert obs.peak_flops_per_device() == 123.0
@@ -127,7 +127,12 @@ def test_peak_flops_table(monkeypatch):
     assert obs.peak_flops_info("cpu") == (100e9, "table:cpu")
     monkeypatch.setattr(tmet, "device_name",
                         lambda device=None: "NVIDIA H100 80GB HBM3")
-    assert obs.peak_flops_info() == (989e12, "table:h100")
+    assert obs.peak_flops_info() == (989e12, "table:h100 80gb hbm3")
+    # other H100s have other peaks: they warn, not take the SXM's
+    for name in ("NVIDIA H100 PCIe", "NVIDIA H100 NVL"):
+        monkeypatch.setattr(tmet, "device_name", lambda device=None: name)
+        with pytest.warns(UserWarning, match=name.lower()):
+            assert obs.peak_flops_info() == (None, f"unknown:{name.lower()}")
     monkeypatch.setattr(tmet, "device_name", lambda device=None: "Mystery")
     with pytest.warns(UserWarning, match="mystery"):
         assert obs.peak_flops_info() == (None, "unknown:mystery")

@@ -93,7 +93,10 @@ def test_prefill_nan_logits_quarantined(nan_model):
 
 def test_injected_logits_corruption_is_screened_on_the_device(model):
     """A corrupting action at serve.prefill.logits writes into the DEVICE
-    logits tensor before the screen: the request is quarantined."""
+    logits tensor before the screen: the request is quarantined. A
+    corrupt plan names its own callable (there is no default corruptor)."""
+    with pytest.raises(ValueError, match="corrupt= callable"):
+        faults.arm("serve.prefill.logits", "corrupt")
     seen = []
 
     def corrupt(ctx):

@@ -7,6 +7,7 @@
     python3 tools/ab_times.py --serve-int8 BEFORE AFTER  # the int8 steps
     python3 tools/ab_times.py --rms BEFORE AFTER       # row 1, decode step
     python3 tools/ab_times.py --commit BEFORE AFTER    # rows 8, 9, verify
+    python3 tools/ab_times.py --prefill BEFORE AFTER   # the prefill chunk
 
 BEFORE and AFTER are directories that each hold a ``paddle_tpu_torch/``
 package, for example a ``git archive`` of the parent commit unpacked
@@ -73,10 +74,21 @@ block 0 after one commit (the verdict whether both trees write the same
 bits there), and chip_smoke's ``profile_verify`` on bf16 and int8
 llama_7b engines: the verify step's commit class, device ms and wall ms.
 
+With --prefill, the serving engine's plain prefill chunk
+(``llama_paged_prefill_chunk``) on llama_7b (seeded random weights, 32
+layers) over an 8-block table at 768 cached tokens, bf16 and int8 pools,
+with a full chunk (256 of 256 tokens live) and a prompt's last, partial
+chunk (100 live): device ms with ``queued``, and chip_smoke's
+``_profile_one`` (device ms by kernel class, host wall ms); with a digest
+of the logits and the row's last two blocks (the verdict whether both
+trees give the same bits there; null block 0, where padding tokens
+land, is left out).
+
 Needs one CUDA device and nvcc; prints one JSON line per run, the card's
 name and power limit first, and writes chiprun_out/ab_times.json (or
 ab_times_varlen.json, ab_times_paged.json, ab_times_split.json,
-ab_times_serve_int8.json, ab_times_rms.json, ab_times_commit.json).
+ab_times_serve_int8.json, ab_times_rms.json, ab_times_commit.json,
+ab_times_prefill.json).
 """
 from __future__ import annotations
 
@@ -374,6 +386,59 @@ def run_one_commit(tree):
                       "steps": steps}))
 
 
+def run_one_prefill(tree):
+    """In a tree's process: the prefill chunk, full and partial, over bf16
+    and int8 pools; times, classes and digests."""
+    import gc
+    import numpy as np
+    import torch
+    cs = _chip_smoke(tree)
+    from paddle_tpu_torch import (InferenceEngine, ServeConfig,
+                                  init_llama_params, llama_7b)
+    from paddle_tpu_torch import _build
+    from paddle_tpu_torch.inference.kv_cache import pad_table
+    from paddle_tpu_torch.models import llama as tl
+    assert tl.__file__.startswith(tree), tl.__file__
+    _build.build_all(["rms_norm", "paged_attention"])
+    dev = torch.device("cuda", 0)
+    cfg = llama_7b()
+    params = init_llama_params(cfg, seed=cs.SEED, device=dev)
+    ids = torch.from_numpy(np.random.RandomState(cs.SEED).randint(
+        1, cfg.vocab_size, size=(4, 256)).astype(np.int32)).to(dev)
+    out, digests = {}, {}
+    for kv in ("auto", "int8"):
+        eng = InferenceEngine(params, cfg, ServeConfig(
+            block_size=128, num_blocks=129, max_batch=8, prefill_chunk=256,
+            max_seq_len=2048, kv_dtype=kv), device=dev)
+        blocks = eng.pool.alloc(8)
+        table = torch.from_numpy(pad_table(blocks, eng.serve.max_nb)).to(dev)
+        sc = None if eng.k_scale is None else (eng.k_scale, eng.v_scale)
+
+        def chunk(i, n_live):
+            return tl.llama_paged_prefill_chunk(
+                eng.params, eng.k_pool, eng.v_pool, table, 256 * i, ids[i],
+                n_live, cfg, kv_scales=sc)[0]
+        for i in range(3):                  # the 768 cached tokens
+            chunk(i, 256)
+        pools = [eng.k_pool, eng.v_pool] + ([] if sc is None else list(sc))
+        for n_live in (256, 100):
+            key = f"prefill_chunk kv_dtype={kv} n_live={n_live}"
+            logits = chunk(3, n_live)
+            digests[key] = _digest(logits, *(p[:, blocks[6:]]
+                                             for p in pools))
+            ms, _, queued = cs._time_ms(lambda: chunk(3, n_live), 10)
+            prof = cs._profile_one(key, lambda: chunk(3, n_live).cpu())
+            out[key] = {"ms": ms, "queued": queued,
+                        "device_ms": prof["device_ms"],
+                        "wall_ms": prof["wall_ms"],
+                        "by_class_ms": prof["by_class_ms"]}
+        eng.pool.free(blocks)
+        del eng, pools, sc
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"tree": tree, "ms": out, "digests": digests}))
+
+
 def run_one_split(tree):
     """In a tree's process: rows 16-18, times and digests."""
     import torch
@@ -410,12 +475,14 @@ def run_one_split(tree):
 KEPT = {"--one-paged": ("row 2", "row 3", "row 6", "row 7", "row 10"),
         "--one-split": ("row 16", "row 17"),
         "--one-commit": ("row 8", "row 9"),
+        "--one-prefill": ("prefill_chunk",),
         "--one-varlen": ("varlen_fwd", "varlen_bwd_dkv", "varlen_bwd_dq",
                          "varlen_bwd dk")}
 
 
 MODES = {"--varlen": "varlen", "--paged": "paged", "--split": "split",
-         "--serve-int8": "serve_int8", "--rms": "rms", "--commit": "commit"}
+         "--serve-int8": "serve_int8", "--rms": "rms", "--commit": "commit",
+         "--prefill": "prefill"}
 
 
 def main():
@@ -453,7 +520,8 @@ if __name__ == "__main__":
     ONES = {"--one": run_one, "--one-varlen": run_one_varlen,
             "--one-paged": run_one_paged, "--one-split": run_one_split,
             "--one-serve_int8": run_one_serve_int8,
-            "--one-rms": run_one_rms, "--one-commit": run_one_commit}
+            "--one-rms": run_one_rms, "--one-commit": run_one_commit,
+            "--one-prefill": run_one_prefill}
     if sys.argv[1:2] and sys.argv[1] in ONES:
         ONES[sys.argv[1]](sys.argv[2])
     else:
