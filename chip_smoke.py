@@ -32,7 +32,9 @@ Phases, in order; any failure exits non-zero before the last line:
                streams), with bf16 and with int8 KV pools, and three
                tiny fp32 Llama and three tiny fp32
                ERNIE-MoE train steps on the card must give the CPU's
-               losses; the slab decode kernels (attend+update and
+               losses, on the split stack (dropless) and under capacity
+               dispatch on two non-split stacks (every layer MoE, and
+               five layers at moe_every 2); the slab decode kernels (attend+update and
                attend-only) at the generate phase's shape and on small f32
                cases with an adversarial score spread; tiny fp32 Llamas at
                head_dim 64 (slab cache) and 128 (head-major cache) must
@@ -110,6 +112,12 @@ Phases, in order; any failure exits non-zero before the last line:
                last, serve-spec + cache: the trace with speculation and
                the prefix cache on (hits, no commit into a shared block,
                tokens/s and accept rate against the cache-off run);
+  4d. serve-13b - InferenceEngine on llama_13b at full width and depth
+               (bf16, 40 layers, 40 heads, seeded random weights) with the
+               serve phase's ServeConfig and its first 8 requests:
+               tokens/s, TTFT, decode step ms, peak memory, the launches
+               of rows 1 and 3 asserted, every request finished with its
+               64 tokens and none quarantined, the pool leak-free;
   5. train   - build_train_step on llama_7b's width cut to 16 layers
                (bf16, B=4, S=2048, full remat, AdamW with f32 moments,
                seeded random weights and ids): one warm-up and three timed
@@ -118,6 +126,19 @@ Phases, in order; any failure exits non-zero before the last line:
                alone; then torch.profiler splits one step into matmul,
                flash, RMSNorm, optimizer and other device time beside
                its wall time;
+  5c. train-policies - the train phase's configuration under each remat
+               policy (dots, save_attn, save_mlp, offload_attn) and with
+               use_flash=False beside full: loss and gradients on batch 0
+               held to full's (the loss bitwise for a policy), one warm-up
+               and two timed steps each (step ms, tokens/s, MFU, peak
+               memory, the launches of rows 1, 14 and 16 asserted, the
+               bytes offload_attn sends to the host), one table;
+  5d. chunked-ce - chunked_ce_loss against the dense f32 loss at the train
+               shape (B=4, S=2048, H=4096, V=32000, bf16): loss, gradient
+               differences, fwd+bwd ms and peak memory of each;
+  5e. train-13b - build_train_step on llama_13b's width cut to 12 of 40
+               layers (B=4, S=2048, save_mlp): one warm-up and two timed
+               steps, launches asserted;
   5a. train-long - build_train_step on the same 16-layer cut at S=16384
                (B=1, rope_theta 1e6: Code Llama's long-context setting),
                one warm-up and two timed steps under
@@ -139,6 +160,11 @@ Phases, in order; any failure exits non-zero before the last line:
                stats, peak memory and each kernel's launches counted from
                this phase alone; then the same profiler split with the
                grouped matmuls as a class of their own;
+  6a. ernie-capacity - bench.py bench_moe's ERNIE-MoE (vocab 8192, H 1024,
+               I 4096, 8 layers, E 8 top-2, capacity_factor 1.25, bf16; B=8,
+               S=512) under the capacity slot schedule and under
+               bench_moe_dropless's flags: step ms, tokens/s, active MFU,
+               drops and capacity use, launches;
   7. generate - generate() on TinyLlama-1.1B at full width and depth
                (bf16, 22 layers, head_dim 64, GQA 32/4, seeded random
                weights and prompt ids): greedy and sampling at B=8 with
@@ -1369,6 +1395,53 @@ def check_tiny_ernie(dev):
           f"rows identical; launches gmm_fwd {c1['gmm_fwd']} gmm_dx "
           f"{c1['gmm_dx']} gmm_dw {c1['gmm_dw']} flash_fwd "
           f"{c1['flash_fwd']} flash_bwd {c1['flash_bwd']}")
+
+
+def check_tiny_ernie_capacity(dev):
+    """Three tiny fp32 ERNIE-MoE train steps under the capacity slot
+    schedule (the default dispatch) on the non-split stack, every layer
+    MoE and five layers at moe_every 2, through the kernels on the card
+    give the CPU's losses and routing counts; each layer is recomputed in
+    the backward, so the flash forward launches twice a layer and step,
+    and no grouped matmul runs."""
+    import dataclasses
+    from paddle_tpu_torch.models import ernie_moe as tm
+    phase("check a tiny fp32 ERNIE-MoE train under capacity dispatch, "
+          "non-split stacks: card kernels vs CPU plain")
+    rng = np.random.RandomState(SEED)
+    x = rng.randint(0, 256, size=(2, 97)).astype(np.int32)
+    for field in (dict(moe_every=1), dict(num_hidden_layers=5)):
+        cfg = dataclasses.replace(_tiny_ernie_config(), dispatch_mode=None,
+                                  **field)
+        assert tm.resolve_dispatch_mode(cfg) == "capacity"
+        params0 = tm.init_params(cfg, seed=1, device="cpu")
+        assert "dense" not in params0["layers"]
+        out = []
+        for d in ("cpu", dev):
+            step, _, _ = tm.build_train_step(cfg, device=d, with_stats=True)
+            params = _to_device(params0, d)
+            opt = tm._adamw_init(params)
+            _zero_counts()
+            losses, counts = [], []
+            for _ in range(3):
+                params, opt, loss, st = step(params, opt, x[:, :-1],
+                                             x[:, 1:])
+                losses.append(float(loss))
+                counts.append([float(st[k]) for k in (
+                    "moe_routed_tokens", "moe_dropped_tokens")])
+            out.append((losses, counts, _counts()))
+        (cpu, c0, n0), (card, c1, n1) = out
+        L = cfg.num_hidden_layers
+        assert not any(n0.values()), n0
+        assert n1["flash_fwd"] == 3 * 2 * L and n1["flash_bwd"] == 3 * L, n1
+        assert n1["rms_norm"] == 3 * ((2 * L + 1) + 2 * L), n1
+        assert n1["gmm_fwd"] == n1["gmm_dx"] == n1["gmm_dw"] == 0, n1
+        assert c0 == c1, (c0, c1)
+        np.testing.assert_allclose(card, cpu, rtol=TRAIN_LOSS_RTOL)
+        print(f"{field}: losses card {card} cpu {cpu} (rtol "
+              f"{TRAIN_LOSS_RTOL}); routed/dropped {c1[-1]} on both; "
+              f"launches flash {n1['flash_fwd']}/{n1['flash_bwd']} rms "
+              f"{n1['rms_norm']}")
 
 
 def check_tiny_streams(dev, kv_dtype="auto"):
@@ -2840,6 +2913,31 @@ def ops_swap_telemetry(params, cfg, dev):
     return swap, tele
 
 
+def _serve_requests(cfg):
+    """The serve trace: 16 requests, prompts of 128-1024 tokens, 64 new
+    tokens, Poisson gaps of 0.25 s."""
+    from paddle_tpu_torch import Request
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(128, 1025, size=16)
+    arrivals = np.cumsum(rng.exponential(0.25, size=16)) - 0.25
+    return [Request(rng.randint(1, cfg.vocab_size, size=int(n)).tolist(),
+                    max_new_tokens=64, arrival=float(max(a, 0.0)),
+                    request_id=i)
+            for i, (n, a) in enumerate(zip(lens, arrivals))]
+
+
+def _serve_warm_up(params, cfg, kv_dtype, dev):
+    """A warm-up on a small pool: cuBLAS handles, allocator, kernel
+    loads."""
+    from paddle_tpu_torch import InferenceEngine, Request, ServeConfig
+    warm = InferenceEngine(params, cfg, ServeConfig(
+        block_size=128, num_blocks=9, max_batch=2, prefill_chunk=256,
+        max_seq_len=1024, kv_dtype=kv_dtype), device=dev)
+    warm.run([Request(list(range(1, 200)), max_new_tokens=3)])
+    del warm
+    torch.cuda.empty_cache()
+
+
 def _serve_run(params, cfg, kv_dtype, dev):
     """The serve trace (16 requests, prompts of 128-1024 tokens, 64 new
     tokens, Poisson gaps of 0.25 s) on ServeConfig(block_size=128,
@@ -2847,24 +2945,12 @@ def _serve_run(params, cfg, kv_dtype, dev):
     kv_dtype=kv_dtype) after a warm-up on a small pool; launches counted
     from the run alone; then the profile of one decode step and one
     prefill chunk. Returns (stats, streams by request id)."""
-    from paddle_tpu_torch import InferenceEngine, Request, ServeConfig
+    from paddle_tpu_torch import InferenceEngine, ServeConfig
     serve = ServeConfig(block_size=128, num_blocks=129, max_batch=8,
                         prefill_chunk=256, max_seq_len=2048,
                         kv_dtype=kv_dtype)
-    rng = np.random.RandomState(SEED)
-    lens = rng.randint(128, 1025, size=16)
-    arrivals = np.cumsum(rng.exponential(0.25, size=16)) - 0.25
-    reqs = [Request(rng.randint(1, cfg.vocab_size, size=int(n)).tolist(),
-                    max_new_tokens=64, arrival=float(max(a, 0.0)),
-                    request_id=i)
-            for i, (n, a) in enumerate(zip(lens, arrivals))]
-    # warm-up on a small pool: cuBLAS handles, allocator, kernel loads
-    warm = InferenceEngine(params, cfg, ServeConfig(
-        block_size=128, num_blocks=9, max_batch=2, prefill_chunk=256,
-        max_seq_len=1024, kv_dtype=kv_dtype), device=dev)
-    warm.run([Request(list(range(1, 200)), max_new_tokens=3)])
-    del warm
-    torch.cuda.empty_cache()
+    reqs = _serve_requests(cfg)
+    _serve_warm_up(params, cfg, kv_dtype, dev)
     eng = InferenceEngine(params, cfg, serve, device=dev)
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
@@ -3433,6 +3519,456 @@ def train_ernie(dev):
     out["profile"] = profile_ernie_step(params, opt, batches[0], cfg)
     del step, params, opt
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the rest of single-device training: the remat policies, plain attention,
+# chunked cross entropy, llama_13b, ERNIE-MoE under capacity dispatch
+# ---------------------------------------------------------------------------
+
+# (remat_policy, use_flash) of the train-policies phase; full first, the
+# configuration the others are held to
+POLICY_RUNS = [("full", None), ("dots", None), ("save_attn", None),
+               ("save_mlp", None), ("offload_attn", None), ("full", False)]
+POLICY_STEPS = 2        # timed steps a configuration, after one warm-up
+# a policy's loss and gradients are held to full's under the split flash
+# backward (rows 17 and 18 sum dQ without atomics, so one configuration
+# gives the same bits twice; under row 16 two runs of full differed by
+# 6.0e-3 relative Frobenius in one leaf on an NVIDIA H100 80GB HBM3 at
+# 700 W): the loss bitwise,
+# each leaf's gradient within TRAIN_LOSS_RTOL relative Frobenius. A
+# policy changes which values are recomputed, never a value
+# the plain attention against the flash kernels (P rounded elsewhere):
+# the loss within two bf16 steps, each leaf's gradient within 2^-3
+PLAIN_LOSS_REL, PLAIN_GRAD_REL = 2 ** -7, 2 ** -3
+# chunked against dense cross entropy: dx within one bf16 step; dhead
+# within two, since the chunked head gradient is a sum of 8 bf16 partial
+# products (each rounded, then added in bf16) where the dense one is one
+# product rounded once
+CE_ITERS, CE_GRAD_REL = 3, {"dx": 2 ** -8, "dhead": 2 ** -7}
+TRAIN13_LAYERS = 12
+SERVE13_REQUESTS = 8
+# bench.py bench_moe's configuration (bench.py:269-275): B 8, S 512
+MOE_BENCH = dict(vocab_size=8192, hidden_size=1024, intermediate_size=4096,
+                 num_hidden_layers=8, num_attention_heads=8, num_experts=8,
+                 moe_topk=2, capacity_factor=1.25, moe_every=2,
+                 max_position_embeddings=512, dtype=torch.bfloat16)
+MOE_BENCH_STEPS = 3
+
+
+def step_launches(L, policy, use_flash=None):
+    """Launches of rows 1, 14 and 16 in one Llama train step on L layers
+    under remat: the forward runs both norms and one flash forward a layer
+    and the final norm; the recompute both norms again and the flash
+    forward unless the policy keeps attn_out with its lse; the backward
+    one flash backward a layer. use_flash=False launches no flash."""
+    flash = use_flash is not False
+    keeps = policy in ("save_attn", "save_mlp", "offload_attn")
+    return {"rms_norm": (2 * L + 1) + 2 * L,
+            "flash_fwd": (L if keeps else 2 * L) if flash else 0,
+            "flash_bwd": L if flash else 0}
+
+
+def _grad_items(tree, prefix=""):
+    """(name, [tensors]) of a gradient tree: a stacked leaf's per-layer
+    slices together."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _grad_items(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, (list(v) if isinstance(v, list) else [v])
+
+
+def _to_host(grads):
+    return {n: [t.cpu() for t in ts] for n, ts in _grad_items(grads)}
+
+
+def grads_rel(grads, ref_host):
+    """The largest relative Frobenius error of a leaf of ``grads`` against
+    ``ref_host`` (the same leaves on the host), and that leaf."""
+    worst = (0.0, "")
+    for name, ts in _grad_items(grads):
+        num = den = 0.0
+        for t, r in zip(ts, ref_host[name]):
+            r = r.to(t.device).float()
+            num += float((t.float() - r).pow(2).sum())
+            den += float(r.pow(2).sum())
+        worst = max(worst, ((num / max(den, 1e-30)) ** 0.5, name))
+    return worst
+
+
+def _train_steps(step, params, opt, batches):
+    """One warm-up and the timed steps: (params, opt, losses, step ms)."""
+    losses, step_ms = [], []
+    for x in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, x[:, :-1], x[:, 1:])
+        losses.append(float(loss))       # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return params, opt, losses, step_ms
+
+
+def train_policies(dev):
+    """build_train_step on the train phase's configuration (llama_7b's
+    width, 16 layers, B=4, S=2048, the same seeded weights) under each
+    remat policy and with use_flash=False: loss and gradients from the
+    initial state on batch 0, under the split flash backward, held to
+    full's (full's gradients kept on the host, one set on the card at a
+    time), then one warm-up and POLICY_STEPS timed steps with step ms,
+    tokens/s, MFU, peak memory and the launches of rows 1, 14 and 16
+    asserted to step_launches; offload_attn also the bytes it sends to
+    the host a step."""
+    import dataclasses
+    from paddle_tpu_torch.models import llama as tl
+    phase(f"train-policies: llama_7b width, {TRAIN_LAYERS} layers (bf16, "
+          f"B={TRAIN_B}, S={TRAIN_S}) under each remat policy and "
+          f"use_flash=False")
+    cfg = dataclasses.replace(tl.llama_7b(), num_hidden_layers=TRAIN_LAYERS)
+    L = cfg.num_hidden_layers
+    rng = np.random.RandomState(SEED)
+    batches = [rng.randint(0, cfg.vocab_size, size=(TRAIN_B, TRAIN_S + 1))
+               .astype(np.int32) for _ in range(POLICY_STEPS + 1)]
+    ids0 = torch.from_numpy(batches[0][:, :-1]).to(dev)
+    labels0 = torch.from_numpy(batches[0][:, 1:]).to(dev)
+    flops_tok = tl.train_flops_per_token(cfg, TRAIN_S)
+    hd = cfg.head_dim
+    nh = cfg.num_attention_heads
+    parked = L * TRAIN_B * nh * TRAIN_S * (hd * 2 + 4)   # o bf16, lse f32
+    out, ref = {}, None
+    for policy, use_flash in POLICY_RUNS:
+        key = policy if use_flash is not False else f"{policy}, use_flash=False"
+        par = tl.ParallelConfig(remat_policy=policy, use_flash=use_flash)
+        step, params, opt = tl.build_train_step(cfg, par, seed=SEED,
+                                                device=dev)
+        with _bwd_mode("split"):
+            loss, grads = tl.llama_loss_and_grads(params, ids0, labels0,
+                                                  cfg, par)
+            loss = float(loss)
+            r = {"loss": loss}
+            if ref is None:
+                again, grads2 = tl.llama_loss_and_grads(params, ids0,
+                                                        labels0, cfg, par)
+                ref = (loss, _to_host(grads))
+                r["grad_rel"], r["grad_rel_leaf"] = grads_rel(grads2, ref[1])
+                assert float(again) == loss, (float(again), loss)
+                assert r["grad_rel"] <= TRAIN_LOSS_RTOL, r
+                print(f"full against itself: loss bitwise, gradients within "
+                      f"{r['grad_rel']:.3e} ({r['grad_rel_leaf']})")
+                del grads2
+            else:
+                r["grad_rel"], r["grad_rel_leaf"] = grads_rel(grads, ref[1])
+                r["loss_rel"] = abs(loss - ref[0]) / abs(ref[0])
+                if use_flash is False:
+                    assert r["loss_rel"] <= PLAIN_LOSS_REL, r
+                    assert r["grad_rel"] <= PLAIN_GRAD_REL, r
+                else:
+                    assert loss == ref[0], (key, loss, ref[0])
+                    assert r["grad_rel"] <= TRAIN_LOSS_RTOL, r
+        del grads
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        tl.park_on_host.bytes = 0
+        params, opt, losses, step_ms = _train_steps(step, params, opt,
+                                                    batches)
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n = len(batches)
+        want = step_launches(L, policy, use_flash)
+        assert all(math.isfinite(v) for v in losses), losses
+        assert {k: launches[k] for k in want} == \
+            {k: v * n for k, v in want.items()}, (key, launches, want)
+        host_bytes = tl.park_on_host.bytes / n
+        assert host_bytes == (parked if policy == "offload_attn" else 0), \
+            (host_bytes, parked)
+        ms = float(np.mean(step_ms[1:]))
+        tps = TRAIN_B * TRAIN_S / (ms / 1e3)
+        r.update(losses=losses, step_ms=step_ms, step_ms_mean=ms,
+                 tokens_per_sec=tps, mfu=flops_tok * tps / BF16_OPS_PER_S,
+                 peak_mem_gib=peak, launches_per_step={
+                     k: launches[k] / n for k in want},
+                 host_bytes_per_step=host_bytes)
+        out[key] = r
+        print(f"{key}: loss {loss!r} (full {ref[0]!r}); gradients within "
+              f"{r['grad_rel']:.3e} of full's ({r['grad_rel_leaf']}); "
+              f"steps {[round(t, 2) for t in step_ms]} ms; launches a "
+              f"step {r['launches_per_step']}; to the host "
+              f"{host_bytes:.0f} bytes a step; peak {peak:.2f} GiB")
+        del step, params, opt
+        torch.cuda.empty_cache()
+    print(f"\n{'configuration':<26}{'step ms':>10}{'tokens/s':>11}"
+          f"{'MFU':>8}{'peak GiB':>10}{'rms':>6}{'fwd':>5}{'bwd':>5}"
+          f"{'host GB':>9}{'grad rel':>11}")
+    for key, r in out.items():
+        lp = r["launches_per_step"]
+        print(f"{key:<26}{r['step_ms_mean']:>10.2f}"
+              f"{r['tokens_per_sec']:>11.1f}{r['mfu']:>8.4f}"
+              f"{r['peak_mem_gib']:>10.2f}{lp['rms_norm']:>6.0f}"
+              f"{lp['flash_fwd']:>5.0f}{lp['flash_bwd']:>5.0f}"
+              f"{r['host_bytes_per_step'] / 1e9:>9.3f}"
+              f"{r['grad_rel']:>11.3e}")
+    return {"layers": L, "batch": TRAIN_B, "seq": TRAIN_S,
+            "timed_steps": POLICY_STEPS, "grad_rel_tol": TRAIN_LOSS_RTOL,
+            "plain_tol": (PLAIN_LOSS_REL, PLAIN_GRAD_REL), "runs": out}
+
+
+def chunked_ce(dev):
+    """chunked_ce_loss against masked_ce_loss over dense f32 logits at the
+    train shape (B=4, S=2048, H=4096, V=32000; bf16 hidden and head,
+    seeded, the last label of each row -100): forward and backward of
+    each, the loss (within TRAIN_LOSS_RTOL), the gradients of x and head
+    (within CE_GRAD_REL relative Frobenius), ms by CUDA events over
+    CE_ITERS calls and the peak memory above the inputs."""
+    from paddle_tpu_torch.models import llama as tl
+    phase(f"chunked-ce: chunked_ce_loss against the dense f32 loss (B="
+          f"{TRAIN_B}, S={TRAIN_S}, H=4096, V=32000, bf16)")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    h, v = 4096, 32000
+    x = torch.randn((TRAIN_B, TRAIN_S, h), generator=g,
+                    device=dev).to(torch.bfloat16)
+    head = (torch.randn((h, v), generator=g, device=dev) * 0.02).to(
+        torch.bfloat16)
+    labels = torch.randint(0, v, (TRAIN_B, TRAIN_S), generator=g, device=dev)
+    labels[:, -1] = -100
+    fns = {"dense": lambda xs, hs: tl.masked_ce_loss((xs @ hs).float(),
+                                                     labels),
+           "chunked": lambda xs, hs: tl.chunked_ce_loss(xs, hs, labels)}
+    out = {}
+    for name, fn in fns.items():
+        xs = x.detach().requires_grad_()
+        hs = head.detach().requires_grad_()
+
+        def run():
+            xs.grad = hs.grad = None
+            loss = fn(xs, hs)
+            loss.backward()
+            return loss
+
+        run()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = float(run().detach())
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(CE_ITERS):
+            run()
+        ev[1].record()
+        torch.cuda.synchronize()
+        out[name] = {"loss": loss, "ms": ev[0].elapsed_time(ev[1]) / CE_ITERS,
+                     "peak_mem_gib": peak, "dx": xs.grad, "dhead": hs.grad}
+    d, c = out["dense"], out["chunked"]
+    rel = {k: float((c[k].float() - d[k].float()).norm()
+                    / d[k].float().norm()) for k in ("dx", "dhead")}
+    loss_rel = abs(c["loss"] - d["loss"]) / abs(d["loss"])
+    for name, r in out.items():
+        print(f"{name}: loss {r['loss']!r}  fwd+bwd {r['ms']:.3f} ms  peak "
+              f"{r['peak_mem_gib']:.3f} GiB above the inputs")
+    print(f"chunked against dense: loss rel {loss_rel:.3e} (tol "
+          f"{TRAIN_LOSS_RTOL}); gradient rel Frobenius dx {rel['dx']:.3e}, "
+          f"dhead {rel['dhead']:.3e} (tol {CE_GRAD_REL})")
+    assert loss_rel <= TRAIN_LOSS_RTOL, loss_rel
+    assert all(rel[k] <= CE_GRAD_REL[k] for k in rel), rel
+    res = {name: {k: r[k] for k in ("loss", "ms", "peak_mem_gib")}
+           for name, r in out.items()}
+    res.update(loss_rel=loss_rel, grad_rel=rel)
+    del out, x, head
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_13b(dev):
+    """build_train_step on llama_13b's width cut to TRAIN13_LAYERS of 40
+    layers (bf16, B=4, S=2048, save_mlp: bench.py's policy at this
+    geometry, AdamW f32 moments): one warm-up and two timed steps; the
+    launches of rows 1, 14 and 16 asserted."""
+    import dataclasses
+    from paddle_tpu_torch.models import llama as tl
+    full = tl.llama_13b()
+    cfg = dataclasses.replace(full, num_hidden_layers=TRAIN13_LAYERS)
+    phase(f"train-13b: llama_13b width, {TRAIN13_LAYERS} of "
+          f"{full.num_hidden_layers} layers (bf16, B={TRAIN_B}, "
+          f"S={TRAIN_S}, save_mlp)")
+    par = tl.ParallelConfig(remat_policy="save_mlp")
+    t0 = time.perf_counter()
+    step, params, opt = tl.build_train_step(cfg, par, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = tl.count_params(cfg)
+    print(f"weights and moments made on the card in "
+          f"{time.perf_counter() - t0:.2f} s, {n_params / 1e9:.3f} B params,"
+          f" {12 * n_params / 1e9:.1f} GB of state (at 40 layers "
+          f"{12 * tl.count_params(full) / 1e9:.1f} GB)")
+    rng = np.random.RandomState(SEED)
+    batches = [rng.randint(0, cfg.vocab_size, size=(TRAIN_B, TRAIN_S + 1))
+               .astype(np.int32) for _ in range(3)]
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    params, opt, losses, step_ms = _train_steps(step, params, opt, batches)
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    L, n = cfg.num_hidden_layers, len(batches)
+    want = step_launches(L, "save_mlp")
+    assert all(math.isfinite(v) for v in losses), losses
+    assert {k: launches[k] for k in want} == \
+        {k: v * n for k, v in want.items()}, (launches, want)
+    ms = float(np.mean(step_ms[1:]))
+    tps = TRAIN_B * TRAIN_S / (ms / 1e3)
+    flops_tok = tl.train_flops_per_token(cfg, TRAIN_S)
+    mfu = flops_tok * tps / BF16_OPS_PER_S
+    print(f"losses {losses}; steps {[round(t, 2) for t in step_ms]} ms "
+          f"(first a warm-up); step ms mean {ms:.2f}; tokens/s {tps:.1f}; "
+          f"MFU {mfu:.4f}; launches "
+          f"{ {k: launches[k] for k in want} } ({n} x {want}); peak "
+          f"{peak:.2f} GiB")
+    del step, params, opt
+    torch.cuda.empty_cache()
+    return {"layers": L, "batch": TRAIN_B, "seq": TRAIN_S,
+            "params": n_params, "remat_policy": "save_mlp",
+            "losses": losses, "step_ms": step_ms, "step_ms_mean": ms,
+            "tokens_per_sec": tps, "mfu": mfu,
+            "launches": {k: launches[k] for k in want},
+            "peak_mem_gib": peak,
+            "reduced": f"num_hidden_layers 40 -> {L} (state is 12 bytes a "
+                       f"param: 156 GB at 40 layers, 64.8 GB at 16, too "
+                       f"tight beside the activations)"}
+
+
+def serve_13b(dev):
+    """InferenceEngine on llama_13b at full width and depth (bf16, 40
+    layers, seeded random weights) with the serve phase's ServeConfig and
+    the first SERVE13_REQUESTS requests of its trace: every request
+    finishes with its 64 tokens, none quarantined (the engine screens
+    every row's logits for non-finite values), the pool leak-free, and
+    the launches of rows 1 and 3 counted from the run alone."""
+    from paddle_tpu_torch import (InferenceEngine, ServeConfig,
+                                  init_llama_params)
+    from paddle_tpu_torch.models import llama as tl
+    cfg = tl.llama_13b()
+    phase(f"serve-13b: llama_13b (bf16, {cfg.num_hidden_layers} layers, "
+          f"random weights), the serve trace's first {SERVE13_REQUESTS} "
+          f"requests")
+    t0 = time.perf_counter()
+    params = init_llama_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"weights made on the card in {time.perf_counter() - t0:.2f} s, "
+          f"{n_params / 1e9:.2f} B params, {2 * n_params / 1e9:.1f} GB")
+    reqs = _serve_requests(cfg)[:SERVE13_REQUESTS]
+    _serve_warm_up(params, cfg, "auto", dev)
+    eng = InferenceEngine(params, cfg, ServeConfig(
+        block_size=128, num_blocks=129, max_batch=8, prefill_chunk=256,
+        max_seq_len=2048), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    stats = eng.run(reqs)
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    L = cfg.num_hidden_layers
+    steps, chunks = stats["decode_steps"], stats["prefill_chunks"]
+    print(f"requests {stats['requests']}  generated "
+          f"{stats['generated_tokens']}  decode steps {steps}  prefill "
+          f"chunks {chunks}  failed {stats['failed']}")
+    print(f"tokens/s {stats['tokens_per_sec']}  TTFT p50 "
+          f"{stats['ttft_p50_s']} s  p99 {stats['ttft_p99_s']} s  decode "
+          f"step mean {stats['decode_step_ms_mean']} ms  prefill chunk mean "
+          f"{stats['prefill_chunk_ms_mean']} ms")
+    print(f"launches paged_attend_update {launches['paged_attend_update']} "
+          f"(= {L} x {steps}), rms_norm {launches['rms_norm']} (= "
+          f"{2 * L + 1} x ({steps} + {chunks}))  peak mem {peak:.2f} GiB")
+    assert stats["requests"] == SERVE13_REQUESTS
+    assert stats["unfinished"] == 0 and stats["failed"] == 0, stats
+    assert all(len(s.generated) == 64 for s in eng.finished)
+    assert eng.pool.used_blocks == 0, "pool leaked blocks"
+    assert launches["paged_attend_update"] == L * steps > 0
+    assert launches["rms_norm"] == (2 * L + 1) * (steps + chunks)
+    assert all(n == 0 for k, n in launches.items()
+               if k not in ("paged_attend_update", "rms_norm")), launches
+    out = {k: stats[k] for k in (
+        "requests", "generated_tokens", "decode_steps", "prefill_chunks",
+        "tokens_per_sec", "ttft_p50_s", "ttft_p99_s", "tpot_p50_s",
+        "tpot_p99_s", "decode_step_ms_mean", "prefill_chunk_ms_mean")}
+    out.update(params=n_params, launches=launches, peak_mem_gib=peak)
+    del eng, params
+    _release_card()
+    return out
+
+
+def ernie_capacity(dev):
+    """build_train_step on bench.py bench_moe's configuration (MOE_BENCH,
+    B=8, S=512): the capacity slot schedule (no dispatch mode named: the
+    default, as bench_moe runs it) with with_stats, then the same widths
+    under bench_moe_dropless's flags (ragged, multi_precision=False,
+    with_stats); one warm-up and MOE_BENCH_STEPS timed steps each, the
+    launches counted from each run alone."""
+    from paddle_tpu_torch.models import ernie_moe as tm
+    cfg = tm.ErnieMoEConfig(**MOE_BENCH)
+    phase(f"ernie-capacity: bench_moe's ERNIE-MoE (bf16, 8 layers, E 8 "
+          f"top-2, capacity_factor 1.25, B={MOE_B}, S={MOE_S}), capacity "
+          f"against dropless")
+    assert tm.resolve_dispatch_mode(cfg) == "capacity"
+    rng = np.random.RandomState(SEED)
+    batches = [rng.randint(0, cfg.vocab_size, size=(MOE_B, MOE_S + 1))
+               .astype(np.int32) for _ in range(MOE_BENCH_STEPS + 1)]
+    L = cfg.num_hidden_layers
+    n_moe = L // cfg.moe_every
+    flops_tok = tm.train_flops_per_token(cfg, MOE_S)
+    out = {}
+    for name, flags in (("capacity", dict(with_stats=True)),
+                        ("dropless", dict(dispatch_mode="ragged",
+                                          multi_precision=False,
+                                          with_stats=True))):
+        step, params, opt = tm.build_train_step(cfg, lr=1e-4, seed=SEED,
+                                                device=dev, **flags)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        losses, step_ms, stats = [], [], []
+        for x in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, loss, st = step(params, opt, x[:, :-1], x[:, 1:])
+            losses.append(float(loss))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            stats.append({k: v.tolist() for k, v in st.items()})
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n = len(batches)
+        gmm = 0 if name == "capacity" else 2 * n_moe * n
+        assert all(math.isfinite(v) for v in losses), losses
+        assert all(launches[k] == gmm for k in ("gmm_fwd", "gmm_dx",
+                                                "gmm_dw")), launches
+        assert launches["flash_fwd"] == launches["flash_bwd"] == L * n
+        assert launches["rms_norm"] == (2 * L + 1) * n, launches
+        last = stats[-1]
+        assert all(s["moe_routed_tokens"] + s["moe_dropped_tokens"]
+                   == MOE_B * MOE_S * cfg.moe_topk * n_moe for s in stats)
+        assert ("moe_capacity_util" in last) == (name == "capacity")
+        ms = float(np.mean(step_ms[1:]))
+        tps = MOE_B * MOE_S / (ms / 1e3)
+        mfu = flops_tok * tps / BF16_OPS_PER_S
+        shown = {k: v for k, v in last.items() if k != "moe_expert_rows"}
+        print(f"{name}: losses {[round(v, 6) for v in losses]}; steps "
+              f"{[round(t, 2) for t in step_ms]} ms (first a warm-up); step "
+              f"ms mean {ms:.2f}; tokens/s {tps:.1f}; active MFU {mfu:.4f}; "
+              f"peak {peak:.2f} GiB; launches gmm {launches['gmm_fwd']}/"
+              f"{launches['gmm_dx']}/{launches['gmm_dw']} flash "
+              f"{launches['flash_fwd']}/{launches['flash_bwd']} rms "
+              f"{launches['rms_norm']}")
+        print(f"  routing stats of the last step (summed over {n_moe} MoE "
+              f"layers; ratios averaged): {shown}")
+        out[name] = {"losses": losses, "step_ms": step_ms,
+                     "step_ms_mean": ms, "tokens_per_sec": tps,
+                     "active_mfu": mfu, "peak_mem_gib": peak,
+                     "routing_stats": stats, "launches": launches}
+        del step, params, opt
+        torch.cuda.empty_cache()
+    out["capacity_over_dropless"] = (out["capacity"]["step_ms_mean"]
+                                     / out["dropless"]["step_ms_mean"])
+    print(f"capacity step ms / dropless step ms "
+          f"{out['capacity_over_dropless']:.3f}")
     return out
 
 
@@ -4928,7 +5464,7 @@ def _attn_long_check(fa, bh, s, dev, seed):
 
 def attn_long(dev):
     """bench.py's long_seq_flash_fwd shapes through the differentiable
-    [BH, S, D] entry (_FlashAttention: raw q, causal, bf16, seeded):
+    [BH, S, D] entry (flash_attention_op: raw q, causal, bf16, seeded):
     forward and backward of sum(o^2) with respect to q, k and v, under
     auto and under split. Per shape: the kernels held to the plain
     versions on every element (all heads), then per mode one warm-up
@@ -4955,7 +5491,7 @@ def attn_long(dev):
             xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
 
             def fwd():
-                return fa._FlashAttention.apply(*xs, True, scale)
+                return fa.flash_attention_op(*xs, True, scale)[0]
 
             def step():
                 for x in xs:
@@ -5206,15 +5742,21 @@ def main():
     check_tiny_train(dev)
     check_tiny_train(dev, "split")
     check_tiny_ernie(dev)
+    check_tiny_ernie_capacity(dev)
     check_decode(dev, errs)
     check_tiny_generate(dev)
     check_varlen(dev, errs)
     serve = serve_7b(dev)
     spec = serve_spec(dev)
+    serve13 = serve_13b(dev)
     train = train_7b(dev)
+    policies = train_policies(dev)
+    ce = chunked_ce(dev)
+    train13 = train_13b(dev)
     tlong = train_long(dev)
     along = attn_long(dev)
     ernie = train_ernie(dev)
+    ernie_cap = ernie_capacity(dev)
     gen = generate_tinyllama(dev)
     varlen = varlen_phase(dev)
     tm = times(dev, errs)
@@ -5398,8 +5940,11 @@ def main():
               "cuda": torch.version.cuda, "build_s": build_s,
               "max_abs_err": errs, "dead_columns": dead, "serve": serve,
               "serve_spec": spec,
-              "train": train, "train_long": tlong, "attn_long": along,
-              "ernie": ernie, "generate": gen, "varlen": varlen,
+              "serve_13b": serve13, "train": train,
+              "train_policies": policies, "chunked_ce": ce,
+              "train_13b": train13, "train_long": tlong, "attn_long": along,
+              "ernie": ernie, "ernie_capacity": ernie_cap, "generate": gen,
+              "varlen": varlen,
               "times": tm,
               "wall_s": wall_s}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

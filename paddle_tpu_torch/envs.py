@@ -298,3 +298,23 @@ _register(
     doc="Draft proposal depth K of speculative serving (K+1 positions "
         "verified per row per iteration). ServeConfig(draft_k=) wins.",
     parse=_positive_int("PADDLE_TPU_TORCH_SERVE_SPEC_K", 4))
+
+
+def _parse_moe_dropless(value):
+    v = (value or "").strip().lower()
+    if v in ("1", "true", "yes", "on"):
+        return "ragged"
+    if v in ("", "0", "false", "no", "off"):
+        return "capacity"
+    raise ValueError(
+        f"PADDLE_TPU_TORCH_MOE_DROPLESS={v!r}: expected a boolean "
+        "(1/0/true/false/yes/no/on/off)")
+
+
+_register(
+    "PADDLE_TPU_TORCH_MOE_DROPLESS", "enum", "capacity",
+    doc="MoE dispatch default when neither the step nor the config names "
+        "one: truthy selects the ragged dropless grouped-matmul path, "
+        "falsy/unset the capacity slot schedule.",
+    parse=_parse_moe_dropless,
+    choices=("capacity", "ragged"))

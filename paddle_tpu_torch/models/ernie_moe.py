@@ -1,29 +1,31 @@
 """ERNIE-style MoE transformer and its single-GPU train step (port of
 ``paddle_tpu/models/ernie_moe.py``).
 
-Parameters are a plain dict in the JAX package's layout and names: the
-every-other-layer model keeps SPLIT stacks, ``layers["dense"]`` (attention
-plus a dense FFN) and ``layers["moe"]`` (attention plus router ``gate``
-(f32), experts ``e_w1``/``e_w2`` and the optional shared expert
-``s_w1``/``s_w2``), each stacked [L/2, ...]. Weights and AdamW state move
-between the two packages through numpy with
+Parameters are a plain dict in the JAX package's layout and names. The
+every-other-layer model (``moe_every`` 2, an even layer count) keeps
+SPLIT stacks, ``layers["dense"]`` (attention plus a dense FFN) and
+``layers["moe"]`` (attention plus router ``gate`` (f32), experts
+``e_w1``/``e_w2`` and the optional shared expert ``s_w1``/``s_w2``), each
+stacked [L/2, ...]; any other model one stack of every weight over all L
+layers (a dense layer carries expert weights it never uses, as in JAX).
+Weights and AdamW state move between the two packages through numpy with
 :func:`..models.llama.params_from_numpy`.
 
-The train step mirrors the JAX ``build_train_step`` at ep = dp = 1 with
-the dropless dispatch ("ragged", or "ragged_a2a", which becomes "ragged"
-without a mesh): per layer pair a dense layer and a MoE layer, each
-RMSNorm (CUDA kernel) -> fused qkv -> flash attention (CUDA kernels, D =
-head_dim, causal) -> o -> residual -> RMSNorm -> FFN; the MoE FFN runs
-:func:`..parallel.moe.moe_ragged_dispatch_combine`, whose grouped
-matmuls are CUDA kernels. ``jax.nn.gelu`` is the tanh approximation, so
-every gelu here is too. The JAX step recomputes each layer pair in its
-backward (``jax.checkpoint`` keeping matmul outputs, which changes no
-value); the port keeps every activation instead (a few GB at
-``ernie_moe_fine``, B = 8, S = 512).
+The train step mirrors the JAX ``build_train_step`` at ep = dp = 1: each
+layer RMSNorm (CUDA kernel) -> fused qkv -> flash attention (CUDA
+kernels, D = head_dim, causal) -> o -> residual -> RMSNorm -> FFN, where
+layer i is MoE when i % moe_every == moe_every - 1. The MoE FFN runs
+:func:`..parallel.moe.moe_dispatch_combine`: the capacity slot schedule
+(the JAX default), or the dropless "ragged" path ("ragged_a2a" becomes
+"ragged" without a mesh), whose grouped matmuls are CUDA kernels.
+``jax.nn.gelu`` is the tanh approximation, so every gelu here is too. On
+the split stacks the JAX step recomputes each layer pair in its backward
+keeping matmul outputs (which changes no value); the port keeps every
+activation instead (a few GB at ``ernie_moe_fine``, B = 8, S = 512). The
+non-split stack recomputes each layer in the backward, as JAX's
+``jax.checkpoint`` there does.
 
-Not ported (ValueError): ep or dp above 1 and a mesh, the capacity
-dispatch, and the non-split stack (``moe_every`` other than 2 or an odd
-layer count, the JAX ``_layer``/``lax.cond`` path).
+Not ported (ValueError): ep or dp above 1, and a mesh.
 """
 from __future__ import annotations
 
@@ -32,12 +34,13 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.flash_attention import flash_attention_bshd
 from ..ops.rms_norm import fused_rms_norm
-from ..parallel.moe import (RATIO_STAT_KEYS, gelu,
-                            moe_ragged_dispatch_combine)
+from ..parallel.moe import (RATIO_STAT_KEYS, default_dispatch_mode, gelu,
+                            moe_dispatch_combine, zero_routing_stats)
 from .llama import _adamw_init, _adamw_update, masked_ce_loss
 
 
@@ -51,14 +54,15 @@ class ErnieMoEConfig:
     num_experts: int = 8
     moe_topk: int = 2
     num_shared_experts: int = 0
+    capacity_factor: float = 1.25
     moe_every: int = 2           # every k-th layer is MoE
     aux_loss_weight: float = 0.01
     max_position_embeddings: int = 512
     layer_norm_eps: float = 1e-6
     dtype: Any = torch.bfloat16
-    # "ragged" or "ragged_a2a" (ep = 1: the same serial path); the
-    # capacity dispatch (and so the JAX config's capacity_factor) is not
-    # ported. None means the step's argument.
+    # "capacity" (the slot schedule), "ragged" (dropless) or "ragged_a2a"
+    # (at ep = 1 the ragged path). None: the step's argument, else
+    # PADDLE_TPU_TORCH_MOE_DROPLESS (unset: "capacity"), as in JAX
     dispatch_mode: Optional[str] = None
 
     @property
@@ -98,32 +102,34 @@ def _split_stacks(config):
     return config.moe_every == 2 and config.num_hidden_layers % 2 == 0
 
 
-def _check_dispatch(dispatch_mode):
-    if dispatch_mode not in ("ragged", "ragged_a2a"):
-        raise ValueError(f"dispatch_mode {dispatch_mode!r} is not ported; "
-                         f"only the dropless 'ragged' / 'ragged_a2a'")
+DISPATCH_MODES = ("capacity", "ragged", "ragged_a2a")
 
 
-def _check_split(config):
-    if not _split_stacks(config):
-        raise ValueError(
-            f"moe_every={config.moe_every}, num_hidden_layers="
-            f"{config.num_hidden_layers}: the non-split layer stack (the "
-            f"JAX _layer / lax.cond path) is not ported; only moe_every=2 "
-            f"with an even layer count")
+def resolve_dispatch_mode(config, dispatch_mode=None):
+    """The dispatch mode a step runs, as the JAX ``build_train_step``
+    picks it: the step's argument, else the config's, else
+    :func:`..parallel.moe.default_dispatch_mode`."""
+    if dispatch_mode is None:
+        dispatch_mode = config.dispatch_mode
+    if dispatch_mode is None:
+        dispatch_mode = default_dispatch_mode()
+    if dispatch_mode not in DISPATCH_MODES:
+        raise ValueError(f"unknown dispatch_mode {dispatch_mode!r} "
+                         f"(expected one of {DISPATCH_MODES})")
+    return dispatch_mode
 
 
 def init_params(config: ErnieMoEConfig, seed: int = 0, device=None):
     """Random params N(0, 0.02) in the model dtype (the router ``gate`` in
     f32), made on ``device`` (default: the card) from a seeded
-    ``torch.Generator``. Same split layout and names as the JAX package;
-    the values differ from its ``jax.random`` stream."""
+    ``torch.Generator``. Same layout (split or not) and names as the JAX
+    package; the values differ from its ``jax.random`` stream."""
     c = config
-    _check_split(c)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    n, H, I, E = c.num_hidden_layers // 2, c.hidden_size, \
-        c.intermediate_size, c.num_experts
+    split = _split_stacks(c)
+    n = c.num_hidden_layers // 2 if split else c.num_hidden_layers
+    H, I, E = c.hidden_size, c.intermediate_size, c.num_experts
 
     def rnd(shape, dtype=c.dtype):
         return torch.empty(shape, dtype=dtype, device=dev).normal_(
@@ -136,17 +142,26 @@ def init_params(config: ErnieMoEConfig, seed: int = 0, device=None):
         return {"ln1": ones((n, H)), "qkv": rnd((n, H, 3 * H)),
                 "o": rnd((n, H, H)), "ln2": ones((n, H))}
 
-    moe = {**attn_block(), "gate": rnd((n, H, E), torch.float32),
-           "e_w1": rnd((n, E, H, I)), "e_w2": rnd((n, E, I, H))}
-    if c.num_shared_experts:
-        si = c.num_shared_experts * I
-        moe.update(s_w1=rnd((n, H, si)), s_w2=rnd((n, si, H)))
+    def dense_ffn():
+        return {"w1": rnd((n, H, I)), "w2": rnd((n, I, H))}
+
+    def experts():
+        w = {"gate": rnd((n, H, E), torch.float32),
+             "e_w1": rnd((n, E, H, I)), "e_w2": rnd((n, E, I, H))}
+        if c.num_shared_experts:
+            si = c.num_shared_experts * I
+            w.update(s_w1=rnd((n, H, si)), s_w2=rnd((n, si, H)))
+        return w
+
+    if split:
+        layers = {"dense": {**attn_block(), **dense_ffn()},
+                  "moe": {**attn_block(), **experts()}}
+    else:
+        layers = {**attn_block(), **dense_ffn(), **experts()}
     return {
         "embed": rnd((c.vocab_size, H)),
         "pos": rnd((c.max_position_embeddings, H)),
-        "layers": {"dense": {**attn_block(), "w1": rnd((n, H, I)),
-                             "w2": rnd((n, I, H))},
-                   "moe": moe},
+        "layers": layers,
         "final_ln": ones((H,)),
     }
 
@@ -170,17 +185,21 @@ def _attn_and_norm(p, h, config: ErnieMoEConfig):
 
 
 def _moe_ffn(p, x_, config: ErnieMoEConfig, with_stats=False,
-             dispatch_mode="ragged"):
-    """The mesh-less branch of the JAX ``_moe_ffn`` (router in f32, the
-    dropless dispatch, then the shared expert); "ragged_a2a" runs the
-    serial ragged path and reports zero wire rows."""
+             dispatch_mode="capacity"):
+    """The mesh-less branch of the JAX ``_moe_ffn``: router in f32, the
+    serial dispatch (``"ragged_a2a"`` runs the ragged path and reports
+    zero wire rows), then the shared expert."""
     c = config
     hid = x_.shape[-1]
     tokens = x_.reshape(-1, hid)
     logits = tokens.float() @ p["gate"]
-    res = moe_ragged_dispatch_combine(tokens, logits, p["e_w1"], p["e_w2"],
-                                      c.num_experts, k=c.moe_topk,
-                                      return_stats=with_stats)
+    serial_mode = ("ragged" if dispatch_mode == "ragged_a2a"
+                   else dispatch_mode)
+    res = moe_dispatch_combine(tokens, logits, p["e_w1"], p["e_w2"],
+                               c.num_experts, k=c.moe_topk,
+                               capacity_factor=c.capacity_factor,
+                               return_stats=with_stats,
+                               dispatch_mode=serial_mode)
     out, aux = res[0], res[1]
     stats = res[2] if with_stats else None
     if stats is not None and dispatch_mode == "ragged_a2a":
@@ -195,19 +214,36 @@ def _moe_ffn(p, x_, config: ErnieMoEConfig, with_stats=False,
     return out, aux.float()
 
 
-def _dense_ffn(p, x_):
+def _dense_ffn(p, x_, config: ErnieMoEConfig, with_stats=False,
+               dispatch_mode="capacity"):
+    """A dense layer's FFN; with ``with_stats`` the zero stats of the MoE
+    layers' key set."""
     out = (gelu(x_ @ p["w1"]) @ p["w2"]).to(x_.dtype)
-    return out, torch.zeros((), device=x_.device)
+    z = torch.zeros((), device=x_.device)
+    if with_stats:
+        return out, z, zero_routing_stats(dispatch_mode, config.num_experts,
+                                          x_.device)
+    return out, z
 
 
 def _layer_static(p, h, is_moe, config: ErnieMoEConfig, with_stats=False,
-                  dispatch_mode="ragged"):
-    """One decoder layer with a static moe/dense choice; only a MoE
-    layer reports routing stats."""
+                  dispatch_mode="capacity"):
+    """One decoder layer with a static moe/dense choice: (h, aux) and,
+    with ``with_stats``, its routing stats (zero for a dense layer)."""
     h, x = _attn_and_norm(p, h, config)
     res = (_moe_ffn(p, x, config, with_stats, dispatch_mode) if is_moe
-           else _dense_ffn(p, x))
+           else _dense_ffn(p, x, config, with_stats, dispatch_mode))
     return (h + res[0],) + tuple(res[1:])
+
+
+def _layer(p, h, layer_idx, config: ErnieMoEConfig, with_stats=False,
+           dispatch_mode="capacity"):
+    """Layer ``layer_idx`` of the non-split stack: MoE when
+    layer_idx % moe_every == moe_every - 1 (JAX's ``lax.cond`` on the
+    scan counter; the index is static here)."""
+    c = config
+    is_moe = layer_idx % c.moe_every == c.moe_every - 1
+    return _layer_static(p, h, is_moe, c, with_stats, dispatch_mode)
 
 
 def _layer_params(stack, i):
@@ -217,35 +253,51 @@ def _layer_params(stack, i):
 
 
 def moe_loss(params, ids, labels, config: ErnieMoEConfig, with_stats=False,
-             dispatch_mode="ragged", active_rows=False):
+             dispatch_mode="capacity", active_rows=False):
     """Total loss = LM cross entropy + aux_loss_weight x the summed gshard
-    aux losses, as the JAX ``moe_loss`` at ep = 1 on split stacks; returns
-    (total, aux) where aux is lm_loss, or (lm_loss, stats) with
-    ``with_stats`` (counts summed over MoE layers, ratio keys averaged
-    over those that routed), and with ``active_rows`` (total, (aux,
-    rows [n_moe, E])): the per-layer routed-row counts."""
+    aux losses, as the JAX ``moe_loss`` at ep = 1; returns (total, aux)
+    where aux is lm_loss, or (lm_loss, stats) with ``with_stats`` (counts
+    summed over the layers, ratio keys averaged over those that routed),
+    and with ``active_rows`` (total, (aux, rows [n, E])): the per-layer
+    routed-row counts of a ragged mode (n MoE layers on split stacks, all
+    L layers otherwise). The non-split stack recomputes each layer in the
+    backward."""
     c = config
-    _check_split(c)
-    _check_dispatch(dispatch_mode)
     ws = with_stats or active_rows
     s = ids.shape[1]
     h = (params["embed"][ids.long()] + params["pos"][:s][None]).to(c.dtype)
-    dense, moe = params["layers"]["dense"], params["layers"]["moe"]
     auxes, layer_stats = [], []
-    for i in range(len(dense["qkv"])):
-        h, aux0 = _layer_static(_layer_params(dense, i), h, False, c)
-        res = _layer_static(_layer_params(moe, i), h, True, c, ws,
-                            dispatch_mode)
-        h, aux1 = res[0], res[1]
-        auxes.append(aux0 + aux1)
-        if ws:
-            layer_stats.append(res[2])
+    if _split_stacks(c):
+        dense, moe = params["layers"]["dense"], params["layers"]["moe"]
+        for i in range(len(dense["qkv"])):
+            h, aux0 = _layer_static(_layer_params(dense, i), h, False, c)
+            res = _layer_static(_layer_params(moe, i), h, True, c, ws,
+                                dispatch_mode)
+            h, aux1 = res[0], res[1]
+            auxes.append(aux0 + aux1)
+            if ws:
+                layer_stats.append(res[2])
+    else:
+        layers = params["layers"]
+        for i in range(c.num_hidden_layers):
+            res = checkpoint(_layer, _layer_params(layers, i), h, i, c, ws,
+                             dispatch_mode, use_reentrant=False,
+                             preserve_rng_state=False)
+            h = res[0]
+            auxes.append(res[1])
+            if ws:
+                layer_stats.append(res[2])
     stats = rows_pl = None
     if ws:
+        if active_rows and "moe_expert_rows" not in layer_stats[0]:
+            raise ValueError(
+                "active_rows requires a dispatch mode whose stats carry "
+                "moe_expert_rows (ragged / ragged_a2a), got "
+                f"{dispatch_mode!r}")
         with torch.no_grad():
             st = {k: torch.stack([d[k] for d in layer_stats])
                   for k in layer_stats[0]}
-            rows_pl = st["moe_expert_rows"]           # [n_moe_layers, E]
+            rows_pl = st.get("moe_expert_rows")
             n_moe = torch.clamp(
                 (st["moe_routed_tokens"] + st["moe_dropped_tokens"] > 0)
                 .float().sum(), min=1.0)
@@ -268,24 +320,25 @@ def _grad_leaf(t):
 def _leaves_of(tree):
     """The autograd leaves of a param tree: each stacked layer tensor as a
     list of per-layer views, so no [n, ...] gradient is ever built."""
-    out = {}
-    for k, v in tree.items():
-        if k == "layers":
-            out[k] = {kind: {n: [_grad_leaf(w[i]) for i in range(w.shape[0])]
-                             for n, w in stack.items()}
-                      for kind, stack in v.items()}
-        else:
-            out[k] = _grad_leaf(v)
-    return out
+    if isinstance(tree, dict):
+        return {k: (_layer_leaves(v) if k == "layers" else _leaves_of(v))
+                for k, v in tree.items()}
+    return _grad_leaf(tree)
+
+
+def _layer_leaves(tree):
+    if isinstance(tree, dict):
+        return {k: _layer_leaves(v) for k, v in tree.items()}
+    return [_grad_leaf(w) for w in tree]
 
 
 def _grads_of(leaves):
-    def grad(t):
-        return t.grad if t.grad is not None else torch.zeros_like(t)
-
-    return {k: ({kind: {n: [grad(t) for t in ts] for n, ts in stack.items()}
-                 for kind, stack in v.items()} if k == "layers" else grad(v))
-            for k, v in leaves.items()}
+    if isinstance(leaves, dict):
+        return {k: _grads_of(v) for k, v in leaves.items()}
+    if isinstance(leaves, list):
+        return [_grads_of(t) for t in leaves]
+    return leaves.grad if leaves.grad is not None \
+        else torch.zeros_like(leaves)
 
 
 def moe_loss_and_grads(params, ids, labels, config: ErnieMoEConfig,
@@ -317,12 +370,14 @@ def _none_like(tree):
 
 def _expert_row_masks(params, rows_pl):
     """``_adamw_update(masks=)`` tree: experts that routed no row this step
-    keep their params and moments bitwise (rows [n_moe, E] > 0 over the
-    leading dims of e_w1 / e_w2); every other leaf is unmasked."""
+    keep their params and moments bitwise (rows [n, E] > 0 over the
+    leading dims of e_w1 / e_w2, split or not); every other leaf is
+    unmasked."""
     active = rows_pl > 0
     masks = _none_like(params)
-    masks["layers"]["moe"]["e_w1"] = active
-    masks["layers"]["moe"]["e_w2"] = active
+    experts = masks["layers"].get("moe", masks["layers"])
+    experts["e_w1"] = active
+    experts["e_w2"] = active
     return masks
 
 
@@ -339,20 +394,20 @@ def build_train_step(config: ErnieMoEConfig, ep_degree: int = 1,
     ``with_stats`` the dict ``{"lm_loss", **routing stats}``, all on the
     device. Params and AdamW state are updated in place.
 
+    ``dispatch_mode`` None means ``config.dispatch_mode``, then
+    ``PADDLE_TPU_TORCH_MOE_DROPLESS`` (unset: "capacity").
     ``multi_precision=False`` stores moments in each param's dtype;
     ``active_only_moments`` freezes the params and moments of experts
-    that routed no token this step. ``device=None`` means the card. What
-    is not ported raises ValueError: ep_degree or dp_degree above 1, a
-    mesh, the capacity dispatch, the non-split stack."""
+    that routed no token this step (a ragged mode). ``device=None`` means
+    the card. What is not ported raises ValueError: ep_degree or
+    dp_degree above 1, a mesh."""
     if ep_degree * dp_degree > 1 or ep_degree < 1 or dp_degree < 1 \
             or mesh is not None:
         raise ValueError(f"ep_degree={ep_degree}, dp_degree={dp_degree}, "
                          f"mesh={mesh!r}: multi-device MoE training is not "
                          f"ported; only ep_degree = dp_degree = 1 and no "
                          f"mesh")
-    if dispatch_mode is None:
-        dispatch_mode = config.dispatch_mode
-    _check_dispatch(dispatch_mode)
+    dispatch_mode = resolve_dispatch_mode(config, dispatch_mode)
     dev = resolve_device(device)
     params = init_params(config, seed, device=dev)
     opt = _adamw_init(params, multi_precision=multi_precision)

@@ -23,10 +23,14 @@ token loop runs eagerly (``lax.scan`` in JAX) and keeps every token on
 the device until one copy at the end.
 
 The train step (:func:`build_train_step`) mirrors the JAX one at
-parallel = 1: ``llama_loss`` (flash attention, RMSNorm with its gradient,
-dense f32 cross entropy) differentiated by autograd, then AdamW. The layer
-loop replaces ``lax.scan``; with ``remat`` each layer runs under
-``torch.utils.checkpoint`` (``jax.checkpoint`` with no policy).
+parallel = 1: ``llama_loss`` (flash attention, or with ``use_flash=False``
+the plain ``_xla_sdpa``; RMSNorm with its gradient; dense f32 cross
+entropy) differentiated by autograd, then AdamW. The layer loop replaces
+``lax.scan``; with ``remat`` each layer runs under
+``torch.utils.checkpoint``, and a remat policy other than ``full`` keeps
+what it names across the boundary (:class:`_Keep`, JAX's
+``_remat_policy``). :func:`chunked_ce_loss` is JAX's sequence-chunked
+head and cross entropy.
 
 The KV pools and caches are updated IN PLACE (the JAX package donates
 them); the step functions still return them, so call sites read the same.
@@ -35,17 +39,21 @@ returns them.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves, tree_map
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.decode_attention import TILE_T, decode_attend_update_slab
-from ..ops.flash_attention import flash_attention_bshd
+from ..ops.flash_attention import flash_attention_bshd, flash_attention_op
 from ..ops.paged_attention import (LOG2E, kv_dequant_blocks,
                                    kv_quant_columns, merge_verify_partials,
                                    paged_attend_update,
@@ -81,6 +89,12 @@ class LlamaConfig:
 
 def llama_7b():
     return LlamaConfig()
+
+
+def llama_13b():
+    return LlamaConfig(hidden_size=5120, intermediate_size=13824,
+                       num_hidden_layers=40, num_attention_heads=40,
+                       num_key_value_heads=40)
 
 
 def llama_tiny(vocab=256, hidden=64, layers=4, heads=4, kv_heads=2, inter=128,
@@ -1115,7 +1129,9 @@ class ParallelConfig:
     remat_policy: str = "full"
     scan_unroll: int = 1
     zero_stage: int = 3
-    use_flash: Optional[bool] = None   # None = auto: the flash kernels
+    # None = the flash kernels (JAX's None means plain attention off the
+    # TPU); False = the plain attention, _xla_sdpa
+    use_flash: Optional[bool] = None
     overlap_p2p: Optional[bool] = None
 
     @property
@@ -1129,10 +1145,10 @@ _UNREAD_FIELDS = ("sep_strategy", "microbatches", "scan_unroll", "zero_stage",
 
 def check_ported(parallel: ParallelConfig) -> None:
     """Raise ValueError naming what of ``parallel`` the port does not run
-    yet: any degree above 1 (pp first), ``use_flash=False`` (the JAX
-    ``_xla_sdpa`` path), remat policies other than ``'full'``, and a value
-    other than the default in a field the single-device step never reads
-    (``_UNREAD_FIELDS``)."""
+    yet: any degree above 1 (pp first), and a value other than the
+    default in a field the single-device step never reads
+    (``_UNREAD_FIELDS``). An unknown remat policy raises too (with
+    ``remat``), as JAX's ``_remat_policy`` does."""
     default = ParallelConfig()
     unread = {f: getattr(parallel, f) for f in _UNREAD_FIELDS
               if getattr(parallel, f) != getattr(default, f)}
@@ -1148,32 +1164,192 @@ def check_ported(parallel: ParallelConfig) -> None:
                    if getattr(parallel, k) > 1}
         raise ValueError(f"{degrees}: multi-device training (total "
                          f"{parallel.total}) is not ported; only total=1")
-    if parallel.use_flash is False:
-        raise ValueError("use_flash=False (the plain-XLA attention path) is "
-                         "not ported; the train step runs the flash kernels")
-    if parallel.remat and parallel.remat_policy != "full":
-        raise ValueError(f"remat_policy {parallel.remat_policy!r} is not "
-                         f"ported; only 'full' (or remat=False)")
+    if parallel.remat:
+        _remat_policy(parallel)
 
 
-def decoder_layer(p, h_in, cos, sin, config: LlamaConfig):
+# ---------------------------------------------------------------------------
+# remat policies
+# ---------------------------------------------------------------------------
+
+# policy -> (names kept, every 2-D matmul kept, kept tensors offloaded)
+_REMAT_POLICIES = {
+    "full": ((), False, False),
+    "dots": ((), True, False),
+    "save_attn": (("attn_out",), False, False),
+    "save_mlp": (("attn_out", "mlp_gate", "mlp_up"), False, False),
+    "offload_attn": (("attn_out",), False, True),
+}
+
+
+def _remat_policy(parallel: ParallelConfig):
+    """JAX's ``_remat_policy``: the :class:`_Keep` factory of
+    ``parallel.remat_policy``, or None for ``'full'`` (only the layer
+    input crosses the boundary)."""
+    name = parallel.remat_policy
+    if name not in _REMAT_POLICIES:
+        raise ValueError(
+            f"unknown remat_policy {name!r}; expected 'full', 'dots', "
+            "'save_attn', 'save_mlp', or 'offload_attn'")
+    if name == "full":
+        return None
+    return lambda: _Keep(*_REMAT_POLICIES[name])
+
+
+class _Parked:
+    """A kept tensor waiting in host memory for the device it left."""
+
+    def __init__(self, host: torch.Tensor, device: torch.device):
+        self.host, self.device = host, device
+
+    def back(self) -> torch.Tensor:
+        return self.host.to(self.device, non_blocking=True)
+
+
+def park_on_host(t: torch.Tensor):
+    """A kept CUDA tensor's copy in pinned host memory, queued on the
+    current stream (``offload_attn``); ``park_on_host.bytes`` counts the
+    bytes sent to the host. A CPU tensor is already there and stays."""
+    if not t.is_cuda:
+        return t.detach()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    park_on_host.bytes += host.numel() * host.element_size()
+    return _Parked(host, t.device)
+
+
+park_on_host.bytes = 0
+
+_RUN = object()     # a candidate op whose output is recomputed
+_MM = torch.ops.aten.mm.default
+_FLASH = torch.ops.paddle_tpu_torch.flash_attention.default
+_IGNORED = (torch.ops.aten.detach.default,)
+
+
+class _Keep:
+    """What one layer call keeps across its checkpoint (JAX's remat
+    policies), passed to ``torch.utils.checkpoint`` as ``context_fn``: the
+    outputs of the ops it keeps are stored in the forward and handed back,
+    not computed again, when the backward reruns the layer. It keeps
+
+    - for ``attn_out``: the flash op's (o, lse), the attention output and
+      the statistic its backward needs (JAX's flash residuals carry no
+      name, so JAX may rerun its forward there); on the plain path the
+      copy that lays the attention output out as [B, S, NH*HD];
+    - for any other listed name: each op run inside a :meth:`named`
+      region that makes new storage (JAX's ``checkpoint_name``; a view of
+      its input is recomputed, at no cost);
+    - with ``dots``: every ``aten.mm`` output (the 2-D products, as
+      ``dots_with_no_batch_dims_saveable``: a batched product is
+      recomputed);
+    - with ``offload``: the same, parked in pinned host memory
+      (:func:`park_on_host`) until the backward needs them.
+
+    The forward and the recompute run the same code, so a candidate op's
+    n-th call in one is its n-th call in the other."""
+
+    def __init__(self, names, dots, offload):
+        self.names, self.dots, self.offload = frozenset(names), dots, offload
+        self.naming = False
+        self.store = collections.defaultdict(list)
+
+    @contextlib.contextmanager
+    def named(self, name):
+        before, self.naming = self.naming, name in self.names
+        try:
+            yield
+        finally:
+            self.naming = before
+
+    def candidate(self, func) -> bool:
+        if func is _FLASH:
+            return "attn_out" in self.names
+        return (self.dots and func is _MM) or (self.naming
+                                              and func not in _IGNORED)
+
+    def park(self, t):
+        if isinstance(t, torch.Tensor):
+            return park_on_host(t) if self.offload else t.detach()
+        return t
+
+    @staticmethod
+    def unpark(t):
+        return t.back() if isinstance(t, _Parked) else t
+
+    def __call__(self):
+        return _KeepMode(self, recompute=False), _KeepMode(self, recompute=True)
+
+
+def _storages(tree):
+    return {t.untyped_storage().data_ptr() for t in tree_leaves(tree)
+            if isinstance(t, torch.Tensor)}
+
+
+class _KeepMode(TorchDispatchMode):
+    """The forward (store) and recompute (hand back) halves of a
+    :class:`_Keep`."""
+
+    def __init__(self, keep: _Keep, recompute: bool):
+        super().__init__()
+        self.keep, self.recompute = keep, recompute
+        self.calls = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        keep = self.keep
+        if not keep.candidate(func):
+            return func(*args, **kwargs)
+        queue = keep.store[func]
+        if self.recompute:
+            i = self.calls[func]
+            self.calls[func] += 1
+            entry, queue[i] = queue[i], None
+            if entry is _RUN:
+                return func(*args, **kwargs)
+            return tree_map(keep.unpark, entry)
+        out = func(*args, **kwargs)
+        fresh = not _storages(out) & _storages((args, kwargs))
+        queue.append(tree_map(keep.park, out) if fresh else _RUN)
+        return out
+
+
+def _unnamed(_name):
+    return contextlib.nullcontext()
+
+
+def decoder_layer(p, h_in, cos, sin, config: LlamaConfig, use_flash=True,
+                  keep: Optional[_Keep] = None):
     """One decoder block for training (the JAX ``decoder_layer`` at mp = 1,
-    sep = 1). ``p`` holds ONE layer's weights; h_in [B, S, H]."""
+    sep = 1). ``p`` holds ONE layer's weights; h_in [B, S, H]. Attention
+    is the flash kernels, or with ``use_flash=False`` the plain causal
+    :func:`_xla_sdpa`. ``keep`` is the remat policy's (None: nothing is
+    named)."""
     c = config
     b, s, _ = h_in.shape
     hd = c.head_dim
     nh = p["q_proj"].shape[-1] // hd
     nkv = p["k_proj"].shape[-1] // hd
+    named = keep.named if keep is not None else _unnamed
     x = fused_rms_norm(h_in, p["input_norm"], c.rms_norm_eps)
     q = _mat(x, p["q_proj"]).reshape(b, s, nh, hd)
     k = _mat(x, p["k_proj"]).reshape(b, s, nkv, hd)
     v = _mat(x, p["v_proj"]).reshape(b, s, nkv, hd)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    attn = flash_attention_bshd(q, k, v, causal=True).reshape(b, s, nh * hd)
+    if use_flash:
+        attn = flash_attention_bshd(q, k, v, causal=True).reshape(
+            b, s, nh * hd)
+    else:
+        attn = _xla_sdpa(q, k, v, is_causal=True)
+        with named("attn_out"):
+            attn = attn.reshape(b, s, nh * hd)
     h = h_in + _mat(attn, p["o_proj"])
     x = fused_rms_norm(h, p["post_norm"], c.rms_norm_eps)
-    return h + _swiglu(x, p["gate_proj"], p["up_proj"], p["down_proj"])
+    with named("mlp_gate"):
+        g = _mat(x, p["gate_proj"])
+    with named("mlp_up"):
+        u = _mat(x, p["up_proj"])
+    return h + _mat(F.silu(g) * u, p["down_proj"])
 
 
 def llama_hidden(params, ids, config: LlamaConfig,
@@ -1181,20 +1357,27 @@ def llama_hidden(params, ids, config: LlamaConfig,
     """Embed + the decoder stack; returns the final hidden (pre-norm).
     ``params["layers"]`` maps each name to a stacked [L, ...] tensor or to
     a list of its L layer slices (the train step's gradient leaves). With
-    ``parallel.remat`` each layer is recomputed in the backward and only
-    its input is kept."""
+    ``parallel.remat`` each layer is recomputed in the backward, keeping
+    its input and what ``parallel.remat_policy`` names."""
     c = config
+    use_flash = parallel.use_flash is not False
+    policy = _remat_policy(parallel) if parallel.remat else None
     h = F.embedding(ids.long(), params["embed"]).to(c.dtype)
     cos, sin = build_rope_cache(ids.shape[1], c.head_dim, base=c.rope_theta,
                                 device=h.device)
     layers = params["layers"]
     for i in range(len(layers["q_proj"])):
         p = {name: w[i] for name, w in layers.items()}
-        if parallel.remat:
-            h = checkpoint(decoder_layer, p, h, cos, sin, c,
+        if not parallel.remat:
+            h = decoder_layer(p, h, cos, sin, c, use_flash)
+        elif policy is None:
+            h = checkpoint(decoder_layer, p, h, cos, sin, c, use_flash,
                            use_reentrant=False, preserve_rng_state=False)
         else:
-            h = decoder_layer(p, h, cos, sin, c)
+            keep = policy()
+            h = checkpoint(decoder_layer, p, h, cos, sin, c, use_flash, keep,
+                           use_reentrant=False, preserve_rng_state=False,
+                           context_fn=keep)
     return h
 
 
@@ -1208,9 +1391,43 @@ def masked_ce_loss(logits, labels):
     return loss_sum / torch.clamp(mask.sum(), min=1)
 
 
+def _ce_chunk(xc, head, lc):
+    logits = (xc @ head).float()
+    m = lc != -100
+    safe = torch.where(m, lc, 0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, safe[..., None])[..., 0]
+    return torch.where(m, lse - picked, 0.0).sum(), m.sum().float()
+
+
+def chunked_ce_loss(x, head, labels, n_chunks=8):
+    """Head matmul + mean cross entropy over SEQUENCE chunks (JAX's
+    ``chunked_ce_loss``): x [B, S, D], head [D, V], labels [B, S] (-100
+    ignored). Each chunk's f32 logits live only while the chunk runs, and
+    the chunk is recomputed in the backward, so the [B, S, V] logits never
+    exist at once. S is padded to a multiple of ``n_chunks`` with ignored
+    labels. Sums accumulate chunk by chunk, as JAX's scan does."""
+    b, s, d = x.shape
+    rem = (-s) % n_chunks
+    if rem:
+        x = F.pad(x, (0, 0, 0, rem))
+        labels = F.pad(labels, (0, rem), value=-100)
+        s += rem
+    xt = x.reshape(b, n_chunks, s // n_chunks, d).transpose(0, 1)
+    lt = labels.reshape(b, n_chunks, s // n_chunks).transpose(0, 1)
+    ls = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for xc, lc in zip(xt, lt):
+        l_c, n_c = checkpoint(_ce_chunk, xc, head, lc, use_reentrant=False,
+                              preserve_rng_state=False)
+        ls, cnt = ls + l_c, cnt + n_c
+    return ls / torch.clamp(cnt, min=1.0)
+
+
 def llama_loss(params, ids, labels, config: LlamaConfig,
                parallel: ParallelConfig = ParallelConfig()):
-    """Causal LM loss with dense f32 logits; labels [B, S], -100 ignored."""
+    """Causal LM loss with dense f32 logits; labels [B, S], -100 ignored.
+    The dense path, as JAX's ``llama_loss`` keeps it
+    (:func:`chunked_ce_loss` is there for memory-bound callers)."""
     h = llama_hidden(params, ids, config, parallel)
     logits = llama_logits(params, h, config).float()
     return masked_ce_loss(logits, labels)

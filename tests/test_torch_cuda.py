@@ -2089,3 +2089,156 @@ def test_a_cuda_error_in_a_step_propagates(dev, monkeypatch):
     assert eng._pools_alive()
     stats = eng.run([], deterministic=True)
     assert stats["requests"] == 2 and not eng.failed
+
+
+# ---------------------------------------------------------------------------
+# the rest of single-device training: remat policies, plain attention,
+# chunked cross entropy, capacity dispatch, the non-split ERNIE stack
+# ---------------------------------------------------------------------------
+
+POLICIES = ["full", "dots", "save_attn", "save_mlp", "offload_attn"]
+
+
+def _policy_model():
+    cfg = tl.llama_tiny(vocab=96, hidden=256, layers=2, heads=2, kv_heads=2,
+                        inter=512, seq=256)
+    rng = np.random.RandomState(3)
+    ids = rng.randint(0, 96, size=(2, 256)).astype(np.int32)
+    labels = np.roll(ids, -1, axis=1)
+    labels[:, -1] = -100
+    return cfg, ids, labels
+
+
+@pytest.mark.parametrize("use_flash", [None, False])
+def test_remat_policies_launch_and_match_full_on_card(dev, use_flash,
+                                                      monkeypatch):
+    """Each policy on the card (f32, head_dim 128), flash and plain, under
+    the split flash backward (no atomics): the loss bitwise full's (the
+    forward is the same work), the gradients within 1e-5 of full's, the
+    launches of rows 1 and 14 and of the backward as
+    chip_smoke.step_launches says (rows 17 and 18 in place of row 16),
+    and offload_attn sending what it keeps of every layer to the host and
+    back."""
+    from chip_smoke import step_launches
+    monkeypatch.setenv(fa.ENV_FLASH_BWD, "split")
+    cfg, ids, labels = _policy_model()
+    params = tl.init_llama_params(cfg, seed=1, device=dev)
+    L = cfg.num_hidden_layers
+    ids_t = torch.from_numpy(ids).to(dev)
+    labels_t = torch.from_numpy(labels).to(dev)
+    ref = None
+    for policy in POLICIES:
+        par = tl.ParallelConfig(remat_policy=policy, use_flash=use_flash)
+        before = (fused_rms_norm.launches, fa.flash_fwd.launches,
+                  fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches,
+                  fa.flash_bwd.launches)
+        tl.park_on_host.bytes = 0
+        loss, grads = tl.llama_loss_and_grads(params, ids_t, labels_t, cfg,
+                                              par)
+        torch.cuda.synchronize()
+        dkv = fa.flash_bwd_dkv.launches - before[2]
+        assert fa.flash_bwd_dq.launches - before[3] == dkv
+        assert fa.flash_bwd.launches == before[4]
+        got = {"rms_norm": fused_rms_norm.launches - before[0],
+               "flash_fwd": fa.flash_fwd.launches - before[1],
+               "flash_bwd": dkv}
+        want = step_launches(L, policy, use_flash)
+        assert got == want, (policy, got, want)
+        flat = [t for v in grads["layers"].values() for t in v] + \
+            [grads["embed"], grads["lm_head"], grads["final_norm"]]
+        if ref is None:
+            ref = (loss, flat)
+        else:
+            assert torch.equal(loss, ref[0]), policy
+            for g, r in zip(flat, ref[1]):
+                torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6)
+        # B 2 x NH 2 x S 256 rows of o (128 f32) and lse (one f32) a
+        # layer; the plain path parks its [B, S, NH*HD] copy instead
+        row = 128 * 4 + (4 if use_flash is not False else 0)
+        parked = L * 2 * 2 * 256 * row if policy == "offload_attn" else 0
+        assert tl.park_on_host.bytes == parked, policy
+
+
+def test_chunked_ce_on_card_matches_cpu(dev):
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, 203, 256).astype(np.float32)
+    head = (rng.randn(256, 1000) * 0.05).astype(np.float32)
+    labels = rng.randint(0, 1000, (2, 203))
+    labels[1, :9] = -100
+    res = []
+    for d in ("cpu", dev):
+        xs = torch.from_numpy(x).to(d).requires_grad_()
+        hs = torch.from_numpy(head).to(d).requires_grad_()
+        loss = tl.chunked_ce_loss(xs, hs, torch.from_numpy(labels).to(d))
+        loss.backward()
+        res.append([t.detach().cpu() for t in (loss, xs.grad, hs.grad)])
+    torch.testing.assert_close(res[1][0], res[0][0], rtol=1e-5, atol=0)
+    for got, want in zip(res[1][1:], res[0][1:]):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("onehot", [False, True])
+def test_capacity_dispatch_on_card_matches_cpu(dev, onehot):
+    """The capacity slot schedule (and its one-hot form) in f32 on the card
+    against the CPU, under a skew that drops pairs: output, aux, stats
+    (bitwise) and the gradients of x, the router logits, w1 and w2."""
+    rng = np.random.RandomState(9)
+    e, k, h, i, t = 4, 2, 64, 128, 320
+    x = rng.randn(t, h).astype(np.float32)
+    logits = rng.randn(t, e).astype(np.float32)
+    logits[:, 0] += 2.0
+    w1 = (rng.randn(e, h, i) / h ** 0.5).astype(np.float32)
+    w2 = (rng.randn(e, i, h) / i ** 0.5).astype(np.float32)
+    res = []
+    for d in ("cpu", dev):
+        leaves = [torch.from_numpy(a).to(d).requires_grad_()
+                  for a in (x, logits, w1, w2)]
+        o, aux, st = tmoe.moe_dispatch_combine(
+            *leaves, e, k=k, capacity_factor=0.5, use_onehot=onehot,
+            return_stats=True, dispatch_mode="capacity")
+        ((o ** 2).sum() + aux).backward()
+        res.append(([v.detach().cpu() for v in [o, aux]
+                     + [l.grad for l in leaves]],
+                    {n: v.cpu() for n, v in st.items()}))
+    assert float(res[0][1]["moe_dropped_tokens"]) > 0
+    for n in res[0][1]:
+        assert torch.equal(res[1][1][n], res[0][1][n]), n
+    for got, want in zip(res[1][0], res[0][0]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_non_split_ernie_steps_on_card_match_cpu(dev):
+    """Three tiny fp32 ERNIE-MoE steps on the non-split stack (every layer
+    MoE, capacity by default) on the card and the CPU: losses, routing
+    counts, and the flash launches of a stack recomputed in the
+    backward."""
+    import dataclasses
+    cfg = tm.ErnieMoEConfig(vocab_size=256, hidden_size=128,
+                            intermediate_size=128, num_hidden_layers=3,
+                            num_attention_heads=2, num_experts=4,
+                            moe_topk=2, moe_every=1,
+                            max_position_embeddings=128,
+                            dtype=torch.float32)
+    cfg = dataclasses.replace(cfg, dispatch_mode=None)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, 256, size=(2, 96)).astype(np.int32)
+    labels = np.roll(ids, -1, axis=1)
+    res = []
+    for d in ("cpu", dev):
+        step, _, _ = tm.build_train_step(cfg, device=d, with_stats=True)
+        params = tm.init_params(cfg, seed=1, device="cpu")
+        params = {k: ({n: w.to(d) for n, w in v.items()}
+                      if k == "layers" else v.to(d))
+                  for k, v in params.items()}
+        opt = tm._adamw_init(params)
+        before = fa.flash_fwd.launches
+        losses, counts = [], []
+        for _ in range(3):
+            params, opt, loss, st = step(params, opt, ids, labels)
+            losses.append(float(loss))
+            counts.append(float(st["moe_routed_tokens"]))
+        res.append((losses, counts, fa.flash_fwd.launches - before))
+    np.testing.assert_allclose(res[1][0], res[0][0], rtol=1e-5)
+    assert res[1][1] == res[0][1]
+    assert res[0][2] == 0 and res[1][2] == 3 * 2 * cfg.num_hidden_layers

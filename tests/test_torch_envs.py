@@ -16,7 +16,7 @@ PORT_READS = {
     "SPIKE_MAD", "FAULTS", "SERVE_MAX_QUEUE", "SERVE_RATE", "SERVE_BURST",
     "SERVE_OVERCOMMIT", "SERVE_NAN_CHECK", "SERVE_JOURNAL",
     "SERVE_JOURNAL_FSYNC", "SERVE_PREFIX_CACHE", "SERVE_KV_DTYPE",
-    "SERVE_SPEC", "SERVE_SPEC_K"}
+    "SERVE_SPEC", "SERVE_SPEC_K", "MOE_DROPLESS"}
 
 
 def test_registry_holds_the_port_knobs_and_no_jax_name():
@@ -35,6 +35,8 @@ def test_registry_holds_the_port_knobs_and_no_jax_name():
 
 
 JUNK = {"bool": "maybe", "int": "-3", "float": "fast", "enum": "sideways"}
+# knobs whose enum value is spelled otherwise: MOE_DROPLESS reads a boolean
+GOOD = {"MOE_DROPLESS": "1"}
 
 
 @pytest.mark.parametrize("knob", envs.knobs(), ids=lambda k: k.name)
@@ -47,8 +49,9 @@ def test_each_knob_parses_like_jax(knob, monkeypatch):
     monkeypatch.delenv(jname, raising=False)
     assert envs.get(knob.name) == knob.default == jenvs.get(jname)
     assert envs.raw(knob.name) is None and envs.is_registered(knob.name)
-    good = {"bool": "1", "int": "5", "float": "2.5", "str": "/x/y",
-            "enum": (knob.choices[-1] if knob.choices else "")}[knob.kind]
+    good = GOOD.get(knob.name[len(envs.PREFIX):]) or {
+        "bool": "1", "int": "5", "float": "2.5", "str": "/x/y",
+        "enum": (knob.choices[-1] if knob.choices else "")}[knob.kind]
     for value in (good, " On ", ""):
         monkeypatch.setenv(knob.name, value)
         monkeypatch.setenv(jname, value)

@@ -183,14 +183,6 @@ def test_moe_layer_matches_jax(dtype):
                                        err_msg=name)
 
 
-def test_moe_loss_refuses_capacity_dispatch():
-    cfg = tm.ernie_moe_fine_tiny()
-    params = tm.init_params(cfg, device="cpu")
-    ids = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(ValueError, match="capacity"):
-        tm.moe_loss(params, ids, ids, cfg, dispatch_mode="capacity")
-
-
 # ---------------------------------------------------------------------------
 # the train step
 # ---------------------------------------------------------------------------
@@ -320,7 +312,6 @@ def test_moe_loss_active_rows_without_stats():
 
 
 @pytest.mark.parametrize("kwargs,what", [
-    (dict(dispatch_mode="capacity"), "capacity"),
     (dict(ep_degree=2), "ep_degree"),
     (dict(dp_degree=2), "dp_degree"),
     (dict(mesh="a mesh"), "mesh"),
@@ -328,15 +319,6 @@ def test_moe_loss_active_rows_without_stats():
 def test_unported_train_configs_raise(kwargs, what):
     with pytest.raises(ValueError, match=what):
         tm.build_train_step(tm.ernie_moe_fine_tiny(), device="cpu", **kwargs)
-
-
-@pytest.mark.parametrize("field", [dict(moe_every=3),
-                                   dict(num_hidden_layers=5)])
-def test_non_split_stack_raises(field):
-    import dataclasses
-    cfg = dataclasses.replace(tm.ernie_moe_fine_tiny(), **field)
-    with pytest.raises(ValueError, match="non-split"):
-        tm.build_train_step(cfg, device="cpu")
 
 
 def test_device_none_needs_cuda():
@@ -352,7 +334,8 @@ def test_presets_match_jax():
                    (jm.ernie_moe_tiny(), tm.ernie_moe_tiny())):
         for f in ("vocab_size", "hidden_size", "intermediate_size",
                   "num_hidden_layers", "num_attention_heads", "num_experts",
-                  "moe_topk", "num_shared_experts", "moe_every",
+                  "moe_topk", "num_shared_experts", "capacity_factor",
+                  "moe_every",
                   "aux_loss_weight", "max_position_embeddings",
                   "layer_norm_eps", "dispatch_mode"):
             assert getattr(tc, f) == getattr(jc, f), f

@@ -223,9 +223,6 @@ def test_params_from_numpy_carries_opt_state(model):
     (dict(sharding=2), "sharding"),
     (dict(sep=2), "sep"),
     (dict(pp=2), "pp"),
-    (dict(use_flash=False), "use_flash"),
-    (dict(remat_policy="dots"), "dots"),
-    (dict(remat_policy="save_attn"), "save_attn"),
     # fields the single-device step never reads
     (dict(microbatches=4), "microbatches"),
     (dict(scan_unroll=2), "scan_unroll"),
