@@ -53,7 +53,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.decode_attention import TILE_T, decode_attend_update_slab
-from ..ops.flash_attention import flash_attention_bshd, flash_attention_op
+from ..ops.flash_attention import (_prescale, flash_attention_bshd,
+                                   flash_attention_op)
 from ..ops.paged_attention import (LOG2E, kv_dequant_blocks,
                                    kv_quant_columns, merge_verify_partials,
                                    paged_attend_update,
@@ -1234,8 +1235,9 @@ class _Keep:
 
     - for ``attn_out``: the flash op's (o, lse), the attention output and
       the statistic its backward needs (JAX's flash residuals carry no
-      name, so JAX may rerun its forward there); on the plain path the
-      copy that lays the attention output out as [B, S, NH*HD];
+      name, so JAX may rerun its forward there), its third output, the
+      pre-scaled q, made again from the recomputed q; on the plain path
+      the copy that lays the attention output out as [B, S, NH*HD];
     - for any other listed name: each op run inside a :meth:`named`
       region that makes new storage (JAX's ``checkpoint_name``; a view of
       its input is recomputed, at no cost);
@@ -1306,10 +1308,14 @@ class _KeepMode(TorchDispatchMode):
             entry, queue[i] = queue[i], None
             if entry is _RUN:
                 return func(*args, **kwargs)
-            return tree_map(keep.unpark, entry)
+            kept = tree_map(keep.unpark, entry)
+            if func is _FLASH:
+                return (*kept, _prescale(args[0], args[4]))
+            return kept
         out = func(*args, **kwargs)
         fresh = not _storages(out) & _storages((args, kwargs))
-        queue.append(tree_map(keep.park, out) if fresh else _RUN)
+        kept = out[:2] if func is _FLASH else out
+        queue.append(tree_map(keep.park, kept) if fresh else _RUN)
         return out
 
 

@@ -56,8 +56,8 @@ key > query position (top-left, as JAX's kernels do).
 
 :func:`flash_attention_bshd` is the differentiable entry ([B, S, H, D],
 GQA by repeating kv heads) over :func:`flash_attention_op`, a custom
-dispatcher op ([BH, S, D] -> (o, lse)) whose backward goes through
-:func:`_bwd_calls`. :func:`flash_block_fwd` and
+dispatcher op ([BH, S, D] -> (o, lse, pre-scaled q)) whose backward goes
+through :func:`_bwd_calls`. :func:`flash_block_fwd` and
 :func:`flash_block_bwd` are the block entries that context parallelism
 composes: raw q, the partial (o, lse) of one KV block, and the backward
 of one block under the caller's GLOBAL lse and delta.
@@ -482,29 +482,31 @@ def dense_bwd_schedule_stats(bh, sq, sk, d, dtype, causal,
 @torch.library.custom_op(
     "paddle_tpu_torch::flash_attention", mutates_args=(),
     schema="(Tensor q, Tensor k, Tensor v, bool causal, float scale) "
-           "-> (Tensor, Tensor)")
+           "-> (Tensor, Tensor, Tensor)")
 def flash_attention_op(q, k, v, causal, scale):
-    """[BH, S, D] attention as ONE dispatcher op: q raw (pre-scaled here),
-    k, v -> (o, lse). Its autograd saves (q, k, v, o, lse), as the JAX
-    custom vjp saves its residuals, and the backward pre-scales q again
-    and goes through :func:`_bwd_calls`; lse carries no gradient. Being
-    one op, a remat policy can keep its outputs (JAX's ``attn_out``) so
-    that a layer's recompute does not launch the forward again."""
-    return flash_fwd(_prescale(q, scale), k, v, causal)
+    """[BH, S, D] attention as ONE dispatcher op: q raw, k, v -> (o, lse,
+    qs), qs being q pre-scaled for the kernels (:func:`_prescale`). Its
+    autograd saves (qs, k, v, o, lse), as the JAX custom vjp saves its
+    residuals, so the backward goes through :func:`_bwd_calls` without
+    scaling q again; lse and qs carry no gradient. Being one op, a remat
+    policy can keep its outputs (JAX's ``attn_out`` and the lse) so that
+    a layer's recompute does not launch the forward again."""
+    qs = _prescale(q, scale)
+    return (*flash_fwd(qs, k, v, causal), qs)
 
 
 def _flash_setup(ctx, inputs, output):
-    q, k, v, causal, scale = inputs
-    ctx.save_for_backward(q, k, v, *output)
+    _q, k, v, causal, scale = inputs
+    o, lse, qs = output
+    ctx.save_for_backward(qs, k, v, o, lse)
     ctx.causal, ctx.scale = causal, scale
 
 
-def _flash_grad(ctx, do, _dlse):
-    q, k, v, o, lse = ctx.saved_tensors
+def _flash_grad(ctx, do, _dlse, _dqs):
+    qs, k, v, o, lse = ctx.saved_tensors
     do = do.contiguous()
     delta = (do.float() * o.float()).sum(dim=-1)
-    dq, dk, dv = _bwd_calls(_prescale(q, ctx.scale), k, v, do, lse, delta,
-                            ctx.causal, ctx.scale)
+    dq, dk, dv = _bwd_calls(qs, k, v, do, lse, delta, ctx.causal, ctx.scale)
     return dq, dk, dv, None, None
 
 
@@ -525,8 +527,8 @@ def flash_attention_bshd(q, k, v, causal=False, scale=None):
     def to_bh(x, n):
         return x.transpose(1, 2).reshape(b * h, n, d).contiguous()
 
-    o, _ = flash_attention_op(to_bh(q, s), to_bh(k, sk), to_bh(v, sk),
-                              bool(causal), scale)
+    o, _, _ = flash_attention_op(to_bh(q, s), to_bh(k, sk), to_bh(v, sk),
+                                 bool(causal), scale)
     return o.reshape(b, h, s, d).transpose(1, 2)
 
 
@@ -535,6 +537,7 @@ def flash_attention_bshd(q, k, v, causal=False, scale=None):
 # ---------------------------------------------------------------------------
 
 def _prescale(q, scale):
+    """q as the kernels take it: times scale * log2(e), in q's dtype."""
     return (q.float() * (float(scale) * LOG2E)).to(q.dtype)
 
 

@@ -15,7 +15,9 @@ versions (CPU tensors). Tolerances:
   bitwise; params within a tenth of the learning rate of JAX's on every
   element. AdamW divides each gradient by its own root mean square, so
   f32 noise in a near-zero gradient moves a param at the scale of lr,
-  whatever the gradient's size.
+  whatever the gradient's size. So one loss-and-gradients call is also
+  held to ``jax.value_and_grad``: every leaf within 1e-5 of its largest
+  element, 1e-4 relative.
 Every router decision is checked to have a relative gap above 1e-5
 between the k-th and (k+1)-th probability, so a flipped choice cannot
 pass as a tolerance failure.
@@ -61,6 +63,8 @@ def _flat(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
             out.update(_flat(v, f"{prefix}{k}/"))
+        elif isinstance(v, list):
+            out[prefix + k] = torch.stack(v).detach().float().numpy()
         elif isinstance(v, torch.Tensor):
             out[prefix + k] = v.detach().float().numpy()
         else:
@@ -345,7 +349,8 @@ def _np_params(jcfg, seed):
         draw, jax.eval_shape(lambda: jm.init_params(jcfg)))
 
 
-def _ernie_run(name, overrides, B, S):
+def _ernie_inputs(name, overrides, B, S):
+    """Both configs, the numpy weights, ids and labels of one ERNIE case."""
     jcfg = dataclasses.replace(jm.ernie_moe_tiny(), **overrides)
     tcfg = dataclasses.replace(tm.ernie_moe_tiny(), **overrides)
     params = _np_params(jcfg, 0)
@@ -355,6 +360,11 @@ def _ernie_run(name, overrides, B, S):
     ids = rng.randint(0, jcfg.vocab_size, (B, S)).astype(np.int32)
     labels = np.roll(ids, -1, 1)
     labels[:, -1] = -100
+    return jcfg, tcfg, params, ids, labels
+
+
+def _ernie_run(name, overrides, B, S):
+    jcfg, tcfg, params, ids, labels = _ernie_inputs(name, overrides, B, S)
     step_j, _, _ = jm.build_train_step(jcfg, with_stats=True)
     step_t, _, _ = tm.build_train_step(tcfg, with_stats=True, device="cpu")
     p_j = jax.tree_util.tree_map(jnp.asarray, params)
@@ -418,6 +428,54 @@ def test_ernie_capacity_steps_match_jax(case):
         np.testing.assert_allclose(got[key], want[key], atol=0.1 * LR,
                                    rtol=0, err_msg=key)
     assert float(o_t["t"]) == 3.0
+
+
+@pytest.mark.parametrize("case", ERNIE, ids=[e[0] for e in ERNIE])
+def test_ernie_capacity_grads_match_jax(case):
+    """One loss-and-gradients call under capacity against
+    ``jax.value_and_grad(moe_loss)``: the steps' params cannot show a
+    gradient off by a constant positive factor (AdamW's update ignores
+    it), this can. Every leaf within 1e-5 of its largest element (1e-4
+    relative): the non-split stack's per-layer recompute, its dense
+    layers' zero stats and the expert leaves a dense layer carries (their
+    gradient exactly 0 in both) included."""
+    name, overrides, B, S = case
+    jcfg, tcfg, params, ids, labels = _ernie_inputs(*case)
+
+    @jax.jit
+    def loss_and_grads(p, i, lab):
+        return jax.value_and_grad(jm.moe_loss, has_aux=True)(
+            p, i, lab, jcfg, with_stats=True)
+
+    (loss_j, (lm_j, st_j)), grads_j = loss_and_grads(
+        jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(ids),
+        jnp.asarray(labels))
+    loss_t, (lm_t, st_t), grads_t = tm.moe_loss_and_grads(
+        params_from_numpy(params, "cpu"), torch.from_numpy(ids),
+        torch.from_numpy(labels), tcfg, with_stats=True,
+        dispatch_mode="capacity")
+    np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-5)
+    np.testing.assert_allclose(float(lm_t), float(lm_j), rtol=1e-5)
+    for key in st_j:
+        np.testing.assert_array_equal(st_t[key].numpy(), np.asarray(st_j[key]),
+                                      err_msg=key)
+    want, got = _flat(_np_tree(grads_j)), _flat(grads_t)
+    assert want.keys() == got.keys() == _flat(params).keys()
+    for key in want:
+        scale = np.abs(want[key]).max()
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-4,
+                                   atol=1e-5 * scale, err_msg=key)
+    if name != "tiny":
+        # every layer carries both FFNs; the one a layer does not run gets
+        # no gradient in either package, the other does
+        moe = [i % tcfg.moe_every == tcfg.moe_every - 1
+               for i in range(tcfg.num_hidden_layers)]
+        for keys, unused in ((("gate", "e_w1", "e_w2"), np.logical_not(moe)),
+                             (("w1", "w2"), np.array(moe))):
+            for key in keys:
+                w, g = want["layers/" + key], got["layers/" + key]
+                assert not w[unused].any() and not g[unused].any(), key
+                assert all(w[i].any() for i in np.flatnonzero(~unused)), key
 
 
 def test_active_rows_under_capacity_raises_as_jax():
