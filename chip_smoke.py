@@ -185,6 +185,33 @@ Phases, in order; any failure exits non-zero before the last line:
                each kernel's launches counted from each pack alone, and a
                torch.profiler split of one step; the steps must make no
                host sync (sync debug mode);
+  8a. resume - build_train_step on llama_7b's width cut to 2 layers
+               (bf16, B=4, S=2048, full remat, 6.67 GB of state) under
+               PADDLE_TPU_TORCH_FLASH_BWD=split: 6 uninterrupted steps;
+               the same seed through CheckpointManager(keep=2,
+               interval=2), SIGTERM after step 5 (final synchronous
+               save, Preempted(5)); a restore into a state of another
+               seed (every leaf's checksum the manifest's, step 6's loss
+               bitwise); a fault at ckpt.commit.before_marker on a later
+               save (latest() stays on 5, the restore from it bitwise
+               again); bench.py bench_preempt_resume's readings (async
+               and blocking save overheads, resume_to_parity_ms) with the
+               snapshot ms, GB, write, verify and restore seconds and the
+               peak host RSS; a tiny fp32 checkpoint from CUDA tensors
+               into a CPU template and back, bitwise; launches of rows 1,
+               14, 17 and 18 asserted;
+  8b. fleet  - bench.py bench_serve_fleet's trace (24 requests, a
+               512-token system prompt, 32 new tokens, deterministic) on
+               llama_7b (bf16, 32 layers): a lone engine, then a
+               FleetRouter of 2 replicas under affinity and random
+               dispatch (streams bitwise the lone engine's), a replica
+               killed mid-burst with journals on (nothing lost, every
+               stream not migrated bitwise, journaled tokens kept), a
+               rolling swap from a CheckpointManager root of the same
+               weights (2 swaps, no drops, streams bitwise); tokens/s,
+               hit rates, swap ms, save seconds; launches of rows 1 and
+               3 asserted. Both phases write under tempfile.mkdtemp(),
+               check the free disk first and remove their files;
   9. times   - each kernel timed with CUDA events beside its bound, its
                plain version and one PyTorch library call (a yardstick
                the port never calls); row 1 beside the launch floor (an
@@ -217,8 +244,12 @@ import json
 import math
 import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -5800,6 +5831,537 @@ def paged_read_times(dev):
     return {key: r}
 
 
+# ---------------------------------------------------------------------------
+# resume and fleet: checkpoint save/load, the CheckpointManager, and the
+# FleetRouter over engine replicas on one card
+# ---------------------------------------------------------------------------
+
+# resume: build_train_step at llama_7b's width cut to 2 layers (667 M
+# params: bf16 weights, f32 moments, 6.7 GB of state), bench.py
+# bench_preempt_resume's readings at this shape
+RESUME_LAYERS, RESUME_B, RESUME_S, RESUME_STEPS = 2, 4, 2048, 6
+RESUME_INTERVAL = RESUME_STEPS // 2    # two saves a measured run (bench.py)
+# fleet: bench.py bench_serve_fleet's on-chip trace (RandomState(20): a
+# 512-token system prompt, tails of 16-95 tokens, 32 new tokens, arrival
+# 2i on the iteration clock in deterministic mode)
+FLEET_SERVE = dict(block_size=128, num_blocks=257, max_batch=8,
+                   prefill_chunk=256, max_seq_len=2048, prefix_cache=True)
+FLEET_REQUESTS, FLEET_NEW, FLEET_SYSTEM, FLEET_TAIL = 24, 32, 512, (16, 96)
+FLEET_N = 2    # 2 x 17.2 GB of pools + 13.5 GB of weights; 4 do not fit
+
+
+def _tree_bytes(tree):
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _need_disk(path, nbytes, what):
+    """Raise, naming the bytes, when ``path``'s file system has less than
+    ``nbytes`` free."""
+    free = shutil.disk_usage(path).free
+    if free < nbytes:
+        raise RuntimeError(
+            f"{what} needs {nbytes / 1e9:.2f} GB free under {path}; "
+            f"{free / 1e9:.2f} GB are")
+    print(f"disk under {path}: {free / 1e9:.1f} GB free, {what} needs "
+          f"{nbytes / 1e9:.2f} GB")
+
+
+class _RssPeak:
+    """The process's peak resident set over a block, sampled every 20 ms
+    from /proc/self/status (VmHWM holds the peak since the process
+    started, earlier phases included); ``mark(name)`` closes a stretch
+    and keeps its own peak in ``marks``."""
+
+    def __enter__(self):
+        self.peak, self._stop = 0, threading.Event()
+        self.marks, self._since = {}, self._rss()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+        return self
+
+    def mark(self, name):
+        self.marks[name] = round(self._since / 1e9, 2)
+        self._since = self._rss()
+
+    def _rss(self):
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    def _run(self):
+        while not self._stop.is_set():
+            now = self._rss()
+            self.peak = max(self.peak, now)
+            self._since = max(self._since, now)
+            self._stop.wait(0.02)
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        self.peak = max(self.peak, self._rss())
+
+
+def _fresh_train_state(cfg, seed, dev):
+    from paddle_tpu_torch.models import llama as tl
+    params = tl.init_llama_params(cfg, seed, device=dev)
+    return {"params": params, "opt": tl._adamw_init(params), "step": 0}
+
+
+def _train_run(step, state, batches, start, stop, on_step=None):
+    """Steps start+1..stop on ``state`` (its leaves updated in place);
+    ``on_step(i)`` after step i. Returns the losses."""
+    losses = []
+    for i in range(start, stop):
+        x = batches[i]
+        state["params"], state["opt"], loss = step(
+            state["params"], state["opt"], x[:, :-1], x[:, 1:])
+        losses.append(float(loss))
+        state["step"] = i + 1
+        if on_step is not None:
+            on_step(i + 1)
+    return losses
+
+
+def check_tiny_checkpoint(dev, root):
+    """A tiny fp32 Llama train state written from CUDA tensors restores
+    bitwise into a CPU template, and one written from the CPU into a card
+    template; both manifests equal."""
+    from paddle_tpu_torch.distributed.checkpoint import save_load as sl
+    from paddle_tpu_torch.models import llama as tl
+    cfg = tl.llama_tiny(vocab=256, hidden=256, layers=2, heads=4,
+                        kv_heads=2, seq=256)
+    cpu = _fresh_train_state(cfg, 3, "cpu")
+    cpu["opt"]["m"]["embed"].normal_(     # moments not all zero
+        generator=torch.Generator().manual_seed(4))
+    state = {"cpu": dict(cpu, step=1),
+             "card": {"params": _to_device(cpu["params"], dev),
+                      "opt": _to_device(cpu["opt"], dev), "step": 1}}
+    for src, dst in (("card", "cpu"), ("cpu", "card")):
+        path = os.path.join(root, f"tiny_{src}")
+        sl.save_state_dict(state[src], path, manifest={"step": 1})
+        tmpl = _fresh_train_state(cfg, 9, dev if dst == "card" else "cpu")
+        sl.load_state_dict(tmpl, path)
+        sums = sl.leaf_checksums(tmpl)
+        assert sums == sl.load_manifest(path)["leaf_checksums"], (src, dst)
+        where = torch.device(dev if dst == "card" else "cpu").type
+        assert all(t.device.type == where for t in _leaves(tmpl["params"]))
+    assert sl.load_manifest(os.path.join(root, "tiny_card")) == \
+        sl.load_manifest(os.path.join(root, "tiny_cpu"))
+    print(f"tiny fp32 checkpoint: card -> CPU and CPU -> card bitwise, "
+          f"manifests equal ({len(sums)} leaves)")
+    return len(sums)
+
+
+def resume_phase(dev):
+    """Checkpoint, preemption and resume on build_train_step at llama_7b's
+    width cut to RESUME_LAYERS layers (B 4, S 2048, full remat), under
+    PADDLE_TPU_TORCH_FLASH_BWD=split so that a step's bits repeat (row
+    16's dQ reduce-adds are not order-deterministic): an uninterrupted
+    run; a CheckpointManager run preempted by SIGTERM after step 5; a
+    restore into a state of another seed, checked leaf by leaf against
+    the manifest and by step 6's loss; a commit fault on a later save;
+    bench.py bench_preempt_resume's readings; the tiny fp32 CUDA <-> CPU
+    check. Every file lives under one tempfile.mkdtemp(), removed at the
+    end whatever happens."""
+    import dataclasses
+    from paddle_tpu_torch.distributed.checkpoint import (CheckpointManager,
+                                                         Preempted)
+    from paddle_tpu_torch.distributed.checkpoint import save_load as sl
+    from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.testing import faults
+    phase(f"resume: llama_7b width, {RESUME_LAYERS} layers (bf16, "
+          f"B={RESUME_B}, S={RESUME_S}, AdamW f32 moments, "
+          f"PADDLE_TPU_TORCH_FLASH_BWD=split): CheckpointManager, SIGTERM, "
+          f"restore, a commit fault, bench_preempt_resume's readings")
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(tl.llama_7b(), num_hidden_layers=RESUME_LAYERS)
+    par = tl.ParallelConfig(remat=True, remat_policy="full")
+    L, n = RESUME_LAYERS, RESUME_STEPS
+    rng = np.random.RandomState(SEED)
+    batches = [rng.randint(0, cfg.vocab_size, size=(RESUME_B, RESUME_S + 1))
+               .astype(np.int32) for _ in range(n + 1)]
+    root = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    old_faults = os.environ.get(faults.ENV_FAULTS)
+    os.environ[faults.ENV_FAULTS] = "1"
+    out = {"layers": L, "batch": RESUME_B, "seq": RESUME_S}
+    try:
+        with _bwd_mode("split"), _RssPeak() as rss:
+            step, params, opt = tl.build_train_step(cfg, par, seed=SEED,
+                                                    device=dev)
+            state = {"params": params, "opt": opt, "step": 0}
+            nbytes = _tree_bytes(state["params"]) + _tree_bytes(state["opt"])
+            out["state_gb"] = nbytes / 1e9
+            # the most on disk at once: keep 2, one more in flight, and a
+            # failed save's dir
+            _need_disk(root, 4 * nbytes, "the resume phase")
+            _train_run(step, state, batches, 0, 1)    # warm-up
+            del state, params, opt
+            torch.cuda.empty_cache()
+
+            # 1. the uninterrupted run (also bench's bare steps)
+            state = _fresh_train_state(cfg, SEED, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = _train_run(step, state, batches, 0, n)
+            t_plain = time.perf_counter() - t0
+            ref.append(_train_run(step, state, batches, n, n + 1)[0])
+            del state
+            rss.mark("uninterrupted")
+            print(f"uninterrupted losses {ref[:n]} ({t_plain / n * 1e3:.1f} "
+                  f"ms a step); step {n + 1} {ref[n]}")
+
+            # 2. the managed run, SIGTERM after step 5 (counts from here)
+            state = _fresh_train_state(cfg, SEED, dev)
+            mgr = CheckpointManager(os.path.join(root, "run"), keep=2,
+                                    interval=2)
+            _zero_counts()
+            mgr.install_preemption_handler()
+            try:
+                def on_step(i):
+                    if i == 5:
+                        os.kill(os.getpid(), signal.SIGTERM)
+                    mgr.on_step(i, lambda: state)
+                try:
+                    _train_run(step, state, batches, 0, n, on_step)
+                    raise AssertionError("no Preempted after SIGTERM")
+                except Preempted as e:
+                    pre = e
+            finally:
+                mgr.uninstall_preemption_handler()
+            assert pre.step == 5 and pre.checkpoint == mgr.step_dir(5), pre
+            assert mgr.steps() == [4, 5] and mgr.save_errors == [], \
+                (mgr.steps(), mgr.save_errors)
+            del state
+            torch.cuda.empty_cache()
+
+            # 3. a fresh state of another seed, restored
+            state = _fresh_train_state(cfg, SEED + 1, dev)
+            t0 = time.perf_counter()
+            assert mgr.verify_step(5)
+            t_verify = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = mgr.restore(state, verify=False)
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+            assert got == 5 and int(state["step"]) == 5, got
+            man = sl.load_manifest(mgr.step_dir(5))
+            assert sl.leaf_checksums(state) == man["leaf_checksums"]
+            loss6 = _train_run(step, state, batches, 5, 6)[0]
+            launches = _counts()
+            assert loss6 == ref[5], (loss6, ref[5])
+            rss.mark("managed run and restore")
+            print(f"preempted at step {pre.step}; restored step {got} into "
+                  f"seed {SEED + 1}'s state: {man['n_leaves']} leaf "
+                  f"checksums equal the manifest's; step 6 loss {loss6} "
+                  f"bitwise the uninterrupted one; verify {t_verify:.2f} s, "
+                  f"restore {t_restore:.2f} s")
+
+            # 4. a commit fault on a later save: latest() stays on 5, and
+            #    the restore from it continues bitwise
+            with faults.scope("ckpt.commit.before_marker", "raise") as plan:
+                mgr.save(state, 6)
+                errs = mgr.wait()
+            assert plan.fired == 1 and len(errs) == 1 and \
+                isinstance(errs[0][1], faults.FaultError), errs
+            assert mgr.latest() == 5 and \
+                os.path.isdir(mgr.step_dir(6)), mgr.steps()
+            assert mgr.restore(state) == 5
+            again = _train_run(step, state, batches, 5, 6)[0]
+            assert again == ref[5], (again, ref[5])
+            rss.mark("commit fault")
+            print(f"commit fault at step 6: latest() {mgr.latest()}, the "
+                  f"restore from it gives step 6's loss again bitwise")
+            del state
+            shutil.rmtree(mgr.root)
+            torch.cuda.empty_cache()
+            # the split backward only: no flash_bwd (row 16)
+            want = {"flash_fwd": 2 * L * 6,
+                    "flash_bwd_dkv": L * 6, "flash_bwd_dq": L * 6,
+                    "rms_norm": ((2 * L + 1) + 2 * L) * 6}
+            ran = {k: v for k, v in launches.items() if v}
+            assert ran == want, (ran, want)
+            print(f"launches over the managed run and the restored step: "
+                  f"{ran}")
+            out.update({"losses": ref, "launches": ran,
+                        "preempted_step": pre.step, "restored_step": got,
+                        "verify_s": t_verify, "restore_s": t_restore,
+                        "n_leaves": man["n_leaves"]})
+
+            # 5. bench_preempt_resume's readings: interval-paced async
+            #    saves and blocking saves against bare steps, resume to
+            #    parity
+            state = _fresh_train_state(cfg, SEED, dev)
+            amgr = CheckpointManager(os.path.join(root, "async"), keep=2,
+                                     interval=RESUME_INTERVAL)
+            paced_ms = []
+
+            def paced(i):
+                # on_step's blocking time: the snapshot, after waiting out
+                # the previous save's write
+                t = time.perf_counter()
+                if amgr.on_step(i, lambda: state) is not None:
+                    paced_ms.append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _train_run(step, state, batches, 0, n, paced)
+            t_async = time.perf_counter() - t0
+            assert amgr.wait() == [] and amgr.steps() == [3, 6]
+            l_ref = _train_run(step, state, batches, n, n + 1)[0]
+            del state
+            torch.cuda.empty_cache()
+            state = _fresh_train_state(cfg, SEED, dev)
+            bmgr = CheckpointManager(os.path.join(root, "block"), keep=2)
+            snap_ms, write_s = [], []
+
+            def blocking(i):
+                # save(block=True) in two timed halves: the snapshot
+                # (save returns) and the write (the handle resolves)
+                if i % RESUME_INTERVAL == 0:
+                    t = time.perf_counter()
+                    h = bmgr.save(state, i)
+                    snap_ms.append((time.perf_counter() - t) * 1e3)
+                    h.wait()
+                    write_s.append(time.perf_counter() - t - snap_ms[-1] / 1e3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _train_run(step, state, batches, 0, n, blocking)
+            t_block = time.perf_counter() - t0
+            del state
+            shutil.rmtree(bmgr.root)
+            torch.cuda.empty_cache()
+            tmpl = _fresh_train_state(cfg, SEED + 1, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = amgr.restore(tmpl)
+            l_res = _train_run(step, tmpl, batches, n, n + 1)[0]
+            resume_ms = (time.perf_counter() - t0) * 1e3
+            assert got == n and l_res == l_ref == ref[n], (got, l_res, l_ref)
+            del tmpl, step
+            torch.cuda.empty_cache()
+            bench = {
+                "train_steps_timed": n, "saves_per_run": n // RESUME_INTERVAL,
+                "step_time_plain_ms": t_plain / n * 1e3,
+                "save_overlap_overhead_pct": (t_async / t_plain - 1) * 100,
+                "blocking_save_overhead_pct": (t_block / t_plain - 1) * 100,
+                "resume_to_parity_ms": resume_ms, "resume_step": got,
+                "resume_loss_bitwise": l_res == l_ref,
+                "snapshot_blocking_ms": snap_ms, "write_s": write_s,
+                "on_step_blocking_ms": paced_ms,
+                "gb_written_per_save": nbytes / 1e9}
+            out["bench_preempt_resume"] = bench
+            rss.mark("bench_preempt_resume")
+            print(f"bench_preempt_resume: bare {t_plain / n * 1e3:.1f} ms a "
+                  f"step; interval-paced async saves "
+                  f"{bench['save_overlap_overhead_pct']:+.1f}%, blocking "
+                  f"saves {bench['blocking_save_overhead_pct']:+.1f}% over "
+                  f"{n} steps with {n // RESUME_INTERVAL} saves; "
+                  f"resume_to_parity_ms {resume_ms:.1f}; snapshot blocking "
+                  f"{[round(x, 1) for x in snap_ms]} ms (on_step with the "
+                  f"async saves {[round(x, 1) for x in paced_ms]} ms); "
+                  f"{nbytes / 1e9:.2f} GB a save, write "
+                  f"{[round(x, 2) for x in write_s]} s")
+            out["tiny_leaves"] = check_tiny_checkpoint(dev, root)
+            rss.mark("tiny")
+        out["peak_host_rss_gb"] = rss.peak / 1e9
+        out["peak_host_rss_gb_by_stretch"] = rss.marks
+        out["wall_s"] = time.perf_counter() - t_phase
+        print(f"peak host RSS {rss.peak / 1e9:.2f} GB (GB by stretch: "
+              f"{rss.marks}); resume phase {out['wall_s']:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if old_faults is None:
+            os.environ.pop(faults.ENV_FAULTS, None)
+        else:
+            os.environ[faults.ENV_FAULTS] = old_faults
+    return out
+
+
+def _fleet_requests(prompts):
+    from paddle_tpu_torch import Request
+    return [Request(list(p), max_new_tokens=FLEET_NEW, arrival=float(2 * i))
+            for i, p in enumerate(prompts)]
+
+
+def _fleet_run(name, make, prompts, **run_kw):
+    """One deterministic fleet run with the kernel counts set to 0 just
+    before it and read just after: RMSNorm (row 1) and the paged decode
+    (row 3) launched, nothing else. Returns (fleet, stats, wall s)."""
+    fleet = make()
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    stats = fleet.run(_fleet_requests(prompts), deterministic=True, **run_kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ran = {k: v for k, v in _counts().items() if v}
+    assert set(ran) == {"rms_norm", "paged_attend_update"}, (name, ran)
+    assert stats["lost"] == 0 and stats["requests"] == FLEET_REQUESTS, \
+        (name, stats)
+    assert all(fleet.engines[i].pool.used_blocks == 0
+               for i in fleet._live()), name
+    hits = sum(e.cache.hit_tokens for e in fleet.engines)
+    print(f"  {name}: {wall:.2f} s, {stats['generated_tokens'] / wall:.1f} "
+          f"tokens/s, routed {stats['routed_per_replica']}, affinity hit "
+          f"rate {stats['affinity_hit_rate']}, cache hit tokens {hits}, "
+          f"spills {stats['spills']}, migrations {stats['migrations']}, "
+          f"launches {ran}")
+    return fleet, stats, wall, ran
+
+
+def _migrated_streams(fleet, ref):
+    """The kill run's streams against the lone engine's: every request
+    the dead replica did not hold is bitwise the reference; a migrated
+    one keeps every token its journal holds verbatim (the reference's
+    own), and its re-derived tokens are reported, not asserted: the
+    survivor re-prefills prompt + history, whose bf16 KV rounds apart
+    from the decode's (serve-ops' crash and recover shows the same)."""
+    from paddle_tpu_torch import read_journal
+    got = fleet.streams()
+    moved = {rid for rid, _, kind, _ in fleet.routing_log
+             if kind.startswith("migrate:")}
+    journaled = read_journal(fleet.engines[fleet.dead[0]].journal_path).tokens
+    assert set(got) == set(ref)
+    for rid in ref:
+        if rid not in moved:
+            assert got[rid] == ref[rid], rid
+        else:
+            toks = journaled.get(rid, [])
+            assert got[rid][:len(toks)] == toks == ref[rid][:len(toks)], rid
+            assert len(got[rid]) == FLEET_NEW, rid
+    same, first = _divergence({r: got[r] for r in moved}, ref)
+    kept = {rid: len(journaled.get(rid, [])) for rid in moved}
+    print(f"  kill: {len(ref) - len(moved)} streams not migrated, all "
+          f"bitwise the lone engine's; {len(moved)} migrated, journaled "
+          f"tokens kept verbatim {kept}; {len(same)} of them bitwise, first "
+          f"divergent index of the others {first}")
+    return {"migrated": sorted(moved), "journaled_tokens": kept,
+            "migrated_streams_equal": len(same), "first_divergence": first}
+
+
+def fleet_phase(dev):
+    """bench.py bench_serve_fleet's on-chip trace on llama_7b (bf16, 32
+    layers, seeded random weights), FLEET_N replicas of FLEET_SERVE
+    sharing one weight tree: a lone engine as the reference, then the
+    fleet under affinity and under random dispatch, with a replica killed
+    mid-burst (journals on), and with a rolling swap whose source is a
+    CheckpointManager root holding the same weights. Streams must equal
+    the lone engine's, nothing may be lost or dropped."""
+    from paddle_tpu_torch import (FleetRouter, InferenceEngine, ServeConfig,
+                                  init_llama_params, llama_7b)
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    phase(f"fleet: FleetRouter over {FLEET_N} InferenceEngine replicas of "
+          f"llama_7b (bf16, 32 layers), bench_serve_fleet's trace of "
+          f"{FLEET_REQUESTS} requests; lone engine, affinity, random, a "
+          f"kill, a rolling swap from a checkpoint root")
+    t_phase = time.perf_counter()
+    cfg = llama_7b()
+    params = init_llama_params(cfg, seed=SEED, device=dev)
+    rng = np.random.RandomState(20)
+    system = rng.randint(1, cfg.vocab_size, size=FLEET_SYSTEM).tolist()
+    prompts = [system + rng.randint(1, cfg.vocab_size,
+                                    size=rng.randint(*FLEET_TAIL)).tolist()
+               for _ in range(FLEET_REQUESTS)]
+    root = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    out = {"replicas": FLEET_N, "requests": FLEET_REQUESTS}
+    try:
+        nbytes = _tree_bytes(params)
+        _need_disk(root, nbytes + (1 << 30), "the fleet phase")
+        eng = InferenceEngine(params, cfg, ServeConfig(**FLEET_SERVE),
+                              device=dev)
+        reqs = _fleet_requests(prompts)
+        for i, r in enumerate(reqs):
+            r.request_id = i
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(reqs, deterministic=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ref = {s.req.request_id: list(s.generated) for s in eng.finished}
+        assert len(ref) == FLEET_REQUESTS and \
+            all(len(t) == FLEET_NEW for t in ref.values())
+        out["lone"] = {"wall_s": wall, "tokens_per_sec":
+                       FLEET_REQUESTS * FLEET_NEW / wall,
+                       "cache_hit_tokens": eng.cache.hit_tokens}
+        print(f"  lone engine: {wall:.2f} s, "
+              f"{out['lone']['tokens_per_sec']:.1f} tokens/s, cache hit "
+              f"tokens {eng.cache.hit_tokens}")
+        del eng
+        _release_card()
+
+        def make(policy="affinity", journal=False):
+            jd = None
+            if journal:
+                jd = tempfile.mkdtemp(dir=root, prefix="journals_")
+            return lambda: FleetRouter(
+                params, cfg, ServeConfig(**FLEET_SERVE), n_replicas=FLEET_N,
+                journal_dir=jd, policy=policy, seed=5, device=dev)
+
+        runs = {}
+        for name, mk, kw in (
+                ("affinity", make(), {}),
+                ("random", make("random"), {}),
+                ("kill", make(journal=True),
+                 {"kill_at": (FLEET_REQUESTS, 0)})):
+            fleet, stats, wall, ran = _fleet_run(name, mk, prompts, **kw)
+            if name == "kill":
+                killed = _migrated_streams(fleet, ref)
+            else:
+                assert fleet.streams() == ref, name
+            runs[name] = {
+                "wall_s": wall,
+                "tokens_per_sec": stats["generated_tokens"] / wall,
+                "affinity_hit_rate": stats["affinity_hit_rate"],
+                "cache_hit_tokens": sum(e.cache.hit_tokens
+                                        for e in fleet.engines),
+                "routed_per_replica": stats["routed_per_replica"],
+                "spills": stats["spills"],
+                "migrations": stats["migrations"], "launches": ran}
+            if name == "kill":
+                assert stats["migrations"] > 0 and not fleet.alive[0]
+                runs[name].update(killed)
+            del fleet
+            _release_card()
+
+        # the rolling swap's source: a manager root holding the same
+        # weights, saved once
+        mgr = CheckpointManager(os.path.join(root, "weights"), keep=1)
+        t0 = time.perf_counter()
+        mgr.save({"params": params, "step": 0}, 0, block=True)
+        save_s = time.perf_counter() - t0
+        fleet, stats, wall, ran = _fleet_run(
+            "rolling swap", make(), prompts, rolling_swap_at=3,
+            swap_source=mgr.root)
+        swaps = [e.last_swap for e in fleet.engines]
+        assert stats["rolling_swaps"] == FLEET_N and \
+            fleet.last_rolling_swap == {"swapped": list(range(FLEET_N))}
+        assert all(s["source"] == mgr.step_dir(0) and
+                   s["in_flight_running"] == 0 == s["in_flight_prefill"]
+                   for s in swaps), swaps
+        assert fleet.streams() == ref
+        runs["rolling_swap"] = {
+            "wall_s": wall, "tokens_per_sec": stats["generated_tokens"] / wall,
+            "save_s": save_s, "gb": nbytes / 1e9,
+            "swap_ms": [s["swap_ms"] for s in swaps],
+            "launches": ran}
+        print(f"  rolling swap: {nbytes / 1e9:.2f} GB saved in {save_s:.2f} "
+              f"s; swap_ms per replica "
+              f"{[round(s['swap_ms'], 1) for s in swaps]} (each reads the "
+              f"checkpoint into the shared tree); no drops; streams equal")
+        del fleet
+        _release_card()
+        out.update(runs)
+        out["wall_s"] = time.perf_counter() - t_phase
+        print(f"fleet phase {out['wall_s']:.1f} s; N = 4 is left out: 4 x "
+              f"17.2 GB of pools and 13.5 GB of weights exceed the card")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        del params
+        _release_card()
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     smi = probe()
@@ -5840,6 +6402,8 @@ def main():
     ernie_cap = ernie_capacity(dev)
     gen = generate_tinyllama(dev)
     varlen = varlen_phase(dev)
+    resume = resume_phase(dev)
+    fleet = fleet_phase(dev)
     tm = times(dev, errs)
     fwd_key = "flash_fwd[B=4,NH=32,S=2048,D=128,causal]"
     bwd_key = "flash_bwd[B=4,NH=32,S=2048,D=128,causal]"
@@ -6025,7 +6589,7 @@ def main():
               "train_policies": policies, "chunked_ce": ce,
               "train_13b": train13, "train_long": tlong, "attn_long": along,
               "ernie": ernie, "ernie_capacity": ernie_cap, "generate": gen,
-              "varlen": varlen,
+              "varlen": varlen, "resume": resume, "fleet": fleet,
               "times": tm,
               "wall_s": wall_s}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -7,7 +7,8 @@ hand-written kernel is replaced by its plain PyTorch version. Kernels
 """
 from . import envs, observability  # noqa: F401
 from .inference import (Admission, AdmissionController, BlockPool,
-                        BlockPoolError, EngineJournal, InferenceEngine,
+                        BlockPoolError, EngineJournal, FleetRouter,
+                        InferenceEngine,
                         JournalCompatError, PoisonError, PrefixCache,
                         Request, ServeConfig, pad_table, read_journal)
 from .models.llama import (LlamaConfig, generate, init_llama_params,
@@ -16,7 +17,8 @@ from .models.llama import (LlamaConfig, generate, init_llama_params,
                            make_draft_model, params_from_numpy)
 
 __all__ = ["envs", "observability", "Admission", "AdmissionController",
-           "BlockPool", "BlockPoolError", "EngineJournal", "InferenceEngine",
+           "BlockPool", "BlockPoolError", "EngineJournal", "FleetRouter",
+           "InferenceEngine",
            "JournalCompatError", "PoisonError", "PrefixCache", "Request",
            "ServeConfig", "pad_table", "read_journal", "LlamaConfig", "generate",
            "init_llama_params", "init_paged_kv_pool",

@@ -300,6 +300,53 @@ _register(
     parse=_positive_int("PADDLE_TPU_TORCH_SERVE_SPEC_K", 4))
 
 
+_register(
+    "PADDLE_TPU_TORCH_CKPT_KEEP", "int", 3,
+    doc="Rolling-checkpoint retention of CheckpointManager: the keep-N "
+        "garbage collector deletes complete step dirs beyond the newest "
+        "N. Positive integer; an explicit keep= argument wins.",
+    parse=_positive_int("PADDLE_TPU_TORCH_CKPT_KEEP", 3))
+
+_register(
+    "PADDLE_TPU_TORCH_CKPT_INTERVAL", "int", None,
+    doc="Steps between CheckpointManager.on_step async saves; "
+        "''/'auto'/unset disables interval pacing (explicit save() calls "
+        "only). An explicit interval= argument wins.",
+    parse=_positive_int("PADDLE_TPU_TORCH_CKPT_INTERVAL", None,
+                        allow_auto=True))
+
+_register(
+    "PADDLE_TPU_TORCH_PREEMPT_GRACE", "float", 30.0,
+    doc="Seconds a preemption shutdown waits for the in-flight async "
+        "checkpoint write before abandoning it and taking the final sync "
+        "save. Positive number.",
+    parse=_positive_float("PADDLE_TPU_TORCH_PREEMPT_GRACE", 30.0))
+
+_register(
+    "PADDLE_TPU_TORCH_FLEET_SERVE_REPLICAS", "int", 2,
+    doc="Replica count of the serving FleetRouter: N InferenceEngine "
+        "replicas behind one prefix-affinity router. Positive integer; "
+        "FleetRouter(n_replicas=) wins.",
+    parse=_positive_int("PADDLE_TPU_TORCH_FLEET_SERVE_REPLICAS", 2))
+
+_register(
+    "PADDLE_TPU_TORCH_FLEET_SERVE_SPILL", "int", 4,
+    doc="Queue-depth spill threshold of the FleetRouter's prefix-affinity "
+        "dispatch: when the affinity replica's queue depth + in-flight "
+        "count reaches this, the request spills to the least-loaded live "
+        "replica instead. Positive integer; FleetRouter(spill=) wins.",
+    parse=_positive_int("PADDLE_TPU_TORCH_FLEET_SERVE_SPILL", 4))
+
+_register(
+    "PADDLE_TPU_TORCH_FLEET_SERVE_JOURNAL_DIR", "str", None,
+    doc="Directory for per-replica FleetRouter journals: each replica "
+        "writes replica_<i>.jsonl there, and kill_replica() re-drives a "
+        "dead replica's unfinished journal entries onto survivors. "
+        "Unset/empty disables fleet journaling; FleetRouter(journal_dir=) "
+        "wins.",
+    parse=lambda value: value or None)
+
+
 def _parse_moe_dropless(value):
     v = (value or "").strip().lower()
     if v in ("1", "true", "yes", "on"):

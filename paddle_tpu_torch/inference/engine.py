@@ -63,13 +63,13 @@ scores all K+1 positions and commits only the accepted prefix's KV.
 Every emitted token is the base model's greedy argmax, so streams equal
 sequential decode for any draft.
 
-Tensor-parallel serving (``mp > 1``) and a weight swap from a checkpoint
-directory are not ported.
+Tensor-parallel serving (``mp > 1``) is not ported.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 import signal
 import threading
 import time
@@ -81,6 +81,8 @@ import torch
 
 from .. import envs
 from .._device import resolve_device
+from ..distributed.checkpoint import save_load as sl
+from ..distributed.checkpoint.manager import _STEP_RE, CheckpointManager
 from ..models.llama import (LlamaConfig, _tensor_from_numpy,
                             init_paged_kv_pool, init_paged_kv_scales,
                             llama_paged_decode_step,
@@ -1426,20 +1428,23 @@ class InferenceEngine:
         """Live weight push: replace the model weights without restarting
         the engine or dropping a request.
 
-        ``source`` is an in-memory parameter tree (torch tensors or numpy
-        arrays) of exactly the current tree's structure and shapes. Each
-        leaf is copied INTO the current leaf (``copy_``, cast to its
-        dtype), one leaf at a time, so peak extra memory is one weight and
-        the draft model's leaves, views of the base's, stay in step; the
-        KV pools, block tables and scheduler state are untouched. A
-        checkpoint directory as source is not ported.
+        ``source`` is a checkpoint directory (a ``save_state_dict`` dir or
+        a CheckpointManager root, whose newest complete checkpoint is
+        used; a training checkpoint's ``"params"`` subtree is taken when
+        the engine's tree has no ``"params"`` key) or an in-memory
+        parameter tree (torch tensors or numpy arrays). The new tree must
+        match the current one's structure and shapes exactly. Each leaf is
+        copied INTO the current leaf (``copy_``, cast to its dtype), one
+        leaf at a time and a directory's leaf files read one at a time,
+        so peak extra memory is one weight and the draft model's leaves,
+        views of the base's, stay in step; the KV pools, block tables and
+        scheduler state are untouched.
 
         With ``at_iteration`` the swap is deferred to that iteration's
         boundary, the safe drain point (the previous step has synced its
         tokens, nothing is in flight); without it the swap applies now.
         With identical weights the post-swap stream is bit-identical;
         in-flight sequences keep their KV prefix either way."""
-        self._resolve_swap_source(source)
         if at_iteration is not None and at_iteration > self.iteration:
             self._pending_swap = (source, int(at_iteration))
             self._event("swap_scheduled", int(at_iteration))
@@ -1447,12 +1452,27 @@ class InferenceEngine:
         return self._apply_swap(source)
 
     def _resolve_swap_source(self, source):
-        if isinstance(source, (str, bytes)) or hasattr(source, "__fspath__"):
-            raise NotImplementedError(
-                "swap_weights: a checkpoint directory as source is not "
-                "ported yet (ROADMAP.md queue 1 item 11); pass an "
-                "in-memory parameter tree")
-        return source, None
+        if not isinstance(source, (str, bytes, os.PathLike)):
+            return source, None
+        path = os.path.abspath(os.fsdecode(source))
+        try:
+            entries = os.listdir(path)
+        except OSError:
+            entries = []
+        if any(_STEP_RE.match(n) for n in entries):
+            # a manager root: serve from its newest complete checkpoint
+            resolved = CheckpointManager(path).latest_path()
+            if resolved is None:
+                raise FileNotFoundError(
+                    f"swap_weights: no complete checkpoint under {path!r}")
+            path = resolved
+        sl._wait_pending(path)  # an in-flight async save to this very dir
+        restored = sl.read_tree(path)
+        # a training checkpoint nests the weights under "params"
+        if isinstance(restored, dict) and "params" in restored \
+                and "params" not in self.params:
+            restored = restored["params"]
+        return restored, path
 
     def _apply_swap(self, source) -> Dict[str, Any]:
         faults.inject("serve.swap.before", iteration=self.iteration)
@@ -1486,7 +1506,9 @@ class InferenceEngine:
                 raise ValueError(
                     f"swap_weights: shape mismatch at {leaf_path!r}: "
                     f"engine {tuple(target.shape)}, source {shape}")
-            if not isinstance(saved, torch.Tensor):
+            if isinstance(saved, sl.LeafFile):
+                saved = saved.read()
+            elif not isinstance(saved, torch.Tensor):
                 saved = _tensor_from_numpy(saved)
             if saved is not target:
                 target.copy_(saved)

@@ -216,6 +216,86 @@ class MetricsRegistry:
                 out[name] = m.get()
         return out
 
+    @classmethod
+    def merge(cls, registries: Sequence[Tuple[str, "MetricsRegistry"]],
+              label: str = "replica") -> str:
+        """Render N registries into ONE Prometheus text block with a
+        ``label=`` sample label distinguishing the sources: the fleet
+        exposition, where each serving replica's engine registry merges
+        into one scrape carrying ``replica="i"`` on every sample line
+        (histogram buckets via the shared assembler, so per-replica
+        bucket lines stay byte-compatible with a lone engine's, modulo
+        the added label).
+
+        The same metric name appearing in several registries is
+        label-split — that IS the merge. The same name with a DIFFERENT
+        kind or help text is a collision and raises: silent shadowing
+        is how two subsystems end up scraping each other's numbers.
+        Duplicate label values raise for the same reason.
+        """
+        if _prom_name(label) != label:
+            raise ValueError(f"invalid label name {label!r}")
+        decls: Dict[str, Tuple[str, str]] = {}   # full -> (kind, help)
+        samples: Dict[str, List[str]] = {}
+        seen_values: set = set()
+        for value, reg in registries:
+            value = str(value)
+            if value in seen_values:
+                raise ValueError(
+                    f"merge(): duplicate {label} label value {value!r}")
+            seen_values.add(value)
+            with reg._lock:
+                items = list(reg._metrics.items())
+                helps = dict(reg._help)
+            lab = f'{label}="{_escape_label(value)}"'
+            for name, m in items:
+                full = _prom_name(f"{reg.prefix}_{name}" if reg.prefix
+                                  else name)
+                help_text = helps.get(name, "")
+                if full in decls:
+                    kind0, help0 = decls[full]
+                    if kind0 != m.kind or help0 != help_text:
+                        raise ValueError(
+                            f"merge(): metric {full!r} collides across "
+                            f"registries ({kind0!r}/{help0!r} vs "
+                            f"{m.kind!r}/{help_text!r}); only identical "
+                            f"declarations label-split")
+                else:
+                    decls[full] = (m.kind, help_text)
+                out = samples.setdefault(full, [])
+                if isinstance(m, Family):
+                    if label in m.labelnames:
+                        raise ValueError(
+                            f"merge(): family {full!r} already carries "
+                            f"a {label!r} label")
+                    for values_, child in m.children():
+                        labels = lab + "," + _render_labels(
+                            m.labelnames, values_)
+                        if isinstance(child, Summary):
+                            out.extend(histogram_sample_lines(
+                                full, child.hist, labels=labels))
+                        else:
+                            out.append(
+                                f"{full}{{{labels}}} "
+                                f"{_prom_num(float(child.get()))}")
+                elif isinstance(m, Summary):
+                    out.extend(histogram_sample_lines(full, m.hist,
+                                                      labels=lab))
+                else:
+                    v = m.get()
+                    if v is None:
+                        continue
+                    out.append(f"{full}{{{lab}}} "
+                               f"{_prom_num(float(v))}")
+        lines: List[str] = []
+        for full in sorted(decls):
+            kind, help_text = decls[full]
+            if help_text:
+                lines.append(f"# HELP {full} {_escape_help(help_text)}")
+            lines.append(f"# TYPE {full} {kind}")
+            lines.extend(samples[full])
+        return "\n".join(lines) + "\n"
+
     def render_prometheus(self) -> str:
         """The single text exposition: per family (sorted by name), a
         ``# HELP`` line (when help text was given), the ``# TYPE`` line,

@@ -3,8 +3,8 @@
 
 Library code declares *named injection points* (``faults.inject(
 "serve.decode.before", rids=rids)`` or ``if faults.fires("serve.preempt")``)
-at the places where production failures land: the serving engine's
-scheduling loop.
+at the places where production failures land: every stage of the
+checkpoint write/publish protocol, the serving engine's scheduling loop.
 Tests *arm* a point with a seeded trigger and an action; everything is
 replayable from the seed — no wall-clock, no real signals needed.
 
@@ -36,9 +36,10 @@ Actions
     ``delay``    sleep ``delay_s`` at the point (a slow NFS write, a
                  straggler) — used to hold a window open so a racing
                  thread can be observed inside it.
-    ``corrupt``  call ``corrupt(ctx)``, the plan's own callable (there
-                 is no default corruptor): corrupted device logits, a
-                 poisoned batch row.
+    ``corrupt``  call ``corrupt(ctx)``, the plan's own callable:
+                 corrupted device logits, a poisoned batch row, or
+                 :func:`corrupt_array_file` for a checkpoint's leaf files
+                 (torn writes, bitrot).
     ``fire``     no side effect; the point's :func:`fires` returns True
                  (control-flow faults: forced evictions, preemption).
 
@@ -63,7 +64,7 @@ import numpy as np
 from .. import envs
 
 __all__ = ["FaultError", "FaultPlan", "arm", "disarm", "scope", "inject",
-           "fires", "plan_for", "ENV_FAULTS"]
+           "fires", "plan_for", "corrupt_array_file", "ENV_FAULTS"]
 
 ENV_FAULTS = "PADDLE_TPU_TORCH_FAULTS"
 
@@ -214,3 +215,30 @@ def fires(point: str, **ctx) -> bool:
             hot = _act(plan, ctx) or hot
     return hot
 
+
+
+def corrupt_array_file(ctx: Dict[str, Any]) -> str:
+    """Flip 64 bytes in the middle of the largest non-JSON file under
+    ``ctx['dir']``: in a checkpoint directory of
+    ``paddle_tpu_torch.distributed.checkpoint``, its largest leaf file (a
+    torn write). Returns the corrupted path."""
+    import os
+    root = ctx["dir"]
+    victims = []
+    for dirpath, _, filenames in os.walk(root):
+        for fn in filenames:
+            if fn.endswith(".json"):
+                continue
+            p = os.path.join(dirpath, fn)
+            victims.append((os.path.getsize(p), p))
+    if not victims:
+        raise RuntimeError(f"no array files to corrupt under {root!r}")
+    _, path = max(victims)
+    size = os.path.getsize(path)
+    off = max(0, size // 2 - 32)
+    with open(path, "r+b") as f:
+        f.seek(off)
+        chunk = bytearray(f.read(64))
+        f.seek(off)
+        f.write(bytes(b ^ 0xFF for b in chunk))
+    return path

@@ -2242,3 +2242,116 @@ def test_non_split_ernie_steps_on_card_match_cpu(dev):
     np.testing.assert_allclose(res[1][0], res[0][0], rtol=1e-5)
     assert res[1][1] == res[0][1]
     assert res[0][2] == 0 and res[1][2] == 3 * 2 * cfg.num_hidden_layers
+
+
+# ---------------------------------------------------------------------------
+# checkpoint save/load and the serving fleet on the card
+# ---------------------------------------------------------------------------
+
+def _card_state(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    return {"w": torch.randn(257, 129, generator=g, device=dev)
+            .to(torch.bfloat16),
+            "opt": {"m": torch.randn(257, 129, generator=g, device=dev),
+                    "t": torch.ones((), device=dev)},
+            "i": torch.arange(7, device=dev, dtype=torch.int32), "step": 3}
+
+
+def test_checkpoint_round_trip_of_cuda_tensors_is_bitwise(dev, tmp_path):
+    """A save of CUDA tensors restores bitwise into a card template (the
+    same tensors, the same storage) and into a CPU template, and the
+    restored leaves hash to the manifest's checksums."""
+    from paddle_tpu_torch.distributed.checkpoint import save_load as sl
+    state = _card_state(dev)
+    path = str(tmp_path / "ck")
+    sl.save_state_dict(state, path, manifest={"step": 3})
+    man = sl.load_manifest(path)
+    assert man["leaf_checksums"] == sl.leaf_checksums(state)
+    for where in (dev, "cpu"):
+        tmpl = {"w": torch.zeros(257, 129, dtype=torch.bfloat16,
+                                 device=where),
+                "opt": {"m": torch.zeros(257, 129, device=where),
+                        "t": torch.zeros((), device=where)},
+                "i": torch.zeros(7, dtype=torch.int32, device=where),
+                "step": 0}
+        ptrs = [tmpl["w"].data_ptr(), tmpl["opt"]["m"].data_ptr()]
+        sl.load_state_dict(tmpl, path)
+        assert [tmpl["w"].data_ptr(), tmpl["opt"]["m"].data_ptr()] == ptrs
+        assert tmpl["w"].device.type == torch.device(where).type
+        for a, b in ((tmpl["w"], state["w"]),
+                     (tmpl["opt"]["m"], state["opt"]["m"]),
+                     (tmpl["opt"]["t"], state["opt"]["t"]),
+                     (tmpl["i"], state["i"])):
+            assert torch.equal(a.cpu(), b.cpu())
+        assert int(tmpl["step"]) == 3
+        assert sl.leaf_checksums(tmpl) == man["leaf_checksums"]
+
+
+def test_checkpoint_snapshot_isolated_from_an_update_right_after(dev,
+                                                                 tmp_path):
+    """An in-place AdamW update launched on the card right after an async
+    save returns never reaches the checkpoint: the snapshot is a complete
+    host copy when save_state_dict returns."""
+    from paddle_tpu_torch.distributed.checkpoint import save_load as sl
+    cfg = tl.llama_tiny(vocab=256, hidden=256, layers=2, heads=4,
+                        kv_heads=2, seq=256)
+    params = tl.init_llama_params(cfg, seed=1, device=dev)
+    state = {"params": params, "opt": tl._adamw_init(params), "step": 1}
+    want = sl.leaf_checksums(state)
+    grads = {k: ({kk: torch.full_like(vv, 0.25) for kk, vv in v.items()}
+                 if isinstance(v, dict) else torch.full_like(v, 0.25))
+             for k, v in params.items()}
+    h = sl.save_state_dict(state, str(tmp_path / "ck"), async_save=True,
+                           manifest={"step": 1})
+    tl._adamw_update(params, grads, state["opt"], 1e-2)
+    torch.cuda.synchronize()
+    assert sl.leaf_checksums(state) != want
+    h.wait()
+    assert sl.load_manifest(str(tmp_path / "ck"))["leaf_checksums"] == want
+    fresh = tl.init_llama_params(cfg, seed=2, device=dev)
+    tmpl = {"params": fresh, "opt": tl._adamw_init(fresh), "step": 0}
+    sl.load_state_dict(tmpl, str(tmp_path / "ck"))
+    assert sl.leaf_checksums(tmpl) == want
+
+
+def test_tiny_fleet_on_card_matches_cpu(dev, tmp_path):
+    """A tiny fp32 fleet of 3 replicas on the card, with a replica killed
+    mid-trace (journals on) and a rolling swap from a CheckpointManager
+    root: routing, streams and outcomes equal the same fleet's on the CPU,
+    and the card run launched rows 1 and 3."""
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.inference import FleetRouter, Request, ServeConfig
+    from paddle_tpu_torch.ops import rms_norm as rn
+    cfg = tl.llama_tiny(vocab=96, hidden=256, layers=2, heads=4, kv_heads=2,
+                        seq=512)
+    params = tl.init_llama_params(cfg, seed=3, device="cpu")
+    mgr = CheckpointManager(str(tmp_path / "root"), keep=1)
+    mgr.save({"params": params, "step": 1}, 1, block=True)
+    rng = np.random.RandomState(11)
+    shared = rng.randint(1, 90, size=140).tolist()
+    prompts = [shared + rng.randint(1, 90, size=8).tolist() if i % 2 == 0
+               else rng.randint(1, 90, size=24).tolist() for i in range(8)]
+    out = []
+    for side, d in enumerate(("cpu", dev)):
+        p = {k: ({kk: vv.to(d) for kk, vv in v.items()} if isinstance(v, dict)
+                 else v.to(d)) for k, v in params.items()}
+        jd = tmp_path / f"journals{side}"
+        jd.mkdir()
+        fleet = FleetRouter(p, cfg, ServeConfig(
+            block_size=128, num_blocks=10, max_batch=2, prefill_chunk=32,
+            max_seq_len=256, prefix_cache=True), n_replicas=3,
+            journal_dir=str(jd), device=d)
+        pa.paged_attend_update.launches = 0
+        rn.fused_rms_norm.launches = 0
+        stats = fleet.run([Request(pr, max_new_tokens=5, arrival=float(i))
+                           for i, pr in enumerate(prompts)],
+                          deterministic=True, kill_at=(4, 1),
+                          rolling_swap_at=2, swap_source=mgr.root)
+        out.append((fleet.routing_log, fleet.streams(), fleet.outcomes(),
+                    stats, pa.paged_attend_update.launches,
+                    rn.fused_rms_norm.launches))
+    (log0, s0, o0, st0, n0, r0), (log1, s1, o1, st1, n1, r1) = out
+    assert (log0, s0, o0, st0) == (log1, s1, o1, st1)
+    assert st1["lost"] == 0 and st1["migrations"] > 0 and \
+        st1["rolling_swaps"] == 2
+    assert n0 == r0 == 0 and n1 > 0 and r1 > 0

@@ -1,9 +1,9 @@
 """The port's serving operations against paddle_tpu's engine
 (tests/test_weight_swap.py's traces and the engine's surface): live weight
-swap, preemption, drain/undrain, adoption of migrated requests, the load
-signal, and the pieces the port leaves out on purpose (tensor-parallel
-serving, a checkpoint directory as swap source), which raise naming their
-ROADMAP items.
+swap (from a tree, a checkpoint directory or a CheckpointManager root),
+preemption, drain/undrain, adoption of migrated requests, the load
+signal, and the piece the port leaves out on purpose (tensor-parallel
+serving), which raises naming its ROADMAP item.
 
 The port's ``swap_weights`` copies each leaf INTO the engine's current
 leaf (``copy_``), so the draft model's leaves, views of the base's, follow;
@@ -16,9 +16,18 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
+from paddle_tpu.distributed.checkpoint import save_load as jsl
+from paddle_tpu.distributed.checkpoint.manager import \
+    CheckpointManager as JaxManager
 from paddle_tpu.inference import InferenceEngine as JaxEngine
+from paddle_tpu.inference import Request as JaxRequest
+from paddle_tpu.inference import ServeConfig as JaxServeConfig
 from paddle_tpu.ops import _common
 
+from paddle_tpu_torch.distributed.checkpoint import save_load as sl
+from paddle_tpu_torch.distributed.checkpoint.manager import CheckpointManager
 from paddle_tpu_torch.inference import InferenceEngine, Request, ServeConfig
 from paddle_tpu_torch.models import llama as tl
 from paddle_tpu_torch.testing import faults
@@ -135,11 +144,70 @@ def test_swap_rejects_mismatches_and_checkpoint_dirs(model, tmp_path):
     del missing["final_norm"]
     with pytest.raises(ValueError, match="tree mismatch"):
         eng.swap_weights(missing)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        eng.swap_weights(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        eng.swap_weights(tmp_path, at_iteration=9)
+    # a checkpoint directory is checked as a tree is: a saved leaf of
+    # another shape, a manager root with no complete step, no checkpoint
+    sl.save_state_dict(bad, str(tmp_path / "bad"))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        eng.swap_weights(str(tmp_path / "bad"))
+    os.makedirs(tmp_path / "root" / "step_00000001")
+    with pytest.raises(FileNotFoundError, match="no complete checkpoint"):
+        eng.swap_weights(tmp_path / "root")
+    with pytest.raises(FileNotFoundError):
+        eng.swap_weights(str(tmp_path / "nothing"))
     assert eng.swaps == 0 and eng._pending_swap is None
+
+
+def test_swap_from_checkpoint_dir_and_manager_root(model, tmp_path):
+    """tests/test_weight_swap.py's case on both sides: a save_state_dict
+    dir of other weights, then a manager root whose newest checkpoint
+    nests them under a train state's "params" (deferred to an iteration
+    boundary on the port); the streams follow the new weights."""
+    jcfg, jparams, tcfg, tparams = model
+    j2, t2 = tiny_model(seed=11)[1], tiny_model(seed=11)[3]
+    prompt = _trace()[0]["prompt"]
+    jserve = JaxServeConfig(**SERVE)
+
+    def jax_run(source):
+        with _common.interpret_mode(True):
+            # a tree of new dicts: JAX's swap rebinds leaves in place
+            eng = JaxEngine(jax.tree_util.tree_map(lambda a: a, jparams),
+                            jcfg, jserve)
+            stats = eng.swap_weights(source)
+            eng.run([JaxRequest(prompt, max_new_tokens=4, arrival=0.0)],
+                    deterministic=True)
+        return stats, eng.finished[0].generated
+
+    jsl.save_state_dict(j2, str(tmp_path / "jck"))
+    jm = JaxManager(str(tmp_path / "jroot"), keep=2)
+    jm.save({"params": jparams, "step": 1}, 1, block=True)
+    jm.save({"params": j2, "step": 2}, 2, block=True)
+    want = [jax_run(str(tmp_path / "jck")),
+            jax_run(str(tmp_path / "jroot"))]
+
+    sl.save_state_dict(_clone(t2), str(tmp_path / "ck"))
+    mgr = CheckpointManager(str(tmp_path / "root"), keep=2)
+    mgr.save({"params": _clone(tparams), "step": 1}, 1, block=True)
+    mgr.save({"params": _clone(t2), "step": 2}, 2, block=True)
+    for i, (source, want_src) in enumerate((
+            (str(tmp_path / "ck"), os.path.abspath(tmp_path / "ck")),
+            (tmp_path / "root", mgr.step_dir(2)))):
+        eng = _engine(model)
+        if i == 0:
+            stats = eng.swap_weights(source)
+        else:
+            assert eng.swap_weights(source, at_iteration=1) == \
+                {"scheduled_at": 1}
+        eng.run([Request(prompt, max_new_tokens=4, arrival=1.0)],
+                deterministic=True)
+        stats = eng.last_swap
+        jstats, jtokens = want[i]
+        assert stats["source"] == want_src
+        assert stats["n_leaves"] == jstats["n_leaves"] == \
+            len(list(tl._leaves(tparams)))
+        assert eng.finished[0].generated == jtokens
+        assert torch.equal(eng.params["embed"], t2["embed"])
+    assert want[0][1] != run_port(model, SERVE, [dict(
+        prompt=prompt, max_new_tokens=4)]).finished[0].generated
 
 
 def test_tensor_parallel_serving_is_refused():
