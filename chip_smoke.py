@@ -212,6 +212,26 @@ Phases, in order; any failure exits non-zero before the last line:
                hit rates, swap ms, save seconds; launches of rows 1 and
                3 asserted. Both phases write under tempfile.mkdtemp(),
                check the free disk first and remove their files;
+  8c. train-dp - build_train_step at llama_7b's width (bf16, B=4,
+               S=2048, full remat, AdamW f32 moments, the train phase's
+               seed and batches) over W ranks, spawned processes sharing
+               cuda:0 through gloo (which stages CUDA tensors through the
+               host: correctness and memory, not collective speed): dp 2,
+               sharding 2 at ZeRO stages 1 and 2 (4 layers, 2 steps),
+               stage 3 at 16 layers (1 step), dp 2 x sharding 2 at stage
+               3 (W=4, 4 layers, 2 steps); every rank the same loss at
+               every step, the dp replicas' params bitwise equal (a
+               checksum a leaf), the losses held to the single process's
+               (DP_STEP0_RTOL, DP_LATER_RTOL) and stages 1, 2, 3 to each
+               other, each rank's part of every param leaf to the single
+               process's params (DP_PARAM_REL, the relative Frobenius
+               error of the worst leaf; the parent's references reach the
+               ranks as CUDA handles), three faulty single-process
+               controls (step 1 skipped, step 1 on half the batch, step 0
+               skipped) shown to fail that limit, each rank's launches of
+               rows 1, 14 and 16 the train phase's a step, its collective
+               bytes a step equal to their reckoning; prints peak memory
+               beside the state reckoning and step ms;
   9. times   - each kernel timed with CUDA events beside its bound, its
                plain version and one PyTorch library call (a yardstick
                the port never calls); row 1 beside the launch floor (an
@@ -269,8 +289,13 @@ GEN_B, GEN_S, GEN_NEW = 8, 1024, 128
 BEAM_B, BEAM_K, BEAM_NEW = 2, 4, 32
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"\n== {name} ==", flush=True)
+    """A phase's header, with the script's seconds so far."""
+    print(f"\n== {name} == (at {time.perf_counter() - _T0:.1f} s)",
+          flush=True)
 
 
 def probe():
@@ -3414,6 +3439,14 @@ def _counts():
             "decode_attention_slab": da.decode_attention_slab.launches}
 
 
+def train_batches(vocab, n):
+    """The train phase's n seeded [TRAIN_B, TRAIN_S + 1] batches (ids and
+    labels shifted by one)."""
+    rng = np.random.RandomState(SEED)
+    return [rng.randint(0, vocab, size=(TRAIN_B, TRAIN_S + 1)).astype(np.int32)
+            for _ in range(n)]
+
+
 def train_7b(dev):
     """build_train_step at llama_7b's width, 16 of its 32 layers: 6.74 B
     params x 12 bytes (bf16 param and grad, f32 m and v) is 80.9 GB of
@@ -3431,9 +3464,7 @@ def train_7b(dev):
     n_params = tl.count_params(cfg)
     print(f"weights and moments made on the card in "
           f"{time.perf_counter() - t0:.2f} s, {n_params / 1e9:.3f} B params")
-    rng = np.random.RandomState(SEED)
-    batches = [rng.randint(0, cfg.vocab_size, size=(TRAIN_B, TRAIN_S + 1))
-               .astype(np.int32) for _ in range(TRAIN_STEPS + 1)]
+    batches = train_batches(cfg.vocab_size, TRAIN_STEPS + 1)
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     losses, step_ms = [], []
@@ -6362,6 +6393,428 @@ def fleet_phase(dev):
     return out
 
 
+# train-dp: dp and ZeRO sharding over ranks sharing the one card (gloo)
+DP_LAYERS = 4
+DP_STEPS = 2    # step 0 (a process's first also warms gloo's buffers), 1
+# (name, world, ParallelConfig fields, layers, steps); stage 3 at 16
+# layers takes one step for the phase's time (21 s a step through the
+# host): dp2_sh2_stage3 holds stage 3's second step
+DP_RUNS = [
+    ("dp2", 2, dict(dp=2), DP_LAYERS, DP_STEPS),
+    ("sh2_stage1", 2, dict(sharding=2, zero_stage=1), DP_LAYERS, DP_STEPS),
+    ("sh2_stage2", 2, dict(sharding=2, zero_stage=2), DP_LAYERS, DP_STEPS),
+    ("sh2_stage3", 2, dict(sharding=2, zero_stage=3), TRAIN_LAYERS, 1),
+    ("dp2_sh2_stage3", 4, dict(dp=2, sharding=2, zero_stage=3), DP_LAYERS,
+     DP_STEPS),
+]
+# a rank's bf16 products run at B/W rows, and cuBLAS may round them apart
+# from the single process's B rows: step 0's loss within 2^-10 relative,
+# step 1's within 2^-12 (the sound runs read at most 1.15e-4; the
+# control that skips step 0 moves step 1's loss by 4.4e-4 and must fail)
+DP_STEP0_RTOL = 2 ** -10
+DP_LATER_RTOL = 2 ** -12
+# each rank's part of each param leaf after the steps against the single
+# process's, relative Frobenius error of the worst leaf: the sound runs
+# read 1.2e-3 to 1.4e-3 (bf16 params a rounding apart), the faulty
+# controls (dp_references) 7.8e-3 to 2.2e-2, and each control must read
+# above the limit
+DP_PARAM_REL = 2 ** -8
+DP_JOIN_S = 900
+
+
+def bits_checksum(t):
+    """An order-sensitive checksum of a tensor's bits, summed on the
+    device in chunks of 2^26 elements."""
+    bits = t.detach().reshape(-1).view(
+        torch.int16 if t.element_size() == 2 else torch.int32)
+    acc = 0
+    for chunk in torch.split(bits, 1 << 26):
+        pos = torch.arange(1, chunk.numel() + 1, device=t.device)
+        acc = (acc * 1000003 + int((chunk.long() * pos).sum())) % (1 << 61)
+    return acc
+
+
+def dp_reckoning(cfg, kw, layers):
+    """Collective bytes a step of one rank, by "op.axis", from the shapes
+    (bf16 params; the count and the loss are one f32 each): dp
+    all-reduces every gradient; stage 1 all-reduces them over the world
+    and all-gathers the updated params; stage 2 reduces each layer slice
+    to its owner and reduce-scatters embed, lm_head and final_norm, then
+    all-gathers the params; stage 3 all-gathers each layer twice under
+    full remat (forward and recompute) and embed and lm_head once,
+    reduce-scatters every sharded gradient once, all-reduces the norms'
+    over the world and the shards' over dp."""
+    import collections
+    c = cfg
+    L, H, I, V = layers, c.hidden_size, c.intermediate_size, c.vocab_size
+    qd = c.num_attention_heads * c.head_dim
+    kvd = c.num_key_value_heads * c.head_dim
+    mats = 2 * L * (2 * H * qd + 2 * H * kvd + 3 * H * I)
+    layer_norms = 2 * 2 * L * H
+    emb = 2 * V * H
+    head = 0 if c.tie_word_embeddings else 2 * H * V
+    total = mats + layer_norms + emb + head + 2 * H
+    dp, sh = kw.get("dp", 1), kw.get("sharding", 1)
+    world = "dp" if sh == 1 else "sharding" if dp == 1 else "dp,sharding"
+    out = collections.Counter({f"all_reduce.{world}": 8})
+    if sh == 1:
+        out[f"all_reduce.{world}"] += total
+        return dict(out)
+    stage = kw.get("zero_stage", 3)
+    if stage <= 1:
+        out[f"all_reduce.{world}"] += total
+        out["all_gather.sharding"] += total
+    elif stage == 2:
+        out["reduce.sharding"] += mats + layer_norms
+        out["reduce_scatter.sharding"] += emb + head + 2 * H
+        out["all_gather.sharding"] += total
+        if dp > 1:
+            out["all_reduce.dp"] += total // sh
+    else:
+        out["all_gather.sharding"] += 2 * mats + emb + head
+        out["reduce_scatter.sharding"] += mats + emb + head
+        out[f"all_reduce.{world}"] += layer_norms + 2 * H
+        if dp > 1:
+            out["all_reduce.dp"] += (mats + emb + head) // sh
+    return dict(out)
+
+
+def dp_state_reckoning(cfg, kw, layers):
+    """Bytes a rank holds for params (bf16), gradients (bf16) and f32
+    moments, 12 a param on one rank: dp keeps all of it; stage 1 shards
+    the moments, stage 2 also the gradients, stage 3 everything, plus the
+    full bf16 weights of one gathered layer, embed and lm_head."""
+    import dataclasses
+    from paddle_tpu_torch.models import llama as tl
+    c = dataclasses.replace(cfg, num_hidden_layers=layers)
+    n = tl.count_params(c)
+    sh, stage = kw.get("sharding", 1), kw.get("zero_stage", 3)
+    if sh == 1:
+        return 12 * n
+    if stage <= 1:
+        return 4 * n + 8 * n // sh
+    if stage == 2:
+        return 2 * n + 10 * n // sh
+    layer = (tl.count_params(dataclasses.replace(c, num_hidden_layers=1))
+             - tl.count_params(dataclasses.replace(c, num_hidden_layers=0)))
+    head = c.vocab_size * c.hidden_size * (1 if c.tie_word_embeddings else 2)
+    return 12 * n // sh + 2 * (layer + head)
+
+
+def _at(tree, name):
+    """The leaf of ``tree`` at path ``name`` ("layers/q_proj")."""
+    for k in name.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def _sq_sums(a, b):
+    """(sum of (a - b)^2, sum of b^2) in f64, in chunks along dim 0 so the
+    f64 temporaries stay small."""
+    n = max(1, (1 << 24) // max(1, b[0].numel())) if b.ndim else 1
+    d2 = r2 = torch.zeros((), dtype=torch.float64, device=b.device)
+    for x, y in zip(a.split(n) if a.ndim else [a],
+                    b.split(n) if b.ndim else [b]):
+        y = y.double()
+        d2 = d2 + (x.double() - y).square().sum()
+        r2 = r2 + y.square().sum()
+    return float(d2), float(r2)
+
+
+def leaf_rel_errors(p, ref, cfg=None, par=None):
+    """{leaf: relative Frobenius error of ``p`` against ``ref``}, both
+    param trees on the card. With ``cfg`` and ``par`` (a rank's), ``p``
+    holds this rank's shards and ``ref`` the full leaves: each leaf is
+    held against the slice of ``ref`` that the rank holds."""
+    from paddle_tpu_torch.models import llama as tl
+    if par is not None:
+        degrees, coord = tl._mesh_place(par)
+        specs = tl.param_pspecs(cfg, par)
+    out = {}
+    for name, (t,) in _grad_items(p):
+        r = _at(ref, name)
+        if par is not None:
+            for d, parts, index in tl._split_dims(_at(specs, name), degrees,
+                                                  coord):
+                n = r.shape[d] // parts
+                r = r.narrow(d, index * n, n)
+        d2, r2 = _sq_sums(t, r)
+        out[name] = (d2 / r2) ** 0.5
+    return out
+
+
+def _worst(errs):
+    name = max(errs, key=errs.get)
+    return errs[name], name
+
+
+def dp_references(dev):
+    """The single process's runs that train-dp is held to (the same seed
+    and batches): DP_STEPS steps at DP_LAYERS and one at TRAIN_LAYERS,
+    their losses and params (kept on the card for the ranks). At
+    DP_LAYERS, three faulty runs are read as controls that the limits
+    must fail: step 1 skipped (its params are step 0's), step 1 on half
+    the batch (a rank's rows dropped), step 0 skipped (step 1 from the
+    seeded params; its loss is read too). Returns ({(layers, steps):
+    (losses, params)}, {control: (worst leaf's error, leaf)}, the skipped
+    step 0's step-1 loss gap)."""
+    import dataclasses
+    from paddle_tpu_torch.models import llama as tl
+    batches = train_batches(tl.llama_7b().vocab_size, DP_STEPS)
+    x0, x1 = batches[0], batches[1]
+
+    def clone(tree):
+        return tl._tree_map(torch.clone, tree)
+    cfg = dataclasses.replace(tl.llama_7b(), num_hidden_layers=DP_LAYERS)
+    step, p, o = tl.build_train_step(cfg, tl.ParallelConfig(), seed=SEED,
+                                     device=dev)
+    p0 = clone(p)
+    p, o, l0 = step(p, o, x0[:, :-1], x0[:, 1:])
+    p1, o1 = clone(p), clone(o)
+    p, o, l1 = step(p, o, x1[:, :-1], x1[:, 1:])
+    losses = [float(l0), float(l1)]
+    controls = {"step 1 skipped": _worst(leaf_rel_errors(p1, p))}
+    half = TRAIN_B // 2
+    p1, _, _ = step(p1, o1, x1[:half, :-1], x1[:half, 1:])
+    controls["step 1 on half the batch"] = _worst(leaf_rel_errors(p1, p))
+    del p1, o1
+    p0, _, skipped = step(p0, tl._adamw_init(p0), x1[:, :-1], x1[:, 1:])
+    controls["step 0 skipped"] = _worst(leaf_rel_errors(p0, p))
+    loss_gap = _rel(float(skipped), losses[1])
+    del step, o, p0
+    refs = {(DP_LAYERS, DP_STEPS): (losses, p)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(tl.llama_7b(), num_hidden_layers=TRAIN_LAYERS)
+    step, p, o = tl.build_train_step(cfg, tl.ParallelConfig(), seed=SEED,
+                                     device=dev)
+    p, o, l0 = step(p, o, x0[:, :-1], x0[:, 1:])
+    refs[(TRAIN_LAYERS, 1)] = ([float(l0)], p)
+    del step, o
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs, controls, loss_gap
+
+
+def train_dp_rank(rank, world, runs, dev, t_spawn, refs):
+    """One rank of the train-dp phase (spawned; the process group is up):
+    each run of ``runs`` at this world size on ``dev``, its losses, step
+    ms, peak memory, state bytes, launches, collective calls and bytes a
+    step, mesh coordinates, a checksum of each local param leaf and each
+    leaf's error against the single process's params (``refs``, by
+    (layers, steps): the parent's tensors on the card); and the seconds
+    since ``t_spawn`` (the parent's clock) at which it began and ended."""
+    began = time.time() - t_spawn
+    import dataclasses
+    from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.observability import trace
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batches = train_batches(tl.llama_7b().vocab_size,
+                            max(r[4] for r in runs))
+    out = {}
+    for name, w, kw, layers, steps in runs:
+        if w != world:
+            continue
+        cfg = dataclasses.replace(tl.llama_7b(), num_hidden_layers=layers)
+        par = tl.ParallelConfig(remat=True, remat_policy="full", **kw)
+        t0 = time.perf_counter()
+        step, p, o = tl.build_train_step(cfg, par, seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        state = _tree_bytes(p) + _tree_bytes({"m": o["m"], "v": o["v"]})
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        trace.reset_counters()
+        losses, step_ms = [], []
+        for x in batches[:steps]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, loss = step(p, o, x[:, :-1], x[:, 1:])
+            losses.append(float(loss))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        comm = {k[len("comm."):]: v / steps
+                for k, v in trace.counters().items() if k.startswith("comm.")}
+        out[name] = {
+            "losses": losses, "step_ms": step_ms, "build_s": build_s,
+            "peak_bytes": peak, "state_bytes": state, "launches": _counts(),
+            "comm_per_step": comm,
+            "coord": step.hcg.topology().get_coord(step.hcg.global_rank),
+            "checksums": {k: bits_checksum(ts[0])
+                          for k, ts in _grad_items(p)},
+            "param_rel": leaf_rel_errors(p, refs[(layers, steps)], cfg,
+                                         par)}
+        del step, p, o
+        gc.collect()
+        torch.cuda.empty_cache()
+    refs.clear()    # releases the parent's tensors (their IPC handles)
+    gc.collect()
+    return {"runs": out, "began_s": began, "ended_s": time.time() - t_spawn}
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def train_dp(dev):
+    """build_train_step at llama_7b's width over dp and ZeRO sharding, W
+    ranks (spawned processes) sharing cuda:0 through gloo, which stages
+    each CUDA tensor through the host: a check of correctness and memory
+    per rank, not of collective speed. Losses and params are held to the
+    single process's (dp_references), whose faulty controls must fail
+    the same limits."""
+    import dataclasses
+    from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.testing.dist import spawn
+    phase(f"train-dp llama_7b width (bf16, B={TRAIN_B}, S={TRAIN_S}, full "
+          f"remat, AdamW f32 moments): dp and ZeRO stages 1-3 over 2 and 4 "
+          f"ranks sharing the card (gloo)")
+    refs, controls, skip_gap = dp_references(dev)
+    fails, res = [], {}
+    for c, (err, leaf) in controls.items():
+        print(f"control ({c}, {DP_LAYERS} layers): worst leaf {leaf} "
+              f"{err:.4e} against the limit {DP_PARAM_REL:.4e}")
+        if err <= DP_PARAM_REL:
+            fails.append(f"control {c}: params {err} within DP_PARAM_REL")
+    print(f"control (step 0 skipped): step-1 loss gap {skip_gap:.4e} "
+          f"against the limit {DP_LATER_RTOL:.4e}")
+    if skip_gap <= DP_LATER_RTOL:
+        fails.append(f"control step 0 skipped: step-1 loss gap {skip_gap} "
+                     f"within DP_LATER_RTOL")
+    res["controls"] = {c: {"param_rel": e, "leaf": leaf}
+                       for c, (e, leaf) in controls.items()}
+    res["controls"]["step 0 skipped"]["loss_rel_gap"] = skip_gap
+    for (layers, steps), (losses, _) in refs.items():
+        print(f"single process, {layers} layers, {steps} steps: losses "
+              f"{losses}")
+    print(f"parent holds {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+          f"(the references) before spawning")
+    runs = {}
+    for world in (2, 4):
+        keep = {(r[3], r[4]) for r in DP_RUNS if r[1] >= world}
+        for key in [k for k in refs if k not in keep]:
+            del refs[key]       # no run of this world or later needs it
+        gc.collect()
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        # small arguments (the references go as CUDA handles): a start
+        # waits until its rank has read them
+        ranks = spawn(train_dp_rank, world,
+                      (DP_RUNS, dev, t0, {k: v[1] for k, v in refs.items()}),
+                      timeout=DP_JOIN_S)
+        joined = time.time() - t0
+        print(f"world {world}: ranks began at "
+              f"{[round(r['began_s'], 1) for r in ranks]} s, ended at "
+              f"{[round(r['ended_s'], 1) for r in ranks]} s, joined at "
+              f"{joined:.1f} s")
+        res[f"world{world}_s"] = {"began": [r["began_s"] for r in ranks],
+                                  "ended": [r["ended_s"] for r in ranks],
+                                  "joined": joined}
+        for name in ranks[0]["runs"]:
+            runs[name] = [r["runs"] for r in ranks]
+        for name, w, _, layers, steps in DP_RUNS:
+            if w == world:
+                res[name] = {"single_process_losses":
+                             refs[(layers, steps)][0]}
+    del refs
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    for name, world, kw, layers, steps in DP_RUNS:
+        per = [r[name] for r in runs[name]]
+        c = dataclasses.replace(tl.llama_7b(), num_hidden_layers=layers)
+        losses = per[0]["losses"]
+        if any(r["losses"] != losses for r in per):
+            fails.append(f"{name}: ranks report different losses "
+                         f"{[r['losses'] for r in per]}")
+        # dp replicas (the same sharding coordinate) hold the same bits;
+        # stage 3's other shards agree on the replicated norms only
+        stage3 = kw.get("sharding", 1) > 1 and kw.get("zero_stage", 3) >= 3
+        for a in per:
+            for b in per:
+                same = a["coord"][2] == b["coord"][2] or not stage3
+                bad = [k for k in a["checksums"] if (same or "norm" in k)
+                       and a["checksums"][k] != b["checksums"][k]]
+                if bad:
+                    fails.append(f"{name}: ranks {a['coord']} and "
+                                 f"{b['coord']} differ in {bad}")
+        single = res[name]["single_process_losses"]
+        gaps = [_rel(x, y) for x, y in zip(losses, single)]
+        if gaps[0] > DP_STEP0_RTOL or max(gaps[1:], default=0.0) > \
+                DP_LATER_RTOL:
+            fails.append(f"{name}: losses {losses} against one process's "
+                         f"{single}: gaps {gaps}")
+        worst = max((_worst(r["param_rel"]) + (rank,)
+                     for rank, r in enumerate(per)))
+        if worst[0] > DP_PARAM_REL:
+            fails.append(f"{name}: rank {worst[2]}'s {worst[1]} is "
+                         f"{worst[0]} off the single process's params")
+        want = {k: v * steps
+                for k, v in step_launches(layers, "full").items()}
+        reckon = dp_reckoning(c, kw, layers)
+        state_gb = dp_state_reckoning(c, kw, layers) / 1e9
+        for rank, r in enumerate(per):
+            got = {k: r["launches"][k] for k in want}
+            if got != want:
+                fails.append(f"{name} rank {rank}: launches {got}, "
+                             f"want {want}")
+            comm = {k[:-len(".bytes")]: v for k, v in
+                    r["comm_per_step"].items() if k.endswith(".bytes")}
+            if comm != reckon:
+                fails.append(f"{name} rank {rank}: collective bytes a step "
+                             f"{comm}, reckoned {reckon}")
+        res[name].update({
+            "world": world, "parallel": kw, "layers": layers,
+            "steps": steps, "losses": losses, "loss_rel_gaps": gaps,
+            "param_rel_worst": {"err": worst[0], "leaf": worst[1],
+                                "rank": worst[2]},
+            "reduced": (f"num_hidden_layers 32 -> {layers}"
+                        + ("" if layers == TRAIN_LAYERS else
+                           f" (two {TRAIN_LAYERS}-layer replicas would need "
+                           f"2 x 42.0 GB)")
+                        + f", {steps} step{'s' * (steps > 1)}"),
+            "collective_bytes_reckoned": reckon,
+            "state_gb_reckoned": state_gb,
+            "ranks": [{k: r[k] for k in ("coord", "peak_bytes",
+                                         "state_bytes", "step_ms",
+                                         "build_s", "comm_per_step",
+                                         "param_rel")}
+                      | {"launches": {k: r["launches"][k] for k in want}}
+                      for r in per]})
+        print(f"{name} (world {world}, {layers} layers, {kw}): losses "
+              f"{losses}; rel gaps to one process {gaps}; params: worst "
+              f"leaf {worst[1]} {worst[0]:.4e} (rank {worst[2]})")
+        for rank, r in enumerate(per):
+            calls = {k[:-len(".calls")]: v for k, v in
+                     r["comm_per_step"].items() if k.endswith(".calls")}
+            print(f"  rank {rank} {tuple(r['coord'])}: peak "
+                  f"{r['peak_bytes'] / 1e9:.2f} GB, state (params and "
+                  f"moments) {r['state_bytes'] / 1e9:.2f} GB; step ms "
+                  f"(gloo through the host) {r['step_ms']}; launches "
+                  f"{ {k: r['launches'][k] for k in want} }; a step: "
+                  f"calls {calls}, bytes "
+                  f"{ {k: v for k, v in r['comm_per_step'].items() if k.endswith('.bytes')} }")
+        print(f"  reckoned: bytes a step {reckon}; state a rank "
+              f"{state_gb:.2f} GB (params, gradients, f32 moments"
+              f"{', a gathered layer, embed and lm_head' if stage3 else ''})")
+    stage_losses = {n: res[n]["losses"] for n in
+                    ("sh2_stage1", "sh2_stage2", "dp2_sh2_stage3")}
+    base = stage_losses["sh2_stage1"]
+    for n, ls in stage_losses.items():
+        gaps = [_rel(x, y) for x, y in zip(ls, base)]
+        res[n]["stage1_rel_gaps"] = gaps
+        if gaps[0] > DP_STEP0_RTOL or max(gaps) > DP_LATER_RTOL:
+            fails.append(f"{n} against sh2_stage1: gaps {gaps}")
+    print(f"stages 1, 2, 3 against stage 1 (rel gaps): "
+          f"{ {n: res[n]['stage1_rel_gaps'] for n in stage_losses} }")
+    assert not fails, "\n".join(fails)
+    return res
+
+
 def main():
     t_start = time.perf_counter()
     smi = probe()
@@ -6404,6 +6857,7 @@ def main():
     varlen = varlen_phase(dev)
     resume = resume_phase(dev)
     fleet = fleet_phase(dev)
+    train_dp_res = train_dp(dev)
     tm = times(dev, errs)
     fwd_key = "flash_fwd[B=4,NH=32,S=2048,D=128,causal]"
     bwd_key = "flash_bwd[B=4,NH=32,S=2048,D=128,causal]"
@@ -6590,6 +7044,7 @@ def main():
               "train_13b": train13, "train_long": tlong, "attn_long": along,
               "ernie": ernie, "ernie_capacity": ernie_cap, "generate": gen,
               "varlen": varlen, "resume": resume, "fleet": fleet,
+              "train_dp": train_dp_res,
               "times": tm,
               "wall_s": wall_s}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

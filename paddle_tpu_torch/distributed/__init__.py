@@ -1,2 +1,8 @@
-"""Distributed pieces of the port that run on one process (the
-checkpoint layer); the multi-process collectives are not ported."""
+"""Distributed pieces of the port: the process-group environment
+(``env``), collectives over one axis of the rank mesh
+(``communication``), the hybrid topology (``fleet``) and the checkpoint
+layer (``checkpoint``, one process)."""
+from .env import get_rank, get_world_size, init_parallel_env, is_initialized
+
+__all__ = ["get_rank", "get_world_size", "init_parallel_env",
+           "is_initialized"]

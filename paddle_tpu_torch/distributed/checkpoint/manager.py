@@ -80,7 +80,12 @@ class Preempted(RuntimeError):
 
 
 class CheckpointManager:
-    """Rolling, preemption-aware checkpoints under one root directory."""
+    """Rolling, preemption-aware checkpoints under one root directory.
+
+    A Llama run resumed on the card under the default flash backward
+    (``PADDLE_TPU_TORCH_FLASH_BWD=auto``) is close to, not bitwise, the
+    run it resumes: that kernel sums dQ in an order that varies between
+    runs. Under ``split`` the resume is bitwise."""
 
     def __init__(self, root: str, keep: Optional[int] = None,
                  interval: Optional[int] = None,
@@ -181,7 +186,10 @@ class CheckpointManager:
         """Snapshot `state` now and write ``step_<step>`` asynchronously
         (synchronously with block=True). Paces itself: waits out this
         manager's previous in-flight save first, so saves overlap training
-        steps but never each other."""
+        steps but never each other. With a process group of more than one
+        rank up this raises ValueError
+        (:func:`~.save_load.refuse_multi_rank`)."""
+        sl.refuse_multi_rank("CheckpointManager.save")
         path = self.step_dir(step)
         with self._lock:
             prev = self._last_handle
@@ -270,7 +278,9 @@ class CheckpointManager:
         `step`, or from the newest checkpoint that is complete AND
         checksum-valid, falling back older on corruption. Returns the
         restored step. `device` places adopted leaves
-        (:func:`~.save_load.load_state_dict`)."""
+        (:func:`~.save_load.load_state_dict`). With a process group of more
+        than one rank up this raises ValueError."""
+        sl.refuse_multi_rank("CheckpointManager.restore")
         candidates = [int(step)] if step is not None else self.steps()
         tried = []
         for st in reversed(candidates):

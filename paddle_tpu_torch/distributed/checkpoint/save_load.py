@@ -269,6 +269,24 @@ def _write_checkpoint(path: str, structure, snaps: List[_Snap], meta,
         shutil.rmtree(old)
 
 
+def refuse_multi_rank(what: str) -> None:
+    """Raise ValueError while a process group of more than one rank is
+    up: a rank's tree holds its local shards, and this layer would write
+    them as whole leaves (``sharding_meta.json`` one null a leaf) or copy
+    whole leaves into them. Saving and restoring a sharded train state
+    across ranks is not ported (ROADMAP.md queue 1 item 11, second
+    half)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        raise ValueError(
+            f"{what}: a process group of {dist.get_world_size()} ranks is "
+            f"up, and the checkpoint layer saves and restores one "
+            f"process's whole tensors; a sharded multi-rank checkpoint "
+            f"(elastic resume) is not ported (ROADMAP.md queue 1 item 11, "
+            f"second half)")
+
+
 def save_state_dict(state_dict: Dict[str, Any], path: str,
                     process_group=None, coordinator_rank: int = 0,
                     async_save: bool = False,
@@ -287,7 +305,9 @@ def save_state_dict(state_dict: Dict[str, Any], path: str,
     COMMIT marker there, so "handle done without error" implies "marker
     down"). An on_complete failure surfaces on wait() like a write
     failure. ``process_group``/``coordinator_rank`` are accepted for the
-    JAX signature; one process writes everything."""
+    JAX signature; one process writes everything: with a process group
+    of more than one rank up this raises (:func:`refuse_multi_rank`)."""
+    refuse_multi_rank("save_state_dict")
     structure, leaves = _flatten(state_dict)
     snaps = [_snapshot(v) for v in leaves]  # values at call time
     meta = {"leaf_shardings": [None] * len(snaps)}
@@ -447,7 +467,10 @@ def load_state_dict(state_dict: Dict[str, Any], path: str,
     positionally; a sequence length mismatch raises ValueError; a saved
     leaf whose shape differs from its tensor raises ValueError. A
     non-tensor target leaf (a Python scalar, an array) is replaced by the
-    saved value as a numpy array (bf16: a CPU tensor)."""
+    saved value as a numpy array (bf16: a CPU tensor). With a process
+    group of more than one rank up this raises
+    (:func:`refuse_multi_rank`)."""
+    refuse_multi_rank("load_state_dict")
     path = os.path.abspath(path)
     _wait_pending(path)
     path = _resolve(path)

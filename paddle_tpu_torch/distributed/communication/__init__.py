@@ -1,0 +1,122 @@
+"""Collectives over one axis of the rank mesh (port of
+``paddle_tpu/distributed/communication/``, the functional forms the train
+step needs).
+
+In the JAX package a group is a named mesh axis and a collective lowers
+to an XLA op inside the compiled program. Here a :class:`Group` holds
+the ``torch.distributed`` process group of one axis, and each call is an
+eager collective on this rank's tensor, in the tensor's dtype and on its
+device: no tensor is moved to the host by this module (gloo itself
+stages CUDA tensors through the host). A group of one rank makes no call.
+
+Every call runs inside :func:`~paddle_tpu_torch.observability.trace.comm_span`
+``comm.<op>.<axis>``, which tallies ``.calls`` and ``.bytes`` (the full
+tensor: the input of an all-reduce, reduce or reduce-scatter, the output
+of an all-gather).
+
+Gloo runs every collective used here on CUDA tensors in torch 2.11
+(``tools/gloo_probe.py``), so none is expressed through another.
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+import torch.distributed as dist
+
+from ...observability.trace import comm_span
+
+
+class Group:
+    """A communication group: one axis of the rank mesh. ``rank`` is this
+    process's index in ``ranks`` (global ranks, in axis order); ``pg`` is
+    the axis's process group (None for one rank)."""
+
+    def __init__(self, axis_name: str, nranks: int, rank: int = 0,
+                 ranks: Optional[List[int]] = None, pg=None):
+        self.axis_name = axis_name
+        self.nranks = nranks
+        self.rank = rank
+        self.ranks = ranks if ranks is not None else list(range(nranks))
+        self.pg = pg
+
+    @property
+    def world_size(self):
+        return self.nranks
+
+    def __repr__(self):
+        return (f"Group(axis={self.axis_name}, nranks={self.nranks}, "
+                f"ranks={self.ranks})")
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _span(op: str, group: Group, nbytes: int):
+    return comm_span(f"comm.{op}.{group.axis_name}", nbytes=nbytes)
+
+
+def all_reduce(tensor: torch.Tensor, group: Group) -> torch.Tensor:
+    """Sum ``tensor`` over ``group`` in place; returns it."""
+    if group.nranks > 1:
+        with _span("all_reduce", group, _nbytes(tensor)):
+            dist.all_reduce(tensor, group=group.pg)
+    return tensor
+
+
+def reduce(tensor: torch.Tensor, dst: int, group: Group) -> torch.Tensor:
+    """Sum ``tensor`` over ``group`` into the rank of index ``dst`` in
+    the group, in place there; other ranks' tensors are left undefined.
+    Returns it."""
+    if group.nranks > 1:
+        with _span("reduce", group, _nbytes(tensor)):
+            dist.reduce(tensor, dst=group.ranks[dst], group=group.pg)
+    return tensor
+
+
+def all_gather(tensor: torch.Tensor, dim: int, group: Group,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Concatenate every rank's ``tensor`` along ``dim`` in group order:
+    the full tensor, written into ``out`` when given."""
+    n = group.nranks
+    if n == 1:
+        return tensor if out is None else out.copy_(tensor)
+    full = list(tensor.shape)
+    full[dim] *= n
+    with _span("all_gather", group, _nbytes(tensor) * n):
+        if dim == 0 and (out is None or out.is_contiguous()):
+            out = tensor.new_empty(full) if out is None else out
+            dist.all_gather_into_tensor(out, tensor.contiguous(),
+                                        group=group.pg)
+            return out
+        # gloo wants the output's dim 0 to be the input's times n
+        shape = list(tensor.shape)
+        buf = tensor.new_empty([n * shape[0]] + shape[1:])
+        dist.all_gather_into_tensor(buf, tensor.contiguous(), group=group.pg)
+    # [n, s0, .., sd, ..] -> [s0, .., n, sd, ..] -> merge n into dim
+    res = buf.view([n] + shape).movedim(0, dim).reshape(full)
+    return res if out is None else out.copy_(res)
+
+
+def reduce_scatter(tensor: torch.Tensor, dim: int,
+                   group: Group) -> torch.Tensor:
+    """Sum ``tensor`` over ``group`` and return this rank's part of the
+    sum: the ``group.rank``-th of ``group.nranks`` equal slices along
+    ``dim``."""
+    n = group.nranks
+    if n == 1:
+        return tensor
+    shape = list(tensor.shape)
+    if shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dimension {dim} of {shape} does "
+                         f"not divide over {n} ranks")
+    part = shape[:dim] + [shape[dim] // n] + shape[dim + 1:]
+    x = tensor.reshape(shape[:dim] + [n, shape[dim] // n] + shape[dim + 1:])
+    # [n, ..] with rank k's slice at k, its dim 0 merged into n's: gloo
+    # wants the input's dim 0 to be the output's times n
+    x = x.movedim(dim, 0).contiguous().view([n * part[0]] + part[1:])
+    out = tensor.new_empty(part)
+    with _span("reduce_scatter", group, _nbytes(tensor)):
+        dist.reduce_scatter_tensor(out, x, group=group.pg)
+    return out

@@ -46,12 +46,16 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves, tree_map
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
+from ..distributed import communication as comm
+from ..distributed import env as dist_env
+from ..distributed.fleet import HybridCommunicateGroup
 from ..ops.decode_attention import TILE_T, decode_attend_update_slab
 from ..ops.flash_attention import (_prescale, flash_attention_bshd,
                                    flash_attention_op)
@@ -1117,7 +1121,9 @@ def generate(params, prompt_ids, config: LlamaConfig, max_new_tokens=64,
 @dataclasses.dataclass
 class ParallelConfig:
     """The JAX package's ``ParallelConfig`` fields. :func:`build_train_step`
-    runs only the single-device path and raises for the rest (see
+    runs one device, or ``dp`` x ``sharding`` ranks with ZeRO stage
+    ``zero_stage`` (1: optimizer state sharded, 2: also gradients, 3:
+    also parameters), and raises for the rest (see
     :func:`check_ported`)."""
     dp: int = 1
     mp: int = 1
@@ -1140,31 +1146,32 @@ class ParallelConfig:
         return self.dp * self.mp * self.pp * self.sharding * self.sep
 
 
-_UNREAD_FIELDS = ("sep_strategy", "microbatches", "scan_unroll", "zero_stage",
+_UNREAD_FIELDS = ("sep_strategy", "microbatches", "scan_unroll",
                   "overlap_p2p")
 
 
 def check_ported(parallel: ParallelConfig) -> None:
     """Raise ValueError naming what of ``parallel`` the port does not run
-    yet: any degree above 1 (pp first), and a value other than the
-    default in a field the single-device step never reads
-    (``_UNREAD_FIELDS``). An unknown remat policy raises too (with
-    ``remat``), as JAX's ``_remat_policy`` does."""
+    yet: a pipeline, tensor or sequence degree above 1 (pp first), and a
+    value other than the default in a field the train step never reads
+    (``_UNREAD_FIELDS``). ``dp`` and ``sharding`` run (one process a
+    rank). An unknown remat policy raises too (with ``remat``), as JAX's
+    ``_remat_policy`` does."""
     default = ParallelConfig()
     unread = {f: getattr(parallel, f) for f in _UNREAD_FIELDS
               if getattr(parallel, f) != getattr(default, f)}
     if unread:
-        raise ValueError(f"{unread}: the single-device train step does not "
-                         f"read these fields; leave them at their defaults")
+        raise ValueError(f"{unread}: the train step does not read these "
+                         f"fields; leave them at their defaults")
     if parallel.pp > 1:
         raise ValueError(f"pp={parallel.pp}: the pipeline train step is not "
                          f"ported; use pp=1")
-    if parallel.total > 1:
-        degrees = {k: getattr(parallel, k)
-                   for k in ("dp", "mp", "sharding", "sep")
-                   if getattr(parallel, k) > 1}
-        raise ValueError(f"{degrees}: multi-device training (total "
-                         f"{parallel.total}) is not ported; only total=1")
+    degrees = {k: getattr(parallel, k) for k in ("mp", "sep")
+               if getattr(parallel, k) > 1}
+    if degrees:
+        raise ValueError(f"{degrees}: tensor and sequence parallel training "
+                         f"are not ported (ROADMAP.md queue 1 items 7 and "
+                         f"9); use mp=1, sep=1")
     if parallel.remat:
         _remat_policy(parallel)
 
@@ -1324,13 +1331,18 @@ def _unnamed(_name):
 
 
 def decoder_layer(p, h_in, cos, sin, config: LlamaConfig, use_flash=True,
-                  keep: Optional[_Keep] = None):
+                  keep: Optional[_Keep] = None, gather=None):
     """One decoder block for training (the JAX ``decoder_layer`` at mp = 1,
     sep = 1). ``p`` holds ONE layer's weights; h_in [B, S, H]. Attention
     is the flash kernels, or with ``use_flash=False`` the plain causal
     :func:`_xla_sdpa`. ``keep`` is the remat policy's (None: nothing is
-    named)."""
+    named). ``gather`` (ZeRO stage 3, :class:`_Stage3`) makes the layer's
+    full weights from this rank's shards HERE, inside what
+    ``torch.utils.checkpoint`` reruns: the full weights are never a
+    saved input, and the recompute gathers them again."""
     c = config
+    if gather is not None:
+        p = gather.layer(p)
     b, s, _ = h_in.shape
     hd = c.head_dim
     nh = p["q_proj"].shape[-1] // hd
@@ -1359,42 +1371,53 @@ def decoder_layer(p, h_in, cos, sin, config: LlamaConfig, use_flash=True,
 
 
 def llama_hidden(params, ids, config: LlamaConfig,
-                 parallel: ParallelConfig = ParallelConfig()):
+                 parallel: ParallelConfig = ParallelConfig(), gather=None):
     """Embed + the decoder stack; returns the final hidden (pre-norm).
     ``params["layers"]`` maps each name to a stacked [L, ...] tensor or to
     a list of its L layer slices (the train step's gradient leaves). With
     ``parallel.remat`` each layer is recomputed in the backward, keeping
-    its input and what ``parallel.remat_policy`` names."""
+    its input and what ``parallel.remat_policy`` names. ``gather`` (ZeRO
+    stage 3) makes full weights from shards: the embedding here, each
+    layer's inside :func:`decoder_layer`."""
     c = config
     use_flash = parallel.use_flash is not False
     policy = _remat_policy(parallel) if parallel.remat else None
-    h = F.embedding(ids.long(), params["embed"]).to(c.dtype)
+    embed = params["embed"] if gather is None else \
+        gather.leaf("embed", params["embed"])
+    h = F.embedding(ids.long(), embed).to(c.dtype)
     cos, sin = build_rope_cache(ids.shape[1], c.head_dim, base=c.rope_theta,
                                 device=h.device)
     layers = params["layers"]
     for i in range(len(layers["q_proj"])):
         p = {name: w[i] for name, w in layers.items()}
         if not parallel.remat:
-            h = decoder_layer(p, h, cos, sin, c, use_flash)
+            h = decoder_layer(p, h, cos, sin, c, use_flash, None, gather)
         elif policy is None:
-            h = checkpoint(decoder_layer, p, h, cos, sin, c, use_flash,
-                           use_reentrant=False, preserve_rng_state=False)
+            h = checkpoint(decoder_layer, p, h, cos, sin, c, use_flash, None,
+                           gather, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             keep = policy()
             h = checkpoint(decoder_layer, p, h, cos, sin, c, use_flash, keep,
-                           use_reentrant=False, preserve_rng_state=False,
-                           context_fn=keep)
+                           gather, use_reentrant=False,
+                           preserve_rng_state=False, context_fn=keep)
     return h
 
 
-def masked_ce_loss(logits, labels):
-    """Mean cross entropy over labels != -100 (f32 logits [..., V])."""
+def _ce_sum_count(logits, labels):
+    """(sum of the cross entropy over labels != -100, their count as f32)
+    of f32 logits [..., V]."""
     mask = labels != -100
     safe = torch.where(mask, labels, 0).long()
     logp = torch.log_softmax(logits, dim=-1)
     picked = logp.gather(-1, safe[..., None])[..., 0]
-    loss_sum = torch.where(mask, -picked, 0.0).sum()
-    return loss_sum / torch.clamp(mask.sum(), min=1)
+    return torch.where(mask, -picked, 0.0).sum(), mask.sum().float()
+
+
+def masked_ce_loss(logits, labels):
+    """Mean cross entropy over labels != -100 (f32 logits [..., V])."""
+    loss_sum, count = _ce_sum_count(logits, labels)
+    return loss_sum / torch.clamp(count, min=1)
 
 
 def _ce_chunk(xc, head, lc):
@@ -1430,40 +1453,61 @@ def chunked_ce_loss(x, head, labels, n_chunks=8):
 
 
 def llama_loss(params, ids, labels, config: LlamaConfig,
-               parallel: ParallelConfig = ParallelConfig()):
+               parallel: ParallelConfig = ParallelConfig(), gather=None,
+               count_reduce=None):
     """Causal LM loss with dense f32 logits; labels [B, S], -100 ignored.
     The dense path, as JAX's ``llama_loss`` keeps it
-    (:func:`chunked_ce_loss` is there for memory-bound callers)."""
-    h = llama_hidden(params, ids, config, parallel)
-    logits = llama_logits(params, h, config).float()
-    return masked_ce_loss(logits, labels)
+    (:func:`chunked_ce_loss` is there for memory-bound callers).
+
+    Over ranks (:class:`_DistTrainStep`): ``gather`` (ZeRO stage 3,
+    :class:`_Stage3`) makes each sharded weight whole where it is used,
+    and ``count_reduce`` sums the count of labels != -100 over the ranks
+    in place, so the loss is this rank's sum over the global count."""
+    h = llama_hidden(params, ids, config, parallel, gather)
+    if gather is not None:
+        key = "embed" if config.tie_word_embeddings else "lm_head"
+        params = {**params, key: gather.leaf(key, params[key])}
+    loss_sum, count = _ce_sum_count(llama_logits(params, h, config).float(),
+                                    labels)
+    if count_reduce is not None:
+        count_reduce(count)
+    return loss_sum / torch.clamp(count, min=1)
 
 
 def _grad_leaf(t):
     return t.detach().requires_grad_()
 
 
+def _local_grads(leaves):
+    """The gradients backward left on ``leaves`` (zeros where none)."""
+    def grad(t):
+        return t.grad if t.grad is not None else torch.zeros_like(t)
+    return {k: ({n: [grad(t) for t in ts] for n, ts in v.items()}
+                if k == "layers" else grad(v))
+            for k, v in leaves.items()}
+
+
 def llama_loss_and_grads(params, ids, labels, config: LlamaConfig,
-                         parallel: ParallelConfig = ParallelConfig()):
+                         parallel: ParallelConfig = ParallelConfig(),
+                         gather=None, count_reduce=None, grads_of=None):
     """(loss, grads) of :func:`llama_loss`, the counterpart of
     ``jax.value_and_grad``. ``grads`` mirrors ``params``, except that the
     gradient of a stacked layer leaf is a LIST of its L per-layer slices:
     each layer's weights enter autograd as views of the stacked tensor, so
     no [L, ...] gradient (and no per-layer scatter into one) is ever
-    made."""
+    made. ``gather`` and ``count_reduce`` go to :func:`llama_loss`;
+    ``grads_of(leaves)``, called before the forward, returns the function
+    that gives the gradients after backward (the ranks' sums; default
+    :func:`_local_grads`)."""
     leaves = {k: ({n: [_grad_leaf(w[i]) for i in range(w.shape[0])]
                    for n, w in v.items()} if k == "layers" else _grad_leaf(v))
               for k, v in params.items()}
-    loss = llama_loss(leaves, ids, labels, config, parallel)
+    collect = grads_of(leaves) if grads_of is not None else \
+        (lambda: _local_grads(leaves))
+    loss = llama_loss(leaves, ids, labels, config, parallel, gather,
+                      count_reduce)
     loss.backward()
-
-    def grad(t):
-        return t.grad if t.grad is not None else torch.zeros_like(t)
-
-    grads = {k: ({n: [grad(t) for t in ts] for n, ts in v.items()}
-                 if k == "layers" else grad(v))
-             for k, v in leaves.items()}
-    return loss.detach(), grads
+    return loss.detach(), collect()
 
 
 def _tree_map(fn, tree):
@@ -1553,17 +1597,419 @@ def _adamw_update(params, grads, state, lr, b1=0.9, b2=0.95, eps=1e-8,
     return params, state
 
 
+# ---------------------------------------------------------------------------
+# dp x sharding (ZeRO stages 1, 2, 3): one process a rank
+# ---------------------------------------------------------------------------
+
+_AXES = ("dp", "pp", "sharding", "sep", "mp")
+
+
+def param_pspecs(config: LlamaConfig, parallel: ParallelConfig):
+    """JAX's ``param_pspecs``: for each param leaf a tuple with one entry
+    a dimension, an axis name or None (its ``PartitionSpec`` read as a
+    tuple). ZeRO stage 3 shards a hidden dimension over ``sharding``: dim
+    1 of q/k/v/gate/up_proj, dim 2 of o/down_proj, dim 1 of embed, dim 0
+    of lm_head; the norms stay replicated."""
+    fs = "sharding" if (parallel.sharding > 1 and parallel.zero_stage >= 3) \
+        else None
+    mp = "mp" if parallel.mp > 1 else None
+    layers = {
+        "input_norm": (None, None),
+        "q_proj": (None, fs, mp),
+        "k_proj": (None, fs, mp),
+        "v_proj": (None, fs, mp),
+        "o_proj": (None, mp, fs),
+        "post_norm": (None, None),
+        "gate_proj": (None, fs, mp),
+        "up_proj": (None, fs, mp),
+        "down_proj": (None, mp, fs),
+    }
+    specs = {"embed": (mp, fs), "layers": layers, "final_norm": (None,)}
+    if not config.tie_word_embeddings:
+        specs["lm_head"] = (fs, mp)
+    return specs
+
+
+def opt_state_pspecs(config: LlamaConfig, parallel: ParallelConfig,
+                     pspec_tree):
+    """JAX's ``opt_state_pspecs``: under ZeRO stages 1 and 2 each moment
+    leaf shards its first unsharded dimension over ``sharding`` (dim 0 of
+    every Llama leaf: the layer axis L of a stacked leaf, vocab for embed,
+    hidden for lm_head and final_norm); stage 3's follow the params."""
+    if parallel.sharding > 1 and parallel.zero_stage < 3:
+        def shard_state(spec):
+            parts = list(spec)
+            for i, p_ in enumerate(parts):
+                if p_ is None:
+                    parts[i] = "sharding"
+                    return tuple(parts)
+            return spec
+        return _tree_map(shard_state, pspec_tree)
+    return pspec_tree
+
+
+def _act_spec(parallel: ParallelConfig):
+    """JAX's ``_act_spec`` of activations [B, S, H]: the batch over dp (and
+    sharding), the sequence over sep. A one-name entry is the name itself,
+    as ``PartitionSpec`` collapses it."""
+    batch_axes = "dp" if parallel.sharding == 1 else ("dp", "sharding")
+    seq_axis = "sep" if parallel.sep > 1 else None
+    return (batch_axes, seq_axis, None)
+
+
+def make_mesh(parallel: ParallelConfig) -> np.ndarray:
+    """The world's ranks shaped (dp, pp, sharding, sep, mp): rank r where
+    JAX's ``make_mesh`` puts device r."""
+    return np.arange(parallel.total).reshape(
+        parallel.dp, parallel.pp, parallel.sharding, parallel.sep,
+        parallel.mp)
+
+
+def _map_specs(fn, tree, specs, path=""):
+    """``fn(leaf, spec, path)`` over a tree and its spec tree."""
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v, specs[k], f"{path}/{k}" if path else k)
+                for k, v in tree.items()}
+    return fn(tree, specs, path)
+
+
+def _split_dims(spec, degrees, coord):
+    """(dim, parts, index) of each sharded dimension of ``spec``: it splits
+    into ``parts`` equal slices and this rank holds slice ``index``
+    (row-major over the entry's axes, as a mesh lays them out)."""
+    out = []
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        parts, index = 1, 0
+        for a in ((entry,) if isinstance(entry, str) else entry):
+            parts *= degrees[a]
+            index = index * degrees[a] + coord[a]
+        if parts > 1:
+            out.append((d, parts, index))
+    return out
+
+
+def _local_shape(name, shape, spec, degrees, coord):
+    """A leaf's shape on this rank; a dimension its ranks do not divide
+    raises ValueError naming the leaf, where JAX's ``device_put`` of the
+    leaf with that sharding raises."""
+    shape = list(shape)
+    for d, parts, _ in _split_dims(spec, degrees, coord):
+        if shape[d] % parts:
+            raise ValueError(
+                f"{name}: dimension {d} of shape {tuple(shape)} does not "
+                f"divide over the {parts} ranks of its spec {spec}")
+        shape[d] //= parts
+    return shape
+
+
+def _shard(x, name, spec, degrees, coord):
+    splits = _split_dims(spec, degrees, coord)
+    if not splits:
+        return x
+    _local_shape(name, x.shape, spec, degrees, coord)
+    for d, parts, index in splits:
+        n = x.shape[d] // parts
+        x = x.narrow(d, index * n, n)
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _mesh_place(parallel: ParallelConfig):
+    """(degrees, this rank's coordinates) by axis name; a mesh of more
+    than one rank needs ``init_parallel_env``'s process group over as
+    many ranks."""
+    degrees = {a: getattr(parallel, a) for a in _AXES}
+    world = dist_env.get_world_size()
+    if parallel.total > 1 and world != parallel.total:
+        raise ValueError(
+            f"{ {a: d for a, d in degrees.items() if d > 1} } needs "
+            f"{parallel.total} ranks and this process is one of {world}: "
+            f"call paddle_tpu_torch.distributed.init_parallel_env in each "
+            f"of {parallel.total} processes first")
+    coord = np.unravel_index(dist_env.get_rank(),
+                             [degrees[a] for a in _AXES])
+    return degrees, {a: int(c) for a, c in zip(_AXES, coord)}
+
+
+def shard_train_state(params, opt_state, config: LlamaConfig,
+                      parallel: ParallelConfig):
+    """This rank's shards of full trees: ``params`` by
+    :func:`param_pspecs`, ``opt_state``'s m and v (:func:`_adamw_init`'s
+    layout; None passes through) by :func:`opt_state_pspecs`. A sharded
+    leaf is a contiguous copy of its slice; a replicated leaf (and ``t``)
+    is the caller's tensor. Returns (params, opt_state)."""
+    degrees, coord = _mesh_place(parallel)
+    pspecs = param_pspecs(config, parallel)
+    ospecs = opt_state_pspecs(config, parallel, pspecs)
+
+    def shard(tree, specs):
+        return _map_specs(lambda x, s, name: _shard(x, name, s, degrees,
+                                                    coord), tree, specs)
+    if opt_state is not None:
+        opt_state = {"m": shard(opt_state["m"], ospecs),
+                     "v": shard(opt_state["v"], ospecs), "t": opt_state["t"]}
+    return shard(params, pspecs), opt_state
+
+
+def _axis_groups(hcg):
+    return {"dp": hcg.get_data_parallel_group(),
+            "sharding": hcg.get_sharding_parallel_group()}
+
+
+def gather_train_state(params, opt_state, config: LlamaConfig,
+                       parallel: ParallelConfig, hcg=None):
+    """The full trees from every rank's shards (a collective: every rank
+    calls it), the inverse of :func:`shard_train_state`. ``hcg`` is the
+    step's ``HybridCommunicateGroup`` (``step_fn.hcg``); None makes one.
+    Returns (params, opt_state); a replicated leaf is the rank's own."""
+    if hcg is None:
+        hcg = HybridCommunicateGroup(dp_degree=parallel.dp,
+                                     sharding_degree=parallel.sharding)
+    groups = _axis_groups(hcg)
+    pspecs = param_pspecs(config, parallel)
+    ospecs = opt_state_pspecs(config, parallel, pspecs)
+
+    def gather(x, spec, _name):
+        for d, entry in enumerate(spec):
+            if entry is None:
+                continue
+            for a in reversed((entry,) if isinstance(entry, str) else entry):
+                x = comm.all_gather(x, d, groups[a])
+        return x
+    if opt_state is not None:
+        opt_state = {"m": _map_specs(gather, opt_state["m"], ospecs),
+                     "v": _map_specs(gather, opt_state["v"], ospecs),
+                     "t": opt_state["t"]}
+    return _map_specs(gather, params, pspecs), opt_state
+
+
+class _GatherShard(torch.autograd.Function):
+    """ZeRO stage 3: the full weight from this rank's shard, all-gathered
+    along ``dim`` over the sharding group; the backward reduce-scatters
+    (sums) the full weight's gradient back to the shard."""
+
+    @staticmethod
+    def forward(ctx, shard, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return comm.all_gather(shard, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return comm.reduce_scatter(grad, ctx.dim, ctx.group), None, None
+
+
+class _Stage3:
+    """The gather of ZeRO stage 3 (mp = 1: a leaf shards at most one
+    dimension, over ``sharding``), by :func:`param_pspecs`."""
+
+    def __init__(self, specs, group):
+        self.specs, self.group = specs, group
+
+    def _full(self, w, spec):
+        dims = [d for d, e in enumerate(spec) if e is not None]
+        return _GatherShard.apply(w, dims[0], self.group) if dims else w
+
+    def leaf(self, name, w):
+        return self._full(w, self.specs[name])
+
+    def layer(self, p):
+        """One layer's full weights (a stacked spec without its L)."""
+        return {n: self._full(w, self.specs["layers"][n][1:])
+                for n, w in p.items()}
+
+
+def _world_group(hcg):
+    """One group over the whole dp x sharding world."""
+    dp = hcg.get_data_parallel_group()
+    sh = hcg.get_sharding_parallel_group()
+    if dp.nranks == 1 or sh.nranks == 1:
+        return dp if sh.nranks == 1 else sh
+    return comm.Group("dp,sharding", hcg.nranks, hcg.global_rank,
+                 list(range(hcg.nranks)), dist.group.WORLD)
+
+
+class _DistTrainStep:
+    """``step_fn`` of :func:`build_train_step` over dp x sharding ranks
+    (see there); ``hcg`` is its ``HybridCommunicateGroup``."""
+
+    def __init__(self, config, parallel, lr, hcg, dev):
+        self.config, self.parallel, self.lr = config, parallel, lr
+        self.hcg, self.dev = hcg, dev
+        self.stage = 0 if parallel.sharding == 1 else \
+            min(max(parallel.zero_stage, 1), 3)
+        self.degrees, self.coord = _mesh_place(parallel)
+        self.pspecs = param_pspecs(config, parallel)
+        self.ospecs = opt_state_pspecs(config, parallel, self.pspecs)
+        self.dp = hcg.get_data_parallel_group()
+        self.sh = hcg.get_sharding_parallel_group()
+        self.world = _world_group(hcg)
+        ((_, self.n_blocks, self.block),) = _split_dims(
+            _act_spec(parallel)[:1], self.degrees, self.coord)
+        self.gather = _Stage3(self.pspecs, self.sh) if self.stage == 3 \
+            else None
+
+    def __call__(self, params, opt, ids, labels):
+        ids, labels = np.asarray(ids), np.asarray(labels)
+        b = ids.shape[0]
+        if b % self.n_blocks:
+            raise ValueError(
+                f"a batch of {b} rows does not divide over the "
+                f"{self.n_blocks} ranks of {_act_spec(self.parallel)[0]} "
+                f"(dp x sharding)")
+        n = b // self.n_blocks
+        rows = slice(self.block * n, (self.block + 1) * n)
+
+        def to_dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a[rows], np.int32)
+                                    ).to(self.dev)
+        loss, grads = self.loss_and_grads(params, to_dev(ids),
+                                          to_dev(labels))
+        self.update(params, grads, opt)
+        return params, opt, loss
+
+    def loss_and_grads(self, params, ids, labels):
+        """(the global mean loss, this rank's summed gradients): its rows'
+        loss sum over the ALL-REDUCED count of labels != -100, so the
+        gradients summed over ranks are the global mean's."""
+        local, grads = llama_loss_and_grads(
+            params, ids, labels, self.config, self.parallel, self.gather,
+            lambda count: comm.all_reduce(count, self.world), self._grads_of)
+        return comm.all_reduce(local.clone(), self.world), grads
+
+    def _grads_of(self, leaves):
+        if self.stage != 2:
+            return lambda: self._sync(leaves)
+        grads = self._hook_stage2(leaves)
+
+        def done():
+            grads["layers"] = {n: [ts[i] for i in sorted(ts)]
+                               for n, ts in grads["layers"].items()}
+            return grads
+        return done
+
+    def _sync(self, leaves):
+        """Stages 0, 1 and 3: a replicated leaf's gradient summed over the
+        world; a stage-3 shard's (summed over sharding by
+        :class:`_GatherShard`) over dp. In the gradient's dtype."""
+        def one(t, spec):
+            g = t.grad if t.grad is not None else torch.zeros_like(t)
+            sharded = any(e is not None for e in spec)
+            return comm.all_reduce(g, self.dp if sharded else self.world)
+        return {k: ({n: [one(t, self.pspecs["layers"][n]) for t in ts]
+                     for n, ts in v.items()} if k == "layers"
+                    else one(v, self.pspecs[k]))
+                for k, v in leaves.items()}
+
+    def _hook_stage2(self, leaves):
+        """Stage 2: as backward accumulates each gradient leaf, sum it over
+        sharding into the rank that owns its moment rows (a layer slice
+        goes whole to one owner: ``reduce``; embed, lm_head, final_norm:
+        ``reduce_scatter`` on dim 0), sum that over dp and drop the rest,
+        so no full gradient tree exists. Fills and returns the tree."""
+        grads = {"layers": {}}
+        me = self.sh.rank
+
+        def piece_hook(owner, slot, out):
+            def hook(t):
+                g = comm.reduce(t.grad, owner, self.sh)
+                t.grad = None
+                if owner == me:
+                    out[slot] = comm.all_reduce(g, self.dp)
+            return hook
+
+        def leaf_hook(key):
+            def hook(t):
+                g = comm.reduce_scatter(t.grad, 0, self.sh)
+                t.grad = None
+                grads[key] = comm.all_reduce(g, self.dp)
+            return hook
+
+        for k, v in leaves.items():
+            if k != "layers":
+                v.register_post_accumulate_grad_hook(leaf_hook(k))
+                continue
+            for n, ts in v.items():
+                per = len(ts) // self.sh.nranks
+                out = grads["layers"][n] = {}
+                for i, t in enumerate(ts):
+                    t.register_post_accumulate_grad_hook(
+                        piece_hook(i // per, i % per, out))
+        return grads
+
+    def _rows(self, x, spec):
+        ((d, parts, index),) = _split_dims(spec, self.degrees, self.coord)
+        n = x.shape[d] // parts
+        return x.narrow(d, index * n, n)
+
+    def update(self, params, grads, opt):
+        """AdamW. Stages 0 and 3 update what the rank holds. Stages 1 and 2
+        update only the dim-0 rows its moments own, then all-gather each
+        param's rows over sharding, so every replica keeps the same
+        bits."""
+        if self.stage in (0, 3):
+            _adamw_update(params, grads, opt, self.lr)
+            return
+        own_p = _map_specs(lambda x, s, _n: self._rows(x, s), params,
+                           self.ospecs)
+        own_g = grads
+        if self.stage == 1:
+            per = {n: len(ts) // self.sh.nranks
+                   for n, ts in grads["layers"].items()}
+            i = self.sh.rank
+            own_g = {k: ({n: ts[i * per[n]:(i + 1) * per[n]]
+                          for n, ts in v.items()} if k == "layers"
+                         else self._rows(v, self.ospecs[k]))
+                     for k, v in grads.items()}
+        _adamw_update(own_p, own_g, opt, self.lr)
+
+        def gather(full, spec, _name):
+            comm.all_gather(self._rows(full, spec).clone(), 0, self.sh,
+                            out=full)
+        with torch.no_grad():
+            _map_specs(gather, params, self.ospecs)
+
+
 def build_train_step(config: LlamaConfig,
                      parallel: ParallelConfig = ParallelConfig(),
                      lr: float = 3e-4, seed: int = 0, device=None):
-    """Returns (step_fn, params, opt_state), as the JAX ``build_train_step``
-    at parallel = 1. ``step_fn(params, opt, ids, labels) -> (params, opt,
-    loss)``: ids and labels are [B, S] int32 host arrays copied to the
-    device; loss is a 0-d f32 tensor on the device. Params and AdamW state
-    (f32 moments) are updated in place. ``device=None`` means the card;
-    what is not ported raises ValueError (:func:`check_ported`)."""
+    """Returns (step_fn, params, opt_state), as the JAX ``build_train_step``.
+    ``step_fn(params, opt, ids, labels) -> (params, opt, loss)``: ids and
+    labels are [B, S] int32 host arrays copied to the device; loss is a
+    0-d f32 tensor on the device. Params and AdamW state (f32 moments) are
+    updated in place. ``device=None`` means the card; what is not ported
+    raises ValueError (:func:`check_ported`).
+
+    With ``dp`` x ``sharding`` above 1, each of that many processes (one
+    a rank, joined by ``paddle_tpu_torch.distributed.init_parallel_env``;
+    without it, or with another world size, this raises ValueError) calls
+    this with the same arguments, and ``step_fn`` with the same GLOBAL
+    batch. The rank takes its rows by :func:`_act_spec` (rank r of W the
+    rows [r*B/W, (r+1)*B/W); B must divide), the loss is the global mean
+    over labels != -100, the same float on every rank, and the gradients
+    are summed over ranks in their dtype. ``zero_stage`` (with sharding
+    above 1) 1: AdamW moments sharded on dim 0 (:func:`opt_state_pspecs`),
+    each rank updating its rows and all-gathering them; 2: also each
+    gradient summed into its owner as backward makes it; 3: params sharded
+    too (:func:`param_pspecs`), each layer's full weights gathered inside
+    its checkpointed call (:class:`_GatherShard`). The params and state
+    passed and returned are the rank's local shards
+    (:func:`shard_train_state`, :func:`gather_train_state` with
+    ``step_fn.hcg``). The JAX package runs one program over a mesh of
+    global arrays; each difference that follows is listed in ROADMAP.md's
+    deviations.
+
+    Under the default ``PADDLE_TPU_TORCH_FLASH_BWD`` (``auto``), the fused
+    flash backward sums dQ by bulk reduce-adds in an order that varies
+    between runs on the card, so two runs from the same state differ in
+    the last bits and a resumed run is close to, not bitwise, the one it
+    resumes; ``split`` sums in a fixed order and resumes bitwise. The dp
+    replicas stay bitwise equal under either (their gradients are
+    all-reduced)."""
     check_ported(parallel)
     dev = resolve_device(device)
+    if parallel.dp * parallel.sharding > 1:
+        return _build_dist_train_step(config, parallel, lr, seed, dev)
     params = init_llama_params(config, seed, device=dev)
     opt_state = _adamw_init(params)
 
@@ -1577,6 +2023,26 @@ def build_train_step(config: LlamaConfig,
         return p, opt, loss
 
     return step_fn, params, opt_state
+
+
+def _build_dist_train_step(config, parallel, lr, seed, dev):
+    """The dp x sharding branch of :func:`build_train_step`: every rank
+    makes the full seeded params, keeps its shards and makes zero moments
+    in its local shapes only."""
+    hcg = HybridCommunicateGroup(dp_degree=parallel.dp,
+                                 sharding_degree=parallel.sharding)
+    full = init_llama_params(config, seed, device=dev)
+    params, _ = shard_train_state(full, None, config, parallel)
+    step = _DistTrainStep(config, parallel, lr, hcg, dev)
+
+    def zeros(x, spec, name):
+        return torch.zeros(_local_shape(name, x.shape, spec, step.degrees,
+                                        step.coord),
+                           dtype=torch.float32, device=dev)
+    opt_state = {"m": _map_specs(zeros, full, step.ospecs),
+                 "v": _map_specs(zeros, full, step.ospecs),
+                 "t": torch.zeros((), dtype=torch.float32, device=dev)}
+    return step, params, opt_state
 
 
 def count_params(config: LlamaConfig) -> int:

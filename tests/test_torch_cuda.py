@@ -2355,3 +2355,85 @@ def test_tiny_fleet_on_card_matches_cpu(dev, tmp_path):
     assert st1["lost"] == 0 and st1["migrations"] > 0 and \
         st1["rolling_swaps"] == 2
     assert n0 == r0 == 0 and n1 > 0 and r1 > 0
+
+
+def _resume_model(dev):
+    """A bf16 Llama at head_dim 128 whose attention runs the card's flash
+    kernels at S 1024 (eight 128-key blocks: row 16 sums dQ over them)."""
+    cfg = tl.llama_tiny(vocab=512, hidden=512, layers=2, heads=4, kv_heads=4,
+                        inter=1024, seq=1024)
+    cfg.dtype = torch.bfloat16
+    rng = np.random.RandomState(13)
+    batches = [rng.randint(0, 512, size=(2, 1025)).astype(np.int32)
+               for _ in range(4)]
+    return cfg, batches
+
+
+def _run_steps(step, state, batches):
+    losses = []
+    for x in batches:
+        state["params"], state["opt"], loss = step(
+            state["params"], state["opt"], x[:, :-1], x[:, 1:])
+        losses.append(float(loss))
+    return losses
+
+
+def test_resume_under_split_is_bitwise(dev, tmp_path, monkeypatch):
+    """Under PADDLE_TPU_TORCH_FLASH_BWD=split (rows 17 and 18: dQ summed
+    in a fixed order) four straight steps equal two steps, a
+    CheckpointManager save, a restore into a state of another seed and two
+    more steps, bit for bit: losses and every param and moment."""
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.distributed.checkpoint import save_load as sl
+    monkeypatch.setenv(fa.ENV_FLASH_BWD, "split")
+    cfg, batches = _resume_model(dev)
+    step, params, opt = tl.build_train_step(cfg, tl.ParallelConfig(),
+                                            seed=1, device=dev)
+    straight = {"params": params, "opt": opt}
+    want = _run_steps(step, straight, batches)
+    step, params, opt = tl.build_train_step(cfg, tl.ParallelConfig(),
+                                            seed=1, device=dev)
+    first = {"params": params, "opt": opt}
+    got = _run_steps(step, first, batches[:2])
+    mgr = CheckpointManager(str(tmp_path / "root"), keep=1)
+    mgr.save(first, 2, block=True)
+    step, params, opt = tl.build_train_step(cfg, tl.ParallelConfig(),
+                                            seed=2, device=dev)
+    resumed = {"params": params, "opt": opt}
+    assert mgr.restore(resumed) == 2
+    got += _run_steps(step, resumed, batches[2:])
+    assert got == want
+    assert sl.leaf_checksums(resumed) == sl.leaf_checksums(straight)
+
+
+def test_default_flash_backward_gap_between_two_runs(dev, monkeypatch):
+    """The default backward (auto: row 16, dQ by bulk reduce-adds in an
+    order the hardware picks) is not bitwise run-to-run by construction;
+    split (rows 17 and 18) is. Eight backward calls on the same inputs at
+    the train shape (B 4 x NH 32, S 2048, D 128, causal, bf16): dK and dV
+    bitwise the first call's under both; dQ bitwise under split and,
+    under auto, within 2^-7 relative Frobenius of the first call's, the
+    calls that differ and the largest gap printed."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    bh, s, d = 128, 2048, 128
+    q, k, v, do = (torch.randn(bh, s, d, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    qs = fa._prescale(q, scale)
+    o, lse = fa.flash_fwd(qs, k, v, True)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    for mode in ("split", "auto"):
+        monkeypatch.setenv(fa.ENV_FLASH_BWD, mode)
+        first = fa._bwd_calls(qs, k, v, do, lse, delta, True, scale)
+        gaps = []
+        for _ in range(7):
+            dq, dk, dv = fa._bwd_calls(qs, k, v, do, lse, delta, True, scale)
+            assert torch.equal(dk, first[1]) and torch.equal(dv, first[2])
+            gaps.append(float((dq.float() - first[0].float()).norm()
+                              / first[0].float().norm()))
+        print(f"{mode}: dQ of 7 more calls against the first, rel frob "
+              f"{gaps}; {sum(x > 0 for x in gaps)} differ")
+        if mode == "split":
+            assert not any(gaps), gaps
+        else:
+            assert max(gaps) < 2 ** -7, gaps

@@ -193,8 +193,16 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
         " or m == 'paddle_tpu' or m.startswith('paddle_tpu.')]\n"
         "print(len([m for m in sys.modules"
         " if m.startswith('paddle_tpu_torch.')]), bad)\n"
+        "print(' '.join(m for m in sys.modules"
+        " if m.startswith('paddle_tpu_torch.')))\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert int(res.stdout.split()[0]) >= 10
+    walked = set(res.stdout.splitlines()[-1].split())
+    # the multi-process modules, the rank harness the spawned ranks run
+    assert {"paddle_tpu_torch.distributed.env",
+            "paddle_tpu_torch.distributed.communication",
+            "paddle_tpu_torch.distributed.fleet.topology",
+            "paddle_tpu_torch.testing.dist"} <= walked

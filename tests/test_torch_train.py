@@ -14,6 +14,8 @@ the gradient shows most (one such param of 16,384 differs by 1.3e-6).
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
 
 import jax
 import jax.numpy as jnp
@@ -217,23 +219,43 @@ def test_params_from_numpy_carries_opt_state(model):
     assert t["v"]["lm_head"].dtype == torch.float32
 
 
-@pytest.mark.parametrize("kwargs,what", [
-    (dict(dp=2), "dp"),
-    (dict(mp=2), "mp"),
-    (dict(sharding=2), "sharding"),
-    (dict(sep=2), "sep"),
-    (dict(pp=2), "pp"),
-    # fields the single-device step never reads
-    (dict(microbatches=4), "microbatches"),
-    (dict(scan_unroll=2), "scan_unroll"),
-    (dict(zero_stage=1), "zero_stage"),
-    (dict(sep_strategy="ulysses"), "sep_strategy"),
-    (dict(overlap_p2p=True), "overlap_p2p"),
+@pytest.mark.parametrize("kwargs,what,world,rows", [
+    pytest.param(dict(mp=2), "mp", None, None, id="kwargs1-mp"),
+    pytest.param(dict(sep=2), "sep", None, None, id="kwargs3-sep"),
+    pytest.param(dict(pp=2), "pp", None, None, id="kwargs4-pp"),
+    # fields the train step never reads
+    pytest.param(dict(microbatches=4), "microbatches", None, None,
+                 id="kwargs5-microbatches"),
+    pytest.param(dict(scan_unroll=2), "scan_unroll", None, None,
+                 id="kwargs6-scan_unroll"),
+    pytest.param(dict(sep_strategy="ulysses"), "sep_strategy", None, None,
+                 id="kwargs8-sep_strategy"),
+    pytest.param(dict(overlap_p2p=True), "overlap_p2p", None, None,
+                 id="kwargs9-overlap_p2p"),
+    # dp and sharding run one process a rank; they refuse no process
+    # group, a world other than dp x sharding, and a batch the ranks do
+    # not divide (under torch's in-process fake process group)
+    pytest.param(dict(dp=2), "init_parallel_env", None, None,
+                 id="dp-no_process_group"),
+    pytest.param(dict(dp=2, sharding=2, zero_stage=1), "init_parallel_env",
+                 2, None, id="dp_sharding-world_of_2_not_4"),
+    pytest.param(dict(dp=2), "batch of 3 rows", 2, 3,
+                 id="dp-batch_of_3_over_2_ranks"),
 ])
-def test_unported_parallel_configs_raise(model, kwargs, what):
-    tcfg = model[1]
-    with pytest.raises(ValueError, match=what):
-        tl.build_train_step(tcfg, tl.ParallelConfig(**kwargs), device="cpu")
+def test_unported_parallel_configs_raise(model, kwargs, what, world, rows):
+    tcfg, ids, labels = model[1], model[3], model[4]
+    if world is not None:
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=world)
+    try:
+        with pytest.raises(ValueError, match=what):
+            step, p, o = tl.build_train_step(
+                tcfg, tl.ParallelConfig(**kwargs), device="cpu")
+            step(p, o, np.tile(ids, (2, 1))[:rows],
+                 np.tile(labels, (2, 1))[:rows])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_remat_off_ignores_policy_and_device_none_needs_cuda(model):
