@@ -219,9 +219,13 @@ Phases, in order; any failure exits non-zero before the last line:
                host: correctness and memory, not collective speed): dp 2,
                sharding 2 at ZeRO stages 1 and 2 (4 layers, 2 steps),
                stage 3 at 16 layers (1 step), dp 2 x sharding 2 at stage
-               3 (W=4, 4 layers, 2 steps); every rank the same loss at
-               every step, the dp replicas' params bitwise equal (a
-               checksum a leaf), the losses held to the single process's
+               3 (W=4, 4 layers, 2 steps); tensor parallelism at 4
+               layers, 2 steps: mp 2, mp 2 with the fused FFN ring
+               (PADDLE_TPU_TORCH_TP_OVERLAP=1 in the ranks, its plan
+               counter asserted), dp 2 x mp 2 and mp 2 x sharding 2 at
+               stage 3 (W=4); every rank the same loss at every step,
+               the dp replicas' params and every rank's norms bitwise
+               equal (a checksum a leaf), the losses held to the single process's
                (DP_STEP0_RTOL, DP_LATER_RTOL) and stages 1, 2, 3 to each
                other, each rank's part of every param leaf to the single
                process's params (DP_PARAM_REL, the relative Frobenius
@@ -1069,7 +1073,8 @@ def check_commit(dev, errs):
 # between a summation order's ~1e-4 and the ~2e-3 of a P or dS left
 # unrounded. (BH, S, D, causal, dtype): S = 2048, D = 128, causal at
 # BH = 128 is the Llama train phase's shape, at BH = 160 train-13b's
-# (B = 4 x 40 heads); S = 512, D = 64 the ERNIE
+# (B = 4 x 40 heads), at BH = 64 and 32 train-dp's mp 2 (B = 4 and 2
+# rows a rank x 16 heads); S = 512, D = 64 the ERNIE
 # phase's (B = 8 x 16 heads); S = 1024, D = 64 at BH = 256 the generate
 # phase's prefill (B = 8 x 32 heads, kv heads repeated). Sq != Sk are
 # flash_block_fwd's shapes (one KV block of a ring, causal top-left); a
@@ -1081,6 +1086,8 @@ FLASH_CASES = [(8, 200, 200, 128, True, torch.bfloat16, None),
                (8, 200, 200, 128, False, torch.bfloat16, None),
                (128, 2048, 2048, 128, True, torch.bfloat16, None),
                (160, 2048, 2048, 128, True, torch.bfloat16, None),
+               (64, 2048, 2048, 128, True, torch.bfloat16, None),
+               (32, 2048, 2048, 128, True, torch.bfloat16, None),
                (8, 2048, 2048, 128, False, torch.bfloat16, None),
                (128, 512, 512, 64, True, torch.bfloat16, None),
                (GEN_B * 32, GEN_S, GEN_S, 64, True, torch.bfloat16, None),
@@ -6393,20 +6400,32 @@ def fleet_phase(dev):
     return out
 
 
-# train-dp: dp and ZeRO sharding over ranks sharing the one card (gloo)
+# train-dp: dp, ZeRO sharding and tensor parallelism (mp) over ranks
+# sharing the one card (gloo)
 DP_LAYERS = 4
 DP_STEPS = 2    # step 0 (a process's first also warms gloo's buffers), 1
 # (name, world, ParallelConfig fields, layers, steps); stage 3 at 16
 # layers takes one step for the phase's time (21 s a step through the
-# host): dp2_sh2_stage3 holds stage 3's second step
+# host): dp2_sh2_stage3 holds stage 3's second step. mp2_overlap runs the
+# fused FFN ring (DP_ENV, set in the rank for that run only). The two
+# world-4 mp runs take one step for the script's time (1070.7 s on an
+# NVIDIA H100 80GB HBM3, 700.00 W, with both at two steps), held to the
+# single process's step-0 params; the CPU tests hold those compositions
+# over three steps
 DP_RUNS = [
     ("dp2", 2, dict(dp=2), DP_LAYERS, DP_STEPS),
     ("sh2_stage1", 2, dict(sharding=2, zero_stage=1), DP_LAYERS, DP_STEPS),
     ("sh2_stage2", 2, dict(sharding=2, zero_stage=2), DP_LAYERS, DP_STEPS),
     ("sh2_stage3", 2, dict(sharding=2, zero_stage=3), TRAIN_LAYERS, 1),
+    ("mp2", 2, dict(mp=2), DP_LAYERS, DP_STEPS),
+    ("mp2_overlap", 2, dict(mp=2), DP_LAYERS, DP_STEPS),
     ("dp2_sh2_stage3", 4, dict(dp=2, sharding=2, zero_stage=3), DP_LAYERS,
      DP_STEPS),
+    ("dp2_mp2", 4, dict(dp=2, mp=2), DP_LAYERS, 1),
+    ("mp2_sh2_stage3", 4, dict(mp=2, sharding=2, zero_stage=3), DP_LAYERS,
+     1),
 ]
+DP_ENV = {"mp2_overlap": {"PADDLE_TPU_TORCH_TP_OVERLAP": "1"}}
 # a rank's bf16 products run at B/W rows, and cuBLAS may round them apart
 # from the single process's B rows: step 0's loss within 2^-10 relative,
 # step 1's within 2^-12 (the sound runs read at most 1.15e-4; the
@@ -6434,29 +6453,49 @@ def bits_checksum(t):
     return acc
 
 
-def dp_reckoning(cfg, kw, layers):
+def dp_reckoning(cfg, kw, layers, env=None):
     """Collective bytes a step of one rank, by "op.axis", from the shapes
-    (bf16 params; the count and the loss are one f32 each): dp
-    all-reduces every gradient; stage 1 all-reduces them over the world
-    and all-gathers the updated params; stage 2 reduces each layer slice
-    to its owner and reduce-scatters embed, lm_head and final_norm, then
-    all-gathers the params; stage 3 all-gathers each layer twice under
-    full remat (forward and recompute) and embed and lm_head once,
-    reduce-scatters every sharded gradient once, all-reduces the norms'
-    over the world and the shards' over dp."""
+    (bf16 params, each matrix, embed and lm_head 1/mp of it on a rank;
+    the count and the loss are one f32 each, over the dp x sharding
+    ranks): dp all-reduces every gradient; stage 1 all-reduces them over
+    dp x sharding and all-gathers the updated params; stage 2 reduces
+    each layer slice to its owner and reduce-scatters embed, lm_head and
+    final_norm, then all-gathers the params; stage 3 all-gathers each
+    layer twice under full remat (forward and recompute) and embed and
+    lm_head once, reduce-scatters every sharded gradient once,
+    all-reduces the norms' over dp x sharding and the shards' over dp.
+    mp all-reduces [b, S, H] bf16 (b the rank's rows) for the embedding
+    and lm_head's input gradient, and per layer twice forward, once in
+    the recompute (it stops after the layer's last saved tensor, before
+    down_proj's) and twice backward, plus the cross entropy's three
+    [b, S] f32 reductions; with the rings (``env``
+    PADDLE_TPU_TORCH_TP_OVERLAP) down_proj's all-reduce becomes
+    2 (mp - 1) hops of [b S / mp, H] forward and again in the
+    recompute."""
     import collections
     c = cfg
     L, H, I, V = layers, c.hidden_size, c.intermediate_size, c.vocab_size
     qd = c.num_attention_heads * c.head_dim
     kvd = c.num_key_value_heads * c.head_dim
-    mats = 2 * L * (2 * H * qd + 2 * H * kvd + 3 * H * I)
+    dp, sh, mp = kw.get("dp", 1), kw.get("sharding", 1), kw.get("mp", 1)
+    mats = 2 * L * (2 * H * qd + 2 * H * kvd + 3 * H * I) // mp
     layer_norms = 2 * 2 * L * H
-    emb = 2 * V * H
-    head = 0 if c.tie_word_embeddings else 2 * H * V
+    emb = 2 * V * H // mp
+    head = 0 if c.tie_word_embeddings else 2 * H * V // mp
     total = mats + layer_norms + emb + head + 2 * H
-    dp, sh = kw.get("dp", 1), kw.get("sharding", 1)
     world = "dp" if sh == 1 else "sharding" if dp == 1 else "dp,sharding"
-    out = collections.Counter({f"all_reduce.{world}": 8})
+    out = collections.Counter()
+    if mp > 1:
+        rows = TRAIN_B // (dp * sh)
+        act = 2 * rows * TRAIN_S * H
+        overlap = (env or {}).get("PADDLE_TPU_TORCH_TP_OVERLAP") == "1"
+        out["all_reduce.mp"] = (2 + (4 if overlap else 5) * L) * act \
+            + 3 * 4 * rows * TRAIN_S
+        if overlap:
+            out["ppermute.mp"] = 4 * (mp - 1) * L * act // mp
+    if dp * sh == 1:
+        return dict(out)
+    out[f"all_reduce.{world}"] += 8
     if sh == 1:
         out[f"all_reduce.{world}"] += total
         return dict(out)
@@ -6481,23 +6520,31 @@ def dp_reckoning(cfg, kw, layers):
 
 def dp_state_reckoning(cfg, kw, layers):
     """Bytes a rank holds for params (bf16), gradients (bf16) and f32
-    moments, 12 a param on one rank: dp keeps all of it; stage 1 shards
-    the moments, stage 2 also the gradients, stage 3 everything, plus the
-    full bf16 weights of one gathered layer, embed and lm_head."""
+    moments, 12 a param on one rank, of the params it holds (mp keeps
+    1/mp of every matrix, embed and lm_head, and whole norms): dp keeps
+    all of it; stage 1 shards the moments, stage 2 also the gradients,
+    stage 3 everything, plus the full bf16 weights (of its mp slice) of
+    one gathered layer, embed and lm_head."""
     import dataclasses
     from paddle_tpu_torch.models import llama as tl
     c = dataclasses.replace(cfg, num_hidden_layers=layers)
-    n = tl.count_params(c)
     sh, stage = kw.get("sharding", 1), kw.get("zero_stage", 3)
+    mp = kw.get("mp", 1)
+
+    def held(layers):
+        n = tl.count_params(dataclasses.replace(c, num_hidden_layers=layers))
+        norms = (2 * layers + 1) * c.hidden_size
+        return (n - norms) // mp + norms
+    n = held(layers)
     if sh == 1:
         return 12 * n
     if stage <= 1:
         return 4 * n + 8 * n // sh
     if stage == 2:
         return 2 * n + 10 * n // sh
-    layer = (tl.count_params(dataclasses.replace(c, num_hidden_layers=1))
-             - tl.count_params(dataclasses.replace(c, num_hidden_layers=0)))
-    head = c.vocab_size * c.hidden_size * (1 if c.tie_word_embeddings else 2)
+    layer = held(1) - held(0)
+    head = c.vocab_size * c.hidden_size * (
+        1 if c.tie_word_embeddings else 2) // mp
     return 12 * n // sh + 2 * (layer + head)
 
 
@@ -6550,8 +6597,9 @@ def _worst(errs):
 
 def dp_references(dev):
     """The single process's runs that train-dp is held to (the same seed
-    and batches): DP_STEPS steps at DP_LAYERS and one at TRAIN_LAYERS,
-    their losses and params (kept on the card for the ranks). At
+    and batches): DP_STEPS steps at DP_LAYERS, its step 0 alone, and one
+    step at TRAIN_LAYERS, their losses and params (kept on the card for
+    the ranks). At
     DP_LAYERS, three faulty runs are read as controls that the limits
     must fail: step 1 skipped (its params are step 0's), step 1 on half
     the batch (a rank's rows dropped), step 0 skipped (step 1 from the
@@ -6570,7 +6618,7 @@ def dp_references(dev):
                                      device=dev)
     p0 = clone(p)
     p, o, l0 = step(p, o, x0[:, :-1], x0[:, 1:])
-    p1, o1 = clone(p), clone(o)
+    p_step0, p1, o1 = clone(p), clone(p), clone(o)
     p, o, l1 = step(p, o, x1[:, :-1], x1[:, 1:])
     losses = [float(l0), float(l1)]
     controls = {"step 1 skipped": _worst(leaf_rel_errors(p1, p))}
@@ -6582,7 +6630,8 @@ def dp_references(dev):
     controls["step 0 skipped"] = _worst(leaf_rel_errors(p0, p))
     loss_gap = _rel(float(skipped), losses[1])
     del step, o, p0
-    refs = {(DP_LAYERS, DP_STEPS): (losses, p)}
+    refs = {(DP_LAYERS, DP_STEPS): (losses, p),
+            (DP_LAYERS, 1): (losses[:1], p_step0)}
     gc.collect()
     torch.cuda.empty_cache()
     cfg = dataclasses.replace(tl.llama_7b(), num_hidden_layers=TRAIN_LAYERS)
@@ -6619,6 +6668,8 @@ def train_dp_rank(rank, world, runs, dev, t_spawn, refs):
             continue
         cfg = dataclasses.replace(tl.llama_7b(), num_hidden_layers=layers)
         par = tl.ParallelConfig(remat=True, remat_policy="full", **kw)
+        env = DP_ENV.get(name, {})
+        os.environ.update(env)
         t0 = time.perf_counter()
         step, p, o = tl.build_train_step(cfg, par, seed=SEED, device=dev)
         torch.cuda.synchronize()
@@ -6636,9 +6687,13 @@ def train_dp_rank(rank, world, runs, dev, t_spawn, refs):
             step_ms.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
+        for k in env:
+            del os.environ[k]
         comm = {k[len("comm."):]: v / steps
                 for k, v in trace.counters().items() if k.startswith("comm.")}
         out[name] = {
+            "tp_plans": {k: v for k, v in trace.counters().items()
+                         if k.startswith("tp.")},
             "losses": losses, "step_ms": step_ms, "build_s": build_s,
             "peak_bytes": peak, "state_bytes": state, "launches": _counts(),
             "comm_per_step": comm,
@@ -6660,18 +6715,19 @@ def _rel(a, b):
 
 
 def train_dp(dev):
-    """build_train_step at llama_7b's width over dp and ZeRO sharding, W
-    ranks (spawned processes) sharing cuda:0 through gloo, which stages
-    each CUDA tensor through the host: a check of correctness and memory
-    per rank, not of collective speed. Losses and params are held to the
-    single process's (dp_references), whose faulty controls must fail
-    the same limits."""
+    """build_train_step at llama_7b's width over dp, ZeRO sharding and mp
+    (alone, with the fused FFN ring, and composed with dp and with
+    sharding at stage 3), W ranks (spawned processes) sharing cuda:0
+    through gloo, which stages each CUDA tensor through the host: a
+    check of correctness and memory per rank, not of collective speed.
+    Losses and params are held to the single process's (dp_references),
+    whose faulty controls must fail the same limits."""
     import dataclasses
     from paddle_tpu_torch.models import llama as tl
     from paddle_tpu_torch.testing.dist import spawn
     phase(f"train-dp llama_7b width (bf16, B={TRAIN_B}, S={TRAIN_S}, full "
-          f"remat, AdamW f32 moments): dp and ZeRO stages 1-3 over 2 and 4 "
-          f"ranks sharing the card (gloo)")
+          f"remat, AdamW f32 moments): dp, ZeRO stages 1-3 and mp over 2 "
+          f"and 4 ranks sharing the card (gloo)")
     refs, controls, skip_gap = dp_references(dev)
     fails, res = [], {}
     for c, (err, leaf) in controls.items():
@@ -6731,12 +6787,14 @@ def train_dp(dev):
         if any(r["losses"] != losses for r in per):
             fails.append(f"{name}: ranks report different losses "
                          f"{[r['losses'] for r in per]}")
-        # dp replicas (the same sharding coordinate) hold the same bits;
-        # stage 3's other shards agree on the replicated norms only
+        # dp replicas (the same sharding and mp coordinates) hold the
+        # same bits; stage 3's other shards and the other mp ranks agree
+        # on the replicated norms only
         stage3 = kw.get("sharding", 1) > 1 and kw.get("zero_stage", 3) >= 3
         for a in per:
             for b in per:
-                same = a["coord"][2] == b["coord"][2] or not stage3
+                same = a["coord"][4] == b["coord"][4] and (
+                    a["coord"][2] == b["coord"][2] or not stage3)
                 bad = [k for k in a["checksums"] if (same or "norm" in k)
                        and a["checksums"][k] != b["checksums"][k]]
                 if bad:
@@ -6755,8 +6813,12 @@ def train_dp(dev):
                          f"{worst[0]} off the single process's params")
         want = {k: v * steps
                 for k, v in step_launches(layers, "full").items()}
-        reckon = dp_reckoning(c, kw, layers)
+        reckon = dp_reckoning(c, kw, layers, DP_ENV.get(name))
         state_gb = dp_state_reckoning(c, kw, layers) / 1e9
+        if name in DP_ENV and not all(
+                r["tp_plans"].get("tp.fused_ffn.plans", 0) >= 1 for r in per):
+            fails.append(f"{name}: the fused FFN plan did not apply: "
+                         f"{[r['tp_plans'] for r in per]}")
         for rank, r in enumerate(per):
             got = {k: r["launches"][k] for k in want}
             if got != want:
@@ -6782,10 +6844,11 @@ def train_dp(dev):
             "ranks": [{k: r[k] for k in ("coord", "peak_bytes",
                                          "state_bytes", "step_ms",
                                          "build_s", "comm_per_step",
-                                         "param_rel")}
+                                         "param_rel", "tp_plans")}
                       | {"launches": {k: r["launches"][k] for k in want}}
                       for r in per]})
-        print(f"{name} (world {world}, {layers} layers, {kw}): losses "
+        print(f"{name} (world {world}, {layers} layers, {kw}"
+              f"{', ' + str(DP_ENV[name]) if name in DP_ENV else ''}): losses "
               f"{losses}; rel gaps to one process {gaps}; params: worst "
               f"leaf {worst[1]} {worst[0]:.4e} (rank {worst[2]})")
         for rank, r in enumerate(per):

@@ -16,6 +16,18 @@ of an all-gather).
 
 Gloo runs every collective used here on CUDA tensors in torch 2.11
 (``tools/gloo_probe.py``), so none is expressed through another.
+
+Point-to-point is the exception. Gloo's ``send``/``recv`` (and so
+``isend``/``irecv`` and ``batch_isend_irecv``) hands a tensor's pointer
+to its TCP transport as host memory: on CUDA tensors in torch 2.11 the
+sender fails with "writev: Bad address" and its peer with "Connection
+closed", or a rank aborts on an uncaught ``gloo::IoException``
+(``tools/gloo_probe.py --p2p`` on an NVIDIA H100 80GB HBM3, 700.00 W;
+CPU tensors pass in f32 and bf16). So :func:`ring_hop` stages a CUDA
+tensor through a host copy on each side when the group's backend is
+gloo, chosen by the backend's name; NCCL, a card a rank, takes device
+tensors as they are. A staged 256 MB bf16 hop between two ranks on one
+card moved 0.49 GB/s, a CPU one 0.76 GB/s (the same probe).
 """
 from __future__ import annotations
 
@@ -57,12 +69,41 @@ def _span(op: str, group: Group, nbytes: int):
     return comm_span(f"comm.{op}.{group.axis_name}", nbytes=nbytes)
 
 
-def all_reduce(tensor: torch.Tensor, group: Group) -> torch.Tensor:
-    """Sum ``tensor`` over ``group`` in place; returns it."""
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(tensor: torch.Tensor, group: Group,
+               op: str = "sum") -> torch.Tensor:
+    """Reduce ``tensor`` over ``group`` in place (``op`` "sum" or
+    "max"); returns it."""
     if group.nranks > 1:
         with _span("all_reduce", group, _nbytes(tensor)):
-            dist.all_reduce(tensor, group=group.pg)
+            dist.all_reduce(tensor, op=_OPS[op], group=group.pg)
     return tensor
+
+
+def ring_hop(tensor: torch.Tensor, group: Group) -> torch.Tensor:
+    """One hop of a ring over ``group`` (``lax.ppermute`` with the
+    permutation r -> r+1): send ``tensor`` to the next rank of the group,
+    r+1 mod n, and return what the previous one, r-1, sent (a new tensor
+    of the same shape, dtype and device). In span ``comm.ppermute.<axis>``
+    with the tensor's bytes. Over gloo a CUDA tensor goes through host
+    copies (see the module docstring)."""
+    n = group.nranks
+    if n == 1:
+        return tensor
+    r = group.rank
+    with _span("ppermute", group, _nbytes(tensor)):
+        staged = tensor.is_cuda and dist.get_backend(group.pg) == "gloo"
+        src = tensor.cpu() if staged else tensor.contiguous()
+        dst = torch.empty_like(src)
+        ops = [dist.P2POp(dist.isend, src, group.ranks[(r + 1) % n],
+                          group.pg),
+               dist.P2POp(dist.irecv, dst, group.ranks[(r - 1) % n],
+                          group.pg)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return dst.to(tensor.device) if staged else dst
 
 
 def reduce(tensor: torch.Tensor, dst: int, group: Group) -> torch.Tensor:

@@ -59,9 +59,14 @@ class HybridCommunicateGroup:
     """This rank's place in the hybrid mesh and one :class:`Group` per
     axis. A mesh of more than one rank needs the process group that
     ``init_parallel_env`` makes, over exactly as many ranks; without it
-    this raises ValueError. The port runs dp and sharding only, so only
-    their groups are asked for; the other axes' queries come with the
-    slices that run them."""
+    this raises ValueError. The port runs dp, sharding and mp, so their
+    groups are asked for; the pp and sep queries come with the slices
+    that run them.
+
+    Beside JAX's queries, :meth:`get_data_sharding_group` is the port's
+    own: the ranks that share this rank's other coordinates across dp x
+    sharding, over which a gradient replicated on them and the loss are
+    summed (JAX's GSPMD program sums over the batch axes itself)."""
 
     def __init__(self, *, dp_degree=1, mp_degree=1, pp_degree=1,
                  sharding_degree=1, sep_degree=1):
@@ -93,12 +98,40 @@ class HybridCommunicateGroup:
                         mine = Group(axis, degree,
                                      ranks.index(self.global_rank), ranks, pg)
             self._groups[axis] = mine
+        self._groups["dp,sharding"] = self._data_sharding_group(degrees)
+
+    def _data_sharding_group(self, degrees):
+        """The ranks that differ only along dp and sharding: dp's or
+        sharding's own group when only one of them exceeds 1, the world's
+        when the plane is every rank, else one ``new_group`` a plane
+        (one a coordinate of the other axes), made on every rank in the
+        same order."""
+        dp, sh = degrees[0], degrees[2]
+        if dp == 1 or sh == 1:
+            return self._groups["dp" if sh == 1 else "sharding"]
+        name = "dp,sharding"
+        if dp * sh == self.nranks:
+            return Group(name, self.nranks, self.global_rank,
+                         list(range(self.nranks)), dist.group.WORLD)
+        mesh = np.arange(self.nranks).reshape(degrees)
+        planes = np.transpose(mesh, (1, 3, 4, 0, 2)).reshape(
+            -1, dp * sh).tolist()
+        mine = None
+        for ranks in planes:
+            pg = dist.new_group(ranks)
+            if self.global_rank in ranks:
+                mine = Group(name, dp * sh, ranks.index(self.global_rank),
+                             ranks, pg)
+        return mine
 
     def get_data_parallel_world_size(self):
         return self._groups["dp"].nranks
 
     def get_sharding_parallel_world_size(self):
         return self._groups["sharding"].nranks
+
+    def get_model_parallel_world_size(self):
+        return self._groups["mp"].nranks
 
     def get_data_parallel_rank(self):
         """This process's index along dp (the JAX package, a single
@@ -109,11 +142,24 @@ class HybridCommunicateGroup:
         """This process's index along sharding (0 in the JAX package)."""
         return self._coord["sharding"]
 
+    def get_model_parallel_rank(self):
+        """This process's index along mp (0 in the JAX package)."""
+        return self._coord["mp"]
+
     def get_data_parallel_group(self) -> Group:
         return self._groups["dp"]
 
     def get_sharding_parallel_group(self) -> Group:
         return self._groups["sharding"]
+
+    def get_model_parallel_group(self) -> Group:
+        return self._groups["mp"]
+
+    def get_data_sharding_group(self) -> Group:
+        """The dp x sharding plane through this rank (axis name
+        ``"dp,sharding"``), or the dp or sharding group when only one of
+        the two degrees exceeds 1."""
+        return self._groups["dp,sharding"]
 
     def topology(self):
         return self._topo

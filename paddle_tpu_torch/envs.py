@@ -162,6 +162,29 @@ _register(
     choices=("auto", "split"))
 
 _register(
+    "PADDLE_TPU_TORCH_TP_OVERLAP", "bool", False,
+    doc="Turn on the collective-matmul rings of tensor parallelism "
+        "(parallel.collective_matmul): the decoder's gate/up -> down pair "
+        "runs as one fused plan whose only collective is the down "
+        "product's ring of point-to-point hops. Read on every forward.",
+    parse=_truthy(("1", "true", "ring", "on")))
+
+_register(
+    "PADDLE_TPU_TORCH_TP_OVERLAP_MIN_CHUNK", "int", 64,
+    doc="Smallest ring chunk (token rows, or a column block's width) a "
+        "plan issues; below it the plan returns None and the blocking "
+        "collective runs. Also the auto chunker's target rows per sub-tile "
+        "at mp > 2. Positive integer.",
+    parse=_positive_int("PADDLE_TPU_TORCH_TP_OVERLAP_MIN_CHUNK", 64))
+
+_register(
+    "PADDLE_TPU_TORCH_TP_OVERLAP_CHUNKS", "int", None,
+    doc="Explicit sub-tile count of each ring hop at mp > 2; ''/'auto' "
+        "targets about MIN_CHUNK rows a sub-tile.",
+    parse=_positive_int("PADDLE_TPU_TORCH_TP_OVERLAP_CHUNKS", None,
+                        allow_auto=True))
+
+_register(
     "PADDLE_TPU_TORCH_TELEMETRY", "bool", False,
     doc="Step-level telemetry switch: StepMetrics interval timing, spans "
         "and counters. An explicit telemetry argument wins over the env.",

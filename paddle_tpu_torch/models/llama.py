@@ -30,7 +30,11 @@ entropy) differentiated by autograd, then AdamW. The layer loop replaces
 ``torch.utils.checkpoint``, and a remat policy other than ``full`` keeps
 what it names across the boundary (:class:`_Keep`, JAX's
 ``_remat_policy``). :func:`chunked_ce_loss` is JAX's sequence-chunked
-head and cross entropy.
+head and cross entropy. Over ranks, one process each, it runs dp, ZeRO
+sharding (stages 1-3) and Megatron tensor parallelism (mp: column and
+row splits, the vocabulary-parallel embedding and cross entropy, the
+fused FFN ring of ``parallel.collective_matmul``), held to JAX's mesh
+step.
 
 The KV pools and caches are updated IN PLACE (the JAX package donates
 them); the step functions still return them, so call sites read the same.
@@ -46,7 +50,6 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves, tree_map
@@ -70,6 +73,7 @@ from ..ops.paged_attention import (LOG2E, kv_dequant_blocks,
 from ..ops.rms_norm import fused_rms_norm
 from ..nn.functional.attention import _xla_sdpa
 from ..ops.rope import apply_rope, build_rope_cache
+from ..parallel import collective_matmul as cm
 from ..parallel.moe import _top_k
 
 
@@ -210,9 +214,14 @@ def _at(w, layer: int):
     return w[layer]
 
 
-def llama_logits(params, h: torch.Tensor, config: LlamaConfig
-                 ) -> torch.Tensor:
-    x = fused_rms_norm(h, params["final_norm"], config.rms_norm_eps)
+def llama_logits(params, h: torch.Tensor, config: LlamaConfig,
+                 mp=None) -> torch.Tensor:
+    """The final norm and the head. With an mp group of more than one
+    rank the head is column-parallel: this rank's [..., V/mp] logits of
+    its vocabulary slice (``lm_head`` [H, V/mp], or the tied [V/mp, H]
+    table), the normed input entering through ``copy_to_mp``."""
+    x = cm.copy_to_mp(fused_rms_norm(h, params["final_norm"],
+                                     config.rms_norm_eps), mp)
     if config.tie_word_embeddings:
         return x @ params["embed"].T
     return _mat(x, params["lm_head"])
@@ -1121,10 +1130,10 @@ def generate(params, prompt_ids, config: LlamaConfig, max_new_tokens=64,
 @dataclasses.dataclass
 class ParallelConfig:
     """The JAX package's ``ParallelConfig`` fields. :func:`build_train_step`
-    runs one device, or ``dp`` x ``sharding`` ranks with ZeRO stage
-    ``zero_stage`` (1: optimizer state sharded, 2: also gradients, 3:
-    also parameters), and raises for the rest (see
-    :func:`check_ported`)."""
+    runs one device, or ``dp`` x ``sharding`` x ``mp`` ranks: ZeRO stage
+    ``zero_stage`` over sharding (1: optimizer state sharded, 2: also
+    gradients, 3: also parameters) and Megatron tensor parallelism over
+    mp; it raises for the rest (see :func:`check_ported`)."""
     dp: int = 1
     mp: int = 1
     pp: int = 1
@@ -1152,11 +1161,12 @@ _UNREAD_FIELDS = ("sep_strategy", "microbatches", "scan_unroll",
 
 def check_ported(parallel: ParallelConfig) -> None:
     """Raise ValueError naming what of ``parallel`` the port does not run
-    yet: a pipeline, tensor or sequence degree above 1 (pp first), and a
-    value other than the default in a field the train step never reads
-    (``_UNREAD_FIELDS``). ``dp`` and ``sharding`` run (one process a
-    rank). An unknown remat policy raises too (with ``remat``), as JAX's
-    ``_remat_policy`` does."""
+    yet: a pipeline or sequence degree above 1 (pp first), and a value
+    other than the default in a field the train step never reads
+    (``_UNREAD_FIELDS``; ``overlap_p2p`` is the pipeline's). ``dp``,
+    ``sharding`` and ``mp`` run (one process a rank). An unknown remat
+    policy raises too (with ``remat``), as JAX's ``_remat_policy``
+    does."""
     default = ParallelConfig()
     unread = {f: getattr(parallel, f) for f in _UNREAD_FIELDS
               if getattr(parallel, f) != getattr(default, f)}
@@ -1165,13 +1175,11 @@ def check_ported(parallel: ParallelConfig) -> None:
                          f"fields; leave them at their defaults")
     if parallel.pp > 1:
         raise ValueError(f"pp={parallel.pp}: the pipeline train step is not "
-                         f"ported; use pp=1")
-    degrees = {k: getattr(parallel, k) for k in ("mp", "sep")
-               if getattr(parallel, k) > 1}
-    if degrees:
-        raise ValueError(f"{degrees}: tensor and sequence parallel training "
-                         f"are not ported (ROADMAP.md queue 1 items 7 and "
-                         f"9); use mp=1, sep=1")
+                         f"ported (ROADMAP.md queue 1 item 7); use pp=1")
+    if parallel.sep > 1:
+        raise ValueError(f"sep={parallel.sep}: sequence parallel training "
+                         f"is not ported (ROADMAP.md queue 1 item 9); use "
+                         f"sep=1")
     if parallel.remat:
         _remat_policy(parallel)
 
@@ -1331,15 +1339,24 @@ def _unnamed(_name):
 
 
 def decoder_layer(p, h_in, cos, sin, config: LlamaConfig, use_flash=True,
-                  keep: Optional[_Keep] = None, gather=None):
-    """One decoder block for training (the JAX ``decoder_layer`` at mp = 1,
+                  keep: Optional[_Keep] = None, gather=None, mp=None,
+                  fuse_ffn=False):
+    """One decoder block for training (the JAX ``decoder_layer`` at
     sep = 1). ``p`` holds ONE layer's weights; h_in [B, S, H]. Attention
     is the flash kernels, or with ``use_flash=False`` the plain causal
     :func:`_xla_sdpa`. ``keep`` is the remat policy's (None: nothing is
     named). ``gather`` (ZeRO stage 3, :class:`_Stage3`) makes the layer's
     full weights from this rank's shards HERE, inside what
     ``torch.utils.checkpoint`` reruns: the full weights are never a
-    saved input, and the recompute gathers them again."""
+    saved input, and the recompute gathers them again.
+
+    ``mp`` (a group of more than one rank) runs the Megatron pattern on
+    this rank's column and row shards, what GSPMD derives from
+    :func:`param_pspecs` in JAX: the normed input enters q/k/v and
+    gate/up through ``copy_to_mp`` and the o_proj and down_proj partial
+    sums leave through ``reduce_from_mp``. The head counts come from the
+    weights (NH/mp and NKV/mp). ``fuse_ffn`` tries the fused gate/up ->
+    down plan of the rings (:func:`_fused_ffn_overlap`)."""
     c = config
     if gather is not None:
         p = gather.layer(p)
@@ -1348,7 +1365,8 @@ def decoder_layer(p, h_in, cos, sin, config: LlamaConfig, use_flash=True,
     nh = p["q_proj"].shape[-1] // hd
     nkv = p["k_proj"].shape[-1] // hd
     named = keep.named if keep is not None else _unnamed
-    x = fused_rms_norm(h_in, p["input_norm"], c.rms_norm_eps)
+    x = cm.copy_to_mp(fused_rms_norm(h_in, p["input_norm"], c.rms_norm_eps),
+                      mp)
     q = _mat(x, p["q_proj"]).reshape(b, s, nh, hd)
     k = _mat(x, p["k_proj"]).reshape(b, s, nkv, hd)
     v = _mat(x, p["v_proj"]).reshape(b, s, nkv, hd)
@@ -1361,54 +1379,146 @@ def decoder_layer(p, h_in, cos, sin, config: LlamaConfig, use_flash=True,
         attn = _xla_sdpa(q, k, v, is_causal=True)
         with named("attn_out"):
             attn = attn.reshape(b, s, nh * hd)
-    h = h_in + _mat(attn, p["o_proj"])
+    h = h_in + cm.reduce_from_mp(_mat(attn, p["o_proj"]), mp)
     x = fused_rms_norm(h, p["post_norm"], c.rms_norm_eps)
-    with named("mlp_gate"):
-        g = _mat(x, p["gate_proj"])
-    with named("mlp_up"):
-        u = _mat(x, p["up_proj"])
-    return h + _mat(F.silu(g) * u, p["down_proj"])
+    mlp_out = _fused_ffn_overlap(x, p, mp) if fuse_ffn else None
+    if mlp_out is None:
+        x = cm.copy_to_mp(x, mp)
+        with named("mlp_gate"):
+            g = _mat(x, p["gate_proj"])
+        with named("mlp_up"):
+            u = _mat(x, p["up_proj"])
+        mlp_out = cm.reduce_from_mp(_mat(F.silu(g) * u, p["down_proj"]), mp)
+    return h + mlp_out
+
+
+def _fuse_ffn(parallel: ParallelConfig, mp) -> bool:
+    """Whether the decoder tries JAX's fused FFN ring
+    (``_fused_ffn_overlap``'s conditions that do not depend on shapes):
+    ``PADDLE_TPU_TORCH_TP_OVERLAP`` on, mp above 1, sep 1 and a remat
+    policy other than ``save_mlp`` (the plan hides the gate and up
+    products the policy keeps)."""
+    return (mp is not None and mp.nranks > 1 and parallel.sep == 1
+            and parallel.remat_policy != "save_mlp" and cm.overlap_enabled())
+
+
+def _fused_ffn_overlap(x, p, mp):
+    """gate/up -> silu-mul -> down by ``cm.plan_fused_ffn`` (JAX's
+    ``_fused_ffn_overlap``): the [B, S, I/mp] activation stays on the rank
+    and the only collective is the down product's reduce ring. None (the
+    blocking path) for int8 weights or where the plan does not apply. The
+    plan gets this rank's rows as the token rows (JAX's global rows over
+    the batch axes: the same local rows) and the weights' global
+    shapes."""
+    ws = [p[k] for k in ("gate_proj", "up_proj", "down_proj")]
+    if any(isinstance(w, dict) for w in ws):
+        return None
+    gate, up, down = ws
+    n = mp.nranks
+    plan = cm.plan_fused_ffn(
+        tuple(x.shape), (gate.shape[0], gate.shape[1] * n),
+        (down.shape[0] * n, down.shape[1]), mp, n_cols=2,
+        activation=cm.swiglu)
+    if plan is None:
+        return None
+    return plan(x, (gate, up), down)
+
+
+def vocab_parallel_embed(embed, ids, config: LlamaConfig, mp=None):
+    """The token embedding. With an mp group of more than one rank
+    ``embed`` is this rank's vocabulary slice [V/mp, H]: the ids in it
+    are looked up, the rest give zeros, and the rows are all-reduced
+    over mp (``reduce_from_mp``). Each row is non-zero on one rank, so
+    the sum is exact, as JAX's one-hot product over the vocab-sharded
+    table; the backward stays local."""
+    if mp is None or mp.nranks == 1:
+        return F.embedding(ids.long(), embed).to(config.dtype)
+    part = cm.masked_lookup(embed, ids, mp.rank * embed.shape[0])
+    return cm.reduce_from_mp(part, mp).to(config.dtype)
 
 
 def llama_hidden(params, ids, config: LlamaConfig,
-                 parallel: ParallelConfig = ParallelConfig(), gather=None):
+                 parallel: ParallelConfig = ParallelConfig(), gather=None,
+                 mp=None):
     """Embed + the decoder stack; returns the final hidden (pre-norm).
     ``params["layers"]`` maps each name to a stacked [L, ...] tensor or to
     a list of its L layer slices (the train step's gradient leaves). With
     ``parallel.remat`` each layer is recomputed in the backward, keeping
     its input and what ``parallel.remat_policy`` names. ``gather`` (ZeRO
     stage 3) makes full weights from shards: the embedding here, each
-    layer's inside :func:`decoder_layer`."""
+    layer's inside :func:`decoder_layer`. ``mp`` (the mp group): the
+    params are this rank's mp shards (:func:`vocab_parallel_embed`,
+    :func:`decoder_layer`)."""
     c = config
     use_flash = parallel.use_flash is not False
     policy = _remat_policy(parallel) if parallel.remat else None
+    fuse = _fuse_ffn(parallel, mp)
     embed = params["embed"] if gather is None else \
         gather.leaf("embed", params["embed"])
-    h = F.embedding(ids.long(), embed).to(c.dtype)
+    h = vocab_parallel_embed(embed, ids, c, mp)
     cos, sin = build_rope_cache(ids.shape[1], c.head_dim, base=c.rope_theta,
                                 device=h.device)
     layers = params["layers"]
     for i in range(len(layers["q_proj"])):
         p = {name: w[i] for name, w in layers.items()}
         if not parallel.remat:
-            h = decoder_layer(p, h, cos, sin, c, use_flash, None, gather)
+            h = decoder_layer(p, h, cos, sin, c, use_flash, None, gather, mp,
+                              fuse)
         elif policy is None:
             h = checkpoint(decoder_layer, p, h, cos, sin, c, use_flash, None,
-                           gather, use_reentrant=False,
+                           gather, mp, fuse, use_reentrant=False,
                            preserve_rng_state=False)
         else:
             keep = policy()
             h = checkpoint(decoder_layer, p, h, cos, sin, c, use_flash, keep,
-                           gather, use_reentrant=False,
+                           gather, mp, fuse, use_reentrant=False,
                            preserve_rng_state=False, context_fn=keep)
     return h
 
 
-def _ce_sum_count(logits, labels):
+class _VocabParallelCE(torch.autograd.Function):
+    """Per-token cross entropy lse - logit[label] of f32 logits split over
+    mp by vocabulary, [..., V/mp] on each rank (rank r holds the labels
+    [r V/mp, (r+1) V/mp)). Forward: the row max all-reduced with MAX
+    (a constant of the backward), the sum of exp under it and the picked
+    logit (non-zero on the owning rank) all-reduced with SUM, three
+    [...] f32 reductions. Backward, local: g times (the softmax under the
+    global lse, minus the one-hot on the owning rank)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, group):
+        vs = logits.shape[-1]
+        m = comm.all_reduce(logits.amax(dim=-1), group, op="max")
+        s = comm.all_reduce(torch.exp(logits - m[..., None]).sum(dim=-1),
+                            group)
+        lse = m + torch.log(s)
+        loc = labels.long() - group.rank * vs
+        ok = (loc >= 0) & (loc < vs)
+        loc = torch.where(ok, loc, 0)
+        picked = torch.where(ok, logits.gather(-1, loc[..., None])[..., 0],
+                             logits.new_zeros(()))
+        ctx.save_for_backward(logits, lse, loc, ok)
+        return lse - comm.all_reduce(picked, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, loc, ok = ctx.saved_tensors
+        grad = torch.exp(logits - lse[..., None])
+        grad.scatter_add_(-1, loc[..., None], -ok[..., None].to(grad.dtype))
+        return grad * g[..., None], None, None
+
+
+def _ce_sum_count(logits, labels, mp=None):
     """(sum of the cross entropy over labels != -100, their count as f32)
-    of f32 logits [..., V]."""
+    of f32 logits [..., V]; with an mp group of more than one rank, of
+    this rank's vocabulary slice of them (:class:`_VocabParallelCE`,
+    within f32 rounding of JAX's ``log_softmax`` over the sharded
+    logits)."""
     mask = labels != -100
     safe = torch.where(mask, labels, 0).long()
+    if mp is not None and mp.nranks > 1:
+        loss = _VocabParallelCE.apply(logits, safe, mp)
+        return torch.where(mask, loss, 0.0).sum(), mask.sum().float()
     logp = torch.log_softmax(logits, dim=-1)
     picked = logp.gather(-1, safe[..., None])[..., 0]
     return torch.where(mask, -picked, 0.0).sum(), mask.sum().float()
@@ -1454,21 +1564,23 @@ def chunked_ce_loss(x, head, labels, n_chunks=8):
 
 def llama_loss(params, ids, labels, config: LlamaConfig,
                parallel: ParallelConfig = ParallelConfig(), gather=None,
-               count_reduce=None):
+               count_reduce=None, mp=None):
     """Causal LM loss with dense f32 logits; labels [B, S], -100 ignored.
     The dense path, as JAX's ``llama_loss`` keeps it
     (:func:`chunked_ce_loss` is there for memory-bound callers).
 
     Over ranks (:class:`_DistTrainStep`): ``gather`` (ZeRO stage 3,
     :class:`_Stage3`) makes each sharded weight whole where it is used,
-    and ``count_reduce`` sums the count of labels != -100 over the ranks
-    in place, so the loss is this rank's sum over the global count."""
-    h = llama_hidden(params, ids, config, parallel, gather)
+    ``count_reduce`` sums the count of labels != -100 over the ranks in
+    place, so the loss is this rank's sum over the global count, and
+    ``mp`` (the mp group) runs the model on this rank's mp shards, the
+    cross entropy over its vocabulary slice of the logits."""
+    h = llama_hidden(params, ids, config, parallel, gather, mp)
     if gather is not None:
         key = "embed" if config.tie_word_embeddings else "lm_head"
         params = {**params, key: gather.leaf(key, params[key])}
-    loss_sum, count = _ce_sum_count(llama_logits(params, h, config).float(),
-                                    labels)
+    loss_sum, count = _ce_sum_count(
+        llama_logits(params, h, config, mp).float(), labels, mp)
     if count_reduce is not None:
         count_reduce(count)
     return loss_sum / torch.clamp(count, min=1)
@@ -1489,13 +1601,15 @@ def _local_grads(leaves):
 
 def llama_loss_and_grads(params, ids, labels, config: LlamaConfig,
                          parallel: ParallelConfig = ParallelConfig(),
-                         gather=None, count_reduce=None, grads_of=None):
+                         gather=None, count_reduce=None, grads_of=None,
+                         mp=None):
     """(loss, grads) of :func:`llama_loss`, the counterpart of
     ``jax.value_and_grad``. ``grads`` mirrors ``params``, except that the
     gradient of a stacked layer leaf is a LIST of its L per-layer slices:
     each layer's weights enter autograd as views of the stacked tensor, so
     no [L, ...] gradient (and no per-layer scatter into one) is ever
-    made. ``gather`` and ``count_reduce`` go to :func:`llama_loss`;
+    made. ``gather``, ``count_reduce`` and ``mp`` go to
+    :func:`llama_loss`;
     ``grads_of(leaves)``, called before the forward, returns the function
     that gives the gradients after backward (the ranks' sums; default
     :func:`_local_grads`)."""
@@ -1505,7 +1619,7 @@ def llama_loss_and_grads(params, ids, labels, config: LlamaConfig,
     collect = grads_of(leaves) if grads_of is not None else \
         (lambda: _local_grads(leaves))
     loss = llama_loss(leaves, ids, labels, config, parallel, gather,
-                      count_reduce)
+                      count_reduce, mp)
     loss.backward()
     return loss.detach(), collect()
 
@@ -1598,7 +1712,7 @@ def _adamw_update(params, grads, state, lr, b1=0.9, b2=0.95, eps=1e-8,
 
 
 # ---------------------------------------------------------------------------
-# dp x sharding (ZeRO stages 1, 2, 3): one process a rank
+# dp x sharding (ZeRO stages 1, 2, 3) x mp (Megatron): one process a rank
 # ---------------------------------------------------------------------------
 
 _AXES = ("dp", "pp", "sharding", "sep", "mp")
@@ -1607,9 +1721,12 @@ _AXES = ("dp", "pp", "sharding", "sep", "mp")
 def param_pspecs(config: LlamaConfig, parallel: ParallelConfig):
     """JAX's ``param_pspecs``: for each param leaf a tuple with one entry
     a dimension, an axis name or None (its ``PartitionSpec`` read as a
-    tuple). ZeRO stage 3 shards a hidden dimension over ``sharding``: dim
-    1 of q/k/v/gate/up_proj, dim 2 of o/down_proj, dim 1 of embed, dim 0
-    of lm_head; the norms stay replicated."""
+    tuple). mp splits the column-parallel outputs (dim 2 of
+    q/k/v/gate/up_proj, dim 1 of lm_head), the row-parallel inputs (dim
+    1 of o/down_proj) and embed's vocabulary (dim 0). ZeRO stage 3 shards
+    a hidden dimension over ``sharding``: dim 1 of q/k/v/gate/up_proj,
+    dim 2 of o/down_proj, dim 1 of embed, dim 0 of lm_head; the norms
+    stay replicated."""
     fs = "sharding" if (parallel.sharding > 1 and parallel.zero_stage >= 3) \
         else None
     mp = "mp" if parallel.mp > 1 else None
@@ -1633,9 +1750,10 @@ def param_pspecs(config: LlamaConfig, parallel: ParallelConfig):
 def opt_state_pspecs(config: LlamaConfig, parallel: ParallelConfig,
                      pspec_tree):
     """JAX's ``opt_state_pspecs``: under ZeRO stages 1 and 2 each moment
-    leaf shards its first unsharded dimension over ``sharding`` (dim 0 of
-    every Llama leaf: the layer axis L of a stacked leaf, vocab for embed,
-    hidden for lm_head and final_norm); stage 3's follow the params."""
+    leaf shards its first unsharded dimension over ``sharding`` (the layer
+    axis L of a stacked leaf, hidden for lm_head and final_norm, vocab
+    for embed, or embed's hidden, dim 1, when mp splits its vocab);
+    stage 3's follow the params."""
     if parallel.sharding > 1 and parallel.zero_stage < 3:
         def shard_state(spec):
             parts = list(spec)
@@ -1754,7 +1872,14 @@ def shard_train_state(params, opt_state, config: LlamaConfig,
 
 def _axis_groups(hcg):
     return {"dp": hcg.get_data_parallel_group(),
-            "sharding": hcg.get_sharding_parallel_group()}
+            "sharding": hcg.get_sharding_parallel_group(),
+            "mp": hcg.get_model_parallel_group()}
+
+
+def _hcg(parallel: ParallelConfig):
+    return HybridCommunicateGroup(dp_degree=parallel.dp,
+                                  sharding_degree=parallel.sharding,
+                                  mp_degree=parallel.mp)
 
 
 def gather_train_state(params, opt_state, config: LlamaConfig,
@@ -1764,8 +1889,7 @@ def gather_train_state(params, opt_state, config: LlamaConfig,
     step's ``HybridCommunicateGroup`` (``step_fn.hcg``); None makes one.
     Returns (params, opt_state); a replicated leaf is the rank's own."""
     if hcg is None:
-        hcg = HybridCommunicateGroup(dp_degree=parallel.dp,
-                                     sharding_degree=parallel.sharding)
+        hcg = _hcg(parallel)
     groups = _axis_groups(hcg)
     pspecs = param_pspecs(config, parallel)
     ospecs = opt_state_pspecs(config, parallel, pspecs)
@@ -1800,14 +1924,15 @@ class _GatherShard(torch.autograd.Function):
 
 
 class _Stage3:
-    """The gather of ZeRO stage 3 (mp = 1: a leaf shards at most one
-    dimension, over ``sharding``), by :func:`param_pspecs`."""
+    """The gather of ZeRO stage 3 by :func:`param_pspecs`: a leaf's
+    ``sharding`` dimension made whole over the sharding group; an ``mp``
+    split on another dimension stays."""
 
     def __init__(self, specs, group):
         self.specs, self.group = specs, group
 
     def _full(self, w, spec):
-        dims = [d for d, e in enumerate(spec) if e is not None]
+        dims = [d for d, e in enumerate(spec) if e == "sharding"]
         return _GatherShard.apply(w, dims[0], self.group) if dims else w
 
     def leaf(self, name, w):
@@ -1819,19 +1944,9 @@ class _Stage3:
                 for n, w in p.items()}
 
 
-def _world_group(hcg):
-    """One group over the whole dp x sharding world."""
-    dp = hcg.get_data_parallel_group()
-    sh = hcg.get_sharding_parallel_group()
-    if dp.nranks == 1 or sh.nranks == 1:
-        return dp if sh.nranks == 1 else sh
-    return comm.Group("dp,sharding", hcg.nranks, hcg.global_rank,
-                 list(range(hcg.nranks)), dist.group.WORLD)
-
-
 class _DistTrainStep:
-    """``step_fn`` of :func:`build_train_step` over dp x sharding ranks
-    (see there); ``hcg`` is its ``HybridCommunicateGroup``."""
+    """``step_fn`` of :func:`build_train_step` over dp x sharding x mp
+    ranks (see there); ``hcg`` is its ``HybridCommunicateGroup``."""
 
     def __init__(self, config, parallel, lr, hcg, dev):
         self.config, self.parallel, self.lr = config, parallel, lr
@@ -1843,9 +1958,14 @@ class _DistTrainStep:
         self.ospecs = opt_state_pspecs(config, parallel, self.pspecs)
         self.dp = hcg.get_data_parallel_group()
         self.sh = hcg.get_sharding_parallel_group()
-        self.world = _world_group(hcg)
+        self.mp = hcg.get_model_parallel_group()
+        # the ranks of this mp coordinate across dp x sharding: every mp
+        # rank holds the same rows, so the count, the loss and the
+        # gradients replicated over mp are summed here, never over mp
+        self.data = hcg.get_data_sharding_group()
         ((_, self.n_blocks, self.block),) = _split_dims(
-            _act_spec(parallel)[:1], self.degrees, self.coord)
+            _act_spec(parallel)[:1], self.degrees, self.coord) or \
+            ((0, 1, 0),)
         self.gather = _Stage3(self.pspecs, self.sh) if self.stage == 3 \
             else None
 
@@ -1874,8 +1994,9 @@ class _DistTrainStep:
         gradients summed over ranks are the global mean's."""
         local, grads = llama_loss_and_grads(
             params, ids, labels, self.config, self.parallel, self.gather,
-            lambda count: comm.all_reduce(count, self.world), self._grads_of)
-        return comm.all_reduce(local.clone(), self.world), grads
+            lambda count: comm.all_reduce(count, self.data), self._grads_of,
+            self.mp)
+        return comm.all_reduce(local.clone(), self.data), grads
 
     def _grads_of(self, leaves):
         if self.stage != 2:
@@ -1889,13 +2010,16 @@ class _DistTrainStep:
         return done
 
     def _sync(self, leaves):
-        """Stages 0, 1 and 3: a replicated leaf's gradient summed over the
-        world; a stage-3 shard's (summed over sharding by
-        :class:`_GatherShard`) over dp. In the gradient's dtype."""
+        """Stages 0, 1 and 3: a gradient summed over the dp x sharding
+        plane of this mp coordinate (an mp shard's and a leaf replicated
+        over mp alike: after ``copy_to_mp``'s backward the norms'
+        gradients are equal on every mp rank); a stage-3 shard's (summed
+        over sharding by :class:`_GatherShard`) over dp only. In the
+        gradient's dtype."""
         def one(t, spec):
             g = t.grad if t.grad is not None else torch.zeros_like(t)
-            sharded = any(e is not None for e in spec)
-            return comm.all_reduce(g, self.dp if sharded else self.world)
+            return comm.all_reduce(g, self.dp if "sharding" in spec
+                                   else self.data)
         return {k: ({n: [one(t, self.pspecs["layers"][n]) for t in ts]
                      for n, ts in v.items()} if k == "layers"
                     else one(v, self.pspecs[k]))
@@ -1905,7 +2029,7 @@ class _DistTrainStep:
         """Stage 2: as backward accumulates each gradient leaf, sum it over
         sharding into the rank that owns its moment rows (a layer slice
         goes whole to one owner: ``reduce``; embed, lm_head, final_norm:
-        ``reduce_scatter`` on dim 0), sum that over dp and drop the rest,
+        ``reduce_scatter`` on their moments' sharding dimension), sum that over dp and drop the rest,
         so no full gradient tree exists. Fills and returns the tree."""
         grads = {"layers": {}}
         me = self.sh.rank
@@ -1919,8 +2043,10 @@ class _DistTrainStep:
             return hook
 
         def leaf_hook(key):
+            dim = self.ospecs[key].index("sharding")
+
             def hook(t):
-                g = comm.reduce_scatter(t.grad, 0, self.sh)
+                g = comm.reduce_scatter(t.grad, dim, self.sh)
                 t.grad = None
                 grads[key] = comm.all_reduce(g, self.dp)
             return hook
@@ -1938,15 +2064,17 @@ class _DistTrainStep:
         return grads
 
     def _rows(self, x, spec):
-        ((d, parts, index),) = _split_dims(spec, self.degrees, self.coord)
-        n = x.shape[d] // parts
-        return x.narrow(d, index * n, n)
+        """This rank's part of the local ``x`` along the ``sharding``
+        dimension of ``spec`` (an mp split elsewhere is already local)."""
+        d = spec.index("sharding")
+        n = x.shape[d] // self.sh.nranks
+        return x.narrow(d, self.sh.rank * n, n)
 
     def update(self, params, grads, opt):
         """AdamW. Stages 0 and 3 update what the rank holds. Stages 1 and 2
-        update only the dim-0 rows its moments own, then all-gather each
-        param's rows over sharding, so every replica keeps the same
-        bits."""
+        update only the rows its moments own (along the moments'
+        ``sharding`` dimension), then all-gather each param's rows over
+        sharding, so every replica keeps the same bits."""
         if self.stage in (0, 3):
             _adamw_update(params, grads, opt, self.lr)
             return
@@ -1964,8 +2092,8 @@ class _DistTrainStep:
         _adamw_update(own_p, own_g, opt, self.lr)
 
         def gather(full, spec, _name):
-            comm.all_gather(self._rows(full, spec).clone(), 0, self.sh,
-                            out=full)
+            comm.all_gather(self._rows(full, spec).clone(),
+                            spec.index("sharding"), self.sh, out=full)
         with torch.no_grad():
             _map_specs(gather, params, self.ospecs)
 
@@ -1980,24 +2108,31 @@ def build_train_step(config: LlamaConfig,
     updated in place. ``device=None`` means the card; what is not ported
     raises ValueError (:func:`check_ported`).
 
-    With ``dp`` x ``sharding`` above 1, each of that many processes (one
-    a rank, joined by ``paddle_tpu_torch.distributed.init_parallel_env``;
-    without it, or with another world size, this raises ValueError) calls
-    this with the same arguments, and ``step_fn`` with the same GLOBAL
-    batch. The rank takes its rows by :func:`_act_spec` (rank r of W the
-    rows [r*B/W, (r+1)*B/W); B must divide), the loss is the global mean
-    over labels != -100, the same float on every rank, and the gradients
-    are summed over ranks in their dtype. ``zero_stage`` (with sharding
-    above 1) 1: AdamW moments sharded on dim 0 (:func:`opt_state_pspecs`),
-    each rank updating its rows and all-gathering them; 2: also each
-    gradient summed into its owner as backward makes it; 3: params sharded
-    too (:func:`param_pspecs`), each layer's full weights gathered inside
-    its checkpointed call (:class:`_GatherShard`). The params and state
-    passed and returned are the rank's local shards
-    (:func:`shard_train_state`, :func:`gather_train_state` with
-    ``step_fn.hcg``). The JAX package runs one program over a mesh of
-    global arrays; each difference that follows is listed in ROADMAP.md's
-    deviations.
+    With ``dp`` x ``sharding`` x ``mp`` above 1, each of that many
+    processes (one a rank, joined by
+    ``paddle_tpu_torch.distributed.init_parallel_env``; without it, or with
+    another world size, this raises ValueError) calls this with the same
+    arguments, and ``step_fn`` with the same GLOBAL batch. The rank takes
+    its rows by :func:`_act_spec` (over dp x sharding, rank block r of W
+    the rows [r*B/W, (r+1)*B/W); B must divide; the mp ranks of a block
+    hold the same rows), the loss is the global mean over labels != -100,
+    the same float on every rank, and the gradients are summed over the
+    dp x sharding ranks in their dtype. ``zero_stage`` (with sharding
+    above 1) 1: AdamW moments sharded (:func:`opt_state_pspecs`), each
+    rank updating its rows and all-gathering them; 2: also each gradient
+    summed into its owner as backward makes it; 3: params sharded too
+    (:func:`param_pspecs`), each layer's full weights gathered inside its
+    checkpointed call (:class:`_GatherShard`). ``mp`` splits each layer
+    Megatron's way (:func:`decoder_layer`: NH and NKV must divide by mp,
+    else ValueError), embeds by vocabulary slices
+    (:func:`vocab_parallel_embed`) and takes the cross entropy over the
+    vocabulary-sharded logits (:class:`_VocabParallelCE`);
+    ``PADDLE_TPU_TORCH_TP_OVERLAP`` runs the FFN as the fused ring
+    (:func:`_fused_ffn_overlap`). The params and state passed and
+    returned are the rank's local shards (:func:`shard_train_state`,
+    :func:`gather_train_state` with ``step_fn.hcg``). The JAX package
+    runs one program over a mesh of global arrays; each difference that
+    follows is listed in ROADMAP.md's deviations.
 
     Under the default ``PADDLE_TPU_TORCH_FLASH_BWD`` (``auto``), the fused
     flash backward sums dQ by bulk reduce-adds in an order that varies
@@ -2007,8 +2142,9 @@ def build_train_step(config: LlamaConfig,
     replicas stay bitwise equal under either (their gradients are
     all-reduced)."""
     check_ported(parallel)
+    check_mp_heads(config, parallel)
     dev = resolve_device(device)
-    if parallel.dp * parallel.sharding > 1:
+    if parallel.total > 1:
         return _build_dist_train_step(config, parallel, lr, seed, dev)
     params = init_llama_params(config, seed, device=dev)
     opt_state = _adamw_init(params)
@@ -2025,12 +2161,24 @@ def build_train_step(config: LlamaConfig,
     return step_fn, params, opt_state
 
 
+def check_mp_heads(config: LlamaConfig, parallel: ParallelConfig) -> None:
+    """Raise ValueError, naming the config, unless the attention and KV
+    heads divide over mp: a rank holds whole heads. JAX's GSPMD splits
+    the k/v columns through a head instead (ROADMAP.md, deviations)."""
+    c, mp = config, parallel.mp
+    if mp > 1 and (c.num_attention_heads % mp or
+                   c.num_key_value_heads % mp):
+        raise ValueError(
+            f"mp={mp} needs num_attention_heads "
+            f"({c.num_attention_heads}) and num_key_value_heads "
+            f"({c.num_key_value_heads}) to divide by it; config {c}")
+
+
 def _build_dist_train_step(config, parallel, lr, seed, dev):
-    """The dp x sharding branch of :func:`build_train_step`: every rank
+    """The branch of :func:`build_train_step` over ranks: every rank
     makes the full seeded params, keeps its shards and makes zero moments
     in its local shapes only."""
-    hcg = HybridCommunicateGroup(dp_degree=parallel.dp,
-                                 sharding_degree=parallel.sharding)
+    hcg = _hcg(parallel)
     full = init_llama_params(config, seed, device=dev)
     params, _ = shard_train_state(full, None, config, parallel)
     step = _DistTrainStep(config, parallel, lr, hcg, dev)

@@ -1,1 +1,2 @@
-"""Parallel building blocks of the port (single-device pieces so far)."""
+"""Parallel building blocks of the port: the MoE layer (``moe``) and the
+tensor-parallel collectives and rings (``collective_matmul``)."""

@@ -126,40 +126,64 @@ def train_job(rank: int, world: int, job: dict) -> dict:
     ``dtype`` by name), ``weights`` (an .npz of the full params by path,
     or None for the seeded init), ``batches`` (an .npz of ``ids`` and
     ``labels`` [steps, B, S]) and ``runs``, each ``name`` and
-    ``parallel`` (ParallelConfig fields). Every run builds the port's step, loads the weights through
-    :func:`shard_train_state` (zero moments), takes the steps and
-    gathers the trees; rank 0 writes ``<out>/<name>.npz`` (the losses,
-    ``p:<path>`` gathered params). Returns, by run, every rank's losses,
-    the CRC32 of each local param leaf, this rank's mesh coordinates and
-    groups; and the modules of JAX or of the JAX package this process
-    imported. ``checkpoint_dir``: also tries a save and a restore with
-    the group up and returns what each raised. ``roundtrip``: also
-    shards the weights and a random AdamW state and gathers them back
-    under each layout of this world (:func:`_roundtrip`)."""
+    ``parallel`` (ParallelConfig fields), and optionally ``env``
+    (environment variables set for the run only), ``config`` (LlamaConfig
+    fields over the job's) and ``weights`` (the run's own .npz). Every run builds the
+    port's step, loads the weights through :func:`shard_train_state`
+    (zero moments), takes the steps and gathers the trees; rank 0 writes
+    ``<out>/<name>.npz`` (the losses, ``p:<path>`` gathered params).
+    Returns, by run, every rank's losses, the CRC32 of each local param
+    leaf, this rank's mesh coordinates and groups, and the ``tp.`` and
+    ``comm.`` counters of its steps; and the modules of JAX or of the JAX
+    package this process imported. ``checkpoint_dir``: also tries a save
+    and a restore with the group up and returns what each raised.
+    ``roundtrip``: also shards the weights and a random AdamW state and
+    gathers them back under each layout of this world
+    (:func:`_roundtrip`; True: dp and sharding's, or a list of
+    ParallelConfig field dicts)."""
     import torch
     from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.observability import trace
     torch.set_num_threads(2)
-    cfg_kw = dict(job["config"])
-    cfg = tl.LlamaConfig(**{**cfg_kw, "dtype": getattr(torch,
-                                                       cfg_kw["dtype"])})
+    def config(kw):
+        return tl.LlamaConfig(**{**kw, "dtype": getattr(torch, kw["dtype"])})
+
+    def load(path):
+        return dict(np.load(path)) if path else None
+    cfg = config(job["config"])
     batches = np.load(job["batches"])
-    weights = dict(np.load(job["weights"])) if job.get("weights") else None
+    weights = load(job.get("weights"))
     report = {"runs": {}}
     for run in job["runs"]:
+        cfg_run = config({**job["config"], **run.get("config", {})})
+        w_run = load(run["weights"]) if "weights" in run else weights
         par = tl.ParallelConfig(**run["parallel"])
-        step, p, o = tl.build_train_step(cfg, par, device="cpu")
-        if weights is not None:
-            full = _unflat(weights, cfg.dtype)
-            p, o = tl.shard_train_state(full, tl._adamw_init(full), cfg, par)
+        saved = {k: os.environ.get(k) for k in run.get("env", {})}
+        os.environ.update(run.get("env", {}))
+        step, p, o = tl.build_train_step(cfg_run, par, device="cpu")
+        if w_run is not None:
+            full = _unflat(w_run, cfg_run.dtype)
+            p, o = tl.shard_train_state(full, tl._adamw_init(full), cfg_run,
+                                        par)
         losses = []
-        for ids, labels in zip(batches["ids"], batches["labels"]):
-            p, o, loss = step(p, o, ids, labels)
-            losses.append(float(loss))
+        trace.reset_counters()
+        try:
+            for ids, labels in zip(batches["ids"], batches["labels"]):
+                p, o, loss = step(p, o, ids, labels)
+                losses.append(float(loss))
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        counters = {k: v for k, v in trace.counters().items()
+                    if k.startswith(("tp.", "comm."))}
         crcs = {k: zlib.crc32(np.ascontiguousarray(v).tobytes())
                 for k, v in flat_tree(p).items()}
         hcg = getattr(step, "hcg", None)
         if hcg is not None:
-            p, o = tl.gather_train_state(p, o, cfg, par, hcg=hcg)
+            p, o = tl.gather_train_state(p, o, cfg_run, par, hcg=hcg)
         if rank == 0:
             np.savez(os.path.join(job["out"], f"{run['name']}.npz"),
                      losses=np.array(losses),
@@ -174,11 +198,18 @@ def train_job(rank: int, world: int, job: dict) -> dict:
                         "dp": (hcg.get_data_parallel_rank(),
                                hcg.get_data_parallel_world_size()),
                         "sharding": (hcg.get_sharding_parallel_rank(),
-                                     hcg.get_sharding_parallel_world_size())}}
+                                     hcg.get_sharding_parallel_world_size())},
+                    "mp": {"group": hcg.get_model_parallel_group().ranks,
+                           "rank": (hcg.get_model_parallel_rank(),
+                                    hcg.get_model_parallel_world_size()),
+                           "data_group":
+                               hcg.get_data_sharding_group().ranks}}
         report["runs"][run["name"]] = {"losses": losses, "crc": crcs,
-                                       **topo}
+                                       "counters": counters, **topo}
     if job.get("roundtrip"):
-        report["roundtrip"] = _roundtrip(cfg, weights)
+        layouts = job["roundtrip"]
+        report["roundtrip"] = _roundtrip(
+            cfg, weights, None if layouts is True else layouts)
     if job.get("checkpoint_dir"):
         report["checkpoint"] = _checkpoint_refusals(job["checkpoint_dir"],
                                                     rank)
@@ -187,9 +218,10 @@ def train_job(rank: int, world: int, job: dict) -> dict:
     return report
 
 
-def _roundtrip(cfg, weights):
+def _roundtrip(cfg, weights, layouts=None):
     """{layout: whether gather_train_state of shard_train_state gave every
-    leaf back bitwise}, for the layouts of this world (dp, then sharding
+    leaf back bitwise}, for ``layouts`` ({name: ParallelConfig fields}),
+    by default those of dp and sharding in this world (dp, then sharding
     at stages 1, 2, 3)."""
     import torch
     from paddle_tpu_torch.distributed import get_world_size
@@ -201,11 +233,13 @@ def _roundtrip(cfg, weights):
     for k in ("m", "v"):
         opt[k] = tl._tree_map(lambda x: torch.randn(x.shape, generator=gen),
                               opt[k])
+    if layouts is None:
+        layouts = {"dp": dict(dp=w),
+                   **{f"stage{z}": dict(sharding=w, zero_stage=z)
+                      for z in (1, 2, 3)}}
     out = {}
-    for name, par in (("dp", tl.ParallelConfig(dp=w)),
-                      *((f"stage{z}", tl.ParallelConfig(sharding=w,
-                                                        zero_stage=z))
-                        for z in (1, 2, 3))):
+    for name, kw in layouts.items():
+        par = tl.ParallelConfig(**kw)
         p, o = tl.shard_train_state(full, opt, cfg, par)
         p, o = tl.gather_train_state(p, o, cfg, par)
         got = {**flat_tree(p), **flat_tree({"m": o["m"], "v": o["v"]})}
@@ -238,3 +272,163 @@ def _checkpoint_refusals(root, rank):
     out["written"] = sorted(os.path.join(d, f)
                             for d, _, files in os.walk(path) for f in files)
     return out
+
+
+def collective_inputs(n: int, t=128, k=32, out=48, ffn=(2, 64, 32, 128),
+                      vocab=96, emb_h=32, seed=None) -> dict:
+    """Seeded global f32 operands of :func:`collective_job` for an mp
+    group of ``n``: (t, k n, out) of the row-parallel product, (t, k,
+    out n) of the column-parallel one, [n, t, 8] addends of the bare
+    rings, (b, s, H, I) of the FFN, the [vocab, emb_h] table with [b, s]
+    ids, [t, vocab] logits with labels, and each case's cotangent
+    ``g_<case>``."""
+    rng = np.random.RandomState(20 + n if seed is None else seed)
+
+    def f(*shape):
+        return rng.randn(*shape).astype(np.float32)
+    b, s, h, i = ffn
+    a = {"x_row": f(t, k * n), "w_row": f(k * n, out),
+         "x_col": f(t, k), "w_col": f(k, out * n), "x_rr": f(n, t, 8),
+         "ffn_x": f(b, s, h), "ffn_gate": f(h, i) * 0.2,
+         "ffn_up": f(h, i) * 0.2, "ffn_down": f(i, h) * 0.2,
+         "ids": rng.randint(0, vocab, size=(b, s)).astype(np.int64),
+         "table": f(vocab, emb_h), "logits": f(t, vocab) * 3,
+         "labels": rng.randint(0, vocab, size=(t,)).astype(np.int64)}
+    a.update({"g_rar": f(t, out), "g_rag": f(t, out * n), "g_rr": f(t, 8),
+              "g_rg": f(n, t, 8), "g_ffn": f(b, s, h),
+              "g_embed": f(b, s, emb_h), "g_ce": f(t)})
+    return a
+
+
+def collective_job(rank: int, world: int, job: dict) -> dict:
+    """The collective-matmul tests' rank function: the world is one mp
+    group. ``job``: ``inputs`` (an .npz of the GLOBAL operands, f32, as
+    :func:`collective_inputs` makes them), ``env`` (set for the job), and
+    optionally ``device`` ("cuda": every rank on the current card) and
+    ``dtype`` (of the float operands, default float32). Each case runs
+    forward and backward on this rank's part of the inputs under the
+    loss sum(out * G) (G the npz's ``g_<case>``) and returns {case:
+    {"out", "d<arg>"...}} as f32 numpy, every ring beside its blocking
+    counterpart (:func:`_collective_cases`); and the modules of JAX or of
+    the JAX package this process imported."""
+    import torch
+    from paddle_tpu_torch.distributed.fleet import HybridCommunicateGroup
+    torch.set_num_threads(2)
+    os.environ.update(job.get("env", {}))
+    dev = torch.device(job.get("device", "cpu"))
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dtype = getattr(torch, job.get("dtype", "float32"))
+    group = HybridCommunicateGroup(
+        mp_degree=world).get_model_parallel_group()
+    arrays = {k: torch.from_numpy(v).to(dev) for k, v in
+              np.load(job["inputs"]).items()}
+    arrays = {k: v.to(dtype) if v.is_floating_point() else v
+              for k, v in arrays.items()}
+    out = {"rank": group.rank,
+           "cases": _collective_cases(arrays, group)}
+    out["jax_modules"] = [m for m in sys.modules
+                          if m.split(".")[0] in ("jax", "paddle_tpu")]
+    return out
+
+
+def _collective_cases(a, group):
+    import torch
+    from paddle_tpu_torch.distributed import communication as comm
+    from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.parallel import collective_matmul as cm
+    n, r = group.nranks, group.rank
+
+    def cols(x, dim):
+        k = x.shape[dim] // n
+        return x.narrow(dim, r * k, k).contiguous()
+
+    def run(name, fn, **inputs):
+        leaves = {k: v.clone().requires_grad_(v.is_floating_point())
+                  for k, v in inputs.items()}
+        y = fn(**leaves)
+        (y * a[f"g_{name.split(':')[0]}"]).sum().backward()
+        res = {"out": host(y)}
+        res.update({f"d{k}": host(t.grad) for k, t in leaves.items()
+                    if t.grad is not None})
+        return res
+
+    def host(t):
+        return t.detach().float().cpu().numpy()
+
+    x_row, w_row = cols(a["x_row"], 1), cols(a["w_row"], 0)
+    x_col, w_col = a["x_col"], cols(a["w_col"], 1)
+    x_rr = a["x_rr"][r]         # [n, t, c]: rank r's addend
+    # one hop: rank r receives rank r - 1's addend
+    cases = {"hop": {"out": host(comm.ring_hop(x_rr, group)),
+                     "want": host(a["x_rr"][(r - 1) % n])}}
+    for c in (1, 4):
+        tag = "" if c == 1 else f":chunks{c}"
+        cases["rar:ring" + tag] = run(
+            "rar", lambda x, w: cm.ring_allreduce_matmul(x, w, group, c),
+            x=x_row, w=w_row)
+        cases["rag:ring" + tag] = run(
+            "rag", lambda x, w: cm.ring_allgather_matmul(
+                cm.copy_to_mp(x, group), w, group, c), x=x_col, w=w_col)
+        cases["rr:ring" + tag] = run(
+            "rr", lambda x: cm.ring_allreduce(x, group, c), x=x_rr)
+        cases["rg:ring" + tag] = run(
+            "rg", lambda x: cm.ring_allgather(x, group, c), x=x_rr)
+    rows, cols_ = tuple(a["x_row"].shape), tuple(a["x_col"].shape)
+    plan = cm.plan_row_parallel(rows, tuple(a["w_row"].shape), group)
+    cases["rar:plan"] = run("rar", plan, x=x_row, w=w_row)
+    plan = cm.plan_column_parallel(cols_, tuple(a["w_col"].shape), group)
+    cases["rag:plan"] = run("rag", plan, x=x_col, w=w_col)
+    cases["rar:blocking"] = run(
+        "rar", lambda x, w: cm.blocking_allreduce_matmul(x, w, group),
+        x=x_row, w=w_row)
+    cases["rag:blocking"] = run(
+        "rag", lambda x, w: cm.blocking_allgather_matmul(
+            cm.copy_to_mp(x, group), w, group), x=x_col, w=w_col)
+    cases["rr:blocking"] = run(
+        "rr", lambda x: cm.reduce_from_mp(x, group), x=x_rr)
+    cases["rg:blocking"] = run(
+        "rg", lambda x: cm.gather_from_mp(x[None], 0, group), x=x_rr)
+
+    ffn = dict(x=a["ffn_x"], gate=cols(a["ffn_gate"], 1),
+               up=cols(a["ffn_up"], 1), down=cols(a["ffn_down"], 0))
+    plan = cm.plan_fused_ffn(tuple(a["ffn_x"].shape),
+                             tuple(a["ffn_gate"].shape),
+                             tuple(a["ffn_down"].shape), group, n_cols=2,
+                             activation=cm.swiglu)
+    cases["ffn:ring"] = run(
+        "ffn", lambda x, gate, up, down: plan(x, (gate, up), down), **ffn)
+
+    def ffn_blocking(x, gate, up, down):
+        xm = cm.copy_to_mp(x, group)
+        return cm.reduce_from_mp(cm.swiglu(xm @ gate, xm @ up) @ down, group)
+    cases["ffn:blocking"] = run("ffn", ffn_blocking, **ffn)
+
+    ids, table = a["ids"], cols(a["table"], 0)
+    cfg = tl.LlamaConfig(dtype=torch.float32)
+    plan = cm.plan_vocab_parallel_embedding(tuple(ids.shape),
+                                            tuple(a["table"].shape), group)
+    cases["embed:ring"] = run("embed", lambda table: plan(ids, table),
+                              table=table)
+    cases["embed:blocking"] = run(
+        "embed", lambda table: tl.vocab_parallel_embed(table, ids, cfg,
+                                                       group), table=table)
+
+    logits, labels = cols(a["logits"], 1), a["labels"]
+    plan = cm.plan_parallel_cross_entropy(tuple(a["logits"].shape), group)
+    cases["ce:ring"] = run("ce", lambda logits: plan(logits, labels),
+                           logits=logits)
+    cases["ce:blocking"] = run(
+        "ce", lambda logits: tl._VocabParallelCE.apply(logits.float(),
+                                                       labels, group),
+        logits=logits)
+    # the picked logit: each rank's masked pick, summed by the gather
+    # ring the plan uses (one non-zero addend a row)
+    vs = logits.shape[1]
+    loc = labels.long() - r * vs
+    ok = (loc >= 0) & (loc < vs)
+    mine = torch.where(ok, logits.gather(1, torch.where(ok, loc, 0)[:, None])
+                       [:, 0], logits.new_zeros(()))
+    cases["picked"] = {"out": host(cm.ring_allgather(mine, group).sum(0))}
+    return cases

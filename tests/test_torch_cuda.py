@@ -2437,3 +2437,60 @@ def test_default_flash_backward_gap_between_two_runs(dev, monkeypatch):
             assert not any(gaps), gaps
         else:
             assert max(gaps) < 2 ** -7, gaps
+
+
+@pytest.mark.parametrize("bh", [64, 32])
+def test_flash_kernels_at_the_mp2_heads(dev, bh):
+    """Rows 14 and 16 at a rank's shape under mp 2 (llama_7b's 32 heads
+    over 2 ranks: B 4, and 2 rows a rank under dp 2 x mp 2, x 16 heads),
+    S 2048, D 128, causal, bf16, against their plain versions under the
+    flash rule."""
+    qs, k, v, do = _flash_case(dev, torch.bfloat16, bh, 2048, 128, seed=bh)
+    tol_f, tol_b = FLASH_TOL[torch.bfloat16]
+    o, lse = fa.flash_fwd(qs, k, v, True)
+    o_ref, lse_ref = fa.flash_fwd_plain(qs, k, v, True)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    got = fa.flash_bwd(qs, k, v, do, lse_ref, delta, True, 128 ** -0.5)
+    want = fa.flash_bwd_plain(qs, k, v, do, lse_ref, delta, True,
+                              128 ** -0.5)
+    torch.cuda.synchronize()
+    _close(o, o_ref, tol_f)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(g_).all(), name
+        _close(g_, w_, tol_b)
+
+
+def test_rings_on_cuda_tensors_over_gloo_are_bitwise_the_blocking_path(
+        dev, tmp_path):
+    """Two ranks on the card joined over gloo (which takes no CUDA tensor
+    point-to-point: the hop stages through the host) at mp 2, bf16: a
+    ring hop brings the previous rank's tensor; the row-parallel ring
+    all-reduce matmul, the column-parallel gather ring, the bare rings
+    (unchunked and in 4 sub-tiles a hop), the fused FFN plan and the
+    vocabulary-parallel embedding plan give their blocking counterparts'
+    outputs and gradients bit for bit (cuBLAS on a ring's row chunks and
+    on the whole rows)."""
+    from paddle_tpu_torch.testing import dist as td
+    a = td.collective_inputs(2, t=1024, k=512, out=1024,
+                             ffn=(2, 512, 1024, 2752), vocab=4096,
+                             emb_h=1024)
+    np.savez(tmp_path / "inputs.npz", **a)
+    job = {"inputs": str(tmp_path / "inputs.npz"), "device": "cuda",
+           "dtype": "bfloat16"}
+    reports = td.spawn(td.collective_job, 2, (job,), timeout=300,
+                       store_dir=str(tmp_path))
+    for r in reports:
+        cases = r["cases"]
+        np.testing.assert_array_equal(cases["hop"]["out"],
+                                      cases["hop"]["want"])
+        for name in ("rar", "rag", "rr", "rg", "ffn", "embed"):
+            tags = ("", ":chunks4") if name in ("rar", "rag", "rr",
+                                                "rg") else ("",)
+            for tag in tags:
+                ring, blk = cases[f"{name}:ring{tag}"], \
+                    cases[f"{name}:blocking"]
+                assert ring.keys() == blk.keys()
+                for k in ring:
+                    np.testing.assert_array_equal(ring[k], blk[k],
+                                                  err_msg=(name, tag, k))

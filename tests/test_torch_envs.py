@@ -18,7 +18,8 @@ PORT_READS = {
     "SERVE_JOURNAL_FSYNC", "SERVE_PREFIX_CACHE", "SERVE_KV_DTYPE",
     "SERVE_SPEC", "SERVE_SPEC_K", "MOE_DROPLESS", "CKPT_KEEP",
     "CKPT_INTERVAL", "PREEMPT_GRACE", "FLEET_SERVE_REPLICAS",
-    "FLEET_SERVE_SPILL", "FLEET_SERVE_JOURNAL_DIR"}
+    "FLEET_SERVE_SPILL", "FLEET_SERVE_JOURNAL_DIR", "TP_OVERLAP",
+    "TP_OVERLAP_MIN_CHUNK", "TP_OVERLAP_CHUNKS"}
 
 
 def test_registry_holds_the_port_knobs_and_no_jax_name():

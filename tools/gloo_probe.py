@@ -3,6 +3,7 @@ them, with two ranks sharing the one card.
 
     python3 tools/gloo_probe.py [MB]
     python3 tools/gloo_probe.py --startup
+    python3 tools/gloo_probe.py --p2p [MB]
 
 ``--startup`` instead times how long spawned ranks take to come up, for
 2 and 4 ranks, with ``GLOO_SOCKET_IFNAME`` unset and set to ``lo``: the
@@ -23,6 +24,16 @@ whether ``Tensor.register_post_accumulate_grad_hook`` exists. Prints one
 JSON line and writes ``chiprun_out/gloo_probe.json``; last the card's
 name and power limit. Gloo stages CUDA tensors through the host, so its
 rates say nothing of NCCL.
+
+``--p2p`` probes point-to-point instead: blocking ``send``/``recv``,
+``isend``/``irecv`` and a ring hop by ``batch_isend_irecv`` (each rank
+sends to rank r+1 mod 2 and receives from r-1), on CUDA and CPU tensors
+in f32 and bf16, values checked, each case in its own pair of processes
+(a rank that dies on one, e.g. when gloo reads a device pointer from the
+host, marks that case and no other); then times a ring hop of MB
+megabytes of bf16 (default 256) on CPU tensors, on CUDA tensors where
+the cases passed, and on CUDA tensors staged through a host copy on
+each side. Writes ``chiprun_out/gloo_probe_p2p.json``.
 """
 import json
 import os
@@ -147,6 +158,136 @@ def worker(rank, store_path, mb, q):
         q.put((rank, traceback.format_exc()))
 
 
+def _p2p_cases(dev, dtype, rank):
+    peer = 1 - rank
+
+    def t(vals):
+        return torch.tensor(vals, dtype=dtype, device=dev)
+
+    def send_recv():
+        if rank == 0:
+            dist.send(t([1.0, 2.0, 3.0]), 1)
+            return True
+        out = t([0.0] * 3)
+        dist.recv(out, 0)
+        return out.tolist() == [1, 2, 3]
+
+    def isend_irecv():
+        out = t([0.0] * 3)
+        works = [dist.isend(t([rank + 1.0] * 3), peer),
+                 dist.irecv(out, peer)]
+        for w in works:
+            w.wait()
+        return out.tolist() == [peer + 1.0] * 3
+
+    def batch_isend_irecv_ring():
+        out = t([0.0] * 4)
+        ops = [dist.P2POp(dist.isend, t([rank + 1.0] * 4), (rank + 1) % W),
+               dist.P2POp(dist.irecv, out, (rank - 1) % W)]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+        return out.tolist() == [(rank - 1) % W + 1.0] * 4
+
+    return {f.__name__: f for f in (send_recv, isend_irecv,
+                                    batch_isend_irecv_ring)}
+
+
+def _hop(x, out, staged):
+    """One ring hop of ``x`` into ``out``: direct, or through host copies
+    on each side."""
+    rank = dist.get_rank()
+    src, dst = (x.cpu(), torch.empty_like(out, device="cpu")) if staged \
+        else (x, out)
+    ops = [dist.P2POp(dist.isend, src, (rank + 1) % W),
+           dist.P2POp(dist.irecv, dst, (rank - 1) % W)]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    if staged:
+        out.copy_(dst)
+
+
+def p2p_case_worker(rank, store_path, dev, dtype, name, q):
+    try:
+        if torch.cuda.is_available():
+            torch.cuda.set_device(0)
+        dist.init_process_group("gloo", store=dist.FileStore(store_path, W),
+                                rank=rank, world_size=W)
+        q.put((rank, _try(_p2p_cases(dev, getattr(torch, dtype),
+                                     rank)[name])))
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:
+        q.put((rank, traceback.format_exc().splitlines()[-1][:200]))
+
+
+def p2p_time_worker(rank, store_path, mb, forms, q):
+    try:
+        if torch.cuda.is_available():
+            torch.cuda.set_device(0)
+        dist.init_process_group("gloo", store=dist.FileStore(store_path, W),
+                                rank=rank, world_size=W)
+        n = mb * 2 ** 20 // 2
+        out = {}
+        for form in forms:
+            dev = "cpu" if form == "cpu" else "cuda"
+            x = torch.full((n,), rank + 1.0, dtype=torch.bfloat16, device=dev)
+            y = torch.empty_like(x)
+            rate = _rate(lambda: _hop(x, y, form == "cuda staged"), x.nbytes)
+            rate["right"] = bool((y == (rank - 1) % W + 1.0).all())
+            out[form] = rate
+        dist.destroy_process_group()
+        q.put((rank, out))
+    except Exception:
+        q.put((rank, traceback.format_exc()))
+
+
+def _pair(target, args, timeout):
+    """Run ``target(rank, store, *args, q)`` on two fresh processes;
+    {rank: what it put} (a rank that died or hung: its exit code)."""
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=target, args=(
+            r, os.path.join(tmp, "store"), *args, q)) for r in range(W)]
+        for p in procs:
+            p.start()
+        got, deadline = {}, time.monotonic() + timeout
+        while len(got) < W and time.monotonic() < deadline:
+            try:
+                r, v = q.get(timeout=1.0)
+                got[r] = v
+            except Exception:       # queue.Empty: look for dead ranks
+                if all(p.exitcode is not None for r, p in enumerate(procs)
+                       if r not in got):
+                    break
+        for r, p in enumerate(procs):
+            p.join(timeout=5)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+            got.setdefault(r, f"died (exit code {p.exitcode})")
+    return got
+
+
+def p2p(mb):
+    res = {}
+    for dev in ("cuda", "cpu"):
+        for dtype in ("float32", "bfloat16"):
+            key = f"{dev}/{dtype}"
+            res[key] = {}
+            for name in _p2p_cases(dev, torch.float32, 0):
+                got = _pair(p2p_case_worker, (dev, dtype, name), 60)
+                res[key][name] = got[0] if got[0] == got[1] else \
+                    {f"rank {r}": v for r, v in got.items()}
+            print(key, json.dumps(res[key]), flush=True)
+    cuda_ok = all(v == "ok" for d in ("cuda/float32", "cuda/bfloat16")
+                  for v in res[d].values())
+    forms = ["cpu", "cuda staged"] + (["cuda"] if cuda_ok else [])
+    res["ring_hop_timings"] = _pair(p2p_time_worker, (mb, forms), 600)[0]
+    res["mb"] = mb
+    return res
+
+
 def startup_worker(rank, world, store_path, t0, q):
     import time as _t
     out = {"entry": _t.time() - t0}
@@ -195,6 +336,19 @@ def startup():
 def main():
     if sys.argv[1:] == ["--startup"]:
         startup()
+        return
+    if sys.argv[1:2] == ["--p2p"]:
+        if not torch.cuda.is_available():
+            sys.exit("gloo_probe: needs a CUDA device")
+        res = p2p(int(sys.argv[2]) if len(sys.argv) > 2 else 256)
+        print(json.dumps(res))
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "gloo_probe_p2p.json"),
+                  "w") as f:
+            json.dump(res, f, indent=1)
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip())
         return
     mb = int(sys.argv[1]) if len(sys.argv) > 1 else 256
     print(sys.version.split()[0], torch.__version__, torch.version.cuda)
