@@ -24,7 +24,9 @@ Phases, in order; any failure exits non-zero before the last line:
                commit (rows 8 and 9 at L = 32 and at block sizes 16 to
                1024 in f32, bf16 and int8, commit lengths 0, 1, T and
                mixed: bitwise but the null block, block 0 untouched, the
-               same bits twice); then a tiny fp32
+               same bits twice); rows 3, 5, 6, 7, 8 and 9 also at a
+               rank's shape under mp 2 (NH = NKV = 16, KVD 2048); then a
+               tiny fp32
                Llama served on the card through
                the kernels must give the same greedy streams as the same
                engine on the CPU through the plain versions, with
@@ -118,6 +120,25 @@ Phases, in order; any failure exits non-zero before the last line:
                tokens/s, TTFT, decode step ms, peak memory, the launches
                of rows 1 and 3 asserted, every request finished with its
                64 tokens and none quarantined, the pool leak-free;
+  4e. serve-tp - InferenceEngine with ServeConfig(mp=2) over 2 ranks
+               (spawned processes sharing cuda:0 through gloo): first the
+               tiny Llama of check_tiny_spec_streams through rows 1, 3
+               and 5-9 at the rank's heads, plain, int8 with the prefix
+               cache, and speculative over bf16 and int8 pools, streams
+               token-identical to mp 1 on the card; then llama_7b (bf16,
+               seeded weights made once and handed to the ranks as CUDA
+               handles): one teacher-forced decode step at 32 layers held
+               to the mp 1 step's logits within SERVE_TP_LOGIT_REL (rel
+               frob), two faulty controls (a rank's o_proj reduce
+               dropped, a rank's k_proj holding the other's heads) shown
+               to fail it, one decode step's and one prefill chunk's
+               collective calls and bytes equal to their reckoning, and
+               the serve trace's first 4 requests at 16 layers in wall
+               mode, bf16 and int8 with the prefix cache and speculation:
+               streams and events equal on both ranks, pool bytes a rank
+               half of mp 1's, every request finished, launches asserted;
+               tokens/s, TTFT, step ms, peak memory a rank, and each
+               request's first divergence from mp 1 (reported);
   5. train   - build_train_step on llama_7b's width cut to 16 layers
                (bf16, B=4, S=2048, full remat, AdamW with f32 moments,
                seeded random weights and ids): one warm-up and three timed
@@ -218,7 +239,7 @@ Phases, in order; any failure exits non-zero before the last line:
                cuda:0 through gloo (which stages CUDA tensors through the
                host: correctness and memory, not collective speed): dp 2,
                sharding 2 at ZeRO stages 1 and 2 (4 layers, 2 steps),
-               stage 3 at 16 layers (1 step), dp 2 x sharding 2 at stage
+               stage 3 (4 layers, 1 step), dp 2 x sharding 2 at stage
                3 (W=4, 4 layers, 2 steps); tensor parallelism at 4
                layers, 2 steps: mp 2, mp 2 with the fused FFN ring
                (PADDLE_TPU_TORCH_TP_OVERLAP=1 in the ranks, its plan
@@ -252,8 +273,11 @@ Phases, in order; any failure exits non-zero before the last line:
                shapes where JAX takes rows 13 and 15, row 2 at row 3's
                (rows 2 and 3 also by the profiler's kernel time), rows 6
                and 7 also at the profiled verify step's even rows and by
-               the profiler's kernel time;
- 10. a JSON line {"kernels": [...]}, the total wall seconds, and, last,
+               the profiler's kernel time; rows 3 and 5-9 also at a
+               rank's shape under mp 2 (tp_rank_times);
+ 10. a JSON line {"kernels": [...]} (rows 3 and 5-9 with an "mp2_rank"
+     entry: their times at a rank's shape and their launches in
+     serve-tp's ranks), the total wall seconds, and, last,
      {"ok": true, "device": ...}.
 
 Needs one CUDA device; writes its numbers to chiprun_out/chip_smoke.json.
@@ -296,10 +320,14 @@ BEAM_B, BEAM_K, BEAM_NEW = 2, 4, 32
 _T0 = time.perf_counter()
 
 
+_PHASES = []    # (phase header, its start in seconds): the record's timeline
+
+
 def phase(name):
     """A phase's header, with the script's seconds so far."""
-    print(f"\n== {name} == (at {time.perf_counter() - _T0:.1f} s)",
-          flush=True)
+    at = time.perf_counter() - _T0
+    _PHASES.append((name, round(at, 1)))
+    print(f"\n== {name} == (at {at:.1f} s)", flush=True)
 
 
 def probe():
@@ -502,6 +530,7 @@ def check_paged_update(dev, errs):
     for nh, nkv, positions in ((32, 32, PAGED_POSITIONS),
                                (32, 8, PAGED_POSITIONS),
                                (40, 40, PAGED_POSITIONS),   # llama_13b
+                               (16, 16, PAGED_POSITIONS),   # mp 2's rank
                                (32, 32, PAGED_SCHEDULE_POSITIONS)):
         a = _paged_inputs(nh, nkv, positions, SEED + nkv, dev)
         kp2, vp2 = a["k_pool"].clone(), a["v_pool"].clone()
@@ -598,6 +627,7 @@ VERIFY_QSTART = [1, 127, 128, 129, 3000, 0, 1500, 4000]
 VERIFY_SCHEDULE_QSTART = [p + 1 for p in PAGED_SCHEDULE_POSITIONS]
 VERIFY_SPREAD = 150.0   # the spread block's scores lead by hundreds
 VERIFY_CASES = [(32, 32, 5, torch.bfloat16, None),
+                (16, 16, 5, torch.bfloat16, None),      # a rank at mp 2
                 (8, 4, 1, torch.float32, VERIFY_SPREAD),
                 (8, 4, 4, torch.float32, VERIFY_SPREAD),
                 (16, 4, 6, torch.float32, VERIFY_SPREAD),
@@ -687,6 +717,7 @@ def check_verify(dev, errs):
 # and 6 are.
 QUANT_SPREAD = 128.0
 QUANT_CASES = [(32, 32, torch.bfloat16, None),    # llama_7b, bf16 q
+               (16, 16, torch.bfloat16, None),    # a rank at mp 2
                (8, 4, torch.float32, QUANT_SPREAD),
                (16, 4, torch.float32, QUANT_SPREAD),
                (32, 4, torch.float32, QUANT_SPREAD)]
@@ -979,11 +1010,13 @@ def check_dead_columns(dev):
 # land nowhere.
 COMMIT_LENS = {"none": [0] * 8, "one": [1] * 8, "all": [5] * 8,
                "mixed": COMMIT_LEN}
-# (dtype, layers, block size, commit-length sets): llama_7b's commit (L =
-# 32, KVD = 4096, bs 128) in bf16 and int8, then four layers at the other
-# block sizes and in f32
+# (dtype, layers, block size, commit-length sets[, heads]): llama_7b's
+# commit (L = 32, KVD = 4096, bs 128) in bf16 and int8, a rank's at mp 2
+# (KVD = 2048), then four layers at the other block sizes and in f32
 COMMIT_CASES = [(torch.bfloat16, 32, 128, tuple(COMMIT_LENS)),
                 ("int8", 32, 128, tuple(COMMIT_LENS)),
+                (torch.bfloat16, 32, 128, ("all", "mixed"), 16),
+                ("int8", 32, 128, ("all", "mixed"), 16),
                 (torch.float32, 4, 128, tuple(COMMIT_LENS)),
                 (torch.bfloat16, 4, 16, ("all", "mixed")),
                 (torch.bfloat16, 4, 1024, ("all", "mixed")),
@@ -998,21 +1031,21 @@ def commit_qstart(bs):
     return [0, 3, bs - 3, bs - 2, 300, bs, 1000, 2000]
 
 
-def commit_case(pa, dtype, layers, bs, lens, seed, dev):
+def commit_case(pa, dtype, layers, bs, lens, seed, dev, heads=32):
     """Row 8 (dtype a float type) or row 9 (dtype "int8") at one case;
     returns (max_abs_err on blocks 1:, a line to print)."""
     quant = dtype == "int8"
     qstart, T = commit_qstart(bs), 5
     if quant:
-        a = _quant_inputs(32, 32, qstart, seed, dev, torch.bfloat16, T=T,
-                          bs=bs, layers=layers)
+        a = _quant_inputs(heads, heads, qstart, seed, dev, torch.bfloat16,
+                          T=T, bs=bs, layers=layers)
         names, qs = ("k_pool", "v_pool", "k_scale", "v_scale"), a["rows"]
         new = [a[k] for k in ("new_k", "new_v", "new_ks", "new_vs")]
         kern, plain = pa.paged_verify_commit_quant, \
             pa.paged_verify_commit_quant_plain
     else:
-        a = _verify_inputs(32, 32, qstart, T, seed, dev, dtype=dtype, bs=bs,
-                           layers=layers)
+        a = _verify_inputs(heads, heads, qstart, T, seed, dev, dtype=dtype,
+                           bs=bs, layers=layers)
         names, qs = ("k_pool", "v_pool"), a["qstart"]
         new = [a["new_k"], a["new_v"]]
         kern, plain = pa.paged_verify_commit, pa.paged_verify_commit_plain
@@ -1036,7 +1069,7 @@ def commit_case(pa, dtype, layers, bs, lens, seed, dev):
     written = [int((x[:, 1:] != y[:, 1:]).any(dim=2).sum())
                for x, y in zip(got, orig)]
     want = layers * sum(c for c, q in zip(lens, qstart) if q > 0)
-    line = (f"{kern.__name__} L={layers} B=8 T={T} KVD=4096 bs={bs} "
+    line = (f"{kern.__name__} L={layers} B=8 T={T} KVD={heads * 128} bs={bs} "
             f"{'int8' if quant else str(dtype)[6:]} qstart {qstart} "
             f"commit_len {lens}: bitwise but block 0 {bitwise}, block 0 "
             f"untouched {block0}, the same bits twice {same}, columns "
@@ -1050,12 +1083,12 @@ def check_commit(dev, errs):
     """Rows 8 and 9 against their plain versions (the cases above)."""
     from paddle_tpu_torch.ops import paged_attention as pa
     phase("check the commit (rows 8 and 9) against its plain versions")
-    for i, (dtype, layers, bs, sets) in enumerate(COMMIT_CASES):
+    for i, (dtype, layers, bs, sets, *heads) in enumerate(COMMIT_CASES):
         key = ("paged_verify_commit_quant" if dtype == "int8"
                else "paged_verify_commit")
         for name in sets:
             err, line = commit_case(pa, dtype, layers, bs, COMMIT_LENS[name],
-                                    SEED + 8 + i, dev)
+                                    SEED + 8 + i, dev, *heads)
             print(line)
             errs[key] = max(errs.get(key, 0.0), err)
         torch.cuda.empty_cache()
@@ -4646,36 +4679,14 @@ def _bound(nbytes, ops, ops_per_s):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def times(dev, errs):
+def paged_update_times(dev, nh=32):
+    """Row 3 at B=8, NH=NKV=``nh``, HD=128, bf16, row 3's positions
+    (3,865 context tokens): the kernel, its plain version, SDPA over the
+    context gathered beforehand (the gather and the column write outside
+    its time) and the profiler's kernel time."""
     from paddle_tpu_torch.ops import paged_attention as pa
-    from paddle_tpu_torch.ops import rms_norm as rn
-    phase("times (CUDA events; ms = device time per call)")
     out = {}
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    # the launch floor: an empty kernel (torch.cuda._sleep(0)) queued back
-    # to back, as row 1 is timed
-    floor = _timed(lambda: torch.cuda._sleep(0), 200)
-    out["launch_floor"] = floor
-    # rows: a decode step, a prefill chunk, a train step (B x S)
-    for n in (8, 256, TRAIN_B * TRAIN_S):
-        x = torch.randn((n, 4096), generator=g, device=dev,
-                        dtype=torch.bfloat16)
-        w = torch.ones((4096,), device=dev, dtype=torch.bfloat16)
-        kernel = _timed(lambda: rn.fused_rms_norm(x, w, 1e-5), 200)
-        # RMSNorm's arithmetic is f32 outside the tensor cores
-        r = dict(kernel,
-                 plain_ms=_timed(lambda: rn.rms_norm_plain(x, w, 1e-5), 100)
-                 ["ms"],
-                 library_ms=_timed(lambda: torch.nn.functional.rms_norm(
-                     x, (4096,), w, 1e-5), 100)["ms"],
-                 **_bound(2 * n * 4096 * 2 + 4096 * 2, 4 * n * 4096,
-                          F32_OPS_PER_S), floor_ms=floor["ms"])
-        out[f"rms_norm[{n},4096]"] = r
-        print(f"rms_norm [{n},4096]: {r} (launch floor {floor['ms']:.6f} "
-              f"ms)")
-    out["rms_norm_host_ms_per_decode_step"] = rms_host_cost(dev)
-
-    a = _paged_inputs(32, 32, PAGED_POSITIONS, SEED + 32, dev)
+    a = _paged_inputs(nh, nh, PAGED_POSITIONS, SEED + nh, dev)
     b, nh, hd = a["q"].shape
     kvd, bs = a["k_pool"].shape[2], a["k_pool"].shape[3]
     ctx = sum(p + 1 for p in PAGED_POSITIONS)
@@ -4709,10 +4720,44 @@ def times(dev, errs):
              profiler_ms=_profiled_ms(lambda: pa.paged_attend_update(*call),
                                       "paged_split_kernel"),
              bytes=nbytes, context_tokens=ctx)
-    out["paged_attend_update[B=8,NH=NKV=32]"] = r
-    print(f"paged_attend_update B=8 NH=NKV=32 ctx {ctx} tokens: {r}")
-    # the same kernel at the profiled decode step's even rows
+    out[f"paged_attend_update[B=8,NH=NKV={nh}]"] = r
+    print(f"paged_attend_update B=8 NH=NKV={nh} ctx {ctx} tokens: {r}")
+    return out
+
+
+def times(dev, errs):
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import rms_norm as rn
+    phase("times (CUDA events; ms = device time per call)")
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    # the launch floor: an empty kernel (torch.cuda._sleep(0)) queued back
+    # to back, as row 1 is timed
+    floor = _timed(lambda: torch.cuda._sleep(0), 200)
+    out["launch_floor"] = floor
+    # rows: a decode step, a prefill chunk, a train step (B x S)
+    for n in (8, 256, TRAIN_B * TRAIN_S):
+        x = torch.randn((n, 4096), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        w = torch.ones((4096,), device=dev, dtype=torch.bfloat16)
+        kernel = _timed(lambda: rn.fused_rms_norm(x, w, 1e-5), 200)
+        # RMSNorm's arithmetic is f32 outside the tensor cores
+        r = dict(kernel,
+                 plain_ms=_timed(lambda: rn.rms_norm_plain(x, w, 1e-5), 100)
+                 ["ms"],
+                 library_ms=_timed(lambda: torch.nn.functional.rms_norm(
+                     x, (4096,), w, 1e-5), 100)["ms"],
+                 **_bound(2 * n * 4096 * 2 + 4096 * 2, 4 * n * 4096,
+                          F32_OPS_PER_S), floor_ms=floor["ms"])
+        out[f"rms_norm[{n},4096]"] = r
+        print(f"rms_norm [{n},4096]: {r} (launch floor {floor['ms']:.6f} "
+              f"ms)")
+    out["rms_norm_host_ms_per_decode_step"] = rms_host_cost(dev)
+    out.update(paged_update_times(dev))
     a = _paged_inputs(32, 32, PAGED_STEP_POSITIONS, SEED + 33, dev)
+    b, nh, hd = a["q"].shape
+    kvd = a["k_pool"].shape[2]
+    # the same kernel at the profiled decode step's even rows
     ctx = sum(p + 1 for p in PAGED_STEP_POSITIONS)
     call = (a["q"], a["new_k"], a["new_v"], a["k_pool"], a["v_pool"],
             a["tables"], a["positions"], a["layer"])
@@ -4768,7 +4813,7 @@ def _verify_library(q, pools, tables, qstart, layer, bs, scales=None):
         qd, kc, vc, attn_mask=mask)
 
 
-def verify_times(dev):
+def verify_times(dev, nh=32, even=True):
     """Row 6 at row 3's timing shape with T = 5 fed tokens per row (B=8,
     NH=NKV=32, HD=128, bf16, qstart = row 3's positions + 1: 3,865 cached
     tokens in all), so the two rows compare, and at the profiled verify
@@ -4777,16 +4822,17 @@ def verify_times(dev):
     Operations: 2 products of 2 HD per (query row, token). Library
     yardstick: SDPA of the T query rows over the context gathered
     beforehand. ``profiler_ms``: torch.profiler's kernel time per launch
-    (row 8: ``commit_times``)."""
+    (row 8: ``commit_times``). ``nh``: the heads (NH = NKV); ``even``:
+    the even rows too."""
     from paddle_tpu_torch.ops import paged_attention as pa
     out = {}
-    T, bs, nh, hd = SPEC_K + 1, 128, 32, 128
+    T, bs, hd = SPEC_K + 1, 128, 128
     qstart = [p + 1 for p in PAGED_POSITIONS]
     b, kvd = len(qstart), nh * hd
     for key, rows, width, seed in (
-            ("", qstart, None, SEED + 61),
+            ("", qstart, None, SEED + 61 + 32 - nh),
             (",even rows", VERIFY_STEP_QSTART, VERIFY_STEP_MAX_NB,
-             SEED + 63)):
+             SEED + 63))[:2 if even else 1]:
         a = _verify_inputs(nh, nh, rows, T, seed, dev, hd=hd, max_nb=width)
         ctx = sum(rows)
         nbytes = (b * T * nh * hd * 2 + 2 * ctx * kvd * 2
@@ -4806,15 +4852,15 @@ def verify_times(dev):
                      a["qstart"], a["layer"], bs), 50)["ms"],
                  **_bound(nbytes, 4 * T * nh * hd * ctx, BF16_OPS_PER_S),
                  bytes=nbytes, context_tokens=ctx)
-        out[f"paged_attention_verify[B=8,T=5,NH=NKV=32{key}]"] = r
-        print(f"paged_attention_verify B=8 T=5 NH=NKV=32 ctx {ctx} "
+        out[f"paged_attention_verify[B=8,T=5,NH=NKV={nh}{key}]"] = r
+        print(f"paged_attention_verify B=8 T=5 NH=NKV={nh} ctx {ctx} "
               f"tokens{key.replace(',', ', ')}: {r}")
         del a
 
     return out
 
 
-def quant_times(dev):
+def quant_times(dev, nh=32, even=True):
     """Rows 5 and 4 at row 3's timing shape and row 7 at row 6's (B=8,
     NH=NKV=32, HD=128, bf16 q, int8 pools from kv_quant_columns of bf16
     columns; row 3's positions, so 3,865 context tokens: row 4 reads
@@ -4826,15 +4872,17 @@ def quant_times(dev):
     indices once; row 5 adds the new columns read and written with their
     scales. Operations: 2 products of 2 HD per (query row, token) in f32
     (the walk runs on the CUDA cores). Library yardstick: SDPA over the
-    context gathered and dequantized to bf16 beforehand."""
+    context gathered and dequantized to bf16 beforehand. ``nh``: the
+    heads (NH = NKV); ``even``: the even rows too."""
     from paddle_tpu_torch.ops import paged_attention as pa
     F = torch.nn.functional
     out = {}
-    T, bs, nh, hd = SPEC_K + 1, 128, 32, 128
+    T, bs, hd = SPEC_K + 1, 128, 128
     b, kvd, nkv = len(PAGED_POSITIONS), nh * hd, nh
     for key, positions, width, seed in (
-            ("", PAGED_POSITIONS, None, SEED + 71),
-            (",even rows", PAGED_STEP_POSITIONS, 16, SEED + 75)):
+            ("", PAGED_POSITIONS, None, SEED + 71 + 32 - nh),
+            (",even rows", PAGED_STEP_POSITIONS, 16, SEED + 75))[
+                :2 if even else 1]:
         a = _quant_inputs(nh, nh, positions, seed, dev, torch.bfloat16,
                           max_nb=width)
         ctx = sum(p + 1 for p in positions)
@@ -4874,16 +4922,16 @@ def quant_times(dev):
                      plain_ms=_timed(plain, 10)["ms"],
                      library_ms=lib, **_bound(nbytes, ops, F32_OPS_PER_S),
                      bytes=nbytes, context_tokens=ctx)
-            out[f"{name}[B=8,NH=NKV=32{key}]"] = r
-            print(f"{name} B=8 NH=NKV=32 ctx {ctx} "
+            out[f"{name}[B=8,NH=NKV={nh}{key}]"] = r
+            print(f"{name} B=8 NH=NKV={nh} ctx {ctx} "
                   f"tokens{key.replace(',', ', ')}: {r}")
         del a, kc, vc, pools, new
 
     qstart = [p + 1 for p in PAGED_POSITIONS]
     for key, rows, width, seed in (
-            ("", qstart, None, SEED + 72),
+            ("", qstart, None, SEED + 72 + 32 - nh),
             (",even rows", VERIFY_STEP_QSTART, VERIFY_STEP_MAX_NB,
-             SEED + 74)):
+             SEED + 74))[:2 if even else 1]:
         a = _quant_inputs(nh, nh, rows, seed, dev, torch.bfloat16, T=T,
                           max_nb=width)
         ctx = sum(rows)
@@ -4904,8 +4952,8 @@ def quant_times(dev):
                      (a["k_scale"], a["v_scale"])), 50)["ms"],
                  **_bound(nbytes, 4 * T * nh * hd * ctx, F32_OPS_PER_S),
                  bytes=nbytes, context_tokens=ctx)
-        out[f"paged_attention_verify_quant[B=8,T=5,NH=NKV=32{key}]"] = r
-        print(f"paged_attention_verify_quant B=8 T=5 NH=NKV=32 ctx {ctx} "
+        out[f"paged_attention_verify_quant[B=8,T=5,NH=NKV={nh}{key}]"] = r
+        print(f"paged_attention_verify_quant B=8 T=5 NH=NKV={nh} ctx {ctx} "
               f"tokens{key.replace(',', ', ')}: {r}")
         del a
 
@@ -4928,29 +4976,29 @@ def commit_sectors(qstart, clen, bs, esize):
     return n
 
 
-def commit_timing_inputs(dev, quant):
+def commit_timing_inputs(dev, quant, nkv=32):
     """Row 8's (bf16) or row 9's (``quant``) timing inputs: L=32, B=8, T=5,
-    KVD=4096, row 6's timing rows (qstart = row 3's positions + 1).
+    KVD=128 ``nkv``, row 6's timing rows (qstart = row 3's positions + 1).
     Returns (kernel, plain version, the inputs' dict, the fed columns, the
     pools, qstart)."""
     from paddle_tpu_torch.ops import paged_attention as pa
     qstart = [p + 1 for p in PAGED_POSITIONS]
     if quant:
-        a = _quant_inputs(32, 32, qstart, SEED + 73, dev, torch.bfloat16,
-                          T=SPEC_K + 1, layers=32)
+        a = _quant_inputs(nkv, nkv, qstart, SEED + 73 + 32 - nkv, dev,
+                          torch.bfloat16, T=SPEC_K + 1, layers=32)
         return (pa.paged_verify_commit_quant,
                 pa.paged_verify_commit_quant_plain, a,
                 [a[k] for k in ("new_k", "new_v", "new_ks", "new_vs")],
                 [a[k] for k in ("k_pool", "v_pool", "k_scale", "v_scale")],
                 a["rows"])
-    a = _verify_inputs(32, 32, qstart, SPEC_K + 1, SEED + 62, dev,
-                       layers=32)
+    a = _verify_inputs(nkv, nkv, qstart, SPEC_K + 1, SEED + 62 + 32 - nkv,
+                       dev, layers=32)
     return (pa.paged_verify_commit, pa.paged_verify_commit_plain, a,
             [a["new_k"], a["new_v"]], [a["k_pool"], a["v_pool"]],
             a["qstart"])
 
 
-def commit_times(dev):
+def commit_times(dev, nkv=32, lengths=None):
     """Rows 8 and 9 at L=32, B=8, T=5, KVD=4096 (bf16 pools; int8 with 32
     f32 scales a column) over row 6's timing rows (qstart = row 3's
     positions + 1), at two commit lengths: every column accepted
@@ -4963,16 +5011,18 @@ def commit_times(dev):
     row's, so a sector is the least a write moves. Library yardstick: one
     advanced-index assignment per pool of the live columns, indices and
     gathered sources made beforehand. ``profiler_ms``: torch.profiler's
-    kernel time per launch."""
+    kernel time per launch. ``nkv``: the kv heads; ``lengths``: the
+    commit lengths timed (default T and 1)."""
     from paddle_tpu_torch.ops import paged_attention as pa
     out = {}
-    L, T, bs, nkv = 32, SPEC_K + 1, 128, 32
+    L, T, bs = 32, SPEC_K + 1, 128
     qstart = [p + 1 for p in PAGED_POSITIONS]
     b, kvd = len(qstart), nkv * 128
     for quant in (False, True):
-        kern, plain, a, new, pools, qs = commit_timing_inputs(dev, quant)
+        kern, plain, a, new, pools, qs = commit_timing_inputs(dev, quant,
+                                                              nkv)
         esize = 1 if quant else 2
-        for n_live in (T, 1):
+        for n_live in lengths or (T, 1):
             clen_l = [n_live] * b
             clen = torch.tensor(clen_l, dtype=torch.int32, device=dev)
             args = (*new, *pools, a["tables"], qs, clen)
@@ -5002,13 +5052,25 @@ def commit_times(dev):
                      bytes=2 * read + index_bytes, sectors=sectors,
                      sector_bound_ms=(sectors * 32 + read + index_bytes)
                      / HBM_BYTES_PER_S * 1e3)
-            key = (f"{kern.__name__}[L=32,B=8,T=5,KVD=4096"
+            key = (f"{kern.__name__}[L=32,B=8,T=5,KVD={kvd}"
                    f"{'' if n_live == T else ',commit_len=1'}]")
             out[key] = r
             print(f"{key}: {r}")
             del srcs, li, bid, col, bi, ti
         del a, new, pools
         torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank_times(dev):
+    """Rows 3 and 5-9 at a rank's shapes under serve-tp (llama_7b over mp
+    2: NH = NKV = 16, KVD 2048), timed as at 32 heads (the main shape
+    only; the commit with every column accepted)."""
+    phase("times at a rank's shapes under mp 2 (NH = NKV = 16)")
+    out = paged_update_times(dev, 16)
+    out.update(verify_times(dev, 16, even=False))
+    out.update(quant_times(dev, 16, even=False))
+    out.update(commit_times(dev, 16, lengths=(SPEC_K + 1,)))
     return out
 
 
@@ -6404,9 +6466,11 @@ def fleet_phase(dev):
 # sharing the one card (gloo)
 DP_LAYERS = 4
 DP_STEPS = 2    # step 0 (a process's first also warms gloo's buffers), 1
-# (name, world, ParallelConfig fields, layers, steps); stage 3 at 16
-# layers takes one step for the phase's time (21 s a step through the
-# host): dp2_sh2_stage3 holds stage 3's second step. mp2_overlap runs the
+# (name, world, ParallelConfig fields, layers, steps); stage 3 takes one
+# step at DP_LAYERS for the script's time (it ran 16 layers, 21 s a step
+# through the host, until serve-tp came: chip_smoke took 1091.8 s on an
+# NVIDIA H100 80GB HBM3, 700.00 W with it there): dp2_sh2_stage3 holds
+# stage 3's second step. mp2_overlap runs the
 # fused FFN ring (DP_ENV, set in the rank for that run only). The two
 # world-4 mp runs take one step for the script's time (1070.7 s on an
 # NVIDIA H100 80GB HBM3, 700.00 W, with both at two steps), held to the
@@ -6416,7 +6480,7 @@ DP_RUNS = [
     ("dp2", 2, dict(dp=2), DP_LAYERS, DP_STEPS),
     ("sh2_stage1", 2, dict(sharding=2, zero_stage=1), DP_LAYERS, DP_STEPS),
     ("sh2_stage2", 2, dict(sharding=2, zero_stage=2), DP_LAYERS, DP_STEPS),
-    ("sh2_stage3", 2, dict(sharding=2, zero_stage=3), TRAIN_LAYERS, 1),
+    ("sh2_stage3", 2, dict(sharding=2, zero_stage=3), DP_LAYERS, 1),
     ("mp2", 2, dict(mp=2), DP_LAYERS, DP_STEPS),
     ("mp2_overlap", 2, dict(mp=2), DP_LAYERS, DP_STEPS),
     ("dp2_sh2_stage3", 4, dict(dp=2, sharding=2, zero_stage=3), DP_LAYERS,
@@ -6597,10 +6661,8 @@ def _worst(errs):
 
 def dp_references(dev):
     """The single process's runs that train-dp is held to (the same seed
-    and batches): DP_STEPS steps at DP_LAYERS, its step 0 alone, and one
-    step at TRAIN_LAYERS, their losses and params (kept on the card for
-    the ranks). At
-    DP_LAYERS, three faulty runs are read as controls that the limits
+    and batches): DP_STEPS steps at DP_LAYERS and its step 0 alone, their
+    losses and params (kept on the card for the ranks). Three faulty runs are read as controls that the limits
     must fail: step 1 skipped (its params are step 0's), step 1 on half
     the batch (a rank's rows dropped), step 0 skipped (step 1 from the
     seeded params; its loss is read too). Returns ({(layers, steps):
@@ -6632,14 +6694,6 @@ def dp_references(dev):
     del step, o, p0
     refs = {(DP_LAYERS, DP_STEPS): (losses, p),
             (DP_LAYERS, 1): (losses[:1], p_step0)}
-    gc.collect()
-    torch.cuda.empty_cache()
-    cfg = dataclasses.replace(tl.llama_7b(), num_hidden_layers=TRAIN_LAYERS)
-    step, p, o = tl.build_train_step(cfg, tl.ParallelConfig(), seed=SEED,
-                                     device=dev)
-    p, o, l0 = step(p, o, x0[:, :-1], x0[:, 1:])
-    refs[(TRAIN_LAYERS, 1)] = ([float(l0)], p)
-    del step, o
     gc.collect()
     torch.cuda.empty_cache()
     return refs, controls, loss_gap
@@ -6878,6 +6932,456 @@ def train_dp(dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# serve-tp: tensor-parallel serving, InferenceEngine(ServeConfig(mp=2)) over
+# two ranks (spawned processes) sharing cuda:0 through gloo
+# ---------------------------------------------------------------------------
+
+# the tiny check: check_tiny_spec_streams's model (damped) and trace, each
+# run at mp 1 in this process and at mp 2 in the ranks, through the card
+# kernels: rows 1 and 3 (plain), 5 (int8), 6 and 8 (speculation), 7 and 9
+# (speculation over int8), each at the rank's heads (2, over 1 kv head)
+TINY_TP_SERVE = dict(block_size=128, num_blocks=10, max_batch=2,
+                     prefill_chunk=64, max_seq_len=512, draft_k=4)
+TINY_TP_RUNS = {"plain": {},
+                "int8-prefix": dict(kv_dtype="int8", prefix_cache=True),
+                "spec-prefix": dict(speculative=True, prefix_cache=True),
+                "spec-int8-prefix": dict(speculative=True, prefix_cache=True,
+                                         kv_dtype="int8")}
+TINY_TP_ROWS = {"plain": ("paged_attend_update",),
+                "int8-prefix": ("paged_attend_update_quant",),
+                "spec-prefix": ("paged_attention_verify",
+                                "paged_verify_commit"),
+                "spec-int8-prefix": ("paged_attention_verify_quant",
+                                     "paged_verify_commit_quant")}
+# the 7B runs: the serve phase's ServeConfig and the first
+# SERVE_TP_REQUESTS requests of its trace, wall mode, at mp 2 on the first
+# SERVE_TP_LAYERS layers of llama_7b. Cut for time: gloo stages each of a
+# step's 65 all-reduces through the host (a decode step took 357 ms at 32
+# layers on an NVIDIA H100 80GB HBM3, 700.00 W), so 8 requests at 32
+# layers took 106 s of the phase's 133; the requests went first (8 -> 4),
+# then the depth (32 -> 16)
+SERVE_TP = dict(block_size=128, num_blocks=129, max_batch=8,
+                prefill_chunk=256, max_seq_len=2048)
+SERVE_TP_RUNS = {"bf16": {},
+                 "int8-spec-prefix": dict(kv_dtype="int8", prefix_cache=True,
+                                          speculative=True, draft_k=SPEC_K)}
+SERVE_TP_REQUESTS = 4
+SERVE_TP_LAYERS = 16
+SERVE_TP_JOIN_S = 600
+# One teacher-forced decode step (llama_7b at all 32 layers, B 8 at row
+# 3's positions, random bf16 pools): the relative Frobenius error of the
+# mp 2 step's gathered logits against the mp 1 step's on the same pools
+# and inputs. Sound, the o_proj and down_proj partial sums are rounded to
+# bf16 on each rank and added in bf16 where one process rounds once:
+# 4.61e-2 (NVIDIA H100 80GB HBM3, 700.00 W); the two faulty controls
+# (rank 1 drops its o_proj reduce; rank 1's k_proj holds rank 0's heads)
+# read 1.28 and 0.600. The limit lies 2.7x over the sound reading and
+# 4.8x under the nearer control.
+SERVE_TP_LOGIT_REL = 2 ** -3
+
+
+def _tiny_tp_model():
+    from paddle_tpu_torch import init_llama_params, llama_tiny
+    cfg = llama_tiny(vocab=96, hidden=256, layers=2, heads=4, kv_heads=2,
+                     seq=512)
+    params = init_llama_params(cfg, seed=3, device="cpu")
+    for name in ("o_proj", "down_proj"):
+        params["layers"][name].mul_(SPEC_DAMP)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, 96, size=n).tolist() for n in (7, 130, 300)]
+    return params, cfg, prompts
+
+
+def _tiny_tp_runs(params, cfg, prompts, dev, mp):
+    """The TINY_TP_RUNS on ``dev`` at ``mp``: {run: (streams, events,
+    launches, used blocks)}."""
+    from paddle_tpu_torch import InferenceEngine, Request, ServeConfig
+    out = {}
+    for name, kw in TINY_TP_RUNS.items():
+        eng = InferenceEngine(_to_device(params, dev), cfg, ServeConfig(
+            **TINY_TP_SERVE, **kw, mp=mp), record_events=True, device=dev)
+        _zero_counts()
+        eng.run([Request(pr, max_new_tokens=8, arrival=float(i))
+                 for i, pr in enumerate(prompts)], deterministic=True)
+        out[name] = ({s.req.request_id: s.tokens for s in eng.finished},
+                     eng.events, _counts(), eng.pool.used_blocks)
+    return out
+
+
+def _tp_comm(trace):
+    """The collective counters since the last reset: calls and bytes by
+    comm op and by serve.tp_ring site (host ms left out)."""
+    return {k: v for k, v in trace.counters().items()
+            if k.startswith(("comm.", "serve.tp_ring"))
+            and not k.endswith(".ms")}
+
+
+def _tp_reckoning(cfg, rows, vocab_rows):
+    """The collective calls and bytes one rank makes in one decode step
+    (``rows`` = B, ``vocab_rows`` = B) or prefill chunk (``rows`` = C,
+    ``vocab_rows`` = 1) at mp 2, from the shapes: the embedding's
+    all-reduce and two row-parallel all-reduces a layer of [rows, H] bf16,
+    and the all-gather of [vocab_rows, V/2] f32 logits (counted at the
+    gathered [vocab_rows, V])."""
+    L, H, V = cfg.num_hidden_layers, cfg.hidden_size, cfg.vocab_size
+    act = rows * H * 2
+    return {"comm.all_reduce.mp.calls": 1 + 2 * L,
+            "comm.all_reduce.mp.bytes": (1 + 2 * L) * act,
+            "comm.all_gather.mp.calls": 1,
+            "comm.all_gather.mp.bytes": vocab_rows * V * 4,
+            "serve.tp_ring.embed.calls": 1,
+            "serve.tp_ring.embed.bytes": act,
+            "serve.tp_ring.o_proj.calls": L,
+            "serve.tp_ring.o_proj.bytes": L * act,
+            "serve.tp_ring.down_proj.calls": L,
+            "serve.tp_ring.down_proj.bytes": L * act}
+
+
+def _tf_rel(step, params, refs, cfg, tp, dev):
+    """One teacher-forced decode step at mp 2 on this rank's heads of the
+    parent's pools: the rel frob error of its gathered logits against the
+    parent's mp 1 logits."""
+    n, r = tp.nranks, tp.rank
+    kvd = refs["k"].shape[2] // n
+    kp, vp = (refs[x][:, :, r * kvd:(r + 1) * kvd].clone() for x in "kv")
+    got = step(params, kp, vp, refs["tables"], refs["positions"],
+               refs["ids"], cfg, tp=tp)[0]
+    ref = refs["logits"]
+    rel = ((got - ref).norm() / ref.norm()).item()
+    del kp, vp, got
+    return rel
+
+
+def serve_tp_rank(rank, world, dev, t_spawn, refs, tiny, reqs):
+    """One rank of serve-tp (spawned; the process group is up): the tiny
+    check's four runs at mp 2; then on llama_7b, from the parent's full
+    weights and pools (CUDA handles): the teacher-forced decode step and
+    its two faulty controls, one decode step's and one prefill chunk's
+    collectives, and the SERVE_TP_RUNS over ``reqs`` in wall mode."""
+    began = time.time() - t_spawn
+    from paddle_tpu_torch import InferenceEngine, Request, ServeConfig
+    from paddle_tpu_torch.inference.engine import serving_group
+    from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.observability import trace
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tp = serving_group(world)
+    out = {"tiny": _tiny_tp_runs(*tiny, dev, world)}
+    t_tiny = time.time() - t_spawn
+    cfg = tl.llama_7b()
+    full = refs["params"]
+    shards = tl.shard_for_serving(full, cfg, tp)
+    step = tl.llama_paged_decode_step
+    tf = {}
+    trace.reset_counters()
+    tf["sound"] = _tf_rel(step, shards, refs, cfg, tp, dev)
+    out["decode_comm"] = _tp_comm(trace)
+    real = tl._tp_o_proj
+
+    def skip_o_proj(a, w, tp_):
+        summed = real(a, w, tp_)        # the peer's all-reduce still runs
+        return tl._mat(a, w) if tp_.rank == 1 else summed
+    tl._tp_o_proj = skip_o_proj
+    try:
+        tf["rank 1 skips its o_proj reduce"] = _tf_rel(step, shards, refs,
+                                                       cfg, tp, dev)
+    finally:
+        tl._tp_o_proj = real
+    bad = shards
+    if tp.rank == 1:
+        kvd = shards["layers"]["k_proj"].shape[2]
+        bad = dict(shards, layers=dict(
+            shards["layers"],
+            k_proj=full["layers"]["k_proj"][..., :kvd].contiguous()))
+    tf["rank 1's k_proj holds rank 0's heads"] = _tf_rel(step, bad, refs,
+                                                         cfg, tp, dev)
+    del bad
+    kvd = refs["k"].shape[2] // world
+    kp, vp = (refs[x][:, :, rank * kvd:(rank + 1) * kvd].clone()
+              for x in "kv")
+    trace.reset_counters()
+    tl.llama_paged_prefill_chunk(shards, kp, vp, refs["table_row"], 0,
+                                 refs["chunk"], refs["chunk"].numel(), cfg,
+                                 tp=tp)
+    torch.cuda.synchronize()
+    out["prefill_comm"] = _tp_comm(trace)
+    out["teacher_forced"] = tf
+    del kp, vp, shards
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the serving runs' weights: views of the first SERVE_TP_LAYERS layers
+    full, cfg = tl.make_draft_model(full, cfg, SERVE_TP_LAYERS)
+    # a warm-up on a small pool (cuBLAS handles, allocator, gloo buffers)
+    warm = InferenceEngine(full, cfg, ServeConfig(
+        block_size=128, num_blocks=9, max_batch=2, prefill_chunk=256,
+        max_seq_len=1024, mp=world), device=dev)
+    warm.run([Request(list(range(1, 200)), max_new_tokens=3)])
+    del warm
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, kw in SERVE_TP_RUNS.items():
+        eng = InferenceEngine(full, cfg, ServeConfig(**SERVE_TP, **kw,
+                                                     mp=world),
+                              record_events=True, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        trace.reset_counters()
+        t0 = time.perf_counter()
+        stats = eng.run([Request(**r) for r in reqs])
+        wall = time.perf_counter() - t0
+        comm = _tp_comm(trace)
+        runs[name] = {
+            "stats": {k: stats[k] for k in (
+                "requests", "unfinished", "generated_tokens", "iterations",
+                "decode_steps", "prefill_chunks", "tokens_per_sec",
+                "ttft_p50_s", "ttft_p99_s", "tpot_p50_s",
+                "decode_step_ms_mean", "prefill_chunk_ms_mean",
+                "pool_bytes_per_rank", "failed", "mp", "speculative",
+                "prefix_cache")},
+            "wall_s": wall, "launches": _counts(), "comm": comm,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "streams": {s.req.request_id: s.generated for s in eng.finished},
+            "new_tokens": [len(s.generated) for s in eng.finished],
+            "events": eng.events, "used_blocks": eng.pool.used_blocks}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["runs"] = runs
+    refs.clear()    # releases the parent's tensors (their IPC handles)
+    del full
+    gc.collect()
+    out.update(began_s=began, tiny_done_s=t_tiny,
+               ended_s=time.time() - t_spawn)
+    return out
+
+
+# the times of rows 3 and 5-9 at a rank's shapes (tp_rank_times' keys)
+TP_RANK_TIMES = {
+    "paged_attend_update": "paged_attend_update[B=8,NH=NKV=16]",
+    "paged_attend_update_quant": "paged_attend_update_quant[B=8,NH=NKV=16]",
+    "paged_attention_verify": "paged_attention_verify[B=8,T=5,NH=NKV=16]",
+    "paged_attention_verify_quant":
+        "paged_attention_verify_quant[B=8,T=5,NH=NKV=16]",
+    "paged_verify_commit": "paged_verify_commit[L=32,B=8,T=5,KVD=2048]",
+    "paged_verify_commit_quant":
+        "paged_verify_commit_quant[L=32,B=8,T=5,KVD=2048]"}
+
+
+def serve_tp(dev):
+    """InferenceEngine at mp 2: two ranks (spawned processes) share cuda:0
+    through gloo, which stages each CUDA tensor through the host: a check
+    of the path, the streams, the bytes and the memory a rank, not of
+    collective speed. First the tiny check (check_tiny_tp_streams), then
+    llama_7b (bf16, the serve phase's seed): the weights are made here
+    once and handed to the ranks as CUDA handles, each keeping its
+    shards; the teacher-forced step runs all 32 layers, the serving runs
+    the first SERVE_TP_LAYERS. Asserted: the tiny streams equal mp 1's on
+    the card, every rank's streams and events the same,
+    pool_bytes_per_rank half the mp 1 engine's, the collective bytes
+    their reckoning, the teacher-forced logits within SERVE_TP_LOGIT_REL
+    and both controls over it. Reported: each request's first divergence
+    from an mp 1 engine's streams on the same weights and trace (bf16
+    partial sums round apart)."""
+    from paddle_tpu_torch import (InferenceEngine, Request, ServeConfig,
+                                  init_llama_params)
+    from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.testing.dist import spawn
+    phase(f"serve-tp: InferenceEngine at mp 2, two ranks on cuda:0 (gloo): "
+          f"the tiny check, then llama_7b (bf16; one teacher-forced step at "
+          f"32 layers, serving at {SERVE_TP_LAYERS} layers, the serve "
+          f"trace's first {SERVE_TP_REQUESTS} requests)")
+    t_phase = time.perf_counter()
+    fails, res = [], {}
+    tiny = _tiny_tp_model()
+    tiny_ref = _tiny_tp_runs(*tiny, dev, 1)
+    cfg = tl.llama_7b()
+    params = init_llama_params(cfg, seed=SEED, device=dev)
+    sparams, scfg = tl.make_draft_model(params, cfg, SERVE_TP_LAYERS)
+    reqs = [dict(prompt=list(r.prompt), max_new_tokens=r.max_new_tokens,
+                 arrival=r.arrival, request_id=r.request_id)
+            for r in _serve_requests(cfg)[:SERVE_TP_REQUESTS]]
+    # mp 1 on the same weights and trace: the pool bytes of each
+    # ServeConfig, and the bf16 run's streams for the divergence report
+    one, mp1_streams = {}, None
+    for name, kw in SERVE_TP_RUNS.items():
+        eng = InferenceEngine(sparams, scfg, ServeConfig(**SERVE_TP, **kw),
+                              device=dev)
+        one[name] = eng.stats()["pool_bytes_per_rank"]
+        if mp1_streams is None:
+            eng.run([Request(**r) for r in reqs])
+            mp1_streams = {s.req.request_id: s.generated
+                           for s in eng.finished}
+        del eng
+        _release_card()
+    a = _paged_inputs(cfg.num_attention_heads, cfg.num_key_value_heads,
+                      PAGED_POSITIONS, SEED + 90, dev, hd=cfg.head_dim,
+                      layers=cfg.num_hidden_layers)
+    g = torch.Generator(device=dev).manual_seed(SEED + 91)
+    ids = torch.randint(1, cfg.vocab_size, (len(PAGED_POSITIONS),),
+                        generator=g, device=dev, dtype=torch.int32)
+    chunk = torch.randint(1, cfg.vocab_size, (SERVE_TP["prefill_chunk"],),
+                          generator=g, device=dev, dtype=torch.int32)
+    logits = tl.llama_paged_decode_step(
+        params, a["k_pool"].clone(), a["v_pool"].clone(), a["tables"],
+        a["positions"], ids, cfg)[0]
+    refs = {"params": params, "k": a["k_pool"], "v": a["v_pool"],
+            "tables": a["tables"], "positions": a["positions"], "ids": ids,
+            "logits": logits, "table_row": a["tables"][-1], "chunk": chunk}
+    del a
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ranks = spawn(serve_tp_rank, 2, (dev, t0, refs, tiny, reqs),
+                  timeout=SERVE_TP_JOIN_S)
+    joined = time.time() - t0
+    del refs, params, sparams, logits
+    _release_card()
+    torch.cuda.ipc_collect()
+    print(f"ranks began at {[round(r['began_s'], 1) for r in ranks]} s, "
+          f"finished the tiny check at "
+          f"{[round(r['tiny_done_s'], 1) for r in ranks]} s, ended at "
+          f"{[round(r['ended_s'], 1) for r in ranks]} s, joined at "
+          f"{joined:.1f} s")
+    res["spawn_s"] = {"began": [r["began_s"] for r in ranks],
+                      "tiny_done": [r["tiny_done_s"] for r in ranks],
+                      "ended": [r["ended_s"] for r in ranks],
+                      "joined": joined}
+    # -- the tiny check
+    for name in TINY_TP_RUNS:
+        want = tiny_ref[name]
+        for rank, r in enumerate(ranks):
+            got = r["tiny"][name]
+            if got[0] != want[0]:
+                fails.append(f"tiny {name} rank {rank}: streams differ from "
+                             f"mp 1's")
+            if got[1] != ranks[0]["tiny"][name][1]:
+                fails.append(f"tiny {name} rank {rank}: events differ from "
+                             f"rank 0's")
+            if got[3] != 0:
+                fails.append(f"tiny {name} rank {rank}: pool leaked")
+            for k in ("rms_norm",) + TINY_TP_ROWS[name]:
+                if got[2][k] <= 0:
+                    fails.append(f"tiny {name} rank {rank}: {k} not "
+                                 f"launched")
+        print(f"tiny {name}: mp 2 streams equal mp 1's on the card on "
+              f"every rank {all(r['tiny'][name][0] == want[0] for r in ranks)};"
+              f" launches a rank "
+              f"{ {k: ranks[0]['tiny'][name][2][k] for k in ('rms_norm',) + TINY_TP_ROWS[name]} }")
+    res["tiny"] = {name: {"launches": [
+        {k: r["tiny"][name][2][k] for k in ("rms_norm",) + TINY_TP_ROWS[name]}
+        for r in ranks]} for name in TINY_TP_RUNS}
+    # -- teacher-forced step and controls
+    tf = ranks[0]["teacher_forced"]
+    for c, rel in tf.items():
+        ok = rel <= SERVE_TP_LOGIT_REL
+        print(f"teacher-forced decode step, {c}: logits rel frob {rel:.4e} "
+              f"against the limit {SERVE_TP_LOGIT_REL:.4e} "
+              f"({'within' if ok else 'over'}); rank 1 "
+              f"{ranks[1]['teacher_forced'][c]:.4e}")
+        if (c == "sound") != ok:
+            fails.append(f"teacher-forced {c}: rel {rel} "
+                         f"{'over' if c == 'sound' else 'within'} the limit")
+    res["teacher_forced"] = [r["teacher_forced"] for r in ranks]
+    # -- collectives of one decode step and one prefill chunk
+    for what, want in (("decode_comm", _tp_reckoning(cfg, 8, 8)),
+                       ("prefill_comm", _tp_reckoning(
+                           cfg, SERVE_TP["prefill_chunk"], 1))):
+        for rank, r in enumerate(ranks):
+            got = {k: v for k, v in r[what].items()
+                   if not k.startswith("site.")}
+            if got != want:
+                fails.append(f"{what} rank {rank}: {got}, reckoned {want}")
+        print(f"{what.split('_')[0]} step, a rank: {ranks[0][what]} "
+              f"(reckoned {want})")
+        res[what] = {"ranks": [r[what] for r in ranks], "reckoned": want}
+    # -- the serving runs
+    L = scfg.num_hidden_layers
+    for name in SERVE_TP_RUNS:
+        per = [r["runs"][name] for r in ranks]
+        st = per[0]["stats"]
+        if any(p["streams"] != per[0]["streams"] for p in per):
+            fails.append(f"{name}: ranks emit different streams")
+        if any(p["events"] != per[0]["events"] for p in per):
+            fails.append(f"{name}: ranks log different events")
+        for rank, p in enumerate(per):
+            if 2 * p["stats"]["pool_bytes_per_rank"] != one[name]:
+                fails.append(f"{name} rank {rank}: pool_bytes_per_rank "
+                             f"{p['stats']['pool_bytes_per_rank']}, mp 1's "
+                             f"{one[name]}")
+            if p["stats"]["unfinished"] or p["stats"]["failed"] or \
+                    p["used_blocks"] or \
+                    p["new_tokens"] != [64] * SERVE_TP_REQUESTS:
+                fails.append(f"{name} rank {rank}: not every request "
+                             f"finished its 64 tokens leak-free")
+        lc = per[0]["launches"]
+        if name == "bf16":
+            want = {"paged_attend_update": L * st["decode_steps"],
+                    "rms_norm": (2 * L + 1) * (st["decode_steps"]
+                                               + st["prefill_chunks"])}
+        else:
+            want = {"paged_attention_verify_quant": L * st["decode_steps"],
+                    "paged_verify_commit_quant": st["decode_steps"]}
+        for rank, p in enumerate(per):
+            got = {k: p["launches"][k] for k in want}
+            if got != want or p["launches"]["rms_norm"] <= 0 or (
+                    name != "bf16"
+                    and p["launches"]["paged_attend_update"] <= 0):
+                fails.append(f"{name} rank {rank}: launches "
+                             f"{p['launches']}, want {want}")
+        same, first = _divergence(mp1_streams, per[0]["streams"])
+        shown = ("rms_norm", "paged_attend_update",
+                 "paged_attend_update_quant", "paged_attention_verify",
+                 "paged_attention_verify_quant", "paged_verify_commit",
+                 "paged_verify_commit_quant")
+        print(f"{name}: tokens/s {st['tokens_per_sec']}  TTFT p50 "
+              f"{st['ttft_p50_s']} s  decode step mean "
+              f"{st['decode_step_ms_mean']} ms  prefill chunk mean "
+              f"{st['prefill_chunk_ms_mean']} ms  ({st['decode_steps']} "
+              f"steps, {st['prefill_chunks']} chunks, wall "
+              f"{[round(p['wall_s'], 2) for p in per]} s)")
+        print(f"  pool_bytes_per_rank {st['pool_bytes_per_rank']} (mp 1: "
+              f"{one[name]}); peak a rank "
+              f"{[round(p['peak_bytes'] / 2 ** 30, 2) for p in per]} GiB; "
+              f"launches a rank { {k: lc[k] for k in shown} }")
+        print(f"  collectives a rank over the run: "
+              f"{ {k: v for k, v in per[0]['comm'].items() if not k.startswith('site.')} }")
+        print(f"  streams equal on both ranks; against mp 1's bf16 "
+              f"streams: {len(same)} of {len(per[0]['streams'])} equal, "
+              f"first divergent index of the others {first} (reported, "
+              f"not asserted)")
+        res[name] = {
+            "stats": st, "pool_bytes_mp1": one[name],
+            "peak_bytes": [p["peak_bytes"] for p in per],
+            "wall_s": [p["wall_s"] for p in per],
+            "launches": [{k: p["launches"][k] for k in shown} for p in per],
+            "comm": per[0]["comm"], "streams_equal_mp1": len(same),
+            "first_divergence_mp1": first,
+            "reduced": (f"requests 8 -> {SERVE_TP_REQUESTS}, "
+                        f"num_hidden_layers 32 -> {SERVE_TP_LAYERS} (the "
+                        f"teacher-forced step runs 32)")}
+    # rank 0's launches by row: rows 3, 7, 9 from the llama_7b runs (3 in
+    # both: the bf16 run's decode and the speculative run's draft), 5, 6, 8
+    # from the tiny check
+    r0 = ranks[0]
+    res["launches_rank0"] = {
+        "paged_attend_update": sum(r0["runs"][n]["launches"]
+                                   ["paged_attend_update"]
+                                   for n in SERVE_TP_RUNS),
+        **{k: r0["runs"]["int8-spec-prefix"]["launches"][k]
+           for k in ("paged_attention_verify_quant",
+                     "paged_verify_commit_quant")},
+        **{k: sum(r0["tiny"][n][2][k] for n in TINY_TP_RUNS)
+           for k in ("paged_attend_update_quant", "paged_attention_verify",
+                     "paged_verify_commit")}}
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"serve-tp seconds {res['seconds']:.1f}; launches of rank 0 "
+          f"{res['launches_rank0']}")
+    assert not fails, "\n".join(fails)
+    return res
+
+
 def main():
     t_start = time.perf_counter()
     smi = probe()
@@ -6906,6 +7410,7 @@ def main():
     check_tiny_generate(dev)
     check_varlen(dev, errs)
     serve = serve_7b(dev)
+    serve_tp_res = serve_tp(dev)
     spec = serve_spec(dev)
     serve13 = serve_13b(dev)
     train = train_7b(dev)
@@ -6922,6 +7427,7 @@ def main():
     fleet = fleet_phase(dev)
     train_dp_res = train_dp(dev)
     tm = times(dev, errs)
+    tm_tp = tp_rank_times(dev)
     fwd_key = "flash_fwd[B=4,NH=32,S=2048,D=128,causal]"
     bwd_key = "flash_bwd[B=4,NH=32,S=2048,D=128,causal]"
     cols = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -7090,6 +7596,16 @@ def main():
          "max_abs_err": errs["varlen_fwd"],
          **{k: tm[f"varlen_fwd[short pack,T={short},H={VARLEN_H},"
                   f"D={VARLEN_D},causal]"][k] for k in cols}})
+    # rows 3 and 5-9 also at a rank's shapes under serve-tp (NH = NKV =
+    # 16, KVD 2048), with their launches in its ranks: rows 3, 7 and 9 in
+    # the llama_7b runs, 5, 6 and 8 in the tiny check (at its heads)
+    tp_runs = serve_tp_res["launches_rank0"]
+    for kk in kernels:
+        key = TP_RANK_TIMES.get(kk["name"])
+        if key is None:
+            continue
+        kk["mp2_rank"] = {"shape": key, **{k: tm_tp[key][k] for k in cols},
+                          "launches": tp_runs[kk["name"]]}
     # every kernel ran on its main path (rows 11, 12, 4 and 2 have no
     # caller)
     assert all(kk["launches"] > 0 for kk in kernels
@@ -7107,9 +7623,9 @@ def main():
               "train_13b": train13, "train_long": tlong, "attn_long": along,
               "ernie": ernie, "ernie_capacity": ernie_cap, "generate": gen,
               "varlen": varlen, "resume": resume, "fleet": fleet,
-              "train_dp": train_dp_res,
-              "times": tm,
-              "wall_s": wall_s}
+              "train_dp": train_dp_res, "serve_tp": serve_tp_res,
+              "times": tm, "times_tp_rank": tm_tp,
+              "phases": _PHASES, "wall_s": wall_s}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)

@@ -346,6 +346,17 @@ _register(
     parse=_positive_float("PADDLE_TPU_TORCH_PREEMPT_GRACE", 30.0))
 
 _register(
+    "PADDLE_TPU_TORCH_SERVE_MP", "int", 1,
+    doc="Tensor-parallel degree of the serving engine: mp > 1 runs the "
+        "paged prefill, decode and speculative verify steps over mp "
+        "ranks, one process each (init_parallel_env), weights sliced per "
+        "param_pspecs and the KV, scale and draft pools by kv head, with "
+        "greedy streams equal to mp=1's. Needs num_attention_heads, "
+        "num_key_value_heads, vocab_size and intermediate_size divisible "
+        "by mp and a process group of mp ranks. ServeConfig(mp=) wins.",
+    parse=_positive_int("PADDLE_TPU_TORCH_SERVE_MP", 1))
+
+_register(
     "PADDLE_TPU_TORCH_FLEET_SERVE_REPLICAS", "int", 2,
     doc="Replica count of the serving FleetRouter: N InferenceEngine "
         "replicas behind one prefix-affinity router. Positive integer; "

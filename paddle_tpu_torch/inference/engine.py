@@ -63,7 +63,22 @@ scores all K+1 positions and commits only the accepted prefix's KV.
 Every emitted token is the base model's greedy argmax, so streams equal
 sequential decode for any draft.
 
-Tensor-parallel serving (``mp > 1``) is not ported.
+Tensor-parallel serving (``ServeConfig(mp=n)``, n > 1): one process a
+rank, each building its own engine over its own shards. The weights are
+sliced by ``param_pspecs`` over mp (q/k/v/gate/up by column, o/down by
+row, embed and lm_head by vocabulary) and every pool (the model-dtype or
+int8 pools, their scales and the draft pools) holds the rank's NKV/n kv
+heads. Block ids, tables, the free list, the prefix-cache index, COW
+spans and the commit schedule stay rank-agnostic host state, and every
+rank takes the same decision at every iteration: the steps gather
+full-vocab logits on every rank before any argmax or finite screen, each
+iteration of ``run()`` starts from rank 0's clock and any rank's stop
+flag (one all-reduce), and only rank 0 writes the journal, which every
+rank reads in ``recover()``. The mp group comes from
+``HybridCommunicateGroup(mp_degree=n)`` over the process group that
+``init_parallel_env`` made (nccl, a card a rank, by default; gloo by
+name); without one of n ranks the engine raises ValueError. An error on
+one rank leaves its peers in a collective until the group's timeout.
 """
 from __future__ import annotations
 
@@ -78,16 +93,20 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import envs
 from .._device import resolve_device
+from ..distributed import communication as comm
 from ..distributed.checkpoint import save_load as sl
 from ..distributed.checkpoint.manager import _STEP_RE, CheckpointManager
-from ..models.llama import (LlamaConfig, _tensor_from_numpy,
+from ..distributed.fleet import HybridCommunicateGroup
+from ..models.llama import (LlamaConfig, _split_dims, _tensor_from_numpy,
                             init_paged_kv_pool, init_paged_kv_scales,
                             llama_paged_decode_step,
                             llama_paged_prefill_chunk,
-                            llama_paged_verify_step, make_draft_model)
+                            llama_paged_verify_step, make_draft_model,
+                            serving_pspecs, shard_for_serving)
 from ..observability.flight_recorder import (FlightRecorder,
                                              flight_recorder_enabled)
 from ..observability.histogram import LogHistogram
@@ -112,6 +131,7 @@ ENV_SERVE_PREFIX_CACHE = "PADDLE_TPU_TORCH_SERVE_PREFIX_CACHE"
 ENV_SERVE_KV_DTYPE = "PADDLE_TPU_TORCH_SERVE_KV_DTYPE"
 ENV_SERVE_SPEC = "PADDLE_TPU_TORCH_SERVE_SPEC"
 ENV_SERVE_SPEC_K = "PADDLE_TPU_TORCH_SERVE_SPEC_K"
+ENV_SERVE_MP = "PADDLE_TPU_TORCH_SERVE_MP"
 
 WAITING, PREFILL, RUNNING, FINISHED = "waiting", "prefill", "running", \
     "finished"
@@ -233,7 +253,8 @@ class ServeConfig:
     kv_dtype: Optional[str] = None        # "auto" (model dtype) | "int8"
     speculative: Optional[bool] = None    # draft + batched verification
     draft_k: Optional[int] = None         # proposals/seq/iteration (>=1)
-    # tensor-parallel degree: only 1 (one card) is ported
+    # tensor-parallel degree, one process a rank; None defers to the
+    # knob (default 1, one card)
     mp: Optional[int] = None
 
     def __post_init__(self):
@@ -252,11 +273,6 @@ class ServeConfig:
                                                                "int8"):
             raise ValueError(f"ServeConfig.kv_dtype must be 'auto' or "
                              f"'int8', got {self.kv_dtype!r}")
-        if self.mp is not None and self.mp != 1:
-            raise ValueError(
-                f"ServeConfig.mp={self.mp}: tensor-parallel serving is not "
-                f"ported yet (ROADMAP.md queue 1 item 7); the engine serves "
-                f"on one card, mp=1")
 
     @property
     def max_nb(self) -> int:
@@ -309,6 +325,37 @@ def _knob(value, name):
     return value if value is not None else envs.get(name)
 
 
+# the mp group of each process group, made once: new_group is collective
+_MP_GROUPS: Dict[Tuple[int, int], Tuple[Any, comm.Group]] = {}
+
+
+def serving_group(mp: int) -> comm.Group:
+    """The mp group of a tensor-parallel engine of ``mp`` ranks:
+    ``HybridCommunicateGroup(mp_degree=mp)``'s, over the process group
+    ``init_parallel_env`` made, which must hold exactly ``mp`` ranks
+    (else ValueError). Made once a process group and reused by every
+    engine after."""
+    up = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if up else 1
+    if world != mp:
+        raise ValueError(
+            f"ServeConfig.mp={mp} needs a process group of {mp} ranks, one "
+            f"process a rank: call paddle_tpu_torch.distributed."
+            f"init_parallel_env in each of {mp} processes first (this "
+            f"process is {'one of ' + str(world) if up else 'in no group'})")
+    key = (id(dist.group.WORLD), mp)
+    if key not in _MP_GROUPS:
+        _MP_GROUPS[key] = (dist.group.WORLD, HybridCommunicateGroup(
+            mp_degree=mp).get_model_parallel_group())
+    return _MP_GROUPS[key][1]
+
+
+def _weight_dicts(tree) -> bool:
+    """Whether a param tree holds an int8 or transposed weight dict."""
+    leaves = list(tree.get("layers", {}).values()) + [tree.get("lm_head")]
+    return any(isinstance(w, dict) for w in leaves)
+
+
 class InferenceEngine:
     """Continuous-batching engine over a paged KV cache.
 
@@ -318,7 +365,9 @@ class InferenceEngine:
     ``device`` defaults to the card; ``params`` must already live there.
     With speculation on, ``draft_params``/``draft_config`` name the draft
     model (default: :func:`make_draft_model`). Drive it from a single
-    thread."""
+    thread. At ``mp`` > 1 every rank builds its engine from the FULL
+    params (and draft params) and keeps its shards; ``device`` is the
+    rank's."""
 
     def __init__(self, params: Dict[str, Any], config: LlamaConfig,
                  serve: Optional[ServeConfig] = None,
@@ -334,27 +383,41 @@ class InferenceEngine:
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the engine on {self.device}")
-        self.params = params
         self.config = config
         self.serve = sv = serve or ServeConfig()
-        self.mp = 1
+        self.mp = int(_knob(sv.mp, ENV_SERVE_MP))
+        if self.mp < 1:
+            raise ValueError(f"ServeConfig.mp must be >= 1, got {self.mp}")
+        self.speculative = bool(_knob(sv.speculative, ENV_SERVE_SPEC))
+        if self.speculative and draft_params is None:
+            draft_params, draft_config = make_draft_model(params, config)
+        elif self.speculative and draft_config is None:
+            raise ValueError("draft_params given without draft_config")
+        # tensor parallelism: the mp group and this rank's weight shards;
+        # None and the full weights at mp 1
+        self.tp: Optional[comm.Group] = None
+        self._tp_specs = None
+        if self.mp > 1:
+            params, draft_params = self._shard_tp(params, draft_params,
+                                                  draft_config)
+        self.params = params
         self.pool = BlockPool(sv.num_blocks, sv.block_size)
         self.kv_dtype = _knob(sv.kv_dtype, ENV_SERVE_KV_DTYPE)
         self.k_pool, self.v_pool = init_paged_kv_pool(
             config, sv.num_blocks, sv.block_size, kv_dtype=self.kv_dtype,
-            device=self.device)
+            device=self.device, mp=self.mp)
         # int8 KV: the scale pools, passed through every base-model step
         self.k_scale = self.v_scale = None
         if self.kv_dtype == "int8":
             self.k_scale, self.v_scale = init_paged_kv_scales(
-                config, sv.num_blocks, sv.block_size, device=self.device)
+                config, sv.num_blocks, sv.block_size, device=self.device,
+                mp=self.mp)
         # COW prefix cache: full prompt blocks stay indexed after release
         # and later identical prompts share them ref-counted
         self.cache: Optional[PrefixCache] = (
             PrefixCache(self.pool)
             if _knob(sv.prefix_cache, ENV_SERVE_PREFIX_CACHE) else None)
         self._cow_copies = 0
-        self.speculative = bool(_knob(sv.speculative, ENV_SERVE_SPEC))
         self.draft_k = int(_knob(sv.draft_k, ENV_SERVE_SPEC_K))
         self.draft_params = self.draft_config = None
         self.k_draft = self.v_draft = None
@@ -363,17 +426,13 @@ class InferenceEngine:
         self.draft_steps = 0
         self._draft_s = 0.0
         if self.speculative:
-            if draft_params is None:
-                draft_params, draft_config = make_draft_model(params, config)
-            elif draft_config is None:
-                raise ValueError("draft_params given without draft_config")
             self.draft_params, self.draft_config = draft_params, draft_config
             # the draft pools mirror the base pool's block geometry (one
             # shared block table per sequence) in the model dtype, int8 KV
             # or not: draft KV shapes proposals only, never output bytes
             self.k_draft, self.v_draft = init_paged_kv_pool(
                 draft_config, sv.num_blocks, sv.block_size,
-                device=self.device)
+                device=self.device, mp=self.mp)
         self.metrics = telemetry
         self.record_events = record_events
         # request-lifecycle tracing is measurement only: spans take
@@ -424,7 +483,7 @@ class InferenceEngine:
         self.journal_path = (journal if journal is not None
                              else envs.get(ENV_SERVE_JOURNAL)) or None
         self._journal: Optional[EngineJournal] = None
-        if self.journal_path:
+        if self.journal_path and self._writes_journal:
             self._journal = EngineJournal(
                 self.journal_path,
                 fsync=envs.get(ENV_SERVE_JOURNAL_FSYNC),
@@ -444,6 +503,61 @@ class InferenceEngine:
         # drain mode: submit() rejects with cause 'draining' while the
         # accepted work runs to completion
         self._draining = False
+
+    @property
+    def _writes_journal(self) -> bool:
+        """Only rank 0 of an mp group writes the journal; every rank
+        reads it in :meth:`recover`."""
+        return self.tp is None or self.tp.rank == 0
+
+    def _shard_tp(self, params, draft_params, draft_config):
+        """The JAX engine's ``_shard_tp`` for one rank: refuse what the
+        contiguous head slicing cannot express (before any group is
+        needed), take the mp group, and return this rank's shards of the
+        base params and of the draft's (a default draft is remade as
+        views of the base's shards, so a weight swap moves both)."""
+        c, mp = self.config, self.mp
+        for dim, name in ((c.num_attention_heads, "num_attention_heads"),
+                          (c.num_key_value_heads, "num_key_value_heads"),
+                          (c.vocab_size, "vocab_size"),
+                          (c.intermediate_size, "intermediate_size")):
+            if dim % mp:
+                raise ValueError(
+                    f"ServeConfig.mp={mp} needs {name} % mp == 0 "
+                    f"(got {dim}): heads/vocab/ffn slice contiguously "
+                    f"across ranks")
+        if "qkv_proj" in params.get("layers", {}):
+            raise ValueError(
+                "tensor-parallel serving needs split q/k/v projections; "
+                "fused qkv_proj weights interleave heads and cannot "
+                "slice contiguously over 'mp'")
+        if _weight_dicts(params) or (draft_params is not None
+                                     and _weight_dicts(draft_params)):
+            raise ValueError(
+                "tensor-parallel serving takes plain weight tensors; "
+                "int8/transposed weight dicts don't carry the "
+                "param_pspecs tree")
+        self.tp = serving_group(mp)
+        self._tp_specs = serving_pspecs(c, mp)
+        default_draft = (draft_params is not None
+                         and draft_params["embed"] is params["embed"])
+        shards = shard_for_serving(params, c, self.tp)
+        if draft_params is not None:
+            draft_params = (
+                make_draft_model(shards, c,
+                                 draft_config.num_hidden_layers)[0]
+                if default_draft
+                else shard_for_serving(draft_params, draft_config, self.tp))
+        return shards, draft_params
+
+    def _agree(self, stop: bool, clock: float) -> Tuple[bool, float]:
+        """Rank 0's clock and any rank's stop flag, on every rank of the
+        mp group: one all-reduce of two f64 values (the other ranks add
+        exact zeros to rank 0's clock)."""
+        t = torch.tensor([clock if self.tp.rank == 0 else 0.0, float(stop)],
+                         dtype=torch.float64, device=self.device)
+        clock, stop = comm.all_reduce(t, self.tp).tolist()
+        return stop > 0, clock
 
     def _register_metrics(self) -> None:
         """Register every engine metric into the registry: the live SLO
@@ -937,10 +1051,10 @@ class InferenceEngine:
         int8 KV, its scale pools); stores the returned pools and returns
         what comes before them."""
         if self.k_scale is None:
-            *res, self.k_pool, self.v_pool = fn(*args)
+            *res, self.k_pool, self.v_pool = fn(*args, tp=self.tp)
         else:
             *res, self.k_pool, self.v_pool, self.k_scale, self.v_scale = fn(
-                *args, kv_scales=(self.k_scale, self.v_scale))
+                *args, kv_scales=(self.k_scale, self.v_scale), tp=self.tp)
         return res[0] if len(res) == 1 else res
 
     # -- scheduler phases ---------------------------------------------------
@@ -1097,7 +1211,7 @@ class InferenceEngine:
             ids[:n_live] = seq.tokens[start:start + n_live]
             _, self.k_draft, self.v_draft = llama_paged_prefill_chunk(
                 self.draft_params, self.k_draft, self.v_draft, table, start,
-                self._to_device(ids), n_live, self.draft_config)
+                self._to_device(ids), n_live, self.draft_config, tp=self.tp)
             start += n_live
         t1 = time.perf_counter()
         self._mark_compiled("draft_prefill", c, t1 - t0)
@@ -1286,7 +1400,8 @@ class InferenceEngine:
             dl, self.k_draft, self.v_draft = llama_paged_decode_step(
                 self.draft_params, self.k_draft, self.v_draft,
                 dev[2 * bucket:].view(bucket, max_nb),
-                dev[bucket:2 * bucket], dev[:bucket], self.draft_config)
+                dev[bucket:2 * bucket], dev[:bucket], self.draft_config,
+                tp=self.tp)
             nxt = dl.argmax(-1).tolist()
             td1 = time.perf_counter()
             self._draft_s += td1 - td0
@@ -1444,7 +1559,11 @@ class InferenceEngine:
         boundary, the safe drain point (the previous step has synced its
         tokens, nothing is in flight); without it the swap applies now.
         With identical weights the post-swap stream is bit-identical;
-        in-flight sequences keep their KV prefix either way."""
+        in-flight sequences keep their KV prefix either way.
+
+        At mp > 1 the source is the FULL tree, as at mp 1: each leaf's
+        full shape is checked, then the leaf is sliced to this rank's
+        shard before the copy."""
         if at_iteration is not None and at_iteration > self.iteration:
             self._pending_swap = (source, int(at_iteration))
             self._event("swap_scheduled", int(at_iteration))
@@ -1480,7 +1599,7 @@ class InferenceEngine:
         new_tree, path = self._resolve_swap_source(source)
         n_leaves = [0]
 
-        def swap_fill(target, saved, leaf_path):
+        def swap_fill(target, saved, leaf_path, spec=None):
             if isinstance(target, dict):
                 if not isinstance(saved, dict) or set(target) != set(saved):
                     raise ValueError(
@@ -1490,7 +1609,8 @@ class InferenceEngine:
                         f"{sorted(saved) if isinstance(saved, dict) else type(saved)}")
                 for k in target:
                     swap_fill(target[k], saved[k],
-                              f"{leaf_path}.{k}" if leaf_path else str(k))
+                              f"{leaf_path}.{k}" if leaf_path else str(k),
+                              None if spec is None else spec[k])
                 return
             if isinstance(target, (list, tuple)):
                 if not isinstance(saved, (list, tuple)) \
@@ -1502,21 +1622,29 @@ class InferenceEngine:
                     swap_fill(t, s, f"{leaf_path}[{i}]")
                 return
             shape = tuple(saved.shape)
-            if tuple(target.shape) != shape:
+            splits = ([] if spec is None else _split_dims(
+                spec, {"mp": self.mp}, {"mp": self.tp.rank}))
+            full = list(target.shape)
+            for d, parts, _ in splits:
+                full[d] *= parts
+            if tuple(full) != shape:
                 raise ValueError(
                     f"swap_weights: shape mismatch at {leaf_path!r}: "
-                    f"engine {tuple(target.shape)}, source {shape}")
+                    f"engine {tuple(full)}, source {shape}")
             if isinstance(saved, sl.LeafFile):
                 saved = saved.read()
             elif not isinstance(saved, torch.Tensor):
                 saved = _tensor_from_numpy(saved)
+            for d, parts, index in splits:
+                n = saved.shape[d] // parts
+                saved = saved.narrow(d, index * n, n)
             if saved is not target:
                 target.copy_(saved)
             n_leaves[0] += 1
 
         drained_running = sum(1 for s in self.active if s.state == RUNNING)
         drained_prefill = sum(1 for s in self.active if s.state == PREFILL)
-        swap_fill(self.params, new_tree, "")
+        swap_fill(self.params, new_tree, "", self._tp_specs)
         self.swaps += 1
         record_counter("serve.swap")
         stats = {
@@ -1556,7 +1684,13 @@ class InferenceEngine:
         t0 = time.perf_counter()
         try:
             while pending or not self.idle():
-                if self._preempt.is_set() or faults.fires("serve.preempt"):
+                stop = self._preempt.is_set() or faults.fires("serve.preempt")
+                clock = (float(self.iteration) if deterministic
+                         else time.perf_counter() - t0)
+                if self.tp is not None:
+                    # every rank takes rank 0's clock and stops together
+                    stop, clock = self._agree(stop, clock)
+                if stop:
                     # graceful preemption: stop at the iteration boundary
                     # (nothing in flight), dump the post-mortem ring and
                     # return with queued/active work intact
@@ -1568,8 +1702,7 @@ class InferenceEngine:
                     break
                 if self.iteration >= max_iterations:
                     raise RuntimeError("engine exceeded max_iterations")
-                self._clock = (float(self.iteration) if deterministic
-                               else time.perf_counter() - t0)
+                self._clock = clock
                 while pending and pending[0].arrival <= self._clock:
                     self.submit(pending.pop(0))
                 if self.idle() and pending:
@@ -1580,7 +1713,7 @@ class InferenceEngine:
                                        0.01))
                     continue
                 self.step()
-                if not deterministic:
+                if not deterministic and self.tp is None:
                     self._clock = time.perf_counter() - t0
         except BaseException:
             # a crashed run leaves a LEAK-FREE pool: every live sequence
@@ -1641,7 +1774,13 @@ class InferenceEngine:
             raise ValueError(
                 "recover() needs a journal: pass journal_path= or build the "
                 "engine with journal=/PADDLE_TPU_TORCH_SERVE_JOURNAL")
+        if self.tp is not None:
+            # every rank reads the same bytes: after rank 0's engine
+            # opened the journal, before its recovery appends to it
+            dist.barrier(group=self.tp.pg)
         st = read_journal(path)
+        if self.tp is not None:
+            dist.barrier(group=self.tp.pg)
         # up-front screen: either this engine can re-drive the journal
         # identically, or refuse before any state is touched. kv_dtype is
         # the one stream-changing axis; prefix_cache and speculative
@@ -1707,18 +1846,20 @@ class InferenceEngine:
         if known:
             self._rid = itertools.count(max(known) + 1)
         if self._journal is None:
-            self._journal = EngineJournal(
-                path, fsync=envs.get(ENV_SERVE_JOURNAL_FSYNC),
-                resume=True, meta=self._journal_meta())
+            if self._writes_journal:
+                self._journal = EngineJournal(
+                    path, fsync=envs.get(ENV_SERVE_JOURNAL_FSYNC),
+                    resume=True, meta=self._journal_meta())
             self.journal_path = path
         else:
             # in-place recovery after run() raised: the writer may hold
             # token pairs from before the crash; they predate the read
             # above, and draining them now would duplicate streams
             self._journal.discard_pending()
-        self._journal.recovered(self._recovered, st.torn_lines)
-        for seq in self.finished[len(self.finished) - n_prefinished:]:
-            self._journal.finish(seq.req.request_id)
+        if self._journal is not None:
+            self._journal.recovered(self._recovered, st.torn_lines)
+            for seq in self.finished[len(self.finished) - n_prefinished:]:
+                self._journal.finish(seq.req.request_id)
         record_counter("serve.recover")
         self._event("recover", self._recovered)
         return {
@@ -1780,9 +1921,10 @@ class InferenceEngine:
                          for (k, v), t in sorted(self._compiled.items())},
             "pool_blocks": self.serve.num_blocks - 1,
             "mp": self.mp,
+            # the pools here are this rank's own
             "pool_bytes_per_rank": pool_bytes_per_rank(
                 (self.k_pool, self.v_pool, self.k_scale, self.v_scale,
-                 self.k_draft, self.v_draft), self.mp),
+                 self.k_draft, self.v_draft)),
             "rejected": len(self.rejected),
             "shed": len(self.shed),
             "failed": len(self.failed),

@@ -337,8 +337,9 @@ def pad_table(blocks: List[int], max_nb: int) -> np.ndarray:
 
 def pool_bytes_per_rank(pools: Sequence, mp: int = 1) -> int:
     """Device bytes ONE rank holds for the given KV/scale tensors (``None``
-    entries, absent scale or draft pools, are skipped). The port serves on
-    one card, so ``mp`` is 1 and this is the total."""
+    entries, absent scale or draft pools, are skipped): their bytes over
+    ``mp``, for pools that ``mp`` ranks split evenly (JAX's global arrays).
+    The port's engine passes its own rank's pools, with ``mp`` 1."""
     total = 0
     for p in pools:
         if p is None:

@@ -14,7 +14,9 @@ kernels, RoPE and the short-prompt prefill attention are plain PyTorch
 
 The paged decode step and prefill chunk mirror ``llama_paged_decode_step``
 / ``llama_paged_prefill_chunk`` op for op, over pools in the model dtype or
-int8 pools with f32 scale pools (``kv_scales``). Generation (:func:`generate`:
+int8 pools with f32 scale pools (``kv_scales``); with ``tp`` (an mp group)
+they and the verify step run on this rank's weight shards and pool heads,
+JAX's shard_map serving island one process a rank. Generation (:func:`generate`:
 greedy, sampling, beam search) mirrors the JAX entry points over the
 stacked KV cache of :func:`init_kv_cache`: the slab ``[L, B, KV*HD, T]``
 below head_dim 128, through the fused slab attend+update kernel, and the
@@ -72,6 +74,7 @@ from ..ops.paged_attention import (LOG2E, kv_dequant_blocks,
                                    paged_verify_commit_quant)
 from ..ops.rms_norm import fused_rms_norm
 from ..nn.functional.attention import _xla_sdpa
+from ..observability.trace import comm_span
 from ..ops.rope import apply_rope, build_rope_cache
 from ..parallel import collective_matmul as cm
 from ..parallel.moe import _top_k
@@ -227,13 +230,22 @@ def llama_logits(params, h: torch.Tensor, config: LlamaConfig,
     return _mat(x, params["lm_head"])
 
 
+def _rank_kv_heads(config: LlamaConfig, mp: int) -> int:
+    if config.num_key_value_heads % mp:
+        raise ValueError(f"mp={mp} needs num_key_value_heads % mp == 0 "
+                         f"(got {config.num_key_value_heads})")
+    return config.num_key_value_heads // mp
+
+
 def init_paged_kv_pool(config: LlamaConfig, num_blocks: int,
                        block_size: int, kv_dtype: str = "auto",
-                       device=None):
+                       device=None, mp: int = 1):
     """Paged KV pools k and v [L, num_blocks, KV*HD, block_size], zeroed,
     on ``device`` (default: the card). Block 0 is the reserved null block.
     ``kv_dtype='auto'`` stores the model dtype, ``'int8'`` quantized bytes
-    (pair them with :func:`init_paged_kv_scales`)."""
+    (pair them with :func:`init_paged_kv_scales`). With ``mp`` > 1 they
+    are one rank's pools: KV/mp heads, the rank's contiguous share of the
+    kv-head axis (JAX's pool sharded ``P(None, None, "mp", None)``)."""
     if kv_dtype not in ("auto", "int8"):
         raise ValueError(f"kv_dtype must be 'auto' or 'int8', "
                          f"got {kv_dtype!r}")
@@ -241,19 +253,20 @@ def init_paged_kv_pool(config: LlamaConfig, num_blocks: int,
     dev = resolve_device(device)
     dt = torch.int8 if kv_dtype == "int8" else c.dtype
     shape = (c.num_hidden_layers, num_blocks,
-             c.num_key_value_heads * c.head_dim, block_size)
+             _rank_kv_heads(c, mp) * c.head_dim, block_size)
     return (torch.zeros(shape, dtype=dt, device=dev),
             torch.zeros(shape, dtype=dt, device=dev))
 
 
 def init_paged_kv_scales(config: LlamaConfig, num_blocks: int,
-                         block_size: int, device=None):
+                         block_size: int, device=None, mp: int = 1):
     """f32 scale pools [L, num_blocks, NKV, block_size] for int8 paged KV
     pools: one scale per block, kv-head and column (``kv_quant_columns``).
-    Zeroed, so a column never written dequantizes to exactly 0."""
+    Zeroed, so a column never written dequantizes to exactly 0. With
+    ``mp`` > 1, one rank's NKV/mp heads."""
     c = config
     dev = resolve_device(device)
-    shape = (c.num_hidden_layers, num_blocks, c.num_key_value_heads,
+    shape = (c.num_hidden_layers, num_blocks, _rank_kv_heads(c, mp),
              block_size)
     return (torch.zeros(shape, dtype=torch.float32, device=dev),
             torch.zeros(shape, dtype=torch.float32, device=dev))
@@ -278,14 +291,127 @@ def _swiglu(x, gate, up, down):
     return _mat(F.silu(_mat(x, gate)) * _mat(x, up), down)
 
 
-def _mlp(p, layer, x):
-    return _swiglu(x, _at(p["gate_proj"], layer), _at(p["up_proj"], layer),
-                   _at(p["down_proj"], layer))
+def _mlp(p, layer, x, tp=None):
+    if not _tp_on(tp):
+        return _swiglu(x, _at(p["gate_proj"], layer),
+                       _at(p["up_proj"], layer), _at(p["down_proj"], layer))
+    gated = F.silu(_mat(x, _at(p["gate_proj"], layer))) \
+        * _mat(x, _at(p["up_proj"], layer))
+    return _tp_down_proj(gated, _at(p["down_proj"], layer), tp)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: the paged steps over the ranks of an mp group
+# ---------------------------------------------------------------------------
+#
+# The serving steps take ``tp``, the mp Group, and this rank's shards of
+# the weights (:func:`shard_for_serving`) and of every pool (its kv
+# heads). The column-parallel projections need no change: the head counts
+# come from the weight shapes, so the paged kernels run at the rank's
+# heads. Three collectives exist, as in JAX's shard_map island: the
+# vocabulary-parallel embedding's all-reduce (exact: each row is non-zero
+# on one rank), the o_proj and down_proj row-parallel reduce (the only
+# sums re-associated against mp = 1) and the logits all-gather (an exact
+# concat in rank order, so every rank's argmax, finite screen and verify
+# accept logic read the same full-vocab logits).
+
+def _tp_on(tp) -> bool:
+    return tp is not None and tp.nranks > 1
+
+
+def _tp_vocab_embed(embed, ids, tp):
+    """JAX's ``_tp_vocab_embed``: ``embed`` is this rank's [V/n, H] slice;
+    the ids outside it give zero rows and the rows are all-reduced."""
+    rows = cm.masked_lookup(embed, ids, tp.rank * embed.shape[0])
+    with comm_span("serve.tp_ring.embed",
+                   nbytes=rows.numel() * rows.element_size(),
+                   site="serve.tp_ring.embed"):
+        return cm.reduce_from_mp(rows, tp)
+
+
+def _embed(params, ids, config: LlamaConfig, tp=None):
+    if not _tp_on(tp):
+        return params["embed"][ids.long()].to(config.dtype)
+    return _tp_vocab_embed(params["embed"], ids, tp).to(config.dtype)
+
+
+def _tp_row_matmul(x, w, tp):
+    """JAX's ``_tp_row_matmul``: x [..., k/n] this rank's part of the
+    contraction, w [k/n, out] its rows; the partial products are summed
+    over mp by the reduce ring (``PADDLE_TPU_TORCH_TP_OVERLAP`` on, the
+    rows dividing the ring, plain weights), else by the blocking
+    all-reduce. At mp 2 the ring is bitwise the blocking sum."""
+    n = tp.nranks
+    lead = x.shape[:-1]
+    t = x.numel() // x.shape[-1]
+    x2 = x.reshape(t, x.shape[-1])
+    if cm.overlap_enabled() and t % n == 0 and not isinstance(w, dict):
+        out = cm.ring_allreduce_matmul(x2, w, tp,
+                                       cm.resolve_chunks(n, t // n))
+    else:
+        out = cm.reduce_from_mp(_mat(x2, w), tp)
+    return out.reshape(*lead, out.shape[-1])
+
+
+def _tp_proj(site, a, w, tp):
+    t = a.numel() // a.shape[-1]
+    with comm_span(site, nbytes=t * _mat_out_dim(w) * a.element_size(),
+                   site=site):
+        return _tp_row_matmul(a, w, tp)
+
+
+def _tp_o_proj(a, w, tp):
+    return _tp_proj("serve.tp_ring.o_proj", a, w, tp)
+
+
+def _tp_down_proj(a, w, tp):
+    return _tp_proj("serve.tp_ring.down_proj", a, w, tp)
+
+
+def _o_proj(a, w, tp=None):
+    return _tp_o_proj(a, w, tp) if _tp_on(tp) else _mat(a, w)
+
+
+def _tp_gather_logits(logits, tp):
+    """JAX's ``_tp_gather_logits``: this rank's vocabulary slice of the
+    logits gathered to the full vocabulary in rank order, under the span
+    JAX's verify step records."""
+    with comm_span("serve.tp_ring.logits",
+                   nbytes=logits.numel() * (tp.nranks - 1)
+                   * logits.element_size(), site="serve.tp_ring.logits"):
+        return comm.all_gather(logits, logits.ndim - 1, tp)
+
+
+def _full_logits(logits, tp=None):
+    """The decode and prefill steps' f32 logits on every rank: JAX's
+    island concatenates them in its ``out_specs``, here an all-gather."""
+    logits = logits.float()
+    if _tp_on(tp):
+        logits = comm.all_gather(logits, logits.ndim - 1, tp)
+    return logits
+
+
+def serving_pspecs(config: LlamaConfig, mp: int):
+    """JAX's ``_tp_specs``: the param specs over mp alone (no ZeRO inside
+    a serving group)."""
+    return param_pspecs(config, ParallelConfig(mp=mp))
+
+
+def shard_for_serving(params, config: LlamaConfig, tp):
+    """This rank's shards of full Llama params for tensor-parallel
+    serving over the mp group ``tp``: q/k/v/gate/up by column, o/down by
+    row, embed and lm_head by vocabulary (:func:`param_pspecs`), each a
+    contiguous copy of its slice; the norms are the caller's tensors.
+    Rank r holds heads [r NH/n, (r+1) NH/n) and kv heads likewise."""
+    n = tp.nranks
+    degrees, coord = {"mp": n}, {"mp": tp.rank}
+    return _map_specs(lambda x, s, name: _shard(x, name, s, degrees, coord),
+                      params, serving_pspecs(config, n))
 
 
 @torch.no_grad()
 def llama_paged_decode_step(params, k_pool, v_pool, tables, positions, ids,
-                            config: LlamaConfig, kv_scales=None):
+                            config: LlamaConfig, kv_scales=None, tp=None):
     """One decode step over a PAGED cache: ids [B] i32, tables [B, max_nb]
     i32, positions [B] i32 = the slot each row's new token occupies (its
     block must already be in the table). Padding rows point their tables
@@ -296,14 +422,18 @@ def llama_paged_decode_step(params, k_pool, v_pool, tables, positions, ids,
     column is quantized by ``kv_quant_columns`` (the bytes a prefill of
     the same token writes) and the int8 update kernel merges bytes and
     scales in place. Returns (logits, k_pool, v_pool, k_scale, v_scale)
-    in that mode."""
+    in that mode.
+
+    ``tp`` (the mp Group): params and pools are this rank's shards
+    (:func:`shard_for_serving`, pools at its kv heads) and the logits
+    come back gathered to the full vocabulary on every rank."""
     c = config
     b = ids.shape[0]
     hd = c.head_dim
     p = params["layers"]
     nh, nkv = _heads(p, hd)
     kvd = nkv * hd
-    h = params["embed"][ids.long()].to(c.dtype)                  # [B, H]
+    h = _embed(params, ids, c, tp)                               # [B, H]
     cos, sin = build_rope_cache(b, hd, base=c.rope_theta,
                                 position_ids=positions[:, None])  # [B,1,·]
     scale = LOG2E / (hd ** 0.5)
@@ -326,21 +456,21 @@ def llama_paged_decode_step(params, k_pool, v_pool, tables, positions, ids,
             attn = paged_attend_update_quant(
                 qs, *_quant_kv(k, v, b, nkv), k_pool, v_pool, *kv_scales,
                 tables, positions, layer)
-        h = h + _mat(attn.to(c.dtype).reshape(b, nh * hd),
-                     _at(p["o_proj"], layer))
+        h = h + _o_proj(attn.to(c.dtype).reshape(b, nh * hd),
+                        _at(p["o_proj"], layer), tp)
         x2 = fused_rms_norm(h[:, None], p["post_norm"][layer],
                             c.rms_norm_eps)[:, 0]
-        h = h + _mlp(p, layer, x2)
-    logits = llama_logits(params, h[:, None], config)[:, 0]
+        h = h + _mlp(p, layer, x2, tp)
+    logits = _full_logits(llama_logits(params, h[:, None], config)[:, 0], tp)
     if kv_scales is None:
-        return logits.float(), k_pool, v_pool
-    return (logits.float(), k_pool, v_pool) + tuple(kv_scales)
+        return logits, k_pool, v_pool
+    return (logits, k_pool, v_pool) + tuple(kv_scales)
 
 
 @torch.no_grad()
 def llama_paged_prefill_chunk(params, k_pool, v_pool, table_row, start: int,
                               ids, n_live: int, config: LlamaConfig,
-                              kv_scales=None):
+                              kv_scales=None, tp=None):
     """One chunked-prefill slice for ONE sequence: ids [C] i32 padded to
     the chunk bucket, ``n_live`` real tokens, ``start`` tokens already
     cached. Scatters the chunk's KV into the sequence's blocks (padding
@@ -353,7 +483,7 @@ def llama_paged_prefill_chunk(params, k_pool, v_pool, table_row, start: int,
     columns are quantized by ``kv_quant_columns`` before the scatter, and
     the context is gathered dequantized in f32, then cast to the model
     dtype, as the JAX step does. Returns (logits, k_pool, v_pool, k_scale,
-    v_scale) in that mode."""
+    v_scale) in that mode. ``tp``: as in :func:`llama_paged_decode_step`."""
     c = config
     C = ids.shape[0]
     hd = c.head_dim
@@ -364,7 +494,7 @@ def llama_paged_prefill_chunk(params, k_pool, v_pool, table_row, start: int,
     p = params["layers"]
     nh, nkv = _heads(p, hd)
     kvd, rep = nkv * hd, nh // nkv
-    h = params["embed"][ids.long()][None].to(c.dtype)            # [1, C, H]
+    h = _embed(params, ids, c, tp)[None]                         # [1, C, H]
     pidx = start + torch.arange(C, dtype=torch.int32, device=dev)
     cos, sin = build_rope_cache(C, hd, base=c.rope_theta, position_ids=pidx)
     live = torch.arange(C, device=dev) < n_live
@@ -421,14 +551,15 @@ def llama_paged_prefill_chunk(params, k_pool, v_pool, table_row, start: int,
         probs = torch.softmax(s, dim=-1).to(vctx.dtype).float()
         attn = torch.einsum("cgrt,gdt->cgrd", probs,
                             vf.view(nkv, hd, T)).to(c.dtype)
-        h = h + _mat(attn.reshape(1, C, nh * hd), _at(p["o_proj"], layer))
+        h = h + _o_proj(attn.reshape(1, C, nh * hd), _at(p["o_proj"], layer),
+                        tp)
         x2 = fused_rms_norm(h, p["post_norm"][layer], c.rms_norm_eps)
-        h = h + _mlp(p, layer, x2)
+        h = h + _mlp(p, layer, x2, tp)
     h_last = h[0, n_live - 1:n_live][None]
-    logits = llama_logits(params, h_last, config)[0, 0]
+    logits = _full_logits(llama_logits(params, h_last, config)[0, 0], tp)
     if kv_scales is None:
-        return logits.float(), k_pool, v_pool
-    return (logits.float(), k_pool, v_pool) + tuple(kv_scales)
+        return logits, k_pool, v_pool
+    return (logits, k_pool, v_pool) + tuple(kv_scales)
 
 
 # ---------------------------------------------------------------------------
@@ -457,7 +588,7 @@ def make_draft_model(params, config: LlamaConfig, num_layers: int = 1):
 
 
 def _verify_logits(params, k_pool, v_pool, tables, qstart, fed,
-                   config: LlamaConfig, kv_scales=None):
+                   config: LlamaConfig, kv_scales=None, tp=None):
     """The base model over T fed tokens per row, attending each over the
     row's cached prefix (the verify kernel's partials) merged exactly with
     the fed tokens' own causal block. Returns (logits [B, T, vocab] f32,
@@ -465,7 +596,8 @@ def _verify_logits(params, k_pool, v_pool, tables, qstart, fed,
     read. With ``kv_scales`` the pools are int8: the fed columns are
     quantized once, the fed block attends over their dequantized f32
     values, and the result also holds their scales (k_col_scales,
-    v_col_scales [L, B, T, NKV] f32)."""
+    v_col_scales [L, B, T, NKV] f32). With ``tp`` the logits are this
+    rank's vocabulary slice."""
     c = config
     B, T = fed.shape
     hd = c.head_dim
@@ -477,7 +609,7 @@ def _verify_logits(params, k_pool, v_pool, tables, qstart, fed,
     nh, nkv = _heads(p, hd)
     kvd, rep = nkv * hd, nh // nkv
     dev = fed.device
-    h = params["embed"][fed.long()].to(c.dtype)                 # [B, T, H]
+    h = _embed(params, fed, c, tp)                               # [B, T, H]
     pos2d = qstart[:, None] + torch.arange(T, dtype=torch.int32, device=dev)
     cos, sin = build_rope_cache(T, hd, base=c.rope_theta,
                                 position_ids=pos2d)          # [B, T, hd/2]
@@ -539,9 +671,10 @@ def _verify_logits(params, k_pool, v_pool, tables, qstart, fed,
             torch.where(live, m_c[..., None], neg),
             torch.where(live, l_c[..., None], zero),
             acc_f, m_f, l_f).to(c.dtype)
-        h = h + _mat(attn.reshape(B, T, nh * hd), _at(p["o_proj"], layer))
+        h = h + _o_proj(attn.reshape(B, T, nh * hd), _at(p["o_proj"], layer),
+                        tp)
         x2 = fused_rms_norm(h, p["post_norm"][layer], c.rms_norm_eps)
-        h = h + _mlp(p, layer, x2)
+        h = h + _mlp(p, layer, x2, tp)
     logits = llama_logits(params, h, config).float()
     return (logits,) + tuple(torch.stack(c) for c in zip(*cols))
 
@@ -569,13 +702,16 @@ def llama_paged_verify_step(params, k_pool, v_pool, tables, qstart,
     once by ``kv_quant_columns`` (their dequantized values feed the fed
     block, their bytes and scales the int8 commit), and the result is
     (out, commit_len, fin_ok, k_pool, v_pool, k_scale, v_scale).
-    Tensor parallelism (``tp``) is not ported."""
-    if tp is not None:
-        raise NotImplementedError("llama_paged_verify_step: tensor-parallel "
-                                  "serving (tp) is not ported")
+
+    ``tp`` (the mp Group): params and pools are this rank's shards; the
+    logits are gathered to the full vocabulary before the screen and the
+    accept logic, so every rank computes the same out, commit_len and
+    fin_ok and commits into its own pool shard on the same schedule."""
     B, T = fed.shape
     logits, *cols = _verify_logits(params, k_pool, v_pool, tables, qstart,
-                                   fed, config, kv_scales)
+                                   fed, config, kv_scales, tp)
+    if _tp_on(tp):
+        logits = _tp_gather_logits(logits, tp)
     # per-row finite screen: the engine sees tokens, not logits
     fin_ok = torch.isfinite(logits).all(dim=2).all(dim=1)
     out = logits.argmax(dim=-1).int()

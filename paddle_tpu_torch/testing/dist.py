@@ -432,3 +432,199 @@ def _collective_cases(a, group):
                        [:, 0], logits.new_zeros(()))
     cases["picked"] = {"out": host(cm.ring_allgather(mine, group).sum(0))}
     return cases
+
+
+def serve_tp_job(rank: int, world: int, job: dict) -> dict:
+    """The tensor-parallel serving tests' rank function: the world is one
+    mp group. ``job``: ``config`` (LlamaConfig fields, ``dtype`` by
+    name), ``weights`` (an .npz of the FULL params by path), optionally
+    ``device`` ("cuda": every rank on the current card), ``env`` (set for
+    the job) and ``cases``, each a dict with ``name`` and ``kind``:
+
+    - ``run``: an engine of ``serve`` (ServeConfig fields) over ``trace``
+      (Request fields), deterministic; ``env`` and ``config`` (LlamaConfig
+      fields over the job's, with its own ``weights``) for this case
+      only;
+    - ``swap``: as ``run``, with ``swap_weights(source, at_iteration)``
+      first, ``source`` "tree" (the full params) or a directory;
+    - ``crash``: ``serve`` with the journal ``journal`` and a swap of the
+      full tree at ``swap_at``, killed by fault ``point`` at its ``nth``
+      hit, recovered by a fresh engine on the same journal and driven to
+      the end (the unjournaled requests resubmitted);
+    - ``steps``: one decode step, one prefill chunk and one verify step
+      on the inputs of the .npz ``inputs`` (full pools: each rank takes
+      its kv heads), in the pools' dtype and, with ``int8``, over int8
+      pools (``kinds``: only those of the three); returns the gathered
+      logits (verify: also out, commit_len, fin_ok) and this rank's pools
+      after each.
+
+    Returns {"rank", "cases": {name: result}, "jax_modules"}; a result
+    holds numpy arrays and plain Python values."""
+    import torch
+    from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.observability import trace
+    torch.set_num_threads(2)
+    os.environ.update(job.get("env", {}))
+    dev = torch.device(job.get("device", "cpu"))
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def model(case):
+        kw = {**job["config"], **case.get("config", {})}
+        cfg = tl.LlamaConfig(**{**kw, "dtype": getattr(torch, kw["dtype"])})
+        flat = np.load(case.get("weights", job["weights"]))
+        params = _unflat(dict(flat), cfg.dtype)
+        return cfg, tl._tree_map(lambda t: t.to(dev), params)
+
+    out = {}
+    for case in job["cases"]:
+        saved = {k: os.environ.get(k) for k in case.get("env", {})}
+        os.environ.update(case.get("env", {}))
+        trace.reset_counters()
+        try:
+            out[case["name"]] = _serve_case(case, *model(case), dev)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        out[case["name"]]["counters"] = {
+            k: v for k, v in trace.counters().items()
+            if k.startswith(("comm.", "serve.tp_ring", "site.serve.tp_ring"))
+            and not k.endswith(".ms")}
+    return {"rank": rank, "cases": out,
+            "jax_modules": [m for m in sys.modules
+                            if m.split(".")[0] in ("jax", "paddle_tpu")]}
+
+
+def _engine_report(eng) -> dict:
+    st = eng.stats()
+    return {"streams": {s.req.request_id: list(s.generated)
+                        for s in eng.finished},
+            "events": [list(e) for e in eng.events],
+            "outcomes": eng.outcomes(),
+            "stats": {k: st[k] for k in (
+                "mp", "pool_bytes_per_rank", "unfinished", "weight_swaps")},
+            "compiles": sorted(st["compiles"]),
+            "used_blocks": eng.pool.used_blocks}
+
+
+def _serve_case(case, cfg, params, dev):
+    import torch
+    from paddle_tpu_torch.inference import (InferenceEngine, Request,
+                                            ServeConfig)
+    from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.testing import faults
+    kind = case["kind"]
+    if kind == "steps":
+        return _tp_steps(case, cfg, params, dev)
+
+    def requests():
+        return [Request(**r) for r in case["trace"]]
+
+    def engine(**kw):
+        return InferenceEngine(params, cfg, ServeConfig(**case["serve"]),
+                               record_events=True, device=dev, **kw)
+    if kind == "run":
+        eng = engine()
+        eng.run(requests(), deterministic=True)
+        return _engine_report(eng)
+    if kind == "swap":
+        eng = engine()
+        src = (tl._tree_map(torch.clone, params) if case["source"] == "tree"
+               else case["source"])
+        eng.swap_weights(src, at_iteration=case["at_iteration"])
+        eng.run(requests(), deterministic=True)
+        rep = _engine_report(eng)
+        rep["last_swap"] = {k: eng.last_swap[k] for k in (
+            "in_flight_running", "in_flight_prefill", "n_leaves")}
+        rep["shapes"] = {k: tuple(eng.params[k].shape)
+                         for k in ("embed", "lm_head")}
+        return rep
+    # crash: the journal matrix point
+    path = case["journal"]
+    eng = engine(journal=path)
+    eng.swap_weights(tl._tree_map(torch.clone, params),
+                     at_iteration=case["swap_at"])
+    reqs = requests()
+    with faults.scope(case["point"], "raise", nth=case["nth"]) as plan:
+        try:
+            eng.run(reqs, deterministic=True)
+            raised = None
+        except faults.FaultError as e:
+            raised = repr(e)
+        fired, leaked = plan.fired, eng.pool.used_blocks
+        eng2 = engine(journal=path)
+        rec = eng2.recover()
+        journaled = ({s.req.request_id for s in eng2.waiting}
+                     | {s.req.request_id for s in eng2.finished})
+        eng2.run([Request(r.prompt, max_new_tokens=r.max_new_tokens,
+                          request_id=r.request_id)
+                  for r in reqs if r.request_id not in journaled],
+                 deterministic=True)
+    rep = _engine_report(eng2)
+    rep.update(raised=raised, fired=fired, leaked=leaked,
+               torn=rec["torn_lines"])
+    return rep
+
+
+def _tp_steps(case, cfg, params, dev):
+    """One decode step, prefill chunk and verify step at mp = world over
+    this rank's shards of ``params`` and of the full pools in
+    ``case["inputs"]``."""
+    import torch
+    from paddle_tpu_torch.inference.engine import serving_group
+    from paddle_tpu_torch.models import llama as tl
+    tp = serving_group(int(case["mp"]))
+    shards = tl.shard_for_serving(params, cfg, tp)
+    a = {k: torch.from_numpy(np.array(v)).to(dev)
+         for k, v in np.load(case["inputs"]).items()}
+    n, r = tp.nranks, tp.rank
+    hd = cfg.head_dim
+
+    def heads(pool, per):
+        k = pool.shape[2] // n
+        assert k % per == 0
+        return pool[:, :, r * k:(r + 1) * k].clone()
+
+    def host(t):    # a copy: the pools are written in place later
+        return t.detach().cpu().clone().numpy()
+    res = {}
+    for quant in ((False, True) if case.get("int8") else (False,)):
+        tag = "int8" if quant else "fp"
+        if quant:
+            pools = [heads(a["kq"], hd), heads(a["vq"], hd),
+                     heads(a["ks"], 1), heads(a["vs"], 1)]
+        else:
+            pools = [heads(a["k"], hd), heads(a["v"], hd)]
+
+        def call(fn, *args):
+            kw = {"tp": tp}
+            if quant:
+                kw["kv_scales"] = (pools[2], pools[3])
+            got = fn(shards, pools[0], pools[1], *args, cfg, **kw)
+            pools[:] = got[-len(pools):]
+            return got[:-len(pools)]
+        kinds = case.get("kinds", ("decode", "prefill", "verify"))
+        logits, = call(tl.llama_paged_decode_step, a["tables"],
+                       a["positions"], a["ids"])
+        res[f"{tag}/decode/logits"] = host(logits)
+        res[f"{tag}/decode/pools"] = [host(p) for p in pools]
+        if "prefill" not in kinds:
+            continue
+        logits, = call(tl.llama_paged_prefill_chunk, a["table_row"],
+                       int(a["start"]), a["chunk_ids"], int(a["n_live"]))
+        res[f"{tag}/prefill/logits"] = host(logits)
+        res[f"{tag}/prefill/pools"] = [host(p) for p in pools]
+        logits = tl._tp_gather_logits(tl._verify_logits(
+            shards, pools[0], pools[1], a["vtables"], a["qstart"],
+            a["fed"], cfg, (pools[2], pools[3]) if quant else None,
+            tp)[0], tp)
+        res[f"{tag}/verify/logits"] = host(logits)
+        got = call(tl.llama_paged_verify_step, a["vtables"], a["qstart"],
+                   a["t_live"], a["fed"])
+        res[f"{tag}/verify/out"] = [host(t) for t in got]
+        res[f"{tag}/verify/pools"] = [host(p) for p in pools]
+    return res

@@ -2494,3 +2494,50 @@ def test_rings_on_cuda_tensors_over_gloo_are_bitwise_the_blocking_path(
                 for k in ring:
                     np.testing.assert_array_equal(ring[k], blk[k],
                                                   err_msg=(name, tag, k))
+
+
+def test_tp_serving_on_card_matches_mp1(dev, tmp_path):
+    """Two ranks on the card joined over gloo serve a tiny fp32 Llama at
+    mp 2 through the card kernels (plain, and int8 KV with the prefix
+    cache and speculation on): every rank's streams equal the mp 1
+    engine's on the card, its event log rank 0's, its pool leak-free."""
+    from paddle_tpu_torch.inference import (InferenceEngine, Request,
+                                            ServeConfig)
+    from paddle_tpu_torch.testing import dist as td
+    cfg = tl.llama_tiny(vocab=96, hidden=256, layers=2, heads=4, kv_heads=2,
+                        seq=512)
+    params = tl.init_llama_params(cfg, seed=3, device="cpu")
+    np.savez(tmp_path / "w.npz", **td.flat_tree(params))
+    rng = np.random.RandomState(0)
+    trace = [dict(prompt=rng.randint(1, 96, size=n).tolist(),
+                  max_new_tokens=8, arrival=float(i), request_id=i)
+             for i, n in enumerate((7, 130, 300))]
+    serve = dict(block_size=128, num_blocks=10, max_batch=2,
+                 prefill_chunk=64, max_seq_len=512)
+    runs = {"plain": {}, "int8-spec": dict(kv_dtype="int8",
+                                           prefix_cache=True,
+                                           speculative=True, draft_k=3)}
+    want = {}
+    card = tl._tree_map(lambda t: t.to(dev), params)
+    for name, kw in runs.items():
+        eng = InferenceEngine(card, cfg, ServeConfig(**serve, **kw),
+                              record_events=True, device=dev)
+        eng.run([Request(**r) for r in trace], deterministic=True)
+        want[name] = {s.req.request_id: list(s.generated)
+                      for s in eng.finished}
+    fields = {f: getattr(cfg, f) for f in (
+        "vocab_size", "hidden_size", "intermediate_size",
+        "num_hidden_layers", "num_attention_heads", "num_key_value_heads",
+        "max_position_embeddings")}
+    job = {"config": dict(fields, dtype="float32"),
+           "weights": str(tmp_path / "w.npz"), "device": "cuda",
+           "cases": [dict(name=n, kind="run", serve=dict(serve, mp=2, **kw),
+                          trace=trace) for n, kw in runs.items()]}
+    reports = td.spawn(td.serve_tp_job, 2, (job,), timeout=300,
+                       store_dir=str(tmp_path))
+    for name in runs:
+        per = [r["cases"][name] for r in reports]
+        for r in per:
+            assert r["streams"] == want[name], name
+            assert r["events"] == per[0]["events"], name
+            assert r["used_blocks"] == 0 and r["stats"]["mp"] == 2

@@ -210,10 +210,13 @@ def test_swap_from_checkpoint_dir_and_manager_root(model, tmp_path):
         prompt=prompt, max_new_tokens=4)]).finished[0].generated
 
 
-def test_tensor_parallel_serving_is_refused():
-    with pytest.raises(ValueError, match="queue 1 item 7"):
-        ServeConfig(mp=2)
-    assert ServeConfig(mp=1).mp == 1
+def test_tensor_parallel_serving_is_refused(model):
+    """Without a process group of mp ranks: tensor-parallel serving is
+    ported (tests/test_torch_serving_tp.py), and an engine with nothing
+    to shard over refuses by name."""
+    assert ServeConfig(mp=2).mp == 2 and ServeConfig(mp=1).mp == 1
+    with pytest.raises(ValueError, match="needs a process group of 2"):
+        _engine(model, dict(SERVE, mp=2))
 
 
 def test_swap_under_preemption_storm_drops_nothing(model):
@@ -332,8 +335,9 @@ def test_capacity_knobs(model, monkeypatch, name, value, attr, want):
 
 
 def test_engine_has_every_reference_method():
-    """Every method of the JAX engine but the tensor-parallel pair."""
+    """Every method of the JAX engine but ``_step_fn``, its jitted step
+    family's dispatch (the port's steps take ``tp=``)."""
     import inspect
     fns = lambda cls: {n for n, v in vars(cls).items()
                        if inspect.isfunction(v)}
-    assert fns(JaxEngine) - fns(InferenceEngine) == {"_step_fn", "_shard_tp"}
+    assert fns(JaxEngine) - fns(InferenceEngine) == {"_step_fn"}

@@ -525,8 +525,13 @@ def test_verify_step_refuses_what_is_not_ported(model):
     z = torch.zeros((1,), dtype=torch.int32)
     args = (kp, vp, torch.zeros((1, 2), dtype=torch.int32), z, z,
             torch.zeros((1, 2), dtype=torch.int32), tcfg)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        tl.llama_paged_verify_step(tparams, *args, tp=("mp", 2))
+    # tensor parallelism is ported: a group of one rank is the plain step
+    from paddle_tpu_torch.distributed.communication import Group
+    plain = tl.llama_paged_verify_step(tparams, kp.clone(), vp.clone(),
+                                       *args[2:])
+    one = tl.llama_paged_verify_step(tparams, kp.clone(), vp.clone(),
+                                     *args[2:], tp=Group("mp", 1))
+    assert all(torch.equal(a, b) for a, b in zip(plain, one))
     fused = dict(tparams, layers=dict(tparams["layers"], qkv_proj=None))
     with pytest.raises(ValueError, match="qkv_proj"):
         tl.llama_paged_verify_step(fused, *args)
