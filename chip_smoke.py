@@ -256,7 +256,14 @@ Phases, in order; any failure exits non-zero before the last line:
                skipped) shown to fail that limit, each rank's launches of
                rows 1, 14 and 16 the train phase's a step, its collective
                bytes a step equal to their reckoning; prints peak memory
-               beside the state reckoning and step ms;
+               beside the state reckoning and step ms; elastic resume:
+               mp 2 (W=2) saves its state after its first step with a
+               CheckpointManager and mp 2 x sharding 2 at stage 3 (W=4)
+               restores it (restore_train_step) and takes the second
+               step, held to the single process's step-1 loss and 2-step
+               params, each rank's restored shards bitwise its slices of
+               the saved leaves; prints the save's blocking and total
+               and the restore's verify and load seconds with the card;
   9. times   - each kernel timed with CUDA events beside its bound, its
                plain version and one PyTorch library call (a yardstick
                the port never calls); row 1 beside the launch floor (an
@@ -6473,9 +6480,10 @@ DP_STEPS = 2    # step 0 (a process's first also warms gloo's buffers), 1
 # stage 3's second step. mp2_overlap runs the
 # fused FFN ring (DP_ENV, set in the rank for that run only). The two
 # world-4 mp runs take one step for the script's time (1070.7 s on an
-# NVIDIA H100 80GB HBM3, 700.00 W, with both at two steps), held to the
-# single process's step-0 params; the CPU tests hold those compositions
-# over three steps
+# NVIDIA H100 80GB HBM3, 700.00 W, with both at two steps): dp2_mp2 step
+# 0, held to the single process's step-0 params, and mp2_sh2_stage3 step
+# 1 from mp2's checkpoint (DP_RESTORE_INTO), held to its 2-step params;
+# the CPU tests hold those compositions over three steps
 DP_RUNS = [
     ("dp2", 2, dict(dp=2), DP_LAYERS, DP_STEPS),
     ("sh2_stage1", 2, dict(sharding=2, zero_stage=1), DP_LAYERS, DP_STEPS),
@@ -6487,9 +6495,15 @@ DP_RUNS = [
      DP_STEPS),
     ("dp2_mp2", 4, dict(dp=2, mp=2), DP_LAYERS, 1),
     ("mp2_sh2_stage3", 4, dict(mp=2, sharding=2, zero_stage=3), DP_LAYERS,
-     1),
+     1),    # restored from mp2's checkpoint: its step is step 1
 ]
 DP_ENV = {"mp2_overlap": {"PADDLE_TPU_TORCH_TP_OVERLAP": "1"}}
+# elastic resume: mp2 (world 2) saves its state after its first step with
+# a CheckpointManager, and mp2_sh2_stage3 (world 4) restores it instead
+# of starting from the seed and takes the remaining step (DP_SAVE_AT + 1
+# of the single process's two): another world size, mp x sharding split
+# and ZeRO stage-3 param shards
+DP_SAVE_FROM, DP_RESTORE_INTO, DP_SAVE_AT = "mp2", "mp2_sh2_stage3", 1
 # a rank's bf16 products run at B/W rows, and cuBLAS may round them apart
 # from the single process's B rows: step 0's loss within 2^-10 relative,
 # step 1's within 2^-12 (the sound runs read at most 1.15e-4; the
@@ -6699,16 +6713,58 @@ def dp_references(dev):
     return refs, controls, loss_gap
 
 
-def train_dp_rank(rank, world, runs, dev, t_spawn, refs):
+def _dp_start(name):
+    """The step a train-dp run starts from: the restored run's is the
+    step its checkpoint was saved at."""
+    return DP_SAVE_AT if name == DP_RESTORE_INTO else 0
+
+
+def restored_mismatches(state, path, layout):
+    """The leaves of ``state`` (this rank's shards, on the card, as
+    restored) whose bits differ from their slice of the saved whole
+    leaves under ``path`` (under ``layout``), read and compared on the
+    host one leaf at a time; and the number of leaves compared."""
+    from paddle_tpu_torch.distributed.checkpoint import save_load as sl
+    bad, n = [], 0
+
+    def walk(t, saved, spec, name):
+        nonlocal n
+        if isinstance(t, dict):
+            for k in t:
+                walk(t[k], saved[k],
+                     spec.get(k) if isinstance(spec, dict) else None,
+                     f"{name}/{k}" if name else k)
+            return
+        if not isinstance(t, torch.Tensor):
+            return
+        spec = spec if isinstance(spec, tuple) else None
+        want = saved.read(layout.region(saved.shape, spec))
+        got = t.detach().cpu()
+        bits = torch.int16 if got.element_size() == 2 else torch.int32
+        n += 1
+        if got.shape != want.shape or not torch.equal(got.view(bits),
+                                                      want.view(bits)):
+            bad.append(name)
+    walk(state, sl.read_tree(path), layout.specs, "")
+    return bad, n
+
+
+def train_dp_rank(rank, world, runs, dev, t_spawn, refs, ckpt_root):
     """One rank of the train-dp phase (spawned; the process group is up):
     each run of ``runs`` at this world size on ``dev``, its losses, step
     ms, peak memory, state bytes, launches, collective calls and bytes a
     step, mesh coordinates, a checksum of each local param leaf and each
     leaf's error against the single process's params (``refs``, by
     (layers, steps): the parent's tensors on the card); and the seconds
-    since ``t_spawn`` (the parent's clock) at which it began and ended."""
+    since ``t_spawn`` (the parent's clock) at which it began and ended.
+    DP_SAVE_FROM saves its state after step DP_SAVE_AT under
+    ``ckpt_root`` (the save's blocking and total seconds), and
+    DP_RESTORE_INTO restores it there (the coordinator's verify and the
+    load seconds, and the leaves whose bits differ from their saved
+    slices) before its steps."""
     began = time.time() - t_spawn
     import dataclasses
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
     from paddle_tpu_torch.models import llama as tl
     from paddle_tpu_torch.observability import trace
     torch.cuda.set_device(dev)
@@ -6725,7 +6781,19 @@ def train_dp_rank(rank, world, runs, dev, t_spawn, refs):
         env = DP_ENV.get(name, {})
         os.environ.update(env)
         t0 = time.perf_counter()
-        step, p, o = tl.build_train_step(cfg, par, seed=SEED, device=dev)
+        ckpt, start = {}, _dp_start(name)
+        if name == DP_RESTORE_INTO:
+            mgr = CheckpointManager(ckpt_root)
+            step, st, got = tl.restore_train_step(cfg, par, mgr, seed=SEED,
+                                                  device=dev)
+            p, o = st["params"], st["opt"]
+            torch.cuda.synchronize()
+            bad, n = restored_mismatches(st, mgr.step_dir(got), step.layout)
+            ckpt = {"restored_step": got, "leaves_compared": n,
+                    "leaves_differing": bad, **mgr.last_restore}
+        else:
+            step, p, o = tl.build_train_step(cfg, par, seed=SEED,
+                                             device=dev)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         state = _tree_bytes(p) + _tree_bytes({"m": o["m"], "v": o["v"]})
@@ -6733,12 +6801,22 @@ def train_dp_rank(rank, world, runs, dev, t_spawn, refs):
         _zero_counts()
         trace.reset_counters()
         losses, step_ms = [], []
-        for x in batches[:steps]:
+        for i, x in enumerate(batches[start:start + steps], start):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             p, o, loss = step(p, o, x[:, :-1], x[:, 1:])
             losses.append(float(loss))
             step_ms.append((time.perf_counter() - t0) * 1e3)
+            if name == DP_SAVE_FROM and i + 1 == DP_SAVE_AT:
+                mgr = CheckpointManager(ckpt_root, layout=step.layout)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                h = mgr.save({"params": p, "opt": o, "step": i + 1}, i + 1)
+                blocking = time.perf_counter() - t0
+                h.wait()
+                ckpt = {"saved_step": i + 1, "blocking_s": blocking,
+                        "total_s": time.perf_counter() - t0,
+                        "bytes": state}
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         for k in env:
@@ -6754,8 +6832,9 @@ def train_dp_rank(rank, world, runs, dev, t_spawn, refs):
             "coord": step.hcg.topology().get_coord(step.hcg.global_rank),
             "checksums": {k: bits_checksum(ts[0])
                           for k, ts in _grad_items(p)},
-            "param_rel": leaf_rel_errors(p, refs[(layers, steps)], cfg,
-                                         par)}
+            "param_rel": leaf_rel_errors(p, refs[(layers, start + steps)],
+                                         cfg, par),
+            "checkpoint": ckpt}
         del step, p, o
         gc.collect()
         torch.cuda.empty_cache()
@@ -6768,6 +6847,13 @@ def _rel(a, b):
     return abs(a - b) / abs(b)
 
 
+def _card_line():
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+
+
 def train_dp(dev):
     """build_train_step at llama_7b's width over dp, ZeRO sharding and mp
     (alone, with the fused FFN ring, and composed with dp and with
@@ -6775,10 +6861,13 @@ def train_dp(dev):
     through gloo, which stages each CUDA tensor through the host: a
     check of correctness and memory per rank, not of collective speed.
     Losses and params are held to the single process's (dp_references),
-    whose faulty controls must fail the same limits."""
+    whose faulty controls must fail the same limits. The elastic check
+    rides it: DP_SAVE_FROM's world-2 checkpoint (under a temp directory,
+    removed whatever happens) is restored by DP_RESTORE_INTO's four ranks,
+    each rank's restored shards held bitwise to its slices of the saved
+    leaves."""
     import dataclasses
     from paddle_tpu_torch.models import llama as tl
-    from paddle_tpu_torch.testing.dist import spawn
     phase(f"train-dp llama_7b width (bf16, B={TRAIN_B}, S={TRAIN_S}, full "
           f"remat, AdamW f32 moments): dp, ZeRO stages 1-3 and mp over 2 "
           f"and 4 ranks sharing the card (gloo)")
@@ -6802,9 +6891,25 @@ def train_dp(dev):
               f"{losses}")
     print(f"parent holds {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
           f"(the references) before spawning")
+    root = tempfile.mkdtemp(prefix="paddle_tpu_torch_train_dp_")
+    try:
+        n = tl.count_params(dataclasses.replace(tl.llama_7b(),
+                                                num_hidden_layers=DP_LAYERS))
+        # bf16 params and f32 moments, and a tenth for the file system
+        _need_disk(root, int(1.1 * 10 * n), "train-dp's checkpoint")
+        runs = _train_dp_spawns(refs, dev, root, res)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return _train_dp_checks(runs, res, fails)
+
+
+def _train_dp_spawns(refs, dev, root, res):
+    """The spawns of worlds 2 and 4: {run: every rank's report}."""
+    from paddle_tpu_torch.testing.dist import spawn
     runs = {}
     for world in (2, 4):
-        keep = {(r[3], r[4]) for r in DP_RUNS if r[1] >= world}
+        keep = {(r[3], _dp_start(r[0]) + r[4]) for r in DP_RUNS
+                if r[1] >= world}
         for key in [k for k in refs if k not in keep]:
             del refs[key]       # no run of this world or later needs it
         gc.collect()
@@ -6814,8 +6919,8 @@ def train_dp(dev):
         # small arguments (the references go as CUDA handles): a start
         # waits until its rank has read them
         ranks = spawn(train_dp_rank, world,
-                      (DP_RUNS, dev, t0, {k: v[1] for k, v in refs.items()}),
-                      timeout=DP_JOIN_S)
+                      (DP_RUNS, dev, t0, {k: v[1] for k, v in refs.items()},
+                       root), timeout=DP_JOIN_S)
         joined = time.time() - t0
         print(f"world {world}: ranks began at "
               f"{[round(r['began_s'], 1) for r in ranks]} s, ended at "
@@ -6827,13 +6932,21 @@ def train_dp(dev):
         for name in ranks[0]["runs"]:
             runs[name] = [r["runs"] for r in ranks]
         for name, w, _, layers, steps in DP_RUNS:
+            start = _dp_start(name)
             if w == world:
                 res[name] = {"single_process_losses":
-                             refs[(layers, steps)][0]}
-    del refs
+                             refs[(layers, start + steps)][0][start:]}
+    refs.clear()
     gc.collect()
     torch.cuda.ipc_collect()
     torch.cuda.empty_cache()
+    return runs
+
+
+def _train_dp_checks(runs, res, fails):
+    """train-dp's checks and prints of every run's ranks."""
+    import dataclasses
+    from paddle_tpu_torch.models import llama as tl
     for name, world, kw, layers, steps in DP_RUNS:
         per = [r[name] for r in runs[name]]
         c = dataclasses.replace(tl.llama_7b(), num_hidden_layers=layers)
@@ -6856,8 +6969,9 @@ def train_dp(dev):
                                  f"{b['coord']} differ in {bad}")
         single = res[name]["single_process_losses"]
         gaps = [_rel(x, y) for x, y in zip(losses, single)]
-        if gaps[0] > DP_STEP0_RTOL or max(gaps[1:], default=0.0) > \
-                DP_LATER_RTOL:
+        limits = [DP_STEP0_RTOL if _dp_start(name) + k == 0 else
+                  DP_LATER_RTOL for k in range(len(gaps))]
+        if any(g > lim for g, lim in zip(gaps, limits)):
             fails.append(f"{name}: losses {losses} against one process's "
                          f"{single}: gaps {gaps}")
         worst = max((_worst(r["param_rel"]) + (rank,)
@@ -6898,7 +7012,8 @@ def train_dp(dev):
             "ranks": [{k: r[k] for k in ("coord", "peak_bytes",
                                          "state_bytes", "step_ms",
                                          "build_s", "comm_per_step",
-                                         "param_rel", "tp_plans")}
+                                         "param_rel", "tp_plans",
+                                         "checkpoint")}
                       | {"launches": {k: r["launches"][k] for k in want}}
                       for r in per]})
         print(f"{name} (world {world}, {layers} layers, {kw}"
@@ -6928,8 +7043,42 @@ def train_dp(dev):
             fails.append(f"{n} against sh2_stage1: gaps {gaps}")
     print(f"stages 1, 2, 3 against stage 1 (rel gaps): "
           f"{ {n: res[n]['stage1_rel_gaps'] for n in stage_losses} }")
+    res["elastic"] = _elastic_report(runs, fails)
     assert not fails, "\n".join(fails)
     return res
+
+
+def _elastic_report(runs, fails):
+    """The elastic check's seconds (save: blocking and total, the
+    slowest rank; restore: the coordinator's verify and each rank's load)
+    with the card, and its failures: a restored step other than
+    DP_SAVE_AT, or a rank whose restored shards differ in a bit from its
+    slices of the saved leaves."""
+    saves = [r[DP_SAVE_FROM]["checkpoint"] for r in runs[DP_SAVE_FROM]]
+    loads = [r[DP_RESTORE_INTO]["checkpoint"]
+             for r in runs[DP_RESTORE_INTO]]
+    for rank, c in enumerate(loads):
+        if c.get("restored_step") != DP_SAVE_AT or c["leaves_differing"] \
+                or not c["leaves_compared"]:
+            fails.append(f"{DP_RESTORE_INTO} rank {rank}: restored step "
+                         f"{c.get('restored_step')}, {c['leaves_compared']}"
+                         f" leaves compared, differing: "
+                         f"{c['leaves_differing']}")
+    out = {"card": _card_line(), "state_bytes": sum(c["bytes"] for c in saves),
+           "save_blocking_s": max(c["blocking_s"] for c in saves),
+           "save_total_s": max(c["total_s"] for c in saves),
+           "restore_verify_s": max(c["verify_s"] for c in loads),
+           "restore_load_s": max(c["load_s"] for c in loads),
+           "leaves_compared": [c["leaves_compared"] for c in loads]}
+    print(f"elastic ({out['card']}): {DP_SAVE_FROM} (world 2) saved step "
+          f"{DP_SAVE_AT}, {out['state_bytes'] / 1e9:.2f} GB of shards, "
+          f"blocking {out['save_blocking_s']:.2f} s, total "
+          f"{out['save_total_s']:.2f} s; {DP_RESTORE_INTO} (world 4) "
+          f"restored it: verify {out['restore_verify_s']:.2f} s (the "
+          f"coordinator), load {out['restore_load_s']:.2f} s (the slowest "
+          f"rank); each rank's shards bitwise its saved slices "
+          f"({out['leaves_compared']} leaves)")
+    return out
 
 
 # ---------------------------------------------------------------------------

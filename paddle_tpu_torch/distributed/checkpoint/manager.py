@@ -28,6 +28,17 @@ the layer above it:
   dumps the flight recorder ring, and raises :class:`Preempted` so the
   driving loop unwinds cleanly.
 
+Over ranks (a process group of more than one rank) every call but the
+read-only ones is a collective, with the layout of the rank's tree
+(``layout=``, a train step's ``step_fn.layout``): a save writes whole
+leaves, each rank its own regions (:func:`~.save_load.save_state_dict`),
+and only the coordinator writes ``COMMIT.json`` and collects garbage;
+a restore re-hashes on the coordinator alone, which names the step every
+rank then loads its slice of; a preemption seen on any one rank stops
+every rank at the same step boundary (:meth:`CheckpointManager.on_step`
+agrees on it every step). The ranks agree through the process group's
+store, with a timeout on every wait.
+
 The crash matrix (tests/test_torch_checkpoint_manager.py) arms a fault at
 every point in :data:`CRASH_POINTS` in turn, kills a save there, and
 asserts :meth:`CheckpointManager.latest` still resolves a complete
@@ -36,12 +47,14 @@ uninterrupted losses bitwise.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import re
 import shutil
 import signal
 import threading
+import time
 import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -82,6 +95,15 @@ class Preempted(RuntimeError):
 class CheckpointManager:
     """Rolling, preemption-aware checkpoints under one root directory.
 
+    Over ranks (the world of the process group; rank 0 the coordinator)
+    ``layout`` is the layout of the rank's tree that :meth:`save` and
+    :meth:`on_step` write and :meth:`restore` reads by default, and
+    ``timeout`` the seconds a rank waits for a peer (default
+    :data:`~.save_load.SYNC_TIMEOUT_S`). Every rank makes its own
+    manager on the same root, on a file system they share, and calls
+    :meth:`save`, :meth:`restore` and :meth:`on_step` in the same
+    order.
+
     A Llama run resumed on the card under the default flash backward
     (``PADDLE_TPU_TORCH_FLASH_BWD=auto``) is close to, not bitwise, the
     run it resumes: that kernel sums dQ in an order that varies between
@@ -89,9 +111,17 @@ class CheckpointManager:
 
     def __init__(self, root: str, keep: Optional[int] = None,
                  interval: Optional[int] = None,
-                 grace: Optional[float] = None):
+                 grace: Optional[float] = None, layout=None,
+                 timeout: Optional[float] = None):
         self.root = os.path.abspath(root)
         os.makedirs(self.root, exist_ok=True)
+        self.layout = layout
+        self.timeout = timeout
+        # the store keys of the last two preemption votes: a rank at vote
+        # n has seen every rank finish vote n - 2
+        self._votes: collections.deque = collections.deque()
+        # seconds of the last restore: the coordinator's verify, the load
+        self.last_restore: Dict[str, Any] = {}
         self.keep = int(keep if keep is not None
                         else envs.get(ENV_CKPT_KEEP))
         self.interval = (interval if interval is not None
@@ -105,6 +135,15 @@ class CheckpointManager:
         self._preempt = threading.Event()
         self._signum: Optional[int] = None
         self._prev_handler: Any = None
+
+    def _ranks(self) -> Optional[sl.Ranks]:
+        return sl.Ranks.of(timeout=self.timeout)
+
+    def _leads(self) -> bool:
+        """Whether this process writes the markers and collects garbage:
+        the coordinator over ranks, the one process otherwise."""
+        ranks = self._ranks()
+        return ranks is None or ranks.is_coordinator
 
     # -- layout ---------------------------------------------------------------
 
@@ -186,10 +225,10 @@ class CheckpointManager:
         """Snapshot `state` now and write ``step_<step>`` asynchronously
         (synchronously with block=True). Paces itself: waits out this
         manager's previous in-flight save first, so saves overlap training
-        steps but never each other. With a process group of more than one
-        rank up this raises ValueError
-        (:func:`~.save_load.refuse_multi_rank`)."""
-        sl.refuse_multi_rank("CheckpointManager.save")
+        steps but never each other. Over ranks a collective with this
+        rank's shards under the manager's ``layout``; every rank's handle
+        resolves with the same outcome, and a fault on any rank's part
+        publishes nothing."""
         path = self.step_dir(step)
         with self._lock:
             prev = self._last_handle
@@ -197,12 +236,13 @@ class CheckpointManager:
                               if h is prev), "")
         if prev is not None and not prev.done():
             self._reap(prev, prev_path)
-        if os.path.isdir(path):
+        if os.path.isdir(path) and self._leads():
             # re-saving a step (e.g. a resumed run re-reaches it): replace
             shutil.rmtree(path)
         h = sl.save_state_dict(state, path, async_save=True,
                                manifest={"step": int(step)},
-                               on_complete=self._commit_marker(path, step))
+                               on_complete=self._commit_marker(path, step),
+                               layout=self.layout, timeout=self.timeout)
         with self._lock:
             self._inflight[path] = h
             self._last_handle = h
@@ -243,7 +283,10 @@ class CheckpointManager:
         whose write is still in flight in this manager is never touched
         (handle check), and incomplete dirs are left alone entirely:
         ``_write_checkpoint`` reclaims its own path's residue on the next
-        save, and a second manager may be mid-write in one of them."""
+        save, and a second manager may be mid-write in one of them. Over
+        ranks only the coordinator collects."""
+        if not self._leads():
+            return []
         steps = self.steps()
         removed = []
         excess = steps[:-self.keep] if self.keep > 0 else steps
@@ -266,21 +309,16 @@ class CheckpointManager:
         if man is None:
             return False
         try:
-            sums = [leaf.checksum()
-                    for leaf in sl._leaf_files(sl.read_tree(path))]
+            leaves = sl._leaf_files(sl.read_tree(path))
+            sums = sl.file_checksums((leaf.path, leaf.shape, leaf.dtype)
+                                     for leaf in leaves)
         except Exception:
             return False
         return sums == list(man.get("leaf_checksums", []))
 
-    def restore(self, state: Dict[str, Any], step: Optional[int] = None,
-                verify: bool = True, device=None) -> int:
-        """Fill `state` (copied into each tensor leaf, on its device) from
-        `step`, or from the newest checkpoint that is complete AND
-        checksum-valid, falling back older on corruption. Returns the
-        restored step. `device` places adopted leaves
-        (:func:`~.save_load.load_state_dict`). With a process group of more
-        than one rank up this raises ValueError."""
-        sl.refuse_multi_rank("CheckpointManager.restore")
+    def _choose(self, step: Optional[int], verify: bool):
+        """(the newest complete, checksum-valid step of the candidates,
+        None) or (None, why none is)."""
         candidates = [int(step)] if step is not None else self.steps()
         tried = []
         for st in reversed(candidates):
@@ -294,12 +332,51 @@ class CheckpointManager:
                     f"checkpoint {path!r} failed checksum verification; "
                     "falling back to an older checkpoint", RuntimeWarning)
                 continue
-            sl.load_state_dict(state, path, device=device)
-            return st
+            return st, None
         detail = ", ".join(f"step {s}: {why}" for s, why in tried) or "empty"
-        raise FileNotFoundError(
-            f"no complete checksum-valid checkpoint under {self.root!r} "
-            f"({detail})")
+        return None, (f"no complete checksum-valid checkpoint under "
+                      f"{self.root!r} ({detail})")
+
+    def restore(self, state: Dict[str, Any], step: Optional[int] = None,
+                verify: bool = True, device=None, layout=None) -> int:
+        """Fill `state` (copied into each tensor leaf, on its device) from
+        `step`, or from the newest checkpoint that is complete AND
+        checksum-valid, falling back older on corruption. Returns the
+        restored step. `device` places adopted leaves
+        (:func:`~.save_load.load_state_dict`). Over ranks a collective:
+        the coordinator alone checks and re-hashes the candidates and
+        names the step, every rank then reads its slice of each leaf
+        under ``layout`` (None: the manager's), whatever layout and world
+        size wrote it, or every rank raises the same
+        FileNotFoundError."""
+        layout = layout if layout is not None else self.layout
+        ranks = self._ranks()
+        if ranks is not None and layout is None:
+            raise ValueError(
+                f"CheckpointManager.restore: a process group of "
+                f"{ranks.world} ranks is up and no layout= was given: each "
+                f"rank's tree holds its shards; pass the tree's layout (a "
+                f"train step's step_fn.layout)")
+        t0 = time.perf_counter()
+        chosen = why = None
+        if ranks is None or ranks.is_coordinator:
+            chosen, why = self._choose(step, verify)
+        if ranks is not None:
+            said = ranks.broadcast(
+                sl.op_key("restore", self.root),
+                str(chosen) if why is None else f"!{why}",
+                f"the coordinator (rank {ranks.coordinator}) to choose the "
+                f"step to restore under {self.root!r}")
+            chosen, why = (None, said[1:]) if said.startswith("!") \
+                else (int(said), None)
+        if why is not None:
+            raise FileNotFoundError(why)
+        t1 = time.perf_counter()
+        sl.load_state_dict(state, self.step_dir(chosen), device=device,
+                           layout=layout)
+        self.last_restore = {"step": chosen, "verify_s": t1 - t0,
+                             "load_s": time.perf_counter() - t1}
+        return chosen
 
     # -- preemption -----------------------------------------------------------
 
@@ -338,12 +415,32 @@ class CheckpointManager:
                 recorder=None) -> Optional[sl.AsyncSaveHandle]:
         """Per-step hook for a driving loop: handles a pending preemption
         (raises :class:`Preempted`), else issues the interval-paced async
-        save. `state_fn` is called only when a save actually happens."""
-        if self._preempt.is_set():
+        save. `state_fn` is called only when a save actually happens.
+        Over ranks every rank calls it after every step: the ranks agree
+        whether any of them was preempted (SIGTERM or
+        :meth:`request_preemption` on one rank is enough), so every rank
+        takes the final save at the same step and raises the same
+        :class:`Preempted`."""
+        if self._agree_preempted():
+            self._preempt.set()
             self._finalize_preemption(step, state_fn, recorder)
         if self.interval and step % self.interval == 0:
             return self.save(state_fn(), step)
         return None
+
+    def _agree_preempted(self) -> bool:
+        ranks = self._ranks()
+        if ranks is None:
+            return self._preempt.is_set()
+        key = sl.op_key("preempt", self.root)
+        got = ranks.any(key, self._preempt.is_set(),
+                        "every rank at the step boundary")
+        self._votes.append(key)
+        if len(self._votes) > 2:
+            old = self._votes.popleft()
+            if ranks.is_coordinator:
+                ranks.forget(old)
+        return got
 
     def _finalize_preemption(self, step: int, state_fn, recorder) -> None:
         # 1) let the in-flight async write land (bounded by the grace

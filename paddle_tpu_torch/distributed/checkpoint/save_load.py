@@ -1,5 +1,6 @@
 """Checkpoint save/load with async writes (port of
-``paddle_tpu/distributed/checkpoint/save_load.py``, one process).
+``paddle_tpu/distributed/checkpoint/save_load.py``), on one process or
+over ranks.
 
 - ``save_state_dict(async_save=True)`` takes an OWNED host snapshot of
   every leaf before it returns (the only part that blocks the training
@@ -13,6 +14,18 @@
   so a train step's tensors and an engine's draft views stay the same
   objects: the port's counterpart of JAX's "reshard onto the current
   sharding".
+- Over ranks (a process group of more than one rank, or a ``layout=``)
+  both take a :class:`~..layout.Layout`: each rank's tree holds its
+  shards, and the directory still holds WHOLE leaves at their global
+  shapes, the bytes a one-process save of the gathered state writes.
+  Saving is a collective: the coordinator makes ``path.tmp`` with every
+  leaf file at full size, each rank writes the regions it is the writer
+  of (:meth:`~..layout.Layout.writes`), and once every part is in, the
+  coordinator hashes the whole leaves, writes the sidecars and
+  publishes. Loading reads on each rank only its slice of each leaf
+  under the target layout, whatever layout wrote it. The ranks agree
+  through the process group's store (:class:`Ranks`), never through a
+  collective of the train step's groups, with a timeout on every wait.
 
 On-disk layout of one checkpoint directory:
 
@@ -20,8 +33,9 @@ On-disk layout of one checkpoint directory:
   ``jax.tree_util.tree_leaves`` orders them), its raw little-endian bytes;
 - ``index.json``: the tree's structure and each leaf's file, shape and
   dtype name (numpy's names; ``"bfloat16"`` for bf16). No pickle;
-- ``sharding_meta.json`` (``{"leaf_shardings": [null, ...]}``: one device
-  has no spec) and, with a manifest, ``manifest.json`` (``step``,
+- ``sharding_meta.json`` (``{"leaf_shardings": [...]}``: null a leaf on
+  one process, JAX's ``{"mesh_axes", "mesh_shape", "spec"}`` a leaf over
+  ranks) and, with a manifest, ``manifest.json`` (``step``,
   ``leaf_checksums``, ``n_leaves``): the JAX package's sidecars, with the
   same content for the same state. The array payload is the port's own:
   neither side reads the other's arrays.
@@ -31,6 +45,7 @@ int is int64), as the JAX package's snapshot makes it.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import shutil
@@ -38,6 +53,8 @@ import sys
 import threading
 import traceback
 import zlib
+from concurrent.futures import ThreadPoolExecutor
+from datetime import timedelta
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -46,9 +63,10 @@ import torch
 from ..._device import resolve_device
 from ...testing import faults
 
-__all__ = ["CKPT_WRITE_POINTS", "AsyncSaveHandle", "leaf_checksums",
-           "save_state_dict", "load_state_dict", "wait_all_async_saves",
-           "load_manifest", "load_sharding_meta", "read_tree", "LeafFile"]
+__all__ = ["CKPT_WRITE_POINTS", "SYNC_TIMEOUT_S", "AsyncSaveHandle",
+           "Ranks", "leaf_checksums", "save_state_dict", "load_state_dict",
+           "wait_all_async_saves", "load_manifest", "load_sharding_meta",
+           "read_tree", "file_checksums", "LeafFile"]
 
 # The named stages of the write/publish protocol, in order. The crash
 # matrix (tests/test_torch_checkpoint_manager.py) kills a save at every
@@ -66,6 +84,10 @@ CKPT_WRITE_POINTS = (
 
 INDEX = "index.json"
 ARRAYS = "arrays"
+
+# seconds a rank waits for a peer at any point of a checkpoint collective
+# before it raises: a rank that died leaves its peers an error, not a hang
+SYNC_TIMEOUT_S = 600.0
 
 # torch dtype -> numpy's name for it; bf16 leaves are stored and hashed as
 # their int16 bits (numpy has no bfloat16 without ml_dtypes)
@@ -123,6 +145,24 @@ def _snapshot(v) -> _Snap:
     return _Snap(a, str(a.dtype), tuple(int(s) for s in a.shape))
 
 
+def _leaf_info(v) -> Tuple[str, Tuple[int, ...]]:
+    """A leaf's dtype name and shape, without a copy."""
+    if isinstance(v, torch.Tensor):
+        name = _NAMES.get(v.dtype)
+        if name is None:
+            raise TypeError(f"checkpoint: unsupported dtype {v.dtype}")
+        return name, tuple(int(s) for s in v.shape)
+    a = np.asarray(v)
+    if a.dtype == object or a.dtype.kind in "USV":
+        raise TypeError(f"checkpoint: unsupported leaf {type(v).__name__}")
+    return str(a.dtype), tuple(int(s) for s in a.shape)
+
+
+def _nbytes(shape, dtype: str) -> int:
+    return int(np.prod(shape, dtype=np.int64)) * \
+        _storage_dtype(dtype).itemsize
+
+
 def _is_leaf(v) -> bool:
     return isinstance(v, (torch.Tensor, np.ndarray, np.generic, bool, int,
                           float))
@@ -156,6 +196,38 @@ def _flatten(tree, path=""):
                         f"{type(node).__name__} at {p or '<root>'!r}")
 
     return walk(tree, path), leaves
+
+
+def _child_spec(spec, key):
+    """The spec subtree under ``key`` (a dict key or a list index): None
+    where the spec tree has nothing there."""
+    if isinstance(spec, dict):
+        return spec.get(key)
+    if isinstance(spec, list) and isinstance(key, int) and key < len(spec):
+        return spec[key]
+    return None
+
+
+def _flat_specs(tree, specs) -> list:
+    """The spec of each leaf of ``tree`` in flatten order, from the spec
+    tree ``specs`` (a tuple at a leaf; None for a leaf it has no spec
+    for)."""
+    out = []
+
+    def walk(node, spec):
+        if node is None:
+            return
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], _child_spec(spec, k))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, _child_spec(spec, i))
+        else:
+            out.append(spec if isinstance(spec, tuple) else None)
+
+    walk(tree, specs)
+    return out
 
 
 def leaf_checksums(tree) -> list:
@@ -227,13 +299,108 @@ def _wait_pending(path: str) -> None:
         prev.wait()
 
 
+class Ranks:
+    """The ranks of one checkpoint collective: this process's ``rank`` in
+    ``world`` and the ``coordinator``, agreeing through the default
+    process group's store (``set``, ``add``, ``wait``). A store call is
+    safe from a writer thread while the train step's collectives run on
+    the calling thread, under gloo and nccl alike; every wait raises
+    TimeoutError after ``timeout`` seconds."""
+
+    def __init__(self, rank: int, world: int, coordinator: int, store,
+                 timeout: float):
+        self.rank, self.world, self.coordinator = rank, world, coordinator
+        self.store, self.timeout = store, timeout
+
+    @classmethod
+    def of(cls, process_group=None, coordinator_rank: int = 0,
+           timeout: Optional[float] = None) -> Optional["Ranks"]:
+        """The ranks of ``process_group`` (a ``torch.distributed`` group;
+        None: the world), or None on one process (no group up, or a
+        group of one rank)."""
+        import torch.distributed as dist
+        if not (dist.is_available() and dist.is_initialized()):
+            return None
+        pg = process_group
+        world = dist.get_world_size(pg)
+        if world == 1:
+            return None
+        if not 0 <= coordinator_rank < world:
+            raise ValueError(f"checkpoint: coordinator_rank "
+                             f"{coordinator_rank} is outside a group of "
+                             f"{world} ranks")
+        return cls(dist.get_rank(pg), world, coordinator_rank,
+                   dist.distributed_c10d._get_default_store(),
+                   SYNC_TIMEOUT_S if timeout is None else float(timeout))
+
+    @property
+    def is_coordinator(self) -> bool:
+        return self.rank == self.coordinator
+
+    def set(self, key: str, value: str) -> None:
+        self.store.set(key, value)
+
+    def get(self, key: str, what: str) -> str:
+        """The value at ``key`` once a peer has set it."""
+        try:
+            self.store.wait([key], timedelta(seconds=self.timeout))
+        except Exception as e:      # the store's timeout or a lost peer
+            raise TimeoutError(
+                f"checkpoint: rank {self.rank} of {self.world} waited "
+                f"{self.timeout} s for {what} ({type(e).__name__}: "
+                f"{e})") from None
+        return self.store.get(key).decode()
+
+    def broadcast(self, key: str, value: Optional[str], what: str) -> str:
+        """The coordinator's ``value`` on every rank."""
+        if self.is_coordinator:
+            self.set(key, value)
+            return value
+        return self.get(key, what)
+
+    def any(self, key: str, flag: bool, what: str) -> bool:
+        """Whether ``flag`` is set on any rank: every rank adds its vote
+        and its arrival, the last to arrive opens the gate."""
+        self.store.add(f"{key}/votes", int(bool(flag)))
+        if self.store.add(f"{key}/n", 1) == self.world:
+            self.set(f"{key}/done", "1")
+        self.get(f"{key}/done", what)
+        return self.store.add(f"{key}/votes", 0) > 0
+
+    def forget(self, key: str) -> None:
+        """Delete the keys :meth:`any` made under ``key`` (once every rank
+        has read them)."""
+        for k in ("votes", "n", "done"):
+            try:
+                self.store.delete_key(f"{key}/{k}")
+            except Exception:
+                pass
+
+
+_calls_lock = threading.Lock()
+_calls: Dict[Tuple[str, str], int] = collections.Counter()
+
+
+def op_key(kind: str, path: str) -> str:
+    """The store key prefix of this process's next collective ``kind`` on
+    ``path``: the n-th such call gets the same key on every rank, since
+    every rank makes the same calls in the same order."""
+    path = os.path.abspath(path)
+    with _calls_lock:
+        _calls[(kind, path)] += 1
+        n = _calls[(kind, path)]
+    return f"ckpt/{kind}/{n}/{path}"
+
+
+def _why(e: BaseException) -> str:
+    return f"{type(e).__name__}: {e}"
+
+
 def _write_checkpoint(path: str, structure, snaps: List[_Snap], meta,
                       manifest=None):
-    tmp, old = path + ".tmp", path + ".old"
+    tmp = path + ".tmp"
     faults.inject("ckpt.write.begin", dir=path)
-    for leftover in (tmp, old):  # residue of an earlier crashed save
-        if os.path.exists(leftover):
-            shutil.rmtree(leftover)
+    _clear_leftovers(path)
     os.makedirs(os.path.join(tmp, ARRAYS))
     entries = []
     for i, s in enumerate(snaps):
@@ -245,13 +412,26 @@ def _write_checkpoint(path: str, structure, snaps: List[_Snap], meta,
     with open(os.path.join(tmp, INDEX), "w") as f:
         json.dump({"format": 1, "tree": structure, "leaves": entries}, f)
     faults.inject("ckpt.write.after_arrays", dir=tmp)
+    _publish(path, meta, manifest,
+             lambda: [_crc(s) for s in snaps])
+
+
+def _clear_leftovers(path: str) -> None:
+    for leftover in (path + ".tmp", path + ".old"):
+        # residue of an earlier crashed save
+        if os.path.exists(leftover):
+            shutil.rmtree(leftover)
+
+
+def _publish(path: str, meta, manifest, sums: Callable[[], List[int]]):
+    """The sidecars into ``path.tmp``, then the crash-safe publish."""
+    tmp, old = path + ".tmp", path + ".old"
     with open(os.path.join(tmp, "sharding_meta.json"), "w") as f:
         json.dump(meta, f)
     faults.inject("ckpt.write.after_meta", dir=tmp)
     if manifest is not None:
         manifest = dict(manifest)
-        sums = [_crc(s) for s in snaps]
-        manifest["leaf_checksums"] = sums
+        manifest["leaf_checksums"] = sums = sums()
         manifest["n_leaves"] = len(sums)
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
@@ -269,29 +449,127 @@ def _write_checkpoint(path: str, structure, snaps: List[_Snap], meta,
         shutil.rmtree(old)
 
 
-def refuse_multi_rank(what: str) -> None:
-    """Raise ValueError while a process group of more than one rank is
-    up: a rank's tree holds its local shards, and this layer would write
-    them as whole leaves (``sharding_meta.json`` one null a leaf) or copy
-    whole leaves into them. Saving and restoring a sharded train state
-    across ranks is not ported (ROADMAP.md queue 1 item 11, second
-    half)."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise ValueError(
-            f"{what}: a process group of {dist.get_world_size()} ranks is "
-            f"up, and the checkpoint layer saves and restores one "
-            f"process's whole tensors; a sharded multi-rank checkpoint "
-            f"(elastic resume) is not ported (ROADMAP.md queue 1 item 11, "
-            f"second half)")
+def _write_region(fname: str, full, region, snap: _Snap) -> None:
+    """This rank's slice ``snap`` of a whole leaf of shape ``full`` into
+    its region of the leaf's file (made at full size by the
+    coordinator): the whole file in one write, or the slice's runs
+    through a map of the file."""
+    if all(r.start == 0 and r.stop == n for r, n in zip(region, full)):
+        with open(fname, "r+b") as f:
+            f.write(_bytes(snap.array))
+        return
+    if snap.array.size == 0:
+        return
+    mm = np.memmap(fname, dtype=_storage_dtype(snap.dtype), mode="r+",
+                   shape=tuple(full))
+    mm[region] = snap.array
+    del mm
+
+
+def _write_over_ranks(path: str, structure, infos, snaps, layout, specs,
+                      meta, manifest, ranks: Optional[Ranks], key: str,
+                      on_complete):
+    """A save over ranks (the writer thread of each rank). The
+    coordinator clears the leftovers and makes ``path.tmp`` with every
+    leaf file at full size and the index, then says ``ready``; each rank
+    writes the regions it is the writer of (``snaps[i]`` None: not this
+    rank's) and reports its part; once every part is in, the coordinator
+    hashes the whole leaf files, writes the sidecars, publishes, runs
+    ``on_complete`` and says the ``outcome``, which every other rank
+    waits for: each rank's save ends with the same outcome, and a
+    failure on any rank publishes nothing."""
+    tmp = path + ".tmp"
+    files = [os.path.join(tmp, ARRAYS, f"{i}.bin") for i in range(len(infos))]
+
+    def write_mine():
+        for f, (_, shape), spec, snap in zip(files, infos, specs, snaps):
+            if snap is not None:
+                _write_region(f, shape, layout.region(shape, spec), snap)
+
+    if ranks is not None and not ranks.is_coordinator:
+        coordinator = f"the coordinator (rank {ranks.coordinator})"
+        ready = ranks.get(f"{key}/ready", f"{coordinator} to make {tmp!r}")
+        if ready != "ok":
+            raise RuntimeError(f"checkpoint save to {path!r} failed on "
+                               f"{coordinator}: {ready}")
+        part = f"{key}/part/{ranks.rank}"
+        try:
+            faults.inject("ckpt.write.begin", dir=path)
+            write_mine()
+            faults.inject("ckpt.write.after_arrays", dir=tmp)
+        except BaseException as e:
+            ranks.set(part, _why(e))
+            raise
+        ranks.set(part, "ok")
+        outcome = ranks.get(f"{key}/outcome",
+                            f"{coordinator} to publish {path!r}")
+        if outcome != "ok":
+            raise RuntimeError(f"checkpoint save to {path!r} was not "
+                               f"published: {outcome}")
+        return
+    outcome = "ok"
+    try:
+        try:
+            faults.inject("ckpt.write.begin", dir=path)
+            _clear_leftovers(path)
+            os.makedirs(os.path.join(tmp, ARRAYS))
+            for f, (dtype, shape) in zip(files, infos):
+                with open(f, "wb") as fh:
+                    fh.truncate(_nbytes(shape, dtype))
+            entries = [{"file": f"{ARRAYS}/{i}.bin", "shape": list(shape),
+                        "dtype": dtype} for i, (dtype, shape) in
+                       enumerate(infos)]
+            with open(os.path.join(tmp, INDEX), "w") as f:
+                json.dump({"format": 1, "tree": structure,
+                           "leaves": entries}, f)
+        except BaseException as e:
+            if ranks is not None:
+                ranks.set(f"{key}/ready", _why(e))
+            raise
+        if ranks is not None:
+            ranks.set(f"{key}/ready", "ok")
+        mine = None
+        try:
+            write_mine()
+        except BaseException as e:
+            mine = e
+        bad = []
+        # every part is waited for, even after a failure here, so that no
+        # rank still writes into this tmp when the outcome is out
+        for r in range(ranks.world if ranks is not None else 0):
+            if r != ranks.rank:
+                try:
+                    got = ranks.get(f"{key}/part/{r}",
+                                    f"rank {r}'s part of {path!r}")
+                except TimeoutError as e:
+                    got = str(e)
+                if got != "ok":
+                    bad.append(f"rank {r}: {got}")
+        if mine is not None:
+            raise mine
+        if bad:
+            raise RuntimeError(f"checkpoint save to {path!r}: a rank's "
+                               f"part failed ({'; '.join(bad)}); nothing "
+                               f"is published")
+        faults.inject("ckpt.write.after_arrays", dir=tmp)
+        _publish(path, meta, manifest, lambda: file_checksums(
+            [(f, shape, dtype) for f, (dtype, shape) in zip(files, infos)]))
+        if on_complete is not None:
+            on_complete()
+    except BaseException as e:
+        outcome = _why(e)
+        raise
+    finally:
+        if ranks is not None:
+            ranks.set(f"{key}/outcome", outcome)
 
 
 def save_state_dict(state_dict: Dict[str, Any], path: str,
                     process_group=None, coordinator_rank: int = 0,
                     async_save: bool = False,
                     manifest: Optional[Dict[str, Any]] = None,
-                    on_complete: Optional[Callable[[], None]] = None):
+                    on_complete: Optional[Callable[[], None]] = None,
+                    layout=None, timeout: Optional[float] = None):
     """Save `state_dict` (a nested dict/list/tuple of tensors, arrays and
     Python scalars) to `path`. The owned host snapshot is taken now; with
     async_save=True the write runs in a background thread and an
@@ -304,14 +582,53 @@ def save_state_dict(state_dict: Dict[str, Any], path: str,
     publish and before the handle resolves (CheckpointManager writes its
     COMMIT marker there, so "handle done without error" implies "marker
     down"). An on_complete failure surfaces on wait() like a write
-    failure. ``process_group``/``coordinator_rank`` are accepted for the
-    JAX signature; one process writes everything: with a process group
-    of more than one rank up this raises (:func:`refuse_multi_rank`)."""
-    refuse_multi_rank("save_state_dict")
+    failure.
+
+    Over ranks this is a collective: every rank of ``process_group``
+    (None: the world) calls it with its local shards and ``layout``, the
+    :class:`~..layout.Layout` of its tree (a train step's
+    ``step_fn.layout``). Each rank snapshots and writes only the regions
+    it is the writer of; ``coordinator_rank`` makes the directory,
+    hashes the whole leaves, publishes and alone runs `on_complete`; the
+    files are those a one-process save of the gathered tree writes, and
+    ``sharding_meta.json`` holds JAX's record of each leaf's spec. Every
+    rank's save ends with the same outcome; a rank not heard from within
+    `timeout` seconds (:data:`SYNC_TIMEOUT_S`) fails it. A process group
+    of more than one rank without a layout raises ValueError: a rank's
+    tree holds shards, which are not whole leaves."""
+    ranks = Ranks.of(process_group, coordinator_rank, timeout)
+    if ranks is not None and layout is None:
+        raise ValueError(
+            f"save_state_dict: a process group of {ranks.world} ranks is "
+            f"up and no layout= was given: each rank's tree holds its "
+            f"shards, and writing them as whole leaves would be wrong; "
+            f"pass the tree's layout (a train step's step_fn.layout)")
     structure, leaves = _flatten(state_dict)
-    snaps = [_snapshot(v) for v in leaves]  # values at call time
-    meta = {"leaf_shardings": [None] * len(snaps)}
     path = os.path.abspath(path)
+    if layout is None:
+        snaps = [_snapshot(v) for v in leaves]  # values at call time
+        meta = {"leaf_shardings": [None] * len(snaps)}
+
+        def write():
+            _write_checkpoint(path, structure, snaps, meta,
+                              manifest=manifest)
+            if on_complete is not None:
+                on_complete()
+    else:
+        specs = _flat_specs(state_dict, layout.specs)
+        infos = []
+        for v, spec in zip(leaves, specs):
+            dtype, shape = _leaf_info(v)
+            infos.append((dtype, layout.full_shape(shape, spec)))
+        # values at call time, of the regions this rank writes only
+        snaps = [_snapshot(v) if layout.writes(spec) else None
+                 for v, spec in zip(leaves, specs)]
+        meta = {"leaf_shardings": [layout.meta(s) for s in specs]}
+        key = op_key("save", path) if ranks is not None else ""
+
+        def write():
+            _write_over_ranks(path, structure, infos, snaps, layout, specs,
+                              meta, manifest, ranks, key, on_complete)
 
     # a save (sync or async) to a path with an in-flight write must wait:
     # both would otherwise race on the same tmp dir and publish rename.
@@ -322,10 +639,7 @@ def save_state_dict(state_dict: Dict[str, Any], path: str,
     def run():
         nonlocal snaps
         try:
-            _write_checkpoint(path, structure, snaps, meta,
-                              manifest=manifest)
-            if on_complete is not None:
-                on_complete()
+            write()
         except BaseException as e:  # surfaced on wait()
             # a kept error's traceback holds these frames: none of them
             # may keep the host copy of the state alive
@@ -370,7 +684,8 @@ def save_state_dict(state_dict: Dict[str, Any], path: str,
 
 class LeafFile:
     """One saved leaf, read on demand: ``shape`` and ``dtype`` (numpy's
-    name) from the index, :meth:`read` returns an owned CPU tensor."""
+    name) from the index, :meth:`read` returns an owned CPU tensor of the
+    leaf or of a region of it."""
     __slots__ = ("path", "shape", "dtype")
 
     def __init__(self, path: str, shape, dtype: str):
@@ -378,19 +693,32 @@ class LeafFile:
         self.shape = tuple(int(s) for s in shape)
         self.dtype = dtype
 
-    def numpy(self) -> np.ndarray:
-        """The leaf as an owned numpy array (bf16 as its int16 bits)."""
+    def numpy(self, region=None) -> np.ndarray:
+        """The leaf, or its ``region`` (a slice a dimension: read through
+        a map of the file, only the pages it covers), as an owned numpy
+        array (bf16 as its int16 bits)."""
         sd = _storage_dtype(self.dtype)
-        a = np.fromfile(self.path, dtype=sd)   # allocates: an owned buffer
         n = int(np.prod(self.shape, dtype=np.int64))
-        if a.size != n:
+        if region is None or all(r.start == 0 and r.stop == d
+                                 for r, d in zip(region, self.shape)):
+            a = np.fromfile(self.path, dtype=sd)   # an owned buffer
+            if a.size != n:
+                raise ValueError(
+                    f"checkpoint leaf {self.path!r}: {a.size} elements on "
+                    f"disk, {n} expected for shape {self.shape}")
+            return a.reshape(self.shape)
+        size = os.path.getsize(self.path) // sd.itemsize
+        if size != n:
             raise ValueError(
-                f"checkpoint leaf {self.path!r}: {a.size} elements on disk, "
+                f"checkpoint leaf {self.path!r}: {size} elements on disk, "
                 f"{n} expected for shape {self.shape}")
-        return a.reshape(self.shape)
+        mm = np.memmap(self.path, dtype=sd, mode="r", shape=self.shape)
+        out = np.array(mm[region])          # a copy: owned, not the map
+        del mm
+        return out
 
-    def read(self) -> torch.Tensor:
-        a = self.numpy()
+    def read(self, region=None) -> torch.Tensor:
+        a = self.numpy(region)
         if self.dtype == "bfloat16":
             return torch.from_numpy(a).view(torch.bfloat16)
         if self.dtype not in _TORCH:
@@ -398,8 +726,40 @@ class LeafFile:
                             f"{self.dtype!r} has no torch counterpart")
         return torch.from_numpy(a)
 
-    def checksum(self) -> int:
-        return _crc(_Snap(self.numpy(), self.dtype, self.shape))
+
+_CRC_CHUNK = 1 << 26
+
+
+def _file_crc(fname: str, shape, dtype: str) -> int:
+    """:func:`_crc` of a leaf file, read in chunks: its bytes are the
+    little-endian bytes the snapshot hashes."""
+    shape = tuple(int(s) for s in shape)
+    crc = zlib.crc32(repr((shape, dtype)).encode())
+    want, got = _nbytes(shape, dtype), 0
+    buf = bytearray(min(_CRC_CHUNK, max(want, 1)))
+    view = memoryview(buf)
+    with open(fname, "rb", buffering=0) as f:
+        while True:
+            k = f.readinto(buf)
+            if not k:
+                break
+            crc = zlib.crc32(view[:k], crc)
+            got += k
+    if got != want:
+        itemsize = _storage_dtype(dtype).itemsize
+        raise ValueError(
+            f"checkpoint leaf {fname!r}: {got // itemsize} elements on "
+            f"disk, {want // itemsize} expected for shape {shape}")
+    return int(crc)
+
+
+def file_checksums(items) -> List[int]:
+    """:func:`_file_crc` of each (file, shape, dtype name), hashed on
+    several threads (zlib releases the GIL while it sums)."""
+    items = list(items)
+    with ThreadPoolExecutor(max_workers=max(1, min(8, os.cpu_count() or 1,
+                                                   len(items)))) as ex:
+        return list(ex.map(lambda it: _file_crc(*it), items))
 
 
 def _resolve(path: str) -> str:
@@ -453,7 +813,7 @@ def _from_host(saved: torch.Tensor, dtype=None, device="cpu") -> torch.Tensor:
 
 def load_state_dict(state_dict: Dict[str, Any], path: str,
                     process_group=None, coordinator_rank: int = 0,
-                    device=None):
+                    device=None, layout=None):
     """Fill `state_dict` in place from `path`: each tensor leaf gets the
     saved values copied into it (``copy_``, cast to its dtype, on its
     device; the same object stays in the tree). Waits for any in-flight
@@ -467,10 +827,21 @@ def load_state_dict(state_dict: Dict[str, Any], path: str,
     positionally; a sequence length mismatch raises ValueError; a saved
     leaf whose shape differs from its tensor raises ValueError. A
     non-tensor target leaf (a Python scalar, an array) is replaced by the
-    saved value as a numpy array (bf16: a CPU tensor). With a process
-    group of more than one rank up this raises
-    (:func:`refuse_multi_rank`)."""
-    refuse_multi_rank("load_state_dict")
+    saved value as a numpy array (bf16: a CPU tensor).
+
+    With ``layout`` (a :class:`~..layout.Layout`; over ranks it is
+    required, and each rank calls this on its own) a tensor leaf holds
+    this rank's shard: the whole leaf's shape under its spec must be the
+    saved one, else ValueError naming the leaf, and only this rank's
+    region of the saved leaf is read, whatever layout and world size
+    wrote the directory. Nothing passes between the ranks."""
+    world = Ranks.of(process_group, coordinator_rank)
+    if world is not None and layout is None:
+        raise ValueError(
+            f"load_state_dict: a process group of {world.world} ranks is "
+            f"up and no layout= was given: each rank's tree holds its "
+            f"shards, which a whole saved leaf cannot be copied into; "
+            f"pass the tree's layout (a train step's step_fn.layout)")
     path = os.path.abspath(path)
     _wait_pending(path)
     path = _resolve(path)
@@ -482,15 +853,27 @@ def load_state_dict(state_dict: Dict[str, Any], path: str,
             adopt_dev.append(resolve_device(device))
         return adopt_dev[0]
 
-    def fill(target, saved, leaf_path=""):
+    def fill(target, saved, leaf_path="", spec=None):
         if isinstance(saved, LeafFile):
             if isinstance(target, torch.Tensor):
-                if tuple(target.shape) != saved.shape:
-                    raise ValueError(
-                        f"checkpoint leaf {leaf_path!r}: saved shape "
-                        f"{saved.shape}, target {tuple(target.shape)}")
+                region = None
+                if layout is None:
+                    if tuple(target.shape) != saved.shape:
+                        raise ValueError(
+                            f"checkpoint leaf {leaf_path!r}: saved shape "
+                            f"{saved.shape}, target {tuple(target.shape)}")
+                else:
+                    spec = spec if isinstance(spec, tuple) else None
+                    full = layout.full_shape(target.shape, spec)
+                    if full != saved.shape:
+                        raise ValueError(
+                            f"checkpoint leaf {leaf_path!r}: saved shape "
+                            f"{saved.shape}, target {full} (this rank "
+                            f"holds {tuple(target.shape)} of it under the "
+                            f"spec {spec})")
+                    region = layout.region(full, spec)
                 with torch.no_grad():
-                    target.copy_(saved.read())
+                    target.copy_(saved.read(region))
                 return target
             if saved.dtype == "bfloat16":
                 return saved.read()
@@ -499,7 +882,8 @@ def load_state_dict(state_dict: Dict[str, Any], path: str,
             for k in target:
                 if k in saved:
                     target[k] = fill(target[k], saved[k],
-                                     f"{leaf_path}.{k}" if leaf_path else k)
+                                     f"{leaf_path}.{k}" if leaf_path else k,
+                                     _child_spec(spec, k))
             for k in saved:
                 # structure the target hasn't materialized yet is adopted
                 if k not in target:
@@ -511,7 +895,7 @@ def load_state_dict(state_dict: Dict[str, Any], path: str,
                 raise ValueError(
                     f"checkpoint sequence length mismatch: target has "
                     f"{len(target)} entries, saved has {len(saved)}")
-            out = [fill(t, s, f"{leaf_path}[{i}]")
+            out = [fill(t, s, f"{leaf_path}[{i}]", _child_spec(spec, i))
                    for i, (t, s) in enumerate(zip(target, saved))]
             if isinstance(target, list):
                 target[:] = out
@@ -522,7 +906,7 @@ def load_state_dict(state_dict: Dict[str, Any], path: str,
             return type(target)(out)
         return _adopt(saved, dev)
 
-    fill(state_dict, restored)
+    fill(state_dict, restored, "", None if layout is None else layout.specs)
     return state_dict
 
 
@@ -553,8 +937,10 @@ def load_manifest(path: str):
 
 
 def load_sharding_meta(path: str):
-    """The per-leaf sharding metadata recorded at save time (or None):
-    one None a leaf, in flatten order."""
+    """The per-leaf sharding metadata recorded at save time (or None),
+    in flatten order: one None a leaf of a one-process save, JAX's
+    ``{"mesh_axes", "mesh_shape", "spec"}`` (or None) a leaf over
+    ranks."""
     p = os.path.join(_resolve(path), "sharding_meta.json")
     if not os.path.exists(p):
         return None

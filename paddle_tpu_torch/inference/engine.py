@@ -101,7 +101,8 @@ from ..distributed import communication as comm
 from ..distributed.checkpoint import save_load as sl
 from ..distributed.checkpoint.manager import _STEP_RE, CheckpointManager
 from ..distributed.fleet import HybridCommunicateGroup
-from ..models.llama import (LlamaConfig, _split_dims, _tensor_from_numpy,
+from ..distributed.layout import split_dims
+from ..models.llama import (LlamaConfig, _tensor_from_numpy,
                             init_paged_kv_pool, init_paged_kv_scales,
                             llama_paged_decode_step,
                             llama_paged_prefill_chunk,
@@ -1622,22 +1623,26 @@ class InferenceEngine:
                     swap_fill(t, s, f"{leaf_path}[{i}]")
                 return
             shape = tuple(saved.shape)
-            splits = ([] if spec is None else _split_dims(
+            splits = ([] if spec is None else split_dims(
                 spec, {"mp": self.mp}, {"mp": self.tp.rank}))
             full = list(target.shape)
-            for d, parts, _ in splits:
+            region = [slice(0, n) for n in shape]
+            for d, parts, index in splits:
                 full[d] *= parts
+                n = shape[d] // parts
+                region[d] = slice(index * n, (index + 1) * n)
             if tuple(full) != shape:
                 raise ValueError(
                     f"swap_weights: shape mismatch at {leaf_path!r}: "
                     f"engine {tuple(full)}, source {shape}")
             if isinstance(saved, sl.LeafFile):
-                saved = saved.read()
-            elif not isinstance(saved, torch.Tensor):
-                saved = _tensor_from_numpy(saved)
-            for d, parts, index in splits:
-                n = saved.shape[d] // parts
-                saved = saved.narrow(d, index * n, n)
+                # only this rank's slice is read from the file
+                saved = saved.read(tuple(region))
+            else:
+                if not isinstance(saved, torch.Tensor):
+                    saved = _tensor_from_numpy(saved)
+                if splits:
+                    saved = saved[tuple(region)]
             if saved is not target:
                 target.copy_(saved)
             n_leaves[0] += 1

@@ -59,7 +59,11 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..distributed import communication as comm
-from ..distributed import env as dist_env
+from ..distributed.layout import Layout
+from ..distributed.layout import local_shape as _local_shape
+from ..distributed.layout import mesh_place as _mesh_place
+from ..distributed.layout import shard as _shard
+from ..distributed.layout import split_dims as _split_dims
 from ..distributed.fleet import HybridCommunicateGroup
 from ..ops.decode_attention import TILE_T, decode_attend_update_slab
 from ..ops.flash_attention import (_prescale, flash_attention_bshd,
@@ -1851,9 +1855,6 @@ def _adamw_update(params, grads, state, lr, b1=0.9, b2=0.95, eps=1e-8,
 # dp x sharding (ZeRO stages 1, 2, 3) x mp (Megatron): one process a rank
 # ---------------------------------------------------------------------------
 
-_AXES = ("dp", "pp", "sharding", "sep", "mp")
-
-
 def param_pspecs(config: LlamaConfig, parallel: ParallelConfig):
     """JAX's ``param_pspecs``: for each param leaf a tuple with one entry
     a dimension, an axis name or None (its ``PartitionSpec`` read as a
@@ -1925,65 +1926,6 @@ def _map_specs(fn, tree, specs, path=""):
         return {k: _map_specs(fn, v, specs[k], f"{path}/{k}" if path else k)
                 for k, v in tree.items()}
     return fn(tree, specs, path)
-
-
-def _split_dims(spec, degrees, coord):
-    """(dim, parts, index) of each sharded dimension of ``spec``: it splits
-    into ``parts`` equal slices and this rank holds slice ``index``
-    (row-major over the entry's axes, as a mesh lays them out)."""
-    out = []
-    for d, entry in enumerate(spec):
-        if entry is None:
-            continue
-        parts, index = 1, 0
-        for a in ((entry,) if isinstance(entry, str) else entry):
-            parts *= degrees[a]
-            index = index * degrees[a] + coord[a]
-        if parts > 1:
-            out.append((d, parts, index))
-    return out
-
-
-def _local_shape(name, shape, spec, degrees, coord):
-    """A leaf's shape on this rank; a dimension its ranks do not divide
-    raises ValueError naming the leaf, where JAX's ``device_put`` of the
-    leaf with that sharding raises."""
-    shape = list(shape)
-    for d, parts, _ in _split_dims(spec, degrees, coord):
-        if shape[d] % parts:
-            raise ValueError(
-                f"{name}: dimension {d} of shape {tuple(shape)} does not "
-                f"divide over the {parts} ranks of its spec {spec}")
-        shape[d] //= parts
-    return shape
-
-
-def _shard(x, name, spec, degrees, coord):
-    splits = _split_dims(spec, degrees, coord)
-    if not splits:
-        return x
-    _local_shape(name, x.shape, spec, degrees, coord)
-    for d, parts, index in splits:
-        n = x.shape[d] // parts
-        x = x.narrow(d, index * n, n)
-    return x.clone(memory_format=torch.contiguous_format)
-
-
-def _mesh_place(parallel: ParallelConfig):
-    """(degrees, this rank's coordinates) by axis name; a mesh of more
-    than one rank needs ``init_parallel_env``'s process group over as
-    many ranks."""
-    degrees = {a: getattr(parallel, a) for a in _AXES}
-    world = dist_env.get_world_size()
-    if parallel.total > 1 and world != parallel.total:
-        raise ValueError(
-            f"{ {a: d for a, d in degrees.items() if d > 1} } needs "
-            f"{parallel.total} ranks and this process is one of {world}: "
-            f"call paddle_tpu_torch.distributed.init_parallel_env in each "
-            f"of {parallel.total} processes first")
-    coord = np.unravel_index(dist_env.get_rank(),
-                             [degrees[a] for a in _AXES])
-    return degrees, {a: int(c) for a, c in zip(_AXES, coord)}
 
 
 def shard_train_state(params, opt_state, config: LlamaConfig,
@@ -2104,6 +2046,13 @@ class _DistTrainStep:
             ((0, 1, 0),)
         self.gather = _Stage3(self.pspecs, self.sh) if self.stage == 3 \
             else None
+        # the {"params", "opt", "step"} train state over the ranks, as
+        # the checkpoint layer saves and restores it: ``t`` and ``step``
+        # are whole on every rank, with no spec (JAX's build leaves its
+        # ``t`` uncommitted)
+        self.layout = Layout(self.degrees, self.coord,
+                             {"params": self.pspecs,
+                              "opt": {"m": self.ospecs, "v": self.ospecs}})
 
     def __call__(self, params, opt, ids, labels):
         ids, labels = np.asarray(ids), np.asarray(labels)
@@ -2266,7 +2215,10 @@ def build_train_step(config: LlamaConfig,
     ``PADDLE_TPU_TORCH_TP_OVERLAP`` runs the FFN as the fused ring
     (:func:`_fused_ffn_overlap`). The params and state passed and
     returned are the rank's local shards (:func:`shard_train_state`,
-    :func:`gather_train_state` with ``step_fn.hcg``). The JAX package
+    :func:`gather_train_state` with ``step_fn.hcg``); ``step_fn.layout``
+    is the layout of ``{"params", "opt", "step"}`` with which the
+    checkpoint layer saves them over the ranks and restores them under
+    another layout (:func:`restore_train_step`). The JAX package
     runs one program over a mesh of global arrays; each difference that
     follows is listed in ROADMAP.md's deviations.
 
@@ -2327,6 +2279,28 @@ def _build_dist_train_step(config, parallel, lr, seed, dev):
                  "v": _map_specs(zeros, full, step.ospecs),
                  "t": torch.zeros((), dtype=torch.float32, device=dev)}
     return step, params, opt_state
+
+
+def restore_train_step(config: LlamaConfig, parallel: ParallelConfig,
+                       manager, step: Optional[int] = None,
+                       lr: float = 3e-4, seed: int = 0, device=None):
+    """Elastic resume, the port's counterpart of the JAX package's
+    preemption-resume flow: a fresh :func:`build_train_step` (every rank
+    of ``parallel`` calls this, as it calls that) whose state
+    ``{"params", "opt", "step"}`` is filled from checkpoint ``step`` of
+    ``manager`` (a ``CheckpointManager``; None: its newest complete,
+    checksum-valid step), whatever ``ParallelConfig`` and world size
+    wrote it: each rank reads only its slice of each saved leaf under
+    ``step_fn.layout`` (one process reads whole leaves). Returns
+    (step_fn, state, the restored step); training goes on with
+    ``step_fn(state["params"], state["opt"], ids, labels)``."""
+    step_fn, params, opt = build_train_step(config, parallel, lr=lr,
+                                            seed=seed, device=device)
+    state = {"params": params, "opt": opt, "step": 0}
+    got = manager.restore(state, step=step,
+                          layout=getattr(step_fn, "layout", None))
+    state["step"] = got
+    return step_fn, state, got
 
 
 def count_params(config: LlamaConfig) -> int:

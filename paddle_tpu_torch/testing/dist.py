@@ -135,12 +135,13 @@ def train_job(rank: int, world: int, job: dict) -> dict:
     Returns, by run, every rank's losses, the CRC32 of each local param
     leaf, this rank's mesh coordinates and groups, and the ``tp.`` and
     ``comm.`` counters of its steps; and the modules of JAX or of the JAX
-    package this process imported. ``checkpoint_dir``: also tries a save
-    and a restore with the group up and returns what each raised.
+    package this process imported.
     ``roundtrip``: also shards the weights and a random AdamW state and
     gathers them back under each layout of this world
     (:func:`_roundtrip`; True: dp and sharding's, or a list of
-    ParallelConfig field dicts)."""
+    ParallelConfig field dicts). ``checkpoint_dir``: also saves that
+    state with a ``CheckpointManager`` under two layouts of this world
+    and restores each into both (:func:`_checkpoint_roundtrip`)."""
     import torch
     from paddle_tpu_torch.models import llama as tl
     from paddle_tpu_torch.observability import trace
@@ -211,8 +212,8 @@ def train_job(rank: int, world: int, job: dict) -> dict:
         report["roundtrip"] = _roundtrip(
             cfg, weights, None if layouts is True else layouts)
     if job.get("checkpoint_dir"):
-        report["checkpoint"] = _checkpoint_refusals(job["checkpoint_dir"],
-                                                    rank)
+        report["checkpoint"] = _checkpoint_roundtrip(job["checkpoint_dir"],
+                                                     cfg, weights)
     report["jax_modules"] = [m for m in sys.modules
                              if m.split(".")[0] in ("jax", "paddle_tpu")]
     return report
@@ -223,16 +224,11 @@ def _roundtrip(cfg, weights, layouts=None):
     leaf back bitwise}, for ``layouts`` ({name: ParallelConfig fields}),
     by default those of dp and sharding in this world (dp, then sharding
     at stages 1, 2, 3)."""
-    import torch
     from paddle_tpu_torch.distributed import get_world_size
     from paddle_tpu_torch.models import llama as tl
     w = get_world_size()
-    gen = torch.Generator().manual_seed(3)
     full = _unflat(weights, cfg.dtype)
-    opt = tl._adamw_init(full)
-    for k in ("m", "v"):
-        opt[k] = tl._tree_map(lambda x: torch.randn(x.shape, generator=gen),
-                              opt[k])
+    opt = _random_opt(full)
     if layouts is None:
         layouts = {"dp": dict(dp=w),
                    **{f"stage{z}": dict(sharding=w, zero_stage=z)
@@ -249,28 +245,203 @@ def _roundtrip(cfg, weights, layouts=None):
     return out
 
 
-def _checkpoint_refusals(root, rank):
+def _random_opt(full, seed=3):
+    """AdamW state of the full params with seeded random moments (the
+    same on every rank) and ``t`` 2."""
     import torch
+    from paddle_tpu_torch.models import llama as tl
+    gen = torch.Generator().manual_seed(seed)
+    opt = tl._adamw_init(full)
+    for k in ("m", "v"):
+        opt[k] = tl._tree_map(lambda x: torch.randn(x.shape, generator=gen),
+                              opt[k])
+    opt["t"] = torch.full((), 2.0)
+    return opt
+
+
+def _checkpoint_roundtrip(root, cfg, weights):
+    """{"src->dst": whether a ``CheckpointManager`` save over the ranks of
+    the weights and a random AdamW state sharded under layout src
+    (``step_fn.layout``), restored into a fresh train step's state under
+    layout dst, gives every local leaf bitwise what
+    ``shard_train_state`` makes under dst}, for src and dst each dp and
+    sharding at stage 3 of this world; and ``latest`` and
+    ``files``, what the coordinator published under each root."""
+    from paddle_tpu_torch.distributed import get_world_size
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.models import llama as tl
+    w = get_world_size()
+    full = _unflat(weights, cfg.dtype)
+    opt = _random_opt(full)
+    layouts = {"dp": dict(dp=w), "stage3": dict(sharding=w, zero_stage=3)}
+    out = {"latest": {}, "files": {}}
+    for name, kw in layouts.items():
+        par = tl.ParallelConfig(use_flash=False, **kw)
+        step, _, _ = tl.build_train_step(cfg, par, device="cpu")
+        p, o = tl.shard_train_state(full, opt, cfg, par)
+        mgr = CheckpointManager(os.path.join(root, name), layout=step.layout,
+                                timeout=60)
+        mgr.save({"params": p, "opt": o, "step": 5}, 5, block=True)
+        out["latest"][name] = mgr.latest()
+        out["files"][name] = sorted(os.listdir(mgr.step_dir(5)))
+    for src in layouts:
+        for dst, kw in layouts.items():
+            par = tl.ParallelConfig(use_flash=False, **kw)
+            step, state, got = tl.restore_train_step(
+                cfg, par, CheckpointManager(os.path.join(root, src),
+                                            timeout=60), device="cpu")
+            want_p, want_o = tl.shard_train_state(full, opt, cfg, par)
+            a = {**flat_tree(state["params"]),
+                 **flat_tree({k: state["opt"][k] for k in ("m", "v")})}
+            b = {**flat_tree(want_p),
+                 **flat_tree({k: want_o[k] for k in ("m", "v")})}
+            out[f"{src}->{dst}"] = (
+                got == 5 and float(state["opt"]["t"]) == 2.0
+                and all(np.array_equal(a[k], b[k]) for k in b))
+    return out
+
+
+def elastic_job(rank: int, world: int, job: dict) -> dict:
+    """The elastic-resume tests' rank function. ``job``: ``config``
+    (LlamaConfig fields, ``dtype`` by name), ``weights`` (an .npz of the
+    full params by path), ``batches`` (an .npz of ``ids`` and ``labels``
+    [steps, B, S]), ``lr``, ``env`` (set for the job) and ``tasks``, in
+    order, each a dict with ``name``, ``kind``, ``parallel``
+    (ParallelConfig fields) and ``root`` (a CheckpointManager root):
+
+    - ``train``: the weights with zero moments, every step, ``on_step``
+      after each; a blocking save at step ``save_at``, then each fault of
+      ``crash`` ((point, rank) pairs: the point armed on that rank only)
+      on a save of step ``save_at`` + 1, and ``preempt`` (a rank) asks
+      for a preemption after step ``save_at`` + 1; training goes on past
+      the ``Preempted``. Returns the losses, each fault's (what this rank's
+      save raised, ``latest()`` after it) and the preemption's
+      (step, whether its final save was made);
+    - ``restore``: ``restore_train_step`` of checkpoint ``step`` (None:
+      the newest) under ``parallel`` (and ``config``, LlamaConfig fields
+      over the job's), then the steps after it. Returns the restored
+      step and the losses, or what the restore raised;
+    - ``peers``: a save and a load without a layout (what each raised),
+      then a save under ``root`` that rank 1 never joins and a restore
+      that rank 0 never joins, with a ``timeout`` of ``wait`` seconds
+      (what each raised on the ranks that joined, and the seconds the
+      task took).
+
+    Returns {"tasks": {name: result}, "jax_modules"}."""
+    import contextlib
+    import torch
+    from paddle_tpu_torch.distributed.checkpoint import (CheckpointManager,
+                                                         Preempted)
+    from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.testing import faults
+    torch.set_num_threads(2)
+    os.environ.update(job.get("env", {}))
+    batches = np.load(job["batches"])
+    ids, labels = batches["ids"], batches["labels"]
+    weights = dict(np.load(job["weights"]))
+    out = {}
+
+    def config(kw):
+        kw = {**job["config"], **kw}
+        return tl.LlamaConfig(**{**kw, "dtype": getattr(torch, kw["dtype"])})
+
+    def run(step, state, start):
+        losses = []
+        for i in range(start, len(ids)):
+            state["params"], state["opt"], loss = step(
+                state["params"], state["opt"], ids[i], labels[i])
+            losses.append(float(loss))
+            state["step"] = i + 1
+        return losses
+
+    for task in job["tasks"]:
+        cfg = config(task.get("config", {}))
+        par = tl.ParallelConfig(use_flash=False, remat=False,
+                                **task["parallel"])
+        mgr = CheckpointManager(task["root"], keep=3, timeout=60)
+        if task["kind"] == "peers":
+            out[task["name"]] = _absent_peers(cfg, par, task, rank)
+            continue
+        if task["kind"] == "restore":
+            try:
+                step, state, got = tl.restore_train_step(
+                    cfg, par, mgr, step=task.get("step"), lr=job["lr"],
+                    device="cpu")
+            except (ValueError, FileNotFoundError) as e:
+                out[task["name"]] = {"raised": f"{type(e).__name__}: {e}"}
+                continue
+            out[task["name"]] = {"restored": got,
+                                 "losses": run(step, state, got)}
+            continue
+        step, _, _ = tl.build_train_step(cfg, par, lr=job["lr"],
+                                         device="cpu")
+        full = _unflat(weights, cfg.dtype)
+        p, o = tl.shard_train_state(full, tl._adamw_init(full), cfg, par)
+        state = {"params": p, "opt": o, "step": 0}
+        mgr.layout = step.layout
+        at = task["save_at"]
+        res = {"losses": [], "crash": [], "preempted": None}
+        for i in range(len(ids)):
+            state["params"], state["opt"], loss = step(
+                state["params"], state["opt"], ids[i], labels[i])
+            res["losses"].append(float(loss))
+            state["step"] = i + 1
+            if res["preempted"] is not None:
+                continue            # the run goes on unmanaged
+            if i + 1 == at + 1 and task.get("preempt") == rank:
+                mgr.request_preemption()
+            try:
+                mgr.on_step(i + 1, lambda: state)
+            except Preempted as e:
+                res["preempted"] = (e.step, e.checkpoint is not None)
+            if i + 1 != at:
+                continue
+            mgr.save(state, at, block=True)
+            for point, who in task.get("crash", []):
+                armed = faults.scope(point, "raise", nth=1) \
+                    if who == rank else contextlib.nullcontext()
+                try:
+                    with armed:
+                        mgr.save(state, at + 1, block=True)
+                    raised = None
+                except Exception as e:
+                    raised = type(e).__name__
+                mgr.wait()
+                res["crash"].append((raised, mgr.latest()))
+        out[task["name"]] = res
+    return {"tasks": out,
+            "jax_modules": [m for m in sys.modules
+                            if m.split(".")[0] in ("jax", "paddle_tpu")]}
+
+
+def _absent_peers(cfg, par, task, rank):
+    """The ``peers`` task of :func:`elastic_job`."""
+    import time
     from paddle_tpu_torch.distributed.checkpoint import (CheckpointManager,
                                                          load_state_dict,
                                                          save_state_dict)
-    state = {"w": torch.zeros(4)}
-    path = os.path.join(root, f"rank{rank}")
+    from paddle_tpu_torch.models import llama as tl
+    step, p, o = tl.build_train_step(cfg, par, device="cpu")
+    state = {"params": p, "opt": o, "step": 0}
     out = {}
-    for what, call in (
-            ("save_state_dict", lambda: save_state_dict(state, path)),
-            ("load_state_dict", lambda: load_state_dict(state, path)),
-            ("CheckpointManager.save",
-             lambda: CheckpointManager(path).save(state, 1)),
-            ("CheckpointManager.restore",
-             lambda: CheckpointManager(path).restore(state))):
+
+    def raised(call):
         try:
             call()
-            out[what] = None
-        except ValueError as e:
-            out[what] = str(e)
-    out["written"] = sorted(os.path.join(d, f)
-                            for d, _, files in os.walk(path) for f in files)
+        except Exception as e:
+            return f"{type(e).__name__}: {e}"
+        return None
+    path = os.path.join(task["root"], "no_layout")
+    out["save_without_layout"] = raised(lambda: save_state_dict(state, path))
+    out["load_without_layout"] = raised(lambda: load_state_dict(state, path))
+    t0 = time.monotonic()
+    mgr = CheckpointManager(task["root"], layout=step.layout,
+                            timeout=task["wait"])
+    if rank != 1:
+        out["save"] = raised(lambda: mgr.save(state, 1, block=True))
+    if rank != 0:
+        out["restore"] = raised(lambda: mgr.restore(state))
+    out["seconds"] = time.monotonic() - t0
     return out
 
 
