@@ -384,6 +384,11 @@ def build():
         for line in ptxas_lines(log):
             print(f"  {name}: {line}")
     print(f"build seconds {secs:.2f}")
+    # each nvcc's wall seconds, longest first: the first is the critical
+    # path (csrc/paged_attention.cu builds in parts, then one link)
+    print("nvcc seconds " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(_build.BUILD_SECONDS.items(),
+                                          key=lambda kv: -kv[1])))
     # the int8 split walks' shared memory (8 K row groups of partial
     # scores, a 16 KiB slice a piece) and registers bound how many CTAs
     # share an SM
@@ -6496,8 +6501,23 @@ DP_RUNS = [
     ("dp2_mp2", 4, dict(dp=2, mp=2), DP_LAYERS, 1),
     ("mp2_sh2_stage3", 4, dict(mp=2, sharding=2, zero_stage=3), DP_LAYERS,
      1),    # restored from mp2's checkpoint: its step is step 1
+    # pipeline parallelism: pp 2 over 4 microbatches of one row, its
+    # overlapped schedule (one step, bitwise pp2's step 0: DP_BITWISE), pp 4
+    # (one layer a stage) and pp 2 x mp 2
+    ("pp2", 2, dict(pp=2, microbatches=4), DP_LAYERS, DP_STEPS),
+    ("pp2_overlap", 2, dict(pp=2, microbatches=4, overlap_p2p=True),
+     DP_LAYERS, 1),
+    ("pp4", 4, dict(pp=4, microbatches=4), DP_LAYERS, 1),
+    ("pp2_mp2", 4, dict(pp=2, mp=2, microbatches=4), DP_LAYERS, 1),
 ]
-DP_ENV = {"mp2_overlap": {"PADDLE_TPU_TORCH_TP_OVERLAP": "1"}}
+# the pp 2 pair runs the split flash backward (rows 17, 18), whose sums
+# take a fixed order, so the overlapped step can be held bitwise to the
+# blocking one; pp4 and pp2_mp2 run the fused backward (row 16)
+_SPLIT = {"PADDLE_TPU_TORCH_FLASH_BWD": "split"}
+DP_ENV = {"mp2_overlap": {"PADDLE_TPU_TORCH_TP_OVERLAP": "1"},
+          "pp2": _SPLIT, "pp2_overlap": _SPLIT}
+# run -> (the run whose first step it must equal bit for bit)
+DP_BITWISE = {"pp2_overlap": "pp2"}
 # elastic resume: mp2 (world 2) saves its state after its first step with
 # a CheckpointManager, and mp2_sh2_stage3 (world 4) restores it instead
 # of starting from the seed and takes the remaining step (DP_SAVE_AT + 1
@@ -6531,7 +6551,52 @@ def bits_checksum(t):
     return acc
 
 
-def dp_reckoning(cfg, kw, layers, env=None):
+def pp_reckoning(cfg, kw, layers, stage):
+    """Collective bytes a step of a pp rank at ``stage`` (dp and sharding
+    1): T = M + S - 1 ticks (M + 2(S - 1) overlapped), each a hop of one
+    microbatch [B/M, S, H] bf16 forward and its reverse in the backward;
+    embed's, lm_head's (their mp blocks) and final_norm's gradients and
+    the f32 loss all-reduced over pp. With mp, a layer's five [B, S, H]
+    all-reduces of ``dp_reckoning`` over this stage's L/S layers (M
+    microbatches of B/M rows), and the whole embed gathered on stage 0
+    and the whole lm_head on the last (the pipeline's loss is the plain
+    cross entropy)."""
+    import collections
+    c = cfg
+    H, V, mp = c.hidden_size, c.vocab_size, kw.get("mp", 1)
+    S = kw["pp"]
+    M = max(kw.get("microbatches", 1), S)
+    T = M + (2 if kw.get("overlap_p2p") else 1) * (S - 1)
+    out = collections.Counter()
+    out["ppermute.pp"] = 2 * T * 2 * (TRAIN_B // M) * TRAIN_S * H
+    head = 0 if c.tie_word_embeddings else 2 * H * V // mp
+    out["all_reduce.pp"] = 2 * V * H // mp + head + 2 * H + 4
+    if mp > 1:
+        out["all_reduce.mp"] = 5 * (layers // S) * 2 * TRAIN_B * TRAIN_S * H
+        gathered = (2 * V * H if stage == 0 else 0) + (
+            2 * V * H if stage == S - 1 and not c.tie_word_embeddings
+            else 0)
+        if gathered:
+            out["all_gather.mp"] = gathered
+    return out
+
+
+def pp_launches(L, kw, stage, split):
+    """Launches of rows 1, 14 and 16 (or 17 and 18 under ``split``) on a
+    pp rank at ``stage`` in one step under full remat: its L/S layers run
+    on its M active ticks, a layer's forward both norms and one flash
+    forward, its recompute the same again, its backward one flash
+    backward; the last stage also the final norm."""
+    S = kw["pp"]
+    n = (L // S) * max(kw.get("microbatches", 1), S)
+    out = {"rms_norm": 4 * n + (stage == S - 1), "flash_fwd": 2 * n,
+           "flash_bwd": 0 if split else n}
+    if split:
+        out.update(flash_bwd_dkv=n, flash_bwd_dq=n)
+    return out
+
+
+def dp_reckoning(cfg, kw, layers, env=None, stage=0):
     """Collective bytes a step of one rank, by "op.axis", from the shapes
     (bf16 params, each matrix, embed and lm_head 1/mp of it on a rank;
     the count and the loss are one f32 each, over the dp x sharding
@@ -6549,7 +6614,7 @@ def dp_reckoning(cfg, kw, layers, env=None):
     [b, S] f32 reductions; with the rings (``env``
     PADDLE_TPU_TORCH_TP_OVERLAP) down_proj's all-reduce becomes
     2 (mp - 1) hops of [b S / mp, H] forward and again in the
-    recompute."""
+    recompute. A pp run (``stage`` its rank's): :func:`pp_reckoning`."""
     import collections
     c = cfg
     L, H, I, V = layers, c.hidden_size, c.intermediate_size, c.vocab_size
@@ -6563,6 +6628,8 @@ def dp_reckoning(cfg, kw, layers, env=None):
     total = mats + layer_norms + emb + head + 2 * H
     world = "dp" if sh == 1 else "sharding" if dp == 1 else "dp,sharding"
     out = collections.Counter()
+    if kw.get("pp", 1) > 1:
+        return dict(pp_reckoning(c, kw, layers, stage))
     if mp > 1:
         rows = TRAIN_B // (dp * sh)
         act = 2 * rows * TRAIN_S * H
@@ -6599,7 +6666,8 @@ def dp_reckoning(cfg, kw, layers, env=None):
 def dp_state_reckoning(cfg, kw, layers):
     """Bytes a rank holds for params (bf16), gradients (bf16) and f32
     moments, 12 a param on one rank, of the params it holds (mp keeps
-    1/mp of every matrix, embed and lm_head, and whole norms): dp keeps
+    1/mp of every matrix, embed and lm_head, and whole norms; a pp stage
+    its L/S layers, embed, final_norm and lm_head): dp keeps
     all of it; stage 1 shards the moments, stage 2 also the gradients,
     stage 3 everything, plus the full bf16 weights (of its mp slice) of
     one gathered layer, embed and lm_head."""
@@ -6613,7 +6681,7 @@ def dp_state_reckoning(cfg, kw, layers):
         n = tl.count_params(dataclasses.replace(c, num_hidden_layers=layers))
         norms = (2 * layers + 1) * c.hidden_size
         return (n - norms) // mp + norms
-    n = held(layers)
+    n = held(layers // kw.get("pp", 1))
     if sh == 1:
         return 12 * n
     if stage <= 1:
@@ -6654,7 +6722,8 @@ def leaf_rel_errors(p, ref, cfg=None, par=None):
     from paddle_tpu_torch.models import llama as tl
     if par is not None:
         degrees, coord = tl._mesh_place(par)
-        specs = tl.param_pspecs(cfg, par)
+        specs = tl.train_state_pspecs(cfg, par)[0]
+        ref = tl.stage_layers(ref, cfg, par)    # a pp stage's layer slices
     out = {}
     for name, (t,) in _grad_items(p):
         r = _at(ref, name)
@@ -6719,36 +6788,6 @@ def _dp_start(name):
     return DP_SAVE_AT if name == DP_RESTORE_INTO else 0
 
 
-def restored_mismatches(state, path, layout):
-    """The leaves of ``state`` (this rank's shards, on the card, as
-    restored) whose bits differ from their slice of the saved whole
-    leaves under ``path`` (under ``layout``), read and compared on the
-    host one leaf at a time; and the number of leaves compared."""
-    from paddle_tpu_torch.distributed.checkpoint import save_load as sl
-    bad, n = [], 0
-
-    def walk(t, saved, spec, name):
-        nonlocal n
-        if isinstance(t, dict):
-            for k in t:
-                walk(t[k], saved[k],
-                     spec.get(k) if isinstance(spec, dict) else None,
-                     f"{name}/{k}" if name else k)
-            return
-        if not isinstance(t, torch.Tensor):
-            return
-        spec = spec if isinstance(spec, tuple) else None
-        want = saved.read(layout.region(saved.shape, spec))
-        got = t.detach().cpu()
-        bits = torch.int16 if got.element_size() == 2 else torch.int32
-        n += 1
-        if got.shape != want.shape or not torch.equal(got.view(bits),
-                                                      want.view(bits)):
-            bad.append(name)
-    walk(state, sl.read_tree(path), layout.specs, "")
-    return bad, n
-
-
 def train_dp_rank(rank, world, runs, dev, t_spawn, refs, ckpt_root):
     """One rank of the train-dp phase (spawned; the process group is up):
     each run of ``runs`` at this world size on ``dev``, its losses, step
@@ -6767,6 +6806,7 @@ def train_dp_rank(rank, world, runs, dev, t_spawn, refs, ckpt_root):
     from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
     from paddle_tpu_torch.models import llama as tl
     from paddle_tpu_torch.observability import trace
+    from paddle_tpu_torch.testing.dist import restored_mismatches
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6781,14 +6821,15 @@ def train_dp_rank(rank, world, runs, dev, t_spawn, refs, ckpt_root):
         env = DP_ENV.get(name, {})
         os.environ.update(env)
         t0 = time.perf_counter()
-        ckpt, start = {}, _dp_start(name)
+        ckpt, start, first = {}, _dp_start(name), None
         if name == DP_RESTORE_INTO:
             mgr = CheckpointManager(ckpt_root)
             step, st, got = tl.restore_train_step(cfg, par, mgr, seed=SEED,
                                                   device=dev)
             p, o = st["params"], st["opt"]
             torch.cuda.synchronize()
-            bad, n = restored_mismatches(st, mgr.step_dir(got), step.layout)
+            bad, n = restored_mismatches(st, mgr.step_dir(got),
+                                         step.layout)
             ckpt = {"restored_step": got, "leaves_compared": n,
                     "leaves_differing": bad, **mgr.last_restore}
         else:
@@ -6796,6 +6837,7 @@ def train_dp_rank(rank, world, runs, dev, t_spawn, refs, ckpt_root):
                                              device=dev)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
+        t_run = t0
         state = _tree_bytes(p) + _tree_bytes({"m": o["m"], "v": o["v"]})
         torch.cuda.reset_peak_memory_stats()
         _zero_counts()
@@ -6807,6 +6849,9 @@ def train_dp_rank(rank, world, runs, dev, t_spawn, refs, ckpt_root):
             p, o, loss = step(p, o, x[:, :-1], x[:, 1:])
             losses.append(float(loss))
             step_ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0 and name in DP_BITWISE.values():
+                first = {k: bits_checksum(ts[0])
+                         for k, ts in _grad_items(p)}
             if name == DP_SAVE_FROM and i + 1 == DP_SAVE_AT:
                 mgr = CheckpointManager(ckpt_root, layout=step.layout)
                 torch.cuda.synchronize()
@@ -6834,7 +6879,8 @@ def train_dp_rank(rank, world, runs, dev, t_spawn, refs, ckpt_root):
                           for k, ts in _grad_items(p)},
             "param_rel": leaf_rel_errors(p, refs[(layers, start + steps)],
                                          cfg, par),
-            "checkpoint": ckpt}
+            "first_step_checksums": first,
+            "checkpoint": ckpt, "run_s": time.perf_counter() - t_run}
         del step, p, o
         gc.collect()
         torch.cuda.empty_cache()
@@ -6855,9 +6901,10 @@ def _card_line():
 
 
 def train_dp(dev):
-    """build_train_step at llama_7b's width over dp, ZeRO sharding and mp
+    """build_train_step at llama_7b's width over dp, ZeRO sharding, mp
     (alone, with the fused FFN ring, and composed with dp and with
-    sharding at stage 3), W ranks (spawned processes) sharing cuda:0
+    sharding at stage 3) and pp (alone, overlapped, at 4 stages and
+    composed with mp), W ranks (spawned processes) sharing cuda:0
     through gloo, which stages each CUDA tensor through the host: a
     check of correctness and memory per rank, not of collective speed.
     Losses and params are held to the single process's (dp_references),
@@ -6869,8 +6916,8 @@ def train_dp(dev):
     import dataclasses
     from paddle_tpu_torch.models import llama as tl
     phase(f"train-dp llama_7b width (bf16, B={TRAIN_B}, S={TRAIN_S}, full "
-          f"remat, AdamW f32 moments): dp, ZeRO stages 1-3 and mp over 2 "
-          f"and 4 ranks sharing the card (gloo)")
+          f"remat, AdamW f32 moments): dp, ZeRO stages 1-3, mp and pp over "
+          f"2 and 4 ranks sharing the card (gloo)")
     refs, controls, skip_gap = dp_references(dev)
     fails, res = [], {}
     for c, (err, leaf) in controls.items():
@@ -6956,17 +7003,28 @@ def _train_dp_checks(runs, res, fails):
                          f"{[r['losses'] for r in per]}")
         # dp replicas (the same sharding and mp coordinates) hold the
         # same bits; stage 3's other shards and the other mp ranks agree
-        # on the replicated norms only
+        # on the replicated norms only; pp stages hold other layers and
+        # the same embed, final_norm and lm_head
         stage3 = kw.get("sharding", 1) > 1 and kw.get("zero_stage", 3) >= 3
         for a in per:
             for b in per:
                 same = a["coord"][4] == b["coord"][4] and (
                     a["coord"][2] == b["coord"][2] or not stage3)
                 bad = [k for k in a["checksums"] if (same or "norm" in k)
+                       and (a["coord"][1] == b["coord"][1]
+                            or not k.startswith("layers/"))
                        and a["checksums"][k] != b["checksums"][k]]
                 if bad:
                     fails.append(f"{name}: ranks {a['coord']} and "
                                  f"{b['coord']} differ in {bad}")
+        if name in DP_BITWISE:
+            ref = [r[DP_BITWISE[name]] for r in runs[DP_BITWISE[name]]]
+            if losses != ref[0]["losses"][:1] or any(
+                    a["checksums"] != b["first_step_checksums"]
+                    for a, b in zip(per, ref)):
+                fails.append(f"{name}: not bitwise {DP_BITWISE[name]}'s "
+                             f"first step (losses {losses}, "
+                             f"{ref[0]['losses'][:1]})")
         single = res[name]["single_process_losses"]
         gaps = [_rel(x, y) for x, y in zip(losses, single)]
         limits = [DP_STEP0_RTOL if _dp_start(name) + k == 0 else
@@ -6979,24 +7037,32 @@ def _train_dp_checks(runs, res, fails):
         if worst[0] > DP_PARAM_REL:
             fails.append(f"{name}: rank {worst[2]}'s {worst[1]} is "
                          f"{worst[0]} off the single process's params")
-        want = {k: v * steps
-                for k, v in step_launches(layers, "full").items()}
-        reckon = dp_reckoning(c, kw, layers, DP_ENV.get(name))
+        env = DP_ENV.get(name, {})
+        split = env.get("PADDLE_TPU_TORCH_FLASH_BWD") == "split"
+
+        def want_of(r):     # launches a rank's steps, by its pp stage
+            if kw.get("pp", 1) == 1:
+                once = step_launches(layers, "full")
+            else:
+                once = pp_launches(layers, kw, r["coord"][1], split)
+            return {k: v * steps for k, v in once.items()}
         state_gb = dp_state_reckoning(c, kw, layers) / 1e9
-        if name in DP_ENV and not all(
+        if env.get("PADDLE_TPU_TORCH_TP_OVERLAP") and not all(
                 r["tp_plans"].get("tp.fused_ffn.plans", 0) >= 1 for r in per):
             fails.append(f"{name}: the fused FFN plan did not apply: "
                          f"{[r['tp_plans'] for r in per]}")
         for rank, r in enumerate(per):
-            got = {k: r["launches"][k] for k in want}
-            if got != want:
-                fails.append(f"{name} rank {rank}: launches {got}, "
-                             f"want {want}")
+            want = want_of(r)
+            r["launches"] = {k: r["launches"][k] for k in want}
+            if r["launches"] != want:
+                fails.append(f"{name} rank {rank}: launches "
+                             f"{r['launches']}, want {want}")
+            r["reckoned"] = dp_reckoning(c, kw, layers, env, r["coord"][1])
             comm = {k[:-len(".bytes")]: v for k, v in
                     r["comm_per_step"].items() if k.endswith(".bytes")}
-            if comm != reckon:
+            if comm != r["reckoned"]:
                 fails.append(f"{name} rank {rank}: collective bytes a step "
-                             f"{comm}, reckoned {reckon}")
+                             f"{comm}, reckoned {r['reckoned']}")
         res[name].update({
             "world": world, "parallel": kw, "layers": layers,
             "steps": steps, "losses": losses, "loss_rel_gaps": gaps,
@@ -7007,19 +7073,21 @@ def _train_dp_checks(runs, res, fails):
                            f" (two {TRAIN_LAYERS}-layer replicas would need "
                            f"2 x 42.0 GB)")
                         + f", {steps} step{'s' * (steps > 1)}"),
-            "collective_bytes_reckoned": reckon,
             "state_gb_reckoned": state_gb,
+            "run_s": max(r["run_s"] for r in per),
             "ranks": [{k: r[k] for k in ("coord", "peak_bytes",
                                          "state_bytes", "step_ms",
                                          "build_s", "comm_per_step",
                                          "param_rel", "tp_plans",
-                                         "checkpoint")}
-                      | {"launches": {k: r["launches"][k] for k in want}}
+                                         "checkpoint", "launches",
+                                         "reckoned", "run_s")}
                       for r in per]})
         print(f"{name} (world {world}, {layers} layers, {kw}"
-              f"{', ' + str(DP_ENV[name]) if name in DP_ENV else ''}): losses "
+              f"{', ' + str(env) if env else ''}): losses "
               f"{losses}; rel gaps to one process {gaps}; params: worst "
-              f"leaf {worst[1]} {worst[0]:.4e} (rank {worst[2]})")
+              f"leaf {worst[1]} {worst[0]:.4e} (rank {worst[2]}); "
+              f"{res[name]['run_s']:.1f} s (the slowest rank's build and "
+              f"steps)")
         for rank, r in enumerate(per):
             calls = {k[:-len(".calls")]: v for k, v in
                      r["comm_per_step"].items() if k.endswith(".calls")}
@@ -7027,11 +7095,11 @@ def _train_dp_checks(runs, res, fails):
                   f"{r['peak_bytes'] / 1e9:.2f} GB, state (params and "
                   f"moments) {r['state_bytes'] / 1e9:.2f} GB; step ms "
                   f"(gloo through the host) {r['step_ms']}; launches "
-                  f"{ {k: r['launches'][k] for k in want} }; a step: "
-                  f"calls {calls}, bytes "
-                  f"{ {k: v for k, v in r['comm_per_step'].items() if k.endswith('.bytes')} }")
-        print(f"  reckoned: bytes a step {reckon}; state a rank "
-              f"{state_gb:.2f} GB (params, gradients, f32 moments"
+                  f"{r['launches']}; a step: calls {calls}, bytes "
+                  f"{ {k: v for k, v in r['comm_per_step'].items() if k.endswith('.bytes')} }"
+                  f" (reckoned {r['reckoned']})")
+        print(f"  reckoned: state a rank {state_gb:.2f} GB (params, "
+              f"gradients, f32 moments"
               f"{', a gathered layer, embed and lm_head' if stage3 else ''})")
     stage_losses = {n: res[n]["losses"] for n in
                     ("sh2_stage1", "sh2_stage2", "dp2_sh2_stage3")}
@@ -7537,6 +7605,7 @@ def main():
     dev = torch.device("cuda", 0)
     sys.path.insert(0, ROOT)
     build_s = build()
+    from paddle_tpu_torch import _build
     errs = check_kernels(dev)
     check_paged_read(dev, errs)
     check_verify(dev, errs)
@@ -7765,6 +7834,7 @@ def main():
     wall_s = time.perf_counter() - t_start
     record = {"nvidia_smi": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
+              "build_nvcc_s": _build.BUILD_SECONDS,
               "max_abs_err": errs, "dead_columns": dead, "serve": serve,
               "serve_spec": spec,
               "serve_13b": serve13, "train": train,

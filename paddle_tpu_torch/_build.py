@@ -11,7 +11,9 @@ tree reuses it. The library is loaded with ``ctypes``; callers declare
 ints) through :func:`kernel`.
 
 Several sources build at once: :func:`build_all` starts one ``nvcc`` per
-source and waits for all of them. Nothing here runs at import time.
+source, or for a source of :data:`PARTS` one a part and then the link,
+and waits for all of them (:data:`BUILD_SECONDS` holds each one's wall
+seconds). Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -21,8 +23,10 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -30,9 +34,21 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC", "-Xptxas=-v"]
 
+# sources compiled as several translation units at once, one nvcc each
+# given -DBUILD_PART=<index> (the source keeps only that part's entries),
+# then linked into the one library: the parts' names in index order
+PARTS: Dict[str, Tuple[str, ...]] = {
+    "paged_attention": ("update", "read", "verify", "quant_decode",
+                        "quant_verify", "commit")}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# ptxas register/spill report of each build, by source name
+# ptxas register/spill report of each build, by source name (a source of
+# PARTS: its parts' reports in part order)
 BUILD_LOGS: Dict[str, str] = {}
+# wall seconds of each nvcc of a build: a whole source by its name, a part
+# as "<name>.<part>", the link as "<name>.link" and a source of PARTS
+# also by its name, from its first part's start to its link's end
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -55,45 +71,82 @@ def _lib_path(name: str) -> Path:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    if name in PARTS:
+        h.update(" ".join(list(PARTS[name]) + _compile_flags(0)
+                          + _link_flags()).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str, out: Path) -> subprocess.Popen:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build into a private temp name, then rename: a concurrent build
-    # never loads a half-written library
+def _compile_flags(part: int) -> List[str]:
+    """A part's flags: an object file, not a library, of BUILD_PART."""
+    return [f for f in NVCC_FLAGS if f != "-shared"] + [
+        "-c", f"-DBUILD_PART={part}"]
+
+
+def _link_flags() -> List[str]:
+    return ARCH_FLAGS + ["-shared"]
+
+
+def _nvcc(label: str, args: List[str], name: str) -> str:
+    """Run one nvcc to its end; its wall seconds go to BUILD_SECONDS
+    under ``label``. Returns its output (ptxas's report)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc_path()] + args, capture_output=True,
+                          text=True)
+    BUILD_SECONDS[label] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise KernelBuildError(
+            f"nvcc failed on csrc/{name}.cu ({label}, exit "
+            f"{proc.returncode}):\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def _build_one(name: str, out: Path) -> None:
+    """Build ``csrc/<name>.cu`` into ``out``: one nvcc, or for a source of
+    PARTS one nvcc a part, all at once, then one that links them. The
+    library is built under a private temp name and renamed, so a
+    concurrent build never loads a half-written one."""
+    t0 = time.perf_counter()
+    src = str(CSRC / f"{name}.cu")
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path()] + NVCC_FLAGS + ["-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
-    proc.tmp, proc.out, proc.name = tmp, out, name  # type: ignore[attr-defined]
-    return proc
-
-
-def _finish(proc: subprocess.Popen) -> None:
-    stdout, stderr = proc.communicate()
-    BUILD_LOGS[proc.name] = stdout + stderr
-    if proc.returncode != 0:
-        Path(proc.tmp).unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed on csrc/{proc.name}.cu (exit {proc.returncode}):\n"
-            f"{stderr}")
-    os.replace(proc.tmp, proc.out)
+    parts = PARTS.get(name, ())
+    objs = [f"{tmp[:-3]}.{part}.o" for part in parts]
+    try:
+        if not parts:
+            log = _nvcc(name, NVCC_FLAGS + ["-o", tmp, src], name)
+        else:
+            with ThreadPoolExecutor(len(parts)) as ex:
+                futs = [ex.submit(_nvcc, f"{name}.{part}",
+                                  _compile_flags(i) + ["-o", obj, src], name)
+                        for i, (part, obj) in enumerate(zip(parts, objs))]
+                log = "".join(f.result() for f in futs)
+            _nvcc(f"{name}.link", _link_flags() + ["-o", tmp] + objs, name)
+        BUILD_LOGS[name] = log
+        os.replace(tmp, out)
+    finally:
+        for f in [tmp] + objs:
+            Path(f).unlink(missing_ok=True)
+        if parts:
+            BUILD_SECONDS[name] = time.perf_counter() - t0
 
 
 def build_all(names: Iterable[str]) -> List[Path]:
-    """Build every named source that has no current library, all nvcc
-    processes started together; returns the library paths."""
+    """Build every named source that has no current library, every nvcc
+    started together; returns the library paths."""
     names = list(names)
     paths = [_lib_path(n) for n in names]
-    procs = [_start(n, p) for n, p in zip(names, paths) if not p.exists()]
+    todo = [(n, p) for n, p in zip(names, paths) if not p.exists()]
+    if not todo:
+        return paths
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     errors = []
-    for proc in procs:
-        try:
-            _finish(proc)
-        except KernelBuildError as e:
-            errors.append(str(e))
+    with ThreadPoolExecutor(len(todo)) as ex:
+        for fut in [ex.submit(_build_one, n, p) for n, p in todo]:
+            try:
+                fut.result()
+            except KernelBuildError as e:
+                errors.append(str(e))
     if errors:
         raise KernelBuildError("\n".join(errors))
     return paths

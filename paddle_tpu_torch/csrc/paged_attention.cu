@@ -178,6 +178,21 @@
 //
 // The kernels allocate nothing and do not synchronise; they launch on the
 // caller's stream.
+//
+// The build compiles this file as several translation units at once, one
+// nvcc each (paddle_tpu_torch/_build.py, PARTS), and links them into one
+// library: -DBUILD_PART=n keeps only part n's entries, and so instantiates
+// only the kernels they launch (the split walk's instantiations set the
+// file's compile time). Without BUILD_PART one unit holds every part.
+//   0 row 3 (bf16 and f32)      3 rows 5 and 4 (int8 decode)
+//   1 row 2 (bf16 and f32)      4 row 7 (int8 verify)
+//   2 row 6 (bf16 and f32)      5 rows 8 and 9 (the commit), the error
+//                                 string and paged_quant_occupancy
+#ifdef BUILD_PART
+#define PAGED_PART(n) (BUILD_PART == (n))
+#else
+#define PAGED_PART(n) 1
+#endif
 #include <math.h>
 
 #include <type_traits>
@@ -1018,17 +1033,17 @@ cudaError_t launch_decode(const SplitArgs& a, int b, int rep, cudaStream_t s) {
   }
 }
 
-// rows 3 (WRITE) and 2 (read-only; nk, nv null), and over int8 pools (quant)
-// rows 5 (WRITE) and 4 (nk, nv, nks, nvs null): the shared entry; dtype is
-// q's type, and without quant the pools' and the new columns'
-template <bool WRITE>
-int split_entry(bool quant, const void* q, const void* nk, const void* nv, const void* nks,
+// rows 3 (WRITE) and 2 (read-only; nk, nv null), and over int8 pools
+// (QUANT) rows 5 (WRITE) and 4 (nk, nv, nks, nvs null): the shared entry;
+// dtype is q's type, and without QUANT the pools' and the new columns'
+template <bool WRITE, bool QUANT>
+int split_entry(const void* q, const void* nk, const void* nv, const void* nks,
                 const void* nvs, void* kp, void* vp, void* ks, void* vs, const void* tables,
                 const void* rows, void* out, void* part, void* sync, int b, int layer, int np,
                 int nh, int nkv, int hd, int bs, int max_nb, int nsplit, int dtype,
                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((quant ? bad_quant_geometry(nh, nkv, hd, bs) : bad_geometry(nh, nkv, hd, bs)) ||
+  if ((QUANT ? bad_quant_geometry(nh, nkv, hd, bs) : bad_geometry(nh, nkv, hd, bs)) ||
       max_nb < 1 || nsplit < 1 || nsplit > max_nb || nsplit > kMaxSplits ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -1059,9 +1074,12 @@ int split_entry(bool quant, const void* q, const void* nk, const void* nv, const
     a.nchunk = 1;
     a.q_bf16 = dtype;
     constexpr int M = WRITE ? kUpdate : kRead;
-    const cudaError_t e = quant       ? launch_decode<int8_t, M>(a, b, a.rep, s)
-                          : dtype == 0 ? launch_decode<float, M>(a, b, a.rep, s)
-                                       : launch_decode<__nv_bfloat16, M>(a, b, a.rep, s);
+    cudaError_t e;
+    if constexpr (QUANT)
+      e = launch_decode<int8_t, M>(a, b, a.rep, s);
+    else
+      e = dtype == 0 ? launch_decode<float, M>(a, b, a.rep, s)
+                     : launch_decode<__nv_bfloat16, M>(a, b, a.rep, s);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
@@ -1080,16 +1098,17 @@ cudaError_t launch_verify(const SplitArgs& a, int b, int height, cudaStream_t s)
   }
 }
 
-// rows 6 and 7: the shared entry (ks, vs null over float pools); quant
+// rows 6 and 7: the shared entry (ks, vs null over float pools); QUANT
 // selects int8 pools with q of type dtype, else pools and q of that type
-int verify_entry(bool quant, const void* q, const void* kp, const void* vp, const void* ks,
+template <bool QUANT>
+int verify_entry(const void* q, const void* kp, const void* vp, const void* ks,
                  const void* vs, const void* tables, const void* qstart, void* acc, void* m,
                  void* l, void* part, void* sync, int b, int t_fed, int layer, int np, int nh,
                  int nkv, int hd, int bs, int max_nb, int nsplit, int nchunk, int height,
                  int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = nkv > 0 ? t_fed * (nh / nkv) : 0;
-  if ((quant ? bad_quant_geometry(nh, nkv, hd, bs) : bad_geometry(nh, nkv, hd, bs)) ||
+  if ((QUANT ? bad_quant_geometry(nh, nkv, hd, bs) : bad_geometry(nh, nkv, hd, bs)) ||
       t_fed < 1 || t_fed > kMaxFed || max_nb < 1 || nsplit < 1 || nsplit > max_nb ||
       nsplit > kMaxSplits || (dtype != 0 && dtype != 1) || nchunk < 1 ||
       nchunk * height < rows || (nchunk - 1) * height >= rows)
@@ -1119,9 +1138,12 @@ int verify_entry(bool quant, const void* q, const void* kp, const void* vp, cons
     a.t_fed = t_fed;
     a.nchunk = nchunk;
     a.q_bf16 = dtype;
-    const cudaError_t e = quant       ? launch_verify<int8_t>(a, b, height, s)
-                          : dtype == 0 ? launch_verify<float>(a, b, height, s)
-                                       : launch_verify<__nv_bfloat16>(a, b, height, s);
+    cudaError_t e;
+    if constexpr (QUANT)
+      e = launch_verify<int8_t>(a, b, height, s);
+    else
+      e = dtype == 0 ? launch_verify<float>(a, b, height, s)
+                     : launch_verify<__nv_bfloat16>(a, b, height, s);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
@@ -1138,28 +1160,33 @@ int verify_entry(bool quant, const void* q, const void* kp, const void* vp, cons
 // scratch of b * nkv * nsplit * (3 + hd) * nh / nkv floats, sync b * nkv *
 // (2 + nsplit) ints, zero (each launch leaves it zero; launches sharing it
 // run in stream order).
+#if PAGED_PART(0)
 extern "C" int paged_attend_update_fwd(const void* q, const void* nk, const void* nv,
                                        void* kp, void* vp, const void* tables,
                                        const void* positions, void* out, void* part,
                                        void* sync, int b, int layer, int np, int nh, int nkv,
                                        int hd, int bs, int max_nb, int nsplit, int dtype,
                                        void* stream) {
-  return split_entry<true>(false, q, nk, nv, nullptr, nullptr, kp, vp, nullptr, nullptr, tables,
-                           positions, out, part, sync, b, layer, np, nh, nkv, hd, bs, max_nb,
-                           nsplit, dtype, stream);
+  return split_entry<true, false>(q, nk, nv, nullptr, nullptr, kp, vp, nullptr, nullptr, tables,
+                                  positions, out, part, sync, b, layer, np, nh, nkv, hd, bs,
+                                  max_nb, nsplit, dtype, stream);
 }
+#endif
 
 // Row 2: the same geometry and scratch, nothing written; lengths[b] tokens
 // read, with (lengths[b] - 1) / bs < max_nb.
+#if PAGED_PART(1)
 extern "C" int paged_attention_fwd(const void* q, const void* kp, const void* vp,
                                    const void* tables, const void* lengths, void* out,
                                    void* part, void* sync, int b, int layer, int np, int nh,
                                    int nkv, int hd, int bs, int max_nb, int nsplit, int dtype,
                                    void* stream) {
-  return split_entry<false>(false, q, nullptr, nullptr, nullptr, nullptr, const_cast<void*>(kp),
-                            const_cast<void*>(vp), nullptr, nullptr, tables, lengths, out, part,
-                            sync, b, layer, np, nh, nkv, hd, bs, max_nb, nsplit, dtype, stream);
+  return split_entry<false, false>(q, nullptr, nullptr, nullptr, nullptr, const_cast<void*>(kp),
+                                   const_cast<void*>(vp), nullptr, nullptr, tables, lengths, out,
+                                   part, sync, b, layer, np, nh, nkv, hd, bs, max_nb, nsplit,
+                                   dtype, stream);
 }
+#endif
 
 // q [b, t_fed, nh, hd] pre-scaled, in the pools' dtype; acc [b, t_fed, nh,
 // hd], m and l [b, t_fed, nh], all f32. The geometry is that of
@@ -1169,21 +1196,24 @@ extern "C" int paged_attention_fwd(const void* q, const void* kp, const void* vp
 // (the last chunk may be short, none empty); part is f32 scratch of b * nkv
 // * nchunk * nsplit * (3 + hd) * height floats, sync b * nkv * nchunk * (2 +
 // nsplit) ints, zero (each launch leaves it zero).
+#if PAGED_PART(2)
 extern "C" int paged_attention_verify_fwd(const void* q, const void* kp, const void* vp,
                                           const void* tables, const void* qstart, void* acc,
                                           void* m, void* l, void* part, void* sync, int b,
                                           int t_fed, int layer, int np, int nh, int nkv, int hd,
                                           int bs, int max_nb, int nsplit, int nchunk,
                                           int height, int dtype, void* stream) {
-  return verify_entry(false, q, kp, vp, nullptr, nullptr, tables, qstart, acc, m, l, part, sync,
-                      b, t_fed, layer, np, nh, nkv, hd, bs, max_nb, nsplit, nchunk, height,
-                      dtype, stream);
+  return verify_entry<false>(q, kp, vp, nullptr, nullptr, tables, qstart, acc, m, l, part, sync,
+                             b, t_fed, layer, np, nh, nkv, hd, bs, max_nb, nsplit, nchunk, height,
+                             dtype, stream);
 }
+#endif
 
 // new_k/new_v [n_layers, b, t_fed, kvd] in the pools' dtype, pools [n_layers,
 // np, kvd, bs]; tables [b, max_nb], qstart and commit_len [b] int32, with
 // 1 <= t_fed <= 8 and (qstart[b] + commit_len[b] - 1) / bs < max_nb. Only
 // live columns (t < commit_len[b]) are written, and never into block 0.
+#if PAGED_PART(5)
 extern "C" int paged_verify_commit_fwd(const void* nk, const void* nv, void* kp, void* vp,
                                        const void* tables, const void* qstart,
                                        const void* commit_len, int n_layers, int b,
@@ -1205,6 +1235,7 @@ extern "C" int paged_verify_commit_fwd(const void* nk, const void* nv, void* kp,
     e = cudaErrorInvalidValue;
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
+#endif
 
 // The int8 entries: pools int8 [n_layers, np, kvd, bs], scale pools f32
 // [n_layers, np, nkv, bs], 16-byte aligned; q [b, nh, hd] (verify: [b,
@@ -1213,6 +1244,7 @@ extern "C" int paged_verify_commit_fwd(const void* nk, const void* nv, void* kp,
 // == 0. Row 5: new_k/new_v int8 [b, kvd], new_ks/new_vs f32 [b, nkv],
 // written at positions[b]; row 4: lengths[b] tokens read, (lengths[b] - 1)
 // / bs < max_nb.
+#if PAGED_PART(3)
 extern "C" int paged_attend_update_quant_fwd(const void* q, const void* nk, const void* nv,
                                              const void* nks, const void* nvs, void* kp,
                                              void* vp, void* ks, void* vs, const void* tables,
@@ -1220,9 +1252,9 @@ extern "C" int paged_attend_update_quant_fwd(const void* q, const void* nk, cons
                                              void* sync, int b, int layer, int np, int nh,
                                              int nkv, int hd, int bs, int max_nb, int nsplit,
                                              int dtype, void* stream) {
-  return split_entry<true>(true, q, nk, nv, nks, nvs, kp, vp, ks, vs, tables, positions, out,
-                           part, sync, b, layer, np, nh, nkv, hd, bs, max_nb, nsplit, dtype,
-                           stream);
+  return split_entry<true, true>(q, nk, nv, nks, nvs, kp, vp, ks, vs, tables, positions, out,
+                                 part, sync, b, layer, np, nh, nkv, hd, bs, max_nb, nsplit, dtype,
+                                 stream);
 }
 
 extern "C" int paged_attention_quant_fwd(const void* q, const void* kp, const void* vp,
@@ -1231,14 +1263,16 @@ extern "C" int paged_attention_quant_fwd(const void* q, const void* kp, const vo
                                          int b, int layer, int np, int nh, int nkv, int hd,
                                          int bs, int max_nb, int nsplit, int dtype,
                                          void* stream) {
-  return split_entry<false>(true, q, nullptr, nullptr, nullptr, nullptr, const_cast<void*>(kp),
-                            const_cast<void*>(vp), const_cast<void*>(ks), const_cast<void*>(vs),
-                            tables, lengths, out, part, sync, b, layer, np, nh, nkv, hd, bs,
-                            max_nb, nsplit, dtype, stream);
+  return split_entry<false, true>(q, nullptr, nullptr, nullptr, nullptr, const_cast<void*>(kp),
+                                  const_cast<void*>(vp), const_cast<void*>(ks),
+                                  const_cast<void*>(vs), tables, lengths, out, part, sync, b,
+                                  layer, np, nh, nkv, hd, bs, max_nb, nsplit, dtype, stream);
 }
+#endif
 
 // Row 7: paged_attention_verify_fwd's contract over int8 pools and their
 // scale pools (16-byte aligned), q of type dtype
+#if PAGED_PART(4)
 extern "C" int paged_attention_verify_quant_fwd(const void* q, const void* kp, const void* vp,
                                                 const void* ks, const void* vs,
                                                 const void* tables, const void* qstart,
@@ -1247,12 +1281,15 @@ extern "C" int paged_attention_verify_quant_fwd(const void* q, const void* kp, c
                                                 int nh, int nkv, int hd, int bs, int max_nb,
                                                 int nsplit, int nchunk, int height, int dtype,
                                                 void* stream) {
-  return verify_entry(true, q, kp, vp, ks, vs, tables, qstart, acc, m, l, part, sync, b, t_fed,
-                      layer, np, nh, nkv, hd, bs, max_nb, nsplit, nchunk, height, dtype, stream);
+  return verify_entry<true>(q, kp, vp, ks, vs, tables, qstart, acc, m, l, part, sync, b, t_fed,
+                            layer, np, nh, nkv, hd, bs, max_nb, nsplit, nchunk, height, dtype,
+                            stream);
 }
+#endif
 
 // new_k/new_v int8 [n_layers, b, t_fed, kvd], new_ks/new_vs f32 [n_layers,
 // b, t_fed, nkv]; otherwise paged_verify_commit_fwd's contract
+#if PAGED_PART(5)
 extern "C" int paged_verify_commit_quant_fwd(const void* nk, const void* nv, const void* nks,
                                              const void* nvs, void* kp, void* vp, void* ks,
                                              void* vs, const void* tables, const void* qstart,
@@ -1270,6 +1307,7 @@ extern "C" int paged_verify_commit_quant_fwd(const void* nk, const void* nv, con
   const cudaError_t e = launch_commit<uint8_t, true>(a, s);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
+#endif
 
 namespace {
 template <typename K>
@@ -1282,37 +1320,73 @@ int occupancy(K kernel, int bs, size_t smem) {
 }
 
 template <int R>
-int quant_occupancy(int kind, int hd, int bs) {
+bool quant_geometry(int hd, int bs, size_t* smem) {
   int prow, nbuf;
+  return split_geometry<int8_t, R>(hd, bs, 1, &prow, &nbuf, smem);
+}
+}  // namespace
+
+// CTAs per SM of the int8 decode walk (row 5, the form of row 4 too) at
+// REP = rows, and of the int8 verify read (row 7) in chunks of rows, with
+// bs threads and their shared memory, one block a split; -1 on a bad
+// argument or a CUDA error. Each lives in the part that holds its kernels.
+int paged_quant_decode_occupancy(int rows, int hd, int bs);
+int paged_quant_verify_occupancy(int rows, int hd, int bs);
+
+#if PAGED_PART(3)
+namespace {
+template <int R>
+int decode_occupancy(int hd, int bs) {
   size_t smem;
-  if (!split_geometry<int8_t, R>(hd, bs, 1, &prow, &nbuf, &smem)) return -1;
-  if (kind == 0)
-    return bs <= 256 ? occupancy(paged_split_kernel<int8_t, R, true, 256>, bs, smem)
-                     : occupancy(paged_split_kernel<int8_t, R, true, 1024>, bs, smem);
+  if (!quant_geometry<R>(hd, bs, &smem)) return -1;
+  return bs <= 256 ? occupancy(paged_split_kernel<int8_t, R, true, 256>, bs, smem)
+                   : occupancy(paged_split_kernel<int8_t, R, true, 1024>, bs, smem);
+}
+}  // namespace
+
+int paged_quant_decode_occupancy(int rows, int hd, int bs) {
+  switch (rows) {
+    case 1: return decode_occupancy<1>(hd, bs);
+    case 2: return decode_occupancy<2>(hd, bs);
+    case 4: return decode_occupancy<4>(hd, bs);
+    case 8: return decode_occupancy<8>(hd, bs);
+    default: return -1;
+  }
+}
+#endif
+
+#if PAGED_PART(4)
+namespace {
+template <int R>
+int verify_occupancy(int hd, int bs) {
+  size_t smem;
+  if (!quant_geometry<R>(hd, bs, &smem)) return -1;
   return bs <= 256 ? occupancy(paged_verify_split_kernel<int8_t, R, 256>, bs, smem)
                    : occupancy(paged_verify_split_kernel<int8_t, R, 1024>, bs, smem);
 }
 }  // namespace
 
-// CTAs per SM that the int8 split walks reach with bs threads and their
-// shared memory, one block a split: kind 0 the decode walk (row 5, the
-// form of row 4 too) at REP = rows in {1, 2, 4, 8}; kind 1 the verify read
-// (row 7) in chunks of rows in {2, 4, 5, 8}; -1 on a bad argument or a
-// CUDA error
-extern "C" int paged_quant_occupancy(int kind, int rows, int hd, int bs) {
-  switch (rows * 2 + (kind != 0)) {
-    case 2: return quant_occupancy<1>(0, hd, bs);
-    case 4: return quant_occupancy<2>(0, hd, bs);
-    case 5: return quant_occupancy<2>(1, hd, bs);
-    case 8: return quant_occupancy<4>(0, hd, bs);
-    case 9: return quant_occupancy<4>(1, hd, bs);
-    case 11: return quant_occupancy<5>(1, hd, bs);
-    case 16: return quant_occupancy<8>(0, hd, bs);
-    case 17: return quant_occupancy<8>(1, hd, bs);
+int paged_quant_verify_occupancy(int rows, int hd, int bs) {
+  switch (rows) {
+    case 2: return verify_occupancy<2>(hd, bs);
+    case 4: return verify_occupancy<4>(hd, bs);
+    case 5: return verify_occupancy<5>(hd, bs);
+    case 8: return verify_occupancy<8>(hd, bs);
     default: return -1;
   }
+}
+#endif
+
+#if PAGED_PART(5)
+// CTAs per SM that the int8 split walks reach: kind 0 the decode walk at
+// REP = rows in {1, 2, 4, 8}; kind 1 the verify read in chunks of rows in
+// {2, 4, 5, 8}; -1 on a bad argument or a CUDA error
+extern "C" int paged_quant_occupancy(int kind, int rows, int hd, int bs) {
+  return kind == 0 ? paged_quant_decode_occupancy(rows, hd, bs)
+                   : paged_quant_verify_occupancy(rows, hd, bs);
 }
 
 extern "C" const char* paged_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+#endif

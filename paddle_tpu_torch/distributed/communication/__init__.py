@@ -26,7 +26,11 @@ closed", or a rank aborts on an uncaught ``gloo::IoException``
 CPU tensors pass in f32 and bf16). So :func:`ring_hop` stages a CUDA
 tensor through a host copy on each side when the group's backend is
 gloo, chosen by the backend's name; NCCL, a card a rank, takes device
-tensors as they are. A staged 256 MB bf16 hop between two ranks on one
+tensors as they are. The pipeline's hops (:func:`permute_hop`: the open
+chain of ``pipeline_apply``, the ring of ``pipeline_apply_interleave``)
+go the same way, and :func:`start_hop` posts one without waiting, so the
+overlapped schedule starts a hop before a stage's compute and waits for
+it after. A staged 256 MB bf16 hop between two ranks on one
 card moved 0.49 GB/s, a CPU one 0.76 GB/s (the same probe).
 """
 from __future__ import annotations
@@ -94,16 +98,107 @@ def ring_hop(tensor: torch.Tensor, group: Group) -> torch.Tensor:
         return tensor
     r = group.rank
     with _span("ppermute", group, _nbytes(tensor)):
-        staged = tensor.is_cuda and dist.get_backend(group.pg) == "gloo"
-        src = tensor.cpu() if staged else tensor.contiguous()
-        dst = torch.empty_like(src)
-        ops = [dist.P2POp(dist.isend, src, group.ranks[(r + 1) % n],
-                          group.pg),
-               dist.P2POp(dist.irecv, dst, group.ranks[(r - 1) % n],
-                          group.pg)]
-        for work in dist.batch_isend_irecv(ops):
+        return start_hop(tensor, group, (r + 1) % n, (r - 1) % n).wait()
+
+
+class PendingHop:
+    """This rank's part of a permutation, posted by :func:`start_hop`:
+    :meth:`wait` returns what arrived, a tensor like the one sent (zeros
+    where this rank receives nothing)."""
+
+    def __init__(self, works, src, dst, like):
+        self.works, self.src, self.dst, self.like = works, src, dst, like
+
+    def wait(self) -> torch.Tensor:
+        for work in self.works:
             work.wait()
-    return dst.to(tensor.device) if staged else dst
+        self.works, self.src = [], None
+        if self.dst is None:
+            return torch.zeros_like(self.like)
+        return self.dst.to(self.like.device)
+
+
+def start_hop(tensor: torch.Tensor, group: Group, send_to: Optional[int],
+              recv_from: Optional[int]) -> PendingHop:
+    """Post this rank's part of a permutation over ``group``: send
+    ``tensor`` to the rank of index ``send_to`` in the group and receive
+    a tensor like it from index ``recv_from`` (None: nothing), without
+    waiting. Over gloo a CUDA tensor is copied to the host here and what
+    arrives goes back to the device in :meth:`PendingHop.wait`."""
+    staged = tensor.is_cuda and dist.get_backend(group.pg) == "gloo"
+    src = dst = None
+    ops = []
+    if send_to is not None:
+        src = tensor.cpu() if staged else tensor.contiguous()
+        ops.append(dist.P2POp(dist.isend, src, group.ranks[send_to],
+                              group.pg))
+    if recv_from is not None:
+        dst = torch.empty(tensor.shape, dtype=tensor.dtype,
+                          device="cpu" if staged else tensor.device)
+        ops.append(dist.P2POp(dist.irecv, dst, group.ranks[recv_from],
+                              group.pg))
+    works = dist.batch_isend_irecv(ops) if ops else []
+    return PendingHop(works, src, dst, tensor)
+
+
+def hop_peers(group: Group, ring: bool = False):
+    """(send_to, recv_from) of this rank in one hop over ``group``: the
+    open chain r -> r+1 of a pipeline (``[(i, i+1) for i in range(n-1)]``:
+    the first rank receives nothing, the last sends nothing), or with
+    ``ring`` the closed ring r -> r+1 mod n."""
+    n, r = group.nranks, group.rank
+    if ring:
+        return (r + 1) % n, (r - 1) % n
+    return (r + 1 if r < n - 1 else None), (r - 1 if r > 0 else None)
+
+
+def start_permute(tensor: torch.Tensor, group: Group,
+                  ring: bool = False) -> PendingHop:
+    """:func:`start_hop` along :func:`hop_peers`, counted in span
+    ``comm.ppermute.<axis>`` with the tensor's bytes; pass the result to
+    :func:`permute_hop` as ``pending``."""
+    with _span("ppermute", group, _nbytes(tensor)):
+        return start_hop(tensor, group, *hop_peers(group, ring))
+
+
+class _PermuteHop(torch.autograd.Function):
+    """A hop along :func:`hop_peers`, differentiable: the backward sends
+    the gradient of what arrived back to the rank it came from and
+    returns the gradient that the rank ``x`` went to sends back (the
+    transpose of ``lax.ppermute``). The 0-d ``token`` passes through
+    unchanged, so the hops of one schedule form a chain that autograd
+    walks in reverse order on every rank, and each rank's reverse hops
+    pair with its neighbours' even where what a hop carried is unused
+    (JAX's transpose of the scan makes the same reverse hops)."""
+
+    @staticmethod
+    def forward(ctx, x, token, group, ring, pending):
+        ctx.group, ctx.peers = group, hop_peers(group, ring)
+        if pending is None:
+            pending = start_permute(x, group, ring)
+        return pending.wait(), token.clone()
+
+    @staticmethod
+    def backward(ctx, g, g_token):
+        send_to, recv_from = ctx.peers
+        with _span("ppermute", ctx.group, _nbytes(g)):
+            got = start_hop(g.contiguous(), ctx.group, recv_from,
+                            send_to).wait()
+        return (got if send_to is not None else None), g_token, None, \
+            None, None
+
+
+def permute_hop(tensor: torch.Tensor, group: Group, token: torch.Tensor,
+                ring: bool = False, pending: Optional[PendingHop] = None):
+    """One hop of a pipeline's permutation over ``group`` (the open chain,
+    or with ``ring`` the closed ring; see :func:`hop_peers`): returns
+    (what the previous rank sent, zeros on the first rank of a chain; the
+    token). ``pending``: the hop of ``tensor`` already posted by
+    :func:`start_permute` (the overlapped schedule), waited for here.
+    Differentiable in ``tensor`` (:class:`_PermuteHop`); thread one 0-d
+    ``token`` that requires grad through every hop of a schedule so that
+    the backward makes every reverse hop."""
+    return _PermuteHop.apply(tensor, token, group, ring, pending)
 
 
 def reduce(tensor: torch.Tensor, dst: int, group: Group) -> torch.Tensor:

@@ -59,9 +59,9 @@ class HybridCommunicateGroup:
     """This rank's place in the hybrid mesh and one :class:`Group` per
     axis. A mesh of more than one rank needs the process group that
     ``init_parallel_env`` makes, over exactly as many ranks; without it
-    this raises ValueError. The port runs dp, sharding and mp, so their
-    groups are asked for; the pp and sep queries come with the slices
-    that run them.
+    this raises ValueError. The port runs dp, sharding, mp and pp, so
+    their groups are asked for; the sep queries come with the slice that
+    runs it.
 
     Beside JAX's queries, :meth:`get_data_sharding_group` is the port's
     own: the ranks that share this rank's other coordinates across dp x
@@ -133,6 +133,9 @@ class HybridCommunicateGroup:
     def get_model_parallel_world_size(self):
         return self._groups["mp"].nranks
 
+    def get_pipe_parallel_world_size(self):
+        return self._groups["pp"].nranks
+
     def get_data_parallel_rank(self):
         """This process's index along dp (the JAX package, a single
         controller, answers 0)."""
@@ -146,6 +149,11 @@ class HybridCommunicateGroup:
         """This process's index along mp (0 in the JAX package)."""
         return self._coord["mp"]
 
+    def get_stage_id(self):
+        """This process's pipeline stage, its index along pp (0 in the JAX
+        package, whose stage is ``lax.axis_index`` inside the program)."""
+        return self._coord["pp"]
+
     def get_data_parallel_group(self) -> Group:
         return self._groups["dp"]
 
@@ -155,11 +163,29 @@ class HybridCommunicateGroup:
     def get_model_parallel_group(self) -> Group:
         return self._groups["mp"]
 
+    def get_pipe_parallel_group(self) -> Group:
+        """The line of pp ranks through this rank: its stages in order."""
+        return self._groups["pp"]
+
     def get_data_sharding_group(self) -> Group:
         """The dp x sharding plane through this rank (axis name
         ``"dp,sharding"``), or the dp or sharding group when only one of
         the two degrees exceeds 1."""
         return self._groups["dp,sharding"]
+
+    def is_first_stage(self):
+        return self.get_stage_id() == 0
+
+    def is_last_stage(self):
+        return self.get_stage_id() == self.get_pipe_parallel_world_size() - 1
+
+    def get_rank_from_stage(self, stage_id, **kwargs):
+        """The global rank of stage ``stage_id`` on this rank's pp line
+        (``kwargs``: other coordinates by axis name, this rank's where
+        left out). The JAX package answers ``stage_id``: its ranks are
+        devices of one program."""
+        coords = {**self._coord, **kwargs, "pp": stage_id}
+        return self._topo.get_rank(**coords)
 
     def topology(self):
         return self._topo

@@ -162,6 +162,14 @@ _register(
     choices=("auto", "split"))
 
 _register(
+    "PADDLE_TPU_TORCH_PP_OVERLAP", "bool", False,
+    doc="The overlapped pipeline schedule (parallel.pipeline): each "
+        "stage posts the previous tick's output's hop before its compute "
+        "and waits for it after, T = M + 2(S - 1) ticks. An explicit "
+        "overlap_p2p wins. Read when a pipeline is built.",
+    parse=_truthy(("1", "true", "on")))
+
+_register(
     "PADDLE_TPU_TORCH_TP_OVERLAP", "bool", False,
     doc="Turn on the collective-matmul rings of tensor parallelism "
         "(parallel.collective_matmul): the decoder's gate/up -> down pair "

@@ -33,10 +33,11 @@ entropy) differentiated by autograd, then AdamW. The layer loop replaces
 what it names across the boundary (:class:`_Keep`, JAX's
 ``_remat_policy``). :func:`chunked_ce_loss` is JAX's sequence-chunked
 head and cross entropy. Over ranks, one process each, it runs dp, ZeRO
-sharding (stages 1-3) and Megatron tensor parallelism (mp: column and
+sharding (stages 1-3), Megatron tensor parallelism (mp: column and
 row splits, the vocabulary-parallel embedding and cross entropy, the
-fused FFN ring of ``parallel.collective_matmul``), held to JAX's mesh
-step.
+fused FFN ring of ``parallel.collective_matmul``) and pipeline
+parallelism (pp: stage-stacked layers over the schedule of
+``parallel.pipeline``), held to JAX's mesh step.
 
 The KV pools and caches are updated IN PLACE (the JAX package donates
 them); the step functions still return them, so call sites read the same.
@@ -82,6 +83,7 @@ from ..observability.trace import comm_span
 from ..ops.rope import apply_rope, build_rope_cache
 from ..parallel import collective_matmul as cm
 from ..parallel.moe import _top_k
+from ..parallel.pipeline import microbatch, pipeline_apply
 
 
 @dataclasses.dataclass
@@ -1270,10 +1272,11 @@ def generate(params, prompt_ids, config: LlamaConfig, max_new_tokens=64,
 @dataclasses.dataclass
 class ParallelConfig:
     """The JAX package's ``ParallelConfig`` fields. :func:`build_train_step`
-    runs one device, or ``dp`` x ``sharding`` x ``mp`` ranks: ZeRO stage
-    ``zero_stage`` over sharding (1: optimizer state sharded, 2: also
-    gradients, 3: also parameters) and Megatron tensor parallelism over
-    mp; it raises for the rest (see :func:`check_ported`)."""
+    runs one device, or ``dp`` x ``pp`` x ``sharding`` x ``mp`` ranks:
+    ZeRO stage ``zero_stage`` over sharding (1: optimizer state sharded,
+    2: also gradients, 3: also parameters), Megatron tensor parallelism
+    over mp and the pipeline over pp (``microbatches``,
+    ``overlap_p2p``); it raises for the rest (see :func:`check_ported`)."""
     dp: int = 1
     mp: int = 1
     pp: int = 1
@@ -1297,25 +1300,25 @@ class ParallelConfig:
 
 _UNREAD_FIELDS = ("sep_strategy", "microbatches", "scan_unroll",
                   "overlap_p2p")
+# the pipeline's fields: read when pp > 1
+_PP_FIELDS = ("microbatches", "overlap_p2p")
 
 
 def check_ported(parallel: ParallelConfig) -> None:
     """Raise ValueError naming what of ``parallel`` the port does not run
-    yet: a pipeline or sequence degree above 1 (pp first), and a value
+    yet: a sequence degree above 1 (alone or beside pp), and a value
     other than the default in a field the train step never reads
-    (``_UNREAD_FIELDS``; ``overlap_p2p`` is the pipeline's). ``dp``,
-    ``sharding`` and ``mp`` run (one process a rank). An unknown remat
-    policy raises too (with ``remat``), as JAX's ``_remat_policy``
-    does."""
+    (``_UNREAD_FIELDS``; ``microbatches`` and ``overlap_p2p``, the
+    pipeline's, are read when pp > 1). ``dp``, ``sharding``, ``mp`` and
+    ``pp`` run (one process a rank). An unknown remat policy raises too
+    (with ``remat``), as JAX's ``_remat_policy`` does."""
     default = ParallelConfig()
     unread = {f: getattr(parallel, f) for f in _UNREAD_FIELDS
-              if getattr(parallel, f) != getattr(default, f)}
+              if getattr(parallel, f) != getattr(default, f)
+              and not (parallel.pp > 1 and f in _PP_FIELDS)}
     if unread:
         raise ValueError(f"{unread}: the train step does not read these "
                          f"fields; leave them at their defaults")
-    if parallel.pp > 1:
-        raise ValueError(f"pp={parallel.pp}: the pipeline train step is not "
-                         f"ported (ROADMAP.md queue 1 item 7); use pp=1")
     if parallel.sep > 1:
         raise ValueError(f"sep={parallel.sep}: sequence parallel training "
                          f"is not ported (ROADMAP.md queue 1 item 9); use "
@@ -1590,15 +1593,28 @@ def llama_hidden(params, ids, config: LlamaConfig,
     params are this rank's mp shards (:func:`vocab_parallel_embed`,
     :func:`decoder_layer`)."""
     c = config
-    use_flash = parallel.use_flash is not False
-    policy = _remat_policy(parallel) if parallel.remat else None
-    fuse = _fuse_ffn(parallel, mp)
     embed = params["embed"] if gather is None else \
         gather.leaf("embed", params["embed"])
     h = vocab_parallel_embed(embed, ids, c, mp)
     cos, sin = build_rope_cache(ids.shape[1], c.head_dim, base=c.rope_theta,
                                 device=h.device)
-    layers = params["layers"]
+    return decoder_stack(params["layers"], h, cos, sin, c, parallel, gather,
+                         mp, _fuse_ffn(parallel, mp))
+
+
+def decoder_stack(layers, h, cos, sin, config: LlamaConfig,
+                  parallel: ParallelConfig, gather=None, mp=None,
+                  fuse=False):
+    """The decoder layers of ``layers`` (each name a stacked [n, ...]
+    tensor or a list of its n layer slices) over h [B, S, H], in order:
+    with ``parallel.remat`` each layer under ``torch.utils.checkpoint``
+    with the policy's :class:`_Keep` (JAX's scan of ``decoder_layer``
+    under ``jax.checkpoint``); ``gather``, ``mp`` and ``fuse`` go to
+    :func:`decoder_layer`. A pipeline stage runs its layers through
+    this."""
+    c = config
+    use_flash = parallel.use_flash is not False
+    policy = _remat_policy(parallel) if parallel.remat else None
     for i in range(len(layers["q_proj"])):
         p = {name: w[i] for name, w in layers.items()}
         if not parallel.remat:
@@ -1903,6 +1919,53 @@ def opt_state_pspecs(config: LlamaConfig, parallel: ParallelConfig,
     return pspec_tree
 
 
+def pipe_pspecs(pspec_tree):
+    """JAX's specs under pp (``_build_pp_train_step``): each stacked layer
+    leaf, restaged [S, L/S, ...], with "pp" before its spec; embed,
+    final_norm and lm_head as they are."""
+    return {**pspec_tree, "layers": {n: ("pp",) + sp for n, sp in
+                                     pspec_tree["layers"].items()}}
+
+
+def train_state_pspecs(config: LlamaConfig, parallel: ParallelConfig):
+    """(param specs, AdamW moment specs) of the train step's state:
+    :func:`param_pspecs` and :func:`opt_state_pspecs`; under pp both
+    :func:`pipe_pspecs` of the param specs, as JAX places m and v there
+    (ZeRO stages 1 and 2 shard no state under pp)."""
+    pspecs = param_pspecs(config, parallel)
+    if parallel.pp > 1:
+        pspecs = pipe_pspecs(pspecs)
+        return pspecs, pspecs
+    return pspecs, opt_state_pspecs(config, parallel, pspecs)
+
+
+def check_pp_layers(config: LlamaConfig, parallel: ParallelConfig) -> None:
+    """Raise ValueError, naming the config, unless pp divides the layers
+    (JAX asserts it)."""
+    if parallel.pp > 1 and config.num_hidden_layers % parallel.pp:
+        raise ValueError(
+            f"pp={parallel.pp} needs num_hidden_layers "
+            f"({config.num_hidden_layers}) to divide by it; config {config}")
+
+
+def stage_layers(tree, config: LlamaConfig, parallel: ParallelConfig):
+    """Under pp, a params-shaped tree with each stacked layer leaf [L, ...]
+    as [S, L/S, ...] (a view), JAX's layout under pp; a leaf already
+    staged, and any tree at pp 1, passes as it is."""
+    S = parallel.pp
+    if S == 1:
+        return tree
+    check_pp_layers(config, parallel)
+    base = param_pspecs(config, parallel)["layers"]
+
+    def stage(w, name):
+        if w.ndim == len(base[name]) + 1:
+            return w
+        return w.reshape((S, w.shape[0] // S) + tuple(w.shape[1:]))
+    return {**tree, "layers": {n: stage(w, n)
+                               for n, w in tree["layers"].items()}}
+
+
 def _act_spec(parallel: ParallelConfig):
     """JAX's ``_act_spec`` of activations [B, S, H]: the batch over dp (and
     sharding), the sequence over sep. A one-name entry is the name itself,
@@ -1930,16 +1993,17 @@ def _map_specs(fn, tree, specs, path=""):
 
 def shard_train_state(params, opt_state, config: LlamaConfig,
                       parallel: ParallelConfig):
-    """This rank's shards of full trees: ``params`` by
-    :func:`param_pspecs`, ``opt_state``'s m and v (:func:`_adamw_init`'s
-    layout; None passes through) by :func:`opt_state_pspecs`. A sharded
-    leaf is a contiguous copy of its slice; a replicated leaf (and ``t``)
-    is the caller's tensor. Returns (params, opt_state)."""
+    """This rank's shards of full trees: ``params`` and ``opt_state``'s m
+    and v (:func:`_adamw_init`'s layout; None passes through) by
+    :func:`train_state_pspecs`; under pp the layer leaves [L, ...] are
+    first restaged [S, L/S, ...] (:func:`stage_layers`). A sharded leaf
+    is a contiguous copy of its slice; a replicated leaf (and ``t``) is
+    the caller's tensor. Returns (params, opt_state)."""
     degrees, coord = _mesh_place(parallel)
-    pspecs = param_pspecs(config, parallel)
-    ospecs = opt_state_pspecs(config, parallel, pspecs)
+    pspecs, ospecs = train_state_pspecs(config, parallel)
 
     def shard(tree, specs):
+        tree = stage_layers(tree, config, parallel)
         return _map_specs(lambda x, s, name: _shard(x, name, s, degrees,
                                                     coord), tree, specs)
     if opt_state is not None:
@@ -1950,12 +2014,14 @@ def shard_train_state(params, opt_state, config: LlamaConfig,
 
 def _axis_groups(hcg):
     return {"dp": hcg.get_data_parallel_group(),
+            "pp": hcg.get_pipe_parallel_group(),
             "sharding": hcg.get_sharding_parallel_group(),
             "mp": hcg.get_model_parallel_group()}
 
 
 def _hcg(parallel: ParallelConfig):
     return HybridCommunicateGroup(dp_degree=parallel.dp,
+                                  pp_degree=parallel.pp,
                                   sharding_degree=parallel.sharding,
                                   mp_degree=parallel.mp)
 
@@ -1965,12 +2031,12 @@ def gather_train_state(params, opt_state, config: LlamaConfig,
     """The full trees from every rank's shards (a collective: every rank
     calls it), the inverse of :func:`shard_train_state`. ``hcg`` is the
     step's ``HybridCommunicateGroup`` (``step_fn.hcg``); None makes one.
-    Returns (params, opt_state); a replicated leaf is the rank's own."""
+    Returns (params, opt_state); a replicated leaf is the rank's own.
+    Under pp the layer leaves come back [S, L/S, ...], JAX's layout."""
     if hcg is None:
         hcg = _hcg(parallel)
     groups = _axis_groups(hcg)
-    pspecs = param_pspecs(config, parallel)
-    ospecs = opt_state_pspecs(config, parallel, pspecs)
+    pspecs, ospecs = train_state_pspecs(config, parallel)
 
     def gather(x, spec, _name):
         for d, entry in enumerate(spec):
@@ -2031,9 +2097,10 @@ class _DistTrainStep:
         self.hcg, self.dev = hcg, dev
         self.stage = 0 if parallel.sharding == 1 else \
             min(max(parallel.zero_stage, 1), 3)
+        if parallel.pp > 1 and self.stage < 3:
+            self.stage = 0      # under pp stages 1 and 2 shard no state
         self.degrees, self.coord = _mesh_place(parallel)
-        self.pspecs = param_pspecs(config, parallel)
-        self.ospecs = opt_state_pspecs(config, parallel, self.pspecs)
+        self.pspecs, self.ospecs = train_state_pspecs(config, parallel)
         self.dp = hcg.get_data_parallel_group()
         self.sh = hcg.get_sharding_parallel_group()
         self.mp = hcg.get_model_parallel_group()
@@ -2044,8 +2111,8 @@ class _DistTrainStep:
         ((_, self.n_blocks, self.block),) = _split_dims(
             _act_spec(parallel)[:1], self.degrees, self.coord) or \
             ((0, 1, 0),)
-        self.gather = _Stage3(self.pspecs, self.sh) if self.stage == 3 \
-            else None
+        self.gather = _Stage3(param_pspecs(config, parallel), self.sh) \
+            if self.stage == 3 else None
         # the {"params", "opt", "step"} train state over the ranks, as
         # the checkpoint layer saves and restores it: ``t`` and ``step``
         # are whole on every rank, with no spec (JAX's build leaves its
@@ -2055,6 +2122,14 @@ class _DistTrainStep:
                               "opt": {"m": self.ospecs, "v": self.ospecs}})
 
     def __call__(self, params, opt, ids, labels):
+        loss, grads = self.loss_and_grads(params,
+                                          *self.local_batch(ids, labels))
+        self.update(params, grads, opt)
+        return params, opt, loss
+
+    def local_batch(self, ids, labels):
+        """This rank's rows of the global [B, S] host batch, on the
+        device."""
         ids, labels = np.asarray(ids), np.asarray(labels)
         b = ids.shape[0]
         if b % self.n_blocks:
@@ -2068,10 +2143,7 @@ class _DistTrainStep:
         def to_dev(a):
             return torch.from_numpy(np.ascontiguousarray(a[rows], np.int32)
                                     ).to(self.dev)
-        loss, grads = self.loss_and_grads(params, to_dev(ids),
-                                          to_dev(labels))
-        self.update(params, grads, opt)
-        return params, opt, loss
+        return to_dev(ids), to_dev(labels)
 
     def loss_and_grads(self, params, ids, labels):
         """(the global mean loss, this rank's summed gradients): its rows'
@@ -2183,6 +2255,111 @@ class _DistTrainStep:
             _map_specs(gather, params, self.ospecs)
 
 
+class _PipeTrainStep(_DistTrainStep):
+    """``step_fn`` of :func:`build_train_step` with pp above 1 (JAX's
+    ``_build_pp_train_step``), composed with dp, ZeRO sharding and mp.
+    Each rank holds its stage's L/S layers ([1, L/S, ...] of every
+    [S, L/S, ...] leaf) and runs the collective schedule of
+    ``parallel.pipeline`` over its M = max(microbatches, pp) microbatches
+    of its rows: stage 0 embeds, every stage runs its layers (each under
+    the remat policy; mp the Megatron decoder) on its active ticks, and
+    the last stage takes the plain cross entropy over the whole
+    vocabulary. Embed, final_norm and lm_head enter whole on every rank
+    (JAX's ``P()`` in its island: gathered from their mp and stage-3
+    shards); their gradients, nonzero on one stage, are summed over pp,
+    so every stage updates them to the same bits."""
+
+    def __init__(self, config, parallel, lr, hcg, dev):
+        super().__init__(config, parallel, lr, hcg, dev)
+        self.pp = hcg.get_pipe_parallel_group()
+        self.microbatches = max(parallel.microbatches, parallel.pp)
+
+    def loss_and_grads(self, params, ids, labels):
+        """(the global mean loss on every rank, this rank's summed
+        gradients); a layer leaf's gradient is the list of its L/S layer
+        slices."""
+        leaves = {k: ({n: [_grad_leaf(t) for t in w[0]]
+                       for n, w in v.items()} if k == "layers"
+                      else _grad_leaf(v))
+                  for k, v in params.items()}
+        local, roots = self._pipeline(leaves, ids, labels)
+        torch.autograd.backward(*roots)
+        grads = self._sync(leaves)
+        loss = comm.all_reduce(comm.all_reduce(local, self.data), self.pp)
+        return loss, grads
+
+    def _whole(self, name, w):
+        """Leaf ``name`` made whole: its sharding dimension gathered
+        (stage 3; the backward reduce-scatters), then its mp dimension
+        (the backward keeps this rank's block: every mp rank computes the
+        same whole gradient)."""
+        if self.gather is not None:
+            w = self.gather.leaf(name, w)
+        spec = param_pspecs(self.config, self.parallel)[name]
+        if "mp" in spec:
+            w = cm.gather_from_mp(w, spec.index("mp"), self.mp)
+        return w
+
+    def _pipeline(self, leaves, ids, labels):
+        """This stage's part of the loss: (the loss's share to sum over
+        ranks, detached; the tensors and gradients backward starts
+        from)."""
+        c, par = self.config, self.parallel
+        S, stage, M = self.pp.nranks, self.pp.rank, self.microbatches
+        b, n = ids.shape
+        if b % M:
+            raise ValueError(
+                f"a rank's batch of {b} rows does not divide into {M} "
+                f"microbatches (max(microbatches={par.microbatches}, "
+                f"pp={S}))")
+        dev = ids.device
+        cos, sin = build_rope_cache(n, c.head_dim, base=c.rope_theta,
+                                    device=dev)
+        shape = (M, b // M, n, c.hidden_size)
+        if stage == 0:
+            embed = self._whole("embed", leaves["embed"])
+            x_mb = microbatch(F.embedding(ids.long(), embed).to(c.dtype), M)
+        else:       # the schedule reads only its shape off stage 0
+            x_mb = torch.zeros((), dtype=c.dtype, device=dev).expand(shape)
+        layers = leaves["layers"]
+        pipe = pipeline_apply(
+            lambda _p, h: decoder_stack(layers, h, cos, sin, c, par,
+                                        self.gather, self.mp),
+            S, M, self.pp, remat=False, overlap_p2p=par.overlap_p2p)
+        out_mb = pipe({}, x_mb)
+        if stage != S - 1:  # no loss here: backward walks the hops
+            zero = torch.zeros((), device=dev)
+            return zero, ((out_mb,), (out_mb.new_zeros(()).expand(shape),))
+        head = "embed" if c.tie_word_embeddings else "lm_head"
+        params = {"final_norm": leaves["final_norm"],
+                  head: self._whole(head, leaves[head])}
+        logits = llama_logits(params, out_mb.reshape(b, n, -1), c).float()
+        loss_sum, count = _ce_sum_count(logits, labels)
+        comm.all_reduce(count, self.data)
+        loss = loss_sum / torch.clamp(count, min=1)
+        return loss.detach().clone(), ((loss,),)
+
+    def _sync(self, leaves):
+        """The dp x sharding sums of :meth:`_DistTrainStep._sync`, then
+        embed's, final_norm's and lm_head's over pp."""
+        grads = super()._sync(leaves)
+        for k in grads:
+            if k != "layers":
+                comm.all_reduce(grads[k], self.pp)
+        return grads
+
+    def update(self, params, grads, opt):
+        """AdamW on what the rank holds (its [1, L/S, ...] layer leaves
+        updated through their [L/S, ...] views)."""
+        def unstack(tree):
+            return {k: ({n: w[0] for n, w in v.items()} if k == "layers"
+                        else v) for k, v in tree.items()}
+        state = {"m": unstack(opt["m"]), "v": unstack(opt["v"]),
+                 "t": opt["t"]}
+        _adamw_update(unstack(params), grads, state, self.lr)
+        opt["t"] = state["t"]
+
+
 def build_train_step(config: LlamaConfig,
                      parallel: ParallelConfig = ParallelConfig(),
                      lr: float = 3e-4, seed: int = 0, device=None):
@@ -2193,7 +2370,7 @@ def build_train_step(config: LlamaConfig,
     updated in place. ``device=None`` means the card; what is not ported
     raises ValueError (:func:`check_ported`).
 
-    With ``dp`` x ``sharding`` x ``mp`` above 1, each of that many
+    With ``dp`` x ``pp`` x ``sharding`` x ``mp`` above 1, each of that many
     processes (one a rank, joined by
     ``paddle_tpu_torch.distributed.init_parallel_env``; without it, or with
     another world size, this raises ValueError) calls this with the same
@@ -2213,8 +2390,16 @@ def build_train_step(config: LlamaConfig,
     (:func:`vocab_parallel_embed`) and takes the cross entropy over the
     vocabulary-sharded logits (:class:`_VocabParallelCE`);
     ``PADDLE_TPU_TORCH_TP_OVERLAP`` runs the FFN as the fused ring
-    (:func:`_fused_ffn_overlap`). The params and state passed and
-    returned are the rank's local shards (:func:`shard_train_state`,
+    (:func:`_fused_ffn_overlap`). ``pp`` (JAX's ``_build_pp_train_step``,
+    :class:`_PipeTrainStep`) gives each stage rank L/S layers (L % pp must
+    be 0, else ValueError naming the config) and runs the collective
+    schedule of ``parallel.pipeline`` over M = max(microbatches, pp)
+    microbatches of the rank's rows (which M must divide), overlapped
+    with ``overlap_p2p`` (or ``PADDLE_TPU_TORCH_PP_OVERLAP``); under pp
+    embed, final_norm and lm_head are whole inside the step, the loss is
+    the plain cross entropy on the last stage, and ZeRO stages 1 and 2
+    shard no state (:func:`train_state_pspecs`). The params and state
+    passed and returned are the rank's local shards (:func:`shard_train_state`,
     :func:`gather_train_state` with ``step_fn.hcg``); ``step_fn.layout``
     is the layout of ``{"params", "opt", "step"}`` with which the
     checkpoint layer saves them over the ranks and restores them under
@@ -2266,10 +2451,13 @@ def _build_dist_train_step(config, parallel, lr, seed, dev):
     """The branch of :func:`build_train_step` over ranks: every rank
     makes the full seeded params, keeps its shards and makes zero moments
     in its local shapes only."""
+    check_pp_layers(config, parallel)
     hcg = _hcg(parallel)
-    full = init_llama_params(config, seed, device=dev)
+    full = stage_layers(init_llama_params(config, seed, device=dev), config,
+                        parallel)
     params, _ = shard_train_state(full, None, config, parallel)
-    step = _DistTrainStep(config, parallel, lr, hcg, dev)
+    step = (_PipeTrainStep if parallel.pp > 1 else _DistTrainStep)(
+        config, parallel, lr, hcg, dev)
 
     def zeros(x, spec, name):
         return torch.zeros(_local_shape(name, x.shape, spec, step.degrees,

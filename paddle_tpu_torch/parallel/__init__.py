@@ -1,2 +1,3 @@
-"""Parallel building blocks of the port: the MoE layer (``moe``) and the
-tensor-parallel collectives and rings (``collective_matmul``)."""
+"""Parallel building blocks of the port: the MoE layer (``moe``), the
+tensor-parallel collectives and rings (``collective_matmul``) and the
+pipeline schedules (``pipeline``)."""

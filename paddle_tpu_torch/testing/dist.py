@@ -128,14 +128,16 @@ def train_job(rank: int, world: int, job: dict) -> dict:
     ``labels`` [steps, B, S]) and ``runs``, each ``name`` and
     ``parallel`` (ParallelConfig fields), and optionally ``env``
     (environment variables set for the run only), ``config`` (LlamaConfig
-    fields over the job's) and ``weights`` (the run's own .npz). Every run builds the
+    fields over the job's), ``weights`` (the run's own .npz) and
+    ``grads`` (a pp run: also its gradients before the first step,
+    :func:`_pipe_grads`, ``g:<path>`` in the npz). Every run builds the
     port's step, loads the weights through :func:`shard_train_state`
     (zero moments), takes the steps and gathers the trees; rank 0 writes
     ``<out>/<name>.npz`` (the losses, ``p:<path>`` gathered params).
     Returns, by run, every rank's losses, the CRC32 of each local param
-    leaf, this rank's mesh coordinates and groups, and the ``tp.`` and
-    ``comm.`` counters of its steps; and the modules of JAX or of the JAX
-    package this process imported.
+    leaf, this rank's mesh coordinates and groups (mp's and pp's), the
+    ``tp.``, ``pp.`` and ``comm.`` counters of its steps; and the modules
+    of JAX or of the JAX package this process imported.
     ``roundtrip``: also shards the weights and a random AdamW state and
     gathers them back under each layout of this world
     (:func:`_roundtrip`; True: dp and sharding's, or a list of
@@ -166,7 +168,9 @@ def train_job(rank: int, world: int, job: dict) -> dict:
             full = _unflat(w_run, cfg_run.dtype)
             p, o = tl.shard_train_state(full, tl._adamw_init(full), cfg_run,
                                         par)
-        losses = []
+        losses, grads = [], {}
+        if run.get("grads"):
+            grads = _pipe_grads(step, p, cfg_run, par, batches)
         trace.reset_counters()
         try:
             for ids, labels in zip(batches["ids"], batches["labels"]):
@@ -179,7 +183,7 @@ def train_job(rank: int, world: int, job: dict) -> dict:
                 else:
                     os.environ[k] = v
         counters = {k: v for k, v in trace.counters().items()
-                    if k.startswith(("tp.", "comm."))}
+                    if k.startswith(("tp.", "comm.", "pp."))}
         crcs = {k: zlib.crc32(np.ascontiguousarray(v).tobytes())
                 for k, v in flat_tree(p).items()}
         hcg = getattr(step, "hcg", None)
@@ -188,7 +192,8 @@ def train_job(rank: int, world: int, job: dict) -> dict:
         if rank == 0:
             np.savez(os.path.join(job["out"], f"{run['name']}.npz"),
                      losses=np.array(losses),
-                     **{f"p:{k}": v for k, v in flat_tree(p).items()})
+                     **{f"p:{k}": v for k, v in flat_tree(p).items()},
+                     **{f"g:{k}": v for k, v in grads.get("full", {}).items()})
         topo = {}
         if hcg is not None:
             topo = {"coord": hcg.topology().get_coord(hcg.global_rank),
@@ -204,9 +209,19 @@ def train_job(rank: int, world: int, job: dict) -> dict:
                            "rank": (hcg.get_model_parallel_rank(),
                                     hcg.get_model_parallel_world_size()),
                            "data_group":
-                               hcg.get_data_sharding_group().ranks}}
+                               hcg.get_data_sharding_group().ranks},
+                    "pp": {"group": hcg.get_pipe_parallel_group().ranks,
+                           "stage": (hcg.get_stage_id(),
+                                     hcg.get_pipe_parallel_world_size()),
+                           "first": hcg.is_first_stage(),
+                           "last": hcg.is_last_stage(),
+                           "stage_ranks": [
+                               hcg.get_rank_from_stage(i) for i in
+                               range(hcg.get_pipe_parallel_world_size())]}}
         report["runs"][run["name"]] = {"losses": losses, "crc": crcs,
-                                       "counters": counters, **topo}
+                                       "counters": counters,
+                                       "grad_crc": grads.get("crc", {}),
+                                       **topo}
     if job.get("roundtrip"):
         layouts = job["roundtrip"]
         report["roundtrip"] = _roundtrip(
@@ -217,6 +232,24 @@ def train_job(rank: int, world: int, job: dict) -> dict:
     report["jax_modules"] = [m for m in sys.modules
                              if m.split(".")[0] in ("jax", "paddle_tpu")]
     return report
+
+
+def _pipe_grads(step, params, cfg, par, batches) -> dict:
+    """A pp train step's gradients on the first batch, before any update:
+    ``full``, the whole tree gathered from every rank (JAX's [S, L/S, ...]
+    layer layout), and ``crc``, this rank's CRC32 of its embed,
+    final_norm and lm_head gradients."""
+    import torch
+    from paddle_tpu_torch.models import llama as tl
+    _, g = step.loss_and_grads(params, *step.local_batch(
+        batches["ids"][0], batches["labels"][0]))
+    tree = {k: ({n: torch.stack(ts)[None] for n, ts in v.items()}
+                if k == "layers" else v) for k, v in g.items()}
+    full, _ = tl.gather_train_state(tree, None, cfg, par, hcg=step.hcg)
+    return {"full": flat_tree(full),
+            "crc": {k: zlib.crc32(np.ascontiguousarray(
+                v.detach().numpy()).tobytes())
+                for k, v in g.items() if k != "layers"}}
 
 
 def _roundtrip(cfg, weights, layouts=None):
@@ -239,8 +272,9 @@ def _roundtrip(cfg, weights, layouts=None):
         p, o = tl.shard_train_state(full, opt, cfg, par)
         p, o = tl.gather_train_state(p, o, cfg, par)
         got = {**flat_tree(p), **flat_tree({"m": o["m"], "v": o["v"]})}
-        want = {**flat_tree(full), **flat_tree({"m": opt["m"],
-                                                "v": opt["v"]})}
+        want = {**flat_tree(tl.stage_layers(full, cfg, par)),
+                **flat_tree({k: tl.stage_layers(opt[k], cfg, par)
+                             for k in ("m", "v")})}
         out[name] = all(np.array_equal(got[k], want[k]) for k in want)
     return out
 
@@ -320,7 +354,10 @@ def elastic_job(rank: int, world: int, job: dict) -> dict:
     - ``restore``: ``restore_train_step`` of checkpoint ``step`` (None:
       the newest) under ``parallel`` (and ``config``, LlamaConfig fields
       over the job's), then the steps after it. Returns the restored
-      step and the losses, or what the restore raised;
+      step and the losses, or what the restore raised; with
+      ``check_slices`` also the restored leaves whose bits differ from
+      their saved slices and how many were compared
+      (:func:`restored_mismatches`);
     - ``peers``: a save and a load without a layout (what each raised),
       then a save under ``root`` that rank 1 never joins and a restore
       that rank 0 never joins, with a ``timeout`` of ``wait`` seconds
@@ -370,8 +407,12 @@ def elastic_job(rank: int, world: int, job: dict) -> dict:
             except (ValueError, FileNotFoundError) as e:
                 out[task["name"]] = {"raised": f"{type(e).__name__}: {e}"}
                 continue
-            out[task["name"]] = {"restored": got,
-                                 "losses": run(step, state, got)}
+            res = {"restored": got}
+            if task.get("check_slices"):
+                res["differing"], res["compared"] = restored_mismatches(
+                    state, mgr.step_dir(got), step.layout)
+            res["losses"] = run(step, state, got)
+            out[task["name"]] = res
             continue
         step, _, _ = tl.build_train_step(cfg, par, lr=job["lr"],
                                          device="cpu")
@@ -414,6 +455,37 @@ def elastic_job(rank: int, world: int, job: dict) -> dict:
                             if m.split(".")[0] in ("jax", "paddle_tpu")]}
 
 
+def restored_mismatches(state, path, layout):
+    """The leaves of ``state`` (this rank's shards, as restored) whose
+    bits differ from their slice of the saved whole leaves under ``path``
+    (under ``layout``), read and compared on the host one leaf at a time;
+    and the number of leaves compared."""
+    import torch
+    from paddle_tpu_torch.distributed.checkpoint import save_load as sl
+    bad, n = [], 0
+
+    def walk(t, saved, spec, name):
+        nonlocal n
+        if isinstance(t, dict):
+            for k in t:
+                walk(t[k], saved[k],
+                     spec.get(k) if isinstance(spec, dict) else None,
+                     f"{name}/{k}" if name else k)
+            return
+        if not isinstance(t, torch.Tensor):
+            return
+        spec = spec if isinstance(spec, tuple) else None
+        want = saved.read(layout.region(saved.shape, spec))
+        got = t.detach().cpu()
+        bits = torch.int16 if got.element_size() == 2 else torch.int32
+        n += 1
+        if got.shape != want.shape or not torch.equal(got.view(bits),
+                                                      want.view(bits)):
+            bad.append(name)
+    walk(state, sl.read_tree(path), layout.specs, "")
+    return bad, n
+
+
 def _absent_peers(cfg, par, task, rank):
     """The ``peers`` task of :func:`elastic_job`."""
     import time
@@ -443,6 +515,84 @@ def _absent_peers(cfg, par, task, rank):
         out["restore"] = raised(lambda: mgr.restore(state))
     out["seconds"] = time.monotonic() - t0
     return out
+
+
+def pipeline_job(rank: int, world: int, job: dict) -> dict:
+    """The pipeline tests' rank function: the world is one pp group of
+    ``world`` stages. ``job``: ``inputs`` (an .npz of f32 arrays by case
+    name, ``<case>/w`` [S, H, H], ``<case>/b`` [S, H] and ``<case>/x`` [B,
+    H]; an interleaved case ``<case>/w`` [S V, H, H] in the round-robin
+    layout, rank s's chunks rows s V ... s V + V - 1) and ``cases``, each
+    a dict with ``name``, ``microbatches`` and ``overlap`` (True, False
+    or None: the env), or ``virtual`` (interleaved), and optionally
+    ``env`` (set for the case) and ``composed`` (the loss through
+    ``build_pipeline_loss_fn``; no outputs). Each case runs stage
+    tanh(h @ w + b) (the interleave: tanh(h @ w)) under remat, the loss
+    ``last_stage_value`` of sum(out^2), and backward on every rank.
+    Returns {case: the loss, this stage's gradients, the outputs (the
+    last stage's), the ``pp.`` counters and this rank's
+    ``comm.ppermute.pp`` calls and bytes}, and the modules of JAX or of
+    the JAX package this process imported."""
+    import torch
+    from paddle_tpu_torch.distributed.fleet import HybridCommunicateGroup
+    from paddle_tpu_torch.observability import trace
+    from paddle_tpu_torch.parallel import pipeline as pl
+    torch.set_num_threads(2)
+    group = HybridCommunicateGroup(
+        pp_degree=world).get_pipe_parallel_group()
+    arrays = np.load(job["inputs"])
+    out = {}
+    for case in job["cases"]:
+        name = case["name"]
+        saved = {k: os.environ.get(k) for k in case.get("env", {})}
+        os.environ.update(case.get("env", {}))
+        trace.reset_counters()
+        try:
+            w = torch.from_numpy(arrays[f"{name}/w"])
+            x = torch.from_numpy(arrays[f"{name}/x"])
+            m = case["microbatches"]
+            if "virtual" in case:
+                v = case["virtual"]
+                params = w[rank * v:(rank + 1) * v].clone().requires_grad_()
+                pipe = pl.pipeline_apply_interleave(
+                    lambda p, h: torch.tanh(h @ p), world, v, m, group)
+            else:
+                b = torch.from_numpy(arrays[f"{name}/b"])
+                params = {"w": w[rank:rank + 1].clone().requires_grad_(),
+                          "b": b[rank:rank + 1].clone().requires_grad_()}
+                pipe = pl.pipeline_apply(
+                    lambda p, h: torch.tanh(h @ p["w"] + p["b"]), world, m,
+                    group, remat=True, overlap_p2p=case["overlap"])
+            if case.get("composed"):    # the same through the loss builder
+                outputs = None
+                loss = pl.build_pipeline_loss_fn(
+                    lambda _e, batch: pl.microbatch(batch, m),
+                    lambda p, h: torch.tanh(h @ p["w"] + p["b"]),
+                    lambda _h, out, _batch: (out ** 2).sum(), world, m,
+                    group, overlap_p2p=case["overlap"])(
+                        (None, params, None), x)
+            else:
+                outputs = pipe(params, pl.microbatch(x, m))
+                loss = pl.last_stage_value((outputs ** 2).sum(), world,
+                                           group)
+            loss.backward()
+        finally:
+            for k, val in saved.items():
+                if val is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = val
+        grads = ({"w": params.grad} if "virtual" in case else
+                 {k: t.grad for k, t in params.items()})
+        out[name] = {
+            "loss": loss.detach().numpy(),
+            "grads": {k: g.numpy() for k, g in grads.items()},
+            "outputs": None if outputs is None else outputs.detach().numpy(),
+            "counters": {k: val for k, val in trace.counters().items()
+                         if k.startswith(("pp.", "comm.ppermute.pp"))}}
+    return {"rank": rank, "cases": out,
+            "jax_modules": [m for m in sys.modules
+                            if m.split(".")[0] in ("jax", "paddle_tpu")]}
 
 
 def collective_inputs(n: int, t=128, k=32, out=48, ffn=(2, 64, 32, 128),

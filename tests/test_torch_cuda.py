@@ -2541,3 +2541,43 @@ def test_tp_serving_on_card_matches_mp1(dev, tmp_path):
             assert r["streams"] == want[name], name
             assert r["events"] == per[0]["events"], name
             assert r["used_blocks"] == 0 and r["stats"]["mp"] == 2
+
+
+# the entries of rows 2-9 (and the diagnostics) that the wrappers of
+# ops.paged_attention and chip_smoke load from the one library
+PAGED_SYMBOLS = (
+    "paged_attend_update_fwd", "paged_attention_fwd",
+    "paged_attention_verify_fwd", "paged_verify_commit_fwd",
+    "paged_attend_update_quant_fwd", "paged_attention_quant_fwd",
+    "paged_attention_verify_quant_fwd", "paged_verify_commit_quant_fwd",
+    "paged_quant_occupancy", "paged_attention_error_string")
+# paged_quant_occupancy at HD 128, bs 128 from the library built whole,
+# before csrc/paged_attention.cu was built in parts (chip_smoke's build
+# phase, NVIDIA H100 80GB HBM3, 700.00 W): kind 0 the int8 decode walk at
+# REP 1/2/4/8, kind 1 the int8 verify read in chunks of 2/4/5/8 rows
+QUANT_OCCUPANCY = {0: ((1, 2, 4, 8), [6, 4, 4, 4]),
+                   1: ((2, 4, 5, 8), [4, 4, 4, 2])}
+
+
+def test_paged_parts_link_into_one_library(dev):
+    """csrc/paged_attention.cu builds as several translation units linked
+    into one library: every entry of rows 2-9 resolves in it, the int8
+    walks' occupancy (its kernels in two parts, its entry in a third) is
+    what the whole build gave, a bad argument still gives -1, and the
+    error string export names a CUDA error."""
+    import ctypes
+    from paddle_tpu_torch import _build
+    assert len(_build.PARTS["paged_attention"]) > 1
+    lib = _build.load("paged_attention")
+    for name in PAGED_SYMBOLS:
+        assert getattr(lib, name) is not None, name
+    occ = _build.kernel("paged_attention", "paged_quant_occupancy",
+                        [ctypes.c_int] * 4)
+    for kind, (rows, want) in QUANT_OCCUPANCY.items():
+        assert [occ(kind, r, 128, 128) for r in rows] == want, kind
+    assert occ(0, 5, 128, 128) == -1 and occ(1, 1, 128, 128) == -1
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        _build.check("paged_attention", 1, "probe")
+    for part in _build.PARTS["paged_attention"]:
+        if f"paged_attention.{part}" in _build.BUILD_SECONDS:
+            assert _build.BUILD_SECONDS[f"paged_attention.{part}"] > 0

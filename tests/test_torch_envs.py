@@ -18,7 +18,7 @@ PORT_READS = {
     "SERVE_JOURNAL_FSYNC", "SERVE_PREFIX_CACHE", "SERVE_KV_DTYPE",
     "SERVE_SPEC", "SERVE_SPEC_K", "SERVE_MP", "MOE_DROPLESS", "CKPT_KEEP",
     "CKPT_INTERVAL", "PREEMPT_GRACE", "FLEET_SERVE_REPLICAS",
-    "FLEET_SERVE_SPILL", "FLEET_SERVE_JOURNAL_DIR", "TP_OVERLAP",
+    "FLEET_SERVE_SPILL", "FLEET_SERVE_JOURNAL_DIR", "PP_OVERLAP", "TP_OVERLAP",
     "TP_OVERLAP_MIN_CHUNK", "TP_OVERLAP_CHUNKS"}
 
 

@@ -203,7 +203,7 @@ def test_heads_that_mp_does_not_divide_raise_naming_the_config(heads, kv,
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(pp=2, mp=2), "item 7"), (dict(sep=2, mp=2), "item 9"),
+    (dict(pp=2, mp=2, sep=2), "item 9"), (dict(sep=2, mp=2), "item 9"),
     (dict(mp=2, overlap_p2p=True), "overlap_p2p")])
 def test_pp_and_sep_still_raise_beside_mp(kw, what):
     with pytest.raises(ValueError, match=what):

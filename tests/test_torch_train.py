@@ -222,8 +222,11 @@ def test_params_from_numpy_carries_opt_state(model):
 @pytest.mark.parametrize("kwargs,what,world,rows", [
     pytest.param(dict(mp=2), "mp", None, None, id="kwargs1-mp"),
     pytest.param(dict(sep=2), "sep", None, None, id="kwargs3-sep"),
-    pytest.param(dict(pp=2), "pp", None, None, id="kwargs4-pp"),
-    # fields the train step never reads
+    # pp runs one process a rank: it needs a process group
+    pytest.param(dict(pp=2), "init_parallel_env", None, None,
+                 id="kwargs4-pp"),
+    pytest.param(dict(pp=2, sep=2), "item 9", None, None, id="pp_sep"),
+    # fields the train step never reads at pp 1
     pytest.param(dict(microbatches=4), "microbatches", None, None,
                  id="kwargs5-microbatches"),
     pytest.param(dict(scan_unroll=2), "scan_unroll", None, None,
@@ -241,6 +244,13 @@ def test_params_from_numpy_carries_opt_state(model):
                  2, None, id="dp_sharding-world_of_2_not_4"),
     pytest.param(dict(dp=2), "batch of 3 rows", 2, 3,
                  id="dp-batch_of_3_over_2_ranks"),
+    # pp refuses layers the stages do not divide, and a rank's rows that
+    # max(microbatches, pp) does not divide
+    pytest.param(dict(pp=4), r"pp=4 needs num_hidden_layers \(2\)", 4,
+                 None, id="pp-4_stages_over_2_layers"),
+    pytest.param(dict(pp=2, microbatches=3),
+                 r"batch of 4 rows does not divide into 3 microbatches", 2,
+                 None, id="pp-batch_of_4_in_3_microbatches"),
 ])
 def test_unported_parallel_configs_raise(model, kwargs, what, world, rows):
     tcfg, ids, labels = model[1], model[3], model[4]

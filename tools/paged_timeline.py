@@ -127,6 +127,9 @@ def run():
     from paddle_tpu_torch import _build
     from paddle_tpu_torch.ops import paged_attention as pa
     assert not pa.__file__.startswith(ROOT), pa.__file__
+    # the stamps' device buffer and its host entry go in one translation
+    # unit: build the edited copy whole, not in parts
+    _build.PARTS.pop("paged_attention", None)
     _build.build_all(["paged_attention"])
     set_buffer = _build.kernel("paged_attention", "paged_timeline_buffer",
                                [ctypes.c_void_p])
