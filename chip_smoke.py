@@ -6788,7 +6788,8 @@ def _dp_start(name):
     return DP_SAVE_AT if name == DP_RESTORE_INTO else 0
 
 
-def train_dp_rank(rank, world, runs, dev, t_spawn, refs, ckpt_root):
+def train_dp_rank(rank, world, runs, dev, t_spawn, refs, ckpt_root,
+                  moe_refs):
     """One rank of the train-dp phase (spawned; the process group is up):
     each run of ``runs`` at this world size on ``dev``, its losses, step
     ms, peak memory, state bytes, launches, collective calls and bytes a
@@ -6800,7 +6801,9 @@ def train_dp_rank(rank, world, runs, dev, t_spawn, refs, ckpt_root):
     ``ckpt_root`` (the save's blocking and total seconds), and
     DP_RESTORE_INTO restores it there (the coordinator's verify and the
     load seconds, and the leaves whose bits differ from their saved
-    slices) before its steps."""
+    slices) before its steps. Then the ERNIE runs of MOE_DP_RUNS at this
+    world (:func:`moe_dp_rank_runs`, held to ``moe_refs``: the single
+    process's params and first-batch gradients)."""
     began = time.time() - t_spawn
     import dataclasses
     from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
@@ -6886,6 +6889,10 @@ def train_dp_rank(rank, world, runs, dev, t_spawn, refs, ckpt_root):
         torch.cuda.empty_cache()
     refs.clear()    # releases the parent's tensors (their IPC handles)
     gc.collect()
+    out.update(moe_dp_rank_runs(world, dev, *moe_refs))
+    for held in moe_refs:
+        held.clear()
+    gc.collect()
     return {"runs": out, "began_s": began, "ended_s": time.time() - t_spawn}
 
 
@@ -6936,6 +6943,12 @@ def train_dp(dev):
     for (layers, steps), (losses, _) in refs.items():
         print(f"single process, {layers} layers, {steps} steps: losses "
               f"{losses}")
+    t0 = time.perf_counter()
+    moe_refs, moe_grads, moe_control = moe_dp_references(dev)
+    for (cname, steps), (_, lm, losses, drops) in moe_refs.items():
+        print(f"single process ERNIE {cname}, {steps} step(s): lm losses "
+              f"{lm}, losses {losses}, drops {drops}")
+    res["moe_references_s"] = time.perf_counter() - t0
     print(f"parent holds {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
           f"(the references) before spawning")
     root = tempfile.mkdtemp(prefix="paddle_tpu_torch_train_dp_")
@@ -6944,13 +6957,20 @@ def train_dp(dev):
                                                 num_hidden_layers=DP_LAYERS))
         # bf16 params and f32 moments, and a tenth for the file system
         _need_disk(root, int(1.1 * 10 * n), "train-dp's checkpoint")
-        runs = _train_dp_spawns(refs, dev, root, res)
+        runs = _train_dp_spawns(refs, dev, root, res, moe_refs, moe_grads)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    moe_info = {k: v[1:] for k, v in moe_refs.items()}
+    moe_refs.clear()
+    moe_grads.clear()
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    res["moe"] = _moe_dp_checks(runs, moe_info, moe_control, fails)
     return _train_dp_checks(runs, res, fails)
 
 
-def _train_dp_spawns(refs, dev, root, res):
+def _train_dp_spawns(refs, dev, root, res, moe_refs, moe_grads):
     """The spawns of worlds 2 and 4: {run: every rank's report}."""
     from paddle_tpu_torch.testing.dist import spawn
     runs = {}
@@ -6967,7 +6987,14 @@ def _train_dp_spawns(refs, dev, root, res):
         # waits until its rank has read them
         ranks = spawn(train_dp_rank, world,
                       (DP_RUNS, dev, t0, {k: v[1] for k, v in refs.items()},
-                       root), timeout=DP_JOIN_S)
+                       root, ({k: v[:1] for k, v in moe_refs.items()
+                               if any(r[1] == world and (r[4], r[6]) == k
+                                      for r in MOE_DP_RUNS)},
+                              {k: g for k, g in moe_grads.items()
+                               if any(r[1] == world and r[4] == k
+                                      and r[0] in MOE_GRAD_RUNS
+                                      for r in MOE_DP_RUNS)})),
+                      timeout=DP_JOIN_S)
         joined = time.time() - t0
         print(f"world {world}: ranks began at "
               f"{[round(r['began_s'], 1) for r in ranks]} s, ended at "
@@ -7146,6 +7173,454 @@ def _elastic_report(runs, fails):
           f"coordinator), load {out['restore_load_s']:.2f} s (the slowest "
           f"rank); each rank's shards bitwise its saved slices "
           f"({out['leaves_compared']} leaves)")
+    return out
+
+
+# ERNIE-MoE over ranks, riding train-dp's spawns: (name, world, ep, dp,
+# config, flags, steps, env), all at B = MOE_B, S = MOE_S and full depth.
+# moe_ep2 and moe_ep2_overlap run the split flash backward (rows 17, 18),
+# whose sums take a fixed order, so the overlapped step can be held
+# bitwise to moe_ep2's step 0 (MOE_DP_BITWISE); moe_dp2_capacity is
+# ernie-capacity's model (E 8, top-2, capacity dispatch) at dp 2, where
+# many pairs drop under the global capacity
+_MOE_OVERLAP = {"PADDLE_TPU_TORCH_MOE_A2A_OVERLAP": "1"}
+MOE_DP_RUNS = [
+    ("moe_ep2", 2, 2, 1, "fine", "a2a", 2, _SPLIT),
+    ("moe_ep2_overlap", 2, 2, 1, "fine", "a2a", 1, {**_SPLIT,
+                                                     **_MOE_OVERLAP}),
+    ("moe_dp2_capacity", 2, 1, 2, "bench", "capacity", 1, {}),
+    ("moe_dp2_ep2", 4, 2, 2, "fine", "a2a", 1, {}),
+    ("moe_ep4_ragged", 4, 4, 1, "fine", "ragged", 1, {}),
+]
+MOE_DP_FLAGS = {"a2a": MOE_FLAGS,
+                "ragged": dict(MOE_FLAGS, dispatch_mode="ragged"),
+                "capacity": dict(with_stats=True)}
+MOE_DP_BITWISE = {"moe_ep2_overlap": "moe_ep2"}
+MOE_DP_LR = 1e-4
+# one run of each dispatch mode also holds its gradients of the first
+# batch, before AdamW, to the single process's: each rank's part of each
+# leaf (its experts' slice), relative Frobenius error of the worst leaf.
+# Adam's first step is nearly blind to a gradient's scale, so a gradient
+# counted twice passes the param limit but not this one. In bf16 the
+# ranks' partial sums round apart from one process's, and at a later MoE
+# layer that breaks some near-ties of top-k apart: the sound runs read
+# 6.6e-3 (moe_dp2_capacity, pos), 4.1e-2 (moe_ep4_ragged, e_w1) and
+# 0.100 (moe_ep2, the gate, whose function also differs: JAX's aux per
+# token shard under ragged_a2a); the control (moe_ep2's expert gradients
+# summed over ep as well) 0.876 (tools/moe_dp_runs.py, NVIDIA H100 80GB
+# HBM3, 700.00 W). The limit lies 2.5x over the worst sound reading and
+# 3.5x under the control
+MOE_GRAD_RUNS = ("moe_ep2", "moe_dp2_capacity", "moe_ep4_ragged")
+MOE_GRAD_CONTROL = "moe_ep2"
+MOE_GRAD_REL = 2 ** -2
+
+
+def _moe_dp_config(name):
+    from paddle_tpu_torch.models import ernie_moe as tm
+    return tm.ernie_moe_fine() if name == "fine" else \
+        tm.ErnieMoEConfig(**MOE_BENCH)
+
+
+def moe_dp_batches(vocab):
+    """The ERNIE runs' seeded [MOE_B, MOE_S + 1] batches (two)."""
+    rng = np.random.RandomState(SEED)
+    return [rng.randint(0, vocab, size=(MOE_B, MOE_S + 1)).astype(np.int32)
+            for _ in range(2)]
+
+
+def moe_dp_references(dev):
+    """The single process's ERNIE runs the ranks are held to (same seed,
+    batches and flags, lr MOE_DP_LR): ernie_moe_fine under MOE_FLAGS for
+    two steps (ragged_a2a at ep 1 is the ragged path, so its step 0 also
+    holds moe_ep4_ragged) and MOE_BENCH under capacity for one. Returns
+    ({(config, steps): (params on the card, lm losses, losses, drops)},
+    {config: the gradients of the first batch at the seeded params, on
+    the card}, the control's (worst leaf's error, leaf)): step 0 of
+    ernie_moe_fine with each layer's expert gradients summed over the
+    two ep halves as well (rank e's slice given both ranks' sum: a
+    gradient summed over ep as well as dp), which the limits must
+    fail."""
+    from paddle_tpu_torch.models import ernie_moe as tm
+    from paddle_tpu_torch.models.llama import _adamw_update, _tree_map
+    refs, grads = {}, {}
+    for cname, fname, steps in (("fine", "a2a", 2),
+                                ("bench", "capacity", 1)):
+        cfg = _moe_dp_config(cname)
+        step, p, o = tm.build_train_step(cfg, lr=MOE_DP_LR, seed=SEED,
+                                         device=dev, **MOE_DP_FLAGS[fname])
+        x = moe_dp_batches(cfg.vocab_size)[0]
+        grads[cname] = tm.moe_loss_and_grads(
+            p, *(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (x[:, :-1], x[:, 1:])), cfg,
+            dispatch_mode=MOE_DP_FLAGS[fname].get("dispatch_mode",
+                                                  "capacity"))[2]
+        if cname == "fine":
+            p0, o0 = _tree_map(torch.clone, p), _tree_map(torch.clone, o)
+        lm, losses, drops = [], [], []
+        for i, x in enumerate(moe_dp_batches(cfg.vocab_size)[:steps]):
+            p, o, loss, st = step(p, o, x[:, :-1], x[:, 1:])
+            losses.append(float(loss))
+            lm.append(float(st["lm_loss"]))
+            drops.append(float(st["moe_dropped_tokens"]))
+            refs[(cname, i + 1)] = (_tree_map(torch.clone, p), lm[:],
+                                    losses[:], drops[:])
+        del step, p, o
+    # the control: step 0 with the expert gradients summed over ep halves
+    cfg = _moe_dp_config("fine")
+    x = moe_dp_batches(cfg.vocab_size)[0]
+    ids = torch.from_numpy(np.ascontiguousarray(x[:, :-1])).to(dev)
+    labels = torch.from_numpy(np.ascontiguousarray(x[:, 1:])).to(dev)
+    _, aux, g = tm.moe_loss_and_grads(p0, ids, labels, cfg, True,
+                                      "ragged_a2a", True)
+    half = cfg.num_experts // 2
+    for name in ("e_w1", "e_w2"):
+        g["layers"]["moe"][name] = [torch.cat([t[:half] + t[half:]] * 2)
+                                    for t in g["layers"]["moe"][name]]
+    _adamw_update(p0, g, o0, MOE_DP_LR,
+                  masks=tm._expert_row_masks(p0, aux[1]))
+    control = _worst(leaf_rel_errors(p0, refs[("fine", 1)][0]))
+    del p0, o0, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs, grads, control
+
+
+def _whole(v):
+    return torch.stack(v) if isinstance(v, list) else v
+
+
+def moe_leaf_rel_errors(p, ref, cfg, mesh):
+    """{leaf: relative Frobenius error of this rank's ``p`` against its
+    slice of the full ``ref``} (e_w1/e_w2 sliced by the ep coordinate):
+    param or gradient trees (a stacked leaf's per-layer slices
+    stacked)."""
+    from paddle_tpu_torch.models import ernie_moe as tm
+    specs = tm.param_pspecs(cfg, mesh.ep.nranks, mesh.dp.nranks)
+    out = {}
+    for name, _ in _grad_items(p):
+        t, r = _whole(_at(p, name)), _whole(_at(ref, name))
+        for d, axis in enumerate(_at(specs, name)):
+            if axis == "ep":
+                n = r.shape[d] // mesh.ep.nranks
+                r = r.narrow(d, mesh.ep.rank * n, n)
+        d2, r2 = _sq_sums(t, r)
+        out[name] = (d2 / r2) ** 0.5
+    return out
+
+
+def moe_state_reckoning(cfg, ep, multi_precision):
+    """Bytes a rank holds for params and AdamW moments: every weight whole
+    but the experts (E/ep of them), the router gate in f32, the rest in
+    the model dtype; moments f32 (``multi_precision``) or in each param's
+    dtype."""
+    H, I, E, V = (cfg.hidden_size, cfg.intermediate_size, cfg.num_experts,
+                  cfg.vocab_size)
+    n = cfg.num_hidden_layers // 2          # split stacks
+    attn = 4 * H * H + 2 * H
+    half = (V * H + cfg.max_position_embeddings * H + H
+            + n * (attn + 2 * H * I)                        # dense layers
+            + n * (attn + 2 * (E // ep) * H * I
+                   + 2 * H * cfg.num_shared_experts * I))
+    gate = n * H * E
+    size = torch.finfo(cfg.dtype).bits // 8
+    return half * (size + (8 if multi_precision else 2 * size)) \
+        + gate * (4 + 8)
+
+
+def moe_exchange_reckoning(cfg, ep, dp, fname, overlap):
+    """The exchange a step of one rank, {span: (calls, bytes)}: under
+    ragged_a2a (n = ep ranks, T = B S / (dp ep) tokens a rank, chunks of
+    ragged_buffer_rows(T, k, E/n) rows of H in the model dtype, bf16) each
+    MoE layer makes
+    n - 1 hops out and n - 1 back, each again in the backward, and one
+    exchange of the [n, E/n] int32 counts; the ragged path's local form
+    one [B S / dp, H] all-reduce a layer forward; capacity at ep 1
+    none."""
+    from paddle_tpu_torch.parallel.moe import ragged_buffer_rows
+    n_moe, H, k = cfg.num_hidden_layers // 2, cfg.hidden_size, cfg.moe_topk
+    size = torch.finfo(cfg.dtype).bits // 8
+    out = {}
+    if fname == "a2a" and ep > 1:
+        T = MOE_B * MOE_S // (dp * ep)
+        chunk = ragged_buffer_rows(T, k, cfg.num_experts // ep, 128)
+        hop = (n_moe * (ep - 1), n_moe * (ep - 1) * chunk * H * size)
+        for name in ("hop", "ret_hop", "hop.grad", "ret_hop.grad"):
+            out[f"moe.ragged_a2a.{name}"] = hop
+        out["moe.ragged_a2a.counts"] = (n_moe, n_moe * cfg.num_experts * 4)
+        out["moe.a2a.hops_total"] = n_moe * (ep - 1)
+        if overlap:
+            out["moe.a2a.hops_overlapped"] = n_moe * (ep - 1)
+    elif fname == "ragged" and ep > 1:
+        out["moe.combine_psum"] = (n_moe,
+                                   n_moe * MOE_B * MOE_S // dp * H * size)
+    return out
+
+
+def moe_launch_reckoning(cfg, ep, fname, split):
+    """Launches a step of one rank: each MoE layer runs rows 24-26 twice a
+    chunk (ragged_a2a: n = ep chunks, the local ragged path one buffer,
+    capacity none); each layer one flash forward and one backward (row
+    16, or rows 17 and 18 under the ``split`` backward); the norms
+    2L + 1 (split stacks: no recompute)."""
+    L, n_moe = cfg.num_hidden_layers, cfg.num_hidden_layers // 2
+    chunks = {"a2a": ep, "ragged": 1, "capacity": 0}[fname]
+    gmm = 2 * chunks * n_moe
+    bwd = {"flash_bwd": 0, "flash_bwd_dkv": L, "flash_bwd_dq": L} if split \
+        else {"flash_bwd": L, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+    return {"gmm_fwd": gmm, "gmm_dx": gmm, "gmm_dw": gmm, "flash_fwd": L,
+            **bwd, "rms_norm": 2 * L + 1}
+
+
+def moe_grad_errors(step, p, x, grads, cfg, control):
+    """The first batch's gradients of a run of MOE_GRAD_RUNS before any
+    update: {leaf: error against the single process's ``grads``}, and
+    with ``control`` those of the faulty control (the expert gradients
+    summed over ep as well, as the parent's param control), else None."""
+    from paddle_tpu_torch.distributed import communication as comm
+    _, _, g = step.loss_and_grads(p, *step.local_batch(x[:, :-1],
+                                                       x[:, 1:]))
+    errs = moe_leaf_rel_errors(g, grads, cfg, step.mesh)
+    ctrl = None
+    if control:
+        moe = g["layers"]["moe"]
+        for name in ("e_w1", "e_w2"):
+            moe[name] = [comm.all_reduce(t.clone(), step.mesh.ep)
+                         for t in moe[name]]
+        ctrl = moe_leaf_rel_errors(g, grads, cfg, step.mesh)
+    return errs, ctrl
+
+
+def moe_dp_rank_runs(world, dev, refs, grads):
+    """This rank's ERNIE runs of MOE_DP_RUNS at ``world``: losses, lm
+    losses and drops a step, step ms, peak memory, state bytes, launches,
+    the moe exchange's and every comm span's calls and bytes a step,
+    coordinates, checksums of each local leaf (and after step 0) and each
+    leaf's error against the single process's (``refs``); for
+    MOE_GRAD_RUNS the first batch's gradients' errors against the single
+    process's (``grads``, by config) before the steps."""
+    from paddle_tpu_torch.models import ernie_moe as tm
+    from paddle_tpu_torch.observability import trace
+    out = {}
+    for name, w, ep, dp, cname, fname, steps, env in MOE_DP_RUNS:
+        if w != world:
+            continue
+        cfg = _moe_dp_config(cname)
+        batches = moe_dp_batches(cfg.vocab_size)
+        os.environ.update(env)
+        t0 = t_run = time.perf_counter()
+        step, p, o = tm.build_train_step(cfg, ep_degree=ep, dp_degree=dp,
+                                         lr=MOE_DP_LR, seed=SEED, device=dev,
+                                         **MOE_DP_FLAGS[fname])
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        state = _tree_bytes(p) + _tree_bytes({"m": o["m"], "v": o["v"]})
+        grad_rel = grad_ctrl = None
+        if name in MOE_GRAD_RUNS:
+            grad_rel, grad_ctrl = moe_grad_errors(
+                step, p, batches[0], grads[cname], cfg,
+                name == MOE_GRAD_CONTROL)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        trace.reset_counters()
+        losses, lm, drops, step_ms, first = [], [], [], [], None
+        for i, x in enumerate(batches[:steps]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, loss, st = step(p, o, x[:, :-1], x[:, 1:])
+            losses.append(float(loss))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            lm.append(float(st["lm_loss"]))
+            drops.append(float(st["moe_dropped_tokens"]))
+            if i == 0 and name in MOE_DP_BITWISE.values():
+                first = {k: bits_checksum(ts[0]) for k, ts in _grad_items(p)}
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        for k in env:
+            del os.environ[k]
+        counters = trace.counters()
+        out[name] = {
+            "losses": losses, "lm_losses": lm, "drops": drops,
+            "step_ms": step_ms, "build_s": build_s, "peak_bytes": peak,
+            "state_bytes": state, "launches": _counts(),
+            "moe_per_step": {k: v / steps for k, v in counters.items()
+                             if k.startswith("moe.")},
+            "comm_per_step": {k[len("comm."):]: v / steps
+                              for k, v in counters.items()
+                              if k.startswith("comm.")},
+            "coord": step.mesh.coord,
+            "checksums": {k: bits_checksum(ts[0])
+                          for k, ts in _grad_items(p)},
+            "first_step_checksums": first,
+            "param_rel": moe_leaf_rel_errors(p, refs[(cname, steps)][0],
+                                             cfg, step.mesh),
+            "grad_rel": grad_rel, "grad_control_rel": grad_ctrl,
+            "run_s": time.perf_counter() - t_run}
+        del step, p, o
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moe_dp_checks(runs, refs_info, control, fails):
+    """The ERNIE runs' checks and prints (``runs``: train-dp's {run: every
+    rank's {run: report}}): every rank the same losses; dp
+    replicas the same bits; moe_ep2_overlap bitwise moe_ep2's step 0; lm
+    losses and each rank's leaves against the single process's; the
+    launches, the exchange and the state bytes against their reckonings.
+    Returns the runs' record."""
+    out = {"control": {"case": "expert gradients summed over ep as well",
+                       "param_rel": control[0], "leaf": control[1]}}
+    print(f"ERNIE control (expert gradients summed over ep as well as dp, "
+          f"step 0): worst leaf {control[1]} {control[0]:.4e} against the "
+          f"limit {DP_PARAM_REL:.4e}")
+    if control[0] <= DP_PARAM_REL:
+        fails.append(f"ERNIE control: params {control[0]} within "
+                     f"DP_PARAM_REL")
+    for name, world, ep, dp, cname, fname, steps, env in MOE_DP_RUNS:
+        per = [r[name] for r in runs[name]]
+        cfg = _moe_dp_config(cname)
+        r0 = per[0]
+        if any(r["losses"] != r0["losses"] for r in per):
+            fails.append(f"{name}: ranks report different losses "
+                         f"{[r['losses'] for r in per]}")
+        ep_split = 0       # leaves ep does not split: one array in JAX
+        for a in per:
+            for b in per:
+                same_ep = a["coord"][1] == b["coord"][1]
+                bad = [k for k in a["checksums"] if same_ep and
+                       a["checksums"][k] != b["checksums"][k]]
+                if bad:
+                    fails.append(f"{name}: dp replicas {a['coord']} and "
+                                 f"{b['coord']} differ in {bad}")
+                ep_split += sum(a["checksums"][k] != b["checksums"][k]
+                                for k in a["checksums"]
+                                if not same_ep and "e_w" not in k)
+        if ep_split:
+            fails.append(f"{name}: {ep_split} (rank pair, leaf) checksums "
+                         f"of leaves ep does not split differ across ep "
+                         f"ranks")
+        grad = None
+        if name in MOE_GRAD_RUNS:
+            grad = max(_worst(r["grad_rel"]) + (rank,)
+                       for rank, r in enumerate(per))
+            if grad[0] > MOE_GRAD_REL:
+                fails.append(f"{name}: rank {grad[2]}'s gradient of "
+                             f"{grad[1]} is {grad[0]} off the single "
+                             f"process's")
+        if name == MOE_GRAD_CONTROL:
+            ctrl = min(_worst(r["grad_control_rel"]) + (rank,)
+                       for rank, r in enumerate(per))
+            out["grad_control"] = {
+                "case": "expert gradients summed over ep as well",
+                "run": name, "grad_rel": ctrl[0], "leaf": ctrl[1],
+                "rank": ctrl[2]}
+            print(f"ERNIE gradient control ({name}'s expert gradients "
+                  f"summed over ep as well as dp): worst leaf {ctrl[1]} "
+                  f"{ctrl[0]:.4e} (the least over ranks) against the limit "
+                  f"{MOE_GRAD_REL:.4e}")
+            if ctrl[0] <= MOE_GRAD_REL:
+                fails.append(f"ERNIE gradient control: {ctrl[0]} within "
+                             f"MOE_GRAD_REL")
+        if name in MOE_DP_BITWISE:
+            base = MOE_DP_BITWISE[name]
+            ref = [r[base] for r in runs[base]]
+            if r0["losses"] != ref[0]["losses"][:1] or any(
+                    a["checksums"] != b["first_step_checksums"]
+                    for a, b in zip(per, ref)):
+                fails.append(f"{name}: not bitwise {MOE_DP_BITWISE[name]}'s"
+                             f" first step (losses {r0['losses']}, "
+                             f"{ref[0]['losses'][:1]})")
+        s_lm, s_loss, s_drops = refs_info[(cname, steps)]
+        gaps = [_rel(x, y) for x, y in zip(r0["lm_losses"], s_lm)]
+        limits = [DP_STEP0_RTOL if i == 0 else DP_LATER_RTOL
+                  for i in range(len(gaps))]
+        if any(g > lim for g, lim in zip(gaps, limits)):
+            fails.append(f"{name}: lm losses {r0['lm_losses']} against one "
+                         f"process's {s_lm}: gaps {gaps}")
+        worst = max(_worst(r["param_rel"]) + (rank,)
+                    for rank, r in enumerate(per))
+        if worst[0] > DP_PARAM_REL:
+            fails.append(f"{name}: rank {worst[2]}'s {worst[1]} is "
+                         f"{worst[0]} off the single process's params")
+        flags = MOE_DP_FLAGS[fname]
+        overlap = "PADDLE_TPU_TORCH_MOE_A2A_OVERLAP" in env
+        want_x = moe_exchange_reckoning(cfg, ep, dp, fname, overlap)
+        split = env.get("PADDLE_TPU_TORCH_FLASH_BWD") == "split"
+        want_l = {k: v * steps for k, v in
+                  moe_launch_reckoning(cfg, ep, fname, split).items()}
+        want_s = moe_state_reckoning(cfg, ep,
+                                     flags.get("multi_precision", True))
+        for rank, r in enumerate(per):
+            got_x = {}
+            for k, v in r["moe_per_step"].items():
+                if k.endswith(".calls"):
+                    got_x.setdefault(k[:-6], [0, 0])[0] = v
+                elif k.endswith(".bytes"):
+                    got_x.setdefault(k[:-6], [0, 0])[1] = v
+                else:
+                    got_x[k] = v
+            got_x = {k: tuple(v) if isinstance(v, list) else v
+                     for k, v in got_x.items()}
+            if got_x != want_x:
+                fails.append(f"{name} rank {rank}: exchange a step {got_x},"
+                             f" reckoned {want_x}")
+            got_l = {k: r["launches"][k] for k in want_l}
+            if got_l != want_l:
+                fails.append(f"{name} rank {rank}: launches {got_l}, want "
+                             f"{want_l}")
+            if r["state_bytes"] != want_s:
+                fails.append(f"{name} rank {rank}: state {r['state_bytes']} "
+                             f"bytes, reckoned {want_s}")
+            r["exchange"], r["reckoned_exchange"] = got_x, want_x
+            r["reckoned_launches"] = want_l
+        grad_txt = "" if grad is None else (
+            f"first-batch gradients: worst leaf {grad[1]} {grad[0]:.4e} "
+            f"(rank {grad[2]}, limit {MOE_GRAD_REL:.4e}); ")
+        aux_port = (r0["losses"][0] - r0["lm_losses"][0]) / cfg.aux_loss_weight
+        aux_one = (s_loss[0] - s_lm[0]) / cfg.aux_loss_weight
+        total_gap = _rel(r0["losses"][0], s_loss[0])
+        out[name] = {
+            "world": world, "ep": ep, "dp": dp, "config": cname,
+            "flags": {k: v for k, v in flags.items()}, "env": env,
+            "steps": steps, "losses": r0["losses"],
+            "lm_losses": r0["lm_losses"], "single_process_lm": s_lm,
+            "single_process_losses": s_loss, "lm_rel_gaps": gaps,
+            "total_rel_gap_step0": total_gap,
+            "aux_sum_step0": {"ranks": aux_port, "single_process": aux_one},
+            "drops": r0["drops"], "single_process_drops": s_drops,
+            "param_rel_worst": {"err": worst[0], "leaf": worst[1],
+                                "rank": worst[2]},
+            "replicated_leaves_differing_across_ep": ep_split,
+            "grad_rel_worst": None if grad is None else {
+                "err": grad[0], "leaf": grad[1], "rank": grad[2]},
+            "state_bytes_reckoned": want_s,
+            "run_s": max(r["run_s"] for r in per),
+            "ranks": [{k: r[k] for k in (
+                "coord", "peak_bytes", "state_bytes", "step_ms", "build_s",
+                "launches", "exchange", "comm_per_step", "run_s",
+                "grad_rel", "grad_control_rel")}
+                for r in per]}
+        print(f"{name} (world {world}, ep {ep} x dp {dp}, {cname}, {fname}"
+              f"{', ' + str(env) if env else ''}): lm losses "
+              f"{r0['lm_losses']} against one process's {s_lm} (rel gaps "
+              f"{gaps}); total {r0['losses']} against {s_loss} (step 0 gap "
+              f"{total_gap:.3e}: aux summed over the MoE layers "
+              f"{aux_port:.6f} on the ranks, JAX's per-shard mean under ep, "
+              f"against {aux_one:.6f} over the global batch, times "
+              f"aux_loss_weight {cfg.aux_loss_weight}); drops "
+              f"{r0['drops']} (one process {s_drops}); params: worst leaf "
+              f"{worst[1]} {worst[0]:.4e} (rank {worst[2]}); {grad_txt}"
+              f"replicated "
+              f"leaf checksums differing across ep ranks: {ep_split}; "
+              f"{out[name]['run_s']:.1f} s (the slowest rank)")
+        for rank, r in enumerate(per):
+            print(f"  rank {rank} {tuple(r['coord'])}: peak "
+                  f"{r['peak_bytes'] / 1e9:.2f} GB, state "
+                  f"{r['state_bytes'] / 1e9:.3f} GB (reckoned "
+                  f"{want_s / 1e9:.3f}); step ms {r['step_ms']}; launches "
+                  f"{ {k: r['launches'][k] for k in want_l} } (reckoned "
+                  f"{want_l}); exchange a step {r['exchange']}; other "
+                  f"collectives a step {r['comm_per_step']}")
     return out
 
 

@@ -32,6 +32,15 @@ go the same way, and :func:`start_hop` posts one without waiting, so the
 overlapped schedule starts a hop before a stage's compute and waits for
 it after. A staged 256 MB bf16 hop between two ranks on one
 card moved 0.49 GB/s, a CPU one 0.76 GB/s (the same probe).
+
+The expert-parallel transports of MoE (``parallel.moe``,
+``communication.ragged``) are :func:`shift_hop` (a shift of the ring by
+any h, differentiable, postable ahead with :func:`start_shift`) and
+:func:`all_to_all` (equal chunks, ``all_to_all_single``). Whether gloo's
+all-to-all takes CUDA tensors is not on record, so it stages them
+through the host like the hops. These take the span name of their call
+site in the JAX package (``moe.ragged_a2a.hop``, ...); their backward
+calls count under ``<name>.grad``.
 """
 from __future__ import annotations
 
@@ -69,19 +78,26 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _span(op: str, group: Group, nbytes: int):
+def _span(op: str, group: Group, nbytes: int, name: Optional[str] = None,
+          site: Optional[str] = None):
+    """The span of a call: ``comm.<op>.<axis>``, or the caller's ``name``
+    (and ``site``) where it names the call as the JAX package does."""
+    if name is not None:
+        return comm_span(name, nbytes=nbytes, site=site)
     return comm_span(f"comm.{op}.{group.axis_name}", nbytes=nbytes)
 
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
-def all_reduce(tensor: torch.Tensor, group: Group,
-               op: str = "sum") -> torch.Tensor:
+def all_reduce(tensor: torch.Tensor, group: Group, op: str = "sum",
+               name: Optional[str] = None,
+               site: Optional[str] = None) -> torch.Tensor:
     """Reduce ``tensor`` over ``group`` in place (``op`` "sum" or
-    "max"); returns it."""
+    "max"); returns it. ``name`` and ``site`` replace the span's
+    ``comm.all_reduce.<axis>``."""
     if group.nranks > 1:
-        with _span("all_reduce", group, _nbytes(tensor)):
+        with _span("all_reduce", group, _nbytes(tensor), name, site):
             dist.all_reduce(tensor, op=_OPS[op], group=group.pg)
     return tensor
 
@@ -199,6 +215,118 @@ def permute_hop(tensor: torch.Tensor, group: Group, token: torch.Tensor,
     ``token`` that requires grad through every hop of a schedule so that
     the backward makes every reverse hop."""
     return _PermuteHop.apply(tensor, token, group, ring, pending)
+
+
+def shift_peers(group: Group, hop: int):
+    """(send_to, recv_from) of this rank in a shift of the group's ring by
+    ``hop`` (``lax.ppermute`` with r -> r+hop mod n): r+hop and r-hop mod
+    n, or (None, None) where the shift is the identity."""
+    n, r = group.nranks, group.rank
+    if hop % n == 0:
+        return None, None
+    return (r + hop) % n, (r - hop) % n
+
+
+def start_shift(tensor: torch.Tensor, group: Group, hop: int, name: str,
+                site: Optional[str] = None) -> Optional[PendingHop]:
+    """Post a shift of ``tensor`` by ``hop`` over ``group`` in span
+    ``name`` (with the tensor's bytes) without waiting; None where the
+    shift is the identity. Pass the result to :func:`shift_hop`."""
+    send_to, recv_from = shift_peers(group, hop)
+    if send_to is None:
+        return None
+    with comm_span(name, nbytes=_nbytes(tensor), site=site):
+        with torch.no_grad():
+            return start_hop(tensor.contiguous(), group, send_to, recv_from)
+
+
+class _ShiftHop(torch.autograd.Function):
+    """A shift by ``hop``, differentiable: the backward shifts the
+    gradient by -hop (the transpose of ``lax.ppermute``), in span
+    ``<name>.grad``."""
+
+    @staticmethod
+    def forward(ctx, x, group, hop, name, site, pending):
+        ctx.group, ctx.hop, ctx.name, ctx.site = group, hop, name, site
+        if pending is None:
+            pending = start_shift(x, group, hop, name, site)
+        return pending.wait()
+
+    @staticmethod
+    def backward(ctx, g):
+        site = None if ctx.site is None else ctx.site + ".grad"
+        back = start_shift(g.contiguous(), ctx.group, -ctx.hop,
+                           ctx.name + ".grad", site)
+        return back.wait(), None, None, None, None, None
+
+
+def shift_hop(tensor: torch.Tensor, group: Group, hop: int, name: str,
+              site: Optional[str] = None,
+              pending: Optional[PendingHop] = None) -> torch.Tensor:
+    """One shift of the group's ring by ``hop`` (any integer; negative
+    walks the ring back): send ``tensor`` to rank r+hop mod n and return
+    what rank r-hop sent, in span ``name``. ``pending``: the same shift
+    already posted by :func:`start_shift` (the overlapped schedule),
+    waited for here. Differentiable (:class:`_ShiftHop`). The identity
+    shift (hop a multiple of n) returns ``tensor`` and makes no call."""
+    if shift_peers(group, hop)[0] is None:
+        return tensor
+    return _ShiftHop.apply(tensor, group, hop, name, site, pending)
+
+
+def all_to_all(tensor: torch.Tensor, group: Group, name: str,
+               site: Optional[str] = None) -> torch.Tensor:
+    """The equal-chunk all-to-all (``lax.all_to_all`` with split and
+    concat axis 0, tiled): ``tensor`` [n, ...] sends its block j to rank
+    j; the result's block j is what rank j sent. Not differentiable (see
+    :func:`all_to_all_grad`). In span ``name`` with the tensor's bytes.
+    Over gloo a CUDA tensor goes through a host copy each way."""
+    n = group.nranks
+    if tensor.shape[0] != n:
+        raise ValueError(f"all_to_all: dimension 0 of {tuple(tensor.shape)} "
+                         f"is not the group's {n} ranks")
+    if n == 1:
+        return tensor
+    staged = tensor.is_cuda and dist.get_backend(group.pg) == "gloo"
+    src = tensor.cpu() if staged else tensor.contiguous()
+    out = torch.empty_like(src)
+    with comm_span(name, nbytes=_nbytes(tensor), site=site):
+        dist.all_to_all_single(out, src, group=group.pg)
+    return out.to(tensor.device) if staged else out
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`all_to_all`, differentiable: its transpose is itself, in
+    span ``<name>.grad``."""
+
+    @staticmethod
+    def forward(ctx, x, group, name, site):
+        ctx.group, ctx.name, ctx.site = group, name, site
+        return all_to_all(x, group, name, site)
+
+    @staticmethod
+    def backward(ctx, g):
+        site = None if ctx.site is None else ctx.site + ".grad"
+        return all_to_all(g.contiguous(), ctx.group, ctx.name + ".grad",
+                          site), None, None, None
+
+
+def all_to_all_grad(tensor: torch.Tensor, group: Group, name: str,
+                    site: Optional[str] = None) -> torch.Tensor:
+    """:func:`all_to_all`, differentiable in ``tensor``."""
+    if group.nranks == 1:
+        return tensor
+    return _AllToAll.apply(tensor, group, name, site)
+
+
+def broadcast(tensor: torch.Tensor, src: int, group: Group) -> torch.Tensor:
+    """The tensor of the rank of index ``src`` in ``group`` on every rank,
+    written in place into ``tensor`` (the same shape and dtype on every
+    rank). Returns it."""
+    if group.nranks > 1:
+        with _span("broadcast", group, _nbytes(tensor)):
+            dist.broadcast(tensor, src=group.ranks[src], group=group.pg)
+    return tensor
 
 
 def reduce(tensor: torch.Tensor, dst: int, group: Group) -> torch.Tensor:

@@ -401,6 +401,24 @@ def _parse_moe_dropless(value):
 
 
 _register(
+    "PADDLE_TPU_TORCH_MOE_A2A", "enum", "ring",
+    doc="Transport of the ragged all-to-all expert dispatch "
+        "(parallel.moe.moe_ragged_dispatch_a2a): 'ring' sends each "
+        "destination's chunk over n-1 shifted hops, 'dense' the same "
+        "chunks through one equal-chunk all-to-all. Both give the same "
+        "bits. Read on every MoE layer.",
+    parse=_enum("PADDLE_TPU_TORCH_MOE_A2A", ("ring", "dense"), "ring"),
+    choices=("ring", "dense"))
+
+_register(
+    "PADDLE_TPU_TORCH_MOE_A2A_OVERLAP", "bool", False,
+    doc="Overlap the ragged dispatch's ring hops with the expert "
+        "products: hop h+1 is posted before chunk h's grouped matmuls, "
+        "instead of every hop landing before the first one. The same "
+        "bits either way. Read on every MoE layer.",
+    parse=_strict_bool("PADDLE_TPU_TORCH_MOE_A2A_OVERLAP"))
+
+_register(
     "PADDLE_TPU_TORCH_MOE_DROPLESS", "enum", "capacity",
     doc="MoE dispatch default when neither the step nor the config names "
         "one: truthy selects the ragged dropless grouped-matmul path, "

@@ -21,5 +21,5 @@ from .metrics import (PEAK_FLOPS_TABLE, StepMetrics, active,  # noqa: F401
 from .registry import MetricsRegistry  # noqa: F401
 from .request_trace import RequestTracer  # noqa: F401
 from .trace import (ENV_TELEMETRY, ENV_TELEMETRY_DIR, comm_span,  # noqa: F401
-                    counters, record_counter, reset_counters, set_counter,
-                    telemetry_dir, telemetry_enabled)
+                    counters, overlap_flags, record_counter, reset_counters,
+                    set_counter, telemetry_dir, telemetry_enabled)

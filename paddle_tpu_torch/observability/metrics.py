@@ -295,6 +295,7 @@ class StepMetrics:
                 p = self.step_time_hist.percentile(q)
                 out[f"step_time_ms_p{q}"] = p * 1e3 if p is not None else None
         out.update(self.device_memory())
+        out["overlap"] = _trace.overlap_flags()
         out["counters"] = _trace.counters()
         return out
 

@@ -12,6 +12,9 @@
 - counters: a process-global tally the spans and the engine bump.
   ``reset_counters()`` before a run and ``counters()`` after give its
   attribution.
+
+- ``overlap_flags()``: the overlap switches of tensor and pipeline
+  parallelism as 0/1, the ``overlap`` entry of ``StepMetrics.summary()``.
 """
 from __future__ import annotations
 
@@ -94,3 +97,15 @@ def comm_span(name: str, nbytes: Optional[int] = None,
         if site is not None:
             record_counter(f"site.{site}.ms",
                            (time.perf_counter() - t0) * 1e3)
+
+
+def overlap_flags() -> Dict[str, int]:
+    """The overlap switches as 0/1: ``tp.overlap_on``, the
+    collective-matmul rings (``PADDLE_TPU_TORCH_TP_OVERLAP``), and
+    ``pp.overlap_on``, the overlapped pipeline schedule
+    (``PADDLE_TPU_TORCH_PP_OVERLAP``). A knob that does not parse
+    raises."""
+    from ..parallel import collective_matmul as _cm
+    from ..parallel import pipeline as _pl
+    return {"tp.overlap_on": int(_cm.overlap_enabled()),
+            "pp.overlap_on": int(_pl.p2p_overlap_enabled())}

@@ -9,7 +9,8 @@
 The token buffer ``lhs`` [M, K] is expert-sorted with every expert's group
 starting on a ``tile_rows`` boundary, so each row tile belongs to one
 expert. :func:`tile_schedule` turns per-expert row counts into the flat
-per-tile schedule on the device (no host sync); the kernels read its
+per-tile schedule on the device (no host sync), :func:`chunk_schedule`
+that of one chunk of the ragged all-to-all; the kernels read its
 ``(tile_expert, live)`` from device memory. Dead tiles (past the
 last group) come back zero from the forward and dX; dW of an expert with
 no tile is exactly zero. Every product accumulates in f32; the forward
@@ -67,6 +68,20 @@ def tile_schedule(counts: torch.Tensor, n_tiles: int,
     last = (row0 + tile_rows == offsets[e + 1]) & live
     i32 = torch.int32
     return expert, live.to(i32), first.to(i32), last.to(i32), offsets
+
+
+def chunk_schedule(counts: torch.Tensor, chunk_rows: int,
+                   tile_rows: int = TILE_ROWS):
+    """The tile schedule of ONE chunk of the ragged all-to-all dispatch:
+    ``counts`` [E_local] are the group sizes one source rank packed into
+    its ``chunk_rows``-row chunk, tile-aligned as :func:`tile_schedule`
+    lays them. Returns ``(tile_expert, live, first, last)`` over
+    ``chunk_rows // tile_rows`` tiles; the tiles past the chunk's groups
+    are dead (live 0). The kernels read the first two."""
+    if chunk_rows % tile_rows:
+        raise ValueError(f"chunk_schedule: chunk_rows {chunk_rows} is not a "
+                         f"multiple of tile_rows {tile_rows}")
+    return tile_schedule(counts, chunk_rows // tile_rows, tile_rows)[:4]
 
 
 # ---------------------------------------------------------------------------

@@ -123,16 +123,16 @@ class _CopyToMP(torch.autograd.Function):
 
 class _ReduceFromMP(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, x, group, name, site):
         # a copy: ``x`` may be kept by autograd or by a remat policy (the
         # ``dots`` policy keeps every product), and a recompute handed the
         # kept tensor would reduce a sum again
         return comm.all_reduce(x.clone(memory_format=torch.contiguous_format),
-                               group)
+                               group, name=name, site=site)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None, None
 
 
 class _GatherFromMP(torch.autograd.Function):
@@ -156,11 +156,12 @@ def copy_to_mp(x, group):
         _CopyToMP.apply(x, group)
 
 
-def reduce_from_mp(x, group):
+def reduce_from_mp(x, group, name=None, site=None):
     """A row-parallel product's partial sums: all-reduced over ``group``
-    (into a copy); the backward passes the whole gradient through."""
+    (into a copy); the backward passes the whole gradient through.
+    ``name`` and ``site`` name the all-reduce's span (``comm.all_reduce``)."""
     return x if group is None or group.nranks == 1 else \
-        _ReduceFromMP.apply(x, group)
+        _ReduceFromMP.apply(x, group, name, site)
 
 
 def gather_from_mp(x, dim, group):

@@ -595,6 +595,223 @@ def pipeline_job(rank: int, world: int, job: dict) -> dict:
                             if m.split(".")[0] in ("jax", "paddle_tpu")]}
 
 
+def _numpy_tree(flat):
+    """A tree of CPU tensors, each in its array's own dtype, from
+    {path: array}."""
+    import torch
+    tree = {}
+    for path, a in flat.items():
+        node = tree
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = torch.from_numpy(np.array(a))
+    return tree
+
+
+def _stacked(tree):
+    """A gradient tree with each list of per-layer slices stacked."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: _stacked(v) for k, v in tree.items()}
+    return torch.stack(tree) if isinstance(tree, list) else tree
+
+
+def moe_job(rank: int, world: int, job: dict) -> dict:
+    """The ERNIE-MoE tests' rank function. ``job``: ``config``
+    (ErnieMoEConfig fields, ``dtype`` by name), ``weights`` (an .npz of
+    the full params by path), ``batches`` (an .npz of ``ids`` and
+    ``labels`` [steps, B, S]), ``out`` (rank 0's directory), ``lr`` and
+    ``runs``, each ``name``, ``ep`` and ``dp`` (ep x dp must be the
+    world), ``flags`` (``build_train_step`` keywords), and optionally
+    ``config`` (fields over the job's), ``weights`` and ``batches`` (the
+    run's own .npz),
+    ``env`` (set for the run only), ``grads`` (also the gradients of the
+    first batch before any update, gathered: ``g:<path>``) and
+    ``control`` ("local_capacity": each rank routes the capacity path
+    with its own rows' capacity, a fault the tests must catch;
+    "ep_noise": each rank scales its loss, so its gradients, by
+    1 + 1e-3 (rank + 1), as a backward that rounds apart on each rank
+    would move them, which the step must not let into the leaves ep does
+    not split). Every run
+    builds the port's step, loads the weights through
+    ``shard_train_state`` (zero moments), takes the steps and gathers the
+    params; rank 0 writes ``<out>/<name>.npz`` (``losses``, ``p:<path>``,
+    ``g:<path>``). Returns by run every rank's losses, stats (each step's,
+    as lists), coordinates, the CRC32 of each local param leaf, and the
+    ``moe.``, ``site.`` and ``comm.`` counters of its steps; and the
+    modules of JAX or of the JAX package this process imported."""
+    import torch
+    from paddle_tpu_torch.models import ernie_moe as tm
+    from paddle_tpu_torch.observability import trace
+    torch.set_num_threads(2)
+
+    def config(kw):
+        return tm.ErnieMoEConfig(**{**kw, "dtype": getattr(torch,
+                                                           kw["dtype"])})
+    report = {"runs": {}}
+    for run in job["runs"]:
+        batches = np.load(run.get("batches") or job["batches"])
+        cfg = config({**job["config"], **run.get("config", {})})
+        full = _numpy_tree(dict(np.load(run.get("weights")
+                                        or job["weights"])))
+        saved = {k: os.environ.get(k) for k in run.get("env", {})}
+        os.environ.update(run.get("env", {}))
+        patched = None
+        if run.get("control") == "local_capacity":
+            patched = ("moe_dispatch_combine", tm.moe_dispatch_combine)
+            tm.moe_dispatch_combine = lambda *a, dp=None, **kw: patched[1](
+                *a, **kw)
+        elif run.get("control") == "ep_noise":
+            patched = ("moe_loss", tm.moe_loss)
+
+            def noisy(*a, **kw):
+                total, aux = patched[1](*a, **kw)
+                return total * (1 + 1e-3 * (rank + 1)), aux
+            tm.moe_loss = noisy
+        try:
+            step, _, _ = tm.build_train_step(
+                cfg, ep_degree=run["ep"], dp_degree=run["dp"],
+                lr=job.get("lr", 1e-3), device="cpu", **run["flags"])
+            mesh = step.mesh
+            p, o = tm.shard_train_state(
+                full, tm._adamw_init(
+                    full, run["flags"].get("multi_precision", True)),
+                cfg, mesh)
+            grads = {}
+            if run.get("grads"):
+                _, _, g = step.loss_and_grads(p, *step.local_batch(
+                    batches["ids"][0], batches["labels"][0]))
+                grads = flat_tree(tm.gather_train_state(
+                    _stacked(g), None, cfg, mesh)[0])
+            trace.reset_counters()
+            losses, stats = [], []
+            for ids, labels in zip(batches["ids"], batches["labels"]):
+                p, o, loss, aux = step(p, o, ids, labels)
+                losses.append(float(loss))
+                if isinstance(aux, dict):
+                    stats.append({k: v.tolist() for k, v in aux.items()})
+            counters = {k: v for k, v in trace.counters().items()
+                        if k.startswith(("moe.", "site.", "comm."))}
+        finally:
+            if patched is not None:
+                setattr(tm, *patched)
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        crcs = {k: zlib.crc32(np.ascontiguousarray(v).tobytes())
+                for k, v in flat_tree(p).items()}
+        p, _ = tm.gather_train_state(p, None, cfg, mesh)
+        if rank == 0:
+            np.savez(os.path.join(job["out"], f"{run['name']}.npz"),
+                     losses=np.array(losses),
+                     **{f"p:{k}": v for k, v in flat_tree(p).items()},
+                     **{f"g:{k}": v for k, v in grads.items()})
+        report["runs"][run["name"]] = {
+            "losses": losses, "stats": stats, "crc": crcs,
+            "coord": mesh.coord, "counters": counters,
+            "groups": {"dp": mesh.dp.ranks, "ep": mesh.ep.ranks}}
+    report["jax_modules"] = [m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "paddle_tpu")]
+    return report
+
+
+def moe_dispatch_job(rank: int, world: int, job: dict) -> dict:
+    """The ep dispatch tests' rank function: the world is one ep group.
+    ``job``: ``inputs`` (an .npz of f32 arrays by data name, ``<data>/x``
+    [T, D], ``<data>/logits`` [T, E], ``<data>/w1`` [E, D, I],
+    ``<data>/w2`` [E, I, D], ``<data>/cot`` [T, D]; and for the exchange,
+    ``<data>/rows`` [world, R, D] and ``<data>/send_counts`` [world,
+    world]), ``k``, ``tile_rows`` and ``cases``, each ``name``, ``data``,
+    ``fn`` ("slot_local", "ragged_local", "a2a", "shard_map" or "ragged";
+    the first two take every token on every rank, "a2a" and "shard_map"
+    rank r's block r of them) and ``kwargs`` (a2a_impl, overlap,
+    capacity_factor; for "ragged", ``impl`` and ``peer_rows``). Each
+    dispatch case runs this rank's experts (E/world of them) with
+    ``return_stats``, then backward of sum(out * cot) + aux. Returns
+    {case: out, aux, stats, the gradients of x, logits, w1 and w2 (this
+    rank's), the slots (``parallel.moe``'s layout helpers) and the
+    ``moe.`` counters}, or for "ragged" ``ragged_all_to_all``'s (out,
+    recv_counts), and the modules of JAX or of the JAX package this
+    process imported."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import communication as comm
+    from paddle_tpu_torch.distributed.communication import ragged
+    from paddle_tpu_torch.observability import trace
+    from paddle_tpu_torch.parallel import moe as tmoe
+    torch.set_num_threads(2)
+    group = comm.Group("ep", world, rank, list(range(world)),
+                       dist.group.WORLD)
+    arrays = np.load(job["inputs"])
+    k, tile = job["k"], job["tile_rows"]
+    fns = {"slot_local": tmoe.moe_slot_dispatch_local,
+           "ragged_local": tmoe.moe_ragged_dispatch_local,
+           "a2a": tmoe.moe_ragged_dispatch_a2a,
+           "shard_map": tmoe.moe_shard_map_dispatch}
+    out = {}
+    for case in job["cases"]:
+        kind, kw = case["fn"], dict(case.get("kwargs", {}))
+
+        def arr(name):
+            return torch.from_numpy(np.array(arrays[f"{case['data']}/{name}"]))
+        trace.reset_counters()
+        if kind == "ragged":
+            got, recv = ragged.ragged_all_to_all(
+                arr("rows")[rank], arr("send_counts")[rank], group,
+                kw["peer_rows"], impl=kw["impl"])
+            out[case["name"]] = {"out": got.numpy(), "recv": recv.numpy()}
+            continue
+        x, logits, cot = arr("x"), arr("logits"), arr("cot")
+        w1, w2 = arr("w1"), arr("w2")
+        E = w1.shape[0]
+        el = E // world
+        if kind in ("a2a", "shard_map"):
+            t = x.shape[0] // world
+            x, logits, cot = (a[rank * t:(rank + 1) * t]
+                              for a in (x, logits, cot))
+        x, logits = x.requires_grad_(), logits.requires_grad_()
+        w1 = w1[rank * el:(rank + 1) * el].clone().requires_grad_()
+        w2 = w2[rank * el:(rank + 1) * el].clone().requires_grad_()
+        if kind in ("slot_local", "shard_map"):
+            kw.setdefault("capacity_factor", 1.25)
+        else:
+            kw["tile_rows"] = tile
+        res, aux, st = fns[kind](x, logits, w1, w2, E, group, k=k,
+                                 return_stats=True, **kw)
+        ((res * cot).sum() + aux).backward()
+        with torch.no_grad():
+            probs = torch.softmax(logits, dim=-1)
+            e_flat = tmoe._top_k(probs, k)[1].reshape(-1)
+            T = x.shape[0]
+            if kind == "slot_local":
+                cap = tmoe.moe_capacity(T, k, E, kw["capacity_factor"])[0]
+                slot = tmoe.local_slots(tmoe.topk_route(logits, k, cap)[0],
+                                        rank, el * cap)[0]
+            elif kind == "ragged_local":
+                slot = tmoe.local_ragged_layout(e_flat, rank, el, T, k,
+                                                tile)[0]
+            elif kind == "a2a":
+                slot = tmoe.a2a_layout(e_flat, rank, world, el, T, k,
+                                       tile)[0]
+            else:
+                slot = torch.zeros(0)
+        out[case["name"]] = {
+            "out": res.detach().numpy(), "aux": float(aux),
+            "stats": {n: v.numpy() for n, v in st.items()},
+            "grads": {n: t.grad.numpy() for n, t in
+                      (("x", x), ("logits", logits), ("w1", w1),
+                       ("w2", w2))},
+            "slot": slot.numpy(),
+            "counters": {n: v for n, v in trace.counters().items()
+                         if n.startswith("moe.")}}
+    return {"rank": rank, "cases": out,
+            "jax_modules": [m for m in sys.modules
+                            if m.split(".")[0] in ("jax", "paddle_tpu")]}
+
+
 def collective_inputs(n: int, t=128, k=32, out=48, ffn=(2, 64, 32, 128),
                       vocab=96, emb_h=32, seed=None) -> dict:
     """Seeded global f32 operands of :func:`collective_job` for an mp

@@ -1431,6 +1431,59 @@ def test_gmm_fwd_dx_wgmma_runs_give_the_same_bits(dev, kind, kn):
     assert (a[int(tg._round_up(counts, 128).sum()):] == 0).all()
 
 
+# one source's chunk of the ragged all-to-all at ernie_moe_fine's ep-2
+# shape: 2048 tokens a rank, top-4, 16 local experts
+CHUNK_T, CHUNK_K, CHUNK_E = 2048, 4, 16
+
+
+def _chunk_counts(kind):
+    rows = CHUNK_T * CHUNK_K
+    if kind == "spread":
+        return np.random.RandomState(3).multinomial(
+            rows // 2, [1 / CHUNK_E] * CHUNK_E)
+    if kind == "all_to_one":    # every pair of the source on one expert
+        return np.array([0, rows] + [0] * (CHUNK_E - 2))
+    return np.zeros(CHUNK_E, np.int64)     # the source sends no row
+
+
+@pytest.mark.parametrize("kn", [(1024, 512), (512, 1024)])
+@pytest.mark.parametrize("kind", ["spread", "all_to_one", "empty"])
+def test_gmm_kernels_take_a_chunk_schedule(dev, kn, kind):
+    """Rows 24-26 in bf16 under ``chunk_schedule``'s schedule of one chunk
+    of the ragged all-to-all (chunk_rows = ragged_buffer_rows of the
+    shape, the tiles past the chunk's groups dead): against their plain
+    versions under GMM_TOL, dead tiles exactly zero, an expert with no
+    row exactly zero dW."""
+    k, n = kn
+    chunk = tmoe.ragged_buffer_rows(CHUNK_T, CHUNK_K, CHUNK_E, 128)
+    counts = torch.tensor(_chunk_counts(kind), dtype=torch.int32)
+    full = tg.chunk_schedule(counts, chunk, 128)
+    assert len(full) == 4 and full[0].shape == (chunk // 128,)
+    sched = tuple(t.to(dev) for t in full[:2])
+    g = torch.Generator(device=dev).manual_seed(k)
+    lhs = torch.randn((chunk, k), generator=g, device=dev).bfloat16()
+    rhs = (torch.randn((CHUNK_E, k, n), generator=g, device=dev)
+           / k ** 0.5).bfloat16()
+    dout = torch.randn((chunk, n), generator=g, device=dev).bfloat16()
+    got = (tg.gmm_fwd(lhs, rhs, sched), tg.gmm_dx(dout, rhs, sched),
+           tg.gmm_dw(lhs, dout, sched, num_experts=CHUNK_E))
+    want = (tg.gmm_fwd_plain(lhs, rhs, sched),
+            tg.gmm_dx_plain(dout, rhs, sched),
+            tg.gmm_dw_plain(lhs, dout, sched, num_experts=CHUNK_E))
+    torch.cuda.synchronize()
+    live = int(tg._round_up(counts, 128).sum())
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        if kind == "empty":
+            assert (a == 0).all() and (b == 0).all()
+        else:
+            _close(a, b, GMM_TOL[torch.bfloat16])
+    assert (got[0][live:] == 0).all() and (got[1][live:] == 0).all()
+    for x in range(CHUNK_E):
+        if counts[x] == 0:
+            assert (got[2][x] == 0).all(), x
+
+
 # chip_smoke.DW_DRIFT_EXCESS: how far a kernel's drift along an f64
 # product may exceed its plain version's (tools/gmm_mutants.py)
 DW_DRIFT_EXCESS = 2e-6

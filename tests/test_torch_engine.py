@@ -201,8 +201,12 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
     assert res.returncode == 0, res.stdout + res.stderr
     assert int(res.stdout.split()[0]) >= 10
     walked = set(res.stdout.splitlines()[-1].split())
-    # the multi-process modules, the rank harness the spawned ranks run
+    # the multi-process modules, the rank harness the spawned ranks run,
+    # and expert parallelism's exchange and dispatch
     assert {"paddle_tpu_torch.distributed.env",
             "paddle_tpu_torch.distributed.communication",
+            "paddle_tpu_torch.distributed.communication.ragged",
             "paddle_tpu_torch.distributed.fleet.topology",
+            "paddle_tpu_torch.parallel.moe",
+            "paddle_tpu_torch.models.ernie_moe",
             "paddle_tpu_torch.testing.dist"} <= walked

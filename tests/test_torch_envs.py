@@ -16,7 +16,8 @@ PORT_READS = {
     "SPIKE_MAD", "FAULTS", "SERVE_MAX_QUEUE", "SERVE_RATE", "SERVE_BURST",
     "SERVE_OVERCOMMIT", "SERVE_NAN_CHECK", "SERVE_JOURNAL",
     "SERVE_JOURNAL_FSYNC", "SERVE_PREFIX_CACHE", "SERVE_KV_DTYPE",
-    "SERVE_SPEC", "SERVE_SPEC_K", "SERVE_MP", "MOE_DROPLESS", "CKPT_KEEP",
+    "SERVE_SPEC", "SERVE_SPEC_K", "SERVE_MP", "MOE_DROPLESS", "MOE_A2A",
+    "MOE_A2A_OVERLAP", "CKPT_KEEP",
     "CKPT_INTERVAL", "PREEMPT_GRACE", "FLEET_SERVE_REPLICAS",
     "FLEET_SERVE_SPILL", "FLEET_SERVE_JOURNAL_DIR", "PP_OVERLAP", "TP_OVERLAP",
     "TP_OVERLAP_MIN_CHUNK", "TP_OVERLAP_CHUNKS"}

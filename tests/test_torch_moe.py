@@ -22,6 +22,8 @@ as a tolerance failure.
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
 
 import jax
 import jax.numpy as jnp
@@ -311,14 +313,30 @@ def test_moe_loss_active_rows_without_stats():
     assert lm.ndim == 0 and float(total) > float(lm) > 0
 
 
-@pytest.mark.parametrize("kwargs,what", [
-    (dict(ep_degree=2), "ep_degree"),
-    (dict(dp_degree=2), "dp_degree"),
-    (dict(mesh="a mesh"), "mesh"),
+@pytest.mark.parametrize("kwargs,batch,what", [
+    (dict(ep_degree=3), None, "ep_degree=3 does not divide num_experts=8"),
+    (dict(ep_degree=2), (1, 3), "dp_degree x ep_degree = 2"),
+    (dict(mesh="a mesh"), None, "mesh"),
 ])
-def test_unported_train_configs_raise(kwargs, what):
-    with pytest.raises(ValueError, match=what):
-        tm.build_train_step(tm.ernie_moe_fine_tiny(), device="cpu", **kwargs)
+def test_unported_train_configs_raise(kwargs, batch, what):
+    """What the step over ranks refuses: an ep that does not divide E, a
+    ragged_a2a token count that dp x ep does not divide (the step built
+    under torch's in-process ``fake`` backend, two ranks, raising before
+    any collective), and a mesh."""
+    if batch is None:
+        with pytest.raises(ValueError, match=what):
+            tm.build_train_step(tm.ernie_moe_fine_tiny(), device="cpu",
+                                **kwargs)
+        return
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        step, p, o = tm.build_train_step(tm.ernie_moe_fine_tiny(),
+                                         device="cpu", **kwargs)
+        ids = np.zeros(batch, np.int32)
+        with pytest.raises(ValueError, match=what):
+            step(p, o, ids, ids)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_device_none_needs_cuda():

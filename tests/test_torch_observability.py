@@ -105,6 +105,26 @@ def test_step_metrics_records_and_summary(tmp_path):
                                    if not k.startswith("mem_")]
 
 
+@pytest.mark.parametrize("on", [False, True], ids=["knobs_off", "knobs_on"])
+def test_step_metrics_summary_overlap_matches_jax(monkeypatch, on):
+    """The summary's key set and its ``overlap`` flags are JAX's, with the
+    tp and pp overlap knobs both off and both on."""
+    value = "1" if on else "0"
+    for name in ("TP_OVERLAP", "PP_OVERLAP"):
+        monkeypatch.setenv(f"PADDLE_TPU_TORCH_{name}", value)
+        monkeypatch.setenv(f"PADDLE_TPU_{name}", value)
+    m = obs.StepMetrics(name="t", n_devices=2, peak_flops=1e12)
+    j = jobs.StepMetrics(name="t", n_devices=2, peak_flops=1e12)
+    for metrics in (m, j):
+        metrics.record_compile(flops=4e9)
+        for _ in range(3):
+            metrics.step(tokens=128)
+    got, want = m.summary(), j.summary()
+    assert list(got) == [k for k in want if not k.startswith("mem_")]
+    assert got["overlap"] == want["overlap"] == obs.overlap_flags() == {
+        "tp.overlap_on": int(on), "pp.overlap_on": int(on)}
+
+
 def test_step_metrics_recompile_and_registry():
     m = obs.StepMetrics(name="t", peak_flops=1e12)
     m.record_compile(flops=1e6)

@@ -5,8 +5,9 @@
 BEFORE and AFTER are directories that each hold a ``chip_smoke.py`` and
 a ``paddle_tpu_torch/`` package, for example a ``git archive`` of the
 parent commit unpacked into a git-ignored directory, and ``.``. Each
-tree runs its own ``train_dp`` in a process of its own (its RMSNorm and
-flash kernels built there first), in the order BEFORE, AFTER, AFTER,
+tree runs its own ``train_dp`` in a process of its own (its RMSNorm,
+flash and grouped-matmul kernels built there first; a tree without the
+ERNIE runs builds the last for nothing), in the order BEFORE, AFTER, AFTER,
 BEFORE, so that a drift of the machine over the call shows. Prints each
 run's phase seconds and, where the tree has it, its ``elastic`` line
 (the checkpoint's save and restore seconds), the card's name and power
@@ -31,7 +32,7 @@ def one(tree):
     import chip_smoke as cs
     from paddle_tpu_torch import _build
     cs.probe()
-    _build.build_all(["rms_norm", "flash_attention"])
+    _build.build_all(["rms_norm", "flash_attention", "grouped_matmul"])
     t0 = time.perf_counter()
     res = cs.train_dp(torch.device("cuda", 0))
     secs = time.perf_counter() - t0
